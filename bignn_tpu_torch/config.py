@@ -1,6 +1,7 @@
 """Experiment configs (counterpart of ``bignn_tpu/config.py``): the same
-registry and aliases. ``TrainConfig`` is a plain copy of the JAX
-trainer's; the port has no trainer yet (ROADMAP Queue 1 item 5)."""
+registry and aliases. ``TrainConfig`` copies the JAX trainer's fields and
+defaults; ``train.Trainer`` reads it (``reshuffle_epochs`` belongs to the
+device sampler of ``MinibatchTrainer``, still to port)."""
 
 from __future__ import annotations
 

@@ -2,14 +2,16 @@
 ``bignn_tpu/data/datasets.py``).
 
   * ``synthetic-small`` / ``synthetic`` — ~500 generated drugs (config1).
+  * ``ddi-sample`` — the in-repo real drugs and interactions
+    (``data/real_sample.py``; config2-real).
   * ``synthetic-large`` — 100K generated drugs (config4; scale via kwargs).
   * ``drugbank`` / ``biosnap`` — ``<root>/<name>.npz`` when present, else a
     generated stand-in with the dataset's size (~1.7K / ~1.5K drugs).
 
 The ``.npz`` schema is the JAX package's (``edges``, ``mol_ptr``,
 ``mol_feat``, ``mol_edge_ptr``, ``mol_src``, ``mol_dst``, optional split
-indices). Still to port (ROADMAP Queue 1): ``ddi-sample`` and conversion of
-raw reference caches.
+indices). Still to port (ROADMAP Queue 1 item 6): conversion of raw
+reference caches.
 """
 
 from __future__ import annotations
@@ -63,6 +65,10 @@ def load_dataset(
     """Load a registered dataset by name (see module docstring)."""
     name = name.lower()
     data_root = data_root or os.environ.get("BIGNN_DATA_ROOT", "data")
+    if name == "ddi-sample":
+        from bignn_tpu_torch.data.real_sample import load_real_sample
+
+        return load_real_sample(seed=seed, **overrides)
     if name in ("synthetic-small", "synthetic"):
         kw = dict(num_drugs=500, feat_dim=16, seed=seed, name="synthetic-small")
         kw.update(overrides)
@@ -85,14 +91,11 @@ def load_dataset(
             if os.path.exists(raw):
                 raise NotImplementedError(
                     f"raw reference cache {raw!r}: conversion is still to "
-                    "port (ROADMAP Queue 1); convert it to .npz with "
+                    "port (ROADMAP Queue 1 item 6); convert it to .npz with "
                     "bignn_tpu.data.convert")
         kw = dict(_STANDIN_SPECS[name])
         kw.update(overrides)
         return make_synthetic_ddi(seed=seed, name=f"{name}-standin", **kw)
-    if name == "ddi-sample":
-        raise NotImplementedError(
-            "ddi-sample (real SMILES) is still to port (ROADMAP Queue 1)")
     raise ValueError(
-        f"unknown dataset {name!r}; known: synthetic-small, synthetic-large, "
-        f"{sorted(_STANDIN_SPECS)}")
+        f"unknown dataset {name!r}; known: ddi-sample, synthetic-small, "
+        f"synthetic-large, {sorted(_STANDIN_SPECS)}")

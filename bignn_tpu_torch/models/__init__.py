@@ -1,8 +1,8 @@
 """GNN modules of the port (counterpart of ``bignn_tpu/models``)."""
 
-from bignn_tpu_torch.models.bignn import BiGNN, BiGNNConfig
+from bignn_tpu_torch.models.bignn import BiGNN, BiGNNConfig, upload_buckets
 from bignn_tpu_torch.models.convs import GATConv, GCNConv, GINConv, parse_conv
-from bignn_tpu_torch.models.modules import MLP, Dense, glorot_, parse_activation
+from bignn_tpu_torch.models.modules import MLP, Dense, glorot, parse_activation
 from bignn_tpu_torch.models.readout import SumReadout, parse_readout
 from bignn_tpu_torch.models.scorer import DotScorer, MLPScorer, parse_scorer
 
@@ -17,9 +17,10 @@ __all__ = [
     "MLP",
     "MLPScorer",
     "SumReadout",
-    "glorot_",
+    "glorot",
     "parse_activation",
     "parse_conv",
     "parse_readout",
     "parse_scorer",
+    "upload_buckets",
 ]

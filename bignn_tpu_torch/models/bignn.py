@@ -8,7 +8,8 @@
   3. SCORING: the pair scorer turns two drug embeddings into a logit.
 
 Batches and outer graphs are the containers of ``sparse/formats.py`` after
-``.to(device)``.
+``.to(device)``; ``upload_buckets`` puts a bucketing on the device, the one
+way ``Scorer`` and ``Trainer`` both take.
 """
 
 from __future__ import annotations
@@ -19,10 +20,12 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from bignn_tpu_torch import ops
+from bignn_tpu_torch import ops, prng
 from bignn_tpu_torch.models.convs import parse_conv
+from bignn_tpu_torch.models.modules import prefixed
 from bignn_tpu_torch.models.readout import parse_readout
 from bignn_tpu_torch.models.scorer import parse_scorer
+from bignn_tpu_torch.sparse.bucketing import Bucketing
 from bignn_tpu_torch.sparse.formats import OuterGraph, PaddedGraphBatch
 
 
@@ -58,11 +61,11 @@ class BiGNNConfig:
 
 class BiGNN(nn.Module):
     """Parameters are named ``inner.<i>.*``, ``outer.<i>.*`` and
-    ``scorer.*`` (``bridge.py`` maps the JAX tree onto them); init draws
-    from ``generator``."""
+    ``scorer.*`` (``bridge.py`` maps the JAX tree onto them). Construction
+    loads :meth:`init_params` of ``seed``: the JAX package's initial
+    parameters for ``jax.random.key(seed)``."""
 
-    def __init__(self, config: BiGNNConfig, *,
-                 generator: torch.Generator | None = None):
+    def __init__(self, config: BiGNNConfig, *, seed: int = 0):
         super().__init__()
         if config.dtype != "float32":
             raise NotImplementedError(
@@ -72,17 +75,34 @@ class BiGNN(nn.Module):
         dim = config.feat_dim
         inner = []
         for spec in config.inner_layers:
-            inner.append(parse_conv(spec, dim, generator))
+            inner.append(parse_conv(spec, dim))
             dim = inner[-1].out_dim
         self.inner = nn.ModuleList(inner)
         self.readout = parse_readout(config.readout, dim)
         outer = []
         for spec in config.outer_layers:
-            outer.append(parse_conv(spec, dim, generator))
+            outer.append(parse_conv(spec, dim))
             dim = outer[-1].out_dim
         self.outer = nn.ModuleList(outer)
         self.embed_dim = dim
-        self.scorer = parse_scorer(config.scorer, dim, generator)
+        self.scorer = parse_scorer(config.scorer, dim)
+        self.load_state_dict(self.init_params(seed))
+
+    def init_params(self, seed: int) -> dict[str, torch.Tensor]:
+        """The JAX package's ``BiGNN.init(jax.random.key(seed))`` as a
+        state dict for this model, bit for bit: the same threefry keys
+        (``prng.py``), handed out in the same order (inner layers, the
+        readout's unused key, outer layers, scorer)."""
+        keys = prng.split(prng.key(seed),
+                          len(self.inner) + len(self.outer) + 2)
+        state = {}
+        for i, conv in enumerate(self.inner):
+            state.update(prefixed(f"inner.{i}.", conv.init_params(keys.pop())))
+        keys.pop()  # the sum readout's key: it has no parameters
+        for i, conv in enumerate(self.outer):
+            state.update(prefixed(f"outer.{i}.", conv.init_params(keys.pop())))
+        state.update(prefixed("scorer.", self.scorer.init_params(keys.pop())))
+        return state
 
     def encode_inner(self, batch: PaddedGraphBatch) -> torch.Tensor:
         """Inner convs + readout on one bucket -> ``[num_graphs, d]``."""
@@ -132,3 +152,32 @@ class BiGNN(nn.Module):
         emb = self.embed_drugs(buckets, graph_index, outer.num_nodes)
         emb = self.propagate_outer(emb, outer)
         return self.score_pairs(emb, pairs)
+
+
+def upload_buckets(bucketing: Bucketing, inner_layers: Sequence[str],
+                   device) -> tuple[list[PaddedGraphBatch], list[torch.Tensor]]:
+    """``(buckets, graph_index)`` on ``device``.
+
+    Each bucket goes up without its host-built adjacencies, which are
+    then built on the device by ``ops.block_adjacency``: the multiplicity
+    always (GIN sum, attention mask), the GCN weights when an inner layer
+    (``inner_layers``, spec strings) is a GCN."""
+    weighted = any(s.split(":")[0] == "gcn" for s in inner_layers)
+    buckets = []
+    for batch in bucketing.batches:
+        dev = dataclasses.replace(batch, block_adj=None,
+                                  block_cnt=None).to(device)
+        if dev.block_estarts is None:
+            raise NotImplementedError(
+                "molecules over 128 atoms need the streaming inner layout, "
+                "still to port (ROADMAP Queue 1 item 4)")
+        dev.block_cnt = ops.block_adjacency(
+            dev.edge_src, dev.edge_dst, None, dev.block_estarts, dev.node_cap)
+        if weighted:
+            dev.block_adj = ops.block_adjacency(
+                dev.edge_src, dev.edge_dst, dev.edge_weight,
+                dev.block_estarts, dev.node_cap)
+        buckets.append(dev)
+    graph_index = [torch.as_tensor(i, device=device)
+                   for i in bucketing.graph_index]
+    return buckets, graph_index

@@ -8,7 +8,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from bignn_tpu_torch.models.modules import MLP
+from bignn_tpu_torch import prng
+from bignn_tpu_torch.models.modules import MLP, prefixed
 from bignn_tpu_torch.ops import gather_rows
 
 
@@ -16,6 +17,9 @@ class DotScorer(nn.Module):
     def __init__(self, dim: int):
         super().__init__()
         self.dim = dim
+
+    def init_params(self, key: prng.Key) -> dict[str, torch.Tensor]:
+        return {}
 
     def forward(self, emb, pairs):
         hu = gather_rows(emb, pairs[:, 0])
@@ -29,11 +33,13 @@ class DotScorer(nn.Module):
 class MLPScorer(nn.Module):
     """MLP on the symmetric pair features ``[u*v, |u-v|, u+v]``."""
 
-    def __init__(self, dim: int, hidden: int = 64,
-                 generator: torch.Generator | None = None):
+    def __init__(self, dim: int, hidden: int = 64):
         super().__init__()
         self.dim, self.hidden = dim, hidden
-        self.mlp = MLP((3 * dim, hidden, 1), "relu", generator=generator)
+        self.mlp = MLP((3 * dim, hidden, 1), "relu")
+
+    def init_params(self, key: prng.Key) -> dict[str, torch.Tensor]:
+        return prefixed("mlp.", self.mlp.init_params(key))
 
     def _score(self, hu, hv):
         feat = torch.cat([hu * hv, (hu - hv).abs(), hu + hv], dim=-1)
@@ -48,13 +54,12 @@ class MLPScorer(nn.Module):
         return self._score(emb[u].unsqueeze(-2), emb)
 
 
-def parse_scorer(spec: str, dim: int,
-                 generator: torch.Generator | None = None) -> nn.Module:
+def parse_scorer(spec: str, dim: int) -> nn.Module:
     parts = spec.split(":")
     kind = parts[0].lower()
     if kind == "dot":
         return DotScorer(dim)
     if kind == "mlp":
         hidden = int(parts[1]) if len(parts) > 1 else 64
-        return MLPScorer(dim, hidden, generator=generator)
+        return MLPScorer(dim, hidden)
     raise ValueError(f"unknown scorer spec {spec!r}")

@@ -1,7 +1,10 @@
 """Sparse ops of the port (counterpart of ``bignn_tpu/ops``).
 
-Three ops run hand-written CUDA kernels (``bignn_tpu_torch/csrc``) on CUDA
-tensors: ``segment_sum``, ``block_adjacency`` and ``flash_gat_attention``.
+Four hand-written CUDA kernels (``bignn_tpu_torch/csrc``) run on CUDA
+tensors: ``segment_sum``, ``block_adjacency``, ``flash_gat_attention`` and
+its backward ``flash_gat_attention_bwd``. ``segment_sum`` and
+``flash_gat_attention`` are ``torch.autograd.Function``s, so gradients flow
+through the kernels.
 The tensor's device decides: a CPU tensor takes the op's plain PyTorch
 version (``*_plain``, in the same module), a CUDA tensor launches the kernel
 or raises. Nothing falls back. Each kernel wrapper counts its launches in a
@@ -18,6 +21,8 @@ from bignn_tpu_torch.ops.block_adj import (
 )
 from bignn_tpu_torch.ops.flash_gat import (
     flash_gat_attention,
+    flash_gat_attention_bwd,
+    flash_gat_attention_bwd_plain,
     flash_gat_attention_plain,
 )
 from bignn_tpu_torch.ops.gather import gather_rows, permutation_scatter_rows
@@ -28,6 +33,8 @@ __all__ = [
     "block_adjacency_plain",
     "block_diag_spmm",
     "flash_gat_attention",
+    "flash_gat_attention_bwd",
+    "flash_gat_attention_bwd_plain",
     "flash_gat_attention_plain",
     "gather_rows",
     "permutation_scatter_rows",

@@ -25,7 +25,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "bignn_tpu_torch"
-SOURCES = ("segment_sum.cu", "block_adj.cu", "flash_gat.cu")
+SOURCES = ("segment_sum.cu", "block_adj.cu", "flash_gat.cu",
+           "flash_gat_bwd.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -38,6 +39,8 @@ _SIGNATURES = {
     "bignn_block_adj_f32": [_VP, _VP, _VP, _VP, _I32, _I32, _VP],
     "bignn_flash_gat_fwd_f32": [_VP, _VP, _VP, _VP, _I32, _I32, _I32, _F32,
                                 _VP, _VP],
+    "bignn_flash_gat_bwd_f32": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _I32, _I32,
+                                _I32, _F32, _VP, _VP, _VP],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -7,21 +7,19 @@
      ranking the partners of a drug is a one-vs-all scorer pass and a
      top-k, optionally with the drug's known (train/val) partners masked.
 
-The encode uses the bucketed block-local layout of ``sparse/``: each
-bucket's edge list and block ranges are uploaded and its block adjacency is
-built on the device by the ``block_adjacency`` kernel; the host-built dense
-blocks are not uploaded. Still to port (ROADMAP Queue 1 item 9): reading a
-JAX checkpoint (``from_checkpoint``) and the command line.
+The encode uses the bucketed block-local layout of ``sparse/``, uploaded by
+``models.bignn.upload_buckets``: each bucket's edge list and block ranges go
+up and its block adjacency is built on the device by the
+``block_adjacency`` kernel. Still to port (ROADMAP Queue 1 item 6): reading
+a JAX checkpoint (``from_checkpoint``) and the command line.
 """
 
 from __future__ import annotations
 
-import dataclasses
-
 import numpy as np
 import torch
 
-from bignn_tpu_torch import ops
+from bignn_tpu_torch.models.bignn import upload_buckets
 from bignn_tpu_torch.sparse.bucketing import bucket_graphs
 from bignn_tpu_torch.sparse.formats import build_outer_graph
 
@@ -41,12 +39,9 @@ class Scorer:
         self.model = model.to(self.device).eval()
         self.ds = ds
         self.chunk = int(chunk)
-        kinds = {s.split(":")[0] for s in model.config.inner_layers}
-        bucketing = bucket_graphs(ds.molecules)
-        self._buckets = [self._upload_bucket(b, "gcn" in kinds)
-                         for b in bucketing.batches]
-        self._graph_index = [torch.as_tensor(i, device=self.device)
-                             for i in bucketing.graph_index]
+        self._buckets, self._graph_index = upload_buckets(
+            bucket_graphs(ds.molecules), model.config.inner_layers,
+            self.device)
         train = ds.split_edges("train")
         self._outer = build_outer_graph(
             train[:, 0], train[:, 1], ds.num_drugs).to(self.device)
@@ -61,24 +56,6 @@ class Scorer:
         self._kptr = torch.as_tensor(kptr, device=self.device)
         self._kdst = torch.as_tensor(und[:, 1], device=self.device)
         self.refresh(params)
-
-    def _upload_bucket(self, batch, weighted: bool):
-        """Upload a bucket without its host adjacencies and build them on
-        the device: the multiplicity always (GIN sum, attention mask), the
-        GCN weights when an inner conv needs them."""
-        dev = dataclasses.replace(batch, block_adj=None,
-                                  block_cnt=None).to(self.device)
-        if dev.block_estarts is None:
-            raise NotImplementedError(
-                "molecules over 128 atoms need the streaming inner layout, "
-                "still to port (ROADMAP Queue 1 item 4)")
-        dev.block_cnt = ops.block_adjacency(
-            dev.edge_src, dev.edge_dst, None, dev.block_estarts, dev.node_cap)
-        if weighted:
-            dev.block_adj = ops.block_adjacency(
-                dev.edge_src, dev.edge_dst, dev.edge_weight,
-                dev.block_estarts, dev.node_cap)
-        return dev
 
     def refresh(self, params) -> None:
         """Load new parameters (a state dict) and re-embed every drug."""

@@ -1,24 +1,43 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA Hopper card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py              # the smoke run below
+    python3 chip_smoke.py --profile    # phases 1-2, then the step profile
 
 Phases:
   1. device: a CUDA card of compute capability 9.0; TF32 off.
   2. build: the kernels of bignn_tpu_torch/csrc, with nvcc, into build/.
   3. kernels: each kernel against its plain PyTorch version on the card, at
-     the shapes the config2 serving path gives it (hole-interleaved readout
-     ids included), with times for both.
-  4. main path: config2 (GIN:128 x2 -> sum -> GAT:128:4 -> mlp:64, seeded
-     random weights) on the DrugBank stand-in, served by Scorer: encode,
-     pair scoring, top-k, batched top-k with known partners excluded. Every
-     kernel's launch count must be > 0, and the embeddings must match the
-     same forward run with the plain versions on the card.
-The last line is {"ok": true, "device": {...}}; any failure raises, and the
+     the shapes config2 gives it (hole-interleaved readout ids included; the
+     flash-GAT backward on the dense train graph), with times for both.
+  4. serving path: config2 (GIN:128 x2 -> sum -> GAT:128:4 -> mlp:64,
+     the JAX package's init of seed 0) on the DrugBank stand-in, served by
+     Scorer:
+     encode, pair scoring, top-k, batched top-k with known partners
+     excluded. Its three kernels' launch counts must be > 0, and the
+     embeddings must match the same forward run with the plain versions.
+  5. training path: a config2 Trainer at full width (batch 2048 positives +
+     2048 negatives, Adam lr 1e-3) takes 20 steps. All four kernels' launch
+     counts must be > 0; step 1's gradients must match the same step run
+     with the plain versions; the loss must be finite and fall.
+  6. config2-real: Trainer.fit on the in-repo real drugs for seeds 0 and 1
+     through the kernels (head_dim 8); the means of the best val AUC and of
+     the test AUC must reach 0.70, the JAX package's learning gate.
+Each path runs with the launch counts set to 0 just before it; the kernels
+line reports the sum of the serving and the training path's counts. The
+last line is {"ok": true, "device": {...}}; any failure raises, and the
 script exits non-zero without it.
+
+--profile times the config2 training step instead of phases 3-6: step
+medians with the kernels and with the plain versions in turns (kernels,
+plain, plain, kernels), the synchronized time of each part of a step, and
+a torch.profiler trace of 5 steps (wall and device-busy time, device
+launches per step, the device time of the busiest kernels). It prints no
+ok line.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -31,7 +50,11 @@ import torch
 SEED = 0
 SEGMENT_SUM_TOL = 1e-4  # f32 sums of <= 48 unit-scale rows in another order
 FLASH_TOL = 1e-4  # f32 softmax sums over up to N=1704 sources, other order
+BWD_TOL = 1e-4  # x max(1, max |plain|): sums over whole rows and columns
 EMB_RTOL, EMB_ATOL = 2e-4, 2e-5  # atol scaled by max |embedding|
+GRAD_TOL = 1e-4  # x max |plain gradient|, per parameter tensor
+TRAIN_STEPS = 20
+REAL_GATE = 0.70  # tests/test_real_data.py:66-67
 
 
 def log(msg: str) -> None:
@@ -158,11 +181,33 @@ def compare_kernels(dev, ds, bucketing, outer_host) -> dict:
     plain_ms = cuda_ms(lambda: ops.flash_gat_attention_plain(sl, sr, v, cnt))
     results["flash_gat_attention"] = (err, ms, plain_ms, FLASH_TOL)
 
+    # flash_gat_attention_bwd: the same mask, lse and out from the forward
+    # kernel, a seeded cotangent; each output held to BWD_TOL x its scale
+    g = torch.randn(n, heads, head_dim, device=dev, generator=gen)
+    args = (sl, sr, v, cnt, lse, out, g)
+    got = ops.flash_gat_attention_bwd(*args)
+    want = ops.flash_gat_attention_bwd_plain(*args)
+    torch.cuda.synchronize()
+    err, ratio = 0.0, 0.0
+    for name, a, b in zip(("d_score_l", "d_score_r", "d_v"), got, want):
+        e = (a - b).abs().max().item()
+        scale = max(1.0, b.abs().max().item())
+        log(f"  flash_gat_attention_bwd {name}: max_abs_err {e:.3e}, "
+            f"max |plain| {b.abs().max().item():.3e}")
+        err, ratio = max(err, e), max(ratio, e / scale)
+    ms = cuda_ms(lambda: ops.flash_gat_attention_bwd(*args))
+    plain_ms = cuda_ms(lambda: ops.flash_gat_attention_bwd_plain(*args))
+    results["flash_gat_attention_bwd"] = (err, ms, plain_ms, BWD_TOL)
+
     for name, (err, ms, plain_ms, tol) in results.items():
-        log(f"  {name}: max_abs_err {err:.3e} (tol {tol:g}), kernel "
+        scaled = " x max(1, max |plain|)" if name.endswith("_bwd") else ""
+        log(f"  {name}: max_abs_err {err:.3e} (tol {tol:g}{scaled}), kernel "
             f"{ms:.4f} ms, plain {plain_ms:.4f} ms")
-        if not err <= tol:
+        if not scaled and not err <= tol:
             raise AssertionError(f"{name}: error {err} above {tol}")
+    if not ratio <= BWD_TOL:
+        raise AssertionError(f"flash_gat_attention_bwd: error {ratio} of "
+                             f"the scale, above {BWD_TOL}")
     return results
 
 
@@ -176,14 +221,26 @@ def negatives(ds, pos: np.ndarray) -> np.ndarray:
                      np.where(right, rand, pos[:, 1])], axis=1)
 
 
-def run_main_path(dev, ds) -> dict:
+def plain_ops():
+    """The plain versions in place of the kernels, for a reference run."""
+    from bignn_tpu_torch import ops
+
+    return mock.patch.multiple(
+        ops,
+        segment_sum=ops.segment_sum_plain,
+        block_adjacency=lambda s, d, w, e, n: ops.block_adjacency_plain(
+            s, d, w, n),
+        flash_gat_attention=ops.flash_gat_attention_plain)
+
+
+def run_serving(dev, ds) -> dict:
     from bignn_tpu_torch import ops
     from bignn_tpu_torch.config import get_config
     from bignn_tpu_torch.models import BiGNN
     from bignn_tpu_torch.serve import Scorer
 
     cfg = get_config("config2")
-    model = BiGNN(cfg.model, generator=torch.Generator().manual_seed(SEED))
+    model = BiGNN(cfg.model, seed=SEED)
     params = {k: v.clone() for k, v in model.state_dict().items()}
     kernels = (ops.segment_sum, ops.block_adjacency, ops.flash_gat_attention)
     for k in kernels:
@@ -240,18 +297,13 @@ def run_main_path(dev, ds) -> dict:
         f"({batch_ms / 64:.4f} ms per query)")
 
     launches = {k.__name__: k.launches for k in kernels}
-    log(f"  launches on the main path: {launches}")
+    log(f"  launches on the serving path: {launches}")
     for name, count in launches.items():
         if count <= 0:
             raise AssertionError(f"{name} was not launched on the main path")
 
     # the same forward with the plain versions on the card
-    with mock.patch.multiple(
-            ops,
-            segment_sum=ops.segment_sum_plain,
-            block_adjacency=lambda s, d, w, e, n: ops.block_adjacency_plain(
-                s, d, w, n),
-            flash_gat_attention=ops.flash_gat_attention_plain):
+    with plain_ops():
         ref = Scorer(model, ds, params, device=dev)
     scale = ref.embeddings.abs().max().item()
     diff = (emb - ref.embeddings).abs()
@@ -267,7 +319,225 @@ def run_main_path(dev, ds) -> dict:
     return launches
 
 
+def _timed_steps(trainer, batches, label: str):
+    """Run ``batches`` as steps 0.. of epoch 0, each timed on the host clock
+    up to a synchronize; logs the times, returns (losses, step-1 grads)."""
+    losses, secs = [], []
+    for i, (pairs, mask) in enumerate(batches):
+        t0 = time.perf_counter()
+        loss = trainer.train_step(pairs, mask, 0, i)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+        if i == 0:
+            grads = {k: p.grad.clone()
+                     for k, p in trainer.model.named_parameters()}
+    log(f"  {label}: median step {np.median(secs) * 1e3:.3f} ms over "
+        f"{len(secs)} steps (first {secs[0] * 1e3:.3f}, min "
+        f"{min(secs) * 1e3:.3f}, max {max(secs) * 1e3:.3f})")
+    return losses, grads
+
+
+def run_training(dev, ds) -> dict:
+    """config2 training at full width through the kernels, and the same
+    steps with the plain versions."""
+    from bignn_tpu_torch import ops
+    from bignn_tpu_torch.config import get_config
+    from bignn_tpu_torch.data import prepare_device_data
+    from bignn_tpu_torch.data.sampler import EdgeMinibatchSampler
+    from bignn_tpu_torch.models import BiGNN
+    from bignn_tpu_torch.train import Trainer
+
+    cfg = get_config("config2")
+    data = prepare_device_data(ds)
+    sampler = EdgeMinibatchSampler(data.train_pairs, cfg.train.batch_size,
+                                   cfg.train.seed)
+    batches = [b for _, b in zip(range(TRAIN_STEPS), sampler.epoch(0))]
+    kernels = (ops.segment_sum, ops.block_adjacency, ops.flash_gat_attention,
+               ops.flash_gat_attention_bwd)
+    for k in kernels:
+        k.launches = 0
+    trainer = Trainer(BiGNN(cfg.model), data, cfg.train, device=dev)
+    params0, _ = trainer.init(SEED)
+    losses, grads = _timed_steps(trainer, batches, "kernels")
+    launches = {k.__name__: k.launches for k in kernels}
+    log(f"  launches on the training path: {launches}")
+    for name, count in launches.items():
+        if count <= 0:
+            raise AssertionError(f"{name} was not launched in training")
+    log("  losses: " + " ".join(f"{x:.5f}" for x in losses))
+
+    for name, g in grads.items():
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"non-finite gradient of {name}")
+        if name.startswith(("inner.0.", "inner.1.", "outer.0.")) and not (
+                g.abs().max().item() > 0):
+            raise AssertionError(f"zero gradient of {name}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError("non-finite loss")
+    if not np.mean(losses[-5:]) < losses[0]:
+        raise AssertionError(f"loss did not fall: {losses}")
+
+    with plain_ops():
+        plain = Trainer(BiGNN(cfg.model), data, cfg.train, device=dev)
+        plain.model.load_state_dict(params0)
+        plain_losses, plain_grads = _timed_steps(plain, batches,
+                                                 "plain versions")
+    worst = 0.0
+    for name, g in grads.items():
+        ref = plain_grads[name]
+        scale = ref.abs().max().item()
+        err = (g - ref).abs().max().item()
+        worst = max(worst, err / scale if scale > 0 else err)
+        log(f"  step-1 grad {name}: max_abs_err {err:.3e}, max |plain| "
+            f"{scale:.3e}")
+    log(f"  step-1 gradients vs plain: worst max|d| / max|g_plain| "
+        f"{worst:.3e} (bound {GRAD_TOL:g}); plain losses step 1 / "
+        f"{TRAIN_STEPS}: {plain_losses[0]:.5f} / {plain_losses[-1]:.5f}")
+    if not worst <= GRAD_TOL:
+        raise AssertionError(f"step-1 gradients off the plain run: {worst}")
+    metrics = trainer.evaluate(split="val")
+    log(f"  after {TRAIN_STEPS} steps: val AUC {metrics['val_auc']:.4f}, "
+        f"AP {metrics['val_ap']:.4f}")
+    return launches
+
+
+def run_real_gate(dev) -> None:
+    """config2-real through the kernels: the JAX learning gate."""
+    from bignn_tpu_torch import ops
+    from bignn_tpu_torch.config import get_config
+    from bignn_tpu_torch.data import load_dataset, prepare_device_data
+    from bignn_tpu_torch.models import BiGNN
+    from bignn_tpu_torch.train import Trainer
+
+    cfg = get_config("config2-real")
+    ds = load_dataset(cfg.dataset)
+    data = prepare_device_data(ds)
+    ops.flash_gat_attention_bwd.launches = 0
+    best_vals, tests = [], []
+    for seed in (0, 1):
+        t0 = time.perf_counter()
+        model = BiGNN(dataclasses.replace(cfg.model, feat_dim=ds.feat_dim))
+        trainer = Trainer(model, data, dataclasses.replace(cfg.train,
+                                                           seed=seed), dev)
+        _, result = trainer.fit()
+        best_vals.append(max(r["val_auc"] for r in result["history"]))
+        tests.append(result["test_auc"])
+        log(f"  seed {seed}: best val AUC {best_vals[-1]:.4f} (epoch "
+            f"{result['best_epoch']}), test AUC {tests[-1]:.4f}, "
+            f"{cfg.train.epochs} epochs in {time.perf_counter() - t0:.2f} s")
+    log(f"  means: best val AUC {np.mean(best_vals):.4f}, test AUC "
+        f"{np.mean(tests):.4f} (gate {REAL_GATE}); backward kernel "
+        f"launches {ops.flash_gat_attention_bwd.launches}")
+    if ops.flash_gat_attention_bwd.launches <= 0:
+        raise AssertionError("config2-real did not run the backward kernel")
+    if not (np.mean(best_vals) >= REAL_GATE and np.mean(tests) >= REAL_GATE):
+        raise AssertionError(f"config2-real below the gate: {best_vals}, "
+                             f"{tests}")
+
+
+def _median_ms(fn, reps: int = 20) -> float:
+    """Median host-clock milliseconds of ``fn()`` up to a synchronize."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times)) * 1e3
+
+
+def _busy_ms(intervals) -> float:
+    """Length of the union of (start, end) microsecond intervals, in ms."""
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted(intervals):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / 1e3
+
+
+def profile_training(dev, ds) -> None:
+    """Where a config2 training step's time goes (see --profile above)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from bignn_tpu_torch import prng
+    from bignn_tpu_torch.config import get_config
+    from bignn_tpu_torch.data import prepare_device_data
+    from bignn_tpu_torch.data.sampler import (
+        EdgeMinibatchSampler,
+        sample_negative_pairs,
+    )
+    from bignn_tpu_torch.models import BiGNN
+    from bignn_tpu_torch.train import Trainer
+
+    cfg = get_config("config2")
+    data = prepare_device_data(ds)
+    sampler = EdgeMinibatchSampler(data.train_pairs, cfg.train.batch_size,
+                                   cfg.train.seed)
+    batches = [b for _, b in zip(range(TRAIN_STEPS), sampler.epoch(0))]
+    trainer = Trainer(BiGNN(cfg.model), data, cfg.train, device=dev)
+    trainer.init(SEED)
+    _timed_steps(trainer, batches, "warm-up")
+    for label in ("kernels", "plain", "plain", "kernels"):
+        trainer.init(SEED)
+        if label == "plain":
+            with plain_ops():
+                _timed_steps(trainer, batches, label)
+        else:
+            _timed_steps(trainer, batches, label)
+
+    pairs, mask = batches[0]
+    pos = torch.as_tensor(pairs, device=dev)
+    pmask = torch.as_tensor(mask, device=dev)
+    key = prng.fold_in(prng.fold_in(prng.key(cfg.train.seed + 1), 0), 0)
+
+    def backward():
+        trainer.optimizer.zero_grad(set_to_none=True)
+        trainer._loss_fn(pos, pmask, key).backward()
+
+    parts = {
+        "negatives (host threefry + one upload)": lambda: sample_negative_pairs(
+            key, pos, data.num_drugs, cfg.train.neg_ratio),
+        "forward + loss": lambda: trainer._loss_fn(pos, pmask, key),
+        "forward + loss + backward": backward,
+        "optimizer step": trainer.optimizer.step,
+    }
+    for name, fn in parts.items():
+        log(f"  {name}: {_median_ms(fn):.3f} ms (median of 20, synchronized)")
+
+    traced = batches[:5]
+    steps = len(traced)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i, (pairs, mask) in enumerate(traced):
+            trainer.train_step(pairs, mask, 1, i)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = _busy_ms((e.time_range.start, e.time_range.end) for e in device)
+    log(f"  profiled {steps} steps: wall {wall_ms:.3f} ms (profiler on), "
+        f"device busy {busy:.3f} ms ({100 * busy / wall_ms:.1f} %), "
+        f"{len(device) / steps:.1f} device launches per step")
+    per_name: dict[str, list[float]] = {}
+    for e in device:
+        per_name.setdefault(e.name, []).append(
+            (e.time_range.end - e.time_range.start) / 1e3)
+    top = sorted(per_name.items(), key=lambda kv: -sum(kv[1]))[:15]
+    for name, times in top:
+        log(f"    {sum(times) / steps:8.4f} ms/step {len(times) / steps:6.1f}"
+            f"/step  {name[:90]}")
+
+
 def main() -> int:
+    profiling = sys.argv[1:] == ["--profile"]
+    if sys.argv[1:] and not profiling:
+        raise SystemExit(f"chip_smoke: unknown arguments {sys.argv[1:]}")
     dev = check_device()
     log("== build")
     build_kernels()
@@ -288,11 +558,21 @@ def main() -> int:
     train = ds.split_edges("train")
     outer = build_outer_graph(train[:, 0], train[:, 1], ds.num_drugs)
 
+    if profiling:
+        log("== profile: config2 training step, full width")
+        profile_training(dev, ds)
+        return 0
+
     log("== kernels vs plain (config2 shapes)")
     results = compare_kernels(dev, ds, bucketing, outer)
 
-    log("== main path: config2 served by Scorer")
-    launches = run_main_path(dev, ds)
+    log("== serving path: config2 served by Scorer")
+    launches = run_serving(dev, ds)
+    log("== training path: config2 Trainer, full width")
+    trained = run_training(dev, ds)
+    launches = {k: launches.get(k, 0) + trained[k] for k in trained}
+    log("== config2-real through the kernels")
+    run_real_gate(dev)
 
     sources = {
         "segment_sum": ("bignn_tpu_torch/csrc/segment_sum.cu",
@@ -301,6 +581,8 @@ def main() -> int:
                             "bignn_tpu/ops/pallas/block_adj.py:49"),
         "flash_gat_attention": ("bignn_tpu_torch/csrc/flash_gat.cu",
                                 "bignn_tpu/ops/pallas/flash_gat.py:65"),
+        "flash_gat_attention_bwd": ("bignn_tpu_torch/csrc/flash_gat_bwd.cu",
+                                    "bignn_tpu/ops/pallas/flash_gat.py:85"),
     }
     kernels = [
         {"name": name, "route": "cuda", "source": sources[name][0],

@@ -127,8 +127,9 @@ def test_standin_and_npz_cache_equal(tmp_path, datasets):
     np.testing.assert_array_equal(port.edges, jax_ds.edges)
 
 
-def test_unported_datasets_raise():
+def test_unported_datasets_raise(tmp_path):
+    (tmp_path / "drugbank.pkl").write_bytes(b"")  # a raw reference cache
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        load_dataset("ddi-sample")
+        load_dataset("drugbank", data_root=str(tmp_path))
     with pytest.raises(ValueError, match="unknown dataset"):
         load_dataset("no-such-set")

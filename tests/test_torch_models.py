@@ -173,10 +173,16 @@ def test_bridge_names_and_shapes():
 
 
 def test_seeded_init_is_reproducible():
+    """The constructor loads init_params(seed), the JAX init of the seed
+    (tests/test_torch_train.py holds it to JAX bit for bit)."""
     cfg = BiGNNConfig.full_bignn(feat_dim=8, dim=16, heads=2)
-    a = BiGNN(cfg, generator=torch.Generator().manual_seed(0)).state_dict()
-    b = BiGNN(cfg, generator=torch.Generator().manual_seed(0)).state_dict()
+    a = BiGNN(cfg, seed=0).state_dict()
+    b = BiGNN(cfg, seed=0).state_dict()
     assert all(torch.equal(a[k], b[k]) for k in a)
+    want = BiGNN(cfg, seed=1).init_params(0)
+    assert all(torch.equal(a[k], want[k]) for k in a)
+    other = BiGNN(cfg, seed=1).state_dict()
+    assert not torch.equal(a["outer.0.a_l"], other["outer.0.a_l"])
     lim = np.sqrt(6.0 / (8 + 16))  # glorot on the first Dense
     assert a["inner.0.mlp.layers.0.weight"].abs().max() <= lim
 

@@ -3,10 +3,13 @@
 On the CPU each op runs its plain PyTorch version; the JAX side runs as its
 own tests run it (the ``xla`` backend, and the Pallas kernels in interpret
 mode where their contract holds). Tolerances: rtol = atol = 1e-5 in f32,
-because sums run in another order; counts are exact. The card's kernels are
-held against these plain versions in tests/test_torch_kernels.py.
+because sums run in another order; counts are exact; gradients of the
+flash attention rtol = atol = 1e-4, as tests/test_flash_gat.py holds the
+Pallas VJP. The card's kernels are held against these plain versions in
+tests/test_torch_kernels.py.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -16,7 +19,7 @@ from bignn_tpu import ops as jax_ops
 from bignn_tpu.ops.gather import permutation_scatter_rows as jax_perm_scatter
 from bignn_tpu.ops.pallas.block_adj import build_block_adj, build_block_adj_xla
 from bignn_tpu.ops.pallas.flash_gat import NEG as JAX_NEG
-from bignn_tpu.ops.pallas.flash_gat import _flash_fwd
+from bignn_tpu.ops.pallas.flash_gat import _flash_bwd, _flash_fwd
 from bignn_tpu.ops.pallas.flash_gat import flash_gat_attention as jax_flash_gat
 
 from bignn_tpu_torch import ops
@@ -25,6 +28,7 @@ from bignn_tpu_torch.ops.flash_gat import NEG
 from bignn_tpu_torch.sparse import build_padded_batch
 
 TOL = dict(rtol=1e-5, atol=1e-5)
+GRAD_TOL = dict(rtol=1e-4, atol=1e-4)
 
 
 def t(x):
@@ -98,6 +102,30 @@ def test_segment_sum_vector_and_out_of_range():
     ids = np.array([0, 0, 2, -1, 5, 2], np.int32)  # -1 and 5 are dropped
     got = ops.segment_sum(t(data), t(ids), 3)
     np.testing.assert_array_equal(got.numpy(), [1.0, 0.0, 7.0])
+
+
+@pytest.mark.parametrize("width", [0, 16])  # [E] and [E, F] data
+def test_segment_sum_grad_matches_jax(width):
+    """The autograd Function's backward (a row gather, zero on dropped ids)
+    against jax.grad of JAX segment_sum, on hole-interleaved ids."""
+    rng = np.random.default_rng(7)
+    ids = _hole_ids(rng, 120)
+    shape = (len(ids), width) if width else (len(ids),)
+    data = rng.standard_normal(shape).astype(np.float32)
+    w = rng.standard_normal((120, width) if width else (120,)).astype(
+        np.float32)
+
+    def loss(x):
+        return jnp.sum(jax_ops.segment_sum(x, jnp.asarray(ids), 120,
+                                           backend="xla") * w)
+
+    want = jax.grad(loss)(jnp.asarray(data))
+    x = t(data).requires_grad_()
+    out = ops.segment_sum(x, t(ids), 120)
+    assert type(out.grad_fn).__name__ == "_SegmentSumBackward"
+    (out * t(w)).sum().backward()
+    np.testing.assert_allclose(x.grad.numpy(), np.asarray(want), **TOL)
+    assert np.all(x.grad.numpy()[ids == 120] == 0.0)  # dropped rows
 
 
 # ---------------------------------------------------------------------------
@@ -211,6 +239,89 @@ def test_flash_gat_matches_pallas_forward(gat_inputs):
     got, lse = ops.flash_gat_attention(*map(t, gat_inputs), SLOPE)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
     np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse), **TOL)
+
+
+# ---------------------------------------------------------------------------
+# flash_gat_attention (backward), on tests/test_flash_gat.py's inputs: N=200
+# (not a multiple of a tile), an empty row, an empty tail, multiplicity 2
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def bwd_case():
+    rng = np.random.default_rng(0)
+    n, h, d = 200, 4, 16
+    score_l = rng.standard_normal((n, h)).astype(np.float32)
+    score_r = rng.standard_normal((n, h)).astype(np.float32)
+    v = rng.standard_normal((n, h, d)).astype(np.float32)
+    cnt = (rng.random((n, n)) < 0.05).astype(np.float32)
+    cnt += rng.random((n, n)) < 0.01
+    cnt[17] = 0.0
+    cnt[140:] = 0.0
+    g = np.random.default_rng(1).standard_normal((n, h, d)).astype(
+        np.float32)
+    out, lse = _flash_fwd(*map(jnp.asarray, (score_l, score_r, v, cnt)),
+                          slope=SLOPE, interpret=True)
+    return (score_l, score_r, v, cnt), np.asarray(lse), np.asarray(out), g
+
+
+def test_flash_gat_bwd_plain_matches_pallas_bwd(bwd_case):
+    inputs, lse, out, g = bwd_case
+    want = _flash_bwd(*map(jnp.asarray, (*inputs, lse, out, g)), slope=SLOPE,
+                      interpret=True)
+    got = ops.flash_gat_attention_bwd_plain(*map(t, (*inputs, lse, out, g)),
+                                            SLOPE)
+    for a, b, name in zip(got, want, ("d_score_l", "d_score_r", "d_v")):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), **GRAD_TOL,
+                                   err_msg=name)
+    dsl = got[0].numpy()
+    assert np.all(dsl[17] == 0.0) and np.all(dsl[140:] == 0.0)  # no edges
+    assert all(np.isfinite(a.numpy()).all() for a in got)
+
+
+@pytest.mark.parametrize("reference", ["jax_grad", "torch_autograd"])
+def test_flash_gat_autograd_matches_references(bwd_case, reference):
+    """Gradients through the autograd Function (its backward is
+    flash_gat_attention_bwd_plain on the CPU) against jax.grad of the JAX
+    flash attention (interpret mode) and against torch autograd of the
+    plain forward, which is not the formula the backward uses."""
+    inputs, _, _, g = bwd_case
+    leaves = [t(a).requires_grad_() for a in inputs[:3]]
+    out, lse = ops.flash_gat_attention(*leaves, t(inputs[3]), SLOPE)
+    assert type(out.grad_fn).__name__ == "_FlashGATAttentionBackward"
+    assert not lse.requires_grad
+    (out * t(g)).sum().backward()
+    if reference == "jax_grad":
+        def loss(sl, sr, v):
+            return jnp.sum(jax_flash_gat(sl, sr, v, jnp.asarray(inputs[3]),
+                                         SLOPE, True) * g)
+
+        want = jax.grad(loss, argnums=(0, 1, 2))(
+            *map(jnp.asarray, inputs[:3]))
+    else:
+        ref = [t(a).requires_grad_() for a in inputs[:3]]
+        ref_out, _ = ops.flash_gat_attention_plain(*ref, t(inputs[3]), SLOPE)
+        (ref_out * t(g)).sum().backward()
+        want = [r.grad for r in ref]
+    for leaf, w, name in zip(leaves, want, ("d_score_l", "d_score_r", "d_v")):
+        np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(w),
+                                   **GRAD_TOL, err_msg=name)
+
+
+def test_flash_gat_bwd_takes_strided_cotangent(bwd_case):
+    """The Function makes a strided cotangent contiguous before the
+    backward (the kernel would refuse it): here the output is used through
+    a transpose."""
+    inputs, _, _, g = bwd_case
+    leaves = [t(a).requires_grad_() for a in inputs[:3]]
+    out, _ = ops.flash_gat_attention(*leaves, t(inputs[3]), SLOPE)
+    (out.transpose(0, 1) * t(g).transpose(0, 1)).sum().backward()
+    plain = [a.detach() for a in leaves]
+    ref_out, ref_lse = ops.flash_gat_attention(*plain, t(inputs[3]), SLOPE)
+    want = ops.flash_gat_attention_bwd_plain(*plain, t(inputs[3]), ref_lse,
+                                             ref_out, t(g), SLOPE)
+    for leaf, w in zip(leaves, want):
+        np.testing.assert_allclose(leaf.grad.numpy(), w.numpy(), **TOL)
 
 
 # ---------------------------------------------------------------------------

@@ -98,7 +98,7 @@ def test_refresh_swaps_params(scorers):
 
 def test_port_runs_without_jax():
     """The package imports no JAX (the card's machine has none): with jax,
-    flax and optax blocked, it imports and serves on the CPU."""
+    flax and optax blocked, it imports, serves and trains on the CPU."""
     code = textwrap.dedent("""
         import sys
         for name in ("jax", "flax", "optax", "bignn_tpu"):
@@ -111,10 +111,19 @@ def test_port_runs_without_jax():
         from bignn_tpu_torch.serve import Scorer
         ds = load_dataset("synthetic-small", num_drugs=24, feat_dim=4)
         model = BiGNN(BiGNNConfig.full_bignn(feat_dim=4, dim=8, heads=2),
-                      generator=torch.Generator().manual_seed(0))
+                      seed=0)
         s = Scorer(model, ds, model.state_dict(), device="cpu")
         ids, scores = s.top_k(0, k=3, exclude_known=True)
         assert len(ids) == 3 and torch.isfinite(s.embeddings).all()
+        from bignn_tpu_torch.data import prepare_device_data
+        from bignn_tpu_torch.train import Trainer, TrainConfig
+        real = load_dataset("ddi-sample")
+        model = BiGNN(BiGNNConfig.full_bignn(feat_dim=real.feat_dim, dim=8,
+                                             heads=2))
+        _, result = Trainer(model, prepare_device_data(real),
+                            TrainConfig(epochs=1, batch_size=64),
+                            device="cpu").fit()
+        assert 0.0 <= result["test_auc"] <= 1.0
         assert cuda_lib._lib is None  # nothing was built
         print("ok")
     """)
