@@ -1,0 +1,73 @@
+// Segment bounds, shared by the segment kernels (segment_sum.cu,
+// segment_softmax.cu, spmm_multihead.cu).
+//
+// For each segment s in [0, num_segments): the first and the last row e with
+// ids[e] == s, found by integer atomicMin / atomicMax (exact, so the result
+// does not depend on the order of the atomics). An empty segment gets
+// first = num_rows and last = -1; ids outside [0, num_segments) are dropped.
+//
+// A consumer walks [first[s], last[s]] in row order and skips the rows whose
+// id is not s. So it is right for any ids, and reads only the rows of s when
+// the ids are sorted (the outer graph's dst and its source-sorted order are,
+// by construction). Rows between two runs of s that belong elsewhere (holes)
+// cost a load of their id.
+//
+// Cost: the ids are read once, two integer atomics per valid row.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace bignn {
+namespace {
+
+__global__ void init_bounds(int* first, int* last, int num_segments,
+                            int num_rows) {
+  const int s = blockIdx.x * blockDim.x + threadIdx.x;
+  if (s < num_segments) {
+    first[s] = num_rows;
+    last[s] = -1;
+  }
+}
+
+__global__ void find_bounds(const int* __restrict__ ids, int num_rows,
+                            int num_segments, int* first, int* last) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= num_rows) return;
+  const int s = ids[e];
+  if (s < 0 || s >= num_segments) return;  // padding ids are dropped
+  atomicMin(first + s, e);
+  atomicMax(last + s, e);
+}
+
+inline int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// first/last are [num_segments] int32 scratch on the device.
+inline void segment_bounds(const int* ids, int num_rows, int num_segments,
+                           int* first, int* last, cudaStream_t st) {
+  if (num_segments <= 0) return;
+  init_bounds<<<cdiv(num_segments, 256), 256, 0, st>>>(first, last,
+                                                       num_segments, num_rows);
+  if (num_rows > 0) {
+    find_bounds<<<cdiv(num_rows, 256), 256, 0, st>>>(ids, num_rows,
+                                                     num_segments, first, last);
+  }
+}
+
+// Sum of v over the 32 lanes of a warp, in a fixed butterfly order: every
+// lane gets the same bits, and a run repeats them.
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+}  // namespace
+}  // namespace bignn

