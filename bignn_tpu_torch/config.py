@@ -1,7 +1,7 @@
 """Experiment configs (counterpart of ``bignn_tpu/config.py``): the same
 registry and aliases. ``TrainConfig`` copies the JAX trainer's fields and
-defaults; ``train.Trainer`` reads it (``reshuffle_epochs`` belongs to the
-device sampler of ``MinibatchTrainer``, still to port)."""
+defaults; ``train.Trainer`` and ``train.MinibatchTrainer`` read it
+(``reshuffle_epochs`` only the latter, with its device sampler)."""
 
 from __future__ import annotations
 

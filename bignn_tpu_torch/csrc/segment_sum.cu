@@ -1,9 +1,12 @@
-// Segment sum over rows: out[s] = sum of data[e] over the rows e with ids[e] == s.
+// Segment sum over rows: out[s] = sum of data[e] over the rows e with ids[e] == s,
+// for float32 or bf16 data (sums in float32, one rounding at the store).
 //
 // Replaces bignn_tpu/ops/pallas/segment.py:_segment_sum_kernel
 // (segment_sum_pallas), used by the sum readout; its permuted form replaces
 // the segment_sum_pallas call in the backward of
 // bignn_tpu/ops/gather.py:gather_rows_sorted_grad (_gather_sorted_bwd).
+// The TPU kernel also accumulates in float32 and casts the output to the
+// data's type (segment.py:123, :135); so does this one.
 //
 // The TPU kernel finds each 128-segment block's row range with a
 // searchsorted over the ids, so it is only right for sorted ids. The
@@ -18,15 +21,19 @@
 // gather backward sums g[perm] over ids_sorted without a copy of g[perm].
 //
 // What bounds it on the H100: device-memory bytes. Every valid row is read
-// once (E * F * 4 bytes), plus the ids twice; the arithmetic is one add per
-// element. A warp reads a row as 32 consecutive floats, so loads are
-// coalesced. Rows inside a segment's range that belong to another segment
-// (holes) cost a load of the id only.
+// once (E * F * sizeof(T) bytes), plus the ids twice; the arithmetic is one
+// add per element. A warp reads a row as consecutive values (bf16 two at a
+// time, so a warp sweep covers the same 128 columns in half the bytes).
+// Rows inside a segment's range that belong to another segment (holes) cost
+// a load of the id only. The walk is latency-bound as much as byte-bound:
+// each row is a dependent id load and a row load; bf16 halves the bytes of
+// the same walk, not its latency.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "elem.cuh"
 #include "segment_bounds.cuh"
 
 namespace {
@@ -34,17 +41,20 @@ namespace {
 constexpr int kWarpsPerBlock = 4;
 constexpr int kColsPerLane = 4;  // a warp covers 128 columns per sweep
 
+// V = 1: lane reads columns f0 + lane + 32 k; V = 2 (bf16, even width):
+// lane reads pairs at f0 + 2 lane + 64 j.
+template <class T, int V>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
-    sum_segments(const float* __restrict__ data, const int* __restrict__ perm,
+    sum_segments(const T* __restrict__ data, const int* __restrict__ perm,
                  const int* __restrict__ ids, const int* __restrict__ first,
                  const int* __restrict__ last, int num_segments, int feat,
-                 float* __restrict__ out) {
+                 T* __restrict__ out) {
   const int lane = threadIdx.x % 32;
   const int s = blockIdx.x * kWarpsPerBlock + threadIdx.x / 32;
   if (s >= num_segments) return;
   const int e0 = first[s];
   const int e1 = last[s];  // e1 < e0 for an empty segment
-  float* o = out + static_cast<int64_t>(s) * feat;
+  T* o = out + static_cast<int64_t>(s) * feat;
   for (int f0 = 0; f0 < feat; f0 += 32 * kColsPerLane) {
     float acc[kColsPerLane];
 #pragma unroll
@@ -52,30 +62,56 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
     for (int e = e0; e <= e1; ++e) {
       if (__ldg(ids + e) != s) continue;  // a hole or another segment's row
       const int r = perm == nullptr ? e : __ldg(perm + e);
-      const float* row = data + static_cast<int64_t>(r) * feat;
+      const T* row = data + static_cast<int64_t>(r) * feat;
 #pragma unroll
-      for (int k = 0; k < kColsPerLane; ++k) {
-        const int c = f0 + lane + 32 * k;
-        if (c < feat) acc[k] += __ldg(row + c);
+      for (int k = 0; k < kColsPerLane; k += V) {
+        const int c = f0 + V * lane + 32 * k;
+        if constexpr (V == 2) {
+          if (c < feat) {
+            const float2 v = bignn::load2(row + c);
+            acc[k] += v.x;
+            acc[k + 1] += v.y;
+          }
+        } else if (c < feat) {
+          acc[k] += bignn::load1(row + c);
+        }
       }
     }
 #pragma unroll
-    for (int k = 0; k < kColsPerLane; ++k) {
-      const int c = f0 + lane + 32 * k;
-      if (c < feat) o[c] = acc[k];
+    for (int k = 0; k < kColsPerLane; k += V) {
+      const int c = f0 + V * lane + 32 * k;
+      if constexpr (V == 2) {
+        if (c < feat) bignn::store2(o + c, acc[k], acc[k + 1]);
+      } else if (c < feat) {
+        o[c] = bignn::from_f32<T>(acc[k]);
+      }
     }
   }
 }
 
-int segment_sum(const float* data, const int* perm, const int* ids,
-                int num_rows, int feat, int num_segments, int* first,
-                int* last, float* out, cudaStream_t st) {
+template <class T>
+int segment_sum(const void* data, const void* perm, const void* ids,
+                int num_rows, int feat, int num_segments, void* first,
+                void* last, void* out, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* id = static_cast<const int*>(ids);
+  int* f = static_cast<int*>(first);
+  int* l = static_cast<int*>(last);
   if (num_segments > 0) {
-    bignn::segment_bounds(ids, num_rows, num_segments, first, last, st);
+    bignn::segment_bounds(id, num_rows, num_segments, f, l, st);
     if (feat > 0) {
-      sum_segments<<<bignn::cdiv(num_segments, kWarpsPerBlock),
-                     kWarpsPerBlock * 32, 0, st>>>(
-          data, perm, ids, first, last, num_segments, feat, out);
+      const dim3 grid(bignn::cdiv(num_segments, kWarpsPerBlock));
+      const dim3 block(kWarpsPerBlock * 32);
+      const T* d = static_cast<const T*>(data);
+      const int* p = static_cast<const int*>(perm);
+      T* o = static_cast<T*>(out);
+      if (bignn::pairs_ok<T>(feat)) {
+        sum_segments<T, 2><<<grid, block, 0, st>>>(d, p, id, f, l,
+                                                   num_segments, feat, o);
+      } else {
+        sum_segments<T, 1><<<grid, block, 0, st>>>(d, p, id, f, l,
+                                                   num_segments, feat, o);
+      }
     }
   }
   return static_cast<int>(cudaGetLastError());
@@ -85,16 +121,21 @@ int segment_sum(const float* data, const int* perm, const int* ids,
 
 extern "C" {
 
-// data [num_rows, feat] f32, ids [num_rows] int32, out [num_segments, feat]
-// f32; first/last are [num_segments] int32 scratch. Returns cudaGetLastError().
+// data [num_rows, feat], ids [num_rows] int32, out [num_segments, feat] in
+// the data's type; first/last are [num_segments] int32 scratch. Returns
+// cudaGetLastError().
 int bignn_segment_sum_f32(const void* data, const void* ids, int num_rows,
                           int feat, int num_segments, void* first, void* last,
                           void* out, void* stream) {
-  return segment_sum(static_cast<const float*>(data), nullptr,
-                     static_cast<const int*>(ids), num_rows, feat,
-                     num_segments, static_cast<int*>(first),
-                     static_cast<int*>(last), static_cast<float*>(out),
-                     static_cast<cudaStream_t>(stream));
+  return segment_sum<float>(data, nullptr, ids, num_rows, feat, num_segments,
+                            first, last, out, stream);
+}
+
+int bignn_segment_sum_bf16(const void* data, const void* ids, int num_rows,
+                           int feat, int num_segments, void* first,
+                           void* last, void* out, void* stream) {
+  return segment_sum<__nv_bfloat16>(data, nullptr, ids, num_rows, feat,
+                                    num_segments, first, last, out, stream);
 }
 
 // The same sum over rows data[perm[e]]: perm [num_rows] int32 indexes data
@@ -104,12 +145,16 @@ int bignn_segment_sum_perm_f32(const void* data, const void* perm,
                                const void* ids, int num_rows, int feat,
                                int num_segments, void* first, void* last,
                                void* out, void* stream) {
-  return segment_sum(static_cast<const float*>(data),
-                     static_cast<const int*>(perm),
-                     static_cast<const int*>(ids), num_rows, feat,
-                     num_segments, static_cast<int*>(first),
-                     static_cast<int*>(last), static_cast<float*>(out),
-                     static_cast<cudaStream_t>(stream));
+  return segment_sum<float>(data, perm, ids, num_rows, feat, num_segments,
+                            first, last, out, stream);
+}
+
+int bignn_segment_sum_perm_bf16(const void* data, const void* perm,
+                                const void* ids, int num_rows, int feat,
+                                int num_segments, void* first, void* last,
+                                void* out, void* stream) {
+  return segment_sum<__nv_bfloat16>(data, perm, ids, num_rows, feat,
+                                    num_segments, first, last, out, stream);
 }
 
 const char* bignn_error_string(int code) {

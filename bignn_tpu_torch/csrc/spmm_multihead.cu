@@ -1,5 +1,7 @@
 // Multi-head weighted aggregation on the flat [*, H*D] layout (GAT message
-// passing over an edge list), forward and backward, with F = H * D:
+// passing over an edge list), forward and backward, with F = H * D, for
+// float32 or bf16 v, alpha and g (products and sums in float32, one
+// rounding at each store):
 //   out[d, c]      = sum_{e: dst_e = d} alpha[e, h(c)] v[src_e, c]
 //   d_v[s, c]      = sum_{e: src_e = s, dst_e < num_out} alpha[e, h(c)] g[dst_e, c]
 //   d_alpha[e, h]  = sum_{c in head h} g[dst_e, c] v[src_e, c]   (0 when
@@ -34,12 +36,19 @@
 // gather of 512-byte rows of a [N, F] table that L2 partly holds), against
 // 2 * E * F * 4 written and read again by the plain version's messages.
 // Per edge a warp does F multiply-adds (plus F for d_alpha, and H
-// five-step shuffle reductions in the backward).
+// five-step shuffle reductions in the backward). In bf16 a lane reads its
+// columns as pairs (__nv_bfloat162): the same walk, one edge after another,
+// moves half the bytes; its latency stays.
+//
+// The JAX package rounds each bf16 message alpha * v to bf16 before the
+// segment sum (multihead.py:81-83); here products are summed in float32 and
+// rounded once, as the plain version of the port does.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "elem.cuh"
 #include "segment_bounds.cuh"
 
 namespace {
@@ -49,12 +58,50 @@ constexpr int kColsPerLane = 8;  // F <= 256
 constexpr int kWarpsPerBlock = 4;
 constexpr unsigned kFull = 0xffffffffu;
 
+// Column of a lane's k-th value: V = 1 strides by 32 (lane + 32 k); V = 2
+// reads pairs (2 lane + 64 (k / 2) + k % 2), for bf16 rows of even width.
+template <int V>
+__device__ __forceinline__ int col_of(int lane, int k) {
+  return V == 1 ? lane + 32 * k : 2 * lane + 64 * (k / 2) + (k % 2);
+}
+
+template <class T, int V>
+__device__ __forceinline__ void load_cols(const T* row, int feat, int lane,
+                                          float (&out)[kColsPerLane]) {
+#pragma unroll
+  for (int k = 0; k < kColsPerLane; k += V) {
+    const int c = col_of<V>(lane, k);
+    if constexpr (V == 2) {
+      const float2 p = c < feat ? bignn::load2(row + c) : make_float2(0.f, 0.f);
+      out[k] = p.x;
+      out[k + 1] = p.y;
+    } else {
+      out[k] = c < feat ? bignn::load1(row + c) : 0.f;
+    }
+  }
+}
+
+template <class T, int V>
+__device__ __forceinline__ void store_cols(T* row, int feat, int lane,
+                                           const float (&v)[kColsPerLane]) {
+#pragma unroll
+  for (int k = 0; k < kColsPerLane; k += V) {
+    const int c = col_of<V>(lane, k);
+    if constexpr (V == 2) {
+      if (c < feat) bignn::store2(row + c, v[k], v[k + 1]);
+    } else {
+      if (c < feat) row[c] = bignn::from_f32<T>(v[k]);
+    }
+  }
+}
+
+template <class T, int V>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
-    mh_forward(const float* __restrict__ v, const int* __restrict__ src,
-               const int* __restrict__ dst, const float* __restrict__ alpha,
+    mh_forward(const T* __restrict__ v, const int* __restrict__ src,
+               const int* __restrict__ dst, const T* __restrict__ alpha,
                const int* __restrict__ first, const int* __restrict__ last,
                int num_src, int num_out, int heads, int head_dim,
-               float* __restrict__ out) {
+               T* __restrict__ out) {
   const int lane = threadIdx.x % 32;
   const int d = blockIdx.x * kWarpsPerBlock + threadIdx.x / 32;
   if (d >= num_out) return;
@@ -62,10 +109,11 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
   const int e0 = first[d];
   const int e1 = last[d];
   int head[kColsPerLane];
-  float acc[kColsPerLane];
+  float acc[kColsPerLane], vals[kColsPerLane];
 #pragma unroll
   for (int k = 0; k < kColsPerLane; ++k) {
-    head[k] = (lane + 32 * k) / head_dim;
+    const int c = col_of<V>(lane, k);
+    head[k] = c < feat ? c / head_dim : -1;
     acc[k] = 0.f;
   }
   for (int base = e0; base <= e1; base += 32) {
@@ -77,31 +125,25 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
     for (int j = 0; j < n; ++j) {
       const int s = __shfl_sync(kFull, my_src, j);
       if (s < 0) continue;  // a hole: another destination's edge
-      const float* row = v + static_cast<int64_t>(s) * feat;
-      const float* a = alpha + static_cast<int64_t>(base + j) * heads;
+      load_cols<T, V>(v + static_cast<int64_t>(s) * feat, feat, lane, vals);
+      const T* a = alpha + static_cast<int64_t>(base + j) * heads;
 #pragma unroll
-      for (int k = 0; k < kColsPerLane; ++k) {
-        const int c = lane + 32 * k;
-        if (c < feat) acc[k] += __ldg(a + head[k]) * __ldg(row + c);
-      }
+      for (int k = 0; k < kColsPerLane; ++k)
+        if (head[k] >= 0) acc[k] += bignn::load1(a + head[k]) * vals[k];
     }
   }
-  float* o = out + static_cast<int64_t>(d) * feat;
-#pragma unroll
-  for (int k = 0; k < kColsPerLane; ++k) {
-    const int c = lane + 32 * k;
-    if (c < feat) o[c] = acc[k];
-  }
+  store_cols<T, V>(out + static_cast<int64_t>(d) * feat, feat, lane, acc);
 }
 
+template <class T, int V>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
-    mh_backward(const float* __restrict__ v, const float* __restrict__ g,
-                const int* __restrict__ dst, const float* __restrict__ alpha,
+    mh_backward(const T* __restrict__ v, const T* __restrict__ g,
+                const int* __restrict__ dst, const T* __restrict__ alpha,
                 const int* __restrict__ perm,
                 const int* __restrict__ src_sorted,
                 const int* __restrict__ first, const int* __restrict__ last,
                 int num_src, int num_out, int heads, int head_dim,
-                float* __restrict__ d_v, float* __restrict__ d_alpha) {
+                T* __restrict__ d_v, T* __restrict__ d_alpha) {
   const int lane = threadIdx.x % 32;
   const int s = blockIdx.x * kWarpsPerBlock + threadIdx.x / 32;
   if (s >= num_src) return;
@@ -109,13 +151,12 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
   const int i0 = first[s];
   const int i1 = last[s];
   int head[kColsPerLane];
-  float vs[kColsPerLane], acc[kColsPerLane];
-  const float* vrow = v + static_cast<int64_t>(s) * feat;
+  float vs[kColsPerLane], acc[kColsPerLane], gv[kColsPerLane];
+  load_cols<T, V>(v + static_cast<int64_t>(s) * feat, feat, lane, vs);
 #pragma unroll
   for (int k = 0; k < kColsPerLane; ++k) {
-    const int c = lane + 32 * k;
-    head[k] = c / head_dim;
-    vs[k] = c < feat ? __ldg(vrow + c) : 0.f;
+    const int c = col_of<V>(lane, k);
+    head[k] = c < feat ? c / head_dim : -1;
     acc[k] = 0.f;
   }
   for (int base = i0; base <= i1; base += 32) {
@@ -128,23 +169,21 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
       const int e = __shfl_sync(kFull, my_e, j);
       if (e < 0) continue;  // a hole: another source's position
       const int dd = __shfl_sync(kFull, my_d, j);
-      float* da = d_alpha + static_cast<int64_t>(e) * heads;
+      T* da = d_alpha + static_cast<int64_t>(e) * heads;
       if (dd < 0 || dd >= num_out) {  // padding edge: no part, d_alpha 0
-        if (lane < heads) da[lane] = 0.f;
+        if (lane < heads) da[lane] = bignn::from_f32<T>(0.f);
         continue;
       }
-      const float* grow = g + static_cast<int64_t>(dd) * feat;
-      const float* a = alpha + static_cast<int64_t>(e) * heads;
+      load_cols<T, V>(g + static_cast<int64_t>(dd) * feat, feat, lane, gv);
+      const T* a = alpha + static_cast<int64_t>(e) * heads;
       float part[kMaxHeads];
 #pragma unroll
       for (int h = 0; h < kMaxHeads; ++h) part[h] = 0.f;
 #pragma unroll
       for (int k = 0; k < kColsPerLane; ++k) {
-        const int c = lane + 32 * k;
-        if (c < feat) {
-          const float gc = __ldg(grow + c);
-          acc[k] += __ldg(a + head[k]) * gc;
-          const float p = gc * vs[k];
+        if (head[k] >= 0) {
+          acc[k] += bignn::load1(a + head[k]) * gv[k];
+          const float p = gv[k] * vs[k];
 #pragma unroll
           for (int h = 0; h < kMaxHeads; ++h)
             if (h == head[k]) part[h] += p;
@@ -158,15 +197,10 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
           if (lane == h) mine_sum = t;
         }
       }
-      if (lane < heads) da[lane] = mine_sum;
+      if (lane < heads) da[lane] = bignn::from_f32<T>(mine_sum);
     }
   }
-  float* o = d_v + static_cast<int64_t>(s) * feat;
-#pragma unroll
-  for (int k = 0; k < kColsPerLane; ++k) {
-    const int c = lane + 32 * k;
-    if (c < feat) o[c] = acc[k];
-  }
+  store_cols<T, V>(d_v + static_cast<int64_t>(s) * feat, feat, lane, acc);
 }
 
 bool bad_shape(int num_edges, int num_src, int num_out, int heads,
@@ -176,19 +210,11 @@ bool bad_shape(int num_edges, int num_src, int num_out, int heads,
          heads * head_dim > 32 * kColsPerLane;
 }
 
-}  // namespace
-
-extern "C" {
-
-// v [num_src, heads * head_dim] f32, src/dst [num_edges] int32, alpha
-// [num_edges, heads] f32, out [num_out, heads * head_dim] f32; first/last
-// are [num_out] int32 scratch. heads <= 8, heads * head_dim <= 256.
-// Returns cudaGetLastError().
-int bignn_spmm_multihead_fwd_f32(const void* v, const void* src,
-                                 const void* dst, const void* alpha,
-                                 int num_edges, int num_src, int num_out,
-                                 int heads, int head_dim, void* first,
-                                 void* last, void* out, void* stream) {
+template <class T>
+int forward(const void* v, const void* src, const void* dst,
+            const void* alpha, int num_edges, int num_src, int num_out,
+            int heads, int head_dim, void* first, void* last, void* out,
+            void* stream) {
   if (bad_shape(num_edges, num_src, num_out, heads, head_dim))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -197,27 +223,28 @@ int bignn_spmm_multihead_fwd_f32(const void* v, const void* src,
     int* l = static_cast<int*>(last);
     const int* d = static_cast<const int*>(dst);
     bignn::segment_bounds(d, num_edges, num_out, f, l, st);
-    mh_forward<<<bignn::cdiv(num_out, kWarpsPerBlock), kWarpsPerBlock * 32, 0,
-                 st>>>(static_cast<const float*>(v),
-                       static_cast<const int*>(src), d,
-                       static_cast<const float*>(alpha), f, l, num_src,
-                       num_out, heads, head_dim, static_cast<float*>(out));
+    const dim3 grid(bignn::cdiv(num_out, kWarpsPerBlock));
+    const dim3 block(kWarpsPerBlock * 32);
+    const T* vv = static_cast<const T*>(v);
+    const int* s = static_cast<const int*>(src);
+    const T* a = static_cast<const T*>(alpha);
+    T* o = static_cast<T*>(out);
+    if (bignn::pairs_ok<T>(heads * head_dim)) {
+      mh_forward<T, 2><<<grid, block, 0, st>>>(vv, s, d, a, f, l, num_src,
+                                               num_out, heads, head_dim, o);
+    } else {
+      mh_forward<T, 1><<<grid, block, 0, st>>>(vv, s, d, a, f, l, num_src,
+                                               num_out, heads, head_dim, o);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// g [num_out, heads * head_dim] f32 (the cotangent of out), perm/src_sorted
-// [num_edges] int32 (argsort of src, src[perm]), d_v like v, d_alpha like
-// alpha; first/last are [num_src] int32 scratch. An edge whose src lies
-// outside [0, num_src) is in no source's range and leaves its d_alpha row
-// unwritten (the wrapper zero-fills it).
-int bignn_spmm_multihead_bwd_f32(const void* v, const void* g,
-                                 const void* dst, const void* alpha,
-                                 const void* perm, const void* src_sorted,
-                                 int num_edges, int num_src, int num_out,
-                                 int heads, int head_dim, void* first,
-                                 void* last, void* d_v, void* d_alpha,
-                                 void* stream) {
+template <class T>
+int backward(const void* v, const void* g, const void* dst, const void* alpha,
+             const void* perm, const void* src_sorted, int num_edges,
+             int num_src, int num_out, int heads, int head_dim, void* first,
+             void* last, void* d_v, void* d_alpha, void* stream) {
   if (bad_shape(num_edges, num_src, num_out, heads, head_dim))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -225,15 +252,81 @@ int bignn_spmm_multihead_bwd_f32(const void* v, const void* g,
   int* l = static_cast<int*>(last);
   const int* ss = static_cast<const int*>(src_sorted);
   bignn::segment_bounds(ss, num_edges, num_src, f, l, st);
-  mh_backward<<<bignn::cdiv(num_src, kWarpsPerBlock), kWarpsPerBlock * 32, 0,
-                st>>>(static_cast<const float*>(v),
-                      static_cast<const float*>(g),
-                      static_cast<const int*>(dst),
-                      static_cast<const float*>(alpha),
-                      static_cast<const int*>(perm), ss, f, l, num_src,
-                      num_out, heads, head_dim, static_cast<float*>(d_v),
-                      static_cast<float*>(d_alpha));
+  const dim3 grid(bignn::cdiv(num_src, kWarpsPerBlock));
+  const dim3 block(kWarpsPerBlock * 32);
+  const T* vv = static_cast<const T*>(v);
+  const T* gg = static_cast<const T*>(g);
+  const int* d = static_cast<const int*>(dst);
+  const T* a = static_cast<const T*>(alpha);
+  const int* p = static_cast<const int*>(perm);
+  T* dv = static_cast<T*>(d_v);
+  T* da = static_cast<T*>(d_alpha);
+  if (bignn::pairs_ok<T>(heads * head_dim)) {
+    mh_backward<T, 2><<<grid, block, 0, st>>>(vv, gg, d, a, p, ss, f, l,
+                                              num_src, num_out, heads,
+                                              head_dim, dv, da);
+  } else {
+    mh_backward<T, 1><<<grid, block, 0, st>>>(vv, gg, d, a, p, ss, f, l,
+                                              num_src, num_out, heads,
+                                              head_dim, dv, da);
+  }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// v [num_src, heads * head_dim], src/dst [num_edges] int32, alpha
+// [num_edges, heads], out [num_out, heads * head_dim], v/alpha/out in one
+// type (f32 or bf16); first/last are [num_out] int32 scratch. heads <= 8,
+// heads * head_dim <= 256. Returns cudaGetLastError().
+int bignn_spmm_multihead_fwd_f32(const void* v, const void* src,
+                                 const void* dst, const void* alpha,
+                                 int num_edges, int num_src, int num_out,
+                                 int heads, int head_dim, void* first,
+                                 void* last, void* out, void* stream) {
+  return forward<float>(v, src, dst, alpha, num_edges, num_src, num_out,
+                        heads, head_dim, first, last, out, stream);
+}
+
+int bignn_spmm_multihead_fwd_bf16(const void* v, const void* src,
+                                  const void* dst, const void* alpha,
+                                  int num_edges, int num_src, int num_out,
+                                  int heads, int head_dim, void* first,
+                                  void* last, void* out, void* stream) {
+  return forward<__nv_bfloat16>(v, src, dst, alpha, num_edges, num_src,
+                                num_out, heads, head_dim, first, last, out,
+                                stream);
+}
+
+// g [num_out, heads * head_dim] (the cotangent of out), perm/src_sorted
+// [num_edges] int32 (argsort of src, src[perm]), d_v like v, d_alpha like
+// alpha, all floating tensors in one type; first/last are [num_src] int32
+// scratch. An edge whose src lies outside [0, num_src) is in no source's
+// range and leaves its d_alpha row unwritten (the wrapper zero-fills it).
+int bignn_spmm_multihead_bwd_f32(const void* v, const void* g,
+                                 const void* dst, const void* alpha,
+                                 const void* perm, const void* src_sorted,
+                                 int num_edges, int num_src, int num_out,
+                                 int heads, int head_dim, void* first,
+                                 void* last, void* d_v, void* d_alpha,
+                                 void* stream) {
+  return backward<float>(v, g, dst, alpha, perm, src_sorted, num_edges,
+                         num_src, num_out, heads, head_dim, first, last, d_v,
+                         d_alpha, stream);
+}
+
+int bignn_spmm_multihead_bwd_bf16(const void* v, const void* g,
+                                  const void* dst, const void* alpha,
+                                  const void* perm, const void* src_sorted,
+                                  int num_edges, int num_src, int num_out,
+                                  int heads, int head_dim, void* first,
+                                  void* last, void* d_v, void* d_alpha,
+                                  void* stream) {
+  return backward<__nv_bfloat16>(v, g, dst, alpha, perm, src_sorted,
+                                 num_edges, num_src, num_out, heads, head_dim,
+                                 first, last, d_v, d_alpha, stream);
 }
 
 }  // extern "C"

@@ -33,7 +33,8 @@ from bignn_tpu_torch.sparse.formats import OuterGraph, PaddedGraphBatch
 class BiGNNConfig:
     """The model as per-layer spec strings, e.g. inner ``("gin:64",
     "gin:64")``, outer ``("gat:64:4",)``, readout ``"sum"``, scorer
-    ``"dot"``. ``dtype`` is the compute precision; the port runs float32."""
+    ``"dot"``. ``dtype`` is the compute precision, ``"float32"`` or
+    ``"bfloat16"``: parameters stay float32 either way."""
 
     feat_dim: int
     inner_layers: tuple[str, ...] = ("gcn:64", "gcn:64")
@@ -59,19 +60,28 @@ class BiGNNConfig:
         )
 
 
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
 class BiGNN(nn.Module):
     """Parameters are named ``inner.<i>.*``, ``outer.<i>.*`` and
     ``scorer.*`` (``bridge.py`` maps the JAX tree onto them). Construction
     loads :meth:`init_params` of ``seed``: the JAX package's initial
-    parameters for ``jax.random.key(seed)``."""
+    parameters for ``jax.random.key(seed)``.
+
+    ``config.dtype`` is the compute type, as in the JAX package
+    (``bignn_tpu/models/bignn.py:135-242``): every level casts its input to
+    it and every layer casts its float32 parameters to it, so gradients
+    reach the float32 masters through the casts; ``embed_drugs`` and
+    ``score_pairs`` return float32."""
 
     def __init__(self, config: BiGNNConfig, *, seed: int = 0):
         super().__init__()
-        if config.dtype != "float32":
-            raise NotImplementedError(
-                f"dtype {config.dtype!r}: the port runs float32; bf16 comes "
-                "with config4 (ROADMAP Queue 1)")
+        if config.dtype not in _DTYPES:
+            raise ValueError(f"dtype {config.dtype!r}: want one of "
+                             f"{sorted(_DTYPES)}")
         self.config = config
+        self.compute_dtype = _DTYPES[config.dtype]
         dim = config.feat_dim
         inner = []
         for spec in config.inner_layers:
@@ -105,11 +115,12 @@ class BiGNN(nn.Module):
         return state
 
     def encode_inner(self, batch: PaddedGraphBatch) -> torch.Tensor:
-        """Inner convs + readout on one bucket -> ``[num_graphs, d]``."""
+        """Inner convs + readout on one bucket -> ``[num_graphs, d]`` in the
+        compute type."""
         block_dense = None
         if batch.block_cnt is not None:
             block_dense = (batch.block_adj, batch.block_cnt)
-        x = batch.node_feat
+        x = batch.node_feat.to(self.compute_dtype)
         for conv in self.inner:
             x = conv(x, block_dense=block_dense)
         return self.readout(x, batch.graph_ids, batch.num_graphs)
@@ -118,7 +129,7 @@ class BiGNN(nn.Module):
                     graph_index: Sequence[torch.Tensor],
                     num_drugs: int) -> torch.Tensor:
         """All buckets through the inner level, placed into
-        ``[num_drugs, d]``. The buckets partition the drugs, so the
+        ``[num_drugs, d]`` float32. The buckets partition the drugs, so the
         placement is a permutation gather."""
         embs = [self.encode_inner(b) for b in buckets]
         idx = torch.cat([torch.as_tensor(i) for i in graph_index]).to(
@@ -126,7 +137,7 @@ class BiGNN(nn.Module):
         if idx.numel() != num_drugs:
             raise ValueError(
                 f"buckets hold {idx.numel()} drugs, expected {num_drugs}")
-        return ops.permutation_scatter_rows(torch.cat(embs), idx)
+        return ops.permutation_scatter_rows(torch.cat(embs), idx).float()
 
     def propagate_outer(self, emb: torch.Tensor,
                         outer: OuterGraph) -> torch.Tensor:
@@ -136,6 +147,7 @@ class BiGNN(nn.Module):
         dense = None
         if outer.dense_cnt is not None:
             dense = (outer.dense_adj, outer.dense_cnt)
+        emb = emb.to(self.compute_dtype)
         for conv in self.outer:
             emb = conv(emb, outer.edge_src, outer.edge_dst, outer.num_nodes,
                        src_perm=outer.edge_src_perm,
@@ -143,11 +155,14 @@ class BiGNN(nn.Module):
         return emb
 
     def score_pairs(self, emb: torch.Tensor, pairs: torch.Tensor) -> torch.Tensor:
-        return self.scorer(emb, pairs)
+        """float32 logits of ``[P, 2]`` pairs, scored in the compute type."""
+        return self.scorer(emb.to(self.compute_dtype), pairs).float()
 
     def score_one_vs_all(self, emb: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
-        """Logits of (u, v) for every v; u is one id or a ``[B]`` batch."""
-        return self.scorer.apply_one_vs_all(emb, u)
+        """float32 logits of (u, v) for every v; u is one id or a ``[B]``
+        batch."""
+        return self.scorer.apply_one_vs_all(emb.to(self.compute_dtype),
+                                            u).float()
 
     def forward(self, buckets: Sequence[PaddedGraphBatch],
                 graph_index: Sequence[torch.Tensor], outer: OuterGraph,

@@ -8,8 +8,9 @@ forms, which it prefers where it has a branch for them:
     outer graph;
   * ``block_dense=(block_adj, block_cnt)``: ``[N/128, 128, 128]`` blocks of
     the block-local inner layout.
-``GATConv`` runs the edge list when no dense form is given (the outer graph
-above ``dense_max_nodes`` drugs): ``ops.gather_rows_sorted_grad``,
+Each conv computes in its input's type (float32 or bf16) and casts its
+float32 parameters to it. ``GATConv`` runs the edge list when no dense form
+is given (the outer graph above ``dense_max_nodes`` drugs): ``ops.gather_rows_sorted_grad``,
 ``ops.segment_softmax`` and ``ops.spmm_multihead``. The streaming branches
 of GCN and GIN (Queue 2 row 7, ROADMAP Queue 1 item 4) and DotAttnConv are
 still to port and raise. Every branch here is differentiable:
@@ -54,12 +55,12 @@ class GCNConv(nn.Module):
                 src_perm=None, src_sorted=None, dense=None, block_dense=None):
         h = self.lin(x)
         if dense is not None:
-            agg = dense[0] @ h
+            agg = dense[0].to(h.dtype) @ h
         elif block_dense is not None:
             agg = ops.block_diag_spmm(block_dense[0], h)
         else:
             raise NotImplementedError(f"GCNConv: {_STREAMING}")
-        return self._act(agg + self.bias)
+        return self._act(agg + self.bias.to(x.dtype))
 
 
 class GINConv(nn.Module):
@@ -84,12 +85,12 @@ class GINConv(nn.Module):
     def forward(self, x, edge_src=None, edge_dst=None, num_nodes=None,
                 src_perm=None, src_sorted=None, dense=None, block_dense=None):
         if dense is not None:
-            agg = dense[1] @ x
+            agg = dense[1].to(x.dtype) @ x
         elif block_dense is not None:
             agg = ops.block_diag_spmm(block_dense[1], x)
         else:
             raise NotImplementedError(f"GINConv: {_STREAMING}")
-        return self._act(self.mlp(agg + self.eps * x))
+        return self._act(self.mlp(agg + self.eps.to(x.dtype) * x))
 
 
 class GATConv(nn.Module):
@@ -125,11 +126,14 @@ class GATConv(nn.Module):
             raise NotImplementedError(
                 "GATConv: block-dense attention (GAT inner) is still to port")
         hh = self.lin(x).view(-1, self.heads, self.head_dim)
-        score_l = (hh * self.a_l).sum(-1)  # [N, H], destination half
-        score_r = (hh * self.a_r).sum(-1)  # [N, H], source half
+        score_l = (hh * self.a_l.to(x.dtype)).sum(-1)  # [N, H], destination
+        score_r = (hh * self.a_r.to(x.dtype)).sum(-1)  # [N, H], source half
         if dense is not None:
-            agg, _ = ops.flash_gat_attention(score_l, score_r, hh, dense[1],
-                                             self.negative_slope)
+            # the flash kernels take float32, as JAX hands them f32 scores
+            agg, _ = ops.flash_gat_attention(
+                score_l.float(), score_r.float(), hh.float(), dense[1],
+                self.negative_slope)
+            agg = agg.to(x.dtype)
         elif edge_src is not None:
             # dst is sorted; src goes through the source-sort permutation,
             # so both gathers have a sorted-segment-sum backward
@@ -143,7 +147,7 @@ class GATConv(nn.Module):
                                      src_sorted=src_sorted)
         else:
             raise ValueError("GATConv needs an edge list or dense=")
-        return self._act(agg.reshape(-1, self.out_dim) + self.bias)
+        return self._act(agg.reshape(-1, self.out_dim) + self.bias.to(x.dtype))
 
 
 def parse_conv(spec: str, in_dim: int) -> nn.Module:

@@ -3,7 +3,11 @@
 
 Weights follow PyTorch's layout: ``nn.Linear.weight`` is ``[out, in]``,
 where the JAX package keeps ``w`` as ``[in, out]`` (``bridge.py``
-transposes). Construction only allocates (zeros, no random draw); each
+transposes). Parameters stay float32 (the master weights); a layer casts
+them to its input's type inside ``forward``, so a bf16 model computes in
+bf16 (matmuls accumulate in float32 on the card) and its gradients reach
+the float32 parameters through the cast (``bignn_tpu/models/bignn.py:
+101-109``, ``modules.py:58-65``). Construction only allocates (zeros, no random draw); each
 module's ``init_params(key)`` is the JAX module's ``init(key)``, bit for
 bit through ``prng.py``, as a state dict, and ``BiGNN`` loads it.
 """
@@ -72,7 +76,8 @@ class Dense(nn.Linear):
         return state
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self._act(super().forward(x))
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return self._act(F.linear(x, self.weight.to(x.dtype), bias))
 
 
 class MLP(nn.Module):

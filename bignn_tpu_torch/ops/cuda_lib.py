@@ -27,32 +27,78 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "bignn_tpu_torch"
 SOURCES = ("segment_sum.cu", "block_adj.cu", "flash_gat.cu",
            "flash_gat_bwd.cu", "segment_softmax.cu", "spmm_multihead.cu")
-HEADERS = ("segment_bounds.cuh",)
+HEADERS = ("segment_bounds.cuh", "elem.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _VP, _I32, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SEGMENT_SUM = [_VP, _VP, _I32, _I32, _I32, _VP, _VP, _VP]
+_SEGMENT_SUM_PERM = [_VP, _VP, _VP, _I32, _I32, _I32, _VP, _VP, _VP]
+_BLOCK_ADJ = [_VP, _VP, _VP, _VP, _I32, _I32, _VP]
+_SOFTMAX_FWD = [_VP, _VP, _I32, _I32, _I32, _VP, _VP, _VP]
+_SOFTMAX_BWD = [_VP, _VP, _VP, _I32, _I32, _I32, _VP, _VP, _VP]
+_MH_FWD = [_VP, _VP, _VP, _VP, _I32, _I32, _I32, _I32, _I32, _VP, _VP, _VP]
+_MH_BWD = [_VP, _VP, _VP, _VP, _VP, _VP, _I32, _I32, _I32, _I32, _I32, _VP,
+           _VP, _VP, _VP]
 _SIGNATURES = {
     # name: argument types after which the stream follows
-    "bignn_segment_sum_f32": [_VP, _VP, _I32, _I32, _I32, _VP, _VP, _VP],
-    "bignn_block_adj_f32": [_VP, _VP, _VP, _VP, _I32, _I32, _VP],
+    "bignn_segment_sum_f32": _SEGMENT_SUM,
+    "bignn_segment_sum_bf16": _SEGMENT_SUM,
+    "bignn_segment_sum_perm_f32": _SEGMENT_SUM_PERM,
+    "bignn_segment_sum_perm_bf16": _SEGMENT_SUM_PERM,
+    "bignn_block_adj_f32": _BLOCK_ADJ,
+    "bignn_block_adj_bf16": _BLOCK_ADJ,
+    "bignn_block_adj_int8": _BLOCK_ADJ,
+    "bignn_block_adj_int16": _BLOCK_ADJ,
     "bignn_flash_gat_fwd_f32": [_VP, _VP, _VP, _VP, _I32, _I32, _I32, _F32,
                                 _VP, _VP],
     "bignn_flash_gat_bwd_f32": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _I32, _I32,
                                 _I32, _F32, _VP, _VP, _VP],
-    "bignn_segment_sum_perm_f32": [_VP, _VP, _VP, _I32, _I32, _I32, _VP, _VP,
-                                   _VP],
-    "bignn_segment_softmax_fwd_f32": [_VP, _VP, _I32, _I32, _I32, _VP, _VP,
-                                      _VP],
-    "bignn_segment_softmax_bwd_f32": [_VP, _VP, _VP, _I32, _I32, _I32, _VP,
-                                      _VP, _VP],
-    "bignn_spmm_multihead_fwd_f32": [_VP, _VP, _VP, _VP, _I32, _I32, _I32,
-                                     _I32, _I32, _VP, _VP, _VP],
-    "bignn_spmm_multihead_bwd_f32": [_VP, _VP, _VP, _VP, _VP, _VP, _I32, _I32,
-                                     _I32, _I32, _I32, _VP, _VP, _VP, _VP],
+    "bignn_segment_softmax_fwd_f32": _SOFTMAX_FWD,
+    "bignn_segment_softmax_fwd_bf16": _SOFTMAX_FWD,
+    "bignn_segment_softmax_bwd_f32": _SOFTMAX_BWD,
+    "bignn_segment_softmax_bwd_bf16": _SOFTMAX_BWD,
+    "bignn_spmm_multihead_fwd_f32": _MH_FWD,
+    "bignn_spmm_multihead_fwd_bf16": _MH_FWD,
+    "bignn_spmm_multihead_bwd_f32": _MH_BWD,
+    "bignn_spmm_multihead_bwd_bf16": _MH_BWD,
 }
+
+# element type -> the suffix of its entry points and of its launch count
+DTYPE_NAMES = {torch.float32: "f32", torch.bfloat16: "bf16",
+               torch.int8: "int8", torch.int16: "int16"}
+
+
+def dtype_name(dtype: torch.dtype) -> str:
+    return DTYPE_NAMES.get(dtype, str(dtype).replace("torch.", ""))
+
+
+def counter(fn):
+    """Give a kernel wrapper its launch counts: ``fn.launches`` (all
+    launches) and ``fn.launches_by_dtype`` (per element type, by suffix);
+    returns ``fn``."""
+    fn.launches = 0
+    fn.launches_by_dtype = {}
+    return fn
+
+
+def count(fn, dtype: torch.dtype) -> None:
+    """One launch of ``fn``'s kernel on ``dtype`` data."""
+    fn.launches += 1
+    key = dtype_name(dtype)
+    fn.launches_by_dtype[key] = fn.launches_by_dtype.get(key, 0) + 1
+
+
+def require_float(t: torch.Tensor, name: str, op: str) -> str:
+    """The entry-point suffix for ``t``'s type; raises for a type the
+    kernels of ``op`` do not take (float32 and bf16)."""
+    if t.dtype not in (torch.float32, torch.bfloat16):
+        raise NotImplementedError(
+            f"{op} kernels take float32 or bfloat16 {name}, got {t.dtype}")
+    return DTYPE_NAMES[t.dtype]
+
 
 _lib: ctypes.CDLL | None = None
 

@@ -92,7 +92,7 @@ def _flash_gat_fwd_cuda(score_l, score_r, v, cnt, slope: float):
                     score_r.data_ptr(), v.data_ptr(), cnt.data_ptr(), n,
                     heads, head_dim, float(slope), out.data_ptr(),
                     lse.data_ptr())
-    flash_gat_attention.launches += 1
+    cuda_lib.count(flash_gat_attention, torch.float32)
     return out, lse
 
 
@@ -122,11 +122,11 @@ def flash_gat_attention_bwd(score_l, score_r, v, cnt, lse, out, g,
                     lse.data_ptr(), delta.data_ptr(), g.data_ptr(), n, heads,
                     head_dim, float(slope), dsl.data_ptr(), dsr.data_ptr(),
                     dv.data_ptr())
-    flash_gat_attention_bwd.launches += 1
+    cuda_lib.count(flash_gat_attention_bwd, torch.float32)
     return dsl, dsr, dv
 
 
-flash_gat_attention_bwd.launches = 0
+cuda_lib.counter(flash_gat_attention_bwd)
 
 
 class _FlashGATAttention(torch.autograd.Function):
@@ -164,4 +164,4 @@ def flash_gat_attention(score_l: torch.Tensor, score_r: torch.Tensor,
     return _FlashGATAttention.apply(score_l, score_r, v, cnt, float(slope))
 
 
-flash_gat_attention.launches = 0
+cuda_lib.counter(flash_gat_attention)

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from bignn_tpu_torch.ops import cuda_lib
 from bignn_tpu_torch.ops.segment import segment_sum_launch, segment_sum_plain
 
 NARROW = 8  # row width up to which gather_rows gathers element by element
@@ -61,7 +62,8 @@ def gather_rows_sorted_grad_bwd(g: torch.Tensor, indices: torch.Tensor,
                                 num_rows: int, perm=None,
                                 ids_sorted=None) -> torch.Tensor:
     """The gradient of the table, ``[num_rows, ...]``, for the cotangent
-    ``g`` (``[E, ...]`` f32) of the gather. A CPU tensor takes the plain
+    ``g`` (``[E, ...]`` float32 or bf16, summed in float32, in ``g``'s type)
+    of the gather. A CPU tensor takes the plain
     version; any other goes to the kernel, which raises on what it does not
     take."""
     if g.device.type == "cpu":
@@ -72,11 +74,11 @@ def gather_rows_sorted_grad_bwd(g: torch.Tensor, indices: torch.Tensor,
         out = segment_sum_launch(flat, indices, num_rows)
     else:
         out = segment_sum_launch(flat, ids_sorted, num_rows, perm)
-    gather_rows_sorted_grad_bwd.launches += 1
+    cuda_lib.count(gather_rows_sorted_grad_bwd, g.dtype)
     return out.view((num_rows,) + tuple(g.shape[1:]))
 
 
-gather_rows_sorted_grad_bwd.launches = 0
+cuda_lib.counter(gather_rows_sorted_grad_bwd)
 
 
 class _GatherSortedGrad(torch.autograd.Function):

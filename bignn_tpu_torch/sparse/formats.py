@@ -59,12 +59,16 @@ def symmetrize(src: np.ndarray, dst: np.ndarray) -> tuple[np.ndarray, np.ndarray
 
 
 def _to_device(obj, device) -> dict:
-    """Array fields of a container as tensors on ``device``."""
-    return {
-        f.name: torch.from_numpy(np.ascontiguousarray(v)).to(device)
-        for f in dataclasses.fields(obj)
-        if isinstance(v := getattr(obj, f.name), np.ndarray)
-    }
+    """Array fields of a container (NumPy arrays or tensors) as tensors on
+    ``device``."""
+    moved = {}
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        if isinstance(v, np.ndarray):
+            v = torch.from_numpy(np.ascontiguousarray(v))
+        if isinstance(v, torch.Tensor):
+            moved[f.name] = v.to(device)
+    return moved
 
 
 @dataclasses.dataclass

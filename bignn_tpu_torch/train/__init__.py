@@ -1,5 +1,5 @@
-"""Training (counterpart of ``bignn_tpu/train``): the full-graph trainer,
-metrics and checkpoints."""
+"""Training (counterpart of ``bignn_tpu/train``): the full-graph and the
+hierarchical minibatch trainers, metrics and checkpoints."""
 
 from bignn_tpu_torch.config import TrainConfig
 from bignn_tpu_torch.train.checkpoint import CheckpointManager
@@ -9,10 +9,15 @@ from bignn_tpu_torch.train.metrics import (
     roc_auc,
     roc_auc_torch,
 )
-from bignn_tpu_torch.train.trainer import Trainer, make_optimizer
+from bignn_tpu_torch.train.trainer import (
+    MinibatchTrainer,
+    Trainer,
+    make_optimizer,
+)
 
 __all__ = [
     "CheckpointManager",
+    "MinibatchTrainer",
     "TrainConfig",
     "Trainer",
     "average_precision",

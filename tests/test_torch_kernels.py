@@ -10,7 +10,9 @@ Without a card the ``gpu`` tests skip. Tolerance: rtol = atol = 1e-5 in
 f32, since kernel and plain version sum in different orders; counts exact;
 gradients rtol = atol = 1e-4 (sums over whole rows and columns), and a
 whole step's gradients rtol 2e-4 / atol 2e-5 x max |g|, as the CPU tests
-hold the port against JAX.
+hold the port against JAX. bf16 forms: both sum in float32 and round once,
+so they differ by at most one bf16 rounding of nearly equal sums (BF16_TOL,
+rtol 1e-2 > 2**-7).
 """
 
 from unittest import mock
@@ -23,6 +25,7 @@ from bignn_tpu_torch import ops
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 GRAD_TOL = dict(rtol=1e-4, atol=1e-4)
+BF16_TOL = dict(rtol=1e-2, atol=1e-5)
 
 
 def _hole_ids(rng, num_segments):
@@ -383,8 +386,8 @@ def test_launch_counts_and_limits_on_card(cuda_device):
     v = torch.zeros(8, 2, 72, device=cuda_device)  # head_dim over the limit
     with pytest.raises(NotImplementedError, match="head_dim"):
         ops.flash_gat_attention(s, s, v, torch.zeros(8, 8, device=cuda_device))
-    with pytest.raises(NotImplementedError, match="float32"):
-        ops.segment_sum(torch.zeros(4, 2, dtype=torch.bfloat16,
+    with pytest.raises(NotImplementedError, match="float32 or bfloat16"):
+        ops.segment_sum(torch.zeros(4, 2, dtype=torch.float16,
                                     device=cuda_device),
                         torch.zeros(4, dtype=torch.int32,
                                     device=cuda_device), 1)
@@ -586,3 +589,191 @@ def test_spmm_multihead_past_int32_offsets_on_card(cuda_device):
     scale = want_dv.abs().max().item()
     np.testing.assert_allclose(d_v.cpu().numpy(), want_dv.cpu().numpy(),
                                rtol=1e-4, atol=1e-4 * max(scale, 1.0))
+
+
+def _count_edges(rng, nblk, max_mult=16):
+    """Dst-sorted block-local edges in which one (d, s) pair repeats
+    ``max_mult`` times (config4's superrow bound r_node**2 = 16), plus
+    padding."""
+    src, dst, est, n = _block_local_edges(rng, nblk)
+    real = dst < n
+    # _block_local_edges already holds the pair (dst[0], src[0]) twice
+    src = np.concatenate([src[real], np.full(max_mult - 2, src[0])])
+    dst = np.concatenate([dst[real], np.full(max_mult - 2, dst[0])])
+    order = np.argsort(dst, kind="stable")
+    src = np.concatenate([src[order], np.zeros(50, np.int32)])
+    dst = np.concatenate([dst[order], np.full(50, n, np.int32)])
+    est = np.searchsorted(dst, np.arange(0, n + 1, 128)).astype(np.int32)
+    return src.astype(np.int32), dst.astype(np.int32), est, n
+
+
+def _dtype_cases(device):
+    """name -> (kernel call, plain call) for the bf16 forms of the segment
+    sum, softmax, multi-head SpMM and gather backward, and the bf16, int8
+    and int16 block adjacencies; on small inputs on ``device``."""
+    rng = np.random.default_rng(7)
+    bf = torch.bfloat16
+    cases = {}
+    ids = _hole_ids(rng, 60)
+    ids_t = _on(device, ids)[0]
+    for feat in (130, 3):  # pairs of bf16, and single values
+        (x,) = _on(device, rng.standard_normal((len(ids), feat)).astype(
+            np.float32))
+        x = x.to(bf)
+        cases[f"segment_sum_bf16_f{feat}"] = (
+            lambda x=x: ops.segment_sum(x, ids_t, 60),
+            lambda x=x: ops.segment_sum_plain(x, ids_t, 60))
+    bsrc, bdst, best = _on(device, *_count_edges(rng, 3)[:3])
+    w = torch.rand(bsrc.shape[0], device=device) * (bdst < 384)
+    for dt in (torch.int8, torch.int16, bf):
+        cases[f"block_adjacency_{dt}"] = (
+            lambda dt=dt: ops.block_adjacency(bsrc, bdst, None, best, 384,
+                                              dt),
+            lambda dt=dt: ops.block_adjacency_plain(bsrc, bdst, None, 384,
+                                                    dt))
+    cases["block_adjacency_bf16_weighted"] = (
+        lambda: ops.block_adjacency(bsrc, bdst, w, best, 384, bf),
+        lambda: ops.block_adjacency_plain(bsrc, bdst, w, 384, bf))
+    for tag, n_seg, heads, sids in (
+            ("holes_h4", 60, 4, _hole_ids(rng, 60)),
+            ("shuffled_h3", 50, 3, rng.permutation(np.concatenate(
+                [rng.integers(0, 50, 700), np.full(20, 50)])))):
+        x, g, i = _on(device, 4 * rng.standard_normal(
+            (len(sids), heads)).astype(np.float32), rng.standard_normal(
+            (len(sids), heads)).astype(np.float32), sids.astype(np.int32))
+        x, g = x.to(bf), g.to(bf)
+        alpha = ops.segment_softmax_plain(x, i, n_seg)
+        cases[f"segment_softmax_bf16_{tag}"] = (
+            lambda x=x, i=i, n=n_seg: ops.segment_softmax(x, i, n),
+            lambda x=x, i=i, n=n_seg: ops.segment_softmax_plain(x, i, n))
+        cases[f"segment_softmax_bwd_bf16_{tag}"] = (
+            lambda a=alpha, g=g, i=i, n=n_seg: ops.segment_softmax_bwd(
+                a, g, i, n),
+            lambda a=alpha, g=g, i=i, n=n_seg:
+                ops.segment_softmax_bwd_plain(a, g, i, n))
+    for tag, n, e, heads, head_dim, sort in (
+            ("h4d32", 80, 1500, 4, 32, True), ("h2d3", 30, 300, 2, 3, True),
+            ("unsorted", 40, 500, 4, 8, False)):
+        src, dst, perm, ssorted = _on(device, *_edge_list(rng, n, e,
+                                                          sort=sort))
+        v, alpha, g = _on(device, rng.standard_normal(
+            (n, heads, head_dim)).astype(np.float32), rng.random(
+            (len(src), heads)).astype(np.float32), rng.standard_normal(
+            (n, heads, head_dim)).astype(np.float32))
+        args = (v.to(bf), src, dst, alpha.to(bf), n)
+        g = g.to(bf)
+        cases[f"spmm_multihead_bf16_{tag}"] = (
+            lambda a=args: ops.spmm_multihead(*a),
+            lambda a=args: ops.spmm_multihead_plain(*a))
+        cases[f"spmm_multihead_bwd_bf16_{tag}"] = (
+            lambda a=args, g=g, p=perm, s=ssorted: ops.spmm_multihead_bwd(
+                *a, g, p, s),
+            lambda a=args, g=g: ops.spmm_multihead_bwd_plain(*a, g))
+    src, dst, perm, ssorted = _on(device, *_edge_list(rng, 40, 400))
+    (table,) = _on(device, rng.standard_normal((len(src), 4)).astype(
+        np.float32))
+    table = table.to(bf)
+    cases["gather_bwd_bf16_sorted"] = (
+        lambda: ops.gather_rows_sorted_grad_bwd(table, dst, 40),
+        lambda: ops.gather_rows_sorted_grad_bwd_plain(table, dst, 40))
+    cases["gather_bwd_bf16_perm"] = (
+        lambda: ops.gather_rows_sorted_grad_bwd(table, src, 40, perm, ssorted),
+        lambda: ops.gather_rows_sorted_grad_bwd_plain(table, src, 40, perm,
+                                                      ssorted))
+    return cases
+
+
+DTYPE_CASES = [
+    "segment_sum_bf16_f130", "segment_sum_bf16_f3",
+    "block_adjacency_torch.int8", "block_adjacency_torch.int16",
+    "block_adjacency_torch.bfloat16", "block_adjacency_bf16_weighted",
+    *(f"segment_softmax{b}_bf16_{t}" for b in ("", "_bwd")
+      for t in ("holes_h4", "shuffled_h3")),
+    *(f"spmm_multihead{b}_bf16_{t}" for b in ("", "_bwd")
+      for t in ("h4d32", "h2d3", "unsorted")),
+    "gather_bwd_bf16_sorted", "gather_bwd_bf16_perm"]
+
+
+def _outputs(x):
+    return x if isinstance(x, tuple) else (x,)
+
+
+def test_dtype_case_names_are_complete():
+    assert sorted(_dtype_cases("cpu")) == sorted(DTYPE_CASES)
+
+
+def test_dtype_plain_cases_run_on_cpu():
+    """On CPU tensors every bf16/int form takes its plain version: the
+    output keeps the input's type (or the asked one), both calls agree
+    exactly, no launch is counted, and int8 counts reach 16."""
+    counted = (ops.segment_sum, ops.block_adjacency, ops.segment_softmax,
+               ops.segment_softmax_bwd, ops.spmm_multihead,
+               ops.spmm_multihead_bwd, ops.gather_rows_sorted_grad_bwd)
+    before = [k.launches for k in counted]
+    for name, (kernel, plain) in _dtype_cases("cpu").items():
+        got, want = kernel(), plain()
+        for a, b in zip(_outputs(got), _outputs(want)):
+            assert torch.equal(a, b), name
+            assert a.dtype != torch.float32, name
+    assert [k.launches for k in counted] == before
+    cnt = _dtype_cases("cpu")["block_adjacency_torch.int8"][0]()
+    assert int(cnt.max()) == 16
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", DTYPE_CASES)
+def test_dtype_kernel_matches_plain_on_card(cuda_device, case):
+    kernel, plain = _dtype_cases(cuda_device)[case]
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    for g, w in zip(_outputs(got), _outputs(want)):
+        assert g.dtype == w.dtype, case
+        if not g.dtype.is_floating_point:  # counts: exact
+            assert torch.equal(g, w), case
+        else:
+            np.testing.assert_allclose(g.float().cpu().numpy(),
+                                       w.float().cpu().numpy(), **BF16_TOL,
+                                       err_msg=case)
+
+
+@pytest.mark.gpu
+def test_dtype_kernels_repeat_bit_for_bit_and_count_by_dtype(cuda_device):
+    """Two launches of each bf16/int form give the same bits, and each
+    counts under its element type in ``launches_by_dtype``."""
+    cases = _dtype_cases(cuda_device)
+    for op, case, key in (
+            ("segment_sum", "segment_sum_bf16_f130", "bf16"),
+            ("block_adjacency", "block_adjacency_torch.int8", "int8"),
+            ("block_adjacency", "block_adjacency_torch.int16", "int16"),
+            ("block_adjacency", "block_adjacency_bf16_weighted", "bf16"),
+            ("segment_softmax", "segment_softmax_bf16_holes_h4", "bf16"),
+            ("segment_softmax_bwd", "segment_softmax_bwd_bf16_holes_h4",
+             "bf16"),
+            ("spmm_multihead", "spmm_multihead_bf16_h4d32", "bf16"),
+            ("spmm_multihead_bwd", "spmm_multihead_bwd_bf16_h4d32", "bf16"),
+            ("gather_rows_sorted_grad_bwd", "gather_bwd_bf16_perm", "bf16")):
+        fn = getattr(ops, op)
+        before = fn.launches_by_dtype.get(key, 0)
+        a, b = cases[case][0](), cases[case][0]()
+        cases[case][1]()
+        assert fn.launches_by_dtype[key] == before + 2, case
+        for x, y in zip(_outputs(a), _outputs(b)):
+            assert torch.equal(x, y), case
+
+
+@pytest.mark.gpu
+def test_dtype_kernels_refuse_on_card(cuda_device):
+    ids = torch.zeros(16, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(NotImplementedError, match="float32 or bfloat16"):
+        ops.segment_softmax(torch.zeros(16, 4, dtype=torch.float16,
+                                        device=cuda_device), ids, 4)
+    v = torch.zeros(8, 4, 8, dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(ValueError, match="torch.bfloat16"):
+        ops.spmm_multihead(v, ids, ids, torch.zeros(16, 4, device=cuda_device),
+                           8)  # alpha in float32, v in bf16
+    est = torch.zeros(2, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="float output"):
+        ops.block_adjacency(ids, ids, torch.zeros(16, device=cuda_device),
+                            est, 128, torch.int8)
+    with pytest.raises(NotImplementedError, match="int16"):
+        ops.block_adjacency(ids, ids, None, est, 128, torch.int32)

@@ -210,5 +210,11 @@ def test_unported_parts_raise():
         GATConv(8, 16, heads=2)(torch.zeros(128, 8),
                                 block_dense=(None, torch.zeros(1, 128, 128)))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
+        GCNConv(8, 16)(torch.zeros(4, 8))  # streaming edge-list branch
+    # bf16 is ported (config4); other compute types are refused
+    assert BiGNN(dataclasses.replace(BiGNNConfig.full_bignn(8),
+                                     dtype="bfloat16")).compute_dtype == (
+        torch.bfloat16)
+    with pytest.raises(ValueError, match="dtype"):
         BiGNN(dataclasses.replace(BiGNNConfig.full_bignn(8),
-                                  dtype="bfloat16"))
+                                  dtype="float16"))
