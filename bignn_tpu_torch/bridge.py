@@ -2,14 +2,16 @@
 
 The JAX package keeps parameters as nested dicts (``bignn_tpu/models/
 bignn.py:119-132``): ``inner/layer_i/mlp/layer_j/{w,b}``, ``inner/layer_i/
-eps``, ``outer/layer_i/{w,a_l,a_r,b}``, ``scorer/mlp/layer_j/{w,b}``. Leaves
-arrive as NumPy arrays (``jax.tree.map(np.asarray, params)``), so this
-module needs no JAX. Renaming rules:
-  * ``layer_i`` under ``inner``/``outer`` -> ``i``; under ``mlp`` ->
-    ``layers.i``;
+eps``, ``outer/layer_i/{w,a_l,a_r,b}``, ``scorer/mlp/layer_j/{w,b}``, and for the
+attention readout ``readout/gate/layer_j/{w,b}`` and ``readout/proj``.
+Leaves arrive as NumPy arrays (``jax.tree.map(np.asarray, params)``), so
+this module needs no JAX. Renaming rules:
+  * ``layer_i`` under ``inner``/``outer`` -> ``i``; under an MLP (``mlp``,
+    the readout's ``gate``) -> ``layers.i``;
   * a Dense layer's ``w`` ``[in, out]`` -> ``weight`` ``[out, in]``
     (transposed), ``b`` -> ``bias``;
   * a conv's own ``w`` -> ``lin.weight`` (transposed), ``b`` -> ``bias``;
+  * the readout's ``proj`` ``[in, out]`` -> ``proj.weight`` (transposed);
   * ``eps`` (0-d), ``a_l``/``a_r`` (``[H, D]``) keep name and shape.
 """
 
@@ -30,6 +32,9 @@ def _flatten(tree: Mapping, prefix: tuple = ()):
             yield prefix + (key,), value
 
 
+_MLPS = ("mlp", "gate")  # keys of an MLP's layer_j
+
+
 def _rename(path: tuple[str, ...]) -> tuple[str, bool]:
     """(state-dict name, transpose?) of one JAX leaf path."""
     out: list[str] = []
@@ -37,11 +42,13 @@ def _rename(path: tuple[str, ...]) -> tuple[str, bool]:
     for i, key in enumerate(path[:-1]):
         if key.startswith("layer_"):
             idx = key[len("layer_"):]
-            in_dense = i > 0 and path[i - 1] == "mlp"
+            in_dense = i > 0 and path[i - 1] in _MLPS
             out += ["layers", idx] if in_dense else [idx]
         else:
             out.append(key)
     leaf = path[-1]
+    if leaf == "proj":
+        return ".".join(out + ["proj", "weight"]), True
     if leaf == "w":
         return ".".join(out + (["weight"] if in_dense else ["lin", "weight"])), True
     if leaf == "b":

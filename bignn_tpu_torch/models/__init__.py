@@ -3,10 +3,17 @@
 from bignn_tpu_torch.models.bignn import BiGNN, BiGNNConfig, upload_buckets
 from bignn_tpu_torch.models.convs import GATConv, GCNConv, GINConv, parse_conv
 from bignn_tpu_torch.models.modules import MLP, Dense, glorot, parse_activation
-from bignn_tpu_torch.models.readout import SumReadout, parse_readout
+from bignn_tpu_torch.models.readout import (
+    AttentionReadout,
+    MaxReadout,
+    MeanReadout,
+    SumReadout,
+    parse_readout,
+)
 from bignn_tpu_torch.models.scorer import DotScorer, MLPScorer, parse_scorer
 
 __all__ = [
+    "AttentionReadout",
     "BiGNN",
     "BiGNNConfig",
     "Dense",
@@ -16,6 +23,8 @@ __all__ = [
     "GINConv",
     "MLP",
     "MLPScorer",
+    "MaxReadout",
+    "MeanReadout",
     "SumReadout",
     "glorot",
     "parse_activation",

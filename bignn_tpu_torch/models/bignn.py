@@ -64,8 +64,8 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 class BiGNN(nn.Module):
-    """Parameters are named ``inner.<i>.*``, ``outer.<i>.*`` and
-    ``scorer.*`` (``bridge.py`` maps the JAX tree onto them). Construction
+    """Parameters are named ``inner.<i>.*``, ``readout.*`` (the attention
+    readout's), ``outer.<i>.*`` and ``scorer.*`` (``bridge.py`` maps the JAX tree onto them). Construction
     loads :meth:`init_params` of ``seed``: the JAX package's initial
     parameters for ``jax.random.key(seed)``.
 
@@ -101,29 +101,43 @@ class BiGNN(nn.Module):
     def init_params(self, seed: int) -> dict[str, torch.Tensor]:
         """The JAX package's ``BiGNN.init(jax.random.key(seed))`` as a
         state dict for this model, bit for bit: the same threefry keys
-        (``prng.py``), handed out in the same order (inner layers, the
-        readout's unused key, outer layers, scorer)."""
+        (``prng.py``), handed out in the same order (inner layers, readout,
+        outer layers, scorer)."""
         keys = prng.split(prng.key(seed),
                           len(self.inner) + len(self.outer) + 2)
         state = {}
         for i, conv in enumerate(self.inner):
             state.update(prefixed(f"inner.{i}.", conv.init_params(keys.pop())))
-        keys.pop()  # the sum readout's key: it has no parameters
+        state.update(prefixed("readout.",
+                              self.readout.init_params(keys.pop())))
         for i, conv in enumerate(self.outer):
             state.update(prefixed(f"outer.{i}.", conv.init_params(keys.pop())))
         state.update(prefixed("scorer.", self.scorer.init_params(keys.pop())))
         return state
 
     def encode_inner(self, batch: PaddedGraphBatch) -> torch.Tensor:
-        """Inner convs + readout on one bucket -> ``[num_graphs, d]`` in the
-        compute type."""
-        block_dense = None
+        """Inner convs + readout on one bucket -> ``[num_graphs, d]`` (the
+        compute type; float32 from the attention readout). Every conv gets
+        the bucket's edge list, GCN weights and source-sort arrays, its
+        block-local plan where the layout has one, and the dense blocks
+        where the bucket has them (``node_cap <= BLOCK_DENSE_MAX_NODES``),
+        which it then prefers (JAX ``bignn.py:135-164``)."""
+        block_dense = block_plan = None
         if batch.block_cnt is not None:
             block_dense = (batch.block_adj, batch.block_cnt)
+        if batch.block_estarts is not None and batch.edge_tsrc is not None:
+            block_plan = (batch.block_estarts, batch.edge_tsrc,
+                          batch.edge_tdst, batch.edge_tweight,
+                          batch.block_tstarts)
         x = batch.node_feat.to(self.compute_dtype)
         for conv in self.inner:
-            x = conv(x, block_dense=block_dense)
-        return self.readout(x, batch.graph_ids, batch.num_graphs)
+            x = conv(x, batch.edge_src, batch.edge_dst, batch.node_cap,
+                     src_perm=batch.edge_src_perm,
+                     src_sorted=batch.edge_src_sorted,
+                     edge_weight=batch.edge_weight, block_plan=block_plan,
+                     block_dense=block_dense)
+        return self.readout(x, batch.graph_ids, batch.num_graphs,
+                            batch.graph_n_nodes)
 
     def embed_drugs(self, buckets: Sequence[PaddedGraphBatch],
                     graph_index: Sequence[torch.Tensor],
@@ -141,9 +155,10 @@ class BiGNN(nn.Module):
 
     def propagate_outer(self, emb: torch.Tensor,
                         outer: OuterGraph) -> torch.Tensor:
-        """The outer convs over the DDI graph: every conv gets its edge list
-        and source-sort arrays, and the dense masks where the graph has them
-        (``num_nodes <= dense_max_nodes``), which it then prefers."""
+        """The outer convs over the DDI graph: every conv gets its edge list,
+        GCN weights and source-sort arrays, and the dense masks where the
+        graph has them (``num_nodes <= dense_max_nodes``), which it then
+        prefers."""
         dense = None
         if outer.dense_cnt is not None:
             dense = (outer.dense_adj, outer.dense_cnt)
@@ -151,7 +166,8 @@ class BiGNN(nn.Module):
         for conv in self.outer:
             emb = conv(emb, outer.edge_src, outer.edge_dst, outer.num_nodes,
                        src_perm=outer.edge_src_perm,
-                       src_sorted=outer.edge_src_sorted, dense=dense)
+                       src_sorted=outer.edge_src_sorted, dense=dense,
+                       edge_weight=outer.edge_weight)
         return emb
 
     def score_pairs(self, emb: torch.Tensor, pairs: torch.Tensor) -> torch.Tensor:
@@ -176,27 +192,30 @@ class BiGNN(nn.Module):
 
 def upload_buckets(bucketing: Bucketing, inner_layers: Sequence[str],
                    device) -> tuple[list[PaddedGraphBatch], list[torch.Tensor]]:
-    """``(buckets, graph_index)`` on ``device``.
+    """``(buckets, graph_index)`` on ``device``, as ``build_padded_batch``
+    lays them out (JAX ``sparse/formats.py:259``, ``:365``).
 
-    Each bucket goes up without its host-built adjacencies, which are
-    then built on the device by ``ops.block_adjacency``: the multiplicity
-    always (GIN sum, attention mask), the GCN weights when an inner layer
-    (``inner_layers``, spec strings) is a GCN."""
+    Each bucket goes up without its host-built adjacencies. A bucket that
+    had them (block-local, at most ``BLOCK_DENSE_MAX_NODES`` rows) gets them
+    built on the device by ``ops.block_adjacency``: the multiplicity always
+    (GIN sum, attention mask), the GCN weights when an inner layer
+    (``inner_layers``, spec strings) is a GCN. A larger block-local bucket
+    keeps only its block plan (the convs take ``ops.block_spmm``), and a
+    bucket that is not block-local (molecules over 128 atoms) its edge list
+    and source-sort arrays (``ops.spmm_sorted_coo``)."""
     weighted = any(s.split(":")[0] == "gcn" for s in inner_layers)
     buckets = []
     for batch in bucketing.batches:
         dev = dataclasses.replace(batch, block_adj=None,
                                   block_cnt=None).to(device)
-        if dev.block_estarts is None:
-            raise NotImplementedError(
-                "molecules over 128 atoms need the streaming inner layout, "
-                "still to port (ROADMAP Queue 1 item 4)")
-        dev.block_cnt = ops.block_adjacency(
-            dev.edge_src, dev.edge_dst, None, dev.block_estarts, dev.node_cap)
-        if weighted:
-            dev.block_adj = ops.block_adjacency(
-                dev.edge_src, dev.edge_dst, dev.edge_weight,
-                dev.block_estarts, dev.node_cap)
+        if batch.block_cnt is not None:
+            dev.block_cnt = ops.block_adjacency(
+                dev.edge_src, dev.edge_dst, None, dev.block_estarts,
+                dev.node_cap)
+            if weighted:
+                dev.block_adj = ops.block_adjacency(
+                    dev.edge_src, dev.edge_dst, dev.edge_weight,
+                    dev.block_estarts, dev.node_cap)
         buckets.append(dev)
     graph_index = [torch.as_tensor(i, device=device)
                    for i in bucketing.graph_index]

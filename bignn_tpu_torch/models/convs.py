@@ -1,19 +1,24 @@
 """Graph convolutions (counterpart of ``bignn_tpu/models/convs.py``).
 
 A conv takes node states, the dst-sorted edge list of the JAX convs
-(``edge_src``, ``edge_dst``, ``num_nodes``, and the source-sort arrays
-``src_perm``/``src_sorted``), and optionally one of two dense adjacency
-forms, which it prefers where it has a branch for them:
+(``edge_src``, ``edge_dst``, ``num_nodes``, the GCN weights
+``edge_weight``, and the source-sort arrays ``src_perm``/``src_sorted``),
+and optionally one of two dense adjacency forms, which it prefers in this
+order, as the JAX convs do:
   * ``dense=(adj, cnt)``: ``[N, N]`` weights and multiplicities of a small
     outer graph;
   * ``block_dense=(block_adj, block_cnt)``: ``[N/128, 128, 128]`` blocks of
-    the block-local inner layout.
-Each conv computes in its input's type (float32 or bf16) and casts its
-float32 parameters to it. ``GATConv`` runs the edge list when no dense form
-is given (the outer graph above ``dense_max_nodes`` drugs): ``ops.gather_rows_sorted_grad``,
-``ops.segment_softmax`` and ``ops.spmm_multihead``. The streaming branches
-of GCN and GIN (Queue 2 row 7, ROADMAP Queue 1 item 4) and DotAttnConv are
-still to port and raise. Every branch here is differentiable:
+    the block-local inner layout (buckets of at most
+    ``BLOCK_DENSE_MAX_NODES`` rows).
+Without either, GCN and GIN aggregate over the edge list: ``ops.block_spmm``
+when a block-local ``block_plan`` is given (larger buckets), else
+``ops.spmm_sorted_coo`` (molecules over 128 atoms; a sparse outer graph).
+``GATConv`` runs the edge list when no dense form is given (the outer graph
+above ``dense_max_nodes`` drugs): ``ops.gather_rows_sorted_grad``,
+``ops.segment_softmax`` and ``ops.spmm_multihead``; its block-dense inner
+attention and ``DotAttnConv`` are still to port (ROADMAP Queue 1 item 4b)
+and raise. Each conv computes in its input's type (float32 or bf16) and
+casts its float32 parameters to it. Every branch here is differentiable:
 ``torch.bmm`` and the autograd Functions of the ops.
 """
 
@@ -32,8 +37,17 @@ from bignn_tpu_torch.models.modules import (
     prefixed,
 )
 
-_STREAMING = ("the streaming edge-list branch is still to port (ROADMAP "
-              "Queue 1 item 4; its kernel is Queue 2 row 7)")
+
+def _aggregate(x, edge_src, edge_dst, edge_weight, num_nodes, src_perm,
+               src_sorted, block_plan, conv: str):
+    """The edge-list aggregation of GCN (weighted) and GIN (``edge_weight``
+    None); ``ops.spmm_sorted_coo`` takes the block-local route with a
+    plan."""
+    if edge_src is None:
+        raise ValueError(f"{conv} needs an edge list or a dense form")
+    return ops.spmm_sorted_coo(x, edge_src, edge_dst, edge_weight, num_nodes,
+                               src_perm=src_perm, src_sorted=src_sorted,
+                               block_plan=block_plan)
 
 
 class GCNConv(nn.Module):
@@ -52,14 +66,16 @@ class GCNConv(nn.Module):
                 "bias": torch.zeros(self.out_dim)}
 
     def forward(self, x, edge_src=None, edge_dst=None, num_nodes=None,
-                src_perm=None, src_sorted=None, dense=None, block_dense=None):
+                src_perm=None, src_sorted=None, dense=None, block_dense=None,
+                edge_weight=None, block_plan=None):
         h = self.lin(x)
         if dense is not None:
             agg = dense[0].to(h.dtype) @ h
         elif block_dense is not None:
             agg = ops.block_diag_spmm(block_dense[0], h)
         else:
-            raise NotImplementedError(f"GCNConv: {_STREAMING}")
+            agg = _aggregate(h, edge_src, edge_dst, edge_weight, num_nodes,
+                             src_perm, src_sorted, block_plan, "GCNConv")
         return self._act(agg + self.bias.to(x.dtype))
 
 
@@ -83,13 +99,16 @@ class GINConv(nn.Module):
                 "eps": torch.zeros(())}
 
     def forward(self, x, edge_src=None, edge_dst=None, num_nodes=None,
-                src_perm=None, src_sorted=None, dense=None, block_dense=None):
+                src_perm=None, src_sorted=None, dense=None, block_dense=None,
+                edge_weight=None, block_plan=None):
+        # GIN's sum is unweighted: edge_weight (the GCN weights) is unused
         if dense is not None:
             agg = dense[1].to(x.dtype) @ x
         elif block_dense is not None:
             agg = ops.block_diag_spmm(block_dense[1], x)
         else:
-            raise NotImplementedError(f"GINConv: {_STREAMING}")
+            agg = _aggregate(x, edge_src, edge_dst, None, num_nodes, src_perm,
+                             src_sorted, block_plan, "GINConv")
         return self._act(self.mlp(agg + self.eps.to(x.dtype) * x))
 
 
@@ -121,10 +140,13 @@ class GATConv(nn.Module):
                 "bias": torch.zeros(self.out_dim)}
 
     def forward(self, x, edge_src=None, edge_dst=None, num_nodes=None,
-                src_perm=None, src_sorted=None, dense=None, block_dense=None):
+                src_perm=None, src_sorted=None, dense=None, block_dense=None,
+                edge_weight=None, block_plan=None):
+        # attention replaces the fixed weights; no block-local attention
         if block_dense is not None:
             raise NotImplementedError(
-                "GATConv: block-dense attention (GAT inner) is still to port")
+                "GATConv: block-dense attention (GAT inner) is still to port "
+                "(ROADMAP Queue 1 item 4b)")
         hh = self.lin(x).view(-1, self.heads, self.head_dim)
         score_l = (hh * self.a_l.to(x.dtype)).sum(-1)  # [N, H], destination
         score_r = (hh * self.a_r.to(x.dtype)).sum(-1)  # [N, H], source half
@@ -168,5 +190,5 @@ def parse_conv(spec: str, in_dim: int) -> nn.Module:
         return GATConv(in_dim, nums[0], heads=heads, activation=act)
     if kind == "dotattn":
         raise NotImplementedError(
-            "DotAttnConv is still to port (ROADMAP Queue 1 item 4)")
+            "DotAttnConv is still to port (ROADMAP Queue 1 item 4b)")
     raise ValueError(f"unknown conv spec {spec!r}")

@@ -4,10 +4,14 @@ Hand-written CUDA kernels (``bignn_tpu_torch/csrc``) run on CUDA tensors:
 ``segment_sum``, ``block_adjacency``, ``flash_gat_attention`` and its
 backward ``flash_gat_attention_bwd``, ``segment_softmax`` and its backward
 ``segment_softmax_bwd``, ``spmm_multihead`` and its backward
-``spmm_multihead_bwd``, and ``gather_rows_sorted_grad_bwd``, the backward of
-``gather_rows_sorted_grad``. ``segment_sum``, ``flash_gat_attention``,
-``segment_softmax``, ``spmm_multihead`` and ``gather_rows_sorted_grad`` are
-``torch.autograd.Function``s, so gradients flow through the kernels.
+``spmm_multihead_bwd``, ``gather_rows_sorted_grad_bwd``, the backward of
+``gather_rows_sorted_grad``, ``spmm_sorted_coo`` and its backward
+``spmm_sorted_coo_bwd``, ``block_spmm`` and its backward ``block_spmm_bwd``
+(the same kernel on the transposed plan), and ``segment_max``.
+``segment_sum``, ``flash_gat_attention``, ``segment_softmax``,
+``spmm_multihead``, ``gather_rows_sorted_grad``, ``spmm_sorted_coo``,
+``block_spmm`` and ``segment_max`` are ``torch.autograd.Function``s, so
+gradients flow through the kernels; ``segment_mean`` is two segment sums.
 The tensor's device decides: a CPU tensor takes the op's plain PyTorch
 version (``*_plain``, in the same module), a CUDA tensor launches the kernel
 or raises. Nothing falls back. Each kernel wrapper counts its launches in a
@@ -21,6 +25,11 @@ from bignn_tpu_torch.ops.block_adj import (
     block_adjacency,
     block_adjacency_plain,
     block_diag_spmm,
+)
+from bignn_tpu_torch.ops.block_spmm import (
+    block_spmm,
+    block_spmm_bwd,
+    block_spmm_plain,
 )
 from bignn_tpu_torch.ops.flash_gat import (
     flash_gat_attention,
@@ -43,6 +52,9 @@ from bignn_tpu_torch.ops.multihead import (
     spmm_multihead_plain,
 )
 from bignn_tpu_torch.ops.segment import (
+    segment_max,
+    segment_max_plain,
+    segment_mean,
     segment_softmax,
     segment_softmax_bwd,
     segment_softmax_bwd_plain,
@@ -50,11 +62,20 @@ from bignn_tpu_torch.ops.segment import (
     segment_sum,
     segment_sum_plain,
 )
+from bignn_tpu_torch.ops.spmm import (
+    spmm_sorted_coo,
+    spmm_sorted_coo_bwd,
+    spmm_sorted_coo_bwd_plain,
+    spmm_sorted_coo_plain,
+)
 
 __all__ = [
     "block_adjacency",
     "block_adjacency_plain",
     "block_diag_spmm",
+    "block_spmm",
+    "block_spmm_bwd",
+    "block_spmm_plain",
     "flash_gat_attention",
     "flash_gat_attention_bwd",
     "flash_gat_attention_bwd_plain",
@@ -65,6 +86,9 @@ __all__ = [
     "gather_rows_sorted_grad_bwd_plain",
     "gather_rows_sorted_grad_plain",
     "permutation_scatter_rows",
+    "segment_max",
+    "segment_max_plain",
+    "segment_mean",
     "segment_softmax",
     "segment_softmax_bwd",
     "segment_softmax_bwd_plain",
@@ -75,4 +99,8 @@ __all__ = [
     "spmm_multihead_bwd",
     "spmm_multihead_bwd_plain",
     "spmm_multihead_plain",
+    "spmm_sorted_coo",
+    "spmm_sorted_coo_bwd",
+    "spmm_sorted_coo_bwd_plain",
+    "spmm_sorted_coo_plain",
 ]

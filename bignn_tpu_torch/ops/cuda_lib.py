@@ -26,7 +26,8 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "bignn_tpu_torch"
 SOURCES = ("segment_sum.cu", "block_adj.cu", "flash_gat.cu",
-           "flash_gat_bwd.cu", "segment_softmax.cu", "spmm_multihead.cu")
+           "flash_gat_bwd.cu", "segment_softmax.cu", "spmm_multihead.cu",
+           "spmm.cu", "block_spmm.cu", "segment_max.cu")
 HEADERS = ("segment_bounds.cuh", "elem.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -64,6 +65,12 @@ _SIGNATURES = {
     "bignn_spmm_multihead_fwd_bf16": _MH_FWD,
     "bignn_spmm_multihead_bwd_f32": _MH_BWD,
     "bignn_spmm_multihead_bwd_bf16": _MH_BWD,
+    "bignn_spmm_f32": [_VP, _I32, _VP, _VP, _VP, _I32, _I32, _I32, _VP, _VP,
+                       _VP],
+    "bignn_spmm_bwd_f32": [_VP, _I32, _VP, _VP, _VP, _VP, _I32, _I32, _I32,
+                           _VP, _VP, _VP],
+    "bignn_block_spmm_f32": [_VP, _VP, _VP, _VP, _VP, _I32, _I32, _I32, _VP],
+    "bignn_segment_max_f32": _SEGMENT_SUM,
 }
 
 # element type -> the suffix of its entry points and of its launch count
@@ -77,17 +84,19 @@ def dtype_name(dtype: torch.dtype) -> str:
 
 def counter(fn):
     """Give a kernel wrapper its launch counts: ``fn.launches`` (all
-    launches) and ``fn.launches_by_dtype`` (per element type, by suffix);
+    launches) and ``fn.launches_by_dtype`` (per form: the element type's
+    suffix, and ``:weighted`` after it for the weighted form of an SpMM);
     returns ``fn``."""
     fn.launches = 0
     fn.launches_by_dtype = {}
     return fn
 
 
-def count(fn, dtype: torch.dtype) -> None:
-    """One launch of ``fn``'s kernel on ``dtype`` data."""
+def count(fn, dtype: torch.dtype, weighted: bool = False) -> None:
+    """One launch of ``fn``'s kernel on ``dtype`` data (``weighted``: its
+    weighted form)."""
     fn.launches += 1
-    key = dtype_name(dtype)
+    key = dtype_name(dtype) + (":weighted" if weighted else "")
     fn.launches_by_dtype[key] = fn.launches_by_dtype.get(key, 0) + 1
 
 

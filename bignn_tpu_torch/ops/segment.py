@@ -275,3 +275,116 @@ def segment_softmax(scores: torch.Tensor, segment_ids: torch.Tensor,
 
 
 cuda_lib.counter(segment_softmax)
+
+
+# ---------------------------------------------------------------------------
+# segment_max, segment_mean
+# ---------------------------------------------------------------------------
+
+
+def segment_max_plain(data: torch.Tensor, segment_ids: torch.Tensor,
+                      num_segments: int) -> torch.Tensor:
+    """Plain PyTorch segment max, mirroring the JAX ``xla`` path
+    (``bignn_tpu/ops/segment.py:69-72``): ``scatter_reduce`` ``amax`` over
+    the valid ids in float32, 0 where a segment is empty or its max is not
+    finite, in the data's type. Differentiable by autograd, which splits a
+    segment's cotangent evenly among its tied maxima, as the JAX VJPs do."""
+    x = data.float()
+    _, slot = _slots(segment_ids, num_segments)
+    idx = slot.view((-1,) + (1,) * (x.dim() - 1)).expand(x.shape)
+    # -inf, not 0, in the untouched rows: autograd counts a row of the
+    # initial tensor equal to a segment's max as one more tie
+    out = x.new_full((num_segments + 1,) + tuple(x.shape[1:]),
+                     -torch.inf).scatter_reduce(
+        0, idx, x, "amax", include_self=False)[:num_segments]
+    return torch.where(torch.isfinite(out), out, 0.0).to(data.dtype)
+
+
+def segment_max_bwd(data: torch.Tensor, segment_ids: torch.Tensor,
+                    out: torch.Tensor, g: torch.Tensor,
+                    num_segments: int) -> torch.Tensor:
+    """``d_data`` for the cotangent ``g`` of ``out = segment_max(data)``,
+    composed as ``_segment_max_diff_bwd``
+    (``bignn_tpu/ops/pallas/segment.py:499-512``): the rows equal to their
+    segment's max share its cotangent evenly; the tie counts are a segment
+    sum (the kernel, on a CUDA tensor)."""
+    d2 = data[:, None] if data.dim() == 1 else data
+    o2 = out[:, None] if out.dim() == 1 else out
+    g2 = g[:, None] if g.dim() == 1 else g
+    keep, slot = _slots(segment_ids, num_segments)
+    clip = slot.clamp(max=max(num_segments - 1, 0))
+    is_max = keep[:, None] & (d2 == o2[clip])
+    cnt = segment_sum(is_max.to(torch.float32), segment_ids, num_segments)
+    share = (g2.float() / cnt.clamp_min(1.0))[clip]
+    d = torch.where(is_max, share, 0.0).to(data.dtype)
+    return d[:, 0] if data.dim() == 1 else d
+
+
+def _segment_max_cuda(data: torch.Tensor, segment_ids: torch.Tensor,
+                      num_segments: int) -> torch.Tensor:
+    if data.dim() == 1:
+        return _segment_max_cuda(data[:, None], segment_ids,
+                                 num_segments)[:, 0]
+    if data.dtype != torch.float32:
+        raise NotImplementedError(
+            f"segment_max kernels take float32 data, got {data.dtype}")
+    dev = data.device
+    cuda_lib.require_cuda(data, "data", torch.float32, 2, dev)
+    cuda_lib.require_cuda(segment_ids, "segment_ids", torch.int32, 1, dev)
+    e, f = data.shape
+    if segment_ids.shape[0] != e:
+        raise ValueError(f"segment_ids has {segment_ids.shape[0]} rows, "
+                         f"data {e}")
+    out = torch.empty((num_segments, f), dtype=data.dtype, device=dev)
+    first = torch.empty(num_segments, dtype=torch.int32, device=dev)
+    last = torch.empty(num_segments, dtype=torch.int32, device=dev)
+    cuda_lib.launch("bignn_segment_max_f32", dev, data.data_ptr(),
+                    segment_ids.data_ptr(), e, f, num_segments,
+                    first.data_ptr(), last.data_ptr(), out.data_ptr())
+    cuda_lib.count(segment_max, data.dtype)
+    return out
+
+
+class _SegmentMax(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, data, segment_ids, num_segments):
+        if data.device.type == "cpu":
+            out = segment_max_plain(data, segment_ids, num_segments)
+        else:
+            out = _segment_max_cuda(data, segment_ids, num_segments)
+        ctx.save_for_backward(data, segment_ids, out)
+        ctx.num_segments = num_segments
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        data, segment_ids, out = ctx.saved_tensors
+        return (segment_max_bwd(data, segment_ids, out, g, ctx.num_segments),
+                None, None)
+
+
+def segment_max(data: torch.Tensor, segment_ids: torch.Tensor,
+                num_segments: int) -> torch.Tensor:
+    """``out[s] = max of data[e] over e with segment_ids[e] == s``; 0 for an
+    empty segment or a max that is not finite.
+
+    ``data`` is ``[E, F]`` (or ``[E]``) float32 on the card (the plain
+    version takes any float type), ``segment_ids`` ``[E]`` int32 in any
+    order; ids outside ``[0, num_segments)`` are dropped. A CPU tensor takes
+    the plain version; any other goes to the kernel of
+    ``csrc/segment_max.cu``. The gradient is split evenly among ties."""
+    return _SegmentMax.apply(data, segment_ids, int(num_segments))
+
+
+cuda_lib.counter(segment_max)
+
+
+def segment_mean(data: torch.Tensor, segment_ids: torch.Tensor,
+                 num_segments: int) -> torch.Tensor:
+    """Mean over each segment, 0 for an empty one (JAX ``segment_mean``):
+    two segment sums, of the rows and of ones."""
+    total = segment_sum(data, segment_ids, num_segments)
+    ones = torch.ones(data.shape[:1], dtype=data.dtype, device=data.device)
+    count = segment_sum(ones, segment_ids, num_segments)
+    return total / count.clamp_min(1.0).view(
+        (-1,) + (1,) * (data.dim() - 1))

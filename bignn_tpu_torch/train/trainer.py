@@ -19,7 +19,8 @@ repeats the uninterrupted one.
 ``MinibatchTrainer`` is the hierarchical minibatch trainer of configs 3-4:
 each step trains on a sampled neighbourhood of its pair batch, drawn on the
 host (``data/hierarchical.py``) or on the card (``data/device_sampler.py``),
-and expanded on the card from molecule tables uploaded once.
+and expanded on the card from molecule tables uploaded once, or (with
+``resident=False``) drawn whole on the host and uploaded each step.
 Still to port: the data-parallel ``mesh`` of both trainers (ROADMAP Queue 1
 item 5) and the exact evaluation of ``MinibatchTrainer`` (item 7).
 """
@@ -39,6 +40,7 @@ from bignn_tpu_torch.config import TrainConfig
 from bignn_tpu_torch.data.device_sampler import DeviceSampler
 from bignn_tpu_torch.data.hierarchical import (
     CompactBatch,
+    HierarchicalBatch,
     HierarchicalSampler,
     MoleculeTables,
 )
@@ -246,21 +248,25 @@ class MinibatchTrainer:
     3-4), on ``device`` (no CPU fallback).
 
     Each step trains on the sampled L-hop neighbourhood of its pair batch
-    with static shapes. The per-molecule tables go to the device once (the
-    feature table in bf16 for a bf16 model); a step ships only an
-    index-sized ``CompactBatch``, drawn on the host (``sample_compact_at``,
-    prefetched on threads) or, with ``device_sample``, on the card
-    (``DeviceSampler``), and ``_expand_compact`` builds the padded batch and
-    its int8 (or int16) block counts there. Parameters stay float32 (the
-    model casts them to its compute type); the optimizer is
+    with static shapes. With ``resident`` (the default) the per-molecule
+    tables go to the device once (the feature table in bf16 for a bf16
+    model); a step ships only an index-sized ``CompactBatch``, drawn on the
+    host (``sample_compact_at``, prefetched on threads) or, with
+    ``device_sample``, on the card (``DeviceSampler``), and
+    ``_expand_compact`` builds the padded batch there: with int8 (or int16)
+    block counts when every molecule fits a 128-row block, else the edge
+    list and its source-sort arrays for the streaming convs (molecules over
+    128 atoms). Without ``resident`` each step uploads a whole host-built
+    ``HierarchicalBatch`` (``sample``/``sample_at``), which carries no block
+    fields and streams through ``ops.spmm_sorted_coo``. Parameters stay
+    float32 (the model casts them to its compute type); the optimizer is
     ``make_optimizer``'s Adam.
 
-    Left out: ``mesh`` (data parallelism, ROADMAP Queue 1 item 5),
-    ``resident=False`` and inner layouts that are not block-local (the
-    streaming inner convs, item 4), and ``evaluate(exact=True)``,
-    ``embed_all_exact`` and ``score_exact`` (item 7). JAX's
-    ``optimization_barrier`` fences have no counterpart: PyTorch runs each
-    op as written.
+    Left out: ``mesh`` (data parallelism, ROADMAP Queue 1 item 5) and
+    ``evaluate(exact=True)``, ``embed_all_exact`` and ``score_exact`` (item
+    7). ``device_sample`` needs resident tables and a block-local layout, as
+    in JAX. JAX's ``optimization_barrier`` fences have no counterpart:
+    PyTorch runs each op as written.
     """
 
     def __init__(self, model: BiGNN, ds: DDIDataset, config: TrainConfig,
@@ -274,14 +280,13 @@ class MinibatchTrainer:
             raise NotImplementedError(
                 "MinibatchTrainer's data-parallel mesh is still to port "
                 "(ROADMAP Queue 1 item 5)")
-        if not resident:
-            raise NotImplementedError(
-                "resident=False needs the streaming inner convs, still to "
-                "port (ROADMAP Queue 1 item 4)")
+        if device_sample and not resident:
+            raise ValueError("device_sample requires resident tables")
         self.device = torch.device(device)
         self.model = model.to(self.device)
         self.ds = ds
         self.config = config
+        self.resident = bool(resident)
         self.prefetch_workers = prefetch_workers
         self.dispatch_chunk = int(dispatch_chunk)
         self.device_sample = bool(device_sample)
@@ -289,25 +294,24 @@ class MinibatchTrainer:
         kinds = {spec.split(":")[0] for spec in model.config.inner_layers}
         t0 = time.perf_counter()
         # superrow-quantized tables put masked padding between molecules,
-        # which every inner conv takes on the block-dense path
+        # which every inner conv takes on the block-dense path (the sampler
+        # quantizes only a block-local layout)
         self.sampler = HierarchicalSampler(
             ds, batch_size=config.batch_size, neg_ratio=config.neg_ratio,
             fanouts=fanouts, seed=config.seed, max_drugs=max_drugs,
             calibrate_caps=calibrate_caps,
             quantize=kinds <= {"gin", "gcn", "gat", "dotattn"})
         self.setup_seconds["host_sampler"] = time.perf_counter() - t0
-        if not self.sampler.block_local:
-            raise NotImplementedError(
-                "molecules over 128 atoms need the streaming inner convs, "
-                "still to port (ROADMAP Queue 1 item 4)")
         self.optimizer = make_optimizer(self.model.parameters(), config)
         t0 = time.perf_counter()
-        tables = self.sampler.tables().to(self.device)
-        if model.compute_dtype == torch.bfloat16:
-            # bf16 feature table: half the expansion's gather bytes, and the
-            # inner convs' own type
-            tables.feat = tables.feat.to(torch.bfloat16)
-        self.tables: MoleculeTables = tables
+        self.tables: MoleculeTables | None = None
+        if resident:
+            tables = self.sampler.tables().to(self.device)
+            if model.compute_dtype == torch.bfloat16:
+                # bf16 feature table: half the expansion's gather bytes, and
+                # the inner convs' own type
+                tables.feat = tables.feat.to(torch.bfloat16)
+            self.tables = tables
         if device_sample:
             t1 = time.perf_counter()
             self.dsampler = DeviceSampler(self.sampler)
@@ -325,9 +329,10 @@ class MinibatchTrainer:
 
     def resident_bytes(self) -> dict[str, int]:
         """Bytes of the device-resident tables and sampler constants."""
-        out = {f"tables.{f.name}": getattr(self.tables, f.name).nbytes
-               for f in dataclasses.fields(self.tables)
-               if isinstance(getattr(self.tables, f.name), torch.Tensor)}
+        out = {} if self.tables is None else {
+            f"tables.{f.name}": getattr(self.tables, f.name).nbytes
+            for f in dataclasses.fields(self.tables)
+            if isinstance(getattr(self.tables, f.name), torch.Tensor)}
         if self.device_sample:
             out.update({f"sampler.{name}": t.nbytes for name, t in
                         zip(self._dev_consts._fields, self._dev_consts)})
@@ -350,10 +355,15 @@ class MinibatchTrainer:
         are located by a cumsum and a rank pass; the features and the packed
         edge fields come in superrows (``r_node`` rows, ``r_edge`` edges);
         per-molecule edges are pre-sorted by local dst, so the batch's edge
-        list is dst-sorted up to masked padding, and the block counts are
-        built by ``ops.block_adjacency`` in int8 (int16 when ``r_node**2 >
-        127``: a superrow pair of molecules holds at most ``r_node**2``
-        edges between two rows)."""
+        list is dst-sorted up to masked padding.
+
+        Block-local (every molecule <= 128 atoms): molecules sit at the
+        host's packing offsets, and the block counts are built by
+        ``ops.block_adjacency`` in int8 (int16 when ``r_node**2 > 127``: a
+        superrow pair of molecules holds at most ``r_node**2`` edges between
+        two rows). Otherwise molecules are packed one after another (a
+        cumsum of their sizes), the source-sort arrays come from packed
+        columns 3-4, and the batch has no block fields: the convs stream."""
         D, NC, EC = cb.drug_budget, cb.node_cap, cb.edge_cap
         s = self.sampler
         r_n, r_e = s.r_node, s.r_edge
@@ -375,7 +385,10 @@ class MinibatchTrainer:
         qstart = take(tb.mol_ptr, nodes)  # quantized row offsets
         n_q = torch.where(slot_valid, take(tb.mol_ptr, nodes + 1) - qstart, 0)
         n_x = torch.where(slot_valid, take(tb.mol_ncnt, nodes).long(), 0)
-        off = cb.pack_off.long()  # block-local packing: no straddling
+        if s.block_local:  # the host's packing: no molecule straddles
+            off = cb.pack_off.long()
+        else:  # one after another
+            off = torch.cumsum(n_q, 0) - n_q
         # slot of each node superrow (empty slots rank to ncs, masked below)
         off_eff = torch.where(n_q > 0, off // r_n, ncs)
         slot_s = torch.clamp(self._rank_slots(off_eff, ncs) - 1, min=0)
@@ -413,6 +426,21 @@ class MinibatchTrainer:
         edge_src = torch.where(evalid, col(0) + node_off, 0).int()
         edge_dst = torch.where(evalid, col(1) + node_off, NC).int()
         edge_w = torch.where(evalid, col(2).view(torch.float32), 0.0)
+        batch = dict(node_feat=node_feat, node_mask=row_valid.float(),
+                     edge_src=edge_src, edge_dst=edge_dst, edge_weight=edge_w,
+                     graph_ids=graph_ids, graph_n_nodes=n_x.float(),
+                     num_graphs=D, node_cap=NC, edge_cap=EC)
+        if not s.block_local:
+            # the source-sort permutation from the per-molecule tables: a
+            # molecule's edges, at its batch edge offset, in local source
+            # order, enumerate the real edges in global source order;
+            # padding positions map to themselves with id NC (dropped)
+            return PaddedGraphBatch(
+                **batch,
+                edge_src_perm=torch.where(
+                    evalid, rep(erow[:, 2], r_e) + col(3), arange(EC)).int(),
+                edge_src_sorted=torch.where(evalid, col(4) + node_off,
+                                            NC).int())
         # block edge ranges: block b's molecules start at slot
         # block_slot0[b], so estarts[b] = ecum0[block_slot0[b]]
         estarts = take(ecum0, cb.block_slot0.long()).int()
@@ -426,20 +454,9 @@ class MinibatchTrainer:
             adj = ops.block_adjacency(edge_src, edge_dst, edge_w, estarts, NC,
                                       self.model.compute_dtype)
         return PaddedGraphBatch(
-            node_feat=node_feat,
-            node_mask=row_valid.float(),
-            edge_src=edge_src,
-            edge_dst=edge_dst,
-            edge_weight=edge_w,
-            graph_ids=graph_ids,
-            graph_n_nodes=n_x.float(),
-            num_graphs=D,
-            node_cap=NC,
-            edge_cap=EC,
-            block_estarts=estarts,
+            **batch, block_estarts=estarts,
             block_adj=adj if adj is not None else cnt,
-            block_cnt=cnt if cnt is not None else adj,
-        )
+            block_cnt=cnt if cnt is not None else adj)
 
     # -- one step ------------------------------------------------------------
     def _derive_outer(self, hb: CompactBatch) -> OuterGraph:
@@ -467,8 +484,29 @@ class MinibatchTrainer:
                           num_nodes=D, edge_cap=hb.outer_edge_cap,
                           edge_src_perm=operm, edge_src_sorted=osorted)
 
-    def _forward(self, hb: CompactBatch) -> torch.Tensor:
-        pb = self._expand_compact(hb, self.tables)
+    @staticmethod
+    def _padded(hb: HierarchicalBatch) -> PaddedGraphBatch:
+        """A host-built batch as the inner level takes it: no block fields,
+        so every inner conv streams (JAX ``trainer.py:640-654``)."""
+        return PaddedGraphBatch(
+            node_feat=hb.node_feat,
+            node_mask=torch.ones(hb.node_cap, device=hb.node_feat.device),
+            edge_src=hb.edge_src,
+            edge_dst=hb.edge_dst,
+            edge_weight=hb.edge_weight,
+            graph_ids=hb.graph_ids,
+            graph_n_nodes=hb.graph_n_nodes,
+            num_graphs=hb.drug_budget,
+            node_cap=hb.node_cap,
+            edge_cap=hb.edge_cap,
+            edge_src_perm=hb.edge_src_perm,
+            edge_src_sorted=hb.edge_src_sorted)
+
+    def _forward(self, hb: CompactBatch | HierarchicalBatch) -> torch.Tensor:
+        if isinstance(hb, CompactBatch):
+            pb = self._expand_compact(hb, self.tables)
+        else:
+            pb = self._padded(hb)
         emb = self.model.encode_inner(pb)
         emb = self.model.propagate_outer(emb, self._derive_outer(hb))
         return self.model.score_pairs(emb, hb.pairs.long())
@@ -486,13 +524,17 @@ class MinibatchTrainer:
         self.optimizer.step()
         return loss.detach()
 
-    def _draw_host(self, at: tuple[int, int] | None = None) -> CompactBatch:
-        """One host-drawn NumPy batch: batch ``at=(epoch, step)``, a pure
-        function of (seed, epoch, step) and safe on prefetch threads, or
-        the sampler's next sequential draw."""
+    def _draw_host(self, at: tuple[int, int] | None = None):
+        """One host-drawn NumPy batch (a ``CompactBatch`` with resident
+        tables, else a whole ``HierarchicalBatch``): batch ``at=(epoch,
+        step)``, a pure function of (seed, epoch, step) and safe on
+        prefetch threads, or the sampler's next sequential draw."""
+        s = self.sampler
         if at is None:
-            return self.sampler.sample_compact()
-        return self.sampler.sample_compact_at(*at)
+            return s.sample_compact() if self.resident else s.sample()
+        if self.resident:
+            return s.sample_compact_at(*at)
+        return s.sample_at(*at)
 
     def train_step(self, hb: CompactBatch | None = None) -> torch.Tensor:
         """One optimizer step on ``hb`` (a host or device batch; default a
@@ -595,12 +637,13 @@ class MinibatchTrainer:
         pairs = np.concatenate([pos, neg])
         labels = np.concatenate([np.ones(len(pos)), np.zeros(len(neg))])
         cap = self.sampler.pair_cap
+        make = (self.sampler.compact_from_pairs if self.resident
+                else self.sampler.batch_from_pairs)
         parts = []
         with torch.no_grad():
             for start in range(0, len(pairs), cap):
                 chunk = pairs[start:start + cap]
-                hb = self.sampler.compact_from_pairs(
-                    chunk, labels[start:start + cap].astype(np.float32))
+                hb = make(chunk, labels[start:start + cap].astype(np.float32))
                 parts.append(self._forward(hb.to(self.device))[:len(chunk)])
         scores = torch.cat(parts)
         lab = torch.as_tensor(labels, dtype=torch.float32, device=self.device)

@@ -27,18 +27,27 @@ Phases:
      100,000-drug synthetic-large graph, whose outer graph is above
      dense_max_nodes and so takes GATConv's edge-list branch: build, refresh,
      pair scoring of the val positives and as many negatives, top-k, batched
-     top-k with known partners excluded. segment_sum, block_adjacency,
-     segment_softmax and spmm_multihead must launch, flash_gat_attention
-     must not. Then the new forward kernels against their plain versions at
-     these shapes, and the embeddings and pair scores against a refresh of
-     the same Scorer with the plain versions.
+     top-k with known partners excluded. segment_sum, segment_softmax,
+     spmm_multihead and block_spmm must launch, flash_gat_attention must
+     not (nor block_adjacency: every bucket lies above the block-dense
+     threshold). Then the sparse-outer forward kernels
+     against their plain versions at these shapes, and the embeddings and
+     pair scores against a refresh of the same Scorer with the plain
+     versions.
   8. sparse training: the full-graph Trainer with config4's model in
      float32 and config4's optimizer (Adam lr 3e-4, batch 1024 + 1024) on
-     synthetic-large cut to 16,384 drugs (config4's max_drugs), 20 steps.
-     First the new backward kernels against their plain versions at these
-     shapes. Every sparse-outer kernel, forward and backward, must launch;
-     step 1's gradients must match the same step with the plain versions;
-     the loss must be finite and fall.
+     synthetic-large cut to 16,384 drugs (config4's max_drugs), 20 steps,
+     then config1's GCNs (GCN:64 x2 -> GCN:64:identity, dot) 20 steps on
+     the same graph. First the sparse-outer backward kernels against their
+     plain versions at these shapes, and block_spmm (forward and backward,
+     unweighted and weighted) at the largest bucket. Every sparse-outer
+     kernel, forward and backward, must launch; step 1's gradients must
+     match the same step with the plain versions; the loss must be finite
+     and fall.
+     Path B, phases 7-8: a block-local bucket above BLOCK_DENSE_MAX_NODES =
+     131,072 rows (the largest, 301,312 rows at 16,384 drugs) gets no dense
+     blocks and its GIN and GCN layers run block_spmm; block_adjacency runs
+     only for the buckets at or below the threshold.
   9. config4's own step, as get_config("config4") sets it: MinibatchTrainer
      on the whole 100,000-drug synthetic-large graph (batch 1024 + 1024,
      max_drugs 16,384, fanouts (10,), Adam lr 3e-4), bf16 compute over
@@ -50,6 +59,27 @@ Phases:
      finite losses whose last 64-step mean lies below the first's, every
      bf16/int8 form launched and the flash-GAT not; then one chunk under
      torch.cuda.set_sync_debug_mode("warn"), counting host synchronisations.
+ 10. path A, streaming full graph: config2 on the DrugBank stand-in with
+     molecules up to 160 atoms (load_dataset("drugbank", max_atoms=160)), so
+     that no bucket is block-local and every inner conv runs
+     spmm_sorted_coo. Served by Scorer (build, refresh, score_pairs; the
+     embeddings and scores against a plain-version refresh), the sorted-COO
+     kernels (forward and backward, unweighted at F 128, weighted at F 64)
+     against their plain versions at the largest bucket, then 20 Trainer
+     steps of config2 and 20 of config1 (the weighted forms), each with
+     step 1's gradients against the plain versions. block_spmm and
+     block_adjacency must read 0.
+ 11. path C, max readout: config2 with readout="max" on the DrugBank
+     stand-in (block-local ids with padding runs between molecules), 20
+     Trainer steps against the plain versions; segment_max must launch, and
+     is held against its plain version at the largest bucket.
+ 12. path D, config3 as get_config("config3") sets it (BioSNAP stand-in,
+     fanouts (10, 5), batch 512 + 512, f32, host-drawn batches) on molecules
+     up to 160 atoms: MinibatchTrainer with resident tables, 64 steps by
+     train_chunk over prefetched batches, then resident=False (whole host
+     batches uploaded each step), 8 steps. Both: step 1's gradients against
+     the plain versions, finite losses, spmm_sorted_coo launched and
+     block_adjacency and block_spmm at 0.
 Each path runs with the launch counts (per kernel and element type, e.g.
 segment_sum:bf16) set to 0 just before it and read just after; the kernels
 line reports the sum of the paths' counts, each form's error, times (kernel,
@@ -60,15 +90,17 @@ every kernel here computes). The 100K tensors are freed before phase 8. The
 last line is {"ok": true, "device": {...}}; any failure raises, and the
 script exits non-zero without it.
 
---profile times instead of phases 3-9: the config2 training step and the
-16,384-drug sparse training step (step medians with the kernels and with
-the plain versions in turns: kernels, plain, plain, kernels; the
-synchronized time of each part of a step; a torch.profiler trace of 5
-steps: wall and device-busy time, device launches per step, the device
-time of the busiest kernels), the 100K-drug Scorer (the parts of its
-build, a trace of 5 refreshes), and config4's step (chunk medians in turns,
-the parts of a step: sample, expand, forward + loss, backward, Adam; a trace
-of one chunk of 8 steps). It prints no ok line.
+--profile times instead of phases 3-12: the config2 training step, the
+16,384-drug sparse training step and path A's config2 step (step medians
+with the kernels and with the plain versions in turns: kernels, plain,
+plain, kernels; the synchronized time of each part of a step; a
+torch.profiler trace of 5 steps: wall and device-busy time, device launches
+per step, the device time of the busiest kernels), the 100K-drug Scorer
+(the parts of its build, a trace of 5 refreshes), config4's step (chunk
+medians in turns, the parts of a step: sample, expand, forward + loss,
+backward, Adam; a trace of one chunk of 8 steps), and path D's config3 step
+(the host draw, a chunk of 8 steps timed and traced). It prints no ok
+line.
 """
 
 from __future__ import annotations
@@ -323,7 +355,9 @@ def plain_ops():
         flash_gat_attention=ops.flash_gat_attention_plain,
         segment_softmax=ops.segment_softmax_plain,
         spmm_multihead=ops.spmm_multihead_plain,
-        gather_rows_sorted_grad=ops.gather_rows_sorted_grad_plain)
+        gather_rows_sorted_grad=ops.gather_rows_sorted_grad_plain,
+        spmm_sorted_coo=ops.spmm_sorted_coo_plain,
+        segment_max=ops.segment_max_plain)
 
 
 # kernel form (wrapper:element type) -> (CUDA source, the TPU kernel it
@@ -361,14 +395,36 @@ KERNELS = {
                                         "bignn_tpu/ops/gather.py:72"),
     "gather_rows_sorted_grad_bwd:bf16": (
         "bignn_tpu_torch/csrc/segment_sum.cu", "bignn_tpu/ops/gather.py:72"),
+    "spmm_sorted_coo:f32": ("bignn_tpu_torch/csrc/spmm.cu",
+                            "bignn_tpu/ops/pallas/spmm.py:52"),
+    "spmm_sorted_coo:f32:weighted": ("bignn_tpu_torch/csrc/spmm.cu",
+                                     "bignn_tpu/ops/pallas/spmm.py:52"),
+    "spmm_sorted_coo_bwd:f32": ("bignn_tpu_torch/csrc/spmm.cu",
+                                "bignn_tpu/ops/pallas/spmm.py:65"),
+    "spmm_sorted_coo_bwd:f32:weighted": ("bignn_tpu_torch/csrc/spmm.cu",
+                                         "bignn_tpu/ops/pallas/spmm.py:65"),
+    "block_spmm:f32": ("bignn_tpu_torch/csrc/block_spmm.cu",
+                       "bignn_tpu/ops/pallas/block_spmm.py:57"),
+    "block_spmm:f32:weighted": ("bignn_tpu_torch/csrc/block_spmm.cu",
+                                "bignn_tpu/ops/pallas/block_spmm.py:57"),
+    "block_spmm_bwd:f32": ("bignn_tpu_torch/csrc/block_spmm.cu",
+                           "bignn_tpu/ops/pallas/block_spmm.py:57"),
+    "block_spmm_bwd:f32:weighted": ("bignn_tpu_torch/csrc/block_spmm.cu",
+                                    "bignn_tpu/ops/pallas/block_spmm.py:57"),
+    "segment_max:f32": ("bignn_tpu_torch/csrc/segment_max.cu",
+                        "bignn_tpu/ops/pallas/segment.py:339"),
 }
+# the forms a layout that is not block-local must not launch
+BLOCK_FORMS = ("block_adjacency:f32", "block_adjacency:int8", "block_spmm:f32",
+               "block_spmm:f32:weighted", "block_spmm_bwd:f32",
+               "block_spmm_bwd:f32:weighted")
 
 
 def reset_counts() -> None:
     from bignn_tpu_torch import ops
 
     for form in KERNELS:
-        op = getattr(ops, form.split(":")[0])
+        op = getattr(ops, form.split(":", 1)[0])
         op.launches = 0
         op.launches_by_dtype.clear()
 
@@ -378,8 +434,8 @@ def read_counts() -> dict:
 
     counts = {}
     for form in KERNELS:
-        name, dtype = form.split(":")
-        counts[form] = getattr(ops, name).launches_by_dtype.get(dtype, 0)
+        name, key = form.split(":", 1)
+        counts[form] = getattr(ops, name).launches_by_dtype.get(key, 0)
     return counts
 
 
@@ -387,6 +443,12 @@ def require_launched(launches: dict, forms, where: str) -> None:
     for form in forms:
         if launches[form] <= 0:
             raise AssertionError(f"{form} was not launched {where}")
+
+
+def require_idle(launches: dict, forms, where: str) -> None:
+    for form in forms:
+        if launches[form] != 0:
+            raise AssertionError(f"{form} was launched {where}")
 
 
 def run_serving(dev, ds) -> dict:
@@ -489,19 +551,25 @@ def _timed_steps(trainer, batches, label: str):
     return losses, grads
 
 
+def _epoch_batches(data, train_cfg):
+    """The first TRAIN_STEPS positive batches of epoch 0."""
+    from bignn_tpu_torch.data.sampler import EdgeMinibatchSampler
+
+    sampler = EdgeMinibatchSampler(data.train_pairs, train_cfg.batch_size,
+                                   train_cfg.seed)
+    return [b for _, b in zip(range(TRAIN_STEPS), sampler.epoch(0))]
+
+
 def run_training(dev, ds) -> dict:
     """config2 training at full width through the kernels, and the same
     steps with the plain versions."""
     from bignn_tpu_torch.config import get_config
     from bignn_tpu_torch.data import prepare_device_data
-    from bignn_tpu_torch.data.sampler import EdgeMinibatchSampler
 
     cfg = get_config("config2")
     data = prepare_device_data(ds)
-    sampler = EdgeMinibatchSampler(data.train_pairs, cfg.train.batch_size,
-                                   cfg.train.seed)
-    batches = [b for _, b in zip(range(TRAIN_STEPS), sampler.epoch(0))]
-    return _train_and_check(dev, cfg.model, data, cfg.train, batches,
+    return _train_and_check(dev, cfg.model, data, cfg.train,
+                            _epoch_batches(data, cfg.train),
                             ("segment_sum:f32", "block_adjacency:f32",
                              "flash_gat_attention:f32",
                              "flash_gat_attention_bwd:f32"))
@@ -541,23 +609,32 @@ def _train_and_check(dev, model_cfg, data, train_cfg, batches,
         plain.model.load_state_dict(params0)
         plain_losses, plain_grads = _timed_steps(plain, batches,
                                                  "plain versions")
+    log(f"  plain losses step 1 / {len(batches)}: {plain_losses[0]:.5f} / "
+        f"{plain_losses[-1]:.5f}")
+    _check_grads(grads, plain_grads)
+    metrics = trainer.evaluate(split="val")
+    log(f"  after {len(batches)} steps: val AUC {metrics['val_auc']:.4f}, "
+        f"AP {metrics['val_ap']:.4f}")
+    return launches
+
+
+def _check_grads(grads: dict, plain: dict) -> None:
+    """Step-1 gradients through the kernels against the plain versions'
+    (float32): max|d| / max|g_plain| per parameter within GRAD_TOL."""
     worst = 0.0
     for name, g in grads.items():
-        ref = plain_grads[name]
+        ref = plain[name]
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"non-finite gradient of {name}")
         scale = ref.abs().max().item()
         err = (g - ref).abs().max().item()
         worst = max(worst, err / scale if scale > 0 else err)
         log(f"  step-1 grad {name}: max_abs_err {err:.3e}, max |plain| "
             f"{scale:.3e}")
     log(f"  step-1 gradients vs plain: worst max|d| / max|g_plain| "
-        f"{worst:.3e} (bound {GRAD_TOL:g}); plain losses step 1 / "
-        f"{len(batches)}: {plain_losses[0]:.5f} / {plain_losses[-1]:.5f}")
+        f"{worst:.3e} (bound {GRAD_TOL:g})")
     if not worst <= GRAD_TOL:
         raise AssertionError(f"step-1 gradients off the plain run: {worst}")
-    metrics = trainer.evaluate(split="val")
-    log(f"  after {len(batches)} steps: val AUC {metrics['val_auc']:.4f}, "
-        f"AP {metrics['val_ap']:.4f}")
-    return launches
 
 
 def run_real_gate(dev) -> None:
@@ -711,11 +788,14 @@ def run_sparse_serving(dev, ds) -> tuple[dict, dict]:
         f"({batch_ms / 64:.4f} ms per query); peak device memory "
         f"{peak:.2f} GiB")
     log(f"  launches on the serving path: {launches}")
-    require_launched(launches, ("segment_sum:f32", "block_adjacency:f32",
-                                "segment_softmax:f32", "spmm_multihead:f32"),
+    # every bucket at 100K drugs lies above the block-dense threshold:
+    # block_adjacency reads 0 here (_check_block_routes)
+    require_launched(launches, ("segment_sum:f32", "segment_softmax:f32",
+                                "spmm_multihead:f32", "block_spmm:f32"),
                      "on the main path")
     if launches["flash_gat_attention:f32"] != 0:
         raise AssertionError("the dense flash-GAT ran on the sparse path")
+    _check_block_routes(scorer._buckets, launches)
 
     # the new forward kernels against their plain versions at these shapes
     outer = scorer._outer
@@ -742,6 +822,14 @@ def run_sparse_serving(dev, ds) -> tuple[dict, dict]:
     torch.cuda.empty_cache()
 
     # the same Scorer refreshed with the plain versions on the card
+    _check_plain_refresh(scorer, params, pairs, emb, scores)
+    return launches, results
+
+
+def _check_plain_refresh(scorer, params, pairs, emb, scores) -> None:
+    """Refresh ``scorer`` with the plain versions on the card: its
+    embeddings and pair scores must match ``emb`` and ``scores``, the
+    kernels' (EMB_RTOL, and EMB_ATOL of the largest value)."""
     with plain_ops():
         scorer.refresh(params)
         ref_scores = scorer.score_pairs(pairs)
@@ -757,16 +845,85 @@ def run_sparse_serving(dev, ds) -> tuple[dict, dict]:
         raise AssertionError("pair scores disagree with the plain refresh")
     log(f"  pair scores vs plain refresh: max_abs_err "
         f"{np.abs(scores - ref_scores).max():.3e}")
-    return launches, results
+
+
+def _check_block_routes(buckets, launches: dict) -> None:
+    """Buckets above BLOCK_DENSE_MAX_NODES rows carry no dense blocks (they
+    take block_spmm); block_adjacency ran once per bucket at or below it
+    (the count adjacency of GIN, at upload)."""
+    from bignn_tpu_torch.sparse.formats import BLOCK_DENSE_MAX_NODES
+
+    small = 0
+    for i, b in enumerate(buckets):
+        dense = b.node_cap <= BLOCK_DENSE_MAX_NODES
+        small += dense
+        log(f"  bucket {i}: node_cap {b.node_cap}, edge_cap {b.edge_cap}: "
+            + ("dense blocks" if dense else "block_spmm"))
+        if dense == (b.block_cnt is None):
+            raise AssertionError(f"bucket {i} on the wrong route")
+    if small == len(buckets):
+        raise AssertionError("no bucket above BLOCK_DENSE_MAX_NODES")
+    if launches["block_adjacency:f32"] != small:
+        raise AssertionError(
+            f"block_adjacency ran {launches['block_adjacency:f32']} times "
+            f"for {small} buckets at or below the threshold")
+
+
+def block_spmm_kernels(dev, batch) -> dict:
+    """Row 6's forms (forward and backward, unweighted and weighted)
+    against their plain versions at a block-local bucket above the
+    threshold, F 128; the library call is a batched matmul over the dense
+    blocks (built outside the timing)."""
+    from bignn_tpu_torch import ops
+
+    b = batch.to(dev)
+    n = b.node_cap
+    e_real = int((b.edge_dst < n).sum())
+    rows = int(b.node_mask.sum())
+    log(f"  kernels at rows {n} ({n // 128} blocks, {rows} real), edges "
+        f"{b.edge_cap} ({e_real} real), F 128")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.randn(n, 128, device=dev, generator=gen)
+    g = torch.randn(n, 128, device=dev, generator=gen)
+    results = {}
+    for w, tw, form in ((None, None, ""),
+                        (b.edge_weight, b.edge_tweight, ":weighted")):
+        blocks = ops.block_adjacency_plain(b.edge_src, b.edge_dst, w, n)
+        blocks_t = blocks.transpose(1, 2).contiguous()
+        # bytes the function needs: the real rows and the real edges (the
+        # padding edges come last); the padding rows are never read
+        wbytes = 0 if w is None else nbytes(w[:e_real])
+        fwd = (x, b.edge_src, b.edge_dst, w, b.block_estarts, b.edge_tsrc,
+               b.edge_tdst, tw, b.block_tstarts, n)
+        _compare(results, f"block_spmm:f32{form}",
+                 lambda: ops.block_spmm(*fwd),
+                 lambda: ops.block_spmm_plain(x, b.edge_src, b.edge_dst, w,
+                                              num_nodes=n), SPARSE_TOL,
+                 nbytes(x[:rows], b.edge_src[:e_real], b.edge_dst[:e_real],
+                        b.block_estarts) + wbytes,
+                 2 * e_real * 128,
+                 library=lambda: ops.block_diag_spmm(blocks, x))
+        bwd = (g, b.edge_tsrc, b.edge_tdst, tw, b.block_tstarts, n)
+        _compare(results, f"block_spmm_bwd:f32{form}",
+                 lambda: ops.block_spmm_bwd(*bwd),
+                 lambda: ops.block_spmm_plain(*bwd[:4], num_nodes=n),
+                 BWD_TOL,
+                 nbytes(g[:rows], b.edge_tsrc[:e_real], b.edge_tdst[:e_real],
+                        b.block_tstarts) + wbytes,
+                 2 * e_real * 128,
+                 library=lambda: ops.block_diag_spmm(blocks_t, g))
+        del blocks, blocks_t
+    return results
 
 
 def run_sparse_training(dev) -> tuple[dict, dict]:
     """The full-graph Trainer with config4's model and optimizer on 16,384
-    drugs; returns the launch counts and the backward kernels'
-    comparisons."""
+    drugs, then config1's GCNs on the same graph; returns the launch counts
+    of both and the backward and block-local kernels' comparisons."""
     from bignn_tpu_torch import ops
     from bignn_tpu_torch.data import load_dataset, prepare_device_data
-    from bignn_tpu_torch.data.sampler import EdgeMinibatchSampler
+    from bignn_tpu_torch.models import BiGNNConfig
+    from bignn_tpu_torch.sparse.formats import BLOCK_DENSE_MAX_NODES
 
     cfg, model_cfg = sparse_config()
     t0 = time.perf_counter()
@@ -818,19 +975,275 @@ def run_sparse_training(dev) -> tuple[dict, dict]:
                  BWD_TOL)
     del alpha, g_e, v, g, mh, gather, outer
     torch.cuda.empty_cache()
+    results.update(block_spmm_kernels(dev, max(
+        data.bucketing.batches, key=lambda b: b.node_cap)))
+    torch.cuda.empty_cache()
 
-    sampler = EdgeMinibatchSampler(data.train_pairs, cfg.train.batch_size,
-                                   cfg.train.seed)
-    batches = [b for _, b in zip(range(TRAIN_STEPS), sampler.epoch(0))]
+    batches = _epoch_batches(data, cfg.train)
     launches = _train_and_check(
         dev, model_cfg, data, cfg.train, batches,
         ("segment_sum:f32", "block_adjacency:f32", "segment_softmax:f32",
          "segment_softmax_bwd:f32", "spmm_multihead:f32",
-         "spmm_multihead_bwd:f32", "gather_rows_sorted_grad_bwd:f32"))
+         "spmm_multihead_bwd:f32", "gather_rows_sorted_grad_bwd:f32",
+         "block_spmm:f32", "block_spmm_bwd:f32"))
     if (launches["flash_gat_attention:f32"]
             or launches["flash_gat_attention_bwd:f32"]):
         raise AssertionError("the dense flash-GAT ran on the sparse path")
+    small = sum(b.node_cap <= BLOCK_DENSE_MAX_NODES
+                for b in data.bucketing.batches)
+    if launches["block_adjacency:f32"] != small:
+        raise AssertionError("block_adjacency off the small buckets")
+    # the weighted forms: config1's GCNs (inner block-local above the
+    # threshold; outer over the sparse 16,384-drug graph, sorted COO)
+    log("  config1 (GCN:64 x2 -> GCN:64:identity, dot), feat 32, on the "
+        "same graph")
+    gcn = _train_and_check(
+        dev, BiGNNConfig.config1(feat_dim=ds.feat_dim), data, cfg.train,
+        batches, ("block_spmm:f32:weighted", "block_spmm_bwd:f32:weighted",
+                  "spmm_sorted_coo:f32:weighted",
+                  "spmm_sorted_coo_bwd:f32:weighted", "block_adjacency:f32"))
+    return [launches, gcn], results
+
+
+def spmm_kernels(dev, batch) -> dict:
+    """Row 7's forms (forward and backward, unweighted at F 128 as GIN's
+    second layer takes them, weighted at F 64 as GCN's) against their plain
+    versions at a bucket that is not block-local; the library call is
+    torch.sparse.mm over a CSR matrix built outside the timing."""
+    from bignn_tpu_torch import ops
+
+    b = batch.to(dev)
+    n = b.node_cap
+    real = b.edge_dst < n
+    e_real = int(real.sum())
+    rows = int(b.node_mask.sum())
+    src, dst = b.edge_src, b.edge_dst
+    log(f"  kernels at rows {n} ({rows} real), edges {b.edge_cap} "
+        f"({e_real} real)")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    results = {}
+    for w, feat, form in ((None, 128, ""), (b.edge_weight, 64, ":weighted")):
+        x = torch.randn(n, feat, device=dev, generator=gen)
+        g = torch.randn(n, feat, device=dev, generator=gen)
+        vals = (torch.ones(e_real, device=dev) if w is None else w[real])
+        ij = torch.stack([dst[real], src[real]]).long()
+        csr = torch.sparse_coo_tensor(ij, vals, (n, n)).coalesce(
+            ).to_sparse_csr()
+        csr_t = torch.sparse_coo_tensor(ij.flip(0), vals, (n, n)).coalesce(
+            ).to_sparse_csr()
+        # bytes the function needs: the real rows and the real edges (the
+        # padding edges come last)
+        wbytes = 0 if w is None else nbytes(w[:e_real])
+        fwd = (x, src, dst, w, n)
+        _compare(results, f"spmm_sorted_coo:f32{form}",
+                 lambda: ops.spmm_sorted_coo(*fwd),
+                 lambda: ops.spmm_sorted_coo_plain(*fwd), SPARSE_TOL,
+                 nbytes(x[:rows], src[:e_real], dst[:e_real]) + wbytes,
+                 2 * e_real * feat, library=lambda: torch.sparse.mm(csr, x))
+        bwd = (g, src, dst, w, n, b.edge_src_perm, b.edge_src_sorted)
+        _compare(results, f"spmm_sorted_coo_bwd:f32{form}",
+                 lambda: ops.spmm_sorted_coo_bwd(*bwd),
+                 lambda: ops.spmm_sorted_coo_bwd_plain(*bwd), BWD_TOL,
+                 nbytes(g[:rows], dst[:e_real], b.edge_src_perm[:e_real],
+                        b.edge_src_sorted[:e_real]) + wbytes,
+                 2 * e_real * feat, library=lambda: torch.sparse.mm(csr_t, g))
+        del csr, csr_t
+    return results
+
+
+def run_streaming(dev) -> tuple[list, dict]:
+    """Path A: config2 on the DrugBank stand-in with molecules up to 160
+    atoms, where no bucket is block-local: served by Scorer (embeddings
+    and pair scores against a plain-version refresh), trained 20 steps,
+    then config1's GCNs trained 20 steps; returns the launch counts of the
+    three runs and the sorted-COO kernels' comparisons at the largest
+    bucket."""
+    from bignn_tpu_torch.config import get_config
+    from bignn_tpu_torch.data import load_dataset, prepare_device_data
+    from bignn_tpu_torch.models import BiGNN, BiGNNConfig
+    from bignn_tpu_torch.serve import Scorer
+    from bignn_tpu_torch.sparse import bucket_graphs
+
+    ds = load_dataset("drugbank", max_atoms=160)
+    bucketing = bucket_graphs(ds.molecules)
+    log(f"  dataset {ds.name}: {ds.num_drugs} drugs, "
+        f"{sum(m.num_nodes for m in ds.molecules)} atoms, "
+        f"{sum(m.num_nodes > 128 for m in ds.molecules)} molecules over 128 "
+        f"atoms, {len(ds.train_idx)} train edges")
+    for i, b in enumerate(bucketing.batches):
+        log(f"  bucket {i}: node_cap {b.node_cap}, edge_cap {b.edge_cap}, "
+            f"{b.num_graphs} molecules, block-local "
+            f"{b.block_estarts is not None}")
+    if any(b.block_estarts is not None for b in bucketing.batches):
+        raise AssertionError("a bucket is block-local")
+    cfg = get_config("config2")
+    model = BiGNN(cfg.model, seed=SEED)
+    params = {k: v.clone() for k, v in model.state_dict().items()}
+    reset_counts()
+    t0 = time.perf_counter()
+    scorer = Scorer(model, ds, params, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    scorer.refresh(params)
+    torch.cuda.synchronize()
+    refresh_s = time.perf_counter() - t0
+    pos = ds.split_edges("val").astype(np.int64)
+    pairs = np.concatenate([pos, negatives(ds, pos)])
+    scores = scorer.score_pairs(pairs)
+    served = read_counts()
+    emb = scorer.embeddings
+    log(f"  Scorer build {build_s:.4f} s; refresh {refresh_s:.4f} s; "
+        f"{len(pairs)} pairs scored")
+    log(f"  launches on the streaming serving path: {served}")
+    require_launched(served, ("spmm_sorted_coo:f32", "segment_sum:f32",
+                              "flash_gat_attention:f32"), "on path A")
+    require_idle(served, BLOCK_FORMS, "on path A")
+    if tuple(emb.shape) != (ds.num_drugs, 128) or not np.isfinite(
+            scores).all():
+        raise AssertionError("bad embeddings or scores")
+    _check_plain_refresh(scorer, params, pairs, emb, scores)
+    del scorer, emb
+    results = spmm_kernels(dev, max(bucketing.batches,
+                                    key=lambda b: b.node_cap))
+    torch.cuda.empty_cache()
+
+    data = prepare_device_data(ds)
+    log("  config2 Trainer, 20 steps")
+    trained = _train_and_check(
+        dev, cfg.model, data, cfg.train, _epoch_batches(data, cfg.train),
+        ("spmm_sorted_coo:f32", "spmm_sorted_coo_bwd:f32", "segment_sum:f32",
+         "flash_gat_attention:f32", "flash_gat_attention_bwd:f32"))
+    c1 = get_config("config1")
+    log(f"  config1 (GCN:64 x2 -> GCN:64:identity, dot), feat "
+        f"{ds.feat_dim}, 20 steps, batch {c1.train.batch_size}")
+    gcn = _train_and_check(
+        dev, BiGNNConfig.config1(feat_dim=ds.feat_dim), data, c1.train,
+        _epoch_batches(data, c1.train),
+        ("spmm_sorted_coo:f32:weighted", "spmm_sorted_coo_bwd:f32:weighted"))
+    for c in (trained, gcn):
+        require_idle(c, BLOCK_FORMS, "on path A")
+    return [served, trained, gcn], results
+
+
+def run_max_readout(dev, ds, bucketing) -> tuple[dict, dict]:
+    """Path C: config2 with readout="max" on the DrugBank stand-in (block-
+    local buckets, padding runs between molecules), 20 steps; then the
+    segment max against its plain version at the largest bucket."""
+    from bignn_tpu_torch import ops
+    from bignn_tpu_torch.config import get_config
+    from bignn_tpu_torch.data import prepare_device_data
+
+    cfg = get_config("config2")
+    data = prepare_device_data(ds)
+    launches = _train_and_check(
+        dev, dataclasses.replace(cfg.model, readout="max"), data, cfg.train,
+        _epoch_batches(data, cfg.train),
+        ("segment_max:f32", "segment_sum:f32", "block_adjacency:f32",
+         "flash_gat_attention:f32", "flash_gat_attention_bwd:f32"))
+    b = max(bucketing.batches, key=lambda b: b.node_cap)
+    ids = torch.as_tensor(b.graph_ids, device=dev)
+    n, s = b.node_cap, b.num_graphs
+    rows = int((ids < s).sum())
+    log(f"  segment_max at rows {n} ({rows} valid) -> {s} molecules, F 128")
+    x = torch.randn(n, 128, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(SEED))
+    out = x.new_empty((s + 1, 128))
+    idx = torch.where(ids < s, ids, s).long()[:, None].expand(-1, 128)
+    results = {}
+    # bytes the function needs: the valid rows (a padding row lies in no
+    # segment and is never read), every id, and the output
+    _compare(results, "segment_max:f32", lambda: ops.segment_max(x, ids, s),
+             lambda: ops.segment_max_plain(x, ids, s), 0.0,
+             nbytes(x[:rows], ids), rows * 128,
+             library=lambda: out.scatter_reduce_(0, idx, x, "amax",
+                                                 include_self=False))
     return launches, results
+
+
+def _step1_vs_plain(tr, hb) -> float:
+    """Step 1 of MinibatchTrainer ``tr`` on batch ``hb`` from the JAX init
+    of SEED, through the kernels and through the plain versions: gradients
+    within GRAD_TOL; returns the kernels' loss."""
+    tr.init(SEED)
+    loss = tr.train_step(hb).item()
+    grads = {k: p.grad.clone() for k, p in tr.model.named_parameters()}
+    with plain_ops():
+        tr.init(SEED)
+        plain_loss = tr.train_step(hb).item()
+        plain = {k: p.grad.clone() for k, p in tr.model.named_parameters()}
+    log(f"  step-1 loss kernels {loss:.6f} / plain {plain_loss:.6f}")
+    _check_grads(grads, plain)
+    return loss
+
+
+def run_config3(dev) -> list:
+    """Path D: config3 as get_config sets it (BioSNAP stand-in, here with
+    molecules up to 160 atoms, so the layout is not block-local; fanouts
+    (10, 5), batch 512 + 512, f32, host-drawn batches): MinibatchTrainer
+    with resident tables, 64 steps by train_chunk (chunks of 8) over
+    prefetched batches, then resident=False, 8 steps; returns the launch
+    counts of both runs."""
+    from bignn_tpu_torch.config import get_config
+    from bignn_tpu_torch.data import load_dataset
+    from bignn_tpu_torch.data.prefetch import ParallelPrefetcher
+    from bignn_tpu_torch.models import BiGNN
+    from bignn_tpu_torch.train import MinibatchTrainer
+
+    cfg = get_config("config3")
+    ds = load_dataset(cfg.dataset, max_atoms=160, **cfg.dataset_kwargs)
+    log(f"  dataset {ds.name}: {ds.num_drugs} drugs, "
+        f"{sum(m.num_nodes for m in ds.molecules)} atoms, "
+        f"{sum(m.num_nodes > 128 for m in ds.molecules)} molecules over 128 "
+        f"atoms, {len(ds.train_idx)} train edges")
+    counts = []
+    for resident in (True, False):
+        t0 = time.perf_counter()
+        tr = MinibatchTrainer(BiGNN(cfg.model, seed=SEED), ds, cfg.train,
+                              fanouts=cfg.fanouts, max_drugs=cfg.max_drugs,
+                              resident=resident, device=dev)
+        s = tr.sampler
+        log(f"  resident={resident}: build {time.perf_counter() - t0:.3f} s;"
+            f" caps: drugs {s.drug_budget}, node_cap {s.node_cap}, edge_cap "
+            f"{s.edge_cap}, outer_edge_cap {s.outer_edge_cap}, pair_cap "
+            f"{s.pair_cap}; block-local {s.block_local}")
+        if s.block_local:
+            raise AssertionError("config3's layout is block-local")
+        draw = s.sample_compact_at if resident else s.sample_at
+        _step1_vs_plain(tr, draw(0, 0))
+        tr.init(SEED)
+        torch.cuda.synchronize()
+        reset_counts()
+        steps = 64 if resident else 8
+        chunk = 8 if resident else 1
+        losses, secs, pending = [], [], []
+        t0 = time.perf_counter()
+        for hb in ParallelPrefetcher(lambda i: draw(0, i), steps, workers=2):
+            pending.append(hb)
+            if len(pending) == chunk:
+                losses.append(tr.train_chunk(pending))
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+                t0 = time.perf_counter()
+                pending = []
+        launches = read_counts()
+        losses = torch.cat(losses).cpu().numpy()
+        log(f"  {steps} steps in chunks of {chunk}: median "
+            f"{np.median(secs) * 1e3 / chunk:.3f} ms a step (host draws "
+            f"prefetched on 2 threads); losses {losses[0]:.5f} -> "
+            f"{losses[-1]:.5f}, mean of the last 8 "
+            f"{losses[-8:].mean():.5f}")
+        log(f"  launches: {launches}")
+        if not np.all(np.isfinite(losses)):
+            raise AssertionError("non-finite config3 loss")
+        require_launched(launches, ("spmm_sorted_coo:f32",
+                                    "spmm_sorted_coo_bwd:f32"), "on path D")
+        require_idle(launches, BLOCK_FORMS, "on path D")
+        counts.append(launches)
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+    return counts
 
 
 def config4_trainer(dev, ds):
@@ -866,6 +1279,7 @@ def config4_kernels(dev, cb, pb, outer) -> dict:
     """The bf16 and int8 kernel forms of config4's step against their plain
     versions at one sampled batch's shapes."""
     from bignn_tpu_torch import ops
+    from bignn_tpu_torch.ops import cuda_lib
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
     bf = torch.bfloat16
@@ -880,11 +1294,17 @@ def config4_kernels(dev, cb, pb, outer) -> dict:
              lambda: ops.segment_sum_plain(x, ids, D), BF16_TOL,
              nbytes(x, ids), library=index_add_call(x, ids, D))
     del x
-    adj = (pb.edge_src, pb.edge_dst, None, pb.block_estarts, NC, torch.int8)
-    _compare(results, "block_adjacency:int8",
-             lambda: ops.block_adjacency(*adj),
-             lambda: ops.block_adjacency_plain(*adj[:3], NC, torch.int8), 0.0,
-             nbytes(pb.edge_src, pb.edge_dst, pb.block_estarts))
+    # int8 counts (the step's form); int16 counts and bf16 weights, off the
+    # path (r_node**2 > 127; a bf16 GCN inner), timed at the same edges
+    for w, dt in ((None, torch.int8), (None, torch.int16),
+                  (pb.edge_weight, torch.bfloat16)):
+        adj = (pb.edge_src, pb.edge_dst, w, pb.block_estarts, NC, dt)
+        _compare(results, f"block_adjacency:{cuda_lib.dtype_name(dt)}",
+                 lambda: ops.block_adjacency(*adj),
+                 lambda: ops.block_adjacency_plain(*adj[:3], NC, dt),
+                 0.0 if w is None else BF16_TOL,
+                 nbytes(pb.edge_src, pb.edge_dst, pb.block_estarts)
+                 + (0 if w is None else nbytes(w)))
     s = 3 * torch.randn(E, 4, device=dev, generator=gen)
     s = s.to(bf)
     dst, src = outer.edge_dst, outer.edge_src
@@ -1088,16 +1508,11 @@ def _trace(run, reps: int, unit: str) -> None:
 def profile_training(dev, model_cfg, data, train_cfg) -> None:
     """Where a training step's time goes (see --profile above)."""
     from bignn_tpu_torch import prng
-    from bignn_tpu_torch.data.sampler import (
-        EdgeMinibatchSampler,
-        sample_negative_pairs,
-    )
+    from bignn_tpu_torch.data.sampler import sample_negative_pairs
     from bignn_tpu_torch.models import BiGNN
     from bignn_tpu_torch.train import Trainer
 
-    sampler = EdgeMinibatchSampler(data.train_pairs, train_cfg.batch_size,
-                                   train_cfg.seed)
-    batches = [b for _, b in zip(range(TRAIN_STEPS), sampler.epoch(0))]
+    batches = _epoch_batches(data, train_cfg)
     trainer = Trainer(BiGNN(model_cfg), data, train_cfg, device=dev)
     trainer.init(SEED)
     _timed_steps(trainer, batches, "warm-up")
@@ -1133,6 +1548,33 @@ def profile_training(dev, model_cfg, data, train_cfg) -> None:
             trainer.train_step(pairs, mask, 1, i)
 
     _trace(five_steps, 5, "step")
+
+
+def profile_config3(dev) -> None:
+    """Path D's step (config3, resident tables, host-drawn batches): the
+    host draw of a batch, then a chunk of 8 steps over drawn batches, timed
+    and traced."""
+    from bignn_tpu_torch.config import get_config
+    from bignn_tpu_torch.data import load_dataset
+    from bignn_tpu_torch.models import BiGNN
+    from bignn_tpu_torch.train import MinibatchTrainer
+
+    cfg = get_config("config3")
+    ds = load_dataset(cfg.dataset, max_atoms=160, **cfg.dataset_kwargs)
+    tr = MinibatchTrainer(BiGNN(cfg.model, seed=SEED), ds, cfg.train,
+                          fanouts=cfg.fanouts, max_drugs=cfg.max_drugs,
+                          device=dev)
+    draw_ms, draws = [], []
+    for i in range(C4_CHUNK):
+        t0 = time.perf_counter()
+        draws.append(tr.sampler.sample_compact_at(0, i))
+        draw_ms.append((time.perf_counter() - t0) * 1e3)
+    log(f"  host draw (sample_compact_at): median {np.median(draw_ms):.3f} "
+        f"ms over {C4_CHUNK}")
+    step_ms = _median_ms(lambda: tr.train_chunk(draws), reps=5) / C4_CHUNK
+    log(f"  chunk of {C4_CHUNK} over drawn batches: {step_ms:.3f} ms a step "
+        "(median of 5, synchronized)")
+    _trace(lambda: tr.train_chunk(draws), C4_CHUNK, "step")
 
 
 def profile_sparse_serving(dev, ds) -> None:
@@ -1287,6 +1729,16 @@ def main() -> int:
         log("== profile: config4's step (MinibatchTrainer, bf16, "
             "device-sampled)")
         profile_config4(dev, large)
+        del large
+        gc.collect()
+        torch.cuda.empty_cache()
+        log("== profile: path A, config2 training step, molecules up to 160 "
+            "atoms")
+        cfg = get_config("config2")
+        profile_training(dev, cfg.model, prepare_device_data(
+            load_dataset("drugbank", max_atoms=160)), cfg.train)
+        log("== profile: path D, config3's step")
+        profile_config3(dev)
         return 0
 
     log("== kernels vs plain (config2 shapes)")
@@ -1310,8 +1762,18 @@ def main() -> int:
     log("== config4's step: MinibatchTrainer, bf16, device-sampled, 100,000 "
         "drugs")
     stepped, c4 = run_config4_step(dev, large)
-    counts += [served, trained, stepped]
-    for r in (fwd, bwd, c4):
+    counts += [served, *trained, stepped]
+    del large
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("== path A: config2 and config1 streaming, molecules up to 160 atoms")
+    streamed, spmm = run_streaming(dev)
+    log("== path C: config2 with the max readout, 20 steps")
+    maxed, smax = run_max_readout(dev, ds, bucketing)
+    log("== path D: config3's MinibatchTrainer on molecules up to 160 atoms")
+    sampled = run_config3(dev)
+    counts += [*streamed, maxed, *sampled]
+    for r in (fwd, bwd, c4, spmm, smax):
         results.update(r)
 
     kernels = []

@@ -132,7 +132,10 @@ def _cases(device):
                                 "flash_gat_attention_bwd", "segment_softmax",
                                 "segment_softmax_bwd", "spmm_multihead",
                                 "spmm_multihead_bwd",
-                                "gather_rows_sorted_grad_bwd"])
+                                "gather_rows_sorted_grad_bwd",
+                                "spmm_sorted_coo", "spmm_sorted_coo_bwd",
+                                "block_spmm", "block_spmm_bwd",
+                                "segment_max"])
 def test_non_cpu_tensor_never_takes_plain_path(op):
     """Only a CPU tensor takes the plain version: a tensor on another device
     goes to the kernel wrapper, which refuses it rather than falling back."""
@@ -159,6 +162,15 @@ def test_non_cpu_tensor_never_takes_plain_path(op):
             meta.view(256, 2, 2), ids, ids),
         "gather_rows_sorted_grad_bwd": lambda: ops.gather_rows_sorted_grad_bwd(
             meta, ids, 8),
+        "spmm_sorted_coo": lambda: ops.spmm_sorted_coo(meta, ids, ids, None,
+                                                       256),
+        "spmm_sorted_coo_bwd": lambda: ops.spmm_sorted_coo_bwd(
+            meta, ids, ids, None, 256, ids, ids),
+        "block_spmm": lambda: ops.block_spmm(meta, ids, ids, None, ids[:3],
+                                             ids, ids, None, ids[:3], 256),
+        "block_spmm_bwd": lambda: ops.block_spmm_bwd(meta, ids, ids, None,
+                                                     ids[:3], 256),
+        "segment_max": lambda: ops.segment_max(meta, ids, 8),
     }[op]
     with pytest.raises(ValueError, match="CUDA tensor"):
         call()
@@ -777,3 +789,262 @@ def test_dtype_kernels_refuse_on_card(cuda_device):
                             est, 128, torch.int8)
     with pytest.raises(NotImplementedError, match="int16"):
         ops.block_adjacency(ids, ids, None, est, 128, torch.int32)
+
+
+def _streaming_cases(device):
+    """name -> (kernel call, plain call) for the sorted-COO SpMM, the
+    block-local SpMM and the segment max (forward and backward, weighted
+    and unweighted), on small inputs on ``device``: row widths that take
+    4-float loads with 1, 2 and 4 edges a warp (F 128, 64, 32), single
+    floats (F 3, 130), two sweeps (F 256); padding edges (dst = N), an
+    unsorted dst with padding between runs, an out-of-block edge."""
+    rng = np.random.default_rng(11)
+    cases = {}
+    for tag, n, e, feat, sort in (
+            ("f128", 90, 900, 128, True), ("f64", 70, 700, 64, True),
+            ("f32", 60, 500, 32, True), ("f3", 40, 300, 3, True),
+            ("f130", 40, 300, 130, True), ("f256", 30, 200, 256, True),
+            ("unsorted_f32", 50, 400, 32, False)):
+        src, dst, perm, ssorted = _on(device, *_edge_list(rng, n, e,
+                                                          sort=sort))
+        x, g = _on(device, rng.standard_normal((n, feat)).astype(np.float32),
+                   rng.standard_normal((n, feat)).astype(np.float32))
+        (w,) = _on(device, rng.random(len(src)).astype(np.float32))
+        for wt, wname in ((None, ""), (w, "_weighted")):
+            cases[f"spmm{wname}_{tag}"] = (
+                lambda a=(x, src, dst, wt, n): ops.spmm_sorted_coo(*a),
+                lambda a=(x, src, dst, wt, n): ops.spmm_sorted_coo_plain(*a))
+            cases[f"spmm_bwd{wname}_{tag}"] = (
+                lambda a=(g, src, dst, wt, n, perm, ssorted):
+                    ops.spmm_sorted_coo_bwd(*a),
+                lambda a=(g, src, dst, wt, n):
+                    ops.spmm_sorted_coo_bwd_plain(*a))
+    cases["spmm_bwd_argsort_f32"] = (  # no source-sort arrays: one sort
+        lambda a=(g, src, dst, None, n): ops.spmm_sorted_coo_bwd(*a),
+        lambda a=(g, src, dst, None, n): ops.spmm_sorted_coo_bwd_plain(*a))
+    for feat in (128, 32, 3):
+        bsrc, bdst, best, bn = _block_local_edges(rng, 4)
+        bsrc[5] = (bsrc[5] + 200) % bn  # a source outside its block: dropped
+        order = np.argsort(bsrc, kind="stable")
+        real = bdst < bn
+        tdst = np.where(real[order], bsrc[order], bn).astype(np.int32)
+        tsrc = np.where(real[order], bdst[order], 0).astype(np.int32)
+        tord = np.argsort(tdst, kind="stable")
+        tsrc, tdst = tsrc[tord], tdst[tord]
+        tst = np.searchsorted(tdst, np.arange(0, bn + 1, 128)).astype(
+            np.int32)
+        w = np.where(real, rng.random(len(bsrc)), 0).astype(np.float32)
+        t = _on(device, bsrc, bdst, best, tsrc, tdst, tst, w, w[order][tord],
+                rng.standard_normal((bn, feat)).astype(np.float32))
+        s_, d_, e_, ts_, td_, tt_, w_, tw_, xb = t
+        for wt, twt, wname in ((None, None, ""), (w_, tw_, "_weighted")):
+            cases[f"block_spmm{wname}_f{feat}"] = (
+                lambda a=(xb, s_, d_, wt, e_, ts_, td_, twt, tt_, bn):
+                    ops.block_spmm(*a),
+                lambda a=(xb, s_, d_, wt): ops.block_spmm_plain(
+                    *a, num_nodes=bn))
+            cases[f"block_spmm_bwd{wname}_f{feat}"] = (
+                lambda a=(xb, ts_, td_, twt, tt_, bn): ops.block_spmm_bwd(*a),
+                lambda a=(xb, ts_, td_, twt): ops.block_spmm_plain(
+                    *a, num_nodes=bn))
+    for tag, n_seg, ids, feat in (
+            ("holes_f128", 60, _hole_ids(rng, 60), 128),
+            ("holes_f130", 60, _hole_ids(rng, 60), 130),
+            ("shuffled_f8", 50, rng.permutation(np.concatenate(
+                [rng.integers(0, 47, 700), np.full(20, 50)])), 8)):
+        x, i = _on(device, (rng.integers(-4, 5, (len(ids), feat)) / 2).astype(
+            np.float32), ids.astype(np.int32))  # many ties
+        cases[f"segment_max_{tag}"] = (
+            lambda x=x, i=i, n=n_seg: ops.segment_max(x, i, n),
+            lambda x=x, i=i, n=n_seg: ops.segment_max_plain(x, i, n))
+    x1, i1 = _on(device, rng.standard_normal(300).astype(np.float32),
+                 np.sort(rng.integers(0, 30, 300)).astype(np.int32))
+    cases["segment_max_1d"] = (lambda: ops.segment_max(x1, i1, 30),
+                               lambda: ops.segment_max_plain(x1, i1, 30))
+    return cases
+
+
+STREAMING_CASES = [
+    *(f"spmm{b}{w}_{t}" for b in ("", "_bwd") for w in ("", "_weighted")
+      for t in ("f128", "f64", "f32", "f3", "f130", "f256", "unsorted_f32")),
+    "spmm_bwd_argsort_f32",
+    *(f"block_spmm{b}{w}_f{f}" for b in ("", "_bwd") for w in ("", "_weighted")
+      for f in (128, 32, 3)),
+    *(f"segment_max_{t}" for t in ("holes_f128", "holes_f130", "shuffled_f8",
+                                   "1d"))]
+
+
+def test_streaming_case_names_are_complete():
+    assert sorted(_streaming_cases("cpu")) == sorted(STREAMING_CASES)
+
+
+def test_streaming_plain_cases_run_on_cpu():
+    """On CPU tensors each wrapper takes its plain version: both calls of a
+    case agree exactly, and no launch is counted."""
+    counted = (ops.spmm_sorted_coo, ops.spmm_sorted_coo_bwd, ops.block_spmm,
+               ops.block_spmm_bwd, ops.segment_max)
+    before = [k.launches for k in counted]
+    for name, (kernel, plain) in _streaming_cases("cpu").items():
+        assert torch.equal(kernel(), plain()), name
+    assert [k.launches for k in counted] == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", STREAMING_CASES)
+def test_streaming_kernel_matches_plain_on_card(cuda_device, case):
+    kernel, plain = _streaming_cases(cuda_device)[case]
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    tol = TOL if case.startswith("segment_max") else GRAD_TOL
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **tol,
+                               err_msg=case)
+
+
+@pytest.mark.gpu
+def test_streaming_kernels_repeat_bit_for_bit_and_count(cuda_device):
+    """No float atomics: two launches give the same bits. Each wrapper
+    counts one launch per call under its form (``f32``, or ``f32:weighted``
+    for a weighted SpMM), its plain version none."""
+    cases = _streaming_cases(cuda_device)
+    for op, case, key in (
+            ("spmm_sorted_coo", "spmm_f128", "f32"),
+            ("spmm_sorted_coo", "spmm_weighted_f32", "f32:weighted"),
+            ("spmm_sorted_coo_bwd", "spmm_bwd_f64", "f32"),
+            ("spmm_sorted_coo_bwd", "spmm_bwd_weighted_f3", "f32:weighted"),
+            ("block_spmm", "block_spmm_f128", "f32"),
+            ("block_spmm", "block_spmm_weighted_f32", "f32:weighted"),
+            ("block_spmm_bwd", "block_spmm_bwd_weighted_f128",
+             "f32:weighted"),
+            ("segment_max", "segment_max_holes_f128", "f32")):
+        fn = getattr(ops, op)
+        before = fn.launches_by_dtype.get(key, 0)
+        a, b = cases[case][0](), cases[case][0]()
+        cases[case][1]()
+        assert fn.launches_by_dtype[key] == before + 2, case
+        assert torch.equal(a, b), case
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op", ["spmm_sorted_coo", "block_spmm",
+                                "segment_max"])
+def test_streaming_autograd_through_kernels_on_card(cuda_device, op):
+    """The autograd Functions on CUDA tensors: gradients (of x and of the
+    weights) equal the plain versions' autograd, and the backward kernel
+    runs (segment max: its tie counts through the segment-sum kernel)."""
+    rng = np.random.default_rng(12)
+    if op == "spmm_sorted_coo":
+        src, dst, perm, ssorted = _on(cuda_device, *_edge_list(rng, 60, 900))
+        x, w = _on(cuda_device, rng.standard_normal((60, 64)).astype(
+            np.float32), rng.random(len(src)).astype(np.float32))
+        inputs = [x.requires_grad_(), w.requires_grad_()]
+        kernel = lambda a, b: ops.spmm_sorted_coo(  # noqa: E731
+            a, src, dst, b, 60, src_perm=perm, src_sorted=ssorted)
+        plain = lambda a, b: ops.spmm_sorted_coo_plain(  # noqa: E731
+            a, src, dst, b, 60)
+        bwd = ops.spmm_sorted_coo_bwd
+    elif op == "block_spmm":
+        case = _streaming_cases(cuda_device)["block_spmm_weighted_f128"]
+        xb, s_, d_, w_, e_, ts_, td_, tw_, tt_, bn = case[0].__defaults__[0]
+        inputs = [xb.clone().requires_grad_(), w_.clone().requires_grad_()]
+        kernel = lambda a, b: ops.block_spmm(  # noqa: E731
+            a, s_, d_, b, e_, ts_, td_, tw_, tt_, bn)
+        plain = lambda a, b: ops.block_spmm_plain(  # noqa: E731
+            a, s_, d_, b, num_nodes=bn)
+        bwd = ops.block_spmm_bwd
+    else:
+        ids = _hole_ids(rng, 60)
+        x, ids_t = _on(cuda_device, (rng.integers(-4, 5, (len(ids), 32))
+                                     / 2).astype(np.float32), ids)
+        inputs = [x.requires_grad_()]
+        kernel = lambda a: ops.segment_max(a, ids_t, 60)  # noqa: E731
+        plain = lambda a: ops.segment_max_plain(a, ids_t, 60)  # noqa: E731
+        bwd = ops.segment_sum
+    out = kernel(*inputs)
+    g = torch.randn(out.shape, device=cuda_device)
+    before = bwd.launches
+    got = torch.autograd.grad((out * g).sum(), inputs)
+    assert bwd.launches == before + 1
+    want = torch.autograd.grad((plain(*inputs) * g).sum(), inputs)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                   **GRAD_TOL)
+
+
+@pytest.mark.gpu
+def test_streaming_kernels_refuse_on_card(cuda_device):
+    ids = torch.zeros(16, dtype=torch.int32, device=cuda_device)
+    bf = torch.zeros(16, 8, dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(NotImplementedError, match="float32"):
+        ops.spmm_sorted_coo(bf, ids, ids, None, 16)
+    with pytest.raises(NotImplementedError, match="float32"):
+        ops.segment_max(bf, ids, 4)
+    x = torch.zeros(128, 8, device=cuda_device)
+    with pytest.raises(ValueError, match="int32"):
+        ops.spmm_sorted_coo(x, ids.long(), ids, None, 16)
+    est = torch.zeros(2, dtype=torch.int32, device=cuda_device)
+    wide = torch.zeros(128, 300, device=cuda_device)  # F over 256
+    with pytest.raises(NotImplementedError, match="256"):
+        ops.block_spmm(wide, ids, ids, None, est, ids, ids, None, est, 128)
+    with pytest.raises(ValueError, match="128-row"):
+        ops.block_spmm(x[:100], ids, ids, None, est, ids, ids, None, est,
+                       100)
+    with pytest.raises(NotImplementedError, match="float32"):
+        ops.block_spmm(torch.zeros(128, 8, dtype=torch.bfloat16,
+                                   device=cuda_device), ids, ids, None, est,
+                       ids, ids, None, est, 128)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["spmm", "block_spmm", "segment_max"])
+def test_streaming_train_step_on_card(cuda_device, route, monkeypatch):
+    """One Trainer step through the streaming kernels: molecules over 128
+    atoms (sorted-COO SpMM, GIN and GCN), a bucket above the block-dense
+    threshold (block-local SpMM), or the max readout; every parameter's
+    gradient equals the same step with the plain versions."""
+    from bignn_tpu_torch.config import TrainConfig
+    from bignn_tpu_torch.data import make_synthetic_ddi, prepare_device_data
+    from bignn_tpu_torch.models import BiGNN, BiGNNConfig
+    from bignn_tpu_torch.sparse import formats as formats_mod
+    from bignn_tpu_torch.train import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    big = route == "spmm"
+    if route == "block_spmm":
+        monkeypatch.setattr(formats_mod, "BLOCK_DENSE_MAX_NODES", 0)
+    data = prepare_device_data(make_synthetic_ddi(
+        num_drugs=60, feat_dim=8, avg_degree=6.0, min_atoms=100 if big else 4,
+        max_atoms=160 if big else 40, seed=0))
+    inner = ("gin:16", "gcn:16")
+    cfg = BiGNNConfig(feat_dim=8, inner_layers=inner,
+                      readout="max" if route == "segment_max" else "sum",
+                      outer_layers=("gat:16:2",), scorer="mlp:16")
+    pairs = data.train_pairs[:32]
+    mask = np.ones(32, np.float32)
+
+    def step():
+        trainer = Trainer(BiGNN(cfg), data, TrainConfig(), cuda_device)
+        trainer.init(1)
+        trainer.train_step(pairs, mask, 0, 0)
+        return {k: p.grad.clone() for k, p in
+                trainer.model.named_parameters()}
+
+    kernels = {"spmm": (ops.spmm_sorted_coo, ops.spmm_sorted_coo_bwd),
+               "block_spmm": (ops.block_spmm, ops.block_spmm_bwd),
+               "segment_max": (ops.segment_max,)}[route]
+    before = [k.launches for k in kernels]
+    got = step()
+    assert all(k.launches > b for k, b in zip(kernels, before))
+    with mock.patch.multiple(
+            ops, segment_sum=ops.segment_sum_plain,
+            block_adjacency=lambda s, d, w, e, n: ops.block_adjacency_plain(
+                s, d, w, n),
+            flash_gat_attention=ops.flash_gat_attention_plain,
+            spmm_sorted_coo=ops.spmm_sorted_coo_plain,
+            segment_max=ops.segment_max_plain):
+        want = step()
+    for name, g in got.items():
+        scale = want[name].abs().max().item()
+        np.testing.assert_allclose(g.cpu().numpy(), want[name].cpu().numpy(),
+                                   rtol=2e-4, atol=2e-5 * max(scale, 1.0),
+                                   err_msg=name)

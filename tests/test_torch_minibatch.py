@@ -237,5 +237,5 @@ def test_left_out_paths_raise(ds):
             call()
     with pytest.raises(NotImplementedError, match="item 5"):
         _trainer(ds, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 4"):
-        _trainer(ds, resident=False)
+    with pytest.raises(ValueError, match="resident"):
+        _trainer(ds, resident=False, device_sample=True)

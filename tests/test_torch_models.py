@@ -202,15 +202,15 @@ def test_config_registry_matches_jax(name):
 def test_unported_parts_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         parse_conv("dotattn:16:2", 8)
+    with pytest.raises(ValueError, match="unknown readout"):
+        parse_readout("median", 16)
+    with pytest.raises(ValueError, match="edge list"):
+        GINConv(8, 16)(torch.zeros(4, 8))  # no edge list, no dense form
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        parse_readout("mean", 16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        GINConv(8, 16)(torch.zeros(4, 8))  # streaming edge-list branch
-    with pytest.raises(NotImplementedError):
         GATConv(8, 16, heads=2)(torch.zeros(128, 8),
                                 block_dense=(None, torch.zeros(1, 128, 128)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        GCNConv(8, 16)(torch.zeros(4, 8))  # streaming edge-list branch
+    with pytest.raises(ValueError, match="edge list"):
+        GCNConv(8, 16)(torch.zeros(4, 8))  # no edge list, no dense form
     # bf16 is ported (config4); other compute types are refused
     assert BiGNN(dataclasses.replace(BiGNNConfig.full_bignn(8),
                                      dtype="bfloat16")).compute_dtype == (
