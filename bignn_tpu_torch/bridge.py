@@ -2,8 +2,10 @@
 
 The JAX package keeps parameters as nested dicts (``bignn_tpu/models/
 bignn.py:119-132``): ``inner/layer_i/mlp/layer_j/{w,b}``, ``inner/layer_i/
-eps``, ``outer/layer_i/{w,a_l,a_r,b}``, ``scorer/mlp/layer_j/{w,b}``, and for the
-attention readout ``readout/gate/layer_j/{w,b}`` and ``readout/proj``.
+eps``, ``outer/layer_i/{w,a_l,a_r,b}`` (a GAT) or ``outer/layer_i/{wq,wk,wv,
+b}`` (a DotAttn conv, at either level), ``scorer/mlp/layer_j/{w,b}``, and
+for the attention readout ``readout/gate/layer_j/{w,b}`` and
+``readout/proj``.
 Leaves arrive as NumPy arrays (``jax.tree.map(np.asarray, params)``), so
 this module needs no JAX. Renaming rules:
   * ``layer_i`` under ``inner``/``outer`` -> ``i``; under an MLP (``mlp``,
@@ -11,6 +13,8 @@ this module needs no JAX. Renaming rules:
   * a Dense layer's ``w`` ``[in, out]`` -> ``weight`` ``[out, in]``
     (transposed), ``b`` -> ``bias``;
   * a conv's own ``w`` -> ``lin.weight`` (transposed), ``b`` -> ``bias``;
+  * a DotAttn conv's ``wq``/``wk``/``wv`` -> ``lin_q.weight``/
+    ``lin_k.weight``/``lin_v.weight`` (transposed);
   * the readout's ``proj`` ``[in, out]`` -> ``proj.weight`` (transposed);
   * ``eps`` (0-d), ``a_l``/``a_r`` (``[H, D]``) keep name and shape.
 """
@@ -51,6 +55,8 @@ def _rename(path: tuple[str, ...]) -> tuple[str, bool]:
         return ".".join(out + ["proj", "weight"]), True
     if leaf == "w":
         return ".".join(out + (["weight"] if in_dense else ["lin", "weight"])), True
+    if leaf in ("wq", "wk", "wv"):
+        return ".".join(out + [f"lin_{leaf[1]}", "weight"]), True
     if leaf == "b":
         return ".".join(out + ["bias"]), False
     if leaf in ("eps", "a_l", "a_r"):

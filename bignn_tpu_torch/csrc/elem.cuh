@@ -1,6 +1,6 @@
 // Element types of the kernels' data, shared by every source that takes more
 // than float32 (segment_sum.cu, segment_softmax.cu, spmm_multihead.cu,
-// block_adj.cu).
+// block_adj.cu, spmm.cu, block_spmm.cu, segment_max.cu).
 //
 // Every sum runs in float32 whatever the stored type: a value is widened
 // with to_f32 when it is loaded and narrowed once, with round-to-nearest-even
@@ -87,6 +87,67 @@ __device__ __forceinline__ void store_row(T* out, int n, const float* v) {
 #pragma unroll
     for (int h = 0; h < N; ++h)
       if (h < n) out[h] = from_f32<T>(v[h]);
+  }
+}
+
+// x rounded to T and widened back: the value a product takes when it is
+// stored in T (identity for float32).
+template <class T>
+__device__ __forceinline__ float round_to(float x) {
+  return to_f32(from_f32<T>(x));
+}
+
+// VEC consecutive values p[0 .. VEC) as floats, in one load where VEC spans
+// 16 bytes (float32 VEC 4, bf16 VEC 8; p on a 16-byte boundary), one 4-byte
+// load for a bf16 pair (VEC 2), or one value (VEC 1).
+template <int VEC, class T>
+__device__ __forceinline__ void load_vec(const T* p, float* out) {
+  if constexpr (VEC == 1) {
+    out[0] = load1(p);
+  } else if constexpr (VEC == 2) {
+    const float2 v = load2(p);
+    out[0] = v.x;
+    out[1] = v.y;
+  } else if constexpr (VEC == 4) {
+    static_assert(sizeof(T) == 4, "VEC 4 is the float32 16-byte load");
+    const float4 v = __ldg(reinterpret_cast<const float4*>(p));
+    out[0] = v.x;
+    out[1] = v.y;
+    out[2] = v.z;
+    out[3] = v.w;
+  } else {
+    static_assert(VEC == 8 && sizeof(T) == 2,
+                  "VEC 8 is the bf16 16-byte load");
+    const uint4 raw = __ldg(reinterpret_cast<const uint4*>(p));
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 v = __bfloat1622float2(h[i]);
+      out[2 * i] = v.x;
+      out[2 * i + 1] = v.y;
+    }
+  }
+}
+
+// p[0 .. VEC) = v[0 .. VEC), narrowed to T: the stores matching load_vec.
+template <int VEC, class T>
+__device__ __forceinline__ void store_vec(T* p, const float* v) {
+  if constexpr (VEC == 1) {
+    p[0] = from_f32<T>(v[0]);
+  } else if constexpr (VEC == 2) {
+    store2(p, v[0], v[1]);
+  } else if constexpr (VEC == 4) {
+    static_assert(sizeof(T) == 4, "VEC 4 is the float32 16-byte store");
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+    static_assert(VEC == 8 && sizeof(T) == 2,
+                  "VEC 8 is the bf16 16-byte store");
+    uint4 raw;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+    *reinterpret_cast<uint4*>(p) = raw;
   }
 }
 

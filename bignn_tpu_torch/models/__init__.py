@@ -1,7 +1,13 @@
 """GNN modules of the port (counterpart of ``bignn_tpu/models``)."""
 
 from bignn_tpu_torch.models.bignn import BiGNN, BiGNNConfig, upload_buckets
-from bignn_tpu_torch.models.convs import GATConv, GCNConv, GINConv, parse_conv
+from bignn_tpu_torch.models.convs import (
+    DotAttnConv,
+    GATConv,
+    GCNConv,
+    GINConv,
+    parse_conv,
+)
 from bignn_tpu_torch.models.modules import MLP, Dense, glorot, parse_activation
 from bignn_tpu_torch.models.readout import (
     AttentionReadout,
@@ -18,6 +24,7 @@ __all__ = [
     "BiGNNConfig",
     "Dense",
     "DotScorer",
+    "DotAttnConv",
     "GATConv",
     "GCNConv",
     "GINConv",

@@ -29,12 +29,15 @@ class SumReadout(nn.Module):
 
 class MeanReadout(SumReadout):
     """The sum over each graph divided by its node count: ``graph_n_nodes``
-    where the batch carries it, else a count of the graph's rows."""
+    where the batch carries it (float32 counts: the mean is divided and
+    returned in float32 whatever the compute type, as JAX's division
+    promotes it), else a count of the graph's rows (the data's type, as
+    JAX's ``segment_mean``)."""
 
     def forward(self, x, graph_ids, num_graphs: int, graph_n_nodes=None):
         if graph_n_nodes is not None:
             total = ops.segment_sum(x, graph_ids, num_graphs)
-            return total / graph_n_nodes.clamp_min(1.0)[:, None].to(x.dtype)
+            return total.float() / graph_n_nodes.float().clamp_min(1.0)[:, None]
         return ops.segment_mean(x, graph_ids, num_graphs)
 
 

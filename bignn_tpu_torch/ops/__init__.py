@@ -8,6 +8,8 @@ backward ``flash_gat_attention_bwd``, ``segment_softmax`` and its backward
 ``gather_rows_sorted_grad``, ``spmm_sorted_coo`` and its backward
 ``spmm_sorted_coo_bwd``, ``block_spmm`` and its backward ``block_spmm_bwd``
 (the same kernel on the transposed plan), and ``segment_max``.
+``sddmm`` (the per-edge scores of ``DotAttnConv``) is plain PyTorch, as
+the JAX package leaves it to XLA.
 ``segment_sum``, ``flash_gat_attention``, ``segment_softmax``,
 ``spmm_multihead``, ``gather_rows_sorted_grad``, ``spmm_sorted_coo``,
 ``block_spmm`` and ``segment_max`` are ``torch.autograd.Function``s, so
@@ -51,6 +53,7 @@ from bignn_tpu_torch.ops.multihead import (
     spmm_multihead_bwd_plain,
     spmm_multihead_plain,
 )
+from bignn_tpu_torch.ops.sddmm import sddmm
 from bignn_tpu_torch.ops.segment import (
     segment_max,
     segment_max_plain,
@@ -86,6 +89,7 @@ __all__ = [
     "gather_rows_sorted_grad_bwd_plain",
     "gather_rows_sorted_grad_plain",
     "permutation_scatter_rows",
+    "sddmm",
     "segment_max",
     "segment_max_plain",
     "segment_mean",

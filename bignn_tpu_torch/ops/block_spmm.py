@@ -13,9 +13,13 @@ runs the kernel of ``csrc/block_spmm.cu`` and its backward
 (``block_spmm_bwd``) the same kernel on the transposed (source-sorted) plan
 ``(tsrc, tdst, tweight, tstarts)``, as the JAX VJP does; on CPU tensors both
 take the plain version. ``d_weight`` is a per-edge dot in plain PyTorch
-(``edge_weight_grad``), as the JAX VJP leaves it to XLA. Both wrappers count
-their launches, the weighted form under ``f32:weighted``. The kernel takes
-float32 and F <= 256 and raises on anything else.
+(``edge_weight_grad``), as the JAX VJP leaves it to XLA, and comes back in
+the weight's type. Both wrappers count their launches per element type, the
+weighted forms under ``f32:weighted`` and ``bf16:weighted``. The kernel
+takes float32 or bf16 rows (float32 weights) and F <= 256 and raises on
+anything else; in bf16 it rounds the weight and each weighted message to
+bf16 before the float32 sum, as the TPU kernel does (JAX
+``ops/pallas/block_spmm.py:142-144``).
 
 The models take this route for block-local buckets above
 ``BLOCK_DENSE_MAX_NODES`` rows, which carry no dense blocks (JAX
@@ -77,15 +81,14 @@ def block_spmm_plain(x: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
 
 
 def _launch(x, src, dst, weight, starts, num_nodes) -> torch.Tensor:
-    """``csrc/block_spmm.cu`` on ``x [N, F]`` float32 (N a multiple of 128
-    equal to ``num_nodes``, F <= 256). ``starts`` shorter than ``N/128 + 1``
-    is extended with its last value (JAX ``block_spmm.py:204-208``). Counts
-    nothing: each caller counts its own launches."""
-    if x.dtype != torch.float32:
-        raise NotImplementedError(
-            f"block_spmm kernels take float32 x, got {x.dtype}")
+    """``csrc/block_spmm.cu`` on ``x [N, F]`` float32 or bf16 (N a multiple
+    of 128 equal to ``num_nodes``, F <= 256). ``starts`` shorter than
+    ``N/128 + 1`` is extended with its last value (JAX
+    ``block_spmm.py:204-208``). Counts nothing: each caller counts its own
+    launches."""
+    suffix = cuda_lib.require_float(x, "x", "block_spmm")
     dev = x.device
-    cuda_lib.require_cuda(x, "x", torch.float32, 2, dev)
+    cuda_lib.require_cuda(x, "x", x.dtype, 2, dev)
     n, f = x.shape
     if n != num_nodes or n % BLOCK_ROWS:
         raise ValueError(f"block_spmm needs x padded to the 128-row grid: x "
@@ -111,9 +114,9 @@ def _launch(x, src, dst, weight, starts, num_nodes) -> torch.Tensor:
             raise ValueError("weight must match the edge list")
         w_ptr = weight.data_ptr()
     out = torch.empty_like(x)
-    cuda_lib.launch("bignn_block_spmm_f32", dev, x.data_ptr(), src.data_ptr(),
-                    dst.data_ptr(), w_ptr, starts.data_ptr(), e, nblk, f,
-                    out.data_ptr())
+    cuda_lib.launch(f"bignn_block_spmm_{suffix}", dev, x.data_ptr(),
+                    src.data_ptr(), dst.data_ptr(), w_ptr, starts.data_ptr(),
+                    e, nblk, f, out.data_ptr())
     return out
 
 
@@ -158,7 +161,8 @@ class _BlockSpmm(torch.autograd.Function):
                                  None if weight is None else tweight,
                                  tstarts, ctx.num_nodes)
         if weight is not None and ctx.needs_input_grad[1]:
-            d_w = edge_weight_grad(g, x, src, dst, block_local=True)
+            d_w = edge_weight_grad(g, x, src, dst,
+                                   block_local=True).to(weight.dtype)
         return d_x, d_w, None, None, None, None, None, None, None, None
 
 

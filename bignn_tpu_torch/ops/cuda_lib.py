@@ -43,6 +43,9 @@ _SOFTMAX_BWD = [_VP, _VP, _VP, _I32, _I32, _I32, _VP, _VP, _VP]
 _MH_FWD = [_VP, _VP, _VP, _VP, _I32, _I32, _I32, _I32, _I32, _VP, _VP, _VP]
 _MH_BWD = [_VP, _VP, _VP, _VP, _VP, _VP, _I32, _I32, _I32, _I32, _I32, _VP,
            _VP, _VP, _VP]
+_SPMM = [_VP, _I32, _VP, _VP, _VP, _I32, _I32, _I32, _VP, _VP, _VP]
+_SPMM_BWD = [_VP, _I32, _VP, _VP, _VP, _VP, _I32, _I32, _I32, _VP, _VP, _VP]
+_BLOCK_SPMM = [_VP, _VP, _VP, _VP, _VP, _I32, _I32, _I32, _VP]
 _SIGNATURES = {
     # name: argument types after which the stream follows
     "bignn_segment_sum_f32": _SEGMENT_SUM,
@@ -65,12 +68,14 @@ _SIGNATURES = {
     "bignn_spmm_multihead_fwd_bf16": _MH_FWD,
     "bignn_spmm_multihead_bwd_f32": _MH_BWD,
     "bignn_spmm_multihead_bwd_bf16": _MH_BWD,
-    "bignn_spmm_f32": [_VP, _I32, _VP, _VP, _VP, _I32, _I32, _I32, _VP, _VP,
-                       _VP],
-    "bignn_spmm_bwd_f32": [_VP, _I32, _VP, _VP, _VP, _VP, _I32, _I32, _I32,
-                           _VP, _VP, _VP],
-    "bignn_block_spmm_f32": [_VP, _VP, _VP, _VP, _VP, _I32, _I32, _I32, _VP],
+    "bignn_spmm_f32": _SPMM,
+    "bignn_spmm_bf16": _SPMM,
+    "bignn_spmm_bwd_f32": _SPMM_BWD,
+    "bignn_spmm_bwd_bf16": _SPMM_BWD,
+    "bignn_block_spmm_f32": _BLOCK_SPMM,
+    "bignn_block_spmm_bf16": _BLOCK_SPMM,
     "bignn_segment_max_f32": _SEGMENT_SUM,
+    "bignn_segment_max_bf16": _SEGMENT_SUM,
 }
 
 # element type -> the suffix of its entry points and of its launch count

@@ -325,11 +325,9 @@ def _segment_max_cuda(data: torch.Tensor, segment_ids: torch.Tensor,
     if data.dim() == 1:
         return _segment_max_cuda(data[:, None], segment_ids,
                                  num_segments)[:, 0]
-    if data.dtype != torch.float32:
-        raise NotImplementedError(
-            f"segment_max kernels take float32 data, got {data.dtype}")
+    suffix = cuda_lib.require_float(data, "data", "segment_max")
     dev = data.device
-    cuda_lib.require_cuda(data, "data", torch.float32, 2, dev)
+    cuda_lib.require_cuda(data, "data", data.dtype, 2, dev)
     cuda_lib.require_cuda(segment_ids, "segment_ids", torch.int32, 1, dev)
     e, f = data.shape
     if segment_ids.shape[0] != e:
@@ -338,7 +336,7 @@ def _segment_max_cuda(data: torch.Tensor, segment_ids: torch.Tensor,
     out = torch.empty((num_segments, f), dtype=data.dtype, device=dev)
     first = torch.empty(num_segments, dtype=torch.int32, device=dev)
     last = torch.empty(num_segments, dtype=torch.int32, device=dev)
-    cuda_lib.launch("bignn_segment_max_f32", dev, data.data_ptr(),
+    cuda_lib.launch(f"bignn_segment_max_{suffix}", dev, data.data_ptr(),
                     segment_ids.data_ptr(), e, f, num_segments,
                     first.data_ptr(), last.data_ptr(), out.data_ptr())
     cuda_lib.count(segment_max, data.dtype)
@@ -368,7 +366,8 @@ def segment_max(data: torch.Tensor, segment_ids: torch.Tensor,
     """``out[s] = max of data[e] over e with segment_ids[e] == s``; 0 for an
     empty segment or a max that is not finite.
 
-    ``data`` is ``[E, F]`` (or ``[E]``) float32 on the card (the plain
+    ``data`` is ``[E, F]`` (or ``[E]``) float32 or bf16 on the card
+    (compared in float32; the max, exact, in the data's type; the plain
     version takes any float type), ``segment_ids`` ``[E]`` int32 in any
     order; ids outside ``[0, num_segments)`` are dropped. A CPU tensor takes
     the plain version; any other goes to the kernel of

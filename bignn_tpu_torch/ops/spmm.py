@@ -15,8 +15,12 @@ its permuted-read form for ``d_x`` over the source-sorted order
 ``src`` when absent), JAX's ``_dx_sorted`` fused. ``d_weight`` is a per-edge
 dot in plain PyTorch, as in JAX. Padding edges (``dst >= num_out``) take no
 part in either direction. A CPU tensor takes the plain versions. Both
-wrappers count their launches, the weighted form under ``f32:weighted``.
-The kernels take float32 and raise on other types.
+wrappers count their launches per element type, the weighted forms under
+``f32:weighted`` and ``bf16:weighted``. The kernels take float32 or bf16
+rows (float32 weights) and raise on other types. In bf16 they round as the
+JAX package does (``ops/pallas/spmm.py:55, :97``): the weight and each
+weighted message to bf16, then a float32 sum; ``d_weight`` comes back in
+the weight's type.
 """
 
 from __future__ import annotations
@@ -67,13 +71,12 @@ def spmm_sorted_coo_bwd_plain(g: torch.Tensor, src: torch.Tensor,
     return segment_sum_plain(m[src_perm.long()], src_sorted, num_x)
 
 
-def _check(x, src, dst, weight, name: str) -> tuple[int, int]:
-    """Check what the kernels take; returns ``(rows of x, F)``."""
-    if x.dtype != torch.float32:
-        raise NotImplementedError(
-            f"spmm kernels take float32 {name}, got {x.dtype}")
+def _check(x, src, dst, weight, name: str) -> tuple[int, int, str]:
+    """Check what the kernels take; returns ``(rows of x, F, suffix)``, the
+    last the entry points' element type."""
+    suffix = cuda_lib.require_float(x, name, "spmm")
     dev = x.device
-    cuda_lib.require_cuda(x, name, torch.float32, 2, dev)
+    cuda_lib.require_cuda(x, name, x.dtype, 2, dev)
     e = src.shape[0]
     cuda_lib.require_cuda(src, "src", torch.int32, 1, dev)
     cuda_lib.require_cuda(dst, "dst", torch.int32, 1, dev)
@@ -83,16 +86,16 @@ def _check(x, src, dst, weight, name: str) -> tuple[int, int]:
         cuda_lib.require_cuda(weight, "weight", torch.float32, 1, dev)
         if weight.shape[0] != e:
             raise ValueError("weight must match the edge list")
-    return x.shape
+    return x.shape[0], x.shape[1], suffix
 
 
 def _spmm_fwd_cuda(x, src, dst, weight, num_out):
-    n, f = _check(x, src, dst, weight, "x")
+    n, f, suffix = _check(x, src, dst, weight, "x")
     dev = x.device
     out = torch.empty((num_out, f), dtype=x.dtype, device=dev)
     first = torch.empty(num_out, dtype=torch.int32, device=dev)
     last = torch.empty(num_out, dtype=torch.int32, device=dev)
-    cuda_lib.launch("bignn_spmm_f32", dev, x.data_ptr(), n, src.data_ptr(),
+    cuda_lib.launch(f"bignn_spmm_{suffix}", dev, x.data_ptr(), n, src.data_ptr(),
                     dst.data_ptr(),
                     None if weight is None else weight.data_ptr(),
                     src.shape[0], num_out, f, first.data_ptr(),
@@ -113,7 +116,7 @@ def spmm_sorted_coo_bwd(g: torch.Tensor, src: torch.Tensor,
         return spmm_sorted_coo_bwd_plain(g, src, dst, weight, num_x, src_perm,
                                          src_sorted)
     src_perm, src_sorted = _src_order(src, src_perm, src_sorted)
-    num_g, f = _check(g, src, dst, weight, "g")
+    num_g, f, suffix = _check(g, src, dst, weight, "g")
     dev = g.device
     for name, t in (("src_perm", src_perm), ("src_sorted", src_sorted)):
         cuda_lib.require_cuda(t, name, torch.int32, 1, dev)
@@ -122,7 +125,7 @@ def spmm_sorted_coo_bwd(g: torch.Tensor, src: torch.Tensor,
     d_x = torch.empty((num_x, f), dtype=g.dtype, device=dev)
     first = torch.empty(num_x, dtype=torch.int32, device=dev)
     last = torch.empty(num_x, dtype=torch.int32, device=dev)
-    cuda_lib.launch("bignn_spmm_bwd_f32", dev, g.data_ptr(), num_g,
+    cuda_lib.launch(f"bignn_spmm_bwd_{suffix}", dev, g.data_ptr(), num_g,
                     dst.data_ptr(),
                     None if weight is None else weight.data_ptr(),
                     src_perm.data_ptr(), src_sorted.data_ptr(), src.shape[0],
@@ -154,7 +157,7 @@ class _SpmmSortedCoo(torch.autograd.Function):
             d_x = spmm_sorted_coo_bwd(g, src, dst, weight, x.shape[0],
                                       src_perm, src_sorted)
         if weight is not None and ctx.needs_input_grad[1]:
-            d_w = edge_weight_grad(g, x, src, dst)
+            d_w = edge_weight_grad(g, x, src, dst).to(weight.dtype)
         return d_x, d_w, None, None, None, None, None
 
 

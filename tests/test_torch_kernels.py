@@ -15,6 +15,7 @@ so they differ by at most one bf16 rounding of nearly equal sums (BF16_TOL,
 rtol 1e-2 > 2**-7).
 """
 
+import itertools
 from unittest import mock
 
 import numpy as np
@@ -794,11 +795,14 @@ def test_dtype_kernels_refuse_on_card(cuda_device):
 def _streaming_cases(device):
     """name -> (kernel call, plain call) for the sorted-COO SpMM, the
     block-local SpMM and the segment max (forward and backward, weighted
-    and unweighted), on small inputs on ``device``: row widths that take
-    4-float loads with 1, 2 and 4 edges a warp (F 128, 64, 32), single
-    floats (F 3, 130), two sweeps (F 256); padding edges (dst = N), an
-    unsorted dst with padding between runs, an out-of-block edge."""
+    and unweighted, float32 and the ``_bf16`` forms with float32 weights),
+    on small inputs on ``device``: row widths that take 16-byte loads with
+    1, 2 and 4 edges a warp (f32 F 128, 64, 32; bf16 F 128 and 64 take 2
+    and 4), single values (F 3), bf16 pairs (F 130), two sweeps (F 256);
+    padding edges (dst = N), an unsorted dst with padding between runs, an
+    out-of-block edge."""
     rng = np.random.default_rng(11)
+    bf = torch.bfloat16
     cases = {}
     for tag, n, e, feat, sort in (
             ("f128", 90, 900, 128, True), ("f64", 70, 700, 64, True),
@@ -810,14 +814,18 @@ def _streaming_cases(device):
         x, g = _on(device, rng.standard_normal((n, feat)).astype(np.float32),
                    rng.standard_normal((n, feat)).astype(np.float32))
         (w,) = _on(device, rng.random(len(src)).astype(np.float32))
-        for wt, wname in ((None, ""), (w, "_weighted")):
-            cases[f"spmm{wname}_{tag}"] = (
-                lambda a=(x, src, dst, wt, n): ops.spmm_sorted_coo(*a),
-                lambda a=(x, src, dst, wt, n): ops.spmm_sorted_coo_plain(*a))
-            cases[f"spmm_bwd{wname}_{tag}"] = (
-                lambda a=(g, src, dst, wt, n, perm, ssorted):
+        forms = [("", x, g)]
+        if tag in STREAMING_BF16_TAGS:
+            forms.append(("_bf16", x.to(bf), g.to(bf)))
+        for (dt, xt, gt), (wt, wname) in itertools.product(
+                forms, ((None, ""), (w, "_weighted"))):
+            cases[f"spmm{wname}{dt}_{tag}"] = (
+                lambda a=(xt, src, dst, wt, n): ops.spmm_sorted_coo(*a),
+                lambda a=(xt, src, dst, wt, n): ops.spmm_sorted_coo_plain(*a))
+            cases[f"spmm_bwd{wname}{dt}_{tag}"] = (
+                lambda a=(gt, src, dst, wt, n, perm, ssorted):
                     ops.spmm_sorted_coo_bwd(*a),
-                lambda a=(g, src, dst, wt, n):
+                lambda a=(gt, src, dst, wt, n):
                     ops.spmm_sorted_coo_bwd_plain(*a))
     cases["spmm_bwd_argsort_f32"] = (  # no source-sort arrays: one sort
         lambda a=(g, src, dst, None, n): ops.spmm_sorted_coo_bwd(*a),
@@ -836,14 +844,16 @@ def _streaming_cases(device):
         w = np.where(real, rng.random(len(bsrc)), 0).astype(np.float32)
         t = _on(device, bsrc, bdst, best, tsrc, tdst, tst, w, w[order][tord],
                 rng.standard_normal((bn, feat)).astype(np.float32))
-        s_, d_, e_, ts_, td_, tt_, w_, tw_, xb = t
-        for wt, twt, wname in ((None, None, ""), (w_, tw_, "_weighted")):
-            cases[f"block_spmm{wname}_f{feat}"] = (
+        s_, d_, e_, ts_, td_, tt_, w_, tw_, x32 = t
+        forms = [("", x32)] + ([("_bf16", x32.to(bf))] if feat != 32 else [])
+        for (dt, xb), (wt, twt, wname) in itertools.product(
+                forms, ((None, None, ""), (w_, tw_, "_weighted"))):
+            cases[f"block_spmm{wname}{dt}_f{feat}"] = (
                 lambda a=(xb, s_, d_, wt, e_, ts_, td_, twt, tt_, bn):
                     ops.block_spmm(*a),
                 lambda a=(xb, s_, d_, wt): ops.block_spmm_plain(
                     *a, num_nodes=bn))
-            cases[f"block_spmm_bwd{wname}_f{feat}"] = (
+            cases[f"block_spmm_bwd{wname}{dt}_f{feat}"] = (
                 lambda a=(xb, ts_, td_, twt, tt_, bn): ops.block_spmm_bwd(*a),
                 lambda a=(xb, ts_, td_, twt): ops.block_spmm_plain(
                     *a, num_nodes=bn))
@@ -857,6 +867,11 @@ def _streaming_cases(device):
         cases[f"segment_max_{tag}"] = (
             lambda x=x, i=i, n=n_seg: ops.segment_max(x, i, n),
             lambda x=x, i=i, n=n_seg: ops.segment_max_plain(x, i, n))
+        if tag.startswith("holes"):  # bf16 pairs (F 128, 130)
+            cases[f"segment_max_bf16_{tag}"] = (
+                lambda x=x.to(bf), i=i, n=n_seg: ops.segment_max(x, i, n),
+                lambda x=x.to(bf), i=i, n=n_seg: ops.segment_max_plain(x, i,
+                                                                       n))
     x1, i1 = _on(device, rng.standard_normal(300).astype(np.float32),
                  np.sort(rng.integers(0, 30, 300)).astype(np.int32))
     cases["segment_max_1d"] = (lambda: ops.segment_max(x1, i1, 30),
@@ -864,14 +879,19 @@ def _streaming_cases(device):
     return cases
 
 
+STREAMING_BF16_TAGS = ("f128", "f64", "f3", "f130", "unsorted_f32")
 STREAMING_CASES = [
     *(f"spmm{b}{w}_{t}" for b in ("", "_bwd") for w in ("", "_weighted")
       for t in ("f128", "f64", "f32", "f3", "f130", "f256", "unsorted_f32")),
+    *(f"spmm{b}{w}_bf16_{t}" for b in ("", "_bwd") for w in ("", "_weighted")
+      for t in STREAMING_BF16_TAGS),
     "spmm_bwd_argsort_f32",
-    *(f"block_spmm{b}{w}_f{f}" for b in ("", "_bwd") for w in ("", "_weighted")
-      for f in (128, 32, 3)),
+    *(f"block_spmm{b}{w}{d}_f{f}" for b in ("", "_bwd")
+      for w in ("", "_weighted") for d in ("", "_bf16") for f in (128, 32, 3)
+      if not (d and f == 32)),
     *(f"segment_max_{t}" for t in ("holes_f128", "holes_f130", "shuffled_f8",
-                                   "1d"))]
+                                   "1d")),
+    "segment_max_bf16_holes_f128", "segment_max_bf16_holes_f130"]
 
 
 def test_streaming_case_names_are_complete():
@@ -895,16 +915,22 @@ def test_streaming_kernel_matches_plain_on_card(cuda_device, case):
     kernel, plain = _streaming_cases(cuda_device)[case]
     got, want = kernel(), plain()
     torch.cuda.synchronize()
-    tol = TOL if case.startswith("segment_max") else GRAD_TOL
-    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **tol,
+    assert got.dtype == want.dtype, case
+    if case.startswith("segment_max_bf16"):  # a max of bf16 values: exact
+        assert torch.equal(got, want), case
+        return
+    tol = (BF16_TOL if "_bf16" in case else
+           TOL if case.startswith("segment_max") else GRAD_TOL)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), **tol,
                                err_msg=case)
 
 
 @pytest.mark.gpu
 def test_streaming_kernels_repeat_bit_for_bit_and_count(cuda_device):
     """No float atomics: two launches give the same bits. Each wrapper
-    counts one launch per call under its form (``f32``, or ``f32:weighted``
-    for a weighted SpMM), its plain version none."""
+    counts one launch per call under its form (``f32`` or ``bf16``, with
+    ``:weighted`` for a weighted SpMM), its plain version none."""
     cases = _streaming_cases(cuda_device)
     for op, case, key in (
             ("spmm_sorted_coo", "spmm_f128", "f32"),
@@ -915,7 +941,18 @@ def test_streaming_kernels_repeat_bit_for_bit_and_count(cuda_device):
             ("block_spmm", "block_spmm_weighted_f32", "f32:weighted"),
             ("block_spmm_bwd", "block_spmm_bwd_weighted_f128",
              "f32:weighted"),
-            ("segment_max", "segment_max_holes_f128", "f32")):
+            ("segment_max", "segment_max_holes_f128", "f32"),
+            ("spmm_sorted_coo", "spmm_bf16_f128", "bf16"),
+            ("spmm_sorted_coo", "spmm_weighted_bf16_f64", "bf16:weighted"),
+            ("spmm_sorted_coo_bwd", "spmm_bwd_bf16_f128", "bf16"),
+            ("spmm_sorted_coo_bwd", "spmm_bwd_weighted_bf16_f3",
+             "bf16:weighted"),
+            ("block_spmm", "block_spmm_bf16_f128", "bf16"),
+            ("block_spmm", "block_spmm_weighted_bf16_f128", "bf16:weighted"),
+            ("block_spmm_bwd", "block_spmm_bwd_bf16_f3", "bf16"),
+            ("block_spmm_bwd", "block_spmm_bwd_weighted_bf16_f128",
+             "bf16:weighted"),
+            ("segment_max", "segment_max_bf16_holes_f130", "bf16")):
         fn = getattr(ops, op)
         before = fn.launches_by_dtype.get(key, 0)
         a, b = cases[case][0](), cases[case][0]()
@@ -974,11 +1011,11 @@ def test_streaming_autograd_through_kernels_on_card(cuda_device, op):
 @pytest.mark.gpu
 def test_streaming_kernels_refuse_on_card(cuda_device):
     ids = torch.zeros(16, dtype=torch.int32, device=cuda_device)
-    bf = torch.zeros(16, 8, dtype=torch.bfloat16, device=cuda_device)
-    with pytest.raises(NotImplementedError, match="float32"):
-        ops.spmm_sorted_coo(bf, ids, ids, None, 16)
-    with pytest.raises(NotImplementedError, match="float32"):
-        ops.segment_max(bf, ids, 4)
+    half = torch.zeros(16, 8, dtype=torch.float16, device=cuda_device)
+    with pytest.raises(NotImplementedError, match="float32 or bfloat16"):
+        ops.spmm_sorted_coo(half, ids, ids, None, 16)
+    with pytest.raises(NotImplementedError, match="float32 or bfloat16"):
+        ops.segment_max(half, ids, 4)
     x = torch.zeros(128, 8, device=cuda_device)
     with pytest.raises(ValueError, match="int32"):
         ops.spmm_sorted_coo(x, ids.long(), ids, None, 16)
@@ -989,8 +1026,8 @@ def test_streaming_kernels_refuse_on_card(cuda_device):
     with pytest.raises(ValueError, match="128-row"):
         ops.block_spmm(x[:100], ids, ids, None, est, ids, ids, None, est,
                        100)
-    with pytest.raises(NotImplementedError, match="float32"):
-        ops.block_spmm(torch.zeros(128, 8, dtype=torch.bfloat16,
+    with pytest.raises(NotImplementedError, match="float32 or bfloat16"):
+        ops.block_spmm(torch.zeros(128, 8, dtype=torch.float16,
                                    device=cuda_device), ids, ids, None, est,
                        ids, ids, None, est, 128)
 

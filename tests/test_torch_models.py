@@ -165,8 +165,11 @@ def test_bridge_names_and_shapes():
         state["inner.0.mlp.layers.0.weight"].numpy(), w.T)
     assert state["inner.0.eps"].shape == ()
     assert state["outer.0.a_l"].shape == (2, 8)
+    # DotAttn's projections map to lin_q/lin_k/lin_v; other names raise
+    assert set(bridge.params_from_jax({"outer": {"layer_0": {"wq": w}}})) == {
+        "outer.0.lin_q.weight"}
     with pytest.raises(ValueError, match="unknown JAX parameter"):
-        bridge.params_from_jax({"outer": {"layer_0": {"wq": w}}})
+        bridge.params_from_jax({"outer": {"layer_0": {"wo": w}}})
     del tree["scorer"]
     with pytest.raises(RuntimeError, match="Missing key"):
         bridge.load_jax_params(model, tree)
@@ -200,15 +203,20 @@ def test_config_registry_matches_jax(name):
 
 
 def test_unported_parts_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        parse_conv("dotattn:16:2", 8)
+    # DotAttnConv and GAT's block-dense branch are ported
+    # (tests/test_torch_attention.py holds them against JAX)
+    conv = parse_conv("dotattn:16:2", 8)
+    assert (conv.heads, conv.head_dim, conv.out_dim) == (2, 8, 16)
     with pytest.raises(ValueError, match="unknown readout"):
         parse_readout("median", 16)
     with pytest.raises(ValueError, match="edge list"):
         GINConv(8, 16)(torch.zeros(4, 8))  # no edge list, no dense form
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        GATConv(8, 16, heads=2)(torch.zeros(128, 8),
-                                block_dense=(None, torch.zeros(1, 128, 128)))
+    # a padding block (no edges) aggregates to 0
+    out = GATConv(8, 16, heads=2)(torch.ones(128, 8),
+                                  block_dense=(None, torch.zeros(1, 128, 128)))
+    assert out.shape == (128, 16) and not out.any()
+    with pytest.raises(ValueError, match="edge list"):
+        conv(torch.zeros(4, 8))  # no edge list, no dense form
     with pytest.raises(ValueError, match="edge list"):
         GCNConv(8, 16)(torch.zeros(4, 8))  # no edge list, no dense form
     # bf16 is ported (config4); other compute types are refused

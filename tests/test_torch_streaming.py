@@ -11,9 +11,14 @@ behind its autograd Function); the JAX side runs its ``xla`` backend and,
 where a Pallas contract holds (sorted ids; block-local plans), its Pallas
 kernels in interpret mode. Tolerances: rtol = atol = 1e-5 for forwards and
 1e-4 for gradients (tests/test_torch_ops.py), rtol 2e-4 / atol 2e-5 x max
-|g| through whole layers and models (tests/test_torch_models.py). The
-card's kernels are held against these plain versions in
-tests/test_torch_kernels.py.
+|g| through whole layers and models (tests/test_torch_models.py). The bf16
+cases (``-bf16`` in their ids) hold the port's rounding (bf16 messages,
+float32 sums, one rounding at the store) against JAX's, which may round at
+other places: forwards within 1e-2 x max(1, max |JAX|), gradients within
+1e-1 x max |g| and a cosine of at least 0.99, as chip_smoke.py holds
+config4's step; a max of bf16 values is exact. A whole bf16 model's logits
+are held within 2e-2 x max(1, max |JAX|): two bf16 steps of its output. The card's kernels are held
+against these plain versions in tests/test_torch_kernels.py.
 """
 
 import dataclasses
@@ -94,6 +99,21 @@ def _hole_ids(rng, num_segments, max_run=6, max_hole=40):
     return np.concatenate(parts).astype(np.int32)
 
 
+def _bf16_close(got, want, what="forward", tol=1e-2):
+    """The bf16 tolerances of the module docstring, in float32: ``tol`` x
+    max(1, max |want|) for a forward, 1e-1 x max |want| and a cosine of
+    0.99 for a gradient."""
+    got = got.detach().float().numpy()
+    want = np.asarray(want, np.float32)
+    scale = max(1.0, np.abs(want).max()) if what == "forward" else (
+        np.abs(want).max())
+    tol = tol if what == "forward" else 1e-1
+    assert np.abs(got - want).max() <= tol * scale, what
+    if what != "forward":
+        cos = (got * want).sum() / (np.linalg.norm(got) * np.linalg.norm(want))
+        assert cos >= 0.99, (what, cos)
+
+
 def _grads_close(got, want, names=None):
     for i, (g, w) in enumerate(zip(got, want)):
         w = np.asarray(w)
@@ -107,14 +127,24 @@ def _grads_close(got, want, names=None):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("backend", ["xla", "pallas_interpret"])
-@pytest.mark.parametrize("weighted", [False, True])
-@pytest.mark.parametrize("precomputed", [False, True])
+def _cases(f32, bf16):
+    """pytest parameters: the float32 cases under their own ids, the bf16
+    ones with ``-bf16`` after them."""
+    return [pytest.param(*c, False, id="-".join(map(str, c))) for c in f32] + [
+        pytest.param(*c, True, id="-".join(map(str, c)) + "-bf16")
+        for c in bf16]
+
+
+@pytest.mark.parametrize("precomputed, weighted, backend, bf16", _cases(
+    [(p, w, b) for b in ("xla", "pallas_interpret") for w in (False, True)
+     for p in (False, True)],
+    [(True, w, "pallas_interpret") for w in (False, True)]))
 def test_spmm_sorted_coo_fwd_and_vjp_match_jax(backend, weighted,
-                                                precomputed):
+                                                precomputed, bf16):
     """Forward, ``d_x`` and ``d_w`` against JAX's dispatch (``xla``, and
     ``spmm_pallas`` in interpret mode on the sorted dst), with and without
-    the source-sort arrays."""
+    the source-sort arrays; bf16 rows with float32 weights against the
+    Pallas path (``d_w`` in float32, as JAX gives it)."""
     rng = np.random.default_rng(0)
     n, e, f = 60, 500, 12
     src, dst = _edges(rng, n, e)
@@ -123,20 +153,31 @@ def test_spmm_sorted_coo_fwd_and_vjp_match_jax(backend, weighted,
     w = np.where(dst < n, rng.random(len(src)), 0.0).astype(np.float32)
     g = rng.standard_normal((n, f)).astype(np.float32)
     sort = dict(src_perm=perm, src_sorted=src[perm]) if precomputed else {}
+    dt = (jnp.bfloat16, torch.bfloat16) if bf16 else (jnp.float32,
+                                                      torch.float32)
 
     def jax_f(xx, ww):
         return jax_ops.spmm_sorted_coo(
             xx, jnp.asarray(src), jnp.asarray(dst), ww if weighted else None,
             n, backend=backend, **{k: jnp.asarray(v) for k, v in sort.items()})
 
-    want, vjp = jax.vjp(jax_f, jnp.asarray(x), jnp.asarray(w))
-    want_dx, want_dw = vjp(jnp.asarray(g))
-    xt, wt = t(x).requires_grad_(), t(w).requires_grad_()
+    want, vjp = jax.vjp(jax_f, jnp.asarray(x, dt[0]), jnp.asarray(w))
+    want_dx, want_dw = vjp(jnp.asarray(g, dt[0]))
+    xt, wt = t(x).to(dt[1]).requires_grad_(), t(w).requires_grad_()
     got = ops.spmm_sorted_coo(xt, t(src), t(dst), wt if weighted else None,
                               n, **{k: t(v) for k, v in sort.items()})
-    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **TOL)
     inputs = [xt, wt] if weighted else [xt]
-    got_d = torch.autograd.grad(got, inputs, t(g))
+    got_d = torch.autograd.grad(got, inputs, t(g).to(dt[1]))
+    if bf16:
+        assert got.dtype == got_d[0].dtype == torch.bfloat16
+        _bf16_close(got, want.astype(jnp.float32))
+        _bf16_close(got_d[0], want_dx.astype(jnp.float32), "d_x")
+        if weighted:
+            assert got_d[1].dtype == torch.float32
+            assert want_dw.dtype == jnp.float32
+            _bf16_close(got_d[1], want_dw, "d_w")
+        return
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **TOL)
     np.testing.assert_allclose(got_d[0].numpy(), np.asarray(want_dx),
                                **GRAD_TOL)
     if weighted:
@@ -188,16 +229,21 @@ def _block_plan(rng, nblk, f):
     return plan, x, n
 
 
-@pytest.mark.parametrize("weighted", [False, True])
-def test_block_spmm_fwd_and_vjp_match_jax(weighted):
+@pytest.mark.parametrize("weighted, bf16", _cases(
+    [(False,), (True,)], [(False,), (True,)]))
+def test_block_spmm_fwd_and_vjp_match_jax(weighted, bf16):
     """Against JAX's ``block_spmm`` in interpret mode (forward, and its VJP:
     the same kernel on the transposed plan, ``d_w`` a per-edge dot), on 5
     blocks with an out-of-block edge that both drop; the plain version
-    agrees, and ``spmm_sorted_coo`` with the plan routes to it."""
+    agrees, and ``spmm_sorted_coo`` with the plan routes to it. In bf16
+    (float32 weights): forward, ``d_x`` and the kept edges' ``d_w``."""
     rng = np.random.default_rng(1)
     plan, x, n = _block_plan(rng, 5, 16)
     g = rng.standard_normal(x.shape).astype(np.float32)
     j = {k: jnp.asarray(v) for k, v in plan.items()}
+    if bf16:
+        _block_spmm_bf16(plan, j, x, g, n, weighted)
+        return
 
     def jax_f(xx, ww):
         return jax_block_spmm(
@@ -238,16 +284,46 @@ def test_block_spmm_fwd_and_vjp_match_jax(weighted):
     np.testing.assert_allclose(routed.numpy(), got.detach().numpy(), **TOL)
 
 
+def _block_spmm_bf16(plan, j, x, g, n, weighted):
+    def jax_f(xx, ww):
+        return jax_block_spmm(
+            xx, j["src"], j["dst"], ww if weighted else None, j["estarts"],
+            j["tsrc"], j["tdst"], j["tweight"] if weighted else None,
+            j["tstarts"], n, interpret=True)
+
+    want, vjp = jax.vjp(jax_f, jnp.asarray(x, jnp.bfloat16), j["weight"])
+    want_dx, want_dw = vjp(jnp.asarray(g, jnp.bfloat16))
+    p = {k: t(v) for k, v in plan.items()}
+    xt = t(x).to(torch.bfloat16).requires_grad_()
+    wt = p["weight"].clone().requires_grad_()
+    got = ops.block_spmm(xt, p["src"], p["dst"], wt if weighted else None,
+                         p["estarts"], p["tsrc"], p["tdst"],
+                         p["tweight"] if weighted else None, p["tstarts"], n)
+    inputs = [xt, wt] if weighted else [xt]
+    got_d = torch.autograd.grad(got, inputs, t(g).to(torch.bfloat16))
+    assert got.dtype == got_d[0].dtype == torch.bfloat16
+    _bf16_close(got, want.astype(jnp.float32))
+    _bf16_close(got_d[0], want_dx.astype(jnp.float32), "d_x")
+    if weighted:  # ROADMAP F3: the out-of-block edge's d_w differs
+        keep = (~((p["src"] == 5) & (p["dst"] == 4 * 128 + 7))).numpy()
+        assert got_d[1].dtype == torch.float32
+        _bf16_close(got_d[1][keep], np.asarray(want_dw)[keep], "d_w")
+
+
 # ---------------------------------------------------------------------------
 # segment_max (row 5)
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("case", ["sorted_1d", "sorted_2d", "holes_2d"])
+@pytest.mark.parametrize("case", ["sorted_1d", "sorted_2d", "holes_2d",
+                                  "sorted_2d-bf16", "holes_2d-bf16"])
 def test_segment_max_fwd_and_vjp_match_jax(case):
     """Ties (values on a coarse grid), empty segments, and padding ids:
     against JAX's ``xla`` path, and on sorted ids also its Pallas kernel in
-    interpret mode (``segment_max_pallas_vjp``)."""
+    interpret mode (``segment_max_pallas_vjp``). In bf16 the max, in the
+    data's type, is exactly JAX's; its gradient (the cotangent shared among
+    ties, divided in float32 where JAX divides in bf16) within the bf16
+    tolerance."""
     rng = np.random.default_rng(2)
     s = 40
     if case.startswith("holes"):
@@ -260,26 +336,37 @@ def test_segment_max_fwd_and_vjp_match_jax(case):
     x = (rng.integers(-4, 5, shape) / 2).astype(np.float32)  # many ties
     g = rng.standard_normal(shape[:1] and (s,) + shape[1:]).astype(
         np.float32)
-    xt = t(x).requires_grad_()
+    if case.endswith("bf16"):  # x's grid is exact in bf16; g is rounded
+        x = x + (rng.random(shape) < 0.3) / 128  # values that need bf16's bits
+        dt = (jnp.bfloat16, torch.bfloat16)
+    else:
+        dt = (jnp.float32, torch.float32)
+    xt = t(x).to(dt[1]).requires_grad_()
     got = ops.segment_max(xt, t(ids), s)
-    (got_d,) = torch.autograd.grad(got, xt, t(g))
+    (got_d,) = torch.autograd.grad(got, xt, t(g).to(dt[1]))
+    assert got.dtype == got_d.dtype == dt[1]
     backends = ["xla"] if case.startswith("holes") else ["xla",
                                                          "pallas_interpret"]
     for backend in backends:
         want, vjp = jax.vjp(lambda d: jax_ops.segment_max(
-            d, jnp.asarray(ids), s, backend=backend), jnp.asarray(x))
-        (want_d,) = vjp(jnp.asarray(g))
-        np.testing.assert_array_equal(got.detach().numpy(), np.asarray(want),
+            d, jnp.asarray(ids), s, backend=backend), jnp.asarray(x, dt[0]))
+        (want_d,) = vjp(jnp.asarray(g, dt[0]))
+        np.testing.assert_array_equal(got.detach().float().numpy(),
+                                      np.asarray(want, np.float32),
                                       err_msg=backend)
-        np.testing.assert_allclose(got_d.numpy(), np.asarray(want_d),
-                                   **GRAD_TOL, err_msg=backend)
+        if dt[1] == torch.bfloat16:
+            _bf16_close(got_d, np.asarray(want_d, np.float32), "d_x")
+        else:
+            np.testing.assert_allclose(got_d.numpy(), np.asarray(want_d),
+                                       **GRAD_TOL, err_msg=backend)
     empty = [5] if case.startswith("holes") else [3, 7, s - 1]
-    assert np.all(got.detach().numpy()[empty] == 0.0)
+    assert np.all(got.detach().float().numpy()[empty] == 0.0)
     # the plain version's autograd splits ties as the composed VJP does
-    xp = t(x).requires_grad_()
+    xp = t(x).to(dt[1]).requires_grad_()
     (plain_d,) = torch.autograd.grad(
-        ops.segment_max_plain(xp, t(ids), s), xp, t(g))
-    np.testing.assert_allclose(plain_d.numpy(), got_d.numpy(), **GRAD_TOL)
+        ops.segment_max_plain(xp, t(ids), s), xp, t(g).to(dt[1]))
+    np.testing.assert_allclose(plain_d.float().numpy(),
+                               got_d.float().numpy(), **GRAD_TOL)
 
 
 def test_segment_max_hole_interleaved_ids():
@@ -308,16 +395,23 @@ def test_segment_max_hole_interleaved_ids():
 
 
 @pytest.mark.parametrize("spec", ["mean", "mean_counted", "max",
-                                  "attention:8"])
+                                  "attention:8", "mean-bf16"])
 def test_readout_matches_jax(spec):
     """Forward and the gradients of the input and of the attention
     readout's parameters, on hole-interleaved ids; ``mean`` divides by the
-    batch's ``graph_n_nodes``, ``mean_counted`` counts the rows."""
+    batch's ``graph_n_nodes``, ``mean_counted`` counts the rows. On bf16
+    rows ``mean`` divides by the float32 counts and returns float32, as
+    JAX's division promotes it (ROADMAP F4)."""
     rng = np.random.default_rng(4)
     g_n = 30
     ids = _hole_ids(rng, g_n)
     x = rng.standard_normal((len(ids), 16)).astype(np.float32)
     counts = np.bincount(ids, minlength=g_n + 1)[:g_n].astype(np.float32)
+    bf16 = spec.endswith("bf16")
+    spec = spec.replace("-bf16", "")
+    if bf16:
+        _mean_bf16(x, ids, counts, g_n, rng)
+        return
     n_nodes = counts if spec == "mean" else None
     kind = spec.replace("_counted", "")
     jro = jax_readout.parse_readout(kind, 16)
@@ -346,6 +440,27 @@ def test_readout_matches_jax(spec):
         {"readout": jax.tree.map(np.asarray, want_p)})
     for name, p in ro.named_parameters():
         _grads_close([p.grad], [want_state[f"readout.{name}"]], [name])
+
+
+def _mean_bf16(x, ids, counts, g_n, rng):
+    w = rng.standard_normal((g_n, 16)).astype(np.float32)
+
+    def jax_loss(xx):
+        with jax_ops.backend_scope("xla"):
+            out = jax_readout.parse_readout("mean", 16).apply(
+                {}, xx, jnp.asarray(ids), g_n, jnp.asarray(counts))
+        return jnp.sum(out * w), out
+
+    (_, want), want_x = jax.value_and_grad(jax_loss, has_aux=True)(
+        jnp.asarray(x, jnp.bfloat16))
+    assert want.dtype == jnp.float32
+    xt = t(x).to(torch.bfloat16).requires_grad_()
+    got = parse_readout("mean", 16)(xt, t(ids), g_n, t(counts))
+    assert got.dtype == torch.float32
+    (got * t(w)).sum().backward()
+    _bf16_close(got, want)
+    assert xt.grad.dtype == torch.bfloat16
+    _bf16_close(xt.grad, want_x.astype(jnp.float32), "d_x")
 
 
 def test_attention_readout_weights_cross_from_jax():
@@ -404,6 +519,9 @@ MODELS = {
                 outer_layers=("gcn:16:identity",), scorer="dot"),
     "max": dict(inner_layers=("gin:16", "gin:16"), readout="max",
                 outer_layers=("gat:16:2",), scorer="mlp:16"),
+    "gin_gat-bf16": dict(inner_layers=("gin:16", "gin:16"),
+                         outer_layers=("gat:16:2",), scorer="mlp:16",
+                         dtype="bfloat16"),
 }
 
 
@@ -445,9 +563,22 @@ def test_bignn_streaming_bucket_matches_jax(name):
     buckets, index = upload_buckets(bucketing, jcfg.inner_layers, "cpu")
     got = model(buckets, index, outer.to("cpu"), t(pairs))
     (got * t(w)).sum().backward()
+    want_g = bridge.params_from_jax(jax.tree.map(np.asarray, want_g))
+    if name.endswith("bf16"):  # bf16 compute over float32 parameters
+        # logits near 6, where a bf16 step is 2**-5: the two packages round
+        # at other places through five layers, two steps apart at most
+        _bf16_close(got, np.asarray(want, np.float32), tol=2e-2)
+        for pname, p in model.named_parameters():
+            assert p.grad.dtype == torch.float32
+            assert bool(torch.isfinite(p.grad).all()), pname
+            # the destination half of GAT's score shifts all of a
+            # drug's incoming edges alike, so its gradient cancels (5e-6
+            # in float32) and what is left in bf16 is rounding noise
+            if pname != "outer.0.a_l":
+                _bf16_close(p.grad, want_g[pname], pname)
+        return
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
                                **MODEL_TOL)
-    want_g = bridge.params_from_jax(jax.tree.map(np.asarray, want_g))
     for pname, p in model.named_parameters():
         _grads_close([p.grad], [want_g[pname]], [pname])
 
