@@ -203,20 +203,24 @@ def upload_buckets(bucketing: Bucketing, inner_layers: Sequence[str],
     keeps only its block plan (the convs take ``ops.block_spmm``), and a
     bucket that is not block-local (molecules over 128 atoms) its edge list
     and source-sort arrays (``ops.spmm_sorted_coo``)."""
-    weighted = any(s.split(":")[0] == "gcn" for s in inner_layers)
-    buckets = []
-    for batch in bucketing.batches:
-        dev = dataclasses.replace(batch, block_adj=None,
-                                  block_cnt=None).to(device)
-        if batch.block_cnt is not None:
-            dev.block_cnt = ops.block_adjacency(
-                dev.edge_src, dev.edge_dst, None, dev.block_estarts,
-                dev.node_cap)
-            if weighted:
-                dev.block_adj = ops.block_adjacency(
-                    dev.edge_src, dev.edge_dst, dev.edge_weight,
-                    dev.block_estarts, dev.node_cap)
-        buckets.append(dev)
+    buckets = [upload_batch(batch, inner_layers, device)
+               for batch in bucketing.batches]
     graph_index = [torch.as_tensor(i, device=device)
                    for i in bucketing.graph_index]
     return buckets, graph_index
+
+
+def upload_batch(batch: PaddedGraphBatch, inner_layers: Sequence[str],
+                 device) -> PaddedGraphBatch:
+    """One host batch on ``device`` without its host-built adjacencies,
+    which are built there where the host batch had them (see
+    ``upload_buckets``)."""
+    dev = dataclasses.replace(batch, block_adj=None, block_cnt=None).to(device)
+    if batch.block_cnt is not None:
+        dev.block_cnt = ops.block_adjacency(
+            dev.edge_src, dev.edge_dst, None, dev.block_estarts, dev.node_cap)
+        if any(s.split(":")[0] == "gcn" for s in inner_layers):
+            dev.block_adj = ops.block_adjacency(
+                dev.edge_src, dev.edge_dst, dev.edge_weight,
+                dev.block_estarts, dev.node_cap)
+    return dev

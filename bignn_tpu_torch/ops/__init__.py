@@ -7,12 +7,15 @@ backward ``flash_gat_attention_bwd``, ``segment_softmax`` and its backward
 ``spmm_multihead_bwd``, ``gather_rows_sorted_grad_bwd``, the backward of
 ``gather_rows_sorted_grad``, ``spmm_sorted_coo`` and its backward
 ``spmm_sorted_coo_bwd``, ``block_spmm`` and its backward ``block_spmm_bwd``
-(the same kernel on the transposed plan), and ``segment_max``.
+(the same kernel on the transposed plan), ``segment_max``, and
+``all_to_all``, the exchange of the graph shards' send buffers in the
+halo layers of ``parallel/halo.py`` (its backward the same exchange).
 ``sddmm`` (the per-edge scores of ``DotAttnConv``) is plain PyTorch, as
 the JAX package leaves it to XLA.
 ``segment_sum``, ``flash_gat_attention``, ``segment_softmax``,
 ``spmm_multihead``, ``gather_rows_sorted_grad``, ``spmm_sorted_coo``,
-``block_spmm`` and ``segment_max`` are ``torch.autograd.Function``s, so
+``block_spmm``, ``segment_max`` and ``all_to_all`` are
+``torch.autograd.Function``s, so
 gradients flow through the kernels; ``segment_mean`` is two segment sums.
 The tensor's device decides: a CPU tensor takes the op's plain PyTorch
 version (``*_plain``, in the same module), a CUDA tensor launches the kernel
@@ -33,6 +36,7 @@ from bignn_tpu_torch.ops.block_spmm import (
     block_spmm_bwd,
     block_spmm_plain,
 )
+from bignn_tpu_torch.ops.collectives import all_to_all, all_to_all_plain
 from bignn_tpu_torch.ops.flash_gat import (
     flash_gat_attention,
     flash_gat_attention_bwd,
@@ -73,6 +77,8 @@ from bignn_tpu_torch.ops.spmm import (
 )
 
 __all__ = [
+    "all_to_all",
+    "all_to_all_plain",
     "block_adjacency",
     "block_adjacency_plain",
     "block_diag_spmm",

@@ -27,14 +27,15 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "bignn_tpu_torch"
 SOURCES = ("segment_sum.cu", "block_adj.cu", "flash_gat.cu",
            "flash_gat_bwd.cu", "segment_softmax.cu", "spmm_multihead.cu",
-           "spmm.cu", "block_spmm.cu", "segment_max.cu")
+           "spmm.cu", "block_spmm.cu", "segment_max.cu", "all_to_all.cu")
 HEADERS = ("segment_bounds.cuh", "elem.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_VP, _I32, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_VP, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_F32 = ctypes.c_float
 _SEGMENT_SUM = [_VP, _VP, _I32, _I32, _I32, _VP, _VP, _VP]
 _SEGMENT_SUM_PERM = [_VP, _VP, _VP, _I32, _I32, _I32, _VP, _VP, _VP]
 _BLOCK_ADJ = [_VP, _VP, _VP, _VP, _I32, _I32, _VP]
@@ -76,6 +77,8 @@ _SIGNATURES = {
     "bignn_block_spmm_bf16": _BLOCK_SPMM,
     "bignn_segment_max_f32": _SEGMENT_SUM,
     "bignn_segment_max_bf16": _SEGMENT_SUM,
+    # arrays of G send and G receive base pointers, G, bytes of a slot
+    "bignn_all_to_all": [_VP, _VP, _I32, _I64],
 }
 
 # element type -> the suffix of its entry points and of its launch count

@@ -1,0 +1,158 @@
+"""The edge-partitioned ("p2") train step and scorer on a dp x graph mesh
+(counterpart of ``bignn_tpu/parallel/step.py``).
+
+Per step:
+  * inner level: each graph shard encodes the molecules of its own drugs
+    (its union from ``build_sharded_inner``), with no exchange;
+  * outer level: one halo exchange per layer (``parallel/halo.py``);
+  * scoring: the shards' ``[B, d]`` outputs concatenated (JAX's
+    ``all_gather`` over ``graph``), whose row index is the drug id, then the
+    whole pair batch scored;
+  * loss: the global masked mean of the BCE, which JAX's ``psum`` over
+    ``dp`` of the slices' sums gives.
+
+Over ``dp`` the replicas' graph forwards are identical (parameters and
+unions are replicated), so with every shard on one card each graph shard is
+computed once, and the ``dp`` slices of the pair batch, which all score the
+same embeddings, are scored as one batch (the batch must still split over
+``dp``, as in JAX). Gradients flow
+back through the exchange by its own autograd Function; the optimizer is a
+``torch.optim`` one over the model's parameters, updated in place as the
+port's ``Trainer`` does.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Sequence
+
+import numpy as np
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from bignn_tpu_torch import prng
+from bignn_tpu_torch.data.sampler import sample_negative_pairs
+from bignn_tpu_torch.models.bignn import BiGNN, upload_batch
+from bignn_tpu_torch.models.loss import bce_with_logits_elementwise
+from bignn_tpu_torch.parallel.halo import (
+    dist_outer_forward,
+    p2_overlap_forward,
+)
+from bignn_tpu_torch.parallel.mesh import Mesh
+from bignn_tpu_torch.parallel.partition import (
+    OuterPartitionPlan,
+    unstack_batch,
+)
+
+
+def device_put_plan(mesh: Mesh, plan: OuterPartitionPlan, inner_batch,
+                    inner_layers: Sequence[str]) -> tuple:
+    """Each shard's plan arrays and inner union on that shard's device.
+
+    ``inner_batch`` is ``build_sharded_inner``'s stacked batch (or its
+    ``(boundary, interior)`` pair); each shard's union goes up through
+    ``upload_batch``, the per-batch upload of ``upload_buckets``, so dense
+    blocks are built on the device exactly where the host batch has them
+    (``inner_layers``, the model's inner specs, say whether GCN weights are
+    needed). Returns ``(inner, esrc, edst, ew, sidx, sperm, ssrt)`` in the
+    JAX package's order, each a list over the shards (``inner`` a pair of
+    lists for a split batch)."""
+    devs = mesh.graph_devices
+    if plan.n_shards != len(devs):
+        raise ValueError(f"plan has {plan.n_shards} shards, the mesh's "
+                         f"graph axis {len(devs)}")
+
+    def put(arr: np.ndarray) -> list[torch.Tensor]:
+        return [torch.from_numpy(np.ascontiguousarray(arr[g])).to(d)
+                for g, d in enumerate(devs)]
+
+    def put_inner(stacked) -> list:
+        return [upload_batch(unstack_batch(stacked, g), inner_layers, d)
+                for g, d in enumerate(devs)]
+
+    inner = (tuple(put_inner(b) for b in inner_batch)
+             if isinstance(inner_batch, tuple) else put_inner(inner_batch))
+    return (inner, put(plan.edge_src), put(plan.edge_dst),
+            put(plan.edge_weight), put(plan.send_idx), put(plan.src_perm),
+            put(plan.src_sorted))
+
+
+def _embed(model: BiGNN, plan_d, overlap: bool, remat: bool) -> torch.Tensor:
+    """``[G*B, d]``: every shard's inner encode and outer layers, the
+    shards' outputs concatenated."""
+    inner, esrc, edst, ew, sidx, sperm, ssrt = plan_d
+    encode = model.encode_inner
+    if remat:
+        def encode(batch):
+            return checkpoint(model.encode_inner, batch, use_reentrant=False)
+    if overlap:
+        bnd, interior = inner
+        h = p2_overlap_forward(model, bnd, interior, esrc, edst, ew, sidx,
+                               src_perm=sperm, src_sorted=ssrt,
+                               encode_fn=encode, remat=remat)
+    else:
+        h = dist_outer_forward(model, [encode(b) for b in inner], esrc, edst,
+                               ew, sidx, src_perm=sperm, src_sorted=ssrt,
+                               remat=remat)
+    return torch.cat(h)
+
+
+def _check_dp(n: int, dp: int) -> None:
+    if n % dp:
+        raise ValueError(f"{n} pairs do not split over dp={dp}")
+
+
+def make_p2_train_step(model: BiGNN, optimizer: torch.optim.Optimizer,
+                       mesh: Mesh, num_drugs: int, neg_ratio: int = 1,
+                       overlap: bool = False, remat: bool = False
+                       ) -> Callable:
+    """``step(key, pos_pairs, pos_mask, plan_d) -> loss``: one optimizer
+    step on ``[B, 2]`` positive pairs (``pos_mask`` ``[B]``), with
+    ``neg_ratio`` negatives each drawn on the global batch from the
+    ``prng`` key (``data/sampler.py``); ``plan_d`` is
+    ``device_put_plan``'s tuple (built with ``split_boundary=overlap``).
+    Returns the loss as a device scalar; the gradients stay in
+    ``param.grad``.
+
+    ``remat`` recomputes in the backward the inner encode's activations
+    and the outer GAT's ``[E, H]`` attention temporaries instead of
+    keeping them (``torch.utils.checkpoint``); values and gradients are
+    unchanged."""
+    dev = mesh.device
+
+    def loss_fn(key: prng.Key, pos_pairs, pos_mask, plan_d) -> torch.Tensor:
+        pos = torch.as_tensor(pos_pairs, device=dev)
+        pmask = torch.as_tensor(pos_mask, device=dev)
+        neg = sample_negative_pairs(key, pos, num_drugs, neg_ratio)
+        pairs = torch.cat([pos, neg])
+        labels = torch.cat([torch.ones(len(pos), device=dev),
+                            torch.zeros(len(neg), device=dev)])
+        mask = torch.cat([pmask, pmask.repeat(neg_ratio)]).float()
+        _check_dp(len(pairs), mesh.shape["dp"])
+        emb = _embed(model, plan_d, overlap, remat)
+        per = bce_with_logits_elementwise(model.score_pairs(emb, pairs),
+                                          labels)
+        return (per * mask).sum() / mask.sum().clamp_min(1.0)
+
+    def step(key: prng.Key, pos_pairs, pos_mask, plan_d) -> torch.Tensor:
+        optimizer.zero_grad(set_to_none=True)
+        loss = loss_fn(key, pos_pairs, pos_mask, plan_d)
+        loss.backward()
+        optimizer.step()
+        return loss.detach()
+
+    return step
+
+
+def make_p2_score_fn(model: BiGNN, mesh: Mesh,
+                     overlap: bool = False) -> Callable:
+    """``score(pairs, plan_d) -> logits``: float32 logits of ``[P, 2]``
+    pairs (P divisible by ``dp``) from the distributed forward, for
+    evaluation."""
+    def score(pairs, plan_d) -> torch.Tensor:
+        pairs = torch.as_tensor(pairs, device=mesh.device)
+        _check_dp(len(pairs), mesh.shape["dp"])
+        with torch.no_grad():
+            return model.score_pairs(_embed(model, plan_d, overlap,
+                                            remat=False), pairs)
+
+    return score

@@ -192,6 +192,8 @@ def build_padded_batch(
     normalize: bool = True,
     add_self_loops: bool = True,
     block_local: bool = False,
+    graph_slots: Sequence[int] | None = None,
+    num_graphs_override: int | None = None,
 ) -> PaddedGraphBatch:
     """Build the padded disjoint union of ``graphs``.
 
@@ -199,11 +201,31 @@ def build_padded_batch(
     ``block_local=True`` places graphs at greedily packed 128-row block
     offsets (no graph straddles a block; every graph <= 128 nodes,
     ``node_cap`` a multiple of 128) and attaches the block-local plan.
+
+    ``graph_slots`` (the edge-partitioned inner level,
+    ``parallel/partition.py``) gives the readout graph id of each position,
+    strictly increasing, so a subset of a shard's drugs reads out into its
+    own rows; ``num_graphs_override`` widens the readout to that many
+    graphs (empty slots read out zero).
     """
     num_graphs = len(graphs)
     if num_graphs == 0:
         raise ValueError("empty graph list")
     feat_dim = graphs[0].node_feat.shape[1]
+    if graph_slots is not None:
+        graph_slots = np.asarray(graph_slots, np.int32)
+        if len(graph_slots) != num_graphs:
+            raise ValueError("graph_slots must match len(graphs)")
+        if num_graphs > 1 and not np.all(np.diff(graph_slots) > 0):
+            raise ValueError("graph_slots must be strictly increasing")
+    if num_graphs_override is not None:
+        if num_graphs_override < num_graphs:
+            raise ValueError("num_graphs_override < len(graphs)")
+        if graph_slots is not None and len(graph_slots) and (
+                int(graph_slots[-1]) >= num_graphs_override):
+            raise ValueError("graph_slots exceed num_graphs_override")
+    out_graphs = (num_graphs if num_graphs_override is None
+                  else int(num_graphs_override))
     sizes = np.asarray([g.num_nodes for g in graphs], np.int32)
     if block_local:
         if node_cap % BLOCK_ROWS:
@@ -219,13 +241,14 @@ def build_padded_batch(
 
     node_feat = np.zeros((node_cap, feat_dim), np.float32)
     node_mask = np.zeros(node_cap, np.float32)
-    graph_ids = np.full(node_cap, num_graphs, np.int32)
+    graph_ids = np.full(node_cap, out_graphs, np.int32)
     srcs, dsts = [], []
     for gi, g in enumerate(graphs):
         n, off = int(sizes[gi]), int(offsets[gi])
         node_feat[off : off + n] = g.node_feat
         node_mask[off : off + n] = 1.0
-        graph_ids[off : off + n] = gi
+        graph_ids[off : off + n] = (
+            gi if graph_slots is None else int(graph_slots[gi]))
         srcs.append(np.asarray(g.src, np.int64) + off)
         dsts.append(np.asarray(g.dst, np.int64) + off)
         if add_self_loops:
@@ -268,6 +291,9 @@ def build_padded_batch(
                       1.0)
             block.update(block_adj=block_adj, block_cnt=block_cnt)
 
+    n_nodes = np.zeros(out_graphs, np.float32)
+    n_nodes[np.arange(num_graphs) if graph_slots is None
+            else graph_slots] = sizes
     return PaddedGraphBatch(
         node_feat=node_feat,
         node_mask=node_mask,
@@ -275,8 +301,8 @@ def build_padded_batch(
         edge_dst=edge_dst,
         edge_weight=edge_weight,
         graph_ids=graph_ids,
-        graph_n_nodes=sizes.astype(np.float32),
-        num_graphs=num_graphs,
+        graph_n_nodes=n_nodes,
+        num_graphs=out_graphs,
         node_cap=int(node_cap),
         edge_cap=int(edge_cap),
         edge_src_perm=sperm,

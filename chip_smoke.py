@@ -112,13 +112,48 @@ Phases:
      the JAX package); (ii) on molecules up to 160 atoms with an outer graph
      without dense masks, both edge lists (segment_softmax, spmm_multihead
      and their backwards must launch). The flash-GAT reads 0 in both.
+  G. the edge-partitioned (p2) step of config5 as get_config("config5")
+     sets it (GIN:128 x2 -> sum -> GAT:128:4 -> mlp:64, feat 64, f32,
+     batch 2048 + 2048, Adam lr 1e-3) on the DrugBank stand-in, nothing
+     cut, with its 4 graph shards on one card (make_mesh(dp=1, graph=4)
+     naming the card 4 times, as the JAX package's tests use fake CPU
+     devices): the plan, the unions and their upload timed; 20 steps; the
+     exchange (all_to_all) on the step's own send buffers bit for bit
+     against its plain version; step 1's loss and gradients against the
+     same step with the plain versions and against the single-device
+     Trainer (one union, prepare_device_data(max_buckets=1)) on the same
+     batch and key; one step with remat=True against step 1; 20 steps with
+     overlap=True, step 1 against the step without. all_to_all, the
+     segment softmax, multi-head SpMM, sorted-grad gather and segment sum
+     must launch, the flash-GAT not. G(ii): the outer GAT swapped for
+     gcn:128 and for gin:128, 4 steps each, step 1 against the plain
+     versions; the weighted sorted-COO SpMM (GCN weights; GIN's 0/1
+     locality split) and its backward must launch.
+  H. config5-large as get_config("config5-large") sets it (config4's
+     model, bf16, batch 1024 + 1024, Adam lr 3e-4) on the whole
+     100,000-drug synthetic-large graph, 8 graph shards on one card, run
+     after phase 7b: the plan (B, S and edge_cap as docs/P2_SCALE_r5.txt
+     leg 1); the p2 embeddings of its model in float32 against phase 7's
+     single-device forward of the same parameters (phase 7's tolerances:
+     the partition and the halo against full propagation), and of its
+     model as configured against the same p2 forward with the plain
+     versions (SERVE_BF16_TOL) and, coarsely, against phase 7b's bf16
+     forward (P2_EMB_TOL, or twice that forward's bf16 noise); 8 steps
+     with finite losses, the launch counts and the peak device memory read
+     over those steps alone; step 1's loss and gradients against the plain
+     versions' (bf16 tolerances, a_l by its noise against the float32
+     model's plain step); the exchange on the step's own send buffers bit
+     for bit against its plain version; block_spmm:bf16 and all_to_all
+     must launch.
 Each path runs with the launch counts (per kernel and element type, e.g.
 segment_sum:bf16) set to 0 just before it and read just after; the kernels
 line reports the sum of the paths' counts, each form's error, times (kernel,
 plain version, and the one PyTorch call that computes the same function
 where there is one) and its bound: the larger of its bytes over 3.35 TB/s
 and its operations over 67 TFLOP/s (float32 outside the tensor cores, where
-every kernel here computes). The 100K tensors are freed before phase 8. The
+every kernel here computes). all_to_all:f32 is timed at config5-large's
+send buffers; a second row, all_to_all:f32 (config5), at config5's, with
+the launches of paths G and G(ii). The 100K tensors are freed before phase 8. The
 last line is {"ok": true, "device": {...}}; any failure raises, and the
 script exits non-zero without it.
 
@@ -131,8 +166,9 @@ per step, the device time of the busiest kernels), the 100K-drug Scorer
 (the parts of its build, a trace of 5 refreshes), config4's step (chunk
 medians in turns, the parts of a step: sample, expand, forward + loss,
 backward, Adam; a trace of one chunk of 8 steps), and path D's config3 step
-(the host draw, a chunk of 8 steps timed and traced). It prints no ok
-line.
+(the host draw, a chunk of 8 steps timed and traced), and the p2 steps
+of paths H and G (step medians, peak memory, a trace of one step). It
+prints no ok line.
 """
 
 from __future__ import annotations
@@ -143,6 +179,7 @@ import json
 import subprocess
 import sys
 import time
+import types
 import warnings
 from unittest import mock
 
@@ -259,19 +296,20 @@ def index_add_call(data: torch.Tensor, ids: torch.Tensor, rows: int):
 
 
 def index_put_call(src: torch.Tensor, dst: torch.Tensor, n: int,
-                   dtype: torch.dtype):
-    """The one PyTorch call that builds the count blocks ``[n/128, 128,
-    128]`` in ``dtype``: ``index_put_`` with accumulation of ones at the
-    flat indices of the edges inside their block, computed outside the
-    timing."""
+                   dtype: torch.dtype, weight: torch.Tensor | None = None):
+    """The one PyTorch call that builds the blocks ``[n/128, 128, 128]`` in
+    ``dtype``: ``index_put_`` with accumulation of ones (counts) or of the
+    edges' ``weight`` at the flat indices of the edges inside their block,
+    computed outside the timing."""
     s, d = src.long(), dst.long()
     blk = torch.div(d, 128, rounding_mode="floor")
     s_l = s - blk * 128
     keep = (d < n) & (s_l >= 0) & (s_l < 128)
     flat = (blk * 128 * 128 + (d - blk * 128) * 128 + s_l)[keep]
-    ones = torch.ones(flat.shape, dtype=dtype, device=src.device)
+    vals = (torch.ones(flat.shape, dtype=dtype, device=src.device)
+            if weight is None else weight[keep].to(dtype))
     out = torch.zeros(n * 128, dtype=dtype, device=src.device)
-    return lambda: out.zero_().index_put_((flat,), ones, accumulate=True)
+    return lambda: out.zero_().index_put_((flat,), vals, accumulate=True)
 
 
 def check_device() -> torch.device:
@@ -428,7 +466,8 @@ def plain_ops():
         spmm_multihead=ops.spmm_multihead_plain,
         gather_rows_sorted_grad=ops.gather_rows_sorted_grad_plain,
         spmm_sorted_coo=ops.spmm_sorted_coo_plain,
-        segment_max=ops.segment_max_plain)
+        segment_max=ops.segment_max_plain,
+        all_to_all=ops.all_to_all_plain)
 
 
 # kernel form (wrapper:element type) -> (CUDA source, the TPU kernel it
@@ -495,6 +534,8 @@ KERNELS = {
     **{f"block_spmm{b}:bf16{w}": ("bignn_tpu_torch/csrc/block_spmm.cu",
                                   "bignn_tpu/ops/pallas/block_spmm.py:57")
        for b in ("", "_bwd") for w in ("", ":weighted")},
+    "all_to_all:f32": ("bignn_tpu_torch/csrc/all_to_all.cu",
+                       "bignn_tpu/ops/pallas/collectives.py:43"),
 }
 # the forms a layout that is not block-local must not launch
 BLOCK_FORMS = ("block_adjacency:f32", "block_adjacency:int8",
@@ -676,18 +717,7 @@ def _train_and_check(dev, model_cfg, data, train_cfg, batches,
     launches = read_counts()
     log(f"  launches on the training path: {launches}")
     require_launched(launches, must_launch, "in training")
-    log("  losses: " + " ".join(f"{x:.5f}" for x in losses))
-
-    for name, g in grads.items():
-        if not bool(torch.isfinite(g).all()):
-            raise AssertionError(f"non-finite gradient of {name}")
-        if name.startswith(("inner.0.", "inner.1.", "outer.0.")) and not (
-                g.abs().max().item() > 0):
-            raise AssertionError(f"zero gradient of {name}")
-    if not all(np.isfinite(losses)):
-        raise AssertionError("non-finite loss")
-    if not np.mean(losses[-5:]) < losses[0]:
-        raise AssertionError(f"loss did not fall: {losses}")
+    _check_learning(losses, grads)
 
     with plain_ops():
         plain = Trainer(BiGNN(model_cfg), data, train_cfg, device=dev)
@@ -702,6 +732,22 @@ def _train_and_check(dev, model_cfg, data, train_cfg, batches,
     log(f"  after {len(batches)} steps: val AUC {metrics['val_auc']:.4f}, "
         f"AP {metrics['val_ap']:.4f}")
     return launches, plain_grads
+
+
+def _check_learning(losses: list, grads: dict, fall: bool = True) -> None:
+    """Finite losses (falling over the run unless not ``fall``), finite
+    step-1 gradients, none zero in the first conv layers."""
+    log("  losses: " + " ".join(f"{x:.5f}" for x in losses))
+    for name, g in grads.items():
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"non-finite gradient of {name}")
+        if name.startswith(("inner.0.", "inner.1.", "outer.0.")) and not (
+                g.abs().max().item() > 0):
+            raise AssertionError(f"zero gradient of {name}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError("non-finite loss")
+    if fall and not np.mean(losses[-5:]) < losses[0]:
+        raise AssertionError(f"loss did not fall: {losses}")
 
 
 def _check_step1(grads: dict, plain: dict, loss_k: float, loss_p: float,
@@ -1682,8 +1728,8 @@ def config4_kernels(dev, cb, pb, outer) -> dict:
                  0.0 if w is None else BF16_TOL,
                  nbytes(pb.edge_src, pb.edge_dst, pb.block_estarts)
                  + (0 if w is None else nbytes(w)),
-                 library=None if w is not None else index_put_call(
-                     pb.edge_src, pb.edge_dst, NC, dt))
+                 library=index_put_call(pb.edge_src, pb.edge_dst, NC, dt,
+                                        w))
     s = 3 * torch.randn(E, 4, device=dev, generator=gen)
     s = s.to(bf)
     dst, src = outer.edge_dst, outer.edge_src
@@ -1805,6 +1851,398 @@ def run_config4_step(dev, ds) -> tuple[dict, dict]:
     for msg in sorted(set(syncs))[:5]:
         log(f"    {msg[:160]}")
     return launches, results
+
+
+# ---------------------------------------------------------------------------
+# paths G, G(ii) and H: the edge-partitioned (p2) step, G graph shards on
+# one card
+# ---------------------------------------------------------------------------
+
+# docs/P2_SCALE_r5.txt leg 1: the plan of the 100,000-drug train graph on 8
+# shards (the port's partition equals the JAX package's array for array)
+P2_LARGE_DRUGS = 100_000
+P2_LARGE_PLAN = {"node_block": 12_500, "halo_size": 12_504,
+                 "edge_cap": 2_015_872}
+# path H's p2 embeddings of the bf16 model against the single-device
+# forward of the same bf16 model, x max(1, max |ref|), or twice the bf16
+# noise of that forward where it is larger: the p2 outer GAT computes in
+# float32 (JAX's promotion of bf16 rows by float32 weights), the
+# single-device one in bf16, whose own distance from the float32 model's
+# forward (the noise) reached 1.8e-2 of the largest value in a CPU
+# rehearsal at 300 drugs. This coarse bound holds the bf16 layout against
+# full propagation; the bf16 kernels are held by the same p2 forward with
+# the plain versions, at SERVE_BF16_TOL.
+P2_EMB_TOL = 1e-2
+LOSS_RTOL = 1e-5  # f32 step-1 losses: one masked mean summed in other orders
+P2_GAT_FORMS = ("all_to_all:f32", "segment_sum:f32", "block_adjacency:f32",
+                "segment_softmax:f32", "segment_softmax_bwd:f32",
+                "spmm_multihead:f32", "spmm_multihead_bwd:f32",
+                "gather_rows_sorted_grad_bwd:f32")
+FLASH_FORMS = ("flash_gat_attention:f32", "flash_gat_attention_bwd:f32")
+
+
+class P2Trainer:
+    """``make_p2_train_step`` behind ``Trainer.train_step``'s interface, so
+    ``_timed_steps`` drives it: (epoch, step) keys the negatives as the
+    Trainer's do, so both draw the same ones for a batch."""
+
+    def __init__(self, model, train_cfg, mesh, num_drugs, plan_d,
+                 overlap=False, remat=False):
+        from bignn_tpu_torch.parallel import make_p2_train_step
+        from bignn_tpu_torch.train import make_optimizer
+
+        self.model, self.seed, self.plan_d = model, train_cfg.seed, plan_d
+        self.step = make_p2_train_step(
+            model, make_optimizer(model.parameters(), train_cfg), mesh,
+            num_drugs, train_cfg.neg_ratio, overlap=overlap, remat=remat)
+
+    def train_step(self, pairs, mask, epoch: int, step: int):
+        from bignn_tpu_torch import prng
+
+        key = prng.fold_in(prng.fold_in(prng.key(self.seed + 1), epoch),
+                           step)
+        return self.step(key, pairs, mask, self.plan_d)
+
+
+class FirstCall:
+    """Stands in for an ops function, keeping a copy of the send buffers of
+    its first call (a step's own exchange)."""
+
+    def __init__(self, fn):
+        self.fn, self.bufs = fn, None
+
+    def __call__(self, bufs):
+        if self.bufs is None:
+            self.bufs = [b.detach().clone() for b in bufs]
+        return self.fn(bufs)
+
+
+def p2_layout(dev, ds, graph: int, inner_layers, overlap: bool = False):
+    """The outer partition of ``ds``'s train graph, the sharded unions and
+    their upload, on a mesh that names ``dev`` ``graph`` times; returns
+    ``(mesh, plan, plan_d)``."""
+    from bignn_tpu_torch.parallel import (
+        build_outer_partition,
+        build_sharded_inner,
+        device_put_plan,
+        make_mesh,
+    )
+
+    mesh = make_mesh(dp=1, graph=graph, devices=[dev] * graph)
+    train = ds.split_edges("train")
+    t0 = time.perf_counter()
+    plan = build_outer_partition(train[:, 0], train[:, 1], ds.num_drugs,
+                                 graph)
+    t1 = time.perf_counter()
+    inner = build_sharded_inner(ds.molecules, plan, split_boundary=overlap)
+    t2 = time.perf_counter()
+    plan_d = device_put_plan(mesh, plan, inner, inner_layers)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    stats = plan.stats()
+    log(f"  plan {t1 - t0:.3f} s: B {plan.node_block}, S {plan.halo_size}, "
+        f"edge_cap {plan.edge_cap}, edges per shard "
+        f"{stats['edges_per_shard']}, replication "
+        f"{stats['replication_factor']:.4f}")
+    for u in (inner if overlap else (inner,)):
+        log(f"  unions {t2 - t1:.3f} s: node_cap {u.node_cap}, edge_cap "
+            f"{u.edge_cap}, "
+            + ("dense blocks" if u.block_cnt is not None else
+               "block_spmm" if u.block_estarts is not None else "edge list"))
+    log(f"  upload (block_adjacency where dense) {t3 - t2:.3f} s")
+    return mesh, plan, plan_d
+
+
+def a2a_kernels(results: dict, name: str, bufs) -> None:
+    """all_to_all on a step's own send buffers, bit for bit against its
+    plain version, then timed; the library call is one ``copy_`` of the
+    buffers pre-stacked ``[G, G, S, F]`` into its transpose."""
+    from bignn_tpu_torch import ops
+
+    got, want = ops.all_to_all(bufs), ops.all_to_all_plain(bufs)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError(f"{name}: the exchange differs from its plain "
+                             "version")
+    log(f"  {name}: {len(bufs)} send buffers {tuple(bufs[0].shape)} "
+        f"{bufs[0].dtype}, {2 * nbytes(*bufs) / 1e6:.1f} MB moved; equal to "
+        "the plain version bit for bit")
+    stacked = torch.stack(bufs)
+    out = torch.empty_like(stacked)
+    record(results, name, 0.0, 0.0, lambda: ops.all_to_all(bufs),
+           lambda: ops.all_to_all_plain(bufs), 2 * nbytes(*bufs),
+           library=lambda: out.copy_(stacked.transpose(0, 1)))
+
+
+def _check_loss(name: str, got: float, want: float) -> None:
+    log(f"  step-1 loss {got:.7f} against {want:.7f} ({name})")
+    if abs(got - want) > LOSS_RTOL * max(1.0, abs(want)):
+        raise AssertionError(f"step-1 loss off {name}: {got} vs {want}")
+
+
+def run_p2(dev, ds) -> tuple[list, dict]:
+    """Path G: config5 as get_config sets it, on ``ds`` (the DrugBank
+    stand-in), 4 graph shards on one card; path G(ii): its outer GAT
+    swapped for gcn:128 and for gin:128. Returns the launch counts of the
+    four runs and the exchange's comparison at config5's send buffers."""
+    from bignn_tpu_torch import ops
+    from bignn_tpu_torch.config import get_config
+    from bignn_tpu_torch.data import prepare_device_data
+    from bignn_tpu_torch.models import BiGNN
+    from bignn_tpu_torch.train import Trainer
+
+    cfg = get_config("config5")
+    graph = cfg.graph_shards
+    # the single-device reference packs all molecules in one union, as
+    # the shards do theirs (tests/test_p2_step.py)
+    data = prepare_device_data(ds, max_buckets=1)
+    batches = _epoch_batches(data, cfg.train)
+    log(f"  {cfg.model}; batch {cfg.train.batch_size}, lr {cfg.train.lr}; "
+        f"mesh dp=1, graph={graph} on one card")
+    reset_counts()
+    mesh, _, plan_d = p2_layout(dev, ds, graph, cfg.model.inner_layers)
+    model = BiGNN(cfg.model, seed=SEED).to(dev)
+    params0 = {k: v.clone() for k, v in model.state_dict().items()}
+    rec = FirstCall(ops.all_to_all)
+    with mock.patch.object(ops, "all_to_all", rec):
+        losses, grads = _timed_steps(
+            P2Trainer(model, cfg.train, mesh, ds.num_drugs, plan_d), batches,
+            "p2 step, kernels")
+    launches = read_counts()
+    log(f"  launches on path G: {launches}")
+    require_launched(launches, P2_GAT_FORMS, "on path G")
+    require_idle(launches, FLASH_FORMS, "on path G")
+    _check_learning(losses, grads)
+    results = {}
+    a2a_kernels(results, "all_to_all:f32 (config5)", rec.bufs)
+
+    one = batches[:1]
+    model.load_state_dict(params0)
+    with plain_ops():
+        p_losses, p_grads = _timed_steps(
+            P2Trainer(model, cfg.train, mesh, ds.num_drugs, plan_d), one,
+            "p2 step 1, plain versions")
+    _check_loss("the plain versions", losses[0], p_losses[0])
+    _check_step1(grads, p_grads, losses[0], p_losses[0], torch.float32)
+    trainer = Trainer(BiGNN(cfg.model), data, cfg.train, device=dev)
+    trainer.model.load_state_dict(params0)
+    t_losses, t_grads = _timed_steps(trainer, one,
+                                     "single-device Trainer step 1")
+    _check_loss("the single-device Trainer", losses[0], t_losses[0])
+    _check_step1(grads, t_grads, losses[0], t_losses[0], torch.float32)
+    del trainer
+    model.load_state_dict(params0)
+    r_losses, r_grads = _timed_steps(
+        P2Trainer(model, cfg.train, mesh, ds.num_drugs, plan_d, remat=True),
+        one, "p2 step 1, remat")
+    _check_loss("the step without remat", r_losses[0], losses[0])
+    _check_step1(r_grads, grads, r_losses[0], losses[0], torch.float32)
+
+    log("  overlap=True: boundary molecules first, their raw rows exchanged")
+    reset_counts()
+    _, _, plan_o = p2_layout(dev, ds, graph, cfg.model.inner_layers,
+                             overlap=True)
+    model.load_state_dict(params0)
+    o_losses, o_grads = _timed_steps(
+        P2Trainer(model, cfg.train, mesh, ds.num_drugs, plan_o,
+                  overlap=True), batches, "p2 step, overlap")
+    overlapped = read_counts()
+    require_launched(overlapped, P2_GAT_FORMS, "on path G, overlap")
+    require_idle(overlapped, FLASH_FORMS, "on path G, overlap")
+    _check_learning(o_losses, o_grads)
+    _check_loss("the step without overlap", o_losses[0], losses[0])
+    _check_step1(o_grads, grads, o_losses[0], losses[0], torch.float32)
+    del plan_o
+
+    counts = [launches, overlapped]
+    for outer in (("gcn:128",), ("gin:128",)):
+        mcfg = dataclasses.replace(cfg.model, outer_layers=outer)
+        log(f"  path G(ii): outer {outer}, 4 steps")
+        reset_counts()
+        model = BiGNN(mcfg, seed=SEED).to(dev)
+        params0 = {k: v.clone() for k, v in model.state_dict().items()}
+        losses, grads = _timed_steps(
+            P2Trainer(model, cfg.train, mesh, ds.num_drugs, plan_d),
+            batches[:4], "p2 step, kernels")
+        counts.append(read_counts())
+        require_launched(counts[-1], (
+            "all_to_all:f32", "spmm_sorted_coo:f32:weighted",
+            "spmm_sorted_coo_bwd:f32:weighted"), f"on path G(ii) {outer}")
+        _check_learning(losses, grads, fall=False)
+        model.load_state_dict(params0)
+        with plain_ops():
+            p_losses, p_grads = _timed_steps(
+                P2Trainer(model, cfg.train, mesh, ds.num_drugs, plan_d),
+                one, "p2 step 1, plain versions")
+        _check_loss("the plain versions", losses[0], p_losses[0])
+        _check_step1(grads, p_grads, losses[0], p_losses[0], torch.float32)
+    return counts, results
+
+
+def _p2_embeddings(model, plan_d) -> torch.Tensor:
+    """The p2 forward through the public entry points: every shard's inner
+    encode, the distributed outer layers, the shards concatenated."""
+    from bignn_tpu_torch.parallel import dist_outer_forward
+
+    inner, esrc, edst, ew, sidx, sperm, ssrt = plan_d
+    with torch.no_grad():
+        h = dist_outer_forward(model, [model.encode_inner(b) for b in inner],
+                               esrc, edst, ew, sidx, src_perm=sperm,
+                               src_sorted=ssrt)
+        return torch.cat(h)
+
+
+def run_p2_large(dev, ds, ref_f32: torch.Tensor,
+                 ref_bf16: torch.Tensor) -> tuple[dict, dict]:
+    """Path H: config5-large as get_config sets it, on ``ds`` (the
+    100,000-drug synthetic-large graph), 8 graph shards on one card: the
+    plan against docs/P2_SCALE_r5.txt; the p2 embeddings of its model in
+    float32 against ``ref_f32`` (phase 7's single-device forward of the
+    same parameters) at phase 7's tolerances, which holds the partition and
+    the halo against full propagation; those of its model as configured
+    (bf16) against the same p2 forward with the plain versions
+    (SERVE_BF16_TOL) and, coarsely, against ``ref_bf16`` (phase 7b's); 8
+    steps, the launch counts and peak memory read over them alone; step 1's
+    loss and gradients against the plain versions' (``_check_step1``, a_l
+    by its bf16 noise against the float32 model's plain step); the exchange
+    at the step's own send buffers. Returns the launch counts and the
+    exchange's comparison."""
+    from bignn_tpu_torch import ops
+    from bignn_tpu_torch.config import get_config
+    from bignn_tpu_torch.models import BiGNN
+
+    cfg = get_config("config5-large")
+    if cfg.model != get_config("config4").model:
+        raise AssertionError("phase 7b's model is not config5-large's")
+    graph = cfg.graph_shards
+    log(f"  {cfg.model}; batch {cfg.train.batch_size}, lr {cfg.train.lr}; "
+        f"mesh dp=1, graph={graph} on one card, no remat")
+    mesh, plan, plan_d = p2_layout(dev, ds, graph, cfg.model.inner_layers)
+    if ds.num_drugs == P2_LARGE_DRUGS:
+        got = {k: getattr(plan, k) for k in P2_LARGE_PLAN}
+        if got != P2_LARGE_PLAN:
+            raise AssertionError(f"plan {got}, docs/P2_SCALE_r5.txt "
+                                 f"{P2_LARGE_PLAN}")
+    f32 = BiGNN(dataclasses.replace(cfg.model, dtype="float32"),
+                seed=SEED).to(dev)
+    emb = _p2_embeddings(f32, plan_d)[: ds.num_drugs]
+    scale = ref_f32.abs().max().item()
+    diff = (emb - ref_f32).abs()
+    log(f"  p2 forward, model in float32: against phase 7's single-device "
+        f"forward max_abs_err {diff.max().item():.3e} (max |ref| "
+        f"{scale:.3e}; rtol {EMB_RTOL}, atol {EMB_ATOL} x max)")
+    if not (emb.shape == ref_f32.shape and bool(
+            (diff <= EMB_ATOL * scale + EMB_RTOL * ref_f32.abs()).all())):
+        raise AssertionError("float32 p2 embeddings disagree with the "
+                             "single-device forward")
+    del emb, diff
+    model = BiGNN(cfg.model, seed=SEED).to(dev)
+    params0 = {k: v.clone() for k, v in model.state_dict().items()}
+    t0 = time.perf_counter()
+    emb = _p2_embeddings(model, plan_d)[: ds.num_drugs]
+    torch.cuda.synchronize()
+    fwd_s = time.perf_counter() - t0
+    with plain_ops():
+        plain = _p2_embeddings(model, plan_d)[: ds.num_drugs]
+    p_scale = plain.abs().max().item()
+    p_err = (emb - plain).abs().max().item()
+    log(f"  p2 forward as configured {fwd_s:.4f} s, embeddings {emb.dtype}; "
+        f"against the same p2 forward with the plain versions: max_abs_err "
+        f"{p_err:.3e} (max |plain| {p_scale:.3e}; limit {SERVE_BF16_TOL} x "
+        "max)")
+    if not (emb.shape == plain.shape and p_err <= SERVE_BF16_TOL * p_scale):
+        raise AssertionError("bf16 p2 embeddings disagree with the plain "
+                             "versions")
+    del plain
+    scale = max(1.0, ref_bf16.abs().max().item())
+    err = (emb - ref_bf16).abs().max().item()
+    noise = (ref_bf16 - ref_f32).abs().max().item()
+    limit = max(P2_EMB_TOL * scale, 2 * noise)
+    log(f"  against phase 7b's single-device bf16 forward: max_abs_err "
+        f"{err:.3e} (max |ref| {scale:.3e}, median "
+        f"{ref_bf16.abs().median().item():.3e}); that forward's bf16 noise "
+        f"(against phase 7's float32) {noise:.3e}; coarse limit {limit:.3e}; "
+        f"p2 against the float32 forward "
+        f"{(emb - ref_f32).abs().max().item():.3e}")
+    if not (emb.shape == ref_bf16.shape and err <= limit):
+        raise AssertionError("p2 embeddings disagree with the single-device "
+                             "forward")
+    del emb
+    batches = _train_batches(ds, cfg.train)[:8]
+    rec = FirstCall(ops.all_to_all)
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with mock.patch.object(ops, "all_to_all", rec):
+        losses, grads = _timed_steps(
+            P2Trainer(model, cfg.train, mesh, ds.num_drugs, plan_d), batches,
+            "config5-large p2 step")
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"  peak device memory over the steps {peak:.2f} GiB; launches on "
+        f"path H: {launches}")
+    # unions above BLOCK_DENSE_MAX_NODES rows (every one at 100K drugs)
+    # take block_spmm, smaller ones dense blocks (built at the upload,
+    # before the counted steps)
+    dense = plan_d[0][0].block_cnt is not None
+    if dense and ds.num_drugs == P2_LARGE_DRUGS:
+        raise AssertionError("path H's unions have dense blocks")
+    require_launched(launches, (
+        "all_to_all:f32", "segment_sum:bf16", "segment_softmax:f32",
+        "spmm_multihead:f32", "spmm_multihead_bwd:f32",
+        "gather_rows_sorted_grad_bwd:f32",
+        *(() if dense else ("block_spmm:bf16", "block_spmm_bwd:bf16"))),
+        "on path H")
+    require_idle(launches, FLASH_FORMS, "on path H")
+    _check_learning(losses, grads, fall=False)
+
+    one = batches[:1]
+    torch.cuda.reset_peak_memory_stats()
+    with plain_ops():
+        model.load_state_dict(params0)
+        p_losses, p_grads = _timed_steps(
+            P2Trainer(model, cfg.train, mesh, ds.num_drugs, plan_d), one,
+            "p2 step 1, plain versions")
+        f_losses, f_grads = _timed_steps(
+            P2Trainer(f32, cfg.train, mesh, ds.num_drugs, plan_d), one,
+            "p2 step 1, float32 model, plain versions")
+    log(f"  peak device memory over the plain steps "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; float32 "
+        f"step-1 loss {f_losses[0]:.6f}")
+    _check_step1(grads, p_grads, losses[0], p_losses[0], torch.bfloat16,
+                 f_grads)
+    del f32, grads, p_grads, f_grads
+    results = {}
+    a2a_kernels(results, "all_to_all:f32", rec.bufs)
+    return launches, results
+
+
+def _train_batches(ds, train_cfg):
+    """The first TRAIN_STEPS positive batches of epoch 0 of ``ds``."""
+    return _epoch_batches(types.SimpleNamespace(
+        train_pairs=ds.split_edges("train").astype(np.int32)), train_cfg)
+
+
+def profile_p2(dev, ds, name: str) -> None:
+    """The p2 step of config ``name`` (its graph shards on one card): step
+    medians and the peak device memory, then a trace of one step."""
+    from bignn_tpu_torch.config import get_config
+    from bignn_tpu_torch.models import BiGNN
+
+    cfg = get_config(name)
+    mesh, _, plan_d = p2_layout(dev, ds, cfg.graph_shards,
+                                cfg.model.inner_layers)
+    batches = _train_batches(ds, cfg.train)
+    tr = P2Trainer(BiGNN(cfg.model, seed=SEED).to(dev), cfg.train, mesh,
+                   ds.num_drugs, plan_d)
+    torch.cuda.reset_peak_memory_stats()
+    _timed_steps(tr, batches, "warm-up")
+    _timed_steps(tr, batches, "p2 step")
+    log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+        " GiB")
+    pairs, mask = batches[0]
+    _trace(lambda: tr.train_step(pairs, mask, 1, 0), 1, "step")
 
 
 def _median_ms(fn, reps: int = 20) -> float:
@@ -2083,6 +2521,10 @@ def main() -> int:
         log("== profile: config4's step (MinibatchTrainer, bf16, "
             "device-sampled)")
         profile_config4(dev, large)
+        gc.collect()
+        torch.cuda.empty_cache()
+        log("== profile: path H, config5-large's p2 step, 8 graph shards")
+        profile_p2(dev, large, "config5-large")
         del large
         gc.collect()
         torch.cuda.empty_cache()
@@ -2093,6 +2535,8 @@ def main() -> int:
             load_dataset("drugbank", max_atoms=160)), cfg.train)
         log("== profile: path D, config3's step")
         profile_config3(dev)
+        log("== profile: path G, config5's p2 step, 4 graph shards")
+        profile_p2(dev, ds, "config5")
         return 0
 
     log("== kernels vs plain (config2 shapes)")
@@ -2107,10 +2551,18 @@ def main() -> int:
     log("== sparse serving: config4's model over 100,000 drugs")
     large = load_large()
     served, fwd, scorer = run_sparse_serving(dev, large)
+    ref_f32 = scorer.embeddings.clone()  # the plain refresh of phase 7
     log("== phase 7b: config4's model as configured (bf16) over 100,000 "
         "drugs")
     served_bf16 = run_sparse_serving_bf16(dev, large, scorer)
+    ref_bf16 = scorer.embeddings.float()  # the plain refresh of phase 7b
     del scorer
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("== path H: config5-large, p2 on 8 graph shards of one card, "
+        "100,000 drugs")
+    p2_large, a2a = run_p2_large(dev, large, ref_f32, ref_bf16)
+    del ref_f32, ref_bf16
     gc.collect()
     torch.cuda.empty_cache()
     log("== sparse training: config4's model, full graph of 16,384 drugs")
@@ -2120,7 +2572,7 @@ def main() -> int:
     log("== config4's step: MinibatchTrainer, bf16, device-sampled, 100,000 "
         "drugs")
     stepped, c4 = run_config4_step(dev, large)
-    counts += [served, served_bf16, *trained, stepped]
+    counts += [served, served_bf16, p2_large, *trained, stepped]
     del large
     gc.collect()
     torch.cuda.empty_cache()
@@ -2134,19 +2586,28 @@ def main() -> int:
     hosted, spmm_bf16 = run_config4_host(dev)
     log("== path F: GAT inner, DotAttn outer, 20 steps on each route")
     attended = run_attention(dev, ds)
-    counts += [*streamed, *maxed, *sampled, hosted, *attended]
-    for r in (fwd, bwd, c4, spmm, smax, spmm_bf16):
+    log("== path G: config5, p2 on 4 graph shards of one card; G(ii): GCN "
+        "and GIN outer layers")
+    p2_counts, a2a_small = run_p2(dev, ds)
+    counts += [*streamed, *maxed, *sampled, hosted, *attended, *p2_counts]
+    for r in (fwd, bwd, c4, spmm, smax, spmm_bf16, a2a, a2a_small):
         results.update(r)
 
-    kernels = []
-    for form, (source, tpu) in KERNELS.items():
-        r = results[form]
-        kernels.append({
-            "name": form, "route": "cuda", "source": source, "replaces": tpu,
-            "launches": sum(c[form] for c in counts),
+    def row(name: str, form: str, paths) -> dict:
+        r = results[name]
+        source, tpu = KERNELS[form]
+        return {
+            "name": name, "route": "cuda", "source": source, "replaces": tpu,
+            "launches": sum(c[form] for c in paths),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+
+    kernels = [row(form, form, counts) for form in KERNELS]
+    # the exchange timed at config5's send buffers too, with the launches
+    # of paths G and G(ii), which give it that shape
+    kernels.append(row("all_to_all:f32 (config5)", "all_to_all:f32",
+                       p2_counts))
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

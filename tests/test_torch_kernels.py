@@ -136,7 +136,7 @@ def _cases(device):
                                 "gather_rows_sorted_grad_bwd",
                                 "spmm_sorted_coo", "spmm_sorted_coo_bwd",
                                 "block_spmm", "block_spmm_bwd",
-                                "segment_max"])
+                                "segment_max", "all_to_all"])
 def test_non_cpu_tensor_never_takes_plain_path(op):
     """Only a CPU tensor takes the plain version: a tensor on another device
     goes to the kernel wrapper, which refuses it rather than falling back."""
@@ -172,6 +172,7 @@ def test_non_cpu_tensor_never_takes_plain_path(op):
         "block_spmm_bwd": lambda: ops.block_spmm_bwd(meta, ids, ids, None,
                                                      ids[:3], 256),
         "segment_max": lambda: ops.segment_max(meta, ids, 8),
+        "all_to_all": lambda: ops.all_to_all([meta.view(2, 128, 4)] * 2),
     }[op]
     with pytest.raises(ValueError, match="CUDA tensor"):
         call()
@@ -1085,3 +1086,86 @@ def test_streaming_train_step_on_card(cuda_device, route, monkeypatch):
         np.testing.assert_allclose(g.cpu().numpy(), want[name].cpu().numpy(),
                                    rtol=2e-4, atol=2e-5 * max(scale, 1.0),
                                    err_msg=name)
+
+
+# ---------------------------------------------------------------------------
+# all_to_all, the halo exchange of the edge-partitioned path: bit for bit
+# against its plain version (a copy), at every route of the kernel's word
+# (16 bytes for config5's 132-float payloads; 4, 2 and 1 bytes for chunks
+# that are not multiples of 16)
+# ---------------------------------------------------------------------------
+
+A2A_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16,
+              "int32": torch.int32, "int8": torch.int8}
+A2A_CASES = {
+    **{f"g{g}_{t}": (g, t, 430, 132) for g in (1, 2, 4, 8)
+       for t in ("f32", "bf16", "int32")},
+    "g4_f32_narrow": (4, "f32", 5, 3),  # 60-byte chunks: 4-byte words
+    "g4_bf16_narrow": (4, "bf16", 5, 3),  # 30 bytes: 2-byte words
+    "g3_int8_odd": (3, "int8", 5, 3),  # 15 bytes: 1-byte words
+    "g4_f32_empty": (4, "f32", 0, 132),  # S = 0: nothing to move
+}
+
+
+def _a2a_bufs(device, g, t, s, f, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    dtype = A2A_DTYPES[t]
+    if dtype.is_floating_point:
+        host = [torch.randn(g, s, f, generator=gen).to(dtype)
+                for _ in range(g)]
+    else:
+        info = torch.iinfo(dtype)
+        host = [torch.randint(info.min, info.max, (g, s, f), generator=gen,
+                              dtype=dtype) for _ in range(g)]
+    return [b.to(device) for b in host]
+
+
+def test_all_to_all_plain_cases_run_on_cpu():
+    for name, (g, t, s, f) in A2A_CASES.items():
+        bufs = _a2a_bufs("cpu", g, t, s, f)
+        got = ops.all_to_all(bufs)
+        for j in range(g):
+            for i in range(g):
+                assert torch.equal(got[j][i], bufs[i][j]), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(A2A_CASES))
+def test_all_to_all_matches_plain_on_card(cuda_device, case):
+    g, t, s, f = A2A_CASES[case]
+    bufs = _a2a_bufs(cuda_device, g, t, s, f)
+    before = ops.all_to_all.launches_by_dtype.get(t, 0)
+    got = ops.all_to_all(bufs)
+    want = ops.all_to_all_plain(bufs)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert a.device == b.device and torch.equal(a, b), case
+    launched = ops.all_to_all.launches_by_dtype.get(t, 0) - before
+    assert launched == (1 if s else 0), case
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t", ["f32", "bf16"])
+def test_all_to_all_backward_on_card(cuda_device, t):
+    """The backward is the exchange of the cotangents (one more launch); an
+    output without a cotangent sends zeros."""
+    bufs = [b.requires_grad_() for b in _a2a_bufs(cuda_device, 4, t, 7, 33)]
+    ct = _a2a_bufs(cuda_device, 4, t, 7, 33, seed=1)
+    before = ops.all_to_all.launches_by_dtype.get(t, 0)
+    out = ops.all_to_all(bufs)
+    torch.autograd.backward(out[:3], ct[:3])
+    torch.cuda.synchronize()
+    assert ops.all_to_all.launches_by_dtype.get(t, 0) - before == 2
+    want = ops.all_to_all_plain([*ct[:3], torch.zeros_like(ct[3])])
+    for b, w in zip(bufs, want):
+        assert torch.equal(b.grad, w)
+
+
+@pytest.mark.gpu
+def test_all_to_all_refuses_on_card(cuda_device):
+    bufs = _a2a_bufs(cuda_device, 2, "f32", 3, 4)
+    with pytest.raises(NotImplementedError):
+        ops.all_to_all([bufs[0], bufs[1].cpu()])
+    many = _a2a_bufs(cuda_device, ops.collectives.MAX_SHARDS + 1, "f32", 1, 4)
+    with pytest.raises(ValueError, match="at most"):
+        ops.all_to_all(many)
