@@ -1,10 +1,15 @@
 // Segment bounds, shared by the segment kernels (segment_sum.cu,
-// segment_softmax.cu, spmm_multihead.cu).
+// segment_max.cu, segment_softmax.cu, spmm.cu, spmm_multihead.cu).
 //
 // For each segment s in [0, num_segments): the first and the last row e with
 // ids[e] == s, found by integer atomicMin / atomicMax (exact, so the result
 // does not depend on the order of the atomics). An empty segment gets
 // first = num_rows and last = -1; ids outside [0, num_segments) are dropped.
+// A row takes its atomics only where a run of equal ids begins or ends: a
+// segment's first row begins a run and its last row ends one, so the bounds
+// are those of an atomic on every row, for any ids. With sorted ids every
+// lane of a warp would hit the same two addresses, and atomics on every row
+// would serialise there.
 //
 // A consumer walks [first[s], last[s]] in row order and skips the rows whose
 // id is not s. So it is right for any ids, and reads only the rows of s when
@@ -12,7 +17,8 @@
 // by construction). Rows between two runs of s that belong elsewhere (holes)
 // cost a load of their id.
 //
-// Cost: the ids are read once, two integer atomics per valid row.
+// Cost: the ids are read once (the two at a warp's edges twice), two
+// integer atomics per run of a valid id.
 
 #pragma once
 
@@ -30,14 +36,19 @@ __global__ void init_bounds(int* first, int* last, int num_segments,
   }
 }
 
+// blockDim.x is a multiple of 32, so every warp is whole for the shuffles.
 __global__ void find_bounds(const int* __restrict__ ids, int num_rows,
                             int num_segments, int* first, int* last) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= num_rows) return;
-  const int s = ids[e];
-  if (s < 0 || s >= num_segments) return;  // padding ids are dropped
-  atomicMin(first + s, e);
-  atomicMax(last + s, e);
+  const int lane = threadIdx.x % 32;
+  const int s = e < num_rows ? ids[e] : -1;
+  int prev = __shfl_up_sync(0xffffffffu, s, 1);
+  int next = __shfl_down_sync(0xffffffffu, s, 1);
+  if (e >= num_rows || s < 0 || s >= num_segments) return;  // padding dropped
+  if (lane == 0 && e > 0) prev = ids[e - 1];
+  if (lane == 31 && e + 1 < num_rows) next = ids[e + 1];
+  if (e == 0 || prev != s) atomicMin(first + s, e);
+  if (e == num_rows - 1 || next != s) atomicMax(last + s, e);
 }
 
 inline int cdiv(int a, int b) { return (a + b - 1) / b; }

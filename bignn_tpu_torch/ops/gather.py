@@ -9,6 +9,8 @@ tensors (summing ``g[perm]`` over ``ids_sorted`` in place, with no copy of
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from bignn_tpu_torch.ops import cuda_lib
@@ -69,7 +71,7 @@ def gather_rows_sorted_grad_bwd(g: torch.Tensor, indices: torch.Tensor,
     if g.device.type == "cpu":
         return gather_rows_sorted_grad_bwd_plain(g, indices, num_rows, perm,
                                                  ids_sorted)
-    flat = g.reshape(g.shape[0], -1)
+    flat = g.reshape(g.shape[0], math.prod(g.shape[1:]))
     if perm is None:
         out = segment_sum_launch(flat, indices, num_rows)
     else:

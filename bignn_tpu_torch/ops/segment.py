@@ -59,13 +59,34 @@ def segment_sum_plain(data: torch.Tensor, segment_ids: torch.Tensor,
     return out[:num_segments].to(data.dtype)
 
 
+def segment_bounds_plain(segment_ids: torch.Tensor, num_segments: int):
+    """``(first, last)``, int32 ``[num_segments]``: each segment's first and
+    last row, as the kernels' bounds pass (``csrc/segment_bounds.cuh``)
+    finds them. An empty segment has ``first = E`` and ``last = -1``; ids
+    outside ``[0, num_segments)`` are dropped."""
+    _, slot = _slots(segment_ids, num_segments)
+    rows = torch.arange(segment_ids.shape[0], device=segment_ids.device)
+    first = torch.full((num_segments + 1,), segment_ids.shape[0],
+                       dtype=torch.long, device=segment_ids.device)
+    last = torch.full_like(first, -1)
+    first = first.scatter_reduce(0, slot, rows, "amin")
+    last = last.scatter_reduce(0, slot, rows, "amax")
+    return (first[:num_segments].to(torch.int32),
+            last[:num_segments].to(torch.int32))
+
+
 def segment_sum_launch(data: torch.Tensor, segment_ids: torch.Tensor,
                        num_segments: int,
-                       perm: torch.Tensor | None = None) -> torch.Tensor:
+                       perm: torch.Tensor | None = None,
+                       bounds: tuple[torch.Tensor, torch.Tensor] | None = None
+                       ) -> torch.Tensor:
     """Launch ``csrc/segment_sum.cu`` on ``[E, F]`` float32 or bf16
     ``data``; the output has the data's type. With ``perm`` the rows summed
-    are ``data[perm]``, read in place. Counts nothing: each caller counts
-    its own launches."""
+    are ``data[perm]``, read in place. ``bounds``, two int32
+    ``[num_segments]`` tensors, is the bounds pass's scratch, left holding
+    each segment's first and last row (``segment_bounds_plain``); it is
+    allocated when not given. Counts nothing: each caller counts its own
+    launches."""
     suffix = cuda_lib.require_float(data, "data", "segment_sum")
     dev = data.device
     cuda_lib.require_cuda(data, "data", data.dtype, 2, dev)
@@ -75,8 +96,16 @@ def segment_sum_launch(data: torch.Tensor, segment_ids: torch.Tensor,
     if perm is None and data.shape[0] != e:
         raise ValueError(f"segment_ids has {e} rows, data {data.shape[0]}")
     out = torch.empty((num_segments, f), dtype=data.dtype, device=dev)
-    first = torch.empty(num_segments, dtype=torch.int32, device=dev)
-    last = torch.empty(num_segments, dtype=torch.int32, device=dev)
+    if bounds is None:
+        first = torch.empty(num_segments, dtype=torch.int32, device=dev)
+        last = torch.empty(num_segments, dtype=torch.int32, device=dev)
+    else:
+        first, last = bounds
+        for name, b in (("first", first), ("last", last)):
+            cuda_lib.require_cuda(b, name, torch.int32, 1, dev)
+            if b.shape[0] != num_segments:
+                raise ValueError(f"{name} has {b.shape[0]} rows, "
+                                 f"num_segments {num_segments}")
     if perm is None:
         cuda_lib.launch(f"bignn_segment_sum_{suffix}", dev, data.data_ptr(),
                         segment_ids.data_ptr(), e, f, num_segments,

@@ -162,7 +162,8 @@ script exits non-zero without it.
 with the kernels and with the plain versions in turns: kernels, plain,
 plain, kernels; the synchronized time of each part of a step; a
 torch.profiler trace of 5 steps: wall and device-busy time, device launches
-per step, the device time of the busiest kernels), the 100K-drug Scorer
+per step, the device time of the busiest kernels and of the segment
+kernels' bounds pass and sums), the 100K-drug Scorer
 (the parts of its build, a trace of 5 refreshes), config4's step (chunk
 medians in turns, the parts of a step: sample, expand, forward + loss,
 backward, Adam; a trace of one chunk of 8 steps), and path D's config3 step
@@ -229,6 +230,9 @@ TOPK_AGREE = 0.9
 C4_CHUNKS, C4_CHUNK = 64, 8  # 512 steps of config4 in chunks of 8
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
+# kernels a trace lists wherever they rank: the segment kernels' bounds
+# pass and the segment sums
+TRACE_ALWAYS = ("find_bounds", "init_bounds", "sum_segments")
 
 
 def log(msg: str) -> None:
@@ -293,6 +297,49 @@ def index_add_call(data: torch.Tensor, ids: torch.Tensor, rows: int):
     dropped rows equal ``rows``), in the data's type."""
     out = data.new_zeros((rows + 1,) + tuple(data.shape[1:]))
     return lambda: out.zero_().index_add_(0, ids, data)
+
+
+def multihead_library(src: torch.Tensor, dst: torch.Tensor,
+                      alpha: torch.Tensor, n: int, v: torch.Tensor,
+                      g: torch.Tensor | None = None):
+    """The PyTorch calls that compute ``spmm_multihead`` (``g`` None) or its
+    backward, over the ``[N H, N H]`` CSR matrix A with the entries
+    ``(d H + h, s H + h) = alpha[e, h]`` of the real edges (built untimed,
+    duplicates summed): forward ``torch.sparse.mm(A, v)`` with v viewed as
+    ``[N H, D]``; backward two calls, ``torch.sparse.mm`` of the transposed
+    matrix with the cotangent for ``d_v`` and ``torch.sparse.sampled_addmm``
+    on A's pattern for ``d_alpha``. None where a call refuses the type."""
+    heads, d = v.shape[1], v.shape[2]
+    keep = dst < n
+    h = torch.arange(heads, device=dst.device)
+    rows = (dst[keep].long()[:, None] * heads + h).reshape(-1)
+    cols = (src[keep].long()[:, None] * heads + h).reshape(-1)
+    vals = alpha[keep].reshape(-1)
+    size = (n * heads, n * heads)
+
+    def csr(r, c):
+        return torch.sparse_coo_tensor(torch.stack([r, c]), vals,
+                                       size).coalesce().to_sparse_csr()
+
+    v2 = v.reshape(n * heads, d)
+    try:
+        a = csr(rows, cols)
+        if g is None:
+            def call():
+                return torch.sparse.mm(a, v2)
+        else:
+            at, g2 = csr(cols, rows), g.reshape(n * heads, d)
+
+            def call():
+                return (torch.sparse.mm(at, g2),
+                        torch.sparse.sampled_addmm(a, g2, v2.t(), beta=0.0))
+        call()
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError) as exc:
+        log(f"  spmm_multihead library call refuses {v.dtype}: "
+            f"{str(exc).splitlines()[0]}")
+        return None
+    return call
 
 
 def index_put_call(src: torch.Tensor, dst: torch.Tensor, n: int,
@@ -1006,7 +1053,9 @@ def run_sparse_serving(dev, ds) -> tuple[dict, dict, object]:
              lambda: ops.spmm_multihead_plain(v, outer.edge_src,
                                               outer.edge_dst, alpha, n),
              SPARSE_TOL, nbytes(v, outer.edge_src, outer.edge_dst, alpha),
-             2 * e * 128)
+             2 * e * 128,
+             library=multihead_library(outer.edge_src, outer.edge_dst, alpha,
+                                       n, v))
     del v, alpha
     torch.cuda.empty_cache()
 
@@ -1216,7 +1265,9 @@ def run_sparse_training(dev) -> tuple[list, dict]:
              lambda: ops.spmm_multihead_bwd(*mh),
              lambda: ops.spmm_multihead_bwd_plain(*mh), BWD_TOL,
              nbytes(v, outer.edge_dst, alpha, g, outer.edge_src_perm,
-                    outer.edge_src_sorted), 4 * e * 128)
+                    outer.edge_src_sorted), 4 * e * 128,
+             library=multihead_library(outer.edge_src, outer.edge_dst, alpha,
+                                       n, v, g))
     gather = (g_e, outer.edge_src, n, outer.edge_src_perm,
               outer.edge_src_sorted)
     # the library call sums g_e by the gather's own (unsorted) indices
@@ -1748,14 +1799,16 @@ def config4_kernels(dev, cb, pb, outer) -> dict:
     _compare(results, "spmm_multihead:bf16",
              lambda: ops.spmm_multihead(v, src, dst, alpha, D),
              lambda: ops.spmm_multihead_plain(v, src, dst, alpha, D),
-             BF16_TOL, nbytes(v, src, dst, alpha), 2 * E * 128)
+             BF16_TOL, nbytes(v, src, dst, alpha), 2 * E * 128,
+             library=multihead_library(src, dst, alpha, D, v))
     mh = (v, src, dst, alpha, D, g, outer.edge_src_perm,
           outer.edge_src_sorted)
     _compare(results, "spmm_multihead_bwd:bf16",
              lambda: ops.spmm_multihead_bwd(*mh),
              lambda: ops.spmm_multihead_bwd_plain(*mh), BF16_TOL,
              nbytes(v, dst, alpha, g, outer.edge_src_perm,
-                    outer.edge_src_sorted), 4 * E * 128)
+                    outer.edge_src_sorted), 4 * E * 128,
+             library=multihead_library(src, dst, alpha, D, v, g))
     gather = (g_e, src, D, outer.edge_src_perm, outer.edge_src_sorted)
     # padding edges (dst D) carry src 0 but sort as id D: the library call
     # gets the same drop through its index
@@ -2271,7 +2324,8 @@ def _busy_ms(intervals) -> float:
 def _trace(run, reps: int, unit: str) -> None:
     """torch.profiler over ``run()``, which repeats a ``unit`` of work
     ``reps`` times: wall and device-busy time, device launches per unit,
-    the device time of the busiest kernels."""
+    the device time of the busiest kernels and of the segment kernels'
+    bounds pass and sums."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2291,10 +2345,11 @@ def _trace(run, reps: int, unit: str) -> None:
     for e in device:
         per_name.setdefault(e.name, []).append(
             (e.time_range.end - e.time_range.start) / 1e3)
-    top = sorted(per_name.items(), key=lambda kv: -sum(kv[1]))[:15]
-    for name, times in top:
-        log(f"    {sum(times) / reps:8.4f} ms {len(times) / reps:6.1f}x  "
-            f"{name[:90]}")
+    ranked = sorted(per_name.items(), key=lambda kv: -sum(kv[1]))
+    for i, (name, times) in enumerate(ranked):
+        if i < 15 or any(k in name for k in TRACE_ALWAYS):
+            log(f"    {sum(times) / reps:8.4f} ms {len(times) / reps:6.1f}x  "
+                f"{name[:90]}")
 
 
 def profile_training(dev, model_cfg, data, train_cfg) -> None:

@@ -1,29 +1,50 @@
-"""Time the port's float32 streaming kernels from several checkouts on the
-same inputs, in one run on one card, so that a change to a kernel source
-can be told apart from the spread between runs.
+"""Time the port's kernels from several checkouts on the same inputs, in
+one run on one card, so that a change to a kernel source can be told apart
+from the spread between runs.
 
     python3 scripts/compare_kernel_trees.py ROOT [ROOT ...]
 
 Each ROOT is a checkout of this repository. Each is timed in a process of
 its own that imports ``bignn_tpu_torch`` from that ROOT (and so builds that
 ROOT's kernels under ROOT/build), in the order given: give them as A B B A.
-The forms are rows 5-7 of PERF.md's kernel table at the shapes
-``chip_smoke.py`` gives them:
+The forms, at the shapes ``chip_smoke.py`` gives them:
 
-- ``segment_max:f32``: the largest bucket of the DrugBank stand-in (block-
-  local ids with padding runs), F 128;
-- ``spmm_sorted_coo{,_bwd}:f32{,:weighted}``: the largest bucket of the
-  stand-in with molecules up to 160 atoms, F 128 unweighted, F 64 weighted;
-- ``block_spmm{,_bwd}:f32{,:weighted}``: the largest bucket of
-  synthetic-large cut to 16,384 drugs (301,312 rows), F 128.
+- ``segment_sum:f32``: the readout of config2's 4 buckets (the DrugBank
+  stand-in, block-local ids with padding runs), F 128;
+- ``segment_sum:bf16``: config4's sampled batch 0, ``[448,512, 128]`` rows
+  into its drug budget;
+- ``gather_rows_sorted_grad_bwd:f32``: the GAT scores' gather over the
+  outer graph of synthetic-large cut to 16,384 drugs (E 2.6M, H 4), in the
+  permuted form (``:perm``, the src gather) and the sorted-dst form
+  (``:dst``); ``:bf16``: config4's sampled outer graph, permuted;
+- ``all_to_all:f32``: config5's (G 4, S 432, F 132) and config5-large's
+  (G 8, S 12,504, F 132) send buffers, random;
+- ``spmm_multihead{,_bwd}:f32``: the 16,384-drug outer graph, H 4, D 32;
+- rows 5-7 in f32: ``segment_max:f32`` on the largest bucket of the
+  DrugBank stand-in, F 128; ``spmm_sorted_coo{,_bwd}:f32{,:weighted}`` on
+  the largest bucket of the stand-in with molecules up to 160 atoms, F 128
+  unweighted, F 64 weighted; ``block_spmm{,_bwd}:f32{,:weighted}`` on the
+  largest bucket of synthetic-large cut to 16,384 drugs (301,312 rows),
+  F 128.
 
-Each form is timed by CUDA events in two ways: ``ms``, the mean of 10 calls
-after 3 warm-ups, as ``chip_smoke.py`` times it (the host's cost of a call
-can set this rate); ``device_ms``, the mean of 200 calls queued behind a
-device sleep, so that the card runs them back to back and the host does
-not set the rate (``host_ms`` is the host's time to queue them, which must
-stay below the sleep). Each result is checked against the plain version.
-Prints one JSON line per ROOT; needs a CUDA card.
+The index arrays are built once, in a process of their own with the first
+ROOT's package (config4's batch needs its sampler on the card), and saved
+under ``build/``; every ROOT loads them, and draws its values from seeded
+device generators, so all ROOTs see the same inputs.
+
+Each form, and its one-call PyTorch yardstick where ``chip_smoke.py`` names
+one (``index_add_``, ``copy_``), is timed by CUDA events in two ways:
+``ms``, the mean of 10 calls after 3 warm-ups, as ``chip_smoke.py`` times
+it (the host's cost of a call can set this rate); ``device_ms``, the mean
+of 100 calls (25 of config2's 4 buckets, so that their launches fit the
+launch queue) queued behind a device sleep, so that the card runs them
+back to back and the host does not set the rate. ``host_ms`` is the
+host's time to queue them, which must stay below the sleep (lengthened to
+twice a probe of that time), or ``device_ms`` is null. ``lib_ms`` and
+``lib_device_ms`` are the same for the yardstick. Each result is checked
+against the plain version (f32 within 1e-4, bf16 within 1e-2, of
+max(1, max |plain|); the exchange bit for bit). Prints one JSON line per
+ROOT; needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -36,7 +57,8 @@ from pathlib import Path
 
 SEED = 0
 REPS, WARMUP = 10, 3
-DEVICE_REPS = 200
+DEVICE_REPS = 100  # launches of a form's calls stay below the queue's ~1,000
+CALLS = {"segment_sum:f32": 4}  # calls a form makes: its reps are divided
 SLEEP_CYCLES = 400_000_000  # ~0.2 s at the H100's 1.98 GHz boost clock
 
 
@@ -71,16 +93,23 @@ def sleep_ms() -> float:
     return start.elapsed_time(end)
 
 
-def device_ms(fn, reps: int = DEVICE_REPS) -> tuple[float, float]:
+def device_ms(fn, sleep: float, reps: int) -> tuple[float, float, float]:
     """Mean device milliseconds per call with the calls queued behind a
-    device sleep, and the host's milliseconds to queue them all."""
+    device sleep, the host's milliseconds to queue them all, and the
+    sleep's milliseconds. ``sleep`` is the device time of
+    ``_sleep(SLEEP_CYCLES)``; the sleep is lengthened to twice the host's
+    time to queue ``reps`` calls, as a probe of 10 calls measures it."""
     import torch
 
-    fn()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        fn()
+    probe = (time.perf_counter() - t0) * 1e3 * reps / 10
     torch.cuda.synchronize()
+    scale = max(1.0, 2 * probe / sleep)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(SLEEP_CYCLES)
+    torch.cuda._sleep(int(SLEEP_CYCLES * scale))
     t0 = time.perf_counter()
     start.record()
     for _ in range(reps):
@@ -88,15 +117,139 @@ def device_ms(fn, reps: int = DEVICE_REPS) -> tuple[float, float]:
     end.record()
     host = (time.perf_counter() - t0) * 1e3
     end.synchronize()
-    return start.elapsed_time(end) / reps, host
+    return start.elapsed_time(end) / reps, host, sleep * scale
+
+
+INPUTS = Path(__file__).resolve().parents[1] / "build" / "compare_inputs.pt"
+F32_TOL, BF16_TOL = 1e-4, 1e-2  # x max(1, max |plain|)
 
 
 def largest(bucketing):
     return max(bucketing.batches, key=lambda b: b.node_cap)
 
 
+def build_inputs(root: str, path: Path) -> None:
+    """Save the index arrays of the new forms' inputs to ``path``: config2's
+    bucket ids, the 16,384-drug outer graph, and config4's sampled batch 0
+    (its rows' drug ids and its outer graph), built as ``chip_smoke.py``
+    builds them."""
+    sys.path.insert(0, root)
+    import torch
+
+    import chip_smoke
+    from bignn_tpu_torch.data import load_dataset, prepare_device_data
+    from bignn_tpu_torch.sparse import bucket_graphs
+
+    dev = torch.device("cuda")
+    out = {"buckets": [(torch.as_tensor(b.graph_ids), b.num_graphs)
+                       for b in bucket_graphs(
+                           load_dataset("drugbank").molecules).batches]}
+    cfg, _ = chip_smoke.sparse_config()
+    outer = prepare_device_data(load_dataset(
+        cfg.dataset, num_drugs=cfg.max_drugs)).outer
+    out["outer"] = dict(n=outer.num_nodes,
+                        **{k: torch.as_tensor(getattr(outer, f)) for k, f in (
+                            ("src", "edge_src"), ("dst", "edge_dst"),
+                            ("perm", "edge_src_perm"),
+                            ("ssorted", "edge_src_sorted"))})
+    tr = chip_smoke.config4_trainer(dev, chip_smoke.load_large())
+    d = tr.dsampler
+    tr.init(SEED)
+    cb, _ = d.sample(tr._dev_consts, d.key_at(0, 0))
+    pb = tr._expand_compact(cb, tr.tables)
+    o4 = tr._derive_outer(cb)
+    out["config4"] = dict(n=d.D, ids=pb.graph_ids.cpu(),
+                          src=o4.edge_src.cpu(), dst=o4.edge_dst.cpu(),
+                          perm=o4.edge_src_perm.cpu(),
+                          ssorted=o4.edge_src_sorted.cpu())
+    path.parent.mkdir(parents=True, exist_ok=True)
+    torch.save(out, path)
+
+
+def new_cases(dev, path: Path):
+    """(name, kernel call, plain call, library call or None, tolerance) for
+    the segment sum, the gather backward, the exchange and the multi-head
+    SpMM."""
+    import torch
+
+    from bignn_tpu_torch import ops
+    from chip_smoke import index_add_call
+
+    inp = torch.load(path)
+    out = []
+
+    def randn(seed, *shape, dtype=torch.float32):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        return torch.randn(*shape, device=dev, generator=gen).to(dtype)
+
+    seg = [(randn(i, len(ids), 128), ids.to(dev), s)
+           for i, (ids, s) in enumerate(inp["buckets"])]
+    libs = [index_add_call(x, ids, s) for x, ids, s in seg]
+    out.append(("segment_sum:f32",
+                lambda: [ops.segment_sum(*c) for c in seg],
+                lambda: [ops.segment_sum_plain(*c) for c in seg],
+                lambda: [f() for f in libs], F32_TOL))
+
+    c4 = inp["config4"]
+    ids4 = c4["ids"].to(dev)
+    x4 = randn(10, len(ids4), 128, dtype=torch.bfloat16)
+    out.append(("segment_sum:bf16",
+                lambda: ops.segment_sum(x4, ids4, c4["n"]),
+                lambda: ops.segment_sum_plain(x4, ids4, c4["n"]),
+                index_add_call(x4, ids4, c4["n"]), BF16_TOL))
+
+    o = {k: v.to(dev) if torch.is_tensor(v) else v
+         for k, v in inp["outer"].items()}
+    n, e = o["n"], len(o["src"])
+    g_e = randn(20, e, 4)
+    perm = (g_e, o["src"], n, o["perm"], o["ssorted"])
+    # the library call sums g_e by the gather's own (unsorted) indices
+    out.append(("gather_rows_sorted_grad_bwd:f32:perm",
+                lambda: ops.gather_rows_sorted_grad_bwd(*perm),
+                lambda: ops.gather_rows_sorted_grad_bwd_plain(*perm),
+                index_add_call(g_e, o["src"], n), F32_TOL))
+    out.append(("gather_rows_sorted_grad_bwd:f32:dst",
+                lambda: ops.gather_rows_sorted_grad_bwd(g_e, o["dst"], n),
+                lambda: ops.gather_rows_sorted_grad_bwd_plain(g_e, o["dst"],
+                                                              n),
+                index_add_call(g_e, o["dst"], n), F32_TOL))
+    o4 = {k: v.to(dev) if torch.is_tensor(v) else v for k, v in c4.items()}
+    g4 = randn(21, len(o4["src"]), 4, dtype=torch.bfloat16)
+    perm4 = (g4, o4["src"], o4["n"], o4["perm"], o4["ssorted"])
+    # padding edges (dst D) carry src 0 but sort as id D
+    lib4 = torch.where(o4["dst"] < o4["n"], o4["src"], o4["n"])
+    out.append(("gather_rows_sorted_grad_bwd:bf16",
+                lambda: ops.gather_rows_sorted_grad_bwd(*perm4),
+                lambda: ops.gather_rows_sorted_grad_bwd_plain(*perm4),
+                index_add_call(g4, lib4, o4["n"]), BF16_TOL))
+
+    for tag, g, sz in (("config5", 4, 432), ("config5-large", 8, 12_504)):
+        bufs = [randn(30 + i, g, sz, 132) for i in range(g)]
+        stacked = torch.stack(bufs)
+        dst = torch.empty_like(stacked)
+        out.append((f"all_to_all:f32:{tag}",
+                    lambda bufs=bufs: ops.all_to_all(bufs),
+                    lambda bufs=bufs: ops.all_to_all_plain(bufs),
+                    lambda s=stacked, d=dst: d.copy_(s.transpose(0, 1)),
+                    0.0))
+
+    gen = torch.Generator(device=dev).manual_seed(40)
+    alpha = ops.segment_softmax_plain(
+        3 * torch.randn(e, 4, device=dev, generator=gen), o["dst"], n)
+    v, g = randn(41, n, 4, 32), randn(42, n, 4, 32)
+    fwd = (v, o["src"], o["dst"], alpha, n)
+    bwd = (*fwd, g, o["perm"], o["ssorted"])
+    out.append(("spmm_multihead:f32", lambda: ops.spmm_multihead(*fwd),
+                lambda: ops.spmm_multihead_plain(*fwd), None, F32_TOL))
+    out.append(("spmm_multihead_bwd:f32",
+                lambda: ops.spmm_multihead_bwd(*bwd),
+                lambda: ops.spmm_multihead_bwd_plain(*bwd), None, F32_TOL))
+    return out
+
+
 def cases(dev):
-    """(name, kernel call, plain call) for each float32 form."""
+    """(name, kernel call, plain call, None, tolerance) for rows 5-7 in
+    float32."""
     import torch
 
     from bignn_tpu_torch import ops
@@ -111,7 +264,7 @@ def cases(dev):
     s = b.num_graphs
     x = torch.randn(b.node_cap, 128, device=dev, generator=gen)
     out.append(("segment_max:f32", lambda: ops.segment_max(x, ids, s),
-                lambda: ops.segment_max_plain(x, ids, s)))
+                lambda: ops.segment_max_plain(x, ids, s), None, F32_TOL))
 
     b = largest(bucket_graphs(load_dataset(
         "drugbank", max_atoms=160).molecules)).to(dev)
@@ -124,10 +277,12 @@ def cases(dev):
                b.edge_src_sorted)
         out.append((f"spmm_sorted_coo:f32{form}",
                     lambda fwd=fwd: ops.spmm_sorted_coo(*fwd),
-                    lambda fwd=fwd: ops.spmm_sorted_coo_plain(*fwd)))
+                    lambda fwd=fwd: ops.spmm_sorted_coo_plain(*fwd), None,
+                    F32_TOL))
         out.append((f"spmm_sorted_coo_bwd:f32{form}",
                     lambda bwd=bwd: ops.spmm_sorted_coo_bwd(*bwd),
-                    lambda bwd=bwd: ops.spmm_sorted_coo_bwd_plain(*bwd)))
+                    lambda bwd=bwd: ops.spmm_sorted_coo_bwd_plain(*bwd),
+                    None, F32_TOL))
 
     b = largest(bucket_graphs(load_dataset(
         "synthetic-large", num_drugs=16384).molecules)).to(dev)
@@ -142,15 +297,23 @@ def cases(dev):
         out.append((f"block_spmm:f32{form}",
                     lambda fwd=fwd: ops.block_spmm(*fwd),
                     lambda w=w: ops.block_spmm_plain(
-                        xb, b.edge_src, b.edge_dst, w, num_nodes=n)))
+                        xb, b.edge_src, b.edge_dst, w, num_nodes=n), None,
+                    F32_TOL))
         out.append((f"block_spmm_bwd:f32{form}",
                     lambda bwd=bwd: ops.block_spmm_bwd(*bwd),
                     lambda bwd=bwd: ops.block_spmm_plain(*bwd[:4],
-                                                         num_nodes=n)))
+                                                         num_nodes=n),
+                    None, F32_TOL))
     return out
 
 
-def run_one(root: str) -> dict:
+def _tensors(x) -> list:
+    if isinstance(x, (list, tuple)):
+        return [t for y in x for t in _tensors(y)]
+    return [x]
+
+
+def run_one(root: str, inputs: Path) -> dict:
     """Time every form with the ``bignn_tpu_torch`` of ``root``."""
     sys.path.insert(0, root)
     import torch
@@ -168,26 +331,46 @@ def run_one(root: str) -> dict:
     sleep = sleep_ms()
     forms = {}
     with torch.no_grad():
-        for name, kernel, plain in cases(dev):
-            got, want = kernel(), plain()
-            err = (got.float() - want.float()).abs().max().item()
-            scale = max(1.0, want.abs().max().item())
-            if not err <= 1e-4 * scale:
-                raise AssertionError(f"{name}: max_abs_err {err} off plain")
-            ms = events_ms(kernel)
-            dms, host = device_ms(kernel)
-            if not host < sleep:
-                raise AssertionError(f"{name}: the host took {host:.1f} ms "
-                                     f"to queue, the sleep {sleep:.1f} ms")
-            forms[name] = dict(ms=ms, device_ms=dms, host_ms=host,
-                               max_abs_err=err)
+        for name, kernel, plain, library, tol in (new_cases(dev, inputs)
+                                                  + cases(dev)):
+            err = 0.0
+            for a, b in zip(_tensors(kernel()), _tensors(plain()),
+                            strict=True):
+                e = (a.float() - b.float()).abs().max().item()
+                err = max(err, e)
+                if not e <= tol * max(1.0, b.float().abs().max().item()):
+                    raise AssertionError(f"{name}: max_abs_err {e} off plain")
+            row = dict(max_abs_err=err)
+            for tag, fn in (("", kernel), ("lib_", library)):
+                if fn is None:
+                    continue
+                row[f"{tag}ms"] = events_ms(fn)
+                dms, host, slept = device_ms(
+                    fn, sleep, DEVICE_REPS // CALLS.get(name, 1))
+                # a host slower than the sleep sets the rate: no device time
+                row[f"{tag}device_ms"] = dms if host < slept else None
+                row[f"{tag}host_ms"], row[f"{tag}sleep_ms"] = host, slept
+            forms[name] = row
     return dict(root=str(Path(root).resolve()), library=lib.name,
                 build_s=build_s, sleep_ms=sleep, forms=forms)
 
 
+def _child(*args: str) -> str:
+    out = subprocess.run([sys.executable, __file__, *args],
+                         capture_output=True, text=True, timeout=900)
+    sys.stderr.write(out.stderr[-4000:])
+    if out.returncode:
+        raise SystemExit(f"{' '.join(args)}: exit {out.returncode}")
+    return out.stdout
+
+
 def main() -> int:
-    if len(sys.argv) >= 3 and sys.argv[1] == "--one":
-        print(json.dumps(run_one(sys.argv[2])), flush=True)
+    if len(sys.argv) == 4 and sys.argv[1] == "--inputs":
+        build_inputs(sys.argv[2], Path(sys.argv[3]))
+        return 0
+    if len(sys.argv) == 4 and sys.argv[1] == "--one":
+        print(json.dumps(run_one(sys.argv[2], Path(sys.argv[3]))),
+              flush=True)
         return 0
     roots = sys.argv[1:]
     if not roots:
@@ -197,13 +380,12 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip()
     print(f"card: {card}", flush=True)
+    t0 = time.perf_counter()
+    _child("--inputs", str(INPUTS.parents[1]), str(INPUTS))
+    print(f"inputs: {time.perf_counter() - t0:.1f} s -> {INPUTS}", flush=True)
     for root in roots:
-        out = subprocess.run([sys.executable, __file__, "--one", root],
-                             capture_output=True, text=True, timeout=900)
-        sys.stderr.write(out.stderr[-4000:])
-        if out.returncode:
-            raise SystemExit(f"{root}: exit {out.returncode}")
-        print(out.stdout.strip().splitlines()[-1], flush=True)
+        print(_child("--one", root, str(INPUTS)).strip().splitlines()[-1],
+              flush=True)
     return 0
 
 

@@ -16,6 +16,7 @@ rtol 1e-2 > 2**-7).
 """
 
 import itertools
+import zlib
 from unittest import mock
 
 import numpy as np
@@ -23,6 +24,8 @@ import pytest
 import torch
 
 from bignn_tpu_torch import ops
+from bignn_tpu_torch.ops.segment import (segment_bounds_plain,
+                                         segment_sum_launch)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 GRAD_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -1169,3 +1172,160 @@ def test_all_to_all_refuses_on_card(cuda_device):
     many = _a2a_bufs(cuda_device, ops.collectives.MAX_SHARDS + 1, "f32", 1, 4)
     with pytest.raises(ValueError, match="at most"):
         ops.all_to_all(many)
+
+
+# ---------------------------------------------------------------------------
+# segment sum: the row widths, alignments and id layouts of csrc/segment_sum.cu
+# ---------------------------------------------------------------------------
+
+SEGSUM_WIDTHS = (1, 3, 4, 8, 9, 128, 130, 256)
+# name -> (ids, F, type, permuted form, offset of the data's first row):
+# the word each width is read in (16, 8, 4 or 2 bytes) and the sweeps of
+# rows wider than 32 words; a base off 16 bytes ("row": a view one row in,
+# "value": one value in); one segment of 100,000 rows among short ones;
+# few segments of ~33 rows (several warps a segment); unsorted ids with
+# out-of-range and empty segments; E = 0.
+SEGSUM_SPECS = {
+    **{f"w{f}_{t}{'_perm' if p else ''}": ("holes" if not p else "edges",
+                                          f, t, p, None)
+       for f in SEGSUM_WIDTHS for t in ("f32", "bf16") for p in (False,
+                                                                 True)},
+    **{f"unaligned_w{f}_{t}": ("holes", f, t, False, "row")
+       for f in (3, 9) for t in ("f32", "bf16")},
+    "unaligned_value_w4_f32": ("holes", 4, "f32", False, "value"),
+    "unaligned_value_w4_f32_perm": ("edges", 4, "f32", True, "value"),
+    "unaligned_value_w8_bf16": ("holes", 8, "bf16", False, "value"),
+    "long_w4_f32": ("long", 4, "f32", False, None),
+    "long_w4_f32_perm": ("long", 4, "f32", True, None),
+    "long_w128_f32": ("long", 128, "f32", False, None),
+    "long_w128_bf16": ("long", 128, "bf16", False, None),
+    "molecules_w128_f32": ("molecules", 128, "f32", False, None),
+    "molecules_w128_bf16": ("molecules", 128, "bf16", False, None),
+    "unsorted_w4_f32": ("unsorted", 4, "f32", False, None),
+    "unsorted_w4_f32_perm": ("unsorted", 4, "f32", True, None),
+    "unsorted_w128_f32": ("unsorted", 128, "f32", False, None),
+    "unsorted_w16_bf16": ("unsorted", 16, "bf16", False, None),
+    "empty_rows_w8_f32": ("empty", 8, "f32", False, None),
+    "empty_rows_w4_bf16_perm": ("empty", 4, "bf16", True, None),
+}
+SEGSUM_TYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+
+def _segsum_ids(rng, kind):
+    """``(ids, num_segments)`` of one id layout."""
+    if kind == "holes":
+        return _hole_ids(rng, 60), 60
+    if kind == "edges":  # a gather's indices: any order, 30 padding rows
+        return np.concatenate([rng.integers(0, 40, 400),
+                               np.full(30, 40)]).astype(np.int32), 40
+    if kind == "long":  # segment 20 has 100,000 rows, padding runs between
+        parts = []
+        for s in range(50):
+            parts.append(np.full(100_000 if s == 20 else rng.integers(1, 40),
+                                 s))
+            if rng.random() < 0.5:
+                parts.append(np.full(rng.integers(1, 20), 50))
+        return np.concatenate(parts).astype(np.int32), 50
+    if kind == "molecules":  # config2's readout: 40 of ~33 atoms, padding
+        parts = []
+        for s in range(40):
+            parts.append(np.full(rng.integers(20, 46), s))
+            parts.append(np.full(rng.integers(0, 30), 40))
+        return np.concatenate(parts).astype(np.int32), 40
+    if kind == "unsorted":  # 45-49 empty; -1, 50 and 57 dropped
+        return rng.permutation(np.concatenate([
+            rng.integers(0, 45, 600), np.full(5, -1), np.full(5, 50),
+            np.full(5, 57)])).astype(np.int32), 50
+    assert kind == "empty"
+    return np.zeros(0, np.int32), 30
+
+
+def _segsum_case(device, name):
+    """(kernel call, plain call) of one ``SEGSUM_SPECS`` case. The long
+    segment's data are small integers, so that any order of the sums is
+    exact (100,000 normal values summed in two orders can differ by more
+    than the f32 tolerance); the others are normal."""
+    kind, feat, t, permuted, offset = SEGSUM_SPECS[name]
+    rng = np.random.default_rng(zlib.crc32(name.encode()))
+    ids, n = _segsum_ids(rng, kind)
+    e = len(ids)
+    flat = (rng.integers(-4, 5, (e + 1) * feat) if kind == "long" else
+            rng.standard_normal((e + 1) * feat)).astype(np.float32)
+    x = torch.from_numpy(flat).to(device).to(SEGSUM_TYPES[t])
+    start = {None: 0, "row": feat, "value": 1}[offset]
+    x = x[start:start + e * feat].view(e, feat)
+    (ids_t,) = _on(device, ids)
+    if not permuted:
+        return (lambda: ops.segment_sum(x, ids_t, n),
+                lambda: ops.segment_sum_plain(x, ids_t, n))
+    perm = np.argsort(ids, kind="stable").astype(np.int32)
+    perm_t, sorted_t = _on(device, perm, ids[perm])
+    args = (x, ids_t, n, perm_t, sorted_t)
+    return (lambda: ops.gather_rows_sorted_grad_bwd(*args),
+            lambda: ops.gather_rows_sorted_grad_bwd_plain(*args))
+
+
+def test_segsum_plain_cases_run_on_cpu():
+    """On CPU tensors every case takes the plain version (same bits, the
+    data's type, zeros for empty segments) and counts no launch."""
+    counted = (ops.segment_sum, ops.gather_rows_sorted_grad_bwd)
+    before = [k.launches for k in counted]
+    for name, (kind, feat, t, _, _) in SEGSUM_SPECS.items():
+        kernel, plain = _segsum_case("cpu", name)
+        got, want = kernel(), plain()
+        assert torch.equal(got, want), name
+        assert got.dtype == SEGSUM_TYPES[t] and got.shape[1] == feat, name
+        if kind == "unsorted":
+            assert not got[45:].any(), name
+    assert [k.launches for k in counted] == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(SEGSUM_SPECS))
+def test_segment_sum_kernel_matches_plain_on_card(cuda_device, case):
+    kernel, plain = _segsum_case(cuda_device, case)
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and got.shape == want.shape, case
+    tol = TOL if SEGSUM_SPECS[case][2] == "f32" else BF16_TOL
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), **tol,
+                               err_msg=case)
+
+
+@pytest.mark.gpu
+def test_segment_sum_repeats_bit_for_bit_on_card(cuda_device):
+    """No float atomics and a fixed order: two launches give the same bits,
+    with one warp a segment, with several (few segments, one long one),
+    and in the permuted form; each counts one launch."""
+    for name in ("molecules_w128_f32", "molecules_w128_bf16", "w4_f32_perm",
+                 "w130_bf16", "unsorted_w128_f32", "long_w4_f32_perm"):
+        kernel, _ = _segsum_case(cuda_device, name)
+        op = (ops.gather_rows_sorted_grad_bwd if name.endswith("_perm")
+              else ops.segment_sum)
+        before = op.launches
+        a, b = kernel(), kernel()
+        assert op.launches == before + 2, name
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["holes", "edges", "long", "unsorted",
+                                  "empty", "sorted"])
+def test_segment_bounds_on_card(cuda_device, kind):
+    """The bounds pass's atomics only at the ends of runs give each
+    segment's first and last row exactly, for sorted, holed and unsorted
+    ids: the scratch ``segment_sum_launch`` passes in, read back."""
+    rng = np.random.default_rng(5)
+    ids, n = _segsum_ids(rng, "edges" if kind == "sorted" else kind)
+    if kind == "sorted":
+        ids = np.sort(ids)
+    (ids_t,) = _on(cuda_device, ids)
+    first = torch.full((n,), 7, dtype=torch.int32, device=cuda_device)
+    last = torch.full((n,), 7, dtype=torch.int32, device=cuda_device)
+    x = torch.ones(len(ids), 1, device=cuda_device)
+    segment_sum_launch(x, ids_t, n, bounds=(first, last))
+    want_first, want_last = segment_bounds_plain(ids_t, n)
+    torch.cuda.synchronize()
+    assert torch.equal(first, want_first), kind
+    assert torch.equal(last, want_last), kind

@@ -25,6 +25,7 @@ from bignn_tpu.ops.pallas.flash_gat import flash_gat_attention as jax_flash_gat
 from bignn_tpu_torch import ops
 from bignn_tpu_torch.data import make_synthetic_ddi
 from bignn_tpu_torch.ops.flash_gat import NEG
+from bignn_tpu_torch.ops.segment import segment_bounds_plain
 from bignn_tpu_torch.sparse import build_padded_batch
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -126,6 +127,53 @@ def test_segment_sum_grad_matches_jax(width):
     (out * t(w)).sum().backward()
     np.testing.assert_allclose(x.grad.numpy(), np.asarray(want), **TOL)
     assert np.all(x.grad.numpy()[ids == 120] == 0.0)  # dropped rows
+
+
+def _long_ids(rng):
+    """50 segments, segment 20 of 100,000 rows, padding runs between."""
+    parts = []
+    for s in range(50):
+        parts.append(np.full(100_000 if s == 20 else rng.integers(1, 40), s))
+        if rng.random() < 0.5:
+            parts.append(np.full(rng.integers(1, 20), 50))
+    return np.concatenate(parts).astype(np.int32)
+
+
+@pytest.mark.parametrize("shape", ["h1", "h2", "h8", "long"])
+def test_segment_sum_narrow_rows_match_jax(shape):
+    """Rows of 1-8 values (the GAT's per-head scores, which the kernel reads
+    a row a lane) on hole-interleaved ids, and one segment of 100,000 rows
+    among short ones, against JAX's xla segment_sum. The long segment's
+    data are small integers, so that its sums are exact in any order."""
+    rng = np.random.default_rng(9)
+    if shape == "long":
+        ids, n, width = _long_ids(rng), 50, 4
+        data = rng.integers(-4, 5, (len(ids), width)).astype(np.float32)
+    else:
+        ids, n, width = _hole_ids(rng, 80), 80, int(shape[1:])
+        data = rng.standard_normal((len(ids), width)).astype(np.float32)
+    want = jax_ops.segment_sum(jnp.asarray(data), jnp.asarray(ids), n,
+                               backend="xla")
+    got = ops.segment_sum(t(data), t(ids), n)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("kind", ["sorted", "holes", "unsorted", "empty"])
+def test_segment_bounds_plain_matches_numpy(kind):
+    """Each segment's first and last row (the kernels' bounds pass): E and
+    -1 for an empty segment, ids outside [0, n) dropped."""
+    rng = np.random.default_rng(3)
+    n = 50
+    ids = {"sorted": lambda: _sorted_ids(rng, n, 1024),
+           "holes": lambda: _hole_ids(rng, n),
+           "unsorted": lambda: rng.integers(-3, n + 5, 700).astype(np.int32),
+           "empty": lambda: np.zeros(0, np.int32)}[kind]()
+    first, last = segment_bounds_plain(t(ids), n)
+    assert first.dtype == last.dtype == torch.int32
+    for s in range(n):
+        rows = np.flatnonzero(ids == s)
+        assert first[s] == (rows[0] if len(rows) else len(ids)), (kind, s)
+        assert last[s] == (rows[-1] if len(rows) else -1), (kind, s)
 
 
 # ---------------------------------------------------------------------------

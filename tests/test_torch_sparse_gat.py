@@ -185,16 +185,39 @@ def test_spmm_multihead_plain_autograd_equals_analytic_vjp():
         np.testing.assert_allclose(a.numpy(), b.numpy(), **GRAD_TOL)
 
 
-@pytest.mark.parametrize("backend", ["xla", "pallas_interpret"])
-@pytest.mark.parametrize("which", ["sorted", "perm"])
-def test_gather_rows_sorted_grad_matches_jax(backend, which):
+def _gather_params():
+    """(which, backend, shape): the GAT's 4 heads through both backends;
+    1, 2 and 8 heads and one long segment through ``xla``."""
+    params = [pytest.param(w, b, "h4", id=f"{w}-{b}")
+              for w in ("sorted", "perm") for b in ("xla", "pallas_interpret")]
+    params += [pytest.param(w, "xla", s, id=f"{w}-xla-{s}")
+               for w in ("sorted", "perm") for s in ("h1", "h2", "h8", "long")]
+    return params
+
+
+@pytest.mark.parametrize("which,backend,shape", _gather_params())
+def test_gather_rows_sorted_grad_matches_jax(which, backend, shape):
     """The dst gather (sorted ids, padding id n) and the src gather (through
-    the source-sort permutation) of the GAT scores."""
+    the source-sort permutation) of the GAT scores. ``long``: one index
+    (drug 5) takes 20,000 more edges, a segment of the backward's sum among
+    short ones; its cotangent is small integers, so that its sums are exact
+    in any order."""
     rng = np.random.default_rng(4)
-    n, h = 40, 4
+    n = 40
+    h = 4 if shape == "long" else int(shape[1:])
     src, dst = _edges(rng, n, 400)
+    if shape == "long":
+        real = dst < n
+        extra = rng.integers(0, n - 3, 20_000)
+        long_run = np.full(20_000, 5)
+        s2 = np.concatenate([src[real], long_run if which == "perm" else extra])
+        d2 = np.concatenate([dst[real], extra if which == "perm" else long_run])
+        order = np.argsort(d2, kind="stable")
+        src = np.concatenate([s2[order], src[~real]]).astype(np.int32)
+        dst = np.concatenate([d2[order], dst[~real]]).astype(np.int32)
     table = rng.standard_normal((n, h)).astype(np.float32)
-    g = rng.standard_normal((len(src), h)).astype(np.float32)
+    g = (rng.integers(-4, 5, (len(src), h)) if shape == "long" else
+         rng.standard_normal((len(src), h))).astype(np.float32)
     if which == "sorted":
         idx, kw = dst, {}
     else:
