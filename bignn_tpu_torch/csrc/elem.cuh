@@ -151,6 +151,74 @@ __device__ __forceinline__ void store_vec(T* p, const float* v) {
   }
 }
 
+// The word type of B bytes (16, 8, 4 or 2), in which NV = B / sizeof(T)
+// values of T are loaded or stored at once.
+template <int B>
+struct Word;
+template <>
+struct Word<16> {
+  using type = uint4;
+};
+template <>
+struct Word<8> {
+  using type = uint2;
+};
+template <>
+struct Word<4> {
+  using type = unsigned int;
+};
+template <>
+struct Word<2> {
+  using type = unsigned short;
+};
+
+// out[0 .. NV) = the NV values of T packed in w, as floats.
+template <class T, int NV, class W>
+__device__ __forceinline__ void unpack_word(const W& w, float (&out)[NV]) {
+  if constexpr (sizeof(T) == 4) {
+    const float* f = reinterpret_cast<const float*>(&w);
+#pragma unroll
+    for (int i = 0; i < NV; ++i) out[i] = f[i];
+  } else if constexpr (NV == 1) {
+    out[0] = __bfloat162float(__ushort_as_bfloat16(w));
+  } else {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&w);
+#pragma unroll
+    for (int i = 0; i < NV / 2; ++i) {
+      const float2 v = __bfloat1622float2(h[i]);
+      out[2 * i] = v.x;
+      out[2 * i + 1] = v.y;
+    }
+  }
+}
+
+// v[0 .. NV) rounded to T and packed as one word.
+template <class T, int NV, class W>
+__device__ __forceinline__ W pack_word(const float (&v)[NV]) {
+  W w;
+  if constexpr (sizeof(T) == 4) {
+    float* f = reinterpret_cast<float*>(&w);
+#pragma unroll
+    for (int i = 0; i < NV; ++i) f[i] = v[i];
+  } else if constexpr (NV == 1) {
+    w = __bfloat16_as_ushort(__float2bfloat16_rn(v[0]));
+  } else {
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&w);
+#pragma unroll
+    for (int i = 0; i < NV / 2; ++i)
+      h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+  }
+  return w;
+}
+
+// log2 of the lanes a row of m words takes (a row slot, segment_sum.cu):
+// m rounded up to a power of two.
+__host__ __device__ __forceinline__ int slot_log2(int m) {
+  int lg = 0;
+  while ((1 << lg) < m) ++lg;
+  return lg;
+}
+
 // True when rows of n values of T may be read as pairs: always false for
 // float32 (its pair load is two loads anyway), even n for bf16.
 template <class T>

@@ -77,70 +77,13 @@ constexpr int kSegsPerBlock = 2;      // segments of a block of one warp each
 constexpr int kFillWarps = 132 * 32;  // warps that keep the 132 SMs busy
 constexpr unsigned kFull = 0xffffffffu;
 
-// The word type of B bytes.
-template <int B>
-struct Word;
-template <>
-struct Word<16> {
-  using type = uint4;
-};
-template <>
-struct Word<8> {
-  using type = uint2;
-};
-template <>
-struct Word<4> {
-  using type = unsigned int;
-};
-template <>
-struct Word<2> {
-  using type = unsigned short;
-};
-
 // acc[0 .. NV) += the NV values of T packed in w.
 template <class T, int NV, class W>
 __device__ __forceinline__ void add_word(const W& w, float (&acc)[NV]) {
-  if constexpr (sizeof(T) == 4) {
-    const float* f = reinterpret_cast<const float*>(&w);
+  float v[NV];
+  bignn::unpack_word<T, NV>(w, v);
 #pragma unroll
-    for (int i = 0; i < NV; ++i) acc[i] += f[i];
-  } else if constexpr (NV == 1) {
-    acc[0] += __bfloat162float(__ushort_as_bfloat16(w));
-  } else {
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&w);
-#pragma unroll
-    for (int i = 0; i < NV / 2; ++i) {
-      const float2 v = __bfloat1622float2(h[i]);
-      acc[2 * i] += v.x;
-      acc[2 * i + 1] += v.y;
-    }
-  }
-}
-
-// v[0 .. NV) rounded to T and packed as one word.
-template <class T, int NV, class W>
-__device__ __forceinline__ W pack_word(const float (&v)[NV]) {
-  W w;
-  if constexpr (sizeof(T) == 4) {
-    float* f = reinterpret_cast<float*>(&w);
-#pragma unroll
-    for (int i = 0; i < NV; ++i) f[i] = v[i];
-  } else if constexpr (NV == 1) {
-    w = __bfloat16_as_ushort(__float2bfloat16_rn(v[0]));
-  } else {
-    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&w);
-#pragma unroll
-    for (int i = 0; i < NV / 2; ++i)
-      h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-  }
-  return w;
-}
-
-// log2 of the lanes a row of m words takes: m rounded up to a power of two.
-__host__ __device__ __forceinline__ int slot_log2(int m) {
-  int lg = 0;
-  while ((1 << lg) < m) ++lg;
-  return lg;
+  for (int i = 0; i < NV; ++i) acc[i] += v[i];
 }
 
 // acc += the word of each of a lane's rows e, e + step, ... up to e1 whose
@@ -189,7 +132,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
                  const int* __restrict__ ids, const int* __restrict__ first,
                  const int* __restrict__ last, int num_segments, int feat,
                  int warps_per_seg, T* __restrict__ out) {
-  using W = typename Word<NV * static_cast<int>(sizeof(T))>::type;
+  using W = typename bignn::Word<NV * static_cast<int>(sizeof(T))>::type;
   extern __shared__ float part[];  // [warps_per_seg, 32, NV] when shared
   const int lane = threadIdx.x % 32;
   const int warp = threadIdx.x / 32;
@@ -203,7 +146,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
   T* o = out + static_cast<int64_t>(s) * feat;
   for (int c0 = 0; c0 < words; c0 += 32) {
     const int m = min(32, words - c0);  // words of this sweep
-    const int lg = slot_log2(m);
+    const int lg = bignn::slot_log2(m);
     const int q = lane >> lg;
     const int c = lane & ((1 << lg) - 1);
     const bool mine = c < m;
@@ -234,7 +177,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
     }
     W* dst = reinterpret_cast<W*>(o + static_cast<int64_t>(c0 + c) * NV);
     if (warps_per_seg == 1) {
-      if (q == 0 && mine) *dst = pack_word<T, NV, W>(acc);
+      if (q == 0 && mine) *dst = bignn::pack_word<T, NV, W>(acc);
       continue;
     }
     if (q == 0 && mine) {
@@ -247,7 +190,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
 #pragma unroll
         for (int i = 0; i < NV; ++i) acc[i] += part[(k * 32 + c) * NV + i];
       }
-      *dst = pack_word<T, NV, W>(acc);
+      *dst = bignn::pack_word<T, NV, W>(acc);
     }
     __syncthreads();
   }
@@ -259,7 +202,7 @@ void launch_sum(const T* data, const int* perm, const int* ids,
                 int num_segments, T* out, cudaStream_t st) {
   // share a segment among more warps while the card has room for them and
   // each keeps two passes of rows (mean rows a segment spans)
-  const int64_t slots = 32 >> slot_log2(feat / NV < 32 ? feat / NV : 32);
+  const int64_t slots = 32 >> bignn::slot_log2(feat / NV < 32 ? feat / NV : 32);
   const int64_t rows = num_rows / num_segments;
   int wps = 1;
   while (wps < kMaxWarps &&

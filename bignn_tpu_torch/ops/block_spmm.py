@@ -17,9 +17,11 @@ take the plain version. ``d_weight`` is a per-edge dot in plain PyTorch
 the weight's type. Both wrappers count their launches per element type, the
 weighted forms under ``f32:weighted`` and ``bf16:weighted``. The kernel
 takes float32 or bf16 rows (float32 weights) and F <= 256 and raises on
-anything else; in bf16 it rounds the weight and each weighted message to
-bf16 before the float32 sum, as the TPU kernel does (JAX
-``ops/pallas/block_spmm.py:142-144``).
+anything else. The unweighted bf16 form multiplies each block's edge
+counts by its rows on the tensor cores (float32 sums); the float32 and
+weighted forms sum the edges' rows one by one, and in bf16 round the
+weight and each weighted message to bf16 before the float32 sum, as the
+TPU kernel does (JAX ``ops/pallas/block_spmm.py:142-144``).
 
 The models take this route for block-local buckets above
 ``BLOCK_DENSE_MAX_NODES`` rows, which carry no dense blocks (JAX

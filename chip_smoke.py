@@ -303,32 +303,33 @@ def multihead_library(src: torch.Tensor, dst: torch.Tensor,
                       alpha: torch.Tensor, n: int, v: torch.Tensor,
                       g: torch.Tensor | None = None):
     """The PyTorch calls that compute ``spmm_multihead`` (``g`` None) or its
-    backward, over the ``[N H, N H]`` CSR matrix A with the entries
-    ``(d H + h, s H + h) = alpha[e, h]`` of the real edges (built untimed,
-    duplicates summed): forward ``torch.sparse.mm(A, v)`` with v viewed as
-    ``[N H, D]``; backward two calls, ``torch.sparse.mm`` of the transposed
-    matrix with the cotangent for ``d_v`` and ``torch.sparse.sampled_addmm``
-    on A's pattern for ``d_alpha``. None where a call refuses the type."""
-    heads, d = v.shape[1], v.shape[2]
+    backward, over the ``[n H, N H]`` CSR matrix A (N the rows of ``v``)
+    with the entries ``(d H + h, s H + h) = alpha[e, h]`` of the real edges
+    (built untimed, duplicates summed): forward ``torch.sparse.mm(A, v)``
+    with v viewed as ``[N H, D]``; backward two calls, ``torch.sparse.mm``
+    of the transposed matrix with the cotangent for ``d_v`` and
+    ``torch.sparse.sampled_addmm`` on A's pattern for ``d_alpha``. None
+    where a call refuses the type."""
+    num_src, heads, d = v.shape
     keep = dst < n
     h = torch.arange(heads, device=dst.device)
     rows = (dst[keep].long()[:, None] * heads + h).reshape(-1)
     cols = (src[keep].long()[:, None] * heads + h).reshape(-1)
     vals = alpha[keep].reshape(-1)
-    size = (n * heads, n * heads)
 
-    def csr(r, c):
+    def csr(r, c, size):
         return torch.sparse_coo_tensor(torch.stack([r, c]), vals,
                                        size).coalesce().to_sparse_csr()
 
-    v2 = v.reshape(n * heads, d)
+    v2 = v.reshape(num_src * heads, d)
     try:
-        a = csr(rows, cols)
+        a = csr(rows, cols, (n * heads, num_src * heads))
         if g is None:
             def call():
                 return torch.sparse.mm(a, v2)
         else:
-            at, g2 = csr(cols, rows), g.reshape(n * heads, d)
+            at = csr(cols, rows, (num_src * heads, n * heads))
+            g2 = g.reshape(n * heads, d)
 
             def call():
                 return (torch.sparse.mm(at, g2),

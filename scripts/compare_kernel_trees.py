@@ -20,20 +20,27 @@ The forms, at the shapes ``chip_smoke.py`` gives them:
 - ``all_to_all:f32``: config5's (G 4, S 432, F 132) and config5-large's
   (G 8, S 12,504, F 132) send buffers, random;
 - ``spmm_multihead{,_bwd}:f32``: the 16,384-drug outer graph, H 4, D 32;
-- rows 5-7 in f32: ``segment_max:f32`` on the largest bucket of the
-  DrugBank stand-in, F 128; ``spmm_sorted_coo{,_bwd}:f32{,:weighted}`` on
-  the largest bucket of the stand-in with molecules up to 160 atoms, F 128
-  unweighted, F 64 weighted; ``block_spmm{,_bwd}:f32{,:weighted}`` on the
-  largest bucket of synthetic-large cut to 16,384 drugs (301,312 rows),
-  F 128.
+  ``spmm_multihead_bwd:f32:shard``: shard 0 of path H's 8-shard plan over
+  the 100K drugs (12,500 destinations, 112,532 extended rows, 2.0M edge
+  slots); ``spmm_multihead{,_bwd}:bf16``: config4's sampled outer graph;
+  ``spmm_multihead:f32:100k``: the 100K-drug outer graph (E 16.1M);
+- rows 5-7: ``segment_max:f32`` on the largest bucket of the DrugBank
+  stand-in, F 128; ``spmm_sorted_coo{,_bwd}:f32{,:weighted}`` on the
+  largest bucket of the stand-in with molecules up to 160 atoms, F 128
+  unweighted, F 64 weighted; ``block_spmm{,_bwd}:{f32,bf16}{,:weighted}``
+  on the largest bucket of synthetic-large cut to 16,384 drugs (301,312
+  rows), F 128.
 
 The index arrays are built once, in a process of their own with the first
 ROOT's package (config4's batch needs its sampler on the card), and saved
 under ``build/``; every ROOT loads them, and draws its values from seeded
 device generators, so all ROOTs see the same inputs.
 
-Each form, and its one-call PyTorch yardstick where ``chip_smoke.py`` names
-one (``index_add_``, ``copy_``), is timed by CUDA events in two ways:
+Each form, and its PyTorch yardstick where ``chip_smoke.py`` names one
+(``index_add_``, ``copy_``, ``torch.sparse.mm`` on a CSR matrix, the
+multi-head backward's ``torch.sparse.mm`` and ``sampled_addmm``,
+``torch.bmm`` over dense blocks; built outside the timing, from this
+checkout's ``chip_smoke.py``), is timed by CUDA events in two ways:
 ``ms``, the mean of 10 calls after 3 warm-ups, as ``chip_smoke.py`` times
 it (the host's cost of a call can set this rate); ``device_ms``, the mean
 of 100 calls (25 of config2's 4 buckets, so that their launches fit the
@@ -44,11 +51,15 @@ twice a probe of that time), or ``device_ms`` is null. ``lib_ms`` and
 ``lib_device_ms`` are the same for the yardstick. Each result is checked
 against the plain version (f32 within 1e-4, bf16 within 1e-2, of
 max(1, max |plain|); the exchange bit for bit). Prints one JSON line per
-ROOT; needs a CUDA card.
+ROOT; needs a CUDA card. ``bound_ms`` (the multi-head and block-local
+forms): the bytes the form must read and write over the H100's 3.35 TB/s,
+counted as ``chip_smoke.py`` counts them.
 """
 
 from __future__ import annotations
 
+import importlib.util
+import itertools
 import json
 import subprocess
 import sys
@@ -122,6 +133,14 @@ def device_ms(fn, sleep: float, reps: int) -> tuple[float, float, float]:
 
 INPUTS = Path(__file__).resolve().parents[1] / "build" / "compare_inputs.pt"
 F32_TOL, BF16_TOL = 1e-4, 1e-2  # x max(1, max |plain|)
+HBM_BYTES_PER_S = 3.35e12  # the H100 SXM's memory rate
+# bytes a form must read (as chip_smoke.py counts them), where its bound is
+# reported: the bound adds the bytes of its outputs
+IN_BYTES: dict[str, int] = {}
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def largest(bucketing):
@@ -130,15 +149,20 @@ def largest(bucketing):
 
 def build_inputs(root: str, path: Path) -> None:
     """Save the index arrays of the new forms' inputs to ``path``: config2's
-    bucket ids, the 16,384-drug outer graph, and config4's sampled batch 0
+    bucket ids, the 16,384-drug and the 100K-drug outer graphs, shard 0 of
+    path H's 8-shard plan over the 100K drugs, and config4's sampled batch 0
     (its rows' drug ids and its outer graph), built as ``chip_smoke.py``
     builds them."""
     sys.path.insert(0, root)
     import torch
 
+    import numpy as np
+
     import chip_smoke
     from bignn_tpu_torch.data import load_dataset, prepare_device_data
+    from bignn_tpu_torch.parallel import build_outer_partition
     from bignn_tpu_torch.sparse import bucket_graphs
+    from bignn_tpu_torch.sparse.formats import build_outer_graph
 
     dev = torch.device("cuda")
     out = {"buckets": [(torch.as_tensor(b.graph_ids), b.num_graphs)
@@ -152,7 +176,24 @@ def build_inputs(root: str, path: Path) -> None:
                             ("src", "edge_src"), ("dst", "edge_dst"),
                             ("perm", "edge_src_perm"),
                             ("ssorted", "edge_src_sorted"))})
-    tr = chip_smoke.config4_trainer(dev, chip_smoke.load_large())
+    large = chip_smoke.load_large()
+    train = large.split_edges("train")
+    o100 = build_outer_graph(train[:, 0], train[:, 1],
+                             num_nodes=large.num_drugs)
+    out["outer100k"] = dict(n=o100.num_nodes,
+                            src=torch.as_tensor(o100.edge_src),
+                            dst=torch.as_tensor(o100.edge_dst))
+    plan = build_outer_partition(train[:, 0], train[:, 1], large.num_drugs,
+                                 8)
+
+    def i32(a):
+        return torch.as_tensor(np.asarray(a, np.int32))
+
+    out["shard"] = dict(n_src=plan.ext_size, n_out=plan.node_block,
+                        src=i32(plan.edge_src[0]), dst=i32(plan.edge_dst[0]),
+                        perm=i32(plan.src_perm[0]),
+                        ssorted=i32(plan.src_sorted[0]))
+    tr = chip_smoke.config4_trainer(dev, large)
     d = tr.dsampler
     tr.init(SEED)
     cb, _ = d.sample(tr._dev_consts, d.key_at(0, 0))
@@ -173,7 +214,14 @@ def new_cases(dev, path: Path):
     import torch
 
     from bignn_tpu_torch import ops
-    from chip_smoke import index_add_call
+
+    # the yardsticks of this checkout's chip_smoke.py, whatever ROOT is timed
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_here", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    index_add_call, multihead_library = (smoke.index_add_call,
+                                         smoke.multihead_library)
 
     inp = torch.load(path)
     out = []
@@ -233,23 +281,53 @@ def new_cases(dev, path: Path):
                     lambda s=stacked, d=dst: d.copy_(s.transpose(0, 1)),
                     0.0))
 
-    gen = torch.Generator(device=dev).manual_seed(40)
-    alpha = ops.segment_softmax_plain(
-        3 * torch.randn(e, 4, device=dev, generator=gen), o["dst"], n)
-    v, g = randn(41, n, 4, 32), randn(42, n, 4, 32)
-    fwd = (v, o["src"], o["dst"], alpha, n)
-    bwd = (*fwd, g, o["perm"], o["ssorted"])
-    out.append(("spmm_multihead:f32", lambda: ops.spmm_multihead(*fwd),
-                lambda: ops.spmm_multihead_plain(*fwd), None, F32_TOL))
-    out.append(("spmm_multihead_bwd:f32",
-                lambda: ops.spmm_multihead_bwd(*bwd),
-                lambda: ops.spmm_multihead_bwd_plain(*bwd), None, F32_TOL))
+    def multihead(tag, seed, o, n_src, n_out, dtype, tol, forward=True):
+        """The multi-head SpMM (H 4, D 32) over the edges of ``o``: alpha a
+        softmax over dst of random scores; the library calls of
+        ``chip_smoke.multihead_library``."""
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        alpha = ops.segment_softmax_plain(3 * torch.randn(
+            len(o["dst"]), 4, device=dev, generator=gen), o["dst"],
+            n_out).to(dtype)
+        v = randn(seed + 1, n_src, 4, 32, dtype=dtype)
+        g = randn(seed + 2, n_out, 4, 32, dtype=dtype)
+        fwd = (v, o["src"], o["dst"], alpha, n_out)
+        IN_BYTES[f"spmm_multihead:{tag}"] = nbytes(v, o["src"], o["dst"],
+                                                   alpha)
+        IN_BYTES[f"spmm_multihead_bwd:{tag}"] = nbytes(
+            v, o["dst"], alpha, g, *(o[k] for k in ("perm", "ssorted")
+                                     if k in o))
+        if forward:
+            out.append((f"spmm_multihead:{tag}",
+                        lambda: ops.spmm_multihead(*fwd),
+                        lambda: ops.spmm_multihead_plain(*fwd),
+                        multihead_library(o["src"], o["dst"], alpha, n_out,
+                                          v), tol))
+        if "perm" in o:
+            bwd = (*fwd, g, o["perm"], o["ssorted"])
+            out.append((f"spmm_multihead_bwd:{tag}",
+                        lambda: ops.spmm_multihead_bwd(*bwd),
+                        lambda: ops.spmm_multihead_bwd_plain(*bwd),
+                        multihead_library(o["src"], o["dst"], alpha, n_out,
+                                          v, g), tol))
+
+    multihead("f32", 40, o, n, n, torch.float32, F32_TOL)
+    sh = {k: v.to(dev) if torch.is_tensor(v) else v
+          for k, v in inp["shard"].items()}
+    multihead("f32:shard", 50, sh, sh["n_src"], sh["n_out"], torch.float32,
+              F32_TOL, forward=False)
+    multihead("bf16", 60, o4, o4["n"], o4["n"], torch.bfloat16, BF16_TOL)
+    big = {k: v.to(dev) if torch.is_tensor(v) else v
+           for k, v in inp["outer100k"].items()}
+    multihead("f32:100k", 70, big, big["n"], big["n"], torch.float32,
+              F32_TOL)
     return out
 
 
 def cases(dev):
-    """(name, kernel call, plain call, None, tolerance) for rows 5-7 in
-    float32."""
+    """(name, kernel call, plain call, library call, tolerance) for rows
+    5-7: the segment max (no library call), the sorted-COO SpMM in float32,
+    and the block-local SpMM in float32 and bf16."""
     import torch
 
     from bignn_tpu_torch import ops
@@ -269,41 +347,68 @@ def cases(dev):
     b = largest(bucket_graphs(load_dataset(
         "drugbank", max_atoms=160).molecules)).to(dev)
     n = b.node_cap
+    real = b.edge_dst < n
     for w, feat, form in ((None, 128, ""), (b.edge_weight, 64, ":weighted")):
         xs = torch.randn(n, feat, device=dev, generator=gen)
         gs = torch.randn(n, feat, device=dev, generator=gen)
         fwd = (xs, b.edge_src, b.edge_dst, w, n)
         bwd = (gs, b.edge_src, b.edge_dst, w, n, b.edge_src_perm,
                b.edge_src_sorted)
+        # the library: torch.sparse.mm on the CSR matrix and its transpose,
+        # as chip_smoke.spmm_kernels builds them
+        vals = torch.ones(int(real.sum()), device=dev) if w is None else (
+            w[real])
+        ij = torch.stack([b.edge_dst[real], b.edge_src[real]]).long()
+        csr, csr_t = (torch.sparse_coo_tensor(m, vals, (n, n)).coalesce(
+            ).to_sparse_csr() for m in (ij, ij.flip(0)))
         out.append((f"spmm_sorted_coo:f32{form}",
                     lambda fwd=fwd: ops.spmm_sorted_coo(*fwd),
-                    lambda fwd=fwd: ops.spmm_sorted_coo_plain(*fwd), None,
-                    F32_TOL))
+                    lambda fwd=fwd: ops.spmm_sorted_coo_plain(*fwd),
+                    lambda a=csr, x=xs: torch.sparse.mm(a, x), F32_TOL))
         out.append((f"spmm_sorted_coo_bwd:f32{form}",
                     lambda bwd=bwd: ops.spmm_sorted_coo_bwd(*bwd),
                     lambda bwd=bwd: ops.spmm_sorted_coo_bwd_plain(*bwd),
-                    None, F32_TOL))
+                    lambda a=csr_t, x=gs: torch.sparse.mm(a, x), F32_TOL))
 
     b = largest(bucket_graphs(load_dataset(
         "synthetic-large", num_drugs=16384).molecules)).to(dev)
     n = b.node_cap
-    xb = torch.randn(n, 128, device=dev, generator=gen)
-    gb = torch.randn(n, 128, device=dev, generator=gen)
-    for w, tw, form in ((None, None, ""),
-                        (b.edge_weight, b.edge_tweight, ":weighted")):
+    x32 = torch.randn(n, 128, device=dev, generator=gen)
+    g32 = torch.randn(n, 128, device=dev, generator=gen)
+    for (t, dtype, tol), (w, tw, form) in itertools.product(
+            (("f32", torch.float32, F32_TOL),
+             ("bf16", torch.bfloat16, BF16_TOL)),
+            ((None, None, ""), (b.edge_weight, b.edge_tweight,
+                                ":weighted"))):
+        xb, gb = x32.to(dtype), g32.to(dtype)
         fwd = (xb, b.edge_src, b.edge_dst, w, b.block_estarts, b.edge_tsrc,
                b.edge_tdst, tw, b.block_tstarts, n)
         bwd = (gb, b.edge_tsrc, b.edge_tdst, tw, b.block_tstarts, n)
-        out.append((f"block_spmm:f32{form}",
+        # the library: torch.bmm over the dense blocks in the form's type,
+        # as chip_smoke.block_spmm_kernels builds them
+        # the real rows and the real edges (the padding edges come last)
+        rows = int(b.node_mask.sum())
+        e_real = int((b.edge_dst < n).sum())
+        wbytes = 0 if w is None else nbytes(w[:e_real])
+        IN_BYTES[f"block_spmm:{t}{form}"] = nbytes(
+            xb[:rows], b.edge_src[:e_real], b.edge_dst[:e_real],
+            b.block_estarts) + wbytes
+        IN_BYTES[f"block_spmm_bwd:{t}{form}"] = nbytes(
+            gb[:rows], b.edge_tsrc[:e_real], b.edge_tdst[:e_real],
+            b.block_tstarts) + wbytes
+        blocks = ops.block_adjacency_plain(b.edge_src, b.edge_dst, w,
+                                           n).to(dtype)
+        blocks_t = blocks.transpose(1, 2).contiguous()
+        out.append((f"block_spmm:{t}{form}",
                     lambda fwd=fwd: ops.block_spmm(*fwd),
-                    lambda w=w: ops.block_spmm_plain(
-                        xb, b.edge_src, b.edge_dst, w, num_nodes=n), None,
-                    F32_TOL))
-        out.append((f"block_spmm_bwd:f32{form}",
+                    lambda w=w, xb=xb: ops.block_spmm_plain(
+                        xb, b.edge_src, b.edge_dst, w, num_nodes=n),
+                    lambda a=blocks, x=xb: ops.block_diag_spmm(a, x), tol))
+        out.append((f"block_spmm_bwd:{t}{form}",
                     lambda bwd=bwd: ops.block_spmm_bwd(*bwd),
                     lambda bwd=bwd: ops.block_spmm_plain(*bwd[:4],
                                                          num_nodes=n),
-                    None, F32_TOL))
+                    lambda a=blocks_t, x=gb: ops.block_diag_spmm(a, x), tol))
     return out
 
 
@@ -334,13 +439,16 @@ def run_one(root: str, inputs: Path) -> dict:
         for name, kernel, plain, library, tol in (new_cases(dev, inputs)
                                                   + cases(dev)):
             err = 0.0
-            for a, b in zip(_tensors(kernel()), _tensors(plain()),
-                            strict=True):
+            got = _tensors(kernel())
+            for a, b in zip(got, _tensors(plain()), strict=True):
                 e = (a.float() - b.float()).abs().max().item()
                 err = max(err, e)
                 if not e <= tol * max(1.0, b.float().abs().max().item()):
                     raise AssertionError(f"{name}: max_abs_err {e} off plain")
             row = dict(max_abs_err=err)
+            if name in IN_BYTES:
+                row["bound_ms"] = ((IN_BYTES[name] + nbytes(*got))
+                                   / HBM_BYTES_PER_S * 1e3)
             for tag, fn in (("", kernel), ("lib_", library)):
                 if fn is None:
                     continue

@@ -198,6 +198,55 @@ def _edge_list(rng, n, e, pad=37, sort=True):
     return src, dst, perm, src[perm]
 
 
+def _mh_hard_cases(rng, device, dtype, tag):
+    """The multi-head SpMM on inputs its backward finds hard, in ``dtype``
+    (case names ``spmm_multihead{,_bwd}{tag}_<case>``): ``hub``, a source
+    with 100,000 edges among short ones (a block's warps share it; g is
+    positive, so its 100,000-term sums do not cancel), backward only;
+    ``empty``, no edges; ``unaligned``, v and g as views 4 (f32) or 2
+    (bf16) bytes off 16 (single values, not 16-byte words); H 4, D 32."""
+    n, heads, head_dim = 300, 4, 32
+    cases = {}
+    src, dst, _, _ = _edge_list(rng, n, 3000)
+    src = np.concatenate([src, np.full(100_000, 5, np.int32)])
+    dst = np.concatenate([dst, rng.integers(0, n - 3, 100_000).astype(
+        np.int32)])
+    order = np.argsort(dst, kind="stable")  # the padding stays last
+    src, dst = src[order], dst[order]
+    perm = np.argsort(src, kind="stable").astype(np.int32)
+    v, alpha, g = (rng.standard_normal((n, heads, head_dim)),
+                   rng.random((len(src), heads)),
+                   rng.random((n, heads, head_dim)) + 0.5)
+    ids = _on(device, src, dst, perm, src[perm])
+    v, alpha, g = (x.to(dtype) for x in _on(
+        device, *(a.astype(np.float32) for a in (v, alpha, g))))
+    cases[f"spmm_multihead_bwd{tag}_hub"] = (
+        lambda: ops.spmm_multihead_bwd(v, ids[0], ids[1], alpha, n, g,
+                                       ids[2], ids[3]),
+        lambda: ops.spmm_multihead_bwd_plain(v, ids[0], ids[1], alpha, n, g))
+    none = torch.zeros(0, dtype=torch.int32, device=device)
+    a0 = torch.zeros(0, heads, dtype=dtype, device=device)
+    for name, args, sort in (
+            ("empty", (v, none, none, a0, n), (none, none)),
+            ("unaligned", (_off16(v), ids[0], ids[1], alpha, n),
+             (ids[2], ids[3]))):
+        gg = _off16(g) if name == "unaligned" else g
+        cases[f"spmm_multihead{tag}_{name}"] = (
+            lambda a=args: ops.spmm_multihead(*a),
+            lambda a=args: ops.spmm_multihead_plain(*a))
+        cases[f"spmm_multihead_bwd{tag}_{name}"] = (
+            lambda a=args, g=gg, s=sort: ops.spmm_multihead_bwd(*a, g, *s),
+            lambda a=args, g=gg: ops.spmm_multihead_bwd_plain(*a, g))
+    return cases
+
+
+def _off16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` copied into a contiguous view one element past the start of its
+    storage, so that it does not start on 16 bytes."""
+    flat = torch.cat([t.new_zeros(1), t.flatten()])
+    return flat[1:].view(t.shape)
+
+
 def _sparse_cases(device):
     """name -> (kernel call, plain call) for the sparse-outer GAT kernels,
     on small inputs on ``device``."""
@@ -228,7 +277,9 @@ def _sparse_cases(device):
         lambda: ops.segment_softmax_plain(x1, ids1, 30))
     for tag, n, e, heads, head_dim, sort in (
             ("h4d32", 80, 1500, 4, 32, True), ("h8d32", 40, 600, 8, 32, True),
-            ("h2d3", 30, 300, 2, 3, True), ("unsorted", 40, 500, 4, 8, False)):
+            ("h2d3", 30, 300, 2, 3, True), ("unsorted", 40, 500, 4, 8, False),
+            ("h1d32", 60, 600, 1, 32, True), ("h1d3", 30, 300, 1, 3, True),
+            ("h4d3", 30, 300, 4, 3, True), ("h8d3", 30, 300, 8, 3, True)):
         src, dst, perm, ssorted = _on(device, *_edge_list(rng, n, e,
                                                           sort=sort))
         v, alpha, g = _on(device, rng.standard_normal(
@@ -246,6 +297,8 @@ def _sparse_cases(device):
     cases["spmm_multihead_bwd_argsort"] = (
         lambda a=args, g=g: ops.spmm_multihead_bwd(*a, g),
         lambda a=args, g=g: ops.spmm_multihead_bwd_plain(*a, g))
+    cases.update(_mh_hard_cases(np.random.default_rng(13), device,
+                                torch.float32, ""))
     src, dst, perm, ssorted = _on(device, *_edge_list(rng, 40, 400))
     (table,) = _on(device, rng.standard_normal((len(src), 4)).astype(
         np.float32))
@@ -259,14 +312,16 @@ def _sparse_cases(device):
     return cases
 
 
+MH_TAGS = ("h4d32", "h8d32", "h2d3", "unsorted", "h1d32", "h1d3", "h4d3",
+           "h8d3")
 SPARSE_CASES = [
     *(f"segment_softmax_{t}" for t in ("sorted_h4", "holes_h8", "shuffled_h1",
                                        "1d")),
     *(f"segment_softmax_bwd_{t}" for t in ("sorted_h4", "holes_h8",
                                            "shuffled_h1")),
-    *(f"spmm_multihead_{t}" for t in ("h4d32", "h8d32", "h2d3", "unsorted")),
-    *(f"spmm_multihead_bwd_{t}" for t in ("h4d32", "h8d32", "h2d3",
-                                          "unsorted", "argsort")),
+    *(f"spmm_multihead_{t}" for t in MH_TAGS + ("empty", "unaligned")),
+    *(f"spmm_multihead_bwd_{t}" for t in MH_TAGS + (
+        "argsort", "hub", "empty", "unaligned")),
     "gather_bwd_sorted", "gather_bwd_perm"]
 
 
@@ -449,6 +504,7 @@ def test_sparse_kernels_repeat_bit_for_bit_and_count(cuda_device):
                           "segment_softmax_bwd_sorted_h4"),
                          ("spmm_multihead", "spmm_multihead_h4d32"),
                          ("spmm_multihead_bwd", "spmm_multihead_bwd_h4d32"),
+                         ("spmm_multihead_bwd", "spmm_multihead_bwd_hub"),
                          ("gather_rows_sorted_grad_bwd", "gather_bwd_perm")):
         op = getattr(ops, name)
         before = op.launches
@@ -670,7 +726,9 @@ def _dtype_cases(device):
                 ops.segment_softmax_bwd_plain(a, g, i, n))
     for tag, n, e, heads, head_dim, sort in (
             ("h4d32", 80, 1500, 4, 32, True), ("h2d3", 30, 300, 2, 3, True),
-            ("unsorted", 40, 500, 4, 8, False)):
+            ("unsorted", 40, 500, 4, 8, False),
+            ("h1d32", 60, 600, 1, 32, True), ("h8d32", 40, 600, 8, 32, True),
+            ("h8d3", 30, 300, 8, 3, True)):
         src, dst, perm, ssorted = _on(device, *_edge_list(rng, n, e,
                                                           sort=sort))
         v, alpha, g = _on(device, rng.standard_normal(
@@ -686,6 +744,11 @@ def _dtype_cases(device):
             lambda a=args, g=g, p=perm, s=ssorted: ops.spmm_multihead_bwd(
                 *a, g, p, s),
             lambda a=args, g=g: ops.spmm_multihead_bwd_plain(*a, g))
+    cases["spmm_multihead_bwd_bf16_argsort"] = (
+        lambda a=args, g=g: ops.spmm_multihead_bwd(*a, g),
+        lambda a=args, g=g: ops.spmm_multihead_bwd_plain(*a, g))
+    cases.update(_mh_hard_cases(np.random.default_rng(14), device, bf,
+                                "_bf16"))
     src, dst, perm, ssorted = _on(device, *_edge_list(rng, 40, 400))
     (table,) = _on(device, rng.standard_normal((len(src), 4)).astype(
         np.float32))
@@ -707,7 +770,9 @@ DTYPE_CASES = [
     *(f"segment_softmax{b}_bf16_{t}" for b in ("", "_bwd")
       for t in ("holes_h4", "shuffled_h3")),
     *(f"spmm_multihead{b}_bf16_{t}" for b in ("", "_bwd")
-      for t in ("h4d32", "h2d3", "unsorted")),
+      for t in ("h4d32", "h2d3", "unsorted", "h1d32", "h8d32", "h8d3",
+                "empty", "unaligned")),
+    "spmm_multihead_bwd_bf16_argsort", "spmm_multihead_bwd_bf16_hub",
     "gather_bwd_bf16_sorted", "gather_bwd_bf16_perm"]
 
 
@@ -768,6 +833,7 @@ def test_dtype_kernels_repeat_bit_for_bit_and_count_by_dtype(cuda_device):
              "bf16"),
             ("spmm_multihead", "spmm_multihead_bf16_h4d32", "bf16"),
             ("spmm_multihead_bwd", "spmm_multihead_bwd_bf16_h4d32", "bf16"),
+            ("spmm_multihead_bwd", "spmm_multihead_bwd_bf16_hub", "bf16"),
             ("gather_rows_sorted_grad_bwd", "gather_bwd_bf16_perm", "bf16")):
         fn = getattr(ops, op)
         before = fn.launches_by_dtype.get(key, 0)
@@ -834,9 +900,22 @@ def _streaming_cases(device):
     cases["spmm_bwd_argsort_f32"] = (  # no source-sort arrays: one sort
         lambda a=(g, src, dst, None, n): ops.spmm_sorted_coo_bwd(*a),
         lambda a=(g, src, dst, None, n): ops.spmm_sorted_coo_bwd_plain(*a))
-    for feat in (128, 32, 3):
+    def block_cases(tag, feat, dense, bf16_only):
         bsrc, bdst, best, bn = _block_local_edges(rng, 4)
         bsrc[5] = (bsrc[5] + 200) % bn  # a source outside its block: dropped
+        if dense:  # block 2 every (d, s) pair; block 3 one pair 300 times
+            every = np.arange(256, 384)
+            real = bdst < bn
+            bsrc = np.concatenate([bsrc[real], np.tile(every, 128),
+                                   np.full(300, 3 * 128 + 9)])
+            bdst = np.concatenate([bdst[real], np.repeat(every, 128),
+                                   np.full(300, 3 * 128 + 100)])
+            o = np.argsort(bdst, kind="stable")
+            bsrc = np.concatenate([bsrc[o], np.zeros(100)]).astype(np.int32)
+            bdst = np.concatenate([bdst[o], np.full(100, bn)]).astype(
+                np.int32)
+            best = np.searchsorted(bdst, np.arange(0, bn + 1, 128)).astype(
+                np.int32)
         order = np.argsort(bsrc, kind="stable")
         real = bdst < bn
         tdst = np.where(real[order], bsrc[order], bn).astype(np.int32)
@@ -849,18 +928,22 @@ def _streaming_cases(device):
         t = _on(device, bsrc, bdst, best, tsrc, tdst, tst, w, w[order][tord],
                 rng.standard_normal((bn, feat)).astype(np.float32))
         s_, d_, e_, ts_, td_, tt_, w_, tw_, x32 = t
-        forms = [("", x32)] + ([("_bf16", x32.to(bf))] if feat != 32 else [])
+        forms = ([] if bf16_only else [("", x32)]) + (
+            [("_bf16", x32.to(bf))] if feat != 32 else [])
         for (dt, xb), (wt, twt, wname) in itertools.product(
                 forms, ((None, None, ""), (w_, tw_, "_weighted"))):
-            cases[f"block_spmm{wname}{dt}_f{feat}"] = (
+            cases[f"block_spmm{wname}{dt}_{tag}"] = (
                 lambda a=(xb, s_, d_, wt, e_, ts_, td_, twt, tt_, bn):
                     ops.block_spmm(*a),
                 lambda a=(xb, s_, d_, wt): ops.block_spmm_plain(
                     *a, num_nodes=bn))
-            cases[f"block_spmm_bwd{wname}{dt}_f{feat}"] = (
+            cases[f"block_spmm_bwd{wname}{dt}_{tag}"] = (
                 lambda a=(xb, ts_, td_, twt, tt_, bn): ops.block_spmm_bwd(*a),
                 lambda a=(xb, ts_, td_, twt): ops.block_spmm_plain(
                     *a, num_nodes=bn))
+
+    for feat in (128, 32, 3):
+        block_cases(f"f{feat}", feat, False, False)
     for tag, n_seg, ids, feat in (
             ("holes_f128", 60, _hole_ids(rng, 60), 128),
             ("holes_f130", 60, _hole_ids(rng, 60), 130),
@@ -880,19 +963,27 @@ def _streaming_cases(device):
                  np.sort(rng.integers(0, 30, 300)).astype(np.int32))
     cases["segment_max_1d"] = (lambda: ops.segment_max(x1, i1, 30),
                                lambda: ops.segment_max_plain(x1, i1, 30))
+    # the bf16 tensor-core widths: one n-tile pair (8), whole chunks (64,
+    # 256: two), a chunk and a tail (136); a dense block and a repeated pair
+    for feat in BLOCK_BF16_FEATS:
+        block_cases(f"f{feat}", feat, False, True)
+    block_cases("dense", 128, True, False)
     return cases
 
 
 STREAMING_BF16_TAGS = ("f128", "f64", "f3", "f130", "unsorted_f32")
+BLOCK_BF16_FEATS = (8, 64, 136, 256)
 STREAMING_CASES = [
     *(f"spmm{b}{w}_{t}" for b in ("", "_bwd") for w in ("", "_weighted")
       for t in ("f128", "f64", "f32", "f3", "f130", "f256", "unsorted_f32")),
     *(f"spmm{b}{w}_bf16_{t}" for b in ("", "_bwd") for w in ("", "_weighted")
       for t in STREAMING_BF16_TAGS),
     "spmm_bwd_argsort_f32",
-    *(f"block_spmm{b}{w}{d}_f{f}" for b in ("", "_bwd")
-      for w in ("", "_weighted") for d in ("", "_bf16") for f in (128, 32, 3)
-      if not (d and f == 32)),
+    *(f"block_spmm{b}{w}{d}_{t}" for b in ("", "_bwd")
+      for w in ("", "_weighted") for d in ("", "_bf16")
+      for t in ("f128", "f32", "f3", "dense") if not (d and t == "f32")),
+    *(f"block_spmm{b}{w}_bf16_f{f}" for b in ("", "_bwd")
+      for w in ("", "_weighted") for f in BLOCK_BF16_FEATS),
     *(f"segment_max_{t}" for t in ("holes_f128", "holes_f130", "shuffled_f8",
                                    "1d")),
     "segment_max_bf16_holes_f128", "segment_max_bf16_holes_f130"]
@@ -952,6 +1043,8 @@ def test_streaming_kernels_repeat_bit_for_bit_and_count(cuda_device):
             ("spmm_sorted_coo_bwd", "spmm_bwd_weighted_bf16_f3",
              "bf16:weighted"),
             ("block_spmm", "block_spmm_bf16_f128", "bf16"),
+            ("block_spmm", "block_spmm_bf16_dense", "bf16"),
+            ("block_spmm_bwd", "block_spmm_bwd_bf16_f136", "bf16"),
             ("block_spmm", "block_spmm_weighted_bf16_f128", "bf16:weighted"),
             ("block_spmm_bwd", "block_spmm_bwd_bf16_f3", "bf16"),
             ("block_spmm_bwd", "block_spmm_bwd_weighted_bf16_f128",

@@ -136,14 +136,35 @@ def test_segment_softmax_plain_autograd_equals_analytic_vjp():
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("backend", ["xla", "pallas_interpret"])
-@pytest.mark.parametrize("precomputed", [True, False])
-def test_spmm_multihead_fwd_and_vjp_match_jax(backend, precomputed):
-    rng = np.random.default_rng(2)
-    n, e, h, d = 40, 500, 4, 8
+def _mh_params():
+    """(backend, precomputed, shape): 4 heads of 8 through both backends,
+    with and without the source-sort arrays; through ``xla``, a hub source
+    (source 7 on 1,000 more edges, so the card's backward shares it among a
+    block's warps) and 1 and 8 heads."""
+    return [pytest.param(b, p, "h4", id=f"{p}-{b}")
+            for p in (True, False) for b in ("xla", "pallas_interpret")] + [
+        pytest.param("xla", True, s, id=f"{s}-xla")
+        for s in ("hub", "h1", "h8")]
+
+
+def _mh_edges(rng, n, e, shape):
     src, dst = _edges(rng, n, e)
+    if shape != "hub":
+        return src, dst
+    src = np.concatenate([src, np.full(1000, 7, np.int32)])
+    dst = np.concatenate([dst, rng.integers(0, n - 3, 1000).astype(np.int32)])
+    order = np.argsort(dst, kind="stable")  # the padding stays last
+    return src[order], dst[order]
+
+
+@pytest.mark.parametrize("backend, precomputed, shape", _mh_params())
+def test_spmm_multihead_fwd_and_vjp_match_jax(backend, precomputed, shape):
+    rng = np.random.default_rng(2)
+    n, e = 40, 500
+    h, d = {"h1": (1, 8), "h8": (8, 4)}.get(shape, (4, 8))
+    src, dst = _mh_edges(rng, n, e, shape)
     v = rng.standard_normal((n, h, d)).astype(np.float32)
-    alpha = rng.random((e + 37, h)).astype(np.float32)
+    alpha = rng.random((len(src), h)).astype(np.float32)
     g = rng.standard_normal((n, h, d)).astype(np.float32)
     kw = {}
     if precomputed:

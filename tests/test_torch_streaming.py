@@ -195,17 +195,25 @@ def test_spmm_sorted_coo_fwd_and_vjp_match_jax(backend, weighted,
 # ---------------------------------------------------------------------------
 
 
-def _block_plan(rng, nblk, f):
+def _block_plan(rng, nblk, f, dense=False):
     """A block-local edge list over ``nblk`` 128-row blocks with its
     transposed plan, as ``build_padded_batch`` lays them out, plus one edge
     whose source lies in another block and another 512-row TPU program (so
-    both packages drop it), and padding edges."""
+    both packages drop it), and padding edges. ``dense``: block 2 also holds
+    every (d, s) pair once, and block 3 one pair 300 times (a count that
+    bf16 holds exactly only as 256 + 44)."""
     n = nblk * 128
     src, dst = [], []
     for b in range(nblk):
         k = int(rng.integers(20, 200))
         src.append(rng.integers(b * 128, (b + 1) * 128, k))
         dst.append(rng.integers(b * 128, (b + 1) * 128, k))
+    if dense:
+        every = np.arange(2 * 128, 3 * 128)
+        src.append(np.tile(every, 128))
+        dst.append(np.repeat(every, 128))
+        src.append(np.full(300, 3 * 128 + 9))
+        dst.append(np.full(300, 3 * 128 + 100))
     src.append([5])  # block 0 -> block 4
     dst.append([4 * 128 + 7])
     src, dst = np.concatenate(src), np.concatenate(dst)
@@ -229,16 +237,20 @@ def _block_plan(rng, nblk, f):
     return plan, x, n
 
 
-@pytest.mark.parametrize("weighted, bf16", _cases(
-    [(False,), (True,)], [(False,), (True,)]))
-def test_block_spmm_fwd_and_vjp_match_jax(weighted, bf16):
+@pytest.mark.parametrize("weighted, bf16, dense", [
+    *(pytest.param(*c.values, False, id=c.id) for c in _cases(
+        [(False,), (True,)], [(False,), (True,)])),
+    pytest.param(False, True, True, id="dense-bf16")])
+def test_block_spmm_fwd_and_vjp_match_jax(weighted, bf16, dense):
     """Against JAX's ``block_spmm`` in interpret mode (forward, and its VJP:
     the same kernel on the transposed plan, ``d_w`` a per-edge dot), on 5
     blocks with an out-of-block edge that both drop; the plain version
     agrees, and ``spmm_sorted_coo`` with the plan routes to it. In bf16
-    (float32 weights): forward, ``d_x`` and the kept edges' ``d_w``."""
+    (float32 weights): forward, ``d_x`` and the kept edges' ``d_w``; and,
+    unweighted, with a fully dense block and a pair repeated 300 times (the
+    card's tensor-core product splits that count)."""
     rng = np.random.default_rng(1)
-    plan, x, n = _block_plan(rng, 5, 16)
+    plan, x, n = _block_plan(rng, 5, 16, dense)
     g = rng.standard_normal(x.shape).astype(np.float32)
     j = {k: jnp.asarray(v) for k, v in plan.items()}
     if bf16:
