@@ -4,9 +4,12 @@
 //
 // Every sum runs in float32 whatever the stored type: a value is widened
 // with to_f32 when it is loaded and narrowed once, with round-to-nearest-even
-// (__float2bfloat16_rn), when it is stored (from_f32). bf16 rows of an even
-// width are read two values at a time (__nv_bfloat162, 4 bytes), which
-// needs the row to start on a 4-byte boundary: an even row width does that.
+// (__float2bfloat16_rn), when it is stored (from_f32). A row read a word of
+// several values at a time (a bf16 pair, a 16-byte word) must start on that
+// word: the row's width and the tensor's base pointer must both allow it,
+// and the host checks both before it picks the wider load (word_values, or
+// the kernel's own check of width and pointers). An even width alone says
+// nothing of a view that starts 2 bytes off.
 
 #pragma once
 
@@ -55,40 +58,6 @@ __device__ __forceinline__ float load1(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
 }
 __device__ __forceinline__ float load1(const float* p) { return __ldg(p); }
-
-// row[0 .. n) into out[0 .. n) as floats, n <= N; pairs when n is even (a
-// row of an odd width may start off a 4-byte boundary).
-template <int N, class T>
-__device__ __forceinline__ void load_row(const T* row, int n, float* out) {
-  if ((n & 1) == 0) {
-#pragma unroll
-    for (int h = 0; h < N; h += 2) {
-      if (h < n) {
-        const float2 v = load2(row + h);
-        out[h] = v.x;
-        out[h + 1] = v.y;
-      }
-    }
-  } else {
-#pragma unroll
-    for (int h = 0; h < N; ++h)
-      if (h < n) out[h] = load1(row + h);
-  }
-}
-
-// out[0 .. n) = v[0 .. n), narrowed to T; pairs when n is even.
-template <int N, class T>
-__device__ __forceinline__ void store_row(T* out, int n, const float* v) {
-  if ((n & 1) == 0) {
-#pragma unroll
-    for (int h = 0; h < N; h += 2)
-      if (h < n) store2(out + h, v[h], v[h + 1]);
-  } else {
-#pragma unroll
-    for (int h = 0; h < N; ++h)
-      if (h < n) out[h] = from_f32<T>(v[h]);
-  }
-}
 
 // x rounded to T and widened back: the value a product takes when it is
 // stored in T (identity for float32).
@@ -211,6 +180,51 @@ __device__ __forceinline__ W pack_word(const float (&v)[NV]) {
   return w;
 }
 
+// row[0 .. n) into out[0 .. n) as floats, n <= N, read a word of NV values
+// at a time: NV divides n and the row starts on NV * sizeof(T) bytes (the
+// host's word_values checks both).
+template <int N, int NV, class T>
+__device__ __forceinline__ void load_row(const T* row, int n, float* out) {
+  using W = typename Word<NV * static_cast<int>(sizeof(T))>::type;
+#pragma unroll
+  for (int h = 0; h < N; h += NV) {
+    if (h < n) {
+      float f[NV];
+      unpack_word<T, NV>(__ldg(reinterpret_cast<const W*>(row + h)), f);
+#pragma unroll
+      for (int i = 0; i < NV; ++i) out[h + i] = f[i];
+    }
+  }
+}
+
+// row[0 .. n) = v[0 .. n), narrowed to T, a word of NV values at a time (as
+// load_row).
+template <int N, int NV, class T>
+__device__ __forceinline__ void store_row(T* row, int n, const float* v) {
+  using W = typename Word<NV * static_cast<int>(sizeof(T))>::type;
+#pragma unroll
+  for (int h = 0; h < N; h += NV) {
+    if (h < n) {
+      float f[NV];
+#pragma unroll
+      for (int i = 0; i < NV; ++i) f[i] = v[h + i];
+      *reinterpret_cast<W*>(row + h) = pack_word<T, NV, W>(f);
+    }
+  }
+}
+
+// The values of T a word holds for rows of n values whose bases are the
+// bits of addr (the OR of every tensor's base pointer the kernel reads or
+// writes by rows): the widest power of two NV <= 16 / sizeof(T) that
+// divides n with every base on NV * sizeof(T) bytes, so that every row
+// starts on a word.
+template <class T>
+inline int word_values(int n, uintptr_t addr) {
+  int nv = 16 / static_cast<int>(sizeof(T));
+  while (nv > 1 && (n % nv != 0 || addr % (nv * sizeof(T)) != 0)) nv /= 2;
+  return nv;
+}
+
 // log2 of the lanes a row of m words takes (a row slot, segment_sum.cu):
 // m rounded up to a power of two.
 __host__ __device__ __forceinline__ int slot_log2(int m) {
@@ -219,8 +233,9 @@ __host__ __device__ __forceinline__ int slot_log2(int m) {
   return lg;
 }
 
-// True when rows of n values of T may be read as pairs: always false for
-// float32 (its pair load is two loads anyway), even n for bf16.
+// True when rows of n values of T may be read as pairs as far as the width
+// goes: always false for float32 (its pair load is two loads anyway), even
+// n for bf16. The caller checks the base pointer on 4 bytes as well.
 template <class T>
 inline bool pairs_ok(int n);
 template <>

@@ -36,19 +36,31 @@ __global__ void init_bounds(int* first, int* last, int num_segments,
   }
 }
 
-// blockDim.x is a multiple of 32, so every warp is whole for the shuffles.
-__global__ void find_bounds(const int* __restrict__ ids, int num_rows,
-                            int num_segments, int* first, int* last) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+// The bounds work of row e. Every lane of a whole warp calls it (the
+// shuffles), with e = blockIdx.x * blockDim.x + threadIdx.x. Returns whether
+// row e exists and its id is dropped.
+__device__ __forceinline__ bool bounds_of_row(const int* __restrict__ ids,
+                                              int e, int num_rows,
+                                              int num_segments, int* first,
+                                              int* last) {
   const int lane = threadIdx.x % 32;
   const int s = e < num_rows ? ids[e] : -1;
   int prev = __shfl_up_sync(0xffffffffu, s, 1);
   int next = __shfl_down_sync(0xffffffffu, s, 1);
-  if (e >= num_rows || s < 0 || s >= num_segments) return;  // padding dropped
+  if (e >= num_rows) return false;
+  if (s < 0 || s >= num_segments) return true;  // padding: dropped
   if (lane == 0 && e > 0) prev = ids[e - 1];
   if (lane == 31 && e + 1 < num_rows) next = ids[e + 1];
   if (e == 0 || prev != s) atomicMin(first + s, e);
   if (e == num_rows - 1 || next != s) atomicMax(last + s, e);
+  return false;
+}
+
+// blockDim.x is a multiple of 32, so every warp is whole for the shuffles.
+__global__ void find_bounds(const int* __restrict__ ids, int num_rows,
+                            int num_segments, int* first, int* last) {
+  bounds_of_row(ids, blockIdx.x * blockDim.x + threadIdx.x, num_rows,
+                num_segments, first, last);
 }
 
 inline int cdiv(int a, int b) { return (a + b - 1) / b; }

@@ -15,7 +15,8 @@
 //   2. max: one warp per segment walks [first, last] in row order, skips the
 //      rows of other segments (holes), and keeps a running max in registers,
 //      lanes across F (columns lane + 32 k, 128 a sweep; bf16 rows of an
-//      even width as pairs, 2 lane + 64 j). One store a value.
+//      even width as pairs, 2 lane + 64 j, where data and out start on 4
+//      bytes). One store a value.
 // Its VJP has no kernel of its own: ops/segment.py composes it as the JAX
 // package does (an is-max mask, tie counts by the segment-sum kernel, a
 // gather).
@@ -101,7 +102,11 @@ int segment_max(const void* data, const void* ids, int num_rows, int feat,
       const dim3 block(kWarpsPerBlock * 32);
       const T* d = static_cast<const T*>(data);
       T* o = static_cast<T*>(out);
-      if (bignn::pairs_ok<T>(feat)) {
+      // pairs need every row of data and out on 4 bytes: the width and
+      // both base pointers
+      const uintptr_t addr =
+          reinterpret_cast<uintptr_t>(data) | reinterpret_cast<uintptr_t>(out);
+      if (bignn::pairs_ok<T>(feat) && addr % 4 == 0) {
         max_segments<T, 2><<<grid, block, 0, st>>>(d, id, f, l, num_segments,
                                                    feat, o);
       } else {

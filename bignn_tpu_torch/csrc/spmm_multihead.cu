@@ -15,11 +15,9 @@
 // gathered rows; d_v as a Pallas segment sum of (g[dst] * alpha)[src_perm]
 // over src_sorted). Both write [E, H*D] messages to HBM; here neither
 // direction writes any [E, *] tensor wider than [E, H]:
-//   forward:  one warp per destination walks its edges in edge order (bounds
-//             of segment_bounds.cuh over dst). The warp loads 32 edges' ids
-//             at once, one per lane, and broadcasts them with shuffles; each
-//             lane gathers up to 8 columns (F <= 256) of the row v[src_e]
-//             and accumulates alpha * v in registers.
+//   forward:  the walk over each destination's edges in edge order (bounds
+//             of segment_bounds.cuh over dst): out[d] += alpha[e] * v[src_e]
+//             in registers, written once per destination.
 //   backward: the walk over the source-sorted order (src_perm, src_sorted;
 //             bounds over src_sorted) that gives d_v and d_alpha together:
 //             for each edge e of source s the row g[dst_e] is read once and
@@ -31,48 +29,64 @@
 // bit. Every flat offset is 64-bit.
 //
 // What bounds it on the H100: the row gathers. The forward reads E * F * 4
-// bytes of v rows (8.2 GB for the 100K-drug graph's 16.1M edges at F 128);
-// the backward E * F * 4 of g rows (1.33 GB at 16,384 drugs, E 2.6M), from
-// a [N, F] table that L2 holds (8 MB), against compulsory bytes of 0.14 GB
-// (ids, alpha, d_alpha, v, g and d_v once: 0.0422 ms at 3.35 TB/s). The
-// plain version writes and reads 2 * E * F * 4 bytes of messages. So the
-// gathers are bound by L2's latency and rate, and the backward is laid out
-// to keep many rows in flight:
-//   - Lanes hold 16-byte words (4 f32 or 8 bf16 values) where F and the
+// bytes of v rows (1.33 GB at 16,384 drugs, E 2.6M, F 128; 8.2 GB for the
+// 100K-drug graph's 16.1M edges), the backward as many of g rows, from a
+// [N, F] table that L2 holds at 16,384 drugs (8 MB; 51 MB at 100K, about
+// L2's size), against compulsory bytes of 0.14 GB at E 2.6M (ids, alpha,
+// v and out once: 0.0422 ms at 3.35 TB/s for the backward's). The plain
+// version writes and reads 2 * E * F * 4 bytes of messages. So the gathers
+// are bound by L2's latency and rate, and both directions are laid out to
+// keep many rows in flight:
+//   - Lanes hold 16-byte words (4 f32 or 8 bf16 values) where F, D and the
 //     pointers allow, else single values, in row slots of G lanes as
 //     segment_sum.cu's (G the row's words rounded up to a power of two):
 //     a 128-wide f32 row takes a warp, a 128-wide bf16 row 16 lanes, so a
-//     warp walks two bf16 edges at once.
-//   - Head h's columns are then a group of D / NV consecutive lanes (8 at
-//     D 32 in f32): an edge's d_alpha[e, h] is one butterfly of log2(D /
-//     NV) shuffles over the group, and the groups' first lanes store the H
-//     values in one instruction. (The walk it replaced, lanes over columns
-//     with 4-byte loads, paid H five-step butterflies and an H x 8
-//     head select per edge.) A head that does not split into such a group
-//     (D 3, or single values) takes a per-head butterfly over the slot.
-//   - The warp loads the ids of 32 positions at once, one a lane (src_sorted
-//     and perm together, then dst), and the next 32 while this chunk's rows
-//     load; each slot then loads the g rows (and alpha values) of up to 8
-//     edges before it reduces any, where the walk it replaced had one.
-//   - A block holds 8 sources, a warp each. A source of more than 256
-//     positions is shared by the block's 8 warps, chunk by chunk; their d_v
-//     rows are added in shared memory in warp order. Which sources are long
-//     is read from the bounds on the device, so the host never waits.
-//     synthetic-large's outer graph has at most 244 edges a drug (mean
-//     161), so no source there is long.
+//     warp walks two bf16 edges at once. A slot sums its edges in edge
+//     order, in float32; the slots' partials are added by shuffles in a
+//     fixed order at the end, and rounded once at the store.
+//   - A word lies inside one head, so a lane loads alpha[e, h] once an edge
+//     and word (the walk the forward replaced, lanes over columns with
+//     4-byte loads, loaded it once a column: 8 loads of the same 1-4
+//     values an edge).
+//   - In the backward, head h's columns are a group of D / NV consecutive
+//     lanes (8 at D 32 in f32): an edge's d_alpha[e, h] is one butterfly
+//     of log2(D / NV) shuffles over the group, and the groups' first lanes
+//     store the H values in one instruction. (The walk it replaced paid H
+//     five-step butterflies and an H x 8 head select per edge.) A head
+//     that does not split into such a group (D 3, or single values) takes
+//     a per-head butterfly over the slot.
+//   - The warp loads the ids of 32 positions at once, one a lane (forward:
+//     dst and src together; backward: src_sorted and perm together, then
+//     dst), and the next 32 while this chunk's rows load; each slot then
+//     loads the rows (and alpha values) of up to 4 edges before it adds
+//     any, where the walks they replaced had one row in flight a warp.
+//   - A block holds 8 destinations (forward) or sources (backward), a warp
+//     each. One of more than 256 positions is shared by the block's 8
+//     warps, chunk by chunk; their rows are added in shared memory in warp
+//     order. Which are long is read from the bounds on the device, so the
+//     host never waits. synthetic-large's outer graph has at most 244 edges
+//     a drug (mean 161), so none there is long.
 //   - Measured by scripts/compare_kernel_trees.py (device time of calls
-//     queued back to back; NVIDIA H100 80GB HBM3, 700 W), H 4, D 32: f32 at
-//     16,384 drugs (E 2.6M) 0.410 ms (the walk it replaced 2.27;
-//     torch.sparse.mm of the transposed CSR plus sampled_addmm 0.894), on a
-//     shard of config5-large's 8-shard plan (112,532 rows, 2.0M edges)
-//     0.377 ms (1.80), bf16 on config4's sampled batch 0.029 ms (0.053).
-//     scripts/probe_mh_bwd.py chose 4 rows a lane in flight and 4 blocks an
-//     SM (at most 64 registers): 8 rows at 2 blocks took 0.534 ms, 16 rows
-//     at 1 block 1.21, so warps in flight matter more than rows a warp.
-//     That is ~3.2 TB/s of gathered g rows, from L2.
-// Per edge the backward does 2 F multiply-adds; the forward walks one
-// destination a warp, one edge after another, its lanes over columns
-// (4-byte loads, bf16 pairs), and is not yet redesigned.
+//     queued back to back; NVIDIA H100 80GB HBM3, 700 W), H 4, D 32:
+//     backward f32 at 16,384 drugs (E 2.6M) 0.410 ms (the walk it replaced
+//     2.27; torch.sparse.mm of the transposed CSR plus sampled_addmm
+//     0.894), on a shard of config5-large's 8-shard plan (112,532 rows,
+//     2.0M edges) 0.377 ms (1.80), bf16 on config4's sampled batch 0.029
+//     ms (0.053). scripts/probe_variants.py (mhb) chose 4 rows a lane in
+//     flight and 4 blocks an SM (at most 64 registers): 8 rows at 2 blocks
+//     took 0.534 ms, 16 rows at 1 block 1.21, so warps in flight matter
+//     more than rows a warp. That is ~3.2 TB/s of gathered g rows, from L2.
+//     Forward, the same way: f32 at 16,384 drugs 0.218 ms (the walk it
+//     replaced, lanes over columns with one row in flight a warp, 0.799;
+//     torch.sparse.mm of the [N H, N H] CSR of alpha 0.593), on the
+//     shard 0.185 (0.682), at 100K drugs (E 16.1M, v 51 MB) 1.32 (5.08;
+//     4.88), bf16 on config4's batch 0.020 (0.023), bf16 at 100K 0.79
+//     (2.57). scripts/probe_variants.py (mhf) kept the backward's choice:
+//     2 rows in flight took 0.252 ms at 16,384 drugs, 8 rows at 2 or 3
+//     blocks an SM 0.230 and 0.220, 4 warps a block 0.218, as 4 rows at 4
+//     blocks and 8 warps; at 100K 1.33 (2 rows 1.46, 8 rows 1.58-1.62, 4
+//     warps 1.39). ~6 TB/s of gathered v rows at 16,384 drugs, from L2.
+// Per edge the backward does 2 F multiply-adds, the forward F.
 //
 // The JAX package rounds each bf16 message alpha * v to bf16 before the
 // segment sum (multihead.py:81-83); here products are summed in float32 and
@@ -88,102 +102,116 @@
 namespace {
 
 constexpr int kMaxHeads = 8;
-constexpr int kColsPerLane = 8;  // F <= 256
-constexpr int kWarpsPerBlock = 4;  // forward
+constexpr int kFwdWarps = 8;        // forward: destinations a block holds
+constexpr int kFwdMinBlocks = 4;    // forward blocks an SM holds at least
+constexpr int kFwdRows = 4;         // v rows a forward lane loads at once
 constexpr int kBwdWarps = 8;        // backward: sources a block holds
 constexpr int kBwdMinBlocks = 4;    // backward blocks an SM holds at least
 constexpr int kRowsInFlight = 4;    // g rows a backward lane loads at once
-constexpr int kLong = 256;  // positions above which a source is the block's
-constexpr int kMaxVals = 8;  // values of a row a backward lane holds
-constexpr int kMaxFeat = 32 * kColsPerLane;
+constexpr int kLong = 256;  // positions above which a row is the block's
+constexpr int kMaxVals = 8;  // values of a row a lane holds
+constexpr int kMaxFeat = 32 * kMaxVals;  // F <= 256
 constexpr unsigned kFull = 0xffffffffu;
 
-// Column of a lane's k-th value: V = 1 strides by 32 (lane + 32 k); V = 2
-// reads pairs (2 lane + 64 (k / 2) + k % 2), for bf16 rows of even width.
-template <int V>
-__device__ __forceinline__ int col_of(int lane, int k) {
-  return V == 1 ? lane + 32 * k : 2 * lane + 64 * (k / 2) + (k % 2);
-}
-
-template <class T, int V>
-__device__ __forceinline__ void load_cols(const T* row, int feat, int lane,
-                                          float (&out)[kColsPerLane]) {
-#pragma unroll
-  for (int k = 0; k < kColsPerLane; k += V) {
-    const int c = col_of<V>(lane, k);
-    if constexpr (V == 2) {
-      const float2 p = c < feat ? bignn::load2(row + c) : make_float2(0.f, 0.f);
-      out[k] = p.x;
-      out[k + 1] = p.y;
-    } else {
-      out[k] = c < feat ? bignn::load1(row + c) : 0.f;
-    }
-  }
-}
-
-template <class T, int V>
-__device__ __forceinline__ void store_cols(T* row, int feat, int lane,
-                                           const float (&v)[kColsPerLane]) {
-#pragma unroll
-  for (int k = 0; k < kColsPerLane; k += V) {
-    const int c = col_of<V>(lane, k);
-    if constexpr (V == 2) {
-      if (c < feat) bignn::store2(row + c, v[k], v[k + 1]);
-    } else {
-      if (c < feat) row[c] = bignn::from_f32<T>(v[k]);
-    }
-  }
-}
-
-template <class T, int V>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-    mh_forward(const T* __restrict__ v, const int* __restrict__ src,
-               const int* __restrict__ dst, const T* __restrict__ alpha,
-               const int* __restrict__ first, const int* __restrict__ last,
-               int num_src, int num_out, int heads, int head_dim,
-               T* __restrict__ out) {
-  const int lane = threadIdx.x % 32;
-  const int d = blockIdx.x * kWarpsPerBlock + threadIdx.x / 32;
-  if (d >= num_out) return;
-  const int feat = heads * head_dim;
-  const int e0 = first[d];
-  const int e1 = last[d];
-  int head[kColsPerLane];
-  float acc[kColsPerLane], vals[kColsPerLane];
-#pragma unroll
-  for (int k = 0; k < kColsPerLane; ++k) {
-    const int c = col_of<V>(lane, k);
-    head[k] = c < feat ? c / head_dim : -1;
-    acc[k] = 0.f;
-  }
-  for (int base = e0; base <= e1; base += 32) {
-    const int mine = base + lane;
-    const bool ok = mine <= e1 && __ldg(dst + mine) == d;
-    int my_src = ok ? __ldg(src + mine) : -1;
-    if (ok) my_src = min(max(my_src, 0), num_src - 1);  // JAX's clipped take
-    const int n = min(32, e1 - base + 1);
-    for (int j = 0; j < n; ++j) {
-      const int s = __shfl_sync(kFull, my_src, j);
-      if (s < 0) continue;  // a hole: another destination's edge
-      load_cols<T, V>(v + static_cast<int64_t>(s) * feat, feat, lane, vals);
-      const T* a = alpha + static_cast<int64_t>(base + j) * heads;
-#pragma unroll
-      for (int k = 0; k < kColsPerLane; ++k)
-        if (head[k] >= 0) acc[k] += bignn::load1(a + head[k]) * vals[k];
-    }
-  }
-  store_cols<T, V>(out + static_cast<int64_t>(d) * feat, feat, lane, acc);
-}
-
-// The backward's lane layout (segment_sum.cu's row slots): a row of F
-// values is `words` words of NV values (16 bytes where F and the pointers
-// allow, else single values); the 32 lanes form 32 >> lg slots of
+// The lane layout of both directions (segment_sum.cu's row slots): a row of
+// F values is `words` words of NV values (16 bytes where F, D and the
+// pointers allow, else single values); the 32 lanes form 32 >> lg slots of
 // G = 1 << lg lanes, G the words rounded up to a power of two (at most 32),
 // and lane q G + c holds words c, c + G, ... (K of them) of slot q's rows.
-// In the grouped form a word lies inside one head and a head's words are a
-// power-of-two group of lanes (head_dim / NV of them).
+// A 16-byte word lies inside one head (D a multiple of NV) in the forward;
+// in the backward's grouped form a head's words are also a power-of-two
+// group of lanes (head_dim / NV of them).
 template <class T, int NV>
 using WordOf = typename bignn::Word<NV * static_cast<int>(sizeof(T))>::type;
+
+struct FwdArgs {
+  const void* v;
+  const int* src;
+  const int* dst;
+  const void* alpha;
+  const int* first;
+  const int* last;
+  int num_src, num_out, heads, head_dim, lg;
+  void* out;
+};
+
+// The clipped source (JAX's take(..., mode="clip")) of the edge at position
+// b + lane when it is destination d's, else -1 (past i1, or a hole). Its two
+// ids load together.
+__device__ __forceinline__ int chunk_src(const FwdArgs& a, int b, int i1,
+                                         int d, int lane) {
+  const int i = b + lane;
+  if (i > i1) return -1;
+  const int id = __ldg(a.dst + i);
+  const int s = __ldg(a.src + i);
+  return id == d ? min(max(s, 0), a.num_src - 1) : -1;
+}
+
+// acc += alpha[e, h(col)] * v[src_e] over destination d's positions b, b +
+// 1, ... up to i1, taken in chunks of 32 every cstep positions: the chunk's
+// ids one a lane (the next chunk's in flight while this chunk's rows load),
+// then the rows of U edges a slot, all loaded before any is added. Slot q
+// takes the chunk's positions q, q + slots, ... in order, so each slot sums
+// its edges in edge order.
+template <class T, int NV, int K>
+__device__ __forceinline__ void fwd_walk(const FwdArgs& a, int d, int b,
+                                         int i1, int cstep, int lane,
+                                         float (&acc)[K][NV]) {
+  using W = WordOf<T, NV>;
+  constexpr int U = K >= kFwdRows ? 1 : kFwdRows / K;
+  const T* __restrict__ v = static_cast<const T*>(a.v);
+  const T* __restrict__ alpha = static_cast<const T*>(a.alpha);
+  const int heads = a.heads;
+  const int feat = heads * a.head_dim;
+  const int lg = a.lg;
+  const int slots = 32 >> lg;
+  const int q = lane >> lg;
+  const int c = lane & ((1 << lg) - 1);
+  // the head of each word this lane holds (a word lies in one head); -1
+  // past the row
+  int head[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int w = c + (k << lg);
+    head[k] = w < feat / NV ? w * NV / a.head_dim : -1;
+  }
+  int s_l = chunk_src(a, b, i1, d, lane);
+  for (; b <= i1; b += cstep) {
+    const int s_next = chunk_src(a, b + cstep, i1, d, lane);
+    const int n = min(32, i1 - b + 1);
+    for (int j0 = 0; j0 < n; j0 += slots * U) {
+      W w[U][K];
+      float al[U][K];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int j = j0 + q + slots * u;
+        int src = __shfl_sync(kFull, s_l, j & 31);
+        if (j >= 32) src = -1;
+        const W* row = reinterpret_cast<const W*>(
+            v + static_cast<int64_t>(src >= 0 ? src : 0) * feat);
+        const T* ar = alpha + static_cast<int64_t>(src >= 0 ? b + j : 0) *
+                                  heads;
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          const bool in = src >= 0 && head[k] >= 0;
+          w[u][k] = in ? __ldg(row + c + (k << lg)) : W{};
+          al[u][k] = in ? bignn::load1(ar + head[k]) : 0.f;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          float x[NV];
+          bignn::unpack_word<T, NV>(w[u][k], x);
+#pragma unroll
+          for (int i = 0; i < NV; ++i) acc[k][i] += al[u][k] * x[i];
+        }
+      }
+    }
+    s_l = s_next;
+  }
+}
 
 struct BwdArgs {
   const void* v;
@@ -358,6 +386,72 @@ __device__ __forceinline__ void slot_sum(float (&acc)[K][NV], int lg) {
   }
 }
 
+// A block holds kFwdWarps destinations. Each destination of up to kLong
+// positions is walked by its own warp; a longer one by all the block's
+// warps, chunk w, w + kFwdWarps, ... to warp w, their rows added in shared
+// memory in warp order. Whether a destination is long is read from its
+// bounds on the device, never on the host. A destination without edges
+// gets zeros.
+template <class T, int NV, int K>
+__global__ void __launch_bounds__(kFwdWarps * 32, kFwdMinBlocks)
+    mh_forward(__grid_constant__ const FwdArgs a) {
+  using W = WordOf<T, NV>;
+  __shared__ float part[kFwdWarps * kMaxFeat];
+  T* __restrict__ out = static_cast<T*>(a.out);
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  const int feat = a.heads * a.head_dim;
+  const int q = lane >> a.lg;
+  const int c = lane & ((1 << a.lg) - 1);
+  const int d0 = blockIdx.x * kFwdWarps;
+  float acc[K][NV];
+  const int d = d0 + warp;
+  if (d < a.num_out && a.last[d] - a.first[d] < kLong) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+#pragma unroll
+      for (int i = 0; i < NV; ++i) acc[k][i] = 0.f;
+    }
+    fwd_walk<T, NV, K>(a, d, a.first[d], a.last[d], 32, lane, acc);
+    slot_sum(acc, a.lg);
+    W* o = reinterpret_cast<W*>(out + static_cast<int64_t>(d) * feat);
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int w = c + (k << a.lg);
+      if (q == 0 && w < feat / NV) o[w] = bignn::pack_word<T, NV, W>(acc[k]);
+    }
+  }
+  for (int j = 0; j < kFwdWarps && d0 + j < a.num_out; ++j) {
+    const int dj = d0 + j;
+    const int i0 = a.first[dj];
+    const int i1 = a.last[dj];
+    if (i1 - i0 < kLong) continue;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+#pragma unroll
+      for (int i = 0; i < NV; ++i) acc[k][i] = 0.f;
+    }
+    fwd_walk<T, NV, K>(a, dj, i0 + 32 * warp, i1, 32 * kFwdWarps, lane, acc);
+    slot_sum(acc, a.lg);
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int w = c + (k << a.lg);
+      if (q == 0 && w < feat / NV) {
+#pragma unroll
+        for (int i = 0; i < NV; ++i)
+          part[warp * feat + w * NV + i] = acc[k][i];
+      }
+    }
+    __syncthreads();
+    for (int col = threadIdx.x; col < feat; col += blockDim.x) {
+      float t = part[col];
+      for (int w = 1; w < kFwdWarps; ++w) t += part[w * feat + col];
+      out[static_cast<int64_t>(dj) * feat + col] = bignn::from_f32<T>(t);
+    }
+    __syncthreads();
+  }
+}
+
 // A block holds kBwdWarps sources. Each source of up to kLong positions is
 // walked by its own warp; a longer one by all the block's warps, chunk w,
 // w + kBwdWarps, ... to warp w, their d_v rows added in shared memory in
@@ -431,8 +525,51 @@ __global__ void __launch_bounds__(kBwdWarps * 32, kBwdMinBlocks)
 bool bad_shape(int num_edges, int num_src, int num_out, int heads,
                int head_dim) {
   return num_edges < 0 || num_src < 1 || num_out < 0 || heads < 1 ||
-         heads > kMaxHeads || head_dim < 1 ||
-         heads * head_dim > 32 * kColsPerLane;
+         heads > kMaxHeads || head_dim < 1 || heads * head_dim > kMaxFeat;
+}
+
+// The row slots of rows of `words` words: (lg, K), G = 1 << lg lanes a
+// slot and K words a lane.
+void slots_of(int words, int* lg, int* k) {
+  *lg = bignn::slot_log2(words < 32 ? words : 32);
+  *k = bignn::cdiv(words, 1 << *lg);
+}
+
+template <class T, int NV>
+struct Forward {
+  template <int K>
+  static void launch(const FwdArgs& a, cudaStream_t st) {
+    mh_forward<T, NV, K>
+        <<<bignn::cdiv(a.num_out, kFwdWarps), kFwdWarps * 32, 0, st>>>(a);
+  }
+};
+
+template <class T, int NV, bool kGrouped>
+struct Backward {
+  template <int K>
+  static void launch(const BwdArgs& a, cudaStream_t st) {
+    mh_backward<T, NV, K, kGrouped>
+        <<<bignn::cdiv(a.num_src, kBwdWarps), kBwdWarps * 32, 0, st>>>(a);
+  }
+};
+
+// L::launch<K> with K, the words a lane holds, rounded up to 1, 2, 4 or 8
+// (K NV <= 8 values).
+template <class L, int NV, class Args>
+void launch_k(const Args& a, int k, cudaStream_t st) {
+  if (k <= 1) {
+    L::template launch<1>(a, st);
+  } else if constexpr (kMaxVals / NV >= 2) {
+    if (k <= 2) {
+      L::template launch<2>(a, st);
+    } else if constexpr (kMaxVals / NV >= 8) {
+      if (k <= 4) {
+        L::template launch<4>(a, st);
+      } else {
+        L::template launch<8>(a, st);
+      }
+    }
+  }
 }
 
 template <class T>
@@ -448,48 +585,23 @@ int forward(const void* v, const void* src, const void* dst,
     int* l = static_cast<int*>(last);
     const int* d = static_cast<const int*>(dst);
     bignn::segment_bounds(d, num_edges, num_out, f, l, st);
-    const dim3 grid(bignn::cdiv(num_out, kWarpsPerBlock));
-    const dim3 block(kWarpsPerBlock * 32);
-    const T* vv = static_cast<const T*>(v);
-    const int* s = static_cast<const int*>(src);
-    const T* a = static_cast<const T*>(alpha);
-    T* o = static_cast<T*>(out);
-    // pairs need every row of v and out on 4 bytes
+    // 16-byte words where every row of v and out starts on 16 bytes and a
+    // word lies inside one head
+    constexpr int kWide = 16 / static_cast<int>(sizeof(T));
     const uintptr_t addr =
         reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out);
-    if (bignn::pairs_ok<T>(heads * head_dim) && addr % 4 == 0) {
-      mh_forward<T, 2><<<grid, block, 0, st>>>(vv, s, d, a, f, l, num_src,
-                                               num_out, heads, head_dim, o);
+    const bool wide = head_dim % kWide == 0 && addr % 16 == 0;
+    int lg, k;
+    slots_of(heads * head_dim / (wide ? kWide : 1), &lg, &k);
+    const FwdArgs a{v, static_cast<const int*>(src), d, alpha, f, l,
+                    num_src, num_out, heads, head_dim, lg, out};
+    if (wide) {
+      launch_k<Forward<T, kWide>, kWide>(a, k, st);
     } else {
-      mh_forward<T, 1><<<grid, block, 0, st>>>(vv, s, d, a, f, l, num_src,
-                                               num_out, heads, head_dim, o);
+      launch_k<Forward<T, 1>, 1>(a, k, st);
     }
   }
   return static_cast<int>(cudaGetLastError());
-}
-
-template <class T, int NV, int K, bool kGrouped>
-void launch_backward(const BwdArgs& a, cudaStream_t st) {
-  mh_backward<T, NV, K, kGrouped>
-      <<<bignn::cdiv(a.num_src, kBwdWarps), kBwdWarps * 32, 0, st>>>(a);
-}
-
-// K, the words a lane holds, rounded up to 1, 2, 4 or 8 (K NV <= 8 values).
-template <class T, int NV, bool kGrouped>
-void launch_backward_k(const BwdArgs& a, int k, cudaStream_t st) {
-  if (k <= 1) {
-    launch_backward<T, NV, 1, kGrouped>(a, st);
-  } else if constexpr (kMaxVals / NV >= 2) {
-    if (k <= 2) {
-      launch_backward<T, NV, 2, kGrouped>(a, st);
-    } else if constexpr (kMaxVals / NV >= 8) {
-      if (k <= 4) {
-        launch_backward<T, NV, 4, kGrouped>(a, st);
-      } else {
-        launch_backward<T, NV, 8, kGrouped>(a, st);
-      }
-    }
-  }
 }
 
 template <class T>
@@ -512,9 +624,8 @@ int backward(const void* v, const void* g, const void* dst, const void* alpha,
                          reinterpret_cast<uintptr_t>(d_v);
   const bool wide = feat % kWide == 0 && addr % 16 == 0;
   const int nv = wide ? kWide : 1;
-  const int words = feat / nv;
-  const int lg = bignn::slot_log2(words < 32 ? words : 32);
-  const int k = bignn::cdiv(words, 1 << lg);
+  int lg, k;
+  slots_of(feat / nv, &lg, &k);
   const int group = head_dim / nv;
   const bool grouped = wide && head_dim % nv == 0 && group <= 32 &&
                        (group & (group - 1)) == 0;
@@ -522,11 +633,11 @@ int backward(const void* v, const void* g, const void* dst, const void* alpha,
                   static_cast<const int*>(perm), ss, f, l, num_src, num_out,
                   heads, head_dim, lg, d_v, d_alpha};
   if (grouped) {
-    launch_backward_k<T, kWide, true>(a, k, st);
+    launch_k<Backward<T, kWide, true>, kWide>(a, k, st);
   } else if (wide) {
-    launch_backward_k<T, kWide, false>(a, k, st);
+    launch_k<Backward<T, kWide, false>, kWide>(a, k, st);
   } else {
-    launch_backward_k<T, 1, false>(a, k, st);
+    launch_k<Backward<T, 1, false>, 1>(a, k, st);
   }
   return static_cast<int>(cudaGetLastError());
 }

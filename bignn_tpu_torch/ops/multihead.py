@@ -5,10 +5,10 @@
 ``spmm_multihead`` is a ``torch.autograd.Function`` with gradients for
 ``v`` and ``alpha``. Per-edge values keep the JAX package's flat
 ``[E, H*D]`` layout. On CUDA tensors the forward runs the kernel of
-``csrc/spmm_multihead.cu`` (one warp per destination, no ``[E, H*D]``
+``csrc/spmm_multihead.cu`` (a warp per destination, no ``[E, H*D]``
 message tensor), and the backward its second kernel, which gives ``d_v``
-and ``d_alpha`` in one walk over the source-sorted edge order (16-byte
-lanes grouped by head, several edges' rows in flight)
+and ``d_alpha`` in one walk over the source-sorted edge order (both with
+16-byte lanes grouped by head and several edges' rows in flight)
 (``src_perm``/``src_sorted``, precomputed per graph, or an ``argsort`` of
 ``src`` when absent, as ``_mh_bwd`` does). On CPU tensors both take the
 plain versions. Padding edges (``dst >= num_out``) take no part and get a

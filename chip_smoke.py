@@ -39,12 +39,15 @@ Phases:
      phase 7; block_spmm, segment_sum, segment_softmax and spmm_multihead
      must launch in bf16 and no float32 form; the embeddings and pair
      scores against a plain-version refresh within SERVE_BF16_TOL of their
-     largest value, and at least TOPK_AGREE of the top-20 lists shared.
+     largest value, and at least TOPK_AGREE of the top-20 lists shared;
+     then the bf16 forward kernels (segment_softmax, spmm_multihead)
+     against their plain versions at these shapes.
   8. sparse training: the full-graph Trainer with config4's model in
      float32 and config4's optimizer (Adam lr 3e-4, batch 1024 + 1024) on
      synthetic-large cut to 16,384 drugs (config4's max_drugs), 20 steps,
      then config1's GCNs (GCN:64 x2 -> GCN:64:identity, dot) 20 steps on
-     the same graph. First the sparse-outer backward kernels against their
+     the same graph. First the sparse-outer backward kernels and the
+     softmax (forward in f32 and bf16, backward in bf16) against their
      plain versions at these shapes, and block_spmm (forward and backward,
      unweighted and weighted) at the largest bucket. Every sparse-outer
      kernel, forward and backward, must launch; step 1's gradients must
@@ -65,7 +68,8 @@ Phases:
      float32 parameters, device-drawn batches, int8 block counts. The build
      (host sampler with calibration, DeviceSampler, one table upload), then
      the bf16 and int8 kernel forms against their plain versions at one
-     sampled batch's shapes, step 1's gradients against the same step with
+     sampled batch's shapes (the softmax also in float32, off the path),
+     step 1's gradients against the same step with
      the plain versions, 512 steps by train_chunk_device (64 chunks of 8):
      finite losses whose last 64-step mean lies below the first's, every
      bf16/int8 form launched and the flash-GAT not; then one chunk under
@@ -144,7 +148,8 @@ Phases:
      versions' (bf16 tolerances, a_l by its noise against the float32
      model's plain step); the exchange on the step's own send buffers bit
      for bit against its plain version; block_spmm:bf16 and all_to_all
-     must launch.
+     must launch; then the multi-head forward on shard 0's edges against
+     its plain version.
 Each path runs with the launch counts (per kernel and element type, e.g.
 segment_sum:bf16) set to 0 just before it and read just after; the kernels
 line reports the sum of the paths' counts, each form's error, times (kernel,
@@ -153,7 +158,14 @@ where there is one) and its bound: the larger of its bytes over 3.35 TB/s
 and its operations over 67 TFLOP/s (float32 outside the tensor cores, where
 every kernel here computes). all_to_all:f32 is timed at config5-large's
 send buffers; a second row, all_to_all:f32 (config5), at config5's, with
-the launches of paths G and G(ii). The 100K tensors are freed before phase 8. The
+the launches of paths G and G(ii). Rows 4 and 8 have rows at their other
+shapes too (segment_softmax:bf16:100k, spmm_multihead:bf16:100k,
+segment_softmax{,_bwd}:{f32,bf16}:16k, spmm_multihead:f32:shard,
+segment_softmax{,_bwd}:f32:config4), each with the launches of the paths
+that run that shape. The bf16 softmax forms are held to their plain
+versions value by value (BF16_STEP); row 4's library call is
+torch.sparse.softmax (softmax_library). The 100K tensors are freed before
+phase 8. The
 last line is {"ok": true, "device": {...}}; any failure raises, and the
 script exits non-zero without it.
 
@@ -199,6 +211,12 @@ REAL_GATE = 0.70  # tests/test_real_data.py:66-67
 # bf16 forms against their plain versions: both sum in float32 and round
 # once, so they differ by one bf16 rounding (2**-8) of nearly equal sums
 BF16_TOL = 1e-2  # x max(1, max |plain|)
+# the bf16 softmax forms, value by value: alpha is at most 1 and ~1/161 on
+# average at the 100K and 16,384-drug shapes (d_x alike), so a limit on
+# max(1, max |plain|) would pass a kernel wrong on most rows. Both sides
+# round a float32 value to bf16, and those float32 values nearly agree, so
+# they differ by at most one bf16 step: 2**-7 of the value
+BF16_STEP = 2.0 ** -7  # x (|plain| + mean |plain|), per value
 # config4's step 1, kernels vs plain versions: the float32 gradients of a
 # bf16 computation move in bf16 steps (2**-8 of the largest term); a
 # rounding that flips in one run and not the other moves a summed gradient
@@ -339,6 +357,54 @@ def multihead_library(src: torch.Tensor, dst: torch.Tensor,
     except (RuntimeError, NotImplementedError) as exc:
         log(f"  spmm_multihead library call refuses {v.dtype}: "
             f"{str(exc).splitlines()[0]}")
+        return None
+    return call
+
+
+def softmax_library(x: torch.Tensor, ids: torch.Tensor, n: int,
+                    g: torch.Tensor | None = None):
+    """The one PyTorch call that computes ``segment_softmax(x, ids, n)``
+    (``g`` None) or ``segment_softmax_bwd(x, g, ids, n)`` (x then alpha):
+    ``torch.sparse.softmax`` over dim 1 of the ``[n, E, H]`` COO tensor with
+    the entries ``(ids[e], e, :) = x[e]`` of the rows whose id is kept (an
+    entry not stored counts as -inf, so a row of it is a segment), or
+    ``torch._sparse_softmax_backward_data``, the call its autograd makes, on
+    alpha and the cotangent at those entries; built untimed, held once to
+    the plain version on the kept rows. None where it refuses the type."""
+    from bignn_tpu_torch import ops
+
+    keep = (ids >= 0) & (ids < n)
+    idx = torch.stack([ids[keep].long(),
+                       torch.arange(len(ids), device=ids.device)[keep]])
+
+    def coo(v):
+        return torch.sparse_coo_tensor(idx, v[keep], (n, *v.shape)).coalesce()
+
+    try:
+        a = coo(x)
+        if g is None:
+            def call():
+                return torch.sparse.softmax(a, 1)
+            want = ops.segment_softmax_plain(x, ids, n)
+        else:
+            sg = coo(g)
+
+            def call():
+                return torch._sparse_softmax_backward_data(sg, a, 1, a)
+            want = ops.segment_softmax_bwd_plain(x, g, ids, n)
+        out = call()
+        want = want[out.indices()[1]].float()
+        err = (out.values().float() - want).abs().max().item()
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError) as exc:
+        log(f"  segment_softmax library call refuses {x.dtype}: "
+            f"{str(exc).splitlines()[0]}")
+        return None
+    what = "torch.sparse.softmax" + ("" if g is None else " backward")
+    log(f"  {what} ({x.dtype}) against the plain version: max_abs_err "
+        f"{err:.3e}")
+    if not err <= BF16_TOL * max(1.0, want.abs().max().item()):
+        log(f"  {what} computes another function here: no library time")
         return None
     return call
 
@@ -899,27 +965,41 @@ def run_real_gate(dev) -> None:
                              f"{tests}")
 
 
-def _check_close(name: str, got, want, tol: float) -> float:
-    """Worst max|got - want| / max(1, max|want|) over the outputs of a
-    kernel and its plain version; raises above ``tol``. Returns the worst
-    absolute error."""
+def _check_close(name: str, got, want, tol: float,
+                 per_element: bool = False) -> float:
+    """Hold the outputs of a kernel to those of its plain version: the
+    worst max|got - want| / max(1, max |want|) within ``tol``, or with
+    ``per_element`` every value's |got - want| / (|want| + mean |want|).
+    Raises beyond it, with both measures. Returns the worst absolute
+    error."""
     torch.cuda.synchronize()
-    err, ratio = 0.0, 0.0
+    err, ratio, worst, bad = 0.0, 0.0, 0.0, 0
     for a, b in zip(got if isinstance(got, tuple) else (got,),
                     want if isinstance(want, tuple) else (want,)):
-        e = (a - b).abs().max().item()
-        err, ratio = max(err, e), max(ratio, e / max(1.0, b.abs().max().item()))
-    if not ratio <= tol:
+        d, b = (a.float() - b.float()).abs(), b.float().abs()
+        e = d.max().item() if d.numel() else 0.0
+        err, ratio = max(err, e), max(ratio, e / max(1.0, b.max().item()
+                                                     if b.numel() else 0.0))
+        if per_element and d.numel():
+            r = torch.where(d == 0, 0.0, d / (b + b.mean()))
+            worst, bad = max(worst, r.max().item()), bad + int((r > tol).sum())
+    if per_element and not worst <= tol:
+        raise AssertionError(
+            f"{name}: {bad} values off by more than {tol:g} x (|plain| + "
+            f"mean |plain|) (worst {worst:.3e}); max error / max(1, max "
+            f"|plain|) {ratio:.3e}")
+    if not per_element and not ratio <= tol:
         raise AssertionError(f"{name}: error {ratio} of the scale, above {tol}")
     return err
 
 
 def _compare(results: dict, name: str, kernel, plain, tol: float,
-             num_bytes: float, flops: float = 0.0, library=None) -> None:
-    """Hold a kernel to its plain version (error / max(1, max |plain|) <=
-    ``tol``), then ``record`` it."""
+             num_bytes: float, flops: float = 0.0, library=None,
+             per_element: bool = False) -> None:
+    """Hold a kernel to its plain version (``_check_close``), then
+    ``record`` it."""
     got = kernel()
-    err = _check_close(name, got, plain(), tol)
+    err = _check_close(name, got, plain(), tol, per_element)
     outs = got if isinstance(got, tuple) else (got,)
     record(results, name, err, tol, kernel, plain,
            num_bytes + nbytes(*outs), flops, library)
@@ -1045,7 +1125,8 @@ def run_sparse_serving(dev, ds) -> tuple[dict, dict, object]:
     _compare(results, "segment_softmax:f32",
              lambda: ops.segment_softmax(x, outer.edge_dst, n),
              lambda: ops.segment_softmax_plain(x, outer.edge_dst, n),
-             SPARSE_TOL, nbytes(x, outer.edge_dst))
+             SPARSE_TOL, nbytes(x, outer.edge_dst),
+             library=softmax_library(x, outer.edge_dst, n))
     alpha = ops.segment_softmax_plain(x, outer.edge_dst, n)
     del x
     _compare(results, "spmm_multihead:f32",
@@ -1065,13 +1146,15 @@ def run_sparse_serving(dev, ds) -> tuple[dict, dict, object]:
     return launches, results, scorer
 
 
-def run_sparse_serving_bf16(dev, ds, scorer) -> dict:
+def run_sparse_serving_bf16(dev, ds, scorer) -> tuple[dict, dict]:
     """Phase 7b: config4's model as configured (bf16) served over the whole
     100K-drug graph by ``scorer``, phase 7's Scorer with its host layouts
     and uploaded buckets, the model swapped (the layouts depend on the
     inner layers, not the compute type); its embeddings, pair scores and
     top-20 lists against a refresh with the plain versions. Returns the
-    launch counts."""
+    launch counts and the bf16 forward kernels' comparisons at these
+    shapes."""
+    from bignn_tpu_torch import ops
     from bignn_tpu_torch.config import get_config
     from bignn_tpu_torch.models import BiGNN
 
@@ -1122,7 +1205,33 @@ def run_sparse_serving_bf16(dev, ds, scorer) -> dict:
     if not (err <= SERVE_BF16_TOL * scale and s_err <= SERVE_BF16_TOL * s_scale
             and agree >= TOPK_AGREE):
         raise AssertionError("bf16 serving disagrees with the plain refresh")
-    return launches
+
+    # the bf16 forward kernels against their plain versions at these shapes
+    outer = scorer._outer
+    n, e = outer.num_nodes, outer.edge_cap
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x = (3 * torch.randn(e, 4, device=dev, generator=gen)).to(torch.bfloat16)
+    v = torch.randn(n, 4, 32, device=dev, generator=gen).to(torch.bfloat16)
+    results = {}
+    _compare(results, "segment_softmax:bf16:100k",
+             lambda: ops.segment_softmax(x, outer.edge_dst, n),
+             lambda: ops.segment_softmax_plain(x, outer.edge_dst, n),
+             BF16_STEP, nbytes(x, outer.edge_dst),
+             library=softmax_library(x, outer.edge_dst, n), per_element=True)
+    alpha = ops.segment_softmax_plain(x, outer.edge_dst, n)
+    del x
+    _compare(results, "spmm_multihead:bf16:100k",
+             lambda: ops.spmm_multihead(v, outer.edge_src, outer.edge_dst,
+                                        alpha, n),
+             lambda: ops.spmm_multihead_plain(v, outer.edge_src,
+                                              outer.edge_dst, alpha, n),
+             BF16_TOL, nbytes(v, outer.edge_src, outer.edge_dst, alpha),
+             2 * e * 128,
+             library=multihead_library(outer.edge_src, outer.edge_dst, alpha,
+                                       n, v))
+    del v, alpha
+    torch.cuda.empty_cache()
+    return launches, results
 
 
 def _check_plain_refresh(scorer, params, pairs, emb, scores) -> None:
@@ -1255,11 +1364,32 @@ def run_sparse_training(dev) -> tuple[list, dict]:
     v = torch.randn(n, 4, 32, device=dev, generator=gen)
     g = torch.randn(n, 4, 32, device=dev, generator=gen)
     results = {}
+    x = 3 * torch.randn(e, 4, device=dev, generator=gen)
+    for t, dtype, tol in (("f32", torch.float32, SPARSE_TOL),
+                          ("bf16", torch.bfloat16, BF16_STEP)):
+        xt = x.to(dtype)
+        _compare(results, f"segment_softmax:{t}:16k",
+                 lambda xt=xt: ops.segment_softmax(xt, outer.edge_dst, n),
+                 lambda xt=xt: ops.segment_softmax_plain(xt, outer.edge_dst,
+                                                         n),
+                 tol, nbytes(xt, outer.edge_dst),
+                 library=softmax_library(xt, outer.edge_dst, n),
+                 per_element=t == "bf16")
+    a16, g16 = alpha.to(torch.bfloat16), g_e.to(torch.bfloat16)
+    _compare(results, "segment_softmax_bwd:bf16:16k",
+             lambda: ops.segment_softmax_bwd(a16, g16, outer.edge_dst, n),
+             lambda: ops.segment_softmax_bwd_plain(a16, g16, outer.edge_dst,
+                                                   n),
+             BF16_STEP, nbytes(a16, g16, outer.edge_dst),
+             library=softmax_library(a16, outer.edge_dst, n, g16),
+             per_element=True)
+    del x, xt, a16, g16
     _compare(results, "segment_softmax_bwd:f32",
              lambda: ops.segment_softmax_bwd(alpha, g_e, outer.edge_dst, n),
              lambda: ops.segment_softmax_bwd_plain(alpha, g_e,
                                                    outer.edge_dst, n),
-             BWD_TOL, nbytes(alpha, g_e, outer.edge_dst))
+             BWD_TOL, nbytes(alpha, g_e, outer.edge_dst),
+             library=softmax_library(alpha, outer.edge_dst, n, g_e))
     mh = (v, outer.edge_src, outer.edge_dst, alpha, n, g,
           outer.edge_src_perm, outer.edge_src_sorted)
     _compare(results, "spmm_multihead_bwd:f32",
@@ -1787,14 +1917,28 @@ def config4_kernels(dev, cb, pb, outer) -> dict:
     dst, src = outer.edge_dst, outer.edge_src
     _compare(results, "segment_softmax:bf16",
              lambda: ops.segment_softmax(s, dst, D),
-             lambda: ops.segment_softmax_plain(s, dst, D), BF16_TOL,
-             nbytes(s, dst))
+             lambda: ops.segment_softmax_plain(s, dst, D), BF16_STEP,
+             nbytes(s, dst), library=softmax_library(s, dst, D),
+             per_element=True)
     alpha = ops.segment_softmax_plain(s, dst, D)
     g_e = torch.randn(E, 4, device=dev, generator=gen).to(bf)
     _compare(results, "segment_softmax_bwd:bf16",
              lambda: ops.segment_softmax_bwd(alpha, g_e, dst, D),
              lambda: ops.segment_softmax_bwd_plain(alpha, g_e, dst, D),
-             BF16_TOL, nbytes(alpha, g_e, dst))
+             BF16_STEP, nbytes(alpha, g_e, dst),
+             library=softmax_library(alpha, dst, D, g_e), per_element=True)
+    # the same in float32, off the path (the step computes in bf16)
+    s32, a32, g32 = s.float(), alpha.float(), g_e.float()
+    _compare(results, "segment_softmax:f32:config4",
+             lambda: ops.segment_softmax(s32, dst, D),
+             lambda: ops.segment_softmax_plain(s32, dst, D), SPARSE_TOL,
+             nbytes(s32, dst), library=softmax_library(s32, dst, D))
+    _compare(results, "segment_softmax_bwd:f32:config4",
+             lambda: ops.segment_softmax_bwd(a32, g32, dst, D),
+             lambda: ops.segment_softmax_bwd_plain(a32, g32, dst, D),
+             BWD_TOL, nbytes(a32, g32, dst),
+             library=softmax_library(a32, dst, D, g32))
+    del s32, a32, g32
     v = torch.randn(D, 4, 32, device=dev, generator=gen).to(bf)
     g = torch.randn(D, 4, 32, device=dev, generator=gen).to(bf)
     _compare(results, "spmm_multihead:bf16",
@@ -2269,6 +2413,22 @@ def run_p2_large(dev, ds, ref_f32: torch.Tensor,
     del f32, grads, p_grads, f_grads
     results = {}
     a2a_kernels(results, "all_to_all:f32", rec.bufs)
+    # the multi-head forward on shard 0's edges (its destinations, its
+    # extended rows), as the step's halo layers give it
+    src, dst = (torch.as_tensor(np.asarray(a[0], np.int32), device=dev)
+                for a in (plan.edge_src, plan.edge_dst))
+    n_src, n_out = plan.ext_size, plan.node_block
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    alpha = ops.segment_softmax_plain(3 * torch.randn(
+        len(dst), 4, device=dev, generator=gen), dst, n_out)
+    v = torch.randn(n_src, 4, 32, device=dev, generator=gen)
+    log(f"  kernels at shard 0: {n_out} destinations, {n_src} rows, "
+        f"{len(dst)} edge slots, H 4, D 32")
+    _compare(results, "spmm_multihead:f32:shard",
+             lambda: ops.spmm_multihead(v, src, dst, alpha, n_out),
+             lambda: ops.spmm_multihead_plain(v, src, dst, alpha, n_out),
+             SPARSE_TOL, nbytes(v, src, dst, alpha), 2 * len(dst) * 128,
+             library=multihead_library(src, dst, alpha, n_out, v))
     return launches, results
 
 
@@ -2610,7 +2770,7 @@ def main() -> int:
     ref_f32 = scorer.embeddings.clone()  # the plain refresh of phase 7
     log("== phase 7b: config4's model as configured (bf16) over 100,000 "
         "drugs")
-    served_bf16 = run_sparse_serving_bf16(dev, large, scorer)
+    served_bf16, fwd_bf16 = run_sparse_serving_bf16(dev, large, scorer)
     ref_bf16 = scorer.embeddings.float()  # the plain refresh of phase 7b
     del scorer
     gc.collect()
@@ -2646,7 +2806,7 @@ def main() -> int:
         "and GIN outer layers")
     p2_counts, a2a_small = run_p2(dev, ds)
     counts += [*streamed, *maxed, *sampled, hosted, *attended, *p2_counts]
-    for r in (fwd, bwd, c4, spmm, smax, spmm_bf16, a2a, a2a_small):
+    for r in (fwd, fwd_bf16, bwd, c4, spmm, smax, spmm_bf16, a2a, a2a_small):
         results.update(r)
 
     def row(name: str, form: str, paths) -> dict:
@@ -2664,6 +2824,25 @@ def main() -> int:
     # of paths G and G(ii), which give it that shape
     kernels.append(row("all_to_all:f32 (config5)", "all_to_all:f32",
                        p2_counts))
+    # rows 4 and 8 at the other shapes the paths give them, each with the
+    # launches of the paths that run that shape: the 100K graph in bf16
+    # (7b), the 16,384-drug graph (8 in f32, 8b in bf16), shard 0 of path
+    # H's plan, config4's sampled batch in float32 (no path: its step runs
+    # bf16)
+    for name, form, paths in (
+            ("segment_softmax:bf16:100k", "segment_softmax:bf16",
+             [served_bf16]),
+            ("spmm_multihead:bf16:100k", "spmm_multihead:bf16",
+             [served_bf16]),
+            ("segment_softmax:f32:16k", "segment_softmax:f32", trained[:1]),
+            ("segment_softmax:bf16:16k", "segment_softmax:bf16", trained[2:]),
+            ("segment_softmax_bwd:bf16:16k", "segment_softmax_bwd:bf16",
+             trained[2:]),
+            ("spmm_multihead:f32:shard", "spmm_multihead:f32", [p2_large]),
+            ("segment_softmax:f32:config4", "segment_softmax:f32", [stepped]),
+            ("segment_softmax_bwd:f32:config4", "segment_softmax_bwd:f32",
+             [stepped])):
+        kernels.append(row(name, form, paths))
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -20,10 +20,15 @@ The forms, at the shapes ``chip_smoke.py`` gives them:
 - ``all_to_all:f32``: config5's (G 4, S 432, F 132) and config5-large's
   (G 8, S 12,504, F 132) send buffers, random;
 - ``spmm_multihead{,_bwd}:f32``: the 16,384-drug outer graph, H 4, D 32;
-  ``spmm_multihead_bwd:f32:shard``: shard 0 of path H's 8-shard plan over
-  the 100K drugs (12,500 destinations, 112,532 extended rows, 2.0M edge
-  slots); ``spmm_multihead{,_bwd}:bf16``: config4's sampled outer graph;
-  ``spmm_multihead:f32:100k``: the 100K-drug outer graph (E 16.1M);
+  ``spmm_multihead{,_bwd}:f32:shard``: shard 0 of path H's 8-shard plan
+  over the 100K drugs (12,500 destinations, 112,532 extended rows, 2.0M
+  edge slots); ``spmm_multihead{,_bwd}:bf16``: config4's sampled outer
+  graph; ``spmm_multihead:{f32,bf16}:100k``: the 100K-drug outer graph
+  (E 16.1M);
+- ``segment_softmax{,_bwd}:{f32,bf16}``: scores over the dst of the
+  16,384-drug outer graph (E 2.6M, H 4); ``:config4``: over config4's
+  sampled outer graph; ``segment_softmax:{f32,bf16}:100k``: over the
+  100K-drug outer graph;
 - rows 5-7: ``segment_max:f32`` on the largest bucket of the DrugBank
   stand-in, F 128; ``spmm_sorted_coo{,_bwd}:f32{,:weighted}`` on the
   largest bucket of the stand-in with molecules up to 160 atoms, F 128
@@ -39,8 +44,9 @@ device generators, so all ROOTs see the same inputs.
 Each form, and its PyTorch yardstick where ``chip_smoke.py`` names one
 (``index_add_``, ``copy_``, ``torch.sparse.mm`` on a CSR matrix, the
 multi-head backward's ``torch.sparse.mm`` and ``sampled_addmm``,
-``torch.bmm`` over dense blocks; built outside the timing, from this
-checkout's ``chip_smoke.py``), is timed by CUDA events in two ways:
+``torch.sparse.softmax`` and its backward on a COO tensor, ``torch.bmm``
+over dense blocks; built outside the timing, from this checkout's
+``chip_smoke.py``), is timed by CUDA events in two ways:
 ``ms``, the mean of 10 calls after 3 warm-ups, as ``chip_smoke.py`` times
 it (the host's cost of a call can set this rate); ``device_ms``, the mean
 of 100 calls (25 of config2's 4 buckets, so that their launches fit the
@@ -50,17 +56,27 @@ host's time to queue them, which must stay below the sleep (lengthened to
 twice a probe of that time), or ``device_ms`` is null. ``lib_ms`` and
 ``lib_device_ms`` are the same for the yardstick. Each result is checked
 against the plain version (f32 within 1e-4, bf16 within 1e-2, of
-max(1, max |plain|); the exchange bit for bit). Prints one JSON line per
-ROOT; needs a CUDA card. ``bound_ms`` (the multi-head and block-local
-forms): the bytes the form must read and write over the H100's 3.35 TB/s,
-counted as ``chip_smoke.py`` counts them.
+max(1, max |plain|); the bf16 softmax forms value by value, as
+``chip_smoke.py`` holds them; the exchange bit for bit); a form that fails
+gets ``fails`` (the message, with both measures) and no times, and the
+ROOT's process exits 1 after its line. The softmax forms also get
+``kernels``: the device ms a call of each kernel they launch (the bounds
+pass, the walk), from ``torch.profiler``. Prints one JSON line per ROOT;
+needs a CUDA card. ``bound_ms`` (the softmax, multi-head and
+block-local forms): the bytes the form must read and write over the H100's
+3.35 TB/s, counted as ``chip_smoke.py`` counts them. ``digest``: a hash of
+the kernel's output bits; after the last ROOT a line ``same_bits`` lists,
+per form, whether every ROOT gave the same bits.
 """
 
 from __future__ import annotations
 
+import functools
+import hashlib
 import importlib.util
 import itertools
 import json
+import re
 import subprocess
 import sys
 import time
@@ -71,6 +87,7 @@ REPS, WARMUP = 10, 3
 DEVICE_REPS = 100  # launches of a form's calls stay below the queue's ~1,000
 CALLS = {"segment_sum:f32": 4}  # calls a form makes: its reps are divided
 SLEEP_CYCLES = 400_000_000  # ~0.2 s at the H100's 1.98 GHz boost clock
+TRACED = ("segment_softmax",)  # forms whose kernels are timed one by one
 
 
 def events_ms(fn, reps: int = REPS, warmup: int = WARMUP) -> float:
@@ -207,21 +224,28 @@ def build_inputs(root: str, path: Path) -> None:
     torch.save(out, path)
 
 
+@functools.cache
+def smoke():
+    """This checkout's chip_smoke.py, whatever ROOT is timed: its
+    yardsticks and its check."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_here", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
 def new_cases(dev, path: Path):
     """(name, kernel call, plain call, library call or None, tolerance) for
-    the segment sum, the gather backward, the exchange and the multi-head
-    SpMM."""
+    the segment sum, the gather backward, the exchange, the multi-head
+    SpMM and the softmax; a tolerance ``(tol, True)`` holds each value."""
     import torch
 
     from bignn_tpu_torch import ops
 
-    # the yardsticks of this checkout's chip_smoke.py, whatever ROOT is timed
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke_here", Path(__file__).resolve().parents[1] / "chip_smoke.py")
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
-    index_add_call, multihead_library = (smoke.index_add_call,
-                                         smoke.multihead_library)
+    index_add_call, multihead_library, softmax_library = (
+        smoke().index_add_call, smoke().multihead_library,
+        smoke().softmax_library)
 
     inp = torch.load(path)
     out = []
@@ -281,12 +305,18 @@ def new_cases(dev, path: Path):
                     lambda s=stacked, d=dst: d.copy_(s.transpose(0, 1)),
                     0.0))
 
-    def multihead(tag, seed, o, n_src, n_out, dtype, tol, forward=True):
+    def cpu_softmax(x, ids, n_seg):
+        """The plain softmax on the CPU, whose sums have a fixed order (on
+        the card ``index_add`` takes float atomics), so that every ROOT
+        gets the same bits."""
+        return ops.segment_softmax_plain(x.cpu(), ids.cpu(), n_seg).to(dev)
+
+    def multihead(tag, seed, o, n_src, n_out, dtype, tol):
         """The multi-head SpMM (H 4, D 32) over the edges of ``o``: alpha a
         softmax over dst of random scores; the library calls of
         ``chip_smoke.multihead_library``."""
         gen = torch.Generator(device=dev).manual_seed(seed)
-        alpha = ops.segment_softmax_plain(3 * torch.randn(
+        alpha = cpu_softmax(3 * torch.randn(
             len(o["dst"]), 4, device=dev, generator=gen), o["dst"],
             n_out).to(dtype)
         v = randn(seed + 1, n_src, 4, 32, dtype=dtype)
@@ -297,12 +327,11 @@ def new_cases(dev, path: Path):
         IN_BYTES[f"spmm_multihead_bwd:{tag}"] = nbytes(
             v, o["dst"], alpha, g, *(o[k] for k in ("perm", "ssorted")
                                      if k in o))
-        if forward:
-            out.append((f"spmm_multihead:{tag}",
-                        lambda: ops.spmm_multihead(*fwd),
-                        lambda: ops.spmm_multihead_plain(*fwd),
-                        multihead_library(o["src"], o["dst"], alpha, n_out,
-                                          v), tol))
+        out.append((f"spmm_multihead:{tag}",
+                    lambda: ops.spmm_multihead(*fwd),
+                    lambda: ops.spmm_multihead_plain(*fwd),
+                    multihead_library(o["src"], o["dst"], alpha, n_out, v),
+                    tol))
         if "perm" in o:
             bwd = (*fwd, g, o["perm"], o["ssorted"])
             out.append((f"spmm_multihead_bwd:{tag}",
@@ -315,12 +344,41 @@ def new_cases(dev, path: Path):
     sh = {k: v.to(dev) if torch.is_tensor(v) else v
           for k, v in inp["shard"].items()}
     multihead("f32:shard", 50, sh, sh["n_src"], sh["n_out"], torch.float32,
-              F32_TOL, forward=False)
+              F32_TOL)
     multihead("bf16", 60, o4, o4["n"], o4["n"], torch.bfloat16, BF16_TOL)
     big = {k: v.to(dev) if torch.is_tensor(v) else v
            for k, v in inp["outer100k"].items()}
     multihead("f32:100k", 70, big, big["n"], big["n"], torch.float32,
               F32_TOL)
+    multihead("bf16:100k", 75, big, big["n"], big["n"], torch.bfloat16,
+              BF16_TOL)
+
+    def softmax(tag, seed, ids, n_seg, backward=True):
+        """The segment softmax of random scores ``[E, 4]`` over ``ids``;
+        its backward on the plain forward's alpha and a random cotangent;
+        the library calls of ``chip_smoke.softmax_library``."""
+        dtype, tol = ((torch.bfloat16, (smoke().BF16_STEP, True))
+                      if "bf16" in tag else (torch.float32, F32_TOL))
+        x = 3 * randn(seed, len(ids), 4, dtype=dtype)
+        IN_BYTES[f"segment_softmax:{tag}"] = nbytes(x, ids)
+        out.append((f"segment_softmax:{tag}",
+                    lambda: ops.segment_softmax(x, ids, n_seg),
+                    lambda: ops.segment_softmax_plain(x, ids, n_seg),
+                    softmax_library(x, ids, n_seg), tol))
+        if backward:
+            alpha = cpu_softmax(x, ids, n_seg)
+            g = randn(seed + 1, len(ids), 4, dtype=dtype)
+            IN_BYTES[f"segment_softmax_bwd:{tag}"] = nbytes(alpha, g, ids)
+            out.append((f"segment_softmax_bwd:{tag}",
+                        lambda: ops.segment_softmax_bwd(alpha, g, ids, n_seg),
+                        lambda: ops.segment_softmax_bwd_plain(alpha, g, ids,
+                                                              n_seg),
+                        softmax_library(alpha, ids, n_seg, g), tol))
+
+    for t in ("f32", "bf16"):
+        softmax(t, 80, o["dst"], n)
+        softmax(f"{t}:config4", 82, o4["dst"], o4["n"])
+        softmax(f"{t}:100k", 84, big["dst"], big["n"], backward=False)
     return out
 
 
@@ -412,10 +470,46 @@ def cases(dev):
     return out
 
 
+def digest(tensors) -> str:
+    """A hash of the tensors' bits, to tell whether two trees give the
+    same result."""
+    import torch
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.contiguous().view(-1).view(torch.uint8).cpu().numpy()
+                 .tobytes())
+    return h.hexdigest()[:16]
+
+
 def _tensors(x) -> list:
     if isinstance(x, (list, tuple)):
         return [t for y in x for t in _tensors(y)]
     return [x]
+
+
+def kernel_ms(fn, reps: int = 20) -> dict:
+    """Device milliseconds a call of each kernel that ``fn`` launches, by
+    ``torch.profiler`` over ``reps`` calls; a kernel is named without its
+    arguments."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    per: dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            m = re.search(r"\w+(<[^(]*>)?(?=\()", e.name)
+            key = m.group(0) if m else e.name[:60]
+            per[key] = per.get(key, 0.0) + (
+                e.time_range.end - e.time_range.start) / 1e3 / reps
+    return per
 
 
 def run_one(root: str, inputs: Path) -> dict:
@@ -438,14 +532,17 @@ def run_one(root: str, inputs: Path) -> dict:
     with torch.no_grad():
         for name, kernel, plain, library, tol in (new_cases(dev, inputs)
                                                   + cases(dev)):
-            err = 0.0
-            got = _tensors(kernel())
-            for a, b in zip(got, _tensors(plain()), strict=True):
-                e = (a.float() - b.float()).abs().max().item()
-                err = max(err, e)
-                if not e <= tol * max(1.0, b.float().abs().max().item()):
-                    raise AssertionError(f"{name}: max_abs_err {e} off plain")
-            row = dict(max_abs_err=err)
+            tol, per_element = tol if isinstance(tol, tuple) else (tol, False)
+            got, want = _tensors(kernel()), _tensors(plain())
+            try:
+                err = smoke()._check_close(name, tuple(got), tuple(want),
+                                           tol, per_element)
+            except AssertionError as exc:
+                forms[name] = dict(fails=str(exc), digest=digest(got))
+                continue
+            row = dict(max_abs_err=err, digest=digest(got))
+            if name.startswith(TRACED):
+                row["kernels"] = kernel_ms(kernel)
             if name in IN_BYTES:
                 row["bound_ms"] = ((IN_BYTES[name] + nbytes(*got))
                                    / HBM_BYTES_PER_S * 1e3)
@@ -460,7 +557,8 @@ def run_one(root: str, inputs: Path) -> dict:
                 row[f"{tag}host_ms"], row[f"{tag}sleep_ms"] = host, slept
             forms[name] = row
     return dict(root=str(Path(root).resolve()), library=lib.name,
-                build_s=build_s, sleep_ms=sleep, forms=forms)
+                build_s=build_s, sleep_ms=sleep, forms=forms,
+                fails=[k for k, v in forms.items() if "fails" in v])
 
 
 def _child(*args: str) -> str:
@@ -477,9 +575,9 @@ def main() -> int:
         build_inputs(sys.argv[2], Path(sys.argv[3]))
         return 0
     if len(sys.argv) == 4 and sys.argv[1] == "--one":
-        print(json.dumps(run_one(sys.argv[2], Path(sys.argv[3]))),
-              flush=True)
-        return 0
+        result = run_one(sys.argv[2], Path(sys.argv[3]))
+        print(json.dumps(result), flush=True)
+        return 1 if result["fails"] else 0
     roots = sys.argv[1:]
     if not roots:
         raise SystemExit(__doc__)
@@ -491,9 +589,16 @@ def main() -> int:
     t0 = time.perf_counter()
     _child("--inputs", str(INPUTS.parents[1]), str(INPUTS))
     print(f"inputs: {time.perf_counter() - t0:.1f} s -> {INPUTS}", flush=True)
+    digests = {}
     for root in roots:
-        print(_child("--one", root, str(INPUTS)).strip().splitlines()[-1],
-              flush=True)
+        lines = _child("--one", root, str(INPUTS)).strip().splitlines()
+        print("\n".join(lines), flush=True)
+        line = lines[-1]
+        for name, row in json.loads(line)["forms"].items():
+            digests.setdefault(name, set()).add(row["digest"])
+    print(json.dumps({"same_bits": {k: len(v) == 1
+                                    for k, v in digests.items()}}),
+          flush=True)
     return 0
 
 

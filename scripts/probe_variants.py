@@ -1,0 +1,274 @@
+"""Time variants of a kernel's constants on one card, without editing the
+source.
+
+    python3 scripts/probe_variants.py KIND:V[:V ...] [KIND:V[:V ...] ...]
+
+Each variant is the checkout's source with the KIND's constants set to the
+values V, in this order:
+
+- ``mhb``: the multi-head SpMM backward (``csrc/spmm_multihead.cu``,
+  ``mh_backward``): ``kRowsInFlight``, ``kBwdMinBlocks``, ``kBwdWarps``;
+- ``mhf``: its forward (``mh_forward``): ``kFwdRows``, ``kFwdMinBlocks``,
+  ``kFwdWarps``;
+- ``smf``: the segment-softmax forward (``csrc/segment_softmax.cu``,
+  ``softmax_fwd``): ``kRows`` (rows a lane holds in registers),
+  ``kFwdMinBlocks``, ``kWarpsPerBlock``;
+- ``smb``: its backward (``softmax_bwd``): ``kWarpsPerBlock``.
+
+Each is built alone with ``nvcc`` (the flags of ``ops/cuda_lib.py``) into
+``build/probe/`` and bound by ctypes. The inputs are those of
+``scripts/compare_kernel_trees.py`` (``build/compare_inputs.pt``, built as
+that script builds it when it is missing), H 4, D 32: the multi-head SpMM
+over the 16,384-drug outer graph (f32), shard 0 of path H's plan (f32),
+config4's sampled outer graph (bf16) and, forward only, the 100K-drug
+outer graph (f32); the softmax over the dst of the 16,384-drug graph (f32;
+the backward also bf16), config4's graph (bf16) and, forward only, the
+100K-drug graph (f32, bf16). Each result is held against the plain version
+as ``scripts/compare_kernel_trees.py`` holds it and timed as that script
+times a form (``device_ms``: 100 calls queued behind a device sleep).
+Prints the card, then one JSON line per variant with its registers.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import json
+import re
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+from typing import NamedTuple
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "scripts"))
+
+import torch  # noqa: E402
+
+import compare_kernel_trees as ckt  # noqa: E402
+from bignn_tpu_torch import ops  # noqa: E402
+from bignn_tpu_torch.ops import cuda_lib  # noqa: E402
+
+
+def _stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def _bounds(n: int, dev) -> tuple[torch.Tensor, torch.Tensor]:
+    return tuple(torch.empty(n, dtype=torch.int32, device=dev)
+                 for _ in range(2))
+
+
+def call_mhb(fn, v, src, dst, alpha, n_out, g, perm, ssorted):
+    n, heads, head_dim = v.shape
+    d_v, d_alpha = torch.empty_like(v), torch.zeros_like(alpha)
+    first, last = _bounds(n, v.device)
+    return fn(v.data_ptr(), g.data_ptr(), dst.data_ptr(), alpha.data_ptr(),
+              perm.data_ptr(), ssorted.data_ptr(), src.shape[0], n, n_out,
+              heads, head_dim, first.data_ptr(), last.data_ptr(),
+              d_v.data_ptr(), d_alpha.data_ptr(), _stream()), (d_v, d_alpha)
+
+
+def call_mhf(fn, v, src, dst, alpha, n_out):
+    n, heads, head_dim = v.shape
+    out = torch.empty((n_out, heads, head_dim), dtype=v.dtype,
+                      device=v.device)
+    first, last = _bounds(n_out, v.device)
+    return fn(v.data_ptr(), src.data_ptr(), dst.data_ptr(), alpha.data_ptr(),
+              src.shape[0], n, n_out, heads, head_dim, first.data_ptr(),
+              last.data_ptr(), out.data_ptr(), _stream()), (out,)
+
+
+def call_smf(fn, x, ids, n_seg):
+    alpha = torch.empty_like(x)
+    first, last = _bounds(n_seg, x.device)
+    return fn(x.data_ptr(), ids.data_ptr(), x.shape[0], x.shape[1], n_seg,
+              first.data_ptr(), last.data_ptr(), alpha.data_ptr(),
+              _stream()), (alpha,)
+
+
+def call_smb(fn, alpha, g, ids, n_seg):
+    d_x = torch.empty_like(alpha)
+    first, last = _bounds(n_seg, alpha.device)
+    return fn(alpha.data_ptr(), g.data_ptr(), ids.data_ptr(), alpha.shape[0],
+              alpha.shape[1], n_seg, first.data_ptr(), last.data_ptr(),
+              d_x.data_ptr(), _stream()), (d_x,)
+
+
+def _graphs(dev) -> dict:
+    inp = torch.load(ckt.INPUTS)
+    return {k: {n: t.to(dev) if torch.is_tensor(t) else t
+                for n, t in inp[k].items()}
+            for k in ("outer", "shard", "config4", "outer100k")}
+
+
+def _scores(o, seed: int, dtype):
+    gen = torch.Generator(device=o["dst"].device).manual_seed(seed)
+    return (3 * torch.randn(len(o["dst"]), 4, device=o["dst"].device,
+                            generator=gen)).to(dtype)
+
+
+def mh_cases(graphs, backward: bool) -> list:
+    """(tag, arguments, plain result) of the multi-head SpMM."""
+    out = []
+    for tag, key, n_src, n_out, dtype in (
+            ("f32", "outer", "n", "n", torch.float32),
+            ("f32:shard", "shard", "n_src", "n_out", torch.float32),
+            ("bf16", "config4", "n", "n", torch.bfloat16),
+            ("f32:100k", "outer100k", "n", "n", torch.float32)):
+        o = graphs[key]
+        if backward and "perm" not in o:
+            continue
+        alpha = ops.segment_softmax_plain(_scores(o, 0, torch.float32),
+                                          o["dst"], o[n_out]).to(dtype)
+        gen = torch.Generator(device=alpha.device).manual_seed(1)
+        v = torch.randn(o[n_src], 4, 32, device=alpha.device,
+                        generator=gen).to(dtype)
+        args = (v, o["src"], o["dst"], alpha, o[n_out])
+        if backward:
+            g = torch.randn(o[n_out], 4, 32, device=alpha.device,
+                            generator=gen).to(dtype)
+            args = (*args, g, o["perm"], o["ssorted"])
+            out.append((tag, args, ops.spmm_multihead_bwd_plain(*args)))
+        else:
+            out.append((tag, args, (ops.spmm_multihead_plain(*args),)))
+    return out
+
+
+def softmax_cases(graphs, backward: bool) -> list:
+    """(tag, arguments, plain result) of the segment softmax."""
+    out = []
+    for tag, key, dtype, directions in (
+            ("f32", "outer", torch.float32, "fb"),
+            ("bf16", "outer", torch.bfloat16, "b"),
+            ("bf16:config4", "config4", torch.bfloat16, "fb"),
+            ("f32:100k", "outer100k", torch.float32, "f"),
+            ("bf16:100k", "outer100k", torch.bfloat16, "f")):
+        if ("b" if backward else "f") not in directions:
+            continue
+        o = graphs[key]
+        x = _scores(o, 2, dtype)
+        if backward:
+            alpha = ops.segment_softmax_plain(x, o["dst"], o["n"])
+            g = _scores(o, 3, dtype) / 3
+            args = (alpha, g, o["dst"], o["n"])
+            out.append((tag, args, (ops.segment_softmax_bwd_plain(*args),)))
+        else:
+            args = (x, o["dst"], o["n"])
+            out.append((tag, args, (ops.segment_softmax_plain(*args),)))
+    return out
+
+
+class Kind(NamedTuple):
+    source: str
+    constants: tuple[str, ...]
+    kernel: str  # whose registers ptxas reports
+    entry: str  # the C entry point, less its type
+    call: object
+    cases: object  # graphs -> [(tag, arguments, plain result)]
+
+
+KINDS = {
+    "mhb": Kind("spmm_multihead.cu",
+                ("kRowsInFlight", "kBwdMinBlocks", "kBwdWarps"),
+                "mh_backward", "bignn_spmm_multihead_bwd_", call_mhb,
+                lambda gr: mh_cases(gr, True)),
+    "mhf": Kind("spmm_multihead.cu",
+                ("kFwdRows", "kFwdMinBlocks", "kFwdWarps"), "mh_forward",
+                "bignn_spmm_multihead_fwd_", call_mhf,
+                lambda gr: mh_cases(gr, False)),
+    "smf": Kind("segment_softmax.cu",
+                ("kRows", "kFwdMinBlocks", "kWarpsPerBlock"), "softmax_fwd",
+                "bignn_segment_softmax_fwd_", call_smf,
+                lambda gr: softmax_cases(gr, False)),
+    "smb": Kind("segment_softmax.cu", ("kWarpsPerBlock",), "softmax_bwd",
+                "bignn_segment_softmax_bwd_", call_smb,
+                lambda gr: softmax_cases(gr, True)),
+}
+
+
+def build_variant(kind: str, values: tuple[int, ...]):
+    """The variant's entry points by type, and the kernel's registers."""
+    k = KINDS[kind]
+    out = ROOT / "build" / "probe" / f"{kind}_{'_'.join(map(str, values))}"
+    if out.exists():
+        shutil.rmtree(out)
+    shutil.copytree(cuda_lib.CSRC, out / "csrc")
+    src = out / "csrc" / k.source
+    text = src.read_text()
+    for name, value in zip(k.constants, values):
+        text, n = re.subn(rf"constexpr int {name} = \d+;",
+                          f"constexpr int {name} = {value};", text)
+        if n != 1:
+            raise SystemExit(f"{name} not found once in {src}")
+    src.write_text(text)
+    lib = out / "libprobe.so"
+    proc = subprocess.run(
+        [cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS, "-shared", "-o", str(lib),
+         str(src)], capture_output=True, text=True, check=False)
+    if proc.returncode:
+        raise SystemExit(proc.stdout + proc.stderr)
+    cdll = ctypes.CDLL(str(lib))
+    entries = {}
+    for t in ("f32", "bf16"):
+        fn = getattr(cdll, k.entry + t)
+        fn.argtypes = [*cuda_lib._SIGNATURES[k.entry + t], ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        entries[t] = fn
+    registers = sorted({int(r) for r in re.findall(
+        rf"{k.kernel}.*?Used (\d+) registers", proc.stdout + proc.stderr,
+        flags=re.S)})
+    return entries, registers
+
+
+def main() -> int:
+    variants = []
+    for a in sys.argv[1:]:
+        kind, *values = a.split(":")
+        if kind not in KINDS or len(values) != len(KINDS[kind].constants):
+            raise SystemExit(__doc__)
+        variants.append((kind, tuple(int(x) for x in values)))
+    if not variants:
+        raise SystemExit(__doc__)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip()
+    print(f"card: {card}", flush=True)
+    dev = torch.device("cuda")
+    if not ckt.INPUTS.exists():
+        ckt.build_inputs(str(ROOT), ckt.INPUTS)
+    sleep = ckt.sleep_ms()
+    check = ckt.smoke()._check_close
+    with torch.no_grad():
+        graphs = _graphs(dev)
+        cases = {kind: KINDS[kind].cases(graphs)
+                 for kind in {kind for kind, _ in variants}}
+        for kind, values in variants:
+            k = KINDS[kind]
+            entries, registers = build_variant(kind, values)
+            row = dict(zip(k.constants, values), kind=kind,
+                       registers=registers)
+            for tag, args, want in cases[kind]:
+                fn = entries[tag.split(":")[0]]
+
+                def run(fn=fn, args=args):
+                    rc, got = k.call(fn, *args)
+                    if rc:
+                        raise RuntimeError(f"{kind} {values} {tag}: CUDA "
+                                           f"error {rc}")
+                    return got
+
+                per_element = kind.startswith("sm") and "bf16" in tag
+                tol = (ckt.smoke().BF16_STEP if per_element
+                       else ckt.BF16_TOL if "bf16" in tag else ckt.F32_TOL)
+                check(f"{kind} {values} {tag}", run(), want, tol, per_element)
+                dms, host, slept = ckt.device_ms(run, sleep, ckt.DEVICE_REPS)
+                row[tag] = dms if host < slept else None
+            print(json.dumps(row), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

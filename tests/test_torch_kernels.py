@@ -86,6 +86,15 @@ def _on(device, *arrays):
     return [torch.from_numpy(a).to(device) for a in arrays]
 
 
+def _equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal values, NaN where NaN (a +inf score gives NaN rows)."""
+    try:
+        torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+    except AssertionError:
+        return False
+    return True
+
+
 def _cases(device):
     """name -> (kernel call, plain call) on small inputs on ``device``."""
     rng = np.random.default_rng(0)
@@ -237,6 +246,99 @@ def _mh_hard_cases(rng, device, dtype, tag):
         cases[f"spmm_multihead_bwd{tag}_{name}"] = (
             lambda a=args, g=gg, s=sort: ops.spmm_multihead_bwd(*a, g, *s),
             lambda a=args, g=gg: ops.spmm_multihead_bwd_plain(*a, g))
+    # hubdst: destination 7 on 1,000 more edges among short ones (the
+    # forward shares it among a block's warps); alpha positive, so its
+    # 1,000-term sums do not cancel
+    src, dst, _, _ = _edge_list(rng, n, 3000)
+    src = np.concatenate([src, rng.integers(0, n, 1000).astype(np.int32)])
+    dst = np.concatenate([dst, np.full(1000, 7, np.int32)])
+    order = np.argsort(dst, kind="stable")  # the padding stays last
+    hub_ids = _on(device, src[order], dst[order])
+    (hub_alpha,) = _on(device, rng.random((len(src), heads)).astype(
+        np.float32))
+    hub = (v, *hub_ids, hub_alpha.to(dtype), n)
+    cases[f"spmm_multihead{tag}_hubdst"] = (
+        lambda: ops.spmm_multihead(*hub),
+        lambda: ops.spmm_multihead_plain(*hub))
+    return cases
+
+
+def _softmax_ids(rng, lengths, num_segments):
+    """Sorted segment ids with the given run lengths (segment s has
+    ``lengths[s]`` rows, then one or two rows each up to num_segments - 1),
+    where half the segments have a run of padding ids (num_segments) inside
+    their range (holes, ROADMAP F1), and 20 padding rows at the end."""
+    parts = []
+    for s in range(num_segments):
+        rows = lengths[s] if s < len(lengths) else int(rng.integers(1, 3))
+        cut = int(rng.integers(0, rows + 1))
+        parts.append(np.full(cut, s))
+        if rng.random() < 0.5 and 0 < cut < rows:
+            parts.append(np.full(rng.integers(1, 40), num_segments))
+        parts.append(np.full(rows - cut, s))
+    parts.append(np.full(20, num_segments))
+    return np.concatenate(parts).astype(np.int32)
+
+
+def _softmax_hard_cases(rng, device, dtype, tag):
+    """The segment softmax on inputs its forward finds hard, in ``dtype``
+    (case names ``segment_softmax{,_bwd}{tag}_<case>``): ``lengths_h<H>``,
+    segments of 1, 32, 256, 257 and 1,000 rows (the register path and the
+    long path) with holes, H 1, 3 and 8; ``short`` (forward only), 200
+    segments of 1-2 rows on average (the forward's one row a lane) with
+    some of 32, 33 and 100 rows and holes; ``inf`` (forward only), an
+    all--inf segment, a segment with one +inf score and a -inf score among
+    finite ones; ``unaligned``, x, alpha and g as views 4 (f32) or 2 (bf16)
+    bytes off 16 (off 8 and 4: single values, not pairs or words); and
+    ``nosegments`` (forward only), no segment at all, every row dropped."""
+    cases = {}
+    ids = _softmax_ids(rng, (1, 32, 256, 257, 1000), 40)
+    (ids_t,) = _on(device, ids)
+    for heads in (1, 3, 8):
+        x, g = (t.to(dtype) for t in _on(device, *(
+            (4 * rng.standard_normal((len(ids), heads))).astype(np.float32)
+            for _ in range(2))))
+        alpha = ops.segment_softmax_plain(x, ids_t, 40)
+        cases[f"segment_softmax{tag}_lengths_h{heads}"] = (
+            lambda x=x: ops.segment_softmax(x, ids_t, 40),
+            lambda x=x: ops.segment_softmax_plain(x, ids_t, 40))
+        cases[f"segment_softmax_bwd{tag}_lengths_h{heads}"] = (
+            lambda a=alpha, g=g: ops.segment_softmax_bwd(a, g, ids_t, 40),
+            lambda a=alpha, g=g: ops.segment_softmax_bwd_plain(a, g, ids_t,
+                                                               40))
+    x = 4 * rng.standard_normal((len(ids), 4)).astype(np.float32)
+    x[ids == 0] = -np.inf
+    x[np.flatnonzero(ids == 1)[0], 2] = np.inf
+    x[np.flatnonzero(ids == 2)[3], 1] = -np.inf
+    x[np.flatnonzero(ids == 4)[500], 0] = -np.inf  # the long path
+    (xi,) = _on(device, x)
+    xi = xi.to(dtype)
+    cases[f"segment_softmax{tag}_inf"] = (
+        lambda: ops.segment_softmax(xi, ids_t, 40),
+        lambda: ops.segment_softmax_plain(xi, ids_t, 40))
+    x, g = (t.to(dtype) for t in _on(device, *(
+        rng.standard_normal((len(ids), 4)).astype(np.float32)
+        for _ in range(2))))
+    alpha = ops.segment_softmax_plain(x, ids_t, 40)
+    xo, ao, go = _off16(x), _off16(alpha), _off16(g)
+    cases[f"segment_softmax{tag}_unaligned"] = (
+        lambda: ops.segment_softmax(xo, ids_t, 40),
+        lambda: ops.segment_softmax_plain(xo, ids_t, 40))
+    cases[f"segment_softmax_bwd{tag}_unaligned"] = (
+        lambda: ops.segment_softmax_bwd(ao, go, ids_t, 40),
+        lambda: ops.segment_softmax_bwd_plain(ao, go, ids_t, 40))
+    cases[f"segment_softmax{tag}_nosegments"] = (
+        lambda: ops.segment_softmax(x, ids_t, 0),
+        lambda: ops.segment_softmax_plain(x, ids_t, 0))
+    # short: segments of 1-2 rows on average (one row a lane in registers),
+    # with some of 32, 33 and 100 rows and holes (the sweeps)
+    short = _softmax_ids(rng, (1, 32, 33, 100), 200)
+    xs, ids_s = _on(device, 4 * rng.standard_normal(
+        (len(short), 4)).astype(np.float32), short)
+    xs = xs.to(dtype)
+    cases[f"segment_softmax{tag}_short"] = (
+        lambda: ops.segment_softmax(xs, ids_s, 200),
+        lambda: ops.segment_softmax_plain(xs, ids_s, 200))
     return cases
 
 
@@ -299,6 +401,8 @@ def _sparse_cases(device):
         lambda a=args, g=g: ops.spmm_multihead_bwd_plain(*a, g))
     cases.update(_mh_hard_cases(np.random.default_rng(13), device,
                                 torch.float32, ""))
+    cases.update(_softmax_hard_cases(np.random.default_rng(15), device,
+                                     torch.float32, ""))
     src, dst, perm, ssorted = _on(device, *_edge_list(rng, 40, 400))
     (table,) = _on(device, rng.standard_normal((len(src), 4)).astype(
         np.float32))
@@ -314,12 +418,15 @@ def _sparse_cases(device):
 
 MH_TAGS = ("h4d32", "h8d32", "h2d3", "unsorted", "h1d32", "h1d3", "h4d3",
            "h8d3")
+SOFTMAX_HARD = ("lengths_h1", "lengths_h3", "lengths_h8", "unaligned")
 SPARSE_CASES = [
     *(f"segment_softmax_{t}" for t in ("sorted_h4", "holes_h8", "shuffled_h1",
-                                       "1d")),
+                                       "1d", "inf", "nosegments", "short")
+      + SOFTMAX_HARD),
     *(f"segment_softmax_bwd_{t}" for t in ("sorted_h4", "holes_h8",
-                                           "shuffled_h1")),
-    *(f"spmm_multihead_{t}" for t in MH_TAGS + ("empty", "unaligned")),
+                                           "shuffled_h1") + SOFTMAX_HARD),
+    *(f"spmm_multihead_{t}" for t in MH_TAGS + ("empty", "unaligned",
+                                                "hubdst")),
     *(f"spmm_multihead_bwd_{t}" for t in MH_TAGS + (
         "argsort", "hub", "empty", "unaligned")),
     "gather_bwd_sorted", "gather_bwd_perm"]
@@ -340,7 +447,7 @@ def test_sparse_plain_cases_run_on_cpu():
         got, want = kernel(), plain()
         for a, b in zip(got if isinstance(got, tuple) else (got,),
                         want if isinstance(want, tuple) else (want,)):
-            assert torch.equal(a, b), name
+            assert _equal(a, b), name
     assert [k.launches for k in counted] == before
 
 
@@ -502,7 +609,11 @@ def test_sparse_kernels_repeat_bit_for_bit_and_count(cuda_device):
     for name, kernel in (("segment_softmax", "segment_softmax_sorted_h4"),
                          ("segment_softmax_bwd",
                           "segment_softmax_bwd_sorted_h4"),
+                         ("segment_softmax", "segment_softmax_lengths_h8"),
+                         ("segment_softmax_bwd",
+                          "segment_softmax_bwd_lengths_h3"),
                          ("spmm_multihead", "spmm_multihead_h4d32"),
+                         ("spmm_multihead", "spmm_multihead_hubdst"),
                          ("spmm_multihead_bwd", "spmm_multihead_bwd_h4d32"),
                          ("spmm_multihead_bwd", "spmm_multihead_bwd_hub"),
                          ("gather_rows_sorted_grad_bwd", "gather_bwd_perm")):
@@ -630,6 +741,36 @@ def test_sparse_gat_train_step_on_card(cuda_device):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_spmm_multihead_fwd_unaligned_out_on_card(cuda_device, dtype):
+    """The forward's entry point with out (and then v too) 4 (f32) or 2
+    (bf16) bytes off 16, which the wrapper never passes: single values, the
+    plain version's result."""
+    from bignn_tpu_torch.ops import cuda_lib
+
+    rng = np.random.default_rng(17)
+    n, heads, head_dim = 60, 4, 32
+    src, dst, _, _ = _on(cuda_device, *_edge_list(rng, n, 600))
+    v, alpha = (t.to(dtype) for t in _on(
+        cuda_device, rng.standard_normal((n, heads, head_dim)).astype(
+            np.float32), rng.random((len(src), heads)).astype(np.float32)))
+    want = ops.spmm_multihead_plain(v, src, dst, alpha, n)
+    for vv in (v, _off16(v)):
+        out = _off16(torch.zeros_like(want))
+        first, last = (torch.empty(n, dtype=torch.int32, device=cuda_device)
+                       for _ in range(2))
+        cuda_lib.launch(
+            f"bignn_spmm_multihead_fwd_{cuda_lib.dtype_name(dtype)}",
+            cuda_device, vv.data_ptr(), src.data_ptr(), dst.data_ptr(),
+            alpha.data_ptr(), len(src), n, n, heads, head_dim,
+            first.data_ptr(), last.data_ptr(), out.data_ptr())
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(
+            out.float().cpu().numpy(), want.float().cpu().numpy(),
+            **(TOL if dtype == torch.float32 else BF16_TOL))
+
+
+@pytest.mark.gpu
 def test_spmm_multihead_past_int32_offsets_on_card(cuda_device):
     """E * H * D = 17M * 128 > 2**31: the [E, H*D] offsets of the plain
     version and every flat offset of the kernels are 64-bit. The forward is
@@ -749,6 +890,8 @@ def _dtype_cases(device):
         lambda a=args, g=g: ops.spmm_multihead_bwd_plain(*a, g))
     cases.update(_mh_hard_cases(np.random.default_rng(14), device, bf,
                                 "_bf16"))
+    cases.update(_softmax_hard_cases(np.random.default_rng(16), device, bf,
+                                     "_bf16"))
     src, dst, perm, ssorted = _on(device, *_edge_list(rng, 40, 400))
     (table,) = _on(device, rng.standard_normal((len(src), 4)).astype(
         np.float32))
@@ -768,10 +911,13 @@ DTYPE_CASES = [
     "block_adjacency_torch.int8", "block_adjacency_torch.int16",
     "block_adjacency_torch.bfloat16", "block_adjacency_bf16_weighted",
     *(f"segment_softmax{b}_bf16_{t}" for b in ("", "_bwd")
-      for t in ("holes_h4", "shuffled_h3")),
+      for t in ("holes_h4", "shuffled_h3") + SOFTMAX_HARD),
+    "segment_softmax_bf16_inf", "segment_softmax_bf16_nosegments",
+    "segment_softmax_bf16_short",
     *(f"spmm_multihead{b}_bf16_{t}" for b in ("", "_bwd")
       for t in ("h4d32", "h2d3", "unsorted", "h1d32", "h8d32", "h8d3",
                 "empty", "unaligned")),
+    "spmm_multihead_bf16_hubdst",
     "spmm_multihead_bwd_bf16_argsort", "spmm_multihead_bwd_bf16_hub",
     "gather_bwd_bf16_sorted", "gather_bwd_bf16_perm"]
 
@@ -795,7 +941,7 @@ def test_dtype_plain_cases_run_on_cpu():
     for name, (kernel, plain) in _dtype_cases("cpu").items():
         got, want = kernel(), plain()
         for a, b in zip(_outputs(got), _outputs(want)):
-            assert torch.equal(a, b), name
+            assert _equal(a, b), name
             assert a.dtype != torch.float32, name
     assert [k.launches for k in counted] == before
     cnt = _dtype_cases("cpu")["block_adjacency_torch.int8"][0]()
@@ -831,7 +977,9 @@ def test_dtype_kernels_repeat_bit_for_bit_and_count_by_dtype(cuda_device):
             ("segment_softmax", "segment_softmax_bf16_holes_h4", "bf16"),
             ("segment_softmax_bwd", "segment_softmax_bwd_bf16_holes_h4",
              "bf16"),
+            ("segment_softmax", "segment_softmax_bf16_lengths_h8", "bf16"),
             ("spmm_multihead", "spmm_multihead_bf16_h4d32", "bf16"),
+            ("spmm_multihead", "spmm_multihead_bf16_hubdst", "bf16"),
             ("spmm_multihead_bwd", "spmm_multihead_bwd_bf16_h4d32", "bf16"),
             ("spmm_multihead_bwd", "spmm_multihead_bwd_bf16_hub", "bf16"),
             ("gather_rows_sorted_grad_bwd", "gather_bwd_bf16_perm", "bf16")):
@@ -968,6 +1116,17 @@ def _streaming_cases(device):
     for feat in BLOCK_BF16_FEATS:
         block_cases(f"f{feat}", feat, False, True)
     block_cases("dense", 128, True, False)
+    # data as a view 4 (f32) or 2 (bf16) bytes off 16: single values, not
+    # bf16 pairs
+    rng = np.random.default_rng(18)
+    ids = _hole_ids(rng, 60)
+    x, i = _on(device, rng.standard_normal((len(ids), 128)).astype(
+        np.float32), ids)
+    for dt, name in ((torch.float32, ""), (bf, "_bf16")):
+        xo = _off16(x.to(dt))
+        cases[f"segment_max{name}_unaligned"] = (
+            lambda xo=xo: ops.segment_max(xo, i, 60),
+            lambda xo=xo: ops.segment_max_plain(xo, i, 60))
     return cases
 
 
@@ -986,7 +1145,8 @@ STREAMING_CASES = [
       for w in ("", "_weighted") for f in BLOCK_BF16_FEATS),
     *(f"segment_max_{t}" for t in ("holes_f128", "holes_f130", "shuffled_f8",
                                    "1d")),
-    "segment_max_bf16_holes_f128", "segment_max_bf16_holes_f130"]
+    "segment_max_bf16_holes_f128", "segment_max_bf16_holes_f130",
+    "segment_max_unaligned", "segment_max_bf16_unaligned"]
 
 
 def test_streaming_case_names_are_complete():

@@ -83,11 +83,18 @@ def _edges(rng, n, e, pad=37):
 
 
 @pytest.mark.parametrize("backend", ["xla", "pallas_interpret"])
-@pytest.mark.parametrize("heads", [0, 4])  # [E] and [E, H] scores
+# [E] and [E, H] scores; "long": H 4 and segment 5 on 600 more rows (the
+# card's forward holds a segment of up to 256 rows in registers and sweeps
+# a longer one)
+@pytest.mark.parametrize("heads", [0, 4, 8, "long"])
 def test_segment_softmax_fwd_and_vjp_match_jax(backend, heads):
     rng = np.random.default_rng(0)
     n, e = 50, 600
     ids = _sorted_ids(rng, n, e)
+    if heads == "long":
+        heads = 4
+        ids = np.sort(np.concatenate([ids, np.full(600, 5, np.int32)]))
+        e = len(ids)
     shape = (e, heads) if heads else (e,)
     x = (3 * rng.standard_normal(shape)).astype(np.float32)
     g = rng.standard_normal(shape).astype(np.float32)
@@ -140,19 +147,24 @@ def _mh_params():
     """(backend, precomputed, shape): 4 heads of 8 through both backends,
     with and without the source-sort arrays; through ``xla``, a hub source
     (source 7 on 1,000 more edges, so the card's backward shares it among a
-    block's warps) and 1 and 8 heads."""
+    block's warps), a hub destination (destination 7 on 1,000 more edges,
+    shared so by the card's forward) and 1 and 8 heads."""
     return [pytest.param(b, p, "h4", id=f"{p}-{b}")
             for p in (True, False) for b in ("xla", "pallas_interpret")] + [
         pytest.param("xla", True, s, id=f"{s}-xla")
-        for s in ("hub", "h1", "h8")]
+        for s in ("hub", "h1", "h8", "hubdst")]
 
 
 def _mh_edges(rng, n, e, shape):
     src, dst = _edges(rng, n, e)
-    if shape != "hub":
+    if shape not in ("hub", "hubdst"):
         return src, dst
-    src = np.concatenate([src, np.full(1000, 7, np.int32)])
-    dst = np.concatenate([dst, rng.integers(0, n - 3, 1000).astype(np.int32)])
+    hub = np.full(1000, 7, np.int32)
+    other = rng.integers(0, n - 3, 1000).astype(np.int32)
+    if shape == "hubdst":
+        hub, other = other, hub
+    src = np.concatenate([src, hub])
+    dst = np.concatenate([dst, other])
     order = np.argsort(dst, kind="stable")  # the padding stays last
     return src[order], dst[order]
 
