@@ -107,7 +107,6 @@ constexpr int kMaxFeat = 256;
 constexpr int kColsPerLane = kMaxFeat / 32;
 constexpr int kBoundsBytes = 2 * kBlockRows * 4;
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kMaxDevices = 64;
 
 // VEC: values of x a thread stages per load (16 bytes: 4 floats or 8 bf16;
 // 1 where F or x's alignment does not allow it).
@@ -555,32 +554,15 @@ __global__ void __launch_bounds__(kTcThreads, 3)
   }
 }
 
-// Allow `bytes` of dynamic shared memory for `kernel` on the current
-// device, once per device and size; `done` is the kernel's record of the
-// size allowed on each device.
-template <class Kernel>
-cudaError_t allow_smem(Kernel kernel, int bytes, int (&done)[kMaxDevices]) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < kMaxDevices && done[dev] >= bytes) return cudaSuccess;
-  err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err == cudaSuccess)  // the most shared memory: 2 CTAs an SM at F 128
-    err = cudaFuncSetAttribute(kernel,
-                               cudaFuncAttributePreferredSharedMemoryCarveout,
-                               cudaSharedmemCarveoutMaxShared);
-  if (err == cudaSuccess && dev < kMaxDevices) done[dev] = bytes;
-  return err;
-}
-
 template <class T, int VEC>
 int launch(const void* x, const void* src, const void* dst,
            const void* weight, const void* starts, int num_edges,
            int num_blocks, int feat, void* out, cudaStream_t st) {
-  static int done[kMaxDevices] = {};
+  static int done[bignn::kMaxDevices] = {};
   const int smem = kBlockRows * feat * 4 + kBoundsBytes;
-  const cudaError_t err = allow_smem(block_spmm<T, VEC>, smem, done);
+  // the most shared memory: 2 CTAs an SM at F 128
+  const cudaError_t err = bignn::allow_smem(block_spmm<T, VEC>, smem, done,
+                                            cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return static_cast<int>(err);
   block_spmm<T, VEC><<<num_blocks, kWarps * 32, smem, st>>>(
       static_cast<const T*>(x), static_cast<const int*>(src),
@@ -593,9 +575,10 @@ template <int VEC>
 int launch_tc(const void* x, const void* src, const void* dst,
               const void* starts, int num_edges, int num_blocks, int feat,
               void* out, cudaStream_t st) {
-  static int done[kMaxDevices] = {};
+  static int done[bignn::kMaxDevices] = {};
   const int smem = tc_smem_bytes(feat);
-  const cudaError_t err = allow_smem(block_spmm_tc<VEC>, smem, done);
+  const cudaError_t err = bignn::allow_smem(block_spmm_tc<VEC>, smem, done,
+                                            cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return static_cast<int>(err);
   block_spmm_tc<VEC><<<num_blocks, kTcThreads, smem, st>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const int*>(src),

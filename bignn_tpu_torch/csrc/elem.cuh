@@ -1,6 +1,8 @@
 // Element types of the kernels' data, shared by every source that takes more
 // than float32 (segment_sum.cu, segment_softmax.cu, spmm_multihead.cu,
-// block_adj.cu, spmm.cu, block_spmm.cu, segment_max.cu).
+// block_adj.cu, spmm.cu, block_spmm.cu, segment_max.cu), and the
+// shared-memory opt-in of the kernels that launch with more than 48 KiB
+// (block_spmm.cu, block_adj.cu, flash_gat_bwd.cu).
 //
 // Every sum runs in float32 whatever the stored type: a value is widened
 // with to_f32 when it is loaded and narrowed once, with round-to-nearest-even
@@ -245,6 +247,31 @@ inline bool pairs_ok<float>(int) {
 template <>
 inline bool pairs_ok<__nv_bfloat16>(int n) {
   return n % 2 == 0;
+}
+
+// Devices a kernel's record of its shared-memory opt-in covers.
+constexpr int kMaxDevices = 64;
+
+// Allow `bytes` of dynamic shared memory for `kernel` on the current device
+// (above 48 KiB a launch needs this opt-in), with its preferred carveout,
+// once per device and size: `done` is the kernel's record of the size
+// allowed on each device. Every source that launches with more than 48 KiB
+// calls it before its launch.
+template <class Kernel>
+inline cudaError_t allow_smem(Kernel kernel, int bytes,
+                              int (&done)[kMaxDevices],
+                              int carveout = cudaSharedmemCarveoutDefault) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kMaxDevices && done[dev] >= bytes) return cudaSuccess;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributePreferredSharedMemoryCarveout, carveout);
+  if (err == cudaSuccess && dev < kMaxDevices) done[dev] = bytes;
+  return err;
 }
 
 }  // namespace

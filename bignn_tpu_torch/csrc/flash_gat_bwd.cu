@@ -13,50 +13,73 @@
 // Replaces bignn_tpu/ops/pallas/flash_gat.py:_bwd_kernel (_flash_bwd), with
 // its NEG masking and min(e - lse, 0): a row with no edges has lse == NEG,
 // and without them exp(e - NEG) overflows. No [N, N, H] tensor is written.
+// On the TPU both products (G V^T and alpha^T G) are MXU matmuls.
 //
-// Design: the TPU kernel walks source blocks in order and keeps dsl
-// resident in VMEM across its sequential grid, which blocks running in
-// parallel cannot do. Here two kernels, launched one after the other by one
-// entry point, each own what they write, so no float atomics are needed
-// and a result repeats bit for bit:
-//   rows:    a block owns kTile destination rows of one head (grid
-//            (N / kTile, H), the forward's layout) and sweeps every source
-//            in chunks of kChunk, staging the cnt tile, score_r and v in
-//            shared memory; it writes dsl.
-//   columns: a block owns kTile source columns of one head and sweeps every
-//            destination in chunks of kChunk, staging the cnt tile, g,
-//            score_l, lse and delta; it writes dsr and dv (alpha goes
-//            through shared memory to the alpha^T g product).
-// Each thread of a block handles kPerThread pairs of one owned row (or
-// column) per chunk, strided by kParts so that a warp reads consecutive g/v
-// rows; g and v tiles are padded to kPad floats a row against bank
-// conflicts. Partial sums are combined in a fixed order.
+// What bounds it on the H100: operations. Per (d, s, h) pair it does the
+// D-wide dot g . v, the D-wide multiply-add into dv (here on the tensor
+// cores in 3xTF32, three TF32 products each), and the score, exp and d_z
+// in float32: at N 1,704, H 4, D 32 that is 3 x 1.49 GFLOP at TF32's 495
+// TFLOP/s (0.0090 ms) plus 0.07 GFLOP at float32's 67 (0.0010), 0.0101 ms
+// (chip_smoke.bound_ms, flash_bwd_flops); the inputs are 12 MB (cnt, read
+// once a head, from L2 after the first).
 //
-// What bounds it on the H100: both kernels recompute g . v, so at N=1704,
-// H=4, D=32 each does N^2 * H * D = 0.37 G FMAs (the column kernel twice
-// that, with alpha^T g) out of shared memory, plus N^2 * H exps: 428 blocks
-// of 4 warps, latency of the staged loads and of two barriers a chunk. The
-// price of holding no [N, N, H] tensor, as on the TPU.
+// Design: one kernel over (source tile of kTile columns, head, part of the
+// destination sweep) and a short reduction pass; no float atomics, every
+// sum in a fixed order, so a result repeats bit for bit.
+//   tiles: a block owns kTile sources of one head, stages their v rows in
+//     shared memory once, and sweeps its part of the destinations in chunks
+//     of kTile, g rows double-buffered by cp.async (16-byte copies where
+//     head_dim and the pointers allow, else 4-byte ones). Both products of
+//     a chunk, the 64 x 64 pair tile g v^T and dv += alpha^T g, are
+//     mma.sync m16n8k8 tensor-core tiles in 3xTF32: each float32 operand x
+//     is split into TF32 halves hi + lo, and a b = lo_a hi_b + hi_a lo_b +
+//     hi_a hi_b keeps float32-level products (plain TF32 keeps ~3 digits),
+//     each k-step's product added to the sum in float32 (mma_3xtf32).
+//     v is split once a block, alpha as the epilogue writes it, g as its
+//     fragments are loaded. The epilogue turns a lane's 16 dots into alpha
+//     and d_z in registers (the mask from L2, loaded while the copies fly)
+//     and writes alpha transposed, [s][d], for the second product.
+//     dsl sums over a lane group's sources by shuffles, then the block's two
+//     source halves in order, and goes to scratch, one partial a source
+//     tile; dsr sums over the sweep in registers, then over lane groups and
+//     the 4 destination quarters in order.
+//   splits: the sweep is cut into `splits` parts (blockIdx.z) so that the
+//     busiest SM has the fewest chunks (sweep_splits); each part writes its
+//     own dsr and dv partials to scratch.
+//   reduce: dsl = sum over source tiles, dsr and dv = sum over parts, in
+//     index order.
+// The wrapper allocates the scratch (bignn_flash_gat_bwd_scratch_f32 says
+// how much).
+//
+// Measured (NVIDIA H100 80GB HBM3, 700.00 W; device ms of a call from
+// scripts/compare_kernel_trees.py): N 1,704, H 4, D 32 (config2) 0.091 (the
+// port's first pair of kernels, which read both operands of every FMA from
+// shared memory and computed g . v twice, 0.405): 9.0x the bound; the tiles
+// 0.076-0.077, the reduction 0.005, and the epilogue (exp, mask loads from
+// L2) costs about as much as both products. scripts/probe_variants.py (kind
+// fgb): 1 block an SM 0.119, the sweep uncut 0.125. The same tiles with FFMA
+// register micro-tiles (16 x 16 threads, 4 x 4 pairs each, every float4 read
+// from shared memory feeding four FMAs) took 0.105 (4.5x their own bound at
+// float32's rate), and so did float32 FMAs for g . v with alpha^T g on
+// tensor cores; chaining the k-steps through the tensor cores' accumulator
+// took 0.088 but failed chip_smoke.py's step check (below). Plain TF32, one
+// hi x hi product a k-step, fails chip_smoke.py's kernel check at 8.6e-4 of
+// the scale and config2's step check on a_l at 5.4e-2 (limits 1e-4).
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "elem.cuh"
+
 namespace {
 
-constexpr int kTile = 16;     // rows (or columns) a block owns
-constexpr int kChunk = 64;    // sources (or destinations) per stage
-constexpr int kThreads = 128;
-constexpr int kParts = kThreads / kTile;           // 8 threads per owned row
-constexpr int kPerThread = kChunk / kParts;        // 8 pairs each per chunk
-constexpr int kOwnedPerWarp = kTile / (kThreads / 32);  // 4
+constexpr int kTile = 64;      // sources a block owns; destinations a chunk
+constexpr int kThreads = 256;  // 8 warps
 constexpr int kMaxHeadDim = 64;
-constexpr int kPad = kMaxHeadDim + 1;
-// row strides of the cnt / alpha tiles: a warp's 8 parts x 4 owned rows (or
-// columns) then fall on 32 different banks
-constexpr int kRowStride = kChunk + 8;
-constexpr int kColStride = kTile + 4;
-constexpr int kColsPerLane = kMaxHeadDim / 32;
+constexpr int kBlocksPerSm = 2;  // blocks an SM holds (launch bounds)
+constexpr int kMaxSplits = 16;   // parts of the sweep, at most (scratch)
+constexpr int kAlphaRow = kTile + 4;  // floats a row of alpha^T
 constexpr float kNeg = -1e30f;
 
 struct Inputs {
@@ -71,227 +94,449 @@ struct Inputs {
   float slope;
 };
 
-// alpha and d_z of one (d, s) pair, as _bwd_kernel computes them
-__device__ __forceinline__ float pair_dz(float c, float sl, float sr,
-                                         float lse, float delta, float dot,
-                                         float slope, float* alpha) {
-  const float z = sl + sr;
-  const float e = c > 0.f ? (z > 0.f ? z : slope * z) : kNeg;
-  const float a = c * expf(fminf(e - lse, 0.f));
-  const float de = a * (dot - delta);
-  *alpha = a;
-  return z > 0.f ? de : slope * de;
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(valid ? 16 : 0));
 }
 
-// rows [r0, r0 + count) of x[:, h, :] into tile[count][kPad], zero past n
-__device__ __forceinline__ void stage_rows(float (*tile)[kPad],
-                                           const float* __restrict__ x,
-                                           int r0, int count,
-                                           const Inputs& in, int h) {
-  const int cols = in.heads * in.head_dim;
-  for (int i = threadIdx.x; i < count * in.head_dim; i += kThreads) {
-    const int r = i / in.head_dim, c = i % in.head_dim;
-    tile[r][c] = r0 + r < in.n
-        ? x[static_cast<int64_t>(r0 + r) * cols + h * in.head_dim + c] : 0.f;
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
+                                          bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// rows [r0, r0 + kTile) of x[:, h, :] into tile (zero past n and head_dim),
+// by cp.async: 16 bytes a copy where vec, else 4
+template <int kDP>
+__device__ __forceinline__ void stage(float (*tile)[kDP + 4],
+                                      const float* __restrict__ x, int r0,
+                                      const Inputs& in, int h, bool vec) {
+  const int64_t cols = static_cast<int64_t>(in.heads) * in.head_dim;
+  if (vec) {
+    constexpr int kQuads = kDP / 4;
+    for (int i = threadIdx.x; i < kTile * kQuads; i += kThreads) {
+      const int r = i / kQuads, c = 4 * (i % kQuads);
+      const bool ok = r0 + r < in.n && c < in.head_dim;
+      cp_async16(&tile[r][c],
+                 ok ? x + (r0 + r) * cols + h * in.head_dim + c : x, ok);
+    }
+  } else {
+    for (int i = threadIdx.x; i < kTile * kDP; i += kThreads) {
+      const int r = i / kDP, c = i % kDP;
+      const bool ok = r0 + r < in.n && c < in.head_dim;
+      cp_async4(&tile[r][c],
+                ok ? x + (r0 + r) * cols + h * in.head_dim + c : x, ok);
+    }
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-    flash_gat_bwd_rows(Inputs in, float* __restrict__ dsl) {
-  __shared__ float s_cnt[kTile][kRowStride];
-  __shared__ float s_sr[kChunk];
-  __shared__ float s_v[kChunk][kPad];
-  __shared__ float s_g[kTile][kPad];
-  __shared__ float s_part[kTile][kParts];
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
 
-  const int tid = threadIdx.x, h = blockIdx.y;
-  const int d0 = blockIdx.x * kTile;
-  const int r = tid / kParts, part = tid % kParts;
-  const int d = d0 + r;
-  const bool live = d < in.n;
-  const float sl = live ? in.score_l[d * in.heads + h] : 0.f;
-  const float lse = live ? in.lse[d * in.heads + h] : kNeg;
-  const float delta = live ? in.delta[d * in.heads + h] : 0.f;
-  stage_rows(s_g, in.g, d0, kTile, in, h);
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
 
-  float acc = 0.f;
-  for (int s0 = 0; s0 < in.n; s0 += kChunk) {
-    for (int i = tid; i < kTile * kChunk; i += kThreads) {
-      const int rr = i / kChunk, j = i % kChunk;
-      s_cnt[rr][j] = (d0 + rr < in.n && s0 + j < in.n)
-          ? in.cnt[static_cast<int64_t>(d0 + rr) * in.n + s0 + j] : 0.f;
-    }
-    for (int j = tid; j < kChunk; j += kThreads) {
-      s_sr[j] = s0 + j < in.n ? in.score_r[(s0 + j) * in.heads + h] : 0.f;
-    }
-    stage_rows(s_v, in.v, s0, kChunk, in, h);
-    __syncthreads();
-    float dot[kPerThread];
+// c += a b on one m16n8k8 tile (a row-major 16 x 8, b column-major 8 x 8)
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a b in 3xTF32, the small terms first. The product of one k-step
+// goes to fresh registers and is added to c in float32: chained through
+// the tensor cores' accumulator, the k-steps' sums drift (a_l's gradient,
+// whose terms cancel, came off the plain step by 1.04e-4 of its scale
+// against 3.0e-5 this way and 1.6e-5 for float32 FMAs)
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4],
+                                           const uint32_t (&a_hi)[4],
+                                           const uint32_t (&a_lo)[4],
+                                           const uint32_t (&b_hi)[2],
+                                           const uint32_t (&b_lo)[2]) {
+  float p[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_tf32(p, a_lo, b_hi);
+  mma_tf32(p, a_hi, b_lo);
+  mma_tf32(p, a_hi, b_hi);
 #pragma unroll
-    for (int q = 0; q < kPerThread; ++q) dot[q] = 0.f;
-    for (int k = 0; k < in.head_dim; ++k) {
-      const float gk = s_g[r][k];
+  for (int r = 0; r < 4; ++r) c[r] += p[r];
+}
+
+// kDP: head_dim rounded up to 32 or 64; staged rows are zero past head_dim.
+template <int kDP>
+struct Smem {
+  static constexpr int kRow = kDP + 4;  // floats a staged row
+  float v_hi[kTile][kRow];              // the block's sources, split once
+  float v_lo[kTile][kRow];
+  float g[2][kTile][kRow];              // a chunk's destinations, 2 buffers
+  float alpha_hi[kTile][kAlphaRow];     // the chunk's alpha, [s][d], split
+  float alpha_lo[kTile][kAlphaRow];
+  float dsl_red[2][kTile];              // dsl of the two source halves
+};
+
+// One (source tile, head, part of the sweep): dsl partials of the tile to
+// dsl_part[tile], dsr and dv of the part to dsr_out[part], dv_out[part].
+// 8 warps. In g v^T warp w owns destinations 16 (w % 4) + [0, 16) and
+// sources 32 (w / 4) + [0, 32), four m16n8 tiles; in alpha^T g sources
+// 16 (w % 4) + [0, 16) and features (w / 4) kDP / 2 + [0, kDP / 2). A lane
+// holds the pairs of its fragments: destinations gid and gid + 8, sources
+// 8 t + 2 tig + {0, 1} of tile t.
+template <int kDP>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
+    flash_gat_bwd_tiles(Inputs in, bool vec, int splits,
+                        float* __restrict__ dsl_part,
+                        float* __restrict__ dsr_out,
+                        float* __restrict__ dv_out) {
+  static_assert(kThreads == 256 && kTile == 64, "8 warps, 64 x 64 pairs");
+  constexpr int kFeatTiles = kDP / 16;  // n8 tiles of dv a warp owns
+  extern __shared__ uint4 smem_raw[];
+  Smem<kDP>& sm = *reinterpret_cast<Smem<kDP>*>(smem_raw);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gid = lane / 4, tig = lane % 4;
+  const int tile = blockIdx.x, h = blockIdx.y, part = blockIdx.z;
+  const int n = in.n, heads = in.heads;
+  const int s0 = tile * kTile;
+  const int chunks = (n + kTile - 1) / kTile;
+  const int c_begin = static_cast<int64_t>(part) * chunks / splits;
+  const int c_end = static_cast<int64_t>(part + 1) * chunks / splits;
+  const int dr = 16 * (warp % 4), sc = 32 * (warp / 4);  // g v^T
+  const int ms = 16 * (warp % 4), fn = (warp / 4) * (kDP / 2);  // alpha^T g
+
+  stage<kDP>(sm.v_hi, in.v, s0, in, h, vec);
+  stage<kDP>(sm.g[0], in.g, c_begin * kTile, in, h, vec);
+  cp_async_commit();
+
+  // the lane's sources: j = 2 t + b is source sc + 8 t + 2 tig + b
+  float sr[8], dsr_acc[8], dv_acc[kFeatTiles][4];
 #pragma unroll
-      for (int q = 0; q < kPerThread; ++q) {
-        dot[q] += gk * s_v[part + kParts * q][k];
+  for (int j = 0; j < 8; ++j) {
+    const int s = s0 + sc + 8 * (j / 2) + 2 * tig + j % 2;
+    sr[j] = s < n ? in.score_r[s * heads + h] : 0.f;
+    dsr_acc[j] = 0.f;
+  }
+#pragma unroll
+  for (int t = 0; t < kFeatTiles; ++t)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) dv_acc[t][r] = 0.f;
+
+  for (int c = c_begin; c < c_end; ++c) {
+    const int buf = (c - c_begin) & 1;
+    const int d0 = c * kTile;
+    if (c + 1 < c_end) {
+      stage<kDP>(sm.g[buf ^ 1], in.g, d0 + kTile, in, h, vec);
+    }
+    cp_async_commit();
+    // the lane's destinations i (dr + gid + 8 i) and their mask, from L2
+    // while the copies fly
+    float sl[2], lse[2], delta[2], cnt[2][8];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int d = d0 + dr + gid + 8 * i;
+      const bool ok = d < n;
+      sl[i] = ok ? in.score_l[d * heads + h] : 0.f;
+      lse[i] = ok ? in.lse[d * heads + h] : kNeg;
+      delta[i] = ok ? in.delta[d * heads + h] : 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int s = s0 + sc + 8 * (j / 2) + 2 * tig + j % 2;
+        cnt[i][j] = ok && s < n
+            ? __ldg(in.cnt + static_cast<int64_t>(d) * n + s) : 0.f;
       }
     }
-#pragma unroll
-    for (int q = 0; q < kPerThread; ++q) {
-      const int j = part + kParts * q;
-      float alpha;
-      acc += pair_dz(s_cnt[r][j], sl, s_sr[j], lse, delta, dot[q], in.slope,
-                     &alpha);
-    }
+    cp_async_wait<1>();  // this chunk's g rows (and the tile's v) are in
     __syncthreads();
-  }
+    if (c == c_begin) {  // split v once: hi in place, lo beside it
+      for (int i = tid; i < kTile * kDP; i += kThreads) {
+        const int r = i / kDP, k = i % kDP;
+        uint32_t hi, lo;
+        split_tf32(sm.v_hi[r][k], hi, lo);
+        sm.v_hi[r][k] = __uint_as_float(hi);
+        sm.v_lo[r][k] = __uint_as_float(lo);
+      }
+      __syncthreads();
+    }
 
-  s_part[r][part] = acc;
+    // d_alpha = g v^T: four m16n8 tiles, k over the head's features
+    float (*gs)[Smem<kDP>::kRow] = sm.g[buf];
+    float dot[4][4];
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) dot[t][r] = 0.f;
+#pragma unroll
+    for (int k = 0; k < kDP; k += 8) {
+      uint32_t a_hi[4], a_lo[4];
+      split_tf32(gs[dr + gid][k + tig], a_hi[0], a_lo[0]);
+      split_tf32(gs[dr + gid + 8][k + tig], a_hi[1], a_lo[1]);
+      split_tf32(gs[dr + gid][k + tig + 4], a_hi[2], a_lo[2]);
+      split_tf32(gs[dr + gid + 8][k + tig + 4], a_hi[3], a_lo[3]);
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        const int s = sc + 8 * t + gid;
+        const uint32_t b_hi[2] = {__float_as_uint(sm.v_hi[s][k + tig]),
+                                  __float_as_uint(sm.v_hi[s][k + tig + 4])};
+        const uint32_t b_lo[2] = {__float_as_uint(sm.v_lo[s][k + tig]),
+                                  __float_as_uint(sm.v_lo[s][k + tig + 4])};
+        mma_3xtf32(dot[t], a_hi, a_lo, b_hi, b_lo);
+      }
+    }
+
+    // alpha and d_z of the lane's 16 pairs, as _bwd_kernel computes them;
+    // dsr sums the lane's two destinations in order, then over the chunks
+    float row[2] = {0.f, 0.f};
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int i = r / 2, j = 2 * t + r % 2;
+        const float z = sl[i] + sr[j];
+        const float e = cnt[i][j] > 0.f ? (z > 0.f ? z : in.slope * z) : kNeg;
+        const float a = cnt[i][j] * expf(fminf(e - lse[i], 0.f));
+        const float de = a * (dot[t][r] - delta[i]);
+        const float dz = z > 0.f ? de : in.slope * de;
+        uint32_t hi, lo;
+        split_tf32(a, hi, lo);
+        const int s = sc + 8 * t + 2 * tig + r % 2, d = dr + gid + 8 * i;
+        sm.alpha_hi[s][d] = __uint_as_float(hi);
+        sm.alpha_lo[s][d] = __uint_as_float(lo);
+        row[i] += dz;
+        dsr_acc[j] += dz;
+      }
+    // dsl: over the warp's 32 sources (a lane group), then the two halves
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float x = row[i];
+      x += __shfl_xor_sync(0xffffffffu, x, 1);
+      x += __shfl_xor_sync(0xffffffffu, x, 2);
+      if (tig == 0) sm.dsl_red[warp / 4][dr + gid + 8 * i] = x;
+    }
+    __syncthreads();  // alpha^T and the dsl halves are complete
+    if (tid < kTile && d0 + tid < n) {
+      dsl_part[(static_cast<int64_t>(tile) * n + d0 + tid) * heads + h] =
+          sm.dsl_red[0][tid] + sm.dsl_red[1][tid];
+    }
+
+    // dv += alpha^T g: kFeatTiles m16n8 tiles, k over the chunk's
+    // destinations
+#pragma unroll 2
+    for (int k = 0; k < kTile; k += 8) {
+      const uint32_t a_hi[4] = {
+          __float_as_uint(sm.alpha_hi[ms + gid][k + tig]),
+          __float_as_uint(sm.alpha_hi[ms + gid + 8][k + tig]),
+          __float_as_uint(sm.alpha_hi[ms + gid][k + tig + 4]),
+          __float_as_uint(sm.alpha_hi[ms + gid + 8][k + tig + 4])};
+      const uint32_t a_lo[4] = {
+          __float_as_uint(sm.alpha_lo[ms + gid][k + tig]),
+          __float_as_uint(sm.alpha_lo[ms + gid + 8][k + tig]),
+          __float_as_uint(sm.alpha_lo[ms + gid][k + tig + 4]),
+          __float_as_uint(sm.alpha_lo[ms + gid + 8][k + tig + 4])};
+#pragma unroll
+      for (int t = 0; t < kFeatTiles; ++t) {
+        const int f = fn + 8 * t + gid;
+        uint32_t b_hi[2], b_lo[2];
+        split_tf32(gs[k + tig][f], b_hi[0], b_lo[0]);
+        split_tf32(gs[k + tig + 4][f], b_hi[1], b_lo[1]);
+        mma_3xtf32(dv_acc[t], a_hi, a_lo, b_hi, b_lo);
+      }
+    }
+    __syncthreads();  // the buffer and alpha^T are free for the next chunk
+  }
+  cp_async_wait<0>();
+
+  // dsr: over the lane groups of a warp, then the 4 destination quarters
+  // in order
+  float* red = &sm.alpha_hi[0][0];  // [4][kTile]
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    float x = dsr_acc[j];
+    x += __shfl_xor_sync(0xffffffffu, x, 4);
+    x += __shfl_xor_sync(0xffffffffu, x, 8);
+    x += __shfl_xor_sync(0xffffffffu, x, 16);
+    if (gid == 0)
+      red[(warp % 4) * kTile + sc + 8 * (j / 2) + 2 * tig + j % 2] = x;
+  }
   __syncthreads();
-  if (tid < kTile && d0 + tid < in.n) {
+  const int64_t nh = static_cast<int64_t>(n) * heads;
+  if (tid < kTile && s0 + tid < n) {
     float sum = 0.f;
-    for (int p = 0; p < kParts; ++p) sum += s_part[tid][p];
-    dsl[(d0 + tid) * in.heads + h] = sum;
+    for (int q = 0; q < 4; ++q) sum += red[q * kTile + tid];
+    dsr_out[part * nh + (s0 + tid) * heads + h] = sum;
+  }
+  float* dv_p = dv_out + part * nh * in.head_dim;
+#pragma unroll
+  for (int t = 0; t < kFeatTiles; ++t)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int s = s0 + ms + gid + 8 * (r / 2);
+      const int f = fn + 8 * t + 2 * tig + r % 2;
+      if (s < n && f < in.head_dim)
+        dv_p[(static_cast<int64_t>(s) * heads + h) * in.head_dim + f] =
+            dv_acc[t][r];
+    }
+}
+
+// dsl = sum of the source tiles' partials; with splits > 1, dsr and dv =
+// sum of the parts' partials; each in index order.
+__global__ void flash_gat_bwd_reduce(
+    const float* __restrict__ dsl_part, int tiles,
+    const float* __restrict__ dsr_part, const float* __restrict__ dv_part,
+    int splits, int64_t nh, int64_t nhd, float* __restrict__ dsl,
+    float* __restrict__ dsr, float* __restrict__ dv) {
+  const int64_t step = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                        threadIdx.x;
+  for (int64_t i = first; i < nh; i += step) {
+    float a = 0.f;
+    for (int t = 0; t < tiles; ++t) a += dsl_part[t * nh + i];
+    dsl[i] = a;
+    if (splits > 1) {
+      float b = 0.f;
+      for (int k = 0; k < splits; ++k) b += dsr_part[k * nh + i];
+      dsr[i] = b;
+    }
+  }
+  if (splits > 1) {
+    for (int64_t i = first; i < nhd; i += step) {
+      float a = 0.f;
+      for (int k = 0; k < splits; ++k) a += dv_part[k * nhd + i];
+      dv[i] = a;
+    }
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-    flash_gat_bwd_cols(Inputs in, float* __restrict__ dsr,
-                       float* __restrict__ dv) {
-  __shared__ float s_cnt[kChunk][kColStride];
-  __shared__ float s_alpha[kChunk][kColStride];
-  __shared__ float s_g[kChunk][kPad];
-  __shared__ float s_sl[kChunk];
-  __shared__ float s_lse[kChunk];
-  __shared__ float s_delta[kChunk];
-  __shared__ float s_v[kTile][kPad];
-  __shared__ float s_part[kTile][kParts];
+int cdiv(int a, int b) { return (a + b - 1) / b; }
 
-  const int tid = threadIdx.x, h = blockIdx.y;
-  const int s0 = blockIdx.x * kTile;
-  const int c = tid / kParts, part = tid % kParts;
-  const int s = s0 + c;
-  const float sr = s < in.n ? in.score_r[s * in.heads + h] : 0.f;
-  const int warp = tid / 32, lane = tid % 32;
-  stage_rows(s_v, in.v, s0, kTile, in, h);
-
-  float acc = 0.f;
-  float acc_v[kOwnedPerWarp][kColsPerLane];
-#pragma unroll
-  for (int w = 0; w < kOwnedPerWarp; ++w)
-#pragma unroll
-    for (int k = 0; k < kColsPerLane; ++k) acc_v[w][k] = 0.f;
-
-  for (int d0 = 0; d0 < in.n; d0 += kChunk) {
-    for (int i = tid; i < kChunk * kTile; i += kThreads) {
-      const int ii = i / kTile, j = i % kTile;
-      s_cnt[ii][j] = (d0 + ii < in.n && s0 + j < in.n)
-          ? in.cnt[static_cast<int64_t>(d0 + ii) * in.n + s0 + j] : 0.f;
-    }
-    for (int i = tid; i < kChunk; i += kThreads) {
-      const bool ok = d0 + i < in.n;
-      const int at = (d0 + i) * in.heads + h;
-      s_sl[i] = ok ? in.score_l[at] : 0.f;
-      s_lse[i] = ok ? in.lse[at] : kNeg;
-      s_delta[i] = ok ? in.delta[at] : 0.f;
-    }
-    stage_rows(s_g, in.g, d0, kChunk, in, h);
-    __syncthreads();
-    float dot[kPerThread];
-#pragma unroll
-    for (int q = 0; q < kPerThread; ++q) dot[q] = 0.f;
-    for (int k = 0; k < in.head_dim; ++k) {
-      const float vk = s_v[c][k];
-#pragma unroll
-      for (int q = 0; q < kPerThread; ++q) {
-        dot[q] += s_g[part + kParts * q][k] * vk;
-      }
-    }
-#pragma unroll
-    for (int q = 0; q < kPerThread; ++q) {
-      const int i = part + kParts * q;
-      float alpha;
-      acc += pair_dz(s_cnt[i][c], s_sl[i], sr, s_lse[i], s_delta[i], dot[q],
-                     in.slope, &alpha);
-      s_alpha[i][c] = alpha;
-    }
-    __syncthreads();
-    // dv[s, :] += sum_d alpha[d, s] g[d, :]: a warp owns 4 columns, a lane
-    // one or two of the head's features
-#pragma unroll
-    for (int k = 0; k < kColsPerLane; ++k) {
-      const int f = lane + 32 * k;
-      if (f < in.head_dim) {
-#pragma unroll
-        for (int w = 0; w < kOwnedPerWarp; ++w) {
-          const int col = warp * kOwnedPerWarp + w;
-          float a = acc_v[w][k];
-#pragma unroll 16
-          for (int i = 0; i < kChunk; ++i) a += s_alpha[i][col] * s_g[i][f];
-          acc_v[w][k] = a;
-        }
-      }
-    }
-    __syncthreads();
+// Parts of the destination sweep: the count, up to kMaxSplits and one
+// chunk a part, whose busiest SM has the fewest chunks to do, blocks dealt
+// out in turn (ties: fewer parts, less scratch). N 1,704, H 4 on 132 SMs:
+// 108 tiles x 27 chunks; 7 parts give 6 blocks of 4 chunks on the busiest
+// SM (24 chunks; 22.1 on average), 1 part 27.
+int sweep_splits(int n, int heads) {
+  int dev = 0, sms = 132;
+  if (cudaGetDevice(&dev) == cudaSuccess) {
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   }
-
-  s_part[c][part] = acc;
-  __syncthreads();
-  if (tid < kTile && s0 + tid < in.n) {
-    float sum = 0.f;
-    for (int p = 0; p < kParts; ++p) sum += s_part[tid][p];
-    dsr[(s0 + tid) * in.heads + h] = sum;
-  }
-  const int cols = in.heads * in.head_dim;
-#pragma unroll
-  for (int k = 0; k < kColsPerLane; ++k) {
-    const int f = lane + 32 * k;
-    if (f < in.head_dim) {
-#pragma unroll
-      for (int w = 0; w < kOwnedPerWarp; ++w) {
-        const int col = s0 + warp * kOwnedPerWarp + w;
-        if (col < in.n) {
-          dv[static_cast<int64_t>(col) * cols + h * in.head_dim + f] =
-              acc_v[w][k];
-        }
-      }
+  const int chunks = cdiv(n, kTile);
+  const int64_t base = static_cast<int64_t>(chunks) * heads;
+  int best = 1;
+  int64_t best_load = INT64_MAX;
+  for (int k = 1; k <= kMaxSplits && k <= chunks; ++k) {
+    const int64_t load = (base * k + sms - 1) / sms * cdiv(chunks, k);
+    if (load < best_load) {
+      best = k;
+      best_load = load;
     }
   }
+  return best;
+}
+
+int64_t scratch_floats(int n, int heads, int head_dim, int splits) {
+  const int64_t nh = static_cast<int64_t>(n) * heads;
+  return cdiv(n, kTile) * nh + (splits > 1 ? splits * nh * (head_dim + 1) : 0);
+}
+
+template <int kDP>
+cudaError_t launch_tiles(const Inputs& in, bool vec, int splits,
+                         float* dsl_part, float* dsr_out, float* dv_out,
+                         cudaStream_t st) {
+  constexpr int kBytes = sizeof(Smem<kDP>);
+  static int done[bignn::kMaxDevices] = {};
+  const cudaError_t set =
+      bignn::allow_smem(flash_gat_bwd_tiles<kDP>, kBytes, done);
+  if (set != cudaSuccess) return set;
+  const dim3 grid(cdiv(in.n, kTile), in.heads, splits);
+  flash_gat_bwd_tiles<kDP><<<grid, kThreads, kBytes, st>>>(
+      in, vec, splits, dsl_part, dsr_out, dv_out);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
+// The float32 scratch bignn_flash_gat_bwd_f32 needs at this shape on the
+// current device, written to *floats (int64). Launches nothing; returns 0.
+int bignn_flash_gat_bwd_scratch_f32(int n, int heads, int head_dim,
+                                    void* floats, void* stream) {
+  (void)stream;
+  *static_cast<int64_t*>(floats) =
+      n > 0 && heads > 0
+          ? scratch_floats(n, heads, head_dim, sweep_splits(n, heads)) : 0;
+  return static_cast<int>(cudaSuccess);
+}
+
 // score_l/score_r/lse/delta [n, heads] f32, v/g [n, heads, head_dim] f32,
 // cnt [n, n] f32; dsl/dsr [n, heads] f32, dv [n, heads, head_dim] f32;
-// head_dim <= 64 (bignn_tpu_torch/ops/flash_gat.py checks it). Launches the
-// row and the column kernel on the stream; returns cudaGetLastError().
+// head_dim <= 64 (bignn_tpu_torch/ops/flash_gat.py checks it); scratch
+// [scratch_floats] f32, as bignn_flash_gat_bwd_scratch_f32 sizes it.
+// Launches the tile kernel and the reduction on the stream; returns
+// cudaGetLastError().
 int bignn_flash_gat_bwd_f32(const void* score_l, const void* score_r,
                             const void* v, const void* cnt, const void* lse,
                             const void* delta, const void* g, int n,
                             int heads, int head_dim, float slope, void* dsl,
-                            void* dsr, void* dv, void* stream) {
-  if (n > 0 && heads > 0 && head_dim > 0 && head_dim <= kMaxHeadDim) {
-    const Inputs in{static_cast<const float*>(score_l),
-                    static_cast<const float*>(score_r),
-                    static_cast<const float*>(v),
-                    static_cast<const float*>(cnt),
-                    static_cast<const float*>(lse),
-                    static_cast<const float*>(delta),
-                    static_cast<const float*>(g),
-                    n, heads, head_dim, slope};
-    const dim3 grid((n + kTile - 1) / kTile, heads);
-    const cudaStream_t st = static_cast<cudaStream_t>(stream);
-    flash_gat_bwd_rows<<<grid, kThreads, 0, st>>>(in,
-                                                  static_cast<float*>(dsl));
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    flash_gat_bwd_cols<<<grid, kThreads, 0, st>>>(
-        in, static_cast<float*>(dsr), static_cast<float*>(dv));
-  } else if (n > 0) {
+                            void* dsr, void* dv, void* scratch,
+                            long long scratch_size, void* stream) {
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  if (heads <= 0 || head_dim <= 0 || head_dim > kMaxHeadDim) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const int splits = sweep_splits(n, heads);
+  if (scratch_size < scratch_floats(n, heads, head_dim, splits)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Inputs in{static_cast<const float*>(score_l),
+                  static_cast<const float*>(score_r),
+                  static_cast<const float*>(v),
+                  static_cast<const float*>(cnt),
+                  static_cast<const float*>(lse),
+                  static_cast<const float*>(delta),
+                  static_cast<const float*>(g),
+                  n, heads, head_dim, slope};
+  const bool vec = head_dim % 4 == 0 &&
+                   (reinterpret_cast<uintptr_t>(v) |
+                    reinterpret_cast<uintptr_t>(g)) % 16 == 0;
+  const int64_t nh = static_cast<int64_t>(n) * heads;
+  float* dsl_part = static_cast<float*>(scratch);
+  float* dsr_out = static_cast<float*>(dsr);
+  float* dv_out = static_cast<float*>(dv);
+  if (splits > 1) {
+    dsr_out = dsl_part + cdiv(n, kTile) * nh;
+    dv_out = dsr_out + splits * nh;
+  }
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      head_dim <= 32
+          ? launch_tiles<32>(in, vec, splits, dsl_part, dsr_out, dv_out, st)
+          : launch_tiles<64>(in, vec, splits, dsl_part, dsr_out, dv_out, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t nhd = nh * head_dim;
+  const int64_t work = splits > 1 ? nhd : nh;
+  const int blocks = static_cast<int>(work / 256 + 1 < 1024 ? work / 256 + 1
+                                                            : 1024);
+  flash_gat_bwd_reduce<<<blocks, 256, 0, st>>>(
+      dsl_part, cdiv(n, kTile), dsr_out, dv_out, splits, nh, nhd,
+      static_cast<float*>(dsl), static_cast<float*>(dsr),
+      static_cast<float*>(dv));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -73,7 +73,11 @@ def block_adjacency(src: torch.Tensor, dst: torch.Tensor,
     ``weight`` is None, in ``out_dtype`` (float32, bfloat16, int8 or int16,
     as ``bignn_tpu/ops/spmm.py:block_adjacency``). Counts are exact; int8
     and int16 hold counts only, and the caller keeps them in range
-    (``MinibatchTrainer`` takes int8 while ``r_node**2 <= 127``).
+    (``MinibatchTrainer`` takes int8 while ``r_node**2 <= 127``). Nothing
+    checks that range: the kernel packs int8 and int16 cells into 32-bit
+    words, so a count past 255 (int8) or 65,535 (int16) is wrong in its
+    own cell, as in any version, and in the kernel also corrupts the next
+    cell of its word.
 
     ``src``/``dst`` are ``[E]`` int32 global ids, dst-sorted and block-local;
     ``estarts`` ``[N/128 + 1]`` int32 gives each block's edge range. A CPU

@@ -60,7 +60,9 @@ _SIGNATURES = {
     "bignn_flash_gat_fwd_f32": [_VP, _VP, _VP, _VP, _I32, _I32, _I32, _F32,
                                 _VP, _VP],
     "bignn_flash_gat_bwd_f32": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _I32, _I32,
-                                _I32, _F32, _VP, _VP, _VP],
+                                _I32, _F32, _VP, _VP, _VP, _VP, _I64],
+    # n, heads, head_dim, where to write the scratch's float count (int64)
+    "bignn_flash_gat_bwd_scratch_f32": [_I32, _I32, _I32, _VP],
     "bignn_segment_softmax_fwd_f32": _SOFTMAX_FWD,
     "bignn_segment_softmax_fwd_bf16": _SOFTMAX_FWD,
     "bignn_segment_softmax_bwd_f32": _SOFTMAX_BWD,

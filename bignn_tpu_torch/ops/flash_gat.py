@@ -12,6 +12,8 @@ gradient, and ``cnt`` gets none.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 import torch.nn.functional as F
 
@@ -117,11 +119,16 @@ def flash_gat_attention_bwd(score_l, score_r, v, cnt, lse, out, g,
     dsl = torch.empty((n, heads), dtype=torch.float32, device=dev)
     dsr = torch.empty((n, heads), dtype=torch.float32, device=dev)
     dv = torch.empty((n, heads, head_dim), dtype=torch.float32, device=dev)
+    # the kernel's partial sums (per source tile and per part of its sweep)
+    size = ctypes.c_int64()
+    cuda_lib.launch("bignn_flash_gat_bwd_scratch_f32", dev, n, heads,
+                    head_dim, ctypes.addressof(size))
+    scratch = torch.empty(size.value, dtype=torch.float32, device=dev)
     cuda_lib.launch("bignn_flash_gat_bwd_f32", dev, score_l.data_ptr(),
                     score_r.data_ptr(), v.data_ptr(), cnt.data_ptr(),
                     lse.data_ptr(), delta.data_ptr(), g.data_ptr(), n, heads,
                     head_dim, float(slope), dsl.data_ptr(), dsr.data_ptr(),
-                    dv.data_ptr())
+                    dv.data_ptr(), scratch.data_ptr(), size.value)
     cuda_lib.count(flash_gat_attention_bwd, torch.float32)
     return dsl, dsr, dv
 

@@ -155,8 +155,11 @@ segment_sum:bf16) set to 0 just before it and read just after; the kernels
 line reports the sum of the paths' counts, each form's error, times (kernel,
 plain version, and the one PyTorch call that computes the same function
 where there is one) and its bound: the larger of its bytes over 3.35 TB/s
-and its operations over 67 TFLOP/s (float32 outside the tensor cores, where
-every kernel here computes). all_to_all:f32 is timed at config5-large's
+and its operations over their peak rates: 67 TFLOP/s for float32 outside
+the tensor cores, and 495 TFLOP/s for TF32 on them, where the flash-GAT
+backward's two products run as 3xTF32 (three TF32 products each, counted
+three times; its elementwise work at 67, the two times added).
+all_to_all:f32 is timed at config5-large's
 send buffers; a second row, all_to_all:f32 (config5), at config5's, with
 the launches of paths G and G(ii). Rows 4 and 8 have rows at their other
 shapes too (segment_softmax:bf16:100k, spmm_multihead:bf16:100k,
@@ -248,6 +251,7 @@ TOPK_AGREE = 0.9
 C4_CHUNKS, C4_CHUNK = 64, 8  # 512 steps of config4 in chunks of 8
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
+TF32_FLOPS = 495e12  # H100 SXM TF32 on the tensor cores, dense
 # kernels a trace lists wherever they rank: the segment kernels' bounds
 # pass and the segment sums
 TRACE_ALWAYS = ("find_bounds", "init_bounds", "sum_segments")
@@ -284,24 +288,36 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bound_ms(num_bytes: float, flops: float = 0.0) -> tuple[float, str]:
+def bound_ms(num_bytes: float, flops: float = 0.0,
+             tf32_flops: float = 0.0) -> tuple[float, str]:
     """The least time the card could take: bytes over the memory rate or
-    operations over the float32 rate, whichever is larger."""
+    operations over their peak rates, whichever is larger. ``flops`` run in
+    float32 outside the tensor cores, ``tf32_flops`` on the tensor cores in
+    TF32 (a 3xTF32 product counts three times); their times add."""
     by_bytes = num_bytes / HBM_BYTES_PER_S * 1e3
-    by_ops = flops / F32_FLOPS * 1e3
+    by_ops = (flops / F32_FLOPS + tf32_flops / TF32_FLOPS) * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
                                                             "operations")
 
 
+def flash_bwd_flops(n: int, heads: int, head_dim: int) -> tuple[int, int]:
+    """The flash-GAT backward's operations as ``bound_ms`` takes them: per
+    (d, s, h) pair, 6 in float32 (the score, its mask and LeakyReLU, the
+    exp, d_z) and the two D-wide products g.v and alpha g, run as 3xTF32
+    on the tensor cores (three TF32 products each)."""
+    pairs = n * n * heads
+    return 6 * pairs, 3 * 4 * head_dim * pairs
+
+
 def record(results: dict, name: str, err: float, tol: float, kernel, plain,
            num_bytes: float, flops: float = 0.0, library=None,
-           reps: int = 10) -> None:
+           reps: int = 10, tf32_flops: float = 0.0) -> None:
     """Time a kernel, its plain version and (where one exists) the one
     PyTorch call computing the same function; keep them with the error and
-    the bound under ``name``."""
+    the bound (``bound_ms``) under ``name``."""
     ms, plain_ms = cuda_ms(kernel, reps), cuda_ms(plain, reps)
     lib_ms = cuda_ms(library, reps) if library is not None else None
-    b, by = bound_ms(num_bytes, flops)
+    b, by = bound_ms(num_bytes, flops, tf32_flops)
     results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, tol=tol,
                          bound_ms=b, bound_by=by, library_ms=lib_ms)
     lib = f"{lib_ms:.4f} ms" if lib_ms is not None else "none"
@@ -547,11 +563,13 @@ def compare_kernels(dev, ds, bucketing, outer_host) -> dict:
     got = ops.flash_gat_attention_bwd(*args)
     want = ops.flash_gat_attention_bwd_plain(*args)
     err = _check_close("flash_gat_attention_bwd", got, want, BWD_TOL)
-    # the scores and exps again, g.v and the d_v multiply-add: 2 x D-wide
+    # the scores and exps again (float32), g.v and the d_v multiply-add:
+    # 2 x D-wide, on the tensor cores in 3xTF32
+    flops, tf32_flops = flash_bwd_flops(n, heads, head_dim)
     record(results, "flash_gat_attention_bwd:f32", err, BWD_TOL,
            lambda: ops.flash_gat_attention_bwd(*args),
            lambda: ops.flash_gat_attention_bwd_plain(*args),
-           nbytes(*args, *got), n * n * heads * (4 * head_dim + 6), reps=20)
+           nbytes(*args, *got), flops, reps=20, tf32_flops=tf32_flops)
     return results
 
 

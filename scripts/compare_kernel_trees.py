@@ -29,6 +29,13 @@ The forms, at the shapes ``chip_smoke.py`` gives them:
   16,384-drug outer graph (E 2.6M, H 4); ``:config4``: over config4's
   sampled outer graph; ``segment_softmax:{f32,bf16}:100k``: over the
   100K-drug outer graph;
+- row 2: ``block_adjacency:f32{,:weighted}`` over config2's 4 buckets
+  (counts, and the edges' weights); ``block_adjacency:int8`` (config4's
+  step), ``:int16`` and ``:bf16:weighted`` over config4's sampled batch 0
+  (3,504 blocks);
+- rows 3 and 3b: ``flash_gat_attention{,_bwd}:f32`` over config2's dense
+  outer mask (N 1,704), H 4, D 32, the backward's ``lse`` and ``out`` from
+  the plain forward on the CPU;
 - rows 5-7: ``segment_max:f32`` on the largest bucket of the DrugBank
   stand-in, F 128; ``spmm_sorted_coo{,_bwd}:f32{,:weighted}`` on the
   largest bucket of the stand-in with molecules up to 160 atoms, F 128
@@ -42,31 +49,34 @@ under ``build/``; every ROOT loads them, and draws its values from seeded
 device generators, so all ROOTs see the same inputs.
 
 Each form, and its PyTorch yardstick where ``chip_smoke.py`` names one
-(``index_add_``, ``copy_``, ``torch.sparse.mm`` on a CSR matrix, the
-multi-head backward's ``torch.sparse.mm`` and ``sampled_addmm``,
-``torch.sparse.softmax`` and its backward on a COO tensor, ``torch.bmm``
-over dense blocks; built outside the timing, from this checkout's
-``chip_smoke.py``), is timed by CUDA events in two ways:
-``ms``, the mean of 10 calls after 3 warm-ups, as ``chip_smoke.py`` times
-it (the host's cost of a call can set this rate); ``device_ms``, the mean
-of 100 calls (25 of config2's 4 buckets, so that their launches fit the
-launch queue) queued behind a device sleep, so that the card runs them
-back to back and the host does not set the rate. ``host_ms`` is the
-host's time to queue them, which must stay below the sleep (lengthened to
-twice a probe of that time), or ``device_ms`` is null. ``lib_ms`` and
-``lib_device_ms`` are the same for the yardstick. Each result is checked
-against the plain version (f32 within 1e-4, bf16 within 1e-2, of
+(``index_add_``, ``index_put_(..., accumulate=True)``, ``copy_``,
+``torch.sparse.mm`` on a CSR matrix, the multi-head backward's
+``torch.sparse.mm`` and ``sampled_addmm``, ``torch.sparse.softmax`` and its
+backward on a COO tensor, ``torch.bmm`` over dense blocks; built outside the
+timing, from this checkout's ``chip_smoke.py``), is timed by CUDA events in
+two ways: ``ms``, the mean of 10 calls after 3 warm-ups, as
+``chip_smoke.py`` times it (the host's cost of a call can set this rate);
+``device_ms``, the mean of 100 calls (25 of config2's 4 buckets, so that
+their launches fit the launch queue) queued behind a device sleep, so that
+the card runs them back to back and the host does not set the rate.
+``host_ms`` is the host's time to queue them, which must stay below the
+sleep (lengthened to twice a probe of that time), or ``device_ms`` is null.
+``lib_ms`` and ``lib_device_ms`` are the same for the yardstick. Each result
+is checked against the plain version (f32 within 1e-4, bf16 within 1e-2, of
 max(1, max |plain|); the bf16 softmax forms value by value, as
-``chip_smoke.py`` holds them; the exchange bit for bit); a form that fails
-gets ``fails`` (the message, with both measures) and no times, and the
-ROOT's process exits 1 after its line. The softmax forms also get
-``kernels``: the device ms a call of each kernel they launch (the bounds
-pass, the walk), from ``torch.profiler``. Prints one JSON line per ROOT;
-needs a CUDA card. ``bound_ms`` (the softmax, multi-head and
-block-local forms): the bytes the form must read and write over the H100's
-3.35 TB/s, counted as ``chip_smoke.py`` counts them. ``digest``: a hash of
-the kernel's output bits; after the last ROOT a line ``same_bits`` lists,
-per form, whether every ROOT gave the same bits.
+``chip_smoke.py`` holds them; the exchange and the block counts bit for bit,
+the float32 block weights within 1e-6, as ``chip_smoke.py`` holds them); a
+form that fails gets ``fails`` (the message, with both measures) and no
+times, and the ROOT's process exits 1 after its line. The softmax forms also
+get ``kernels``: the device ms a call of each kernel they launch (the bounds
+pass, the walk), from ``torch.profiler``, and so does the flash-GAT backward
+(its tiles and its reduction). Prints one JSON line per ROOT; needs a CUDA
+card. ``bound_ms`` and ``bound_by`` (rows 2-4, 6 and 8):
+``chip_smoke.bound_ms`` of the bytes the form must read and write and of the
+operations it must do, counted as ``chip_smoke.py`` counts them (rows 3 and
+3b are bound by operations). ``digest``: a hash of the kernel's output bits;
+after the last ROOT a line ``same_bits`` lists, per form, whether every ROOT
+gave the same bits.
 """
 
 from __future__ import annotations
@@ -85,9 +95,12 @@ from pathlib import Path
 SEED = 0
 REPS, WARMUP = 10, 3
 DEVICE_REPS = 100  # launches of a form's calls stay below the queue's ~1,000
-CALLS = {"segment_sum:f32": 4}  # calls a form makes: its reps are divided
+# calls a form makes: its reps are divided
+CALLS = {"segment_sum:f32": 4, "block_adjacency:f32": 4,
+         "block_adjacency:f32:weighted": 4}
 SLEEP_CYCLES = 400_000_000  # ~0.2 s at the H100's 1.98 GHz boost clock
-TRACED = ("segment_softmax",)  # forms whose kernels are timed one by one
+# forms whose kernels are timed one by one
+TRACED = ("segment_softmax", "flash_gat_attention_bwd")
 
 
 def events_ms(fn, reps: int = REPS, warmup: int = WARMUP) -> float:
@@ -150,10 +163,12 @@ def device_ms(fn, sleep: float, reps: int) -> tuple[float, float, float]:
 
 INPUTS = Path(__file__).resolve().parents[1] / "build" / "compare_inputs.pt"
 F32_TOL, BF16_TOL = 1e-4, 1e-2  # x max(1, max |plain|)
-HBM_BYTES_PER_S = 3.35e12  # the H100 SXM's memory rate
-# bytes a form must read (as chip_smoke.py counts them), where its bound is
-# reported: the bound adds the bytes of its outputs
+# bytes a form must read and operations it must do (as chip_smoke.py counts
+# them), where its bound is reported: the bound adds the bytes of its
+# outputs, and is chip_smoke.bound_ms of the two
 IN_BYTES: dict[str, int] = {}
+# operations in float32, or (float32, TF32 on the tensor cores)
+FLOPS: dict[str, int | tuple[int, int]] = {}
 
 
 def nbytes(*tensors) -> int:
@@ -220,6 +235,10 @@ def build_inputs(root: str, path: Path) -> None:
                           src=o4.edge_src.cpu(), dst=o4.edge_dst.cpu(),
                           perm=o4.edge_src_perm.cpu(),
                           ssorted=o4.edge_src_sorted.cpu())
+    out["config4_blocks"] = dict(n=pb.node_cap, src=pb.edge_src.cpu(),
+                                 dst=pb.edge_dst.cpu(),
+                                 estarts=pb.block_estarts.cpu(),
+                                 weight=pb.edge_weight.cpu())
     path.parent.mkdir(parents=True, exist_ok=True)
     torch.save(out, path)
 
@@ -242,6 +261,7 @@ def new_cases(dev, path: Path):
     import torch
 
     from bignn_tpu_torch import ops
+    from bignn_tpu_torch.ops import cuda_lib
 
     index_add_call, multihead_library, softmax_library = (
         smoke().index_add_call, smoke().multihead_library,
@@ -379,11 +399,28 @@ def new_cases(dev, path: Path):
         softmax(t, 80, o["dst"], n)
         softmax(f"{t}:config4", 82, o4["dst"], o4["n"])
         softmax(f"{t}:100k", 84, big["dst"], big["n"], backward=False)
+
+    # row 2 at config4's sampled batch 0: int8 counts (the step's form),
+    # int16 counts and bf16 weights (off the path), at the same edges
+    blk = {k: v.to(dev) if torch.is_tensor(v) else v
+           for k, v in inp["config4_blocks"].items()}
+    for dt, w, tol in ((torch.int8, None, 0.0), (torch.int16, None, 0.0),
+                       (torch.bfloat16, blk["weight"], BF16_TOL)):
+        adj = (blk["src"], blk["dst"], w, blk["estarts"], blk["n"], dt)
+        name = (f"block_adjacency:{cuda_lib.dtype_name(dt)}"
+                + ("" if w is None else ":weighted"))
+        IN_BYTES[name] = nbytes(*(t for t in adj[:4] if t is not None))
+        out.append((name, lambda adj=adj: ops.block_adjacency(*adj),
+                    lambda adj=adj: ops.block_adjacency_plain(
+                        *adj[:3], adj[4], adj[5]),
+                    smoke().index_put_call(blk["src"], blk["dst"], blk["n"],
+                                           dt, w), tol))
     return out
 
 
 def cases(dev):
-    """(name, kernel call, plain call, library call, tolerance) for rows
+    """(name, kernel call, plain call, library call, tolerance) for rows 2,
+    3 and 3b at config2's shapes (no library call for 3 and 3b), and rows
     5-7: the segment max (no library call), the sorted-COO SpMM in float32,
     and the block-local SpMM in float32 and bf16."""
     import torch
@@ -391,11 +428,62 @@ def cases(dev):
     from bignn_tpu_torch import ops
     from bignn_tpu_torch.data import load_dataset
     from bignn_tpu_torch.sparse import bucket_graphs
+    from bignn_tpu_torch.sparse.formats import build_outer_graph
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
     out = []
 
-    b = largest(bucket_graphs(load_dataset("drugbank").molecules))
+    # row 2 over config2's 4 buckets, counts and weights in float32
+    ds = load_dataset("drugbank")
+    adj = [(torch.as_tensor(b.edge_src, device=dev),
+            torch.as_tensor(b.edge_dst, device=dev),
+            torch.as_tensor(b.edge_weight, device=dev),
+            torch.as_tensor(b.block_estarts, device=dev), b.node_cap)
+           for b in bucket_graphs(ds.molecules).batches]
+    for weighted, form, tol in ((False, "", 0.0),
+                                (True, ":weighted", 1e-6)):
+        cs = [(s, d, w if weighted else None, e, n)
+              for s, d, w, e, n in adj]
+        name = f"block_adjacency:f32{form}"
+        IN_BYTES[name] = sum(nbytes(*(t for t in c[:4] if t is not None))
+                             for c in cs)
+        libs = [smoke().index_put_call(s, d, n, torch.float32, w)
+                for s, d, w, _, n in cs]
+        out.append((name, lambda cs=cs: [ops.block_adjacency(*c) for c in cs],
+                    lambda cs=cs: [ops.block_adjacency_plain(*c[:3], c[4])
+                                   for c in cs],
+                    lambda libs=libs: [f() for f in libs], tol))
+
+    # rows 3 and 3b over config2's dense outer mask, N 1,704, H 4, D 32; the
+    # backward's lse and out from the plain forward on the CPU, whose sums
+    # have a fixed order, so that every ROOT gets the same inputs
+    train = ds.split_edges("train")
+    cnt = torch.as_tensor(build_outer_graph(
+        train[:, 0], train[:, 1], ds.num_drugs).dense_cnt, device=dev)
+    n, heads, head_dim = ds.num_drugs, 4, 32
+    sl, sr = (torch.randn(n, heads, device=dev, generator=gen)
+              for _ in range(2))
+    v, g = (torch.randn(n, heads, head_dim, device=dev, generator=gen)
+            for _ in range(2))
+    fwd = (sl, sr, v, cnt)
+    out_p, lse_p = (t.to(dev) for t in ops.flash_gat_attention_plain(
+        *(t.cpu() for t in fwd)))
+    bwd = (*fwd, lse_p, out_p, g)
+    IN_BYTES["flash_gat_attention:f32"] = nbytes(*fwd)
+    FLOPS["flash_gat_attention:f32"] = n * n * heads * (2 * head_dim + 4)
+    IN_BYTES["flash_gat_attention_bwd:f32"] = nbytes(*bwd)
+    FLOPS["flash_gat_attention_bwd:f32"] = smoke().flash_bwd_flops(
+        n, heads, head_dim)
+    out.append(("flash_gat_attention:f32",
+                lambda fwd=fwd: ops.flash_gat_attention(*fwd),
+                lambda fwd=fwd: ops.flash_gat_attention_plain(*fwd), None,
+                F32_TOL))
+    out.append(("flash_gat_attention_bwd:f32",
+                lambda bwd=bwd: ops.flash_gat_attention_bwd(*bwd),
+                lambda bwd=bwd: ops.flash_gat_attention_bwd_plain(*bwd), None,
+                smoke().BWD_TOL))
+
+    b = largest(bucket_graphs(ds.molecules))
     ids = torch.as_tensor(b.graph_ids, device=dev)
     s = b.num_graphs
     x = torch.randn(b.node_cap, 128, device=dev, generator=gen)
@@ -544,8 +632,10 @@ def run_one(root: str, inputs: Path) -> dict:
             if name.startswith(TRACED):
                 row["kernels"] = kernel_ms(kernel)
             if name in IN_BYTES:
-                row["bound_ms"] = ((IN_BYTES[name] + nbytes(*got))
-                                   / HBM_BYTES_PER_S * 1e3)
+                flops = FLOPS.get(name, 0)
+                row["bound_ms"], row["bound_by"] = smoke().bound_ms(
+                    IN_BYTES[name] + nbytes(*got),
+                    *(flops if isinstance(flops, tuple) else (flops,)))
             for tag, fn in (("", kernel), ("lib_", library)):
                 if fn is None:
                     continue
@@ -587,7 +677,7 @@ def main() -> int:
         check=True, timeout=60).stdout.strip()
     print(f"card: {card}", flush=True)
     t0 = time.perf_counter()
-    _child("--inputs", str(INPUTS.parents[1]), str(INPUTS))
+    _child("--inputs", roots[0], str(INPUTS))
     print(f"inputs: {time.perf_counter() - t0:.1f} s -> {INPUTS}", flush=True)
     digests = {}
     for root in roots:

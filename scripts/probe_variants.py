@@ -13,7 +13,14 @@ values V, in this order:
 - ``smf``: the segment-softmax forward (``csrc/segment_softmax.cu``,
   ``softmax_fwd``): ``kRows`` (rows a lane holds in registers),
   ``kFwdMinBlocks``, ``kWarpsPerBlock``;
-- ``smb``: its backward (``softmax_bwd``): ``kWarpsPerBlock``.
+- ``smb``: its backward (``softmax_bwd``): ``kWarpsPerBlock``;
+- ``adj``: the block adjacency (``csrc/block_adj.cu``): ``kThreads``, over
+  config4's sampled batch 0 (int8 counts, bf16 weights; counts exact);
+- ``fgb``: the flash-GAT backward (``csrc/flash_gat_bwd.cu``):
+  ``kBlocksPerSm`` (the blocks an SM holds, by the launch bounds),
+  ``kMaxSplits`` (the most parts its destination sweep is cut into; 1
+  cuts none), over config2's dense outer mask (N 1,704) at H 4, D 32 and
+  H 8, D 64 (within ``chip_smoke.BWD_TOL``).
 
 Each is built alone with ``nvcc`` (the flags of ``ops/cuda_lib.py``) into
 ``build/probe/`` and bound by ctypes. The inputs are those of
@@ -60,47 +67,75 @@ def _bounds(n: int, dev) -> tuple[torch.Tensor, torch.Tensor]:
                  for _ in range(2))
 
 
-def call_mhb(fn, v, src, dst, alpha, n_out, g, perm, ssorted):
+def call_mhb(entries, t, v, src, dst, alpha, n_out, g, perm, ssorted):
     n, heads, head_dim = v.shape
     d_v, d_alpha = torch.empty_like(v), torch.zeros_like(alpha)
     first, last = _bounds(n, v.device)
-    return fn(v.data_ptr(), g.data_ptr(), dst.data_ptr(), alpha.data_ptr(),
-              perm.data_ptr(), ssorted.data_ptr(), src.shape[0], n, n_out,
-              heads, head_dim, first.data_ptr(), last.data_ptr(),
-              d_v.data_ptr(), d_alpha.data_ptr(), _stream()), (d_v, d_alpha)
+    return entries[t](
+        v.data_ptr(), g.data_ptr(), dst.data_ptr(), alpha.data_ptr(),
+        perm.data_ptr(), ssorted.data_ptr(), src.shape[0], n, n_out, heads,
+        head_dim, first.data_ptr(), last.data_ptr(), d_v.data_ptr(),
+        d_alpha.data_ptr(), _stream()), (d_v, d_alpha)
 
 
-def call_mhf(fn, v, src, dst, alpha, n_out):
+def call_mhf(entries, t, v, src, dst, alpha, n_out):
     n, heads, head_dim = v.shape
     out = torch.empty((n_out, heads, head_dim), dtype=v.dtype,
                       device=v.device)
     first, last = _bounds(n_out, v.device)
-    return fn(v.data_ptr(), src.data_ptr(), dst.data_ptr(), alpha.data_ptr(),
-              src.shape[0], n, n_out, heads, head_dim, first.data_ptr(),
-              last.data_ptr(), out.data_ptr(), _stream()), (out,)
+    return entries[t](
+        v.data_ptr(), src.data_ptr(), dst.data_ptr(), alpha.data_ptr(),
+        src.shape[0], n, n_out, heads, head_dim, first.data_ptr(),
+        last.data_ptr(), out.data_ptr(), _stream()), (out,)
 
 
-def call_smf(fn, x, ids, n_seg):
+def call_smf(entries, t, x, ids, n_seg):
     alpha = torch.empty_like(x)
     first, last = _bounds(n_seg, x.device)
-    return fn(x.data_ptr(), ids.data_ptr(), x.shape[0], x.shape[1], n_seg,
-              first.data_ptr(), last.data_ptr(), alpha.data_ptr(),
-              _stream()), (alpha,)
+    return entries[t](
+        x.data_ptr(), ids.data_ptr(), x.shape[0], x.shape[1], n_seg,
+        first.data_ptr(), last.data_ptr(), alpha.data_ptr(),
+        _stream()), (alpha,)
 
 
-def call_smb(fn, alpha, g, ids, n_seg):
+def call_smb(entries, t, alpha, g, ids, n_seg):
     d_x = torch.empty_like(alpha)
     first, last = _bounds(n_seg, alpha.device)
-    return fn(alpha.data_ptr(), g.data_ptr(), ids.data_ptr(), alpha.shape[0],
-              alpha.shape[1], n_seg, first.data_ptr(), last.data_ptr(),
-              d_x.data_ptr(), _stream()), (d_x,)
+    return entries[t](
+        alpha.data_ptr(), g.data_ptr(), ids.data_ptr(), alpha.shape[0],
+        alpha.shape[1], n_seg, first.data_ptr(), last.data_ptr(),
+        d_x.data_ptr(), _stream()), (d_x,)
+
+
+def call_adj(entries, t, src, dst, weight, estarts, n, dtype):
+    out = torch.empty((n // 128, 128, 128), dtype=dtype, device=src.device)
+    return entries[t](src.data_ptr(), dst.data_ptr(),
+                      None if weight is None else weight.data_ptr(),
+                      estarts.data_ptr(), src.shape[0], n // 128,
+                      out.data_ptr(), _stream()), (out,)
+
+
+def call_fgb(entries, t, sl, sr, v, cnt, lse, out, g, slope):
+    n, heads, head_dim = v.shape
+    delta = (g * out).sum(-1)
+    size = ctypes.c_int64()
+    entries["scratch"](n, heads, head_dim, ctypes.addressof(size), _stream())
+    scratch = torch.empty(size.value, device=v.device)
+    dsl, dsr = torch.empty_like(sl), torch.empty_like(sl)
+    dv = torch.empty_like(v)
+    return entries[t](sl.data_ptr(), sr.data_ptr(), v.data_ptr(),
+                      cnt.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                      g.data_ptr(), n, heads, head_dim, slope, dsl.data_ptr(),
+                      dsr.data_ptr(), dv.data_ptr(), scratch.data_ptr(),
+                      size.value, _stream()), (dsl, dsr, dv)
 
 
 def _graphs(dev) -> dict:
     inp = torch.load(ckt.INPUTS)
     return {k: {n: t.to(dev) if torch.is_tensor(t) else t
                 for n, t in inp[k].items()}
-            for k in ("outer", "shard", "config4", "outer100k")}
+            for k in ("outer", "shard", "config4", "outer100k",
+                      "config4_blocks")}
 
 
 def _scores(o, seed: int, dtype):
@@ -160,6 +195,47 @@ def softmax_cases(graphs, backward: bool) -> list:
     return out
 
 
+def adj_cases(graphs) -> list:
+    """(tag, arguments, plain result) of the block adjacency over config4's
+    sampled batch 0: int8 counts (the step's form), bf16 weights."""
+    b = graphs["config4_blocks"]
+    out = []
+    for tag, w, dtype in (("int8", None, torch.int8),
+                          ("bf16", b["weight"], torch.bfloat16)):
+        args = (b["src"], b["dst"], w, b["estarts"], b["n"], dtype)
+        out.append((tag, args, (ops.block_adjacency_plain(
+            *args[:3], b["n"], dtype),)))
+    return out
+
+
+def fgb_cases(graphs) -> list:
+    """(tag, arguments, plain result) of the flash-GAT backward over
+    config2's dense outer mask (N 1,704): H 4, D 32 and H 8, D 64, lse and
+    out from the plain forward on the CPU."""
+    from bignn_tpu_torch.data import load_dataset
+    from bignn_tpu_torch.sparse.formats import build_outer_graph
+
+    dev = graphs["outer"]["dst"].device
+    ds = load_dataset("drugbank")
+    train = ds.split_edges("train")
+    cnt = torch.as_tensor(build_outer_graph(
+        train[:, 0], train[:, 1], ds.num_drugs).dense_cnt)
+    gen = torch.Generator().manual_seed(4)
+    out = []
+    for tag, heads, head_dim in (("f32", 4, 32), ("f32:h8d64", 8, 64)):
+        n = ds.num_drugs
+        sl, sr = (torch.randn(n, heads, generator=gen) for _ in range(2))
+        v, g = (torch.randn(n, heads, head_dim, generator=gen)
+                for _ in range(2))
+        o, lse = ops.flash_gat_attention_plain(sl, sr, v, cnt)
+        args = (sl, sr, v, cnt, lse, o, g, 0.2)
+        want = ops.flash_gat_attention_bwd_plain(*args)
+        out.append((tag, tuple(a.to(dev) if torch.is_tensor(a) else a
+                               for a in args),
+                    tuple(w.to(dev) for w in want)))
+    return out
+
+
 class Kind(NamedTuple):
     source: str
     constants: tuple[str, ...]
@@ -167,6 +243,8 @@ class Kind(NamedTuple):
     entry: str  # the C entry point, less its type
     call: object
     cases: object  # graphs -> [(tag, arguments, plain result)]
+    types: tuple[str, ...] = ("f32", "bf16")  # entry points bound, by type
+    tol: object = None  # tag -> (tolerance, per value), if not the default
 
 
 KINDS = {
@@ -185,6 +263,13 @@ KINDS = {
     "smb": Kind("segment_softmax.cu", ("kWarpsPerBlock",), "softmax_bwd",
                 "bignn_segment_softmax_bwd_", call_smb,
                 lambda gr: softmax_cases(gr, True)),
+    "adj": Kind("block_adj.cu", ("kThreads",), "block_counts",
+                "bignn_block_adj_", call_adj, adj_cases, ("int8", "bf16"),
+                lambda tag: (0.0 if tag == "int8" else ckt.BF16_TOL, False)),
+    "fgb": Kind("flash_gat_bwd.cu", ("kBlocksPerSm", "kMaxSplits"),
+                "flash_gat_bwd_tiles", "bignn_flash_gat_bwd_", call_fgb,
+                fgb_cases, ("f32", "scratch_f32"),
+                lambda tag: (ckt.smoke().BWD_TOL, False)),
 }
 
 
@@ -211,11 +296,11 @@ def build_variant(kind: str, values: tuple[int, ...]):
         raise SystemExit(proc.stdout + proc.stderr)
     cdll = ctypes.CDLL(str(lib))
     entries = {}
-    for t in ("f32", "bf16"):
+    for t in k.types:
         fn = getattr(cdll, k.entry + t)
         fn.argtypes = [*cuda_lib._SIGNATURES[k.entry + t], ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        entries[t] = fn
+        entries[t.removesuffix("_f32") if t != "f32" else t] = fn
     registers = sorted({int(r) for r in re.findall(
         rf"{k.kernel}.*?Used (\d+) registers", proc.stdout + proc.stderr,
         flags=re.S)})
@@ -251,10 +336,8 @@ def main() -> int:
             row = dict(zip(k.constants, values), kind=kind,
                        registers=registers)
             for tag, args, want in cases[kind]:
-                fn = entries[tag.split(":")[0]]
-
-                def run(fn=fn, args=args):
-                    rc, got = k.call(fn, *args)
+                def run(t=tag.split(":")[0], args=args):
+                    rc, got = k.call(entries, t, *args)
                     if rc:
                         raise RuntimeError(f"{kind} {values} {tag}: CUDA "
                                            f"error {rc}")
@@ -263,6 +346,8 @@ def main() -> int:
                 per_element = kind.startswith("sm") and "bf16" in tag
                 tol = (ckt.smoke().BF16_STEP if per_element
                        else ckt.BF16_TOL if "bf16" in tag else ckt.F32_TOL)
+                if k.tol is not None:
+                    tol, per_element = k.tol(tag)
                 check(f"{kind} {values} {tag}", run(), want, tol, per_element)
                 dms, host, slept = ckt.device_ms(run, sleep, ckt.DEVICE_REPS)
                 row[tag] = dms if host < slept else None

@@ -1582,3 +1582,223 @@ def test_segment_bounds_on_card(cuda_device, kind):
     torch.cuda.synchronize()
     assert torch.equal(first, want_first), kind
     assert torch.equal(last, want_last), kind
+
+
+# ---------------------------------------------------------------------------
+# block adjacency (csrc/block_adj.cu) and the flash-GAT backward
+# (csrc/flash_gat_bwd.cu): the layouts and shapes of their tiles
+# ---------------------------------------------------------------------------
+
+FLASH_BWD_TOL = 1e-4  # x max(1, max |plain|), chip_smoke.BWD_TOL
+# name -> (edge layout, output type, weighted)
+ADJ_SPECS = {
+    **{f"molecules_{t}": ("molecules", dt, False) for t, dt in (
+        ("int8", torch.int8), ("int16", torch.int16),
+        ("f32", torch.float32), ("bf16", torch.bfloat16))},
+    "molecules_f32_weighted": ("molecules", torch.float32, True),
+    "molecules_bf16_weighted": ("molecules", torch.bfloat16, True),
+    "one_row_int8": ("one_row", torch.int8, False),
+    "one_row_f32": ("one_row", torch.float32, False),
+    "one_row_f32_weighted": ("one_row", torch.float32, True),
+    "unsorted_int16": ("unsorted", torch.int16, False),
+    "unsorted_f32_weighted": ("unsorted", torch.float32, True),
+}
+# name -> (N, H, D, slope): config2's shape, an N no tile divides, config2's
+# H 8 / D 64 attention at slope 0.1, a head_dim staged 4 bytes at a time
+FLASH_BWD_SPECS = {
+    "n1704_h4_d32": (1704, 4, 32, 0.2),
+    "n1001_h4_d32": (1001, 4, 32, 0.2),
+    "n300_h8_d64_slope01": (300, 8, 64, 0.1),
+    "n130_h2_d5": (130, 2, 5, 0.2),
+}
+
+
+def _molecule_edges(rng, kind, nblk=5):
+    """``(src, dst, estarts, n)``: block-local edges laid out as a bucket
+    lays them out. ``molecules``: molecules of 8-40 atoms packed into
+    128-row blocks, each one's edges dst-sorted with one (d, s) pair up to
+    16 times (config4's r_node**2), and after most molecules a run of
+    padding edges (dst == n, src 0) inside the block's range (ROADMAP F1);
+    block 2 has no edges. ``one_row``: block 1 holds 2,048 edges, all on
+    row 5 (each of its 128 sources 16 times), then a padding run.
+    ``unsorted``: the molecules' edges shuffled within each block's range,
+    so that every row's run holds other rows' edges and padding."""
+    n = nblk * 128
+    blocks = []
+    for b in range(nblk):
+        row0 = b * 128
+        if kind == "one_row" and b == 1:
+            s = rng.permutation(np.repeat(np.arange(128) + row0, 16))
+            blocks.append((np.concatenate([s, np.zeros(7)]),
+                           np.concatenate([np.full(len(s), row0 + 5),
+                                           np.full(7, n)])))
+            continue
+        bs, bd = [], []
+        row = 0
+        while b != 2:
+            size = int(rng.integers(8, 41))
+            if row + size > 128:
+                break
+            atoms = row0 + row + np.arange(size)
+            m = int(rng.integers(2 * size, 5 * size))
+            k = 16 if row == 0 else int(rng.integers(2, 17))
+            es, ed = rng.choice(atoms, m), rng.choice(atoms, m)
+            other = (es != atoms[0]) | (ed != atoms[1])  # the pair: k times
+            es = np.concatenate([es[other], np.full(k, atoms[0])])
+            ed = np.concatenate([ed[other], np.full(k, atoms[1])])
+            order = np.argsort(ed, kind="stable")
+            bs += [es[order]]
+            bd += [ed[order]]
+            if rng.random() < 0.7:
+                pad = int(rng.integers(1, 20))
+                bs += [np.zeros(pad)]
+                bd += [np.full(pad, n)]
+            row += size
+        bs, bd = np.concatenate(bs or [[]]), np.concatenate(bd or [[]])
+        if kind == "unsorted":
+            order = rng.permutation(len(bs))
+            bs, bd = bs[order], bd[order]
+        blocks.append((bs, bd))
+    src = np.concatenate([bs for bs, _ in blocks]).astype(np.int32)
+    dst = np.concatenate([bd for _, bd in blocks]).astype(np.int32)
+    estarts = np.cumsum([0] + [len(bs) for bs, _ in blocks]).astype(np.int32)
+    return src, dst, estarts, n
+
+
+def _adj_case(device, name, edge_order=False):
+    """(kernel call, plain call) of one ``ADJ_SPECS`` case; weights in
+    (0, 1], zero on padding edges. ``edge_order``: also the blocks summed
+    cell by cell in edge order in float32 (``np.add.at``, sequential), the
+    order the kernel keeps, in the case's type."""
+    kind, dtype, weighted = ADJ_SPECS[name]
+    rng = np.random.default_rng(zlib.crc32(name.encode()))
+    src, dst, estarts, n = _molecule_edges(rng, kind)
+    w = np.where(dst < n, 1.0 - rng.random(len(src)), 0).astype(np.float32)
+    src_t, dst_t, est_t, w_t = _on(device, src, dst, estarts, w)
+    w_t = w_t if weighted else None
+    calls = (lambda: ops.block_adjacency(src_t, dst_t, w_t, est_t, n, dtype),
+             lambda: ops.block_adjacency_plain(src_t, dst_t, w_t, n, dtype))
+    if not edge_order:
+        return calls
+    if not weighted:
+        w = np.ones_like(w)
+    elif dtype == torch.bfloat16:
+        w = torch.from_numpy(w).to(dtype).float().numpy()
+    b, s_l = dst // 128, src - (dst // 128) * 128
+    keep = (dst < n) & (s_l >= 0) & (s_l < 128)
+    ref = np.zeros(n * 128, np.float32)
+    np.add.at(ref, (dst * 128 + s_l)[keep], w[keep])
+    ref = torch.from_numpy(ref.reshape(n // 128, 128, 128)).to(dtype)
+    return (*calls, ref)
+
+
+def _flash_bwd_case(device, name):
+    """(kernel call, plain call) of one ``FLASH_BWD_SPECS`` case: a mask of
+    density 4.5 % (config2's outer graph) with multiplicities 2, in which
+    destination 7 and source 11 have no edges; lse and out from the plain
+    forward; a normal cotangent."""
+    n, heads, head_dim, slope = FLASH_BWD_SPECS[name]
+    rng = np.random.default_rng(zlib.crc32(name.encode()))
+    cnt = (rng.random((n, n)) < 0.045).astype(np.float32)
+    cnt += rng.random((n, n)) < 0.005
+    cnt[7] = 0.0
+    cnt[:, 11] = 0.0
+    sl, sr, v, g = (rng.standard_normal(shape).astype(np.float32)
+                    for shape in ((n, heads), (n, heads),
+                                  (n, heads, head_dim), (n, heads, head_dim)))
+    sl, sr, v, cnt, g = _on(device, sl, sr, v, cnt, g)
+    out, lse = ops.flash_gat_attention_plain(sl, sr, v, cnt, slope)
+    args = (sl, sr, v, cnt, lse, out, g, slope)
+    return (lambda: ops.flash_gat_attention_bwd(*args),
+            lambda: ops.flash_gat_attention_bwd_plain(*args))
+
+
+def test_adj_and_flash_bwd_plain_cases_run_on_cpu():
+    """On CPU tensors every case takes the plain version and counts no
+    launch; the layouts hold what their names say: int8 counts reach 16,
+    the one-row block's 2,048 edges all land on row 5, block 2 is empty,
+    padding adds nothing; the flash cases' empty destination and source
+    get zero gradients."""
+    counted = (ops.block_adjacency, ops.flash_gat_attention_bwd)
+    before = [k.launches for k in counted]
+    for name, (kind, dtype, weighted) in ADJ_SPECS.items():
+        kernel, plain, ref = _adj_case("cpu", name, edge_order=True)
+        got, want = kernel(), plain()
+        assert torch.equal(got, want) and got.dtype == dtype, name
+        np.testing.assert_allclose(got.float().numpy(), ref.float().numpy(),
+                                   **(BF16_TOL if dtype == torch.bfloat16
+                                      else TOL), err_msg=name)
+        assert not got[2].float().any(), name
+        if kind == "one_row":
+            assert got[1, 5].float().sum() > 0 and not got[1, :5].any()
+            assert not weighted or got[1, 5].sum() > 100, name
+            if not weighted:
+                assert got[1, 5].float().sum() == 2048, name
+        if not weighted and dtype == torch.int8:
+            assert int(got.max()) == 16, name
+    for name in FLASH_BWD_SPECS:
+        if name == "n1704_h4_d32":
+            continue  # the plain version at config2's N is for the card
+        kernel, plain = _flash_bwd_case("cpu", name)
+        (dsl, dsr, dv), want = kernel(), plain()
+        assert all(torch.equal(a, b) for a, b in zip((dsl, dsr, dv), want))
+        assert not dsl[7].any() and not dsr[11].any() and not dv[11].any()
+        assert bool(torch.isfinite(dv).all()) and dsl.abs().max() > 0, name
+    assert [k.launches for k in counted] == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(ADJ_SPECS))
+def test_block_adjacency_layouts_match_plain_on_card(cuda_device, case):
+    """Counts exactly. Weights: each cell summed in edge order, so bit for
+    bit the sequential float32 sum of its edges (rounded once to bf16 in
+    the bf16 form), and within TOL (bf16: one rounding) of the plain
+    version, whose float atomics sum in another order."""
+    kernel, plain, ref = _adj_case(cuda_device, case, edge_order=True)
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and got.shape == want.shape, case
+    if not ADJ_SPECS[case][2]:
+        assert torch.equal(got, want), case
+        return
+    assert torch.equal(got.cpu(), ref), case
+    np.testing.assert_allclose(
+        got.float().cpu().numpy(), want.float().cpu().numpy(),
+        **(TOL if got.dtype == torch.float32 else BF16_TOL), err_msg=case)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(FLASH_BWD_SPECS))
+def test_flash_gat_bwd_shapes_match_plain_on_card(cuda_device, case):
+    """Each output within FLASH_BWD_TOL x max(1, max |plain|), as
+    chip_smoke.py holds the kernel; the empty destination and source get
+    exact zeros."""
+    kernel, plain = _flash_bwd_case(cuda_device, case)
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert a.shape == b.shape, case
+        scale = max(1.0, b.abs().max().item())
+        assert (a - b).abs().max().item() <= FLASH_BWD_TOL * scale, case
+    dsl, dsr, dv = got
+    assert not dsl[7].any() and not dsr[11].any() and not dv[11].any()
+
+
+@pytest.mark.gpu
+def test_adj_and_flash_bwd_repeat_bit_for_bit_on_card(cuda_device):
+    """No float atomics and sums in a fixed order: two launches give the
+    same bits, the weighted block sums and the flash backward's split sweep
+    included; each counts one launch."""
+    for name in ("molecules_int8", "molecules_f32", "unsorted_f32_weighted",
+                 "molecules_bf16_weighted", "one_row_f32_weighted"):
+        kernel, _ = _adj_case(cuda_device, name)
+        before = ops.block_adjacency.launches
+        a, b = kernel(), kernel()
+        assert ops.block_adjacency.launches == before + 2, name
+        assert torch.equal(a, b), name
+    for name in ("n1704_h4_d32", "n130_h2_d5"):
+        kernel, _ = _flash_bwd_case(cuda_device, name)
+        before = ops.flash_gat_attention_bwd.launches
+        a, b = kernel(), kernel()
+        assert ops.flash_gat_attention_bwd.launches == before + 2, name
+        assert all(torch.equal(x, y) for x, y in zip(a, b)), name
