@@ -68,29 +68,54 @@
 // float32, and weighted bf16: the walk. JAX rounds each weighted bf16
 // message w x[s] to bf16 before its sum (block_spmm.py:142-144), which a
 // tensor-core product cannot; float32 through TF32 would change its numbers.
-// For float32 both roundings are the identity.
-//   1. The CTA stages x's 128 rows of the block in shared memory, widened to
-//      float32 (128 * F * 4 bytes: 64 KiB at F = 128, so the kernel opts in
-//      to more than 48 KiB of dynamic shared memory), and sets each row's
-//      edge bounds to empty. Rows are read 16 bytes at a time (4 floats or 8
-//      bf16) where F and x's alignment allow it.
-//   2. Its threads walk the block's edge range once and bound each
-//      destination row's edges by integer atomicMin / atomicMax in shared
-//      memory (exact, so independent of their order).
-//   3. One warp per destination row walks [first, last] in edge order,
-//      skipping other rows' edges, and sums w_e * x_smem[src_e - 128 b] in
-//      registers, lanes across F (a lane holds columns lane + 32 k, so the
-//      lanes read consecutive shared-memory words, free of bank conflicts).
-//      The row is stored once. No float atomics: a result repeats bit for
-//      bit.
+// For float32 both roundings are the identity. What held the walk back
+// before: rows staged widened to float32 (64 KiB a CTA at F 128, 2-3 CTAs
+// an SM, whatever the type), a barrier between the staging and the sums
+// with nothing in flight across it, and one edge at a time a warp, handed
+// round by two shuffles.
+//   1. One CTA (8 warps) per 128-row block. The block's edges land in
+//      shared memory by 4-byte cp.async (src, dst, weight; up to kEdgeStage
+//      of them, else the walk reads the edge list), and each destination
+//      row's edge bounds are found by integer atomicMin / atomicMax in
+//      shared memory (exact, so independent of their order; padding edges
+//      inside the range are skipped by their dst, F1). 8.5 KiB of shared
+//      memory and at most 32 (bf16) or 40 (float32) registers: 8 and 6
+//      CTAs an SM.
+//   2. Row slots: a destination row takes G lanes, its 16-byte words
+//      rounded up to a power of two (bf16 F 128: 16 lanes, 2 rows a warp;
+//      float32 F 128: a warp). Each lane reads its row's edges from shared
+//      memory itself (no shuffles) and its word of each edge's source row
+//      straight from device memory through L1 (a block's rows are read
+//      from HBM about once; the other reads of them hit L1 or L2), two
+//      edges at once in bf16 and four in float32, and adds the messages in
+//      edge order, the weight and each message rounded to T as before, so
+//      each form keeps the bits of the walk it replaces (the bf16 products
+//      two at a time, elem.cuh add_messages). The row is stored once, 16
+//      bytes a lane. No float atomics: a result repeats bit for bit.
+//   - Measured by scripts/compare_kernel_trees.py (device time of calls
+//     queued back to back; the redesign's chip call 12, PERF.md section
+//     6, A B B A against the walk it replaces; NVIDIA H100 80GB HBM3,
+//     700.00 W) on the 301,312-row bucket of synthetic-large at 16,384
+//     drugs, F 128: bf16 weighted 0.0724 ms forward, 0.0736 backward
+//     (before 0.2031, 0.2028; torch.bmm over the dense blocks 0.0815;
+//     bound 0.0461), float32 0.1113, 0.1110 (0.1988, 0.1992; bound
+//     0.0880), float32 weighted 0.1125, 0.1122 (0.2175, 0.2177); each
+//     form with the bits of the walk it replaces.
+//   - scripts/probe_variants.py (kind bsw; the redesign's calls 6-12)
+//     also timed the block's rows staged in shared memory in their own
+//     type by 16-byte cp.async (5 CTAs an SM): 0.081 ms bf16 weighted,
+//     0.125 float32; and persistent CTAs loading the next block while
+//     summing this one (a two-stage ring, 1-2 CTAs an SM): 0.131, 0.217.
+//     The walk's latency needs the warps that staging's shared memory
+//     takes away.
 //
 // What bounds it on the H100: device-memory bytes. x is read once (each block
-// stages its own rows), the edge list once (the walk reads it again for its
-// bounds, from L2), y written once: N * F * 2 * sizeof(T) + E * 12 bytes
-// (bf16 at 301,312 rows and 908,411 edges, F 128: 0.0451 ms at 3.35 TB/s).
-// The block products, 2 * 128 * 128 * F operations a block (~10 GFLOP for
-// that bucket, ~10 us at the dense bf16 rate), lie below that line, and
-// the slabs skipped cut them further.
+// reads its own rows), the edge list once, y written once: N * F * 2 *
+// sizeof(T) + E * 12 bytes (bf16 at 301,312 rows and 908,411 edges, F 128:
+// 0.0451 ms at 3.35 TB/s unweighted, 0.0461 weighted; float32 0.0880,
+// 0.0890). The block products, 2 * 128 * 128 * F operations a block (~10
+// GFLOP for that bucket, ~10 us at the dense bf16 rate), lie below that
+// line, and the slabs skipped cut them further.
 
 #include <cuda_runtime.h>
 
@@ -102,44 +127,133 @@
 namespace {
 
 constexpr int kBlockRows = 128;
-constexpr int kWarps = 8;
 constexpr int kMaxFeat = 256;
-constexpr int kColsPerLane = kMaxFeat / 32;
-constexpr int kBoundsBytes = 2 * kBlockRows * 4;
-constexpr unsigned kFull = 0xffffffffu;
+constexpr int kWalkWarps = 8;
+constexpr int kWalkThreads = kWalkWarps * 32;
+// edges of a block staged in shared memory (src, dst, weight: 12 bytes
+// each); a block with more walks them from device memory
+constexpr int kEdgeStage = 640;
+// edges a lane reads at once, and CTAs an SM must hold (the launch bounds),
+// by the type of x (scripts/probe_variants.py, kind bsw): bf16 two edges
+// and 8 CTAs (32 registers), float32 four and 6
+constexpr int kInFlightBf16 = 2;
+constexpr int kInFlightF32 = 4;
+constexpr int kMinBlocksBf16 = 8;
+constexpr int kMinBlocksF32 = 6;
 
-// VEC: values of x a thread stages per load (16 bytes: 4 floats or 8 bf16;
-// 1 where F or x's alignment does not allow it).
-template <class T, int VEC>
-__global__ void __launch_bounds__(kWarps * 32)
-    block_spmm(const T* __restrict__ x, const int* __restrict__ src,
+template <class T>
+__host__ __device__ constexpr int walk_in_flight() {
+  return sizeof(T) == 2 ? kInFlightBf16 : kInFlightF32;
+}
+template <class T>
+__host__ __device__ constexpr int walk_min_blocks() {
+  return sizeof(T) == 2 ? kMinBlocksBf16 : kMinBlocksF32;
+}
+
+// Shared memory of the walk: the block's edges and each row's bounds.
+constexpr int kWalkSmem = kEdgeStage * 12 + 2 * kBlockRows * 4;
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// The walk of one destination row d of the block (its rows of x from xs,
+// row r0 of x): each lane of the row's slot adds its word (NV values
+// from column word `col`) of w_e x[src_e] over the row's edges i0 .. i1
+// (positions in the block's range; esrc, edst, ew the block's edges,
+// staged or in device memory; ew null: weight 1), kInFlight edges read at
+// once, added in edge order, the weight and each message rounded to T.
+template <class T, int NV>
+__device__ __forceinline__ void walk_row(const T* __restrict__ xs, int feat,
+                                         const int* esrc, const int* edst,
+                                         const float* ew, int i0, int i1,
+                                         int d, int r0, int col, bool mine,
+                                         float (&acc)[NV]) {
+  using W = typename bignn::Word<NV * static_cast<int>(sizeof(T))>::type;
+  constexpr int kInFlight = walk_in_flight<T>();
+#pragma unroll
+  for (int k = 0; k < NV; ++k) acc[k] = 0.f;
+  for (int i = i0; i <= i1; i += kInFlight) {
+    int s[kInFlight];
+    float w[kInFlight];
+#pragma unroll
+    for (int u = 0; u < kInFlight; ++u) {
+      const int e = i + u;
+      s[u] = -1;
+      w[u] = 1.f;
+      if (e <= i1 && edst[e] - r0 == d) {
+        const int sl = esrc[e] - r0;
+        if (sl >= 0 && sl < kBlockRows) {  // an out-of-block source drops
+          s[u] = sl;
+          if (ew != nullptr) w[u] = bignn::round_to<T>(ew[e]);
+        }
+      }
+    }
+    W v[kInFlight];
+#pragma unroll
+    for (int u = 0; u < kInFlight; ++u)
+      v[u] = s[u] >= 0 && mine
+                 ? __ldg(reinterpret_cast<const W*>(xs + s[u] * feat +
+                                                    col * NV))
+                 : W{};
+#pragma unroll
+    for (int u = 0; u < kInFlight; ++u)
+      if (s[u] >= 0) bignn::add_messages<T, NV>(v[u], w[u], acc);
+  }
+}
+
+// NV: values of x a word holds (16 bytes: 4 floats or 8 bf16, where F and
+// the pointers allow it; else 1). One CTA per 128-row block.
+template <class T, int NV>
+__global__ void __launch_bounds__(kWalkThreads, walk_min_blocks<T>())
+    block_walk(const T* __restrict__ x, const int* __restrict__ src,
                const int* __restrict__ dst, const float* __restrict__ weight,
                const int* __restrict__ starts, int num_edges, int feat,
                T* __restrict__ out) {
-  extern __shared__ __align__(16) float smem[];
-  float* xs = smem;  // [128, feat]
-  int* first = reinterpret_cast<int*>(smem + kBlockRows * feat);  // [128]
-  int* last = first + kBlockRows;                                  // [128]
-  const int b = blockIdx.x;
-  const int row0 = b * kBlockRows;
+  using W = typename bignn::Word<NV * static_cast<int>(sizeof(T))>::type;
+  extern __shared__ __align__(16) unsigned char walk_smem[];
+  int* ssrc = reinterpret_cast<int*>(walk_smem);  // [kEdgeStage]
+  int* sdst = ssrc + kEdgeStage;                   // [kEdgeStage]
+  float* sw = reinterpret_cast<float*>(sdst + kEdgeStage);
+  int* first = reinterpret_cast<int*>(sw + kEdgeStage);  // [128]
+  int* last = first + kBlockRows;                          // [128]
   const int tid = threadIdx.x;
+  const int b = blockIdx.x;
+  const int r0 = b * kBlockRows;
 
-  // 1. stage the block's rows of x, widened; empty bounds
-  const T* xb = x + static_cast<int64_t>(row0) * feat;
-  const int count = kBlockRows * feat;
-  for (int i = tid * VEC; i < count; i += blockDim.x * VEC)
-    bignn::load_vec<VEC>(xb + i, xs + i);
-  for (int d = tid; d < kBlockRows; d += blockDim.x) {
+  // 1. the block's edges land in shared memory (4-byte cp.async) where
+  //    they fit; every row's bounds start empty
+  const int e0 = max(0, min(starts[b], num_edges));
+  const int e1 = max(e0, min(starts[b + 1], num_edges));
+  const bool staged = e1 - e0 <= kEdgeStage;
+  for (int e = e0 + tid; staged && e < e1; e += kWalkThreads) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                     smem_addr(ssrc + e - e0)), "l"(src + e)
+                 : "memory");
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                     smem_addr(sdst + e - e0)), "l"(dst + e)
+                 : "memory");
+    if (weight != nullptr)
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                       smem_addr(sw + e - e0)), "l"(weight + e)
+                   : "memory");
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  for (int d = tid; d < kBlockRows; d += kWalkThreads) {
     first[d] = INT_MAX;
     last[d] = -1;
   }
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
   __syncthreads();
 
-  // 2. each destination row's edge bounds within the block's range
-  const int e0 = max(0, min(starts[b], num_edges));
-  const int e1 = max(e0, min(starts[b + 1], num_edges));
-  for (int e = e0 + tid; e < e1; e += blockDim.x) {
-    const int d = __ldg(dst + e) - row0;
+  // 2. each destination row's edge bounds by integer atomicMin /
+  //    atomicMax in shared memory (exact, so independent of their order;
+  //    padding edges inside the range are skipped by their dst)
+  const int* esrc = staged ? ssrc : src + e0;
+  const int* edst = staged ? sdst : dst + e0;
+  const float* ew = weight == nullptr ? nullptr : staged ? sw : weight + e0;
+  for (int e = tid; e < e1 - e0; e += kWalkThreads) {
+    const int d = edst[e] - r0;
     if (d >= 0 && d < kBlockRows) {
       atomicMin(first + d, e);
       atomicMax(last + d, e);
@@ -147,43 +261,28 @@ __global__ void __launch_bounds__(kWarps * 32)
   }
   __syncthreads();
 
-  // 3. one warp per destination row
-  const int lane = tid % 32;
-  for (int d = tid / 32; d < kBlockRows; d += kWarps) {
-    float acc[kColsPerLane];
-#pragma unroll
-    for (int k = 0; k < kColsPerLane; ++k) acc[k] = 0.f;
+  // 3. row slots: a destination row takes G lanes, its words rounded up to
+  //    a power of two (at most 32; wider rows take more sweeps), so a warp
+  //    sums 32 / G rows; each lane reads its edges itself, and its word of
+  //    each source row from device memory through L1
+  const T* xs = x + static_cast<int64_t>(r0) * feat;
+  const int row_words = feat / NV;
+  const int lg = bignn::slot_log2(min(row_words, 32));
+  const int slots = kWalkWarps * (32 >> lg);
+  const int q = tid >> lg;
+  const int c = tid & ((1 << lg) - 1);
+  for (int d = q; d < kBlockRows; d += slots) {
     const int i0 = first[d];
-    const int i1 = last[d];
-    for (int base = i0; base <= i1; base += 32) {
-      const int e = base + lane;
-      int s = -1;
-      float w = 0.f;
-      if (e <= i1 && __ldg(dst + e) - row0 == d) {
-        const int sl = __ldg(src + e) - row0;
-        if (sl >= 0 && sl < kBlockRows) {  // an out-of-block source drops
-          s = sl;
-          w = weight == nullptr ? 1.f : bignn::round_to<T>(__ldg(weight + e));
-        }
-      }
-      const int n = min(32, i1 - base + 1);
-      for (int j = 0; j < n; ++j) {
-        const int sj = __shfl_sync(kFull, s, j);
-        const float wj = __shfl_sync(kFull, w, j);
-        if (sj < 0) continue;
-        const float* xr = xs + sj * feat;
-#pragma unroll
-        for (int k = 0; k < kColsPerLane; ++k) {
-          const int c = lane + 32 * k;
-          if (c < feat) acc[k] += bignn::round_to<T>(wj * xr[c]);
-        }
-      }
-    }
-    T* o = out + static_cast<int64_t>(row0 + d) * feat;
-#pragma unroll
-    for (int k = 0; k < kColsPerLane; ++k) {
-      const int c = lane + 32 * k;
-      if (c < feat) o[c] = bignn::from_f32<T>(acc[k]);
+    const int i1 = last[d];  // i1 < i0 for a row without edges
+    T* o = out + static_cast<int64_t>(r0 + d) * feat;
+    for (int c0 = 0; c0 < row_words; c0 += 32) {
+      const int col = c0 + c;
+      const bool mine = col < row_words;
+      float acc[NV];
+      walk_row<T, NV>(xs, feat, esrc, edst, ew, i0, i1, d, r0, col, mine,
+                      acc);
+      if (mine)
+        *reinterpret_cast<W*>(o + col * NV) = bignn::pack_word<T, NV, W>(acc);
     }
   }
 }
@@ -210,10 +309,6 @@ __host__ __device__ inline int padded_feat(int feat) {
 
 __host__ __device__ inline int tc_smem_bytes(int feat) {
   return kABytes + kBlockRows * (padded_feat(feat) + 8) * 2;
-}
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
 __device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p,
@@ -554,17 +649,11 @@ __global__ void __launch_bounds__(kTcThreads, 3)
   }
 }
 
-template <class T, int VEC>
-int launch(const void* x, const void* src, const void* dst,
-           const void* weight, const void* starts, int num_edges,
-           int num_blocks, int feat, void* out, cudaStream_t st) {
-  static int done[bignn::kMaxDevices] = {};
-  const int smem = kBlockRows * feat * 4 + kBoundsBytes;
-  // the most shared memory: 2 CTAs an SM at F 128
-  const cudaError_t err = bignn::allow_smem(block_spmm<T, VEC>, smem, done,
-                                            cudaSharedmemCarveoutMaxShared);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  block_spmm<T, VEC><<<num_blocks, kWarps * 32, smem, st>>>(
+template <class T, int NV>
+int launch_walk(const void* x, const void* src, const void* dst,
+                const void* weight, const void* starts, int num_edges,
+                int num_blocks, int feat, void* out, cudaStream_t st) {
+  block_walk<T, NV><<<num_blocks, kWalkThreads, kWalkSmem, st>>>(
       static_cast<const T*>(x), static_cast<const int*>(src),
       static_cast<const int*>(dst), static_cast<const float*>(weight),
       static_cast<const int*>(starts), num_edges, feat, static_cast<T*>(out));
@@ -611,10 +700,10 @@ int block_spmm_rows(const void* x, const void* src, const void* dst,
     }
   }
   if (wide)
-    return launch<T, kWide>(x, src, dst, weight, starts, num_edges,
-                            num_blocks, feat, out, st);
-  return launch<T, 1>(x, src, dst, weight, starts, num_edges, num_blocks,
-                      feat, out, st);
+    return launch_walk<T, kWide>(x, src, dst, weight, starts, num_edges,
+                                 num_blocks, feat, out, st);
+  return launch_walk<T, 1>(x, src, dst, weight, starts, num_edges,
+                           num_blocks, feat, out, st);
 }
 
 }  // namespace

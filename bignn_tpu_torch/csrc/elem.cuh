@@ -182,6 +182,33 @@ __device__ __forceinline__ W pack_word(const float (&v)[NV]) {
   return w;
 }
 
+// acc[0 .. NV) += the NV values of T packed in word, each multiplied by w
+// and the product rounded to T: the message of a weighted SpMM in T (w a
+// float holding a value of T). For bf16 two products at a time with
+// __hmul2: the product of two bf16 values is exact in float32, so rounding
+// it once to bf16 gives the bits that rounding the float32 product does
+// (away from the subnormal range); for float32 the rounding is the
+// identity and the sum a fused multiply-add.
+template <class T, int NV, class W>
+__device__ __forceinline__ void add_messages(const W& word, float w,
+                                             float (&acc)[NV]) {
+  if constexpr (sizeof(T) == 2 && NV % 2 == 0) {
+    const __nv_bfloat162 w2 = __bfloat162bfloat162(__float2bfloat16_rn(w));
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&word);
+#pragma unroll
+    for (int i = 0; i < NV / 2; ++i) {
+      const float2 m = __bfloat1622float2(__hmul2(w2, h[i]));
+      acc[2 * i] += m.x;
+      acc[2 * i + 1] += m.y;
+    }
+  } else {
+    float f[NV];
+    unpack_word<T, NV>(word, f);
+#pragma unroll
+    for (int k = 0; k < NV; ++k) acc[k] += round_to<T>(w * f[k]);
+  }
+}
+
 // row[0 .. n) into out[0 .. n) as floats, n <= N, read a word of NV values
 // at a time: NV divides n and the row starts on NV * sizeof(T) bytes (the
 // host's word_values checks both).

@@ -44,8 +44,9 @@ _SOFTMAX_BWD = [_VP, _VP, _VP, _I32, _I32, _I32, _VP, _VP, _VP]
 _MH_FWD = [_VP, _VP, _VP, _VP, _I32, _I32, _I32, _I32, _I32, _VP, _VP, _VP]
 _MH_BWD = [_VP, _VP, _VP, _VP, _VP, _VP, _I32, _I32, _I32, _I32, _I32, _VP,
            _VP, _VP, _VP]
-_SPMM = [_VP, _I32, _VP, _VP, _VP, _I32, _I32, _I32, _VP, _VP, _VP]
-_SPMM_BWD = [_VP, _I32, _VP, _VP, _VP, _VP, _I32, _I32, _I32, _VP, _VP, _VP]
+_SPMM = [_VP, _I32, _VP, _VP, _VP, _I32, _I32, _I32, _VP, _VP, _VP, _VP]
+_SPMM_BWD = [_VP, _I32, _VP, _VP, _VP, _VP, _I32, _I32, _I32, _VP, _VP, _VP,
+             _VP]
 _BLOCK_SPMM = [_VP, _VP, _VP, _VP, _VP, _I32, _I32, _I32, _VP]
 _SIGNATURES = {
     # name: argument types after which the stream follows
@@ -71,6 +72,8 @@ _SIGNATURES = {
     "bignn_spmm_multihead_fwd_bf16": _MH_FWD,
     "bignn_spmm_multihead_bwd_f32": _MH_BWD,
     "bignn_spmm_multihead_bwd_bf16": _MH_BWD,
+    # positions, F, where to write the scratch's bytes (int64)
+    "bignn_spmm_scratch": [_I32, _I32, _VP],
     "bignn_spmm_f32": _SPMM,
     "bignn_spmm_bf16": _SPMM,
     "bignn_spmm_bwd_f32": _SPMM_BWD,

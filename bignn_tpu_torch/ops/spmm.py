@@ -8,8 +8,10 @@ outer graph without dense masks.
 ``spmm_sorted_coo`` dispatches as the JAX function does: with a
 ``block_plan`` it is ``ops.block_spmm``, otherwise a
 ``torch.autograd.Function`` whose forward runs the kernel of
-``csrc/spmm.cu`` on a CUDA tensor (one warp per destination row, no
-``[E, F]`` message tensor) and whose backward (``spmm_sorted_coo_bwd``) runs
+``csrc/spmm.cu`` on a CUDA tensor (a row slot per destination row, rows
+that span many positions cut into pieces over the whole card; no ``[E,
+F]`` message tensor; the wrappers allocate its scratch) and whose backward
+(``spmm_sorted_coo_bwd``) runs
 its permuted-read form for ``d_x`` over the source-sorted order
 (``src_perm``/``src_sorted``, precomputed per graph, or one stable sort of
 ``src`` when absent), JAX's ``_dx_sorted`` fused. ``d_weight`` is a per-edge
@@ -24,6 +26,8 @@ the weight's type.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -89,17 +93,30 @@ def _check(x, src, dst, weight, name: str) -> tuple[int, int, str]:
     return x.shape[0], x.shape[1], suffix
 
 
+def _scratch(dev, num_pos: int, num_out: int,
+             feat: int) -> list[torch.Tensor]:
+    """The kernels' scratch: each output row's bounds ``[num_out]`` int32
+    twice, and the long-row list with its partial sums (as many bytes as
+    ``bignn_spmm_scratch`` says). The caller holds it until the launch is
+    queued."""
+    size = ctypes.c_int64()
+    cuda_lib.launch("bignn_spmm_scratch", dev, num_pos, feat,
+                    ctypes.addressof(size))
+    return [torch.empty(n, dtype=t, device=dev)
+            for n, t in ((num_out, torch.int32), (num_out, torch.int32),
+                         (size.value, torch.uint8))]
+
+
 def _spmm_fwd_cuda(x, src, dst, weight, num_out):
     n, f, suffix = _check(x, src, dst, weight, "x")
     dev = x.device
     out = torch.empty((num_out, f), dtype=x.dtype, device=dev)
-    first = torch.empty(num_out, dtype=torch.int32, device=dev)
-    last = torch.empty(num_out, dtype=torch.int32, device=dev)
+    scratch = _scratch(dev, src.shape[0], num_out, f)
     cuda_lib.launch(f"bignn_spmm_{suffix}", dev, x.data_ptr(), n, src.data_ptr(),
                     dst.data_ptr(),
                     None if weight is None else weight.data_ptr(),
-                    src.shape[0], num_out, f, first.data_ptr(),
-                    last.data_ptr(), out.data_ptr())
+                    src.shape[0], num_out, f,
+                    *(t.data_ptr() for t in scratch), out.data_ptr())
     cuda_lib.count(spmm_sorted_coo, x.dtype, weight is not None)
     return out
 
@@ -123,13 +140,12 @@ def spmm_sorted_coo_bwd(g: torch.Tensor, src: torch.Tensor,
         if t.shape[0] != src.shape[0]:
             raise ValueError(f"{name} must match the edge list")
     d_x = torch.empty((num_x, f), dtype=g.dtype, device=dev)
-    first = torch.empty(num_x, dtype=torch.int32, device=dev)
-    last = torch.empty(num_x, dtype=torch.int32, device=dev)
+    scratch = _scratch(dev, src.shape[0], num_x, f)
     cuda_lib.launch(f"bignn_spmm_bwd_{suffix}", dev, g.data_ptr(), num_g,
                     dst.data_ptr(),
                     None if weight is None else weight.data_ptr(),
                     src_perm.data_ptr(), src_sorted.data_ptr(), src.shape[0],
-                    num_x, f, first.data_ptr(), last.data_ptr(),
+                    num_x, f, *(t.data_ptr() for t in scratch),
                     d_x.data_ptr())
     cuda_lib.count(spmm_sorted_coo_bwd, g.dtype, weight is not None)
     return d_x

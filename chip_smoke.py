@@ -132,7 +132,11 @@ Phases:
      must launch, the flash-GAT not. G(ii): the outer GAT swapped for
      gcn:128 and for gin:128, 4 steps each, step 1 against the plain
      versions; the weighted sorted-COO SpMM (GCN weights; GIN's 0/1
-     locality split) and its backward must launch.
+     locality split) and its backward must launch; then 12 more steps of
+     each in turns, their medians on one line, GIN then GCN; then the GIN
+     outer's two split SpMMs on shard
+     0 of the plan (each source order holds a hub row) against their plain
+     versions, forward and backward.
   H. config5-large as get_config("config5-large") sets it (config4's
      model, bf16, batch 1024 + 1024, Adam lr 3e-4) on the whole
      100,000-drug synthetic-large graph, 8 graph shards on one card, run
@@ -164,10 +168,12 @@ send buffers; a second row, all_to_all:f32 (config5), at config5's, with
 the launches of paths G and G(ii). Rows 4 and 8 have rows at their other
 shapes too (segment_softmax:bf16:100k, spmm_multihead:bf16:100k,
 segment_softmax{,_bwd}:{f32,bf16}:16k, spmm_multihead:f32:shard,
-segment_softmax{,_bwd}:f32:config4), each with the launches of the paths
+segment_softmax{,_bwd}:f32:config4), and row 7 at path G(ii)'s GIN split
+(spmm_sorted_coo{,_bwd}:f32:hub), each with the launches of the paths
 that run that shape. The bf16 softmax forms are held to their plain
-versions value by value (BF16_STEP); row 4's library call is
-torch.sparse.softmax (softmax_library). The 100K tensors are freed before
+versions value by value (BF16_STEP), and so are the weighted bf16 SpMMs
+(BF16_WEIGHTED); row 4's library call is torch.sparse.softmax
+(softmax_library). The 100K tensors are freed before
 phase 8. The
 last line is {"ok": true, "device": {...}}; any failure raises, and the
 script exits non-zero without it.
@@ -220,6 +226,14 @@ BF16_TOL = 1e-2  # x max(1, max |plain|)
 # round a float32 value to bf16, and those float32 values nearly agree, so
 # they differ by at most one bf16 step: 2**-7 of the value
 BF16_STEP = 2.0 ** -7  # x (|plain| + mean |plain|), per value
+# the weighted bf16 SpMMs (rows 6 and 7), value by value: kernel and plain
+# version round the same bf16 weights and messages and add them in float32
+# in other orders, so they round each sum to the same bf16 value except
+# where the two float32 sums straddle a rounding point (about 2**-16 of the
+# values for a few messages a row); a kernel that skips either rounding
+# moves most sums by a quarter of a bf16 step or more, so a large share of
+# the values round to another bf16 value
+BF16_WEIGHTED = (BF16_STEP, True, 1e-3)  # (tol, per value, most share off)
 # config4's step 1, kernels vs plain versions: the float32 gradients of a
 # bf16 computation move in bf16 steps (2**-8 of the largest term); a
 # rounding that flips in one run and not the other moves a summed gradient
@@ -789,10 +803,11 @@ def run_serving(dev, ds) -> dict:
     return launches
 
 
-def _timed_steps(trainer, batches, label: str):
+def _timed_steps(trainer, batches, label: str, secs: list | None = None):
     """Run ``batches`` as steps 0.. of epoch 0, each timed on the host clock
-    up to a synchronize; logs the times, returns (losses, step-1 grads)."""
-    losses, secs = [], []
+    up to a synchronize; logs the times (and appends them to ``secs``),
+    returns (losses, step-1 grads)."""
+    losses, secs = [], [] if secs is None else secs
     for i, (pairs, mask) in enumerate(batches):
         t0 = time.perf_counter()
         loss = trainer.train_step(pairs, mask, 0, i)
@@ -984,20 +999,23 @@ def run_real_gate(dev) -> None:
 
 
 def _check_close(name: str, got, want, tol: float,
-                 per_element: bool = False) -> float:
+                 per_element: bool = False,
+                 max_share: float | None = None) -> float:
     """Hold the outputs of a kernel to those of its plain version: the
     worst max|got - want| / max(1, max |want|) within ``tol``, or with
-    ``per_element`` every value's |got - want| / (|want| + mean |want|).
-    Raises beyond it, with both measures. Returns the worst absolute
-    error."""
+    ``per_element`` every value's |got - want| / (|want| + mean |want|);
+    with ``max_share`` also at most that share of the values off their
+    plain value at all. Raises beyond it, with the measures. Returns the
+    worst absolute error."""
     torch.cuda.synchronize()
-    err, ratio, worst, bad = 0.0, 0.0, 0.0, 0
+    err, ratio, worst, bad, off, count = 0.0, 0.0, 0.0, 0, 0, 0
     for a, b in zip(got if isinstance(got, tuple) else (got,),
                     want if isinstance(want, tuple) else (want,)):
         d, b = (a.float() - b.float()).abs(), b.float().abs()
         e = d.max().item() if d.numel() else 0.0
         err, ratio = max(err, e), max(ratio, e / max(1.0, b.max().item()
                                                      if b.numel() else 0.0))
+        off, count = off + int((d != 0).sum()), count + d.numel()
         if per_element and d.numel():
             r = torch.where(d == 0, 0.0, d / (b + b.mean()))
             worst, bad = max(worst, r.max().item()), bad + int((r > tol).sum())
@@ -1008,16 +1026,24 @@ def _check_close(name: str, got, want, tol: float,
             f"|plain|) {ratio:.3e}")
     if not per_element and not ratio <= tol:
         raise AssertionError(f"{name}: error {ratio} of the scale, above {tol}")
+    if max_share is not None and off > max_share * count:
+        raise AssertionError(
+            f"{name}: {off} of {count} values ({off / max(count, 1):.3e}) off "
+            f"their plain value, above a share of {max_share:g}")
     return err
 
 
-def _compare(results: dict, name: str, kernel, plain, tol: float,
+def _compare(results: dict, name: str, kernel, plain, tol,
              num_bytes: float, flops: float = 0.0, library=None,
              per_element: bool = False) -> None:
-    """Hold a kernel to its plain version (``_check_close``), then
-    ``record`` it."""
+    """Hold a kernel to its plain version (``_check_close``; ``tol`` a
+    number, or ``(tol, per_element, max_share)``), then ``record`` it."""
+    if isinstance(tol, tuple):
+        tol, per_element, max_share = tol
+    else:
+        max_share = None
     got = kernel()
-    err = _check_close(name, got, plain(), tol, per_element)
+    err = _check_close(name, got, plain(), tol, per_element, max_share)
     outs = got if isinstance(got, tuple) else (got,)
     record(results, name, err, tol, kernel, plain,
            num_bytes + nbytes(*outs), flops, library)
@@ -1298,8 +1324,9 @@ def _check_block_routes(buckets, launches: dict) -> None:
 def block_spmm_kernels(dev, batch, dtype=torch.float32) -> dict:
     """Row 6's forms (forward and backward, unweighted and weighted) in
     ``dtype`` against their plain versions at a block-local bucket above
-    the threshold, F 128; the library call is a batched matmul over the
-    dense blocks in ``dtype`` (built outside the timing)."""
+    the threshold, F 128 (the weighted bf16 forms value by value,
+    ``BF16_WEIGHTED``); the library call is a batched matmul over the dense
+    blocks in ``dtype`` (built outside the timing)."""
     from bignn_tpu_torch import ops
     from bignn_tpu_torch.ops import cuda_lib
 
@@ -1318,6 +1345,8 @@ def block_spmm_kernels(dev, batch, dtype=torch.float32) -> dict:
     results = {}
     for w, tw, form in ((None, None, ""),
                         (b.edge_weight, b.edge_tweight, ":weighted")):
+        if w is not None and dtype == torch.bfloat16:
+            tol = (BF16_WEIGHTED, BF16_WEIGHTED)
         blocks = ops.block_adjacency_plain(b.edge_src, b.edge_dst, w,
                                            n).to(dtype)
         blocks_t = blocks.transpose(1, 2).contiguous()
@@ -1478,16 +1507,18 @@ def run_sparse_training(dev) -> tuple[list, dict]:
     return [launches, gcn, bf16], results
 
 
-def spmm_kernels(dev, batch, dtype=torch.float32) -> dict:
+def spmm_forms(b, dtype=torch.float32) -> list[tuple]:
     """Row 7's forms in ``dtype`` (forward and backward, unweighted at F 128
-    as GIN's second layer takes them, weighted at F 64 as GCN's) against
-    their plain versions at a bucket that is not block-local; the library
-    call is torch.sparse.mm over a CSR matrix in ``dtype`` built outside the
-    timing."""
+    as GIN's second layer takes them, weighted at F 64 as GCN's) at a
+    bucket ``b`` on the card that is not block-local: ``(name, kernel call,
+    plain call, library call, tolerance, bytes the call must read,
+    operations)`` each; the weighted bf16 forms are held value by value
+    (``BF16_WEIGHTED``). The library call is torch.sparse.mm over a CSR
+    matrix in ``dtype`` built outside the timing."""
     from bignn_tpu_torch import ops
     from bignn_tpu_torch.ops import cuda_lib
 
-    b = batch.to(dev)
+    dev = b.edge_src.device
     n = b.node_cap
     real = b.edge_dst < n
     e_real = int(real.sum())
@@ -1496,39 +1527,111 @@ def spmm_kernels(dev, batch, dtype=torch.float32) -> dict:
     t = cuda_lib.dtype_name(dtype)
     tol = (SPARSE_TOL, BWD_TOL) if dtype == torch.float32 else (BF16_TOL,
                                                                 BF16_TOL)
-    log(f"  kernels at rows {n} ({rows} real), edges {b.edge_cap} "
-        f"({e_real} real), {t}")
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    results = {}
+    forms = []
     for w, feat, form in ((None, 128, ""), (b.edge_weight, 64, ":weighted")):
+        if w is not None and dtype == torch.bfloat16:
+            tol = (BF16_WEIGHTED, BF16_WEIGHTED)
         x = torch.randn(n, feat, device=dev, generator=gen).to(dtype)
         g = torch.randn(n, feat, device=dev, generator=gen).to(dtype)
         vals = (torch.ones(e_real, device=dev) if w is None else w[real])
         ij = torch.stack([dst[real], src[real]]).long()
-        csr = torch.sparse_coo_tensor(ij, vals.to(dtype), (n, n)).coalesce(
-            ).to_sparse_csr()
-        csr_t = torch.sparse_coo_tensor(ij.flip(0), vals.to(dtype),
-                                        (n, n)).coalesce().to_sparse_csr()
+        csr, csr_t = (torch.sparse_coo_tensor(m, vals.to(dtype), (n, n))
+                      .coalesce().to_sparse_csr() for m in (ij, ij.flip(0)))
         # bytes the function needs: the real rows and the real edges (the
         # padding edges come last)
         wbytes = 0 if w is None else nbytes(w[:e_real])
         fwd = (x, src, dst, w, n)
-        name = f"spmm_sorted_coo:{t}{form}"
-        _compare(results, name, lambda: ops.spmm_sorted_coo(*fwd),
-                 lambda: ops.spmm_sorted_coo_plain(*fwd), tol[0],
-                 nbytes(x[:rows], src[:e_real], dst[:e_real]) + wbytes,
-                 2 * e_real * feat,
-                 library=lambda: torch.sparse.mm(csr, x))
+        forms.append((f"spmm_sorted_coo:{t}{form}",
+                      lambda fwd=fwd: ops.spmm_sorted_coo(*fwd),
+                      lambda fwd=fwd: ops.spmm_sorted_coo_plain(*fwd),
+                      lambda a=csr, x=x: torch.sparse.mm(a, x), tol[0],
+                      nbytes(x[:rows], src[:e_real], dst[:e_real]) + wbytes,
+                      2 * e_real * feat))
         bwd = (g, src, dst, w, n, b.edge_src_perm, b.edge_src_sorted)
-        name = f"spmm_sorted_coo_bwd:{t}{form}"
-        _compare(results, name, lambda: ops.spmm_sorted_coo_bwd(*bwd),
-                 lambda: ops.spmm_sorted_coo_bwd_plain(*bwd), tol[1],
-                 nbytes(g[:rows], dst[:e_real], b.edge_src_perm[:e_real],
-                        b.edge_src_sorted[:e_real]) + wbytes,
-                 2 * e_real * feat,
-                 library=lambda: torch.sparse.mm(csr_t, g))
-        del csr, csr_t
+        forms.append((f"spmm_sorted_coo_bwd:{t}{form}",
+                      lambda bwd=bwd: ops.spmm_sorted_coo_bwd(*bwd),
+                      lambda bwd=bwd: ops.spmm_sorted_coo_bwd_plain(*bwd),
+                      lambda a=csr_t, g=g: torch.sparse.mm(a, g), tol[1],
+                      nbytes(g[:rows], dst[:e_real], b.edge_src_perm[:e_real],
+                             b.edge_src_sorted[:e_real]) + wbytes,
+                      2 * e_real * feat))
+    return forms
+
+
+def spmm_kernels(dev, batch, dtype=torch.float32) -> dict:
+    """Row 7's forms (``spmm_forms``) in ``dtype`` against their plain
+    versions at a bucket that is not block-local, timed with the library
+    call."""
+    b = batch.to(dev)
+    log(f"  kernels at rows {b.node_cap} ({int(b.node_mask.sum())} real), "
+        f"edges {b.edge_cap} ({int((b.edge_dst < b.node_cap).sum())} real), "
+        f"{dtype}")
+    results = {}
+    for name, kernel, plain, library, tol, nb, flops in spmm_forms(b, dtype):
+        _compare(results, name, kernel, plain, tol, nb, flops,
+                 library=library)
     return results
+
+
+def gin_split_layouts(src, dst, src_perm, src_sorted, b: int,
+                      n_halo: int) -> list[tuple]:
+    """dist_gin_apply's two sorted-COO SpMMs on one shard's edges (int32
+    tensors of the plan; ``b`` owned rows, ``n_halo`` received ones), as
+    parallel/halo.py builds them: per SpMM ``(src, dst, weight, rows of x,
+    src_perm, src_sorted)``. The owned-source SpMM clamps every halo source
+    to row b - 1 (weight 0) and the halo-source one every owned source to
+    halo row 0 (weight 0), so each source order holds a hub row of about
+    the other half's edges."""
+    w_loc = (src < b).float()
+    return [(src.clamp(max=b - 1), dst, w_loc, b, src_perm,
+             src_sorted.clamp(max=b - 1)),
+            ((src - b).clamp(0, n_halo - 1), dst, 1.0 - w_loc, n_halo,
+             src_perm, (src_sorted - b).clamp(0, n_halo - 1))]
+
+
+def gin_split_forms(src, dst, src_perm, src_sorted, b: int, n_halo: int,
+                    feat: int = 128) -> list[tuple]:
+    """Row 7 at dist_gin_apply's split (``gin_split_layouts``), float32 at
+    F ``feat``: ``spmm_sorted_coo:f32:hub`` (both forward SpMMs) and
+    ``spmm_sorted_coo_bwd:f32:hub`` (both backwards), as ``spmm_forms``
+    gives its forms; the library calls are torch.sparse.mm on each SpMM's
+    CSR matrix (the forward) or its transpose (the backward)."""
+    from bignn_tpu_torch import ops
+
+    dev = src.device
+    lays = gin_split_layouts(src, dst, src_perm, src_sorted, b, n_halo)
+    real = dst < b
+    e_real = int(real.sum())
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    xs = [torch.randn(lay[3], feat, device=dev, generator=gen)
+          for lay in lays]
+    g = torch.randn(b, feat, device=dev, generator=gen)
+    libs, libs_t = [], []
+    for s, d, w, n, _, _ in lays:
+        ij = torch.stack([d[real], s[real]]).long()
+        libs.append(torch.sparse_coo_tensor(ij, w[real], (b, n)).coalesce()
+                    .to_sparse_csr())
+        libs_t.append(torch.sparse_coo_tensor(ij.flip(0), w[real], (n, b))
+                      .coalesce().to_sparse_csr())
+    fwd = [(x, s, d, w, b) for x, (s, d, w, *_) in zip(xs, lays)]
+    bwd = [(g, s, d, w, n, p, st) for s, d, w, n, p, st in lays]
+    # per SpMM, the real edges' ids and weights (a source-sorted array holds
+    # as many real edges as the dst-sorted one)
+    ebytes = e_real * 4
+    return [
+        ("spmm_sorted_coo:f32:hub",
+         lambda: tuple(ops.spmm_sorted_coo(*a) for a in fwd),
+         lambda: tuple(ops.spmm_sorted_coo_plain(*a) for a in fwd),
+         lambda: tuple(torch.sparse.mm(a, x) for a, x in zip(libs, xs)),
+         SPARSE_TOL, sum(nbytes(x) + 3 * ebytes for x in xs),
+         sum(2 * e_real * feat for _ in xs)),
+        ("spmm_sorted_coo_bwd:f32:hub",
+         lambda: tuple(ops.spmm_sorted_coo_bwd(*a) for a in bwd),
+         lambda: tuple(ops.spmm_sorted_coo_bwd_plain(*a[:5]) for a in bwd),
+         lambda: tuple(torch.sparse.mm(a, g) for a in libs_t),
+         BWD_TOL, len(bwd) * (nbytes(g) + 4 * ebytes),
+         sum(2 * e_real * feat for _ in bwd))]
 
 
 def run_streaming(dev) -> tuple[list, dict]:
@@ -1612,7 +1715,6 @@ def run_max_readout(dev, ds, bucketing) -> tuple[list, dict]:
     then 20 in bf16 (``dtype="bfloat16"``, the step-1 gradients by the
     bf16 tolerances); then the segment max in both types against its plain
     version at the largest bucket (exact: a max is one of its inputs)."""
-    from bignn_tpu_torch import ops
     from bignn_tpu_torch.config import get_config
     from bignn_tpu_torch.data import prepare_device_data
 
@@ -1629,26 +1731,41 @@ def run_max_readout(dev, ds, bucketing) -> tuple[list, dict]:
         dev, dataclasses.replace(maxed, dtype="bfloat16"), data, cfg.train,
         batches, ("segment_max:bf16", "flash_gat_attention:f32",
                   "flash_gat_attention_bwd:f32"), f32_plain)
-    b = max(bucketing.batches, key=lambda b: b.node_cap)
+    results = {}
+    for name, kernel, plain, library, tol, nb, flops in segment_max_forms(
+            dev, max(bucketing.batches, key=lambda b: b.node_cap)):
+        _compare(results, name, kernel, plain, tol, nb, flops,
+                 library=library)
+    return [launches, bf16], results
+
+
+def segment_max_forms(dev, b) -> list[tuple]:
+    """Row 5 in float32 and bf16 at bucket ``b`` (block-local ids with
+    padding runs), F 128, as ``spmm_forms`` gives its forms (exact: a max
+    is one of its inputs); the library call is one amax
+    ``scatter_reduce_``."""
+    from bignn_tpu_torch import ops
+
     ids = torch.as_tensor(b.graph_ids, device=dev)
     n, s = b.node_cap, b.num_graphs
     rows = int((ids < s).sum())
     log(f"  segment_max at rows {n} ({rows} valid) -> {s} molecules, F 128")
-    results = {}
+    idx = torch.where(ids < s, ids, s).long()[:, None].expand(-1, 128)
+    forms = []
     for dt in (torch.float32, torch.bfloat16):
         x = torch.randn(n, 128, device=dev, generator=torch.Generator(
             device=dev).manual_seed(SEED)).to(dt)
         out = x.new_empty((s + 1, 128))
-        idx = torch.where(ids < s, ids, s).long()[:, None].expand(-1, 128)
-        name = f"segment_max:{'f32' if dt == torch.float32 else 'bf16'}"
         # bytes the function needs: the valid rows (a padding row lies in
         # no segment and is never read), every id, and the output
-        _compare(results, name, lambda: ops.segment_max(x, ids, s),
-                 lambda: ops.segment_max_plain(x, ids, s), 0.0,
-                 nbytes(x[:rows], ids), rows * 128,
-                 library=lambda: out.scatter_reduce_(
-                     0, idx, x, "amax", include_self=False))
-    return [launches, bf16], results
+        forms.append((
+            f"segment_max:{'f32' if dt == torch.float32 else 'bf16'}",
+            lambda x=x: ops.segment_max(x, ids, s),
+            lambda x=x: ops.segment_max_plain(x, ids, s),
+            lambda x=x, out=out: out.scatter_reduce_(
+                0, idx, x, "amax", include_self=False),
+            0.0, nbytes(x[:rows], ids), rows * 128))
+    return forms
 
 
 def _step1_vs_plain(tr, hb, witness: bool = False) -> float:
@@ -1762,15 +1879,11 @@ def _prefetched_chunks(tr, draw, steps: int, chunk: int):
     return torch.cat(losses).float().cpu().numpy(), secs
 
 
-def run_config4_host(dev) -> tuple[dict, dict]:
-    """Path E: config4 with host sampling (get_config("config4",
-    device_sample=False): bf16, fanouts (10,), batch 1024 + 1024, max_drugs
-    16,384, Adam lr 3e-4) on synthetic-large cut to 16,384 drugs with
-    molecules up to 160 atoms, so that no batch is block-local:
-    MinibatchTrainer with resident tables, step 1's gradients against the
-    plain versions (bf16 tolerances), 16 steps by train_chunk over
-    prefetched draws; then row 7's bf16 forms against their plain versions
-    at a sampled batch. Returns the launch counts and the comparisons."""
+def config4_host_trainer(dev):
+    """Path E's trainer: get_config("config4", device_sample=False) (bf16,
+    fanouts (10,), batch 1024 + 1024, max_drugs 16,384, Adam lr 3e-4) on
+    synthetic-large cut to 16,384 drugs with molecules up to 160 atoms, so
+    that no batch is block-local; MinibatchTrainer with resident tables."""
     from bignn_tpu_torch.config import get_config
     from bignn_tpu_torch.data import load_dataset
     from bignn_tpu_torch.models import BiGNN
@@ -1796,6 +1909,17 @@ def run_config4_host(dev) -> tuple[dict, dict]:
         f"{s.block_local}")
     if s.block_local or tr.device_sample or not tr.resident:
         raise AssertionError("path E is not config4 host-sampled, streaming")
+    return tr
+
+
+def run_config4_host(dev) -> tuple[dict, dict]:
+    """Path E: config4 host-sampled (``config4_host_trainer``): step 1's
+    gradients against the plain versions (bf16 tolerances), 16 steps by
+    train_chunk over prefetched draws; then row 7's bf16 forms against
+    their plain versions at a sampled batch. Returns the launch counts and
+    the comparisons."""
+    tr = config4_host_trainer(dev)
+    s = tr.sampler
     hb = s.sample_compact_at(0, 0)
     _step1_vs_plain(tr, hb, witness=True)
     tr.init(SEED)
@@ -2090,6 +2214,7 @@ P2_LARGE_PLAN = {"node_block": 12_500, "halo_size": 12_504,
 # the plain versions, at SERVE_BF16_TOL.
 P2_EMB_TOL = 1e-2
 LOSS_RTOL = 1e-5  # f32 step-1 losses: one masked mean summed in other orders
+G2_TURNS = 12  # path G(ii)'s GIN and GCN steps timed in turns
 P2_GAT_FORMS = ("all_to_all:f32", "segment_sum:f32", "block_adjacency:f32",
                 "segment_softmax:f32", "segment_softmax_bwd:f32",
                 "spmm_multihead:f32", "spmm_multihead_bwd:f32",
@@ -2216,7 +2341,7 @@ def run_p2(dev, ds) -> tuple[list, dict]:
     log(f"  {cfg.model}; batch {cfg.train.batch_size}, lr {cfg.train.lr}; "
         f"mesh dp=1, graph={graph} on one card")
     reset_counts()
-    mesh, _, plan_d = p2_layout(dev, ds, graph, cfg.model.inner_layers)
+    mesh, plan, plan_d = p2_layout(dev, ds, graph, cfg.model.inner_layers)
     model = BiGNN(cfg.model, seed=SEED).to(dev)
     params0 = {k: v.clone() for k, v in model.state_dict().items()}
     rec = FirstCall(ops.all_to_all)
@@ -2271,15 +2396,17 @@ def run_p2(dev, ds) -> tuple[list, dict]:
     del plan_o
 
     counts = [launches, overlapped]
+    trainers = {}
     for outer in (("gcn:128",), ("gin:128",)):
         mcfg = dataclasses.replace(cfg.model, outer_layers=outer)
         log(f"  path G(ii): outer {outer}, 4 steps")
         reset_counts()
         model = BiGNN(mcfg, seed=SEED).to(dev)
         params0 = {k: v.clone() for k, v in model.state_dict().items()}
-        losses, grads = _timed_steps(
-            P2Trainer(model, cfg.train, mesh, ds.num_drugs, plan_d),
-            batches[:4], "p2 step, kernels")
+        trainers[outer[0]] = P2Trainer(model, cfg.train, mesh, ds.num_drugs,
+                                       plan_d)
+        losses, grads = _timed_steps(trainers[outer[0]], batches[:4],
+                                     "p2 step, kernels")
         counts.append(read_counts())
         require_launched(counts[-1], (
             "all_to_all:f32", "spmm_sorted_coo:f32:weighted",
@@ -2292,6 +2419,30 @@ def run_p2(dev, ds) -> tuple[list, dict]:
                 one, "p2 step 1, plain versions")
         _check_loss("the plain versions", losses[0], p_losses[0])
         _check_step1(grads, p_grads, losses[0], p_losses[0], torch.float32)
+    # both outer layers' steps in turns, so that the host's drift between
+    # runs (the steps are host-bound) falls on both alike
+    secs = {outer: [] for outer in trainers}
+    for i in range(4, 4 + G2_TURNS):
+        pairs, mask = batches[i % len(batches)]
+        for outer, tr in trainers.items():
+            t0 = time.perf_counter()
+            tr.train_step(pairs, mask, 0, i)
+            torch.cuda.synchronize()
+            secs[outer].append(time.perf_counter() - t0)
+    gin, gcn = (np.median(secs[o]) * 1e3 for o in ("gin:128", "gcn:128"))
+    log(f"  path G(ii) step medians, {G2_TURNS} steps each in turns: GIN "
+        f"{gin:.3f} ms, GCN {gcn:.3f} ms ({gin / gcn:.2f}x)")
+    # the GIN outer's two split SpMMs on shard 0 of the real plan: each
+    # source order holds a hub row (gin_split_layouts)
+    b, n_halo = plan.node_block, plan.n_shards * plan.halo_size
+    shard0 = (torch.as_tensor(np.asarray(a[0], np.int32), device=dev)
+              for a in (plan.edge_src, plan.edge_dst, plan.src_perm,
+                        plan.src_sorted))
+    log(f"  split SpMMs on shard 0: B {b}, {n_halo} halo rows")
+    for name, kernel, plain, library, tol, nb, flops in gin_split_forms(
+            *shard0, b, n_halo):
+        _compare(results, name, kernel, plain, tol, nb, flops,
+                 library=library)
     return counts, results
 
 
@@ -2859,7 +3010,12 @@ def main() -> int:
             ("spmm_multihead:f32:shard", "spmm_multihead:f32", [p2_large]),
             ("segment_softmax:f32:config4", "segment_softmax:f32", [stepped]),
             ("segment_softmax_bwd:f32:config4", "segment_softmax_bwd:f32",
-             [stepped])):
+             [stepped]),
+            # row 7 at path G(ii)'s GIN split, with the GIN run's launches
+            ("spmm_sorted_coo:f32:hub", "spmm_sorted_coo:f32:weighted",
+             p2_counts[-1:]),
+            ("spmm_sorted_coo_bwd:f32:hub",
+             "spmm_sorted_coo_bwd:f32:weighted", p2_counts[-1:])):
         kernels.append(row(name, form, paths))
     print(card_line())
     print(json.dumps({"kernels": kernels}))

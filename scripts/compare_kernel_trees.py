@@ -2,7 +2,7 @@
 one run on one card, so that a change to a kernel source can be told apart
 from the spread between runs.
 
-    python3 scripts/compare_kernel_trees.py ROOT [ROOT ...]
+    python3 scripts/compare_kernel_trees.py [--only PREFIX[,PREFIX ...]] ROOT [ROOT ...]
 
 Each ROOT is a checkout of this repository. Each is timed in a process of
 its own that imports ``bignn_tpu_torch`` from that ROOT (and so builds that
@@ -36,12 +36,16 @@ The forms, at the shapes ``chip_smoke.py`` gives them:
 - rows 3 and 3b: ``flash_gat_attention{,_bwd}:f32`` over config2's dense
   outer mask (N 1,704), H 4, D 32, the backward's ``lse`` and ``out`` from
   the plain forward on the CPU;
-- rows 5-7: ``segment_max:f32`` on the largest bucket of the DrugBank
-  stand-in, F 128; ``spmm_sorted_coo{,_bwd}:f32{,:weighted}`` on the
-  largest bucket of the stand-in with molecules up to 160 atoms, F 128
-  unweighted, F 64 weighted; ``block_spmm{,_bwd}:{f32,bf16}{,:weighted}``
-  on the largest bucket of synthetic-large cut to 16,384 drugs (301,312
-  rows), F 128.
+- rows 5-7: ``segment_max:{f32,bf16}`` on the largest bucket of the
+  DrugBank stand-in, F 128; ``spmm_sorted_coo{,_bwd}:f32{,:weighted}`` on
+  the largest bucket of the stand-in with molecules up to 160 atoms, F 128
+  unweighted, F 64 weighted; ``spmm_sorted_coo{,_bwd}:bf16{,:weighted}``
+  the same at path E's batch 0 (config4 host-sampled, 4.1M edge slots);
+  ``spmm_sorted_coo{,_bwd}:f32:hub``: the two SpMMs of ``dist_gin_apply``
+  on shard 0 of path G's plan (config5, 4 shards), F 128, whose source
+  orders each hold a hub row (``chip_smoke.gin_split_layouts``);
+  ``block_spmm{,_bwd}:{f32,bf16}{,:weighted}`` on the largest bucket of
+  synthetic-large cut to 16,384 drugs (301,312 rows), F 128.
 
 The index arrays are built once, in a process of their own with the first
 ROOT's package (config4's batch needs its sampler on the card), and saved
@@ -49,8 +53,8 @@ under ``build/``; every ROOT loads them, and draws its values from seeded
 device generators, so all ROOTs see the same inputs.
 
 Each form, and its PyTorch yardstick where ``chip_smoke.py`` names one
-(``index_add_``, ``index_put_(..., accumulate=True)``, ``copy_``,
-``torch.sparse.mm`` on a CSR matrix, the multi-head backward's
+(``index_add_``, ``index_put_(..., accumulate=True)``, ``copy_``, an
+amax ``scatter_reduce_``, ``torch.sparse.mm`` on a CSR matrix, the multi-head backward's
 ``torch.sparse.mm`` and ``sampled_addmm``, ``torch.sparse.softmax`` and its
 backward on a COO tensor, ``torch.bmm`` over dense blocks; built outside the
 timing, from this checkout's ``chip_smoke.py``), is timed by CUDA events in
@@ -63,15 +67,16 @@ the card runs them back to back and the host does not set the rate.
 sleep (lengthened to twice a probe of that time), or ``device_ms`` is null.
 ``lib_ms`` and ``lib_device_ms`` are the same for the yardstick. Each result
 is checked against the plain version (f32 within 1e-4, bf16 within 1e-2, of
-max(1, max |plain|); the bf16 softmax forms value by value, as
-``chip_smoke.py`` holds them; the exchange and the block counts bit for bit,
-the float32 block weights within 1e-6, as ``chip_smoke.py`` holds them); a
-form that fails gets ``fails`` (the message, with both measures) and no
-times, and the ROOT's process exits 1 after its line. The softmax forms also
-get ``kernels``: the device ms a call of each kernel they launch (the bounds
-pass, the walk), from ``torch.profiler``, and so does the flash-GAT backward
-(its tiles and its reduction). Prints one JSON line per ROOT; needs a CUDA
-card. ``bound_ms`` and ``bound_by`` (rows 2-4, 6 and 8):
+max(1, max |plain|); the bf16 softmax forms and the weighted bf16 SpMMs
+value by value, as ``chip_smoke.py`` holds them; the exchange and the
+block counts bit for bit, the float32 block weights within 1e-6, as
+``chip_smoke.py`` holds them); a form that fails gets ``fails`` (the
+message, with both measures) and no times, and the ROOT's process exits 1
+after its line. The softmax forms and rows 6-7 also get ``kernels``: the
+device ms a call of each kernel they launch (the bounds pass, the walks),
+from ``torch.profiler``, and so does the flash-GAT backward (its tiles and
+its reduction). ``--only`` times just the forms whose names start with one
+of the prefixes. Prints one JSON line per ROOT; needs a CUDA card. ``bound_ms`` and ``bound_by`` (rows 2-8):
 ``chip_smoke.bound_ms`` of the bytes the form must read and write and of the
 operations it must do, counted as ``chip_smoke.py`` counts them (rows 3 and
 3b are bound by operations). ``digest``: a hash of the kernel's output bits;
@@ -90,6 +95,7 @@ import re
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 SEED = 0
@@ -97,10 +103,12 @@ REPS, WARMUP = 10, 3
 DEVICE_REPS = 100  # launches of a form's calls stay below the queue's ~1,000
 # calls a form makes: its reps are divided
 CALLS = {"segment_sum:f32": 4, "block_adjacency:f32": 4,
-         "block_adjacency:f32:weighted": 4}
+         "block_adjacency:f32:weighted": 4, "spmm_sorted_coo:f32:hub": 2,
+         "spmm_sorted_coo_bwd:f32:hub": 2}
 SLEEP_CYCLES = 400_000_000  # ~0.2 s at the H100's 1.98 GHz boost clock
 # forms whose kernels are timed one by one
-TRACED = ("segment_softmax", "flash_gat_attention_bwd")
+TRACED = ("segment_softmax", "flash_gat_attention_bwd", "spmm_sorted_coo",
+          "block_spmm")
 
 
 def events_ms(fn, reps: int = REPS, warmup: int = WARMUP) -> float:
@@ -190,7 +198,7 @@ def build_inputs(root: str, path: Path) -> None:
 
     import numpy as np
 
-    import chip_smoke
+    from bignn_tpu_torch.config import get_config
     from bignn_tpu_torch.data import load_dataset, prepare_device_data
     from bignn_tpu_torch.parallel import build_outer_partition
     from bignn_tpu_torch.sparse import bucket_graphs
@@ -200,6 +208,7 @@ def build_inputs(root: str, path: Path) -> None:
     out = {"buckets": [(torch.as_tensor(b.graph_ids), b.num_graphs)
                        for b in bucket_graphs(
                            load_dataset("drugbank").molecules).batches]}
+    chip_smoke = smoke()
     cfg, _ = chip_smoke.sparse_config()
     outer = prepare_device_data(load_dataset(
         cfg.dataset, num_drugs=cfg.max_drugs)).outer
@@ -239,6 +248,27 @@ def build_inputs(root: str, path: Path) -> None:
                                  dst=pb.edge_dst.cpu(),
                                  estarts=pb.block_estarts.cpu(),
                                  weight=pb.edge_weight.cpu())
+    del tr, pb
+    # path E's batch 0 (config4 host-sampled, molecules up to 160 atoms)
+    tr = chip_smoke.config4_host_trainer(dev)
+    with torch.no_grad():
+        pb = tr._expand_compact(tr.sampler.sample_compact_at(0, 0).to(dev),
+                                tr.tables)
+    out["pathE"] = dict(node_cap=pb.node_cap, **{
+        k: getattr(pb, k).cpu() for k in (
+            "edge_src", "edge_dst", "edge_weight", "edge_src_perm",
+            "edge_src_sorted", "node_mask")})
+    del tr, pb
+    # shard 0 of path G's plan (config5: the DrugBank stand-in, 4 shards)
+    ds = load_dataset("drugbank")
+    train = ds.split_edges("train")
+    plan = build_outer_partition(train[:, 0], train[:, 1], ds.num_drugs,
+                                 get_config("config5").graph_shards)
+    out["gin"] = dict(b=plan.node_block,
+                      n_halo=plan.n_shards * plan.halo_size,
+                      src=i32(plan.edge_src[0]), dst=i32(plan.edge_dst[0]),
+                      perm=i32(plan.src_perm[0]),
+                      ssorted=i32(plan.src_sorted[0]))
     path.parent.mkdir(parents=True, exist_ok=True)
     torch.save(out, path)
 
@@ -400,6 +430,19 @@ def new_cases(dev, path: Path):
         softmax(f"{t}:config4", 82, o4["dst"], o4["n"])
         softmax(f"{t}:100k", 84, big["dst"], big["n"], backward=False)
 
+    # row 7 in bf16 at path E's batch, and at path G(ii)'s GIN split
+    pe = types.SimpleNamespace(**{k: v.to(dev) if torch.is_tensor(v) else v
+                                  for k, v in inp["pathE"].items()})
+    gin = {k: v.to(dev) if torch.is_tensor(v) else v
+           for k, v in inp["gin"].items()}
+    for name, kernel, plain, library, tol, nb, _ in (
+            smoke().spmm_forms(pe, torch.bfloat16)
+            + smoke().gin_split_forms(gin["src"], gin["dst"], gin["perm"],
+                                      gin["ssorted"], gin["b"],
+                                      gin["n_halo"])):
+        IN_BYTES[name] = nb
+        out.append((name, kernel, plain, library, tol))
+
     # row 2 at config4's sampled batch 0: int8 counts (the step's form),
     # int16 counts and bf16 weights (off the path), at the same edges
     blk = {k: v.to(dev) if torch.is_tensor(v) else v
@@ -483,38 +526,16 @@ def cases(dev):
                 lambda bwd=bwd: ops.flash_gat_attention_bwd_plain(*bwd), None,
                 smoke().BWD_TOL))
 
-    b = largest(bucket_graphs(ds.molecules))
-    ids = torch.as_tensor(b.graph_ids, device=dev)
-    s = b.num_graphs
-    x = torch.randn(b.node_cap, 128, device=dev, generator=gen)
-    out.append(("segment_max:f32", lambda: ops.segment_max(x, ids, s),
-                lambda: ops.segment_max_plain(x, ids, s), None, F32_TOL))
-
-    b = largest(bucket_graphs(load_dataset(
-        "drugbank", max_atoms=160).molecules)).to(dev)
-    n = b.node_cap
-    real = b.edge_dst < n
-    for w, feat, form in ((None, 128, ""), (b.edge_weight, 64, ":weighted")):
-        xs = torch.randn(n, feat, device=dev, generator=gen)
-        gs = torch.randn(n, feat, device=dev, generator=gen)
-        fwd = (xs, b.edge_src, b.edge_dst, w, n)
-        bwd = (gs, b.edge_src, b.edge_dst, w, n, b.edge_src_perm,
-               b.edge_src_sorted)
-        # the library: torch.sparse.mm on the CSR matrix and its transpose,
-        # as chip_smoke.spmm_kernels builds them
-        vals = torch.ones(int(real.sum()), device=dev) if w is None else (
-            w[real])
-        ij = torch.stack([b.edge_dst[real], b.edge_src[real]]).long()
-        csr, csr_t = (torch.sparse_coo_tensor(m, vals, (n, n)).coalesce(
-            ).to_sparse_csr() for m in (ij, ij.flip(0)))
-        out.append((f"spmm_sorted_coo:f32{form}",
-                    lambda fwd=fwd: ops.spmm_sorted_coo(*fwd),
-                    lambda fwd=fwd: ops.spmm_sorted_coo_plain(*fwd),
-                    lambda a=csr, x=xs: torch.sparse.mm(a, x), F32_TOL))
-        out.append((f"spmm_sorted_coo_bwd:f32{form}",
-                    lambda bwd=bwd: ops.spmm_sorted_coo_bwd(*bwd),
-                    lambda bwd=bwd: ops.spmm_sorted_coo_bwd_plain(*bwd),
-                    lambda a=csr_t, x=gs: torch.sparse.mm(a, x), F32_TOL))
+    # rows 5 and 7 as chip_smoke.py builds them: the segment max at the
+    # largest bucket of the stand-in, the sorted-COO SpMM at the largest
+    # bucket of the stand-in with molecules up to 160 atoms
+    for name, kernel, plain, library, tol, nb, _ in (
+            smoke().segment_max_forms(dev, largest(bucket_graphs(
+                ds.molecules)))
+            + smoke().spmm_forms(largest(bucket_graphs(load_dataset(
+                "drugbank", max_atoms=160).molecules)).to(dev))):
+        IN_BYTES[name] = nb
+        out.append((name, kernel, plain, library, tol))
 
     b = largest(bucket_graphs(load_dataset(
         "synthetic-large", num_drugs=16384).molecules)).to(dev)
@@ -526,6 +547,8 @@ def cases(dev):
              ("bf16", torch.bfloat16, BF16_TOL)),
             ((None, None, ""), (b.edge_weight, b.edge_tweight,
                                 ":weighted"))):
+        if t == "bf16" and w is not None:  # value by value, as chip_smoke.py
+            tol = smoke().BF16_WEIGHTED
         xb, gb = x32.to(dtype), g32.to(dtype)
         fwd = (xb, b.edge_src, b.edge_dst, w, b.block_estarts, b.edge_tsrc,
                b.edge_tdst, tw, b.block_tstarts, n)
@@ -600,8 +623,9 @@ def kernel_ms(fn, reps: int = 20) -> dict:
     return per
 
 
-def run_one(root: str, inputs: Path) -> dict:
-    """Time every form with the ``bignn_tpu_torch`` of ``root``."""
+def run_one(root: str, inputs: Path, only: tuple[str, ...] = ()) -> dict:
+    """Time every form (or those whose names start with one of ``only``)
+    with the ``bignn_tpu_torch`` of ``root``."""
     sys.path.insert(0, root)
     import torch
 
@@ -620,11 +644,14 @@ def run_one(root: str, inputs: Path) -> dict:
     with torch.no_grad():
         for name, kernel, plain, library, tol in (new_cases(dev, inputs)
                                                   + cases(dev)):
-            tol, per_element = tol if isinstance(tol, tuple) else (tol, False)
+            if only and not name.startswith(only):
+                continue
+            tol = (tol + (None,))[:3] if isinstance(tol, tuple) else (
+                tol, False, None)
             got, want = _tensors(kernel()), _tensors(plain())
             try:
                 err = smoke()._check_close(name, tuple(got), tuple(want),
-                                           tol, per_element)
+                                           *tol)
             except AssertionError as exc:
                 forms[name] = dict(fails=str(exc), digest=digest(got))
                 continue
@@ -664,11 +691,14 @@ def main() -> int:
     if len(sys.argv) == 4 and sys.argv[1] == "--inputs":
         build_inputs(sys.argv[2], Path(sys.argv[3]))
         return 0
-    if len(sys.argv) == 4 and sys.argv[1] == "--one":
-        result = run_one(sys.argv[2], Path(sys.argv[3]))
+    if len(sys.argv) in (4, 5) and sys.argv[1] == "--one":
+        only = tuple(sys.argv[4].split(",")) if len(sys.argv) == 5 else ()
+        result = run_one(sys.argv[2], Path(sys.argv[3]), only)
         print(json.dumps(result), flush=True)
         return 1 if result["fails"] else 0
-    roots = sys.argv[1:]
+    roots, only = sys.argv[1:], []
+    if roots[:1] == ["--only"]:
+        only, roots = roots[1:2], roots[2:]
     if not roots:
         raise SystemExit(__doc__)
     card = subprocess.run(
@@ -681,7 +711,7 @@ def main() -> int:
     print(f"inputs: {time.perf_counter() - t0:.1f} s -> {INPUTS}", flush=True)
     digests = {}
     for root in roots:
-        lines = _child("--one", root, str(INPUTS)).strip().splitlines()
+        lines = _child("--one", root, str(INPUTS), *only).strip().splitlines()
         print("\n".join(lines), flush=True)
         line = lines[-1]
         for name, row in json.loads(line)["forms"].items():

@@ -20,12 +20,32 @@ values V, in this order:
   ``kBlocksPerSm`` (the blocks an SM holds, by the launch bounds),
   ``kMaxSplits`` (the most parts its destination sweep is cut into; 1
   cuts none), over config2's dense outer mask (N 1,704) at H 4, D 32 and
-  H 8, D 64 (within ``chip_smoke.BWD_TOL``).
+  H 8, D 64 (within ``chip_smoke.BWD_TOL``);
+- ``bsw``: the block-local SpMM's walk (``csrc/block_spmm.cu``,
+  ``block_walk``): ``kWalkWarps``, ``kInFlightBf16``, ``kInFlightF32``
+  (edges a lane reads at once), ``kMinBlocksBf16``, ``kMinBlocksF32`` (the
+  CTAs an SM must hold, by the launch bounds), ``kEdgeStage`` (edges a
+  block stages in shared memory), over
+  the 301,312-row bucket of synthetic-large cut to 16,384 drugs, F 128:
+  float32, float32 weighted, bf16 weighted (the weighted bf16 form value
+  by value, ``chip_smoke.BF16_WEIGHTED``);
+- ``spr``: the sorted-COO SpMM (``csrc/spmm.cu``, ``spmm_rows`` and
+  ``spmm_long``): ``kInFlightWide``, ``kInFlightNarrow`` (rows a lane
+  loads at once in the row pass where a row fills the warp, where it
+  shares it), ``kInFlightLong`` (in the long-row pass), ``kRowWarps``,
+  ``kLongMin``, ``kSharePerSlot``, ``kFillSlots`` (a row spanning more
+  than the positions over this many slots is split), ``kDependentLaunch``
+  (1: programmatic dependent launches), over path A's largest bucket (f32, F
+  128, forward and backward), path E's batch (bf16, F 128 forward;
+  weighted F 64 forward) and the split SpMMs of path G(ii)'s shard 0
+  (f32, F 128: the owned-source one forward and backward, the halo-source
+  backward).
 
-Each is built alone with ``nvcc`` (the flags of ``ops/cuda_lib.py``) into
-``build/probe/`` and bound by ctypes. The inputs are those of
-``scripts/compare_kernel_trees.py`` (``build/compare_inputs.pt``, built as
-that script builds it when it is missing), H 4, D 32: the multi-head SpMM
+Each is built alone with ``nvcc`` (the flags of ``ops/cuda_lib.py``; all
+the builds started together) into ``build/probe/`` and bound by ctypes.
+The inputs are those of ``scripts/compare_kernel_trees.py``
+(``build/compare_inputs.pt``, built as that script builds it when it is
+missing), H 4, D 32: the multi-head SpMM
 over the 16,384-drug outer graph (f32), shard 0 of path H's plan (f32),
 config4's sampled outer graph (bf16) and, forward only, the 100K-drug
 outer graph (f32); the softmax over the dst of the 16,384-drug graph (f32;
@@ -130,12 +150,43 @@ def call_fgb(entries, t, sl, sr, v, cnt, lse, out, g, slope):
                       size.value, _stream()), (dsl, dsr, dv)
 
 
+def call_bsw(entries, t, x, src, dst, weight, starts, n):
+    out = torch.empty_like(x)
+    return entries[t](x.data_ptr(), src.data_ptr(), dst.data_ptr(),
+                      None if weight is None else weight.data_ptr(),
+                      starts.data_ptr(), src.shape[0], n // 128, x.shape[1],
+                      out.data_ptr(), _stream()), (out,)
+
+
+def call_spr(entries, t, x, src, dst, weight, n_out, perm=None, srt=None):
+    """The forward (no perm) or the backward of the sorted-COO SpMM: x is
+    then the cotangent and n_out the rows of d_x."""
+    size = ctypes.c_int64()
+    entries["scratch"](src.shape[0], x.shape[1], ctypes.addressof(size),
+                       _stream())
+    first, last = _bounds(n_out, x.device)
+    scratch = torch.empty(size.value, dtype=torch.uint8, device=x.device)
+    out = torch.empty((n_out, x.shape[1]), dtype=x.dtype, device=x.device)
+    w = None if weight is None else weight.data_ptr()
+    if perm is None:
+        rc = entries[t](x.data_ptr(), x.shape[0], src.data_ptr(),
+                        dst.data_ptr(), w, src.shape[0], n_out, x.shape[1],
+                        first.data_ptr(), last.data_ptr(), scratch.data_ptr(),
+                        out.data_ptr(), _stream())
+    else:
+        rc = entries[t](x.data_ptr(), x.shape[0], dst.data_ptr(), w,
+                        perm.data_ptr(), srt.data_ptr(), src.shape[0], n_out,
+                        x.shape[1], first.data_ptr(), last.data_ptr(),
+                        scratch.data_ptr(), out.data_ptr(), _stream())
+    return rc, (out,)
+
+
 def _graphs(dev) -> dict:
     inp = torch.load(ckt.INPUTS)
     return {k: {n: t.to(dev) if torch.is_tensor(t) else t
                 for n, t in inp[k].items()}
             for k in ("outer", "shard", "config4", "outer100k",
-                      "config4_blocks")}
+                      "config4_blocks", "pathE", "gin")}
 
 
 def _scores(o, seed: int, dtype):
@@ -236,6 +287,76 @@ def fgb_cases(graphs) -> list:
     return out
 
 
+def bsw_cases(graphs) -> list:
+    """(tag, arguments, plain result) of the block-local walk over the
+    301,312-row bucket of synthetic-large at 16,384 drugs, F 128."""
+    from bignn_tpu_torch.data import load_dataset
+    from bignn_tpu_torch.sparse import bucket_graphs
+
+    dev = graphs["outer"]["dst"].device
+    b = ckt.largest(bucket_graphs(load_dataset(
+        "synthetic-large", num_drugs=16384).molecules)).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn(b.node_cap, 128, device=dev, generator=gen)
+    out = []
+    for tag, dtype, w in (("f32", torch.float32, None),
+                          ("f32:weighted", torch.float32, b.edge_weight),
+                          ("bf16:weighted", torch.bfloat16, b.edge_weight)):
+        args = (x.to(dtype), b.edge_src, b.edge_dst, w, b.block_estarts,
+                b.node_cap)
+        out.append((tag, args, (ops.block_spmm_plain(
+            *args[:4], num_nodes=b.node_cap),)))
+    return out
+
+
+def spr_cases(graphs) -> list:
+    """(tag, arguments, plain result) of the sorted-COO SpMM: path A's
+    largest bucket (f32, F 128), path E's batch (bf16 F 128, weighted F 64;
+    forward), path G(ii)'s split SpMMs on shard 0 (f32, F 128)."""
+    from bignn_tpu_torch.data import load_dataset
+    from bignn_tpu_torch.sparse import bucket_graphs
+
+    dev = graphs["outer"]["dst"].device
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def randn(n, f, dtype=torch.float32):
+        return torch.randn(n, f, device=dev, generator=gen).to(dtype)
+
+    out = []
+    a = ckt.largest(bucket_graphs(load_dataset(
+        "drugbank", max_atoms=160).molecules)).to(dev)
+    n = a.node_cap
+    x, g = randn(n, 128), randn(n, 128)
+    out.append(("f32:A", (x, a.edge_src, a.edge_dst, None, n),
+                (ops.spmm_sorted_coo_plain(x, a.edge_src, a.edge_dst, None,
+                                           n),)))
+    out.append(("bwd:A", (g, a.edge_src, a.edge_dst, None, n,
+                          a.edge_src_perm, a.edge_src_sorted),
+                (ops.spmm_sorted_coo_bwd_plain(g, a.edge_src, a.edge_dst,
+                                               None, n),)))
+    e = graphs["pathE"]
+    n = e["node_cap"]
+    for tag, f, w in (("bf16:E", 128, None), ("bf16:E:weighted", 64,
+                                               e["edge_weight"])):
+        x = randn(n, f, torch.bfloat16)
+        args = (x, e["edge_src"], e["edge_dst"], w, n)
+        out.append((tag, args, (ops.spmm_sorted_coo_plain(*args),)))
+    gin = graphs["gin"]
+    loc, halo = ckt.smoke().gin_split_layouts(
+        gin["src"], gin["dst"], gin["perm"], gin["ssorted"], gin["b"],
+        gin["n_halo"])
+    b = gin["b"]
+    x, g = randn(b, 128), randn(b, 128)
+    s, d, w, _, p, st = loc
+    out.append(("f32:hub", (x, s, d, w, b),
+                (ops.spmm_sorted_coo_plain(x, s, d, w, b),)))
+    for tag, (s, d, w, nx, p, st) in (("bwd:hub", loc),
+                                       ("bwd:hub:halo", halo)):
+        out.append((tag, (g, s, d, w, nx, p, st),
+                    (ops.spmm_sorted_coo_bwd_plain(g, s, d, w, nx),)))
+    return out
+
+
 class Kind(NamedTuple):
     source: str
     constants: tuple[str, ...]
@@ -270,11 +391,25 @@ KINDS = {
                 "flash_gat_bwd_tiles", "bignn_flash_gat_bwd_", call_fgb,
                 fgb_cases, ("f32", "scratch_f32"),
                 lambda tag: (ckt.smoke().BWD_TOL, False)),
+    "bsw": Kind("block_spmm.cu",
+                ("kWalkWarps", "kInFlightBf16", "kInFlightF32",
+                 "kMinBlocksBf16", "kMinBlocksF32", "kEdgeStage"),
+                "block_walk", "bignn_block_spmm_", call_bsw, bsw_cases,
+                ("f32", "bf16"),
+                lambda tag: (ckt.smoke().BF16_WEIGHTED if "bf16" in tag
+                             else (ckt.F32_TOL, False))),
+    "spr": Kind("spmm.cu",
+                ("kInFlightWide", "kInFlightNarrow", "kInFlightLong",
+                 "kRowWarps", "kLongMin", "kSharePerSlot", "kFillSlots",
+                 "kDependentLaunch"),
+                "spmm_rows", "bignn_spmm_", call_spr, spr_cases,
+                ("f32", "bf16", "bwd_f32", "bwd_bf16", "scratch")),
 }
 
 
-def build_variant(kind: str, values: tuple[int, ...]):
-    """The variant's entry points by type, and the kernel's registers."""
+def start_variant(kind: str, values: tuple[int, ...]):
+    """Write the variant's source and start its build; returns the build's
+    process and the library it makes."""
     k = KINDS[kind]
     out = ROOT / "build" / "probe" / f"{kind}_{'_'.join(map(str, values))}"
     if out.exists():
@@ -289,11 +424,20 @@ def build_variant(kind: str, values: tuple[int, ...]):
             raise SystemExit(f"{name} not found once in {src}")
     src.write_text(text)
     lib = out / "libprobe.so"
-    proc = subprocess.run(
+    proc = subprocess.Popen(
         [cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS, "-shared", "-o", str(lib),
-         str(src)], capture_output=True, text=True, check=False)
+         str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    return proc, lib
+
+
+def bind_variant(kind: str, proc, lib):
+    """The variant's entry points by type, and the kernel's registers, once
+    its build is done."""
+    k = KINDS[kind]
+    report, _ = proc.communicate()
     if proc.returncode:
-        raise SystemExit(proc.stdout + proc.stderr)
+        raise SystemExit(report)
     cdll = ctypes.CDLL(str(lib))
     entries = {}
     for t in k.types:
@@ -302,8 +446,7 @@ def build_variant(kind: str, values: tuple[int, ...]):
         fn.restype = ctypes.c_int
         entries[t.removesuffix("_f32") if t != "f32" else t] = fn
     registers = sorted({int(r) for r in re.findall(
-        rf"{k.kernel}.*?Used (\d+) registers", proc.stdout + proc.stderr,
-        flags=re.S)})
+        rf"{k.kernel}.*?Used (\d+) registers", report, flags=re.S)})
     return entries, registers
 
 
@@ -328,11 +471,12 @@ def main() -> int:
     check = ckt.smoke()._check_close
     with torch.no_grad():
         graphs = _graphs(dev)
+        builds = [start_variant(kind, values) for kind, values in variants]
         cases = {kind: KINDS[kind].cases(graphs)
                  for kind in {kind for kind, _ in variants}}
-        for kind, values in variants:
+        for (kind, values), build in zip(variants, builds):
             k = KINDS[kind]
-            entries, registers = build_variant(kind, values)
+            entries, registers = bind_variant(kind, *build)
             row = dict(zip(k.constants, values), kind=kind,
                        registers=registers)
             for tag, args, want in cases[kind]:
@@ -346,9 +490,12 @@ def main() -> int:
                 per_element = kind.startswith("sm") and "bf16" in tag
                 tol = (ckt.smoke().BF16_STEP if per_element
                        else ckt.BF16_TOL if "bf16" in tag else ckt.F32_TOL)
+                share = None
                 if k.tol is not None:
-                    tol, per_element = k.tol(tag)
-                check(f"{kind} {values} {tag}", run(), want, tol, per_element)
+                    tol, per_element, *share = k.tol(tag)
+                    share = share[0] if share else None
+                check(f"{kind} {values} {tag}", run(), want, tol, per_element,
+                      share)
                 dms, host, slept = ckt.device_ms(run, sleep, ckt.DEVICE_REPS)
                 row[tag] = dms if host < slept else None
             print(json.dumps(row), flush=True)

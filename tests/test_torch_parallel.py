@@ -37,6 +37,7 @@ from bignn_tpu.parallel import build_sharded_inner as jax_sharded_inner
 from bignn_tpu.parallel import device_put_plan as jax_put_plan
 from bignn_tpu.parallel import make_mesh as jax_make_mesh
 from bignn_tpu.parallel import make_p2_train_step as jax_p2_step
+from bignn_tpu.parallel import halo as jax_halo
 from bignn_tpu.parallel.halo import dist_outer_forward as jax_dist_outer
 from bignn_tpu.parallel.step import make_p2_score_fn as jax_p2_score
 from bignn_tpu.sparse import COOGraph as JaxCOOGraph
@@ -54,6 +55,7 @@ from bignn_tpu_torch.parallel import (
     make_p2_score_fn,
     make_p2_train_step,
 )
+from bignn_tpu_torch.parallel.halo import dist_gin_apply
 from bignn_tpu_torch.sparse import (
     COOGraph,
     build_outer_graph,
@@ -363,6 +365,120 @@ def test_dist_outer_forward_matches_jax(outer, dtype):
             ref = model.propagate_outer(torch.from_numpy(h), og.to("cpu"))
         np.testing.assert_allclose(got[:n], ref.numpy(), rtol=1e-4,
                                    atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the distributed GIN's split SpMMs: each source order holds a hub row
+# ---------------------------------------------------------------------------
+
+
+def _gin_hub_plan(n=60, g=4, e=600, seed=5):
+    """A plan whose shard 0 reads three quarters of its sources from the
+    halo, and ``dist_gin_apply``'s two SpMMs on its shard 0, built as both
+    packages' halo.py build them: ``(src, dst, weight, rows of x)`` of the
+    owned-source one (halo sources clamped to row B - 1, weight 0) and of
+    the halo-source one (owned sources on halo row 0, weight 0), with the
+    plan's source sort clamped alike."""
+    rng = np.random.default_rng(seed)
+    u, v = rng.integers(0, n, e), rng.integers(0, n, e)
+    keep = u != v
+    plan = build_outer_partition(u[keep], v[keep], n, g)
+    b, n_halo = plan.node_block, g * plan.halo_size
+    src, dst = plan.edge_src[0], plan.edge_dst[0]
+    perm, srt = plan.src_perm[0], plan.src_sorted[0]
+    w_loc = (src < b).astype(np.float32)
+    lays = {"local": (np.minimum(src, b - 1), dst, w_loc, b,
+                      np.minimum(srt, b - 1)),
+            "halo": (np.clip(src - b, 0, n_halo - 1), dst, 1.0 - w_loc,
+                     n_halo, np.clip(srt - b, 0, n_halo - 1))}
+    return plan, perm, lays
+
+
+@pytest.mark.parametrize("layout", ["local", "halo"])
+@pytest.mark.parametrize("backend", ["xla", "pallas_interpret"])
+def test_gin_split_spmm_matches_jax(layout, backend):
+    """``ops.spmm_sorted_coo`` forward, ``d_x`` and ``d_w`` on a G(ii)-shaped
+    hub layout (clamped ids, 0/1 weights, padding edges) against JAX's
+    dispatch (``xla``) and ``spmm_pallas`` in interpret mode, with the
+    plan's source sort; f32 sums of up to ~200 edges in other orders, so
+    the module's TOL."""
+    plan, perm, lays = _gin_hub_plan()
+    src, dst, w, num_x, srt = lays[layout]
+    real = dst < plan.node_block
+    hub = np.bincount(src[real])
+    assert hub.max() >= (0.5 if layout == "local" else 0.15) * real.sum()
+    rng = np.random.default_rng(6)
+    f = 16
+    x = rng.standard_normal((num_x, f)).astype(np.float32)
+    gy = rng.standard_normal((plan.node_block, f)).astype(np.float32)
+    sort = dict(src_perm=perm.astype(np.int32),
+                src_sorted=srt.astype(np.int32))
+
+    def jax_f(xx, ww):
+        return jax_ops.spmm_sorted_coo(
+            xx, jnp.asarray(src), jnp.asarray(dst), ww, plan.node_block,
+            backend=backend, **{k: jnp.asarray(a) for k, a in sort.items()})
+
+    want, vjp = jax.vjp(jax_f, jnp.asarray(x), jnp.asarray(w))
+    want_dx, want_dw = vjp(jnp.asarray(gy))
+    xt = torch.from_numpy(x).requires_grad_()
+    wt = torch.from_numpy(w).requires_grad_()
+    got = ops.spmm_sorted_coo(xt, torch.from_numpy(src),
+                              torch.from_numpy(dst), wt, plan.node_block,
+                              **{k: torch.from_numpy(a)
+                                 for k, a in sort.items()})
+    got_dx, got_dw = torch.autograd.grad(got, [xt, wt], torch.from_numpy(gy))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **TOL)
+    np.testing.assert_allclose(got_dx.numpy(), np.asarray(want_dx), **TOL)
+    np.testing.assert_allclose(got_dw.numpy(), np.asarray(want_dw), **TOL)
+
+
+def test_dist_gin_apply_matches_jax():
+    """Both packages' ``dist_gin_apply`` (4 shards; JAX under shard_map on
+    the fake CPU devices, ``xla``) on the same numpy rows of the hub plan:
+    the layer's output and the rows' gradient, at the module's TOL."""
+    plan, _, _ = _gin_hub_plan()
+    g, b, f = plan.n_shards, plan.node_block, 32
+    rng = np.random.default_rng(7)
+    h = rng.standard_normal((g, b, f)).astype(np.float32)
+    gy = rng.standard_normal((g, b, f)).astype(np.float32)
+    outer = ("gin:32",)
+    cfg = JaxBiGNNConfig(feat_dim=f, inner_layers=(), outer_layers=outer)
+    jmodel = JaxBiGNN(cfg)
+    params = jmodel.init(jax.random.key(0))
+    model = BiGNN(BiGNNConfig(feat_dim=f, inner_layers=(),
+                              outer_layers=outer))
+    model.load_state_dict(bridge.params_from_jax(_np_tree(params)))
+    conv, _ = jmodel._outer_stack(jmodel._inner_stack()[1])
+    mesh = JaxMesh(np.array(jax.devices()[:g]), ("graph",))
+
+    def shard_fn(hb, src, dst, w, sidx, perm, srt):
+        return jax_halo.dist_gin_apply(
+            conv[0], params["outer"]["layer_0"], hb[0], src[0], dst[0], w[0],
+            sidx[0], src_perm=perm[0], src_sorted=srt[0])[None]
+
+    def loss(hb):
+        out = jax.shard_map(shard_fn, mesh=mesh, in_specs=(P("graph"),) * 7,
+                            out_specs=P("graph"))(
+            hb, plan.edge_src, plan.edge_dst, plan.edge_weight,
+            plan.send_idx, plan.src_perm, plan.src_sorted)
+        return (out * gy).sum(), out
+
+    with jax_ops.backend_scope("xla"):
+        (_, want), want_dh = jax.jit(jax.value_and_grad(loss, has_aux=True))(
+            jnp.asarray(h))
+    hs = [x.requires_grad_() for x in _shards(h)]
+    got = dist_gin_apply(model.outer[0], hs, _shards(plan.edge_src),
+                         _shards(plan.edge_dst), _shards(plan.edge_weight),
+                         _shards(plan.send_idx),
+                         src_perm=_shards(plan.src_perm),
+                         src_sorted=_shards(plan.src_sorted))
+    got_dh = torch.autograd.grad(
+        sum((o * t).sum() for o, t in zip(got, _shards(gy))), hs)
+    np.testing.assert_allclose(torch.stack(got).detach().numpy(),
+                               np.asarray(want), **TOL)
+    np.testing.assert_allclose(torch.stack(got_dh).numpy(),
+                               np.asarray(want_dh), **TOL)
 
 
 # ---------------------------------------------------------------------------
