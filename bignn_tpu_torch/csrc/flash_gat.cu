@@ -9,180 +9,404 @@
 // NEG = -1e30, multiplicity scaling, the 1e-30 denominator floor, and zero
 // output for rows with no edges. No [N, N, H] tensor is written.
 //
-// Design: a thread block owns kRows destination rows of one head (grid
-// (N / kRows, H)), and makes two sweeps over the sources in chunks of
-// kChunk, staging the cnt tile, score_r and (second sweep) v in shared
-// memory:
-//   sweep 1: the masked row max m[r];
-//   sweep 2: every thread computes p for kChunk / 8 sources of one row into
-//            shared memory and keeps a partial row sum; then each warp adds
-//            p * v into the outputs of its 4 rows, one column per lane,
-//            held in registers.
-// Partial maxima and sums are combined in a fixed order, so a result is the
-// same from run to run. The outer graph takes the dense path only up to
-// 4096 drugs, so two sweeps over a cnt row cost little and no online
-// rescaling is needed.
+// What bounds it on the H100: operations. Per (d, s, h) pair it does the
+// score, its LeakyReLU, the exp and the multiplicity in float32, and the
+// D-wide multiply-add p v, here on the tensor cores in 3xTF32 (three TF32
+// products): at N 1,704, H 4, D 32, 3 x 0.74 GFLOP at TF32's 495 TFLOP/s
+// (0.0045 ms) plus 0.05 GFLOP at float32's 67 (0.0007), 0.0052 ms
+// (chip_smoke.bound_ms, flash_fwd_flops); the inputs are 12 MB (cnt, read
+// from device memory once by the row-max pass and from L2 by the sweep).
 //
-// What bounds it on the H100: at N=1704, H=4, D=32 it is latency: 2 *
-// N^2 * H * D = 0.74 GFLOP of FMAs and about 200 MB of L2 reads (each block
-// reads its head's v and its cnt rows) spread over 428 blocks of 4 warps
-// with a barrier every kChunk sources. Splitting by head keeps every block
-// busy on exps and FMAs, with no thread idle while others compute p.
+// Design: a block owns kRows = 16 destination rows (one m16 tile) and
+// kHeadsPerBlock heads (grid (N / 16, H / kHeadsPerBlock)); its warps are
+// (head, part): kParts warps share a head's sweep over the sources.
+//   row max: m from one read of the block's cnt rows for all its heads.
+//     fl(sl + x) is monotone in x, and LeakyReLU is monotone (slope >= 0)
+//     or V-shaped (slope < 0), so over the sources s with cnt[d, s] > 0
+//       m[d, h] = max(lrelu(sl + max_s sr[s, h]), lrelu(sl + min_s sr[s, h]))
+//     bit for bit the direct max (tests/test_torch_softmax_flash.py holds
+//     it against ops/flash_gat.py:flash_row_max_plain). Warps take the
+//     block's rows in turn, lanes stride a row's sources, and the masked
+//     max and min of score_r reduce by shuffles.
+//   sweep: stages of kStage sources, the cnt tile, score_r and the heads'
+//     v rows copied into shared memory by cp.async (16-byte copies where the
+//     widths and pointers allow, else 4), kBuffers stages in flight. In a
+//     stage each warp takes kSteps k-steps of 8 sources (half at head_dim
+//     64, so that a stage holds the same bytes): its lanes compute p straight
+//     into the m16n8k8 A-fragment layout (rows gid and gid + 8, sources tig
+//     and tig + 4) from the staged cnt and score_r and the rows' score_l
+//     and m in registers, split it into TF32 halves, and multiply it with
+//     v's B fragments (split as they are loaded) in 3xTF32 (mma_3xtf32:
+//     each k-step's product added to the sum in float32). The row sum l
+//     adds the lane's own p in k-step order.
+//   epilogue: l over a row's 4 lanes by shuffles, then the parts' partial
+//     sums of l and of p v in part order through shared memory; out and lse
+//     stored once.
+// No float atomics and every sum in a fixed order, so a result repeats bit
+// for bit (it is not the bits of the port's first kernel, whose sums ran
+// in another order). The TF32 halves are cut by bit masks
+// (split_tf32_trunc), not cvt.rna.
+//
+// Measured (NVIDIA H100 80GB HBM3, 700.00 W; device ms of a call from
+// scripts/compare_kernel_trees.py): N 1,704, H 4, D 32 (config2) 0.0731
+// (the port's first kernel, a block per 16 rows and head, two sweeps over
+// the mask and p v on CUDA cores from shared memory, 0.2038): 14x the
+// bound. scripts/probe_variants.py (kind fgf) chose 16 rows and 4 heads a
+// block, 4 parts, 2 k-steps a stage and 3 buffers (0.0733): 2 buffers
+// 0.0776, one head a block 0.0775.
 
 #include <cuda_runtime.h>
 
+#include <cmath>
 #include <cstdint>
+
+#include "elem.cuh"
+#include "segment_bounds.cuh"
+#include "tf32_mma.cuh"
 
 namespace {
 
-constexpr int kRows = 16;     // destination rows per block
-constexpr int kChunk = 64;    // sources per shared-memory stage
-constexpr int kThreads = 128;
-constexpr int kPartsPerRow = kThreads / kRows;        // 8 threads per row
-constexpr int kSrcPerThread = kChunk / kPartsPerRow;  // 8 sources each
-constexpr int kRowsPerWarp = kRows / (kThreads / 32);  // 4
+constexpr int kRows = 16;          // destination rows a block owns
+constexpr int kHeadsPerBlock = 4;  // heads a block owns
+constexpr int kParts = 4;          // warps that share a head's sweep
+constexpr int kSteps = 2;          // k-steps of 8 sources a warp takes a
+                                   // stage at head_dim 32 (half at 64)
+constexpr int kBuffers = 3;        // stages in shared memory (copies ahead)
+constexpr int kMinBlocks = 1;      // blocks an SM holds (launch bounds)
+constexpr int kMaxInFlight = 4;    // 16-byte cnt loads a lane has in flight
+constexpr int kThreads = kHeadsPerBlock * kParts * 32;
 constexpr int kMaxHeadDim = 64;
-constexpr int kColsPerLane = kMaxHeadDim / 32;
 constexpr float kNeg = -1e30f;
+constexpr float kFloor = 1e-30f;
+
+struct Inputs {
+  const float* score_l;  // [n, heads]
+  const float* score_r;  // [n, heads]
+  const float* v;        // [n, heads, head_dim]
+  const float* cnt;      // [n, n], cnt[d, s]
+  int n, heads, head_dim;
+  float slope;
+};
 
 __device__ __forceinline__ float leaky_relu(float z, float slope) {
   return z > 0.f ? z : slope * z;
 }
 
-__global__ void __launch_bounds__(kThreads)
-    flash_gat_fwd(const float* __restrict__ score_l,  // [n, heads]
-                  const float* __restrict__ score_r,  // [n, heads]
-                  const float* __restrict__ v,        // [n, heads, head_dim]
-                  const float* __restrict__ cnt,      // [n, n]
-                  int n, int heads, int head_dim, float slope,
-                  float* __restrict__ out,            // [n, heads, head_dim]
-                  float* __restrict__ lse) {          // [n, heads]
-  __shared__ float s_cnt[kRows][kChunk];
-  __shared__ float s_sr[kChunk];
-  __shared__ float s_v[kChunk][kMaxHeadDim];
-  __shared__ float s_p[kRows][kChunk];
-  __shared__ float s_sl[kRows];
-  __shared__ float s_m[kRows];
-  __shared__ float s_l[kRows];
-  __shared__ float s_part[kRows][kPartsPerRow];
+__device__ __forceinline__ float warp_min(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = fminf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
 
-  const int tid = threadIdx.x;
-  const int d0 = blockIdx.x * kRows;
-  const int h = blockIdx.y;
-  const int cols = heads * head_dim;
-  // this thread's row and sources for the softmax statistics
-  const int pr = tid / kPartsPerRow;
-  const int pj = (tid % kPartsPerRow) * kSrcPerThread;
-
-  if (tid < kRows) {
-    s_sl[tid] = d0 + tid < n ? score_l[(d0 + tid) * heads + h] : 0.f;
-  }
-  auto stage_mask = [&](int s0) {
-    for (int i = tid; i < kRows * kChunk; i += kThreads) {
-      const int r = i / kChunk, j = i % kChunk;
-      const int d = d0 + r, s = s0 + j;
-      s_cnt[r][j] =
-          (d < n && s < n) ? cnt[static_cast<int64_t>(d) * n + s] : 0.f;
-    }
-    for (int j = tid; j < kChunk; j += kThreads) {
-      s_sr[j] = s0 + j < n ? score_r[(s0 + j) * heads + h] : 0.f;
-    }
+// kDP: head_dim rounded up to 32 or 64.
+template <int kDP>
+struct Smem {
+  // k-steps a warp takes a stage: the same bytes of v a stage at either kDP
+  static constexpr int kWarpSteps = kDP == 32 || kSteps == 1 ? kSteps
+                                                             : kSteps / 2;
+  static constexpr int kStage = kParts * kWarpSteps * 8;  // sources a stage
+  static constexpr int kCntRow = kStage + 4;  // 4 mod 32: conflict-free
+  // floats a staged v row: 8 mod 32, so that a B fragment's 4 source rows
+  // and 8 features fall in 32 banks
+  static constexpr int kVRow = kHeadsPerBlock * kDP + 8;
+  // the parts' sums of p v, once the stages are used
+  static constexpr int kRed = kParts * kHeadsPerBlock * kRows * kDP;
+  union {
+    float v[kBuffers][kStage][kVRow];
+    float red[kRed];
   };
+  float cnt[kBuffers][kRows][kCntRow];
+  float sr[kBuffers][kStage][kHeadsPerBlock];
+  float m[kRows][kHeadsPerBlock];
+  float sl[kRows][kHeadsPerBlock];
+};
 
-  // sweep 1: masked row max
-  float part = kNeg;
-  for (int s0 = 0; s0 < n; s0 += kChunk) {
-    stage_mask(s0);
-    __syncthreads();
+// Stage s0 + [0, kStage) of the sources into buffer buf: the block's cnt
+// rows, score_r and v rows of its heads; zeros past n, the heads and
+// head_dim (p is 0 there, and 0 times a zero row adds nothing).
+template <int kDP>
+__device__ __forceinline__ void stage(Smem<kDP>& sm, int buf, int s0, int d0,
+                                      int h0, const Inputs& in, bool vec_v,
+                                      bool vec_cnt) {
+  constexpr int kStage = Smem<kDP>::kStage;
+  const int n = in.n;
+  if (vec_cnt) {  // n % 4 == 0: a quad of sources is in or out whole
+    constexpr int kQuads = kStage / 4;
+    for (int i = threadIdx.x; i < kRows * kQuads; i += kThreads) {
+      const int r = i / kQuads, c = 4 * (i % kQuads);
+      const bool ok = d0 + r < n && s0 + c < n;
+      bignn::cp_async16(
+          &sm.cnt[buf][r][c],
+          ok ? in.cnt + static_cast<int64_t>(d0 + r) * n + s0 + c : in.cnt,
+          ok);
+    }
+  } else {
+    for (int i = threadIdx.x; i < kRows * kStage; i += kThreads) {
+      const int r = i / kStage, c = i % kStage;
+      const bool ok = d0 + r < n && s0 + c < n;
+      bignn::cp_async4(
+          &sm.cnt[buf][r][c],
+          ok ? in.cnt + static_cast<int64_t>(d0 + r) * n + s0 + c : in.cnt,
+          ok);
+    }
+  }
+  for (int i = threadIdx.x; i < kStage * kHeadsPerBlock; i += kThreads) {
+    const int j = i / kHeadsPerBlock, hb = i % kHeadsPerBlock;
+    const bool ok = s0 + j < n && h0 + hb < in.heads;
+    bignn::cp_async4(&sm.sr[buf][j][hb],
+                     ok ? in.score_r + (s0 + j) * in.heads + h0 + hb
+                        : in.score_r,
+                     ok);
+  }
+  const int64_t cols = static_cast<int64_t>(in.heads) * in.head_dim;
+  if (vec_v) {  // head_dim % 4 == 0: a quad of features is in or out whole
+    constexpr int kQuads = kHeadsPerBlock * kDP / 4;
+    for (int i = threadIdx.x; i < kStage * kQuads; i += kThreads) {
+      const int j = i / kQuads, q = 4 * (i % kQuads);
+      const int hb = q / kDP, c = q % kDP;
+      const bool ok = s0 + j < n && h0 + hb < in.heads && c < in.head_dim;
+      bignn::cp_async16(&sm.v[buf][j][q],
+                        ok ? in.v + (s0 + j) * cols + (h0 + hb) * in.head_dim
+                                 + c
+                           : in.v,
+                        ok);
+    }
+  } else {
+    constexpr int kCols = kHeadsPerBlock * kDP;
+    for (int i = threadIdx.x; i < kStage * kCols; i += kThreads) {
+      const int j = i / kCols, q = i % kCols;
+      const int hb = q / kDP, c = q % kDP;
+      const bool ok = s0 + j < n && h0 + hb < in.heads && c < in.head_dim;
+      bignn::cp_async4(&sm.v[buf][j][q],
+                       ok ? in.v + (s0 + j) * cols + (h0 + hb) * in.head_dim
+                                + c
+                          : in.v,
+                       ok);
+    }
+  }
+}
+
+// Source s, whose cnt is w, into the masked max and min of score_r for the
+// block's heads.
+__device__ __forceinline__ void take_bounds(float w, int s, const Inputs& in,
+                                            int h0,
+                                            float (&mx)[kHeadsPerBlock],
+                                            float (&mn)[kHeadsPerBlock]) {
+  if (w > 0.f) {
 #pragma unroll
-    for (int q = 0; q < kSrcPerThread; ++q) {
-      const int j = pj + q;
-      if (s_cnt[pr][j] > 0.f) {
-        part = fmaxf(part, leaky_relu(s_sl[pr] + s_sr[j], slope));
+    for (int hb = 0; hb < kHeadsPerBlock; ++hb) {
+      if (h0 + hb < in.heads) {
+        const float x = __ldg(in.score_r + s * in.heads + h0 + hb);
+        mx[hb] = fmaxf(mx[hb], x);
+        mn[hb] = fminf(mn[hb], x);
       }
     }
-    __syncthreads();
   }
-  s_part[pr][tid % kPartsPerRow] = part;
-  __syncthreads();
-  if (tid < kRows) {
-    float m = kNeg;
-    for (int q = 0; q < kPartsPerRow; ++q) m = fmaxf(m, s_part[tid][q]);
-    s_m[tid] = m;
+}
+
+template <int kDP>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    flash_gat_fwd(Inputs in, bool vec_v, bool vec_cnt,
+                  float* __restrict__ out,   // [n, heads, head_dim]
+                  float* __restrict__ lse) {  // [n, heads]
+  using S = Smem<kDP>;
+  static_assert(kBuffers >= 2, "a stage in flight while one is used");
+  static_assert(kBuffers * kRows * S::kCntRow >=
+                    kParts * kHeadsPerBlock * kRows,
+                "the parts' sums of p fit the cnt buffers");
+  constexpr int kTiles = kDP / 8;  // n8 tiles of the head's features
+  extern __shared__ uint4 smem_raw[];
+  S& sm = *reinterpret_cast<S*>(smem_raw);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gid = lane / 4, tig = lane % 4;
+  const int hh = warp / kParts, part = warp % kParts;
+  const int n = in.n, heads = in.heads;
+  const int d0 = blockIdx.x * kRows, h0 = blockIdx.y * kHeadsPerBlock;
+  const int stages = (n + S::kStage - 1) / S::kStage;
+
+  // the first stages' copies fly while the row max is taken
+#pragma unroll
+  for (int b = 0; b < kBuffers - 1; ++b) {
+    if (b < stages) {
+      stage<kDP>(sm, b, b * S::kStage, d0, h0, in, vec_v, vec_cnt);
+    }
+    bignn::cp_async_commit();
   }
-  __syncthreads();
 
-  // sweep 2: weights, their sum, and the weighted sum of v
-  const int warp = tid / 32, lane = tid % 32;
-  const float m = s_m[pr];
-  float lsum = 0.f;
-  float acc[kRowsPerWarp][kColsPerLane];
+  // the row max: the masked max and min of score_r over each row's sources
+  for (int r = warp; r < kRows; r += kThreads / 32) {
+    const int d = d0 + r;
+    float mx[kHeadsPerBlock], mn[kHeadsPerBlock];
 #pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r)
-#pragma unroll
-    for (int k = 0; k < kColsPerLane; ++k) acc[r][k] = 0.f;
-
-  for (int s0 = 0; s0 < n; s0 += kChunk) {
-    stage_mask(s0);
-    for (int i = tid; i < kChunk * head_dim; i += kThreads) {
-      const int j = i / head_dim, c = i % head_dim;
-      s_v[j][c] = s0 + j < n
-          ? v[static_cast<int64_t>(s0 + j) * cols + h * head_dim + c] : 0.f;
+    for (int hb = 0; hb < kHeadsPerBlock; ++hb) {
+      mx[hb] = -INFINITY;
+      mn[hb] = INFINITY;
     }
-    __syncthreads();
+    if (d < n) {
+      const float* row = in.cnt + static_cast<int64_t>(d) * n;
+      if (vec_cnt) {  // 4 sources a load, kMaxInFlight loads at once
+        for (int s0 = 4 * lane; s0 < n; s0 += 128 * kMaxInFlight) {
+          float4 w[kMaxInFlight];
 #pragma unroll
-    for (int q = 0; q < kSrcPerThread; ++q) {
-      const int j = pj + q;
-      const float c = s_cnt[pr][j];
-      const float p =
-          c > 0.f ? c * expf(leaky_relu(s_sl[pr] + s_sr[j], slope) - m) : 0.f;
-      s_p[pr][j] = p;
-      lsum += p;
-    }
-    __syncthreads();
+          for (int u = 0; u < kMaxInFlight; ++u) {
+            const int s = s0 + 128 * u;
+            w[u] = s < n ? __ldg(reinterpret_cast<const float4*>(row + s))
+                         : make_float4(0.f, 0.f, 0.f, 0.f);
+          }
 #pragma unroll
-    for (int k = 0; k < kColsPerLane; ++k) {
-      const int c = lane + 32 * k;
-      if (c < head_dim) {
+          for (int u = 0; u < kMaxInFlight; ++u) {
+            const int s = s0 + 128 * u;
+            take_bounds(w[u].x, s, in, h0, mx, mn);
+            take_bounds(w[u].y, s + 1, in, h0, mx, mn);
+            take_bounds(w[u].z, s + 2, in, h0, mx, mn);
+            take_bounds(w[u].w, s + 3, in, h0, mx, mn);
+          }
+        }
+      } else {
+        for (int s0 = lane; s0 < n; s0 += 32 * kMaxInFlight) {
+          float w[kMaxInFlight];
 #pragma unroll
-        for (int r = 0; r < kRowsPerWarp; ++r) {
-          const int row = warp * kRowsPerWarp + r;
-          float a = acc[r][k];
-#pragma unroll 16
-          for (int j = 0; j < kChunk; ++j) a += s_p[row][j] * s_v[j][c];
-          acc[r][k] = a;
+          for (int u = 0; u < kMaxInFlight; ++u) {
+            const int s = s0 + 32 * u;
+            w[u] = s < n ? __ldg(row + s) : 0.f;
+          }
+#pragma unroll
+          for (int u = 0; u < kMaxInFlight; ++u)
+            take_bounds(w[u], s0 + 32 * u, in, h0, mx, mn);
         }
       }
     }
-    __syncthreads();
-  }
-
-  s_part[pr][tid % kPartsPerRow] = lsum;
-  __syncthreads();
-  if (tid < kRows) {
-    float l = 0.f;
-    for (int q = 0; q < kPartsPerRow; ++q) l += s_part[tid][q];
-    s_l[tid] = l;
-    if (d0 + tid < n) {
-      lse[(d0 + tid) * heads + h] =
-          l > 0.f ? s_m[tid] + logf(fmaxf(l, 1e-30f)) : kNeg;
+#pragma unroll
+    for (int hb = 0; hb < kHeadsPerBlock; ++hb) {
+      mx[hb] = bignn::warp_max(mx[hb]);
+      mn[hb] = warp_min(mn[hb]);
     }
-  }
-  __syncthreads();
+    if (lane == 0) {
 #pragma unroll
-  for (int k = 0; k < kColsPerLane; ++k) {
-    const int c = lane + 32 * k;
-    if (c < head_dim) {
-#pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) {
-        const int row = warp * kRowsPerWarp + r;
-        if (d0 + row < n) {
-          out[static_cast<int64_t>(d0 + row) * cols + h * head_dim + c] =
-              acc[r][k] / fmaxf(s_l[row], 1e-30f);
+      for (int hb = 0; hb < kHeadsPerBlock; ++hb) {
+        const bool ok = d < n && h0 + hb < heads;
+        const float sl = ok ? in.score_l[d * heads + h0 + hb] : 0.f;
+        float m = kNeg;  // no edges: the plain version's clamp to NEG
+        if (mn[hb] <= mx[hb]) {
+          m = fmaxf(fmaxf(leaky_relu(sl + mx[hb], in.slope),
+                          leaky_relu(sl + mn[hb], in.slope)),
+                    kNeg);
         }
+        sm.m[r][hb] = m;
+        sm.sl[r][hb] = sl;
       }
     }
   }
+  __syncthreads();
+
+  // the sweep: rows gid and gid + 8 of head hh, this warp's k-steps
+  float sl[2], m[2], l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    sl[i] = sm.sl[gid + 8 * i][hh];
+    m[i] = sm.m[gid + 8 * i][hh];
+  }
+  float acc[kTiles][4];
+#pragma unroll
+  for (int t = 0; t < kTiles; ++t)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) acc[t][r] = 0.f;
+
+  for (int st = 0; st < stages; ++st) {
+    const int buf = st % kBuffers;
+    bignn::cp_async_wait<kBuffers - 2>();  // this stage's copies are in
+    __syncthreads();  // ... for every thread, and the last stage is used
+    if (st + kBuffers - 1 < stages) {
+      stage<kDP>(sm, (st + kBuffers - 1) % kBuffers,
+                 (st + kBuffers - 1) * S::kStage, d0, h0, in, vec_v, vec_cnt);
+    }
+    bignn::cp_async_commit();
+#pragma unroll
+    for (int k = 0; k < S::kWarpSteps; ++k) {
+      const int j = (part * S::kWarpSteps + k) * 8;  // the k-step's source
+      // a = {p[gid][tig], p[gid + 8][tig], p[gid][tig + 4],
+      //      p[gid + 8][tig + 4]}
+      float p[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int i = q % 2, c = j + tig + 4 * (q / 2);
+        const float w = sm.cnt[buf][gid + 8 * i][c];
+        const float e = leaky_relu(sl[i] + sm.sr[buf][c][hh], in.slope);
+        p[q] = w > 0.f ? w * expf(e - m[i]) : 0.f;
+      }
+      l[0] += p[0];
+      l[0] += p[2];
+      l[1] += p[1];
+      l[1] += p[3];
+      uint32_t a_hi[4], a_lo[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        bignn::split_tf32_trunc(p[q], a_hi[q], a_lo[q]);
+#pragma unroll
+      for (int t = 0; t < kTiles; ++t) {
+        const int f = hh * kDP + 8 * t + gid;
+        uint32_t b_hi[2], b_lo[2];
+        bignn::split_tf32_trunc(sm.v[buf][j + tig][f], b_hi[0], b_lo[0]);
+        bignn::split_tf32_trunc(sm.v[buf][j + tig + 4][f], b_hi[1], b_lo[1]);
+        bignn::mma_3xtf32(acc[t], a_hi, a_lo, b_hi, b_lo);
+      }
+    }
+  }
+  bignn::cp_async_wait<0>();
+  __syncthreads();  // every stage used: the buffers are free
+
+  // the parts' sums: l over a row's 4 lanes, then each part's l and p v to
+  // shared memory (the staging buffers), added in part order
+  float* lred = &sm.cnt[0][0][0];  // [kParts][kHeadsPerBlock][kRows]
+  float* red = sm.red;             // [kParts][kHeadsPerBlock][kRows][kDP]
+  const int slot = part * kHeadsPerBlock + hh;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float x = l[i];
+    x += __shfl_xor_sync(0xffffffffu, x, 1);
+    x += __shfl_xor_sync(0xffffffffu, x, 2);
+    if (tig == 0) lred[slot * kRows + gid + 8 * i] = x;
+  }
+#pragma unroll
+  for (int t = 0; t < kTiles; ++t)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int row = gid + 8 * (r / 2), col = 8 * t + 2 * tig + r % 2;
+      red[(slot * kRows + row) * kDP + col] = acc[t][r];
+    }
+  __syncthreads();
+  for (int i = tid; i < kHeadsPerBlock * kRows * kDP; i += kThreads) {
+    const int hb = i / (kRows * kDP), row = (i / kDP) % kRows, col = i % kDP;
+    const int d = d0 + row, h = h0 + hb;
+    if (d >= n || h >= heads || col >= in.head_dim) continue;
+    float a = 0.f, s = 0.f;
+    for (int q = 0; q < kParts; ++q) {
+      const int at = (q * kHeadsPerBlock + hb) * kRows + row;
+      a += red[at * kDP + col];
+      s += lred[at];
+    }
+    out[(static_cast<int64_t>(d) * heads + h) * in.head_dim + col] =
+        a / fmaxf(s, kFloor);
+    if (col == 0) {
+      lse[d * heads + h] = s > 0.f ? sm.m[row][hb] + logf(fmaxf(s, kFloor))
+                                   : kNeg;
+    }
+  }
+}
+
+template <int kDP>
+cudaError_t launch(const Inputs& in, bool vec_v, bool vec_cnt, float* out,
+                   float* lse, cudaStream_t st) {
+  constexpr int kBytes = sizeof(Smem<kDP>);
+  static int done[bignn::kMaxDevices] = {};
+  const cudaError_t set = bignn::allow_smem(flash_gat_fwd<kDP>, kBytes, done);
+  if (set != cudaSuccess) return set;
+  const dim3 grid(bignn::cdiv(in.n, kRows),
+                  bignn::cdiv(in.heads, kHeadsPerBlock));
+  flash_gat_fwd<kDP><<<grid, kThreads, kBytes, st>>>(in, vec_v, vec_cnt, out,
+                                                     lse);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -196,16 +420,26 @@ int bignn_flash_gat_fwd_f32(const void* score_l, const void* score_r,
                             const void* v, const void* cnt, int n, int heads,
                             int head_dim, float slope, void* out, void* lse,
                             void* stream) {
-  if (n > 0 && heads > 0 && head_dim > 0 && head_dim <= kMaxHeadDim) {
-    const dim3 grid((n + kRows - 1) / kRows, heads);
-    flash_gat_fwd<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(score_l), static_cast<const float*>(score_r),
-        static_cast<const float*>(v), static_cast<const float*>(cnt), n, heads,
-        head_dim, slope, static_cast<float*>(out), static_cast<float*>(lse));
-  } else if (n > 0) {
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  if (heads <= 0 || head_dim <= 0 || head_dim > kMaxHeadDim) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
+  const Inputs in{static_cast<const float*>(score_l),
+                  static_cast<const float*>(score_r),
+                  static_cast<const float*>(v),
+                  static_cast<const float*>(cnt),
+                  n, heads, head_dim, slope};
+  const bool vec_v = head_dim % 4 == 0 &&
+                     reinterpret_cast<uintptr_t>(v) % 16 == 0;
+  const bool vec_cnt = n % 4 == 0 &&
+                       reinterpret_cast<uintptr_t>(cnt) % 16 == 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* o = static_cast<float*>(out);
+  float* l = static_cast<float*>(lse);
+  const cudaError_t err =
+      head_dim <= 32 ? launch<32>(in, vec_v, vec_cnt, o, l, st)
+                     : launch<64>(in, vec_v, vec_cnt, o, l, st);
+  return static_cast<int>(err);
 }
 
 }  // extern "C"

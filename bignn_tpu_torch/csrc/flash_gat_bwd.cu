@@ -71,8 +71,16 @@
 #include <cstdint>
 
 #include "elem.cuh"
+#include "tf32_mma.cuh"
 
 namespace {
+
+using bignn::cp_async16;
+using bignn::cp_async4;
+using bignn::cp_async_commit;
+using bignn::cp_async_wait;
+using bignn::mma_3xtf32;
+using bignn::split_tf32;
 
 constexpr int kTile = 64;      // sources a block owns; destinations a chunk
 constexpr int kThreads = 256;  // 8 warps
@@ -93,29 +101,6 @@ struct Inputs {
   int n, heads, head_dim;
   float slope;
 };
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
-                                          bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(valid ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
-}
 
 // rows [r0, r0 + kTile) of x[:, h, :] into tile (zero past n and head_dim),
 // by cp.async: 16 bytes a copy where vec, else 4
@@ -140,45 +125,6 @@ __device__ __forceinline__ void stage(float (*tile)[kDP + 4],
                 ok ? x + (r0 + r) * cols + h * in.head_dim + c : x, ok);
     }
   }
-}
-
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = to_tf32(x);
-  lo = to_tf32(x - __uint_as_float(hi));
-}
-
-// c += a b on one m16n8k8 tile (a row-major 16 x 8, b column-major 8 x 8)
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// c += a b in 3xTF32, the small terms first. The product of one k-step
-// goes to fresh registers and is added to c in float32: chained through
-// the tensor cores' accumulator, the k-steps' sums drift (a_l's gradient,
-// whose terms cancel, came off the plain step by 1.04e-4 of its scale
-// against 3.0e-5 this way and 1.6e-5 for float32 FMAs)
-__device__ __forceinline__ void mma_3xtf32(float (&c)[4],
-                                           const uint32_t (&a_hi)[4],
-                                           const uint32_t (&a_lo)[4],
-                                           const uint32_t (&b_hi)[2],
-                                           const uint32_t (&b_lo)[2]) {
-  float p[4] = {0.f, 0.f, 0.f, 0.f};
-  mma_tf32(p, a_lo, b_hi);
-  mma_tf32(p, a_hi, b_lo);
-  mma_tf32(p, a_hi, b_hi);
-#pragma unroll
-  for (int r = 0; r < 4; ++r) c[r] += p[r];
 }
 
 // kDP: head_dim rounded up to 32 or 64; staged rows are zero past head_dim.

@@ -28,7 +28,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "bignn_tpu_torch"
 SOURCES = ("segment_sum.cu", "block_adj.cu", "flash_gat.cu",
            "flash_gat_bwd.cu", "segment_softmax.cu", "spmm_multihead.cu",
            "spmm.cu", "block_spmm.cu", "segment_max.cu", "all_to_all.cu")
-HEADERS = ("segment_bounds.cuh", "elem.cuh")
+HEADERS = ("segment_bounds.cuh", "elem.cuh", "tf32_mma.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -68,6 +68,8 @@ _SIGNATURES = {
     "bignn_segment_softmax_fwd_bf16": _SOFTMAX_FWD,
     "bignn_segment_softmax_bwd_f32": _SOFTMAX_BWD,
     "bignn_segment_softmax_bwd_bf16": _SOFTMAX_BWD,
+    "bignn_segment_softmax_bwd_saved_f32": _SOFTMAX_BWD,
+    "bignn_segment_softmax_bwd_saved_bf16": _SOFTMAX_BWD,
     "bignn_spmm_multihead_fwd_f32": _MH_FWD,
     "bignn_spmm_multihead_fwd_bf16": _MH_FWD,
     "bignn_spmm_multihead_bwd_f32": _MH_BWD,

@@ -23,13 +23,20 @@ NEG = -1e30  # "minus infinity" that survives f32 arithmetic
 MAX_HEAD_DIM = 64  # limit of csrc/flash_gat.cu and csrc/flash_gat_bwd.cu
 
 
+def flash_row_max_plain(e, valid):
+    """``m [N, H]``: each destination's largest score ``e [N, N, H]`` over
+    its edges (``valid``), ``NEG`` for a destination with none, as
+    ``_fused_fwd_xla`` takes it."""
+    return torch.where(valid, e, -torch.inf).amax(dim=1).clamp_min(NEG)
+
+
 def flash_gat_attention_plain(score_l, score_r, v, cnt, slope: float = 0.2):
     """Plain PyTorch version, mirroring ``_dense_masked_softmax_agg``
     (``bignn_tpu/models/convs.py:46-67``) plus the logsumexp of
     ``_fused_fwd_xla``; it materializes ``[N, N, H]``."""
     e = F.leaky_relu(score_l[:, None, :] + score_r[None, :, :], slope)
     valid = (cnt > 0)[:, :, None]
-    m = torch.where(valid, e, -torch.inf).amax(dim=1).clamp_min(NEG)
+    m = flash_row_max_plain(e, valid)
     z = torch.where(valid, e - m[:, None, :], -1.0)
     p = cnt[:, :, None] * torch.exp(z)  # cnt == 0 exactly where invalid
     l = p.sum(dim=1)

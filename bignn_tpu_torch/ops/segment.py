@@ -22,9 +22,10 @@ denominator floor is 1e-16, and the backward is the analytic
 ``alpha g - alpha segsum(alpha g)[ids]``. Both directions run the CUDA
 kernels of ``csrc/segment_softmax.cu`` on CUDA tensors (each wrapper counts
 its launches, in all and per element type: ``cuda_lib.count``) and the plain
-versions on CPU tensors. Like the segment sum,
-both are right for any ids (the bounds pass of ``csrc/segment_bounds.cuh``
-checks every id), and fast for sorted ones.
+versions on CPU tensors; the autograd backward takes the bounds that the
+forward's kernel found on the same ids, so it makes no bounds pass of its
+own. Like the segment sum, both are right for any ids (the bounds pass of
+``csrc/segment_bounds.cuh`` checks every id), and fast for sorted ones.
 """
 
 from __future__ import annotations
@@ -227,6 +228,9 @@ def _softmax_check(name: str, x: torch.Tensor, segment_ids: torch.Tensor,
 
 
 def _segment_softmax_fwd_cuda(scores, segment_ids, num_segments):
+    """``(alpha, (first, last))``: the kernel's alpha, and the bounds its
+    bounds pass found (``segment_bounds_plain``), which the backward takes
+    on the same ids."""
     suffix = _softmax_check("scores", scores, segment_ids)
     dev = scores.device
     e, heads = scores.shape
@@ -238,30 +242,42 @@ def _segment_softmax_fwd_cuda(scores, segment_ids, num_segments):
                     num_segments, first.data_ptr(), last.data_ptr(),
                     alpha.data_ptr())
     cuda_lib.count(segment_softmax, scores.dtype)
-    return alpha
+    return alpha, (first, last)
 
 
 def segment_softmax_bwd(alpha: torch.Tensor, g: torch.Tensor,
                         segment_ids: torch.Tensor,
                         num_segments: int) -> torch.Tensor:
     """``d_scores`` for the cotangent ``g`` of ``alpha`` (both ``[E, H]``,
-    or ``[E]``, float32 or bf16). A CPU tensor takes the plain version; any other goes
-    to the kernel, which raises on what it does not take."""
+    or ``[E]``, float32 or bf16). A CPU tensor takes the plain version; any
+    other goes to the kernel, which raises on what it does not take: its
+    bounds pass, then its walk (three launches)."""
     if alpha.device.type == "cpu":
         return segment_softmax_bwd_plain(alpha, g, segment_ids, num_segments)
     if alpha.dim() == 1:
         return segment_softmax_bwd(alpha[:, None], g[:, None], segment_ids,
                                    num_segments)[:, 0]
+    scratch = tuple(torch.empty(num_segments, dtype=torch.int32,
+                                device=alpha.device) for _ in range(2))
+    return _segment_softmax_bwd_cuda(alpha, g, segment_ids, num_segments,
+                                     scratch, saved=False)
+
+
+def _segment_softmax_bwd_cuda(alpha, g, segment_ids, num_segments, bounds,
+                              saved: bool):
+    """The backward's kernel on ``[E, H]`` tensors: with ``saved``,
+    ``bounds`` is the ``(first, last)`` that the forward's kernel found on
+    the same ids, and the walk is the one launch; else it is scratch for the
+    kernel's own bounds pass."""
     suffix = _softmax_check("alpha", alpha, segment_ids, ("g", g))
-    dev = alpha.device
     e, heads = alpha.shape
     d = torch.empty_like(alpha)
-    first = torch.empty(num_segments, dtype=torch.int32, device=dev)
-    last = torch.empty(num_segments, dtype=torch.int32, device=dev)
-    cuda_lib.launch(f"bignn_segment_softmax_bwd_{suffix}", dev,
-                    alpha.data_ptr(), g.data_ptr(), segment_ids.data_ptr(), e,
-                    heads, num_segments, first.data_ptr(), last.data_ptr(),
-                    d.data_ptr())
+    first, last = bounds
+    entry = "saved_" if saved else ""
+    cuda_lib.launch(f"bignn_segment_softmax_bwd_{entry}{suffix}",
+                    alpha.device, alpha.data_ptr(), g.data_ptr(),
+                    segment_ids.data_ptr(), e, heads, num_segments,
+                    first.data_ptr(), last.data_ptr(), d.data_ptr())
     cuda_lib.count(segment_softmax_bwd, alpha.dtype)
     return d
 
@@ -272,23 +288,34 @@ cuda_lib.counter(segment_softmax_bwd)
 class _SegmentSoftmax(torch.autograd.Function):
     @staticmethod
     def forward(ctx, scores, segment_ids, num_segments):
+        bounds = ()
         if scores.device.type == "cpu":
             alpha = segment_softmax_plain(scores, segment_ids, num_segments)
         elif scores.dim() == 1:
-            alpha = _segment_softmax_fwd_cuda(scores[:, None], segment_ids,
-                                              num_segments)[:, 0]
+            alpha, bounds = _segment_softmax_fwd_cuda(
+                scores[:, None], segment_ids, num_segments)
+            alpha = alpha[:, 0]
         else:
-            alpha = _segment_softmax_fwd_cuda(scores, segment_ids,
-                                              num_segments)
-        ctx.save_for_backward(alpha, segment_ids)
+            alpha, bounds = _segment_softmax_fwd_cuda(scores, segment_ids,
+                                                      num_segments)
+        # the kernel's bounds on these ids: the backward needs no bounds pass
+        ctx.save_for_backward(alpha, segment_ids, *bounds)
         ctx.num_segments = num_segments
         return alpha
 
     @staticmethod
     def backward(ctx, g):
-        alpha, segment_ids = ctx.saved_tensors
-        d = segment_softmax_bwd(alpha, g.contiguous(), segment_ids,
-                                ctx.num_segments)
+        alpha, segment_ids, *bounds = ctx.saved_tensors
+        n, g = ctx.num_segments, g.contiguous()
+        if not bounds:  # CPU tensors: the op takes its plain version
+            d = segment_softmax_bwd(alpha, g, segment_ids, n)
+        elif alpha.dim() == 1:
+            d = _segment_softmax_bwd_cuda(alpha[:, None], g[:, None],
+                                          segment_ids, n, bounds,
+                                          saved=True)[:, 0]
+        else:
+            d = _segment_softmax_bwd_cuda(alpha, g, segment_ids, n, bounds,
+                                          saved=True)
         return d, None, None
 
 

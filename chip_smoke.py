@@ -161,8 +161,11 @@ plain version, and the one PyTorch call that computes the same function
 where there is one) and its bound: the larger of its bytes over 3.35 TB/s
 and its operations over their peak rates: 67 TFLOP/s for float32 outside
 the tensor cores, and 495 TFLOP/s for TF32 on them, where the flash-GAT
-backward's two products run as 3xTF32 (three TF32 products each, counted
-three times; its elementwise work at 67, the two times added).
+forward's product and the backward's two run as 3xTF32 (three TF32
+products each, counted three times; their elementwise work at 67, the two
+times added). The softmax backward rows time the one launch the main path
+makes, on the bounds that the forward's kernel found, once it has given
+autograd's result bit for bit.
 all_to_all:f32 is timed at config5-large's
 send buffers; a second row, all_to_all:f32 (config5), at config5's, with
 the launches of paths G and G(ii). Rows 4 and 8 have rows at their other
@@ -314,6 +317,15 @@ def bound_ms(num_bytes: float, flops: float = 0.0,
                                                             "operations")
 
 
+def flash_fwd_flops(n: int, heads: int, head_dim: int) -> tuple[int, int]:
+    """The flash-GAT forward's operations as ``bound_ms`` takes them: per
+    (d, s, h) pair, 4 in float32 (the score, its LeakyReLU, the exp, the
+    multiplicity) and the D-wide multiply-add p v, run as 3xTF32 on the
+    tensor cores (three TF32 products)."""
+    pairs = n * n * heads
+    return 4 * pairs, 3 * 2 * head_dim * pairs
+
+
 def flash_bwd_flops(n: int, heads: int, head_dim: int) -> tuple[int, int]:
     """The flash-GAT backward's operations as ``bound_ms`` takes them: per
     (d, s, h) pair, 6 in float32 (the score, its mask and LeakyReLU, the
@@ -437,6 +449,47 @@ def softmax_library(x: torch.Tensor, ids: torch.Tensor, n: int,
         log(f"  {what} computes another function here: no library time")
         return None
     return call
+
+
+def softmax_bwd_autograd(scores: torch.Tensor, g: torch.Tensor,
+                         ids: torch.Tensor, n: int) -> tuple:
+    """(call, alpha): ``torch.autograd.grad`` of ``g`` through
+    ``ops.segment_softmax`` of ``scores``, the softmax backward as the main
+    path runs it (the forward's kernel hands the backward its bounds on
+    ``ids``: one launch), and the forward's alpha."""
+    from bignn_tpu_torch import ops
+
+    x = scores.detach().requires_grad_()
+    with torch.enable_grad():  # the callers' phases run under no_grad
+        alpha = ops.segment_softmax(x, ids, n)
+    return (lambda: torch.autograd.grad(alpha, x, g, retain_graph=True)[0],
+            alpha.detach())
+
+
+def softmax_bwd_calls(scores: torch.Tensor, g: torch.Tensor,
+                      ids: torch.Tensor, n: int) -> tuple:
+    """(kernel call, plain call, alpha, bytes) of the softmax backward rows:
+    the one launch the main path makes, on the bounds that the forward's
+    kernel finds on ``ids``, first held bit for bit to the path's own call
+    (``softmax_bwd_autograd``) and then timed alone (the autograd engine's
+    host cost is not the kernel's). The plain call takes the forward
+    kernel's alpha; the bytes are alpha, g, the ids and the bounds (2 int32
+    a segment)."""
+    from bignn_tpu_torch import ops
+    from bignn_tpu_torch.ops import segment
+
+    path, a = softmax_bwd_autograd(scores, g, ids, n)
+    _, bounds = segment._segment_softmax_fwd_cuda(scores, ids, n)
+
+    def kernel():
+        return segment._segment_softmax_bwd_cuda(a, g, ids, n, bounds,
+                                                 saved=True)
+
+    if not torch.equal(kernel(), path()):
+        raise AssertionError("segment_softmax_bwd: the launch on the "
+                             "forward kernel's bounds is not autograd's")
+    return (kernel, lambda: ops.segment_softmax_bwd_plain(a, g, ids, n), a,
+            nbytes(a, g, ids) + 8 * n)
 
 
 def index_put_call(src: torch.Tensor, dst: torch.Tensor, n: int,
@@ -563,12 +616,14 @@ def compare_kernels(dev, ds, bucketing, outer_host) -> dict:
               (lse - lse_p).abs().max().item())
     if not err <= FLASH_TOL:
         raise AssertionError(f"flash_gat_attention: error {err}")
-    # per (d, s, h): a score, an exp and the D-wide multiply-add
-    flops = n * n * heads * (2 * head_dim + 4)
+    # per (d, s, h): a score, an exp (float32) and the D-wide multiply-add
+    # on the tensor cores in 3xTF32
+    flops, tf32_flops = flash_fwd_flops(n, heads, head_dim)
     record(results, "flash_gat_attention:f32", err, FLASH_TOL,
            lambda: ops.flash_gat_attention(sl, sr, v, cnt),
            lambda: ops.flash_gat_attention_plain(sl, sr, v, cnt),
-           nbytes(sl, sr, v, cnt, out, lse), flops, reps=20)
+           nbytes(sl, sr, v, cnt, out, lse), flops, reps=20,
+           tf32_flops=tf32_flops)
 
     # flash_gat_attention_bwd: the same mask, lse and out from the forward
     # kernel, a seeded cotangent; each output held to BWD_TOL x its scale
@@ -1405,8 +1460,8 @@ def run_sparse_training(dev) -> tuple[list, dict]:
     # the new backward kernels against their plain versions at these shapes
     log(f"  kernels at N {n}, E {e}, H 4, D 32")
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    alpha = ops.segment_softmax_plain(
-        3 * torch.randn(e, 4, device=dev, generator=gen), outer.edge_dst, n)
+    s_e = 3 * torch.randn(e, 4, device=dev, generator=gen)
+    alpha = ops.segment_softmax_plain(s_e, outer.edge_dst, n)
     g_e = torch.randn(e, 4, device=dev, generator=gen)
     v = torch.randn(n, 4, 32, device=dev, generator=gen)
     g = torch.randn(n, 4, 32, device=dev, generator=gen)
@@ -1422,21 +1477,19 @@ def run_sparse_training(dev) -> tuple[list, dict]:
                  tol, nbytes(xt, outer.edge_dst),
                  library=softmax_library(xt, outer.edge_dst, n),
                  per_element=t == "bf16")
-    a16, g16 = alpha.to(torch.bfloat16), g_e.to(torch.bfloat16)
-    _compare(results, "segment_softmax_bwd:bf16:16k",
-             lambda: ops.segment_softmax_bwd(a16, g16, outer.edge_dst, n),
-             lambda: ops.segment_softmax_bwd_plain(a16, g16, outer.edge_dst,
-                                                   n),
-             BF16_STEP, nbytes(a16, g16, outer.edge_dst),
+    g16 = g_e.to(torch.bfloat16)
+    kernel, plain, a16, num_bytes = softmax_bwd_calls(
+        s_e.to(torch.bfloat16), g16, outer.edge_dst, n)
+    _compare(results, "segment_softmax_bwd:bf16:16k", kernel, plain,
+             BF16_STEP, num_bytes,
              library=softmax_library(a16, outer.edge_dst, n, g16),
              per_element=True)
-    del x, xt, a16, g16
-    _compare(results, "segment_softmax_bwd:f32",
-             lambda: ops.segment_softmax_bwd(alpha, g_e, outer.edge_dst, n),
-             lambda: ops.segment_softmax_bwd_plain(alpha, g_e,
-                                                   outer.edge_dst, n),
-             BWD_TOL, nbytes(alpha, g_e, outer.edge_dst),
-             library=softmax_library(alpha, outer.edge_dst, n, g_e))
+    del x, xt, a16, g16, kernel, plain
+    kernel, plain, a32, num_bytes = softmax_bwd_calls(s_e, g_e,
+                                                      outer.edge_dst, n)
+    _compare(results, "segment_softmax_bwd:f32", kernel, plain, BWD_TOL,
+             num_bytes, library=softmax_library(a32, outer.edge_dst, n, g_e))
+    del s_e, a32, kernel, plain
     mh = (v, outer.edge_src, outer.edge_dst, alpha, n, g,
           outer.edge_src_perm, outer.edge_src_sorted)
     _compare(results, "spmm_multihead_bwd:f32",
@@ -2064,23 +2117,20 @@ def config4_kernels(dev, cb, pb, outer) -> dict:
              per_element=True)
     alpha = ops.segment_softmax_plain(s, dst, D)
     g_e = torch.randn(E, 4, device=dev, generator=gen).to(bf)
-    _compare(results, "segment_softmax_bwd:bf16",
-             lambda: ops.segment_softmax_bwd(alpha, g_e, dst, D),
-             lambda: ops.segment_softmax_bwd_plain(alpha, g_e, dst, D),
-             BF16_STEP, nbytes(alpha, g_e, dst),
-             library=softmax_library(alpha, dst, D, g_e), per_element=True)
+    kernel, plain, a_k, num_bytes = softmax_bwd_calls(s, g_e, dst, D)
+    _compare(results, "segment_softmax_bwd:bf16", kernel, plain, BF16_STEP,
+             num_bytes, library=softmax_library(a_k, dst, D, g_e),
+             per_element=True)
     # the same in float32, off the path (the step computes in bf16)
-    s32, a32, g32 = s.float(), alpha.float(), g_e.float()
+    s32, g32 = s.float(), g_e.float()
     _compare(results, "segment_softmax:f32:config4",
              lambda: ops.segment_softmax(s32, dst, D),
              lambda: ops.segment_softmax_plain(s32, dst, D), SPARSE_TOL,
              nbytes(s32, dst), library=softmax_library(s32, dst, D))
-    _compare(results, "segment_softmax_bwd:f32:config4",
-             lambda: ops.segment_softmax_bwd(a32, g32, dst, D),
-             lambda: ops.segment_softmax_bwd_plain(a32, g32, dst, D),
-             BWD_TOL, nbytes(a32, g32, dst),
-             library=softmax_library(a32, dst, D, g32))
-    del s32, a32, g32
+    kernel, plain, a32, num_bytes = softmax_bwd_calls(s32, g32, dst, D)
+    _compare(results, "segment_softmax_bwd:f32:config4", kernel, plain,
+             BWD_TOL, num_bytes, library=softmax_library(a32, dst, D, g32))
+    del s32, a32, g32, a_k, kernel, plain
     v = torch.randn(D, 4, 32, device=dev, generator=gen).to(bf)
     g = torch.randn(D, 4, 32, device=dev, generator=gen).to(bf)
     _compare(results, "spmm_multihead:bf16",

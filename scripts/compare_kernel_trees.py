@@ -28,7 +28,9 @@ The forms, at the shapes ``chip_smoke.py`` gives them:
 - ``segment_softmax{,_bwd}:{f32,bf16}``: scores over the dst of the
   16,384-drug outer graph (E 2.6M, H 4); ``:config4``: over config4's
   sampled outer graph; ``segment_softmax:{f32,bf16}:100k``: over the
-  100K-drug outer graph;
+  100K-drug outer graph; ``segment_softmax_bwd:...:autograd``: the
+  backward as the main path runs it, ``torch.autograd.grad`` through the
+  forward's kernel (``chip_smoke.softmax_bwd_autograd``);
 - row 2: ``block_adjacency:f32{,:weighted}`` over config2's 4 buckets
   (counts, and the edges' weights); ``block_adjacency:int8`` (config4's
   step), ``:int16`` and ``:bf16:weighted`` over config4's sampled batch 0
@@ -74,9 +76,9 @@ block counts bit for bit, the float32 block weights within 1e-6, as
 message, with both measures) and no times, and the ROOT's process exits 1
 after its line. The softmax forms and rows 6-7 also get ``kernels``: the
 device ms a call of each kernel they launch (the bounds pass, the walks),
-from ``torch.profiler``, and so does the flash-GAT backward (its tiles and
-its reduction). ``--only`` times just the forms whose names start with one
-of the prefixes. Prints one JSON line per ROOT; needs a CUDA card. ``bound_ms`` and ``bound_by`` (rows 2-8):
+from ``torch.profiler``, and so do the flash-GAT forward and backward (the
+backward's tiles and reduction). ``--only`` times just the forms whose names start
+with one of the prefixes. Prints one JSON line per ROOT; needs a CUDA card. ``bound_ms`` and ``bound_by`` (rows 2-8):
 ``chip_smoke.bound_ms`` of the bytes the form must read and write and of the
 operations it must do, counted as ``chip_smoke.py`` counts them (rows 3 and
 3b are bound by operations). ``digest``: a hash of the kernel's output bits;
@@ -107,7 +109,7 @@ CALLS = {"segment_sum:f32": 4, "block_adjacency:f32": 4,
          "spmm_sorted_coo_bwd:f32:hub": 2}
 SLEEP_CYCLES = 400_000_000  # ~0.2 s at the H100's 1.98 GHz boost clock
 # forms whose kernels are timed one by one
-TRACED = ("segment_softmax", "flash_gat_attention_bwd", "spmm_sorted_coo",
+TRACED = ("segment_softmax", "flash_gat_attention", "spmm_sorted_coo",
           "block_spmm")
 
 
@@ -419,11 +421,21 @@ def new_cases(dev, path: Path):
             alpha = cpu_softmax(x, ids, n_seg)
             g = randn(seed + 1, len(ids), 4, dtype=dtype)
             IN_BYTES[f"segment_softmax_bwd:{tag}"] = nbytes(alpha, g, ids)
+            library = softmax_library(alpha, ids, n_seg, g)
             out.append((f"segment_softmax_bwd:{tag}",
                         lambda: ops.segment_softmax_bwd(alpha, g, ids, n_seg),
                         lambda: ops.segment_softmax_bwd_plain(alpha, g, ids,
                                                               n_seg),
-                        softmax_library(alpha, ids, n_seg, g), tol))
+                        library, tol))
+            # the main path's form: through autograd, on the forward
+            # kernel's alpha and bounds
+            name = f"segment_softmax_bwd:{tag}:autograd"
+            kernel, a = smoke().softmax_bwd_autograd(x, g, ids, n_seg)
+            IN_BYTES[name] = nbytes(a, g, ids) + 8 * n_seg
+            out.append((name, kernel,
+                        lambda: ops.segment_softmax_bwd_plain(a, g, ids,
+                                                              n_seg),
+                        library, tol))
 
     for t in ("f32", "bf16"):
         softmax(t, 80, o["dst"], n)
@@ -513,7 +525,8 @@ def cases(dev):
         *(t.cpu() for t in fwd)))
     bwd = (*fwd, lse_p, out_p, g)
     IN_BYTES["flash_gat_attention:f32"] = nbytes(*fwd)
-    FLOPS["flash_gat_attention:f32"] = n * n * heads * (2 * head_dim + 4)
+    FLOPS["flash_gat_attention:f32"] = smoke().flash_fwd_flops(
+        n, heads, head_dim)
     IN_BYTES["flash_gat_attention_bwd:f32"] = nbytes(*bwd)
     FLOPS["flash_gat_attention_bwd:f32"] = smoke().flash_bwd_flops(
         n, heads, head_dim)

@@ -13,7 +13,10 @@ values V, in this order:
 - ``smf``: the segment-softmax forward (``csrc/segment_softmax.cu``,
   ``softmax_fwd``): ``kRows`` (rows a lane holds in registers),
   ``kFwdMinBlocks``, ``kWarpsPerBlock``;
-- ``smb``: its backward (``softmax_bwd``): ``kWarpsPerBlock``;
+- ``smb``: its backward (``softmax_bwd``, as the autograd Function calls
+  it: the walk alone, on bounds found beforehand): ``kBwdRows`` (rows a
+  lane holds where segments are not short), ``kBwdMinBlocks``,
+  ``kBwdWarps`` (warps a block);
 - ``adj``: the block adjacency (``csrc/block_adj.cu``): ``kThreads``, over
   config4's sampled batch 0 (int8 counts, bf16 weights; counts exact);
 - ``fgb``: the flash-GAT backward (``csrc/flash_gat_bwd.cu``):
@@ -21,6 +24,14 @@ values V, in this order:
   ``kMaxSplits`` (the most parts its destination sweep is cut into; 1
   cuts none), over config2's dense outer mask (N 1,704) at H 4, D 32 and
   H 8, D 64 (within ``chip_smoke.BWD_TOL``);
+- ``fgf``: the flash-GAT forward (``csrc/flash_gat.cu``):
+  ``kHeadsPerBlock`` (heads a block owns), ``kParts`` (warps that share a
+  head's sweep), ``kSteps`` (k-steps of 8 sources a warp takes a stage),
+  ``kBuffers`` (stages in shared memory), ``kMinBlocks`` (blocks an SM
+  holds, by the launch bounds), ``kMaxInFlight`` (cnt loads a lane has in
+  flight for the row max), over config2's
+  dense outer mask (N 1,704) at H 4, D 32 and H 8, D 64 (within
+  ``chip_smoke.FLASH_TOL``);
 - ``bsw``: the block-local SpMM's walk (``csrc/block_spmm.cu``,
   ``block_walk``): ``kWalkWarps``, ``kInFlightBf16``, ``kInFlightF32``
   (edges a lane reads at once), ``kMinBlocksBf16``, ``kMinBlocksF32`` (the
@@ -76,6 +87,7 @@ import torch  # noqa: E402
 import compare_kernel_trees as ckt  # noqa: E402
 from bignn_tpu_torch import ops  # noqa: E402
 from bignn_tpu_torch.ops import cuda_lib  # noqa: E402
+from bignn_tpu_torch.ops.segment import segment_bounds_plain  # noqa: E402
 
 
 def _stream() -> int:
@@ -118,9 +130,8 @@ def call_smf(entries, t, x, ids, n_seg):
         _stream()), (alpha,)
 
 
-def call_smb(entries, t, alpha, g, ids, n_seg):
+def call_smb(entries, t, alpha, g, ids, n_seg, first, last):
     d_x = torch.empty_like(alpha)
-    first, last = _bounds(n_seg, alpha.device)
     return entries[t](
         alpha.data_ptr(), g.data_ptr(), ids.data_ptr(), alpha.shape[0],
         alpha.shape[1], n_seg, first.data_ptr(), last.data_ptr(),
@@ -148,6 +159,14 @@ def call_fgb(entries, t, sl, sr, v, cnt, lse, out, g, slope):
                       g.data_ptr(), n, heads, head_dim, slope, dsl.data_ptr(),
                       dsr.data_ptr(), dv.data_ptr(), scratch.data_ptr(),
                       size.value, _stream()), (dsl, dsr, dv)
+
+
+def call_fgf(entries, t, sl, sr, v, cnt, slope):
+    n, heads, head_dim = v.shape
+    out, lse = torch.empty_like(v), torch.empty_like(sl)
+    return entries[t](sl.data_ptr(), sr.data_ptr(), v.data_ptr(),
+                      cnt.data_ptr(), n, heads, head_dim, slope,
+                      out.data_ptr(), lse.data_ptr(), _stream()), (out, lse)
 
 
 def call_bsw(entries, t, x, src, dst, weight, starts, n):
@@ -239,7 +258,9 @@ def softmax_cases(graphs, backward: bool) -> list:
             alpha = ops.segment_softmax_plain(x, o["dst"], o["n"])
             g = _scores(o, 3, dtype) / 3
             args = (alpha, g, o["dst"], o["n"])
-            out.append((tag, args, (ops.segment_softmax_bwd_plain(*args),)))
+            bounds = segment_bounds_plain(o["dst"], o["n"])
+            out.append((tag, (*args, *bounds),
+                        (ops.segment_softmax_bwd_plain(*args),)))
         else:
             args = (x, o["dst"], o["n"])
             out.append((tag, args, (ops.segment_softmax_plain(*args),)))
@@ -284,6 +305,29 @@ def fgb_cases(graphs) -> list:
         out.append((tag, tuple(a.to(dev) if torch.is_tensor(a) else a
                                for a in args),
                     tuple(w.to(dev) for w in want)))
+    return out
+
+
+def fgf_cases(graphs) -> list:
+    """(tag, arguments, plain result) of the flash-GAT forward over
+    config2's dense outer mask (N 1,704): H 4, D 32 and H 8, D 64."""
+    from bignn_tpu_torch.data import load_dataset
+    from bignn_tpu_torch.sparse.formats import build_outer_graph
+
+    dev = graphs["outer"]["dst"].device
+    ds = load_dataset("drugbank")
+    train = ds.split_edges("train")
+    cnt = torch.as_tensor(build_outer_graph(
+        train[:, 0], train[:, 1], ds.num_drugs).dense_cnt, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    out = []
+    for tag, heads, head_dim in (("f32", 4, 32), ("f32:h8d64", 8, 64)):
+        n = ds.num_drugs
+        sl, sr = (torch.randn(n, heads, device=dev, generator=gen)
+                  for _ in range(2))
+        v = torch.randn(n, heads, head_dim, device=dev, generator=gen)
+        args = (sl, sr, v, cnt, 0.2)
+        out.append((tag, args, ops.flash_gat_attention_plain(*args)))
     return out
 
 
@@ -381,8 +425,9 @@ KINDS = {
                 ("kRows", "kFwdMinBlocks", "kWarpsPerBlock"), "softmax_fwd",
                 "bignn_segment_softmax_fwd_", call_smf,
                 lambda gr: softmax_cases(gr, False)),
-    "smb": Kind("segment_softmax.cu", ("kWarpsPerBlock",), "softmax_bwd",
-                "bignn_segment_softmax_bwd_", call_smb,
+    "smb": Kind("segment_softmax.cu",
+                ("kBwdRows", "kBwdMinBlocks", "kBwdWarps"), "softmax_bwd",
+                "bignn_segment_softmax_bwd_saved_", call_smb,
                 lambda gr: softmax_cases(gr, True)),
     "adj": Kind("block_adj.cu", ("kThreads",), "block_counts",
                 "bignn_block_adj_", call_adj, adj_cases, ("int8", "bf16"),
@@ -391,6 +436,11 @@ KINDS = {
                 "flash_gat_bwd_tiles", "bignn_flash_gat_bwd_", call_fgb,
                 fgb_cases, ("f32", "scratch_f32"),
                 lambda tag: (ckt.smoke().BWD_TOL, False)),
+    "fgf": Kind("flash_gat.cu",
+                ("kHeadsPerBlock", "kParts", "kSteps", "kBuffers",
+                 "kMinBlocks", "kMaxInFlight"),
+                "flash_gat_fwd", "bignn_flash_gat_fwd_", call_fgf, fgf_cases,
+                ("f32",), lambda tag: (ckt.smoke().FLASH_TOL, False)),
     "bsw": Kind("block_spmm.cu",
                 ("kWalkWarps", "kInFlightBf16", "kInFlightF32",
                  "kMinBlocksBf16", "kMinBlocksF32", "kEdgeStage"),

@@ -281,16 +281,18 @@ def _softmax_ids(rng, lengths, num_segments):
 
 
 def _softmax_hard_cases(rng, device, dtype, tag):
-    """The segment softmax on inputs its forward finds hard, in ``dtype``
+    """The segment softmax on inputs its walks find hard, in ``dtype``
     (case names ``segment_softmax{,_bwd}{tag}_<case>``): ``lengths_h<H>``,
     segments of 1, 32, 256, 257 and 1,000 rows (the register path and the
-    long path) with holes, H 1, 3 and 8; ``short`` (forward only), 200
-    segments of 1-2 rows on average (the forward's one row a lane) with
-    some of 32, 33 and 100 rows and holes; ``inf`` (forward only), an
-    all--inf segment, a segment with one +inf score and a -inf score among
-    finite ones; ``unaligned``, x, alpha and g as views 4 (f32) or 2 (bf16)
-    bytes off 16 (off 8 and 4: single values, not pairs or words); and
-    ``nosegments`` (forward only), no segment at all, every row dropped."""
+    long path) with holes, H 1, 3 and 8; ``short``, 200 segments of 1-2
+    rows on average (one row a lane) with some of 32, 33 and 100 rows and
+    holes; ``span256``, segments spanning exactly 255, 256 and 257 rows
+    without holes, among others (8 rows a lane: 256 positions a warp in
+    registers, 257 the long path); ``inf`` (forward only), an all--inf
+    segment, a segment with one +inf score and a -inf score among finite
+    ones; ``unaligned``, x, alpha and g as views 4 (f32) or 2 (bf16) bytes
+    off 16 (off 8 and 4: single values, not pairs or words); and
+    ``nosegments``, no segment at all, every row dropped."""
     cases = {}
     ids = _softmax_ids(rng, (1, 32, 256, 257, 1000), 40)
     (ids_t,) = _on(device, ids)
@@ -330,16 +332,43 @@ def _softmax_hard_cases(rng, device, dtype, tag):
     cases[f"segment_softmax{tag}_nosegments"] = (
         lambda: ops.segment_softmax(x, ids_t, 0),
         lambda: ops.segment_softmax_plain(x, ids_t, 0))
-    # short: segments of 1-2 rows on average (one row a lane in registers),
-    # with some of 32, 33 and 100 rows and holes (the sweeps)
-    short = _softmax_ids(rng, (1, 32, 33, 100), 200)
-    xs, ids_s = _on(device, 4 * rng.standard_normal(
-        (len(short), 4)).astype(np.float32), short)
-    xs = xs.to(dtype)
-    cases[f"segment_softmax{tag}_short"] = (
-        lambda: ops.segment_softmax(xs, ids_s, 200),
-        lambda: ops.segment_softmax_plain(xs, ids_s, 200))
+    a0 = ops.segment_softmax_plain(x, ids_t, 0)
+    cases[f"segment_softmax_bwd{tag}_nosegments"] = (
+        lambda: ops.segment_softmax_bwd(a0, g, ids_t, 0),
+        lambda: ops.segment_softmax_bwd_plain(a0, g, ids_t, 0))
+    for name, lengths, n_seg in SOFTMAX_LAYOUTS:
+        ids_n = _softmax_layout_ids(rng, name, lengths, n_seg)
+        xs, gs, ids_s = _on(device, 4 * rng.standard_normal(
+            (len(ids_n), 4)).astype(np.float32), rng.standard_normal(
+            (len(ids_n), 4)).astype(np.float32), ids_n)
+        xs, gs = xs.to(dtype), gs.to(dtype)
+        a_s = ops.segment_softmax_plain(xs, ids_s, n_seg)
+        cases[f"segment_softmax{tag}_{name}"] = (
+            lambda xs=xs, i=ids_s, n=n_seg: ops.segment_softmax(xs, i, n),
+            lambda xs=xs, i=ids_s, n=n_seg: ops.segment_softmax_plain(xs, i,
+                                                                      n))
+        cases[f"segment_softmax_bwd{tag}_{name}"] = (
+            lambda a=a_s, gs=gs, i=ids_s, n=n_seg: ops.segment_softmax_bwd(
+                a, gs, i, n),
+            lambda a=a_s, gs=gs, i=ids_s, n=n_seg:
+                ops.segment_softmax_bwd_plain(a, gs, i, n))
     return cases
+
+
+# name, lengths, segments: ``short``, segments of 1-2 rows on average (one
+# row a lane in registers) with some of 32, 33 and 100 rows and holes (the
+# sweeps); ``span256``, segments spanning 256, 257 and 255 rows with no
+# holes, 145 rows a segment on average (8 rows a lane)
+SOFTMAX_LAYOUTS = (
+    ("short", (1, 32, 33, 100), 200),
+    ("span256", (256, 257, 255, 1, 2, 3, 32, 33, 100, 512), 10))
+
+
+def _softmax_layout_ids(rng, name, lengths, num_segments):
+    if name == "short":
+        return _softmax_ids(rng, lengths, num_segments)
+    return np.concatenate([np.repeat(np.arange(num_segments), lengths),
+                           np.full(20, num_segments)]).astype(np.int32)
 
 
 def _off16(t: torch.Tensor) -> torch.Tensor:
@@ -418,11 +447,11 @@ def _sparse_cases(device):
 
 MH_TAGS = ("h4d32", "h8d32", "h2d3", "unsorted", "h1d32", "h1d3", "h4d3",
            "h8d3")
-SOFTMAX_HARD = ("lengths_h1", "lengths_h3", "lengths_h8", "unaligned")
+SOFTMAX_HARD = ("lengths_h1", "lengths_h3", "lengths_h8", "unaligned",
+                "nosegments", "short", "span256")
 SPARSE_CASES = [
     *(f"segment_softmax_{t}" for t in ("sorted_h4", "holes_h8", "shuffled_h1",
-                                       "1d", "inf", "nosegments", "short")
-      + SOFTMAX_HARD),
+                                       "1d", "inf") + SOFTMAX_HARD),
     *(f"segment_softmax_bwd_{t}" for t in ("sorted_h4", "holes_h8",
                                            "shuffled_h1") + SOFTMAX_HARD),
     *(f"spmm_multihead_{t}" for t in MH_TAGS + ("empty", "unaligned",
@@ -912,8 +941,7 @@ DTYPE_CASES = [
     "block_adjacency_torch.bfloat16", "block_adjacency_bf16_weighted",
     *(f"segment_softmax{b}_bf16_{t}" for b in ("", "_bwd")
       for t in ("holes_h4", "shuffled_h3") + SOFTMAX_HARD),
-    "segment_softmax_bf16_inf", "segment_softmax_bf16_nosegments",
-    "segment_softmax_bf16_short",
+    "segment_softmax_bf16_inf",
     *(f"spmm_multihead{b}_bf16_{t}" for b in ("", "_bwd")
       for t in ("h4d32", "h2d3", "unsorted", "h1d32", "h8d32", "h8d3",
                 "empty", "unaligned")),
@@ -2137,3 +2165,149 @@ def test_bf16_weighted_value_by_value_on_card(cuda_device, case):
     d, b = (got - want).abs(), want.abs()
     assert torch.all(d <= 2.0 ** -7 * (b + b.mean())), case
     assert int((d != 0).sum()) <= 1e-3 * d.numel(), case
+
+
+# ---------------------------------------------------------------------------
+# The flash-GAT forward (csrc/flash_gat.cu: row max from the masked bounds
+# of score_r, p v on the tensor cores in 3xTF32) and the segment-softmax
+# backward (csrc/segment_softmax.cu: a segment's rows in registers; with
+# the forward's bounds, one launch)
+# ---------------------------------------------------------------------------
+
+FLASH_TOL = 1e-4  # chip_smoke.FLASH_TOL: |out - plain| and |lse - plain|
+# name -> (N, H, D, slope): the backward's shapes, and a slope below 0 (the
+# row max's V-shaped case) with multiplicities up to 3
+FLASH_FWD_SPECS = {
+    **FLASH_BWD_SPECS,
+    "n300_h4_d32_slope_neg": (300, 4, 32, -0.1),
+}
+
+
+def _flash_fwd_case(device, name):
+    """(kernel call, plain call) of one ``FLASH_FWD_SPECS`` case: a mask of
+    density 4.5 % with multiplicities 2 and 3, in which destination 7 and
+    source 11 have no edges."""
+    n, heads, head_dim, slope = FLASH_FWD_SPECS[name]
+    rng = np.random.default_rng(zlib.crc32(name.encode()))
+    cnt = (rng.random((n, n)) < 0.045).astype(np.float32)
+    cnt += rng.random((n, n)) < 0.005
+    cnt += rng.random((n, n)) < 0.002
+    cnt[7] = 0.0
+    cnt[:, 11] = 0.0
+    sl, sr, v = (rng.standard_normal(shape).astype(np.float32)
+                 for shape in ((n, heads), (n, heads), (n, heads, head_dim)))
+    args = (*_on(device, sl, sr, v, cnt), slope)
+    return (lambda: ops.flash_gat_attention(*args),
+            lambda: ops.flash_gat_attention_plain(*args))
+
+
+def test_flash_fwd_plain_cases_run_on_cpu():
+    """The small cases on the CPU: the plain version, no launch counted;
+    the empty destination gives 0 and lse NEG, multiplicities reach 3."""
+    before = ops.flash_gat_attention.launches
+    for name in ("n130_h2_d5", "n300_h4_d32_slope_neg"):
+        kernel, plain = _flash_fwd_case("cpu", name)
+        (out, lse), want = kernel(), plain()
+        assert all(torch.equal(a, b) for a, b in zip((out, lse), want))
+        assert not out[7].any() and bool((lse[7] == -1e30).all()), name
+        assert bool((lse[8:] > -1e30).all()), name
+    assert ops.flash_gat_attention.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(FLASH_FWD_SPECS))
+def test_flash_gat_fwd_shapes_match_plain_on_card(cuda_device, case):
+    """out and lse within FLASH_TOL of the plain version, as chip_smoke.py
+    holds the kernel; the empty destination gives exact zeros and NEG."""
+    kernel, plain = _flash_fwd_case(cuda_device, case)
+    (out, lse), (out_p, lse_p) = kernel(), plain()
+    torch.cuda.synchronize()
+    assert out.shape == out_p.shape and lse.shape == lse_p.shape, case
+    assert (out - out_p).abs().max().item() <= FLASH_TOL, case
+    assert (lse - lse_p).abs().max().item() <= FLASH_TOL, case
+    assert not out[7].any() and bool((lse[7] == -1e30).all()), case
+
+
+def _softmax_bwd_layouts(device, dtype):
+    """name -> (x, g, ids, num_segments) for the backward's two paths:
+    holes (lengths), unsorted ids, short segments, spans across 256, and no
+    segment at all; the cotangent negative everywhere, so that a dropped
+    row computed as 0 * g would be -0."""
+    rng = np.random.default_rng(17)
+    layouts = {
+        "lengths": (_softmax_ids(rng, (1, 32, 256, 257, 1000), 40), 40),
+        "shuffled": (rng.permutation(np.concatenate([
+            rng.integers(0, 50, 700), np.full(20, 50), [-1]])), 50),
+        "nosegments": (np.zeros(64, np.int32), 0),
+    }
+    for name, lengths, n_seg in SOFTMAX_LAYOUTS:
+        layouts[name] = (_softmax_layout_ids(rng, name, lengths, n_seg),
+                         n_seg)
+    out = {}
+    for name, (ids, n_seg) in layouts.items():
+        x, g, ids_t = _on(device, 4 * rng.standard_normal(
+            (len(ids), 3)).astype(np.float32), -0.5 - rng.random(
+            (len(ids), 3)).astype(np.float32), ids.astype(np.int32))
+        out[name] = (x.to(dtype), g.to(dtype), ids_t, n_seg)
+    return out
+
+
+def _dirty(like: torch.Tensor) -> None:
+    """Leave NaN in the caching allocator's next block of ``like``'s size,
+    so that a row a kernel leaves unwritten does not read as 0."""
+    torch.full_like(like, float("nan"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_softmax_bwd_saved_bounds_give_the_ops_bits_on_card(cuda_device,
+                                                             dtype):
+    """The autograd backward, which takes the forward's bounds and launches
+    once, gives the op's own call (bounds pass, then the walk) bit for bit;
+    each counts one launch; dropped rows read exactly +0 (sign bit clear)
+    on both."""
+    for name, (x, g, ids, n) in _softmax_bwd_layouts(cuda_device,
+                                                     dtype).items():
+        xr = x.clone().requires_grad_()
+        alpha = ops.segment_softmax(xr, ids, n)
+        before = ops.segment_softmax_bwd.launches
+        _dirty(x)
+        (auto,) = torch.autograd.grad(alpha, xr, g)
+        _dirty(x)
+        own = ops.segment_softmax_bwd(alpha.detach(), g, ids, n)
+        assert ops.segment_softmax_bwd.launches == before + 2, name
+        assert torch.equal(auto, own), name
+        drop = (ids < 0) | (ids >= n)
+        for d in (auto, own):
+            assert bool((d[drop] == 0).all()), name
+            assert not bool(torch.signbit(d[drop]).any()), name
+        want = ops.segment_softmax_bwd_plain(alpha.detach(), g, ids, n)
+        np.testing.assert_allclose(auto.float().cpu().numpy(),
+                                   want.float().cpu().numpy(),
+                                   **(GRAD_TOL if dtype == torch.float32
+                                      else BF16_TOL), err_msg=name)
+
+
+@pytest.mark.gpu
+def test_flash_fwd_and_softmax_bwd_repeat_bit_for_bit_on_card(cuda_device):
+    """No float atomics and sums in a fixed order: two launches of the
+    flash forward, and of either softmax backward, give the same bits."""
+    for name in ("n1704_h4_d32", "n130_h2_d5", "n300_h8_d64_slope01"):
+        kernel, _ = _flash_fwd_case(cuda_device, name)
+        before = ops.flash_gat_attention.launches
+        a, b = kernel(), kernel()
+        assert ops.flash_gat_attention.launches == before + 2, name
+        assert all(torch.equal(x, y) for x, y in zip(a, b)), name
+    for dtype in (torch.float32, torch.bfloat16):
+        layouts = _softmax_bwd_layouts(cuda_device, dtype)
+        for name in ("lengths", "span256", "short"):
+            x, g, ids, n = layouts[name]
+            alpha = ops.segment_softmax(x, ids, n)
+            a, b = (ops.segment_softmax_bwd(alpha, g, ids, n)
+                    for _ in range(2))
+            assert torch.equal(a, b), name
+            xr = x.clone().requires_grad_()
+            out = ops.segment_softmax(xr, ids, n)
+            a, b = (torch.autograd.grad(out, xr, g, retain_graph=True)[0]
+                    for _ in range(2))
+            assert torch.equal(a, b), name
