@@ -7,7 +7,8 @@ backward ``flash_gat_attention_bwd``, ``segment_softmax`` and its backward
 ``spmm_multihead_bwd``, ``gather_rows_sorted_grad_bwd``, the backward of
 ``gather_rows_sorted_grad``, ``spmm_sorted_coo`` and its backward
 ``spmm_sorted_coo_bwd``, ``block_spmm`` and its backward ``block_spmm_bwd``
-(the same kernel on the transposed plan), ``segment_max``, and
+(the same kernel on the transposed plan), ``segment_max`` and its
+backward ``segment_max_bwd``, and
 ``all_to_all``, the exchange of the graph shards' send buffers in the
 halo layers of ``parallel/halo.py`` (its backward the same exchange).
 ``sddmm`` (the per-edge scores of ``DotAttnConv``) is plain PyTorch, as
@@ -60,6 +61,8 @@ from bignn_tpu_torch.ops.multihead import (
 from bignn_tpu_torch.ops.sddmm import sddmm
 from bignn_tpu_torch.ops.segment import (
     segment_max,
+    segment_max_bwd,
+    segment_max_bwd_plain,
     segment_max_plain,
     segment_mean,
     segment_softmax,
@@ -97,6 +100,8 @@ __all__ = [
     "permutation_scatter_rows",
     "sddmm",
     "segment_max",
+    "segment_max_bwd",
+    "segment_max_bwd_plain",
     "segment_max_plain",
     "segment_mean",
     "segment_softmax",

@@ -28,7 +28,8 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "bignn_tpu_torch"
 SOURCES = ("segment_sum.cu", "block_adj.cu", "flash_gat.cu",
            "flash_gat_bwd.cu", "segment_softmax.cu", "spmm_multihead.cu",
            "spmm.cu", "block_spmm.cu", "segment_max.cu", "all_to_all.cu")
-HEADERS = ("segment_bounds.cuh", "elem.cuh", "tf32_mma.cuh")
+HEADERS = ("segment_bounds.cuh", "segment_walk.cuh", "elem.cuh",
+           "tf32_mma.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -48,6 +49,8 @@ _SPMM = [_VP, _I32, _VP, _VP, _VP, _I32, _I32, _I32, _VP, _VP, _VP, _VP]
 _SPMM_BWD = [_VP, _I32, _VP, _VP, _VP, _VP, _I32, _I32, _I32, _VP, _VP, _VP,
              _VP]
 _BLOCK_SPMM = [_VP, _VP, _VP, _VP, _VP, _I32, _I32, _I32, _VP]
+# data, ids, out, g, rows, F, segments, first, last, saved (0/1), d
+_SEGMENT_MAX_BWD = [_VP, _VP, _VP, _VP, _I32, _I32, _I32, _VP, _VP, _I32, _VP]
 _SIGNATURES = {
     # name: argument types after which the stream follows
     "bignn_segment_sum_f32": _SEGMENT_SUM,
@@ -84,6 +87,8 @@ _SIGNATURES = {
     "bignn_block_spmm_bf16": _BLOCK_SPMM,
     "bignn_segment_max_f32": _SEGMENT_SUM,
     "bignn_segment_max_bf16": _SEGMENT_SUM,
+    "bignn_segment_max_bwd_f32": _SEGMENT_MAX_BWD,
+    "bignn_segment_max_bwd_bf16": _SEGMENT_MAX_BWD,
     # arrays of G send and G receive base pointers, G, bytes of a slot
     "bignn_all_to_all": [_VP, _VP, _I32, _I64],
 }

@@ -1,6 +1,6 @@
-"""Segment sum and segment softmax (counterpart of
-``bignn_tpu/ops/segment.py`` and ``bignn_tpu/ops/pallas/segment.py``:
-``segment_sum_pallas`` and ``segment_softmax_pallas``).
+"""Segment sum, softmax and max (counterpart of ``bignn_tpu/ops/segment.py``
+and ``bignn_tpu/ops/pallas/segment.py``: ``segment_sum_pallas``,
+``segment_softmax_pallas`` and ``segment_max_pallas``).
 
 Both take float32 or bf16 data. As the Pallas kernels do, every sum runs in
 float32 and the result is rounded once to the data's type; the plain
@@ -26,6 +26,13 @@ versions on CPU tensors; the autograd backward takes the bounds that the
 forward's kernel found on the same ids, so it makes no bounds pass of its
 own. Like the segment sum, both are right for any ids (the bounds pass of
 ``csrc/segment_bounds.cuh`` checks every id), and fast for sorted ones.
+
+``segment_max`` (the max readout) is one as well: its forward runs the
+segment sum's walk folding a max (``csrc/segment_max.cu``), and its
+backward, JAX's composed VJP (``_segment_max_diff_bwd``: the rows equal to
+their segment's max share its cotangent), is one launch of that file's
+backward kernel on the bounds the forward found (``segment_max_bwd``; the
+plain version ``segment_max_bwd_plain``).
 """
 
 from __future__ import annotations
@@ -356,31 +363,35 @@ def segment_max_plain(data: torch.Tensor, segment_ids: torch.Tensor,
     return torch.where(torch.isfinite(out), out, 0.0).to(data.dtype)
 
 
-def segment_max_bwd(data: torch.Tensor, segment_ids: torch.Tensor,
-                    out: torch.Tensor, g: torch.Tensor,
-                    num_segments: int) -> torch.Tensor:
+def segment_max_bwd_plain(data: torch.Tensor, segment_ids: torch.Tensor,
+                          out: torch.Tensor, g: torch.Tensor,
+                          num_segments: int) -> torch.Tensor:
     """``d_data`` for the cotangent ``g`` of ``out = segment_max(data)``,
     composed as ``_segment_max_diff_bwd``
     (``bignn_tpu/ops/pallas/segment.py:499-512``): the rows equal to their
-    segment's max share its cotangent evenly; the tie counts are a segment
-    sum (the kernel, on a CUDA tensor)."""
+    segment's max (a float compare against the stored ``out``) share its
+    cotangent evenly; the tie counts are a plain segment sum, the divide is
+    float32, rounded once to the data's type."""
     d2 = data[:, None] if data.dim() == 1 else data
     o2 = out[:, None] if out.dim() == 1 else out
     g2 = g[:, None] if g.dim() == 1 else g
     keep, slot = _slots(segment_ids, num_segments)
     clip = slot.clamp(max=max(num_segments - 1, 0))
     is_max = keep[:, None] & (d2 == o2[clip])
-    cnt = segment_sum(is_max.to(torch.float32), segment_ids, num_segments)
+    cnt = segment_sum_plain(is_max.to(torch.float32), segment_ids,
+                            num_segments)
     share = (g2.float() / cnt.clamp_min(1.0))[clip]
     d = torch.where(is_max, share, 0.0).to(data.dtype)
     return d[:, 0] if data.dim() == 1 else d
 
 
-def _segment_max_cuda(data: torch.Tensor, segment_ids: torch.Tensor,
-                      num_segments: int) -> torch.Tensor:
-    if data.dim() == 1:
-        return _segment_max_cuda(data[:, None], segment_ids,
-                                 num_segments)[:, 0]
+def _segment_max_check(data: torch.Tensor, segment_ids: torch.Tensor,
+                       num_segments: int,
+                       *more: tuple[str, torch.Tensor]) -> str:
+    """Check what the segment-max kernels take: ``[E, F]`` float32 or bf16
+    data, ``[E]`` int32 ids and ``[num_segments, F]`` tensors ``more`` of
+    the data's type, contiguous, on one card. Returns the entry points'
+    suffix."""
     suffix = cuda_lib.require_float(data, "data", "segment_max")
     dev = data.device
     cuda_lib.require_cuda(data, "data", data.dtype, 2, dev)
@@ -389,6 +400,22 @@ def _segment_max_cuda(data: torch.Tensor, segment_ids: torch.Tensor,
     if segment_ids.shape[0] != e:
         raise ValueError(f"segment_ids has {segment_ids.shape[0]} rows, "
                          f"data {e}")
+    for name, t in more:
+        cuda_lib.require_cuda(t, name, data.dtype, 2, dev)
+        if tuple(t.shape) != (num_segments, f):
+            raise ValueError(f"{name} {tuple(t.shape)} is not "
+                             f"{(num_segments, f)}")
+    return suffix
+
+
+def _segment_max_cuda(data: torch.Tensor, segment_ids: torch.Tensor,
+                      num_segments: int):
+    """``(out, (first, last))`` for ``[E, F]`` data: the kernel's max, and
+    the bounds its bounds pass found (``segment_bounds_plain``), which the
+    backward takes on the same ids."""
+    suffix = _segment_max_check(data, segment_ids, num_segments)
+    dev = data.device
+    e, f = data.shape
     out = torch.empty((num_segments, f), dtype=data.dtype, device=dev)
     first = torch.empty(num_segments, dtype=torch.int32, device=dev)
     last = torch.empty(num_segments, dtype=torch.int32, device=dev)
@@ -396,25 +423,82 @@ def _segment_max_cuda(data: torch.Tensor, segment_ids: torch.Tensor,
                     segment_ids.data_ptr(), e, f, num_segments,
                     first.data_ptr(), last.data_ptr(), out.data_ptr())
     cuda_lib.count(segment_max, data.dtype)
-    return out
+    return out, (first, last)
+
+
+def _segment_max_bwd_cuda(data, segment_ids, out, g, num_segments, bounds,
+                          saved: bool):
+    """The backward's kernel on ``[E, F]`` data: with ``saved``, ``bounds``
+    is the ``(first, last)`` that the forward's kernel found on the same
+    ids, and the kernel is the one launch; else it is scratch for the
+    kernel's own bounds pass."""
+    suffix = _segment_max_check(data, segment_ids, num_segments,
+                                ("out", out), ("g", g))
+    e, f = data.shape
+    d = torch.empty_like(data)
+    first, last = bounds
+    cuda_lib.launch(f"bignn_segment_max_bwd_{suffix}", data.device,
+                    data.data_ptr(), segment_ids.data_ptr(), out.data_ptr(),
+                    g.data_ptr(), e, f, num_segments, first.data_ptr(),
+                    last.data_ptr(), int(saved), d.data_ptr())
+    cuda_lib.count(segment_max_bwd, data.dtype)
+    return d
+
+
+def segment_max_bwd(data: torch.Tensor, segment_ids: torch.Tensor,
+                    out: torch.Tensor, g: torch.Tensor,
+                    num_segments: int) -> torch.Tensor:
+    """``d_data`` for the cotangent ``g`` of ``out = segment_max(data)``
+    (``data`` ``[E, F]`` or ``[E]``; ``out`` and ``g`` its result's shape,
+    all of one float type on the card), the rule of
+    ``segment_max_bwd_plain``. A CPU tensor takes the plain version; any
+    other goes to the kernel of ``csrc/segment_max.cu``, which raises on
+    what it does not take: its bounds pass, then its one walk."""
+    if data.device.type == "cpu":
+        return segment_max_bwd_plain(data, segment_ids, out, g, num_segments)
+    if data.dim() == 1:
+        return segment_max_bwd(data[:, None], segment_ids, out[:, None],
+                               g[:, None], num_segments)[:, 0]
+    scratch = tuple(torch.empty(num_segments, dtype=torch.int32,
+                                device=data.device) for _ in range(2))
+    return _segment_max_bwd_cuda(data, segment_ids, out, g, num_segments,
+                                 scratch, saved=False)
+
+
+cuda_lib.counter(segment_max_bwd)
 
 
 class _SegmentMax(torch.autograd.Function):
     @staticmethod
     def forward(ctx, data, segment_ids, num_segments):
+        bounds = ()
         if data.device.type == "cpu":
             out = segment_max_plain(data, segment_ids, num_segments)
+        elif data.dim() == 1:
+            out, bounds = _segment_max_cuda(data[:, None], segment_ids,
+                                            num_segments)
+            out = out[:, 0]
         else:
-            out = _segment_max_cuda(data, segment_ids, num_segments)
-        ctx.save_for_backward(data, segment_ids, out)
+            out, bounds = _segment_max_cuda(data, segment_ids, num_segments)
+        # the kernel's bounds on these ids: the backward needs no bounds pass
+        ctx.save_for_backward(data, segment_ids, out, *bounds)
         ctx.num_segments = num_segments
         return out
 
     @staticmethod
     def backward(ctx, g):
-        data, segment_ids, out = ctx.saved_tensors
-        return (segment_max_bwd(data, segment_ids, out, g, ctx.num_segments),
-                None, None)
+        data, segment_ids, out, *bounds = ctx.saved_tensors
+        n, g = ctx.num_segments, g.contiguous()
+        if not bounds:  # CPU tensors: the op takes its plain version
+            d = segment_max_bwd(data, segment_ids, out, g, n)
+        elif data.dim() == 1:
+            d = _segment_max_bwd_cuda(data[:, None], segment_ids,
+                                      out[:, None], g[:, None], n, bounds,
+                                      saved=True)[:, 0]
+        else:
+            d = _segment_max_bwd_cuda(data, segment_ids, out, g, n, bounds,
+                                      saved=True)
+        return d, None, None
 
 
 def segment_max(data: torch.Tensor, segment_ids: torch.Tensor,
@@ -426,8 +510,10 @@ def segment_max(data: torch.Tensor, segment_ids: torch.Tensor,
     (compared in float32; the max, exact, in the data's type; the plain
     version takes any float type), ``segment_ids`` ``[E]`` int32 in any
     order; ids outside ``[0, num_segments)`` are dropped. A CPU tensor takes
-    the plain version; any other goes to the kernel of
-    ``csrc/segment_max.cu``. The gradient is split evenly among ties."""
+    the plain version; any other goes to the kernels of
+    ``csrc/segment_max.cu``. The gradient is split evenly among ties
+    (``segment_max_bwd``); on the card the backward is one launch on the
+    bounds that the forward's kernel found."""
     return _SegmentMax.apply(data, segment_ids, int(num_segments))
 
 

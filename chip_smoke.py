@@ -88,9 +88,12 @@ Phases:
      stand-in (block-local ids with padding runs between molecules), 20
      Trainer steps against the plain versions, then 20 with
      dtype="bfloat16" (step 1 by phase 9's bf16 tolerances, a_l by the
-     float32 run's plain gradients as in phase 8b); segment_max
-     (f32, then bf16) must launch, and is held against its plain version
-     at the largest bucket, exactly in both types.
+     float32 run's plain gradients as in phase 8b); segment_max and its
+     backward segment_max_bwd (f32, then bf16) must launch, segment_sum
+     must not (the backward counts its ties itself), and both are held
+     against their plain versions at the largest bucket, exactly in both
+     types (the backward's library call: autograd through one amax
+     scatter_reduce).
  12. path D, config3 as get_config("config3") sets it (BioSNAP stand-in,
      fanouts (10, 5), batch 512 + 512, f32, host-drawn batches) on molecules
      up to 160 atoms: MinibatchTrainer with resident tables, 64 steps by
@@ -163,9 +166,9 @@ and its operations over their peak rates: 67 TFLOP/s for float32 outside
 the tensor cores, and 495 TFLOP/s for TF32 on them, where the flash-GAT
 forward's product and the backward's two run as 3xTF32 (three TF32
 products each, counted three times; their elementwise work at 67, the two
-times added). The softmax backward rows time the one launch the main path
-makes, on the bounds that the forward's kernel found, once it has given
-autograd's result bit for bit.
+times added). The softmax and segment-max backward rows time the one
+launch the main path makes, on the bounds that the forward's kernel found,
+once it has given autograd's result bit for bit.
 all_to_all:f32 is timed at config5-large's
 send buffers; a second row, all_to_all:f32 (config5), at config5's, with
 the launches of paths G and G(ii). Rows 4 and 8 have rows at their other
@@ -270,8 +273,8 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 TF32_FLOPS = 495e12  # H100 SXM TF32 on the tensor cores, dense
 # kernels a trace lists wherever they rank: the segment kernels' bounds
-# pass and the segment sums
-TRACE_ALWAYS = ("find_bounds", "init_bounds", "sum_segments")
+# pass and the segment walk (sums and maxima)
+TRACE_ALWAYS = ("find_bounds", "init_bounds", "reduce_segments")
 
 
 def log(msg: str) -> None:
@@ -726,6 +729,10 @@ KERNELS = {
                         "bignn_tpu/ops/pallas/segment.py:339"),
     "segment_max:bf16": ("bignn_tpu_torch/csrc/segment_max.cu",
                          "bignn_tpu/ops/pallas/segment.py:339"),
+    "segment_max_bwd:f32": ("bignn_tpu_torch/csrc/segment_max.cu",
+                            "bignn_tpu/ops/pallas/segment.py:499"),
+    "segment_max_bwd:bf16": ("bignn_tpu_torch/csrc/segment_max.cu",
+                             "bignn_tpu/ops/pallas/segment.py:499"),
     **{f"spmm_sorted_coo:bf16{w}": ("bignn_tpu_torch/csrc/spmm.cu",
                                     "bignn_tpu/ops/pallas/spmm.py:52")
        for w in ("", ":weighted")},
@@ -1766,8 +1773,11 @@ def run_max_readout(dev, ds, bucketing) -> tuple[list, dict]:
     """Path C: config2 with readout="max" on the DrugBank stand-in (block-
     local buckets, padding runs between molecules), 20 steps in float32,
     then 20 in bf16 (``dtype="bfloat16"``, the step-1 gradients by the
-    bf16 tolerances); then the segment max in both types against its plain
-    version at the largest bucket (exact: a max is one of its inputs)."""
+    bf16 tolerances); the readout's backward is one launch of its own
+    kernel, and no segment sum runs. Then the segment max and its backward
+    in both types against their plain versions at the largest bucket
+    (exact: a max is one of its inputs, and the backward does the composed
+    rule's operations)."""
     from bignn_tpu_torch.config import get_config
     from bignn_tpu_torch.data import prepare_device_data
 
@@ -1775,18 +1785,23 @@ def run_max_readout(dev, ds, bucketing) -> tuple[list, dict]:
     data = prepare_device_data(ds)
     maxed = dataclasses.replace(cfg.model, readout="max")
     batches = _epoch_batches(data, cfg.train)
+    sums = ("segment_sum:f32", "segment_sum:bf16")
     launches, f32_plain = _train_and_check(
         dev, maxed, data, cfg.train, batches,
-        ("segment_max:f32", "segment_sum:f32", "block_adjacency:f32",
+        ("segment_max:f32", "segment_max_bwd:f32", "block_adjacency:f32",
          "flash_gat_attention:f32", "flash_gat_attention_bwd:f32"))
+    require_idle(launches, sums, "on path C")
     log("  bf16 (dtype=\"bfloat16\"), 20 steps")
     bf16, _ = _train_and_check(
         dev, dataclasses.replace(maxed, dtype="bfloat16"), data, cfg.train,
-        batches, ("segment_max:bf16", "flash_gat_attention:f32",
-                  "flash_gat_attention_bwd:f32"), f32_plain)
+        batches, ("segment_max:bf16", "segment_max_bwd:bf16",
+                  "flash_gat_attention:f32", "flash_gat_attention_bwd:f32"),
+        f32_plain)
+    require_idle(bf16, sums, "on path C")
     results = {}
-    for name, kernel, plain, library, tol, nb, flops in segment_max_forms(
-            dev, max(bucketing.batches, key=lambda b: b.node_cap)):
+    b = max(bucketing.batches, key=lambda b: b.node_cap)
+    for name, kernel, plain, library, tol, nb, flops in (
+            segment_max_forms(dev, b) + segment_max_bwd_forms(dev, b)):
         _compare(results, name, kernel, plain, tol, nb, flops,
                  library=library)
     return [launches, bf16], results
@@ -1818,6 +1833,84 @@ def segment_max_forms(dev, b) -> list[tuple]:
             lambda x=x, out=out: out.scatter_reduce_(
                 0, idx, x, "amax", include_self=False),
             0.0, nbytes(x[:rows], ids), rows * 128))
+    return forms
+
+
+def max_bwd_inputs(dev, b, dt) -> tuple:
+    """(x, ids, s, g, rows) of the segment max backward's forms at bucket
+    ``b``, F 128: data and cotangent drawn from seeded device generators,
+    and the rows whose id is kept."""
+    ids = torch.as_tensor(b.graph_ids, device=dev)
+    s = b.num_graphs
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    x = torch.randn(b.node_cap, 128, device=dev, generator=gen).to(dt)
+    g = torch.randn(s, 128, device=dev, generator=gen).to(dt)
+    return x, ids, s, g, int((ids < s).sum())
+
+
+def max_bwd_autograd(x: torch.Tensor, ids: torch.Tensor, n: int,
+                     g: torch.Tensor) -> tuple:
+    """(call, out): ``torch.autograd.grad`` of ``g`` through
+    ``ops.segment_max`` of ``x``, the max readout's backward as the main
+    path runs it, and the forward's result."""
+    from bignn_tpu_torch import ops
+
+    xr = x.detach().requires_grad_()
+    with torch.enable_grad():  # the callers' phases run under no_grad
+        out = ops.segment_max(xr, ids, n)
+    return (lambda: torch.autograd.grad(out, xr, g, retain_graph=True)[0],
+            out.detach())
+
+
+def max_bwd_library(x: torch.Tensor, ids: torch.Tensor, n: int,
+                    g: torch.Tensor):
+    """The one PyTorch call that computes the segment max's backward:
+    ``torch.autograd.grad`` through one amax ``scatter_reduce`` with
+    ``include_self=False`` (dropped ids sent to a spare row whose cotangent
+    is 0), whose backward splits a segment's cotangent evenly among its
+    ties; the graph is built untimed."""
+    idx = torch.where(ids < n, ids, n).long()[:, None].expand(-1, x.shape[1])
+    xr = x.detach().requires_grad_()
+    gs = torch.cat([g, g.new_zeros(1, g.shape[1])])
+    with torch.enable_grad():
+        out = xr.new_zeros((n + 1, x.shape[1])).scatter_reduce(
+            0, idx, xr, "amax", include_self=False)
+    return lambda: torch.autograd.grad(out, xr, gs, retain_graph=True)[0]
+
+
+def segment_max_bwd_forms(dev, b) -> list[tuple]:
+    """Row 5's backward in float32 and bf16 at bucket ``b``, as
+    ``segment_max_forms`` gives the forward: the one launch the main path
+    makes, on the bounds that the forward's kernel found, first held bit
+    for bit to the path's own call (``max_bwd_autograd``) and then timed
+    alone (the autograd engine's host cost is not the kernel's); exact
+    against the composed plain rule on the forward's result. Bytes: the
+    valid rows, the ids, out and g, the bounds (2 int32 a segment), and
+    (added by ``_compare``) all of d; operations: a compare an element of
+    the valid rows and a divide an element of g."""
+    from bignn_tpu_torch import ops
+    from bignn_tpu_torch.ops import segment
+
+    forms = []
+    for dt in (torch.float32, torch.bfloat16):
+        x, ids, s, g, rows = max_bwd_inputs(dev, b, dt)
+        path, out = max_bwd_autograd(x, ids, s, g)
+        _, bounds = segment._segment_max_cuda(x, ids, s)
+
+        def kernel(x=x, out=out, g=g, bounds=bounds):
+            return segment._segment_max_bwd_cuda(x, ids, out, g, s, bounds,
+                                                 saved=True)
+
+        name = f"segment_max_bwd:{'f32' if dt == torch.float32 else 'bf16'}"
+        if not torch.equal(kernel(), path()):
+            raise AssertionError(f"{name}: the launch on the forward "
+                                 "kernel's bounds is not autograd's")
+        forms.append((
+            name, kernel,
+            lambda x=x, out=out, g=g: ops.segment_max_bwd_plain(x, ids, out,
+                                                                g, s),
+            max_bwd_library(x, ids, s, g), 0.0,
+            nbytes(x[:rows], ids, out, g) + 8 * s, (rows + s) * 128))
     return forms
 
 

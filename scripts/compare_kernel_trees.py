@@ -3,6 +3,7 @@ one run on one card, so that a change to a kernel source can be told apart
 from the spread between runs.
 
     python3 scripts/compare_kernel_trees.py [--only PREFIX[,PREFIX ...]] ROOT [ROOT ...]
+    python3 scripts/compare_kernel_trees.py --steps ROOT [ROOT ...]
 
 Each ROOT is a checkout of this repository. Each is timed in a process of
 its own that imports ``bignn_tpu_torch`` from that ROOT (and so builds that
@@ -39,7 +40,11 @@ The forms, at the shapes ``chip_smoke.py`` gives them:
   outer mask (N 1,704), H 4, D 32, the backward's ``lse`` and ``out`` from
   the plain forward on the CPU;
 - rows 5-7: ``segment_max:{f32,bf16}`` on the largest bucket of the
-  DrugBank stand-in, F 128; ``spmm_sorted_coo{,_bwd}:f32{,:weighted}`` on
+  DrugBank stand-in, F 128, and its backward as the main path runs it,
+  ``segment_max_bwd:{f32,bf16}:autograd``: ``torch.autograd.grad`` through
+  ``ops.segment_max`` (``chip_smoke.max_bwd_autograd``), which exists in
+  every tree, so a tree from before the backward's kernel is timed on its
+  composed route; ``spmm_sorted_coo{,_bwd}:f32{,:weighted}`` on
   the largest bucket of the stand-in with molecules up to 160 atoms, F 128
   unweighted, F 64 weighted; ``spmm_sorted_coo{,_bwd}:bf16{,:weighted}``
   the same at path E's batch 0 (config4 host-sampled, 4.1M edge slots);
@@ -84,6 +89,14 @@ operations it must do, counted as ``chip_smoke.py`` counts them (rows 3 and
 3b are bound by operations). ``digest``: a hash of the kernel's output bits;
 after the last ROOT a line ``same_bits`` lists, per form, whether every ROOT
 gave the same bits.
+
+``--steps`` times instead path C's training step in each ROOT (config2 with
+``readout="max"`` on the DrugBank stand-in, as ``chip_smoke.py`` runs it),
+in float32 and in bf16: the median host-clock step up to a synchronize
+over 20 steps after 5 of warm-up, and a ``torch.profiler`` trace of 5 steps
+(device busy ms a step, the union of the device's intervals; device
+launches a step; the device ms a step of the segment max's kernels). One
+JSON line per ROOT.
 """
 
 from __future__ import annotations
@@ -106,11 +119,15 @@ DEVICE_REPS = 100  # launches of a form's calls stay below the queue's ~1,000
 # calls a form makes: its reps are divided
 CALLS = {"segment_sum:f32": 4, "block_adjacency:f32": 4,
          "block_adjacency:f32:weighted": 4, "spmm_sorted_coo:f32:hub": 2,
-         "spmm_sorted_coo_bwd:f32:hub": 2}
+         "spmm_sorted_coo_bwd:f32:hub": 2,
+         # the composed route of a tree from before the backward's kernel
+         # makes ~16 launches a call
+         "segment_max_bwd:f32:autograd": 4,
+         "segment_max_bwd:bf16:autograd": 4}
 SLEEP_CYCLES = 400_000_000  # ~0.2 s at the H100's 1.98 GHz boost clock
 # forms whose kernels are timed one by one
 TRACED = ("segment_softmax", "flash_gat_attention", "spmm_sorted_coo",
-          "block_spmm")
+          "block_spmm", "segment_max")
 
 
 def events_ms(fn, reps: int = REPS, warmup: int = WARMUP) -> float:
@@ -542,13 +559,29 @@ def cases(dev):
     # rows 5 and 7 as chip_smoke.py builds them: the segment max at the
     # largest bucket of the stand-in, the sorted-COO SpMM at the largest
     # bucket of the stand-in with molecules up to 160 atoms
+    bucket = largest(bucket_graphs(ds.molecules))
     for name, kernel, plain, library, tol, nb, _ in (
-            smoke().segment_max_forms(dev, largest(bucket_graphs(
-                ds.molecules)))
+            smoke().segment_max_forms(dev, bucket)
             + smoke().spmm_forms(largest(bucket_graphs(load_dataset(
                 "drugbank", max_atoms=160).molecules)).to(dev))):
         IN_BYTES[name] = nb
         out.append((name, kernel, plain, library, tol))
+    # row 5's backward through autograd, against the composed plain rule:
+    # segment_max_bwd_plain, or in a tree from before it the composed
+    # segment_max_bwd (its tie counts by the segment-sum kernel, integer
+    # sums: the same bits)
+    from bignn_tpu_torch.ops import segment
+    plain_bwd = getattr(segment, "segment_max_bwd_plain",
+                        segment.segment_max_bwd)
+    for t, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        x, ids, s, g, rows = smoke().max_bwd_inputs(dev, bucket, dtype)
+        kernel, o = smoke().max_bwd_autograd(x, ids, s, g)
+        name = f"segment_max_bwd:{t}:autograd"
+        IN_BYTES[name] = nbytes(x[:rows], ids, o, g) + 8 * s
+        out.append((name, kernel,
+                    lambda x=x, ids=ids, s=s, g=g, o=o: plain_bwd(x, ids, o,
+                                                                  g, s),
+                    smoke().max_bwd_library(x, ids, s, g), 0.0))
 
     b = largest(bucket_graphs(load_dataset(
         "synthetic-large", num_drugs=16384).molecules)).to(dev)
@@ -691,6 +724,71 @@ def run_one(root: str, inputs: Path, only: tuple[str, ...] = ()) -> dict:
                 fails=[k for k, v in forms.items() if "fails" in v])
 
 
+def run_steps(root: str) -> dict:
+    """Path C's step, float32 and bf16, with the ``bignn_tpu_torch`` of
+    ``root`` (see ``--steps``)."""
+    sys.path.insert(0, root)
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    import bignn_tpu_torch
+    from bignn_tpu_torch.config import get_config
+    from bignn_tpu_torch.data import load_dataset, prepare_device_data
+    from bignn_tpu_torch.models import BiGNN
+    from bignn_tpu_torch.ops import cuda_lib
+    from bignn_tpu_torch.train import Trainer
+
+    pkg = Path(bignn_tpu_torch.__file__).resolve().parent
+    if pkg.parent != Path(root).resolve():
+        raise SystemExit(f"imported {pkg}, not the package under {root}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    cuda_lib.build()
+    cfg = get_config("config2")
+    data = prepare_device_data(load_dataset("drugbank"))
+    batches = smoke()._epoch_batches(data, cfg.train)
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        model = dataclasses.replace(cfg.model, readout="max", dtype=dtype)
+        trainer = Trainer(BiGNN(model), data, cfg.train, device=dev)
+        trainer.init(SEED)
+
+        def step(i):
+            pairs, mask = batches[i % len(batches)]
+            trainer.train_step(pairs, mask, 0, i)
+
+        for i in range(5):
+            step(i)
+        secs = []
+        for i in range(20):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(i)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for i in range(5):
+                step(i)
+            torch.cuda.synchronize()
+        device = [e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA]
+        busy = smoke()._busy_ms((e.time_range.start, e.time_range.end)
+                                for e in device)
+        seg = sum(e.time_range.end - e.time_range.start for e in device
+                  if re.search(r"max_segments|max_bwd|MaxOp", e.name))
+        out[dtype] = dict(median_ms=float(np.median(secs)) * 1e3,
+                          min_ms=min(secs) * 1e3,
+                          device_busy_ms=busy / 5,
+                          launches=len(device) / 5,
+                          segment_max_kernels_ms=seg / 1e3 / 5)
+    return dict(root=str(Path(root).resolve()), steps=out)
+
+
 def _child(*args: str) -> str:
     out = subprocess.run([sys.executable, __file__, *args],
                          capture_output=True, text=True, timeout=900)
@@ -704,12 +802,18 @@ def main() -> int:
     if len(sys.argv) == 4 and sys.argv[1] == "--inputs":
         build_inputs(sys.argv[2], Path(sys.argv[3]))
         return 0
+    if len(sys.argv) == 3 and sys.argv[1] == "--step-one":
+        print(json.dumps(run_steps(sys.argv[2])), flush=True)
+        return 0
     if len(sys.argv) in (4, 5) and sys.argv[1] == "--one":
         only = tuple(sys.argv[4].split(",")) if len(sys.argv) == 5 else ()
         result = run_one(sys.argv[2], Path(sys.argv[3]), only)
         print(json.dumps(result), flush=True)
         return 1 if result["fails"] else 0
     roots, only = sys.argv[1:], []
+    steps = roots[:1] == ["--steps"]
+    if steps:
+        roots = roots[1:]
     if roots[:1] == ["--only"]:
         only, roots = roots[1:2], roots[2:]
     if not roots:
@@ -719,6 +823,11 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip()
     print(f"card: {card}", flush=True)
+    if steps:
+        for root in roots:
+            print(_child("--step-one", root).strip().splitlines()[-1],
+                  flush=True)
+        return 0
     t0 = time.perf_counter()
     _child("--inputs", roots[0], str(INPUTS))
     print(f"inputs: {time.perf_counter() - t0:.1f} s -> {INPUTS}", flush=True)

@@ -40,6 +40,13 @@ values V, in this order:
   the 301,312-row bucket of synthetic-large cut to 16,384 drugs, F 128:
   float32, float32 weighted, bf16 weighted (the weighted bf16 form value
   by value, ``chip_smoke.BF16_WEIGHTED``);
+- ``smx``: the segment max (``csrc/segment_max.cu`` on the walk of
+  ``csrc/segment_walk.cuh``, whose constants these are): ``kUnroll`` (the
+  most rows a lane has in flight), ``kMaxWarps`` (the most warps that share
+  a segment), over path C's largest bucket (the DrugBank stand-in's
+  readout ids, 22,656 rows into 423 molecules), F 128, f32 and bf16: the
+  forward, and the backward as autograd calls it (on bounds found
+  beforehand); exact;
 - ``spr``: the sorted-COO SpMM (``csrc/spmm.cu``, ``spmm_rows`` and
   ``spmm_long``): ``kInFlightWide``, ``kInFlightNarrow`` (rows a lane
   loads at once in the row pass where a row fills the warp, where it
@@ -198,6 +205,23 @@ def call_spr(entries, t, x, src, dst, weight, n_out, perm=None, srt=None):
                         x.shape[1], first.data_ptr(), last.data_ptr(),
                         scratch.data_ptr(), out.data_ptr(), _stream())
     return rc, (out,)
+
+
+def call_smx(entries, t, x, ids, n, out=None, g=None, first=None,
+             last=None):
+    """The segment max forward (no ``out``), or its backward on the bounds
+    ``first``, ``last`` (saved)."""
+    e, f = x.shape
+    if out is None:
+        res = torch.empty((n, f), dtype=x.dtype, device=x.device)
+        first, last = _bounds(n, x.device)
+        return entries[t](x.data_ptr(), ids.data_ptr(), e, f, n,
+                          first.data_ptr(), last.data_ptr(), res.data_ptr(),
+                          _stream()), (res,)
+    d = torch.empty_like(x)
+    return entries[t](x.data_ptr(), ids.data_ptr(), out.data_ptr(),
+                      g.data_ptr(), e, f, n, first.data_ptr(),
+                      last.data_ptr(), 1, d.data_ptr(), _stream()), (d,)
 
 
 def _graphs(dev) -> dict:
@@ -401,6 +425,27 @@ def spr_cases(graphs) -> list:
     return out
 
 
+def smx_cases(graphs) -> list:
+    """(tag, arguments, plain result) of the segment max at path C's
+    largest bucket, F 128: the forward and the backward, f32 and bf16."""
+    dev = graphs["outer"]["dst"].device
+    ids, s = max(torch.load(ckt.INPUTS)["buckets"], key=lambda b: len(b[0]))
+    ids = ids.to(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x32 = torch.randn(len(ids), 128, device=dev, generator=gen)
+    g32 = torch.randn(s, 128, device=dev, generator=gen)
+    bounds = segment_bounds_plain(ids, s)
+    out = []
+    for tag, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        x, g = x32.to(dtype), g32.to(dtype)
+        o = ops.segment_max_plain(x, ids, s)
+        out.append((tag, (x, ids, s), (o,)))
+        out.append(("bwd" if tag == "f32" else "bwd_bf16",
+                    (x, ids, s, o, g, *bounds),
+                    (ops.segment_max_bwd_plain(x, ids, o, g, s),)))
+    return out
+
+
 class Kind(NamedTuple):
     source: str
     constants: tuple[str, ...]
@@ -410,6 +455,7 @@ class Kind(NamedTuple):
     cases: object  # graphs -> [(tag, arguments, plain result)]
     types: tuple[str, ...] = ("f32", "bf16")  # entry points bound, by type
     tol: object = None  # tag -> (tolerance, per value), if not the default
+    build: str = ""  # the source compiled, where not `source` (a header)
 
 
 KINDS = {
@@ -448,6 +494,10 @@ KINDS = {
                 ("f32", "bf16"),
                 lambda tag: (ckt.smoke().BF16_WEIGHTED if "bf16" in tag
                              else (ckt.F32_TOL, False))),
+    "smx": Kind("segment_walk.cuh", ("kUnroll", "kMaxWarps"),
+                "(?:reduce_segments|max_bwd)", "bignn_segment_max_",
+                call_smx, smx_cases, ("f32", "bf16", "bwd_f32", "bwd_bf16"),
+                lambda tag: (0.0, False), "segment_max.cu"),
     "spr": Kind("spmm.cu",
                 ("kInFlightWide", "kInFlightNarrow", "kInFlightLong",
                  "kRowWarps", "kLongMin", "kSharePerSlot", "kFillSlots",
@@ -476,8 +526,8 @@ def start_variant(kind: str, values: tuple[int, ...]):
     lib = out / "libprobe.so"
     proc = subprocess.Popen(
         [cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS, "-shared", "-o", str(lib),
-         str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-        text=True)
+         str(out / "csrc" / (k.build or k.source))],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     return proc, lib
 
 

@@ -1120,6 +1120,33 @@ def _streaming_cases(device):
 
     for feat in (128, 32, 3):
         block_cases(f"f{feat}", feat, False, False)
+    # the segment max's cotangents and its non-finite case draw from
+    # generators of their own, so that rng's draws stay as they were
+    grng = np.random.default_rng(21)
+
+    def max_cases(tag, x, i, n, op_call=False):
+        """The segment max forward and its backward at data x, ids i, n
+        segments: from autograd (one launch on the forward's bounds) and,
+        with ``op_call``, the op's own call (its bounds pass, then the same
+        kernel); each against the composed plain rule."""
+        g = torch.from_numpy(grng.standard_normal(
+            (n,) + tuple(x.shape[1:])).astype(np.float32)).to(x.device,
+                                                              x.dtype)
+        cases[f"segment_max_{tag}"] = (
+            lambda: ops.segment_max(x, i, n),
+            lambda: ops.segment_max_plain(x, i, n))
+        plain = (lambda: ops.segment_max_bwd_plain(
+            x, i, ops.segment_max_plain(x, i, n), g, n))
+        cases[f"segment_max_bwd_{tag}"] = (
+            lambda: _max_vjp(x, i, n, g), plain)
+        if op_call:
+            def op(x=x, i=i, n=n, g=g):
+                out = ops.segment_max_plain(x, i, n)
+                _dirty(x)
+                return ops.segment_max_bwd(x, i, out, g, n)
+
+            cases[f"segment_max_bwd_op_{tag}"] = (op, plain)
+
     for tag, n_seg, ids, feat in (
             ("holes_f128", 60, _hole_ids(rng, 60), 128),
             ("holes_f130", 60, _hole_ids(rng, 60), 130),
@@ -1127,18 +1154,16 @@ def _streaming_cases(device):
                 [rng.integers(0, 47, 700), np.full(20, 50)])), 8)):
         x, i = _on(device, (rng.integers(-4, 5, (len(ids), feat)) / 2).astype(
             np.float32), ids.astype(np.int32))  # many ties
-        cases[f"segment_max_{tag}"] = (
-            lambda x=x, i=i, n=n_seg: ops.segment_max(x, i, n),
-            lambda x=x, i=i, n=n_seg: ops.segment_max_plain(x, i, n))
+        max_cases(tag, x, i, n_seg, op_call=tag == "holes_f128")
         if tag.startswith("holes"):  # bf16 pairs (F 128, 130)
-            cases[f"segment_max_bf16_{tag}"] = (
-                lambda x=x.to(bf), i=i, n=n_seg: ops.segment_max(x, i, n),
-                lambda x=x.to(bf), i=i, n=n_seg: ops.segment_max_plain(x, i,
-                                                                       n))
+            max_cases(f"bf16_{tag}", x.to(bf), i, n_seg,
+                      op_call=tag == "holes_f130")
     x1, i1 = _on(device, rng.standard_normal(300).astype(np.float32),
                  np.sort(rng.integers(0, 30, 300)).astype(np.int32))
-    cases["segment_max_1d"] = (lambda: ops.segment_max(x1, i1, 30),
-                               lambda: ops.segment_max_plain(x1, i1, 30))
+    max_cases("1d", x1, i1, 30)
+    x, i = _on(device, *_nonfinite_max_inputs(np.random.default_rng(22)))
+    for dt, name in ((torch.float32, ""), (bf, "bf16_")):
+        max_cases(f"{name}nonfinite_f128", x.to(dt), i, 60)
     # the bf16 tensor-core widths: one n-tile pair (8), whole chunks (64,
     # 256: two), a chunk and a tail (136); a dense block and a repeated pair
     for feat in BLOCK_BF16_FEATS:
@@ -1150,12 +1175,37 @@ def _streaming_cases(device):
     ids = _hole_ids(rng, 60)
     x, i = _on(device, rng.standard_normal((len(ids), 128)).astype(
         np.float32), ids)
-    for dt, name in ((torch.float32, ""), (bf, "_bf16")):
-        xo = _off16(x.to(dt))
-        cases[f"segment_max{name}_unaligned"] = (
-            lambda xo=xo: ops.segment_max(xo, i, 60),
-            lambda xo=xo: ops.segment_max_plain(xo, i, 60))
+    for dt, name in ((torch.float32, ""), (bf, "bf16_")):
+        max_cases(f"{name}unaligned", _off16(x.to(dt)), i, 60)
     return cases
+
+
+def _max_vjp(x, ids, n, g):
+    """``d_x`` of ``ops.segment_max(x, ids, n)`` for the cotangent ``g``,
+    through autograd, as the max readout's backward runs; NaN left in the
+    allocator's block that d takes, so that a row the kernel leaves
+    unwritten does not read as 0."""
+    with torch.enable_grad():
+        xr = x.detach().requires_grad_()
+        out = ops.segment_max(xr, ids, n)
+        _dirty(x)
+        return torch.autograd.grad(out, xr, g)[0]
+
+
+def _nonfinite_max_inputs(rng):
+    """Hole-interleaved ids over 60 segments, F 128, values on a coarse grid
+    (0s among them), and segments whose max is NaN (0, 4), +inf (1) or
+    -inf (2: every row), stored as 0: their rows equal to 0 share the
+    cotangent (the composed rule's compare against the stored max)."""
+    ids = _hole_ids(rng, 60)
+    x = (rng.integers(-4, 5, (len(ids), 128)) / 2).astype(np.float32)
+    for s, v in ((0, np.nan), (1, np.inf), (2, -np.inf), (4, np.nan)):
+        rows = np.flatnonzero(ids == s)
+        x[rows] = -np.inf if v == -np.inf else -1.0
+        x[rows[0], :64] = v
+        if v != -np.inf:
+            x[rows[-1], 32:] = 0.0
+    return x, ids
 
 
 STREAMING_BF16_TAGS = ("f128", "f64", "f3", "f130", "unsorted_f32")
@@ -1171,10 +1221,11 @@ STREAMING_CASES = [
       for t in ("f128", "f32", "f3", "dense") if not (d and t == "f32")),
     *(f"block_spmm{b}{w}_bf16_f{f}" for b in ("", "_bwd")
       for w in ("", "_weighted") for f in BLOCK_BF16_FEATS),
-    *(f"segment_max_{t}" for t in ("holes_f128", "holes_f130", "shuffled_f8",
-                                   "1d")),
-    "segment_max_bf16_holes_f128", "segment_max_bf16_holes_f130",
-    "segment_max_unaligned", "segment_max_bf16_unaligned"]
+    *(f"segment_max{b}_{t}" for b in ("", "_bwd")
+      for t in ("holes_f128", "holes_f130", "shuffled_f8", "1d",
+                "bf16_holes_f128", "bf16_holes_f130", "nonfinite_f128",
+                "bf16_nonfinite_f128", "unaligned", "bf16_unaligned")),
+    "segment_max_bwd_op_holes_f128", "segment_max_bwd_op_bf16_holes_f130"]
 
 
 def test_streaming_case_names_are_complete():
@@ -1185,7 +1236,7 @@ def test_streaming_plain_cases_run_on_cpu():
     """On CPU tensors each wrapper takes its plain version: both calls of a
     case agree exactly, and no launch is counted."""
     counted = (ops.spmm_sorted_coo, ops.spmm_sorted_coo_bwd, ops.block_spmm,
-               ops.block_spmm_bwd, ops.segment_max)
+               ops.block_spmm_bwd, ops.segment_max, ops.segment_max_bwd)
     before = [k.launches for k in counted]
     for name, (kernel, plain) in _streaming_cases("cpu").items():
         assert torch.equal(kernel(), plain()), name
@@ -1199,11 +1250,15 @@ def test_streaming_kernel_matches_plain_on_card(cuda_device, case):
     got, want = kernel(), plain()
     torch.cuda.synchronize()
     assert got.dtype == want.dtype, case
-    if case.startswith("segment_max_bf16"):  # a max of bf16 values: exact
-        assert torch.equal(got, want), case
+    if case.startswith("segment_max"):
+        # a max is one of its inputs, and its backward does the composed
+        # rule's operations (an integer count, one float32 divide): the
+        # same bits, the sign of every 0 included
+        bits = torch.int32 if got.dtype == torch.float32 else torch.int16
+        assert got.shape == want.shape, case
+        assert torch.equal(got.view(bits), want.view(bits)), case
         return
-    tol = (BF16_TOL if "_bf16" in case else
-           TOL if case.startswith("segment_max") else GRAD_TOL)
+    tol = BF16_TOL if "_bf16" in case else GRAD_TOL
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(), **tol,
                                err_msg=case)
@@ -1237,7 +1292,10 @@ def test_streaming_kernels_repeat_bit_for_bit_and_count(cuda_device):
             ("block_spmm_bwd", "block_spmm_bwd_bf16_f3", "bf16"),
             ("block_spmm_bwd", "block_spmm_bwd_weighted_bf16_f128",
              "bf16:weighted"),
-            ("segment_max", "segment_max_bf16_holes_f130", "bf16")):
+            ("segment_max", "segment_max_bf16_holes_f130", "bf16"),
+            ("segment_max_bwd", "segment_max_bwd_holes_f128", "f32"),
+            ("segment_max_bwd", "segment_max_bwd_op_bf16_holes_f130",
+             "bf16")):
         fn = getattr(ops, op)
         before = fn.launches_by_dtype.get(key, 0)
         a, b = cases[case][0](), cases[case][0]()
@@ -1252,7 +1310,8 @@ def test_streaming_kernels_repeat_bit_for_bit_and_count(cuda_device):
 def test_streaming_autograd_through_kernels_on_card(cuda_device, op):
     """The autograd Functions on CUDA tensors: gradients (of x and of the
     weights) equal the plain versions' autograd, and the backward kernel
-    runs (segment max: its tie counts through the segment-sum kernel)."""
+    runs once (segment max: its one launch on the forward's bounds, and no
+    segment sum)."""
     rng = np.random.default_rng(12)
     if op == "spmm_sorted_coo":
         src, dst, perm, ssorted = _on(cuda_device, *_edge_list(rng, 60, 900))
@@ -1280,12 +1339,13 @@ def test_streaming_autograd_through_kernels_on_card(cuda_device, op):
         inputs = [x.requires_grad_()]
         kernel = lambda a: ops.segment_max(a, ids_t, 60)  # noqa: E731
         plain = lambda a: ops.segment_max_plain(a, ids_t, 60)  # noqa: E731
-        bwd = ops.segment_sum
+        bwd = ops.segment_max_bwd
     out = kernel(*inputs)
     g = torch.randn(out.shape, device=cuda_device)
-    before = bwd.launches
+    before, sums = bwd.launches, ops.segment_sum.launches
     got = torch.autograd.grad((out * g).sum(), inputs)
     assert bwd.launches == before + 1
+    assert ops.segment_sum.launches == sums
     want = torch.autograd.grad((plain(*inputs) * g).sum(), inputs)
     torch.cuda.synchronize()
     for a, b in zip(got, want):
@@ -1301,6 +1361,13 @@ def test_streaming_kernels_refuse_on_card(cuda_device):
         ops.spmm_sorted_coo(half, ids, ids, None, 16)
     with pytest.raises(NotImplementedError, match="float32 or bfloat16"):
         ops.segment_max(half, ids, 4)
+    x8 = torch.zeros(16, 8, device=cuda_device)
+    with pytest.raises(NotImplementedError, match="float32 or bfloat16"):
+        ops.segment_max_bwd(half, ids, half[:4], half[:4], 4)
+    with pytest.raises(ValueError, match="g must be"):
+        ops.segment_max_bwd(x8, ids, x8[:4], half[:4], 4)
+    with pytest.raises(ValueError, match="out"):
+        ops.segment_max_bwd(x8, ids, x8[:3], x8[:4], 4)
     x = torch.zeros(128, 8, device=cuda_device)
     with pytest.raises(ValueError, match="int32"):
         ops.spmm_sorted_coo(x, ids.long(), ids, None, 16)
@@ -1353,7 +1420,7 @@ def test_streaming_train_step_on_card(cuda_device, route, monkeypatch):
 
     kernels = {"spmm": (ops.spmm_sorted_coo, ops.spmm_sorted_coo_bwd),
                "block_spmm": (ops.block_spmm, ops.block_spmm_bwd),
-               "segment_max": (ops.segment_max,)}[route]
+               "segment_max": (ops.segment_max, ops.segment_max_bwd)}[route]
     before = [k.launches for k in kernels]
     got = step()
     assert all(k.launches > b for k, b in zip(kernels, before))
