@@ -11,9 +11,12 @@ It keeps the JAX package's module layout:
               adjacency also int8/int16 counts) with a plain PyTorch
               version; autograd Functions where gradients flow
   - models/   GIN / GAT / GCN convs, readout, pair scorers, BiGNN, loss
-  - train/    the full-graph Trainer, the hierarchical MinibatchTrainer,
-              AUC/AP metrics, checkpoints
-  - serve.py  the offline-encode / online-scoring server
+  - train/    the full-graph Trainer, the hierarchical MinibatchTrainer
+              (sampled and exact evaluation), AUC/AP metrics, checkpoints
+  - parallel/ the edge-partitioned (p2) step over graph shards
+  - utils/    metric logging, profiling
+  - run.py    the experiment CLI (full, minibatch, p2)
+  - serve.py  the offline-encode / online-scoring server and its CLI
   - prng.py   jax.random's threefry draws, so a seed means the same run
   - bridge.py JAX parameter trees -> PyTorch state dicts
 

@@ -3,7 +3,11 @@ schema, the synthetic generator, the registry, and the hierarchical
 samplers of configs 3-4 (``hierarchical`` on the host, ``device_sampler``
 on the card)."""
 
-from bignn_tpu_torch.data.datasets import load_dataset, load_npz_cache
+from bignn_tpu_torch.data.datasets import (
+    load_dataset,
+    load_npz_cache,
+    save_npz_cache,
+)
 from bignn_tpu_torch.data.device_sampler import DeviceSampler
 from bignn_tpu_torch.data.hierarchical import (
     CompactBatch,
@@ -30,4 +34,5 @@ __all__ = [
     "make_synthetic_ddi",
     "prepare_device_data",
     "random_split",
+    "save_npz_cache",
 ]

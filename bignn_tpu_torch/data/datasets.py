@@ -5,13 +5,14 @@
   * ``ddi-sample`` — the in-repo real drugs and interactions
     (``data/real_sample.py``; config2-real).
   * ``synthetic-large`` — 100K generated drugs (config4; scale via kwargs).
-  * ``drugbank`` / ``biosnap`` — ``<root>/<name>.npz`` when present, else a
-    generated stand-in with the dataset's size (~1.7K / ~1.5K drugs).
+  * ``drugbank`` / ``biosnap`` — ``<root>/<name>.npz`` when present; else a
+    raw reference cache at ``<root>/<name>{.pkl,.pickle,/}``, converted to
+    ``<root>/<name>.npz`` once (``data/convert.py``); else a generated
+    stand-in with the dataset's size (~1.7K / ~1.5K drugs).
 
 The ``.npz`` schema is the JAX package's (``edges``, ``mol_ptr``,
 ``mol_feat``, ``mol_edge_ptr``, ``mol_src``, ``mol_dst``, optional split
-indices). Still to port (ROADMAP Queue 1 item 6): conversion of raw
-reference caches.
+indices).
 """
 
 from __future__ import annotations
@@ -56,6 +57,23 @@ def load_npz_cache(path: str, name: str, seed: int = 0) -> DDIDataset:
                       train_idx=tr, val_idx=va, test_idx=te)
 
 
+def save_npz_cache(ds: DDIDataset, path: str) -> None:
+    mol_ptr = np.cumsum([0] + [m.num_nodes for m in ds.molecules])
+    mol_edge_ptr = np.cumsum([0] + [m.num_edges for m in ds.molecules])
+    np.savez_compressed(
+        path,
+        edges=ds.edges,
+        mol_ptr=mol_ptr.astype(np.int64),
+        mol_feat=np.concatenate([m.node_feat for m in ds.molecules], axis=0),
+        mol_edge_ptr=mol_edge_ptr.astype(np.int64),
+        mol_src=np.concatenate([m.src for m in ds.molecules]),
+        mol_dst=np.concatenate([m.dst for m in ds.molecules]),
+        train_idx=ds.train_idx,
+        val_idx=ds.val_idx,
+        test_idx=ds.test_idx,
+    )
+
+
 def load_dataset(
     name: str,
     data_root: str | None = None,
@@ -89,10 +107,10 @@ def load_dataset(
                     os.path.join(data_root, f"{name}.pickle"),
                     os.path.join(data_root, name)):
             if os.path.exists(raw):
-                raise NotImplementedError(
-                    f"raw reference cache {raw!r}: conversion is still to "
-                    "port (ROADMAP Queue 1 item 6); convert it to .npz with "
-                    "bignn_tpu.data.convert")
+                from bignn_tpu_torch.data.convert import (
+                    convert_reference_cache)
+
+                return convert_reference_cache(raw, path, name, seed)
         kw = dict(_STANDIN_SPECS[name])
         kw.update(overrides)
         return make_synthetic_ddi(seed=seed, name=f"{name}-standin", **kw)

@@ -40,6 +40,20 @@ class DDIDataset:
                "test": self.test_idx}[split]
         return self.edges[idx]
 
+    def stats(self) -> dict:
+        n_nodes = [m.num_nodes for m in self.molecules]
+        n_edges = [m.num_edges for m in self.molecules]
+        return {
+            "num_drugs": self.num_drugs,
+            "num_ddi_edges": int(self.edges.shape[0]),
+            "feat_dim": self.feat_dim,
+            "inner_nodes_total": int(np.sum(n_nodes)),
+            "inner_edges_total": int(np.sum(n_edges)),
+            "inner_nodes_max": int(np.max(n_nodes)),
+            "train/val/test": (len(self.train_idx), len(self.val_idx),
+                               len(self.test_idx)),
+        }
+
 
 @dataclasses.dataclass
 class DeviceData:

@@ -258,7 +258,8 @@ class DotAttnConv(nn.Module):
             e = torch.einsum("dhf,shf->dsh", q.float(), k.float()) / scale
             agg = _dense_masked_softmax_agg(e, dense[1], v, x.dtype)
         elif edge_src is not None:
-            e = ops.sddmm(q, k, edge_src, edge_dst).float() / scale  # [E, H]
+            e = ops.sddmm(q, k, edge_src, edge_dst, src_perm,
+                          src_sorted).float() / scale  # [E, H]
             alpha = ops.segment_softmax(e, edge_dst, num_nodes)
             agg = ops.spmm_multihead(v, edge_src, edge_dst,
                                      alpha.to(x.dtype), num_nodes,

@@ -8,9 +8,17 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from bignn_tpu_torch import prng
+from bignn_tpu_torch import ops, prng
 from bignn_tpu_torch.models.modules import MLP, prefixed
-from bignn_tpu_torch.ops import gather_rows
+
+
+def pair_rows(emb: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``emb[ids]`` (clipped) whose backward adds each drug's gradients in
+    the order of its pairs (``ops.sort_ids``), so that a seeded training
+    run repeats on the card (ROADMAP F7)."""
+    ids, perm, ids_sorted = ops.sort_ids(ids, emb.shape[0])
+    return ops.gather_rows_sorted_grad(emb, ids, perm=perm,
+                                       ids_sorted=ids_sorted)
 
 
 class DotScorer(nn.Module):
@@ -22,8 +30,8 @@ class DotScorer(nn.Module):
         return {}
 
     def forward(self, emb, pairs):
-        hu = gather_rows(emb, pairs[:, 0])
-        hv = gather_rows(emb, pairs[:, 1])
+        hu = pair_rows(emb, pairs[:, 0])
+        hv = pair_rows(emb, pairs[:, 1])
         return (hu * hv).sum(-1)
 
     def apply_one_vs_all(self, emb, u):
@@ -46,8 +54,8 @@ class MLPScorer(nn.Module):
         return self.mlp(feat)[..., 0]
 
     def forward(self, emb, pairs):
-        return self._score(gather_rows(emb, pairs[:, 0]),
-                           gather_rows(emb, pairs[:, 1]))
+        return self._score(pair_rows(emb, pairs[:, 0]),
+                           pair_rows(emb, pairs[:, 1]))
 
     def apply_one_vs_all(self, emb, u):
         # u's row broadcasts over every v: no [N, 2] pairs, no row gathers

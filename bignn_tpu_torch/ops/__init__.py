@@ -51,6 +51,7 @@ from bignn_tpu_torch.ops.gather import (
     gather_rows_sorted_grad_bwd_plain,
     gather_rows_sorted_grad_plain,
     permutation_scatter_rows,
+    sort_ids,
 )
 from bignn_tpu_torch.ops.multihead import (
     spmm_multihead,
@@ -98,6 +99,7 @@ __all__ = [
     "gather_rows_sorted_grad_bwd_plain",
     "gather_rows_sorted_grad_plain",
     "permutation_scatter_rows",
+    "sort_ids",
     "sddmm",
     "segment_max",
     "segment_max_bwd",

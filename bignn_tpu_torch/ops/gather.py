@@ -35,6 +35,20 @@ def gather_rows(table: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
     return table.index_select(0, idx)
 
 
+def sort_ids(indices: torch.Tensor, num_rows: int):
+    """``(ids, perm, ids_sorted)``, int32: ``indices`` clipped to ``[0,
+    num_rows)``, their stable sort permutation and the sorted ids, so that
+    ``gather_rows_sorted_grad(table, ids, perm=perm, ids_sorted=ids_sorted)``
+    is the clipped gather ``table[indices]`` for ids in any order, clipped
+    ids sending their gradient to the edge row as ``gather_rows``' do. Its
+    backward adds each row's gradients in the order of their positions;
+    autograd's backward of ``gather_rows`` adds them by float atomics on the
+    card, in no fixed order."""
+    ids = indices.clamp(0, num_rows - 1).int()
+    perm = torch.argsort(ids, stable=True).int()
+    return ids, perm, ids[perm.long()]
+
+
 def permutation_scatter_rows(values: torch.Tensor,
                              idx: torch.Tensor) -> torch.Tensor:
     """``out[idx[j]] = values[j]`` for a permutation ``idx``, computed as the

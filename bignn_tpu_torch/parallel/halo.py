@@ -43,8 +43,12 @@ Shards = Sequence[torch.Tensor]
 
 def _take(h: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``h[idx]`` for an index array of any shape, clipped
-    (``jnp.take(..., mode="clip")``)."""
-    rows = ops.gather_rows(h, idx.reshape(-1))
+    (``jnp.take(..., mode="clip")``); its backward adds a row's gradients
+    in the order of their slots (``ops.sort_ids``), so that a seeded run
+    repeats on the card (ROADMAP F7)."""
+    ids, perm, ids_sorted = ops.sort_ids(idx.reshape(-1), h.shape[0])
+    rows = ops.gather_rows_sorted_grad(h, ids, perm=perm,
+                                       ids_sorted=ids_sorted)
     return rows.view(*idx.shape, *h.shape[1:])
 
 
@@ -138,14 +142,13 @@ def _gat_attention(conv: GATConv, score_l, score_r, src, dst, num_out,
                    src_perm, src_sorted, remat: bool) -> torch.Tensor:
     """``alpha [E, H]``: the destination and source halves of the scores
     gathered per edge (sorted-grad gathers; the source one through the
-    plan's permutation), leaky ReLU, softmax per destination. ``remat``
-    recomputes it in the backward instead of keeping its ``[E, H]``
-    temporaries."""
+    plan's permutation where it has one), leaky ReLU, softmax per
+    destination. ``remat`` recomputes it in the backward instead of
+    keeping its ``[E, H]`` temporaries."""
     def attn(score_l, score_r):
         e_dst = ops.gather_rows_sorted_grad(score_l, dst)
-        e_src = (ops.gather_rows(score_r, src) if src_perm is None
-                 else ops.gather_rows_sorted_grad(
-                     score_r, src, perm=src_perm, ids_sorted=src_sorted))
+        e_src = ops.gather_rows_sorted_grad(score_r, src, perm=src_perm,
+                                            ids_sorted=src_sorted)
         e = F.leaky_relu(e_dst + e_src, conv.negative_slope)
         return ops.segment_softmax(e, dst, num_out)
 

@@ -10,11 +10,27 @@
 The encode uses the bucketed block-local layout of ``sparse/``, uploaded by
 ``models.bignn.upload_buckets``: each bucket's edge list and block ranges go
 up and its block adjacency is built on the device by the
-``block_adjacency`` kernel. Still to port (ROADMAP Queue 1 item 6): reading
-a JAX checkpoint (``from_checkpoint``) and the command line.
+``block_adjacency`` kernel. (The JAX Scorer encodes through
+``MinibatchTrainer.embed_all_exact``; both routes give the same exact
+embeddings.)
+
+Usage (library):
+    scorer = Scorer.from_checkpoint(cfg, ckpt_dir)   # or Scorer(model, ds, params)
+    scores = scorer.score_pairs(pairs)               # [P] logits
+    ids, s = scorer.top_k(drug_id, k=20)             # best candidate partners
+
+CLI, over a run's checkpoints (``python -m bignn_tpu_torch.run ...
+--run-dir R --checkpoint-every 1`` writes them to ``R/ckpt``; a JAX run's
+go through ``scripts/convert_jax_checkpoint.py`` first):
+    python -m bignn_tpu_torch.serve --config config2 --ckpt R/ckpt \
+        --pairs pairs.npy --out scores.npy
+    python -m bignn_tpu_torch.serve --config config2 --ckpt R/ckpt \
+        --topk 42 --k 20
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -61,6 +77,27 @@ class Scorer:
             torch.argsort(u, stable=True)]
         self._kmax = max(int(deg.max()), 1)
         self.refresh(params)
+
+    @classmethod
+    def from_checkpoint(cls, cfg, ckpt_dir: str, chunk: int = 65536,
+                        use_best: bool = True,
+                        device: str | torch.device = "cuda") -> "Scorer":
+        """A Scorer over the latest state in ``ckpt_dir`` (a
+        ``train.checkpoint.CheckpointManager`` directory): its best-val
+        parameters, or with ``use_best=False`` the last ones. ``cfg`` is an
+        ``ExperimentConfig`` (``config.get_config``) naming the dataset and
+        the model."""
+        from bignn_tpu_torch.data import load_dataset
+        from bignn_tpu_torch.models import BiGNN
+        from bignn_tpu_torch.train.checkpoint import CheckpointManager
+
+        state = CheckpointManager(ckpt_dir).restore_state()
+        if state is None:
+            raise FileNotFoundError(f"no checkpoint under {ckpt_dir}")
+        ds = load_dataset(cfg.dataset, **cfg.dataset_kwargs)
+        model = BiGNN(dataclasses.replace(cfg.model, feat_dim=ds.feat_dim))
+        return cls(model, ds, state["best_params" if use_best else "params"],
+                   chunk=chunk, device=device)
 
     def refresh(self, params) -> None:
         """Load new parameters (a state dict) and re-embed every drug."""
@@ -120,3 +157,69 @@ class Scorer:
         partners. ``exclude_known`` also masks its train/val partners."""
         ids, scores = self.top_k_batch([drug_id], k, exclude_known)
         return ids[0], scores[0]
+
+
+def main(argv=None):
+    """Serve one request from a checkpoint and print one JSON line: the
+    ranking of ``--topk`` (one drug id, or a comma list for one batched
+    pass), or the scores of ``--pairs`` (``.npy``/``.npz`` ``[P, 2]``),
+    saved to ``--out``. Returns ``(ids, logits)`` or the scores."""
+    import argparse
+    import json
+
+    p = argparse.ArgumentParser()
+    p.add_argument("--config", required=True)
+    p.add_argument("--ckpt", required=True, help="CheckpointManager dir")
+    p.add_argument("--pairs", default=None,
+                   help=".npy/.npz [P, 2] int drug-id pairs to score")
+    p.add_argument("--out", default=None, help="output .npy for scores")
+    p.add_argument("--topk", default=None,
+                   help="rank partners for this drug id (or a comma list "
+                        "of ids for one batched pass) instead")
+    p.add_argument("--k", type=int, default=20)
+    p.add_argument("--exclude-known", action="store_true",
+                   help="mask train/val partners from rankings (surface "
+                        "NEW candidate interactions)")
+    p.add_argument("--last", action="store_true",
+                   help="use last params instead of best-val params")
+    p.add_argument("--device", default="cuda",
+                   help="torch device (default cuda; no CPU fallback)")
+    args = p.parse_args(argv)
+
+    from bignn_tpu_torch.config import get_config
+
+    scorer = Scorer.from_checkpoint(
+        get_config(args.config), args.ckpt, use_best=not args.last,
+        device=args.device)
+    if args.topk is not None:
+        drugs = [int(x) for x in str(args.topk).split(",")]
+        if len(drugs) == 1:
+            ids, scores = scorer.top_k(
+                drugs[0], args.k, exclude_known=args.exclude_known)
+        else:
+            ids, scores = scorer.top_k_batch(
+                drugs, args.k, exclude_known=args.exclude_known)
+        print(json.dumps({
+            "drug": drugs[0] if len(drugs) == 1 else drugs,
+            "candidates": ids.tolist(),
+            "logits": np.round(scores.astype(float), 4).tolist(),
+        }))
+        return ids, scores
+    if args.pairs is None:
+        raise SystemExit("need --pairs or --topk")
+    arr = np.load(args.pairs)
+    if hasattr(arr, "files"):  # npz
+        arr = arr[arr.files[0]]
+    scores = scorer.score_pairs(arr)
+    if args.out:
+        np.save(args.out, scores)
+    print(json.dumps({
+        "n": len(scores),
+        "mean_logit": round(float(scores.mean()), 4),
+        "out": args.out,
+    }))
+    return scores
+
+
+if __name__ == "__main__":
+    main()

@@ -5,7 +5,8 @@ file per step, ``step_<n>.pt``, through a temporary file and an atomic
 rename, and keeps the newest ``max_to_keep``. A state is any nest of dicts,
 lists, tensors and numbers: ``Trainer.fit`` saves parameters, optimizer
 state, best parameters and the epoch counter, which is all an exact resume
-needs. Reading a JAX (orbax) checkpoint is still to port (ROADMAP Queue 1).
+needs. A JAX (orbax) checkpoint is read by ``scripts/convert_jax_checkpoint.py``,
+which needs JAX and writes this format without the optimizer state.
 """
 
 from __future__ import annotations

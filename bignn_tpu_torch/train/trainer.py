@@ -20,9 +20,10 @@ repeats the uninterrupted one.
 each step trains on a sampled neighbourhood of its pair batch, drawn on the
 host (``data/hierarchical.py``) or on the card (``data/device_sampler.py``),
 and expanded on the card from molecule tables uploaded once, or (with
-``resident=False``) drawn whole on the host and uploaded each step.
-Still to port: the data-parallel ``mesh`` of both trainers (ROADMAP Queue 1
-item 5) and the exact evaluation of ``MinibatchTrainer`` (item 7).
+``resident=False``) drawn whole on the host and uploaded each step. Its
+exact evaluation encodes every molecule and propagates over the whole train
+graph, with no sampling. Still to port: the data-parallel ``mesh`` of both
+trainers (ROADMAP Queue 1 item 5).
 """
 
 from __future__ import annotations
@@ -52,7 +53,11 @@ from bignn_tpu_torch.data.sampler import (
 from bignn_tpu_torch.data.schema import DDIDataset, DeviceData
 from bignn_tpu_torch.models.bignn import BiGNN, upload_buckets
 from bignn_tpu_torch.models.loss import bce_with_logits_loss
-from bignn_tpu_torch.sparse.formats import OuterGraph, PaddedGraphBatch
+from bignn_tpu_torch.sparse.formats import (
+    OuterGraph,
+    PaddedGraphBatch,
+    build_outer_graph,
+)
 from bignn_tpu_torch.train.metrics import (
     average_precision,
     average_precision_torch,
@@ -189,13 +194,11 @@ class Trainer:
                                        cfg.seed)
         best = {"val_auc": -1.0, "params": self.params(), "epoch": -1}
         start_epoch = 0
-        if ckpt is not None:
-            restored = ckpt.restore_state()
-            if restored is not None:
-                params, opt_state, best, start_epoch = _unpack_fit_state(
-                    restored)
-                self.model.load_state_dict(params)
-                self.optimizer.load_state_dict(opt_state)
+        restored = _restore_fit_state(ckpt)
+        if restored is not None:
+            params, opt_state, best, start_epoch = restored
+            self.model.load_state_dict(params)
+            self.optimizer.load_state_dict(opt_state)
         history = []
         for epoch in range(start_epoch, cfg.epochs):
             t0 = time.perf_counter()
@@ -238,8 +241,20 @@ def _unpack_fit_state(state: dict):
             int(state["meta"]["epoch"]) + 1)
 
 
-_EXACT = ("exact (full-propagation) evaluation of MinibatchTrainer is still "
-          "to port (ROADMAP Queue 1 item 7)")
+def _restore_fit_state(ckpt):
+    """``_unpack_fit_state`` of ``ckpt``'s latest state, or None when there
+    is no manager or nothing saved. A state without optimizer state (a JAX
+    checkpoint converted by ``scripts/convert_jax_checkpoint.py``) serves
+    but cannot resume: Adam would restart from zero moments."""
+    state = None if ckpt is None else ckpt.restore_state()
+    if state is None:
+        return None
+    if state.get("opt_state") is None:
+        raise ValueError(
+            f"checkpoint in {ckpt.directory} has no optimizer state (as "
+            "scripts/convert_jax_checkpoint.py writes): it can be served "
+            "(Scorer.from_checkpoint) but not resumed")
+    return _unpack_fit_state(state)
 
 
 class MinibatchTrainer:
@@ -262,11 +277,13 @@ class MinibatchTrainer:
     float32 (the model casts them to its compute type); the optimizer is
     ``make_optimizer``'s Adam.
 
-    Left out: ``mesh`` (data parallelism, ROADMAP Queue 1 item 5) and
-    ``evaluate(exact=True)``, ``embed_all_exact`` and ``score_exact`` (item
-    7). ``device_sample`` needs resident tables and a block-local layout, as
-    in JAX. JAX's ``optimization_barrier`` fences have no counterpart:
-    PyTorch runs each op as written.
+    ``evaluate(exact=True)``, ``embed_all_exact`` and ``score_exact``
+    evaluate without sampling: every molecule encoded in fixed chunks, one
+    outer pass over the whole train graph. Left out: ``mesh`` (data
+    parallelism, ROADMAP Queue 1 item 5). ``device_sample`` needs resident
+    tables and a block-local layout, as in JAX. JAX's
+    ``optimization_barrier`` fences have no counterpart: PyTorch runs each
+    op as written.
     """
 
     def __init__(self, model: BiGNN, ds: DDIDataset, config: TrainConfig,
@@ -304,14 +321,7 @@ class MinibatchTrainer:
         self.setup_seconds["host_sampler"] = time.perf_counter() - t0
         self.optimizer = make_optimizer(self.model.parameters(), config)
         t0 = time.perf_counter()
-        self.tables: MoleculeTables | None = None
-        if resident:
-            tables = self.sampler.tables().to(self.device)
-            if model.compute_dtype == torch.bfloat16:
-                # bf16 feature table: half the expansion's gather bytes, and
-                # the inner convs' own type
-                tables.feat = tables.feat.to(torch.bfloat16)
-            self.tables = tables
+        self.tables = self._upload_tables() if resident else None
         if device_sample:
             t1 = time.perf_counter()
             self.dsampler = DeviceSampler(self.sampler)
@@ -326,6 +336,11 @@ class MinibatchTrainer:
             time.perf_counter() - t0
             - self.setup_seconds.get("device_sampler", 0.0))
         self._warned_ncap = False
+        # exact evaluation: a non-resident trainer's tables, built at its
+        # first call (self.tables stays None: the training route reads it),
+        # and the whole train graph
+        self._exact_tables: MoleculeTables | None = None
+        self._full_outer_cached: OuterGraph | None = None
 
     def resident_bytes(self) -> dict[str, int]:
         """Bytes of the device-resident tables and sampler constants."""
@@ -621,11 +636,12 @@ class MinibatchTrainer:
                  exact: bool = False) -> dict:
         """Score held-out positives and as many negatives (one corrupted
         endpoint each, NumPy ``default_rng(neg_seed)``, as the JAX trainer
-        draws them) with sampled neighbourhoods, ``pair_cap`` pairs a batch;
-        the scores stay on the device and the AUC/AP are computed there.
-        ``params`` (a state dict) is loaded first when given."""
-        if exact:
-            raise NotImplementedError(_EXACT)
+        draws them); the scores stay on the device and the AUC/AP are
+        computed there. ``params`` (a state dict) is loaded first when
+        given. By default each ``pair_cap`` pairs are scored on a sampled
+        neighbourhood, the training estimator; ``exact`` scores them on
+        ``embed_all_exact``'s embeddings, with no sampling, as the
+        full-graph ``Trainer`` would on the same parameters."""
         if params is not None:
             self.model.load_state_dict(params)
         pos = self.ds.split_edges(split).astype(np.int64)
@@ -636,25 +652,88 @@ class MinibatchTrainer:
                         np.where(corrupt_right, rand, pos[:, 1])], axis=1)
         pairs = np.concatenate([pos, neg])
         labels = np.concatenate([np.ones(len(pos)), np.zeros(len(neg))])
-        cap = self.sampler.pair_cap
-        make = (self.sampler.compact_from_pairs if self.resident
-                else self.sampler.batch_from_pairs)
-        parts = []
-        with torch.no_grad():
-            for start in range(0, len(pairs), cap):
-                chunk = pairs[start:start + cap]
-                hb = make(chunk, labels[start:start + cap].astype(np.float32))
-                parts.append(self._forward(hb.to(self.device))[:len(chunk)])
+        if exact:
+            parts = self._score_exact_parts(pairs)
+        else:
+            cap = self.sampler.pair_cap
+            make = (self.sampler.compact_from_pairs if self.resident
+                    else self.sampler.batch_from_pairs)
+            parts = []
+            with torch.no_grad():
+                for start in range(0, len(pairs), cap):
+                    chunk = pairs[start:start + cap]
+                    hb = make(chunk,
+                              labels[start:start + cap].astype(np.float32))
+                    parts.append(
+                        self._forward(hb.to(self.device))[:len(chunk)])
         scores = torch.cat(parts)
         lab = torch.as_tensor(labels, dtype=torch.float32, device=self.device)
         return {f"{split}_auc": float(roc_auc_torch(lab, scores)),
                 f"{split}_ap": float(average_precision_torch(lab, scores))}
 
-    def embed_all_exact(self, params=None):
-        raise NotImplementedError(_EXACT)
+    # -- exact (full-propagation) evaluation ----------------------------------
+    def _full_outer(self) -> OuterGraph:
+        """The whole train graph on the device, built as
+        ``prepare_device_data`` builds it, so that exact evaluation matches
+        the full-graph ``Trainer``."""
+        if self._full_outer_cached is None:
+            tr = self.ds.split_edges("train")
+            self._full_outer_cached = build_outer_graph(
+                tr[:, 0], tr[:, 1], self.ds.num_drugs).to(self.device)
+        return self._full_outer_cached
 
-    def score_exact(self, params, pairs, chunk: int = 65536):
-        raise NotImplementedError(_EXACT)
+    def _upload_tables(self) -> MoleculeTables:
+        """The sampler's molecule tables on the device; a bf16 model's
+        feature table in bf16: half the expansion's gather bytes, and the
+        inner convs' own type."""
+        tables = self.sampler.tables().to(self.device)
+        if self.model.compute_dtype == torch.bfloat16:
+            tables.feat = tables.feat.to(torch.bfloat16)
+        return tables
+
+    def _tables_for_exact(self) -> MoleculeTables:
+        if self.tables is not None:
+            return self.tables
+        if self._exact_tables is None:
+            self._exact_tables = self._upload_tables()
+        return self._exact_tables
+
+    @torch.no_grad()
+    def embed_all_exact(self, params=None) -> torch.Tensor:
+        """``[num_drugs, d]`` drug embeddings with no sampling: every
+        molecule encoded in the sampler's all-nodes chunks (each expanded on
+        the device as a training batch is), the chunks cast to float32 and
+        joined in id order on the device, then one outer pass over the whole
+        train graph. ``params`` (a state dict) is loaded first when given."""
+        if params is not None:
+            self.model.load_state_dict(params)
+        tables = self._tables_for_exact()
+        parts = []
+        for cb, ids in self.sampler.compact_chunks_all_nodes():
+            pb = self._expand_compact(cb.to(self.device), tables)
+            parts.append(self.model.encode_inner(pb)[:len(ids)].float())
+        return self.model.propagate_outer(torch.cat(parts),
+                                          self._full_outer())
+
+    @torch.no_grad()
+    def _score_exact_parts(self, pairs: np.ndarray,
+                           chunk: int = 65536) -> list[torch.Tensor]:
+        """float32 device logits of ``[P, 2]`` drug-id pairs on
+        ``embed_all_exact``'s embeddings, ``chunk`` pairs a part."""
+        emb = self.embed_all_exact()
+        pairs = torch.as_tensor(np.asarray(pairs, np.int64),
+                                device=self.device)
+        return [self.model.score_pairs(emb, pairs[s:s + chunk])
+                for s in range(0, len(pairs), chunk)]
+
+    def score_exact(self, params, pairs: np.ndarray,
+                    chunk: int = 65536) -> np.ndarray:
+        """Exact float32 logits of ``[P, 2]`` drug-id pairs, on the host.
+        ``params`` (a state dict, or None for the model's own) is loaded
+        first."""
+        if params is not None:
+            self.model.load_state_dict(params)
+        return torch.cat(self._score_exact_parts(pairs, chunk)).cpu().numpy()
 
     # -- the run -------------------------------------------------------------
     def fit(self, params=None, opt_state=None, steps_per_epoch=None,
@@ -677,13 +756,11 @@ class MinibatchTrainer:
         n_steps = steps_per_epoch or len(self.sampler)
         best = {"val_auc": -1.0, "params": self.params(), "epoch": -1}
         start_epoch = 0
-        if ckpt is not None:
-            restored = ckpt.restore_state()
-            if restored is not None:
-                params, opt_state, best, start_epoch = _unpack_fit_state(
-                    restored)
-                self.model.load_state_dict(params)
-                self.optimizer.load_state_dict(opt_state)
+        restored = _restore_fit_state(ckpt)
+        if restored is not None:
+            params, opt_state, best, start_epoch = restored
+            self.model.load_state_dict(params)
+            self.optimizer.load_state_dict(opt_state)
         history = []
         for epoch in range(start_epoch, cfg.epochs):
             self.sampler.reseed(epoch)

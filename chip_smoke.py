@@ -157,6 +157,31 @@ Phases:
      for bit against its plain version; block_spmm:bf16 and all_to_all
      must launch; then the multi-head forward on shard 0's edges against
      its plain version.
+  I. exact evaluation and the entry points. (i) Right after phase 9, its
+     trainer as the 512 steps left it (config4: bf16, int8 counts,
+     device-sampled): the sampled evaluate on val and test, then
+     embed_all_exact (every molecule in the sampler's all-nodes chunks, one
+     outer pass over the 100K-drug train graph) against the same under the
+     plain versions (SERVE_BF16_TOL x max), and evaluate(exact=True) on val
+     and test, printed beside the sampled ones, each AUC finite and above
+     0.5; segment_sum, block_adjacency (int8), segment_softmax and
+     spmm_multihead must launch in bf16/int8 and no float32 form (the
+     flash-GAT reads 0); the seconds of the embed and of each evaluate, and
+     the peak device memory. (ii) After path G: config3 as get_config sets
+     it (BioSNAP stand-in, 1,514 drugs, molecules up to 48 atoms:
+     block-local, a dense outer graph), the JAX init of seed 0: score_exact
+     of a resident and of a non-resident MinibatchTrainer on the val
+     positives and as many negatives, against each other and against the
+     full-graph Trainer's scores on prepare_device_data (rtol 2e-4, atol
+     2e-5 x max); block_adjacency (int8) and the flash-GAT must launch.
+     (iii) The entry points in-process, on their default device: run.main
+     on config2 (2 epochs, --run-dir under build/, --checkpoint-every 1),
+     then the same argv again (it resumes, trains no epoch and reports the
+     same best epoch and test AUC); serve.main with --topk 42,7 --k 20
+     --exclude-known and with --pairs/--out on that checkpoint, equal bit
+     for bit to a Scorer built by hand on its best parameters; run.main on
+     config5 for 1 epoch (4 graph shards on the card). Each run's seconds,
+     and path I's total beside the card's nvidia-smi line.
 Each path runs with the launch counts (per kernel and element type, e.g.
 segment_sum:bf16) set to 0 just before it and read just after; the kernels
 line reports the sum of the paths' counts, each form's error, times (kernel,
@@ -209,6 +234,7 @@ import sys
 import time
 import types
 import warnings
+from pathlib import Path
 from unittest import mock
 
 import numpy as np
@@ -2251,9 +2277,10 @@ def config4_kernels(dev, cb, pb, outer) -> dict:
     return results
 
 
-def run_config4_step(dev, ds) -> tuple[dict, dict]:
+def run_config4_step(dev, ds) -> tuple[dict, dict, object]:
     """Phase 9: config4's step at full size; returns the launch counts of
-    the 512-step run and the bf16/int8 kernel comparisons."""
+    the 512-step run, the bf16/int8 kernel comparisons and the trainer as
+    the run left it (path I(i) evaluates it)."""
     tr = config4_trainer(dev, ds)
     d = tr.dsampler
     tr.init(SEED)
@@ -2333,7 +2360,7 @@ def run_config4_step(dev, ds) -> tuple[dict, dict]:
         f"{len(syncs)}")
     for msg in sorted(set(syncs))[:5]:
         log(f"    {msg[:160]}")
-    return launches, results
+    return launches, results, tr
 
 
 # ---------------------------------------------------------------------------
@@ -3002,6 +3029,251 @@ def profile_config4(dev, ds) -> None:
            C4_CHUNK, "step")
 
 
+# ---------------------------------------------------------------------------
+# path I: exact evaluation and the entry points
+# ---------------------------------------------------------------------------
+
+# the bf16 forms that config4's exact encode and outer pass launch
+C4_EXACT_FORMS = ("segment_sum:bf16", "block_adjacency:int8",
+                  "segment_softmax:bf16", "spmm_multihead:bf16")
+
+
+def _check_scores(name: str, got, want) -> float:
+    """Exact scores of two routes on the same parameters: ``got`` within
+    EMB_RTOL / EMB_ATOL x max |want| of ``want`` (tests/test_exact_eval.py);
+    returns the largest difference."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    err = float(np.abs(got - want).max())
+    atol = EMB_ATOL * float(np.abs(want).max())
+    if not (got.shape == want.shape and np.all(np.isfinite(got))
+            and np.allclose(got, want, rtol=EMB_RTOL, atol=atol)):
+        raise AssertionError(f"{name}: max difference {err:.3e} beyond rtol "
+                             f"{EMB_RTOL:g} / atol {atol:.3e}")
+    log(f"  {name}: max difference {err:.3e} (atol {atol:.3e})")
+    return err
+
+
+def run_exact_config4(tr) -> dict:
+    """Path I(i): phase 9's trainer as its 512 steps left it (config4,
+    bf16, int8 counts, device-sampled) evaluated exactly: embed_all_exact
+    through the kernels against the same under the plain versions
+    (SERVE_BF16_TOL x max), then evaluate(exact=True) on val and test beside
+    the sampled evaluate; returns the exact run's launch counts."""
+    t0 = time.perf_counter()
+    sampled = {split: tr.evaluate(split=split) for split in ("val", "test")}
+    torch.cuda.synchronize()
+    log(f"  sampled evaluate, val and test: {time.perf_counter() - t0:.3f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    outer = tr._full_outer()  # built on the host once, kept on the card
+    torch.cuda.synchronize()
+    log(f"  the train graph for the exact outer pass: {outer.edge_cap} edges,"
+        f" built and uploaded in {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    emb = tr.embed_all_exact()
+    torch.cuda.synchronize()
+    embed_s = time.perf_counter() - t0
+    exact = {}
+    for split in ("val", "test"):
+        t0 = time.perf_counter()
+        exact[split] = tr.evaluate(split=split, exact=True)
+        log(f"  {split}: exact {exact[split]} ({time.perf_counter() - t0:.3f}"
+            f" s), sampled {sampled[split]}")
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"  exact embed {embed_s:.3f} s: {tuple(emb.shape)} {emb.dtype}; "
+        f"peak device memory {peak:.2f} GiB")
+    log(f"  launches on path I(i): {launches}")
+    with plain_ops():
+        plain = tr.embed_all_exact()
+    err = (emb.float() - plain.float()).abs().max().item()
+    scale = plain.float().abs().max().item()
+    log(f"  against the plain versions: max_abs_err {err:.3e} (max |plain| "
+        f"{scale:.3e}; limit {SERVE_BF16_TOL} x max)")
+    if not (emb.shape == (tr.ds.num_drugs, tr.model.embed_dim)
+            and bool(torch.isfinite(emb).all())
+            and err <= SERVE_BF16_TOL * scale):
+        raise AssertionError("config4's exact embeddings off their plain "
+                             "version")
+    for split, m in exact.items():
+        if not m[f"{split}_auc"] > 0.5:
+            raise AssertionError(f"config4 exact {split} AUC {m}")
+    require_launched(launches, C4_EXACT_FORMS, "on path I(i)")
+    require_idle(launches, F32_FORMS, "on path I(i)")
+    return launches
+
+
+def run_exact_config3(dev) -> dict:
+    """Path I(ii): config3 as get_config sets it (BioSNAP stand-in,
+    molecules up to 48 atoms: block-local, a dense outer graph) with the
+    JAX init of seed 0: score_exact of a resident and of a non-resident
+    MinibatchTrainer on the val positives and as many negatives, against
+    each other and against the full-graph Trainer's scores on
+    prepare_device_data; the resident trainer's scores also against its
+    own under the plain versions, which holds block_adjacency:int8 and
+    flash_gat_attention at config3's shapes; returns the exact runs'
+    launch counts."""
+    from bignn_tpu_torch.config import get_config
+    from bignn_tpu_torch.data import load_dataset, prepare_device_data
+    from bignn_tpu_torch.models import BiGNN
+    from bignn_tpu_torch.train import MinibatchTrainer, Trainer
+
+    cfg = get_config("config3")
+    ds = load_dataset(cfg.dataset, **cfg.dataset_kwargs)
+    pos = ds.split_edges("val")
+    pairs = np.concatenate([pos, negatives(ds, pos)])
+    params = BiGNN(cfg.model, seed=SEED).state_dict()
+    log(f"  dataset {ds.name}: {ds.num_drugs} drugs, {len(pairs)} pairs")
+    reset_counts()
+    scores, trainers = {}, {}
+    for resident in (True, False):
+        t0 = time.perf_counter()
+        tr = MinibatchTrainer(BiGNN(cfg.model), ds, cfg.train,
+                              fanouts=cfg.fanouts, max_drugs=cfg.max_drugs,
+                              resident=resident, device=dev)
+        built = time.perf_counter() - t0
+        if not tr.sampler.block_local:
+            raise AssertionError("config3's layout is not block-local")
+        t0 = time.perf_counter()
+        scores[resident] = tr.score_exact(params, pairs)
+        log(f"  resident={resident}: build {built:.3f} s, score_exact "
+            f"{time.perf_counter() - t0:.3f} s")
+        trainers[resident] = tr
+    launches = read_counts()
+    log(f"  launches on path I(ii): {launches}")
+    del trainers[False]
+    with plain_ops():
+        plain = trainers[True].score_exact(params, pairs)
+    if read_counts() != launches:
+        raise AssertionError("a kernel launched under plain_ops()")
+    del trainers
+    _check_scores("resident against its plain versions", scores[True], plain)
+    full = Trainer(BiGNN(cfg.model), prepare_device_data(ds), cfg.train,
+                   device=dev)
+    full.model.load_state_dict(params)
+    with torch.no_grad():
+        want = full.model(full.buckets, full.graph_index, full.outer,
+                          torch.as_tensor(pairs, device=dev)).cpu().numpy()
+    _check_scores("resident against non-resident", scores[True],
+                  scores[False])
+    for resident, got in scores.items():
+        _check_scores(f"resident={resident} against the full-graph Trainer",
+                      got, want)
+    require_launched(launches, ("block_adjacency:int8",
+                                "flash_gat_attention:f32"), "on path I(ii)")
+    del full
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _timed_main(main, argv: list, what: str):
+    t0 = time.perf_counter()
+    out = main(argv)
+    torch.cuda.synchronize()
+    log(f"  {what}: {time.perf_counter() - t0:.3f} s")
+    return out
+
+
+def run_entry_points(dev) -> list:
+    """Path I(iii), in-process: run.main on config2 (2 epochs, checkpoints
+    every epoch) and again on the same run directory (it resumes, trains
+    no epoch, reports the same best epoch and test AUC), and once more
+    from the init with no run directory (the same history and test AUC,
+    bit for bit: ROADMAP F7); serve.main's
+    --topk (with --exclude-known) and --pairs/--out on that checkpoint, bit
+    for bit against a Scorer built by hand on its best parameters; run.main
+    on config5 for one epoch (4 graph shards on the card). Returns the
+    launch counts of the three training runs and of the two serves."""
+    import shutil
+
+    from bignn_tpu_torch import run, serve
+    from bignn_tpu_torch.config import get_config
+    from bignn_tpu_torch.data import load_dataset
+    from bignn_tpu_torch.models import BiGNN
+    from bignn_tpu_torch.serve import Scorer
+    from bignn_tpu_torch.train import CheckpointManager
+
+    root = Path(__file__).resolve().parent / "build" / "smoke_runs"
+    shutil.rmtree(root, ignore_errors=True)
+    argv = ["--config", "config2", "--epochs", "2", "--run-dir",
+            str(root / "config2"), "--checkpoint-every", "1"]
+    counts = []
+    reset_counts()
+    first = _timed_main(run.main, argv, "run config2, 2 epochs")
+    counts.append(read_counts())
+    log(f"  losses {[r['loss'] for r in first['history']]}, best epoch "
+        f"{first['best_epoch']}, test_auc {first['test_auc']:.6f}")
+    require_launched(counts[-1], (
+        "segment_sum:f32", "block_adjacency:f32", "flash_gat_attention:f32",
+        "flash_gat_attention_bwd:f32"), "on run config2")
+    reset_counts()
+    again = _timed_main(run.main, argv, "run config2 again (resume)")
+    counts.append(read_counts())
+    if not (again["history"] == [] and again["best_epoch"]
+            == first["best_epoch"] and again["test_auc"] == first["test_auc"]):
+        raise AssertionError(f"the resumed run differs: {again}")
+    fresh = _timed_main(run.main, ["--config", "config2", "--epochs", "2"],
+                        "run config2 from the init again (no run dir)")
+    def untimed(history):  # each epoch's record without its seconds
+        return [{k: v for k, v in r.items() if not k.endswith("_s")}
+                for r in history]
+
+    if not (untimed(fresh["history"]) == untimed(first["history"])
+            and fresh["test_auc"] == first["test_auc"]):
+        raise AssertionError(
+            "a seeded run did not repeat bit for bit (F7): "
+            f"{untimed(fresh['history'])} against {untimed(first['history'])}")
+
+    ckpt = str(root / "config2" / "ckpt")
+    cfg = get_config("config2")
+    ds = load_dataset(cfg.dataset, **cfg.dataset_kwargs)
+    best = CheckpointManager(ckpt).restore_state()["best_params"]
+    hand = Scorer(BiGNN(cfg.model), ds, best, device=dev)
+    pairs = np.concatenate([ds.split_edges("test"),
+                            negatives(ds, ds.split_edges("test"))])
+    np.save(root / "pairs.npy", pairs)
+    reset_counts()
+    ids, top = _timed_main(serve.main, [
+        "--config", "config2", "--ckpt", ckpt, "--topk", "42,7", "--k",
+        "20", "--exclude-known"], "serve --topk 42,7")
+    scores = _timed_main(serve.main, [
+        "--config", "config2", "--ckpt", ckpt, "--pairs",
+        str(root / "pairs.npy"), "--out", str(root / "scores.npy")],
+        "serve --pairs")
+    counts.append(read_counts())
+    want_ids, want_top = hand.top_k_batch([42, 7], 20, exclude_known=True)
+    want = hand.score_pairs(pairs)
+    if not (np.array_equal(ids, want_ids) and np.array_equal(top, want_top)
+            and np.array_equal(scores, want)
+            and np.array_equal(np.load(root / "scores.npy"), want)):
+        raise AssertionError("serve.main differs from a Scorer built by "
+                             "hand on the checkpoint")
+    require_launched(counts[-1], ("segment_sum:f32", "block_adjacency:f32",
+                                  "flash_gat_attention:f32"),
+                     "on serve config2")
+    del hand, ds
+
+    reset_counts()
+    p2 = _timed_main(run.main, ["--config", "config5", "--epochs", "1"],
+                     "run config5, 1 epoch, 4 graph shards")
+    counts.append(read_counts())
+    log(f"  loss {p2['final_loss']:.5f}, test_auc {p2['test_auc']:.6f}")
+    if not (np.isfinite(p2["final_loss"]) and np.isfinite(p2["test_auc"])):
+        raise AssertionError(f"run config5: {p2}")
+    require_launched(counts[-1], (
+        "all_to_all:f32", "segment_softmax:f32", "segment_softmax_bwd:f32",
+        "spmm_multihead:f32", "spmm_multihead_bwd:f32"), "on run config5")
+    require_idle(counts[-1], ("flash_gat_attention:f32",), "on run config5")
+    shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> int:
     profiling = sys.argv[1:] == ["--profile"]
     if sys.argv[1:] and not profiling:
@@ -3099,9 +3371,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     log("== config4's step: MinibatchTrainer, bf16, device-sampled, 100,000 "
         "drugs")
-    stepped, c4 = run_config4_step(dev, large)
+    stepped, c4, c4_trainer = run_config4_step(dev, large)
     counts += [served, served_bf16, p2_large, *trained, stepped]
-    del large
+    log("== path I(i): config4's exact evaluation after phase 9's 512 steps")
+    path_i0 = time.perf_counter()
+    counts.append(run_exact_config4(c4_trainer))
+    path_i_s = time.perf_counter() - path_i0
+    del large, c4_trainer
     gc.collect()
     torch.cuda.empty_cache()
     log("== path A: config2 and config1 streaming, molecules up to 160 atoms")
@@ -3118,6 +3394,14 @@ def main() -> int:
         "and GIN outer layers")
     p2_counts, a2a_small = run_p2(dev, ds)
     counts += [*streamed, *maxed, *sampled, hosted, *attended, *p2_counts]
+    log("== path I(ii): config3's exact scores, resident and not, against "
+        "the full-graph Trainer")
+    path_i0 = time.perf_counter()
+    counts.append(run_exact_config3(dev))
+    log("== path I(iii): the entry points, run.main and serve.main")
+    counts += run_entry_points(dev)
+    path_i_s += time.perf_counter() - path_i0
+    log(f"path I: {path_i_s:.1f} s on {card_line()}")
     for r in (fwd, fwd_bf16, bwd, c4, spmm, smax, spmm_bf16, a2a, a2a_small):
         results.update(r)
 

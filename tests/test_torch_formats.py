@@ -128,8 +128,13 @@ def test_standin_and_npz_cache_equal(tmp_path, datasets):
 
 
 def test_unported_datasets_raise(tmp_path):
-    (tmp_path / "drugbank.pkl").write_bytes(b"")  # a raw reference cache
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """A raw reference cache goes to the converter (data/convert.py), which
+    refuses an empty one as JAX's does; an unknown name raises."""
+    (tmp_path / "drugbank.pkl").write_bytes(b"")  # an empty raw cache
+    with pytest.raises(EOFError):
+        jax_load_dataset("drugbank", data_root=str(tmp_path))
+    with pytest.raises(EOFError):
         load_dataset("drugbank", data_root=str(tmp_path))
+    assert not (tmp_path / "drugbank.npz").exists()
     with pytest.raises(ValueError, match="unknown dataset"):
         load_dataset("no-such-set")

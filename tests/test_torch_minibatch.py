@@ -229,12 +229,6 @@ def test_fit_host_sampled_is_independent_of_workers(ds):
 
 
 def test_left_out_paths_raise(ds):
-    tr = _trainer(ds)
-    for call in (lambda: tr.evaluate(exact=True),
-                 lambda: tr.embed_all_exact(),
-                 lambda: tr.score_exact(None, np.zeros((1, 2), np.int64))):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            call()
     with pytest.raises(NotImplementedError, match="item 5"):
         _trainer(ds, mesh=object())
     with pytest.raises(ValueError, match="resident"):

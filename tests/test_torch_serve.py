@@ -98,13 +98,16 @@ def test_refresh_swaps_params(scorers):
 
 def test_port_runs_without_jax():
     """The package imports no JAX (the card's machine has none): with jax,
-    flax and optax blocked, it imports, serves and trains on the CPU."""
+    flax, optax and orbax blocked, it imports (the entry points and the
+    raw-cache converter too), serves and trains on the CPU."""
     code = textwrap.dedent("""
         import sys
-        for name in ("jax", "flax", "optax", "bignn_tpu"):
+        for name in ("jax", "flax", "optax", "orbax", "bignn_tpu"):
             sys.modules[name] = None
         import torch
         import bignn_tpu_torch, bignn_tpu_torch.bridge, bignn_tpu_torch.config
+        import bignn_tpu_torch.run, bignn_tpu_torch.serve
+        import bignn_tpu_torch.utils, bignn_tpu_torch.data.convert
         from bignn_tpu_torch.data import load_dataset
         from bignn_tpu_torch.models import BiGNN, BiGNNConfig
         from bignn_tpu_torch.ops import cuda_lib
