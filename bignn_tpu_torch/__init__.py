@@ -13,9 +13,11 @@ It keeps the JAX package's module layout:
   - models/   GIN / GAT / GCN convs, readout, pair scorers, BiGNN, loss
   - train/    the full-graph Trainer, the hierarchical MinibatchTrainer
               (sampled and exact evaluation), AUC/AP metrics, checkpoints
-  - parallel/ the edge-partitioned (p2) step over graph shards
+  - parallel/ meshes that may name one card several times: data
+              parallelism, feature sharding (tp) and the
+              edge-partitioned (p2) step over graph shards
   - utils/    metric logging, profiling
-  - run.py    the experiment CLI (full, minibatch, p2)
+  - run.py    the experiment CLI (full, minibatch with --dp, p2)
   - serve.py  the offline-encode / online-scoring server and its CLI
   - prng.py   jax.random's threefry draws, so a seed means the same run
   - bridge.py JAX parameter trees -> PyTorch state dicts

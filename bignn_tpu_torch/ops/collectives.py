@@ -48,7 +48,7 @@ def _check(bufs: Sequence[torch.Tensor]) -> torch.device:
         if {d.type for d in devices} == {"cuda"}:
             raise NotImplementedError(
                 "an exchange between distinct CUDA devices needs peer "
-                "access, which is still to port (ROADMAP Queue 1 item 5)")
+                "access, which is still to port (ROADMAP Queue 1 item 11)")
         raise NotImplementedError(
             f"send buffers on several devices {sorted(map(str, devices))}")
     return first.device

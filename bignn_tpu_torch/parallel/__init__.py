@@ -1,17 +1,24 @@
-"""The edge-partitioned ("p2") path (counterpart of ``bignn_tpu/parallel``):
+"""The parallel paths (counterpart of ``bignn_tpu/parallel``), one process
+driving every shard of a mesh that may name one card several times:
 
-  * ``mesh.py``      the ``(dp, graph)`` device mesh;
+  * ``mesh.py``      the ``(dp, graph)`` and ``(dp, tp)`` device meshes;
+  * ``dp.py``        data parallelism: the pair batch split over ``dp``,
+                     the replicated encode run once, the shards' loss sums
+                     added in shard order;
+  * ``tp.py``        feature sharding over ``tp``: Megatron-paired MLPs
+                     and column-parallel conv projections, run shard by
+                     shard;
   * ``partition.py`` the outer-graph edge partition and the sharded inner
                      unions (NumPy);
   * ``halo.py``      the halo exchange and the distributed outer layers, one
                      ``ops.all_to_all`` a layer;
   * ``step.py``      the p2 train step and scorer.
 
-Data parallelism (``dp.py``), feature sharding (``tp.py``), the trainers'
-``mesh`` arguments and shards on distinct cards are still to port (ROADMAP
-Queue 1 item 5).
+Shards on distinct cards and the multi-process run are still to port
+(ROADMAP Queue 1 item 11).
 """
 
+from bignn_tpu_torch.parallel.dp import dp_train_step_fn, shard_pairs
 from bignn_tpu_torch.parallel.halo import (
     dist_outer_forward,
     halo_exchange,
@@ -35,6 +42,12 @@ from bignn_tpu_torch.parallel.step import (
     make_p2_score_fn,
     make_p2_train_step,
 )
+from bignn_tpu_torch.parallel.tp import (
+    gather_params_tp,
+    shard_params_tp,
+    tp_param_specs,
+    tp_train_step_fn,
+)
 
 __all__ = [
     "Mesh",
@@ -44,6 +57,8 @@ __all__ = [
     "build_sharded_inner",
     "device_put_plan",
     "dist_outer_forward",
+    "dp_train_step_fn",
+    "gather_params_tp",
     "global_put",
     "halo_exchange",
     "init_distributed",
@@ -52,4 +67,8 @@ __all__ = [
     "make_p2_score_fn",
     "make_p2_train_step",
     "p2_overlap_forward",
+    "shard_pairs",
+    "shard_params_tp",
+    "tp_param_specs",
+    "tp_train_step_fn",
 ]

@@ -32,7 +32,8 @@ from torch.utils.checkpoint import checkpoint
 from bignn_tpu_torch import prng
 from bignn_tpu_torch.data.sampler import sample_negative_pairs
 from bignn_tpu_torch.models.bignn import BiGNN, upload_batch
-from bignn_tpu_torch.models.loss import bce_with_logits_elementwise
+from bignn_tpu_torch.models.loss import bce_with_logits_loss
+from bignn_tpu_torch.parallel.dp import optimizer_step
 from bignn_tpu_torch.parallel.halo import (
     dist_outer_forward,
     p2_overlap_forward,
@@ -103,8 +104,8 @@ def _check_dp(n: int, dp: int) -> None:
 
 def make_p2_train_step(model: BiGNN, optimizer: torch.optim.Optimizer,
                        mesh: Mesh, num_drugs: int, neg_ratio: int = 1,
-                       overlap: bool = False, remat: bool = False
-                       ) -> Callable:
+                       overlap: bool = False, remat: bool = False,
+                       grad_clip: float = 0.0) -> Callable:
     """``step(key, pos_pairs, pos_mask, plan_d) -> loss``: one optimizer
     step on ``[B, 2]`` positive pairs (``pos_mask`` ``[B]``), with
     ``neg_ratio`` negatives each drawn on the global batch from the
@@ -116,7 +117,9 @@ def make_p2_train_step(model: BiGNN, optimizer: torch.optim.Optimizer,
     ``remat`` recomputes in the backward the inner encode's activations
     and the outer GAT's ``[E, H]`` attention temporaries instead of
     keeping them (``torch.utils.checkpoint``); values and gradients are
-    unchanged."""
+    unchanged. ``grad_clip`` clips by the global norm of the model's
+    parameters, taken once over the whole model (they are replicated over
+    the shards: ``parallel.dp.optimizer_step``)."""
     dev = mesh.device
 
     def loss_fn(key: prng.Key, pos_pairs, pos_mask, plan_d) -> torch.Tensor:
@@ -129,16 +132,13 @@ def make_p2_train_step(model: BiGNN, optimizer: torch.optim.Optimizer,
         mask = torch.cat([pmask, pmask.repeat(neg_ratio)]).float()
         _check_dp(len(pairs), mesh.shape["dp"])
         emb = _embed(model, plan_d, overlap, remat)
-        per = bce_with_logits_elementwise(model.score_pairs(emb, pairs),
-                                          labels)
-        return (per * mask).sum() / mask.sum().clamp_min(1.0)
+        return bce_with_logits_loss(model.score_pairs(emb, pairs), labels,
+                                    mask)
 
     def step(key: prng.Key, pos_pairs, pos_mask, plan_d) -> torch.Tensor:
-        optimizer.zero_grad(set_to_none=True)
-        loss = loss_fn(key, pos_pairs, pos_mask, plan_d)
-        loss.backward()
-        optimizer.step()
-        return loss.detach()
+        return optimizer_step(
+            optimizer, lambda: loss_fn(key, pos_pairs, pos_mask, plan_d),
+            grad_clip)
 
     return step
 

@@ -21,11 +21,15 @@ Where the JAX runner differs:
     device ``graph_shards`` times (``make_mesh(dp=1, graph=G, devices=[dev]
     * G)``), so the G shards run in turn on it and every outer layer's halo
     exchange moves real payloads between them, with ``dp`` 1.
+  * ``--dp N`` (full and minibatch modes) names the one device N times
+    (``make_mesh(dp=N, graph=1, devices=[dev] * N)``), where JAX takes N
+    of its devices: the N shards run in turn on it. p2 mode ignores it, as
+    in JAX.
   * ``--halo-impl lax|pallas`` parses, and both run the port's one exchange
     (``ops.all_to_all``), with a logged note, so that JAX command lines run.
-  * ``--dp``, ``--coordinator``, ``--num-processes`` and ``--process-id``
-    raise ``NotImplementedError``: data parallelism and the multi-host run
-    are still to port (ROADMAP Queue 1 item 5).
+  * ``--coordinator``, ``--num-processes`` and ``--process-id`` raise
+    ``NotImplementedError``: the multi-host run is still to port (ROADMAP
+    Queue 1 item 11).
   * No ``--backend``: the tensor's device decides; ``--device`` takes its
     place. ``--profile DIR`` writes a ``torch.profiler`` Chrome trace.
 """
@@ -44,11 +48,12 @@ from bignn_tpu_torch import prng
 from bignn_tpu_torch.config import get_config
 from bignn_tpu_torch.data import load_dataset, prepare_device_data
 from bignn_tpu_torch.models import BiGNN
+from bignn_tpu_torch.parallel import make_mesh
 from bignn_tpu_torch.train import MinibatchTrainer, Trainer
 from bignn_tpu_torch.train.checkpoint import CheckpointManager
 from bignn_tpu_torch.utils import MetricLogger, profile_trace
 
-_WAITS = "is still to port (ROADMAP Queue 1 item 5)"
+_WAITS = "is still to port (ROADMAP Queue 1 item 11)"
 
 
 def main(argv=None) -> dict:
@@ -63,7 +68,9 @@ def main(argv=None) -> dict:
                    help="epochs between checkpoints (0 = off)")
     p.add_argument("--graph-shards", type=int, default=None)
     p.add_argument("--dp", type=int, default=None,
-                   help=f"data-parallel shards: {_WAITS}")
+                   help="data-parallel shards of the pair batches in full "
+                        "and minibatch modes, on a mesh that names the "
+                        "device that many times")
     p.add_argument("--overlap", action="store_true",
                    help="p2 mode: overlap the halo exchange with the "
                         "interior drugs' inner encode")
@@ -96,11 +103,10 @@ def main(argv=None) -> dict:
                    help=f"multi-host process index: {_WAITS}")
     args = p.parse_args(argv)
 
-    for flag in ("dp", "coordinator", "num_processes", "process_id"):
+    for flag in ("coordinator", "num_processes", "process_id"):
         if getattr(args, flag) is not None:
             raise NotImplementedError(
-                f"--{flag.replace('_', '-')}: data parallelism and the "
-                f"multi-host run {_WAITS}")
+                f"--{flag.replace('_', '-')}: the multi-host run {_WAITS}")
     dev = torch.device(args.device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"--device {args.device}: no CUDA device is "
@@ -137,6 +143,10 @@ def _run(args, cfg, logger, dev) -> dict:
 
     ckpt = CheckpointManager(f"{args.run_dir}/ckpt") if (
         args.run_dir and args.checkpoint_every) else None
+    mesh = None
+    if args.dp and cfg.mode in ("minibatch", "full"):
+        mesh = make_mesh(dp=args.dp, graph=1, devices=[dev] * args.dp)
+        logger.log({"event": "mesh", "dp": args.dp, "graph": 1})
     fit_kw = dict(log_fn=logger)
     if ckpt is not None:
         fit_kw.update(ckpt=ckpt, checkpoint_every=args.checkpoint_every)
@@ -147,7 +157,7 @@ def _run(args, cfg, logger, dev) -> dict:
             trainer = MinibatchTrainer(
                 model, ds, cfg.train, fanouts=cfg.fanouts,
                 max_drugs=cfg.max_drugs, dispatch_chunk=cfg.dispatch_chunk,
-                device_sample=dev_sample, device=dev)
+                device_sample=dev_sample, mesh=mesh, device=dev)
             params, result = trainer.fit(**fit_kw)
             if args.exact_eval:
                 for split in ("val", "test"):
@@ -171,7 +181,7 @@ def _run(args, cfg, logger, dev) -> dict:
                 checkpoint_every=args.checkpoint_every or 1, device=dev)
         else:
             data = prepare_device_data(ds, max_buckets=cfg.max_buckets)
-            trainer = Trainer(model, data, cfg.train, device=dev)
+            trainer = Trainer(model, data, cfg.train, device=dev, mesh=mesh)
             params, result = trainer.fit(**fit_kw)
 
     summary = {k: v for k, v in result.items() if k != "history"}
@@ -206,7 +216,6 @@ def _run_p2(model, ds, cfg, logger, overlap: bool = False, ckpt=None,
         build_outer_partition,
         build_sharded_inner,
         device_put_plan,
-        make_mesh,
         make_p2_score_fn,
         make_p2_train_step,
     )
@@ -220,9 +229,6 @@ def _run_p2(model, ds, cfg, logger, overlap: bool = False, ckpt=None,
         make_optimizer,
     )
 
-    if cfg.train.grad_clip:
-        raise ValueError("the p2 step does not clip gradients: grad_clip "
-                         "must be 0")
     dev = torch.device(device)
     graph = int(cfg.graph_shards)
     mesh = make_mesh(dp=1, graph=graph, devices=[dev] * graph)
@@ -240,7 +246,8 @@ def _run_p2(model, ds, cfg, logger, overlap: bool = False, ckpt=None,
     optimizer = make_optimizer(model.parameters(), cfg.train)
     step = make_p2_train_step(model, optimizer, mesh, ds.num_drugs,
                               cfg.train.neg_ratio, overlap=overlap,
-                              remat=remat_inner)
+                              remat=remat_inner,
+                              grad_clip=cfg.train.grad_clip)
     plan_d = device_put_plan(mesh, plan, inner, model.config.inner_layers)
     sampler = EdgeMinibatchSampler(train_edges.astype(np.int32),
                                    cfg.train.batch_size, cfg.train.seed)

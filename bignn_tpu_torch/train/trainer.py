@@ -22,8 +22,12 @@ host (``data/hierarchical.py``) or on the card (``data/device_sampler.py``),
 and expanded on the card from molecule tables uploaded once, or (with
 ``resident=False``) drawn whole on the host and uploaded each step. Its
 exact evaluation encodes every molecule and propagates over the whole train
-graph, with no sampling. Still to port: the data-parallel ``mesh`` of both
-trainers (ROADMAP Queue 1 item 5).
+graph, with no sampling.
+
+Both trainers take a dp-only ``mesh`` (``parallel/mesh.py``, which may
+name one card several times): the pair batch splits over ``dp`` and the
+update equals the single-device one on the whole batch (``parallel/dp.py``;
+the minibatch trainer draws one batch a shard and steps on their union).
 """
 
 from __future__ import annotations
@@ -52,7 +56,13 @@ from bignn_tpu_torch.data.sampler import (
 )
 from bignn_tpu_torch.data.schema import DDIDataset, DeviceData
 from bignn_tpu_torch.models.bignn import BiGNN, upload_buckets
-from bignn_tpu_torch.models.loss import bce_with_logits_loss
+from bignn_tpu_torch.models.loss import masked_sums, union_loss
+from bignn_tpu_torch.parallel.dp import (
+    dp_size,
+    dp_train_step_fn,
+    optimizer_step,
+)
+from bignn_tpu_torch.parallel.mesh import make_mesh
 from bignn_tpu_torch.sparse.formats import (
     OuterGraph,
     PaddedGraphBatch,
@@ -68,53 +78,65 @@ from bignn_tpu_torch.train.metrics import (
 
 def make_optimizer(params, config: TrainConfig) -> torch.optim.Optimizer:
     """Adam, or AdamW (decoupled decay, as optax.adamw) when
-    ``config.weight_decay``; ``Trainer`` clips the global gradient norm
-    first when ``config.grad_clip``."""
+    ``config.weight_decay``; the trainers' steps clip the global gradient
+    norm first when ``config.grad_clip`` (``parallel.dp.optimizer_step``)."""
     if config.weight_decay:
         return torch.optim.AdamW(params, lr=config.lr,
                                  weight_decay=config.weight_decay)
     return torch.optim.Adam(params, lr=config.lr)
 
 
+def _device(device, mesh) -> torch.device:
+    """The trainer's device: ``mesh.device`` under a mesh (a ``device``
+    that names another raises), else ``device`` (default ``cuda``)."""
+    if mesh is None:
+        return torch.device("cuda" if device is None else device)
+    dev = mesh.device
+    if device is not None:
+        want = torch.device(device)
+        if (want.type, want.index or 0) != (dev.type, dev.index or 0):
+            raise ValueError(f"device {want} is not the mesh's device {dev}")
+    return dev
+
+
 class Trainer:
-    """Single-device full-graph trainer on ``device`` (no CPU fallback).
+    """Full-graph trainer on ``device`` (no CPU fallback).
 
     The buckets go to the device with their block adjacency built there
     (``upload_buckets``); the outer graph and its dense masks are uploaded
-    as built on the host."""
+    as built on the host. Every step is ``parallel/dp.py``'s
+    ``dp_train_step_fn`` on ``mesh`` (dp-only; default one shard on
+    ``device``): the pairs split over ``dp``, the encode and the outer
+    propagation run once, and the trajectory equals the one without a mesh
+    (JAX ``tests/test_dp.py``)."""
 
     def __init__(self, model: BiGNN, data: DeviceData, config: TrainConfig,
-                 device: str | torch.device = "cuda"):
-        self.device = torch.device(device)
+                 device: str | torch.device | None = None, mesh=None):
+        dp = 1 if mesh is None else dp_size(mesh)
+        if config.batch_size % dp:
+            raise ValueError(f"batch_size {config.batch_size} not "
+                             f"divisible by dp={dp}")
+        self.device = _device(device, mesh)
+        self.mesh = (make_mesh(dp=1, devices=[self.device]) if mesh is None
+                     else mesh)
         self.model = model.to(self.device)
         self.data = data
         self.config = config
-        self.optimizer = make_optimizer(self.model.parameters(), config)
+        self._set_optimizer()
         self.buckets, self.graph_index = upload_buckets(
             data.bucketing, model.config.inner_layers, self.device)
         self.outer = data.outer.to(self.device)
 
     # -- one step ----------------------------------------------------------
-    def _loss_fn(self, pos_pairs: torch.Tensor, pos_mask: torch.Tensor,
-                 key: prng.Key) -> torch.Tensor:
-        r = self.config.neg_ratio
-        neg = sample_negative_pairs(key, pos_pairs, self.data.num_drugs, r)
-        pairs = torch.cat([pos_pairs, neg])
-        labels = torch.cat([torch.ones(len(pos_pairs), device=self.device),
-                            torch.zeros(len(neg), device=self.device)])
-        mask = torch.cat([pos_mask, pos_mask.repeat(r)])
-        logits = self.model(self.buckets, self.graph_index, self.outer, pairs)
-        return bce_with_logits_loss(logits, labels, mask)
-
-    def _step(self, pos_pairs, pos_mask, key: prng.Key) -> torch.Tensor:
-        self.optimizer.zero_grad(set_to_none=True)
-        loss = self._loss_fn(pos_pairs, pos_mask, key)
-        loss.backward()
-        if self.config.grad_clip:
-            torch.nn.utils.clip_grad_norm_(self.model.parameters(),
-                                           self.config.grad_clip)
-        self.optimizer.step()
-        return loss.detach()
+    def _set_optimizer(self, opt_state=None) -> None:
+        """A fresh optimizer (loaded from ``opt_state`` when given) and the
+        step that updates through it."""
+        self.optimizer = make_optimizer(self.model.parameters(), self.config)
+        if opt_state is not None:
+            self.optimizer.load_state_dict(opt_state)
+        self._step = dp_train_step_fn(
+            self.model, self.optimizer, self.mesh, self.data.num_drugs,
+            self.config.neg_ratio, self.config.grad_clip)
 
     def train_step(self, pairs: np.ndarray, mask: np.ndarray, epoch: int,
                    step: int) -> torch.Tensor:
@@ -124,8 +146,8 @@ class Trainer:
         stay in ``param.grad`` until the next step."""
         key = prng.fold_in(
             prng.fold_in(prng.key(self.config.seed + 1), epoch), step)
-        return self._step(torch.as_tensor(pairs, device=self.device),
-                          torch.as_tensor(mask, device=self.device), key)
+        return self._step(key, pairs, mask, self.buckets, self.graph_index,
+                          self.outer)
 
     # -- parameters and evaluation ------------------------------------------
     def params(self) -> dict[str, torch.Tensor]:
@@ -139,7 +161,7 @@ class Trainer:
         opt_state)``."""
         seed = self.config.seed if seed is None else seed
         self.model.load_state_dict(self.model.init_params(seed))
-        self.optimizer = make_optimizer(self.model.parameters(), self.config)
+        self._set_optimizer()
         return self.params(), self.optimizer.state_dict()
 
     def evaluate(self, params=None, split: str = "val", neg_seed: int = 1234,
@@ -187,9 +209,7 @@ class Trainer:
             self.init()
         else:
             self.model.load_state_dict(params)
-            self.optimizer = make_optimizer(self.model.parameters(), cfg)
-            if opt_state is not None:
-                self.optimizer.load_state_dict(opt_state)
+            self._set_optimizer(opt_state)
         sampler = EdgeMinibatchSampler(self.data.train_pairs, cfg.batch_size,
                                        cfg.seed)
         best = {"val_auc": -1.0, "params": self.params(), "epoch": -1}
@@ -279,8 +299,13 @@ class MinibatchTrainer:
 
     ``evaluate(exact=True)``, ``embed_all_exact`` and ``score_exact``
     evaluate without sampling: every molecule encoded in fixed chunks, one
-    outer pass over the whole train graph. Left out: ``mesh`` (data
-    parallelism, ROADMAP Queue 1 item 5). ``device_sample`` needs resident
+    outer pass over the whole train graph, as one replicated stream under
+    a mesh too. ``mesh`` (dp-only; JAX ``trainer.py:280-313``, ``716-885``)
+    makes each step draw ``dp`` batches, shard ``s`` of step ``i`` the
+    batch ``(epoch, i * dp + s)`` on the host or on the card, and take one
+    update on their union: the shards' (masked loss sum, mask count) pairs
+    added in shard order (``parallel/dp.py``); an epoch is then
+    ``ceil(len(sampler) / dp)`` steps. ``device_sample`` needs resident
     tables and a block-local layout, as in JAX. JAX's
     ``optimization_barrier`` fences have no counterpart: PyTorch runs each
     op as written.
@@ -292,14 +317,12 @@ class MinibatchTrainer:
                  calibrate_caps: int = 8, mesh=None,
                  prefetch_workers: int = 2, dispatch_chunk: int = 1,
                  device_sample: bool = False,
-                 device: str | torch.device = "cuda"):
-        if mesh is not None:
-            raise NotImplementedError(
-                "MinibatchTrainer's data-parallel mesh is still to port "
-                "(ROADMAP Queue 1 item 5)")
+                 device: str | torch.device | None = None):
+        self.mesh = mesh
+        self.dp = 1 if mesh is None else dp_size(mesh)
         if device_sample and not resident:
             raise ValueError("device_sample requires resident tables")
-        self.device = torch.device(device)
+        self.device = _device(device, mesh)
         self.model = model.to(self.device)
         self.ds = ds
         self.config = config
@@ -526,58 +549,71 @@ class MinibatchTrainer:
         emb = self.model.propagate_outer(emb, self._derive_outer(hb))
         return self.model.score_pairs(emb, hb.pairs.long())
 
-    def _loss(self, hb: CompactBatch) -> torch.Tensor:
-        return bce_with_logits_loss(self._forward(hb), hb.labels, hb.mask)
+    def _loss(self, hbs: list) -> torch.Tensor:
+        """The masked-mean loss of the union of a step's ``dp`` shard
+        batches (one without a mesh), their (sum, count) pairs added in
+        shard order."""
+        return union_loss([masked_sums(self._forward(b), b.labels, b.mask)
+                           for b in hbs])
 
-    def _step(self, hb: CompactBatch) -> torch.Tensor:
-        self.optimizer.zero_grad(set_to_none=True)
-        loss = self._loss(hb)
-        loss.backward()
-        if self.config.grad_clip:
-            torch.nn.utils.clip_grad_norm_(self.model.parameters(),
-                                           self.config.grad_clip)
-        self.optimizer.step()
-        return loss.detach()
+    def _step(self, hbs: list) -> torch.Tensor:
+        return optimizer_step(self.optimizer, lambda: self._loss(hbs),
+                              self.config.grad_clip)
 
-    def _draw_host(self, at: tuple[int, int] | None = None):
-        """One host-drawn NumPy batch (a ``CompactBatch`` with resident
-        tables, else a whole ``HierarchicalBatch``): batch ``at=(epoch,
-        step)``, a pure function of (seed, epoch, step) and safe on
-        prefetch threads, or the sampler's next sequential draw."""
+    def _draw_host(self, at: tuple[int, int] | None = None) -> list:
+        """One step's ``dp`` host-drawn NumPy batches (each a
+        ``CompactBatch`` with resident tables, else a whole
+        ``HierarchicalBatch``): shard ``s`` of ``at=(epoch, step)`` is batch
+        ``(epoch, step * dp + s)``, a pure function of (seed, epoch, step)
+        and safe on prefetch threads; without ``at``, the sampler's next
+        sequential draws."""
         s = self.sampler
         if at is None:
-            return s.sample_compact() if self.resident else s.sample()
-        if self.resident:
-            return s.sample_compact_at(*at)
-        return s.sample_at(*at)
+            draw = s.sample_compact if self.resident else s.sample
+            return [draw() for _ in range(self.dp)]
+        epoch, step = at
+        draw = s.sample_compact_at if self.resident else s.sample_at
+        return [draw(epoch, step * self.dp + i) for i in range(self.dp)]
 
-    def train_step(self, hb: CompactBatch | None = None) -> torch.Tensor:
-        """One optimizer step on ``hb`` (a host or device batch; default a
-        fresh host draw); returns the loss as a device scalar. The
-        gradients stay in ``param.grad`` until the next step."""
-        if hb is None:
-            hb = self._draw_host()
-        return self._step(hb.to(self.device))
+    def _put(self, hb) -> list:
+        """A step's ``dp`` batches on the device; one batch stands for a
+        list of one."""
+        hbs = hb if isinstance(hb, list) else [hb]
+        if len(hbs) != self.dp:
+            raise ValueError(f"{len(hbs)} batches for a step on dp={self.dp}")
+        return [b.to(self.device) for b in hbs]
+
+    def train_step(self, hb=None) -> torch.Tensor:
+        """One optimizer step on ``hb`` (a list of ``dp`` host or device
+        batches, or one batch without a mesh; default fresh host draws);
+        returns the loss as a device scalar. The gradients stay in
+        ``param.grad`` until the next step."""
+        return self._step(self._put(self._draw_host() if hb is None else hb))
 
     def train_chunk(self, hbs) -> torch.Tensor:
         """``len(hbs)`` steps in order, the losses kept on the device
         (``[K]``): the same trajectory as as many ``train_step`` calls."""
-        return torch.stack([self._step(hb.to(self.device)) for hb in hbs])
+        return torch.stack([self._step(self._put(hb)) for hb in hbs])
 
     def train_chunk_device(self, epoch: int, step0: int,
                            k: int | None = None):
         """``k`` (default ``dispatch_chunk``) steps on device-drawn batches
-        (epoch, step0 + j), with no host synchronisation; returns
+        (epoch, step0 + j), with no host synchronisation; under a mesh
+        step ``i`` draws ``(epoch, i * dp + s)`` for shard ``s``. Returns
         ``(losses [k], stats)``, the truncation counters summed over the
-        chunk as device scalars."""
+        chunk's draws as device scalars."""
         k = int(k if k is not None else max(1, self.dispatch_chunk))
+        d = self.dsampler
         losses, totals = [], None
-        for j in range(k):
-            cb, stats = self.dsampler.sample(
-                self._dev_consts, self.dsampler.key_at(epoch, step0 + j))
-            losses.append(self._step(cb))
-            totals = stats if totals is None else {
-                name: totals[name] + v for name, v in stats.items()}
+        for i in range(step0, step0 + k):
+            cbs = []
+            for s in range(self.dp):
+                cb, stats = d.sample(self._dev_consts,
+                                     d.key_at(epoch, i * self.dp + s))
+                cbs.append(cb)
+                totals = stats if totals is None else {
+                    name: totals[name] + v for name, v in stats.items()}
+            losses.append(self._step(cbs))
         return torch.stack(losses), totals
 
     def _fit_epoch_device(self, epoch: int, n_steps: int) -> torch.Tensor:
@@ -753,7 +789,7 @@ class MinibatchTrainer:
             self.optimizer = make_optimizer(self.model.parameters(), cfg)
             if opt_state is not None:
                 self.optimizer.load_state_dict(opt_state)
-        n_steps = steps_per_epoch or len(self.sampler)
+        n_steps = steps_per_epoch or -(-len(self.sampler) // self.dp)
         best = {"val_auc": -1.0, "params": self.params(), "epoch": -1}
         start_epoch = 0
         restored = _restore_fit_state(ckpt)

@@ -182,6 +182,30 @@ Phases:
      for bit to a Scorer built by hand on its best parameters; run.main on
      config5 for 1 epoch (4 graph shards on the card). Each run's seconds,
      and path I's total beside the card's nvidia-smi line.
+  J. data and feature parallelism in one process, on meshes that name the
+     card several times (make_mesh(..., devices=[card] * n)), right after
+     path I(i). (i) config4 as get_config sets it on dp = 2 (a batch of
+     1024 + 1024 pairs a shard): step 1 against a union-batch reference
+     built on phase 9's dp = 1 trainer (the keys key_at(0, 0) and
+     key_at(0, 1), the union masked mean, one update, through the
+     kernels): the loss within LOSS_RTOL, the gradients by _check_step1;
+     then 16 steps (2 chunks of 8) on dp = 1, dp = 2, dp = 2 again and
+     dp = 1: the two dp = 2 runs' losses equal to the bit, 32 batches
+     sampled, segment_sum:bf16, block_adjacency:int8, segment_softmax:bf16
+     and spmm_multihead:bf16 launched twice as often as on dp = 1 and no
+     float32 form; the chunk medians / 8 of both, the peak memory of
+     dp = 2. (ii) config2's full-graph Trainer on dp = 4 (512 pairs a
+     shard), 20 steps against the Trainer without a mesh from the same
+     parameters: step 1's loss within LOSS_RTOL and its parameters within
+     JAX tests/test_dp.py's rtol 1e-4 / atol 1e-6 (GAT's a_l, whose
+     gradient cancels, by its step-1 gradient within GRAD_TOL); the
+     flash-GAT forward and backward once a step. (iii) config2's model on
+     (dp, tp) = (1, 2) and (2, 2) meshes (shard_params_tp,
+     tp_train_step_fn), one step against (ii)'s step 1 without a mesh
+     (JAX tests/test_tp.py's rtol 5e-4 / atol 1e-5, a_l as in (ii)).
+     (iv) run.main with --dp 2 on config2 (2 epochs) and on config3 with
+     --exact-eval (1 epoch): seconds, best epoch, test AUC. Path J's total
+     beside the card's nvidia-smi line.
 Each path runs with the launch counts (per kernel and element type, e.g.
 segment_sum:bf16) set to 0 just before it and read just after; the kernels
 line reports the sum of the paths' counts, each form's error, times (kernel,
@@ -891,10 +915,12 @@ def run_serving(dev, ds) -> dict:
     return launches
 
 
-def _timed_steps(trainer, batches, label: str, secs: list | None = None):
+def _timed_steps(trainer, batches, label: str, secs: list | None = None,
+                 step1: dict | None = None):
     """Run ``batches`` as steps 0.. of epoch 0, each timed on the host clock
-    up to a synchronize; logs the times (and appends them to ``secs``),
-    returns (losses, step-1 grads)."""
+    up to a synchronize; logs the times (and appends them to ``secs``; the
+    parameters after step 1 go into ``step1``), returns (losses, step-1
+    grads)."""
     losses, secs = [], [] if secs is None else secs
     for i, (pairs, mask) in enumerate(batches):
         t0 = time.perf_counter()
@@ -905,6 +931,8 @@ def _timed_steps(trainer, batches, label: str, secs: list | None = None):
         if i == 0:
             grads = {k: p.grad.clone()
                      for k, p in trainer.model.named_parameters()}
+            if step1 is not None:
+                step1.update(trainer.params())
     log(f"  {label}: median step {np.median(secs) * 1e3:.3f} ms over "
         f"{len(secs)} steps (first {secs[0] * 1e3:.3f}, min "
         f"{min(secs) * 1e3:.3f}, max {max(secs) * 1e3:.3f})")
@@ -2164,9 +2192,9 @@ def run_attention(dev, ds) -> list:
     return [dense, sparse]
 
 
-def config4_trainer(dev, ds):
-    """config4's MinibatchTrainer on ``ds``, exactly as get_config sets it,
-    with the parts of its build timed."""
+def config4_trainer(dev, ds, mesh=None):
+    """config4's MinibatchTrainer on ``ds``, exactly as get_config sets it
+    (on ``mesh`` where given), with the parts of its build timed."""
     from bignn_tpu_torch.config import get_config
     from bignn_tpu_torch.models import BiGNN
     from bignn_tpu_torch.train import MinibatchTrainer
@@ -2176,7 +2204,7 @@ def config4_trainer(dev, ds):
     tr = MinibatchTrainer(
         BiGNN(cfg.model, seed=SEED), ds, cfg.train, fanouts=cfg.fanouts,
         max_drugs=cfg.max_drugs, dispatch_chunk=cfg.dispatch_chunk,
-        device_sample=cfg.device_sample, device=dev)
+        device_sample=cfg.device_sample, mesh=mesh, device=dev)
     total = time.perf_counter() - t0
     parts = ", ".join(f"{k} {v:.3f} s" for k, v in tr.setup_seconds.items())
     log(f"  MinibatchTrainer build {total:.3f} s ({parts})")
@@ -2857,6 +2885,7 @@ def profile_training(dev, model_cfg, data, train_cfg) -> None:
     from bignn_tpu_torch import prng
     from bignn_tpu_torch.data.sampler import sample_negative_pairs
     from bignn_tpu_torch.models import BiGNN
+    from bignn_tpu_torch.parallel.dp import dp_loss
     from bignn_tpu_torch.train import Trainer
 
     batches = _epoch_batches(data, train_cfg)
@@ -2876,14 +2905,19 @@ def profile_training(dev, model_cfg, data, train_cfg) -> None:
     pmask = torch.as_tensor(mask, device=dev)
     key = prng.fold_in(prng.fold_in(prng.key(train_cfg.seed + 1), 0), 0)
 
+    def loss():
+        return dp_loss(trainer.model, trainer.mesh, key, pos, pmask,
+                       trainer.buckets, trainer.graph_index, trainer.outer,
+                       data.num_drugs, train_cfg.neg_ratio)
+
     def backward():
         trainer.optimizer.zero_grad(set_to_none=True)
-        trainer._loss_fn(pos, pmask, key).backward()
+        loss().backward()
 
     parts = {
         "negatives (host threefry + one upload)": lambda: sample_negative_pairs(
             key, pos, data.num_drugs, train_cfg.neg_ratio),
-        "forward + loss": lambda: trainer._loss_fn(pos, pmask, key),
+        "forward + loss": loss,
         "forward + loss + backward": backward,
         "optimizer step": trainer.optimizer.step,
     }
@@ -3010,14 +3044,14 @@ def profile_config4(dev, ds) -> None:
 
     def backward():
         tr.optimizer.zero_grad(set_to_none=True)
-        tr._loss(cb).backward()
+        tr._loss([cb]).backward()
 
     parts = {
         "sample (DeviceSampler.sample)": lambda: d.sample(
             tr._dev_consts, d.key_at(0, 1)),
         "expand (_expand_compact, int8 counts)": lambda: tr._expand_compact(
             cb, tr.tables),
-        "expand + forward + loss": lambda: tr._loss(cb),
+        "expand + forward + loss": lambda: tr._loss([cb]),
         "expand + forward + loss + backward": backward,
         "Adam step": tr.optimizer.step,
         "whole step (sample + train_step)": lambda: tr.train_step(
@@ -3168,6 +3202,359 @@ def run_exact_config3(dev) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return launches
+
+
+# ---------------------------------------------------------------------------
+# path J: data and feature parallelism, the card named several times
+# ---------------------------------------------------------------------------
+
+J_DP4 = 2  # path J(i): config4 on dp = 2
+J_CHUNKS = 2  # of C4_CHUNK steps: 16 steps a run
+J_DP2 = 4  # path J(ii): config2's full-graph Trainer on dp = 4
+J_TP = ((1, 2), (2, 2))  # path J(iii): (dp, tp)
+DP_TOL = dict(rtol=1e-4, atol=1e-6)  # JAX tests/test_dp.py, parameters
+TP_TOL = dict(rtol=5e-4, atol=1e-5)  # JAX tests/test_tp.py, parameters
+J_FORMS = ("segment_sum:bf16", "block_adjacency:int8",
+           "segment_softmax:bf16", "spmm_multihead:bf16")
+# run --dp 2 against the run without it, epoch losses: the shard sums are
+# added in another order, and Adam amplifies that rounding through GAT's
+# a_l (J(ii)); config2's two epochs differ by 3.3e-4 on the CPU's plain
+# versions, while a dropped shard moves an epoch's loss by percents
+DP_RUN_RTOL = 2e-3
+DP_RUN_AUC = 5e-3  # test AUC, absolute
+
+
+def _c4_run(tr, secs: list, peaks: list) -> tuple[np.ndarray, dict]:
+    """J_CHUNKS chunks of config4's steps from the JAX init of SEED, each
+    timed to a synchronize (into ``secs``), and the run's peak device memory
+    above what was allocated at its start (GiB, into ``peaks``: its
+    activations, gradients, Adam moments and batches, not the trainers'
+    resident tables); returns the losses and the truncation counters
+    summed."""
+    tr.init(SEED)
+    tr.optimizer.zero_grad(set_to_none=True)  # the last run's gradients
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    losses, stats = [], {}
+    for c in range(J_CHUNKS):
+        t0 = time.perf_counter()
+        ls, st = tr.train_chunk_device(0, c * C4_CHUNK, C4_CHUNK)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(ls)
+        for k, v in st.items():
+            stats[k] = stats.get(k, 0) + int(v)
+    peaks.append((torch.cuda.max_memory_allocated() - base) / 2**30)
+    return torch.cat(losses).float().cpu().numpy(), stats
+
+
+def _union_reference(tr, batches: list) -> tuple[float, dict]:
+    """One step on the union of ``batches`` (on the device) written out on
+    ``tr``, a trainer without a mesh: each batch's masked BCE sum and count
+    added in order, the backward of their ratio and one optimizer step, all
+    through the kernels; returns the loss and the step's gradients."""
+    from bignn_tpu_torch.models.loss import bce_with_logits_elementwise
+
+    tr.optimizer.zero_grad(set_to_none=True)
+    num = den = None
+    for b in batches:
+        per = bce_with_logits_elementwise(tr._forward(b), b.labels)
+        mask = b.mask.float()
+        n, m = (per * mask).sum(), mask.sum()
+        num, den = (n, m) if num is None else (num + n, den + m)
+    ref = num / den.clamp_min(1.0)
+    ref.backward()
+    grads = {k: p.grad.clone() for k, p in tr.model.named_parameters()}
+    tr.optimizer.step()
+    return ref.item(), grads
+
+
+def _close_params(name: str, got: dict, want: dict, tol: dict,
+                  a_l: tuple[torch.Tensor, torch.Tensor]) -> None:
+    """Every parameter of ``got`` within ``tol`` of ``want``'s, but GAT's
+    ``a_l``, whose gradient cancels (its step-1 values are Adam's first
+    update, g / (|g| + eps), on a gradient near its rounding noise): its
+    step-1 gradients ``a_l = (got's, want's)`` instead, within GRAD_TOL x
+    max |want's|."""
+    worst, bad = 0.0, []
+    for k, w in want.items():
+        g = got[k]
+        err = (g - w).abs().max().item()
+        if k.endswith(".a_l"):
+            ga, gw = a_l
+            gerr = (ga - gw).abs().max().item()
+            scale = gw.abs().max().item()
+            log(f"  {name}: {k} after step 1 max|d| {err:.3e}; its "
+                f"gradient max|d| {gerr:.3e}, max |g| {scale:.3e}")
+            if not gerr <= GRAD_TOL * scale:
+                bad.append(f"{k} gradient (max|d| {gerr:.3e})")
+            continue
+        worst = max(worst, err)
+        if not torch.allclose(g, w, **tol):
+            bad.append(f"{k} (max|d| {err:.3e})")
+    log(f"  {name}: parameters after step 1 max|d| {worst:.3e} "
+        f"(rtol {tol['rtol']:g}, atol {tol['atol']:g}); {len(bad)} off")
+    if bad:
+        raise AssertionError(f"{name}: " + "; ".join(bad))
+
+
+def _check_loss1(name: str, got: float, want: float) -> None:
+    log(f"  {name}: step-1 loss {got:.7f} against {want:.7f}")
+    if not abs(got - want) <= LOSS_RTOL * abs(want):
+        raise AssertionError(f"{name}: step-1 loss {got} against {want}")
+
+
+def run_dp_config4(dev, ds, tr1) -> list:
+    """Path J(i): config4 as get_config sets it on dp = 2 naming the card
+    twice (1024 pairs a shard), beside phase 9's dp = 1 trainer ``tr1``.
+    Step 1 against a union-batch reference on ``tr1`` (keys key_at(0, 0)
+    and key_at(0, 1), the union masked mean, one update, all through the
+    kernels): the loss within LOSS_RTOL, the gradients by _check_step1.
+    Then 16 steps on dp = 1, dp = 2, dp = 2 again and dp = 1 in turns: the
+    two dp = 2 runs' losses equal to the bit, 32 batches sampled, each
+    J_FORMS form launched twice as often as on dp = 1 and no float32 form;
+    each run's peak memory above its start. Returns the counts of the first
+    dp = 2 run."""
+    from bignn_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(dp=J_DP4, graph=1, devices=[dev] * J_DP4)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    tr2 = config4_trainer(dev, ds, mesh=mesh)
+    torch.cuda.synchronize()
+    built = (torch.cuda.memory_allocated() - held) / 2**30
+    log(f"  the dp = 2 trainer holds {built:.3f} GiB once built; "
+        f"{held / 2**30:.3f} GiB were allocated before it "
+        f"(phase 9's dp = 1 trainer among them, "
+        f"{sum(tr1.resident_bytes().values()) / 2**30:.3f} GiB resident)")
+    tr2.init(SEED)
+    loss2 = tr2.train_chunk_device(0, 0, 1)[0].item()
+    grads2 = {k: p.grad.clone() for k, p in tr2.model.named_parameters()}
+    after2 = tr2.params()
+    tr1.init(SEED)
+    d = tr1.dsampler
+    ref, grads1 = _union_reference(
+        tr1, [d.sample(tr1._dev_consts, d.key_at(0, s))[0]
+              for s in range(J_DP4)])
+    _check_loss1("dp = 2 against the union-batch reference", loss2, ref)
+    _check_step1(grads2, grads1, loss2, ref, torch.bfloat16)
+    upd = max((after2[k] - v).abs().max().item()
+              for k, v in tr1.params().items())
+    log(f"  parameters after the update, dp = 2 against the reference: "
+        f"max|d| {upd:.3e}")
+
+    secs, peaks = {1: [], 2: []}, {1: [], 2: []}
+    reset_counts()
+    _c4_run(tr1, secs[1], peaks[1])
+    c1 = read_counts()
+    reset_counts()
+    losses, stats = _c4_run(tr2, secs[2], peaks[2])
+    c2 = read_counts()
+    again, _ = _c4_run(tr2, secs[2], peaks[2])
+    _c4_run(tr1, secs[1], peaks[1])
+    med = {k: np.median(v) * 1e3 / C4_CHUNK for k, v in secs.items()}
+    log(f"  {J_CHUNKS * C4_CHUNK} steps: losses {losses[0]:.5f} ... "
+        f"{losses[-1]:.5f}; stats {stats}")
+    log(f"  step time (chunk median / {C4_CHUNK}, turns dp 1, 2, 2, 1): "
+        f"dp = 2 {med[2]:.3f} ms (1024 + 1024 pairs a shard), dp = 1 "
+        f"{med[1]:.3f} ms; chunks dp 2 "
+        + " ".join(f"{x * 1e3:.1f}" for x in secs[2]) + ", dp 1 "
+        + " ".join(f"{x * 1e3:.1f}" for x in secs[1])
+        + " ms; peak device memory above each run's start: dp = 2 "
+        + " ".join(f"{x:.3f}" for x in peaks[2]) + " GiB, dp = 1 "
+        + " ".join(f"{x:.3f}" for x in peaks[1]) + f" GiB on {card_line()}")
+    log(f"  launches dp = 1: {c1}")
+    log(f"  launches dp = 2: {c2}")
+    if not (np.all(np.isfinite(losses)) and np.array_equal(losses, again)):
+        raise AssertionError(f"dp = 2 losses not finite or not repeated: "
+                             f"{losses} against {again}")
+    if stats.get("batches_sampled") != J_DP4 * J_CHUNKS * C4_CHUNK:
+        raise AssertionError(f"dp = 2 sampled {stats}")
+    require_launched(c2, J_FORMS, "on path J(i)")
+    require_idle(c2, F32_FORMS, "on path J(i)")
+    off = [f for f in J_FORMS if c2[f] != J_DP4 * c1[f]]
+    if off:
+        raise AssertionError(f"dp = 2 launches not twice dp = 1's: {off}")
+    del tr2
+    gc.collect()
+    torch.cuda.empty_cache()
+    return [c2]
+
+
+def run_dp_tp_config2(dev, ds) -> list:
+    """Paths J(ii) and J(iii): config2's full-graph Trainer on dp = 4
+    naming the card four times (512 pairs a shard), 20 steps against the
+    Trainer without a mesh from the same initial parameters: step 1's loss
+    within LOSS_RTOL, its parameters within DP_TOL, the flash-GAT forward
+    and backward launched once a step; then config2's model on
+    J_TP (dp, tp) meshes, one step from the same parameters against the
+    no-mesh step 1 (TP_TOL). Returns the counts of the dp = 4 run and of
+    the tp steps."""
+    from bignn_tpu_torch import prng
+    from bignn_tpu_torch.config import get_config
+    from bignn_tpu_torch.data import prepare_device_data
+    from bignn_tpu_torch.models import BiGNN
+    from bignn_tpu_torch.models.bignn import upload_buckets
+    from bignn_tpu_torch.parallel import (
+        gather_params_tp,
+        make_mesh,
+        shard_params_tp,
+        tp_train_step_fn,
+    )
+    from bignn_tpu_torch.train import Trainer
+    from bignn_tpu_torch.train.trainer import make_optimizer
+
+    cfg = get_config("config2")
+    data = prepare_device_data(ds)
+    batches = _epoch_batches(data, cfg.train)
+    runs = {}
+    for dp in (J_DP2, None):
+        mesh = (None if dp is None
+                else make_mesh(dp=dp, graph=1, devices=[dev] * dp))
+        reset_counts()
+        tr = Trainer(BiGNN(cfg.model), data, cfg.train, device=dev,
+                     mesh=mesh)
+        tr.init(SEED)
+        step1 = {}
+        losses, grads = _timed_steps(tr, batches, f"dp = {dp or 'none'}",
+                                     step1=step1)
+        runs[dp] = (losses, step1, read_counts(), grads["outer.0.a_l"])
+        del tr
+    (l4, p4, n4, g4), (l1, p1, n1, g1) = runs[J_DP2], runs[None]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(l4, l1))
+    log(f"  losses dp = 4: {l4[0]:.6f} ... {l4[-1]:.6f}; without a mesh "
+        f"{l1[0]:.6f} ... {l1[-1]:.6f}; max relative difference over "
+        f"{len(l4)} steps {rel:.3e}")
+    _check_loss1("dp = 4 against no mesh", l4[0], l1[0])
+    _close_params("dp = 4 against no mesh", p4, p1, DP_TOL, (g4, g1))
+    if not np.all(np.isfinite(l4)):
+        raise AssertionError(f"dp = 4 losses {l4}")
+    for form in FLASH_FORMS:
+        if not n4[form] == n1[form] == len(batches):
+            raise AssertionError(f"{form}: {n4[form]} launches on dp = 4, "
+                                 f"{n1[form]} without a mesh, "
+                                 f"{len(batches)} steps")
+
+    log("  J(iii): config2's model sharded over tp, one step")
+    buckets, gidx = upload_buckets(data.bucketing, cfg.model.inner_layers,
+                                   dev)
+    outer = data.outer.to(dev)
+    pairs, mask = batches[0]
+    key = prng.fold_in(prng.fold_in(prng.key(cfg.train.seed + 1), 0), 0)
+    reset_counts()
+    for dp, tp in J_TP:
+        mesh = make_mesh(dp=dp, tp=tp, devices=[dev] * (dp * tp))
+        model = shard_params_tp(mesh, BiGNN(cfg.model, seed=SEED).to(dev))
+        opt = make_optimizer(model.parameters(), cfg.train)
+        t0 = time.perf_counter()
+        loss = tp_train_step_fn(model, opt, mesh, data.num_drugs,
+                                cfg.train.neg_ratio)(
+            key, pairs, mask, buckets, gidx, outer).item()
+        log(f"  (dp, tp) = ({dp}, {tp}): {len(list(model.parameters()))} "
+            f"parameter tensors, first step {time.perf_counter() - t0:.3f} "
+            "s")
+        _check_loss1(f"tp ({dp}, {tp}) against no mesh", loss, l1[0])
+        a_l = dict(model.named_parameters())["outer.0.a_l"].grad
+        _close_params(f"tp ({dp}, {tp}) against no mesh",
+                      gather_params_tp(model), p1, TP_TOL, (a_l, g1))
+        del model, opt
+    ct = read_counts()
+    log(f"  launches on the tp steps: {ct}")
+    require_launched(ct, FLASH_FORMS, "on the tp steps")
+    del buckets, gidx, outer, data
+    gc.collect()
+    torch.cuda.empty_cache()
+    return [n4, ct]
+
+
+def _dp_config3_step(dev) -> dict:
+    """config3's host-drawn step on dp = 2 (batches (0, 0) and (0, 1),
+    resident tables) against the union-batch reference on a trainer
+    without a mesh from the same init: the loss within LOSS_RTOL, the
+    gradients within GRAD_TOL. Returns the dp = 2 step's counts."""
+    from bignn_tpu_torch.config import get_config
+    from bignn_tpu_torch.data import load_dataset
+    from bignn_tpu_torch.models import BiGNN
+    from bignn_tpu_torch.parallel import make_mesh
+    from bignn_tpu_torch.train import MinibatchTrainer
+
+    cfg = get_config("config3")
+    ds = load_dataset(cfg.dataset, **cfg.dataset_kwargs)
+    trainers = [MinibatchTrainer(
+        BiGNN(cfg.model), ds, cfg.train, fanouts=cfg.fanouts,
+        max_drugs=cfg.max_drugs, mesh=mesh, device=dev)
+        for mesh in (make_mesh(dp=2, graph=1, devices=[dev] * 2), None)]
+    tr2, tr1 = trainers
+    tr2.init(SEED)
+    hbs = tr2._draw_host(at=(0, 0))
+    reset_counts()
+    loss2 = tr2.train_step(hbs).item()
+    counts = read_counts()
+    grads2 = {k: p.grad.clone() for k, p in tr2.model.named_parameters()}
+    tr1.init(SEED)
+    ref, grads1 = _union_reference(tr1, [b.to(dev) for b in hbs])
+    _check_loss1("config3 host-drawn dp = 2 against the union-batch "
+                 "reference", loss2, ref)
+    _check_step1(grads2, grads1, loss2, ref, torch.float32)
+    return counts
+
+
+def run_dp_entry_points(dev) -> list:
+    """Path J(iv): run.main on config2 (2 epochs) and on config3 with
+    --exact-eval (1 epoch), each with --dp 2 and without, in-process on the
+    default device; each run's seconds, losses, best epoch and test AUC.
+    config2's --dp 2 run has the trajectory of the run without it: the same
+    best epoch, epoch losses within DP_RUN_RTOL, test AUC within DP_RUN_AUC.
+    config3's --dp 2 epoch draws dp * ceil(n / dp) of the n batches the run
+    without it draws; its step is held by _dp_config3_step. Returns the
+    counts of the --dp runs and of that step."""
+    from bignn_tpu_torch import run
+
+    counts, runs = [], {}
+    for argv in (["--config", "config2", "--epochs", "2"],
+                 ["--config", "config3", "--exact-eval", "--epochs", "1"]):
+        for dp in (["--dp", "2"], []):
+            reset_counts()
+            res = _timed_main(run.main, argv + dp,
+                              "run " + " ".join(argv + dp))
+            if dp:
+                counts.append(read_counts())
+            log(f"  losses {[r['loss'] for r in res['history']]}, best "
+                f"epoch {res['best_epoch']}, test_auc {res['test_auc']:.6f}"
+                + (f", exact test_auc {res['exact_test_auc']:.6f}"
+                   if "exact_test_auc" in res else ""))
+            aucs = [v for k, v in res.items() if k.endswith("_auc")]
+            if not (all(np.isfinite(r["loss"]) for r in res["history"])
+                    and all(0.0 < a < 1.0 for a in aucs)):
+                raise AssertionError(f"run {argv + dp}: {res}")
+            runs[argv[1], bool(dp)] = res
+    require_launched(counts[0], FLASH_FORMS, "on run config2 --dp 2")
+
+    got, want = runs["config2", True], runs["config2", False]
+    losses = [(g["loss"], w["loss"]) for g, w in zip(got["history"],
+                                                      want["history"])]
+    worst = max(abs(g - w) / abs(w) for g, w in losses)
+    log(f"  config2 --dp 2 against no --dp: epoch losses max relative "
+        f"difference {worst:.3e} (bound {DP_RUN_RTOL:g}), test_auc "
+        f"{got['test_auc'] - want['test_auc']:+.3e} (bound {DP_RUN_AUC:g})")
+    if not (len(losses) == len(want["history"]) == 2
+            and worst <= DP_RUN_RTOL
+            and got["best_epoch"] == want["best_epoch"]
+            and abs(got["test_auc"] - want["test_auc"]) <= DP_RUN_AUC):
+        raise AssertionError(f"run config2 --dp 2 {got} against {want}")
+
+    n = runs["config3", False]["history"][0]["batches_sampled"]
+    n2 = runs["config3", True]["history"][0]["batches_sampled"]
+    log(f"  config3: {n2} batches sampled on --dp 2, {n} without")
+    if n2 != 2 * -(-n // 2):
+        raise AssertionError(f"config3 --dp 2 sampled {n2} batches, {n} "
+                             "without")
+    log("  config3's host-drawn step on dp = 2")
+    counts.append(_dp_config3_step(dev))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
 
 
 def _timed_main(main, argv: list, what: str):
@@ -3377,7 +3764,22 @@ def main() -> int:
     path_i0 = time.perf_counter()
     counts.append(run_exact_config4(c4_trainer))
     path_i_s = time.perf_counter() - path_i0
+    log("== path J: data and feature parallelism, the card named several "
+        "times; (i) config4 on dp = 2")
+    path_j0 = time.perf_counter()
+    path_j = run_dp_config4(dev, large, c4_trainer)
     del large, c4_trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("== path J(ii): config2's Trainer on dp = 4; (iii) tp")
+    path_j += run_dp_tp_config2(dev, ds)
+    log("== path J(iv): run --dp 2, config2 and config3 --exact-eval")
+    path_j += run_dp_entry_points(dev)
+    counts += path_j
+    log(f"path J: {time.perf_counter() - path_j0:.1f} s on {card_line()}; "
+        "launches " + ", ".join(f"{f} {sum(c[f] for c in path_j)}"
+                                for f in KERNELS
+                                if any(c[f] for c in path_j)))
     gc.collect()
     torch.cuda.empty_cache()
     log("== path A: config2 and config1 streaming, molecules up to 160 atoms")

@@ -224,14 +224,27 @@ def test_run_p2_matches_jax(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("argv,error", [
-    (["--dp", "2"], NotImplementedError),
+    (["--dp", "2"], None),
     (["--coordinator", "localhost:1234"], NotImplementedError),
     (["--num-processes", "2"], NotImplementedError),
     (["--process-id", "0"], NotImplementedError),
 ])
-def test_run_refuses_what_waits(argv, error):
-    with pytest.raises(error, match="item 5"):
-        _port(["--config", "config1", *argv])
+def test_run_refuses_what_waits(config1_run, tmp_path, argv, error):
+    """The multi-host flags raise; ``--dp 2`` runs config1 on a mesh that
+    names the CPU twice, with the trajectory of the run without it."""
+    if error is not None:
+        with pytest.raises(error, match="item 11"):
+            _port(["--config", "config1", *argv])
+        return
+    _, want, _ = config1_run
+    got = _port([*CONFIG1, *argv, "--run-dir", str(tmp_path)])
+    np.testing.assert_allclose(_losses(got), _losses(want), rtol=1e-5)
+    assert got["best_epoch"] == want["best_epoch"]
+    np.testing.assert_allclose(got["test_auc"], want["test_auc"], atol=1e-6)
+    records = [json.loads(line) for line in
+               (tmp_path / "metrics.jsonl").read_text().splitlines()]
+    assert {"event": "mesh", "dp": 2, "graph": 1}.items() <= next(
+        r for r in records if r.get("event") == "mesh").items()
 
 
 def test_run_on_cuda_without_a_card_raises():

@@ -120,8 +120,9 @@ def test_chunks_equal_single_steps(ds):
     b.init(0)
     dev, stats = b.train_chunk_device(1, 8)
     steps = torch.stack([
-        a._step(b.dsampler.sample(b._dev_consts, b.dsampler.key_at(1, 8 + j))
-                [0]) for j in range(4)])
+        a.train_step(b.dsampler.sample(b._dev_consts,
+                                       b.dsampler.key_at(1, 8 + j))[0])
+        for j in range(4)])
     assert torch.equal(dev, steps)
     assert int(stats["batches_sampled"]) == 4
 
@@ -229,7 +230,9 @@ def test_fit_host_sampled_is_independent_of_workers(ds):
 
 
 def test_left_out_paths_raise(ds):
-    with pytest.raises(NotImplementedError, match="item 5"):
+    """A mesh without a 'dp' axis (tests/test_torch_dp.py runs the dp
+    mesh); device_sample without resident tables."""
+    with pytest.raises(ValueError, match="'dp' axis"):
         _trainer(ds, mesh=object())
     with pytest.raises(ValueError, match="resident"):
         _trainer(ds, resident=False, device_sample=True)

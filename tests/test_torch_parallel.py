@@ -293,8 +293,17 @@ def test_make_mesh():
         make_mesh(dp=1, graph=2, devices=["cuda:0", "cuda:1"])
     with pytest.raises(NotImplementedError):
         make_mesh(dp=2, graph=1, devices=["cpu", "cuda:0"])
-    with pytest.raises(NotImplementedError):
-        make_mesh(dp=1, tp=2, devices=["cpu"] * 2)
+    # the tp axis (JAX bignn_tpu/parallel/mesh.py:31-39)
+    mesh = make_mesh(dp=2, tp=2, devices=["cpu"] * 4)
+    assert mesh.shape == {"dp": 2, "tp": 2}
+    assert mesh.device == torch.device("cpu")
+    assert make_mesh(tp=4, devices=["cpu"] * 8).shape == {"dp": 2, "tp": 4}
+    with pytest.raises(ValueError, match="don't compose"):
+        make_mesh(dp=1, graph=2, tp=2, devices=["cpu"] * 2)
+    with pytest.raises(ValueError, match="device count"):
+        make_mesh(dp=3, tp=2, devices=["cpu"] * 4)
+    with pytest.raises(NotImplementedError, match="item 11"):
+        make_mesh(dp=1, tp=2, devices=["cuda:0", "cuda:1"])
 
 
 # ---------------------------------------------------------------------------
@@ -561,6 +570,42 @@ def test_p2_step_matches_jax(datasets, dp, graph, overlap, remat, outer):
                                    rtol=TOL["rtol"],
                                    atol=TOL["atol"] * max(scale, 1.0),
                                    err_msg=name)
+        np.testing.assert_allclose(p.detach().numpy(), want_p[name].numpy(),
+                                   **STEP_TOL, err_msg=name)
+
+
+@pytest.mark.parametrize("opt_name", ["adam", "sgd"])
+def test_p2_step_clips_like_jax(datasets, opt_name):
+    """grad_clip 1e-3 on 4 graph shards: one step against JAX's p2 step
+    with the same optimizer behind optax.clip_by_global_norm: Adam, as
+    make_optimizer chains it, and SGD at lr 1, whose update is the clipped
+    gradient itself (Adam's first step hardly sees the gradient's scale).
+    The norm is taken once over the replicated parameters."""
+    ds, jds = datasets
+    cfg = JaxBiGNNConfig.full_bignn(feat_dim=8, dim=16, heads=2)
+    jmodel = JaxBiGNN(cfg)
+    params = jmodel.init(jax.random.key(1))
+    inner = optax.adam(1e-3) if opt_name == "adam" else optax.sgd(1.0)
+    opt = optax.chain(optax.clip_by_global_norm(1e-3), inner)
+    jmesh, jplan = _jax_side(jds, cfg, 1, 4, False)
+    pos, mask = _pos(), np.ones(16, np.float32)
+    with jax_ops.backend_scope("xla"), jmesh:
+        new_params, _, loss = jax_p2_step(jmodel, opt, jmesh, jds.num_drugs)(
+            params, opt.init(params), jax.random.key(9), jnp.asarray(pos),
+            jnp.asarray(mask), *jplan)
+    model = BiGNN(BiGNNConfig(**dataclasses.asdict(cfg)))
+    model.load_state_dict(bridge.params_from_jax(_np_tree(params)))
+    mesh, plan_d = _port_side(ds, model, 1, 4, False)
+    optimizer = (torch.optim.Adam(model.parameters(), lr=1e-3)
+                 if opt_name == "adam"
+                 else torch.optim.SGD(model.parameters(), lr=1.0))
+    got = make_p2_train_step(model, optimizer, mesh, ds.num_drugs,
+                             grad_clip=1e-3)(prng.key(9), pos, mask, plan_d)
+    np.testing.assert_allclose(got.item(), float(loss), **STEP_TOL)
+    norm = torch.stack([p.grad.norm() for p in model.parameters()]).norm()
+    assert norm <= 1e-3 * (1 + 1e-5)
+    want_p = bridge.params_from_jax(_np_tree(new_params))
+    for name, p in model.named_parameters():
         np.testing.assert_allclose(p.detach().numpy(), want_p[name].numpy(),
                                    **STEP_TOL, err_msg=name)
 

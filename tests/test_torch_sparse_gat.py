@@ -38,10 +38,10 @@ from bignn_tpu_torch import bridge, ops
 from bignn_tpu_torch.config import TrainConfig
 from bignn_tpu_torch.data import make_synthetic_ddi, prepare_device_data
 from bignn_tpu_torch.models import BiGNN, BiGNNConfig, parse_conv
+from bignn_tpu_torch.parallel import dp as dp_mod
 from bignn_tpu_torch.sparse import build_outer_graph
 from bignn_tpu_torch.sparse.formats import src_sort_arrays
 from bignn_tpu_torch.train import Trainer
-from bignn_tpu_torch.train import trainer as trainer_mod
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 GRAD_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -428,7 +428,7 @@ def test_train_step_on_sparse_outer_matches_jax():
             mask = np.ones(32, np.float32)
             mask[-3:] = 0.0
             neg = rng.integers(0, 48, (32, 2)).astype(np.int32)
-            mp.setattr(trainer_mod, "sample_negative_pairs",
+            mp.setattr(dp_mod, "sample_negative_pairs",
                        lambda key, p, n, r, neg=neg: t(neg))
             loss, grads = step_fn(params, jnp.asarray(pos),
                                   jnp.asarray(mask), jnp.asarray(neg))

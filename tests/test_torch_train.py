@@ -37,8 +37,8 @@ from bignn_tpu_torch.data.sampler import (
 )
 from bignn_tpu_torch.models import BiGNN, BiGNNConfig
 from bignn_tpu_torch.models.loss import bce_with_logits_loss
+from bignn_tpu_torch.parallel import dp as dp_mod
 from bignn_tpu_torch.train import CheckpointManager, Trainer, metrics
-from bignn_tpu_torch.train import trainer as trainer_mod
 
 TOL = dict(rtol=2e-4, atol=2e-5)
 KW = dict(num_drugs=48, feat_dim=8, avg_degree=6.0, min_atoms=4,
@@ -227,7 +227,7 @@ def test_train_step_matches_jax(weight_decay):
             mask = np.ones(32, np.float32)
             mask[-3:] = 0.0
             neg = rng.integers(0, 48, (32, 2)).astype(np.int32)
-            mp.setattr(trainer_mod, "sample_negative_pairs",
+            mp.setattr(dp_mod, "sample_negative_pairs",
                        lambda key, p, n, r, neg=neg: t(neg))
             loss, grads = step_fn(params, jnp.asarray(pos),
                                   jnp.asarray(mask), jnp.asarray(neg))
