@@ -12,9 +12,22 @@
 // the shards of a mesh share one card, so the exchange is one kernel over
 // every (destination j, source i) pair: stream order is the barrier (every
 // send buffer is written before the launch, every receive buffer read after
-// it). The entry point takes arrays of G source and G destination base
-// pointers, so a later port of peer access can hand it a peer card's
-// buffers unchanged.
+// it). The entry point takes arrays of source and destination base
+// pointers, so a source may lie in another process's memory.
+//
+// Across processes (the multi-process p2 run, ops/collectives.py
+// PeerExchange): each process copies its local shards' send buffers into a
+// staging buffer of its own (bignn_ipc_alloc, cudaMalloc'd outside
+// PyTorch's caching allocator so that one IPC handle covers exactly it),
+// the processes trade the handles once and map each other's staging
+// buffers (bignn_ipc_open, cudaIpcOpenMemHandle). Where the TPU kernel
+// pushes each chunk into its peer by remote DMA, this one pulls: a
+// process's launch (bignn_all_to_all on a range of destinations) writes
+// only its own receive buffers, recv_j[i] = send_i[j] for its destinations
+// j in [j_begin, j_begin + j_count), reading every source i from local or
+// peer-mapped pointers. The TPU kernel's barrier semaphore becomes a process-group
+// barrier on the host, once the staging copies are done and again once
+// every launch that reads them is.
 //
 // Design: the grid is (piece of a chunk, pair j * G + i); a block copies
 // 16 KB tiles of one chunk, each thread kUnroll words loaded before any is
@@ -32,6 +45,7 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <cstring>
 
 namespace {
 
@@ -70,11 +84,12 @@ __device__ void copy_chunk(const unsigned char* src, unsigned char* dst,
 }
 
 __global__ void __launch_bounds__(kThreads)
-    exchange(Shards shards, int num_shards, long long chunk_bytes) {
-  const int j = blockIdx.y / num_shards;  // destination shard
-  const int i = blockIdx.y % num_shards;  // source shard
-  const unsigned char* src = shards.send[i] + j * chunk_bytes;
-  unsigned char* dst = shards.recv[j] + i * chunk_bytes;
+    exchange(Shards shards, int num_shards, int j_begin,
+             long long chunk_bytes) {
+  const int jj = blockIdx.y / num_shards;  // destination, from j_begin
+  const int i = blockIdx.y % num_shards;   // source shard
+  const unsigned char* src = shards.send[i] + (j_begin + jj) * chunk_bytes;
+  unsigned char* dst = shards.recv[jj] + i * chunk_bytes;
   const uint64_t align = reinterpret_cast<uintptr_t>(src) |
                          reinterpret_cast<uintptr_t>(dst) |
                          static_cast<uint64_t>(chunk_bytes);
@@ -93,29 +108,68 @@ __global__ void __launch_bounds__(kThreads)
 
 }  // namespace
 
+static_assert(sizeof(cudaIpcMemHandle_t) == 64,
+              "ops/collectives.py trades 64-byte IPC handles");
+
 extern "C" {
 
-// send[i], recv[j]: device base pointers of the G = num_shards buffers;
-// chunk_bytes: the bytes of one slot (S * F * sizeof(T)). Nothing to move
-// (chunk_bytes 0) launches nothing.
+// send[i]: the device base pointers of the G = num_shards send buffers
+// (local, or a peer's staging buffer mapped here); recv[jj]: those of the
+// receive buffers of destinations j_begin + jj, jj < j_count (one process
+// of a mesh: 0 and G); chunk_bytes: the bytes of one slot
+// (S * F * sizeof(T)). Nothing to move (chunk_bytes 0) launches nothing.
 int bignn_all_to_all(const void* const* send, void* const* recv,
-                     int num_shards, long long chunk_bytes,
-                     cudaStream_t stream) {
-  if (num_shards < 1 || num_shards > kMaxShards || chunk_bytes < 0) {
+                     int num_shards, int j_begin, int j_count,
+                     long long chunk_bytes, cudaStream_t stream) {
+  if (num_shards < 1 || num_shards > kMaxShards || chunk_bytes < 0 ||
+      j_begin < 0 || j_count < 1 || j_begin + j_count > num_shards) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (chunk_bytes == 0) return static_cast<int>(cudaSuccess);
   Shards shards;
   for (int s = 0; s < num_shards; ++s) {
     shards.send[s] = static_cast<const unsigned char*>(send[s]);
+  }
+  for (int s = 0; s < j_count; ++s) {
     shards.recv[s] = static_cast<unsigned char*>(recv[s]);
   }
   long long pieces = (chunk_bytes + kTileBytes - 1) / kTileBytes;
   if (pieces > kMaxPieces) pieces = kMaxPieces;
   const dim3 grid(static_cast<unsigned>(pieces),
-                  static_cast<unsigned>(num_shards * num_shards));
-  exchange<<<grid, kThreads, 0, stream>>>(shards, num_shards, chunk_bytes);
+                  static_cast<unsigned>(j_count * num_shards));
+  exchange<<<grid, kThreads, 0, stream>>>(shards, num_shards, j_begin,
+                                          chunk_bytes);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The staging buffer of the exchange across processes, on the current
+// device.
+int bignn_ipc_alloc(long long bytes, void** out) {
+  *out = nullptr;
+  return static_cast<int>(cudaMalloc(out, static_cast<size_t>(bytes)));
+}
+
+int bignn_ipc_free(void* ptr) { return static_cast<int>(cudaFree(ptr)); }
+
+// Writes the 64 bytes of ptr's cudaIpcMemHandle_t to out.
+int bignn_ipc_handle(void* ptr, void* out) {
+  cudaIpcMemHandle_t handle;
+  const cudaError_t err = cudaIpcGetMemHandle(&handle, ptr);
+  if (err == cudaSuccess) std::memcpy(out, &handle, sizeof(handle));
+  return static_cast<int>(err);
+}
+
+// Maps another process's staging buffer from its 64-byte handle.
+int bignn_ipc_open(const void* handle_bytes, void** out) {
+  cudaIpcMemHandle_t handle;
+  std::memcpy(&handle, handle_bytes, sizeof(handle));
+  *out = nullptr;
+  return static_cast<int>(
+      cudaIpcOpenMemHandle(out, handle, cudaIpcMemLazyEnablePeerAccess));
+}
+
+int bignn_ipc_close(void* ptr) {
+  return static_cast<int>(cudaIpcCloseMemHandle(ptr));
 }
 
 }  // extern "C"

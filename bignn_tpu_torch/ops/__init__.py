@@ -10,7 +10,9 @@ backward ``flash_gat_attention_bwd``, ``segment_softmax`` and its backward
 (the same kernel on the transposed plan), ``segment_max`` and its
 backward ``segment_max_bwd``, and
 ``all_to_all``, the exchange of the graph shards' send buffers in the
-halo layers of ``parallel/halo.py`` (its backward the same exchange).
+halo layers of ``parallel/halo.py`` (its backward the same exchange;
+across processes through a ``ProcessExchange``, ``PeerExchange`` on the
+card).
 ``sddmm`` (the per-edge scores of ``DotAttnConv``) is plain PyTorch, as
 the JAX package leaves it to XLA.
 ``segment_sum``, ``flash_gat_attention``, ``segment_softmax``,
@@ -37,7 +39,12 @@ from bignn_tpu_torch.ops.block_spmm import (
     block_spmm_bwd,
     block_spmm_plain,
 )
-from bignn_tpu_torch.ops.collectives import all_to_all, all_to_all_plain
+from bignn_tpu_torch.ops.collectives import (
+    PeerExchange,
+    ProcessExchange,
+    all_to_all,
+    all_to_all_plain,
+)
 from bignn_tpu_torch.ops.flash_gat import (
     flash_gat_attention,
     flash_gat_attention_bwd,
@@ -81,6 +88,8 @@ from bignn_tpu_torch.ops.spmm import (
 )
 
 __all__ = [
+    "PeerExchange",
+    "ProcessExchange",
     "all_to_all",
     "all_to_all_plain",
     "block_adjacency",

@@ -9,9 +9,23 @@ receive buffers: ``recv[j][i] = sendbufs[i][j]``. It is a
 cotangents (the exchange is its own adjoint, as the JAX kernel's
 ``custom_vjp`` has it). CUDA buffers go to the kernel of
 ``csrc/all_to_all.cu``, one launch for the whole exchange; CPU buffers take
-``all_to_all_plain``. Buffers on distinct CUDA devices need peer access,
-still to port, and raise, as does a mix of devices. The wrapper counts its
-launches (forward and backward) per element type.
+``all_to_all_plain``. The wrapper counts its launches (forward and
+backward) per element type.
+
+Across processes (the multi-process p2 run), ``all_to_all(sendbufs,
+exchange)`` takes this process's shards' send buffers (each ``[G, ...]``)
+and returns their receive buffers, through ``exchange``, a
+``ProcessExchange`` built collectively once per mesh
+(``parallel.comm.make_exchange``). On the CPU, and as the plain version
+on the card, it gathers every process's send buffers through the process
+group (gloo) and takes its slots of ``all_to_all_plain``. On the card, ``PeerExchange``
+copies the send buffers into a staging buffer that every process maps by
+CUDA IPC, and one launch of the kernel pulls this process's receive
+buffers from every source; its launches count under
+``all_to_all:<dtype>:procs``. The same objects give the rank-order
+all-gather and sum that keep the replicated state equal in every process
+(``parallel/comm.py``). Buffers on distinct CUDA devices in one process,
+and a mix of devices, raise: the port drives one card a process.
 """
 
 from __future__ import annotations
@@ -20,18 +34,21 @@ import ctypes
 from typing import Sequence
 
 import torch
+import torch.distributed as dist
 
 from bignn_tpu_torch.ops import cuda_lib
 
 MAX_SHARDS = 32  # kMaxShards of csrc/all_to_all.cu
 
 
-def _check(bufs: Sequence[torch.Tensor]) -> torch.device:
-    """The one device of ``bufs``; raises unless they are G >= 1 contiguous
-    buffers of one shape and type with a leading axis of G."""
-    g = len(bufs)
-    if g == 0:
+def _check(bufs: Sequence[torch.Tensor], g: int | None = None
+           ) -> torch.device:
+    """The one device of ``bufs``; raises unless they are contiguous
+    buffers of one shape and type with a leading axis of G (default: one
+    buffer a shard, G of them)."""
+    if not bufs:
         raise ValueError("all_to_all needs at least one send buffer")
+    g = len(bufs) if g is None else g
     first = bufs[0]
     for b in bufs:
         if b.dim() < 1 or b.shape[0] != g:
@@ -47,16 +64,22 @@ def _check(bufs: Sequence[torch.Tensor]) -> torch.device:
     if len(devices) > 1:
         if {d.type for d in devices} == {"cuda"}:
             raise NotImplementedError(
-                "an exchange between distinct CUDA devices needs peer "
-                "access, which is still to port (ROADMAP Queue 1 item 11)")
+                "an exchange between distinct CUDA devices in one process: "
+                "the port drives one card a process (PeerExchange)")
         raise NotImplementedError(
             f"send buffers on several devices {sorted(map(str, devices))}")
     return first.device
 
 
-def all_to_all_plain(sendbufs: Sequence[torch.Tensor]) -> list[torch.Tensor]:
+def all_to_all_plain(sendbufs: Sequence[torch.Tensor],
+                     exchange: "ProcessExchange | None" = None
+                     ) -> list[torch.Tensor]:
     """Plain version: stack the buffers ``[G (source), G (slot), ...]`` and
-    take slot j of every source for shard j. Differentiable by autograd."""
+    take slot j of every source for shard j (with ``exchange``, its own
+    plain version over every process's buffers). Differentiable by
+    autograd."""
+    if exchange is not None:
+        return exchange.all_to_all_plain(sendbufs)
     stacked = torch.stack(list(sendbufs))
     return [stacked[:, j].contiguous() for j in range(len(sendbufs))]
 
@@ -77,8 +100,8 @@ def all_to_all_launch(bufs: Sequence[torch.Tensor]) -> list[torch.Tensor]:
     if chunk:
         send_ptrs = (ctypes.c_void_p * g)(*(b.data_ptr() for b in bufs))
         recv_ptrs = (ctypes.c_void_p * g)(*(r.data_ptr() for r in recv))
-        cuda_lib.launch("bignn_all_to_all", dev, send_ptrs, recv_ptrs, g,
-                        chunk)
+        cuda_lib.launch("bignn_all_to_all", dev, send_ptrs, recv_ptrs, g, 0,
+                        g, chunk)
         cuda_lib.count(all_to_all, bufs[0].dtype)
     return recv
 
@@ -93,13 +116,300 @@ class _AllToAll(torch.autograd.Function):
         return tuple(all_to_all_launch([g.contiguous() for g in grads]))
 
 
-def all_to_all(sendbufs: Sequence[torch.Tensor]) -> list[torch.Tensor]:
+def all_to_all(sendbufs: Sequence[torch.Tensor],
+               exchange: "ProcessExchange | None" = None
+               ) -> list[torch.Tensor]:
     """``recv[j][i] = sendbufs[i][j]`` for the G ``[G, ...]`` send buffers
-    of a mesh's graph shards; see the module docstring."""
+    of a mesh's graph shards; with ``exchange``, ``sendbufs`` are this
+    process's shards' and the result their receive buffers. See the module
+    docstring."""
     bufs = list(sendbufs)
+    if exchange is not None:
+        if len(bufs) != len(exchange.local):
+            raise ValueError(f"{len(bufs)} send buffers for this process's "
+                             f"{len(exchange.local)} shards")
+        _check(bufs, exchange.num_shards)
+        return list(_ProcsAllToAll.apply(exchange, *bufs))
     if _check(bufs).type == "cpu":
         return all_to_all_plain(bufs)
     return list(_AllToAll.apply(*bufs))
 
 
 cuda_lib.counter(all_to_all)
+
+
+# ---------------------------------------------------------------------------
+# the exchange across processes
+# ---------------------------------------------------------------------------
+
+
+class _ProcsAllToAll(torch.autograd.Function):
+    """The exchange across processes; its backward the same exchange of
+    the cotangents, which every process runs in the same order as its
+    forward exchanges, reversed."""
+
+    @staticmethod
+    def forward(ctx, exchange, *bufs):
+        ctx.exchange = exchange
+        return tuple(exchange.exchange(bufs))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, *ctx.exchange.exchange([g.contiguous()
+                                               for g in grads]))
+
+
+class ProcessExchange:
+    """The data plane between the processes of the group, through the
+    process group (``torch.distributed``, gloo): the CPU route, and the
+    plain version on the card. Built by every process at once (a
+    collective).
+
+    ``local``: this process's graph shards of ``num_shards``, a contiguous
+    run; in rank order the processes' runs cover ``range(num_shards)``
+    (the host-major layout of ``make_hybrid_mesh``), so a rank-order
+    gather is in shard order."""
+
+    def __init__(self, num_shards: int, local: Sequence[int],
+                 device: str | torch.device):
+        if not dist.is_initialized():
+            raise ValueError("an exchange across processes needs a process "
+                             "group (parallel.init_distributed)")
+        self.num_shards = int(num_shards)
+        self.local = [int(j) for j in local]
+        self.device = torch.device(device)
+        self.rank, self.size = dist.get_rank(), dist.get_world_size()
+        self.owners = [None] * self.size
+        dist.all_gather_object(self.owners, self.local)
+        if [j for run in self.owners for j in run] != list(
+                range(self.num_shards)):
+            raise ValueError(
+                f"the processes' graph shards {self.owners} do not lie "
+                f"host-major over range({self.num_shards})")
+
+    def gather(self, t: torch.Tensor) -> list[torch.Tensor]:
+        """Every process's ``t`` (one shape and type everywhere) in rank
+        order, through the process group; a CUDA tensor goes through a
+        host copy (gloo's collectives are the host's)."""
+        host = t.detach().cpu().contiguous()
+        parts = [torch.empty_like(host) for _ in range(self.size)]
+        dist.all_gather(parts, host)
+        return [p.to(t.device) for p in parts]
+
+    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
+        """The processes' ``t`` concatenated along the first axis, in rank
+        order."""
+        return torch.cat(self.gather(t))
+
+    def ordered_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum of every process's ``t``, added in rank order, so that
+        every process holds the same bits (no ``all_reduce``, whose order is
+        not the port's to fix)."""
+        parts = self.gather(t)
+        total = parts[0]
+        for p in parts[1:]:
+            total = total + p
+        return total
+
+    def all_to_all_plain(self, bufs: Sequence[torch.Tensor]
+                         ) -> list[torch.Tensor]:
+        """Plain version: every process's send buffers gathered in shard
+        order, ``all_to_all_plain`` over them, this process's slots."""
+        full = self.all_gather(torch.stack(list(bufs)))
+        recv = all_to_all_plain(list(full))
+        return [recv[j] for j in self.local]
+
+    def exchange(self, bufs: Sequence[torch.Tensor]) -> list[torch.Tensor]:
+        """This process's receive buffers (the route of ``all_to_all``)."""
+        if bufs[0].device.type == "cuda":
+            raise NotImplementedError(
+                "an exchange of CUDA buffers across processes goes through "
+                "PeerExchange (parallel.comm.make_exchange on the card)")
+        return self.all_to_all_plain(bufs)
+
+    def close(self) -> None:
+        """Free what the exchange holds outside PyTorch's memory (a
+        collective; nothing here)."""
+
+
+class _CudaArray:
+    """``count`` bytes at a device pointer, for ``torch.as_tensor`` (the
+    CUDA array interface: a view, no copy)."""
+
+    def __init__(self, ptr: int, count: int):
+        self.__cuda_array_interface__ = {
+            "shape": (count,), "typestr": "|u1", "data": (ptr, False),
+            "strides": None, "version": 2}
+
+
+class PeerExchange(ProcessExchange):
+    """The exchange across processes on the card, through CUDA IPC.
+
+    Each process owns one staging buffer (``bignn_ipc_alloc``, outside
+    PyTorch's caching allocator) and maps every peer's (``bignn_ipc_open``
+    on the handles traded through the process group). An exchange: (1)
+    this process's send buffers are copied into its staging buffer; (2) its
+    stream is synchronised, then a process-group barrier; (3) one launch of
+    ``bignn_all_to_all`` writes its receive buffers, reading every
+    source from its own or a peer's staging buffer; (4) its stream is
+    synchronised, then a barrier, before any staging buffer is written
+    again. ``all_gather`` and ``ordered_sum`` run the same protocol with
+    PyTorch ops on the mapped buffers in place of the launch. The buffer
+    grows to the largest payload seen (every process sees the same
+    shapes), by a collective re-exchange of the handles. The buffers live
+    until ``close`` (a collective), or the process's end. A failed
+    allocation, IPC open or launch raises."""
+
+    def __init__(self, num_shards: int, local: Sequence[int],
+                 device: str | torch.device):
+        super().__init__(num_shards, local, device)
+        if self.device.type != "cuda":
+            raise ValueError(f"PeerExchange needs a CUDA device, got "
+                             f"{self.device}")
+        if self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        self.capacity = 0  # bytes of every process's staging buffer
+        self._own: int | None = None
+        self._peers: list[int] = []  # each process's buffer, as mapped here
+
+    def _reserve(self, nbytes: int) -> None:
+        """Staging buffers of at least ``nbytes`` in every process (every
+        process asks for the same ``nbytes``)."""
+        if nbytes <= self.capacity:
+            return
+        self.close()
+        ptr = ctypes.c_void_p()
+        cuda_lib.call("bignn_ipc_alloc", self.device, nbytes,
+                      ctypes.byref(ptr))
+        self._own = ptr.value
+        handle = ctypes.create_string_buffer(64)
+        cuda_lib.call("bignn_ipc_handle", self.device, self._own, handle)
+        handles = [None] * self.size
+        dist.all_gather_object(handles, handle.raw)
+        self._peers = []
+        for p, raw in enumerate(handles):
+            if p == self.rank:
+                self._peers.append(self._own)
+                continue
+            mapped = ctypes.c_void_p()
+            cuda_lib.call("bignn_ipc_open", self.device,
+                          ctypes.create_string_buffer(raw, 64),
+                          ctypes.byref(mapped))
+            self._peers.append(mapped.value)
+        self.capacity = nbytes
+
+    def close(self) -> None:
+        """Unmap the peers' buffers and free this one's, once no process
+        reads it (a collective)."""
+        if self._own is None:
+            return
+        torch.cuda.synchronize(self.device)
+        dist.barrier()
+        for p, ptr in enumerate(self._peers):
+            if p != self.rank:
+                cuda_lib.call("bignn_ipc_close", self.device, ptr)
+        dist.barrier()  # no process maps this buffer any more
+        cuda_lib.call("bignn_ipc_free", self.device, self._own)
+        self._own, self._peers, self.capacity = None, [], 0
+
+    def _staged(self, p: int, like: torch.Tensor, count: int = 1
+                ) -> torch.Tensor:
+        """Process p's staging buffer as ``count`` tensors shaped like
+        ``like`` (one ``[count, *like.shape]`` view)."""
+        nbytes = count * like.numel() * like.element_size()
+        raw = torch.as_tensor(_CudaArray(self._peers[p], nbytes))
+        if raw.device != self.device:  # a peer's buffer on another card
+            raise NotImplementedError(
+                f"process {p}'s staging buffer maps to {raw.device}, this "
+                f"process's card is {self.device}: shards on distinct cards "
+                "are written but were never run")
+        return raw.view(like.dtype).view(count, *like.shape)
+
+    def _publish(self, tensors: Sequence[torch.Tensor]) -> None:
+        """Steps (1) and (2): ``tensors`` into this process's staging
+        buffer, then every process's copies done."""
+        first = tensors[0]
+        # the same size in every process: as many tensors as the most
+        # shards a process holds
+        self._reserve(first.numel() * first.element_size()
+                      * max(len(run) for run in self.owners))
+        self._staged(self.rank, first, len(tensors)).copy_(
+            torch.stack([t.detach() for t in tensors]))
+        torch.cuda.current_stream(self.device).synchronize()
+        dist.barrier()
+
+    def _release(self) -> None:
+        """Step (4): this process's reads done, then every process's."""
+        torch.cuda.current_stream(self.device).synchronize()
+        dist.barrier()
+
+    def exchange(self, bufs: Sequence[torch.Tensor]) -> list[torch.Tensor]:
+        if bufs[0].device.type != "cuda":
+            return self.all_to_all_plain(bufs)
+        return self.launch(bufs)
+
+    def launch(self, bufs: Sequence[torch.Tensor]) -> list[torch.Tensor]:
+        """Steps (1)-(4) with one kernel launch: this process's receive
+        buffers."""
+        bufs = list(bufs)
+        for b in bufs:
+            if b.device != self.device:
+                raise ValueError(f"send buffer on {b.device}, the "
+                                 f"exchange's device is {self.device}")
+        if self.num_shards > MAX_SHARDS:
+            raise ValueError(f"all_to_all kernel takes at most {MAX_SHARDS} "
+                             f"shards, got {self.num_shards}")
+        self._publish(bufs)
+        recv = [torch.empty_like(b) for b in bufs]
+        self.launch_staged(recv)
+        self._release()
+        return recv
+
+    def launch_staged(self, recv: Sequence[torch.Tensor]) -> None:
+        """Step (3) alone: one launch into ``recv`` (this process's receive
+        buffers, each shaped like a send buffer) from the staging buffers as
+        they stand, with no copy and no barrier; the caller keeps every
+        process's staging buffer unchanged until it has synchronised."""
+        slot = recv[0].numel() * recv[0].element_size()  # one send buffer
+        chunk = slot // self.num_shards
+        if not chunk:
+            return
+        sources = []
+        for p, run in enumerate(self.owners):
+            sources += [self._peers[p] + k * slot for k in range(len(run))]
+        send_ptrs = (ctypes.c_void_p * self.num_shards)(*sources)
+        recv_ptrs = (ctypes.c_void_p * len(recv))(
+            *(r.data_ptr() for r in recv))
+        cuda_lib.launch("bignn_all_to_all", self.device, send_ptrs,
+                        recv_ptrs, self.num_shards, self.local[0],
+                        len(self.local), chunk)
+        cuda_lib.count(all_to_all, recv[0].dtype, suffix=":procs")
+
+    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
+        if t.device.type != "cuda":
+            return super().all_gather(t)
+        return self._staged_gather(t)
+
+    def ordered_sum(self, t: torch.Tensor) -> torch.Tensor:
+        if t.device.type != "cuda":
+            return super().ordered_sum(t)
+        return self._staged_sum(t)
+
+    def _staged_gather(self, t: torch.Tensor) -> torch.Tensor:
+        """``all_gather`` through the staging buffers."""
+        t = t.contiguous()
+        self._publish([t])
+        out = torch.cat([self._staged(p, t)[0] for p in range(self.size)])
+        self._release()
+        return out
+
+    def _staged_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """``ordered_sum`` through the staging buffers."""
+        t = t.contiguous()
+        self._publish([t])
+        total = self._staged(0, t)[0].clone()
+        for p in range(1, self.size):
+            total = total + self._staged(p, t)[0]
+        self._release()
+        return total
+

@@ -10,6 +10,9 @@ module, and a machine without ``nvcc`` never builds.
 
 Each C entry point launches on the stream it is given, allocates nothing,
 and returns ``cudaGetLastError()``; :func:`launch` raises when that is not 0.
+The exchange across processes adds host entry points (``_HOST_SIGNATURES``:
+its staging buffers' allocation and CUDA IPC handles), which take no stream
+and return the CUDA call's own error; :func:`call` raises on it.
 """
 
 from __future__ import annotations
@@ -89,8 +92,18 @@ _SIGNATURES = {
     "bignn_segment_max_bf16": _SEGMENT_SUM,
     "bignn_segment_max_bwd_f32": _SEGMENT_MAX_BWD,
     "bignn_segment_max_bwd_bf16": _SEGMENT_MAX_BWD,
-    # arrays of G send and G receive base pointers, G, bytes of a slot
-    "bignn_all_to_all": [_VP, _VP, _I32, _I64],
+    # G send and j_count receive base pointers, G, j_begin, j_count, bytes
+    # of a slot
+    "bignn_all_to_all": [_VP, _VP, _I32, _I32, _I32, _I64],
+}
+# entry points that launch nothing and take no stream: the staging buffers
+# of the exchange across processes (ops/collectives.py PeerExchange)
+_HOST_SIGNATURES = {
+    "bignn_ipc_alloc": [_I64, _VP],  # bytes, where to write the pointer
+    "bignn_ipc_free": [_VP],
+    "bignn_ipc_handle": [_VP, _VP],  # pointer, where to write 64 bytes
+    "bignn_ipc_open": [_VP, _VP],  # 64 handle bytes, where to write
+    "bignn_ipc_close": [_VP],
 }
 
 # element type -> the suffix of its entry points and of its launch count
@@ -112,11 +125,12 @@ def counter(fn):
     return fn
 
 
-def count(fn, dtype: torch.dtype, weighted: bool = False) -> None:
+def count(fn, dtype: torch.dtype, weighted: bool = False,
+          suffix: str = "") -> None:
     """One launch of ``fn``'s kernel on ``dtype`` data (``weighted``: its
-    weighted form)."""
+    weighted form; ``suffix`` names another form, e.g. ``:procs``)."""
     fn.launches += 1
-    key = dtype_name(dtype) + (":weighted" if weighted else "")
+    key = dtype_name(dtype) + (":weighted" if weighted else "") + suffix
     fn.launches_by_dtype[key] = fn.launches_by_dtype.get(key, 0) + 1
 
 
@@ -201,6 +215,10 @@ def library() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = [*argtypes, _VP]
             fn.restype = _I32
+        for name, argtypes in _HOST_SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = _I32
         lib.bignn_error_string.argtypes = [_I32]
         lib.bignn_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -217,6 +235,17 @@ def launch(name: str, device: torch.device, *args) -> None:
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = getattr(lib, name)(*args, stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"{name}: CUDA error {rc} ({lib.bignn_error_string(rc).decode()})")
+
+
+def call(name: str, device: torch.device, *args) -> None:
+    """Call host entry point ``name`` (``_HOST_SIGNATURES``) with
+    ``device`` current; raise if it returns an error."""
+    lib = library()
+    with torch.cuda.device(device):
+        rc = getattr(lib, name)(*args)
     if rc != 0:
         raise RuntimeError(
             f"{name}: CUDA error {rc} ({lib.bignn_error_string(rc).decode()})")

@@ -1,7 +1,10 @@
-"""The parallel paths (counterpart of ``bignn_tpu/parallel``), one process
-driving every shard of a mesh that may name one card several times:
+"""The parallel paths (counterpart of ``bignn_tpu/parallel``): one process
+driving every shard of a mesh that may name one card several times, or,
+for p2, several processes, one card each (several on one card):
 
   * ``mesh.py``      the ``(dp, graph)`` and ``(dp, tp)`` device meshes;
+                     the process group (``init_distributed``), the hybrid
+                     mesh over the processes and ``global_put``;
   * ``dp.py``        data parallelism: the pair batch split over ``dp``,
                      the replicated encode run once, the shards' loss sums
                      added in shard order;
@@ -12,12 +15,20 @@ driving every shard of a mesh that may name one card several times:
                      unions (NumPy);
   * ``halo.py``      the halo exchange and the distributed outer layers, one
                      ``ops.all_to_all`` a layer;
+  * ``comm.py``      the data plane between processes (``make_exchange``)
+                     and the replicated state across them: the embedding
+                     all-gather and the rank-order gradient sum;
   * ``step.py``      the p2 train step and scorer.
 
-Shards on distinct cards and the multi-process run are still to port
-(ROADMAP Queue 1 item 11).
+dp and tp run in one process; shards on distinct cards take one process a
+card.
 """
 
+from bignn_tpu_torch.parallel.comm import (
+    gather_rows,
+    make_exchange,
+    sum_grads,
+)
 from bignn_tpu_torch.parallel.dp import dp_train_step_fn, shard_pairs
 from bignn_tpu_torch.parallel.halo import (
     dist_outer_forward,
@@ -26,10 +37,15 @@ from bignn_tpu_torch.parallel.halo import (
 )
 from bignn_tpu_torch.parallel.mesh import (
     Mesh,
+    barrier,
     global_put,
     init_distributed,
+    local_device,
     make_hybrid_mesh,
     make_mesh,
+    process_count,
+    process_index,
+    resolve_distributed,
 )
 from bignn_tpu_torch.parallel.partition import (
     OuterPartitionPlan,
@@ -52,6 +68,7 @@ from bignn_tpu_torch.parallel.tp import (
 __all__ = [
     "Mesh",
     "OuterPartitionPlan",
+    "barrier",
     "boundary_drugs",
     "build_outer_partition",
     "build_sharded_inner",
@@ -59,16 +76,23 @@ __all__ = [
     "dist_outer_forward",
     "dp_train_step_fn",
     "gather_params_tp",
+    "gather_rows",
     "global_put",
     "halo_exchange",
     "init_distributed",
+    "local_device",
+    "make_exchange",
     "make_hybrid_mesh",
     "make_mesh",
     "make_p2_score_fn",
     "make_p2_train_step",
     "p2_overlap_forward",
+    "process_count",
+    "process_index",
+    "resolve_distributed",
     "shard_pairs",
     "shard_params_tp",
+    "sum_grads",
     "tp_param_specs",
     "tp_train_step_fn",
 ]

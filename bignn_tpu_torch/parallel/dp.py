@@ -30,6 +30,8 @@ from bignn_tpu_torch import prng
 from bignn_tpu_torch.data.sampler import sample_negative_pairs
 from bignn_tpu_torch.models.bignn import BiGNN
 from bignn_tpu_torch.models.loss import masked_sums, union_loss
+from bignn_tpu_torch.ops.collectives import ProcessExchange
+from bignn_tpu_torch.parallel.comm import sum_grads
 from bignn_tpu_torch.parallel.mesh import Mesh
 
 
@@ -84,20 +86,27 @@ def dp_loss(model: BiGNN, mesh: Mesh, key: prng.Key, pos_pairs, pos_mask,
 
 def optimizer_step(optimizer: torch.optim.Optimizer,
                    loss_fn: Callable[[], torch.Tensor],
-                   grad_clip: float = 0.0) -> torch.Tensor:
+                   grad_clip: float = 0.0,
+                   procs: ProcessExchange | None = None) -> torch.Tensor:
     """One update of every train step: zero the gradients, ``loss_fn()``,
     its backward, a clip by the global norm of every parameter the
     optimizer updates (``grad_clip``, as ``optax.clip_by_global_norm`` in
     JAX's ``make_optimizer`` chain; replicated parameters count once), and
-    the optimizer's step. Returns the loss, detached, as a device scalar;
-    the gradients stay in ``param.grad``."""
+    the optimizer's step. With ``procs`` (the multi-process p2 run) each
+    process backpropagates ``loss / nproc`` and the gradients are summed
+    over the processes in rank order before the clip (``parallel/comm.py``),
+    so every process takes the same step. Returns the loss, detached, as a
+    device scalar; the gradients stay in ``param.grad``."""
+    params = [p for group in optimizer.param_groups for p in group["params"]]
     optimizer.zero_grad(set_to_none=True)
     loss = loss_fn()
-    loss.backward()
+    if procs is None:
+        loss.backward()
+    else:
+        (loss / procs.size).backward()
+        sum_grads(params, procs)
     if grad_clip:
-        torch.nn.utils.clip_grad_norm_(
-            [p for group in optimizer.param_groups for p in group["params"]],
-            grad_clip)
+        torch.nn.utils.clip_grad_norm_(params, grad_clip)
     optimizer.step()
     return loss.detach()
 

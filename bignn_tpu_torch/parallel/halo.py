@@ -25,6 +25,11 @@ float32 (JAX's ``jnp.dot`` of bf16 rows and float32 weights). ``remat``
 recomputes GAT's attention in the backward
 (``torch.utils.checkpoint``). JAX's ``impl="lax"|"pallas"`` switch has no
 counterpart: the buffers' device picks the kernel or the plain version.
+
+Across processes every per-shard list holds this process's shards only,
+and ``exchange`` (``ops.collectives.ProcessExchange``, from
+``parallel.comm.make_exchange``) carries step (b) to the other processes'
+shards; without it the lists hold every shard of the mesh.
 """
 
 from __future__ import annotations
@@ -64,11 +69,13 @@ def _extend(h: torch.Tensor, recv: torch.Tensor) -> torch.Tensor:
     return torch.cat([h, recv.reshape(-1, *recv.shape[2:])])
 
 
-def halo_exchange(h_locals: Shards, send_idx: Shards) -> list[torch.Tensor]:
+def halo_exchange(h_locals: Shards, send_idx: Shards,
+                  exchange=None) -> list[torch.Tensor]:
     """Per shard the extended array ``[B + G*S, F]``: its owned rows
     ``[B, F]`` and the rows its peers sent it (``send_idx[g]`` ``[G, S]``:
     the local rows shard g sends to each shard)."""
-    recv = ops.all_to_all([_take(h, i) for h, i in zip(h_locals, send_idx)])
+    recv = ops.all_to_all([_take(h, i) for h, i in zip(h_locals, send_idx)],
+                          exchange)
     return [_extend(h, r) for h, r in zip(h_locals, recv)]
 
 
@@ -85,12 +92,13 @@ def _per_shard(*lists):
 
 def dist_gcn_apply(conv: GCNConv, h_locals: Shards, src: Shards, dst: Shards,
                    weight: Shards, send_idx: Shards, src_perm=None,
-                   src_sorted=None, remat: bool = False) -> list[torch.Tensor]:
+                   src_sorted=None, remat: bool = False,
+                   exchange=None) -> list[torch.Tensor]:
     """Boundary-first: the ``[G, S]`` boundary rows are transformed and
     exchanged, then every shard transforms its ``[B, F]`` rows and
     aggregates over the extended array with the sorted-COO SpMM."""
     recv = ops.all_to_all([_dot(_take(h, i), conv.lin)
-                           for h, i in zip(h_locals, send_idx)])
+                           for h, i in zip(h_locals, send_idx)], exchange)
     out = []
     for h, r, s, d, w, perm, srt in _per_shard(h_locals, recv, src, dst,
                                                weight, src_perm, src_sorted):
@@ -110,7 +118,8 @@ def _gin_finish(conv: GINConv, h: torch.Tensor,
 
 def dist_gin_apply(conv: GINConv, h_locals: Shards, src: Shards, dst: Shards,
                    weight: Shards, send_idx: Shards, src_perm=None,
-                   src_sorted=None, remat: bool = False) -> list[torch.Tensor]:
+                   src_sorted=None, remat: bool = False,
+                   exchange=None) -> list[torch.Tensor]:
     """GIN sends raw rows. Its aggregation is linear, so it splits by
     source locality: the owned-source edges (weight 1 where ``src < B``)
     and the halo-source edges (the complement), each a sorted-COO SpMM with
@@ -118,7 +127,8 @@ def dist_gin_apply(conv: GINConv, h_locals: Shards, src: Shards, dst: Shards,
     are monotone in ``src``, so the plan's one ``src_perm`` serves both,
     with ``src_sorted`` clipped and shifted alike."""
     del weight
-    recv = ops.all_to_all([_take(h, i) for h, i in zip(h_locals, send_idx)])
+    recv = ops.all_to_all([_take(h, i) for h, i in zip(h_locals, send_idx)],
+                          exchange)
     out = []
     for h, r, s, d, perm, srt in _per_shard(h_locals, recv, src, dst,
                                             src_perm, src_sorted):
@@ -163,7 +173,8 @@ def _gat_finish(conv: GATConv, agg: torch.Tensor) -> torch.Tensor:
 
 def dist_gat_apply(conv: GATConv, h_locals: Shards, src: Shards, dst: Shards,
                    weight: Shards, send_idx: Shards, src_perm=None,
-                   src_sorted=None, remat: bool = False) -> list[torch.Tensor]:
+                   src_sorted=None, remat: bool = False,
+                   exchange=None) -> list[torch.Tensor]:
     """Boundary-first, as ``dist_gcn_apply``: the boundary rows are
     transformed and scored, and one payload ``[G, S, H*D + H]`` carries the
     features and the source logits."""
@@ -175,7 +186,7 @@ def dist_gat_apply(conv: GATConv, h_locals: Shards, src: Shards, dst: Shards,
         bnd_t = _dot(_take(h, i), conv.lin)  # [G, S, H*D]
         sr_bnd = (bnd_t.view(*i.shape, heads, head_dim) * conv.a_r).sum(-1)
         sendbufs.append(torch.cat([bnd_t, sr_bnd], dim=-1))
-    recv = ops.all_to_all(sendbufs)
+    recv = ops.all_to_all(sendbufs, exchange)
     out = []
     for h, r, s, d, perm, srt in _per_shard(h_locals, recv, src, dst,
                                             src_perm, src_sorted):
@@ -250,7 +261,7 @@ def _apply_fn(table: dict, conv):
 def p2_overlap_forward(model, bnd_batches, int_batches, edge_src: Shards,
                        edge_dst: Shards, edge_weight: Shards,
                        send_idx: Shards, src_perm=None, src_sorted=None,
-                       encode_fn=None, remat: bool = False
+                       encode_fn=None, remat: bool = False, exchange=None
                        ) -> list[torch.Tensor]:
     """The bi-level forward with the overlap schedule: every shard encodes
     its boundary molecules, their raw embeddings enter the exchange, and
@@ -261,7 +272,8 @@ def p2_overlap_forward(model, bnd_batches, int_batches, edge_src: Shards,
     under ``remat``). Returns each shard's ``[B, d]``."""
     enc = encode_fn if encode_fn is not None else model.encode_inner
     h_bnd = [enc(b) for b in bnd_batches]
-    recv = ops.all_to_all([_take(h, i) for h, i in zip(h_bnd, send_idx)])
+    recv = ops.all_to_all([_take(h, i) for h, i in zip(h_bnd, send_idx)],
+                          exchange)
     h_locals = [hb + enc(b) for hb, b in zip(h_bnd, int_batches)]
     for i, conv in enumerate(model.outer):
         if i == 0:
@@ -275,18 +287,21 @@ def p2_overlap_forward(model, bnd_batches, int_batches, edge_src: Shards,
         else:
             h_locals = _apply_fn(_DIST_APPLY, conv)(
                 conv, h_locals, edge_src, edge_dst, edge_weight, send_idx,
-                src_perm=src_perm, src_sorted=src_sorted, remat=remat)
+                src_perm=src_perm, src_sorted=src_sorted, remat=remat,
+                exchange=exchange)
     return h_locals
 
 
 def dist_outer_forward(model, h_locals: Shards, edge_src: Shards,
                        edge_dst: Shards, edge_weight: Shards,
                        send_idx: Shards, src_perm=None, src_sorted=None,
-                       remat: bool = False) -> list[torch.Tensor]:
+                       remat: bool = False, exchange=None
+                       ) -> list[torch.Tensor]:
     """The distributed ``BiGNN.propagate_outer``: each shard's ``[B, F]``
     drug rows through the outer layers; returns each shard's output."""
     for conv in model.outer:
         h_locals = _apply_fn(_DIST_APPLY, conv)(
             conv, h_locals, edge_src, edge_dst, edge_weight, send_idx,
-            src_perm=src_perm, src_sorted=src_sorted, remat=remat)
+            src_perm=src_perm, src_sorted=src_sorted, remat=remat,
+            exchange=exchange)
     return h_locals

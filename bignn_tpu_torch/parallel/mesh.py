@@ -4,33 +4,91 @@
 A ``Mesh`` is an array of ``torch.device``s with the JAX package's axis
 names: ``('dp', 'graph')`` (data parallelism over pair batches, and the
 edge-partitioned p2 path), or ``('dp', 'tp')`` (feature sharding,
-``parallel/tp.py``). One process drives every shard, as JAX's single
-controller does. The mesh may name one card several times: then the
-shards run in turn on that card, each on its own tensors, and the halo
-exchange moves real payloads between them (what the JAX package's tests do
-on fake CPU devices). A mesh over two or more distinct CUDA devices, and
-the multi-process run, are still to port (ROADMAP Queue 1 item 11), and
-raise.
+``parallel/tp.py``), and beside it the process that drives each entry.
+
+One process may drive every shard, as JAX's single controller does. The
+mesh may name one card several times: then the shards run in turn on that
+card, each on its own tensors, and the halo exchange moves real payloads
+between them (what the JAX package's tests do on fake CPU devices). A mesh
+over two or more distinct CUDA devices in one process raises: the port
+drives one card a process, and several processes may share one card.
+
+Several processes (the multi-process p2 run, JAX's multi-host run):
+``init_distributed`` joins a ``torch.distributed`` process group on
+``gloo``, the control plane only (handle exchange, barriers, scalars), and
+fixes this process's card; ``make_hybrid_mesh`` lays the ``graph`` axis
+over the processes host-major, as JAX's hand layout does; each process
+drives its own entries (``Mesh.local_graph``) and ``global_put`` gives it
+its part of a host-replicated array. The data plane between processes is
+``ops.collectives.ProcessExchange`` (CUDA IPC on the card).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-_TODO = "is still to port (ROADMAP Queue 1 item 11)"
+_ONE_CARD_A_PROCESS = (
+    "the port drives one card a process: start one process a card "
+    "(init_distributed, make_hybrid_mesh)")
+
+_local_device: torch.device | None = None
+
+
+def process_index() -> int:
+    """This process's rank in the process group (0 without one)."""
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def process_count() -> int:
+    """The processes of the group (1 without one)."""
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def local_device() -> torch.device:
+    """The card ``init_distributed`` fixed for this process; without it
+    ``cuda:0`` where a card is visible, else the CPU."""
+    if _local_device is not None:
+        return _local_device
+    return torch.device("cuda", 0) if torch.cuda.is_available() else (
+        torch.device("cpu"))
+
+
+def barrier() -> None:
+    """A process-group barrier; nothing in a single process."""
+    if dist.is_initialized():
+        dist.barrier()
+
+
+def all_gather_object(obj) -> list:
+    """Every process's ``obj`` in rank order (``[obj]`` in a single
+    process)."""
+    if not dist.is_initialized():
+        return [obj]
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, obj)
+    return out
 
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """``devices [dp, graph]`` or ``[dp, tp]`` (an object array of
-    ``torch.device``)."""
+    ``torch.device``) and ``processes``, the process of each entry (an int
+    array of the same shape; None: every entry is process 0)."""
 
     devices: np.ndarray
     axis_names: tuple[str, ...] = ("dp", "graph")
+    processes: np.ndarray | None = None
+
+    def __post_init__(self):
+        if self.processes is None:
+            object.__setattr__(self, "processes",
+                               np.zeros(self.devices.shape, np.int64))
 
     @property
     def shape(self) -> dict[str, int]:
@@ -38,19 +96,33 @@ class Mesh:
         return dict(zip(self.axis_names, self.devices.shape))
 
     @property
-    def device(self) -> torch.device:
-        """The one device every shard lies on (a mesh over distinct devices
-        raises, as ``make_mesh`` does)."""
-        if len(set(self.devices.flat)) > 1:
-            raise NotImplementedError(
-                f"shards on distinct devices {_TODO}")
-        return self.devices.flat[0]
+    def process_count(self) -> int:
+        """The processes that drive the mesh's entries."""
+        return len(set(self.processes.flat))
+
+    def _local(self) -> np.ndarray:
+        """Which entries this process drives: all of a single-process
+        mesh, else those of its rank."""
+        if self.process_count == 1:
+            return np.ones(self.devices.shape, bool)
+        return self.processes == process_index()
 
     @property
-    def graph_devices(self) -> list[torch.device]:
-        """The device of each shard of the second axis (row 0 of the mesh:
-        the ``dp`` replicas compute the same shards)."""
-        return list(self.devices[0])
+    def device(self) -> torch.device:
+        """The one device this process's entries lie on (entries on
+        distinct devices in one process raise, as ``make_mesh`` does)."""
+        devices = set(self.devices[self._local()])
+        if len(devices) != 1:
+            raise NotImplementedError(
+                f"this process's entries lie on {sorted(map(str, devices))}: "
+                f"{_ONE_CARD_A_PROCESS}")
+        return devices.pop()
+
+    @property
+    def local_graph(self) -> list[int]:
+        """The global indices of this process's shards of the second axis
+        (every ``dp`` row of a column lies in one process)."""
+        return [int(j) for j in np.flatnonzero(self._local()[0])]
 
 
 def make_mesh(dp: int | None = None, graph: int = 1,
@@ -59,7 +131,7 @@ def make_mesh(dp: int | None = None, graph: int = 1,
     CUDA devices), which may repeat one device, or a ``('dp', 'tp')`` one
     when ``tp > 1`` (``tp`` and ``graph`` do not compose: the halo path
     takes full-width rows). ``dp`` defaults to the device count over the
-    other axis."""
+    other axis. One process drives it."""
     if devices is None:
         devices = [torch.device("cuda", i)
                    for i in range(torch.cuda.device_count())]
@@ -80,22 +152,157 @@ def make_mesh(dp: int | None = None, graph: int = 1,
         if {d.type for d in devices} == {"cuda"}:
             names = sorted({str(d) for d in devices})
             raise NotImplementedError(
-                f"shards on distinct CUDA devices {names} {_TODO}")
+                f"a mesh over distinct CUDA devices {names} in one process: "
+                f"{_ONE_CARD_A_PROCESS}")
         raise NotImplementedError(
-            f"a mesh over devices of several types {_TODO}")
+            f"a mesh over devices of several types "
+            f"{sorted({str(d) for d in devices})}")
     arr = np.empty((dp, other), dtype=object)
     for i, d in enumerate(devices):
         arr[i // other, i % other] = d
     return Mesh(arr, axes)
 
 
-def make_hybrid_mesh(dp: int | None = None, graph: int | None = None):
-    raise NotImplementedError(f"the multi-host hybrid mesh {_TODO}")
+def resolve_distributed(coordinator_address: str | None = None,
+                        num_processes: int | None = None,
+                        process_id: int | None = None
+                        ) -> tuple[str | None, int, int]:
+    """``(address, count, rank)`` of a run from the arguments, else JAX's
+    environment names (``JAX_COORDINATOR_ADDRESS``, ``JAX_NUM_PROCESSES``,
+    ``JAX_PROCESS_ID``), checked without connecting: a count of 1 (or
+    none) is a single process; more need a coordinator and this process's
+    id; the id lies in ``[0, count)``. Raises ``ValueError``."""
+    address = coordinator_address or os.environ.get(
+        "JAX_COORDINATOR_ADDRESS")
+    if num_processes is None and "JAX_NUM_PROCESSES" in os.environ:
+        num_processes = int(os.environ["JAX_NUM_PROCESSES"])
+    if process_id is None and "JAX_PROCESS_ID" in os.environ:
+        process_id = int(os.environ["JAX_PROCESS_ID"])
+    if address is not None and num_processes is None:
+        raise ValueError(f"coordinator {address} given without a process "
+                         "count (--num-processes / JAX_NUM_PROCESSES)")
+    count = 1 if num_processes is None else int(num_processes)
+    rank = 0 if process_id is None else int(process_id)
+    if count < 1:
+        raise ValueError(f"process count {count} is below 1")
+    if not 0 <= rank < count:
+        raise ValueError(f"process id {rank} lies outside [0, {count})")
+    if count > 1 and address is None:
+        raise ValueError(f"{count} processes need a coordinator host:port "
+                         "(--coordinator / JAX_COORDINATOR_ADDRESS)")
+    if count > 1 and process_id is None:
+        raise ValueError(f"{count} processes need this process's id "
+                         "(--process-id / JAX_PROCESS_ID)")
+    return address, count, rank
 
 
-def init_distributed(*args, **kwargs):
-    raise NotImplementedError(f"the multi-host run {_TODO}")
+def init_distributed(coordinator_address: str | None = None,
+                     num_processes: int | None = None,
+                     process_id: int | None = None,
+                     local_device_ids: Sequence[int] | None = None) -> int:
+    """The multi-process entry (JAX ``init_distributed``); returns this
+    process's index.
+
+    Arguments default to JAX's environment names (``resolve_distributed``).
+    A single process (no coordinator and no count, or a count of 1) joins
+    nothing. Otherwise it joins a ``torch.distributed`` process group on
+    ``gloo`` at ``tcp://{address}`` with the count and rank: the control
+    plane of the exchange across processes. It fixes this process's card:
+    ``cuda:{local_device_ids[0]}`` (one card a process), else
+    ``cuda:{rank % device_count}`` (every rank ``cuda:0`` on one card), or
+    the CPU without a card. Idempotent: a second call with the same count
+    and rank returns the rank."""
+    global _local_device
+    address, count, rank = resolve_distributed(
+        coordinator_address, num_processes, process_id)
+    if count == 1:
+        return process_index()
+    if dist.is_initialized():
+        if (dist.get_world_size(), dist.get_rank()) != (count, rank):
+            raise ValueError(
+                f"already in a group of {dist.get_world_size()} as rank "
+                f"{dist.get_rank()}, asked for {count} as rank {rank}")
+        return rank
+    if local_device_ids is not None and len(local_device_ids) != 1:
+        raise ValueError(f"local_device_ids {list(local_device_ids)}: "
+                         f"{_ONE_CARD_A_PROCESS}")
+    host = address.rsplit(":", 1)[0]
+    if host in ("127.0.0.1", "localhost") and (
+            "GLOO_SOCKET_IFNAME" not in os.environ):
+        os.environ["GLOO_SOCKET_IFNAME"] = "lo"  # loopback peers only
+    dist.init_process_group("gloo", init_method=f"tcp://{address}",
+                            world_size=count, rank=rank)
+    if local_device_ids is not None:
+        _local_device = torch.device("cuda", int(local_device_ids[0]))
+    elif torch.cuda.is_available():
+        _local_device = torch.device("cuda",
+                                     rank % torch.cuda.device_count())
+    else:
+        _local_device = torch.device("cpu")
+    if _local_device.type == "cuda":
+        torch.cuda.set_device(_local_device)
+    return rank
 
 
-def global_put(*args, **kwargs):
-    raise NotImplementedError(f"multi-host placement {_TODO}")
+def make_hybrid_mesh(dp: int | None = None, graph: int | None = None,
+                     device: str | torch.device | None = None) -> Mesh:
+    """A ``('dp', 'graph')`` mesh over every process of the group (JAX
+    ``make_hybrid_mesh``), each process driving its entries on ``device``
+    (default: its card, ``local_device``).
+
+    ``graph`` defaults to the process count and must be a multiple of it;
+    each process owns ``ici_graph = graph // nproc`` graph shards, laid out
+    host-major as JAX's hand layout: entry ``[d, p * ici_graph + g]`` is
+    process p's. Each process names its card ``ici_dp * ici_graph`` times
+    (``ici_dp`` is ``dp``, else 1): the port's "local device count" is
+    that count of names, not a count of hardware, so JAX's two checks
+    against the local devices hold by construction. A single process
+    gets ``make_mesh(dp, graph or 1)`` on its card."""
+    card = torch.device(device) if device is not None else local_device()
+    ici_dp = 1 if dp is None else int(dp)
+    if ici_dp < 1:
+        raise ValueError(f"dp ({ici_dp}) must be at least 1")
+    nproc = process_count()
+    if nproc == 1:
+        g = graph or 1
+        return make_mesh(dp=ici_dp, graph=g, devices=[card] * (ici_dp * g))
+    graph = graph if graph is not None else nproc
+    if graph % nproc != 0:
+        raise ValueError(
+            f"graph ({graph}) must be a multiple of process count ({nproc}) "
+            "so every host owns whole graph-shard groups")
+    ici_graph = graph // nproc
+    nloc = ici_dp * ici_graph
+    cards = [torch.device(c) for c in all_gather_object(str(card))]
+    # JAX's hand layout (bignn_tpu/parallel/mesh.py:130-136) on the global
+    # device numbers, sorted by (process, local id)
+    ids = (np.arange(nproc * nloc)
+           .reshape(nproc, ici_dp, ici_graph)
+           .transpose(1, 0, 2)
+           .reshape(ici_dp, nproc * ici_graph))
+    processes = ids // nloc
+    devices = np.empty(ids.shape, dtype=object)
+    for idx, p in np.ndenumerate(processes):
+        devices[idx] = cards[p]
+    return Mesh(devices, ("dp", "graph"), processes)
+
+
+def global_put(mesh: Mesh, spec, x):
+    """This process's part of a host-replicated NumPy array ``x`` (JAX
+    ``global_put``), on its device: for the spec ``()`` the whole array,
+    for ``("graph",)`` the slices ``x[j]`` of its graph shards, a list in
+    local order. Every process holds the whole ``x`` (plans and batches
+    are deterministic from the shared seed)."""
+    x = np.asarray(x)
+    spec = tuple(spec or ())
+    dev = mesh.device
+    if spec == ():
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+    if spec == ("graph",):
+        if x.shape[0] != mesh.shape["graph"]:
+            raise ValueError(f"leading axis {x.shape[0]} is not the mesh's "
+                             f"graph axis {mesh.shape['graph']}")
+        return [torch.from_numpy(np.ascontiguousarray(x[j])).to(dev)
+                for j in mesh.local_graph]
+    raise NotImplementedError(
+        f"global_put takes the specs () and ('graph',), got {spec}")

@@ -19,6 +19,15 @@ same embeddings, are scored as one batch (the batch must still split over
 back through the exchange by its own autograd Function; the optimizer is a
 ``torch.optim`` one over the model's parameters, updated in place as the
 port's ``Trainer`` does.
+
+Across processes (a ``make_hybrid_mesh`` mesh) each process uploads and
+runs its own graph shards, the exchanges cross processes through the
+mesh's exchange (``parallel.comm.make_exchange``, which the step and the
+scorer take), the concatenation becomes an all-gather of the
+shards' rows, every process scores the whole batch, and the gradients are
+summed over the processes in rank order (``parallel/comm.py``), so every
+process takes the same optimizer step. With one process every function
+gives the bits it gave before.
 """
 
 from __future__ import annotations
@@ -33,12 +42,14 @@ from bignn_tpu_torch import prng
 from bignn_tpu_torch.data.sampler import sample_negative_pairs
 from bignn_tpu_torch.models.bignn import BiGNN, upload_batch
 from bignn_tpu_torch.models.loss import bce_with_logits_loss
+from bignn_tpu_torch.ops.collectives import ProcessExchange
+from bignn_tpu_torch.parallel.comm import gather_rows
 from bignn_tpu_torch.parallel.dp import optimizer_step
 from bignn_tpu_torch.parallel.halo import (
     dist_outer_forward,
     p2_overlap_forward,
 )
-from bignn_tpu_torch.parallel.mesh import Mesh
+from bignn_tpu_torch.parallel.mesh import Mesh, global_put
 from bignn_tpu_torch.parallel.partition import (
     OuterPartitionPlan,
     unstack_batch,
@@ -47,28 +58,30 @@ from bignn_tpu_torch.parallel.partition import (
 
 def device_put_plan(mesh: Mesh, plan: OuterPartitionPlan, inner_batch,
                     inner_layers: Sequence[str]) -> tuple:
-    """Each shard's plan arrays and inner union on that shard's device.
+    """This process's shards' plan arrays and inner unions on its device.
 
+    Every process builds the same plan from the shared seed and uploads only
+    its graph shards (``mesh.local_graph``; every shard in one process):
+    the plan arrays through ``global_put(mesh, ("graph",), ...)``.
     ``inner_batch`` is ``build_sharded_inner``'s stacked batch (or its
-    ``(boundary, interior)`` pair); each shard's union goes up through
-    ``upload_batch``, the per-batch upload of ``upload_buckets``, so dense
-    blocks are built on the device exactly where the host batch has them
-    (``inner_layers``, the model's inner specs, say whether GCN weights are
-    needed). Returns ``(inner, esrc, edst, ew, sidx, sperm, ssrt)`` in the
-    JAX package's order, each a list over the shards (``inner`` a pair of
-    lists for a split batch)."""
-    devs = mesh.graph_devices
-    if plan.n_shards != len(devs):
+    ``(boundary, interior)`` pair); each local shard's union goes up
+    through ``upload_batch``, the per-batch upload of ``upload_buckets``, so
+    dense blocks are built on the device exactly where the host batch has
+    them (``inner_layers``, the model's inner specs, say whether GCN
+    weights are needed). Returns ``(inner, esrc, edst, ew, sidx, sperm,
+    ssrt)`` in the JAX package's order, each a list over the local shards
+    (``inner`` a pair of lists for a split batch)."""
+    if plan.n_shards != mesh.shape["graph"]:
         raise ValueError(f"plan has {plan.n_shards} shards, the mesh's "
-                         f"graph axis {len(devs)}")
+                         f"graph axis {mesh.shape['graph']}")
+    dev, local = mesh.device, mesh.local_graph
 
     def put(arr: np.ndarray) -> list[torch.Tensor]:
-        return [torch.from_numpy(np.ascontiguousarray(arr[g])).to(d)
-                for g, d in enumerate(devs)]
+        return global_put(mesh, ("graph",), arr)
 
     def put_inner(stacked) -> list:
-        return [upload_batch(unstack_batch(stacked, g), inner_layers, d)
-                for g, d in enumerate(devs)]
+        return [upload_batch(unstack_batch(stacked, g), inner_layers, dev)
+                for g in local]
 
     inner = (tuple(put_inner(b) for b in inner_batch)
              if isinstance(inner_batch, tuple) else put_inner(inner_batch))
@@ -77,9 +90,10 @@ def device_put_plan(mesh: Mesh, plan: OuterPartitionPlan, inner_batch,
             put(plan.src_sorted))
 
 
-def _embed(model: BiGNN, plan_d, overlap: bool, remat: bool) -> torch.Tensor:
-    """``[G*B, d]``: every shard's inner encode and outer layers, the
-    shards' outputs concatenated."""
+def _embed(model: BiGNN, plan_d, overlap: bool, remat: bool,
+           exchange: ProcessExchange | None) -> torch.Tensor:
+    """``[G*B, d]``: every (local) shard's inner encode and outer layers,
+    the shards' outputs concatenated (gathered over the processes)."""
     inner, esrc, edst, ew, sidx, sperm, ssrt = plan_d
     encode = model.encode_inner
     if remat:
@@ -89,12 +103,13 @@ def _embed(model: BiGNN, plan_d, overlap: bool, remat: bool) -> torch.Tensor:
         bnd, interior = inner
         h = p2_overlap_forward(model, bnd, interior, esrc, edst, ew, sidx,
                                src_perm=sperm, src_sorted=ssrt,
-                               encode_fn=encode, remat=remat)
+                               encode_fn=encode, remat=remat,
+                               exchange=exchange)
     else:
         h = dist_outer_forward(model, [encode(b) for b in inner], esrc, edst,
                                ew, sidx, src_perm=sperm, src_sorted=ssrt,
-                               remat=remat)
-    return torch.cat(h)
+                               remat=remat, exchange=exchange)
+    return torch.cat(h) if exchange is None else gather_rows(h, exchange)
 
 
 def _check_dp(n: int, dp: int) -> None:
@@ -102,10 +117,19 @@ def _check_dp(n: int, dp: int) -> None:
         raise ValueError(f"{n} pairs do not split over dp={dp}")
 
 
+def _check_exchange(mesh: Mesh, exchange: ProcessExchange | None) -> None:
+    if (mesh.process_count > 1) != (exchange is not None):
+        raise ValueError(
+            f"a mesh over {mesh.process_count} process(es) with exchange "
+            f"{exchange}: a mesh over several processes takes "
+            "parallel.make_exchange(mesh), a mesh of one process none")
+
+
 def make_p2_train_step(model: BiGNN, optimizer: torch.optim.Optimizer,
                        mesh: Mesh, num_drugs: int, neg_ratio: int = 1,
                        overlap: bool = False, remat: bool = False,
-                       grad_clip: float = 0.0) -> Callable:
+                       grad_clip: float = 0.0,
+                       exchange: ProcessExchange | None = None) -> Callable:
     """``step(key, pos_pairs, pos_mask, plan_d) -> loss``: one optimizer
     step on ``[B, 2]`` positive pairs (``pos_mask`` ``[B]``), with
     ``neg_ratio`` negatives each drawn on the global batch from the
@@ -119,7 +143,9 @@ def make_p2_train_step(model: BiGNN, optimizer: torch.optim.Optimizer,
     keeping them (``torch.utils.checkpoint``); values and gradients are
     unchanged. ``grad_clip`` clips by the global norm of the model's
     parameters, taken once over the whole model (they are replicated over
-    the shards: ``parallel.dp.optimizer_step``)."""
+    the shards: ``parallel.dp.optimizer_step``), after the gradients are
+    summed over the processes. ``exchange`` is ``make_exchange(mesh)``."""
+    _check_exchange(mesh, exchange)
     dev = mesh.device
 
     def loss_fn(key: prng.Key, pos_pairs, pos_mask, plan_d) -> torch.Tensor:
@@ -131,28 +157,30 @@ def make_p2_train_step(model: BiGNN, optimizer: torch.optim.Optimizer,
                             torch.zeros(len(neg), device=dev)])
         mask = torch.cat([pmask, pmask.repeat(neg_ratio)]).float()
         _check_dp(len(pairs), mesh.shape["dp"])
-        emb = _embed(model, plan_d, overlap, remat)
+        emb = _embed(model, plan_d, overlap, remat, exchange)
         return bce_with_logits_loss(model.score_pairs(emb, pairs), labels,
                                     mask)
 
     def step(key: prng.Key, pos_pairs, pos_mask, plan_d) -> torch.Tensor:
         return optimizer_step(
             optimizer, lambda: loss_fn(key, pos_pairs, pos_mask, plan_d),
-            grad_clip)
+            grad_clip, procs=exchange)
 
     return step
 
 
-def make_p2_score_fn(model: BiGNN, mesh: Mesh,
-                     overlap: bool = False) -> Callable:
+def make_p2_score_fn(model: BiGNN, mesh: Mesh, overlap: bool = False,
+                     exchange: ProcessExchange | None = None) -> Callable:
     """``score(pairs, plan_d) -> logits``: float32 logits of ``[P, 2]``
     pairs (P divisible by ``dp``) from the distributed forward, for
-    evaluation."""
+    evaluation; ``exchange`` as for ``make_p2_train_step``."""
+    _check_exchange(mesh, exchange)
+
     def score(pairs, plan_d) -> torch.Tensor:
         pairs = torch.as_tensor(pairs, device=mesh.device)
         _check_dp(len(pairs), mesh.shape["dp"])
         with torch.no_grad():
-            return model.score_pairs(_embed(model, plan_d, overlap,
-                                            remat=False), pairs)
+            return model.score_pairs(_embed(model, plan_d, overlap, False,
+                                            exchange), pairs)
 
     return score

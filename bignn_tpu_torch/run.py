@@ -4,6 +4,8 @@
   python -m bignn_tpu_torch.run --config config2 --epochs 5 --run-dir runs/db
   python -m bignn_tpu_torch.run --config config4 --exact-eval
   python -m bignn_tpu_torch.run --config config5    # p2: 4 graph shards
+  python -m bignn_tpu_torch.run --config config5 --coordinator HOST:PORT \
+      --num-processes 2 --process-id 0                # and process 1
 
 The config's ``mode`` picks the trainer: ``full`` (``Trainer``),
 ``minibatch`` (``MinibatchTrainer``) or ``p2`` (``_run_p2``, the
@@ -27,9 +29,18 @@ Where the JAX runner differs:
     in JAX.
   * ``--halo-impl lax|pallas`` parses, and both run the port's one exchange
     (``ops.all_to_all``), with a logged note, so that JAX command lines run.
-  * ``--coordinator``, ``--num-processes`` and ``--process-id`` raise
-    ``NotImplementedError``: the multi-host run is still to port (ROADMAP
-    Queue 1 item 11).
+  * ``--coordinator``, ``--num-processes`` and ``--process-id`` (or JAX's
+    environment names) start the multi-process p2 run: ``init_distributed``
+    joins a gloo process group before anything touches the card, and the
+    ``graph`` axis spans the processes host-major (``make_hybrid_mesh(graph
+    =graph_shards)``); every process names its own card (``cuda:{rank %
+    device_count}``, so several processes may share one card), their halo
+    exchanges and gradient sums cross processes (``ops.collectives``,
+    ``parallel/comm.py``). Only process 0 writes the run dir and the
+    checkpoints, each save followed by a barrier; every process reads them
+    to resume. JAX leaves the full and minibatch modes undefined across
+    processes (their arrays are not global); the port refuses them with a
+    ``ValueError``.
   * No ``--backend``: the tensor's device decides; ``--device`` takes its
     place. ``--profile DIR`` writes a ``torch.profiler`` Chrome trace.
 """
@@ -48,12 +59,17 @@ from bignn_tpu_torch import prng
 from bignn_tpu_torch.config import get_config
 from bignn_tpu_torch.data import load_dataset, prepare_device_data
 from bignn_tpu_torch.models import BiGNN
-from bignn_tpu_torch.parallel import make_mesh
+from bignn_tpu_torch.parallel import (
+    init_distributed,
+    local_device,
+    make_mesh,
+    process_count,
+    process_index,
+    resolve_distributed,
+)
 from bignn_tpu_torch.train import MinibatchTrainer, Trainer
 from bignn_tpu_torch.train.checkpoint import CheckpointManager
 from bignn_tpu_torch.utils import MetricLogger, profile_trace
-
-_WAITS = "is still to port (ROADMAP Queue 1 item 11)"
 
 
 def main(argv=None) -> dict:
@@ -96,23 +112,32 @@ def main(argv=None) -> dict:
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; no CPU fallback)")
     p.add_argument("--coordinator", default=None,
-                   help=f"multi-host coordinator: {_WAITS}")
+                   help="multi-process p2: the coordinator host:port "
+                        "(or env JAX_COORDINATOR_ADDRESS)")
     p.add_argument("--num-processes", type=int, default=None,
-                   help=f"multi-host process count: {_WAITS}")
+                   help="multi-process p2: the process count "
+                        "(or env JAX_NUM_PROCESSES)")
     p.add_argument("--process-id", type=int, default=None,
-                   help=f"multi-host process index: {_WAITS}")
+                   help="multi-process p2: this process's index "
+                        "(or env JAX_PROCESS_ID)")
     args = p.parse_args(argv)
 
-    for flag in ("coordinator", "num_processes", "process_id"):
-        if getattr(args, flag) is not None:
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')}: the multi-host run {_WAITS}")
+    _, nproc, _ = resolve_distributed(args.coordinator, args.num_processes,
+                                      args.process_id)
+    cfg = get_config(args.config)
+    if nproc > 1 and cfg.mode != "p2":
+        raise ValueError(
+            f"{args.config} runs in {cfg.mode} mode, which JAX leaves "
+            "undefined across processes: p2 is the multi-process mode")
     dev = torch.device(args.device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"--device {args.device}: no CUDA device is "
                            "visible (a CPU run asks for --device cpu)")
+    # before anything touches the card; joins nothing in one process
+    init_distributed(args.coordinator, args.num_processes, args.process_id)
+    if dev.type == "cuda" and process_count() > 1:
+        dev = local_device()
 
-    cfg = get_config(args.config)
     train_over = {
         k: v
         for k, v in dict(epochs=args.epochs, batch_size=args.batch_size,
@@ -125,7 +150,7 @@ def main(argv=None) -> dict:
     if args.graph_shards is not None:
         cfg = dataclasses.replace(cfg, graph_shards=args.graph_shards)
 
-    logger = MetricLogger(args.run_dir)
+    logger = MetricLogger(args.run_dir if process_index() == 0 else None)
     try:
         result = _run(args, cfg, logger, dev)
     finally:
@@ -186,7 +211,7 @@ def _run(args, cfg, logger, dev) -> dict:
 
     summary = {k: v for k, v in result.items() if k != "history"}
     logger.log({"event": "done", **summary})
-    if args.run_dir:
+    if args.run_dir and process_index() == 0:
         with open(f"{args.run_dir}/result.json", "w") as f:
             json.dump(summary, f, indent=2)
     return result
@@ -196,7 +221,8 @@ def _run_p2(model, ds, cfg, logger, overlap: bool = False, ckpt=None,
             checkpoint_every: int = 1, remat_inner: bool = False,
             device: str | torch.device = "cuda"):
     """The edge-partitioned training loop of config5 (JAX
-    ``run.py:_run_p2``), ``cfg.graph_shards`` shards on ``device``; returns
+    ``run.py:_run_p2``), ``cfg.graph_shards`` shards on ``device``, or over
+    the processes of the group (``make_hybrid_mesh``); returns
     ``(best_params, result)``.
 
     The trainers' semantics: the parameters of the best val AUC are kept
@@ -207,15 +233,20 @@ def _run_p2(model, ds, cfg, logger, overlap: bool = False, ckpt=None,
     functions of the epoch and step, so a resumed run repeats the
     uninterrupted one. Evaluation scores the split's positives and one
     negative each from ``key(1234)``, padded to ``dp`` with a mask, by the
-    distributed forward; AUC and AP are computed on the device."""
+    distributed forward; AUC and AP are computed on the device (in every
+    process: each scores every pair). Across processes only process 0
+    saves, and a barrier follows each save; every process restores."""
     from bignn_tpu_torch.data.sampler import (
         EdgeMinibatchSampler,
         sample_negative_pairs,
     )
     from bignn_tpu_torch.parallel import (
+        barrier,
         build_outer_partition,
         build_sharded_inner,
         device_put_plan,
+        make_exchange,
+        make_hybrid_mesh,
         make_p2_score_fn,
         make_p2_train_step,
     )
@@ -231,9 +262,11 @@ def _run_p2(model, ds, cfg, logger, overlap: bool = False, ckpt=None,
 
     dev = torch.device(device)
     graph = int(cfg.graph_shards)
-    mesh = make_mesh(dp=1, graph=graph, devices=[dev] * graph)
+    mesh = make_hybrid_mesh(graph=graph, device=dev)
+    exchange = make_exchange(mesh)  # None in one process
     dp = mesh.shape["dp"]
-    logger.log({"event": "mesh", "dp": dp, "graph": graph, "processes": 1})
+    logger.log({"event": "mesh", "dp": dp, "graph": graph,
+                "processes": mesh.process_count})
 
     train_edges = ds.split_edges("train")
     plan = build_outer_partition(train_edges[:, 0], train_edges[:, 1],
@@ -247,12 +280,14 @@ def _run_p2(model, ds, cfg, logger, overlap: bool = False, ckpt=None,
     step = make_p2_train_step(model, optimizer, mesh, ds.num_drugs,
                               cfg.train.neg_ratio, overlap=overlap,
                               remat=remat_inner,
-                              grad_clip=cfg.train.grad_clip)
+                              grad_clip=cfg.train.grad_clip,
+                              exchange=exchange)
     plan_d = device_put_plan(mesh, plan, inner, model.config.inner_layers)
     sampler = EdgeMinibatchSampler(train_edges.astype(np.int32),
                                    cfg.train.batch_size, cfg.train.seed)
     base_key = prng.key(cfg.train.seed + 1)
-    score_fn = make_p2_score_fn(model, mesh, overlap=overlap)
+    score_fn = make_p2_score_fn(model, mesh, overlap=overlap,
+                                exchange=exchange)
 
     def params():
         return {k: v.detach().clone() for k, v in model.state_dict().items()}
@@ -283,6 +318,7 @@ def _run_p2(model, ds, cfg, logger, overlap: bool = False, ckpt=None,
         state, opt_state, best, start_epoch = restored
         model.load_state_dict(state)
         optimizer.load_state_dict(opt_state)
+    barrier()  # every process has read the state before any saves one
     epochs = cfg.train.epochs
     for epoch in range(start_epoch, epochs):
         t0 = time.perf_counter()
@@ -299,9 +335,13 @@ def _run_p2(model, ds, cfg, logger, overlap: bool = False, ckpt=None,
         history.append(rec)
         logger.log(rec)
         if ckpt is not None and (epoch + 1) % checkpoint_every == 0:
-            ckpt.save_state(epoch, _fit_state(
-                params(), optimizer.state_dict(), best, epoch))
+            if process_index() == 0:
+                ckpt.save_state(epoch, _fit_state(
+                    params(), optimizer.state_dict(), best, epoch))
+            barrier()
     final = evaluate(best["params"], "test")
+    if exchange is not None:
+        exchange.close()  # its buffers, in every process
     return best["params"], {
         "history": history,
         # a resume of a finished run trains no epoch

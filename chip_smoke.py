@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py              # the smoke run below
     python3 chip_smoke.py --profile    # phases 1-2, then the profiles
+    python3 chip_smoke.py --worker step --rank R --port P   # path K's
 
 Phases:
   1. device: a CUDA card of compute capability 9.0; TF32 off.
@@ -206,6 +207,32 @@ Phases:
      (iv) run.main with --dp 2 on config2 (2 epochs) and on config3 with
      --exact-eval (1 epoch): seconds, best epoch, test AUC. Path J's total
      beside the card's nvidia-smi line.
+  K. the multi-process p2 run, right after path I(iii): two processes on
+     this one card (each its own CUDA context), started as `chip_smoke.py
+     --worker step` with a gloo process group on a free local port, each
+     within K_TIMEOUT (a survivor of a failed or hung pair is killed, and
+     the smoke fails). (i) config5 as get_config sets it, graph 4 over the
+     2 processes (make_hybrid_mesh: 2 shards each, so an exchange mixes
+     local and remote pairs), dp 1, path G's first K_STEPS batches from the
+     same init and keys: each process's losses against path G's within
+     K_LOSS_RTOL, the step-1 gradients (summed over the processes)
+     against path G's by GRAD_TOL (Adam's step would hide a gradient off
+     by a constant factor), both processes' parameters equal to the bit,
+     the first
+     exchange across processes (CUDA IPC, all_to_all:f32:procs) equal to
+     its plain version (through the process group) exactly, and
+     all_to_all:f32:procs and path G's other forms launched in each
+     process (the one-process all_to_all:f32 not). (iii) The same pair
+     again: the same bits. (ii) `python -m bignn_tpu_torch.run --config
+     config5 --epochs 1 --checkpoint-every 1 --coordinator 127.0.0.1:<port>
+     --num-processes 2 --process-id i` against path I(iii)'s one-process
+     run: the epoch loss within K_RUN_RTOL, test AUC within K_RUN_AUC, the
+     run dir written by process 0 alone; then the same pair with --epochs
+     2 resumes it, equal bit for bit to a straight 2-epoch pair (epoch
+     records, result, last checkpoint). (iv) The two-process step median beside path G's;
+     at the step's send buffers, the whole exchange (host ms), its kernel
+     alone (device ms), its plain version, the library call
+     (torch.distributed.all_to_all_single over gloo) and a barrier.
 Each path runs with the launch counts (per kernel and element type, e.g.
 segment_sum:bf16) set to 0 just before it and read just after; the kernels
 line reports the sum of the paths' counts, each form's error, times (kernel,
@@ -220,7 +247,12 @@ launch the main path makes, on the bounds that the forward's kernel found,
 once it has given autograd's result bit for bit.
 all_to_all:f32 is timed at config5-large's
 send buffers; a second row, all_to_all:f32 (config5), at config5's, with
-the launches of paths G and G(ii). Rows 4 and 8 have rows at their other
+the launches of paths G and G(ii); a third, all_to_all:f32:procs, is path
+K's exchange across processes at config5's send buffers, with its two
+processes' launches over K(i)'s steps (its ms the kernel's device time,
+queued behind a sleep; its exchange_ms the whole exchange's host median,
+barriers included, and barrier_ms one barrier's; bound: the bytes one
+process reads and writes). Rows 4 and 8 have rows at their other
 shapes too (segment_softmax:bf16:100k, spmm_multihead:bf16:100k,
 segment_softmax{,_bwd}:{f32,bf16}:16k, spmm_multihead:f32:shard,
 segment_softmax{,_bwd}:f32:config4), and row 7 at path G(ii)'s GIN split
@@ -252,6 +284,7 @@ from __future__ import annotations
 
 import dataclasses
 import gc
+import hashlib
 import json
 import subprocess
 import sys
@@ -794,6 +827,9 @@ KERNELS = {
        for b in ("", "_bwd") for w in ("", ":weighted")},
     "all_to_all:f32": ("bignn_tpu_torch/csrc/all_to_all.cu",
                        "bignn_tpu/ops/pallas/collectives.py:43"),
+    # the exchange across processes (path K), counted in its processes
+    "all_to_all:f32:procs": ("bignn_tpu_torch/csrc/all_to_all.cu",
+                             "bignn_tpu/ops/pallas/collectives.py:43"),
 }
 # the forms a layout that is not block-local must not launch
 BLOCK_FORMS = ("block_adjacency:f32", "block_adjacency:int8",
@@ -2426,14 +2462,15 @@ class P2Trainer:
     Trainer's do, so both draw the same ones for a batch."""
 
     def __init__(self, model, train_cfg, mesh, num_drugs, plan_d,
-                 overlap=False, remat=False):
+                 overlap=False, remat=False, exchange=None):
         from bignn_tpu_torch.parallel import make_p2_train_step
         from bignn_tpu_torch.train import make_optimizer
 
         self.model, self.seed, self.plan_d = model, train_cfg.seed, plan_d
         self.step = make_p2_train_step(
             model, make_optimizer(model.parameters(), train_cfg), mesh,
-            num_drugs, train_cfg.neg_ratio, overlap=overlap, remat=remat)
+            num_drugs, train_cfg.neg_ratio, overlap=overlap, remat=remat,
+            exchange=exchange)
 
     def train_step(self, pairs, mask, epoch: int, step: int):
         from bignn_tpu_torch import prng
@@ -2445,21 +2482,26 @@ class P2Trainer:
 
 class FirstCall:
     """Stands in for an ops function, keeping a copy of the send buffers of
-    its first call (a step's own exchange)."""
+    its first call (a step's own exchange) and of what it returned."""
 
     def __init__(self, fn):
-        self.fn, self.bufs = fn, None
+        self.fn, self.bufs, self.out = fn, None, None
 
-    def __call__(self, bufs):
-        if self.bufs is None:
+    def __call__(self, bufs, *args):
+        first = self.bufs is None
+        if first:
             self.bufs = [b.detach().clone() for b in bufs]
-        return self.fn(bufs)
+        out = self.fn(bufs, *args)
+        if first:
+            self.out = [o.detach().clone() for o in out]
+        return out
 
 
-def p2_layout(dev, ds, graph: int, inner_layers, overlap: bool = False):
+def p2_layout(dev, ds, graph: int, inner_layers, overlap: bool = False,
+              mesh=None):
     """The outer partition of ``ds``'s train graph, the sharded unions and
-    their upload, on a mesh that names ``dev`` ``graph`` times; returns
-    ``(mesh, plan, plan_d)``."""
+    their upload, on ``mesh`` (default: one that names ``dev`` ``graph``
+    times); returns ``(mesh, plan, plan_d)``."""
     from bignn_tpu_torch.parallel import (
         build_outer_partition,
         build_sharded_inner,
@@ -2467,7 +2509,8 @@ def p2_layout(dev, ds, graph: int, inner_layers, overlap: bool = False):
         make_mesh,
     )
 
-    mesh = make_mesh(dp=1, graph=graph, devices=[dev] * graph)
+    if mesh is None:
+        mesh = make_mesh(dp=1, graph=graph, devices=[dev] * graph)
     train = ds.split_edges("train")
     t0 = time.perf_counter()
     plan = build_outer_partition(train[:, 0], train[:, 1], ds.num_drugs,
@@ -2519,11 +2562,12 @@ def _check_loss(name: str, got: float, want: float) -> None:
         raise AssertionError(f"step-1 loss off {name}: {got} vs {want}")
 
 
-def run_p2(dev, ds) -> tuple[list, dict]:
+def run_p2(dev, ds) -> tuple[list, dict, dict]:
     """Path G: config5 as get_config sets it, on ``ds`` (the DrugBank
     stand-in), 4 graph shards on one card; path G(ii): its outer GAT
     swapped for gcn:128 and for gin:128. Returns the launch counts of the
-    four runs and the exchange's comparison at config5's send buffers."""
+    four runs, the exchange's comparison at config5's send buffers, and the
+    first run's losses and median step (path K's reference)."""
     from bignn_tpu_torch import ops
     from bignn_tpu_torch.config import get_config
     from bignn_tpu_torch.data import prepare_device_data
@@ -2543,10 +2587,13 @@ def run_p2(dev, ds) -> tuple[list, dict]:
     model = BiGNN(cfg.model, seed=SEED).to(dev)
     params0 = {k: v.clone() for k, v in model.state_dict().items()}
     rec = FirstCall(ops.all_to_all)
+    secs = []
     with mock.patch.object(ops, "all_to_all", rec):
         losses, grads = _timed_steps(
             P2Trainer(model, cfg.train, mesh, ds.num_drugs, plan_d), batches,
-            "p2 step, kernels")
+            "p2 step, kernels", secs)
+    reference = {"losses": losses, "median_ms": np.median(secs) * 1e3,
+                 "grads": grads}
     launches = read_counts()
     log(f"  launches on path G: {launches}")
     require_launched(launches, P2_GAT_FORMS, "on path G")
@@ -2641,7 +2688,7 @@ def run_p2(dev, ds) -> tuple[list, dict]:
             *shard0, b, n_halo):
         _compare(results, name, kernel, plain, tol, nb, flops,
                  library=library)
-    return counts, results
+    return counts, results, reference
 
 
 def _p2_embeddings(model, plan_d) -> torch.Tensor:
@@ -3574,7 +3621,8 @@ def run_entry_points(dev) -> list:
     --topk (with --exclude-known) and --pairs/--out on that checkpoint, bit
     for bit against a Scorer built by hand on its best parameters; run.main
     on config5 for one epoch (4 graph shards on the card). Returns the
-    launch counts of the three training runs and of the two serves."""
+    launch counts of the three training runs and of the two serves, and
+    the config5 run's result (path K(ii)'s reference)."""
     import shutil
 
     from bignn_tpu_torch import run, serve
@@ -3658,10 +3706,421 @@ def run_entry_points(dev) -> list:
     shutil.rmtree(root, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
-    return counts
+    return counts, p2
+
+
+# ---------------------------------------------------------------------------
+# path K: the multi-process p2 run, two processes on the one card
+# ---------------------------------------------------------------------------
+
+K_PROCS = 2
+K_STEPS = 8  # of path G's batches
+K_TIMEOUT = 300  # seconds for a pair of processes, start to exit
+K_REPS = 20  # timed exchanges, plain versions, library calls, barriers
+# path K(i)'s losses against path G's one-process run of the same batches:
+# the gradients' partial sums are added in another order, and Adam carries
+# the difference on (measured on the CPU, config5's model on 300 drugs, 8
+# steps: 1.7e-6)
+K_LOSS_RTOL = 1e-4
+# path K(ii)'s epoch loss against the one-process run: path J's bound for
+# a run whose gradients are summed in another order, DP_RUN_RTOL (measured:
+# 4.2e-6 on the CPU at 300 drugs, 5.3e-5 on the card at config5's 65 steps)
+K_RUN_RTOL = DP_RUN_RTOL
+K_RUN_AUC = 5e-3
+K_LOGS = Path(__file__).resolve().parent / "build" / "smoke_runs" / "k"
+K_FORMS = ("all_to_all:f32:procs",
+           *(f for f in P2_GAT_FORMS if f != "all_to_all:f32"))
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _spawn(argvs: list, what: str) -> list[str]:
+    """Run one process per argv from the repository root, their output in
+    files under build/smoke_runs/k; raises if any exits non-zero or the
+    pair outlives K_TIMEOUT, after killing every survivor. Returns each
+    process's standard output."""
+    root = Path(__file__).resolve().parent
+    logs = K_LOGS
+    logs.mkdir(parents=True, exist_ok=True)
+    files, procs = [], []
+    try:
+        for r, argv in enumerate(argvs):
+            out = open(logs / f"{what}_{r}.out", "w")
+            err = open(logs / f"{what}_{r}.err", "w")
+            files += [out, err]
+            procs.append(subprocess.Popen(argv, cwd=root, stdout=out,
+                                          stderr=err))
+        deadline = time.monotonic() + K_TIMEOUT
+        while any(p.poll() is None for p in procs):
+            if any(p.returncode not in (None, 0) for p in procs):
+                break
+            if time.monotonic() > deadline:
+                raise AssertionError(f"path K {what}: the processes ran "
+                                     f"past {K_TIMEOUT} s")
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in files:
+            f.close()
+    texts = [(logs / f"{what}_{r}.out").read_text() for r in range(len(argvs))]
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            err = (logs / f"{what}_{r}.err").read_text()
+            raise AssertionError(f"path K {what}: process {r} exited "
+                                 f"{p.returncode}:\n{texts[r][-2000:]}\n"
+                                 f"{err[-4000:]}")
+    return texts
+
+
+def _same_state(a, b) -> bool:
+    """Whether two checkpoint states (nests of dicts, lists, tensors and
+    numbers) are equal, tensors bit for bit."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_same_state(a[k], b[k])
+                                            for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(map(_same_state, a, b))
+    if isinstance(a, torch.Tensor):
+        return (a.dtype == b.dtype and a.shape == b.shape
+                and torch.equal(a.reshape(-1).view(torch.uint8),
+                                b.reshape(-1).view(torch.uint8)))
+    return a == b
+
+
+def _last_json(text: str) -> dict:
+    return json.loads(text.strip().splitlines()[-1])
+
+
+def _host_ms(fn, reps: int = K_REPS) -> float:
+    """Median host milliseconds of ``fn()`` up to a synchronize."""
+    secs = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    return float(np.median(secs) * 1e3)
+
+
+def queued_ms(fn, reps: int = 100) -> float:
+    """Mean device milliseconds per call of ``fn``, the calls queued behind
+    a device sleep twice as long as the host takes to queue them, so that
+    the host's cost of a call is hidden (as
+    scripts/compare_kernel_trees.py's ``device_ms``)."""
+    t0 = time.perf_counter()
+    for _ in range(10):
+        fn()
+    queue_ms = (time.perf_counter() - t0) * 1e3 * reps / 10
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    torch.cuda._sleep(1_000_000)
+    end.record()
+    end.synchronize()
+    cycles_per_ms = 1_000_000 / start.elapsed_time(end)
+    torch.cuda._sleep(int(2 * queue_ms * cycles_per_ms))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def k_exchange_times(exchange, bufs) -> dict:
+    """Path K(iv) in one process, at a step's own send buffers: every
+    process at once, the whole exchange (staging copy, synchronize,
+    barrier, launch, synchronize, barrier), its plain version (through the
+    process group) and the library call (``torch.distributed
+    .all_to_all_single`` on the same buffers, arranged by destination
+    process beforehand, its result checked), each a median of host ms;
+    the barrier (a synchronize and ``dist.barrier``); then the kernel alone
+    (``launch_staged``, ``queued_ms``), each process in turn while the
+    other waits."""
+    import torch.distributed as dist
+
+    L, G = len(bufs), exchange.num_shards
+    inner = tuple(bufs[0].shape[1:])
+    want = exchange.all_to_all_plain(bufs)
+    times = {"exchange_ms": _host_ms(lambda: exchange.launch(bufs)),
+             "plain_ms": _host_ms(lambda: exchange.all_to_all_plain(bufs))}
+    # [destination process, local source, local destination, S, F]
+    inp = (torch.stack(bufs).view(L, exchange.size, L, *inner)
+           .transpose(0, 1).contiguous())
+    out = torch.empty_like(inp)
+    times["library_ms"] = _host_ms(lambda: dist.all_to_all_single(out, inp))
+    # out[p, i, j] = slot j of source p * L + i
+    got = out.permute(2, 0, 1, 3, 4).reshape(L, G, *inner)
+    if not all(torch.equal(got[jj], want[jj]) for jj in range(L)):
+        raise AssertionError("all_to_all_single differs from the exchange")
+
+    def barrier():
+        torch.cuda.current_stream().synchronize()
+        dist.barrier()
+
+    times["barrier_ms"] = _host_ms(barrier)
+    exchange.launch(bufs)  # every staging buffer holds this step's buffers
+    recv = [torch.empty_like(b) for b in bufs]
+    for turn in range(exchange.size):
+        dist.barrier()
+        if turn == exchange.rank:
+            times["kernel_ms"] = queued_ms(
+                lambda: exchange.launch_staged(recv))
+        dist.barrier()
+    if not all(torch.equal(a, b) for a, b in zip(recv, want)):
+        raise AssertionError("the staged launch differs from the plain "
+                             "version")
+    chunk = bufs[0][0].numel() * bufs[0].element_size()
+    times["bytes"] = 2 * L * G * chunk  # this process's reads and writes
+    return times
+
+
+def k_worker_step(rank: int, port: int) -> dict:
+    """One process of path K(i): config5 as get_config sets it, graph 4
+    over K_PROCS processes on this card (make_hybrid_mesh: 2 shards each),
+    dp 1, the first K_STEPS batches of path G from the same init and keys;
+    the launch counts over those steps; the first exchange across
+    processes against its plain version, exactly; the times of K(iv)."""
+    from bignn_tpu_torch import ops
+    from bignn_tpu_torch.config import get_config
+    from bignn_tpu_torch.data import load_dataset
+    from bignn_tpu_torch.models import BiGNN
+    from bignn_tpu_torch.parallel import (
+        init_distributed,
+        local_device,
+        make_exchange,
+        make_hybrid_mesh,
+    )
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device")
+    init_distributed(f"127.0.0.1:{port}", K_PROCS, rank)
+    dev = local_device()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config("config5")
+    ds = load_dataset(cfg.dataset, **cfg.dataset_kwargs)
+    mesh = make_hybrid_mesh(graph=cfg.graph_shards)
+    exchange = make_exchange(mesh)
+    log(f"process {rank}: mesh {mesh.shape}, processes "
+        f"{mesh.processes.tolist()}, local shards {mesh.local_graph} on "
+        f"{mesh.device}")
+    reset_counts()  # the upload's block builds count, as on path G
+    _, _, plan_d = p2_layout(dev, ds, cfg.graph_shards,
+                             cfg.model.inner_layers, mesh=mesh)
+    model = BiGNN(cfg.model, seed=SEED).to(dev)
+    trainer = P2Trainer(model, cfg.train, mesh, ds.num_drugs, plan_d,
+                        exchange=exchange)
+    batches = _train_batches(ds, cfg.train)[:K_STEPS]
+    rec, secs = FirstCall(ops.all_to_all), []
+    with mock.patch.object(ops, "all_to_all", rec):
+        losses, grads = _timed_steps(trainer, batches,
+                                     "two-process p2 step", secs)
+    K_LOGS.mkdir(parents=True, exist_ok=True)
+    grads_file = K_LOGS / f"grads_{rank}.pt"
+    torch.save({k: v.cpu() for k, v in grads.items()}, grads_file)
+    launches = read_counts()
+    require_launched(launches, K_FORMS, f"in process {rank}")
+    require_idle(launches, ("all_to_all:f32", *FLASH_FORMS),
+                 f"in process {rank}")
+    want = exchange.all_to_all_plain(rec.bufs)
+    err = max(float((a - b).abs().max()) for a, b in zip(rec.out, want))
+    if not all(torch.equal(a, b) for a, b in zip(rec.out, want)):
+        raise AssertionError("the first exchange across processes differs "
+                             "from its plain version")
+    times = k_exchange_times(exchange, rec.bufs)
+    digest = hashlib.sha256()
+    for v in model.state_dict().values():
+        digest.update(v.detach().cpu().numpy().tobytes())
+    exchange.close()
+    return {"rank": rank, "losses": losses, "digest": digest.hexdigest(),
+            "grads": str(grads_file),
+            "median_ms": float(np.median(secs) * 1e3), "max_abs_err": err,
+            "launches": {f: n for f, n in launches.items() if n},
+            "send": [tuple(rec.bufs[0].shape), len(rec.bufs)], **times}
+
+
+def _k_step_pair(what: str) -> list[dict]:
+    port = _free_port()
+    outs = _spawn([[sys.executable, str(Path(__file__).resolve()),
+                    "--worker", "step", "--rank", str(r), "--port",
+                    str(port)] for r in range(K_PROCS)], what)
+    return [_last_json(o) for o in outs]
+
+
+def run_multiprocess(g_ref: dict, one_run: dict | None) -> dict:
+    """Path K: the multi-process p2 run, K_PROCS processes on this card.
+    (i) ``k_worker_step`` in each, the losses against path G's
+    (``g_ref``) within K_LOSS_RTOL, the step-1 gradients (summed over the
+    processes) against path G's by ``_check_step1``, and both processes'
+    parameters equal to the bit; (iii) the same pair again, the same
+    bits; (ii) ``python -m bignn_tpu_torch.run --config config5 --epochs 1
+    --checkpoint-every 1 --coordinator ... --num-processes 2 --process-id
+    i`` against the one-process ``run`` (``one_run``, or run here): the
+    epoch loss within K_RUN_RTOL, the test AUC within K_RUN_AUC, the run
+    dir written by process 0 alone; the same command with ``--epochs 2``
+    resumes it and must equal a straight 2-epoch pair bit for bit (epoch
+    records, result, last checkpoint); (iv) the times. Returns the kernels
+    line's row of ``all_to_all:f32:procs``."""
+    from bignn_tpu_torch import run
+
+    t0 = time.perf_counter()
+    log(f"  (i) config5's p2 step, graph 4 over {K_PROCS} processes, "
+        f"{K_STEPS} steps")
+    first = _k_step_pair("step")
+    want = g_ref["losses"][:K_STEPS]
+    for w in first:
+        rel = max(abs(a - b) / abs(b) for a, b in zip(w["losses"], want))
+        log(f"  process {w['rank']}: losses {w['losses']}, worst {rel:.3e} "
+            f"off path G's (bound {K_LOSS_RTOL:g}); launches "
+            f"{w['launches']}")
+        if not (np.all(np.isfinite(w["losses"])) and rel <= K_LOSS_RTOL):
+            raise AssertionError(f"path K(i): process {w['rank']}'s losses "
+                                 f"{w['losses']} against path G's {want}")
+    if first[0]["digest"] != first[1]["digest"] or (
+            first[0]["losses"] != first[1]["losses"]):
+        raise AssertionError("path K(i): the processes' parameters differ")
+    # the gradients themselves: Adam's step hides one off by a constant
+    # factor (a replicated parameter counted once a process, say)
+    dev = next(iter(g_ref["grads"].values())).device
+    log("  process 0's step-1 gradients, summed over the processes, against "
+        "path G's:")
+    _check_step1({k: v.to(dev) for k, v in
+                  torch.load(first[0]["grads"]).items()}, g_ref["grads"],
+                 first[0]["losses"][0], want[0], torch.float32)
+    log(f"  both processes' parameters equal to the bit "
+        f"({first[0]['digest'][:16]})")
+    log("  (iii) the pair again from the same seed")
+    second = _k_step_pair("step_again")
+    for a, b in zip(first, second):
+        if (a["digest"], a["losses"]) != (b["digest"], b["losses"]):
+            raise AssertionError(f"path K(iii): process {a['rank']} did not "
+                                 "repeat bit for bit")
+    log("  repeated bit for bit")
+
+    log("  (ii) run --config config5 over 2 processes: 1 epoch with a "
+        "checkpoint, the same run dir resumed to 2 epochs, 2 epochs straight")
+    root = Path(__file__).resolve().parent / "build" / "smoke_runs"
+    if one_run is None:
+        one_run = _timed_main(run.main, ["--config", "config5", "--epochs",
+                                         "1"], "run config5, one process")
+    import shutil
+
+    from bignn_tpu_torch.train.checkpoint import CheckpointManager
+
+    def cli(what: str, run_dir: Path, epochs: int):
+        """The CLI pair; its seconds, run dir records, result and last
+        checkpoint."""
+        port = _free_port()
+        t1 = time.perf_counter()
+        _spawn([[sys.executable, "-m", "bignn_tpu_torch.run", "--config",
+                 "config5", "--epochs", str(epochs), "--run-dir",
+                 str(run_dir), "--checkpoint-every", "1", "--coordinator",
+                 f"127.0.0.1:{port}", "--num-processes", str(K_PROCS),
+                 "--process-id", str(r)] for r in range(K_PROCS)], what)
+        secs = time.perf_counter() - t1
+        records = [json.loads(line) for line in
+                   (run_dir / "metrics.jsonl").read_text().splitlines()]
+        return (secs, records,
+                json.loads((run_dir / "result.json").read_text()),
+                CheckpointManager(str(run_dir / "ckpt")))
+
+    run_dir, whole_dir = root / "k_cli", root / "k_cli_whole"
+    for d in (run_dir, whole_dir):
+        shutil.rmtree(d, ignore_errors=True)
+    cli_s, records, got, ckpt = cli("cli", run_dir, 1)
+    epochs = [r for r in records if "epoch" in r and "loss" in r]
+    mesh = [r for r in records if r.get("event") == "mesh"]
+    rel = abs(got["final_loss"] - one_run["final_loss"]) / abs(
+        one_run["final_loss"])
+    auc = abs(got["test_auc"] - one_run["test_auc"])
+    log(f"  {cli_s:.3f} s for both processes (start to exit), the epoch "
+        f"{epochs[0]['epoch_time_s']:.3f} s (one process: "
+        f"{one_run['history'][0]['epoch_time_s']:.3f} s): loss "
+        f"{got['final_loss']:.7f} against {one_run['final_loss']:.7f} "
+        f"({rel:.3e}, bound {K_RUN_RTOL:g}), test AUC {got['test_auc']:.6f} "
+        f"against {one_run['test_auc']:.6f} ({auc:.3e}, bound "
+        f"{K_RUN_AUC:g})")
+    if not (rel <= K_RUN_RTOL and auc <= K_RUN_AUC and len(epochs) == 1
+            and sum(r.get("event") == "done" for r in records) == 1
+            and len(mesh) == 1 and mesh[0]["processes"] == K_PROCS
+            and ckpt.steps() == [0]):
+        raise AssertionError(f"path K(ii): {got} against {one_run}; "
+                             f"records {records}, checkpoints "
+                             f"{ckpt.steps()}")
+    resume_s, records, resumed, ckpt = cli("cli_resume", run_dir, 2)
+    whole_s, whole_records, whole, whole_ckpt = cli("cli_whole", whole_dir,
+                                                    2)
+
+    def epoch_records(recs):
+        return [{k: v for k, v in r.items()
+                 if k not in ("epoch_time_s", "wall_s")}
+                for r in recs if "epoch" in r and "loss" in r]
+
+    log(f"  resumed {resume_s:.3f} s, straight {whole_s:.3f} s: "
+        f"{resumed} against {whole}")
+    if not (epoch_records(records) == epoch_records(whole_records)
+            and resumed == whole and ckpt.steps() == whole_ckpt.steps()
+            == [0, 1] and _same_state(ckpt.restore_state(),
+                                      whole_ckpt.restore_state())):
+        raise AssertionError(
+            f"path K(ii): the resumed run {epoch_records(records)}, "
+            f"{resumed} against the straight one "
+            f"{epoch_records(whole_records)}, {whole}")
+    log("  the resumed run equals the straight one bit for bit (epochs, "
+        "result, last checkpoint)")
+    for d in (run_dir, whole_dir):
+        shutil.rmtree(d, ignore_errors=True)
+
+    w = first[0]
+    log(f"  (iv) two-process step median {w['median_ms']:.3f} ms, "
+        f"{first[1]['median_ms']:.3f} ms against path G's one-process "
+        f"{g_ref['median_ms']:.3f} ms; send buffers {w['send']}")
+    for x in first:
+        log(f"  process {x['rank']}: exchange {x['exchange_ms']:.4f} ms "
+            f"host (kernel {x['kernel_ms']:.4f} ms device), plain "
+            f"{x['plain_ms']:.4f} ms, all_to_all_single {x['library_ms']:.4f}"
+            f" ms, barrier {x['barrier_ms']:.4f} ms")
+    log(f"path K: {time.perf_counter() - t0:.1f} s on {card_line()}")
+    b, by = bound_ms(w["bytes"])
+    source, tpu = KERNELS["all_to_all:f32"]
+    return {"name": "all_to_all:f32:procs", "route": "cuda",
+            "source": source, "replaces": tpu,
+            "launches": sum(x["launches"]["all_to_all:f32:procs"]
+                            for x in first),
+            "max_abs_err": max(x["max_abs_err"] for x in first),
+            "ms": w["kernel_ms"], "plain_ms": w["plain_ms"], "bound_ms": b,
+            "bound_by": by, "library_ms": w["library_ms"],
+            "exchange_ms": w["exchange_ms"], "barrier_ms": w["barrier_ms"]}
+
+
+def worker(argv: list) -> int:
+    """``--worker step --rank R --port P``: one process of path K(i); its
+    result is the last line of its output."""
+    import argparse
+
+    ap = argparse.ArgumentParser(prog="chip_smoke.py --worker")
+    ap.add_argument("kind", choices=["step"])
+    ap.add_argument("--rank", type=int, required=True)
+    ap.add_argument("--port", type=int, required=True)
+    args = ap.parse_args(argv)
+    print(json.dumps(k_worker_step(args.rank, args.port)), flush=True)
+    return 0
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--worker"]:
+        return worker(sys.argv[2:])
     profiling = sys.argv[1:] == ["--profile"]
     if sys.argv[1:] and not profiling:
         raise SystemExit(f"chip_smoke: unknown arguments {sys.argv[1:]}")
@@ -3794,16 +4253,22 @@ def main() -> int:
     attended = run_attention(dev, ds)
     log("== path G: config5, p2 on 4 graph shards of one card; G(ii): GCN "
         "and GIN outer layers")
-    p2_counts, a2a_small = run_p2(dev, ds)
+    p2_counts, a2a_small, g_ref = run_p2(dev, ds)
     counts += [*streamed, *maxed, *sampled, hosted, *attended, *p2_counts]
     log("== path I(ii): config3's exact scores, resident and not, against "
         "the full-graph Trainer")
     path_i0 = time.perf_counter()
     counts.append(run_exact_config3(dev))
     log("== path I(iii): the entry points, run.main and serve.main")
-    counts += run_entry_points(dev)
+    entry_counts, one_run = run_entry_points(dev)
+    counts += entry_counts
     path_i_s += time.perf_counter() - path_i0
     log(f"path I: {path_i_s:.1f} s on {card_line()}")
+    log(f"== path K: the multi-process p2 run, {K_PROCS} processes on this "
+        "card")
+    gc.collect()
+    torch.cuda.empty_cache()
+    k_row = run_multiprocess(g_ref, one_run)
     for r in (fwd, fwd_bf16, bwd, c4, spmm, smax, spmm_bf16, a2a, a2a_small):
         results.update(r)
 
@@ -3817,11 +4282,14 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
 
-    kernels = [row(form, form, counts) for form in KERNELS]
+    kernels = [row(form, form, counts) for form in KERNELS
+               if form != "all_to_all:f32:procs"]
     # the exchange timed at config5's send buffers too, with the launches
-    # of paths G and G(ii), which give it that shape
+    # of paths G and G(ii), which give it that shape; then across the
+    # processes of path K, at config5's send buffers, with their launches
     kernels.append(row("all_to_all:f32 (config5)", "all_to_all:f32",
                        p2_counts))
+    kernels.append(k_row)
     # rows 4 and 8 at the other shapes the paths give them, each with the
     # launches of the paths that run that shape: the 100K graph in bf16
     # (7b), the 16,384-drug graph (8 in f32, 8b in bf16), shard 0 of path

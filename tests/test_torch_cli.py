@@ -225,15 +225,19 @@ def test_run_p2_matches_jax(monkeypatch, tmp_path):
 
 @pytest.mark.parametrize("argv,error", [
     (["--dp", "2"], None),
-    (["--coordinator", "localhost:1234"], NotImplementedError),
-    (["--num-processes", "2"], NotImplementedError),
-    (["--process-id", "0"], NotImplementedError),
+    (["--num-processes", "1"], None),
+    (["--coordinator", "localhost:1234"], "without a process count"),
+    (["--coordinator", "localhost:1234", "--num-processes", "2",
+      "--process-id", "2"], "outside"),
 ])
 def test_run_refuses_what_waits(config1_run, tmp_path, argv, error):
-    """The multi-host flags raise; ``--dp 2`` runs config1 on a mesh that
-    names the CPU twice, with the trajectory of the run without it."""
+    """``--dp 2`` runs config1 on a mesh that names the CPU twice, and
+    ``--num-processes 1`` in one process, each with the trajectory of the
+    run without it; a coordinator without a process count, or a process id
+    out of range, raises ``ValueError`` before anything connects (the
+    multi-process run itself: tests/test_torch_multihost.py)."""
     if error is not None:
-        with pytest.raises(error, match="item 11"):
+        with pytest.raises(ValueError, match=error):
             _port(["--config", "config1", *argv])
         return
     _, want, _ = config1_run
@@ -243,8 +247,12 @@ def test_run_refuses_what_waits(config1_run, tmp_path, argv, error):
     np.testing.assert_allclose(got["test_auc"], want["test_auc"], atol=1e-6)
     records = [json.loads(line) for line in
                (tmp_path / "metrics.jsonl").read_text().splitlines()]
-    assert {"event": "mesh", "dp": 2, "graph": 1}.items() <= next(
-        r for r in records if r.get("event") == "mesh").items()
+    mesh = [r for r in records if r.get("event") == "mesh"]
+    if "--dp" in argv:
+        assert {"event": "mesh", "dp": 2, "graph": 1}.items() <= \
+            mesh[0].items()
+    else:
+        assert mesh == []  # no mesh: the single-device Trainer
 
 
 def test_run_on_cuda_without_a_card_raises():

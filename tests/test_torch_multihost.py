@@ -1,0 +1,490 @@
+"""The port's multi-process p2 run on the CPU: two real processes in a gloo
+process group (``tcp://127.0.0.1:<free port>``), each driving its graph
+shards of a ``make_hybrid_mesh`` mesh that names its CPU, as JAX's
+tests/test_multihost.py runs two processes of 2 fake CPU devices each.
+
+The worker is this file run as a script (``python
+tests/test_torch_multihost.py --worker --port P --rank R --out DIR``); it
+imports no JAX. One pair of workers runs every multi-process check in turn
+and leaves its results under DIR; the tests read them:
+
+* (a) dp = 2 x graph = 2 over 2 processes, one p2 step of
+  tests/_multihost_prog.py's setup: loss and the post-step parameter
+  checksum against JAX's own ``run_once()`` at rtol 1e-5, JAX's bound;
+  every gradient and parameter against the port's single-process step on
+  ``make_mesh(dp=2, graph=2, devices=["cpu"] * 4)`` at TOL and STEP_TOL
+  (the gradients' partial sums are added in another order, so the step
+  moves a parameter by rounding at most: tests/test_torch_parallel.py's
+  bounds; the gradients are held themselves because Adam's step hides a
+  gradient off by a constant factor); both workers equal to the bit.
+* (b) graph = 4 over 2 processes (2 shards each, so an exchange mixes local
+  and remote pairs): the same against the single-process step on 4 shards;
+  the exchange across processes, its backward and the embedding
+  all-gather's backward exactly against ``all_to_all_plain`` over the
+  whole buffers.
+* (c) ``make_hybrid_mesh``'s layout and errors against JAX's
+  (``bignn_tpu/parallel/mesh.py:102-136``), no processes needed.
+* (d) ``run.main`` across 2 processes on tests/test_torch_cli.py's tiny
+  config5, 2 epochs: epoch losses against the one-process run within
+  RUN_RTOL, the same best epoch, test AUC within RUN_AUC, and only process
+  0 writing the run dir; a 2-process run stopped after epoch 0 and
+  resumed by the same command ends where the straight run ends, bit for
+  bit (losses, result, last checkpoint), as tests/test_torch_cli.py's
+  one-process resume.
+* (e) ``overlap=True`` and ``remat=True`` across 2 processes, as (b).
+"""
+
+import argparse
+import hashlib
+import json
+import os
+import socket
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parents[1]
+if __name__ == "__main__":
+    sys.path.insert(0, str(REPO))
+
+import dataclasses  # noqa: E402
+
+import numpy as np  # noqa: E402
+import pytest  # noqa: E402
+import torch  # noqa: E402
+
+from bignn_tpu_torch import ops, prng, run  # noqa: E402
+from bignn_tpu_torch.config import get_config  # noqa: E402
+from bignn_tpu_torch.data import make_synthetic_ddi  # noqa: E402
+from bignn_tpu_torch.models import BiGNN, BiGNNConfig  # noqa: E402
+from bignn_tpu_torch.parallel import (  # noqa: E402
+    build_outer_partition,
+    build_sharded_inner,
+    device_put_plan,
+    gather_rows,
+    init_distributed,
+    make_exchange,
+    make_hybrid_mesh,
+    make_mesh,
+    make_p2_train_step,
+    mesh as mesh_mod,
+    resolve_distributed,
+)
+
+TOL = dict(rtol=2e-4, atol=2e-5)
+STEP_TOL = dict(rtol=1e-5, atol=1e-6)
+# run.main over 2 epochs: the step's rounding compounded over its steps
+# (measured here: the epoch losses and the test AUC equal to the bit, the
+# one-step parameters at most 7.5e-9 apart), so the one-step bound
+RUN_RTOL = 1e-5
+RUN_AUC = 1e-6
+WORKER_TIMEOUT = 240
+KW = dict(num_drugs=40, feat_dim=8, avg_degree=6.0, min_atoms=4,
+          max_atoms=10, seed=0)  # tests/test_torch_parallel.py's
+TINY_DATA = dict(num_drugs=40, feat_dim=8, avg_degree=6.0, min_atoms=4,
+                 max_atoms=8)  # tests/test_torch_cli.py's
+# name -> (dataset, outer layers or None for config1, dp, graph, overlap,
+# remat, init seed, positives seed, masked tail, negatives key)
+CASES = {
+    "a": ("multihost", None, 2, 2, False, False, 0, 0, 0, 1),
+    "b": ("parallel", ("gin:16", "gat:16:2:identity"), 1, 4, False, False,
+          1, 4, 3, 9),
+    "overlap": ("parallel", ("gcn:16", "gat:16:2:identity"), 1, 4, True,
+                False, 1, 4, 3, 9),
+    "remat": ("parallel", ("gat:16:2:identity",), 1, 4, False, True, 1, 4,
+              3, 9),
+}
+
+
+def _dataset(name):
+    if name == "multihost":  # tests/_multihost_prog.py's
+        return make_synthetic_ddi(num_drugs=32, feat_dim=8, avg_degree=6.0,
+                                  min_atoms=4, max_atoms=10, seed=0)
+    return make_synthetic_ddi(**KW)
+
+
+def _p2_case(name: str, multi: bool) -> dict:
+    """One p2 step of case ``name``, across the group's processes
+    (``multi``) or in this one; the loss, the parameters after the step,
+    their checksum (JAX's: the sum of |p|) and a digest of their bits."""
+    data, outer, dp, graph, overlap, remat, seed, pos_seed, tail, key = (
+        CASES[name])
+    ds = _dataset(data)
+    if outer is None:
+        cfg = BiGNNConfig.config1(feat_dim=8)
+    else:
+        cfg = dataclasses.replace(
+            BiGNNConfig.full_bignn(feat_dim=8, dim=16, heads=2),
+            outer_layers=outer)
+    model = BiGNN(cfg, seed=seed)
+    mesh = (make_hybrid_mesh(dp=dp, graph=graph, device="cpu") if multi
+            else make_mesh(dp=dp, graph=graph, devices=["cpu"] * (dp * graph)))
+    train = ds.split_edges("train")
+    plan = build_outer_partition(train[:, 0], train[:, 1], ds.num_drugs,
+                                 graph)
+    inner = build_sharded_inner(ds.molecules, plan, split_boundary=overlap)
+    plan_d = device_put_plan(mesh, plan, inner, cfg.inner_layers)
+    step = make_p2_train_step(
+        model, torch.optim.Adam(model.parameters(), lr=1e-3), mesh,
+        ds.num_drugs, overlap=overlap, remat=remat,
+        exchange=make_exchange(mesh))
+    pos = np.random.default_rng(pos_seed).integers(
+        0, ds.num_drugs, (16, 2)).astype(np.int32)
+    mask = np.ones(16, np.float32)
+    if tail:
+        mask[-tail:] = 0.0
+    loss = step(prng.key(key), pos, mask, plan_d)
+    params = {k: v.detach().clone() for k, v in model.named_parameters()}
+    grads = {k: v.grad.clone() for k, v in model.named_parameters()}
+    digest = hashlib.sha256()
+    for v in (*params.values(), *grads.values()):
+        digest.update(v.numpy().tobytes())
+    return {"loss": float(loss), "params": params, "grads": grads,
+            "checksum": sum(float(v.abs().sum()) for v in params.values()),
+            "digest": digest.hexdigest()}
+
+
+def _exchange_case(rank: int) -> dict:
+    """(b)'s exchange on 4 shards, 2 a process: whole send buffers and
+    cotangents made from a seed in every process, each taking its own."""
+    mesh = make_hybrid_mesh(graph=4, device="cpu")
+    exchange = make_exchange(mesh)
+    local = mesh.local_graph
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.normal(size=(4, 4, 3, 5)).astype(np.float32))
+    ct = torch.from_numpy(rng.normal(size=(4, 4, 3, 5)).astype(np.float32))
+    bufs = [x[j].clone().requires_grad_() for j in local]
+    out = ops.all_to_all(bufs, exchange)
+    torch.autograd.backward(out, [ops.all_to_all_plain(list(ct))[j]
+                                  for j in local])
+    want = ops.all_to_all_plain(list(x))
+    want_g = ops.all_to_all_plain(list(ops.all_to_all_plain(list(ct))))
+    h = torch.from_numpy(rng.normal(size=(4, 6, 7)).astype(np.float32))
+    hl = [h[j].clone().requires_grad_() for j in local]
+    emb = gather_rows(hl, exchange)
+    g = torch.from_numpy(rng.normal(size=(24, 7)).astype(np.float32))
+    emb.backward(g)
+    return {
+        "local": local,
+        "forward": all(torch.equal(o, want[j]) for o, j in zip(out, local)),
+        "backward": all(torch.equal(b.grad, want_g[j])
+                        for b, j in zip(bufs, local)),
+        "gather": torch.equal(emb, h.reshape(24, 7)),
+        "gather_backward": all(
+            torch.equal(t.grad, 2 * g.view(4, 6, 7)[j])
+            for t, j in zip(hl, local)),
+        "processes": mesh.processes.tolist(),
+    }
+
+
+def _tiny_config5(epochs: int = 2):
+    """tests/test_torch_cli.py's tiny config5 (``_tiny``), port only."""
+    cfg = get_config("config5")
+    model = dataclasses.replace(
+        cfg.model, feat_dim=8, inner_layers=("gin:16",),
+        outer_layers=("gat:16:2",))
+    return dataclasses.replace(
+        cfg, dataset="synthetic-small", dataset_kwargs=dict(TINY_DATA),
+        model=model, train=dataclasses.replace(
+            cfg.train, lr=1e-3, batch_size=32, epochs=epochs))
+
+
+def _run_main(run_dir: Path, extra=()) -> dict:
+    """``run.main`` on config5 (``run.get_config`` set to
+    ``_tiny_config5`` by the caller), on the CPU."""
+    res = run.main(["--config", "config5", "--run-dir", str(run_dir),
+                    "--device", "cpu", *extra])
+    return {"losses": [r["loss"] for r in res["history"]],
+            "best_epoch": res["best_epoch"], "test_auc": res["test_auc"]}
+
+
+def _worker(port: int, rank: int, out: Path) -> None:
+    torch.set_num_threads(1)
+    flags = ["--coordinator", f"127.0.0.1:{port}", "--num-processes", "2",
+             "--process-id", str(rank)]
+    init_distributed(f"127.0.0.1:{port}", 2, rank)
+    results = {"exchange": _exchange_case(rank)}
+    for name in CASES:
+        res = _p2_case(name, multi=True)
+        torch.save({"params": res.pop("params"), "grads": res.pop("grads")},
+                   out / f"{name}_{rank}.pt")
+        results[name] = res
+    run.get_config = lambda name: _tiny_config5()  # this process only
+    ckpt = ["--checkpoint-every", "1"]
+    results["run"] = _run_main(out / "run", [*flags, *ckpt])
+    # killed after epoch 0, then the same command resumes
+    results["first"] = _run_main(out / "resume",
+                                 [*flags, *ckpt, "--epochs", "1"])
+    results["resumed"] = _run_main(out / "resume", [*flags, *ckpt])
+    (out / f"results_{rank}.json").write_text(json.dumps(results))
+
+
+# ---------------------------------------------------------------------------
+# the tests
+# ---------------------------------------------------------------------------
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for these tiny tensors (see
+    tests/test_torch_minibatch.py)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.fixture(scope="module")
+def workers(tmp_path_factory):
+    """Both workers' results, after both exit 0 (a survivor of a failed
+    or hung pair is killed)."""
+    out = tmp_path_factory.mktemp("multihost")
+    port = _free_port()
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("JAX_")}
+    procs = [subprocess.Popen(
+        [sys.executable, __file__, "--worker", "--port", str(port),
+         "--rank", str(r), "--out", str(out)], cwd=REPO, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=WORKER_TIMEOUT) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, (_, err)) in enumerate(zip(procs, logs)):
+        assert p.returncode == 0, f"worker {r} failed:\n{err[-3000:]}"
+    return out, [json.loads((out / f"results_{r}.json").read_text())
+                 for r in range(2)]
+
+
+@pytest.mark.parametrize("nproc,ici_dp,ici_graph", [
+    (2, 1, 1), (2, 2, 1), (2, 1, 2), (4, 2, 2), (3, 2, 3)])
+def test_hybrid_mesh_layout_matches_jax(monkeypatch, nproc, ici_dp,
+                                        ici_graph):
+    """The process of every entry, as JAX's hand layout places its
+    processes' devices (its ``mesh_utils`` route refused, as on a CPU)."""
+    import jax
+    from jax.experimental import mesh_utils
+
+    from bignn_tpu.parallel import mesh as jax_mesh
+
+    nloc = ici_dp * ici_graph
+
+    class Dev:
+        def __init__(self, p, i):
+            self.process_index, self.id = p, i
+
+    devs = [Dev(p, p * nloc + i) for p in range(nproc) for i in range(nloc)]
+
+    def refuse(**kw):
+        raise ValueError("no slice metadata")
+
+    monkeypatch.setattr(jax, "process_count", lambda: nproc)
+    monkeypatch.setattr(jax, "local_device_count", lambda: nloc)
+    monkeypatch.setattr(jax, "devices", lambda: devs)
+    monkeypatch.setattr(mesh_utils, "create_hybrid_device_mesh", refuse)
+    monkeypatch.setattr(jax_mesh, "Mesh", lambda arr, axis_names: arr)
+    want = jax_mesh.make_hybrid_mesh(dp=ici_dp, graph=nproc * ici_graph)
+    monkeypatch.setattr(mesh_mod, "process_count", lambda: nproc)
+    monkeypatch.setattr(mesh_mod, "all_gather_object",
+                        lambda obj: [obj] * nproc)
+    got = make_hybrid_mesh(dp=ici_dp, graph=nproc * ici_graph, device="cpu")
+    assert got.shape == {"dp": ici_dp, "graph": nproc * ici_graph}
+    np.testing.assert_array_equal(
+        got.processes, np.vectorize(lambda d: d.process_index)(want))
+    assert set(got.devices.flat) == {torch.device("cpu")}
+    for p in range(nproc):  # each process's graph shards, host-major
+        monkeypatch.setattr(mesh_mod, "process_index", lambda p=p: p)
+        assert got.local_graph == list(range(p * ici_graph,
+                                             (p + 1) * ici_graph))
+
+
+def test_hybrid_mesh_errors_match_jax(monkeypatch):
+    import jax
+
+    from bignn_tpu.parallel import mesh as jax_mesh
+
+    monkeypatch.setattr(jax, "process_count", lambda: 2)
+    monkeypatch.setattr(jax, "local_device_count", lambda: 2)
+    with pytest.raises(ValueError) as want:
+        jax_mesh.make_hybrid_mesh(graph=3)
+    monkeypatch.setattr(mesh_mod, "process_count", lambda: 2)
+    with pytest.raises(ValueError) as got:
+        make_hybrid_mesh(graph=3, device="cpu")
+    assert str(got.value) == str(want.value)
+    # a single process: make_mesh on its one card
+    monkeypatch.setattr(mesh_mod, "process_count", lambda: 1)
+    one = make_hybrid_mesh(dp=2, graph=2, device="cpu")
+    assert one.shape == {"dp": 2, "graph": 2} and one.process_count == 1
+    assert one.local_graph == [0, 1]
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(coordinator_address="127.0.0.1:1"), "without a process count"),
+    (dict(num_processes=2, process_id=0), "coordinator"),
+    (dict(coordinator_address="h:1", num_processes=2, process_id=2),
+     "outside"),
+    (dict(coordinator_address="h:1", num_processes=2), "id"),
+])
+def test_resolve_distributed_refuses(monkeypatch, kw, match):
+    for name in ("JAX_COORDINATOR_ADDRESS", "JAX_NUM_PROCESSES",
+                 "JAX_PROCESS_ID"):
+        monkeypatch.delenv(name, raising=False)
+    with pytest.raises(ValueError, match=match):
+        resolve_distributed(**kw)
+
+
+def test_resolve_distributed_reads_jax_environment(monkeypatch):
+    monkeypatch.setenv("JAX_COORDINATOR_ADDRESS", "h:9")
+    monkeypatch.setenv("JAX_NUM_PROCESSES", "3")
+    monkeypatch.setenv("JAX_PROCESS_ID", "2")
+    assert resolve_distributed() == ("h:9", 3, 2)
+    assert resolve_distributed(num_processes=1, process_id=0,
+                               coordinator_address="x:1") == ("x:1", 1, 0)
+    monkeypatch.delenv("JAX_COORDINATOR_ADDRESS")
+    monkeypatch.delenv("JAX_NUM_PROCESSES")
+    monkeypatch.delenv("JAX_PROCESS_ID")
+    assert resolve_distributed() == (None, 1, 0)
+    assert init_distributed() == 0  # one process joins nothing
+
+
+def test_run_refuses_several_processes_outside_p2():
+    with pytest.raises(ValueError, match="p2 is the multi-process mode"):
+        run.main(["--config", "config1", "--coordinator", "127.0.0.1:1",
+                  "--num-processes", "2", "--process-id", "0",
+                  "--device", "cpu"])
+
+
+def test_two_processes_match_jax_run_once(workers):
+    """(a) against JAX's own tests/_multihost_prog.py run_once()."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "_multihost_prog", REPO / "tests" / "_multihost_prog.py")
+    prog = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(prog)
+    loss_ref, cs_ref = prog.run_once()
+    _, results = workers
+    for r in results:
+        assert np.isclose(r["a"]["loss"], loss_ref, rtol=1e-5), (r["a"],
+                                                                 loss_ref)
+        assert np.isclose(r["a"]["checksum"], cs_ref, rtol=1e-5), (
+            r["a"], cs_ref)
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_two_processes_match_one_process(workers, case):
+    """(a), (b), (e): the loss, every gradient (summed over the processes:
+    Adam's step hides a gradient off by a constant factor, so they are held
+    themselves, at tests/test_torch_parallel.py's TOL x the largest) and
+    every parameter after the step against the same step in one process;
+    both workers to the bit."""
+    out, results = workers
+    one = _p2_case(case, multi=False)
+    a, b = (r[case] for r in results)
+    assert a["loss"] == b["loss"] and a["digest"] == b["digest"]
+    np.testing.assert_allclose(a["loss"], one["loss"], **STEP_TOL)
+    got = torch.load(out / f"{case}_0.pt")
+    for name, want in one["grads"].items():
+        scale = max(want.abs().max().item(), 1.0)
+        np.testing.assert_allclose(got["grads"][name].numpy(), want.numpy(),
+                                   rtol=TOL["rtol"], atol=TOL["atol"] * scale,
+                                   err_msg=name)
+    for name, want in one["params"].items():
+        np.testing.assert_allclose(got["params"][name].numpy(),
+                                   want.numpy(), **STEP_TOL, err_msg=name)
+
+
+def test_exchange_across_processes_is_exact(workers):
+    """(b): 2 local shards a process; the exchange, its backward and the
+    embedding all-gather's backward exactly."""
+    _, results = workers
+    assert [r["exchange"]["local"] for r in results] == [[0, 1], [2, 3]]
+    for r in results:
+        ex = r["exchange"]
+        assert ex["processes"] == [[0, 0, 1, 1]]
+        assert ex["forward"] and ex["backward"], ex
+        assert ex["gather"] and ex["gather_backward"], ex
+
+
+def test_run_main_across_two_processes(workers, monkeypatch, tmp_path):
+    """(d): run.main across 2 processes against the one-process run."""
+    out, results = workers
+    monkeypatch.setattr(run, "get_config", lambda name: _tiny_config5())
+    one = _run_main(tmp_path / "one")
+    for r in results:
+        got = r["run"]
+        np.testing.assert_allclose(got["losses"], one["losses"],
+                                   rtol=RUN_RTOL)
+        assert got["best_epoch"] == one["best_epoch"]
+        assert abs(got["test_auc"] - one["test_auc"]) <= RUN_AUC
+    assert results[0]["run"] == results[1]["run"]
+    records = [json.loads(line) for line in
+               (out / "run" / "metrics.jsonl").read_text().splitlines()]
+    # process 0 alone wrote the shared run dir: each record once
+    assert [r["epoch"] for r in records if "epoch" in r] == [0, 1]
+    assert sum(r.get("event") == "done" for r in records) == 1
+    assert {"event": "mesh", "dp": 1, "graph": 4, "processes": 2}.items() \
+        <= next(r for r in records if r.get("event") == "mesh").items()
+    assert json.loads((out / "run" / "result.json").read_text())[
+        "best_epoch"] == one["best_epoch"]
+
+
+
+def _same_state(a, b) -> bool:
+    """Two checkpoint states equal, tensors bit for bit."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_same_state(a[k], b[k])
+                                            for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(map(_same_state, a, b))
+    if isinstance(a, torch.Tensor):
+        return (a.dtype == b.dtype and a.shape == b.shape
+                and torch.equal(a.reshape(-1).view(torch.uint8),
+                                b.reshape(-1).view(torch.uint8)))
+    return a == b
+
+
+def test_run_main_resumes_across_two_processes(workers):
+    """(d): stopped after epoch 0 with a checkpoint, the same two-process
+    command trains epoch 1 alone and ends bit for bit where the straight
+    two-process run ends: losses, best epoch, test AUC, and process 0's
+    last checkpoint (parameters, Adam state, best parameters)."""
+    from bignn_tpu_torch.train.checkpoint import CheckpointManager
+
+    out, results = workers
+    for r in results:
+        assert r["first"]["losses"] == r["run"]["losses"][:1]
+        assert r["resumed"]["losses"] == r["run"]["losses"][1:]
+        assert r["resumed"]["best_epoch"] == r["run"]["best_epoch"]
+        assert r["resumed"]["test_auc"] == r["run"]["test_auc"]
+    straight = CheckpointManager(str(out / "run" / "ckpt"))
+    resumed = CheckpointManager(str(out / "resume" / "ckpt"))
+    assert straight.steps() == resumed.steps() == [0, 1]
+    assert _same_state(resumed.restore_state(), straight.restore_state())
+    assert not _same_state(resumed.restore_state(0),
+                           resumed.restore_state(1))
+    records = [json.loads(line) for line in
+               (out / "resume" / "metrics.jsonl").read_text().splitlines()]
+    # process 0 alone appended each run's records
+    assert [r["epoch"] for r in records if "epoch" in r] == [0, 1]
+    assert sum(r.get("event") == "done" for r in records) == 2
+
+
+if __name__ == "__main__":
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--worker", action="store_true", required=True)
+    ap.add_argument("--port", type=int, required=True)
+    ap.add_argument("--rank", type=int, required=True)
+    ap.add_argument("--out", type=Path, required=True)
+    a = ap.parse_args()
+    _worker(a.port, a.rank, a.out)

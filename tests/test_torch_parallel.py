@@ -286,7 +286,8 @@ def test_all_to_all_refuses(case):
 def test_make_mesh():
     mesh = make_mesh(dp=2, graph=2, devices=["cpu"] * 4)
     assert mesh.shape == {"dp": 2, "graph": 2}
-    assert mesh.graph_devices == [torch.device("cpu")] * 2
+    assert mesh.local_graph == [0, 1] and mesh.process_count == 1
+    assert mesh.device == torch.device("cpu")
     with pytest.raises(ValueError):
         make_mesh(dp=2, graph=3, devices=["cpu"] * 4)
     with pytest.raises(NotImplementedError):
@@ -302,7 +303,7 @@ def test_make_mesh():
         make_mesh(dp=1, graph=2, tp=2, devices=["cpu"] * 2)
     with pytest.raises(ValueError, match="device count"):
         make_mesh(dp=3, tp=2, devices=["cpu"] * 4)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="one card a process"):
         make_mesh(dp=1, tp=2, devices=["cuda:0", "cuda:1"])
 
 
