@@ -14,14 +14,19 @@ backward) per element type.
 
 Across processes (the multi-process p2 run), ``all_to_all(sendbufs,
 exchange)`` takes this process's shards' send buffers (each ``[G, ...]``)
-and returns their receive buffers, through ``exchange``, a
-``ProcessExchange`` built collectively once per mesh
-(``parallel.comm.make_exchange``). On the CPU, and as the plain version
-on the card, it gathers every process's send buffers through the process
-group (gloo) and takes its slots of ``all_to_all_plain``. On the card, ``PeerExchange``
-copies the send buffers into a staging buffer that every process maps by
-CUDA IPC, and one launch of the kernel pulls this process's receive
-buffers from every source; its launches count under
+and returns their receive buffers, through ``exchange``, built
+collectively once per mesh (``parallel.comm.make_exchange``).
+``ProcessExchange`` is the route between hosts, and the CPU's: each
+process sends every other one only the chunks that process's shards need,
+through the process group (one gloo ``all_to_all_single`` over host
+copies, pinned for a card), and the receive buffers are written from the
+local chunks and the arrivals (on a card one launch of the kernel on this
+process's destinations, counted under ``all_to_all:<dtype>:hosts``).
+Its ``all_to_all_plain`` gathers every process's whole send buffers
+instead: the plain version. When every process runs on one host, on the
+card, ``PeerExchange`` copies the send buffers into a staging buffer that
+every process maps by CUDA IPC, and one launch of the kernel pulls this
+process's receive buffers from every source; its launches count under
 ``all_to_all:<dtype>:procs``. The same objects give the rank-order
 all-gather and sum that keep the replicated state equal in every process
 (``parallel/comm.py``). Buffers on distinct CUDA devices in one process,
@@ -30,6 +35,7 @@ and a mix of devices, raise: the port drives one card a process.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 from typing import Sequence
 
@@ -74,35 +80,43 @@ def _check(bufs: Sequence[torch.Tensor], g: int | None = None
 def all_to_all_plain(sendbufs: Sequence[torch.Tensor],
                      exchange: "ProcessExchange | None" = None
                      ) -> list[torch.Tensor]:
-    """Plain version: stack the buffers ``[G (source), G (slot), ...]`` and
-    take slot j of every source for shard j (with ``exchange``, its own
-    plain version over every process's buffers). Differentiable by
+    """Plain version: stack the buffers ``[G (source), n (slot), ...]`` and
+    take slot j of every source for destination j (with ``exchange``, its
+    own plain version over every process's buffers). Differentiable by
     autograd."""
     if exchange is not None:
         return exchange.all_to_all_plain(sendbufs)
     stacked = torch.stack(list(sendbufs))
-    return [stacked[:, j].contiguous() for j in range(len(sendbufs))]
+    return [stacked[:, j].contiguous() for j in range(stacked.shape[1])]
 
 
-def all_to_all_launch(bufs: Sequence[torch.Tensor]) -> list[torch.Tensor]:
-    """Run the kernel on CUDA buffers (checked by ``_check``); returns new
-    receive buffers."""
-    g = len(bufs)
+def all_to_all_launch(bufs: Sequence[torch.Tensor], j_begin: int = 0,
+                      suffix: str = "") -> list[torch.Tensor]:
+    """Run the kernel on the G contiguous CUDA buffers ``bufs``, each ``[n,
+    ...]``: slot jj of ``bufs[i]`` goes to slot i of new receive buffer jj,
+    of destination ``j_begin + jj`` (n = G, ``j_begin`` 0: one process's
+    whole exchange; n < G: the destinations of one process of several,
+    each source's base pointer set back by ``j_begin`` slots so that the
+    kernel's slot j lands on row ``j - j_begin``). Its launch counts
+    under ``all_to_all:<dtype><suffix>``."""
+    g, n = len(bufs), bufs[0].shape[0]
     dev = bufs[0].device
     if dev.type != "cuda":
         raise ValueError(f"all_to_all send buffers must be CUDA tensors, "
                          f"got {dev}")
-    if g > MAX_SHARDS:
+    if g > MAX_SHARDS or not 0 <= j_begin <= g - n:
         raise ValueError(f"all_to_all kernel takes at most {MAX_SHARDS} "
-                         f"shards, got {g}")
-    recv = [torch.empty_like(b) for b in bufs]
+                         f"shards and a range of their destinations, got "
+                         f"{n} from {j_begin} of {g}")
+    recv = [bufs[0].new_empty((g, *bufs[0].shape[1:])) for _ in range(n)]
     chunk = bufs[0][0].numel() * bufs[0].element_size()
     if chunk:
-        send_ptrs = (ctypes.c_void_p * g)(*(b.data_ptr() for b in bufs))
-        recv_ptrs = (ctypes.c_void_p * g)(*(r.data_ptr() for r in recv))
-        cuda_lib.launch("bignn_all_to_all", dev, send_ptrs, recv_ptrs, g, 0,
-                        g, chunk)
-        cuda_lib.count(all_to_all, bufs[0].dtype)
+        send_ptrs = (ctypes.c_void_p * g)(
+            *(b.data_ptr() - j_begin * chunk for b in bufs))
+        recv_ptrs = (ctypes.c_void_p * n)(*(r.data_ptr() for r in recv))
+        cuda_lib.launch("bignn_all_to_all", dev, send_ptrs, recv_ptrs, g,
+                        j_begin, n, chunk)
+        cuda_lib.count(all_to_all, bufs[0].dtype, suffix=suffix)
     return recv
 
 
@@ -161,9 +175,9 @@ class _ProcsAllToAll(torch.autograd.Function):
 
 class ProcessExchange:
     """The data plane between the processes of the group, through the
-    process group (``torch.distributed``, gloo): the CPU route, and the
-    plain version on the card. Built by every process at once (a
-    collective).
+    process group (``torch.distributed``, gloo) and the host: the route
+    between hosts, the CPU's, and the plain version on the card. Built by
+    every process at once (a collective).
 
     ``local``: this process's graph shards of ``num_shards``, a contiguous
     run; in rank order the processes' runs cover ``range(num_shards)``
@@ -179,6 +193,8 @@ class ProcessExchange:
         self.local = [int(j) for j in local]
         self.device = torch.device(device)
         self.rank, self.size = dist.get_rank(), dist.get_world_size()
+        self.sent_bytes = 0  # through the process group, by exchange()
+        self._copy_stream = None  # exchange()'s own, made at first use
         self.owners = [None] * self.size
         dist.all_gather_object(self.owners, self.local)
         if [j for run in self.owners for j in run] != list(
@@ -220,12 +236,69 @@ class ProcessExchange:
         return [recv[j] for j in self.local]
 
     def exchange(self, bufs: Sequence[torch.Tensor]) -> list[torch.Tensor]:
-        """This process's receive buffers (the route of ``all_to_all``)."""
-        if bufs[0].device.type == "cuda":
-            raise NotImplementedError(
-                "an exchange of CUDA buffers across processes goes through "
-                "PeerExchange (parallel.comm.make_exchange on the card)")
-        return self.all_to_all_plain(bufs)
+        """This process's receive buffers (the route of ``all_to_all``),
+        through the host: the one route that reaches another host, and the
+        CPU's. (1) The chunks bound for other processes (slots
+        ``owners[q]`` of every local send buffer, for each process q) are
+        copied into one host buffer, pinned for a card, on the exchange's
+        own stream, which is then synchronised; (2) one
+        ``dist.all_to_all_single`` (gloo) moves them as bytes, sized per
+        process, nothing for this one; (3) what arrived goes to the
+        device in one copy on that stream, which the current stream
+        waits on; (4) the receive buffers are written from the
+        local send buffers and the arrivals
+        (``all_to_all_launch`` on this process's range of destinations,
+        ``all_to_all_plain`` on the CPU). Only bytes move, so the result is
+        the plain version's exactly."""
+        bufs = list(bufs)
+        first = bufs[0]
+        dev = first.device
+        cuda = dev.type == "cuda"
+        n_local, lo = len(self.local), self.local[0]
+        chunk = first[0].numel() * first.element_size()  # bytes a slot
+        sizes = [0 if q == self.rank else n_local * len(run) * chunk
+                 for q, run in enumerate(self.owners)]
+        send = torch.empty(sum(sizes), dtype=torch.uint8, pin_memory=cuda)
+        arrived = torch.empty(sum(sizes), dtype=torch.uint8, pin_memory=cuda)
+        stream = None
+        if cuda:
+            if self._copy_stream is None:
+                self._copy_stream = torch.cuda.Stream(dev)
+            stream = self._copy_stream
+            stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream) if cuda else contextlib.nullcontext():
+            off = 0
+            for q, run in enumerate(self.owners):
+                if q == self.rank:
+                    continue
+                for b in bufs:
+                    part = b[run[0]:run[-1] + 1].reshape(-1).view(torch.uint8)
+                    send[off:off + part.numel()].copy_(part, non_blocking=cuda)
+                    off += part.numel()
+            if cuda:
+                stream.synchronize()  # gloo reads the host buffer
+            dist.all_to_all_single(arrived, send, sizes, sizes)
+            landed = arrived.to(dev, non_blocking=cuda)
+        if cuda:
+            torch.cuda.current_stream(dev).wait_stream(stream)
+            landed.record_stream(torch.cuda.current_stream(dev))
+        self.sent_bytes += send.numel()
+        # every source shard's chunks for this process's destinations,
+        # [n_local, *slot], in shard order
+        slot = tuple(first.shape[1:])
+        sources, off = [], 0
+        for p, run in enumerate(self.owners):
+            if p == self.rank:
+                sources += [b[lo:lo + n_local] for b in bufs]
+                continue
+            for _ in run:
+                n = n_local * chunk
+                sources.append(landed[off:off + n].view(first.dtype)
+                               .view(n_local, *slot))
+                off += n
+        if cuda:
+            return all_to_all_launch(sources, lo, ":hosts")
+        return all_to_all_plain(sources)
 
     def close(self) -> None:
         """Free what the exchange holds outside PyTorch's memory (a

@@ -39,6 +39,7 @@ from bignn_tpu_torch.parallel.mesh import (
     Mesh,
     barrier,
     global_put,
+    host_names,
     init_distributed,
     local_device,
     make_hybrid_mesh,
@@ -79,6 +80,7 @@ __all__ = [
     "gather_rows",
     "global_put",
     "halo_exchange",
+    "host_names",
     "init_distributed",
     "local_device",
     "make_exchange",

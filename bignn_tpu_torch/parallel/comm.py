@@ -21,9 +21,10 @@ process at once, and closed by whoever built it; the p2 step and scorer
 take it (``parallel/step.py``). Every sum is the process group's
 rank-order sum (``ProcessExchange.ordered_sum``), never an
 ``all_reduce``, so every process ends a step with the same bits,
-repeatably (ROADMAP F7): on the card it reads every process's buffer
-through CUDA IPC and adds them with PyTorch ops, on the CPU it gathers
-through gloo. With one process nothing here runs.
+repeatably (ROADMAP F7): on one host's card it reads every process's
+buffer through CUDA IPC and adds them with PyTorch ops, across hosts or
+cards and on the CPU it gathers through gloo and adds the same way. With one process
+nothing here runs.
 """
 
 from __future__ import annotations
@@ -33,17 +34,23 @@ from typing import Sequence
 import torch
 
 from bignn_tpu_torch.ops.collectives import PeerExchange, ProcessExchange
-from bignn_tpu_torch.parallel.mesh import Mesh
+from bignn_tpu_torch.parallel.mesh import Mesh, host_names
 
 
 def make_exchange(mesh: Mesh) -> ProcessExchange | None:
     """The data plane between ``mesh``'s processes for its graph shards (a
-    collective): ``PeerExchange`` on a card, ``ProcessExchange`` on the
-    CPU; None for a mesh of one process. The caller closes it (``close``,
-    a collective) when the mesh's last step is done."""
+    collective): ``PeerExchange`` (CUDA IPC) when every process runs on one
+    host (``host_names``, gathered by ``init_distributed``) and the mesh
+    names one card for all of them; ``ProcessExchange`` (through the host
+    and gloo, the route between hosts) otherwise, on the CPU too; None for
+    a mesh of one process. The caller closes it (``close``, a collective)
+    when the mesh's last step is done."""
     if mesh.process_count == 1:
         return None
-    cls = PeerExchange if mesh.device.type == "cuda" else ProcessExchange
+    cards = set(mesh.devices.flat)
+    one_card = len(cards) == 1 and next(iter(cards)).type == "cuda"
+    one_host = len(set(host_names())) == 1
+    cls = PeerExchange if one_host and one_card else ProcessExchange
     return cls(mesh.shape["graph"], mesh.local_graph, mesh.device)
 
 

@@ -20,13 +20,16 @@ fixes this process's card; ``make_hybrid_mesh`` lays the ``graph`` axis
 over the processes host-major, as JAX's hand layout does; each process
 drives its own entries (``Mesh.local_graph``) and ``global_put`` gives it
 its part of a host-replicated array. The data plane between processes is
-``ops.collectives.ProcessExchange`` (CUDA IPC on the card).
+``ops.collectives.ProcessExchange`` (through the host, gloo) or, when every
+process runs on one host with a card, ``PeerExchange`` (CUDA IPC):
+``parallel.comm.make_exchange`` chooses by the processes' hosts and cards.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import socket
 from typing import Sequence
 
 import numpy as np
@@ -38,6 +41,7 @@ _ONE_CARD_A_PROCESS = (
     "(init_distributed, make_hybrid_mesh)")
 
 _local_device: torch.device | None = None
+_hosts: list[str] | None = None  # every process's host, gathered once
 
 
 def process_index() -> int:
@@ -73,6 +77,25 @@ def all_gather_object(obj) -> list:
     out = [None] * dist.get_world_size()
     dist.all_gather_object(out, obj)
     return out
+
+
+def _this_host() -> str:
+    """This machine: its name and, where the kernel gives it, its boot id,
+    so that two machines that report one name (containers that all answer
+    ``localhost``, say) differ."""
+    try:
+        with open("/proc/sys/kernel/random/boot_id") as f:
+            boot = f.read().strip()
+    except OSError:
+        boot = ""
+    return f"{socket.gethostname()}/{boot}"
+
+
+def host_names() -> list[str]:
+    """Every process's host (``_this_host``) in rank order, as
+    ``init_distributed`` gathered them once; ``[this host]`` without a
+    process group."""
+    return list(_hosts) if _hosts is not None else [_this_host()]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -207,12 +230,17 @@ def init_distributed(coordinator_address: str | None = None,
     A single process (no coordinator and no count, or a count of 1) joins
     nothing. Otherwise it joins a ``torch.distributed`` process group on
     ``gloo`` at ``tcp://{address}`` with the count and rank: the control
-    plane of the exchange across processes. It fixes this process's card:
-    ``cuda:{local_device_ids[0]}`` (one card a process), else
-    ``cuda:{rank % device_count}`` (every rank ``cuda:0`` on one card), or
+    plane of the exchange across processes. It gathers every process's
+    host once (``host_names`` reads them after) and fixes this process's
+    card: ``cuda:{local_device_ids[0]}`` (one card a process), else
+    ``cuda:{i % device_count}``, where ``i`` is the process's index among
+    those on its host (the ranks below its own whose host equals its
+    own), so that the processes of a host take its cards in
+    rank order whatever the ranks' layout over the hosts (several
+    processes share a card when a host runs more of them than it has), or
     the CPU without a card. Idempotent: a second call with the same count
     and rank returns the rank."""
-    global _local_device
+    global _local_device, _hosts
     address, count, rank = resolve_distributed(
         coordinator_address, num_processes, process_id)
     if count == 1:
@@ -232,11 +260,13 @@ def init_distributed(coordinator_address: str | None = None,
         os.environ["GLOO_SOCKET_IFNAME"] = "lo"  # loopback peers only
     dist.init_process_group("gloo", init_method=f"tcp://{address}",
                             world_size=count, rank=rank)
+    _hosts = hosts = all_gather_object(_this_host())
     if local_device_ids is not None:
         _local_device = torch.device("cuda", int(local_device_ids[0]))
     elif torch.cuda.is_available():
+        on_host = hosts[:rank].count(hosts[rank])
         _local_device = torch.device("cuda",
-                                     rank % torch.cuda.device_count())
+                                     on_host % torch.cuda.device_count())
     else:
         _local_device = torch.device("cpu")
     if _local_device.type == "cuda":

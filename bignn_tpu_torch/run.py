@@ -12,7 +12,9 @@ The config's ``mode`` picks the trainer: ``full`` (``Trainer``),
 edge-partitioned loop). ``--run-dir`` receives ``metrics.jsonl`` (one record
 per epoch or event) and ``result.json``; with ``--checkpoint-every N`` the
 full training state goes to ``<run-dir>/ckpt`` every N epochs, and the same
-command line resumes from it exactly.
+command line resumes from it exactly. A JAX checkpoint converted into
+``<run-dir>/ckpt`` (``scripts/convert_jax_checkpoint.py``, Adam state
+included) resumes the same way.
 
 Everything runs on ``--device`` (default ``cuda``): a CUDA device launches
 the kernels or raises, and a CPU run must ask for ``--device cpu``.
@@ -33,14 +35,18 @@ Where the JAX runner differs:
     environment names) start the multi-process p2 run: ``init_distributed``
     joins a gloo process group before anything touches the card, and the
     ``graph`` axis spans the processes host-major (``make_hybrid_mesh(graph
-    =graph_shards)``); every process names its own card (``cuda:{rank %
-    device_count}``, so several processes may share one card), their halo
-    exchanges and gradient sums cross processes (``ops.collectives``,
-    ``parallel/comm.py``). Only process 0 writes the run dir and the
-    checkpoints, each save followed by a barrier; every process reads them
-    to resume. JAX leaves the full and minibatch modes undefined across
-    processes (their arrays are not global); the port refuses them with a
-    ``ValueError``.
+    =graph_shards)``); every process names its own card (its index among
+    its host's processes, modulo the host's card count, so several
+    processes may share one card), their halo exchanges and gradient sums
+    cross processes (``ops.collectives``, ``parallel/comm.py``): by CUDA
+    IPC when every process runs on one host, else through the hosts and
+    gloo (``parallel.comm.make_exchange`` picks by the host names). On
+    several hosts, start the same command on each with the one
+    coordinator, the total count and each process's id. Only process 0
+    writes the run dir and the checkpoints, each save followed by a
+    barrier; every process reads them to resume. JAX leaves the full and
+    minibatch modes undefined across processes (their arrays are not
+    global); the port refuses them with a ``ValueError``.
   * No ``--backend``: the tensor's device decides; ``--device`` takes its
     place. ``--profile DIR`` writes a ``torch.profiler`` Chrome trace.
 """
@@ -257,7 +263,9 @@ def _run_p2(model, ds, cfg, logger, overlap: bool = False, ckpt=None,
     from bignn_tpu_torch.train.trainer import (
         _fit_state,
         _restore_fit_state,
+        load_optimizer_state,
         make_optimizer,
+        optimizer_state,
     )
 
     dev = torch.device(device)
@@ -317,7 +325,7 @@ def _run_p2(model, ds, cfg, logger, overlap: bool = False, ckpt=None,
     if restored is not None:
         state, opt_state, best, start_epoch = restored
         model.load_state_dict(state)
-        optimizer.load_state_dict(opt_state)
+        load_optimizer_state(optimizer, model, opt_state)
     barrier()  # every process has read the state before any saves one
     epochs = cfg.train.epochs
     for epoch in range(start_epoch, epochs):
@@ -337,7 +345,8 @@ def _run_p2(model, ds, cfg, logger, overlap: bool = False, ckpt=None,
         if ckpt is not None and (epoch + 1) % checkpoint_every == 0:
             if process_index() == 0:
                 ckpt.save_state(epoch, _fit_state(
-                    params(), optimizer.state_dict(), best, epoch))
+                    params(), optimizer_state(optimizer, model), best,
+                    epoch))
             barrier()
     final = evaluate(best["params"], "test")
     if exchange is not None:

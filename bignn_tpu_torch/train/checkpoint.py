@@ -4,9 +4,10 @@ The JAX package saves through orbax; the port writes one ``torch.save``
 file per step, ``step_<n>.pt``, through a temporary file and an atomic
 rename, and keeps the newest ``max_to_keep``. A state is any nest of dicts,
 lists, tensors and numbers: ``Trainer.fit`` saves parameters, optimizer
-state, best parameters and the epoch counter, which is all an exact resume
-needs. A JAX (orbax) checkpoint is read by ``scripts/convert_jax_checkpoint.py``,
-which needs JAX and writes this format without the optimizer state.
+state (Adam's, keyed by parameter name: ``train.trainer.optimizer_state``),
+best parameters and the epoch counter, which is all an exact resume needs.
+A JAX (orbax) checkpoint is read by ``scripts/convert_jax_checkpoint.py``,
+which needs JAX and writes this format, optax's Adam state included.
 """
 
 from __future__ import annotations

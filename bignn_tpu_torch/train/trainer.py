@@ -5,7 +5,8 @@ One step covers negative sampling, the full bi-level forward, the masked
 BCE loss, the backward through the port's kernels, and an Adam update.
 The epoch loop, evaluation and best-by-val-AUC selection mirror the JAX
 ``Trainer.fit``. Parameters are state dicts and the optimizer state is
-``optimizer.state_dict()``, where the JAX package passes pytrees.
+Adam's keyed by parameter name (``optimizer_state``), where the JAX package
+passes pytrees.
 
 Every random draw is the JAX package's, from the same threefry keys
 (``prng.py``), so a seed names the same experiment in both packages and on
@@ -133,7 +134,7 @@ class Trainer:
         step that updates through it."""
         self.optimizer = make_optimizer(self.model.parameters(), self.config)
         if opt_state is not None:
-            self.optimizer.load_state_dict(opt_state)
+            load_optimizer_state(self.optimizer, self.model, opt_state)
         self._step = dp_train_step_fn(
             self.model, self.optimizer, self.mesh, self.data.num_drugs,
             self.config.neg_ratio, self.config.grad_clip)
@@ -162,7 +163,7 @@ class Trainer:
         seed = self.config.seed if seed is None else seed
         self.model.load_state_dict(self.model.init_params(seed))
         self._set_optimizer()
-        return self.params(), self.optimizer.state_dict()
+        return self.params(), optimizer_state(self.optimizer, self.model)
 
     def evaluate(self, params=None, split: str = "val", neg_seed: int = 1234,
                  on_device: bool = False) -> dict:
@@ -218,7 +219,7 @@ class Trainer:
         if restored is not None:
             params, opt_state, best, start_epoch = restored
             self.model.load_state_dict(params)
-            self.optimizer.load_state_dict(opt_state)
+            load_optimizer_state(self.optimizer, self.model, opt_state)
         history = []
         for epoch in range(start_epoch, cfg.epochs):
             t0 = time.perf_counter()
@@ -236,7 +237,8 @@ class Trainer:
                 log_fn(rec)
             if ckpt is not None and (epoch + 1) % checkpoint_every == 0:
                 ckpt.save_state(epoch, _fit_state(
-                    self.params(), self.optimizer.state_dict(), best, epoch))
+                    self.params(), optimizer_state(self.optimizer,
+                                                   self.model), best, epoch))
         final = self.evaluate(best["params"], "test")
         return best["params"], {"history": history,
                                 "best_epoch": best["epoch"], **final}
@@ -263,18 +265,76 @@ def _unpack_fit_state(state: dict):
 
 def _restore_fit_state(ckpt):
     """``_unpack_fit_state`` of ``ckpt``'s latest state, or None when there
-    is no manager or nothing saved. A state without optimizer state (a JAX
-    checkpoint converted by ``scripts/convert_jax_checkpoint.py``) serves
-    but cannot resume: Adam would restart from zero moments."""
+    is no manager or nothing saved. A state without optimizer state (one
+    written by hand, say) serves but cannot resume: Adam would restart from
+    zero moments."""
     state = None if ckpt is None else ckpt.restore_state()
     if state is None:
         return None
     if state.get("opt_state") is None:
         raise ValueError(
-            f"checkpoint in {ckpt.directory} has no optimizer state (as "
-            "scripts/convert_jax_checkpoint.py writes): it can be served "
-            "(Scorer.from_checkpoint) but not resumed")
+            f"checkpoint in {ckpt.directory} has no optimizer state: it can "
+            "be served (Scorer.from_checkpoint) but not resumed")
     return _unpack_fit_state(state)
+
+
+def _check_optimizer(optimizer: torch.optim.Optimizer,
+                     model: torch.nn.Module) -> dict:
+    """``model``'s named parameters, which must be ``optimizer``'s in
+    order."""
+    params = dict(model.named_parameters())
+    if [id(p) for p in params.values()] != [
+            id(p) for g in optimizer.param_groups for p in g["params"]]:
+        raise ValueError("the optimizer's parameters are not the model's, "
+                         "in order")
+    return params
+
+
+def optimizer_state(optimizer: torch.optim.Optimizer,
+                    model: torch.nn.Module) -> dict:
+    """``optimizer``'s Adam state keyed by the parameter's name, the one
+    layout that checkpoints hold (``scripts/convert_jax_checkpoint.py``
+    writes it from optax's): ``{name: {"step", "exp_avg",
+    "exp_avg_sq"}}`` for every parameter of ``model``, in order. A
+    parameter that no step has updated yet gets Adam's initial state (step
+    0, zero moments), which loads as no state at all would."""
+    state = {}
+    for name, p in _check_optimizer(optimizer, model).items():
+        s = optimizer.state.get(p)
+        if not s:
+            s = {"step": 0.0, "exp_avg": torch.zeros_like(p),
+                 "exp_avg_sq": torch.zeros_like(p)}
+        state[name] = {"step": torch.tensor(float(s["step"]),
+                                            dtype=torch.float32),
+                       "exp_avg": s["exp_avg"],
+                       "exp_avg_sq": s["exp_avg_sq"]}
+    return state
+
+
+def load_optimizer_state(optimizer: torch.optim.Optimizer,
+                         model: torch.nn.Module, opt_state: dict) -> None:
+    """Load ``opt_state`` (``optimizer_state``'s layout) into
+    ``optimizer``, whose parameters are ``model.parameters()`` in order,
+    under the optimizer's own hyperparameters (the config's). A name
+    missing from either side or a shape that differs raises.
+    ``load_state_dict`` moves the moments to each parameter's device; each
+    parameter gets its own float32 ``step``."""
+    params = _check_optimizer(optimizer, model)
+    if opt_state.keys() != params.keys():
+        raise ValueError(
+            f"optimizer state names {sorted(opt_state.keys() ^ params.keys())}"
+            " not both in the state and in the model")
+    state = {}
+    for i, (name, p) in enumerate(params.items()):
+        s = opt_state[name]
+        for k in ("exp_avg", "exp_avg_sq"):
+            if s[k].shape != p.shape:
+                raise ValueError(f"{k} of {name} is {tuple(s[k].shape)}, "
+                                 f"the parameter {tuple(p.shape)}")
+        state[i] = {"step": torch.tensor(float(s["step"]),
+                                         dtype=torch.float32),
+                    "exp_avg": s["exp_avg"], "exp_avg_sq": s["exp_avg_sq"]}
+    optimizer.load_state_dict({**optimizer.state_dict(), "state": state})
 
 
 class MinibatchTrainer:
@@ -666,7 +726,7 @@ class MinibatchTrainer:
         seed = self.config.seed if seed is None else seed
         self.model.load_state_dict(self.model.init_params(seed))
         self.optimizer = make_optimizer(self.model.parameters(), self.config)
-        return self.params(), self.optimizer.state_dict()
+        return self.params(), optimizer_state(self.optimizer, self.model)
 
     def evaluate(self, params=None, split: str = "val", neg_seed: int = 1234,
                  exact: bool = False) -> dict:
@@ -788,7 +848,7 @@ class MinibatchTrainer:
             self.model.load_state_dict(params)
             self.optimizer = make_optimizer(self.model.parameters(), cfg)
             if opt_state is not None:
-                self.optimizer.load_state_dict(opt_state)
+                load_optimizer_state(self.optimizer, self.model, opt_state)
         n_steps = steps_per_epoch or -(-len(self.sampler) // self.dp)
         best = {"val_auc": -1.0, "params": self.params(), "epoch": -1}
         start_epoch = 0
@@ -796,7 +856,7 @@ class MinibatchTrainer:
         if restored is not None:
             params, opt_state, best, start_epoch = restored
             self.model.load_state_dict(params)
-            self.optimizer.load_state_dict(opt_state)
+            load_optimizer_state(self.optimizer, self.model, opt_state)
         history = []
         for epoch in range(start_epoch, cfg.epochs):
             self.sampler.reseed(epoch)
@@ -829,7 +889,8 @@ class MinibatchTrainer:
                 log_fn(rec)
             if ckpt is not None and (epoch + 1) % checkpoint_every == 0:
                 ckpt.save_state(epoch, _fit_state(
-                    self.params(), self.optimizer.state_dict(), best, epoch))
+                    self.params(), optimizer_state(self.optimizer,
+                                                   self.model), best, epoch))
         final = self.evaluate(best["params"], "test")
         return best["params"], {"history": history,
                                 "best_epoch": best["epoch"], **final}

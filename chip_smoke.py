@@ -2,7 +2,8 @@
 
     python3 chip_smoke.py              # the smoke run below
     python3 chip_smoke.py --profile    # phases 1-2, then the profiles
-    python3 chip_smoke.py --worker step --rank R --port P   # path K's
+    python3 chip_smoke.py --worker step --rank R --port P [--route hosts]
+                                       # one process of path K
 
 Phases:
   1. device: a CUDA card of compute capability 9.0; TF32 off.
@@ -178,7 +179,9 @@ Phases:
      (iii) The entry points in-process, on their default device: run.main
      on config2 (2 epochs, --run-dir under build/, --checkpoint-every 1),
      then the same argv again (it resumes, trains no epoch and reports the
-     same best epoch and test AUC); serve.main with --topk 42,7 --k 20
+     same best epoch and test AUC); its epoch-0 checkpoint in a run dir of
+     its own (Adam's state loads onto the card, and the resume equals the
+     run's epoch 1 bit for bit); serve.main with --topk 42,7 --k 20
      --exclude-known and with --pairs/--out on that checkpoint, equal bit
      for bit to a Scorer built by hand on its best parameters; run.main on
      config5 for 1 epoch (4 graph shards on the card). Each run's seconds,
@@ -252,9 +255,12 @@ K's exchange across processes at config5's send buffers, with its two
 processes' launches over K(i)'s steps (its ms the kernel's device time,
 queued behind a sleep; its exchange_ms the whole exchange's host median,
 barriers included, and barrier_ms one barrier's; bound: the bytes one
-process reads and writes). Rows 4 and 8 have rows at their other
-shapes too (segment_softmax:bf16:100k, spmm_multihead:bf16:100k,
-segment_softmax{,_bwd}:{f32,bf16}:16k, spmm_multihead:f32:shard,
+process reads and writes); a fourth, all_to_all:f32:hosts, the same for
+K(v)'s route between hosts (its ms the launch that assembles the receive
+buffers, its host_bytes what one exchange sends through gloo). Rows 4 and 8
+have rows at their other shapes too (segment_softmax:bf16:100k,
+spmm_multihead:bf16:100k, segment_softmax{,_bwd}:{f32,bf16}:16k,
+spmm_multihead:f32:shard,
 segment_softmax{,_bwd}:f32:config4), and row 7 at path G(ii)'s GIN split
 (spmm_sorted_coo{,_bwd}:f32:hub), each with the launches of the paths
 that run that shape. The bf16 softmax forms are held to their plain
@@ -827,8 +833,11 @@ KERNELS = {
        for b in ("", "_bwd") for w in ("", ":weighted")},
     "all_to_all:f32": ("bignn_tpu_torch/csrc/all_to_all.cu",
                        "bignn_tpu/ops/pallas/collectives.py:43"),
-    # the exchange across processes (path K), counted in its processes
+    # the exchange across processes (path K), counted in its processes:
+    # through CUDA IPC (K(i)), and the route between hosts (K(v))
     "all_to_all:f32:procs": ("bignn_tpu_torch/csrc/all_to_all.cu",
+                             "bignn_tpu/ops/pallas/collectives.py:43"),
+    "all_to_all:f32:hosts": ("bignn_tpu_torch/csrc/all_to_all.cu",
                              "bignn_tpu/ops/pallas/collectives.py:43"),
 }
 # the forms a layout that is not block-local must not launch
@@ -3612,12 +3621,55 @@ def _timed_main(main, argv: list, what: str):
     return out
 
 
+def _untimed(history: list) -> list:
+    """Each epoch's record without its seconds."""
+    return [{k: v for k, v in r.items() if not k.endswith("_s")}
+            for r in history]
+
+
+def _resume_epoch0(dev, cfg, state: dict, argv: list, run_dir: Path,
+                   first: dict) -> None:
+    """Path I(iii)'s epoch-0 checkpoint alone in a run dir of its own: its
+    Adam state (keyed by parameter name) loads onto the card; ``run.main``
+    resumes it to the uninterrupted run's epoch 1 and test AUC bit for
+    bit."""
+    from bignn_tpu_torch import run
+    from bignn_tpu_torch.models import BiGNN
+    from bignn_tpu_torch.train import CheckpointManager
+    from bignn_tpu_torch.train.trainer import (
+        load_optimizer_state,
+        make_optimizer,
+    )
+
+    model = BiGNN(cfg.model).to(dev)
+    opt = make_optimizer(model.parameters(), cfg.train)
+    load_optimizer_state(opt, model, state["opt_state"])
+    for n, p in model.named_parameters():
+        s = opt.state[p]
+        if not (s["exp_avg"].device == s["exp_avg_sq"].device == dev
+                and float(s["step"]) > 0):
+            raise AssertionError(f"{n}: Adam's state of epoch 0 loads as "
+                                 f"{s['exp_avg'].device}, step {s['step']}")
+    CheckpointManager(str(run_dir / "ckpt")).save_state(0, state)
+    at = argv.index("--run-dir") + 1
+    resumed = _timed_main(run.main, [*argv[:at], str(run_dir),
+                                     *argv[at + 1:]],
+                          "run config2 resumed from epoch 0")
+    if (_untimed(resumed["history"]) != _untimed(first["history"][1:])
+            or resumed["test_auc"] != first["test_auc"]):
+        raise AssertionError(f"the resume from epoch 0 differs: {resumed} "
+                             f"against {first}")
+    log("  epoch 0's Adam state on the card; its resume equals the run's "
+        "epoch 1 bit for bit")
+
+
 def run_entry_points(dev) -> list:
     """Path I(iii), in-process: run.main on config2 (2 epochs, checkpoints
     every epoch) and again on the same run directory (it resumes, trains
     no epoch, reports the same best epoch and test AUC), and once more
     from the init with no run directory (the same history and test AUC,
-    bit for bit: ROADMAP F7); serve.main's
+    bit for bit: ROADMAP F7); its epoch-0 checkpoint resumed
+    (``_resume_epoch0``); serve.main's
     --topk (with --exclude-known) and --pairs/--out on that checkpoint, bit
     for bit against a Scorer built by hand on its best parameters; run.main
     on config5 for one epoch (4 graph shards on the card). Returns the
@@ -3653,18 +3705,17 @@ def run_entry_points(dev) -> list:
         raise AssertionError(f"the resumed run differs: {again}")
     fresh = _timed_main(run.main, ["--config", "config2", "--epochs", "2"],
                         "run config2 from the init again (no run dir)")
-    def untimed(history):  # each epoch's record without its seconds
-        return [{k: v for k, v in r.items() if not k.endswith("_s")}
-                for r in history]
-
-    if not (untimed(fresh["history"]) == untimed(first["history"])
+    if not (_untimed(fresh["history"]) == _untimed(first["history"])
             and fresh["test_auc"] == first["test_auc"]):
         raise AssertionError(
             "a seeded run did not repeat bit for bit (F7): "
-            f"{untimed(fresh['history'])} against {untimed(first['history'])}")
+            f"{_untimed(fresh['history'])} against "
+            f"{_untimed(first['history'])}")
 
     ckpt = str(root / "config2" / "ckpt")
     cfg = get_config("config2")
+    _resume_epoch0(dev, cfg, CheckpointManager(ckpt).restore_state(0),
+                   argv, root / "epoch0", first)
     ds = load_dataset(cfg.dataset, **cfg.dataset_kwargs)
     best = CheckpointManager(ckpt).restore_state()["best_params"]
     hand = Scorer(BiGNN(cfg.model), ds, best, device=dev)
@@ -3730,6 +3781,8 @@ K_RUN_AUC = 5e-3
 K_LOGS = Path(__file__).resolve().parent / "build" / "smoke_runs" / "k"
 K_FORMS = ("all_to_all:f32:procs",
            *(f for f in P2_GAT_FORMS if f != "all_to_all:f32"))
+# path K(v): the same step on the route between hosts
+K_HOST_FORMS = ("all_to_all:f32:hosts", *K_FORMS[1:])
 
 
 def _free_port() -> int:
@@ -3839,21 +3892,31 @@ def queued_ms(fn, reps: int = 100) -> float:
 
 def k_exchange_times(exchange, bufs) -> dict:
     """Path K(iv) in one process, at a step's own send buffers: every
-    process at once, the whole exchange (staging copy, synchronize,
-    barrier, launch, synchronize, barrier), its plain version (through the
-    process group) and the library call (``torch.distributed
-    .all_to_all_single`` on the same buffers, arranged by destination
-    process beforehand, its result checked), each a median of host ms;
-    the barrier (a synchronize and ``dist.barrier``); then the kernel alone
-    (``launch_staged``, ``queued_ms``), each process in turn while the
-    other waits."""
+    process at once, the whole exchange (IPC: staging copy, synchronize,
+    barrier, launch, synchronize, barrier; K(v)'s route between hosts:
+    host copies, ``all_to_all_single`` through gloo, the upload, one
+    launch), its plain version (through the process group) and the
+    library call (``torch.distributed.all_to_all_single`` on the same
+    buffers, arranged by destination process beforehand, its result
+    checked), each a median of host ms; the barrier (a synchronize and
+    ``dist.barrier``); then the kernel alone (``queued_ms``: IPC's
+    ``launch_staged``, or the host route's ``all_to_all_launch`` on this
+    process's destinations, on the chunks it would have), each process
+    in turn while the other waits."""
     import torch.distributed as dist
+
+    from bignn_tpu_torch.ops import collectives
 
     L, G = len(bufs), exchange.num_shards
     inner = tuple(bufs[0].shape[1:])
+    ipc = isinstance(exchange, collectives.PeerExchange)
+    whole = exchange.launch if ipc else exchange.exchange
     want = exchange.all_to_all_plain(bufs)
-    times = {"exchange_ms": _host_ms(lambda: exchange.launch(bufs)),
+    sent = exchange.sent_bytes
+    times = {"exchange_ms": _host_ms(lambda: whole(bufs)),
              "plain_ms": _host_ms(lambda: exchange.all_to_all_plain(bufs))}
+    # bytes through the process group for one exchange (0 over IPC)
+    times["host_bytes"] = (exchange.sent_bytes - sent) // K_REPS
     # [destination process, local source, local destination, S, F]
     inp = (torch.stack(bufs).view(L, exchange.size, L, *inner)
            .transpose(0, 1).contiguous())
@@ -3869,29 +3932,44 @@ def k_exchange_times(exchange, bufs) -> dict:
         dist.barrier()
 
     times["barrier_ms"] = _host_ms(barrier)
-    exchange.launch(bufs)  # every staging buffer holds this step's buffers
-    recv = [torch.empty_like(b) for b in bufs]
+    if ipc:
+        exchange.launch(bufs)  # every staging buffer holds these buffers
+        recv = [torch.empty_like(b) for b in bufs]
+
+        def kernel():
+            exchange.launch_staged(recv)
+    else:
+        # source i's chunks for this process's destinations, as they land
+        sources = [torch.stack([w[i] for w in want]) for i in range(G)]
+        recv = []
+
+        def kernel():
+            recv[:] = collectives.all_to_all_launch(
+                sources, exchange.local[0], ":hosts")
     for turn in range(exchange.size):
         dist.barrier()
         if turn == exchange.rank:
-            times["kernel_ms"] = queued_ms(
-                lambda: exchange.launch_staged(recv))
+            times["kernel_ms"] = queued_ms(kernel)
         dist.barrier()
     if not all(torch.equal(a, b) for a, b in zip(recv, want)):
-        raise AssertionError("the staged launch differs from the plain "
+        raise AssertionError("the kernel alone differs from the plain "
                              "version")
     chunk = bufs[0][0].numel() * bufs[0].element_size()
     times["bytes"] = 2 * L * G * chunk  # this process's reads and writes
     return times
 
 
-def k_worker_step(rank: int, port: int) -> dict:
+def k_worker_step(rank: int, port: int, route: str = "auto") -> dict:
     """One process of path K(i): config5 as get_config sets it, graph 4
     over K_PROCS processes on this card (make_hybrid_mesh: 2 shards each),
     dp 1, the first K_STEPS batches of path G from the same init and keys;
     the launch counts over those steps; the first exchange across
-    processes against its plain version, exactly; the times of K(iv)."""
+    processes against its plain version, exactly; the times of K(iv).
+    ``route``: ``auto``, the exchange ``make_exchange`` picks (on one host,
+    ``PeerExchange``), or ``hosts`` (path K(v)), the route between hosts
+    (``ProcessExchange``) built directly."""
     from bignn_tpu_torch import ops
+    from bignn_tpu_torch.ops.collectives import ProcessExchange
     from bignn_tpu_torch.config import get_config
     from bignn_tpu_torch.data import load_dataset
     from bignn_tpu_torch.models import BiGNN
@@ -3911,8 +3989,11 @@ def k_worker_step(rank: int, port: int) -> dict:
     cfg = get_config("config5")
     ds = load_dataset(cfg.dataset, **cfg.dataset_kwargs)
     mesh = make_hybrid_mesh(graph=cfg.graph_shards)
-    exchange = make_exchange(mesh)
-    log(f"process {rank}: mesh {mesh.shape}, processes "
+    exchange = (ProcessExchange(mesh.shape["graph"], mesh.local_graph,
+                                mesh.device) if route == "hosts"
+                else make_exchange(mesh))
+    log(f"process {rank}: {type(exchange).__name__}, mesh {mesh.shape}, "
+        "processes "
         f"{mesh.processes.tolist()}, local shards {mesh.local_graph} on "
         f"{mesh.device}")
     reset_counts()  # the upload's block builds count, as on path G
@@ -3930,8 +4011,10 @@ def k_worker_step(rank: int, port: int) -> dict:
     grads_file = K_LOGS / f"grads_{rank}.pt"
     torch.save({k: v.cpu() for k, v in grads.items()}, grads_file)
     launches = read_counts()
-    require_launched(launches, K_FORMS, f"in process {rank}")
-    require_idle(launches, ("all_to_all:f32", *FLASH_FORMS),
+    forms, other = ((K_HOST_FORMS, "all_to_all:f32:procs") if route == "hosts"
+                    else (K_FORMS, "all_to_all:f32:hosts"))
+    require_launched(launches, forms, f"in process {rank}")
+    require_idle(launches, ("all_to_all:f32", other, *FLASH_FORMS),
                  f"in process {rank}")
     want = exchange.all_to_all_plain(rec.bufs)
     err = max(float((a - b).abs().max()) for a, b in zip(rec.out, want))
@@ -3950,28 +4033,33 @@ def k_worker_step(rank: int, port: int) -> dict:
             "send": [tuple(rec.bufs[0].shape), len(rec.bufs)], **times}
 
 
-def _k_step_pair(what: str) -> list[dict]:
+def _k_step_pair(what: str, route: str = "auto") -> list[dict]:
     port = _free_port()
     outs = _spawn([[sys.executable, str(Path(__file__).resolve()),
                     "--worker", "step", "--rank", str(r), "--port",
-                    str(port)] for r in range(K_PROCS)], what)
+                    str(port), "--route", route] for r in range(K_PROCS)],
+                  what)
     return [_last_json(o) for o in outs]
 
 
-def run_multiprocess(g_ref: dict, one_run: dict | None) -> dict:
+def run_multiprocess(g_ref: dict, one_run: dict | None) -> list[dict]:
     """Path K: the multi-process p2 run, K_PROCS processes on this card.
     (i) ``k_worker_step`` in each, the losses against path G's
     (``g_ref``) within K_LOSS_RTOL, the step-1 gradients (summed over the
     processes) against path G's by ``_check_step1``, and both processes'
     parameters equal to the bit; (iii) the same pair again, the same
-    bits; (ii) ``python -m bignn_tpu_torch.run --config config5 --epochs 1
-    --checkpoint-every 1 --coordinator ... --num-processes 2 --process-id
-    i`` against the one-process ``run`` (``one_run``, or run here): the
+    bits; (v) the pair on the route between hosts (``--route hosts``:
+    ``ProcessExchange`` through gloo on loopback), its losses and
+    parameters equal to (i)'s bit for bit; (ii) ``python -m
+    bignn_tpu_torch.run --config config5 --epochs 1 --checkpoint-every 1
+    --coordinator ... --num-processes 2 --process-id i`` against the
+    one-process ``run`` (``one_run``, or run here): the
     epoch loss within K_RUN_RTOL, the test AUC within K_RUN_AUC, the run
     dir written by process 0 alone; the same command with ``--epochs 2``
     resumes it and must equal a straight 2-epoch pair bit for bit (epoch
-    records, result, last checkpoint); (iv) the times. Returns the kernels
-    line's row of ``all_to_all:f32:procs``."""
+    records, result, last checkpoint); (iv) the times, (i)'s and (v)'s.
+    Returns the kernels line's rows of ``all_to_all:f32:procs`` and
+    ``all_to_all:f32:hosts``."""
     from bignn_tpu_torch import run
 
     t0 = time.perf_counter()
@@ -4007,6 +4095,16 @@ def run_multiprocess(g_ref: dict, one_run: dict | None) -> dict:
             raise AssertionError(f"path K(iii): process {a['rank']} did not "
                                  "repeat bit for bit")
     log("  repeated bit for bit")
+    log("  (v) the pair again on the route between hosts (ProcessExchange: "
+        "host copies, gloo all_to_all_single on loopback, one launch)")
+    hosts = _k_step_pair("step_hosts", "hosts")
+    for a, b in zip(first, hosts):
+        if (a["digest"], a["losses"]) != (b["digest"], b["losses"]):
+            raise AssertionError(
+                f"path K(v): process {a['rank']}'s losses {b['losses']} "
+                f"and parameters ({b['digest'][:16]}) on the route between "
+                f"hosts against K(i)'s {a['losses']} ({a['digest'][:16]})")
+    log("  losses and parameters equal to K(i)'s bit for bit")
 
     log("  (ii) run --config config5 over 2 processes: 1 epoch with a "
         "checkpoint, the same run dir resumed to 2 epochs, 2 epochs straight")
@@ -4086,35 +4184,107 @@ def run_multiprocess(g_ref: dict, one_run: dict | None) -> dict:
     log(f"  (iv) two-process step median {w['median_ms']:.3f} ms, "
         f"{first[1]['median_ms']:.3f} ms against path G's one-process "
         f"{g_ref['median_ms']:.3f} ms; send buffers {w['send']}")
-    for x in first:
-        log(f"  process {x['rank']}: exchange {x['exchange_ms']:.4f} ms "
-            f"host (kernel {x['kernel_ms']:.4f} ms device), plain "
-            f"{x['plain_ms']:.4f} ms, all_to_all_single {x['library_ms']:.4f}"
-            f" ms, barrier {x['barrier_ms']:.4f} ms")
+    log(f"  (v) two-process step on the route between hosts "
+        f"{hosts[0]['median_ms']:.3f} ms, {hosts[1]['median_ms']:.3f} ms "
+        "(K(i): above)")
+    for what, pair in (("IPC, K(i)", first), ("hosts, K(v)", hosts)):
+        for x in pair:
+            log(f"  {what}, process {x['rank']}: exchange "
+                f"{x['exchange_ms']:.4f} ms host (kernel {x['kernel_ms']:.4f}"
+                f" ms device; {x['host_bytes']} bytes sent through gloo), "
+                f"plain {x['plain_ms']:.4f} ms, all_to_all_single "
+                f"{x['library_ms']:.4f} ms, barrier {x['barrier_ms']:.4f} ms")
     log(f"path K: {time.perf_counter() - t0:.1f} s on {card_line()}")
-    b, by = bound_ms(w["bytes"])
     source, tpu = KERNELS["all_to_all:f32"]
-    return {"name": "all_to_all:f32:procs", "route": "cuda",
-            "source": source, "replaces": tpu,
-            "launches": sum(x["launches"]["all_to_all:f32:procs"]
-                            for x in first),
-            "max_abs_err": max(x["max_abs_err"] for x in first),
+    rows = []
+    for form, pair in (("all_to_all:f32:procs", first),
+                       ("all_to_all:f32:hosts", hosts)):
+        w = pair[0]
+        b, by = bound_ms(w["bytes"])
+        rows.append({
+            "name": form, "route": "cuda", "source": source, "replaces": tpu,
+            "launches": sum(x["launches"][form] for x in pair),
+            "max_abs_err": max(x["max_abs_err"] for x in pair),
             "ms": w["kernel_ms"], "plain_ms": w["plain_ms"], "bound_ms": b,
             "bound_by": by, "library_ms": w["library_ms"],
-            "exchange_ms": w["exchange_ms"], "barrier_ms": w["barrier_ms"]}
+            "exchange_ms": w["exchange_ms"], "barrier_ms": w["barrier_ms"],
+            "host_bytes": w["host_bytes"]})
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# path L: the samplers' learning gate on the card
+# ---------------------------------------------------------------------------
+
+# JAX tests/test_device_vs_host_learning.py:21-47, as
+# tests/test_torch_learning.py takes them
+L_DATA = dict(num_drugs=150, feat_dim=16, avg_degree=10.0, min_atoms=4,
+              max_atoms=12, latent_dim=4, seed=7)
+L_MODEL = dict(feat_dim=16, dim=32, heads=2)
+L_TRAIN = dict(lr=3e-3, epochs=10, batch_size=48, eval_every=10)
+L_TRAINER = dict(fanouts=(6,), calibrate_caps=4, dispatch_chunk=4)
+L_SEEDS = (0, 1, 2)
+L_STEPS = 16
+L_GATE_AUC = 0.58
+L_GATE_DELTA = 0.03
+L_FORMS = ("segment_sum:f32", "block_adjacency:int8", "segment_softmax:f32",
+           "segment_softmax_bwd:f32", "spmm_multihead:f32",
+           "spmm_multihead_bwd:f32")
+
+
+def run_learning_gate(dev) -> list:
+    """Path L: JAX's device-vs-host learning gate on the card, three seeds
+    a mode; the device sampler draws from the card's ``torch.Generator``
+    and the steps run the kernels. Returns each mode's launch counts."""
+    from bignn_tpu_torch.config import TrainConfig
+    from bignn_tpu_torch.data import make_synthetic_ddi
+    from bignn_tpu_torch.models import BiGNN, BiGNNConfig
+    from bignn_tpu_torch.train import MinibatchTrainer
+
+    t0 = time.perf_counter()
+    ds = make_synthetic_ddi(**L_DATA)
+    means, counts = {}, []
+    for mode, device_sample in (("device", True), ("host", False)):
+        torch.cuda.synchronize()
+        reset_counts()
+        aucs = []
+        for seed in L_SEEDS:
+            tr = MinibatchTrainer(
+                BiGNN(BiGNNConfig.full_bignn(**L_MODEL)), ds,
+                TrainConfig(seed=seed, **L_TRAIN),
+                device_sample=device_sample, device=dev, **L_TRAINER)
+            _, result = tr.fit(steps_per_epoch=L_STEPS)
+            aucs.append(result["test_auc"])
+        launches = read_counts()
+        require_launched(launches, L_FORMS, f"on path L ({mode})")
+        counts.append(launches)
+        means[mode] = float(np.mean(aucs))
+        log(f"  {mode}-sampled test AUC by seed "
+            f"{[round(a, 4) for a in aucs]}")
+    delta = means["device"] - means["host"]
+    log(f"path L: mean test AUC device {means['device']:.4f}, host "
+        f"{means['host']:.4f}, device - host {delta:+.4f} (gate: both >= "
+        f"{L_GATE_AUC}, |delta| <= {L_GATE_DELTA}); "
+        f"{time.perf_counter() - t0:.1f} s on {card_line()}")
+    if not (min(means.values()) >= L_GATE_AUC
+            and abs(delta) <= L_GATE_DELTA):
+        raise AssertionError(f"path L: the learning gate failed: {means}")
+    return counts
 
 
 def worker(argv: list) -> int:
-    """``--worker step --rank R --port P``: one process of path K(i); its
-    result is the last line of its output."""
+    """``--worker step --rank R --port P [--route hosts]``: one process of
+    path K(i) (or K(v)); its result is the last line of its output."""
     import argparse
 
     ap = argparse.ArgumentParser(prog="chip_smoke.py --worker")
     ap.add_argument("kind", choices=["step"])
     ap.add_argument("--rank", type=int, required=True)
     ap.add_argument("--port", type=int, required=True)
+    ap.add_argument("--route", choices=["auto", "hosts"], default="auto")
     args = ap.parse_args(argv)
-    print(json.dumps(k_worker_step(args.rank, args.port)), flush=True)
+    print(json.dumps(k_worker_step(args.rank, args.port, args.route)),
+          flush=True)
     return 0
 
 
@@ -4124,6 +4294,7 @@ def main() -> int:
     profiling = sys.argv[1:] == ["--profile"]
     if sys.argv[1:] and not profiling:
         raise SystemExit(f"chip_smoke: unknown arguments {sys.argv[1:]}")
+    t_start = time.perf_counter()
     dev = check_device()
     log("== build")
     build_kernels()
@@ -4268,7 +4439,9 @@ def main() -> int:
         "card")
     gc.collect()
     torch.cuda.empty_cache()
-    k_row = run_multiprocess(g_ref, one_run)
+    k_rows = run_multiprocess(g_ref, one_run)
+    log("== path L: the samplers' learning gate, 3 seeds a mode")
+    counts += run_learning_gate(dev)
     for r in (fwd, fwd_bf16, bwd, c4, spmm, smax, spmm_bf16, a2a, a2a_small):
         results.update(r)
 
@@ -4283,13 +4456,15 @@ def main() -> int:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
 
     kernels = [row(form, form, counts) for form in KERNELS
-               if form != "all_to_all:f32:procs"]
+               if form not in ("all_to_all:f32:procs",
+                               "all_to_all:f32:hosts")]
     # the exchange timed at config5's send buffers too, with the launches
     # of paths G and G(ii), which give it that shape; then across the
-    # processes of path K, at config5's send buffers, with their launches
+    # processes of path K, at config5's send buffers, with their launches:
+    # through CUDA IPC (K(i)) and on the route between hosts (K(v))
     kernels.append(row("all_to_all:f32 (config5)", "all_to_all:f32",
                        p2_counts))
-    kernels.append(k_row)
+    kernels += k_rows
     # rows 4 and 8 at the other shapes the paths give them, each with the
     # launches of the paths that run that shape: the 100K graph in bf16
     # (7b), the 16,384-drug graph (8 in f32, 8b in bf16), shard 0 of path
@@ -4314,6 +4489,8 @@ def main() -> int:
             ("spmm_sorted_coo_bwd:f32:hub",
              "spmm_sorted_coo_bwd:f32:weighted", p2_counts[-1:])):
         kernels.append(row(name, form, paths))
+    log(f"smoke: {time.perf_counter() - t_start:.1f} s from start to the "
+        "kernels line")
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -6,12 +6,19 @@ Reads the latest (or the given) state of a ``bignn_tpu`` ``CheckpointManager``
 directory (``bignn_tpu.train.trainer._fit_state``'s layout: ``params``,
 ``opt_state``, ``best_params``, ``meta``) with the JAX package's own manager,
 carries ``params`` and ``best_params`` through
-``bignn_tpu_torch.bridge.params_from_jax`` and ``meta`` as it is, and writes
-``OUT_DIR/step_<n>.pt`` through the port's ``CheckpointManager``. The
-result serves (``bignn_tpu_torch.serve.Scorer.from_checkpoint``, ``python -m
-bignn_tpu_torch.serve --ckpt OUT_DIR``). Optax's Adam state is not carried
-across, so the port's trainers refuse to resume from it rather than restart
-Adam from zero moments.
+``bignn_tpu_torch.bridge.params_from_jax``, optax's Adam state (``optax.adam``
+or ``optax.adamw``, alone or behind ``clip_by_global_norm``: the stacks of
+``bignn_tpu/train/trainer.py:make_optimizer``, p2's replicated one too)
+through ``bridge.optimizer_state_from_jax`` (``count``, ``mu``, ``nu`` as
+each parameter's ``step``, ``exp_avg``, ``exp_avg_sq``, keyed by parameter
+name) and ``meta`` as it is, and writes ``OUT_DIR/step_<n>.pt`` through the
+port's ``CheckpointManager``. The result serves
+(``bignn_tpu_torch.serve.Scorer.from_checkpoint``, ``python -m
+bignn_tpu_torch.serve --ckpt OUT_DIR``) and resumes: ``Trainer.fit``,
+``MinibatchTrainer.fit`` and ``python -m bignn_tpu_torch.run`` with the same
+config, ``--run-dir`` holding ``OUT_DIR`` as ``ckpt`` and
+``--checkpoint-every``, carry on from epoch ``meta["epoch"] + 1`` with
+Adam's moments and step count.
 
 Needs JAX and orbax, so it runs where the JAX package does; the port itself
 never imports them.
@@ -34,7 +41,10 @@ def convert(src: str, out: str, step: int | None = None) -> int:
     import jax
 
     from bignn_tpu.train.checkpoint import CheckpointManager as JaxManager
-    from bignn_tpu_torch.bridge import params_from_jax
+    from bignn_tpu_torch.bridge import (
+        optimizer_state_from_jax,
+        params_from_jax,
+    )
     from bignn_tpu_torch.train.checkpoint import CheckpointManager
 
     mgr = JaxManager(src)
@@ -46,13 +56,16 @@ def convert(src: str, out: str, step: int | None = None) -> int:
     finally:
         mgr.close()
 
-    def params(tree):
-        return params_from_jax(jax.tree.map(np.asarray, tree))
+    def host(tree):
+        return jax.tree.map(np.asarray, tree)
 
+    params = params_from_jax(host(state["params"]))
     meta = {k: np.asarray(v).item() for k, v in state["meta"].items()}
     CheckpointManager(out).save_state(step, {
-        "params": params(state["params"]),
-        "best_params": params(state["best_params"]),
+        "params": params,
+        "opt_state": optimizer_state_from_jax(host(state["opt_state"]),
+                                              params),
+        "best_params": params_from_jax(host(state["best_params"])),
         "meta": meta,
     })
     return step

@@ -12,8 +12,15 @@ converter, and raw-cache conversion.
   uninterrupted result; ``serve.main`` on its checkpoint gives a hand-built
   ``Scorer``'s scores bit for bit.
 * ``scripts/convert_jax_checkpoint.py`` turns a JAX checkpoint into one the
-  port serves with the JAX ``Scorer``'s scores (rtol 2e-4 / atol 2e-5), and
-  that no trainer resumes from (it holds no optimizer state).
+  port serves with the JAX ``Scorer``'s scores (rtol 2e-4 / atol 2e-5) and
+  resumes with optax's Adam state (``optax.adam``, ``optax.adamw``, either
+  behind ``clip_by_global_norm``): a JAX run checkpointed after its first
+  epoch and resumed to 3 epochs against the port's resume of the
+  conversion (full and p2 modes, at ``test_run_full_matches_jax``'s and
+  ``test_run_p2_matches_jax``'s bounds); the converted moments and step
+  count exactly JAX's, and one step from them JAX's step
+  (``MinibatchTrainer``, tests/test_torch_minibatch.py's bounds). A state
+  without optimizer state (one written by hand) still refuses to resume.
 * ``data/convert.py`` gives the JAX converter's arrays, and ``load_dataset``
   converts a raw cache once.
 """
@@ -26,11 +33,14 @@ import pickle
 from pathlib import Path
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import optax
 import pytest
 import torch
 
+import bignn_tpu.config as jax_config_module
+from bignn_tpu import ops as jax_ops
 from bignn_tpu.config import ExperimentConfig as JaxExperimentConfig
 from bignn_tpu.config import get_config as jax_get_config
 from bignn_tpu.data.convert import (
@@ -43,17 +53,19 @@ from bignn_tpu.run import _run_p2 as jax_run_p2
 from bignn_tpu.run import main as jax_main
 from bignn_tpu.serve import Scorer as JaxScorer
 from bignn_tpu.train.checkpoint import CheckpointManager as JaxCheckpointManager
+from bignn_tpu.train.trainer import MinibatchTrainer as JaxMinibatchTrainer
 from bignn_tpu.train.trainer import TrainConfig as JaxTrainConfig
 from bignn_tpu.train.trainer import _fit_state as jax_fit_state
 from bignn_tpu.utils import MetricLogger as JaxMetricLogger
 
-from bignn_tpu_torch import run, serve
+from bignn_tpu_torch import bridge, run, serve
 from bignn_tpu_torch.config import ExperimentConfig, TrainConfig, get_config
 from bignn_tpu_torch.data import load_dataset, prepare_device_data
 from bignn_tpu_torch.data.convert import convert_reference_cache
 from bignn_tpu_torch.models import BiGNN, BiGNNConfig
 from bignn_tpu_torch.serve import Scorer
 from bignn_tpu_torch.train import CheckpointManager, MinibatchTrainer, Trainer
+from bignn_tpu_torch.train.trainer import load_optimizer_state
 from bignn_tpu_torch.utils import MetricLogger
 
 TOL = dict(rtol=2e-4, atol=2e-5)
@@ -303,7 +315,11 @@ def converted(tmp_path_factory):
 def test_converted_checkpoint_serves_jax_scores(converted, use_best):
     root, jcfg = converted
     state = CheckpointManager(str(root / "port")).restore_state(3)
-    assert "opt_state" not in state
+    adam = state["opt_state"]
+    assert adam.keys() == state["params"].keys()
+    for name, p in state["params"].items():
+        assert adam[name]["exp_avg"].shape == p.shape
+        assert float(adam[name]["step"]) == 0.0
     assert state["meta"] == {"epoch": 3, "best_val_auc": 0.625,
                              "best_epoch": 2}
     cfg = _serve_cfg(BiGNNConfig, ExperimentConfig, TrainConfig)
@@ -317,13 +333,19 @@ def test_converted_checkpoint_serves_jax_scores(converted, use_best):
 
 
 @pytest.mark.parametrize("mode", ["full", "minibatch", "p2"])
-def test_resume_from_converted_checkpoint_raises(converted, mode):
+def test_resume_from_converted_checkpoint_raises(converted, tmp_path, mode):
+    """A state without optimizer state (the conversion with it taken out,
+    as a hand-written state would lack it) serves but no trainer resumes
+    from it."""
     root, _ = converted
+    state = CheckpointManager(str(root / "port")).restore_state(3)
+    del state["opt_state"]
+    ckpt = CheckpointManager(str(tmp_path))
+    ckpt.save_state(3, state)
     cfg = _serve_cfg(BiGNNConfig, ExperimentConfig, TrainConfig)
     ds = load_dataset(cfg.dataset, **cfg.dataset_kwargs)
     model = BiGNN(cfg.model)
-    ckpt = CheckpointManager(str(root / "port"))
-    with pytest.raises(ValueError, match="convert_jax_checkpoint"):
+    with pytest.raises(ValueError, match="no optimizer state"):
         if mode == "full":
             Trainer(model, prepare_device_data(ds), cfg.train,
                     device="cpu").fit(ckpt=ckpt)
@@ -334,6 +356,166 @@ def test_resume_from_converted_checkpoint_raises(converted, mode):
             run._run_p2(model, ds, dataclasses.replace(cfg, graph_shards=2),
                         MetricLogger(stdout=False), ckpt=ckpt,
                         device="cpu")
+
+
+# train overrides of the three optimizer stacks (JAX make_optimizer)
+OPTIMIZERS = {"adam": {}, "adamw": dict(weight_decay=1e-2),
+              "clip": dict(grad_clip=0.1)}
+# each optimizer stack's state held exactly, and its next step, in
+# minibatch mode; the whole resumed run in full and p2 modes under adam
+RESUME_CASES = [("full", "adam"), ("p2", "adam"), ("minibatch", "adam"),
+                ("minibatch", "adamw"), ("minibatch", "clip")]
+
+
+def _resume_run(monkeypatch, tmp_path, mode: str, opt: str) -> None:
+    """A JAX ``run.main`` checkpointed after epoch 0 and resumed to 3
+    epochs; the port's ``run.main`` on the conversion of that checkpoint,
+    to 3 epochs: the same epochs, losses at rtol 1e-4, best epoch, test
+    AUC within 1e-3."""
+    name = {"full": "config1", "p2": "config5"}[mode]
+    kw = OPTIMIZERS[opt]
+    jax_dir, run_dir = tmp_path / "jax", tmp_path / "port"
+    monkeypatch.setattr(jax_config_module, "get_config",
+                        lambda n: _tiny(name, jax=True, **kw))
+    argv = ["--config", name, "--checkpoint-every", "1"]
+    jax_main([*argv, "--epochs", "1", "--run-dir", str(jax_dir)])
+    assert _converter().main([str(jax_dir / "ckpt"),
+                              str(run_dir / "ckpt")]) == 0
+    want = jax_main([*argv, "--epochs", "3", "--run-dir", str(jax_dir)])
+    monkeypatch.setattr(run, "get_config", lambda n: _tiny(name, **kw))
+    got = _port([*argv, "--epochs", "3", "--run-dir", str(run_dir)])
+    assert [r["epoch"] for r in got["history"]] == [
+        r["epoch"] for r in want["history"]] == [1, 2]
+    np.testing.assert_allclose(_losses(got), _losses(want), rtol=1e-4)
+    assert got["best_epoch"] == want["best_epoch"]
+    np.testing.assert_allclose(got["test_auc"], want["test_auc"], atol=1e-3)
+
+
+def _jax_leaves(tree, path=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _jax_leaves(v, path + (k,))
+        else:
+            yield path + (k,), np.asarray(v)
+
+
+def _resume_minibatch(tmp_path, opt: str) -> None:
+    """Two JAX steps, checkpointed and converted: every parameter's
+    ``exp_avg``/``exp_avg_sq`` in the port's optimizer equals JAX's
+    ``mu``/``nu`` exactly, with the parameter's own transposition (leaves
+    matched by the parameters' values, not through the converter's
+    names), each ``step`` JAX's ``count`` in a tensor of its own. Then the
+    third step from it on the same host-drawn batch, at
+    tests/test_torch_minibatch.py's bounds (rtol 2e-4 / atol 2e-5 x max):
+    the port's loss and gradients (clipped, under the clip) against JAX's,
+    and the port's update of JAX's gradients from the converted state
+    against optax's update of the same gradients from JAX's state. The
+    update is held on one set of gradients because GAT's ``a_l`` gradient
+    cancels to rounding noise, which Adam's first steps scale to ~lr
+    whatever its size."""
+    from bignn_tpu_torch.parallel.dp import optimizer_step
+
+    kw = OPTIMIZERS[opt]
+    jcfg = dataclasses.replace(_tiny("config3", jax=True, **kw),
+                               fanouts=(4,))
+    cfg = dataclasses.replace(_tiny("config3", **kw), fanouts=(4,))
+    jds = jax_load_dataset(jcfg.dataset, **jcfg.dataset_kwargs)
+    jtr = JaxMinibatchTrainer(JaxBiGNN(jcfg.model), jds, jcfg.train,
+                              fanouts=jcfg.fanouts, calibrate_caps=2)
+    params, opt_state = jtr.init()
+
+    def batch(sampler, i):
+        return sampler.sample_compact_at(0, i)
+
+    with jax_ops.backend_scope("xla"):
+        for i in range(2):
+            params, opt_state, _ = jtr.train_step(
+                params, opt_state,
+                jax.tree.map(jnp.asarray, batch(jtr.sampler, i)))
+        mgr = JaxCheckpointManager(str(tmp_path / "jax"))
+        mgr.save_state(0, jax_fit_state(
+            params, opt_state, {"val_auc": 0.5, "params": params,
+                                "epoch": 0}, 0))
+        mgr.close()
+        assert _converter().main([str(tmp_path / "jax"),
+                                  str(tmp_path / "port")]) == 0
+        jcb = jax.tree.map(jnp.asarray, batch(jtr.sampler, 2))
+        want_loss, jgrads = jax.jit(jax.value_and_grad(jtr._loss))(
+            params, jcb, jtr.tables)
+    # JAX's step on these gradients (its train_step recomputes them, and
+    # GAT's a_l gradient, which cancels, to other noise)
+    updates, _ = jax.jit(jtr.optimizer.update)(jgrads, opt_state, params)
+    want_params = optax.apply_updates(params, updates)
+    adam = opt_state[-1] if opt == "clip" else opt_state
+    adam = adam[0]  # ScaleByAdamState, first in adam's and adamw's chains
+    ds = load_dataset(cfg.dataset, **cfg.dataset_kwargs)
+    tr = MinibatchTrainer(BiGNN(cfg.model), ds, cfg.train,
+                          fanouts=cfg.fanouts, calibrate_caps=2,
+                          device="cpu")
+    ckpt = CheckpointManager(str(tmp_path / "port"))
+
+    def restore():
+        state = ckpt.restore_state()
+        tr.model.load_state_dict(state["params"])
+        load_optimizer_state(tr.optimizer, tr.model, state["opt_state"])
+
+    restore()
+    ported = [(p.detach(), tr.optimizer.state[p])
+              for p in tr.model.parameters()]
+    assert len({id(s["step"]) for _, s in ported}) == len(ported)
+    mus, nus = dict(_jax_leaves(adam.mu)), dict(_jax_leaves(adam.nu))
+    for path, value in _jax_leaves(params):
+        hits = [(p, s, False) for p, s in ported
+                if p.shape == value.shape and np.array_equal(p, value)]
+        if value.ndim == 2:
+            hits += [(p, s, True) for p, s in ported
+                     if p.shape == value.shape[::-1]
+                     and np.array_equal(p, value.T)]
+        assert len(hits) == 1, (path, len(hits))
+        p, s, transposed = hits[0]
+        t = (lambda a: a.T) if transposed else (lambda a: a)
+        np.testing.assert_array_equal(s["exp_avg"].numpy(), t(mus[path]))
+        np.testing.assert_array_equal(s["exp_avg_sq"].numpy(), t(nus[path]))
+        assert s["step"].dtype == torch.float32
+        assert float(s["step"]) == int(adam.count) == 2
+        assert s["exp_avg"].device == p.device
+
+    def close(name, got, want):
+        scale = max(want.abs().max().item(), 1.0)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=2e-4,
+                                   atol=2e-5 * scale, err_msg=name)
+
+    grads = bridge.params_from_jax(jax.tree.map(np.asarray, jgrads))
+    if cfg.train.grad_clip:
+        norm = float(torch.sqrt(sum((g.double() ** 2).sum()
+                                    for g in grads.values())))
+        grads = {k: g * min(1.0, cfg.train.grad_clip / norm)
+                 for k, g in grads.items()}
+    loss = tr.train_step(batch(tr.sampler, 2))
+    np.testing.assert_allclose(loss.item(), float(want_loss), rtol=2e-4,
+                               atol=2e-5)
+    for name, p in tr.model.named_parameters():
+        close(name, p.grad, grads[name])
+    restore()
+    named = dict(tr.model.named_parameters())
+    raw = bridge.params_from_jax(jax.tree.map(np.asarray, jgrads))
+    optimizer_step(tr.optimizer, lambda: sum(
+        (p * raw[name]).sum() for name, p in named.items()),
+        cfg.train.grad_clip)
+    want = bridge.params_from_jax(jax.tree.map(np.asarray, want_params))
+    for name, p in named.items():
+        close(name, p.detach(), want[name])
+
+
+@pytest.mark.parametrize("mode,opt", RESUME_CASES,
+                         ids=[f"{m}-{o}" for m, o in RESUME_CASES])
+def test_resume_from_converted_checkpoint(monkeypatch, tmp_path, mode, opt):
+    """A converted JAX checkpoint resumes in each mode and under each
+    optimizer stack of JAX's ``make_optimizer``."""
+    if mode == "minibatch":
+        _resume_minibatch(tmp_path, opt)
+    else:
+        _resume_run(monkeypatch, tmp_path, mode, opt)
 
 
 # ---------------------------------------------------------------------------

@@ -19,9 +19,10 @@ and leaves its results under DIR; the tests read them:
   gradient off by a constant factor); both workers equal to the bit.
 * (b) graph = 4 over 2 processes (2 shards each, so an exchange mixes local
   and remote pairs): the same against the single-process step on 4 shards;
-  the exchange across processes, its backward and the embedding
-  all-gather's backward exactly against ``all_to_all_plain`` over the
-  whole buffers.
+  the exchange across processes (the host route, ``ProcessExchange``), its
+  backward and the embedding all-gather's backward exactly against
+  ``all_to_all_plain`` over the whole buffers, each process sending
+  through gloo only the chunks of the other's shards (the bytes counted).
 * (c) ``make_hybrid_mesh``'s layout and errors against JAX's
   (``bignn_tpu/parallel/mesh.py:102-136``), no processes needed.
 * (d) ``run.main`` across 2 processes on tests/test_torch_cli.py's tiny
@@ -32,6 +33,11 @@ and leaves its results under DIR; the tests read them:
   bit (losses, result, last checkpoint), as tests/test_torch_cli.py's
   one-process resume.
 * (e) ``overlap=True`` and ``remat=True`` across 2 processes, as (b).
+* (f) ``make_exchange``'s route by the gathered hosts (the gathered list
+  set in turn) and cards: ``PeerExchange`` on one card of one host,
+  ``ProcessExchange`` across hosts, across cards and on the CPU; and, with no
+  processes, ``init_distributed``'s card for 2 hosts x 2 processes,
+  ``device_count`` stubbed.
 """
 
 import argparse
@@ -166,6 +172,8 @@ def _exchange_case(rank: int) -> dict:
     emb.backward(g)
     return {
         "local": local,
+        "route": type(exchange).__name__,
+        "sent_bytes": exchange.sent_bytes,
         "forward": all(torch.equal(o, want[j]) for o, j in zip(out, local)),
         "backward": all(torch.equal(b.grad, want_g[j])
                         for b, j in zip(bufs, local)),
@@ -175,6 +183,28 @@ def _exchange_case(rank: int) -> dict:
             for t, j in zip(hl, local)),
         "processes": mesh.processes.tolist(),
     }
+
+
+def _route_case(rank: int) -> dict:
+    """(f): the class ``make_exchange`` builds for each pair of hosts (the
+    list ``init_distributed`` gathered, set in turn) on the CPU, on one
+    card (a ``cuda:0`` mesh) and on a card a process (``cuda:{rank}``):
+    building either exchange touches no card. Also the hosts the real
+    gather found: one per process, the same."""
+    gathered = mesh_mod.host_names()
+    routes = {"gathered": len(gathered) == 2 and len(set(gathered)) == 1}
+    try:
+        for layout, hosts in (("one", ["h0", "h0"]), ("two", ["h0", "h1"])):
+            mesh_mod._hosts = hosts
+            for name, dev in (("cpu", "cpu"), ("card", "cuda:0"),
+                              ("cards", f"cuda:{rank}")):
+                exchange = make_exchange(make_hybrid_mesh(graph=4,
+                                                          device=dev))
+                routes[f"{layout}-{name}"] = type(exchange).__name__
+                exchange.close()
+    finally:
+        mesh_mod._hosts = gathered
+    return routes
 
 
 def _tiny_config5(epochs: int = 2):
@@ -203,7 +233,7 @@ def _worker(port: int, rank: int, out: Path) -> None:
     flags = ["--coordinator", f"127.0.0.1:{port}", "--num-processes", "2",
              "--process-id", str(rank)]
     init_distributed(f"127.0.0.1:{port}", 2, rank)
-    results = {"exchange": _exchange_case(rank)}
+    results = {"exchange": _exchange_case(rank), "routes": _route_case(rank)}
     for name in CASES:
         res = _p2_case(name, multi=True)
         torch.save({"params": res.pop("params"), "grads": res.pop("grads")},
@@ -414,6 +444,55 @@ def test_exchange_across_processes_is_exact(workers):
         assert ex["processes"] == [[0, 0, 1, 1]]
         assert ex["forward"] and ex["backward"], ex
         assert ex["gather"] and ex["gather_backward"], ex
+
+
+def test_host_route_sends_only_other_processes_chunks(workers):
+    """(b): the exchange and its backward went the host route, and each
+    process sent through gloo the other's two shards' slots of its two
+    send buffers, twice: 2 x 2 x 2 chunks of 3 x 5 float32."""
+    _, results = workers
+    for r in results:
+        assert r["exchange"]["route"] == "ProcessExchange"
+        assert r["exchange"]["sent_bytes"] == 2 * 2 * 2 * 3 * 5 * 4
+
+
+def test_make_exchange_routes_by_host_names(workers):
+    """(f): IPC only for one card whose processes share one host."""
+    _, results = workers
+    for r in results:
+        assert r["routes"] == {"gathered": True,
+                               "one-cpu": "ProcessExchange",
+                               "one-card": "PeerExchange",
+                               "one-cards": "ProcessExchange",
+                               "two-cpu": "ProcessExchange",
+                               "two-card": "ProcessExchange",
+                               "two-cards": "ProcessExchange"}
+
+
+@pytest.mark.parametrize("hosts,cards", [
+    (("a", "a", "b", "b"), (0, 1, 0, 1)),  # host-major ranks
+    (("a", "b", "a", "b"), (0, 0, 1, 1)),  # ranks alternating hosts
+    (("a", "a", "a", "b"), (0, 1, 0, 0)),  # 3 processes on 2 cards
+])
+def test_init_distributed_card_by_host(monkeypatch, hosts, cards):
+    """(f): each process takes its host's cards in rank order, by its
+    index among the processes of its host (2 cards a host, stubbed)."""
+    import torch.distributed as dist
+
+    chosen = []
+    monkeypatch.setattr(dist, "is_initialized", lambda: False)
+    monkeypatch.setattr(dist, "init_process_group", lambda *a, **k: None)
+    monkeypatch.setattr(mesh_mod, "all_gather_object",
+                        lambda obj: list(hosts))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    monkeypatch.setattr(torch.cuda, "set_device", chosen.append)
+    monkeypatch.setattr(mesh_mod, "_local_device", None)
+    monkeypatch.setattr(mesh_mod, "_hosts", None)
+    for rank in range(len(hosts)):
+        assert init_distributed("h:1", len(hosts), rank) == rank
+        assert mesh_mod.host_names() == list(hosts)
+    assert chosen == [torch.device("cuda", c) for c in cards]
 
 
 def test_run_main_across_two_processes(workers, monkeypatch, tmp_path):
