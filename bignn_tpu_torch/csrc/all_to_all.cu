@@ -8,12 +8,24 @@
 // Replaces bignn_tpu/ops/pallas/collectives.py:_a2a_kernel (all_to_all_pallas,
 // reached through _a2a_call's pallas_call). On the TPU each device pushes
 // its chunks into its peers' receive buffers by remote DMA, after a barrier
-// built from semaphores, and waits on per-source receive semaphores. Here
-// the shards of a mesh share one card, so the exchange is one kernel over
+// built from semaphores, and waits on per-source receive semaphores. Where
+// the shards of a mesh share one card, the exchange is one kernel over
 // every (destination j, source i) pair: stream order is the barrier (every
 // send buffer is written before the launch, every receive buffer read after
 // it). The entry point takes arrays of source and destination base
-// pointers, so a source may lie in another process's memory.
+// pointers, so a source may lie on another card or in another process's
+// memory.
+//
+// Across the cards of one process (a mesh over distinct cards,
+// ops/collectives.py all_to_all_cards): every ordered pair of cards has
+// peer access (bignn_enable_peer_access), and each card launches this
+// kernel once on its own range of destinations [j_begin, j_begin +
+// j_count), reading every source chunk through the source card's pointer
+// over NVLink. This pulls, where the TPU kernel pushes. The TPU kernel's
+// semaphores become CUDA events on the host side: each reader's stream
+// waits on an event recorded on every source's stream after its send
+// buffer was written, and each source's stream waits on every reader's
+// "done" event before it may reuse that memory.
 //
 // Across processes (the multi-process p2 run, ops/collectives.py
 // PeerExchange): each process copies its local shards' send buffers into a
@@ -40,7 +52,9 @@
 // What bounds it on the H100: device-memory bytes, each send byte read once
 // and each receive byte written once, 2 * G * G * S * F * sizeof(T) over
 // 3.35 TB/s (config5-large in f32: 845 MB, 0.252 ms). At config5's
-// 3.6 MB it is the launch.
+// 3.6 MB it is the launch. Across cards, per card: the chunks it reads from
+// peers over the NVLink rate in one direction, and its local bytes over
+// the device-memory rate.
 
 #include <cuda_runtime.h>
 
@@ -170,6 +184,25 @@ int bignn_ipc_open(const void* handle_bytes, void** out) {
 
 int bignn_ipc_close(void* ptr) {
   return static_cast<int>(cudaIpcCloseMemHandle(ptr));
+}
+
+// Lets the current card read peer's memory through its pointers; access
+// that is already enabled (by this process or by PyTorch) is success, a
+// pair without peer access is cudaErrorPeerAccessUnsupported.
+int bignn_enable_peer_access(int peer) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int can = 0;
+  err = cudaDeviceCanAccessPeer(&can, device, peer);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (!can) return static_cast<int>(cudaErrorPeerAccessUnsupported);
+  err = cudaDeviceEnablePeerAccess(peer, 0);
+  if (err == cudaErrorPeerAccessAlreadyEnabled) {
+    cudaGetLastError();  // clear it: later launches check the last error
+    return static_cast<int>(cudaSuccess);
+  }
+  return static_cast<int>(err);
 }
 
 }  // extern "C"

@@ -20,6 +20,11 @@ from bignn_tpu_torch.data.schema import (
     prepare_device_data,
     random_split,
 )
+from bignn_tpu_torch.data.sampler import (
+    EdgeMinibatchSampler,
+    make_training_pairs,
+    sample_negative_pairs,
+)
 from bignn_tpu_torch.data.synthetic import make_synthetic_ddi
 
 __all__ = [
@@ -27,12 +32,15 @@ __all__ = [
     "DDIDataset",
     "DeviceSampler",
     "DeviceData",
+    "EdgeMinibatchSampler",
     "HierarchicalBatch",
     "HierarchicalSampler",
     "load_dataset",
     "load_npz_cache",
     "make_synthetic_ddi",
+    "make_training_pairs",
     "prepare_device_data",
     "random_split",
+    "sample_negative_pairs",
     "save_npz_cache",
 ]

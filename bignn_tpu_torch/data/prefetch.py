@@ -1,5 +1,5 @@
-"""Host-side batch prefetch (counterpart of ``bignn_tpu/data/prefetch.py``,
-``ParallelPrefetcher``).
+"""Host-side batch prefetch (counterpart of ``bignn_tpu/data/prefetch.py``:
+``EpochPrefetcher`` and ``ParallelPrefetcher``).
 
 The host sampler's draw of a step is NumPy work comparable to a device
 step, so ``MinibatchTrainer.fit`` on host-drawn batches draws them ahead on
@@ -9,9 +9,46 @@ prefetched; the upload to the card stays on the caller's thread.
 
 from __future__ import annotations
 
+import queue
+import threading
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Iterator
+
+
+class EpochPrefetcher:
+    """Draw exactly ``n`` batches ``draw()`` on one background thread,
+    yielded in order. ``depth`` bounds how far the thread runs ahead. The
+    sampler is touched by that one thread only, so the batches are the
+    sequential loop's; an exception in the thread re-raises in the
+    consumer."""
+
+    _SENTINEL = object()
+
+    def __init__(self, draw: Callable[[], object], n: int, depth: int = 3):
+        self.n = n
+        self._q: queue.Queue = queue.Queue(maxsize=depth)
+        self._exc: BaseException | None = None
+
+        def work():
+            try:
+                for _ in range(n):
+                    self._q.put(draw())
+            except BaseException as e:  # re-raised by __iter__
+                self._exc = e
+                self._q.put(self._SENTINEL)
+
+        self._thread = threading.Thread(target=work, name="bignn-prefetch",
+                                        daemon=True)
+        self._thread.start()
+
+    def __iter__(self) -> Iterator:
+        for _ in range(self.n):
+            item = self._q.get()
+            if item is self._SENTINEL:
+                raise self._exc
+            yield item
+        self._thread.join()
 
 
 class ParallelPrefetcher:

@@ -4,7 +4,8 @@
 ``EdgeMinibatchSampler`` is the JAX package's NumPy sampler, so its epochs
 equal the JAX ones array for array. ``sample_negative_pairs`` makes the
 JAX function's threefry draws for the same key (``prng.py``) on the host
-and builds the pairs on the positives' device.
+and builds the pairs on the positives' device; ``make_training_pairs``
+adds the positives and the labels.
 """
 
 from __future__ import annotations
@@ -37,6 +38,18 @@ def sample_negative_pairs(key: prng.Key, pos_pairs: torch.Tensor,
     left = torch.where(corrupt_right, rep[:, 0], rand)
     right = torch.where(corrupt_right, rand, rep[:, 1])
     return torch.stack([left, right], dim=1)
+
+
+def make_training_pairs(key: prng.Key, pos_pairs: torch.Tensor,
+                        num_nodes: int, neg_ratio: int = 1
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Positives and ``sample_negative_pairs``' negatives with 1/0 labels:
+    ``([P * (1 + r), 2], float32 labels [P * (1 + r)])``, on the positives'
+    device."""
+    neg = sample_negative_pairs(key, pos_pairs, num_nodes, neg_ratio)
+    pairs = torch.cat([pos_pairs, neg])
+    labels = torch.cat([torch.ones(len(pos_pairs)), torch.zeros(len(neg))])
+    return pairs, labels.to(device=pos_pairs.device)
 
 
 class EdgeMinibatchSampler:

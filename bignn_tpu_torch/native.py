@@ -58,6 +58,12 @@ def _load():
     lib.greedy_pack_blocks.argtypes = [
         ctypes.c_int64, i32p, ctypes.c_int32, i32p,
     ]
+    lib.in_degrees.restype = None
+    lib.in_degrees.argtypes = [ctypes.c_int64, ctypes.c_int64, i32p, i32p]
+    lib.partition_edges_hash.restype = None
+    lib.partition_edges_hash.argtypes = [
+        ctypes.c_int64, i32p, i32p, ctypes.c_int32, i32p,
+    ]
     _lib = lib
     return _lib
 
@@ -109,6 +115,39 @@ def build_sorted_graph(
     if r < 0:
         raise ValueError("edge endpoints out of range")
     return out_src, out_dst, out_w
+
+
+def in_degrees(dst: np.ndarray, num_nodes: int) -> np.ndarray:
+    """``[num_nodes]`` int32 in-degrees (no self-loops); the native pass
+    skips ids outside ``[0, num_nodes)``, which the fallback refuses."""
+    lib = _load()
+    dst = np.ascontiguousarray(dst, np.int32)
+    if lib is None:
+        return np.bincount(dst, minlength=num_nodes).astype(np.int32)
+    out = np.empty(num_nodes, np.int32)
+    lib.in_degrees(num_nodes, len(dst), dst, out)
+    return out
+
+
+def partition_edges_hash(src: np.ndarray, dst: np.ndarray,
+                         n_parts: int) -> np.ndarray:
+    """``[E]`` int32 shard of each edge, ``[0, n_parts)``, from a Murmur3
+    finalizer of its smaller endpoint, so both directions of an undirected
+    edge land on one shard."""
+    lib = _load()
+    src = np.ascontiguousarray(src, np.int32)
+    dst = np.ascontiguousarray(dst, np.int32)
+    if lib is None:
+        key = np.minimum(src, dst).astype(np.uint32)
+        key ^= key >> np.uint32(16)
+        key *= np.uint32(0x85EBCA6B)
+        key ^= key >> np.uint32(13)
+        key *= np.uint32(0xC2B2AE35)
+        key ^= key >> np.uint32(16)
+        return (key % np.uint32(n_parts)).astype(np.int32)
+    out = np.empty(len(src), np.int32)
+    lib.partition_edges_hash(len(src), src, dst, n_parts, out)
+    return out
 
 
 def greedy_pack_blocks(

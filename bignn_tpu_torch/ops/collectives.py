@@ -8,9 +8,24 @@ receive buffers: ``recv[j][i] = sendbufs[i][j]``. It is a
 ``torch.autograd.Function`` whose backward is the same exchange of the
 cotangents (the exchange is its own adjoint, as the JAX kernel's
 ``custom_vjp`` has it). CUDA buffers go to the kernel of
-``csrc/all_to_all.cu``, one launch for the whole exchange; CPU buffers take
-``all_to_all_plain``. The wrapper counts its launches (forward and
-backward) per element type.
+``csrc/all_to_all.cu``; CPU buffers take ``all_to_all_plain``. The wrapper
+counts its launches (forward and backward) per element type.
+
+Buffers on one card: one launch for the whole exchange
+(``all_to_all:<dtype>``). Buffers on distinct cards of this process (a
+mesh over several cards, JAX's single controller over its chips): every
+ordered pair of the cards has peer access, enabled once
+(``enable_peer_access``; a pair without it raises, naming the pair: there
+is no route through the host). Each card launches the kernel once for its
+own run of destinations, reading every source chunk through the source's
+device pointer, local or a peer's (``all_to_all:<dtype>:cards``): a pull,
+where the TPU kernel pushes each chunk into its peer by remote DMA. The TPU
+kernel's semaphores become CUDA events: every reader's stream waits on an
+event recorded on every source's stream once its send buffer is written,
+and every source's stream waits on every reader's "done" event before it
+runs anything more, so that the caching allocator, which recycles a freed
+block on its own card's stream and cannot see a read from another card,
+never hands out a send buffer still being read.
 
 Across processes (the multi-process p2 run), ``all_to_all(sendbufs,
 exchange)`` takes this process's shards' send buffers (each ``[G, ...]``)
@@ -23,14 +38,14 @@ copies, pinned for a card), and the receive buffers are written from the
 local chunks and the arrivals (on a card one launch of the kernel on this
 process's destinations, counted under ``all_to_all:<dtype>:hosts``).
 Its ``all_to_all_plain`` gathers every process's whole send buffers
-instead: the plain version. When every process runs on one host, on the
-card, ``PeerExchange`` copies the send buffers into a staging buffer that
-every process maps by CUDA IPC, and one launch of the kernel pulls this
-process's receive buffers from every source; its launches count under
+instead: the plain version. When every process runs on one host with
+cards that reach each other, ``PeerExchange`` copies the send buffers
+into a staging buffer that every process maps by CUDA IPC (on its own
+card or a peer card), and one launch of the kernel pulls this process's
+receive buffers from every source; its launches count under
 ``all_to_all:<dtype>:procs``. The same objects give the rank-order
 all-gather and sum that keep the replicated state equal in every process
-(``parallel/comm.py``). Buffers on distinct CUDA devices in one process,
-and a mix of devices, raise: the port drives one card a process.
+(``parallel/comm.py``). A mix of device types raises.
 """
 
 from __future__ import annotations
@@ -48,10 +63,11 @@ MAX_SHARDS = 32  # kMaxShards of csrc/all_to_all.cu
 
 
 def _check(bufs: Sequence[torch.Tensor], g: int | None = None
-           ) -> torch.device:
-    """The one device of ``bufs``; raises unless they are contiguous
-    buffers of one shape and type with a leading axis of G (default: one
-    buffer a shard, G of them)."""
+           ) -> torch.device | None:
+    """The one device of ``bufs``, or None for buffers on distinct CUDA
+    devices; raises unless they are contiguous buffers of one shape and
+    type with a leading axis of G (default: one buffer a shard, G of
+    them), on devices of one type."""
     if not bufs:
         raise ValueError("all_to_all needs at least one send buffer")
     g = len(bufs) if g is None else g
@@ -69,12 +85,33 @@ def _check(bufs: Sequence[torch.Tensor], g: int | None = None
     devices = {b.device for b in bufs}
     if len(devices) > 1:
         if {d.type for d in devices} == {"cuda"}:
-            raise NotImplementedError(
-                "an exchange between distinct CUDA devices in one process: "
-                "the port drives one card a process (PeerExchange)")
+            return None
         raise NotImplementedError(
             f"send buffers on several devices {sorted(map(str, devices))}")
     return first.device
+
+
+_peer_pairs: set[tuple[int, int]] = set()  # (reader, owner) cards enabled
+
+
+def enable_peer_access(cards: Sequence[torch.device]) -> None:
+    """Peer access for every ordered pair of distinct ``cards`` (CUDA
+    devices of this process), each pair once a process: a kernel on card
+    a may then read card b's memory through its pointer. A pair without
+    peer access raises, naming the pair."""
+    idx = sorted({torch.device(c).index for c in cards})
+    for a in idx:
+        for b in idx:
+            if a == b or (a, b) in _peer_pairs:
+                continue
+            if not torch.cuda.can_device_access_peer(a, b):
+                raise RuntimeError(
+                    f"cuda:{a} has no peer access to cuda:{b}: the exchange "
+                    "between cards reads peers' memory and has no route "
+                    "through the host")
+            cuda_lib.call("bignn_enable_peer_access", torch.device("cuda", a),
+                          b)
+            _peer_pairs.add((a, b))
 
 
 def all_to_all_plain(sendbufs: Sequence[torch.Tensor],
@@ -86,7 +123,11 @@ def all_to_all_plain(sendbufs: Sequence[torch.Tensor],
     autograd."""
     if exchange is not None:
         return exchange.all_to_all_plain(sendbufs)
-    stacked = torch.stack(list(sendbufs))
+    bufs = list(sendbufs)
+    if len({b.device for b in bufs}) > 1:  # on distinct cards
+        return [torch.stack([b[j].to(d) for b in bufs])
+                for j, d in enumerate(b.device for b in bufs)]
+    stacked = torch.stack(bufs)
     return [stacked[:, j].contiguous() for j in range(stacked.shape[1])]
 
 
@@ -120,14 +161,80 @@ def all_to_all_launch(bufs: Sequence[torch.Tensor], j_begin: int = 0,
     return recv
 
 
+def _runs(devices: Sequence[torch.device]) -> list[tuple[int, int]]:
+    """``(first, count)`` of each run of consecutive shards on one
+    device."""
+    runs = []
+    for j, d in enumerate(devices):
+        if runs and devices[runs[-1][0]] == d:
+            runs[-1] = (runs[-1][0], runs[-1][1] + 1)
+        else:
+            runs.append((j, 1))
+    return runs
+
+
+def all_to_all_cards(bufs: Sequence[torch.Tensor]) -> list[torch.Tensor]:
+    """The exchange of G contiguous ``[G, ...]`` send buffers that lie on
+    distinct cards of this process; receive buffer j on buffer j's card.
+    One launch a run of consecutive destinations on one card, reading
+    every source through peer access, between the event barriers of the
+    module docstring; each launch counts under ``all_to_all:<dtype>:cards``.
+    """
+    bufs = list(bufs)
+    g = len(bufs)
+    if g > MAX_SHARDS:
+        raise ValueError(f"all_to_all kernel takes at most {MAX_SHARDS} "
+                         f"shards, got {g}")
+    devices = [b.device for b in bufs]
+    cards = list(dict.fromkeys(devices))
+    enable_peer_access(cards)
+    streams = {c: torch.cuda.current_stream(c) for c in cards}
+    written = []  # every source's send buffers are written
+    for c in cards:
+        ev = torch.cuda.Event()
+        ev.record(streams[c])
+        written.append(ev)
+    recv: list[torch.Tensor] = [None] * g
+    chunk = bufs[0][0].numel() * bufs[0].element_size()
+    for j0, n in _runs(devices):
+        c = devices[j0]
+        for ev in written:
+            streams[c].wait_event(ev)
+        with torch.cuda.device(c):
+            out = [bufs[j0].new_empty(bufs[j0].shape) for _ in range(n)]
+        recv[j0:j0 + n] = out
+        if chunk:
+            # whole send buffers: the kernel reads slot j0 + jj of each
+            send_ptrs = (ctypes.c_void_p * g)(*(b.data_ptr() for b in bufs))
+            recv_ptrs = (ctypes.c_void_p * n)(*(r.data_ptr() for r in out))
+            cuda_lib.launch("bignn_all_to_all", c, send_ptrs, recv_ptrs, g,
+                            j0, n, chunk)
+            cuda_lib.count(all_to_all, bufs[0].dtype, suffix=":cards")
+    done = []  # every reader's launches are done
+    for c in cards:
+        ev = torch.cuda.Event()
+        ev.record(streams[c])
+        done.append(ev)
+    for c in cards:
+        for ev in done:
+            streams[c].wait_event(ev)
+    return recv
+
+
+def _exchange(bufs: Sequence[torch.Tensor]) -> list[torch.Tensor]:
+    if len({b.device for b in bufs}) > 1:
+        return all_to_all_cards(bufs)
+    return all_to_all_launch(bufs)
+
+
 class _AllToAll(torch.autograd.Function):
     @staticmethod
     def forward(ctx, *bufs):
-        return tuple(all_to_all_launch(bufs))
+        return tuple(_exchange(bufs))
 
     @staticmethod
     def backward(ctx, *grads):
-        return tuple(all_to_all_launch([g.contiguous() for g in grads]))
+        return tuple(_exchange([g.contiguous() for g in grads]))
 
 
 def all_to_all(sendbufs: Sequence[torch.Tensor],
@@ -144,7 +251,8 @@ def all_to_all(sendbufs: Sequence[torch.Tensor],
                              f"{len(exchange.local)} shards")
         _check(bufs, exchange.num_shards)
         return list(_ProcsAllToAll.apply(exchange, *bufs))
-    if _check(bufs).type == "cpu":
+    dev = _check(bufs)
+    if dev is not None and dev.type == "cpu":
         return all_to_all_plain(bufs)
     return list(_AllToAll.apply(*bufs))
 
@@ -316,7 +424,9 @@ class _CudaArray:
 
 
 class PeerExchange(ProcessExchange):
-    """The exchange across processes on the card, through CUDA IPC.
+    """The exchange across the processes of one host, through CUDA IPC: on
+    one card they share, or on cards of their own that reach each other by
+    peer access (a staging buffer on a peer's card is read through it).
 
     Each process owns one staging buffer (``bignn_ipc_alloc``, outside
     PyTorch's caching allocator) and maps every peer's (``bignn_ipc_open``
@@ -388,15 +498,17 @@ class PeerExchange(ProcessExchange):
     def _staged(self, p: int, like: torch.Tensor, count: int = 1
                 ) -> torch.Tensor:
         """Process p's staging buffer as ``count`` tensors shaped like
-        ``like`` (one ``[count, *like.shape]`` view)."""
+        ``like`` (one ``[count, *like.shape]`` view), on the card it lies
+        on: this process's, or a peer's (mapped by IPC, read through peer
+        access)."""
         nbytes = count * like.numel() * like.element_size()
         raw = torch.as_tensor(_CudaArray(self._peers[p], nbytes))
-        if raw.device != self.device:  # a peer's buffer on another card
-            raise NotImplementedError(
-                f"process {p}'s staging buffer maps to {raw.device}, this "
-                f"process's card is {self.device}: shards on distinct cards "
-                "are written but were never run")
         return raw.view(like.dtype).view(count, *like.shape)
+
+    def _read(self, p: int, like: torch.Tensor) -> torch.Tensor:
+        """Process p's staged tensor on this process's card (a peer copy
+        where it lies on another card)."""
+        return self._staged(p, like)[0].to(self.device)
 
     def _publish(self, tensors: Sequence[torch.Tensor]) -> None:
         """Steps (1) and (2): ``tensors`` into this process's staging
@@ -472,7 +584,7 @@ class PeerExchange(ProcessExchange):
         """``all_gather`` through the staging buffers."""
         t = t.contiguous()
         self._publish([t])
-        out = torch.cat([self._staged(p, t)[0] for p in range(self.size)])
+        out = torch.cat([self._read(p, t) for p in range(self.size)])
         self._release()
         return out
 
@@ -480,9 +592,9 @@ class PeerExchange(ProcessExchange):
         """``ordered_sum`` through the staging buffers."""
         t = t.contiguous()
         self._publish([t])
-        total = self._staged(0, t)[0].clone()
+        total = self._read(0, t).clone()
         for p in range(1, self.size):
-            total = total + self._staged(p, t)[0]
+            total = total + self._read(p, t)
         self._release()
         return total
 

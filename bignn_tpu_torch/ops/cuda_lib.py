@@ -10,9 +10,10 @@ module, and a machine without ``nvcc`` never builds.
 
 Each C entry point launches on the stream it is given, allocates nothing,
 and returns ``cudaGetLastError()``; :func:`launch` raises when that is not 0.
-The exchange across processes adds host entry points (``_HOST_SIGNATURES``:
-its staging buffers' allocation and CUDA IPC handles), which take no stream
-and return the CUDA call's own error; :func:`call` raises on it.
+The exchange across processes and cards adds host entry points
+(``_HOST_SIGNATURES``: its staging buffers' allocation, CUDA IPC handles,
+peer access), which take no stream and return the CUDA call's own error;
+:func:`call` raises on it.
 """
 
 from __future__ import annotations
@@ -97,13 +98,17 @@ _SIGNATURES = {
     "bignn_all_to_all": [_VP, _VP, _I32, _I32, _I32, _I64],
 }
 # entry points that launch nothing and take no stream: the staging buffers
-# of the exchange across processes (ops/collectives.py PeerExchange)
+# of the exchange across processes (ops/collectives.py PeerExchange) and
+# peer access between the cards of one process
 _HOST_SIGNATURES = {
     "bignn_ipc_alloc": [_I64, _VP],  # bytes, where to write the pointer
     "bignn_ipc_free": [_VP],
     "bignn_ipc_handle": [_VP, _VP],  # pointer, where to write 64 bytes
     "bignn_ipc_open": [_VP, _VP],  # 64 handle bytes, where to write
     "bignn_ipc_close": [_VP],
+    # the peer card that the current one may then read (ops/collectives.py
+    # enable_peer_access)
+    "bignn_enable_peer_access": [_I32],
 }
 
 # element type -> the suffix of its entry points and of its launch count

@@ -1,13 +1,16 @@
 """The parallel paths (counterpart of ``bignn_tpu/parallel``): one process
-driving every shard of a mesh that may name one card several times, or,
-for p2, several processes, one card each (several on one card):
+driving every shard of a mesh that may name one card several times or lie
+over distinct cards, or, for p2, several processes, one card each (several
+on one card):
 
   * ``mesh.py``      the ``(dp, graph)`` and ``(dp, tp)`` device meshes;
                      the process group (``init_distributed``), the hybrid
                      mesh over the processes and ``global_put``;
   * ``dp.py``        data parallelism: the pair batch split over ``dp``,
-                     the replicated encode run once, the shards' loss sums
-                     added in shard order;
+                     the replicated encode run once a card, the shards'
+                     loss sums added in shard order;
+  * ``replicas.py``  the model and optimizer replicated over the cards of
+                     one process, the gradients added in slot order;
   * ``tp.py``        feature sharding over ``tp``: Megatron-paired MLPs
                      and column-parallel conv projections, run shard by
                      shard;
@@ -15,21 +18,28 @@ for p2, several processes, one card each (several on one card):
                      unions (NumPy);
   * ``halo.py``      the halo exchange and the distributed outer layers, one
                      ``ops.all_to_all`` a layer;
-  * ``comm.py``      the data plane between processes (``make_exchange``)
-                     and the replicated state across them: the embedding
-                     all-gather and the rank-order gradient sum;
+  * ``comm.py``      the data plane between processes or cards
+                     (``make_exchange``) and the replicated state across
+                     them: the embedding all-gather and the rank-order
+                     gradient sum;
   * ``step.py``      the p2 train step and scorer.
 
-dp and tp run in one process; shards on distinct cards take one process a
-card.
+dp and tp run in one process, on one card or several; p2 runs in one
+process or across processes.
 """
 
 from bignn_tpu_torch.parallel.comm import (
+    CardExchange,
     gather_rows,
+    gather_rows_cards,
     make_exchange,
     sum_grads,
 )
-from bignn_tpu_torch.parallel.dp import dp_train_step_fn, shard_pairs
+from bignn_tpu_torch.parallel.dp import (
+    dp_train_step_fn,
+    make_replicated_dp_step,
+    shard_pairs,
+)
 from bignn_tpu_torch.parallel.halo import (
     dist_outer_forward,
     halo_exchange,
@@ -47,6 +57,8 @@ from bignn_tpu_torch.parallel.mesh import (
     process_count,
     process_index,
     resolve_distributed,
+    shard_device,
+    spread_devices,
 )
 from bignn_tpu_torch.parallel.partition import (
     OuterPartitionPlan,
@@ -54,8 +66,10 @@ from bignn_tpu_torch.parallel.partition import (
     build_outer_partition,
     build_sharded_inner,
 )
+from bignn_tpu_torch.parallel.replicas import Replicas
 from bignn_tpu_torch.parallel.step import (
     device_put_plan,
+    make_cards_train_step,
     make_p2_score_fn,
     make_p2_train_step,
 )
@@ -67,8 +81,10 @@ from bignn_tpu_torch.parallel.tp import (
 )
 
 __all__ = [
+    "CardExchange",
     "Mesh",
     "OuterPartitionPlan",
+    "Replicas",
     "barrier",
     "boundary_drugs",
     "build_outer_partition",
@@ -78,6 +94,7 @@ __all__ = [
     "dp_train_step_fn",
     "gather_params_tp",
     "gather_rows",
+    "gather_rows_cards",
     "global_put",
     "halo_exchange",
     "host_names",
@@ -85,15 +102,19 @@ __all__ = [
     "local_device",
     "make_exchange",
     "make_hybrid_mesh",
+    "make_cards_train_step",
     "make_mesh",
     "make_p2_score_fn",
     "make_p2_train_step",
+    "make_replicated_dp_step",
     "p2_overlap_forward",
     "process_count",
     "process_index",
     "resolve_distributed",
+    "shard_device",
     "shard_pairs",
     "shard_params_tp",
+    "spread_devices",
     "sum_grads",
     "tp_param_specs",
     "tp_train_step_fn",

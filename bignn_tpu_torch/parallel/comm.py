@@ -1,6 +1,7 @@
-"""The replicated state of the multi-process p2 run (what the JAX package
-gets from AD through ``shard_map``: ``pmean`` over ``graph``,
-``bignn_tpu/parallel/step.py:123-126``, and the all-gather's transpose).
+"""The replicated state of the p2 run over several cards or processes
+(what the JAX package gets from AD through ``shard_map``: ``pmean`` over
+``graph``, ``bignn_tpu/parallel/step.py:123-126``, and the all-gather's
+transpose).
 
 Each process encodes its own graph shards and runs their outer layers; the
 embedding rows of every shard are gathered in every process, and every
@@ -23,8 +24,17 @@ rank-order sum (``ProcessExchange.ordered_sum``), never an
 ``all_reduce``, so every process ends a step with the same bits,
 repeatably (ROADMAP F7): on one host's card it reads every process's
 buffer through CUDA IPC and adds them with PyTorch ops, across hosts or
-cards and on the CPU it gathers through gloo and adds the same way. With one process
-nothing here runs.
+cards and on the CPU it gathers through gloo and adds the same way.
+
+One process over several cards (``CardExchange``) follows the same rule
+with a card in place of a process: each card encodes its graph shards on
+replicas of its own (``parallel/replicas.py``), the rows are gathered onto
+every card (``gather_rows_cards``, whose backward adds the cards'
+cotangents in card order), each card scores the whole batch and
+backpropagates ``L / ncards``, and the replicas' gradients are added in
+shard order (``Replicas.step``). So a mesh of one shard a card takes the
+same steps, bit for bit, as as many processes of one shard each. With one
+process on one card nothing here runs.
 """
 
 from __future__ import annotations
@@ -33,25 +43,109 @@ from typing import Sequence
 
 import torch
 
-from bignn_tpu_torch.ops.collectives import PeerExchange, ProcessExchange
-from bignn_tpu_torch.parallel.mesh import Mesh, host_names
+from bignn_tpu_torch.ops.collectives import (
+    PeerExchange,
+    ProcessExchange,
+    enable_peer_access,
+)
+from bignn_tpu_torch.parallel.mesh import (
+    Mesh,
+    all_gather_object,
+    host_names,
+    shard_device,
+)
 
 
-def make_exchange(mesh: Mesh) -> ProcessExchange | None:
-    """The data plane between ``mesh``'s processes for its graph shards (a
-    collective): ``PeerExchange`` (CUDA IPC) when every process runs on one
-    host (``host_names``, gathered by ``init_distributed``) and the mesh
-    names one card for all of them; ``ProcessExchange`` (through the host
-    and gloo, the route between hosts) otherwise, on the CPU too; None for
-    a mesh of one process. The caller closes it (``close``, a collective)
-    when the mesh's last step is done."""
+class CardExchange:
+    """The data plane between the cards of one process, for a mesh's graph
+    shards: ``devices``, each shard's device, and ``card_of``, each
+    shard's card (default: by device; the CPU tests give each shard a
+    "card" of its own on the one CPU). ``cards`` are the cards' devices in
+    order, ``heads`` each card's first shard. The halo exchange needs
+    nothing of it (``ops.all_to_all`` reads the buffers' devices); it
+    enables peer access between the cards once and carries the gather of
+    the embedding rows onto every card. ``close`` does nothing."""
+
+    def __init__(self, devices: Sequence, card_of: Sequence[int] | None = None):
+        self.devices = [torch.device(d) for d in devices]
+        if card_of is None:
+            order = list(dict.fromkeys(self.devices))
+            card_of = [order.index(d) for d in self.devices]
+        self.card_of = [int(c) for c in card_of]
+        self.size = max(self.card_of) + 1
+        if sorted(set(self.card_of)) != list(range(self.size)):
+            raise ValueError(f"cards {self.card_of} skip a number")
+        self.heads = [self.card_of.index(c) for c in range(self.size)]
+        self.cards = [self.devices[j] for j in self.heads]
+        cuda = list(dict.fromkeys(d for d in self.devices
+                                  if d.type == "cuda"))
+        if len(cuda) > 1:
+            enable_peer_access(cuda)
+
+    def close(self) -> None:
+        """Nothing to free (the collective ``close`` of the exchanges
+        across processes)."""
+
+
+class _GatherToCards(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, exchange, *h):
+        ctx.rows = [x.shape[0] for x in h]
+        ctx.devices = [x.device for x in h]
+        ctx.tail, ctx.dtype = h[0].shape[1:], h[0].dtype
+        return tuple(torch.cat([x.to(c) for x in h])
+                     for c in exchange.cards)
+
+    @staticmethod
+    def backward(ctx, *g):
+        out, start = [], 0
+        for n, dev in zip(ctx.rows, ctx.devices):
+            total = None
+            for gc in g:  # in card order, as the processes' ordered sum
+                part = (torch.zeros(n, *ctx.tail, dtype=ctx.dtype,
+                                    device=dev)
+                        if gc is None else gc[start:start + n].to(dev))
+                total = part if total is None else total + part
+            out.append(total)
+            start += n
+        return (None, *out)
+
+
+def gather_rows_cards(h_locals: Sequence[torch.Tensor],
+                      exchange: CardExchange) -> list[torch.Tensor]:
+    """``[G*B, d]`` on each of ``exchange.cards``: every shard's rows
+    ``h_locals`` (each ``[B, d]`` on its shard's device) in shard order,
+    so the row index is the drug id. The backward adds, for each shard's
+    rows, the cards' cotangents in card order (the multi-process
+    ``gather_rows``'s rank-order sum)."""
+    return list(_GatherToCards.apply(exchange, *h_locals))
+
+
+def make_exchange(mesh: Mesh) -> ProcessExchange | CardExchange | None:
+    """The data plane of ``mesh``'s graph shards: across processes (a
+    collective), ``PeerExchange`` (CUDA IPC) when every process runs on one
+    host (``host_names``, gathered by ``init_distributed``) on a card, and
+    every process's card reaches every other's by peer access (or they
+    share one); ``ProcessExchange`` (through the host and gloo, the route
+    between hosts) otherwise, on the CPU too. In one process,
+    ``CardExchange`` for a mesh whose graph shards lie on distinct cards,
+    None for one card (named several times) or the CPU. The caller closes
+    it (``close``, a collective across processes) when the mesh's last
+    step is done."""
     if mesh.process_count == 1:
-        return None
-    cards = set(mesh.devices.flat)
-    one_card = len(cards) == 1 and next(iter(cards)).type == "cuda"
+        devices = [shard_device(mesh, j) for j in range(mesh.shape["graph"])]
+        return CardExchange(devices) if len(set(devices)) > 1 else None
+    cards = list(dict.fromkeys(mesh.devices.flat))
+    mine = mesh.first_device
+    peers = mine.type == "cuda" and all(
+        c == mine or (c.type == "cuda" and torch.cuda.is_available()
+                      and torch.cuda.can_device_access_peer(mine, c))
+        for c in cards)
     one_host = len(set(host_names())) == 1
-    cls = PeerExchange if one_host and one_card else ProcessExchange
-    return cls(mesh.shape["graph"], mesh.local_graph, mesh.device)
+    # every process must choose alike: the exchange is built collectively
+    peers = all(all_gather_object(peers))
+    cls = PeerExchange if one_host and peers else ProcessExchange
+    return cls(mesh.shape["graph"], mesh.local_graph, mine)
 
 
 class _GatherRows(torch.autograd.Function):

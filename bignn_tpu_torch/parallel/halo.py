@@ -29,7 +29,15 @@ counterpart: the buffers' device picks the kernel or the plain version.
 Across processes every per-shard list holds this process's shards only,
 and ``exchange`` (``ops.collectives.ProcessExchange``, from
 ``parallel.comm.make_exchange``) carries step (b) to the other processes'
-shards; without it the lists hold every shard of the mesh.
+shards; without it the lists hold every shard of the mesh. On a mesh over
+distinct cards each shard's tensors lie on its own card, and ``model`` (or
+a layer's ``conv``) may be a list, one replica a shard
+(``parallel/replicas.py``), so that every shard computes with parameters
+on its card; step (b) then reads the peers' memory. Every tensor that
+takes gradients both from its own card's work and from the exchange's
+backward (which the cards reach in any order) takes at most two, whose
+sum is the same in either order: GIN's layer input, which three terms
+reach, is first split in two (``_fork``).
 """
 
 from __future__ import annotations
@@ -79,6 +87,31 @@ def halo_exchange(h_locals: Shards, send_idx: Shards,
     return [_extend(h, r) for h, r in zip(h_locals, recv)]
 
 
+def _per_shard_list(x, n: int) -> list:
+    """One module a shard: ``x`` itself for every shard, or a list of them
+    (one replica's a shard)."""
+    return list(x) if isinstance(x, (list, tuple)) else [x] * n
+
+
+class _Fork(torch.autograd.Function):
+    """``x`` twice; the backward adds the two cotangents (one addition,
+    the same in either order)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x), x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g1, g2):
+        if g1 is None or g2 is None:
+            return g2 if g1 is None else g1
+        return g1 + g2
+
+
+def _fork(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    return _Fork.apply(x)
+
+
 def _per_shard(*lists):
     """Zip per-shard argument lists; an absent list (None) gives None."""
     n = len(next(a for a in lists if a is not None))
@@ -97,15 +130,17 @@ def dist_gcn_apply(conv: GCNConv, h_locals: Shards, src: Shards, dst: Shards,
     """Boundary-first: the ``[G, S]`` boundary rows are transformed and
     exchanged, then every shard transforms its ``[B, F]`` rows and
     aggregates over the extended array with the sorted-COO SpMM."""
-    recv = ops.all_to_all([_dot(_take(h, i), conv.lin)
-                           for h, i in zip(h_locals, send_idx)], exchange)
+    convs = _per_shard_list(conv, len(h_locals))
+    recv = ops.all_to_all([_dot(_take(h, i), c.lin)
+                           for h, i, c in zip(h_locals, send_idx, convs)],
+                          exchange)
     out = []
-    for h, r, s, d, w, perm, srt in _per_shard(h_locals, recv, src, dst,
-                                               weight, src_perm, src_sorted):
-        ext = _extend(_dot(h, conv.lin), r)
+    for c, h, r, s, d, w, perm, srt in _per_shard(
+            convs, h_locals, recv, src, dst, weight, src_perm, src_sorted):
+        ext = _extend(_dot(h, c.lin), r)
         agg = ops.spmm_sorted_coo(ext, s, d, w, h.shape[0], src_perm=perm,
                                   src_sorted=srt)
-        out.append(conv._act(agg + conv.bias))
+        out.append(c._act(agg + c.bias))
     return out
 
 
@@ -127,11 +162,13 @@ def dist_gin_apply(conv: GINConv, h_locals: Shards, src: Shards, dst: Shards,
     are monotone in ``src``, so the plan's one ``src_perm`` serves both,
     with ``src_sorted`` clipped and shifted alike."""
     del weight
-    recv = ops.all_to_all([_take(h, i) for h, i in zip(h_locals, send_idx)],
+    convs = _per_shard_list(conv, len(h_locals))
+    h_send, h_locals = zip(*(_fork(h) for h in h_locals))
+    recv = ops.all_to_all([_take(h, i) for h, i in zip(h_send, send_idx)],
                           exchange)
     out = []
-    for h, r, s, d, perm, srt in _per_shard(h_locals, recv, src, dst,
-                                            src_perm, src_sorted):
+    for c, h, r, s, d, perm, srt in _per_shard(
+            convs, list(h_locals), recv, src, dst, src_perm, src_sorted):
         b = h.shape[0]
         halo = r.reshape(-1, *r.shape[2:])
         n_halo = halo.shape[0]
@@ -144,7 +181,7 @@ def dist_gin_apply(conv: GINConv, h_locals: Shards, src: Shards, dst: Shards,
         agg = agg + ops.spmm_sorted_coo(
             halo, (s - b).clamp(0, max(n_halo - 1, 0)), d, 1.0 - w_loc, b,
             src_perm=perm, src_sorted=rem_sorted)
-        out.append(_gin_finish(conv, h, agg))
+        out.append(_gin_finish(c, h, agg))
     return out
 
 
@@ -179,29 +216,30 @@ def dist_gat_apply(conv: GATConv, h_locals: Shards, src: Shards, dst: Shards,
     transformed and scored, and one payload ``[G, S, H*D + H]`` carries the
     features and the source logits."""
     del weight
-    heads, head_dim = conv.heads, conv.head_dim
+    convs = _per_shard_list(conv, len(h_locals))
+    heads, head_dim = convs[0].heads, convs[0].head_dim
     width = heads * head_dim
     sendbufs = []
-    for h, i in zip(h_locals, send_idx):
-        bnd_t = _dot(_take(h, i), conv.lin)  # [G, S, H*D]
-        sr_bnd = (bnd_t.view(*i.shape, heads, head_dim) * conv.a_r).sum(-1)
+    for h, i, c in zip(h_locals, send_idx, convs):
+        bnd_t = _dot(_take(h, i), c.lin)  # [G, S, H*D]
+        sr_bnd = (bnd_t.view(*i.shape, heads, head_dim) * c.a_r).sum(-1)
         sendbufs.append(torch.cat([bnd_t, sr_bnd], dim=-1))
     recv = ops.all_to_all(sendbufs, exchange)
     out = []
-    for h, r, s, d, perm, srt in _per_shard(h_locals, recv, src, dst,
-                                            src_perm, src_sorted):
+    for c, h, r, s, d, perm, srt in _per_shard(
+            convs, h_locals, recv, src, dst, src_perm, src_sorted):
         b = h.shape[0]
-        h_t = _dot(h, conv.lin)
+        h_t = _dot(h, c.lin)
         hh = h_t.view(b, heads, head_dim)
-        score_l = (hh * conv.a_l).sum(-1)  # [B, H], destination half
-        score_r = (hh * conv.a_r).sum(-1)  # [B, H], source half
+        score_l = (hh * c.a_l).sum(-1)  # [B, H], destination half
+        score_r = (hh * c.a_r).sum(-1)  # [B, H], source half
         ext = _extend(torch.cat([h_t, score_r], dim=1), r)
         h_ext = ext[:, :width].contiguous().view(-1, heads, head_dim)
-        alpha = _gat_attention(conv, score_l, ext[:, width:], s, d, b, perm,
+        alpha = _gat_attention(c, score_l, ext[:, width:], s, d, b, perm,
                                srt, remat)
         agg = ops.spmm_multihead(h_ext, s, d, alpha, b, src_perm=perm,
                                  src_sorted=srt)
-        out.append(_gat_finish(conv, agg))
+        out.append(_gat_finish(c, agg))
     return out
 
 
@@ -269,24 +307,28 @@ def p2_overlap_forward(model, bnd_batches, int_batches, edge_src: Shards,
     stream order behind it). Outer layer 1 works off the raw extended
     array; deeper layers use the boundary-first layers. ``encode_fn``
     replaces ``model.encode_inner`` (the step passes a checkpointed encode
-    under ``remat``). Returns each shard's ``[B, d]``."""
-    enc = encode_fn if encode_fn is not None else model.encode_inner
-    h_bnd = [enc(b) for b in bnd_batches]
+    under ``remat``; a list gives one a shard). ``model`` may be a list,
+    one a shard. Returns each shard's ``[B, d]``."""
+    models = _per_shard_list(model, len(send_idx))
+    encs = (list(encode_fn) if isinstance(encode_fn, (list, tuple))
+            else [encode_fn or m.encode_inner for m in models])
+    h_bnd = [enc(b) for enc, b in zip(encs, bnd_batches)]
     recv = ops.all_to_all([_take(h, i) for h, i in zip(h_bnd, send_idx)],
                           exchange)
-    h_locals = [hb + enc(b) for hb, b in zip(h_bnd, int_batches)]
-    for i, conv in enumerate(model.outer):
+    h_locals = [hb + enc(b) for hb, enc, b in zip(h_bnd, encs, int_batches)]
+    for i, conv in enumerate(models[0].outer):
+        convs = [m.outer[i] for m in models]
         if i == 0:
             fn = _apply_fn(_DIST_APPLY_EXT, conv)
             h_locals = [
-                fn(conv, h, _extend(h, r), s, d, w, src_perm=perm,
+                fn(c, h, _extend(h, r), s, d, w, src_perm=perm,
                    src_sorted=srt, remat=remat)
-                for h, r, s, d, w, perm, srt in _per_shard(
-                    h_locals, recv, edge_src, edge_dst, edge_weight,
+                for c, h, r, s, d, w, perm, srt in _per_shard(
+                    convs, h_locals, recv, edge_src, edge_dst, edge_weight,
                     src_perm, src_sorted)]
         else:
             h_locals = _apply_fn(_DIST_APPLY, conv)(
-                conv, h_locals, edge_src, edge_dst, edge_weight, send_idx,
+                convs, h_locals, edge_src, edge_dst, edge_weight, send_idx,
                 src_perm=src_perm, src_sorted=src_sorted, remat=remat,
                 exchange=exchange)
     return h_locals
@@ -298,10 +340,12 @@ def dist_outer_forward(model, h_locals: Shards, edge_src: Shards,
                        remat: bool = False, exchange=None
                        ) -> list[torch.Tensor]:
     """The distributed ``BiGNN.propagate_outer``: each shard's ``[B, F]``
-    drug rows through the outer layers; returns each shard's output."""
-    for conv in model.outer:
+    drug rows through the outer layers (``model``, or a list of them, one
+    a shard); returns each shard's output."""
+    models = _per_shard_list(model, len(h_locals))
+    for i, conv in enumerate(models[0].outer):
         h_locals = _apply_fn(_DIST_APPLY, conv)(
-            conv, h_locals, edge_src, edge_dst, edge_weight, send_idx,
-            src_perm=src_perm, src_sorted=src_sorted, remat=remat,
-            exchange=exchange)
+            [m.outer[i] for m in models], h_locals, edge_src, edge_dst,
+            edge_weight, send_idx, src_perm=src_perm, src_sorted=src_sorted,
+            remat=remat, exchange=exchange)
     return h_locals

@@ -6,12 +6,16 @@ names: ``('dp', 'graph')`` (data parallelism over pair batches, and the
 edge-partitioned p2 path), or ``('dp', 'tp')`` (feature sharding,
 ``parallel/tp.py``), and beside it the process that drives each entry.
 
-One process may drive every shard, as JAX's single controller does. The
-mesh may name one card several times: then the shards run in turn on that
-card, each on its own tensors, and the halo exchange moves real payloads
-between them (what the JAX package's tests do on fake CPU devices). A mesh
-over two or more distinct CUDA devices in one process raises: the port
-drives one card a process, and several processes may share one card.
+One process may drive every shard, as JAX's single controller drives its
+chips. The mesh may name one card several times: then the shards run in
+turn on that card, each on its own tensors, and the halo exchange moves real
+payloads between them (what the JAX package's tests do on fake CPU
+devices). It may also lie over distinct cards of the host: then each entry
+runs on its own card, the parameters are replicated on each
+(``parallel/replicas.py``), the halo exchange reads the peers' memory
+(``ops.all_to_all``), and the sums across cards are added in shard order
+(``parallel/comm.py``). ``Mesh.first_device`` is the first entry's device,
+where evaluation and checkpoints run as one stream.
 
 Several processes (the multi-process p2 run, JAX's multi-host run):
 ``init_distributed`` joins a ``torch.distributed`` process group on
@@ -35,10 +39,6 @@ from typing import Sequence
 import numpy as np
 import torch
 import torch.distributed as dist
-
-_ONE_CARD_A_PROCESS = (
-    "the port drives one card a process: start one process a card "
-    "(init_distributed, make_hybrid_mesh)")
 
 _local_device: torch.device | None = None
 _hosts: list[str] | None = None  # every process's host, gathered once
@@ -131,15 +131,17 @@ class Mesh:
         return self.processes == process_index()
 
     @property
-    def device(self) -> torch.device:
-        """The one device this process's entries lie on (entries on
-        distinct devices in one process raise, as ``make_mesh`` does)."""
-        devices = set(self.devices[self._local()])
-        if len(devices) != 1:
-            raise NotImplementedError(
-                f"this process's entries lie on {sorted(map(str, devices))}: "
-                f"{_ONE_CARD_A_PROCESS}")
-        return devices.pop()
+    def first_device(self) -> torch.device:
+        """The device of this process's first entry (row-major): the one
+        stream of evaluation, scoring of whole batches and checkpoints."""
+        return self.devices[self._local()][0]
+
+    @property
+    def cards(self) -> list[torch.device]:
+        """This process's distinct devices in the order of its entries
+        (row-major); one for a mesh that names one device several
+        times."""
+        return list(dict.fromkeys(self.devices[self._local()]))
 
     @property
     def local_graph(self) -> list[int]:
@@ -154,7 +156,9 @@ def make_mesh(dp: int | None = None, graph: int = 1,
     CUDA devices), which may repeat one device, or a ``('dp', 'tp')`` one
     when ``tp > 1`` (``tp`` and ``graph`` do not compose: the halo path
     takes full-width rows). ``dp`` defaults to the device count over the
-    other axis. One process drives it."""
+    other axis. One process drives it, on one card named several times or
+    on distinct cards (entry ``i`` row-major on ``devices[i]``); devices of
+    several types raise."""
     if devices is None:
         devices = [torch.device("cuda", i)
                    for i in range(torch.cuda.device_count())]
@@ -171,15 +175,13 @@ def make_mesh(dp: int | None = None, graph: int = 1,
     if dp * other != n or n == 0:
         raise ValueError(
             f"dp({dp}) * {axes[1]}({other}) != device count ({n})")
-    if len(set(devices)) > 1:
-        if {d.type for d in devices} == {"cuda"}:
-            names = sorted({str(d) for d in devices})
-            raise NotImplementedError(
-                f"a mesh over distinct CUDA devices {names} in one process: "
-                f"{_ONE_CARD_A_PROCESS}")
+    if len({d.type for d in devices}) > 1:
         raise NotImplementedError(
             f"a mesh over devices of several types "
             f"{sorted({str(d) for d in devices})}")
+    if devices[0].type == "cuda":  # cuda means the current card
+        devices = [d if d.index is not None else torch.device(
+            "cuda", torch.cuda.current_device()) for d in devices]
     arr = np.empty((dp, other), dtype=object)
     for i, d in enumerate(devices):
         arr[i // other, i % other] = d
@@ -232,7 +234,8 @@ def init_distributed(coordinator_address: str | None = None,
     ``gloo`` at ``tcp://{address}`` with the count and rank: the control
     plane of the exchange across processes. It gathers every process's
     host once (``host_names`` reads them after) and fixes this process's
-    card: ``cuda:{local_device_ids[0]}`` (one card a process), else
+    card: ``cuda:{local_device_ids[0]}`` (one card a process across
+    processes), else
     ``cuda:{i % device_count}``, where ``i`` is the process's index among
     those on its host (the ranks below its own whose host equals its
     own), so that the processes of a host take its cards in
@@ -252,8 +255,10 @@ def init_distributed(coordinator_address: str | None = None,
                 f"{dist.get_rank()}, asked for {count} as rank {rank}")
         return rank
     if local_device_ids is not None and len(local_device_ids) != 1:
-        raise ValueError(f"local_device_ids {list(local_device_ids)}: "
-                         f"{_ONE_CARD_A_PROCESS}")
+        raise ValueError(
+            f"local_device_ids {list(local_device_ids)}: across processes "
+            "each process drives one card (several cards in one process: "
+            "make_mesh over them, without a process group)")
     host = address.rsplit(":", 1)[0]
     if host in ("127.0.0.1", "localhost") and (
             "GLOO_SOCKET_IFNAME" not in os.environ):
@@ -317,22 +322,42 @@ def make_hybrid_mesh(dp: int | None = None, graph: int | None = None,
     return Mesh(devices, ("dp", "graph"), processes)
 
 
+def spread_devices(n: int, devices: Sequence) -> list[torch.device]:
+    """``n`` shards laid over ``devices``, one device a shard: ``n / k``
+    consecutive shards on each of the first ``k`` devices, ``k`` the most
+    devices that divide ``n`` evenly (every device where ``n`` is a
+    multiple of their count, the first ``n`` where ``n`` is below it)."""
+    devices = [torch.device(d) for d in devices]
+    if n < 1:
+        raise ValueError(f"{n} shards")
+    k = max(c for c in range(1, min(n, len(devices)) + 1) if n % c == 0)
+    return [devices[i // (n // k)] for i in range(n)]
+
+
+def shard_device(mesh: Mesh, j: int) -> torch.device:
+    """The device of graph (or tp) shard ``j``: entry ``[0, j]``, where
+    the shard's computation runs (the ``dp`` rows of a column compute the
+    same forward, which one process runs once)."""
+    return mesh.devices[0, j]
+
+
 def global_put(mesh: Mesh, spec, x):
     """This process's part of a host-replicated NumPy array ``x`` (JAX
-    ``global_put``), on its device: for the spec ``()`` the whole array,
-    for ``("graph",)`` the slices ``x[j]`` of its graph shards, a list in
-    local order. Every process holds the whole ``x`` (plans and batches
-    are deterministic from the shared seed)."""
+    ``global_put``): for the spec ``()`` the whole array on
+    ``mesh.first_device``, for ``("graph",)`` the slices ``x[j]`` of its
+    graph shards, each on its shard's device (``shard_device``), a list
+    in local order. Every process holds the whole ``x`` (plans and
+    batches are deterministic from the shared seed)."""
     x = np.asarray(x)
     spec = tuple(spec or ())
-    dev = mesh.device
     if spec == ():
-        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+        return torch.from_numpy(np.ascontiguousarray(x)).to(
+            mesh.first_device)
     if spec == ("graph",):
         if x.shape[0] != mesh.shape["graph"]:
             raise ValueError(f"leading axis {x.shape[0]} is not the mesh's "
                              f"graph axis {mesh.shape['graph']}")
-        return [torch.from_numpy(np.ascontiguousarray(x[j])).to(dev)
-                for j in mesh.local_graph]
+        return [torch.from_numpy(np.ascontiguousarray(x[j])).to(
+            shard_device(mesh, j)) for j in mesh.local_graph]
     raise NotImplementedError(
         f"global_put takes the specs () and ('graph',), got {spec}")

@@ -26,8 +26,17 @@ mesh's exchange (``parallel.comm.make_exchange``, which the step and the
 scorer take), the concatenation becomes an all-gather of the
 shards' rows, every process scores the whole batch, and the gradients are
 summed over the processes in rank order (``parallel/comm.py``), so every
-process takes the same optimizer step. With one process every function
-gives the bits it gave before.
+process takes the same optimizer step.
+
+On a mesh over distinct cards of one process (``CardExchange``) graph
+shard j runs on card ``mesh.devices[0, j]`` with a replica of the model of
+its own (``parallel/replicas.py``); the exchanges read the peers' memory,
+each card gathers every shard's rows and scores the whole batch, as a
+process does, and the replicas' gradients are added in shard order, so
+every replica takes the same optimizer step (``parallel/comm.py``). The
+``dp`` rows of a column compute the same forward, which runs once, on row
+0's card. With one process on one card every function gives the bits it
+gave before.
 """
 
 from __future__ import annotations
@@ -43,13 +52,18 @@ from bignn_tpu_torch.data.sampler import sample_negative_pairs
 from bignn_tpu_torch.models.bignn import BiGNN, upload_batch
 from bignn_tpu_torch.models.loss import bce_with_logits_loss
 from bignn_tpu_torch.ops.collectives import ProcessExchange
-from bignn_tpu_torch.parallel.comm import gather_rows
-from bignn_tpu_torch.parallel.dp import optimizer_step
+from bignn_tpu_torch.parallel.comm import (
+    CardExchange,
+    gather_rows,
+    gather_rows_cards,
+    make_exchange,
+)
 from bignn_tpu_torch.parallel.halo import (
     dist_outer_forward,
     p2_overlap_forward,
 )
-from bignn_tpu_torch.parallel.mesh import Mesh, global_put
+from bignn_tpu_torch.parallel.mesh import Mesh, global_put, shard_device
+from bignn_tpu_torch.parallel.replicas import Replicas
 from bignn_tpu_torch.parallel.partition import (
     OuterPartitionPlan,
     unstack_batch,
@@ -58,7 +72,8 @@ from bignn_tpu_torch.parallel.partition import (
 
 def device_put_plan(mesh: Mesh, plan: OuterPartitionPlan, inner_batch,
                     inner_layers: Sequence[str]) -> tuple:
-    """This process's shards' plan arrays and inner unions on its device.
+    """This process's shards' plan arrays and inner unions, each shard's
+    on its device (``shard_device``).
 
     Every process builds the same plan from the shared seed and uploads only
     its graph shards (``mesh.local_graph``; every shard in one process):
@@ -74,14 +89,14 @@ def device_put_plan(mesh: Mesh, plan: OuterPartitionPlan, inner_batch,
     if plan.n_shards != mesh.shape["graph"]:
         raise ValueError(f"plan has {plan.n_shards} shards, the mesh's "
                          f"graph axis {mesh.shape['graph']}")
-    dev, local = mesh.device, mesh.local_graph
+    local = mesh.local_graph
 
     def put(arr: np.ndarray) -> list[torch.Tensor]:
         return global_put(mesh, ("graph",), arr)
 
     def put_inner(stacked) -> list:
-        return [upload_batch(unstack_batch(stacked, g), inner_layers, dev)
-                for g in local]
+        return [upload_batch(unstack_batch(stacked, g), inner_layers,
+                             shard_device(mesh, g)) for g in local]
 
     inner = (tuple(put_inner(b) for b in inner_batch)
              if isinstance(inner_batch, tuple) else put_inner(inner_batch))
@@ -90,25 +105,37 @@ def device_put_plan(mesh: Mesh, plan: OuterPartitionPlan, inner_batch,
             put(plan.src_sorted))
 
 
-def _embed(model: BiGNN, plan_d, overlap: bool, remat: bool,
-           exchange: ProcessExchange | None) -> torch.Tensor:
-    """``[G*B, d]``: every (local) shard's inner encode and outer layers,
-    the shards' outputs concatenated (gathered over the processes)."""
+def _shard_outputs(models, plan_d, overlap: bool, remat: bool,
+                   exchange: ProcessExchange | None) -> list[torch.Tensor]:
+    """Every (local) shard's inner encode and outer layers: its ``[B, d]``
+    rows. ``models`` is one model, or one a shard."""
     inner, esrc, edst, ew, sidx, sperm, ssrt = plan_d
-    encode = model.encode_inner
-    if remat:
-        def encode(batch):
-            return checkpoint(model.encode_inner, batch, use_reentrant=False)
+    if not isinstance(models, (list, tuple)):
+        models = [models] * len(sidx)
+
+    def encoder(model):
+        if not remat:
+            return model.encode_inner
+        return lambda batch: checkpoint(model.encode_inner, batch,
+                                        use_reentrant=False)
+
+    encs = [encoder(m) for m in models]
     if overlap:
         bnd, interior = inner
-        h = p2_overlap_forward(model, bnd, interior, esrc, edst, ew, sidx,
-                               src_perm=sperm, src_sorted=ssrt,
-                               encode_fn=encode, remat=remat,
-                               exchange=exchange)
-    else:
-        h = dist_outer_forward(model, [encode(b) for b in inner], esrc, edst,
-                               ew, sidx, src_perm=sperm, src_sorted=ssrt,
-                               remat=remat, exchange=exchange)
+        return p2_overlap_forward(models, bnd, interior, esrc, edst, ew,
+                                  sidx, src_perm=sperm, src_sorted=ssrt,
+                                  encode_fn=encs, remat=remat,
+                                  exchange=exchange)
+    return dist_outer_forward(models, [e(b) for e, b in zip(encs, inner)],
+                              esrc, edst, ew, sidx, src_perm=sperm,
+                              src_sorted=ssrt, remat=remat, exchange=exchange)
+
+
+def _embed(model: BiGNN, plan_d, overlap: bool, remat: bool,
+           exchange: ProcessExchange | None) -> torch.Tensor:
+    """``[G*B, d]``: the shards' outputs concatenated (gathered over the
+    processes)."""
+    h = _shard_outputs(model, plan_d, overlap, remat, exchange)
     return torch.cat(h) if exchange is None else gather_rows(h, exchange)
 
 
@@ -117,12 +144,63 @@ def _check_dp(n: int, dp: int) -> None:
         raise ValueError(f"{n} pairs do not split over dp={dp}")
 
 
-def _check_exchange(mesh: Mesh, exchange: ProcessExchange | None) -> None:
-    if (mesh.process_count > 1) != (exchange is not None):
-        raise ValueError(
-            f"a mesh over {mesh.process_count} process(es) with exchange "
-            f"{exchange}: a mesh over several processes takes "
-            "parallel.make_exchange(mesh), a mesh of one process none")
+def _check_exchange(mesh: Mesh, exchange):
+    """The exchange the step uses: ``exchange``, or for a mesh of one
+    process over distinct cards ``make_exchange(mesh)`` when none is
+    given."""
+    if mesh.process_count > 1:
+        if not isinstance(exchange, ProcessExchange):
+            raise ValueError(
+                f"a mesh over {mesh.process_count} processes with exchange "
+                f"{exchange}: it takes parallel.make_exchange(mesh)")
+        return exchange
+    if isinstance(exchange, ProcessExchange):
+        raise ValueError("a mesh of one process with an exchange across "
+                         "processes")
+    if exchange is None:
+        exchange = make_exchange(mesh)
+    return exchange
+
+
+def make_cards_train_step(model: BiGNN, optimizer: torch.optim.Optimizer,
+                          exchange: CardExchange, num_drugs: int,
+                          neg_ratio: int = 1, overlap: bool = False,
+                          remat: bool = False, grad_clip: float = 0.0,
+                          dp: int = 1) -> Callable:
+    """The p2 step of one process over several cards (see the module
+    docstring): one replica of ``model`` and ``optimizer`` a graph shard on
+    its device (``exchange.devices``); each card (``exchange.cards``, its
+    first shard's replica scoring) scores the whole batch on every shard's
+    rows and backpropagates its loss over the card count; the replicas'
+    gradients are added in shard order and each replica steps. Returns
+    card 0's loss. The CPU tests drive it with every shard's "card" on the
+    CPU."""
+    reps = Replicas(model, optimizer, exchange.devices)
+    scorers = [reps.models[j] for j in exchange.heads]
+    dev = exchange.devices[0]
+
+    def losses_fn(key: prng.Key, pos_pairs, pos_mask, plan_d) -> list:
+        pos = torch.as_tensor(pos_pairs, device=dev)
+        pmask = torch.as_tensor(pos_mask, device=dev)
+        neg = sample_negative_pairs(key, pos, num_drugs, neg_ratio)
+        pairs = torch.cat([pos, neg])
+        labels = torch.cat([torch.ones(len(pos), device=dev),
+                            torch.zeros(len(neg), device=dev)])
+        mask = torch.cat([pmask, pmask.repeat(neg_ratio)]).float()
+        _check_dp(len(pairs), dp)
+        embs = gather_rows_cards(
+            _shard_outputs(reps.models, plan_d, overlap, remat, None),
+            exchange)
+        return [bce_with_logits_loss(m.score_pairs(e, pairs.to(c)),
+                                     labels.to(c), mask.to(c))
+                for m, e, c in zip(scorers, embs, exchange.cards)]
+
+    def step(key: prng.Key, pos_pairs, pos_mask, plan_d) -> torch.Tensor:
+        return reps.update(
+            lambda: losses_fn(key, pos_pairs, pos_mask, plan_d), grad_clip)
+
+    step.replicas = reps
+    return step
 
 
 def make_p2_train_step(model: BiGNN, optimizer: torch.optim.Optimizer,
@@ -143,10 +221,16 @@ def make_p2_train_step(model: BiGNN, optimizer: torch.optim.Optimizer,
     keeping them (``torch.utils.checkpoint``); values and gradients are
     unchanged. ``grad_clip`` clips by the global norm of the model's
     parameters, taken once over the whole model (they are replicated over
-    the shards: ``parallel.dp.optimizer_step``), after the gradients are
-    summed over the processes. ``exchange`` is ``make_exchange(mesh)``."""
-    _check_exchange(mesh, exchange)
-    dev = mesh.device
+    the shards: ``Replicas.step``), after the gradients are summed over
+    the processes. ``exchange`` is ``make_exchange(mesh)``
+    (built here for a mesh of one process over distinct cards when not
+    given: ``make_cards_train_step``)."""
+    exchange = _check_exchange(mesh, exchange)
+    if isinstance(exchange, CardExchange):
+        return make_cards_train_step(model, optimizer, exchange, num_drugs,
+                                     neg_ratio, overlap, remat, grad_clip,
+                                     mesh.shape["dp"])
+    dev = mesh.first_device
 
     def loss_fn(key: prng.Key, pos_pairs, pos_mask, plan_d) -> torch.Tensor:
         pos = torch.as_tensor(pos_pairs, device=dev)
@@ -161,10 +245,12 @@ def make_p2_train_step(model: BiGNN, optimizer: torch.optim.Optimizer,
         return bce_with_logits_loss(model.score_pairs(emb, pairs), labels,
                                     mask)
 
+    reps = Replicas(model, optimizer, [dev])
+
     def step(key: prng.Key, pos_pairs, pos_mask, plan_d) -> torch.Tensor:
-        return optimizer_step(
-            optimizer, lambda: loss_fn(key, pos_pairs, pos_mask, plan_d),
-            grad_clip, procs=exchange)
+        return reps.update(
+            lambda: loss_fn(key, pos_pairs, pos_mask, plan_d), grad_clip,
+            procs=exchange)
 
     return step
 
@@ -173,14 +259,25 @@ def make_p2_score_fn(model: BiGNN, mesh: Mesh, overlap: bool = False,
                      exchange: ProcessExchange | None = None) -> Callable:
     """``score(pairs, plan_d) -> logits``: float32 logits of ``[P, 2]``
     pairs (P divisible by ``dp``) from the distributed forward, for
-    evaluation; ``exchange`` as for ``make_p2_train_step``."""
-    _check_exchange(mesh, exchange)
+    evaluation; ``exchange`` as for ``make_p2_train_step``. Over distinct
+    cards each shard runs on a replica of ``model`` on its card (copied
+    from ``model`` whenever it changed), and the rows are scored on the
+    first card by ``model`` itself."""
+    exchange = _check_exchange(mesh, exchange)
+    dev = mesh.first_device
+    reps = (Replicas(model, None, exchange.devices)
+            if isinstance(exchange, CardExchange) else None)
 
     def score(pairs, plan_d) -> torch.Tensor:
-        pairs = torch.as_tensor(pairs, device=mesh.device)
+        pairs = torch.as_tensor(pairs, device=dev)
         _check_dp(len(pairs), mesh.shape["dp"])
         with torch.no_grad():
-            return model.score_pairs(_embed(model, plan_d, overlap, False,
-                                            exchange), pairs)
+            if reps is None:
+                emb = _embed(model, plan_d, overlap, False, exchange)
+            else:
+                reps.refresh()
+                emb = torch.cat([h.to(dev) for h in _shard_outputs(
+                    reps.models, plan_d, overlap, False, None)])
+            return model.score_pairs(emb, pairs)
 
     return score

@@ -2,8 +2,9 @@
 
 The JAX package annotates its parameters with shardings and GSPMD inserts
 every collective. Here one process runs the sharded layers shard by shard,
-on the mesh's ``tp`` devices (one card named ``tp`` times), with the
-collectives written out. The layout is JAX's (the Megatron pairing):
+on the mesh's ``tp`` devices (one card named ``tp`` times, or distinct
+cards), with the collectives written out. The layout is JAX's (the
+Megatron pairing):
 
   * inside each MLP (GIN's conv MLPs, the MLP pair scorer, the attention
     readout's gate) even layers are column-parallel: each shard computes
@@ -22,6 +23,14 @@ collectives written out. The layout is JAX's (the Megatron pairing):
 The port's weights are ``[out, in]`` (``nn.Linear``) where JAX's ``w`` is
 ``[in, out]``: JAX's column-parallel ``P(None, 'tp')`` is ``("tp", None)``
 here, and its row-parallel ``P('tp', None)`` is ``(None, "tp")``.
+
+Over distinct cards each shard's slice of a layer lives on its card, and
+the replicated parameters and every unsharded computation on the first
+one: a column-parallel layer's input goes to every card
+(``_Broadcast``, whose backward adds the cards' cotangents in shard order
+on the input's card), and the shards' outputs (the all-gather) and
+partial products (the all-reduce, added in shard order) come back to the
+card that consumes them, the first.
 
 ``shard_params_tp`` returns a copy of the model whose sharded parameters
 are tensors of their own, one a shard, so an optimizer over its
@@ -96,6 +105,33 @@ def _split(t: torch.Tensor, dim: int, devices) -> nn.ParameterList:
         for c, d in zip(t.chunk(len(devices), dim), devices))
 
 
+class _Broadcast(torch.autograd.Function):
+    """``x`` on each of ``devices``; the backward adds the cotangents in
+    the devices' order on ``x``'s device."""
+
+    @staticmethod
+    def forward(ctx, devices, x):
+        ctx.device = x.device
+        return tuple(x.to(d) for d in devices)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        total = None
+        for g in grads:
+            if g is not None:
+                g = g.to(ctx.device)
+                total = g if total is None else total + g
+        return None, total
+
+
+def _broadcast(x: torch.Tensor, devices) -> list[torch.Tensor]:
+    """``x`` for each shard: itself where every shard lies on its device,
+    else a copy on each shard's device (``_Broadcast``)."""
+    if all(d == x.device for d in devices):
+        return [x] * len(devices)
+    return list(_Broadcast.apply(list(devices), x))
+
+
 class TPDense(nn.Module):
     """A ``Dense`` layer sharded over ``tp``: column-parallel (``COL``) or
     row-parallel (``ROW``). A column-parallel layer returns its
@@ -108,6 +144,7 @@ class TPDense(nn.Module):
         self.col = spec == COL
         self.gather = gather
         self._act = dense._act
+        self.devices = list(devices)
         self.weight_shards = _split(dense.weight, 0 if self.col else 1,
                                     devices)
         if dense.bias is None:
@@ -119,25 +156,32 @@ class TPDense(nn.Module):
 
     @property
     def weight(self) -> torch.Tensor:
-        return torch.cat(list(self.weight_shards), 0 if self.col else 1)
+        return torch.cat([w.to(self.devices[0]) for w in self.weight_shards],
+                         0 if self.col else 1)
 
     @property
     def bias(self) -> torch.Tensor | None:
-        return torch.cat(list(self.bias_shards)) if self.bias_shards else None
+        return (torch.cat([b.to(self.devices[0]) for b in self.bias_shards])
+                if self.bias_shards else None)
 
     def forward(self, x):
         """A column-parallel layer takes a whole activation, a row-parallel
         one the shards of the column-parallel layer before it (the two
-        share the sharded dimension)."""
+        share the sharded dimension), each on its shard's device; the
+        result of a gathering or row-parallel layer lies on the first
+        device."""
         if self.col:
             bias = list(self.bias_shards) or [None] * len(self.weight_shards)
-            out = [self._act(F.linear(x, w.to(x.dtype),
-                                      None if b is None else b.to(x.dtype)))
-                   for w, b in zip(self.weight_shards, bias)]
-            return torch.cat(out, -1) if self.gather else out  # all-gather
+            out = [self._act(F.linear(xs, w.to(xs.dtype),
+                                      None if b is None else b.to(xs.dtype)))
+                   for xs, w, b in zip(_broadcast(x, self.devices),
+                                       self.weight_shards, bias)]
+            if not self.gather:
+                return out
+            return torch.cat([o.to(x.device) for o in out], -1)  # all-gather
         y = None
         for xs, w in zip(x, self.weight_shards):  # the all-reduce, in order
-            part = F.linear(xs, w.to(xs.dtype))
+            part = F.linear(xs, w.to(xs.dtype)).to(self.devices[0])
             y = part if y is None else y + part
         if self.bias_shards:
             y = y + self.bias_shards[0].to(y.dtype)
@@ -152,7 +196,7 @@ class _Gather(nn.Module):
         self.devices = list(devices)
 
     def forward(self, *shards: torch.Tensor) -> torch.Tensor:
-        return torch.cat(shards)
+        return torch.cat([s.to(self.devices[0]) for s in shards])
 
     def right_inverse(self, x: torch.Tensor) -> tuple[torch.Tensor, ...]:
         return tuple(c.detach().clone().to(d) for c, d in
@@ -169,7 +213,7 @@ def shard_params_tp(mesh: Mesh, model: BiGNN) -> BiGNN:
     devices = list(mesh.devices[0])
     tp = mesh.shape["tp"]
     specs = tp_param_specs(model, tp)
-    replica = copy.deepcopy(model).to(mesh.device)
+    replica = copy.deepcopy(model).to(mesh.first_device)
     for name, mod in list(replica.named_modules()):
         prefix = f"{name}." if name else ""
         if isinstance(mod, MLP) and name.rsplit(".", 1)[-1] in _MLPS:

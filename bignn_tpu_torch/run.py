@@ -20,15 +20,24 @@ Everything runs on ``--device`` (default ``cuda``): a CUDA device launches
 the kernels or raises, and a CPU run must ask for ``--device cpu``.
 
 Where the JAX runner differs:
-  * p2 on one card. JAX takes ``graph = min(graph_shards, devices)`` shards
-    over its devices, which is 1 on one device. The port names the one
-    device ``graph_shards`` times (``make_mesh(dp=1, graph=G, devices=[dev]
-    * G)``), so the G shards run in turn on it and every outer layer's halo
-    exchange moves real payloads between them, with ``dp`` 1.
-  * ``--dp N`` (full and minibatch modes) names the one device N times
-    (``make_mesh(dp=N, graph=1, devices=[dev] * N)``), where JAX takes N
-    of its devices: the N shards run in turn on it. p2 mode ignores it, as
-    in JAX.
+  * The devices. JAX takes its devices from ``jax.devices()``; here
+    ``--device cuda`` means every visible card and ``--device cuda:N`` (or
+    ``cpu``) that one device. ``--dp N`` (full and minibatch modes) and p2's
+    ``graph_shards`` shards are laid over them by ``spread_devices``:
+    ``N / cards`` consecutive shards a card where N is a multiple of the
+    card count, the first N cards where N is below it (in general the most
+    cards that divide N). So config5's 4 shards run one a card on four
+    cards, two a card on two, and all four in turn on one card, where
+    JAX's ``graph = min(graph_shards, devices)`` would take 1: the port
+    keeps the same plan, and so the same losses, on any count of cards.
+    The shards on one card run in turn, each on its own tensors; shards on
+    distinct cards run each on its card with a replica of the model
+    (``parallel/replicas.py``), the halo exchange reading the peers'
+    memory. p2 mode ignores ``--dp``, as in JAX. Spread over cards the
+    step is slower than on one card, because one host thread launches
+    every card's work (on four H100s config5 takes 2.6 times as long a
+    step, config2 on dp = 4 2.6 times: ``PERF.md`` section 5); pass
+    ``--device cuda:0`` to keep a run on one card.
   * ``--halo-impl lax|pallas`` parses, and both run the port's one exchange
     (``ops.all_to_all``), with a logged note, so that JAX command lines run.
   * ``--coordinator``, ``--num-processes`` and ``--process-id`` (or JAX's
@@ -72,6 +81,7 @@ from bignn_tpu_torch.parallel import (
     process_count,
     process_index,
     resolve_distributed,
+    spread_devices,
 )
 from bignn_tpu_torch.train import MinibatchTrainer, Trainer
 from bignn_tpu_torch.train.checkpoint import CheckpointManager
@@ -91,8 +101,8 @@ def main(argv=None) -> dict:
     p.add_argument("--graph-shards", type=int, default=None)
     p.add_argument("--dp", type=int, default=None,
                    help="data-parallel shards of the pair batches in full "
-                        "and minibatch modes, on a mesh that names the "
-                        "device that many times")
+                        "and minibatch modes, spread over the devices of "
+                        "--device")
     p.add_argument("--overlap", action="store_true",
                    help="p2 mode: overlap the halo exchange with the "
                         "interior drugs' inner encode")
@@ -116,7 +126,11 @@ def main(argv=None) -> dict:
     p.add_argument("--profile", default=None,
                    help="directory for a torch.profiler trace of the run")
     p.add_argument("--device", default="cuda",
-                   help="torch device (default cuda; no CPU fallback)")
+                   help="torch device (default cuda: every visible card, "
+                        "over which p2's shards and --dp's spread; on four "
+                        "H100s that step is slower than on one card, "
+                        "config5 2.6x: pass cuda:0 for one card; no CPU "
+                        "fallback)")
     p.add_argument("--coordinator", default=None,
                    help="multi-process p2: the coordinator host:port "
                         "(or env JAX_COORDINATOR_ADDRESS)")
@@ -164,6 +178,15 @@ def main(argv=None) -> dict:
     return result
 
 
+def devices_of(dev: torch.device) -> list[torch.device]:
+    """The devices ``--device`` names: every visible card for ``cuda``
+    without an index, else that device."""
+    if dev.type == "cuda" and dev.index is None:
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return [dev]
+
+
 def _run(args, cfg, logger, dev) -> dict:
     """Train ``cfg`` by its mode and write the summary; ``main``'s body."""
     ds = load_dataset(cfg.dataset, **cfg.dataset_kwargs)
@@ -176,8 +199,11 @@ def _run(args, cfg, logger, dev) -> dict:
         args.run_dir and args.checkpoint_every) else None
     mesh = None
     if args.dp and cfg.mode in ("minibatch", "full"):
-        mesh = make_mesh(dp=args.dp, graph=1, devices=[dev] * args.dp)
-        logger.log({"event": "mesh", "dp": args.dp, "graph": 1})
+        mesh = make_mesh(dp=args.dp, graph=1,
+                         devices=spread_devices(args.dp, devices_of(dev)))
+        dev = mesh.first_device
+        logger.log({"event": "mesh", "dp": args.dp, "graph": 1,
+                    "devices": [str(d) for d in mesh.devices.flat]})
     fit_kw = dict(log_fn=logger)
     if ckpt is not None:
         fit_kw.update(ckpt=ckpt, checkpoint_every=args.checkpoint_every)
@@ -227,7 +253,8 @@ def _run_p2(model, ds, cfg, logger, overlap: bool = False, ckpt=None,
             checkpoint_every: int = 1, remat_inner: bool = False,
             device: str | torch.device = "cuda"):
     """The edge-partitioned training loop of config5 (JAX
-    ``run.py:_run_p2``), ``cfg.graph_shards`` shards on ``device``, or over
+    ``run.py:_run_p2``), ``cfg.graph_shards`` shards spread over the
+    devices ``device`` names (``devices_of``, ``spread_devices``), or over
     the processes of the group (``make_hybrid_mesh``); returns
     ``(best_params, result)``.
 
@@ -270,11 +297,18 @@ def _run_p2(model, ds, cfg, logger, overlap: bool = False, ckpt=None,
 
     dev = torch.device(device)
     graph = int(cfg.graph_shards)
-    mesh = make_hybrid_mesh(graph=graph, device=dev)
-    exchange = make_exchange(mesh)  # None in one process
+    if process_count() > 1:
+        mesh = make_hybrid_mesh(graph=graph, device=dev)
+    else:
+        mesh = make_mesh(dp=1, graph=graph,
+                         devices=spread_devices(graph, devices_of(dev)))
+    dev = mesh.first_device
+    # across processes, or cards: None for one process on one card
+    exchange = make_exchange(mesh)
     dp = mesh.shape["dp"]
     logger.log({"event": "mesh", "dp": dp, "graph": graph,
-                "processes": mesh.process_count})
+                "processes": mesh.process_count,
+                "devices": [str(d) for d in mesh.devices.flat]})
 
     train_edges = ds.split_edges("train")
     plan = build_outer_partition(train_edges[:, 0], train_edges[:, 1],

@@ -26,9 +26,14 @@ exact evaluation encodes every molecule and propagates over the whole train
 graph, with no sampling.
 
 Both trainers take a dp-only ``mesh`` (``parallel/mesh.py``, which may
-name one card several times): the pair batch splits over ``dp`` and the
-update equals the single-device one on the whole batch (``parallel/dp.py``;
-the minibatch trainer draws one batch a shard and steps on their union).
+name one card several times, or lie over distinct cards): the pair batch
+splits over ``dp`` and the update equals the single-device one on the
+whole batch (``parallel/dp.py``; the minibatch trainer draws one batch a
+shard and steps on their union). Over distinct cards each card holds a
+replica of the model and optimizer (``parallel/replicas.py``) and its
+shards' work; the trainer's ``model`` and ``optimizer`` are replica 0 on
+the first card, where evaluation runs as one stream and which checkpoints
+hold.
 """
 
 from __future__ import annotations
@@ -57,13 +62,16 @@ from bignn_tpu_torch.data.sampler import (
 )
 from bignn_tpu_torch.data.schema import DDIDataset, DeviceData
 from bignn_tpu_torch.models.bignn import BiGNN, upload_buckets
-from bignn_tpu_torch.models.loss import masked_sums, union_loss
+from bignn_tpu_torch.models.loss import masked_sums
 from bignn_tpu_torch.parallel.dp import (
+    PerReplica,
     dp_size,
     dp_train_step_fn,
-    optimizer_step,
+    replica_layout,
+    union_over_replicas,
 )
 from bignn_tpu_torch.parallel.mesh import make_mesh
+from bignn_tpu_torch.parallel.replicas import Replicas
 from bignn_tpu_torch.sparse.formats import (
     OuterGraph,
     PaddedGraphBatch,
@@ -80,7 +88,7 @@ from bignn_tpu_torch.train.metrics import (
 def make_optimizer(params, config: TrainConfig) -> torch.optim.Optimizer:
     """Adam, or AdamW (decoupled decay, as optax.adamw) when
     ``config.weight_decay``; the trainers' steps clip the global gradient
-    norm first when ``config.grad_clip`` (``parallel.dp.optimizer_step``)."""
+    norm first when ``config.grad_clip`` (``Replicas.step``)."""
     if config.weight_decay:
         return torch.optim.AdamW(params, lr=config.lr,
                                  weight_decay=config.weight_decay)
@@ -88,11 +96,12 @@ def make_optimizer(params, config: TrainConfig) -> torch.optim.Optimizer:
 
 
 def _device(device, mesh) -> torch.device:
-    """The trainer's device: ``mesh.device`` under a mesh (a ``device``
-    that names another raises), else ``device`` (default ``cuda``)."""
+    """The trainer's device: ``mesh.first_device`` under a mesh (a
+    ``device`` that names another raises), else ``device`` (default
+    ``cuda``)."""
     if mesh is None:
         return torch.device("cuda" if device is None else device)
-    dev = mesh.device
+    dev = mesh.first_device
     if device is not None:
         want = torch.device(device)
         if (want.type, want.index or 0) != (dev.type, dev.index or 0):
@@ -365,7 +374,11 @@ class MinibatchTrainer:
     batch ``(epoch, i * dp + s)`` on the host or on the card, and take one
     update on their union: the shards' (masked loss sum, mask count) pairs
     added in shard order (``parallel/dp.py``); an epoch is then
-    ``ceil(len(sampler) / dp)`` steps. ``device_sample`` needs resident
+    ``ceil(len(sampler) / dp)`` steps. Over distinct cards each shard's
+    batch is drawn on (or goes up to) its card, where its card's replica
+    expands and trains on it with that card's copy of the tables (the
+    device sampler keys its generators by device).
+    ``device_sample`` needs resident
     tables and a block-local layout, as in JAX. JAX's
     ``optimization_barrier`` fences have no counterpart: PyTorch runs each
     op as written.
@@ -413,6 +426,13 @@ class MinibatchTrainer:
             # adjacency from them, a pure function of (seed, epoch)
             self._dev_consts0 = self.dsampler.constants().to(self.device)
             self._dev_consts = self._dev_consts0
+        # each card's replica (one on one card), and its copies of the
+        # tables and sampler constants (slot 0: the trainer's own)
+        self._slots, self._slot_of = (
+            replica_layout(mesh) if mesh is not None
+            else ([self.device], [0] * self.dp))
+        self._reps: Replicas | None = None
+        self._copies: PerReplica | None = None
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.setup_seconds["upload"] = (
@@ -557,19 +577,22 @@ class MinibatchTrainer:
             block_cnt=cnt if cnt is not None else adj)
 
     # -- one step ------------------------------------------------------------
-    def _derive_outer(self, hb: CompactBatch) -> OuterGraph:
+    def _derive_outer(self, hb: CompactBatch,
+                      tables: MoleculeTables | None = None) -> OuterGraph:
         """The outer subgraph of a batch, with what a CompactBatch does not
         ship derived on the device: GCN weights from the resident
-        ``inv_sqrt_deg`` table, and (host-drawn batches) the source-sort
-        permutation by a stable sort, equal to the host's."""
+        ``inv_sqrt_deg`` table (``tables``, default the trainer's), and
+        (host-drawn batches) the source-sort permutation by a stable sort,
+        equal to the host's."""
+        tables = self.tables if tables is None else tables
         osrc = hb.outer_src.int()
         odst = hb.outer_dst.int()
         D = hb.drug_budget
         w = hb.outer_weight
         if w is None:
-            gw = self.tables.inv_sqrt_deg[
+            gw = tables.inv_sqrt_deg[
                 torch.clamp(hb.nodes.long(), 0,
-                            self.tables.inv_sqrt_deg.shape[0] - 1)]
+                            tables.inv_sqrt_deg.shape[0] - 1)]
             w = torch.where(odst < D, gw[torch.clamp(osrc.long(), max=D - 1)]
                             * gw[torch.clamp(odst.long(), max=D - 1)], 0.0)
         operm, osorted = hb.outer_src_perm, hb.outer_src_sorted
@@ -600,25 +623,44 @@ class MinibatchTrainer:
             edge_src_perm=hb.edge_src_perm,
             edge_src_sorted=hb.edge_src_sorted)
 
-    def _forward(self, hb: CompactBatch | HierarchicalBatch) -> torch.Tensor:
+    def _on_slot(self, name: str, obj, slot: int):
+        """``obj`` (the trainer's, on the first card) on replica ``slot``'s
+        card (``PerReplica``)."""
+        if slot == 0:
+            return obj
+        if self._copies is None:
+            self._copies = PerReplica(self._slots)
+        return self._copies(name, obj)[slot]
+
+    def _forward(self, hb: CompactBatch | HierarchicalBatch,
+                 slot: int = 0) -> torch.Tensor:
+        model = self.model if slot == 0 else self._reps.models[slot]
+        tables = self._on_slot("tables", self.tables, slot)
         if isinstance(hb, CompactBatch):
-            pb = self._expand_compact(hb, self.tables)
+            pb = self._expand_compact(hb, tables)
         else:
             pb = self._padded(hb)
-        emb = self.model.encode_inner(pb)
-        emb = self.model.propagate_outer(emb, self._derive_outer(hb))
-        return self.model.score_pairs(emb, hb.pairs.long())
+        emb = model.encode_inner(pb)
+        emb = model.propagate_outer(emb, self._derive_outer(hb, tables))
+        return model.score_pairs(emb, hb.pairs.long())
 
     def _loss(self, hbs: list) -> torch.Tensor:
         """The masked-mean loss of the union of a step's ``dp`` shard
         batches (one without a mesh), their (sum, count) pairs added in
-        shard order."""
-        return union_loss([masked_sums(self._forward(b), b.labels, b.mask)
-                           for b in hbs])
+        shard order on the first card."""
+        parts = [masked_sums(self._forward(b, s), b.labels, b.mask)
+                 for b, s in zip(hbs, self._slot_of)]
+        return union_over_replicas(parts, self._slot_of, self.device)
+
+    def _replicas(self) -> Replicas:
+        if self._reps is None:
+            self._reps = Replicas(self.model, self.optimizer, self._slots)
+        return self._reps
 
     def _step(self, hbs: list) -> torch.Tensor:
-        return optimizer_step(self.optimizer, lambda: self._loss(hbs),
-                              self.config.grad_clip)
+        return self._replicas().update(lambda: self._loss(hbs),
+                                       self.config.grad_clip,
+                                       optimizer=self.optimizer)
 
     def _draw_host(self, at: tuple[int, int] | None = None) -> list:
         """One step's ``dp`` host-drawn NumPy batches (each a
@@ -636,12 +678,12 @@ class MinibatchTrainer:
         return [draw(epoch, step * self.dp + i) for i in range(self.dp)]
 
     def _put(self, hb) -> list:
-        """A step's ``dp`` batches on the device; one batch stands for a
-        list of one."""
+        """A step's ``dp`` batches, each on its shard's card; one batch
+        stands for a list of one."""
         hbs = hb if isinstance(hb, list) else [hb]
         if len(hbs) != self.dp:
             raise ValueError(f"{len(hbs)} batches for a step on dp={self.dp}")
-        return [b.to(self.device) for b in hbs]
+        return [b.to(self._slots[s]) for b, s in zip(hbs, self._slot_of)]
 
     def train_step(self, hb=None) -> torch.Tensor:
         """One optimizer step on ``hb`` (a list of ``dp`` host or device
@@ -668,9 +710,14 @@ class MinibatchTrainer:
         for i in range(step0, step0 + k):
             cbs = []
             for s in range(self.dp):
-                cb, stats = d.sample(self._dev_consts,
-                                     d.key_at(epoch, i * self.dp + s))
+                slot = self._slot_of[s]
+                cb, stats = d.sample(
+                    self._on_slot("consts", self._dev_consts, slot),
+                    d.key_at(epoch, i * self.dp + s))
                 cbs.append(cb)
+                if slot:  # a device-to-device copy: no host synchronisation
+                    stats = {name: v.to(self.device)
+                             for name, v in stats.items()}
                 totals = stats if totals is None else {
                     name: totals[name] + v for name, v in stats.items()}
             losses.append(self._step(cbs))

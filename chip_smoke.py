@@ -176,7 +176,7 @@ Phases:
      positives and as many negatives, against each other and against the
      full-graph Trainer's scores on prepare_device_data (rtol 2e-4, atol
      2e-5 x max); block_adjacency (int8) and the flash-GAT must launch.
-     (iii) The entry points in-process, on their default device: run.main
+     (iii) The entry points in-process, on the first card: run.main
      on config2 (2 epochs, --run-dir under build/, --checkpoint-every 1),
      then the same argv again (it resumes, trains no epoch and reports the
      same best epoch and test AUC); its epoch-0 checkpoint in a run dir of
@@ -235,7 +235,33 @@ Phases:
      records, result, last checkpoint). (iv) The two-process step median beside path G's;
      at the step's send buffers, the whole exchange (host ms), its kernel
      alone (device ms), its plain version, the library call
-     (torch.distributed.all_to_all_single over gloo) and a barrier.
+     (torch.distributed.all_to_all_single over gloo) and a barrier. Path K's
+     processes share the first card wherever more are visible.
+  M. one process over several cards, when torch.cuda.device_count() >= 2
+     (the first M_CARDS of them; on one card a line says path M needs two
+     or more cards and was not run): (iii) right after path J(i), config4
+     as get_config sets it on dp = 4 over the cards (a replica, its tables
+     and its draws on each card), step 1 against path J's union-batch
+     reference on phase 9's trainer, then 2 x 16 steps from the same init:
+     the losses equal to the bit, the replicas equal to the bit; (iv) after
+     J(ii), config2's Trainer on dp = 4 and tp at M_TP over the cards
+     against no mesh, as J(ii)-(iii); after path K: (i) row 9 across the
+     cards (nvidia-smi topo -m and nvlink -s logged first) at config5's
+     send buffers (G 4, S 432, F 132, one shard a card on four) and
+     config5-large's (G 8, S 12,504, two a card), forward and backward
+     equal to all_to_all_plain exactly, one launch a card each way, then
+     timed with its plain version (cards_queued_ms: device ms, the calls
+     queued behind a sleep on every card, the slowest card's span; and
+     cards_ms, the exchange as the host paces it) and bounded per card (cards_bound: peer bytes over the NVLink rate in one
+     direction, local bytes over 3.35 TB/s); (ii) config5's p2 step, its 4
+     graph shards over the cards, K_STEPS of path G's batches from the same
+     init and keys: losses within K_LOSS_RTOL of path G's, step-1 gradients
+     within GRAD_TOL, the replicas' parameters and a second run equal to
+     the bit, each card's device busy over one traced step and its peak
+     memory; (v) run.main with --dp 4 on config4 (its graph cut to 16,384
+     drugs, one epoch of 8 steps) and on config5, over every visible card;
+     (vi) path K's worker as 4 processes, a card each: each process's
+     losses and parameters equal to (ii)'s bit for bit.
 Each path runs with the launch counts (per kernel and element type, e.g.
 segment_sum:bf16) set to 0 just before it and read just after; the kernels
 line reports the sum of the paths' counts, each form's error, times (kernel,
@@ -257,7 +283,14 @@ queued behind a sleep; its exchange_ms the whole exchange's host median,
 barriers included, and barrier_ms one barrier's; bound: the bytes one
 process reads and writes); a fourth, all_to_all:f32:hosts, the same for
 K(v)'s route between hosts (its ms the launch that assembles the receive
-buffers, its host_bytes what one exchange sends through gloo). Rows 4 and 8
+buffers, its host_bytes what one exchange sends through gloo); a fifth,
+all_to_all:f32:cards, path M(i)'s exchange across the cards at config5's
+send buffers (its ms the device time queued behind a sleep, its
+exchange_ms as the host paces it; its *_config5_large keys at
+config5-large's), with the
+launches of M(ii) and of M(v)'s config5 run, and no library call (NCCL's
+all-to-all takes a process a card); on one card its launches are 0 and
+its times null. Rows 4 and 8
 have rows at their other shapes too (segment_softmax:bf16:100k,
 spmm_multihead:bf16:100k, segment_softmax{,_bwd}:{f32,bf16}:16k,
 spmm_multihead:f32:shard,
@@ -376,6 +409,13 @@ def card_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip()
+
+
+def sync_all() -> None:
+    """Wait for every visible card: a step over several cards ends on
+    each."""
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
 
 
 def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -839,6 +879,9 @@ KERNELS = {
                              "bignn_tpu/ops/pallas/collectives.py:43"),
     "all_to_all:f32:hosts": ("bignn_tpu_torch/csrc/all_to_all.cu",
                              "bignn_tpu/ops/pallas/collectives.py:43"),
+    # across the cards of one process (path M)
+    "all_to_all:f32:cards": ("bignn_tpu_torch/csrc/all_to_all.cu",
+                             "bignn_tpu/ops/pallas/collectives.py:43"),
 }
 # the forms a layout that is not block-local must not launch
 BLOCK_FORMS = ("block_adjacency:f32", "block_adjacency:int8",
@@ -970,7 +1013,7 @@ def _timed_steps(trainer, batches, label: str, secs: list | None = None,
     for i, (pairs, mask) in enumerate(batches):
         t0 = time.perf_counter()
         loss = trainer.train_step(pairs, mask, 0, i)
-        torch.cuda.synchronize()
+        sync_all()
         secs.append(time.perf_counter() - t0)
         losses.append(loss.item())
         if i == 0:
@@ -2385,7 +2428,7 @@ def run_config4_step(dev, ds) -> tuple[dict, dict, object]:
     for c in range(C4_CHUNKS):
         t0 = time.perf_counter()
         ls, st = tr.train_chunk_device(0, c * C4_CHUNK, C4_CHUNK)
-        torch.cuda.synchronize()
+        sync_all()
         secs.append(time.perf_counter() - t0)
         losses.append(ls)
         for k, v in st.items():
@@ -2941,6 +2984,7 @@ def profile_training(dev, model_cfg, data, train_cfg) -> None:
     from bignn_tpu_torch import prng
     from bignn_tpu_torch.data.sampler import sample_negative_pairs
     from bignn_tpu_torch.models import BiGNN
+    from bignn_tpu_torch.parallel import Replicas
     from bignn_tpu_torch.parallel.dp import dp_loss
     from bignn_tpu_torch.train import Trainer
 
@@ -2961,9 +3005,11 @@ def profile_training(dev, model_cfg, data, train_cfg) -> None:
     pmask = torch.as_tensor(mask, device=dev)
     key = prng.fold_in(prng.fold_in(prng.key(train_cfg.seed + 1), 0), 0)
 
+    one = Replicas(trainer.model, None, [dev])
+
     def loss():
-        return dp_loss(trainer.model, trainer.mesh, key, pos, pmask,
-                       trainer.buckets, trainer.graph_index, trainer.outer,
+        return dp_loss(one, [0], key, pos, pmask,
+                       [(trainer.buckets, trainer.graph_index, trainer.outer)],
                        data.num_drugs, train_cfg.neg_ratio)
 
     def backward():
@@ -3278,6 +3324,9 @@ J_FORMS = ("segment_sum:bf16", "block_adjacency:int8",
 # versions, while a dropped shard moves an epoch's loss by percents
 DP_RUN_RTOL = 2e-3
 DP_RUN_AUC = 5e-3  # test AUC, absolute
+# the paths before M run `run` on the first card alone, as on a machine of
+# one card (`--device cuda` spreads shards over every visible card)
+FIRST_CARD = ["--device", "cuda:0"]
 
 
 def _c4_run(tr, secs: list, peaks: list) -> tuple[np.ndarray, dict]:
@@ -3296,7 +3345,7 @@ def _c4_run(tr, secs: list, peaks: list) -> tuple[np.ndarray, dict]:
     for c in range(J_CHUNKS):
         t0 = time.perf_counter()
         ls, st = tr.train_chunk_device(0, c * C4_CHUNK, C4_CHUNK)
-        torch.cuda.synchronize()
+        sync_all()
         secs.append(time.perf_counter() - t0)
         losses.append(ls)
         for k, v in st.items():
@@ -3438,15 +3487,17 @@ def run_dp_config4(dev, ds, tr1) -> list:
     return [c2]
 
 
-def run_dp_tp_config2(dev, ds) -> list:
+def run_dp_tp_config2(dev, ds, cards=None) -> list:
     """Paths J(ii) and J(iii): config2's full-graph Trainer on dp = 4
     naming the card four times (512 pairs a shard), 20 steps against the
     Trainer without a mesh from the same initial parameters: step 1's loss
     within LOSS_RTOL, its parameters within DP_TOL, the flash-GAT forward
     and backward launched once a step; then config2's model on
     J_TP (dp, tp) meshes, one step from the same parameters against the
-    no-mesh step 1 (TP_TOL). Returns the counts of the dp = 4 run and of
-    the tp steps."""
+    no-mesh step 1 (TP_TOL). With ``cards`` (path M(iv)) the meshes lie
+    over those cards (``spread_devices``; tp on M_TP): the replicated
+    encode runs once a card, so the flash-GAT kernels launch once a card a
+    step. Returns the counts of the dp = 4 run and of the tp steps."""
     from bignn_tpu_torch import prng
     from bignn_tpu_torch.config import get_config
     from bignn_tpu_torch.data import prepare_device_data
@@ -3456,18 +3507,26 @@ def run_dp_tp_config2(dev, ds) -> list:
         gather_params_tp,
         make_mesh,
         shard_params_tp,
+        spread_devices,
         tp_train_step_fn,
     )
     from bignn_tpu_torch.train import Trainer
     from bignn_tpu_torch.train.trainer import make_optimizer
 
+    def devices(n):
+        return [dev] * n if cards is None else spread_devices(n, cards)
+
+    where = "path J" if cards is None else "path M(iv)"
     cfg = get_config("config2")
     data = prepare_device_data(ds)
     batches = _epoch_batches(data, cfg.train)
     runs = {}
     for dp in (J_DP2, None):
         mesh = (None if dp is None
-                else make_mesh(dp=dp, graph=1, devices=[dev] * dp))
+                else make_mesh(dp=dp, graph=1, devices=devices(dp)))
+        if mesh is not None:
+            log(f"  dp = {dp} over {[str(d) for d in mesh.devices.flat]}")
+            encodes = len(mesh.cards)  # the replicated encode, once a card
         reset_counts()
         tr = Trainer(BiGNN(cfg.model), data, cfg.train, device=dev,
                      mesh=mesh)
@@ -3487,20 +3546,20 @@ def run_dp_tp_config2(dev, ds) -> list:
     if not np.all(np.isfinite(l4)):
         raise AssertionError(f"dp = 4 losses {l4}")
     for form in FLASH_FORMS:
-        if not n4[form] == n1[form] == len(batches):
+        if not n4[form] == encodes * n1[form] == encodes * len(batches):
             raise AssertionError(f"{form}: {n4[form]} launches on dp = 4, "
                                  f"{n1[form]} without a mesh, "
-                                 f"{len(batches)} steps")
+                                 f"{len(batches)} steps, {encodes} cards")
 
-    log("  J(iii): config2's model sharded over tp, one step")
+    log(f"  {where}: config2's model sharded over tp, one step")
     buckets, gidx = upload_buckets(data.bucketing, cfg.model.inner_layers,
                                    dev)
     outer = data.outer.to(dev)
     pairs, mask = batches[0]
     key = prng.fold_in(prng.fold_in(prng.key(cfg.train.seed + 1), 0), 0)
     reset_counts()
-    for dp, tp in J_TP:
-        mesh = make_mesh(dp=dp, tp=tp, devices=[dev] * (dp * tp))
+    for dp, tp in (J_TP if cards is None else M_TP):
+        mesh = make_mesh(dp=dp, tp=tp, devices=devices(dp * tp))
         model = shard_params_tp(mesh, BiGNN(cfg.model, seed=SEED).to(dev))
         opt = make_optimizer(model.parameters(), cfg.train)
         t0 = time.perf_counter()
@@ -3517,7 +3576,7 @@ def run_dp_tp_config2(dev, ds) -> list:
         del model, opt
     ct = read_counts()
     log(f"  launches on the tp steps: {ct}")
-    require_launched(ct, FLASH_FORMS, "on the tp steps")
+    require_launched(ct, FLASH_FORMS, f"on the tp steps of {where}")
     del buckets, gidx, outer, data
     gc.collect()
     torch.cuda.empty_cache()
@@ -3572,7 +3631,7 @@ def run_dp_entry_points(dev) -> list:
                  ["--config", "config3", "--exact-eval", "--epochs", "1"]):
         for dp in (["--dp", "2"], []):
             reset_counts()
-            res = _timed_main(run.main, argv + dp,
+            res = _timed_main(run.main, argv + dp + FIRST_CARD,
                               "run " + " ".join(argv + dp))
             if dp:
                 counts.append(read_counts())
@@ -3744,7 +3803,8 @@ def run_entry_points(dev) -> list:
     del hand, ds
 
     reset_counts()
-    p2 = _timed_main(run.main, ["--config", "config5", "--epochs", "1"],
+    p2 = _timed_main(run.main, ["--config", "config5", "--epochs", "1",
+                                *FIRST_CARD],
                      "run config5, 1 epoch, 4 graph shards")
     counts.append(read_counts())
     log(f"  loss {p2['final_loss']:.5f}, test_auc {p2['test_auc']:.6f}")
@@ -3793,10 +3853,23 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _spawn(argvs: list, what: str) -> list[str]:
-    """Run one process per argv from the repository root, their output in
-    files under build/smoke_runs/k; raises if any exits non-zero or the
-    pair outlives K_TIMEOUT, after killing every survivor. Returns each
+def _one_card_env() -> dict | None:
+    """Path K's processes share the first card wherever more are visible
+    (their environment names it alone), so the path is the same on any
+    machine; None (the parent's environment) on one card."""
+    if torch.cuda.device_count() < 2:
+        return None
+    import os
+
+    first = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
+    return {**os.environ, "CUDA_VISIBLE_DEVICES": first}
+
+
+def _spawn(argvs: list, what: str, env: dict | None = None) -> list[str]:
+    """Run one process per argv from the repository root (environment
+    ``env``, default the parent's), their output in files under
+    build/smoke_runs/k; raises if any exits non-zero or the group
+    outlives K_TIMEOUT, after killing every survivor. Returns each
     process's standard output."""
     root = Path(__file__).resolve().parent
     logs = K_LOGS
@@ -3808,7 +3881,7 @@ def _spawn(argvs: list, what: str) -> list[str]:
             err = open(logs / f"{what}_{r}.err", "w")
             files += [out, err]
             procs.append(subprocess.Popen(argv, cwd=root, stdout=out,
-                                          stderr=err))
+                                          stderr=err, env=env))
         deadline = time.monotonic() + K_TIMEOUT
         while any(p.poll() is None for p in procs):
             if any(p.returncode not in (None, 0) for p in procs):
@@ -3959,7 +4032,8 @@ def k_exchange_times(exchange, bufs) -> dict:
     return times
 
 
-def k_worker_step(rank: int, port: int, route: str = "auto") -> dict:
+def k_worker_step(rank: int, port: int, route: str = "auto",
+                  procs: int = K_PROCS, times: bool = True) -> dict:
     """One process of path K(i): config5 as get_config sets it, graph 4
     over K_PROCS processes on this card (make_hybrid_mesh: 2 shards each),
     dp 1, the first K_STEPS batches of path G from the same init and keys;
@@ -3982,7 +4056,7 @@ def k_worker_step(rank: int, port: int, route: str = "auto") -> dict:
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
-    init_distributed(f"127.0.0.1:{port}", K_PROCS, rank)
+    init_distributed(f"127.0.0.1:{port}", procs, rank)
     dev = local_device()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3990,12 +4064,12 @@ def k_worker_step(rank: int, port: int, route: str = "auto") -> dict:
     ds = load_dataset(cfg.dataset, **cfg.dataset_kwargs)
     mesh = make_hybrid_mesh(graph=cfg.graph_shards)
     exchange = (ProcessExchange(mesh.shape["graph"], mesh.local_graph,
-                                mesh.device) if route == "hosts"
+                                mesh.first_device) if route == "hosts"
                 else make_exchange(mesh))
     log(f"process {rank}: {type(exchange).__name__}, mesh {mesh.shape}, "
         "processes "
         f"{mesh.processes.tolist()}, local shards {mesh.local_graph} on "
-        f"{mesh.device}")
+        f"{mesh.first_device}")
     reset_counts()  # the upload's block builds count, as on path G
     _, _, plan_d = p2_layout(dev, ds, cfg.graph_shards,
                              cfg.model.inner_layers, mesh=mesh)
@@ -4021,24 +4095,31 @@ def k_worker_step(rank: int, port: int, route: str = "auto") -> dict:
     if not all(torch.equal(a, b) for a, b in zip(rec.out, want)):
         raise AssertionError("the first exchange across processes differs "
                              "from its plain version")
-    times = k_exchange_times(exchange, rec.bufs)
+    times = k_exchange_times(exchange, rec.bufs) if times else {}
     digest = hashlib.sha256()
     for v in model.state_dict().values():
         digest.update(v.detach().cpu().numpy().tobytes())
     exchange.close()
     return {"rank": rank, "losses": losses, "digest": digest.hexdigest(),
-            "grads": str(grads_file),
+            "grads": str(grads_file), "device": str(dev),
             "median_ms": float(np.median(secs) * 1e3), "max_abs_err": err,
             "launches": {f: n for f, n in launches.items() if n},
             "send": [tuple(rec.bufs[0].shape), len(rec.bufs)], **times}
 
 
-def _k_step_pair(what: str, route: str = "auto") -> list[dict]:
+def _k_step_pair(what: str, route: str = "auto", procs: int = K_PROCS,
+                 env: dict | None = None) -> list[dict]:
+    """``procs`` workers of ``k_worker_step`` (path K's pair on one card by
+    default; path M(vi)'s four on the visible cards with ``env`` the
+    parent's)."""
     port = _free_port()
+    extra = [] if procs == K_PROCS else ["--procs", str(procs),
+                                         "--no-times"]
+    env = _one_card_env() if procs == K_PROCS else env
     outs = _spawn([[sys.executable, str(Path(__file__).resolve()),
                     "--worker", "step", "--rank", str(r), "--port",
-                    str(port), "--route", route] for r in range(K_PROCS)],
-                  what)
+                    str(port), "--route", route, *extra]
+                   for r in range(procs)], what, env)
     return [_last_json(o) for o in outs]
 
 
@@ -4111,7 +4192,8 @@ def run_multiprocess(g_ref: dict, one_run: dict | None) -> list[dict]:
     root = Path(__file__).resolve().parent / "build" / "smoke_runs"
     if one_run is None:
         one_run = _timed_main(run.main, ["--config", "config5", "--epochs",
-                                         "1"], "run config5, one process")
+                                         "1", *FIRST_CARD],
+                              "run config5, one process")
     import shutil
 
     from bignn_tpu_torch.train.checkpoint import CheckpointManager
@@ -4125,7 +4207,8 @@ def run_multiprocess(g_ref: dict, one_run: dict | None) -> list[dict]:
                  "config5", "--epochs", str(epochs), "--run-dir",
                  str(run_dir), "--checkpoint-every", "1", "--coordinator",
                  f"127.0.0.1:{port}", "--num-processes", str(K_PROCS),
-                 "--process-id", str(r)] for r in range(K_PROCS)], what)
+                 "--process-id", str(r)] for r in range(K_PROCS)], what,
+               _one_card_env())
         secs = time.perf_counter() - t1
         records = [json.loads(line) for line in
                    (run_dir / "metrics.jsonl").read_text().splitlines()]
@@ -4213,6 +4296,425 @@ def run_multiprocess(g_ref: dict, one_run: dict | None) -> list[dict]:
 
 
 # ---------------------------------------------------------------------------
+# path M: one process over several cards, and path K a card a process
+# ---------------------------------------------------------------------------
+
+M_CARDS = 4  # the most cards path M lays a mesh over
+M_TP = ((1, 4), (2, 2))  # path M(iv): (dp, tp) over the cards
+# path M(i): (name, G, S, F), the send buffers of config5 (one shard a
+# card on four) and of config5-large (two a card: local and peer chunks)
+M_SHAPES = (("config5", 4, 432, 132), ("config5-large", 8, 12504, 132))
+M_REPS = 20
+M_LOGS = K_LOGS.parent / "m"
+
+
+def visible_cards() -> list[torch.device]:
+    """The cards path M lays its meshes over: the first M_CARDS visible."""
+    return [torch.device("cuda", i)
+            for i in range(min(torch.cuda.device_count(), M_CARDS))]
+
+
+def link_rate() -> float | None:
+    """The cards' interconnect, logged from ``nvidia-smi topo -m`` and
+    ``nvidia-smi nvlink -s``; returns card 0's NVLink rate in one
+    direction (the sum of its links' GB/s), None where no link reports."""
+    import re
+
+    for argv in (["nvidia-smi", "topo", "-m"],
+                 ["nvidia-smi", "nvlink", "-s", "-i", "0"]):
+        out = subprocess.run(argv, capture_output=True, text=True,
+                             timeout=60)
+        log(f"  $ {' '.join(argv)}")
+        for line in (out.stdout + out.stderr).strip().splitlines():
+            log(f"    {line}")
+        if argv[1] == "nvlink":
+            rates = [float(x) for x in
+                     re.findall(r"([0-9.]+)\s*GB/s", out.stdout)]
+    gbs = sum(rates)
+    log(f"  card 0's NVLink: {len(rates)} links, {gbs:.3f} GB/s in one "
+        "direction" if rates else "  card 0 reports no NVLink link")
+    return gbs * 1e9 if rates else None
+
+
+def _sync(cards) -> None:
+    for c in cards:
+        torch.cuda.synchronize(c)
+
+
+def cards_ms(fn, cards, reps: int = M_REPS) -> float:
+    """Device milliseconds per call of ``fn``, work on several cards: after
+    a warm-up and a synchronize of every card, an event on each card's
+    stream before the calls and after them; the slowest card's span."""
+    for _ in range(3):
+        fn()
+    _sync(cards)
+    starts = {c: torch.cuda.Event(enable_timing=True) for c in cards}
+    ends = {c: torch.cuda.Event(enable_timing=True) for c in cards}
+    for c in cards:
+        starts[c].record(torch.cuda.current_stream(c))
+    for _ in range(reps):
+        fn()
+    for c in cards:
+        ends[c].record(torch.cuda.current_stream(c))
+    _sync(cards)
+    return max(starts[c].elapsed_time(ends[c]) for c in cards) / reps
+
+
+def cards_queued_ms(fn, cards, reps: int = M_REPS) -> float:
+    """Device milliseconds per call of ``fn``, work on several cards, with
+    the host's cost hidden (as ``queued_ms``): the calls queued behind a
+    device sleep on every card twice as long as the host takes to queue
+    them, an event on each card after its sleep and one after the calls;
+    the slowest card's span."""
+    for _ in range(3):
+        fn()
+    _sync(cards)
+    t0 = time.perf_counter()
+    for _ in range(10):
+        fn()
+    _sync(cards)
+    queue_ms = (time.perf_counter() - t0) * 1e3 * reps / 10
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with torch.cuda.device(cards[0]):
+        start.record()
+        torch.cuda._sleep(1_000_000)
+        end.record()
+        end.synchronize()
+    cycles = int(2 * queue_ms * 1_000_000 / start.elapsed_time(end))
+    starts = {c: torch.cuda.Event(enable_timing=True) for c in cards}
+    ends = {c: torch.cuda.Event(enable_timing=True) for c in cards}
+    for c in cards:
+        with torch.cuda.device(c):
+            torch.cuda._sleep(cycles)
+            starts[c].record(torch.cuda.current_stream(c))
+    for _ in range(reps):
+        fn()
+    for c in cards:
+        ends[c].record(torch.cuda.current_stream(c))
+    _sync(cards)
+    return max(starts[c].elapsed_time(ends[c]) for c in cards) / reps
+
+
+def cards_bound(devices, chunk: int, rate: float | None) -> float:
+    """Row 9 across cards: per card, the chunks it reads from peers over
+    the NVLink rate in one direction, and its local bytes (its own chunks
+    read, every receive slot written) over the memory rate, the larger of
+    the two; the slowest card's. Without a link rate, the local bytes."""
+    g, worst = len(devices), 0.0
+    for c in set(devices):
+        own = sum(d == c for d in devices)
+        remote = (g - own) * own * chunk
+        local = (own * own + g * own) * chunk
+        t = local / HBM_BYTES_PER_S
+        if rate:
+            t = max(t, remote / rate)
+        worst = max(worst, t * 1e3)
+    return worst
+
+
+def m_exchange(cards, rate: float | None) -> dict:
+    """Path M(i): row 9 across the cards at M_SHAPES, send buffers made
+    from SEED on the host and put on their shards' cards
+    (``spread_devices``): forward and backward (the exchange of
+    cotangents) equal to ``all_to_all_plain`` exactly, one launch a card
+    each way; then the exchange and its plain version timed
+    (``cards_ms``), with ``cards_bound``. No single PyTorch call
+    exchanges between the cards of one process (NCCL's all-to-all takes a
+    process a card), so the library time is null."""
+    from bignn_tpu_torch import ops
+    from bignn_tpu_torch.parallel import spread_devices
+
+    results = {}
+    for name, g, s, f in M_SHAPES:
+        devices = spread_devices(g, cards)
+        used = list(dict.fromkeys(devices))
+        gen = torch.Generator().manual_seed(SEED)
+        host = [torch.randn(g, s, f, generator=gen) for _ in range(g)]
+        ct = [torch.randn(g, s, f, generator=gen) for _ in range(g)]
+        bufs = [b.to(d).requires_grad_() for b, d in zip(host, devices)]
+        reset_counts()
+        got = ops.all_to_all(bufs)
+        torch.autograd.backward(got, [c.to(d) for c, d in zip(ct, devices)])
+        _sync(used)
+        launched = read_counts()["all_to_all:f32:cards"]
+        want, want_g = ops.all_to_all_plain(host), ops.all_to_all_plain(ct)
+        err = max(float((a.detach().cpu() - b).abs().max())
+                  for a, b in zip(got, want))
+        if not (all(a.device == d and torch.equal(a.detach().cpu(), b)
+                    for a, b, d in zip(got, want, devices))
+                and all(torch.equal(b.grad.cpu(), w)
+                        for b, w in zip(bufs, want_g))
+                and launched == 2 * len(used)):
+            raise AssertionError(f"path M(i) {name}: the exchange across "
+                                 f"{len(used)} cards differs from its plain "
+                                 f"version, or launched {launched} times")
+        chunk = s * f * 4
+        fwd = [b.detach() for b in bufs]
+        ms = cards_queued_ms(lambda: ops.all_to_all(fwd), used)
+        plain_ms = cards_queued_ms(lambda: ops.all_to_all_plain(fwd), used)
+        paced = cards_ms(lambda: ops.all_to_all(fwd), used)
+        bound = cards_bound(devices, chunk, rate)
+        key = ("all_to_all:f32:cards" if name == "config5"
+               else f"all_to_all:f32:cards ({name})")
+        results[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                            bound_ms=bound, bound_by="bytes", library_ms=None,
+                            exchange_ms=paced)
+        log(f"  {key}: G {g}, S {s}, F {f} over {len(used)} cards "
+            f"({g // len(used)} shards a card, {chunk / 1e6:.3f} MB a "
+            f"chunk): forward and backward equal to the plain version bit "
+            f"for bit, {launched} launches; device ms queued behind a "
+            f"sleep: kernel {ms:.4f}, plain {plain_ms:.4f}; the exchange "
+            f"paced by the host (events, no sleep) {paced:.4f} ms; bound "
+            f"{bound:.4f} ms (bytes), no library call")
+        del bufs, fwd, got
+    return results
+
+
+def _digest(model) -> str:
+    digest = hashlib.sha256()
+    for v in model.state_dict().values():
+        digest.update(v.detach().cpu().numpy().tobytes())
+    return digest.hexdigest()
+
+
+def busy_by_card(run, cards) -> dict:
+    """torch.profiler over ``run()``: each card's device-busy ms."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    _sync(cards)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        _sync(cards)
+    busy = {}
+    for c in cards:
+        events = [e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA
+                  and e.device_index == c.index]
+        busy[str(c)] = _busy_ms((e.time_range.start, e.time_range.end)
+                                for e in events)
+    return busy
+
+
+def _peaks(cards) -> str:
+    return ", ".join(f"{torch.cuda.max_memory_allocated(c) / 2**30:.3f}"
+                     for c in cards) + " GiB"
+
+
+def m_p2(cards, ds, g_ref: dict) -> tuple[dict, dict]:
+    """Path M(ii): config5 as get_config sets it, its 4 graph shards over
+    the cards (``spread_devices``: one a card on four) in one process,
+    path G's first K_STEPS batches from the same init and keys: the losses
+    within K_LOSS_RTOL of path G's, the step-1 gradients (replica 0's: the
+    replicas' sum) within GRAD_TOL of path G's (``_check_step1``), every
+    replica's parameters equal to the bit after each run, and a second
+    run from the same seed equal to the first bit for bit;
+    all_to_all:f32:cards and path G's other forms launched, the
+    one-card all_to_all:f32 not. Then the step median, each card's device
+    busy ms over one traced step and its peak memory. Returns the first
+    run's counts and its losses and digest (path M(vi)'s reference)."""
+    from bignn_tpu_torch.config import get_config
+    from bignn_tpu_torch.models import BiGNN
+    from bignn_tpu_torch.parallel import make_mesh, spread_devices
+
+    cfg = get_config("config5")
+    mesh = make_mesh(dp=1, graph=cfg.graph_shards,
+                     devices=spread_devices(cfg.graph_shards, cards))
+    log(f"  mesh {mesh.shape} over {[str(d) for d in mesh.devices.flat]}")
+    reset_counts()
+    _, _, plan_d = p2_layout(cards[0], ds, cfg.graph_shards,
+                             cfg.model.inner_layers, mesh=mesh)
+    batches = _train_batches(ds, cfg.train)[:K_STEPS]
+    runs = []
+    for again in (False, True):
+        for c in cards:
+            torch.cuda.reset_peak_memory_stats(c)
+        model = BiGNN(cfg.model, seed=SEED).to(cards[0])
+        tr = P2Trainer(model, cfg.train, mesh, ds.num_drugs, plan_d)
+        secs = []
+        losses, grads = _timed_steps(
+            tr, batches, "p2 step over the cards" + (" again" if again
+                                                     else ""), secs)
+        if not again:
+            counts = read_counts()
+            peaks = _peaks(cards)
+        reps = tr.step.replicas
+        digests = [_digest(m) for m in reps.models]
+        if len(set(digests)) != 1:
+            raise AssertionError(f"path M(ii): the {len(digests)} replicas' "
+                                 "parameters differ")
+        runs.append((losses, grads, digests[0], secs, tr))
+    (losses, grads, digest, secs, tr), (l2, _, d2, _, _) = runs
+    log(f"  launches on path M(ii): {counts}")
+    require_launched(counts, ("all_to_all:f32:cards", *K_FORMS[1:]),
+                     "on path M(ii)")
+    require_idle(counts, ("all_to_all:f32", "all_to_all:f32:procs",
+                          "all_to_all:f32:hosts", *FLASH_FORMS),
+                 "on path M(ii)")
+    want = g_ref["losses"][:K_STEPS]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, want))
+    log(f"  losses {losses}, worst {rel:.3e} off path G's (bound "
+        f"{K_LOSS_RTOL:g})")
+    if not (np.all(np.isfinite(losses)) and rel <= K_LOSS_RTOL):
+        raise AssertionError(f"path M(ii): losses {losses} against path "
+                             f"G's {want}")
+    log("  step-1 gradients (the replicas' sum) against path G's:")
+    _check_step1(grads, g_ref["grads"], losses[0], want[0], torch.float32)
+    if (l2, d2) != (losses, digest):
+        raise AssertionError("path M(ii): a second run from the same seed "
+                             f"gave {l2} ({d2[:16]}), the first {losses} "
+                             f"({digest[:16]})")
+    log(f"  {len(tr.step.replicas)} replicas equal to the bit "
+        f"({digest[:16]}); the second run equal to the first bit for bit")
+    pairs, mask = batches[0]
+    busy = busy_by_card(lambda: tr.train_step(pairs, mask, 1, 0), cards)
+    log(f"  path M(ii) step median {np.median(secs) * 1e3:.3f} ms (path G, "
+        f"one card: {g_ref['median_ms']:.3f} ms); device busy over one "
+        "traced step: "
+        + ", ".join(f"{c} {b:.3f} ms" for c, b in busy.items())
+        + f"; peak memory by card {peaks} on {card_line()}")
+    return counts, {"losses": losses, "digest": digest}
+
+
+def m_config4(cards, ds, tr1) -> dict:
+    """Path M(iii): config4 as get_config sets it on dp = 4 over the cards
+    (one shard a card on four; each card draws its shards' batches on its
+    own generator and trains its replica on them), step 1 against path
+    J's union-batch reference on phase 9's dp = 1 trainer ``tr1`` (loss
+    within LOSS_RTOL, gradients by _check_step1 in bf16); then J_CHUNKS
+    chunks twice from the same init, the losses equal to the bit and the
+    replicas' parameters equal to the bit, 4 x 16 batches sampled; the
+    chunk medians / C4_CHUNK and each card's peak memory. Returns the
+    first run's counts."""
+    from bignn_tpu_torch.parallel import make_mesh, spread_devices
+
+    mesh = make_mesh(dp=4, graph=1, devices=spread_devices(4, cards))
+    log(f"  mesh {mesh.shape} over {[str(d) for d in mesh.devices.flat]}")
+    tr4 = config4_trainer(cards[0], ds, mesh=mesh)
+    tr4.init(SEED)
+    loss4 = tr4.train_chunk_device(0, 0, 1)[0].item()
+    grads4 = {k: p.grad.clone() for k, p in tr4.model.named_parameters()}
+    tr1.init(SEED)
+    d = tr1.dsampler
+    ref, grads1 = _union_reference(
+        tr1, [d.sample(tr1._dev_consts, d.key_at(0, s))[0] for s in range(4)])
+    _check_loss1("dp = 4 over the cards against the union-batch reference",
+                 loss4, ref)
+    _check_step1(grads4, grads1, loss4, ref, torch.bfloat16)
+    secs, peaks, runs = [], [], []
+    for _ in range(2):
+        for c in cards:
+            torch.cuda.reset_peak_memory_stats(c)
+        reset_counts()
+        runs.append(_c4_run(tr4, secs, peaks))
+        if len(runs) == 1:
+            counts, card_peaks = read_counts(), _peaks(cards)
+        digests = {_digest(m) for m in tr4._reps.models}
+        if len(digests) != 1:
+            raise AssertionError("path M(iii): the replicas' parameters "
+                                 "differ")
+    (losses, stats), (again, _) = runs
+    log(f"  {J_CHUNKS * C4_CHUNK} steps: losses {losses[0]:.5f} ... "
+        f"{losses[-1]:.5f}; stats {stats}; step time (chunk median / "
+        f"{C4_CHUNK}) {np.median(secs) * 1e3 / C4_CHUNK:.3f} ms; peak "
+        f"memory by card {card_peaks} on {card_line()}")
+    log(f"  launches: {counts}")
+    if not (np.all(np.isfinite(losses)) and np.array_equal(losses, again)):
+        raise AssertionError(f"path M(iii): losses not finite or not "
+                             f"repeated: {losses} against {again}")
+    if stats.get("batches_sampled") != 4 * J_CHUNKS * C4_CHUNK:
+        raise AssertionError(f"path M(iii) sampled {stats}")
+    require_launched(counts, J_FORMS, "on path M(iii)")
+    log("  the second run equal to the first bit for bit, the replicas "
+        "equal to the bit")
+    del tr4
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def m_entry_points(cards) -> list:
+    """Path M(v): ``run.main`` over every visible card: config4 with --dp 4
+    (one epoch cut to 8 steps, ``MinibatchTrainer.fit``'s
+    ``steps_per_epoch`` set under the run; its graph cut to its
+    max_drugs, 16,384, as phase 8 cuts it, so that the sampled evaluation
+    of its val and test pairs takes seconds) and config5 (one epoch, its
+    4 graph shards spread over the cards), each exiting normally with
+    finite losses, AUCs in (0, 1) and its mesh over the cards. Returns the
+    runs' counts."""
+    from bignn_tpu_torch import run
+
+    import shutil
+
+    from bignn_tpu_torch.config import get_config
+
+    def cut(name):  # config4's graph cut to its max_drugs, as phase 8's
+        cfg = get_config(name)
+        if name != "config4":
+            return cfg
+        return dataclasses.replace(cfg, dataset_kwargs=dict(
+            cfg.dataset_kwargs, num_drugs=cfg.max_drugs))
+
+    fit = run.MinibatchTrainer.fit
+
+    def short_fit(self, *a, **k):  # an epoch of 8 steps
+        return fit(self, *a, **{**k, "steps_per_epoch": 8})
+
+    counts = []
+    for argv in (["--config", "config4", "--dp", "4", "--epochs", "1"],
+                 ["--config", "config5", "--epochs", "1"]):
+        run_dir = M_LOGS / argv[1]
+        shutil.rmtree(run_dir, ignore_errors=True)
+        reset_counts()
+        with mock.patch.object(run, "get_config", cut), \
+                mock.patch.object(run.MinibatchTrainer, "fit", short_fit):
+            res = _timed_main(run.main, [*argv, "--run-dir", str(run_dir)],
+                              "run " + " ".join(argv))
+        counts.append(read_counts())
+        records = [json.loads(line) for line in
+                   (run_dir / "metrics.jsonl").read_text().splitlines()]
+        mesh = [r for r in records if r.get("event") == "mesh"]
+        aucs = [v for k, v in res.items() if k.endswith("_auc")]
+        log(f"  losses {[r['loss'] for r in res['history']]}, test_auc "
+            f"{res['test_auc']:.6f}, mesh {mesh}")
+        if not (all(np.isfinite(r["loss"]) for r in res["history"])
+                and all(0.0 < a < 1.0 for a in aucs) and len(mesh) == 1
+                and len(set(mesh[0]["devices"])) == min(4, len(cards))):
+            raise AssertionError(f"run {argv}: {res}; mesh {mesh}")
+        shutil.rmtree(run_dir, ignore_errors=True)
+    require_launched(counts[1], ("all_to_all:f32:cards",),
+                     "on run --config config5")
+    return counts
+
+
+def m_processes(cards, ref: dict) -> None:
+    """Path M(vi): path K's worker as 4 processes, one card each
+    (``init_distributed`` gives each its index among the host's
+    processes), config5's graph 4 (one shard a process), the exchange
+    ``make_exchange`` picks (``PeerExchange``: staging buffers on each
+    card, read through peer access): every process's losses and
+    parameters equal to path M(ii)'s bit for bit (a card in one process
+    plays a process's part: ``parallel/comm.py``)."""
+    t0 = time.perf_counter()
+    outs = _k_step_pair("m_step", procs=4)
+    for w in outs:
+        log(f"  process {w['rank']} on {w['device']}: losses {w['losses']}, "
+            f"parameters {w['digest'][:16]}, median step "
+            f"{w['median_ms']:.3f} ms, launches {w['launches']}")
+    if len({w["device"] for w in outs}) != min(4, len(cards)):
+        raise AssertionError(f"path M(vi): devices {[w['device'] for w in outs]}")
+    bad = [w["rank"] for w in outs
+           if (w["losses"], w["digest"]) != (ref["losses"], ref["digest"])]
+    if bad:
+        raise AssertionError(f"path M(vi): processes {bad} differ from path "
+                             f"M(ii)'s {ref['losses']} ({ref['digest'][:16]})")
+    log(f"  every process's losses and parameters equal to path M(ii)'s bit "
+        f"for bit ({time.perf_counter() - t0:.1f} s)")
+
+
+# ---------------------------------------------------------------------------
 # path L: the samplers' learning gate on the card
 # ---------------------------------------------------------------------------
 
@@ -4273,8 +4775,9 @@ def run_learning_gate(dev) -> list:
 
 
 def worker(argv: list) -> int:
-    """``--worker step --rank R --port P [--route hosts]``: one process of
-    path K(i) (or K(v)); its result is the last line of its output."""
+    """``--worker step --rank R --port P [--route hosts] [--procs N
+    --no-times]``: one process of path K(i) (or K(v), or of path M(vi)'s
+    N); its result is the last line of its output."""
     import argparse
 
     ap = argparse.ArgumentParser(prog="chip_smoke.py --worker")
@@ -4282,9 +4785,11 @@ def worker(argv: list) -> int:
     ap.add_argument("--rank", type=int, required=True)
     ap.add_argument("--port", type=int, required=True)
     ap.add_argument("--route", choices=["auto", "hosts"], default="auto")
+    ap.add_argument("--procs", type=int, default=K_PROCS)
+    ap.add_argument("--no-times", dest="times", action="store_false")
     args = ap.parse_args(argv)
-    print(json.dumps(k_worker_step(args.rank, args.port, args.route)),
-          flush=True)
+    print(json.dumps(k_worker_step(args.rank, args.port, args.route,
+                                   args.procs, args.times)), flush=True)
     return 0
 
 
@@ -4296,6 +4801,8 @@ def main() -> int:
         raise SystemExit(f"chip_smoke: unknown arguments {sys.argv[1:]}")
     t_start = time.perf_counter()
     dev = check_device()
+    # path M's cards: every visible card up to M_CARDS, none on one card
+    cards = visible_cards() if torch.cuda.device_count() >= 2 else []
     log("== build")
     build_kernels()
 
@@ -4398,11 +4905,20 @@ def main() -> int:
         "times; (i) config4 on dp = 2")
     path_j0 = time.perf_counter()
     path_j = run_dp_config4(dev, large, c4_trainer)
+    path_m = []
+    if cards:
+        log(f"== path M(iii): config4 on dp = 4 over {len(cards)} cards, "
+            "beside phase 9's trainer")
+        path_m.append(m_config4(cards, large, c4_trainer))
     del large, c4_trainer
     gc.collect()
     torch.cuda.empty_cache()
     log("== path J(ii): config2's Trainer on dp = 4; (iii) tp")
     path_j += run_dp_tp_config2(dev, ds)
+    if cards:
+        log(f"== path M(iv): config2's Trainer on dp = 4, and tp, over "
+            f"{len(cards)} cards")
+        path_m += run_dp_tp_config2(dev, ds, cards)
     log("== path J(iv): run --dp 2, config2 and config3 --exact-eval")
     path_j += run_dp_entry_points(dev)
     counts += path_j
@@ -4440,6 +4956,28 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     k_rows = run_multiprocess(g_ref, one_run)
+    m_results, m_main = {}, []
+    if cards:
+        path_m0 = time.perf_counter()
+        log(f"== path M: one process over {len(cards)} cards; (i) row 9 "
+            "across the cards")
+        m_results = m_exchange(cards, link_rate())
+        log("== path M(ii): config5's p2 step, its 4 graph shards over the "
+            "cards")
+        m2, m_ref = m_p2(cards, ds, g_ref)
+        log("== path M(v): run --dp 4 (config4) and run --config config5 "
+            "over the cards")
+        m5 = m_entry_points(cards)
+        log("== path M(vi): path K as 4 processes, a card each")
+        m_processes(cards, m_ref)
+        m_main = [m2, m5[1]]  # the exchange at config5's shapes
+        path_m += [m2, *m5]
+        counts += path_m
+        log(f"path M: {time.perf_counter() - path_m0:.1f} s after path K "
+            f"(M(iii) and M(iv) ran beside path J) on {card_line()}")
+    else:
+        log("== path M: needs two or more cards, this machine shows "
+            f"{torch.cuda.device_count()}: not run")
     log("== path L: the samplers' learning gate, 3 seeds a mode")
     counts += run_learning_gate(dev)
     for r in (fwd, fwd_bf16, bwd, c4, spmm, smax, spmm_bf16, a2a, a2a_small):
@@ -4457,7 +4995,8 @@ def main() -> int:
 
     kernels = [row(form, form, counts) for form in KERNELS
                if form not in ("all_to_all:f32:procs",
-                               "all_to_all:f32:hosts")]
+                               "all_to_all:f32:hosts",
+                               "all_to_all:f32:cards")]
     # the exchange timed at config5's send buffers too, with the launches
     # of paths G and G(ii), which give it that shape; then across the
     # processes of path K, at config5's send buffers, with their launches:
@@ -4465,6 +5004,25 @@ def main() -> int:
     kernels.append(row("all_to_all:f32 (config5)", "all_to_all:f32",
                        p2_counts))
     kernels += k_rows
+    # across the cards of one process (path M): at config5's send buffers,
+    # with the launches of M(ii) and of M(v)'s config5 run, and the
+    # numbers at config5-large's beside them; on one card nothing ran
+    source, tpu = KERNELS["all_to_all:f32:cards"]
+    cards_row = {"name": "all_to_all:f32:cards", "route": "cuda",
+                 "source": source, "replaces": tpu,
+                 "launches": sum(c["all_to_all:f32:cards"] for c in m_main),
+                 **{k: None for k in ("max_abs_err", "ms", "plain_ms",
+                                      "bound_ms", "bound_by",
+                                      "library_ms")}}
+    if m_results:
+        cards_row.update(m_results["all_to_all:f32:cards"])
+        large = m_results["all_to_all:f32:cards (config5-large)"]
+        cards_row.update({f"{k}_config5_large": v for k, v in large.items()
+                          if k in ("max_abs_err", "ms", "plain_ms",
+                                   "bound_ms", "exchange_ms")})
+    else:
+        cards_row["note"] = "path M needs two or more cards"
+    kernels.append(cards_row)
     # rows 4 and 8 at the other shapes the paths give them, each with the
     # launches of the paths that run that shape: the 100K graph in bf16
     # (7b), the 16,384-drug graph (8 in f32, 8b in bf16), shard 0 of path

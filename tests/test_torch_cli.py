@@ -413,7 +413,7 @@ def _resume_minibatch(tmp_path, opt: str) -> None:
     update is held on one set of gradients because GAT's ``a_l`` gradient
     cancels to rounding noise, which Adam's first steps scale to ~lr
     whatever its size."""
-    from bignn_tpu_torch.parallel.dp import optimizer_step
+    from bignn_tpu_torch.parallel import Replicas
 
     kw = OPTIMIZERS[opt]
     jcfg = dataclasses.replace(_tiny("config3", jax=True, **kw),
@@ -499,7 +499,7 @@ def _resume_minibatch(tmp_path, opt: str) -> None:
     restore()
     named = dict(tr.model.named_parameters())
     raw = bridge.params_from_jax(jax.tree.map(np.asarray, jgrads))
-    optimizer_step(tr.optimizer, lambda: sum(
+    Replicas(tr.model, tr.optimizer, [tr.device]).update(lambda: sum(
         (p * raw[name]).sum() for name, p in named.items()),
         cfg.train.grad_clip)
     want = bridge.params_from_jax(jax.tree.map(np.asarray, want_params))

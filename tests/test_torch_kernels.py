@@ -1522,6 +1522,45 @@ def test_all_to_all_refuses_on_card(cuda_device):
         ops.all_to_all(many)
 
 
+# across the cards of one process (a mesh over distinct cards): each card
+# launches on its own destinations, reading peers' buffers through peer
+# access; (G, S, F, shards a card): config5's (one a card), two a card
+# (local and peer chunks in one launch), and a narrow bf16 payload
+A2A_CARDS_CASES = {"config5": (4, "f32", 432, 132, 1),
+                   "two_a_card": (8, "f32", 33, 132, 2),
+                   "bf16_narrow": (4, "bf16", 5, 3, 1)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(A2A_CARDS_CASES))
+def test_all_to_all_across_cards_matches_plain(case):
+    """Bit for bit against the plain version, forward and backward (the
+    exchange of the cotangents); one launch a card each way, counted under
+    ``:cards``. Skips with fewer than two cards."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA cards")
+    g, t, s, f, per = A2A_CARDS_CASES[case]
+    n_cards = min(torch.cuda.device_count(), g // per)
+    devices = [torch.device("cuda", j * n_cards // g) for j in range(g)]
+    host = _a2a_bufs("cpu", g, t, s, f)
+    ct = _a2a_bufs("cpu", g, t, s, f, seed=1)
+    bufs = [b.to(d).requires_grad_() for b, d in zip(host, devices)]
+    key = t + ":cards"
+    before = ops.all_to_all.launches_by_dtype.get(key, 0)
+    out = ops.all_to_all(bufs)
+    torch.autograd.backward(out, [c.to(d) for c, d in zip(ct, devices)])
+    for d in set(devices):
+        torch.cuda.synchronize(d)
+    want = ops.all_to_all_plain(host)
+    want_g = ops.all_to_all_plain(ct)
+    for o, w, d in zip(out, want, devices):
+        assert o.device == d and torch.equal(o.cpu(), w), case
+    for b, w in zip(bufs, want_g):
+        assert torch.equal(b.grad.cpu(), w), case
+    assert (ops.all_to_all.launches_by_dtype.get(key, 0) - before
+            == 2 * len(set(devices)))
+
+
 # ---------------------------------------------------------------------------
 # segment sum: the row widths, alignments and id layouts of csrc/segment_sum.cu
 # ---------------------------------------------------------------------------

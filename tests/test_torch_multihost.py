@@ -33,6 +33,8 @@ and leaves its results under DIR; the tests read them:
   bit (losses, result, last checkpoint), as tests/test_torch_cli.py's
   one-process resume.
 * (e) ``overlap=True`` and ``remat=True`` across 2 processes, as (b).
+* (g) one process over 2 "cards" (CPU slots, ``make_cards_train_step``)
+  against 2 processes of one shard each: the same bits.
 * (f) ``make_exchange``'s route by the gathered hosts (the gathered list
   set in turn) and cards: ``PeerExchange`` on one card of one host,
   ``ProcessExchange`` across hosts, across cards and on the CPU; and, with no
@@ -64,12 +66,14 @@ from bignn_tpu_torch.config import get_config  # noqa: E402
 from bignn_tpu_torch.data import make_synthetic_ddi  # noqa: E402
 from bignn_tpu_torch.models import BiGNN, BiGNNConfig  # noqa: E402
 from bignn_tpu_torch.parallel import (  # noqa: E402
+    CardExchange,
     build_outer_partition,
     build_sharded_inner,
     device_put_plan,
     gather_rows,
     init_distributed,
     make_exchange,
+    make_cards_train_step,
     make_hybrid_mesh,
     make_mesh,
     make_p2_train_step,
@@ -99,6 +103,9 @@ CASES = {
                 False, 1, 4, 3, 9),
     "remat": ("parallel", ("gat:16:2:identity",), 1, 4, False, True, 1, 4,
               3, 9),
+    # one shard a process: what one process over 2 cards must repeat
+    "cards": ("parallel", ("gin:16", "gat:16:2:identity"), 1, 2, False,
+              False, 1, 4, 3, 9),
 }
 
 
@@ -109,10 +116,12 @@ def _dataset(name):
     return make_synthetic_ddi(**KW)
 
 
-def _p2_case(name: str, multi: bool) -> dict:
+def _p2_case(name: str, multi: bool, cards: bool = False) -> dict:
     """One p2 step of case ``name``, across the group's processes
-    (``multi``) or in this one; the loss, the parameters after the step,
-    their checksum (JAX's: the sum of |p|) and a digest of their bits."""
+    (``multi``) or in this one (with ``cards``, over a "card" a shard:
+    ``make_cards_train_step`` on CPU slots); the loss, the parameters after
+    the step, their checksum (JAX's: the sum of |p|) and a digest of their
+    bits."""
     data, outer, dp, graph, overlap, remat, seed, pos_seed, tail, key = (
         CASES[name])
     ds = _dataset(data)
@@ -130,10 +139,15 @@ def _p2_case(name: str, multi: bool) -> dict:
                                  graph)
     inner = build_sharded_inner(ds.molecules, plan, split_boundary=overlap)
     plan_d = device_put_plan(mesh, plan, inner, cfg.inner_layers)
-    step = make_p2_train_step(
-        model, torch.optim.Adam(model.parameters(), lr=1e-3), mesh,
-        ds.num_drugs, overlap=overlap, remat=remat,
-        exchange=make_exchange(mesh))
+    optimizer = torch.optim.Adam(model.parameters(), lr=1e-3)
+    if cards:
+        step = make_cards_train_step(
+            model, optimizer, CardExchange(["cpu"] * graph, range(graph)),
+            ds.num_drugs, overlap=overlap, remat=remat, dp=dp)
+    else:
+        step = make_p2_train_step(model, optimizer, mesh, ds.num_drugs,
+                                  overlap=overlap, remat=remat,
+                                  exchange=make_exchange(mesh))
     pos = np.random.default_rng(pos_seed).integers(
         0, ds.num_drugs, (16, 2)).astype(np.int32)
     mask = np.ones(16, np.float32)
@@ -432,6 +446,18 @@ def test_two_processes_match_one_process(workers, case):
     for name, want in one["params"].items():
         np.testing.assert_allclose(got["params"][name].numpy(),
                                    want.numpy(), **STEP_TOL, err_msg=name)
+
+
+def test_cards_step_equals_two_processes(workers):
+    """One process over 2 "cards" (CPU slots, a graph shard each) takes the
+    same step as 2 processes of a shard each, bit for bit: the loss, every
+    parameter and every gradient (``parallel/comm.py``: a card plays a
+    process's part)."""
+    _, results = workers
+    got = _p2_case("cards", multi=False, cards=True)
+    for r in results:
+        assert (r["cards"]["loss"], r["cards"]["digest"]) == (
+            got["loss"], got["digest"])
 
 
 def test_exchange_across_processes_is_exact(workers):

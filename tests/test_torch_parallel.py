@@ -54,6 +54,7 @@ from bignn_tpu_torch.parallel import (
     make_mesh,
     make_p2_score_fn,
     make_p2_train_step,
+    shard_device,
 )
 from bignn_tpu_torch.parallel.halo import dist_gin_apply
 from bignn_tpu_torch.sparse import (
@@ -287,24 +288,35 @@ def test_make_mesh():
     mesh = make_mesh(dp=2, graph=2, devices=["cpu"] * 4)
     assert mesh.shape == {"dp": 2, "graph": 2}
     assert mesh.local_graph == [0, 1] and mesh.process_count == 1
-    assert mesh.device == torch.device("cpu")
+    assert mesh.first_device == torch.device("cpu")
+    assert mesh.cards == [torch.device("cpu")]
     with pytest.raises(ValueError):
         make_mesh(dp=2, graph=3, devices=["cpu"] * 4)
-    with pytest.raises(NotImplementedError):
-        make_mesh(dp=1, graph=2, devices=["cuda:0", "cuda:1"])
+    # distinct cards form a mesh (no card is touched to build it), each
+    # entry on its own device, as JAX's single controller over its chips
+    cards = [torch.device("cuda", i) for i in range(4)]
+    mesh = make_mesh(dp=1, graph=2, devices=["cuda:0", "cuda:1"])
+    assert mesh.devices.tolist() == [cards[:2]]
+    assert mesh.first_device == cards[0] and mesh.cards == cards[:2]
+    mesh = make_mesh(dp=1, graph=4, devices=cards)
+    assert [shard_device(mesh, j) for j in range(4)] == cards
+    mesh = make_mesh(dp=4, devices=cards)
+    assert mesh.shape == {"dp": 4, "graph": 1}
+    assert mesh.devices[:, 0].tolist() == cards
     with pytest.raises(NotImplementedError):
         make_mesh(dp=2, graph=1, devices=["cpu", "cuda:0"])
     # the tp axis (JAX bignn_tpu/parallel/mesh.py:31-39)
     mesh = make_mesh(dp=2, tp=2, devices=["cpu"] * 4)
     assert mesh.shape == {"dp": 2, "tp": 2}
-    assert mesh.device == torch.device("cpu")
+    assert mesh.first_device == torch.device("cpu")
     assert make_mesh(tp=4, devices=["cpu"] * 8).shape == {"dp": 2, "tp": 4}
     with pytest.raises(ValueError, match="don't compose"):
         make_mesh(dp=1, graph=2, tp=2, devices=["cpu"] * 2)
     with pytest.raises(ValueError, match="device count"):
         make_mesh(dp=3, tp=2, devices=["cpu"] * 4)
-    with pytest.raises(NotImplementedError, match="one card a process"):
-        make_mesh(dp=1, tp=2, devices=["cuda:0", "cuda:1"])
+    mesh = make_mesh(dp=1, tp=2, devices=["cuda:0", "cuda:1"])
+    assert mesh.shape == {"dp": 1, "tp": 2}
+    assert mesh.devices.tolist() == [cards[:2]]
 
 
 # ---------------------------------------------------------------------------
