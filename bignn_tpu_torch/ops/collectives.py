@@ -28,24 +28,31 @@ block on its own card's stream and cannot see a read from another card,
 never hands out a send buffer still being read.
 
 Across processes (the multi-process p2 run), ``all_to_all(sendbufs,
-exchange)`` takes this process's shards' send buffers (each ``[G, ...]``)
-and returns their receive buffers, through ``exchange``, built
-collectively once per mesh (``parallel.comm.make_exchange``).
-``ProcessExchange`` is the route between hosts, and the CPU's: each
-process sends every other one only the chunks that process's shards need,
-through the process group (one gloo ``all_to_all_single`` over host
-copies, pinned for a card), and the receive buffers are written from the
-local chunks and the arrivals (on a card one launch of the kernel on this
-process's destinations, counted under ``all_to_all:<dtype>:hosts``).
-Its ``all_to_all_plain`` gathers every process's whole send buffers
-instead: the plain version. When every process runs on one host with
-cards that reach each other, ``PeerExchange`` copies the send buffers
-into a staging buffer that every process maps by CUDA IPC (on its own
-card or a peer card), and one launch of the kernel pulls this process's
-receive buffers from every source; its launches count under
-``all_to_all:<dtype>:procs``. The same objects give the rank-order
-all-gather and sum that keep the replicated state equal in every process
-(``parallel/comm.py``). A mix of device types raises.
+exchange)`` takes this process's shards' send buffers (each ``[G, ...]``,
+on its shard's device: one card, or several cards of the process, as a
+JAX process drives its host's chips) and returns their receive buffers,
+through ``exchange``, built collectively once per mesh
+(``parallel.comm.make_exchange``). ``ProcessExchange`` is the route
+between hosts, and the CPU's: each process sends every other one only the
+chunks that process's shards need, through the process group (one gloo
+``all_to_all_single`` over host copies from each local card, pinned), and
+each local card writes its receive buffers from the local chunks (a local
+peer's read through peer access) and the arrivals (one launch of the
+kernel a card on its run of destinations, counted under
+``all_to_all:<dtype>:hosts``). Its ``all_to_all_plain`` gathers every
+process's whole send buffers instead: the plain version. When every
+process runs on one host with cards that reach each other,
+``PeerExchange`` copies each local card's send buffers into a staging
+buffer on that card that every other process maps by CUDA IPC, and one
+launch a local card pulls its receive buffers from every source: a local
+send buffer (through peer access from another local card) or another
+process's staging buffer; its launches count under
+``all_to_all:<dtype>:procs``. Between the staging copies and the launches,
+and again after the launches, every local card's stream is synchronised
+and the processes meet at a barrier. The same objects give the all-gather
+and the ordered sum, one term a card of every process in (process, card)
+order, that keep the replicated state equal in every process and on every
+card (``parallel/comm.py``). A mix of device types raises.
 """
 
 from __future__ import annotations
@@ -131,6 +138,31 @@ def all_to_all_plain(sendbufs: Sequence[torch.Tensor],
     return [stacked[:, j].contiguous() for j in range(stacked.shape[1])]
 
 
+def _pull(dev: torch.device, sources: Sequence[int],
+          recv: Sequence[torch.Tensor], j_begin: int, chunk: int,
+          suffix: str) -> None:
+    """One launch of the kernel on ``dev``: slot ``j_begin + jj`` of every
+    source into ``recv[jj]`` (slot i from source i), ``sources`` the base
+    pointers of the G sources as the kernel reads them (slot j at ``j *
+    chunk`` bytes). The launch counts under ``all_to_all:<dtype><suffix>``,
+    and on ``dev`` (``launches_by_device``)."""
+    g, n = len(sources), len(recv)
+    if g > MAX_SHARDS or not 0 <= j_begin <= g - n:
+        raise ValueError(f"all_to_all kernel takes at most {MAX_SHARDS} "
+                         f"shards and a range of their destinations, got "
+                         f"{n} from {j_begin} of {g}")
+    if not chunk:
+        return
+    send_ptrs = (ctypes.c_void_p * g)(*sources)
+    recv_ptrs = (ctypes.c_void_p * n)(*(r.data_ptr() for r in recv))
+    cuda_lib.launch("bignn_all_to_all", dev, send_ptrs, recv_ptrs, g,
+                    j_begin, n, chunk)
+    cuda_lib.count(all_to_all, recv[0].dtype, suffix=suffix)
+    key = str(dev)
+    all_to_all.launches_by_device[key] = (
+        all_to_all.launches_by_device.get(key, 0) + 1)
+
+
 def all_to_all_launch(bufs: Sequence[torch.Tensor], j_begin: int = 0,
                       suffix: str = "") -> list[torch.Tensor]:
     """Run the kernel on the G contiguous CUDA buffers ``bufs``, each ``[n,
@@ -140,30 +172,22 @@ def all_to_all_launch(bufs: Sequence[torch.Tensor], j_begin: int = 0,
     each source's base pointer set back by ``j_begin`` slots so that the
     kernel's slot j lands on row ``j - j_begin``). Its launch counts
     under ``all_to_all:<dtype><suffix>``."""
-    g, n = len(bufs), bufs[0].shape[0]
+    n = bufs[0].shape[0]
     dev = bufs[0].device
     if dev.type != "cuda":
         raise ValueError(f"all_to_all send buffers must be CUDA tensors, "
                          f"got {dev}")
-    if g > MAX_SHARDS or not 0 <= j_begin <= g - n:
-        raise ValueError(f"all_to_all kernel takes at most {MAX_SHARDS} "
-                         f"shards and a range of their destinations, got "
-                         f"{n} from {j_begin} of {g}")
-    recv = [bufs[0].new_empty((g, *bufs[0].shape[1:])) for _ in range(n)]
+    recv = [bufs[0].new_empty((len(bufs), *bufs[0].shape[1:]))
+            for _ in range(n)]
     chunk = bufs[0][0].numel() * bufs[0].element_size()
-    if chunk:
-        send_ptrs = (ctypes.c_void_p * g)(
-            *(b.data_ptr() - j_begin * chunk for b in bufs))
-        recv_ptrs = (ctypes.c_void_p * n)(*(r.data_ptr() for r in recv))
-        cuda_lib.launch("bignn_all_to_all", dev, send_ptrs, recv_ptrs, g,
-                        j_begin, n, chunk)
-        cuda_lib.count(all_to_all, bufs[0].dtype, suffix=suffix)
+    _pull(dev, [b.data_ptr() - j_begin * chunk for b in bufs], recv, j_begin,
+          chunk, suffix)
     return recv
 
 
-def _runs(devices: Sequence[torch.device]) -> list[tuple[int, int]]:
+def _runs(devices: Sequence) -> list[tuple[int, int]]:
     """``(first, count)`` of each run of consecutive shards on one
-    device."""
+    device (or card slot)."""
     runs = []
     for j, d in enumerate(devices):
         if runs and devices[runs[-1][0]] == d:
@@ -171,6 +195,24 @@ def _runs(devices: Sequence[torch.device]) -> list[tuple[int, int]]:
         else:
             runs.append((j, 1))
     return runs
+
+
+def _events(cards: Sequence[torch.device]) -> list:
+    """An event recorded on each card's current stream."""
+    events = []
+    for c in cards:
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(c))
+        events.append(ev)
+    return events
+
+
+def _wait(cards: Sequence[torch.device], events: Sequence) -> None:
+    """Every card's current stream waits on every event."""
+    for c in cards:
+        stream = torch.cuda.current_stream(c)
+        for ev in events:
+            stream.wait_event(ev)
 
 
 def all_to_all_cards(bufs: Sequence[torch.Tensor]) -> list[torch.Tensor]:
@@ -181,43 +223,21 @@ def all_to_all_cards(bufs: Sequence[torch.Tensor]) -> list[torch.Tensor]:
     module docstring; each launch counts under ``all_to_all:<dtype>:cards``.
     """
     bufs = list(bufs)
-    g = len(bufs)
-    if g > MAX_SHARDS:
-        raise ValueError(f"all_to_all kernel takes at most {MAX_SHARDS} "
-                         f"shards, got {g}")
     devices = [b.device for b in bufs]
     cards = list(dict.fromkeys(devices))
     enable_peer_access(cards)
-    streams = {c: torch.cuda.current_stream(c) for c in cards}
-    written = []  # every source's send buffers are written
-    for c in cards:
-        ev = torch.cuda.Event()
-        ev.record(streams[c])
-        written.append(ev)
-    recv: list[torch.Tensor] = [None] * g
+    _wait(cards, _events(cards))  # every source's send buffers are written
+    recv: list[torch.Tensor] = [None] * len(bufs)
     chunk = bufs[0][0].numel() * bufs[0].element_size()
+    # whole send buffers: the kernel reads slot j0 + jj of each
+    sources = [b.data_ptr() for b in bufs]
     for j0, n in _runs(devices):
         c = devices[j0]
-        for ev in written:
-            streams[c].wait_event(ev)
         with torch.cuda.device(c):
-            out = [bufs[j0].new_empty(bufs[j0].shape) for _ in range(n)]
-        recv[j0:j0 + n] = out
-        if chunk:
-            # whole send buffers: the kernel reads slot j0 + jj of each
-            send_ptrs = (ctypes.c_void_p * g)(*(b.data_ptr() for b in bufs))
-            recv_ptrs = (ctypes.c_void_p * n)(*(r.data_ptr() for r in out))
-            cuda_lib.launch("bignn_all_to_all", c, send_ptrs, recv_ptrs, g,
-                            j0, n, chunk)
-            cuda_lib.count(all_to_all, bufs[0].dtype, suffix=":cards")
-    done = []  # every reader's launches are done
-    for c in cards:
-        ev = torch.cuda.Event()
-        ev.record(streams[c])
-        done.append(ev)
-    for c in cards:
-        for ev in done:
-            streams[c].wait_event(ev)
+            recv[j0:j0 + n] = [bufs[j0].new_empty(bufs[j0].shape)
+                               for _ in range(n)]
+        _pull(c, sources, recv[j0:j0 + n], j0, chunk, ":cards")
+    _wait(cards, _events(cards))  # every reader's launches are done
     return recv
 
 
@@ -258,6 +278,7 @@ def all_to_all(sendbufs: Sequence[torch.Tensor],
 
 
 cuda_lib.counter(all_to_all)
+all_to_all.launches_by_device = {}  # launches by card (str(device))
 
 
 # ---------------------------------------------------------------------------
@@ -268,7 +289,8 @@ cuda_lib.counter(all_to_all)
 class _ProcsAllToAll(torch.autograd.Function):
     """The exchange across processes; its backward the same exchange of
     the cotangents, which every process runs in the same order as its
-    forward exchanges, reversed."""
+    forward exchanges, reversed. One node over every local card, so that
+    it runs once however many cards' backward threads feed it."""
 
     @staticmethod
     def forward(ctx, exchange, *bufs):
@@ -281,6 +303,14 @@ class _ProcsAllToAll(torch.autograd.Function):
                                                for g in grads]))
 
 
+def _cuda(d) -> torch.device:
+    """``d`` as a device, ``cuda`` without an index as the current card."""
+    d = torch.device(d)
+    if d.type == "cuda" and d.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return d
+
+
 class ProcessExchange:
     """The data plane between the processes of the group, through the
     process group (``torch.distributed``, gloo) and the host: the route
@@ -290,26 +320,70 @@ class ProcessExchange:
     ``local``: this process's graph shards of ``num_shards``, a contiguous
     run; in rank order the processes' runs cover ``range(num_shards)``
     (the host-major layout of ``make_hybrid_mesh``), so a rank-order
-    gather is in shard order."""
+    gather is in shard order. ``devices``: every local shard's device.
+    ``card_of``: each local shard's card, runs of consecutive shards
+    (default: by device; the CPU tests give the CPU several card slots).
+    ``cards`` are the cards' devices, ``heads`` each
+    card's first local shard; every process holds as many shards and
+    cards, ``total_cards`` in all. Cards of this process read each other's
+    send buffers by peer access (enabled at the first exchange; a pair
+    without it raises)."""
 
-    def __init__(self, num_shards: int, local: Sequence[int],
-                 device: str | torch.device):
+    def __init__(self, num_shards: int, local: Sequence[int], devices,
+                 card_of: Sequence[int] | None = None):
         if not dist.is_initialized():
             raise ValueError("an exchange across processes needs a process "
                              "group (parallel.init_distributed)")
         self.num_shards = int(num_shards)
         self.local = [int(j) for j in local]
-        self.device = torch.device(device)
+        self.devices = [_cuda(d) for d in devices]
+        if len(self.devices) != len(self.local):
+            raise ValueError(f"{len(self.devices)} devices for "
+                             f"{len(self.local)} local shards")
+        if card_of is None:
+            order = list(dict.fromkeys(self.devices))
+            card_of = [order.index(d) for d in self.devices]
+        self.card_of = [int(c) for c in card_of]
+        if [self.card_of[j0] for j0, _ in _runs(self.card_of)] != list(
+                range(len(set(self.card_of)))):
+            raise ValueError(f"cards {self.card_of}: each card's shards "
+                             "are one run, cards numbered in order")
+        self.heads = [self.card_of.index(c)
+                      for c in range(len(set(self.card_of)))]
+        self.cards = [self.devices[j] for j in self.heads]
+        self.device = self.devices[0]
         self.rank, self.size = dist.get_rank(), dist.get_world_size()
         self.sent_bytes = 0  # through the process group, by exchange()
-        self._copy_stream = None  # exchange()'s own, made at first use
-        self.owners = [None] * self.size
-        dist.all_gather_object(self.owners, self.local)
+        self._copy_streams: dict = {}  # exchange()'s own, made at first use
+        layouts = [None] * self.size
+        dist.all_gather_object(layouts, (self.local, self.card_of))
+        self.owners = [run for run, _ in layouts]
+        self.cards_of = [cards for _, cards in layouts]
         if [j for run in self.owners for j in run] != list(
                 range(self.num_shards)):
             raise ValueError(
                 f"the processes' graph shards {self.owners} do not lie "
                 f"host-major over range({self.num_shards})")
+        if len({(len(run), max(cards)) for run, cards in layouts}) != 1:
+            raise ValueError(f"the processes hold shards {self.owners} on "
+                             f"cards {self.cards_of}: every process as many")
+        self.total_cards = self.size * len(self.cards)
+
+    def _check_devices(self, bufs: Sequence[torch.Tensor]) -> None:
+        """Each send buffer on its shard's device, and peer access between
+        the local cards (enabled once; a pair without it raises)."""
+        for b, d in zip(bufs, self.devices):
+            if b.device != d:
+                raise ValueError(f"send buffer on {b.device}, its shard's "
+                                 f"device is {d}")
+        if len(self.cards) > 1 and self.device.type == "cuda":
+            enable_peer_access(self.cards)
+
+    def _sync(self) -> None:
+        """Synchronise every local card's current stream."""
+        for c in self.cards:
+            if c.type == "cuda":
+                torch.cuda.current_stream(c).synchronize()
 
     def gather(self, t: torch.Tensor) -> list[torch.Tensor]:
         """Every process's ``t`` (one shape and type everywhere) in rank
@@ -320,93 +394,133 @@ class ProcessExchange:
         dist.all_gather(parts, host)
         return [p.to(t.device) for p in parts]
 
+    def gather_parts(self, parts: Sequence[torch.Tensor]
+                     ) -> list[torch.Tensor]:
+        """Every process's ``parts`` (as many tensors of one shape and type
+        in every process, a card's or a slot's each) in (process, part)
+        order, on this process's first device."""
+        stacked = torch.stack([p.detach().to(self.device) for p in parts])
+        return [x for s in self.gather(stacked) for x in s.unbind(0)]
+
     def all_gather(self, t: torch.Tensor) -> torch.Tensor:
         """The processes' ``t`` concatenated along the first axis, in rank
-        order."""
-        return torch.cat(self.gather(t))
+        order, on this process's first device."""
+        return torch.cat(self.gather_parts([t]))
 
-    def ordered_sum(self, t: torch.Tensor) -> torch.Tensor:
-        """The sum of every process's ``t``, added in rank order, so that
-        every process holds the same bits (no ``all_reduce``, whose order is
-        not the port's to fix)."""
-        parts = self.gather(t)
-        total = parts[0]
-        for p in parts[1:]:
-            total = total + p
+    def ordered_sum(self, parts) -> torch.Tensor:
+        """The sum of every process's ``parts`` (a tensor, or a list of
+        them: one term a card or a slot), added one term at a time in
+        (process, part) order, so that every process holds the same bits
+        (no ``all_reduce``, whose order is not the port's to fix, and no
+        partial sum a process first)."""
+        terms = self.gather_parts(
+            [parts] if isinstance(parts, torch.Tensor) else parts)
+        total = terms[0]
+        for t in terms[1:]:
+            total = total + t
         return total
 
     def all_to_all_plain(self, bufs: Sequence[torch.Tensor]
                          ) -> list[torch.Tensor]:
         """Plain version: every process's send buffers gathered in shard
-        order, ``all_to_all_plain`` over them, this process's slots."""
-        full = self.all_gather(torch.stack(list(bufs)))
+        order, ``all_to_all_plain`` over them, this process's slots, each
+        on its shard's device."""
+        full = self.all_gather(torch.stack([b.to(self.device) for b in bufs]))
         recv = all_to_all_plain(list(full))
-        return [recv[j] for j in self.local]
+        return [recv[j].to(d) for j, d in zip(self.local, self.devices)]
+
+    def _copy_stream(self, c: torch.device):
+        if c not in self._copy_streams:
+            self._copy_streams[c] = torch.cuda.Stream(c)
+        return self._copy_streams[c]
 
     def exchange(self, bufs: Sequence[torch.Tensor]) -> list[torch.Tensor]:
         """This process's receive buffers (the route of ``all_to_all``),
         through the host: the one route that reaches another host, and the
         CPU's. (1) The chunks bound for other processes (slots
         ``owners[q]`` of every local send buffer, for each process q) are
-        copied into one host buffer, pinned for a card, on the exchange's
-        own stream, which is then synchronised; (2) one
+        copied into one pinned host buffer, each from its card on that
+        card's copy stream, and those streams are synchronised; (2) one
         ``dist.all_to_all_single`` (gloo) moves them as bytes, sized per
-        process, nothing for this one; (3) what arrived goes to the
-        device in one copy on that stream, which the current stream
-        waits on; (4) the receive buffers are written from the
-        local send buffers and the arrivals
-        (``all_to_all_launch`` on this process's range of destinations,
-        ``all_to_all_plain`` on the CPU). Only bytes move, so the result is
-        the plain version's exactly."""
+        process, nothing for this one; (3) what arrived goes to each local
+        card in one copy on its copy stream, which the card's current
+        stream waits on; (4) each card writes its receive buffers, one
+        launch on its run of destinations reading the local send buffers
+        (another card's through peer access, between the event barriers of
+        ``all_to_all_cards``) and the arrivals (``all_to_all_plain`` on the
+        CPU). Only bytes move, so the result is the plain version's
+        exactly."""
         bufs = list(bufs)
+        self._check_devices(bufs)
         first = bufs[0]
-        dev = first.device
-        cuda = dev.type == "cuda"
+        cuda = first.device.type == "cuda"
         n_local, lo = len(self.local), self.local[0]
         chunk = first[0].numel() * first.element_size()  # bytes a slot
         sizes = [0 if q == self.rank else n_local * len(run) * chunk
                  for q, run in enumerate(self.owners)]
         send = torch.empty(sum(sizes), dtype=torch.uint8, pin_memory=cuda)
         arrived = torch.empty(sum(sizes), dtype=torch.uint8, pin_memory=cuda)
-        stream = None
         if cuda:
-            if self._copy_stream is None:
-                self._copy_stream = torch.cuda.Stream(dev)
-            stream = self._copy_stream
-            stream.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(stream) if cuda else contextlib.nullcontext():
-            off = 0
-            for q, run in enumerate(self.owners):
-                if q == self.rank:
-                    continue
-                for b in bufs:
-                    part = b[run[0]:run[-1] + 1].reshape(-1).view(torch.uint8)
-                    send[off:off + part.numel()].copy_(part, non_blocking=cuda)
-                    off += part.numel()
-            if cuda:
-                stream.synchronize()  # gloo reads the host buffer
-            dist.all_to_all_single(arrived, send, sizes, sizes)
-            landed = arrived.to(dev, non_blocking=cuda)
-        if cuda:
-            torch.cuda.current_stream(dev).wait_stream(stream)
-            landed.record_stream(torch.cuda.current_stream(dev))
-        self.sent_bytes += send.numel()
-        # every source shard's chunks for this process's destinations,
-        # [n_local, *slot], in shard order
-        slot = tuple(first.shape[1:])
-        sources, off = [], 0
-        for p, run in enumerate(self.owners):
-            if p == self.rank:
-                sources += [b[lo:lo + n_local] for b in bufs]
+            for c in self.cards:
+                self._copy_stream(c).wait_stream(torch.cuda.current_stream(c))
+        off = 0
+        for q, run in enumerate(self.owners):
+            if q == self.rank:
                 continue
-            for _ in run:
-                n = n_local * chunk
-                sources.append(landed[off:off + n].view(first.dtype)
-                               .view(n_local, *slot))
-                off += n
+            for b in bufs:
+                part = b[run[0]:run[-1] + 1].reshape(-1).view(torch.uint8)
+                with (torch.cuda.stream(self._copy_stream(b.device)) if cuda
+                      else contextlib.nullcontext()):
+                    send[off:off + part.numel()].copy_(part, non_blocking=cuda)
+                off += part.numel()
         if cuda:
-            return all_to_all_launch(sources, lo, ":hosts")
-        return all_to_all_plain(sources)
+            for c in self.cards:  # gloo reads the host buffer
+                self._copy_stream(c).synchronize()
+        dist.all_to_all_single(arrived, send, sizes, sizes)
+        self.sent_bytes += send.numel()
+        if not cuda:
+            # every source shard's chunks for this process's destinations,
+            # [n_local, *slot], in shard order
+            slot = tuple(first.shape[1:])
+            sources, off = [], 0
+            for p, run in enumerate(self.owners):
+                if p == self.rank:
+                    sources += [b[lo:lo + n_local] for b in bufs]
+                    continue
+                for _ in run:
+                    n = n_local * chunk
+                    sources.append(arrived[off:off + n].view(first.dtype)
+                                   .view(n_local, *slot))
+                    off += n
+            return all_to_all_plain(sources)
+        landed = {}
+        for c in self.cards:
+            with torch.cuda.stream(self._copy_stream(c)):
+                landed[c] = arrived.to(c, non_blocking=True)
+            torch.cuda.current_stream(c).wait_stream(self._copy_stream(c))
+            landed[c].record_stream(torch.cuda.current_stream(c))
+        if len(self.cards) > 1:
+            _wait(self.cards, _events(self.cards))
+        recv: list[torch.Tensor] = [None] * n_local
+        for k0, n in _runs(self.card_of):
+            c = self.devices[k0]
+            # local sources whole (slot j at j * chunk); an arrived source
+            # holds slots lo.., so its base is set back by lo slots
+            sources, off = [], 0
+            for p, run in enumerate(self.owners):
+                if p == self.rank:
+                    sources += [b.data_ptr() for b in bufs]
+                    continue
+                for _ in run:
+                    sources.append(landed[c].data_ptr() + off - lo * chunk)
+                    off += n_local * chunk
+            with torch.cuda.device(c):
+                recv[k0:k0 + n] = [torch.empty_like(bufs[k0])
+                                   for _ in range(n)]
+            _pull(c, sources, recv[k0:k0 + n], lo + k0, chunk, ":hosts")
+        if len(self.cards) > 1:
+            _wait(self.cards, _events(self.cards))
+        return recv
 
     def close(self) -> None:
         """Free what the exchange holds outside PyTorch's memory (a
@@ -423,110 +537,125 @@ class _CudaArray:
             "strides": None, "version": 2}
 
 
+def _view(ptr: int, like: torch.Tensor, count: int = 1) -> torch.Tensor:
+    """``count`` tensors shaped like ``like`` at device pointer ``ptr`` (one
+    ``[count, *like.shape]`` view, on the card the memory lies on)."""
+    nbytes = count * like.numel() * like.element_size()
+    raw = torch.as_tensor(_CudaArray(ptr, nbytes))
+    return raw.view(like.dtype).view(count, *like.shape)
+
+
 class PeerExchange(ProcessExchange):
     """The exchange across the processes of one host, through CUDA IPC: on
     one card they share, or on cards of their own that reach each other by
     peer access (a staging buffer on a peer's card is read through it).
 
-    Each process owns one staging buffer (``bignn_ipc_alloc``, outside
-    PyTorch's caching allocator) and maps every peer's (``bignn_ipc_open``
-    on the handles traded through the process group). An exchange: (1)
-    this process's send buffers are copied into its staging buffer; (2) its
-    stream is synchronised, then a process-group barrier; (3) one launch of
-    ``bignn_all_to_all`` writes its receive buffers, reading every
-    source from its own or a peer's staging buffer; (4) its stream is
-    synchronised, then a barrier, before any staging buffer is written
-    again. ``all_gather`` and ``ordered_sum`` run the same protocol with
-    PyTorch ops on the mapped buffers in place of the launch. The buffer
-    grows to the largest payload seen (every process sees the same
-    shapes), by a collective re-exchange of the handles. The buffers live
-    until ``close`` (a collective), or the process's end. A failed
-    allocation, IPC open or launch raises."""
+    Each local card owns one staging buffer (``bignn_ipc_alloc``, outside
+    PyTorch's caching allocator), and each local card maps every other
+    process's (``bignn_ipc_open`` on the handles traded through the process
+    group, once a handle a card: CUDA lets each card of a process open a
+    handle once, and a mapping opened on one card is not readable from
+    another, peer access or not: an illegal address on the H100s). An
+    exchange: (1) each card's send buffers
+    are copied into its staging buffer; (2) every local card's stream is
+    synchronised, then a process-group barrier; (3) one launch of
+    ``bignn_all_to_all`` a local card writes its receive buffers, reading
+    every source: a local send buffer (another local card's through peer
+    access) or another process's staging buffer; (4) every local card's
+    stream is synchronised, then a barrier, before any staging buffer or
+    send buffer is written again. ``gather_parts`` (under ``all_gather``
+    and ``ordered_sum``) runs the same protocol on the first card's
+    staging buffers (as the first card maps them) with PyTorch copies in
+    place of the launches. The
+    buffers grow to the largest payload seen (every process sees the same
+    shapes), by a collective re-exchange of the handles, and live until
+    ``close`` (a collective), or the process's end. A failed allocation,
+    IPC open or launch raises."""
 
-    def __init__(self, num_shards: int, local: Sequence[int],
-                 device: str | torch.device):
-        super().__init__(num_shards, local, device)
-        if self.device.type != "cuda":
-            raise ValueError(f"PeerExchange needs a CUDA device, got "
-                             f"{self.device}")
-        if self.device.index is None:
-            self.device = torch.device("cuda", torch.cuda.current_device())
-        self.capacity = 0  # bytes of every process's staging buffer
-        self._own: int | None = None
-        self._peers: list[int] = []  # each process's buffer, as mapped here
+    def __init__(self, num_shards: int, local: Sequence[int], devices,
+                 card_of: Sequence[int] | None = None):
+        super().__init__(num_shards, local, devices, card_of)
+        if any(c.type != "cuda" for c in self.cards) or len(
+                set(self.cards)) != len(self.cards):
+            raise ValueError(f"PeerExchange needs distinct CUDA cards, got "
+                             f"{[str(c) for c in self.cards]}")
+        self.capacity = 0  # bytes of every staging buffer
+        self._own: list[int] = []  # each local card's buffer
+        # [local card][process][its card]: every staging buffer as that
+        # local card maps it (this process's own: their pointers)
+        self._maps: list[list[list[int]]] = []
 
     def _reserve(self, nbytes: int) -> None:
-        """Staging buffers of at least ``nbytes`` in every process (every
-        process asks for the same ``nbytes``)."""
+        """Staging buffers of at least ``nbytes`` on every card of every
+        process (every process asks for the same ``nbytes``)."""
         if nbytes <= self.capacity:
             return
         self.close()
-        ptr = ctypes.c_void_p()
-        cuda_lib.call("bignn_ipc_alloc", self.device, nbytes,
-                      ctypes.byref(ptr))
-        self._own = ptr.value
-        handle = ctypes.create_string_buffer(64)
-        cuda_lib.call("bignn_ipc_handle", self.device, self._own, handle)
+        raws = []
+        for c in self.cards:
+            ptr = ctypes.c_void_p()
+            cuda_lib.call("bignn_ipc_alloc", c, nbytes, ctypes.byref(ptr))
+            self._own.append(ptr.value)
+            handle = ctypes.create_string_buffer(64)
+            cuda_lib.call("bignn_ipc_handle", c, ptr.value, handle)
+            raws.append(handle.raw)
         handles = [None] * self.size
-        dist.all_gather_object(handles, handle.raw)
-        self._peers = []
-        for p, raw in enumerate(handles):
-            if p == self.rank:
-                self._peers.append(self._own)
-                continue
-            mapped = ctypes.c_void_p()
-            cuda_lib.call("bignn_ipc_open", self.device,
-                          ctypes.create_string_buffer(raw, 64),
-                          ctypes.byref(mapped))
-            self._peers.append(mapped.value)
+        dist.all_gather_object(handles, raws)
+        for c in self.cards:
+            maps = []
+            for p, theirs in enumerate(handles):
+                if p == self.rank:
+                    maps.append(list(self._own))
+                    continue
+                mapped = []
+                for raw in theirs:
+                    ptr = ctypes.c_void_p()
+                    cuda_lib.call("bignn_ipc_open", c,
+                                  ctypes.create_string_buffer(raw, 64),
+                                  ctypes.byref(ptr))
+                    mapped.append(ptr.value)
+                maps.append(mapped)
+            self._maps.append(maps)
         self.capacity = nbytes
 
     def close(self) -> None:
-        """Unmap the peers' buffers and free this one's, once no process
-        reads it (a collective)."""
-        if self._own is None:
+        """Unmap the other processes' buffers and free this one's, once no
+        process reads them (a collective)."""
+        if not self._own:
             return
-        torch.cuda.synchronize(self.device)
+        for c in self.cards:
+            torch.cuda.synchronize(c)
         dist.barrier()
-        for p, ptr in enumerate(self._peers):
-            if p != self.rank:
-                cuda_lib.call("bignn_ipc_close", self.device, ptr)
-        dist.barrier()  # no process maps this buffer any more
-        cuda_lib.call("bignn_ipc_free", self.device, self._own)
-        self._own, self._peers, self.capacity = None, [], 0
+        for c, maps in zip(self.cards, self._maps):
+            for p, ptrs in enumerate(maps):
+                if p != self.rank:
+                    for ptr in ptrs:
+                        cuda_lib.call("bignn_ipc_close", c, ptr)
+        dist.barrier()  # no process maps these buffers any more
+        for c, ptr in zip(self.cards, self._own):
+            cuda_lib.call("bignn_ipc_free", c, ptr)
+        self._own, self._maps, self.capacity = [], [], 0
 
-    def _staged(self, p: int, like: torch.Tensor, count: int = 1
-                ) -> torch.Tensor:
-        """Process p's staging buffer as ``count`` tensors shaped like
-        ``like`` (one ``[count, *like.shape]`` view), on the card it lies
-        on: this process's, or a peer's (mapped by IPC, read through peer
-        access)."""
-        nbytes = count * like.numel() * like.element_size()
-        raw = torch.as_tensor(_CudaArray(self._peers[p], nbytes))
-        return raw.view(like.dtype).view(count, *like.shape)
-
-    def _read(self, p: int, like: torch.Tensor) -> torch.Tensor:
-        """Process p's staged tensor on this process's card (a peer copy
-        where it lies on another card)."""
-        return self._staged(p, like)[0].to(self.device)
-
-    def _publish(self, tensors: Sequence[torch.Tensor]) -> None:
-        """Steps (1) and (2): ``tensors`` into this process's staging
-        buffer, then every process's copies done."""
-        first = tensors[0]
-        # the same size in every process: as many tensors as the most
-        # shards a process holds
-        self._reserve(first.numel() * first.element_size()
-                      * max(len(run) for run in self.owners))
-        self._staged(self.rank, first, len(tensors)).copy_(
-            torch.stack([t.detach() for t in tensors]))
-        torch.cuda.current_stream(self.device).synchronize()
+    def _meet(self) -> None:
+        """Every local card's stream synchronised, then every process's."""
+        self._sync()
         dist.barrier()
 
-    def _release(self) -> None:
-        """Step (4): this process's reads done, then every process's."""
-        torch.cuda.current_stream(self.device).synchronize()
-        dist.barrier()
+    def gather_parts(self, parts: Sequence[torch.Tensor]
+                     ) -> list[torch.Tensor]:
+        first = parts[0]
+        if first.device.type != "cuda":
+            return super().gather_parts(parts)
+        n = len(parts)
+        self._reserve(n * first.numel() * first.element_size())
+        _view(self._own[0], first, n).copy_(
+            torch.stack([p.detach().to(self.device) for p in parts]))
+        self._meet()
+        out = [x.to(self.device, copy=True)
+               for p in range(self.size)
+               for x in _view(self._maps[0][p][0], first, n).unbind(0)]
+        self._meet()
+        return out
 
     def exchange(self, bufs: Sequence[torch.Tensor]) -> list[torch.Tensor]:
         if bufs[0].device.type != "cuda":
@@ -534,67 +663,44 @@ class PeerExchange(ProcessExchange):
         return self.launch(bufs)
 
     def launch(self, bufs: Sequence[torch.Tensor]) -> list[torch.Tensor]:
-        """Steps (1)-(4) with one kernel launch: this process's receive
-        buffers."""
+        """Steps (1)-(4) with one kernel launch a local card: this
+        process's receive buffers."""
         bufs = list(bufs)
-        for b in bufs:
-            if b.device != self.device:
-                raise ValueError(f"send buffer on {b.device}, the "
-                                 f"exchange's device is {self.device}")
+        self._check_devices(bufs)
         if self.num_shards > MAX_SHARDS:
             raise ValueError(f"all_to_all kernel takes at most {MAX_SHARDS} "
                              f"shards, got {self.num_shards}")
-        self._publish(bufs)
+        slot = bufs[0].numel() * bufs[0].element_size()
+        most = max(n for cards in self.cards_of for _, n in _runs(cards))
+        self._reserve(most * slot)
+        for k, b in enumerate(bufs):
+            c = self.card_of[k]
+            _view(self._own[c] + (k - self.heads[c]) * slot, b)[0].copy_(b)
+        self._meet()
         recv = [torch.empty_like(b) for b in bufs]
-        self.launch_staged(recv)
-        self._release()
+        self.launch_staged(recv, bufs)
+        self._meet()
         return recv
 
-    def launch_staged(self, recv: Sequence[torch.Tensor]) -> None:
-        """Step (3) alone: one launch into ``recv`` (this process's receive
-        buffers, each shaped like a send buffer) from the staging buffers as
-        they stand, with no copy and no barrier; the caller keeps every
-        process's staging buffer unchanged until it has synchronised."""
+    def launch_staged(self, recv: Sequence[torch.Tensor],
+                      bufs: Sequence[torch.Tensor] | None = None) -> None:
+        """Step (3) alone: one launch a local card into its ``recv`` (this
+        process's receive buffers, each shaped like a send buffer on its
+        shard's device) from the local send buffers ``bufs`` (default:
+        this process's staging buffers) and the other processes' staging
+        buffers as they stand, with no copy and no barrier; the caller
+        keeps every source unchanged until it has synchronised."""
         slot = recv[0].numel() * recv[0].element_size()  # one send buffer
         chunk = slot // self.num_shards
-        if not chunk:
-            return
-        sources = []
-        for p, run in enumerate(self.owners):
-            sources += [self._peers[p] + k * slot for k in range(len(run))]
-        send_ptrs = (ctypes.c_void_p * self.num_shards)(*sources)
-        recv_ptrs = (ctypes.c_void_p * len(recv))(
-            *(r.data_ptr() for r in recv))
-        cuda_lib.launch("bignn_all_to_all", self.device, send_ptrs,
-                        recv_ptrs, self.num_shards, self.local[0],
-                        len(self.local), chunk)
-        cuda_lib.count(all_to_all, recv[0].dtype, suffix=":procs")
-
-    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
-        if t.device.type != "cuda":
-            return super().all_gather(t)
-        return self._staged_gather(t)
-
-    def ordered_sum(self, t: torch.Tensor) -> torch.Tensor:
-        if t.device.type != "cuda":
-            return super().ordered_sum(t)
-        return self._staged_sum(t)
-
-    def _staged_gather(self, t: torch.Tensor) -> torch.Tensor:
-        """``all_gather`` through the staging buffers."""
-        t = t.contiguous()
-        self._publish([t])
-        out = torch.cat([self._read(p, t) for p in range(self.size)])
-        self._release()
-        return out
-
-    def _staged_sum(self, t: torch.Tensor) -> torch.Tensor:
-        """``ordered_sum`` through the staging buffers."""
-        t = t.contiguous()
-        self._publish([t])
-        total = self._read(0, t).clone()
-        for p in range(1, self.size):
-            total = total + self._read(p, t)
-        self._release()
-        return total
-
+        for k0, n in _runs(self.card_of):
+            maps = self._maps[self.card_of[k0]]  # as this card maps them
+            sources = []
+            for p, cards in enumerate(self.cards_of):
+                for k, c in enumerate(cards):
+                    if p == self.rank and bufs is not None:
+                        sources.append(bufs[k].data_ptr())
+                    else:
+                        sources.append(maps[p][c]
+                                       + (k - cards.index(c)) * slot)
+            _pull(self.devices[k0], sources, recv[k0:k0 + n],
+                  self.local[k0], chunk, ":procs")

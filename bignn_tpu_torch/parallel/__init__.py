@@ -1,7 +1,7 @@
 """The parallel paths (counterpart of ``bignn_tpu/parallel``): one process
 driving every shard of a mesh that may name one card several times or lie
-over distinct cards, or, for p2, several processes, one card each (several
-on one card):
+over distinct cards, or, for p2, several processes, each on one card
+(several may share it) or on several cards of its own:
 
   * ``mesh.py``      the ``(dp, graph)`` and ``(dp, tp)`` device meshes;
                      the process group (``init_distributed``), the hybrid
@@ -33,7 +33,6 @@ from bignn_tpu_torch.parallel.comm import (
     gather_rows,
     gather_rows_cards,
     make_exchange,
-    sum_grads,
 )
 from bignn_tpu_torch.parallel.dp import (
     dp_train_step_fn,
@@ -52,6 +51,7 @@ from bignn_tpu_torch.parallel.mesh import (
     host_names,
     init_distributed,
     local_device,
+    local_devices,
     make_hybrid_mesh,
     make_mesh,
     process_count,
@@ -100,6 +100,7 @@ __all__ = [
     "host_names",
     "init_distributed",
     "local_device",
+    "local_devices",
     "make_exchange",
     "make_hybrid_mesh",
     "make_cards_train_step",
@@ -115,7 +116,6 @@ __all__ = [
     "shard_pairs",
     "shard_params_tp",
     "spread_devices",
-    "sum_grads",
     "tp_param_specs",
     "tp_train_step_fn",
 ]

@@ -13,7 +13,7 @@ The rule that counts every gradient once:
     in rank order, the cotangent of this process's own rows (each process
     holds ``1 / nproc`` of it, so the sum is the whole);
   * after the backward, every parameter's gradient is summed over the
-    processes in rank order (``sum_grads``): the scorer's ``nproc``
+    processes in rank order (``Replicas.step``): the scorer's ``nproc``
     shares make its whole gradient, the encode's and outer layers' partial
     gradients (each process's shards) make theirs.
 
@@ -33,8 +33,21 @@ every card (``gather_rows_cards``, whose backward adds the cards'
 cotangents in card order), each card scores the whole batch and
 backpropagates ``L / ncards``, and the replicas' gradients are added in
 shard order (``Replicas.step``). So a mesh of one shard a card takes the
-same steps, bit for bit, as as many processes of one shard each. With one
-process on one card nothing here runs.
+same steps, bit for bit, as as many processes of one shard each.
+
+Several processes of several cards each (a ``make_hybrid_mesh`` mesh whose
+local shards lie on distinct cards) follow it with a card of any process
+in place of a card: every card of every process gathers every row
+(``gather_rows_cards`` over a ``ProcessExchange``), scores the whole batch
+and backpropagates ``L / total_cards``; the gather's backward and the
+gradient sum add one term a card (a slot, for the gradients: a replica a
+shard) in global order, (process, local card), never a partial sum a
+process first (``(g0 + g1) + (g2 + g3)`` is not ``((g0 + g1) + g2) +
+g3``). So two processes of two cards take the same step, bit for bit, as
+one process over the four. Every collective across processes is one
+autograd node over all of the process's cards, so it runs once, in the
+same order in every process, whichever card's backward thread reaches it.
+With one process on one card nothing here runs.
 """
 
 from __future__ import annotations
@@ -112,79 +125,83 @@ class _GatherToCards(torch.autograd.Function):
 
 
 def gather_rows_cards(h_locals: Sequence[torch.Tensor],
-                      exchange: CardExchange) -> list[torch.Tensor]:
-    """``[G*B, d]`` on each of ``exchange.cards``: every shard's rows
-    ``h_locals`` (each ``[B, d]`` on its shard's device) in shard order,
-    so the row index is the drug id. The backward adds, for each shard's
-    rows, the cards' cotangents in card order (the multi-process
-    ``gather_rows``'s rank-order sum)."""
+                      exchange: CardExchange | ProcessExchange
+                      ) -> list[torch.Tensor]:
+    """``[G*B, d]`` on each of ``exchange.cards``: every shard's rows in
+    shard order, so the row index is the drug id; ``h_locals`` (each ``[B,
+    d]`` on its shard's device) are every shard's (``CardExchange``) or
+    this process's (``ProcessExchange``). The backward adds, for each
+    shard's rows, every card's cotangent in card order, (process, card)
+    across processes."""
+    if isinstance(exchange, ProcessExchange):
+        return list(_GatherAcrossProcesses.apply(exchange, *h_locals))
     return list(_GatherToCards.apply(exchange, *h_locals))
 
 
 def make_exchange(mesh: Mesh) -> ProcessExchange | CardExchange | None:
     """The data plane of ``mesh``'s graph shards: across processes (a
-    collective), ``PeerExchange`` (CUDA IPC) when every process runs on one
-    host (``host_names``, gathered by ``init_distributed``) on a card, and
-    every process's card reaches every other's by peer access (or they
-    share one); ``ProcessExchange`` (through the host and gloo, the route
-    between hosts) otherwise, on the CPU too. In one process,
-    ``CardExchange`` for a mesh whose graph shards lie on distinct cards,
-    None for one card (named several times) or the CPU. The caller closes
-    it (``close``, a collective across processes) when the mesh's last
-    step is done."""
+    collective), over this process's shards on their devices,
+    ``PeerExchange`` (CUDA IPC) when every process runs on one host
+    (``host_names``, gathered by ``init_distributed``) on cards, and every
+    process's cards reach every card of the mesh by peer access (or share
+    it); ``ProcessExchange`` (through the host and gloo, the route between
+    hosts) otherwise, on the CPU too. In one process, ``CardExchange`` for
+    a mesh whose graph shards lie on distinct cards, None for one card
+    (named several times) or the CPU. The caller closes it (``close``, a
+    collective across processes) when the mesh's last step is done."""
     if mesh.process_count == 1:
         devices = [shard_device(mesh, j) for j in range(mesh.shape["graph"])]
         return CardExchange(devices) if len(set(devices)) > 1 else None
     cards = list(dict.fromkeys(mesh.devices.flat))
-    mine = mesh.first_device
-    peers = mine.type == "cuda" and all(
-        c == mine or (c.type == "cuda" and torch.cuda.is_available()
-                      and torch.cuda.can_device_access_peer(mine, c))
-        for c in cards)
+    devices = [shard_device(mesh, j) for j in mesh.local_graph]
+    peers = all(d.type == "cuda" for d in devices) and all(
+        c == d or (c.type == "cuda" and torch.cuda.is_available()
+                   and torch.cuda.can_device_access_peer(d, c))
+        for d in set(devices) for c in cards)
     one_host = len(set(host_names())) == 1
     # every process must choose alike: the exchange is built collectively
     peers = all(all_gather_object(peers))
     cls = PeerExchange if one_host and peers else ProcessExchange
-    return cls(mesh.shape["graph"], mesh.local_graph, mine)
+    return cls(mesh.shape["graph"], mesh.local_graph, devices)
 
 
-class _GatherRows(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, exchange, local):
-        ctx.exchange, ctx.rows = exchange, local.shape[0]
-        return exchange.all_gather(local)
+class _GatherAcrossProcesses(torch.autograd.Function):
+    """Every process's rows onto each of this process's cards; one node
+    over the process's cards (see the module docstring)."""
 
     @staticmethod
-    def backward(ctx, g):
-        total = ctx.exchange.ordered_sum(g.contiguous())
-        start = ctx.exchange.rank * ctx.rows
-        return None, total[start:start + ctx.rows]
+    def forward(ctx, exchange, *h):
+        ctx.exchange, ctx.rows = exchange, h[0].shape[0]
+        ctx.devices = [x.device for x in h]
+        full = exchange.all_gather(torch.cat([x.to(exchange.device)
+                                              for x in h]))
+        ctx.shape, ctx.dtype = full.shape, full.dtype
+        return tuple(full if i == 0 else full.to(c, copy=True)
+                     for i, c in enumerate(exchange.cards))
+
+    @staticmethod
+    def backward(ctx, *g):
+        ex = ctx.exchange
+        # every card's cotangent of every row, in (process, card) order
+        terms = ex.gather_parts([
+            gc if gc is not None else torch.zeros(ctx.shape, dtype=ctx.dtype,
+                                                  device=c)
+            for gc, c in zip(g, ex.cards)])
+        out = []
+        for j, dev in zip(ex.local, ctx.devices):
+            rows = slice(j * ctx.rows, (j + 1) * ctx.rows)
+            total = terms[0][rows]
+            for t in terms[1:]:
+                total = total + t[rows]
+            out.append(total.to(dev))
+        return (None, *out)
 
 
 def gather_rows(h_locals: Sequence[torch.Tensor],
                 exchange: ProcessExchange) -> torch.Tensor:
-    """``[G*B, d]``: this process's shards' rows ``h_locals`` (each
-    ``[B, d]``) gathered with every other process's in shard order, so the
-    row index is still the drug id; its backward sums the cotangent of this
-    process's rows over the processes (see the module docstring)."""
-    return _GatherRows.apply(exchange, torch.cat(list(h_locals)))
-
-
-def sum_grads(params: Sequence[torch.nn.Parameter],
-              exchange: ProcessExchange) -> None:
-    """Replace every parameter's gradient by its sum over the processes, in
-    rank order (a parameter without one counts as zeros), one flat buffer
-    per element type."""
-    groups: dict[torch.dtype, list] = {}
-    for p in params:
-        groups.setdefault(p.dtype, []).append(p)
-    for group in groups.values():
-        flat = torch.cat([(p.grad if p.grad is not None
-                           else torch.zeros_like(p)).reshape(-1)
-                          for p in group])
-        total = exchange.ordered_sum(flat)
-        start = 0
-        for p in group:
-            n = p.numel()
-            p.grad = total[start:start + n].view_as(p).clone()
-            start += n
+    """``[G*B, d]`` on the exchange's first card (one card a process):
+    this process's shards' rows ``h_locals`` (each ``[B, d]``) gathered
+    with every other process's in shard order, so the row index is still
+    the drug id; its backward sums the cotangent of this process's rows
+    over the processes (see the module docstring)."""
+    return gather_rows_cards(h_locals, exchange)[0]

@@ -30,14 +30,15 @@ Across processes every per-shard list holds this process's shards only,
 and ``exchange`` (``ops.collectives.ProcessExchange``, from
 ``parallel.comm.make_exchange``) carries step (b) to the other processes'
 shards; without it the lists hold every shard of the mesh. On a mesh over
-distinct cards each shard's tensors lie on its own card, and ``model`` (or
-a layer's ``conv``) may be a list, one replica a shard
-(``parallel/replicas.py``), so that every shard computes with parameters
-on its card; step (b) then reads the peers' memory. Every tensor that
-takes gradients both from its own card's work and from the exchange's
-backward (which the cards reach in any order) takes at most two, whose
-sum is the same in either order: GIN's layer input, which three terms
-reach, is first split in two (``_fork``).
+distinct cards (of one process, or of each process) each shard's tensors
+lie on its own card, and ``model`` (or a layer's ``conv``) may be a list,
+one replica a shard (``parallel/replicas.py``), so that every shard
+computes with parameters on its card; step (b) then reads the peers'
+memory, and across processes is one autograd node over the process's
+cards. Every tensor that takes gradients both from its own card's work
+and from the exchange's backward (which the cards reach in any order)
+takes at most two, whose sum is the same in either order: GIN's layer
+input, which three terms reach, is first split in two (``_fork``).
 """
 
 from __future__ import annotations

@@ -20,13 +20,16 @@ where evaluation and checkpoints run as one stream.
 Several processes (the multi-process p2 run, JAX's multi-host run):
 ``init_distributed`` joins a ``torch.distributed`` process group on
 ``gloo``, the control plane only (handle exchange, barriers, scalars), and
-fixes this process's card; ``make_hybrid_mesh`` lays the ``graph`` axis
-over the processes host-major, as JAX's hand layout does; each process
-drives its own entries (``Mesh.local_graph``) and ``global_put`` gives it
-its part of a host-replicated array. The data plane between processes is
+fixes this process's cards (``local_devices``: one, or several, as a JAX
+process drives its host's chips); ``make_hybrid_mesh`` lays the ``graph``
+axis over the processes host-major, as JAX's hand layout does, each
+process's entries on its own cards; each process drives its own entries
+(``Mesh.local_graph``) and ``global_put`` gives it its part of a
+host-replicated array. The data plane between processes is
 ``ops.collectives.ProcessExchange`` (through the host, gloo) or, when every
-process runs on one host with a card, ``PeerExchange`` (CUDA IPC):
-``parallel.comm.make_exchange`` chooses by the processes' hosts and cards.
+process runs on one host and its cards reach each other's,
+``PeerExchange`` (CUDA IPC): ``parallel.comm.make_exchange`` chooses by
+the processes' hosts and cards.
 """
 
 from __future__ import annotations
@@ -40,7 +43,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-_local_device: torch.device | None = None
+_local_devices: list[torch.device] | None = None
 _hosts: list[str] | None = None  # every process's host, gathered once
 
 
@@ -54,13 +57,19 @@ def process_count() -> int:
     return dist.get_world_size() if dist.is_initialized() else 1
 
 
+def local_devices() -> list[torch.device]:
+    """The cards ``init_distributed`` fixed for this process (JAX's
+    ``local_devices``); without it ``[cuda:0]`` where a card is visible,
+    else ``[cpu]``."""
+    if _local_devices is not None:
+        return list(_local_devices)
+    return [torch.device("cuda", 0) if torch.cuda.is_available() else
+            torch.device("cpu")]
+
+
 def local_device() -> torch.device:
-    """The card ``init_distributed`` fixed for this process; without it
-    ``cuda:0`` where a card is visible, else the CPU."""
-    if _local_device is not None:
-        return _local_device
-    return torch.device("cuda", 0) if torch.cuda.is_available() else (
-        torch.device("cpu"))
+    """The first of ``local_devices()``."""
+    return local_devices()[0]
 
 
 def barrier() -> None:
@@ -234,16 +243,19 @@ def init_distributed(coordinator_address: str | None = None,
     ``gloo`` at ``tcp://{address}`` with the count and rank: the control
     plane of the exchange across processes. It gathers every process's
     host once (``host_names`` reads them after) and fixes this process's
-    card: ``cuda:{local_device_ids[0]}`` (one card a process across
-    processes), else
-    ``cuda:{i % device_count}``, where ``i`` is the process's index among
-    those on its host (the ranks below its own whose host equals its
-    own), so that the processes of a host take its cards in
-    rank order whatever the ranks' layout over the hosts (several
-    processes share a card when a host runs more of them than it has), or
-    the CPU without a card. Idempotent: a second call with the same count
-    and rank returns the rank."""
-    global _local_device, _hosts
+    cards (``local_devices``): ``cuda:{id}`` for each of
+    ``local_device_ids``; else, with ``i`` the process's index among the
+    ``m`` processes on its host (the ranks below its own whose host equals
+    its own) and ``c`` the host's cards, the cards ``[i * c / m, (i + 1) *
+    c / m)`` where ``m`` is below ``c`` and divides it (a process drives
+    its share of the host's cards, as a JAX process drives its local
+    devices), and otherwise the one card ``cuda:{i % c}`` (the processes
+    of a host take its cards in rank order whatever the ranks' layout over
+    the hosts; several share a card when a host runs more processes than
+    it has cards); the CPU without a card. The first card becomes the
+    current one. Idempotent: a second call with the same count and rank
+    returns the rank."""
+    global _local_devices, _hosts
     address, count, rank = resolve_distributed(
         coordinator_address, num_processes, process_id)
     if count == 1:
@@ -254,11 +266,11 @@ def init_distributed(coordinator_address: str | None = None,
                 f"already in a group of {dist.get_world_size()} as rank "
                 f"{dist.get_rank()}, asked for {count} as rank {rank}")
         return rank
-    if local_device_ids is not None and len(local_device_ids) != 1:
-        raise ValueError(
-            f"local_device_ids {list(local_device_ids)}: across processes "
-            "each process drives one card (several cards in one process: "
-            "make_mesh over them, without a process group)")
+    if local_device_ids is not None:
+        ids = [int(i) for i in local_device_ids]
+        if not ids or len(set(ids)) != len(ids):
+            raise ValueError(f"local_device_ids {ids}: one or more distinct "
+                             "card ids")
     host = address.rsplit(":", 1)[0]
     if host in ("127.0.0.1", "localhost") and (
             "GLOO_SOCKET_IFNAME" not in os.environ):
@@ -267,59 +279,111 @@ def init_distributed(coordinator_address: str | None = None,
                             world_size=count, rank=rank)
     _hosts = hosts = all_gather_object(_this_host())
     if local_device_ids is not None:
-        _local_device = torch.device("cuda", int(local_device_ids[0]))
+        _local_devices = [torch.device("cuda", i) for i in ids]
     elif torch.cuda.is_available():
-        on_host = hosts[:rank].count(hosts[rank])
-        _local_device = torch.device("cuda",
-                                     on_host % torch.cuda.device_count())
+        c = torch.cuda.device_count()
+        m = hosts.count(hosts[rank])
+        i = hosts[:rank].count(hosts[rank])
+        share = c // m if m < c and c % m == 0 else 1
+        _local_devices = [torch.device("cuda", (i * share + k) % c)
+                          for k in range(share)]
     else:
-        _local_device = torch.device("cpu")
-    if _local_device.type == "cuda":
-        torch.cuda.set_device(_local_device)
+        _local_devices = [torch.device("cpu")]
+    if _local_devices[0].type == "cuda":
+        torch.cuda.set_device(_local_devices[0])
     return rank
 
 
 def make_hybrid_mesh(dp: int | None = None, graph: int | None = None,
-                     device: str | torch.device | None = None) -> Mesh:
+                     device: str | torch.device | None = None,
+                     devices: Sequence | None = None) -> Mesh:
     """A ``('dp', 'graph')`` mesh over every process of the group (JAX
-    ``make_hybrid_mesh``), each process driving its entries on ``device``
-    (default: its card, ``local_device``).
+    ``make_hybrid_mesh``), each process driving its entries on its
+    ``devices`` (default: ``[device]``, else ``local_devices()``; the
+    CPU tests name the CPU twice for two card slots).
 
     ``graph`` defaults to the process count and must be a multiple of it;
     each process owns ``ici_graph = graph // nproc`` graph shards, laid out
     host-major as JAX's hand layout: entry ``[d, p * ici_graph + g]`` is
-    process p's. Each process names its card ``ici_dp * ici_graph`` times
-    (``ici_dp`` is ``dp``, else 1): the port's "local device count" is
-    that count of names, not a count of hardware, so JAX's two checks
-    against the local devices hold by construction. A single process
-    gets ``make_mesh(dp, graph or 1)`` on its card."""
-    card = torch.device(device) if device is not None else local_device()
-    ici_dp = 1 if dp is None else int(dp)
-    if ici_dp < 1:
-        raise ValueError(f"dp ({ici_dp}) must be at least 1")
+    process p's. With ``nloc`` devices a process:
+
+      * ``nloc > 1`` and ``ici_graph <= nloc``: JAX's checks and messages
+        (``nloc % ici_graph``; ``dp``, where given, equal to ``ici_dp =
+        nloc // ici_graph``), and entry ``[d, p * ici_graph + g]`` on
+        process p's device ``d * ici_graph + g``, JAX's placement on real
+        cards. The ``dp`` rows of a column still compute one forward, on
+        row 0's device (``shard_device``; ``parallel/step.py``), so JAX's
+        dp = 2 x graph = 2 over two cards a process runs each process's
+        graph shard on its first card, and leaves the second idle;
+      * ``nloc > 1`` and ``ici_graph > nloc`` (which JAX refuses): the
+        shards laid over the devices as ``spread_devices`` lays them,
+        every ``dp`` row (``ici_dp`` is ``dp``, else 1) on the same
+        devices as row 0 (``run`` spreads config5-large's 8 shards so);
+      * one device: it is named ``ici_dp * ici_graph`` times (``ici_dp``
+        is ``dp``, else 1), so JAX's two checks against the local devices
+        hold by construction.
+
+    Every process must drive as many devices. A single process gets
+    ``make_mesh(dp, graph or 1)`` on its first device."""
+    if devices is None:
+        devices = [device] if device is not None else local_devices()
+    devices = [torch.device(d) for d in devices]
+    devices = [torch.device("cuda", torch.cuda.current_device())
+               if d.type == "cuda" and d.index is None else d
+               for d in devices]  # cuda means the current card
+    nloc = len(devices)
+    if dp is not None and int(dp) < 1:
+        raise ValueError(f"dp ({dp}) must be at least 1")
     nproc = process_count()
     if nproc == 1:
-        g = graph or 1
-        return make_mesh(dp=ici_dp, graph=g, devices=[card] * (ici_dp * g))
+        ici_dp, g = 1 if dp is None else int(dp), graph or 1
+        return make_mesh(dp=ici_dp, graph=g,
+                         devices=[devices[0]] * (ici_dp * g))
     graph = graph if graph is not None else nproc
     if graph % nproc != 0:
         raise ValueError(
             f"graph ({graph}) must be a multiple of process count ({nproc}) "
             "so every host owns whole graph-shard groups")
     ici_graph = graph // nproc
-    nloc = ici_dp * ici_graph
-    cards = [torch.device(c) for c in all_gather_object(str(card))]
-    # JAX's hand layout (bignn_tpu/parallel/mesh.py:130-136) on the global
-    # device numbers, sorted by (process, local id)
-    ids = (np.arange(nproc * nloc)
-           .reshape(nproc, ici_dp, ici_graph)
-           .transpose(1, 0, 2)
-           .reshape(ici_dp, nproc * ici_graph))
-    processes = ids // nloc
-    devices = np.empty(ids.shape, dtype=object)
-    for idx, p in np.ndenumerate(processes):
-        devices[idx] = cards[p]
-    return Mesh(devices, ("dp", "graph"), processes)
+    if 1 < nloc and ici_graph <= nloc:
+        if nloc % ici_graph != 0:
+            raise ValueError(
+                f"per-host graph dim ({ici_graph}) must divide local device "
+                f"count ({nloc})")
+        ici_dp = nloc // ici_graph
+        if dp is not None and dp != ici_dp:
+            raise ValueError(
+                f"dp ({dp}) inconsistent with {nloc} local devices / "
+                f"{ici_graph} per-host graph shards (expected {ici_dp})")
+        per_entry = list(range(nloc))
+    else:
+        ici_dp = 1 if dp is None else int(dp)
+        per_entry = _spread(ici_graph, nloc) * ici_dp
+    every = [[torch.device(c) for c in names]
+             for names in all_gather_object([str(d) for d in devices])]
+    if len({len(names) for names in every}) != 1:
+        raise ValueError(f"the processes drive {[len(n) for n in every]} "
+                         "local devices: a hybrid mesh takes as many in "
+                         "every process")
+    # JAX's hand layout (bignn_tpu/parallel/mesh.py:130-136): process p's
+    # entry (d, g) at [d, p * ici_graph + g]
+    arr = np.empty((ici_dp, nproc * ici_graph), dtype=object)
+    processes = np.empty(arr.shape, dtype=np.int64)
+    for p, names in enumerate(every):
+        for e, k in enumerate(per_entry):
+            d, g = divmod(e, ici_graph)
+            arr[d, p * ici_graph + g] = names[k]
+            processes[d, p * ici_graph + g] = p
+    return Mesh(arr, ("dp", "graph"), processes)
+
+
+def _spread(n: int, count: int) -> list[int]:
+    """Which of ``count`` devices each of ``n`` shards lies on
+    (``spread_devices``)."""
+    if n < 1:
+        raise ValueError(f"{n} shards")
+    k = max(c for c in range(1, min(n, count) + 1) if n % c == 0)
+    return [i // (n // k) for i in range(n)]
 
 
 def spread_devices(n: int, devices: Sequence) -> list[torch.device]:
@@ -328,10 +392,7 @@ def spread_devices(n: int, devices: Sequence) -> list[torch.device]:
     devices that divide ``n`` evenly (every device where ``n`` is a
     multiple of their count, the first ``n`` where ``n`` is below it)."""
     devices = [torch.device(d) for d in devices]
-    if n < 1:
-        raise ValueError(f"{n} shards")
-    k = max(c for c in range(1, min(n, len(devices)) + 1) if n % c == 0)
-    return [devices[i // (n // k)] for i in range(n)]
+    return [devices[i] for i in _spread(n, len(devices))]
 
 
 def shard_device(mesh: Mesh, j: int) -> torch.device:

@@ -14,11 +14,12 @@ and its update is the single-device one. An update (``update``):
   * ``zero_grad``, then the caller's forward and backward, each slot's
     work on its own copy, so each copy's ``.grad`` holds its slot's part;
   * ``step``: the parts added in slot order into one flat buffer an element
-    type on slot 0's device (a missing gradient counts as zeros, as
-    ``parallel.comm.sum_grads`` adds the processes' parts), the clip by
-    the global norm there, the same bits copied to every other slot, and
-    every slot's optimizer steps. Every copy takes the same update on the
-    same bits, so the replicas stay equal to the bit.
+    type on slot 0's device (a missing gradient counts as zeros), across
+    processes every slot of every process in (process, slot) order, one
+    term a slot (``ProcessExchange.ordered_sum``), the clip by the global
+    norm there, the same bits copied to every other slot, and every slot's
+    optimizer steps. Every copy in every process takes the same update on
+    the same bits, so the replicas stay equal to the bit.
 
 Replicas follow slot 0: they start from its parameters and optimizer state,
 and before an update (``refresh``) parameters or optimizer state loaded
@@ -42,7 +43,6 @@ from typing import Callable, Sequence
 import torch
 
 from bignn_tpu_torch.ops.collectives import ProcessExchange
-from bignn_tpu_torch.parallel.comm import sum_grads
 
 
 def _optimizer_like(optimizer: torch.optim.Optimizer, model: torch.nn.Module,
@@ -158,12 +158,9 @@ class Replicas:
         losses each of the whole batch (one a card: the p2 step over cards);
         each holder of the whole loss backpropagates it over the count of
         holders, the losses' times ``procs.size`` for the multi-process p2
-        run (one slot a process; ``parallel/comm.py``). Returns the first
-        loss, detached, as a device scalar; the gradients stay in
-        ``param.grad``."""
-        if procs is not None and len(self) > 1:
-            raise ValueError("an update across processes takes one slot a "
-                             "process")
+        run (as many cards in every process; ``parallel/comm.py``).
+        Returns the first loss, detached, as a device scalar; the gradients
+        stay in ``param.grad``."""
         self.refresh(optimizer)
         self.zero_grad()
         losses = loss_fn()
@@ -180,30 +177,32 @@ class Replicas:
 
     def step(self, grad_clip: float = 0.0,
              procs: ProcessExchange | None = None) -> None:
-        """After the backward: the gradients summed over ``procs`` in rank
-        order (``parallel.comm.sum_grads``), every slot's summed in slot
-        order on slot 0's device, the clip by the global norm of every
-        parameter the optimizer updates (``grad_clip``, as
-        ``optax.clip_by_global_norm`` in JAX's ``make_optimizer`` chain;
-        replicated parameters count once), the result copied to every
-        slot, and every optimizer's step (see the module docstring)."""
+        """After the backward: every slot's gradients summed in slot order
+        on slot 0's device, across ``procs`` every slot of every process
+        in (process, slot) order (``ProcessExchange.ordered_sum``), the
+        clip by the global norm of every parameter the optimizer updates
+        (``grad_clip``, as ``optax.clip_by_global_norm`` in JAX's
+        ``make_optimizer`` chain; replicated parameters count once), the
+        result copied to every slot, and every optimizer's step (see the
+        module docstring)."""
         slots = [self.params(s) for s in range(len(self))]
-        if procs is not None:
-            sum_grads(slots[0], procs)
         totals = []
-        if len(self) > 1:
+        if procs is not None or len(self) > 1:
             dev0 = self.devices[0]
             groups: dict[torch.dtype, list[int]] = {}
             for i, p in enumerate(slots[0]):
                 groups.setdefault(p.dtype, []).append(i)
             for idx in groups.values():
-                total = None
-                for ps in slots:
-                    flat = torch.cat([
-                        (ps[i].grad if ps[i].grad is not None
-                         else torch.zeros_like(ps[i])).reshape(-1)
-                        for i in idx]).to(dev0)
-                    total = flat if total is None else total + flat
+                flats = [torch.cat([
+                    (ps[i].grad if ps[i].grad is not None
+                     else torch.zeros_like(ps[i])).reshape(-1)
+                    for i in idx]) for ps in slots]
+                if procs is not None:
+                    total = procs.ordered_sum(flats)
+                else:
+                    total = flats[0]
+                    for flat in flats[1:]:
+                        total = total + flat.to(dev0)
                 totals.append((idx, total))
                 _set_grads(slots[0], idx, total)
         if grad_clip:

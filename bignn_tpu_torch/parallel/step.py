@@ -33,10 +33,15 @@ shard j runs on card ``mesh.devices[0, j]`` with a replica of the model of
 its own (``parallel/replicas.py``); the exchanges read the peers' memory,
 each card gathers every shard's rows and scores the whole batch, as a
 process does, and the replicas' gradients are added in shard order, so
-every replica takes the same optimizer step (``parallel/comm.py``). The
-``dp`` rows of a column compute the same forward, which runs once, on row
-0's card. With one process on one card every function gives the bits it
-gave before.
+every replica takes the same optimizer step (``parallel/comm.py``). Across
+processes whose local shards lie on distinct cards (a ``ProcessExchange``
+with several ``cards``) the same holds over every card of every process:
+the exchanges and the gathers cross processes, and every sum adds one term
+a card or a replica in (process, card) order. The ``dp`` rows of a column
+compute the same forward, which runs once, on row 0's card (so JAX's dp =
+2 x graph = 2 over two cards a process computes on one of each process's
+two). With one process on one card every function gives the bits it gave
+before.
 """
 
 from __future__ import annotations
@@ -147,12 +152,20 @@ def _check_dp(n: int, dp: int) -> None:
 def _check_exchange(mesh: Mesh, exchange):
     """The exchange the step uses: ``exchange``, or for a mesh of one
     process over distinct cards ``make_exchange(mesh)`` when none is
-    given."""
+    given. An exchange across processes must be over this process's
+    shards of the mesh on their devices."""
     if mesh.process_count > 1:
         if not isinstance(exchange, ProcessExchange):
             raise ValueError(
                 f"a mesh over {mesh.process_count} processes with exchange "
                 f"{exchange}: it takes parallel.make_exchange(mesh)")
+        devices = [shard_device(mesh, j) for j in mesh.local_graph]
+        if (exchange.local, exchange.devices) != (mesh.local_graph, devices):
+            raise ValueError(
+                f"the exchange's shards {exchange.local} on "
+                f"{[str(d) for d in exchange.devices]} are not this "
+                f"process's shards of the mesh, {mesh.local_graph} on "
+                f"{[str(d) for d in devices]}")
         return exchange
     if isinstance(exchange, ProcessExchange):
         raise ValueError("a mesh of one process with an exchange across "
@@ -162,19 +175,29 @@ def _check_exchange(mesh: Mesh, exchange):
     return exchange
 
 
+def _per_card(exchange) -> bool:
+    """Whether the step keeps a replica a shard: shards on distinct cards
+    of one process, or of each process."""
+    return isinstance(exchange, CardExchange) or (
+        exchange is not None and len(exchange.cards) > 1)
+
+
 def make_cards_train_step(model: BiGNN, optimizer: torch.optim.Optimizer,
-                          exchange: CardExchange, num_drugs: int,
-                          neg_ratio: int = 1, overlap: bool = False,
-                          remat: bool = False, grad_clip: float = 0.0,
-                          dp: int = 1) -> Callable:
-    """The p2 step of one process over several cards (see the module
-    docstring): one replica of ``model`` and ``optimizer`` a graph shard on
-    its device (``exchange.devices``); each card (``exchange.cards``, its
-    first shard's replica scoring) scores the whole batch on every shard's
-    rows and backpropagates its loss over the card count; the replicas'
-    gradients are added in shard order and each replica steps. Returns
-    card 0's loss. The CPU tests drive it with every shard's "card" on the
-    CPU."""
+                          exchange: CardExchange | ProcessExchange,
+                          num_drugs: int, neg_ratio: int = 1,
+                          overlap: bool = False, remat: bool = False,
+                          grad_clip: float = 0.0, dp: int = 1) -> Callable:
+    """The p2 step over several cards of one process (``CardExchange``) or
+    of each process (a ``ProcessExchange`` with several ``cards``; see the
+    module docstring): one replica of ``model`` and ``optimizer`` a local
+    graph shard on its device (``exchange.devices``); each card
+    (``exchange.cards``, its first shard's replica scoring) scores the
+    whole batch on every shard's rows and backpropagates its loss over the
+    count of cards (of every process); the replicas' gradients are added in
+    shard order, (process, shard) across processes, and each replica
+    steps. Returns card 0's loss. The CPU tests drive it with every shard's
+    "card" on the CPU."""
+    procs = exchange if isinstance(exchange, ProcessExchange) else None
     reps = Replicas(model, optimizer, exchange.devices)
     scorers = [reps.models[j] for j in exchange.heads]
     dev = exchange.devices[0]
@@ -189,7 +212,7 @@ def make_cards_train_step(model: BiGNN, optimizer: torch.optim.Optimizer,
         mask = torch.cat([pmask, pmask.repeat(neg_ratio)]).float()
         _check_dp(len(pairs), dp)
         embs = gather_rows_cards(
-            _shard_outputs(reps.models, plan_d, overlap, remat, None),
+            _shard_outputs(reps.models, plan_d, overlap, remat, procs),
             exchange)
         return [bce_with_logits_loss(m.score_pairs(e, pairs.to(c)),
                                      labels.to(c), mask.to(c))
@@ -197,7 +220,8 @@ def make_cards_train_step(model: BiGNN, optimizer: torch.optim.Optimizer,
 
     def step(key: prng.Key, pos_pairs, pos_mask, plan_d) -> torch.Tensor:
         return reps.update(
-            lambda: losses_fn(key, pos_pairs, pos_mask, plan_d), grad_clip)
+            lambda: losses_fn(key, pos_pairs, pos_mask, plan_d), grad_clip,
+            procs=procs)
 
     step.replicas = reps
     return step
@@ -224,9 +248,9 @@ def make_p2_train_step(model: BiGNN, optimizer: torch.optim.Optimizer,
     the shards: ``Replicas.step``), after the gradients are summed over
     the processes. ``exchange`` is ``make_exchange(mesh)``
     (built here for a mesh of one process over distinct cards when not
-    given: ``make_cards_train_step``)."""
+    given); shards on distinct cards take ``make_cards_train_step``."""
     exchange = _check_exchange(mesh, exchange)
-    if isinstance(exchange, CardExchange):
+    if _per_card(exchange):
         return make_cards_train_step(model, optimizer, exchange, num_drugs,
                                      neg_ratio, overlap, remat, grad_clip,
                                      mesh.shape["dp"])
@@ -261,23 +285,25 @@ def make_p2_score_fn(model: BiGNN, mesh: Mesh, overlap: bool = False,
     pairs (P divisible by ``dp``) from the distributed forward, for
     evaluation; ``exchange`` as for ``make_p2_train_step``. Over distinct
     cards each shard runs on a replica of ``model`` on its card (copied
-    from ``model`` whenever it changed), and the rows are scored on the
-    first card by ``model`` itself."""
+    from ``model`` whenever it changed), and the rows (gathered across
+    processes) are scored on the first card by ``model`` itself."""
     exchange = _check_exchange(mesh, exchange)
     dev = mesh.first_device
-    reps = (Replicas(model, None, exchange.devices)
-            if isinstance(exchange, CardExchange) else None)
+    procs = exchange if isinstance(exchange, ProcessExchange) else None
+    reps = (Replicas(model, None, exchange.devices) if _per_card(exchange)
+            else None)
 
     def score(pairs, plan_d) -> torch.Tensor:
         pairs = torch.as_tensor(pairs, device=dev)
         _check_dp(len(pairs), mesh.shape["dp"])
         with torch.no_grad():
-            if reps is None:
-                emb = _embed(model, plan_d, overlap, False, exchange)
-            else:
+            if reps is not None:
                 reps.refresh()
-                emb = torch.cat([h.to(dev) for h in _shard_outputs(
-                    reps.models, plan_d, overlap, False, None)])
+            h = _shard_outputs(model if reps is None else reps.models,
+                               plan_d, overlap, False, procs)
+            emb = torch.cat([x.to(dev) for x in h])
+            if procs is not None:
+                emb = procs.all_gather(emb)
             return model.score_pairs(emb, pairs)
 
     return score

@@ -44,14 +44,20 @@ Where the JAX runner differs:
     environment names) start the multi-process p2 run: ``init_distributed``
     joins a gloo process group before anything touches the card, and the
     ``graph`` axis spans the processes host-major (``make_hybrid_mesh(graph
-    =graph_shards)``); every process names its own card (its index among
-    its host's processes, modulo the host's card count, so several
-    processes may share one card), their halo exchanges and gradient sums
-    cross processes (``ops.collectives``, ``parallel/comm.py``): by CUDA
-    IPC when every process runs on one host, else through the hosts and
-    gloo (``parallel.comm.make_exchange`` picks by the host names). On
-    several hosts, start the same command on each with the one
-    coordinator, the total count and each process's id. Only process 0
+    =graph_shards)``); with ``--device cuda`` (the default) every process
+    drives the cards ``local_devices()`` gives it: where a host's m
+    processes divide its c cards, process i of the host takes cards [i *
+    c / m, (i + 1) * c / m) (two processes on four cards: two each, its
+    shards laid over them as one process lays them over its cards), else
+    the one card of its index among its host's processes, modulo the
+    host's card count (so several processes may share one card);
+    ``--device cuda:N`` keeps a process on that one card. Their halo
+    exchanges and gradient sums cross processes (``ops.collectives``,
+    ``parallel/comm.py``): by CUDA IPC when every process runs on one
+    host, else through the hosts and gloo (``parallel.comm.make_exchange``
+    picks by the host names); the mesh record of each process's log names
+    its cards. On several hosts, start the same command on each with the
+    one coordinator, the total count and each process's id. Only process 0
     writes the run dir and the checkpoints, each save followed by a
     barrier; every process reads them to resume. JAX leaves the full and
     minibatch modes undefined across processes (their arrays are not
@@ -76,7 +82,7 @@ from bignn_tpu_torch.data import load_dataset, prepare_device_data
 from bignn_tpu_torch.models import BiGNN
 from bignn_tpu_torch.parallel import (
     init_distributed,
-    local_device,
+    local_devices,
     make_mesh,
     process_count,
     process_index,
@@ -127,10 +133,11 @@ def main(argv=None) -> dict:
                    help="directory for a torch.profiler trace of the run")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda: every visible card, "
-                        "over which p2's shards and --dp's spread; on four "
-                        "H100s that step is slower than on one card, "
-                        "config5 2.6x: pass cuda:0 for one card; no CPU "
-                        "fallback)")
+                        "over which p2's shards and --dp's spread, or "
+                        "across processes this process's cards, "
+                        "local_devices(); on four H100s that step is "
+                        "slower than on one card, config5 2.6x: pass "
+                        "cuda:0 for one card; no CPU fallback)")
     p.add_argument("--coordinator", default=None,
                    help="multi-process p2: the coordinator host:port "
                         "(or env JAX_COORDINATOR_ADDRESS)")
@@ -155,8 +162,6 @@ def main(argv=None) -> dict:
                            "visible (a CPU run asks for --device cpu)")
     # before anything touches the card; joins nothing in one process
     init_distributed(args.coordinator, args.num_processes, args.process_id)
-    if dev.type == "cuda" and process_count() > 1:
-        dev = local_device()
 
     train_over = {
         k: v
@@ -255,8 +260,9 @@ def _run_p2(model, ds, cfg, logger, overlap: bool = False, ckpt=None,
     """The edge-partitioned training loop of config5 (JAX
     ``run.py:_run_p2``), ``cfg.graph_shards`` shards spread over the
     devices ``device`` names (``devices_of``, ``spread_devices``), or over
-    the processes of the group (``make_hybrid_mesh``); returns
-    ``(best_params, result)``.
+    the processes of the group (``make_hybrid_mesh``), each on its cards
+    (``local_devices()`` for ``cuda`` without an index, else ``device``);
+    returns ``(best_params, result)``.
 
     The trainers' semantics: the parameters of the best val AUC are kept
     and give the final test metrics, and ``ckpt`` saves the full state
@@ -298,7 +304,9 @@ def _run_p2(model, ds, cfg, logger, overlap: bool = False, ckpt=None,
     dev = torch.device(device)
     graph = int(cfg.graph_shards)
     if process_count() > 1:
-        mesh = make_hybrid_mesh(graph=graph, device=dev)
+        mesh = make_hybrid_mesh(graph=graph, devices=(
+            local_devices() if dev.type == "cuda" and dev.index is None
+            else [dev]))
     else:
         mesh = make_mesh(dp=1, graph=graph,
                          devices=spread_devices(graph, devices_of(dev)))
@@ -308,7 +316,8 @@ def _run_p2(model, ds, cfg, logger, overlap: bool = False, ckpt=None,
     dp = mesh.shape["dp"]
     logger.log({"event": "mesh", "dp": dp, "graph": graph,
                 "processes": mesh.process_count,
-                "devices": [str(d) for d in mesh.devices.flat]})
+                "devices": [str(d) for d in mesh.devices.flat],
+                "local_devices": [str(d) for d in mesh.cards]})
 
     train_edges = ds.split_edges("train")
     plan = build_outer_partition(train_edges[:, 0], train_edges[:, 1],

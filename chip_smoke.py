@@ -3,7 +3,7 @@
     python3 chip_smoke.py              # the smoke run below
     python3 chip_smoke.py --profile    # phases 1-2, then the profiles
     python3 chip_smoke.py --worker step --rank R --port P [--route hosts]
-                                       # one process of path K
+                                       # one process of path K (or N)
 
 Phases:
   1. device: a CUDA card of compute capability 9.0; TF32 off.
@@ -262,6 +262,29 @@ Phases:
      drugs, one epoch of 8 steps) and on config5, over every visible card;
      (vi) path K's worker as 4 processes, a card each: each process's
      losses and parameters equal to (ii)'s bit for bit.
+  N. several cards a process across processes, when
+     torch.cuda.device_count() >= N_CARDS (four; on fewer a line says path
+     N was not run), right after path M: path K's worker as N_PROCS = 2
+     processes of two cards each (init_distributed: a host's processes
+     split its cards; make_hybrid_mesh: a graph shard a card; the
+     exchange PeerExchange, a staging buffer a card, a launch a card):
+     (i) config5 as get_config sets it, graph 4, K_STEPS of path G's
+     batches: each process's losses and parameters equal to path M(ii)'s
+     bit for bit, the exchange launched on both cards of each process, a
+     second pair equal to the first; (ii) row 9 across processes of two
+     cards at config5's send buffers (the step's own) and config5-large's
+     (G 8, two shards a card, made from SEED on the card): equal to the
+     plain version exactly, one launch a card, the kernel's device ms
+     (queued behind a sleep on both cards), the whole exchange's host ms
+     (barriers included), the plain version's and the library call's
+     (all_to_all_single on gloo), bound by cards_bound; (iii) the pair on
+     the route between hosts (--route hosts), equal to (i) bit for bit;
+     (iv) python -m bignn_tpu_torch.run --config config5 --epochs 1
+     --coordinator ... --num-processes 2 on the default device: each
+     process's mesh record names two cards, the epoch loss within
+     K_RUN_RTOL and the test AUC within K_RUN_AUC of path I(iii)'s
+     one-process run; the step medians beside M(ii)'s and M(vi)'s, each
+     card's device busy over one traced step and its peak memory.
 Each path runs with the launch counts (per kernel and element type, e.g.
 segment_sum:bf16) set to 0 just before it and read just after; the kernels
 line reports the sum of the paths' counts, each form's error, times (kernel,
@@ -290,7 +313,13 @@ exchange_ms as the host paces it; its *_config5_large keys at
 config5-large's), with the
 launches of M(ii) and of M(v)'s config5 run, and no library call (NCCL's
 all-to-all takes a process a card); on one card its launches are 0 and
-its times null. Rows 4 and 8
+its times null; a sixth, all_to_all:f32:procs:cards, path N(ii)'s exchange
+across processes of two cards (its ms the kernel's device time, queued
+behind a sleep on both cards, exchange_ms and barrier_ms as the third
+row's, library all_to_all_single on gloo; its *_config5_large keys at
+config5-large's), with N(i)'s launches (counted under
+all_to_all:f32:procs, and by card in launches_by_card); on fewer than four
+cards its launches are 0 and its times null. Rows 4 and 8
 have rows at their other shapes too (segment_softmax:bf16:100k,
 spmm_multihead:bf16:100k, segment_softmax{,_bwd}:{f32,bf16}:16k,
 spmm_multihead:f32:shard,
@@ -898,6 +927,7 @@ def reset_counts() -> None:
         op = getattr(ops, form.split(":", 1)[0])
         op.launches = 0
         op.launches_by_dtype.clear()
+    ops.all_to_all.launches_by_device.clear()
 
 
 def read_counts() -> dict:
@@ -3926,13 +3956,15 @@ def _last_json(text: str) -> dict:
     return json.loads(text.strip().splitlines()[-1])
 
 
-def _host_ms(fn, reps: int = K_REPS) -> float:
-    """Median host milliseconds of ``fn()`` up to a synchronize."""
+def _host_ms(fn, reps: int = K_REPS, cards=None) -> float:
+    """Median host milliseconds of ``fn()`` up to a synchronize (of every
+    one of ``cards``; default the current card)."""
     secs = []
     for _ in range(reps):
         t0 = time.perf_counter()
         fn()
-        torch.cuda.synchronize()
+        for c in cards or [None]:
+            torch.cuda.synchronize(c)
         secs.append(time.perf_counter() - t0)
     return float(np.median(secs) * 1e3)
 
@@ -3963,57 +3995,65 @@ def queued_ms(fn, reps: int = 100) -> float:
     return start.elapsed_time(end) / reps
 
 
-def k_exchange_times(exchange, bufs) -> dict:
+def k_exchange_times(exchange, bufs, reps: int = K_REPS) -> dict:
     """Path K(iv) in one process, at a step's own send buffers: every
-    process at once, the whole exchange (IPC: staging copy, synchronize,
-    barrier, launch, synchronize, barrier; K(v)'s route between hosts:
-    host copies, ``all_to_all_single`` through gloo, the upload, one
-    launch), its plain version (through the process group) and the
-    library call (``torch.distributed.all_to_all_single`` on the same
-    buffers, arranged by destination process beforehand, its result
-    checked), each a median of host ms; the barrier (a synchronize and
-    ``dist.barrier``); then the kernel alone (``queued_ms``: IPC's
+    process at once, the whole exchange (IPC: staging copies, synchronize,
+    barrier, a launch a card, synchronize, barrier; K(v)'s route between
+    hosts: host copies, ``all_to_all_single`` through gloo, the upload,
+    one launch), its plain version (every process's whole send buffers
+    gathered: through the staging buffers over IPC, through gloo on the
+    route between hosts) and the library call (``torch.distributed.all_to_all_single`` on the same
+    buffers, arranged by destination process beforehand on the first
+    card, its result checked), each a median of host ms over ``reps``; the
+    barrier (a synchronize and ``dist.barrier``); then the kernel alone
+    (``queued_ms``, or ``cards_queued_ms`` over several cards: IPC's
     ``launch_staged``, or the host route's ``all_to_all_launch`` on this
-    process's destinations, on the chunks it would have), each process
-    in turn while the other waits."""
+    process's destinations, on the chunks it would have), each process in
+    turn while the others wait."""
     import torch.distributed as dist
 
     from bignn_tpu_torch.ops import collectives
 
     L, G = len(bufs), exchange.num_shards
     inner = tuple(bufs[0].shape[1:])
+    cards = exchange.cards
     ipc = isinstance(exchange, collectives.PeerExchange)
     whole = exchange.launch if ipc else exchange.exchange
     want = exchange.all_to_all_plain(bufs)
     sent = exchange.sent_bytes
-    times = {"exchange_ms": _host_ms(lambda: whole(bufs)),
-             "plain_ms": _host_ms(lambda: exchange.all_to_all_plain(bufs))}
+    times = {"exchange_ms": _host_ms(lambda: whole(bufs), reps, cards),
+             "plain_ms": _host_ms(lambda: exchange.all_to_all_plain(bufs),
+                                  reps, cards)}
     # bytes through the process group for one exchange (0 over IPC)
-    times["host_bytes"] = (exchange.sent_bytes - sent) // K_REPS
+    times["host_bytes"] = (exchange.sent_bytes - sent) // reps
     # [destination process, local source, local destination, S, F]
-    inp = (torch.stack(bufs).view(L, exchange.size, L, *inner)
-           .transpose(0, 1).contiguous())
+    inp = (torch.stack([b.to(exchange.device) for b in bufs])
+           .view(L, exchange.size, L, *inner).transpose(0, 1).contiguous())
     out = torch.empty_like(inp)
-    times["library_ms"] = _host_ms(lambda: dist.all_to_all_single(out, inp))
+    times["library_ms"] = _host_ms(lambda: dist.all_to_all_single(out, inp),
+                                   reps)
     # out[p, i, j] = slot j of source p * L + i
     got = out.permute(2, 0, 1, 3, 4).reshape(L, G, *inner)
-    if not all(torch.equal(got[jj], want[jj]) for jj in range(L)):
+    if not all(torch.equal(got[jj], want[jj].to(got.device))
+               for jj in range(L)):
         raise AssertionError("all_to_all_single differs from the exchange")
 
     def barrier():
-        torch.cuda.current_stream().synchronize()
+        for c in cards:
+            torch.cuda.current_stream(c).synchronize()
         dist.barrier()
 
-    times["barrier_ms"] = _host_ms(barrier)
+    times["barrier_ms"] = _host_ms(barrier, reps)
     if ipc:
         exchange.launch(bufs)  # every staging buffer holds these buffers
         recv = [torch.empty_like(b) for b in bufs]
 
         def kernel():
-            exchange.launch_staged(recv)
+            exchange.launch_staged(recv, bufs)
     else:
         # source i's chunks for this process's destinations, as they land
-        sources = [torch.stack([w[i] for w in want]) for i in range(G)]
+        sources = [torch.stack([w[i].to(exchange.device) for w in want])
+                   for i in range(G)]
         recv = []
 
         def kernel():
@@ -4022,9 +4062,10 @@ def k_exchange_times(exchange, bufs) -> dict:
     for turn in range(exchange.size):
         dist.barrier()
         if turn == exchange.rank:
-            times["kernel_ms"] = queued_ms(kernel)
+            times["kernel_ms"] = (queued_ms(kernel) if len(cards) == 1
+                                  else cards_queued_ms(kernel, cards))
         dist.barrier()
-    if not all(torch.equal(a, b) for a, b in zip(recv, want)):
+    if not all(torch.equal(a, b.to(a.device)) for a, b in zip(recv, want)):
         raise AssertionError("the kernel alone differs from the plain "
                              "version")
     chunk = bufs[0][0].numel() * bufs[0].element_size()
@@ -4032,16 +4073,66 @@ def k_exchange_times(exchange, bufs) -> dict:
     return times
 
 
+def n_exchange_large(seed: int = SEED) -> dict:
+    """Path N(ii) at config5-large's send buffers (M_SHAPES' second: G 8,
+    two shards a card over two cards a process): each source's buffer made
+    on the first card from ``seed + i`` in every process, this process's
+    moved to their cards; the exchange ``make_exchange`` picks equal to
+    the plain version exactly, one launch a card; then timed as
+    ``k_exchange_times`` times it, over 3 calls (the library call moves
+    the 845 MB through gloo)."""
+    from bignn_tpu_torch import ops
+    from bignn_tpu_torch.parallel import (
+        make_exchange,
+        make_hybrid_mesh,
+        shard_device,
+    )
+
+    _, g, s_, f = M_SHAPES[1]
+    mesh = make_hybrid_mesh(graph=g)
+    exchange = make_exchange(mesh)
+    first = mesh.first_device
+    full = []
+    for i in range(g):
+        gen = torch.Generator(device=first).manual_seed(seed + i)
+        full.append(torch.randn(g, s_, f, generator=gen, device=first))
+    bufs = [full[j].to(shard_device(mesh, j)) for j in mesh.local_graph]
+    reset_counts()
+    got = ops.all_to_all(bufs, exchange)
+    sync_all()
+    by_card = dict(ops.all_to_all.launches_by_device)
+    want = [torch.stack([full[i][j] for i in range(g)])
+            for j in mesh.local_graph]
+    err = max(float((a.to(first) - b).abs().max()) for a, b in zip(got, want))
+    if not (all(torch.equal(a.to(first), b) for a, b in zip(got, want))
+            and sorted(by_card) == sorted(str(c) for c in exchange.cards)
+            and set(by_card.values()) == {1}):
+        raise AssertionError(f"path N(ii) config5-large: the exchange "
+                             f"differs from its plain version, or launched "
+                             f"{by_card} on {exchange.cards}")
+    del full, want, got
+    times = k_exchange_times(exchange, bufs, reps=3)
+    exchange.close()
+    return {"max_abs_err": err, "launches_by_card": by_card,
+            "route": type(exchange).__name__,
+            "devices": [str(d) for d in exchange.devices], **times}
+
+
 def k_worker_step(rank: int, port: int, route: str = "auto",
                   procs: int = K_PROCS, times: bool = True) -> dict:
     """One process of path K(i): config5 as get_config sets it, graph 4
     over K_PROCS processes on this card (make_hybrid_mesh: 2 shards each),
     dp 1, the first K_STEPS batches of path G from the same init and keys;
-    the launch counts over those steps; the first exchange across
-    processes against its plain version, exactly; the times of K(iv).
-    ``route``: ``auto``, the exchange ``make_exchange`` picks (on one host,
-    ``PeerExchange``), or ``hosts`` (path K(v)), the route between hosts
-    (``ProcessExchange``) built directly."""
+    the launch counts over those steps (and the exchange's by card); the
+    first exchange across processes against its plain version, exactly;
+    the times of K(iv). ``route``: ``auto``, the exchange
+    ``make_exchange`` picks (on one host, ``PeerExchange``), or ``hosts``
+    (path K(v)), the route between hosts (``ProcessExchange``) built
+    directly. Where the process drives several cards (path N: 2 processes
+    on four cards, two each, a shard a card), the same, with a replica a
+    shard; and, with ``times``, path N(ii) at config5-large's send buffers
+    (``n_exchange_large``) and each card's device busy over one more
+    traced step and its peak memory."""
     from bignn_tpu_torch import ops
     from bignn_tpu_torch.ops.collectives import ProcessExchange
     from bignn_tpu_torch.config import get_config
@@ -4052,6 +4143,7 @@ def k_worker_step(rank: int, port: int, route: str = "auto",
         local_device,
         make_exchange,
         make_hybrid_mesh,
+        shard_device,
     )
 
     if not torch.cuda.is_available():
@@ -4063,13 +4155,17 @@ def k_worker_step(rank: int, port: int, route: str = "auto",
     cfg = get_config("config5")
     ds = load_dataset(cfg.dataset, **cfg.dataset_kwargs)
     mesh = make_hybrid_mesh(graph=cfg.graph_shards)
+    cards = mesh.cards
     exchange = (ProcessExchange(mesh.shape["graph"], mesh.local_graph,
-                                mesh.first_device) if route == "hosts"
-                else make_exchange(mesh))
+                                [shard_device(mesh, j)
+                                 for j in mesh.local_graph])
+                if route == "hosts" else make_exchange(mesh))
     log(f"process {rank}: {type(exchange).__name__}, mesh {mesh.shape}, "
         "processes "
         f"{mesh.processes.tolist()}, local shards {mesh.local_graph} on "
-        f"{mesh.first_device}")
+        f"{[str(shard_device(mesh, j)) for j in mesh.local_graph]}")
+    for c in cards:
+        torch.cuda.reset_peak_memory_stats(c)
     reset_counts()  # the upload's block builds count, as on path G
     _, _, plan_d = p2_layout(dev, ds, cfg.graph_shards,
                              cfg.model.inner_layers, mesh=mesh)
@@ -4080,42 +4176,58 @@ def k_worker_step(rank: int, port: int, route: str = "auto",
     rec, secs = FirstCall(ops.all_to_all), []
     with mock.patch.object(ops, "all_to_all", rec):
         losses, grads = _timed_steps(trainer, batches,
-                                     "two-process p2 step", secs)
+                                     f"{procs}-process p2 step", secs)
     K_LOGS.mkdir(parents=True, exist_ok=True)
     grads_file = K_LOGS / f"grads_{rank}.pt"
     torch.save({k: v.cpu() for k, v in grads.items()}, grads_file)
     launches = read_counts()
+    by_card = dict(ops.all_to_all.launches_by_device)
     forms, other = ((K_HOST_FORMS, "all_to_all:f32:procs") if route == "hosts"
                     else (K_FORMS, "all_to_all:f32:hosts"))
     require_launched(launches, forms, f"in process {rank}")
-    require_idle(launches, ("all_to_all:f32", other, *FLASH_FORMS),
-                 f"in process {rank}")
+    require_idle(launches, ("all_to_all:f32", "all_to_all:f32:cards", other,
+                            *FLASH_FORMS), f"in process {rank}")
+    if sorted(by_card) != sorted(str(c) for c in cards):
+        raise AssertionError(f"process {rank}: the exchange launched on "
+                             f"{by_card}, its cards are {cards}")
     want = exchange.all_to_all_plain(rec.bufs)
     err = max(float((a - b).abs().max()) for a, b in zip(rec.out, want))
     if not all(torch.equal(a, b) for a, b in zip(rec.out, want)):
         raise AssertionError("the first exchange across processes differs "
                              "from its plain version")
-    times = k_exchange_times(exchange, rec.bufs) if times else {}
     digest = hashlib.sha256()
     for v in model.state_dict().values():
         digest.update(v.detach().cpu().numpy().tobytes())
+    extra = {}
+    if times:
+        extra = k_exchange_times(exchange, rec.bufs)
+        if len(cards) > 1:
+            pairs, mask = batches[0]
+            extra["busy_ms"] = busy_by_card(
+                lambda: trainer.train_step(pairs, mask, 1, 0), cards)
+            extra["peak_gib"] = _peaks(cards)
+            extra["large"] = n_exchange_large()
     exchange.close()
     return {"rank": rank, "losses": losses, "digest": digest.hexdigest(),
             "grads": str(grads_file), "device": str(dev),
+            "cards": [str(c) for c in cards],
+            "route": type(exchange).__name__,
             "median_ms": float(np.median(secs) * 1e3), "max_abs_err": err,
             "launches": {f: n for f, n in launches.items() if n},
-            "send": [tuple(rec.bufs[0].shape), len(rec.bufs)], **times}
+            "launches_by_card": by_card,
+            "send": [tuple(rec.bufs[0].shape), len(rec.bufs)], **extra}
 
 
 def _k_step_pair(what: str, route: str = "auto", procs: int = K_PROCS,
-                 env: dict | None = None) -> list[dict]:
-    """``procs`` workers of ``k_worker_step`` (path K's pair on one card by
-    default; path M(vi)'s four on the visible cards with ``env`` the
-    parent's)."""
+                 every_card: bool = False, times: bool = True) -> list[dict]:
+    """``procs`` workers of ``k_worker_step``: path K's pair on the first
+    card (``_one_card_env``) by default, or on every visible card
+    (``every_card``: path M(vi)'s four, a card each; path N's two, two
+    cards each)."""
     port = _free_port()
-    extra = [] if procs == K_PROCS else ["--procs", str(procs),
-                                         "--no-times"]
-    env = _one_card_env() if procs == K_PROCS else env
+    extra = ([] if procs == K_PROCS else ["--procs", str(procs)]) + (
+        [] if times else ["--no-times"])
+    env = None if every_card else _one_card_env()
     outs = _spawn([[sys.executable, str(Path(__file__).resolve()),
                     "--worker", "step", "--rank", str(r), "--port",
                     str(port), "--route", route, *extra]
@@ -4575,7 +4687,8 @@ def m_p2(cards, ds, g_ref: dict) -> tuple[dict, dict]:
         "traced step: "
         + ", ".join(f"{c} {b:.3f} ms" for c, b in busy.items())
         + f"; peak memory by card {peaks} on {card_line()}")
-    return counts, {"losses": losses, "digest": digest}
+    return counts, {"losses": losses, "digest": digest,
+                    "median_ms": float(np.median(secs) * 1e3)}
 
 
 def m_config4(cards, ds, tr1) -> dict:
@@ -4698,7 +4811,7 @@ def m_processes(cards, ref: dict) -> None:
     parameters equal to path M(ii)'s bit for bit (a card in one process
     plays a process's part: ``parallel/comm.py``)."""
     t0 = time.perf_counter()
-    outs = _k_step_pair("m_step", procs=4)
+    outs = _k_step_pair("m_step", procs=4, every_card=True, times=False)
     for w in outs:
         log(f"  process {w['rank']} on {w['device']}: losses {w['losses']}, "
             f"parameters {w['digest'][:16]}, median step "
@@ -4712,6 +4825,164 @@ def m_processes(cards, ref: dict) -> None:
                              f"M(ii)'s {ref['losses']} ({ref['digest'][:16]})")
     log(f"  every process's losses and parameters equal to path M(ii)'s bit "
         f"for bit ({time.perf_counter() - t0:.1f} s)")
+    return [w["median_ms"] for w in outs]
+
+
+# ---------------------------------------------------------------------------
+# path N: several cards a process across processes
+# ---------------------------------------------------------------------------
+
+N_PROCS = 2  # processes of path N, each on N_CARDS // N_PROCS cards
+N_CARDS = 4
+
+
+def run_n(cards, m_ref: dict, m_medians: list, one_run: dict,
+          rate: float | None) -> dict:
+    """Path N: JAX's hybrid mesh over each process's own cards, N_PROCS
+    processes of two cards each (``init_distributed``: a host's processes
+    split its cards), path K's worker: (i) config5 as get_config sets it,
+    graph 4 (a shard a card), path G's first K_STEPS batches: every
+    process's losses and parameters equal to path M(ii)'s (``m_ref``) bit
+    for bit, the exchange (``PeerExchange`` over two cards a process,
+    ``all_to_all:f32:procs``) launched on both cards of each process, and
+    a second pair equal to the first; (ii) row 9 across processes of
+    several cards at config5's send buffers (the step's own) and
+    config5-large's (``n_exchange_large``), exact, timed, bounded by
+    ``cards_bound`` at ``rate``; (iii) the pair on the route between hosts
+    (``--route hosts``) equal to (i) bit for bit; (iv) ``python -m
+    bignn_tpu_torch.run --config config5 --epochs 1 --coordinator ...
+    --num-processes 2`` on the default device: each process logs its two
+    cards, the epoch loss within K_RUN_RTOL and the test AUC within
+    K_RUN_AUC of the one-process run (``one_run``, path I(iii)). The step
+    medians beside M(ii)'s and M(vi)'s, with each card's busy ms and peak.
+    Returns the kernels line's row of the new form."""
+    from bignn_tpu_torch.parallel import spread_devices
+
+    t0 = time.perf_counter()
+    log(f"  (i) config5's p2 step, graph 4 over {N_PROCS} processes of "
+        f"{N_CARDS // N_PROCS} cards, {K_STEPS} steps")
+    first = _k_step_pair("n_step", procs=N_PROCS, every_card=True)
+    for w in first:
+        log(f"  process {w['rank']} on {w['cards']} ({w['route']}): losses "
+            f"{w['losses']}, parameters {w['digest'][:16]}, launches "
+            f"{w['launches']}, the exchange by card {w['launches_by_card']}")
+        if len(set(w["cards"])) != N_CARDS // N_PROCS or (
+                w["route"] != "PeerExchange"):
+            raise AssertionError(f"path N(i): process {w['rank']} drove "
+                                 f"{w['cards']} by {w['route']}")
+        if sorted(w["launches_by_card"]) != sorted(w["cards"]) or min(
+                w["launches_by_card"].values()) <= 0:
+            raise AssertionError(f"path N(i): process {w['rank']}'s "
+                                 "exchange did not launch on each of its "
+                                 f"cards: {w['launches_by_card']}")
+    if len({c for w in first for c in w["cards"]}) != N_CARDS:
+        raise AssertionError(f"path N(i): cards {[w['cards'] for w in first]}")
+    bad = [w["rank"] for w in first
+           if (w["losses"], w["digest"]) != (m_ref["losses"], m_ref["digest"])]
+    if bad:
+        raise AssertionError(f"path N(i): processes {bad} differ from path "
+                             f"M(ii)'s {m_ref['losses']} "
+                             f"({m_ref['digest'][:16]})")
+    log("  every process's losses and parameters equal to path M(ii)'s bit "
+        f"for bit ({m_ref['digest'][:16]})")
+    log("  (i) the pair again from the same seed")
+    again = _k_step_pair("n_step_again", procs=N_PROCS, every_card=True,
+                         times=False)
+    log("  (iii) the pair on the route between hosts (ProcessExchange: "
+        "host copies from each card, gloo all_to_all_single, a launch a "
+        "card)")
+    hosts = _k_step_pair("n_step_hosts", "hosts", procs=N_PROCS,
+                         every_card=True, times=False)
+    for what, pair in (("(i) again", again), ("(iii)", hosts)):
+        for a, b in zip(first, pair):
+            if (a["digest"], a["losses"]) != (b["digest"], b["losses"]):
+                raise AssertionError(
+                    f"path N{what}: process {a['rank']}'s losses "
+                    f"{b['losses']} ({b['digest'][:16]}) against (i)'s "
+                    f"{a['losses']} ({a['digest'][:16]})")
+    log("  both equal to (i) bit for bit")
+
+    log("  (iv) run --config config5 over 2 processes on the default device")
+    run_dir = Path(__file__).resolve().parent / "build" / "smoke_runs" / "n"
+    import shutil
+
+    shutil.rmtree(run_dir, ignore_errors=True)
+    port = _free_port()
+    t1 = time.perf_counter()
+    texts = _spawn([[sys.executable, "-m", "bignn_tpu_torch.run", "--config",
+                     "config5", "--epochs", "1", "--run-dir", str(run_dir),
+                     "--coordinator", f"127.0.0.1:{port}", "--num-processes",
+                     str(N_PROCS), "--process-id", str(r)]
+                    for r in range(N_PROCS)], "n_cli")
+    cli_s = time.perf_counter() - t1
+    logged = [[line for line in text.splitlines()
+               if line.startswith("wall_s=") and "event=mesh" in line]
+              for text in texts]
+    got = json.loads((run_dir / "result.json").read_text())
+    rel = abs(got["final_loss"] - one_run["final_loss"]) / abs(
+        one_run["final_loss"])
+    auc = abs(got["test_auc"] - one_run["test_auc"])
+    for r, lines in enumerate(logged):
+        log(f"  process {r}: {lines}")
+    log(f"  {cli_s:.3f} s for both processes: loss {got['final_loss']:.7f} "
+        f"against {one_run['final_loss']:.7f} ({rel:.3e}, bound "
+        f"{K_RUN_RTOL:g}), test AUC {got['test_auc']:.6f} against "
+        f"{one_run['test_auc']:.6f} ({auc:.3e}, bound {K_RUN_AUC:g})")
+    import ast
+
+    # the record's last key: this process's cards
+    two_cards = [len(lines) == 1 and len(set(ast.literal_eval(
+        lines[0].split("local_devices=")[1]))) == N_CARDS // N_PROCS
+        for lines in logged]
+    if not (all(two_cards) and rel <= K_RUN_RTOL and auc <= K_RUN_AUC):
+        raise AssertionError(f"path N(iv): {got} against {one_run}; mesh "
+                             f"records {logged}")
+    shutil.rmtree(run_dir, ignore_errors=True)
+
+    w = first[0]
+    log(f"  step median {first[0]['median_ms']:.3f} ms, "
+        f"{first[1]['median_ms']:.3f} ms (two processes of two cards) "
+        f"against path M(ii)'s {m_ref['median_ms']:.3f} ms (one process "
+        f"over four) and M(vi)'s {', '.join(f'{m:.3f}' for m in m_medians)}"
+        " ms (four processes of one); busy over one traced step "
+        + "; ".join(f"process {x['rank']}: "
+                    + ", ".join(f"{c} {b:.3f} ms"
+                                for c, b in x["busy_ms"].items())
+                    + f", peak {x['peak_gib']}" for x in first))
+    # (ii) the exchange, at both shapes
+    shapes = {"config5": (M_SHAPES[0], w), "config5-large": (M_SHAPES[1],
+                                                             w["large"])}
+    row = {}
+    for name, ((_, g, s_, f), x) in shapes.items():
+        bound = cards_bound(spread_devices(g, cards[:N_CARDS]), s_ * f * 4,
+                            rate)
+        log(f"  (ii) {name}: G {g} over {N_PROCS} processes of two cards, "
+            f"exact; process 0: kernel {x['kernel_ms']:.4f} ms device "
+            f"(queued behind a sleep on both cards), the whole exchange "
+            f"{x['exchange_ms']:.4f} ms host (barriers included), plain "
+            f"{x['plain_ms']:.4f} ms, all_to_all_single (gloo) "
+            f"{x['library_ms']:.4f} ms, barrier {x['barrier_ms']:.4f} ms; "
+            f"bound {bound:.4f} ms (bytes)")
+        vals = dict(ms=x["kernel_ms"], plain_ms=x["plain_ms"],
+                    bound_ms=bound, library_ms=x["library_ms"],
+                    exchange_ms=x["exchange_ms"],
+                    barrier_ms=x["barrier_ms"])
+        if name == "config5":
+            row.update(vals, max_abs_err=max(y["max_abs_err"] for y in first))
+        else:
+            row.update({f"{k}_config5_large": v for k, v in vals.items()},
+                       max_abs_err_config5_large=max(
+                           y["large"]["max_abs_err"] for y in first),
+                       launches_by_card_config5_large=[
+                           y["large"]["launches_by_card"] for y in first])
+    log(f"path N: {time.perf_counter() - t0:.1f} s on {card_line()}")
+    source, tpu = KERNELS["all_to_all:f32:procs"]
+    return {"name": "all_to_all:f32:procs:cards", "route": "cuda",
+            "source": source, "replaces": tpu,
+            "launches": sum(x["launches"]["all_to_all:f32:procs"]
+                            for x in first),
+            "bound_by": "bytes", **row,
+            "launches_by_card": [x["launches_by_card"] for x in first]}
 
 
 # ---------------------------------------------------------------------------
@@ -4776,8 +5047,9 @@ def run_learning_gate(dev) -> list:
 
 def worker(argv: list) -> int:
     """``--worker step --rank R --port P [--route hosts] [--procs N
-    --no-times]``: one process of path K(i) (or K(v), or of path M(vi)'s
-    N); its result is the last line of its output."""
+    --no-times]``: one process of path K(i) (or K(v), of path M(vi)'s
+    four, or of path N's two, each on its share of the visible cards);
+    its result is the last line of its output."""
     import argparse
 
     ap = argparse.ArgumentParser(prog="chip_smoke.py --worker")
@@ -4961,7 +5233,8 @@ def main() -> int:
         path_m0 = time.perf_counter()
         log(f"== path M: one process over {len(cards)} cards; (i) row 9 "
             "across the cards")
-        m_results = m_exchange(cards, link_rate())
+        m_rate = link_rate()
+        m_results = m_exchange(cards, m_rate)
         log("== path M(ii): config5's p2 step, its 4 graph shards over the "
             "cards")
         m2, m_ref = m_p2(cards, ds, g_ref)
@@ -4969,7 +5242,7 @@ def main() -> int:
             "over the cards")
         m5 = m_entry_points(cards)
         log("== path M(vi): path K as 4 processes, a card each")
-        m_processes(cards, m_ref)
+        m_medians = m_processes(cards, m_ref)
         m_main = [m2, m5[1]]  # the exchange at config5's shapes
         path_m += [m2, *m5]
         counts += path_m
@@ -4977,6 +5250,14 @@ def main() -> int:
             f"(M(iii) and M(iv) ran beside path J) on {card_line()}")
     else:
         log("== path M: needs two or more cards, this machine shows "
+            f"{torch.cuda.device_count()}: not run")
+    n_row = None
+    if len(cards) >= N_CARDS:
+        log(f"== path N: {N_PROCS} processes of {N_CARDS // N_PROCS} cards "
+            "each, JAX's hybrid mesh over each process's own cards")
+        n_row = run_n(cards, m_ref, m_medians, one_run, m_rate)
+    else:
+        log(f"== path N: needs {N_CARDS} cards, this machine shows "
             f"{torch.cuda.device_count()}: not run")
     log("== path L: the samplers' learning gate, 3 seeds a mode")
     counts += run_learning_gate(dev)
@@ -5023,6 +5304,18 @@ def main() -> int:
     else:
         cards_row["note"] = "path M needs two or more cards"
     kernels.append(cards_row)
+    # across processes of two cards each (path N): at config5's send
+    # buffers, with N(i)'s launches, config5-large's beside them; on fewer
+    # than four cards nothing ran
+    if n_row is None:
+        source, tpu = KERNELS["all_to_all:f32:procs"]
+        n_row = {"name": "all_to_all:f32:procs:cards", "route": "cuda",
+                 "source": source, "replaces": tpu, "launches": 0,
+                 **{k: None for k in ("max_abs_err", "ms", "plain_ms",
+                                      "bound_ms", "bound_by",
+                                      "library_ms")},
+                 "note": f"path N needs {N_CARDS} cards"}
+    kernels.append(n_row)
     # rows 4 and 8 at the other shapes the paths give them, each with the
     # launches of the paths that run that shape: the 100K graph in bf16
     # (7b), the 16,384-drug graph (8 in f32, 8b in bf16), shard 0 of path

@@ -35,11 +35,19 @@ and leaves its results under DIR; the tests read them:
 * (e) ``overlap=True`` and ``remat=True`` across 2 processes, as (b).
 * (g) one process over 2 "cards" (CPU slots, ``make_cards_train_step``)
   against 2 processes of one shard each: the same bits.
+* (h) several cards a process: 2 processes of 2 CPU "card" slots each.
+  graph = 4, a shard a slot: the loss, every gradient and the parameters
+  equal one process over 4 slots (``make_cards_train_step``) bit for bit;
+  the exchange, its backward and the gather onto every slot (its backward
+  one term a slot of every process) exactly; and JAX's own topology
+  (dp = 2 x graph = 2, 2 devices a process, ``make_hybrid_mesh(devices=
+  [cpu, cpu])``) against ``run_once()``.
 * (f) ``make_exchange``'s route by the gathered hosts (the gathered list
   set in turn) and cards: ``PeerExchange`` on one card of one host,
   ``ProcessExchange`` across hosts, across cards and on the CPU; and, with no
-  processes, ``init_distributed``'s card for 2 hosts x 2 processes,
-  ``device_count`` stubbed.
+  processes, ``init_distributed``'s cards for hosts of 2 cards (2 hosts x 2
+  processes and 3 + 1) and of 4 (2 processes split them), ``device_count``
+  stubbed, and explicit ``local_device_ids``.
 """
 
 import argparse
@@ -63,6 +71,7 @@ import torch  # noqa: E402
 
 from bignn_tpu_torch import ops, prng, run  # noqa: E402
 from bignn_tpu_torch.config import get_config  # noqa: E402
+from bignn_tpu_torch.ops.collectives import ProcessExchange  # noqa: E402
 from bignn_tpu_torch.data import make_synthetic_ddi  # noqa: E402
 from bignn_tpu_torch.models import BiGNN, BiGNNConfig  # noqa: E402
 from bignn_tpu_torch.parallel import (  # noqa: E402
@@ -71,6 +80,7 @@ from bignn_tpu_torch.parallel import (  # noqa: E402
     build_sharded_inner,
     device_put_plan,
     gather_rows,
+    gather_rows_cards,
     init_distributed,
     make_exchange,
     make_cards_train_step,
@@ -94,9 +104,17 @@ KW = dict(num_drugs=40, feat_dim=8, avg_degree=6.0, min_atoms=4,
 TINY_DATA = dict(num_drugs=40, feat_dim=8, avg_degree=6.0, min_atoms=4,
                  max_atoms=8)  # tests/test_torch_cli.py's
 # name -> (dataset, outer layers or None for config1, dp, graph, overlap,
-# remat, init seed, positives seed, masked tail, negatives key)
+# remat, init seed, positives seed, masked tail, negatives key, CPU "card"
+# slots a process)
 CASES = {
     "a": ("multihost", None, 2, 2, False, False, 0, 0, 0, 1),
+    # JAX's topology on 2 devices a process: its one shard on the first
+    "a_cards": ("multihost", None, 2, 2, False, False, 0, 0, 0, 1, 2),
+    # 2 shards a process, a slot each (the same step as "b")
+    "slots": ("parallel", ("gin:16", "gat:16:2:identity"), 1, 4, False,
+              False, 1, 4, 3, 9, 2),
+    "slots_overlap": ("parallel", ("gcn:16", "gat:16:2:identity"), 1, 4,
+                      True, False, 1, 4, 3, 9, 2),
     "b": ("parallel", ("gin:16", "gat:16:2:identity"), 1, 4, False, False,
           1, 4, 3, 9),
     "overlap": ("parallel", ("gcn:16", "gat:16:2:identity"), 1, 4, True,
@@ -116,14 +134,25 @@ def _dataset(name):
     return make_synthetic_ddi(**KW)
 
 
+def _slots_exchange(mesh) -> ProcessExchange:
+    """The route between hosts over this process's shards of ``mesh``,
+    spread over 2 CPU "card" slots (``ProcessExchange``'s ``card_of``)."""
+    local = mesh.local_graph
+    return ProcessExchange(mesh.shape["graph"], local, ["cpu"] * len(local),
+                           [k * 2 // len(local) for k in range(len(local))])
+
+
 def _p2_case(name: str, multi: bool, cards: bool = False) -> dict:
     """One p2 step of case ``name``, across the group's processes
-    (``multi``) or in this one (with ``cards``, over a "card" a shard:
+    (``multi``; a case of 2 slots: ``make_hybrid_mesh`` over 2 CPU devices,
+    and the shards on slots of their own where a process holds 2) or in
+    this one (with ``cards``, over a "card" a shard:
     ``make_cards_train_step`` on CPU slots); the loss, the parameters after
     the step, their checksum (JAX's: the sum of |p|) and a digest of their
     bits."""
-    data, outer, dp, graph, overlap, remat, seed, pos_seed, tail, key = (
-        CASES[name])
+    (data, outer, dp, graph, overlap, remat, seed, pos_seed, tail, key,
+     *slots) = CASES[name]
+    slots = slots[0] if slots else 1
     ds = _dataset(data)
     if outer is None:
         cfg = BiGNNConfig.config1(feat_dim=8)
@@ -132,8 +161,9 @@ def _p2_case(name: str, multi: bool, cards: bool = False) -> dict:
             BiGNNConfig.full_bignn(feat_dim=8, dim=16, heads=2),
             outer_layers=outer)
     model = BiGNN(cfg, seed=seed)
-    mesh = (make_hybrid_mesh(dp=dp, graph=graph, device="cpu") if multi
-            else make_mesh(dp=dp, graph=graph, devices=["cpu"] * (dp * graph)))
+    mesh = (make_hybrid_mesh(dp=dp, graph=graph, devices=["cpu"] * slots)
+            if multi else
+            make_mesh(dp=dp, graph=graph, devices=["cpu"] * (dp * graph)))
     train = ds.split_edges("train")
     plan = build_outer_partition(train[:, 0], train[:, 1], ds.num_drugs,
                                  graph)
@@ -145,9 +175,12 @@ def _p2_case(name: str, multi: bool, cards: bool = False) -> dict:
             model, optimizer, CardExchange(["cpu"] * graph, range(graph)),
             ds.num_drugs, overlap=overlap, remat=remat, dp=dp)
     else:
+        exchange = (_slots_exchange(mesh)
+                    if multi and len(mesh.local_graph) == slots > 1
+                    else make_exchange(mesh))
         step = make_p2_train_step(model, optimizer, mesh, ds.num_drugs,
                                   overlap=overlap, remat=remat,
-                                  exchange=make_exchange(mesh))
+                                  exchange=exchange)
     pos = np.random.default_rng(pos_seed).integers(
         0, ds.num_drugs, (16, 2)).astype(np.int32)
     mask = np.ones(16, np.float32)
@@ -196,6 +229,45 @@ def _exchange_case(rank: int) -> dict:
             torch.equal(t.grad, 2 * g.view(4, 6, 7)[j])
             for t, j in zip(hl, local)),
         "processes": mesh.processes.tolist(),
+        **_slots_exchange_case(rank),
+    }
+
+
+def _slots_exchange_case(rank: int) -> dict:
+    """(h): (b)'s exchange with each process's 2 shards on 2 CPU "card"
+    slots, and the rows gathered onto both slots: forward and backward
+    exactly; the gather's backward adds, for each shard's rows, the 4
+    slots' cotangents one at a time in (process, slot) order."""
+    mesh = make_hybrid_mesh(graph=4, devices=["cpu", "cpu"])
+    exchange = _slots_exchange(mesh)
+    local = mesh.local_graph
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.normal(size=(4, 4, 3, 5)).astype(np.float32))
+    ct = torch.from_numpy(rng.normal(size=(4, 4, 3, 5)).astype(np.float32))
+    bufs = [x[j].clone().requires_grad_() for j in local]
+    out = ops.all_to_all(bufs, exchange)
+    torch.autograd.backward(out, [ops.all_to_all_plain(list(ct))[j]
+                                  for j in local])
+    want = ops.all_to_all_plain(list(x))
+    want_g = ops.all_to_all_plain(list(ops.all_to_all_plain(list(ct))))
+    h = torch.from_numpy(rng.normal(size=(4, 6, 7)).astype(np.float32))
+    hl = [h[j].clone().requires_grad_() for j in local]
+    embs = gather_rows_cards(hl, exchange)
+    # every slot's cotangent, in (process, slot) order
+    g = torch.from_numpy(rng.normal(size=(4, 24, 7)).astype(np.float32))
+    torch.autograd.backward(embs, [g[2 * rank + c] for c in range(2)])
+    fold = ((g[0] + g[1]) + g[2]) + g[3]
+    return {
+        "slots_cards": [exchange.card_of, exchange.total_cards],
+        "slots_forward": all(torch.equal(o, want[j])
+                             for o, j in zip(out, local)),
+        "slots_backward": all(torch.equal(b.grad, want_g[j])
+                              for b, j in zip(bufs, local)),
+        "slots_gather": len(embs) == 2 and all(
+            torch.equal(e, h.reshape(24, 7)) for e in embs),
+        "slots_gather_backward": all(
+            torch.equal(t.grad, fold.view(4, 6, 7)[j])
+            for t, j in zip(hl, local)),
     }
 
 
@@ -210,10 +282,12 @@ def _route_case(rank: int) -> dict:
     try:
         for layout, hosts in (("one", ["h0", "h0"]), ("two", ["h0", "h1"])):
             mesh_mod._hosts = hosts
-            for name, dev in (("cpu", "cpu"), ("card", "cuda:0"),
-                              ("cards", f"cuda:{rank}")):
+            for name, devs in (("cpu", ["cpu"]), ("card", ["cuda:0"]),
+                               ("cards", [f"cuda:{rank}"]),
+                               ("two-cards", [f"cuda:{2 * rank}",
+                                              f"cuda:{2 * rank + 1}"])):
                 exchange = make_exchange(make_hybrid_mesh(graph=4,
-                                                          device=dev))
+                                                          devices=devs))
                 routes[f"{layout}-{name}"] = type(exchange).__name__
                 exchange.close()
     finally:
@@ -350,6 +424,16 @@ def test_hybrid_mesh_layout_matches_jax(monkeypatch, nproc, ici_dp,
         monkeypatch.setattr(mesh_mod, "process_index", lambda p=p: p)
         assert got.local_graph == list(range(p * ici_graph,
                                              (p + 1) * ici_graph))
+    # distinct local devices, process p's i-th named cuda:{p * nloc + i}:
+    # every entry on the (process, local card) JAX places there
+    monkeypatch.setattr(mesh_mod, "all_gather_object", lambda obj: [
+        [f"cuda:{p * nloc + i}" for i in range(nloc)] for p in range(nproc)])
+    cards = make_hybrid_mesh(dp=ici_dp, graph=nproc * ici_graph,
+                             devices=[f"cuda:{i}" for i in range(nloc)])
+    np.testing.assert_array_equal(cards.processes, got.processes)
+    np.testing.assert_array_equal(
+        np.vectorize(lambda d: d.index)(cards.devices),
+        np.vectorize(lambda d: d.id)(want))
 
 
 def test_hybrid_mesh_errors_match_jax(monkeypatch):
@@ -365,6 +449,15 @@ def test_hybrid_mesh_errors_match_jax(monkeypatch):
     with pytest.raises(ValueError) as got:
         make_hybrid_mesh(graph=3, device="cpu")
     assert str(got.value) == str(want.value)
+    # JAX's two checks against the local devices, on as many CPU devices:
+    # a per-host graph dim that does not divide them, and a dp against them
+    for nloc, kw in ((3, dict(graph=4)), (2, dict(dp=1, graph=2))):
+        monkeypatch.setattr(jax, "local_device_count", lambda n=nloc: n)
+        with pytest.raises(ValueError) as want:
+            jax_mesh.make_hybrid_mesh(**kw)
+        with pytest.raises(ValueError) as got:
+            make_hybrid_mesh(**kw, devices=["cpu"] * nloc)
+        assert str(got.value) == str(want.value)
     # a single process: make_mesh on its one card
     monkeypatch.setattr(mesh_mod, "process_count", lambda: 1)
     one = make_hybrid_mesh(dp=2, graph=2, device="cpu")
@@ -408,21 +501,41 @@ def test_run_refuses_several_processes_outside_p2():
                   "--device", "cpu"])
 
 
-def test_two_processes_match_jax_run_once(workers):
-    """(a) against JAX's own tests/_multihost_prog.py run_once()."""
+@pytest.fixture(scope="module")
+def jax_run_once():
+    """JAX's own tests/_multihost_prog.py ``run_once()``: (loss,
+    checksum)."""
     import importlib.util
 
     spec = importlib.util.spec_from_file_location(
         "_multihost_prog", REPO / "tests" / "_multihost_prog.py")
     prog = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(prog)
-    loss_ref, cs_ref = prog.run_once()
+    return prog.run_once()
+
+
+def test_two_processes_match_jax_run_once(workers, jax_run_once):
+    """(a) against JAX's own tests/_multihost_prog.py run_once()."""
+    loss_ref, cs_ref = jax_run_once
     _, results = workers
     for r in results:
         assert np.isclose(r["a"]["loss"], loss_ref, rtol=1e-5), (r["a"],
                                                                  loss_ref)
         assert np.isclose(r["a"]["checksum"], cs_ref, rtol=1e-5), (
             r["a"], cs_ref)
+
+
+def test_two_processes_of_two_devices_match_jax_run_once(workers,
+                                                         jax_run_once):
+    """(h): JAX's topology itself, 2 processes of 2 devices each
+    (``make_hybrid_mesh`` over 2 CPU devices: dp = 2 x graph = 2 by JAX's
+    checks), against ``run_once()`` at JAX's rtol 1e-5."""
+    loss_ref, cs_ref = jax_run_once
+    _, results = workers
+    for r in results:
+        got = r["a_cards"]
+        assert np.isclose(got["loss"], loss_ref, rtol=1e-5), (got, loss_ref)
+        assert np.isclose(got["checksum"], cs_ref, rtol=1e-5), (got, cs_ref)
 
 
 @pytest.mark.parametrize("case", list(CASES))
@@ -460,6 +573,31 @@ def test_cards_step_equals_two_processes(workers):
             got["loss"], got["digest"])
 
 
+@pytest.mark.parametrize("case", ["slots", "slots_overlap"])
+def test_slots_step_equals_one_process_over_four_slots(workers, case):
+    """(h): 2 processes of 2 CPU "card" slots, a graph shard a slot, take
+    the same step as one process over 4 slots (``make_cards_train_step``),
+    bit for bit: the loss, every gradient and every parameter (every sum
+    one term a slot in (process, slot) order)."""
+    _, results = workers
+    got = _p2_case(case, multi=False, cards=True)
+    for r in results:
+        assert (r[case]["loss"], r[case]["digest"]) == (got["loss"],
+                                                        got["digest"])
+
+
+def test_exchange_across_processes_of_two_slots_is_exact(workers):
+    """(h): the exchange with 2 slots a process (the host route: a launch
+    a card on the card), its backward, the rows gathered onto both slots
+    and the gather's backward exactly."""
+    _, results = workers
+    for r in results:
+        ex = r["exchange"]
+        assert ex["slots_cards"] == [[0, 1], 4]
+        assert ex["slots_forward"] and ex["slots_backward"], ex
+        assert ex["slots_gather"] and ex["slots_gather_backward"], ex
+
+
 def test_exchange_across_processes_is_exact(workers):
     """(b): 2 local shards a process; the exchange, its backward and the
     embedding all-gather's backward exactly."""
@@ -490,19 +628,33 @@ def test_make_exchange_routes_by_host_names(workers):
                                "one-cpu": "ProcessExchange",
                                "one-card": "PeerExchange",
                                "one-cards": "ProcessExchange",
+                               "one-two-cards": "ProcessExchange",
                                "two-cpu": "ProcessExchange",
                                "two-card": "ProcessExchange",
-                               "two-cards": "ProcessExchange"}
+                               "two-cards": "ProcessExchange",
+                               "two-two-cards": "ProcessExchange"}
 
 
-@pytest.mark.parametrize("hosts,cards", [
-    (("a", "a", "b", "b"), (0, 1, 0, 1)),  # host-major ranks
-    (("a", "b", "a", "b"), (0, 0, 1, 1)),  # ranks alternating hosts
-    (("a", "a", "a", "b"), (0, 1, 0, 0)),  # 3 processes on 2 cards
+@pytest.mark.parametrize("hosts,count,ids,cards", [
+    pytest.param(("a", "a", "b", "b"), 2, None, ((0,), (1,), (0,), (1,)),
+                 id="hosts0-cards0"),  # host-major ranks
+    pytest.param(("a", "b", "a", "b"), 2, None, ((0,), (0,), (1,), (1,)),
+                 id="hosts1-cards1"),  # ranks alternating hosts
+    # 3 processes on 2 cards; host b's one process drives both
+    pytest.param(("a", "a", "a", "b"), 2, None, ((0,), (1,), (0,), (0, 1)),
+                 id="hosts2-cards2"),
+    pytest.param(("a", "a"), 4, None, ((0, 1), (2, 3)),
+                 id="two-processes-split-four-cards"),
+    pytest.param(("a", "a"), 4, (0, 1), ((0, 1), (0, 1)),
+                 id="local-device-ids"),
 ])
-def test_init_distributed_card_by_host(monkeypatch, hosts, cards):
+def test_init_distributed_card_by_host(monkeypatch, hosts, count, ids,
+                                       cards):
     """(f): each process takes its host's cards in rank order, by its
-    index among the processes of its host (2 cards a host, stubbed)."""
+    index among the processes of its host (``count`` cards a host,
+    stubbed): its share where the host's processes divide its cards, else
+    one; or the ``local_device_ids`` it is given. Its first card becomes
+    the current one."""
     import torch.distributed as dist
 
     chosen = []
@@ -511,14 +663,19 @@ def test_init_distributed_card_by_host(monkeypatch, hosts, cards):
     monkeypatch.setattr(mesh_mod, "all_gather_object",
                         lambda obj: list(hosts))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: count)
     monkeypatch.setattr(torch.cuda, "set_device", chosen.append)
-    monkeypatch.setattr(mesh_mod, "_local_device", None)
+    monkeypatch.setattr(mesh_mod, "_local_devices", None)
     monkeypatch.setattr(mesh_mod, "_hosts", None)
     for rank in range(len(hosts)):
-        assert init_distributed("h:1", len(hosts), rank) == rank
+        assert init_distributed("h:1", len(hosts), rank,
+                                local_device_ids=ids) == rank
         assert mesh_mod.host_names() == list(hosts)
-    assert chosen == [torch.device("cuda", c) for c in cards]
+        assert mesh_mod.local_devices() == [torch.device("cuda", c)
+                                            for c in cards[rank]]
+        assert mesh_mod.local_device() == torch.device("cuda",
+                                                       cards[rank][0])
+    assert chosen == [torch.device("cuda", c[0]) for c in cards]
 
 
 def test_run_main_across_two_processes(workers, monkeypatch, tmp_path):
