@@ -8,53 +8,69 @@
 // Replaces bignn_tpu/ops/pallas/collectives.py:_a2a_kernel (all_to_all_pallas,
 // reached through _a2a_call's pallas_call). On the TPU each device pushes
 // its chunks into its peers' receive buffers by remote DMA, after a barrier
-// built from semaphores, and waits on per-source receive semaphores. Where
-// the shards of a mesh share one card, the exchange is one kernel over
-// every (destination j, source i) pair: stream order is the barrier (every
-// send buffer is written before the launch, every receive buffer read after
-// it). The entry point takes arrays of source and destination base
-// pointers, so a source may lie on another card or in another process's
-// memory.
+// built from semaphores, waits on per-source receive semaphores, and drains
+// its send semaphores before it exits. Where the shards of a mesh share one
+// card, the exchange is one kernel over every (destination j, source i)
+// pair: stream order is the barrier (every send buffer is written before
+// the launch, every receive buffer read after it). The entry points take
+// arrays of source and destination base pointers, so a source or a
+// destination may lie on another card or in another process's memory.
 //
 // Across the cards of one process (a mesh over distinct cards,
-// ops/collectives.py all_to_all_cards): every ordered pair of cards has
-// peer access (bignn_enable_peer_access), and each card launches this
-// kernel once on its own range of destinations [j_begin, j_begin +
-// j_count), reading every source chunk through the source card's pointer
-// over NVLink. This pulls, where the TPU kernel pushes. The TPU kernel's
-// semaphores become CUDA events on the host side: each reader's stream
-// waits on an event recorded on every source's stream after its send
-// buffer was written, and each source's stream waits on every reader's
-// "done" event before it may reuse that memory.
+// ops/collectives.py all_to_all_cards) and across processes whose cards are
+// all distinct (ops/collectives.py PeerExchange), each card launches the
+// kernel once, and the TPU kernel's semaphores live on the cards
+// (bignn_all_to_all_sync, the kSync form). Each card owns a signal area
+// (kSignalBytes, zeroed when allocated): its epoch, the count of the
+// launch's blocks that have copied, an abort word, an "arrived" word per
+// card and a "done" word per card. One launch a card, every card of the
+// exchange in the same sequence of exchanges, so that the epochs agree:
+//   (a) arrive: the first block to run (whichever it is: no block waits on
+//       one that is not resident) stores the new epoch into every card's
+//       arrived[me], after a system-scope fence: the send buffers (or the
+//       staging copy across processes) were written earlier in stream order;
+//   (b) wait: each block polls, with a __nanosleep backoff, until
+//       arrived[] of the card at the far end of its pair reaches the
+//       epoch, then fences (acquire at system scope);
+//   (c) copy;
+//   (d) done: the launch's last block (a count in the card's own area)
+//       stores the epoch into every card's done[me];
+//   (e) drain: that block waits until done[] of every card reaches the
+//       epoch before the kernel exits, so that the stream, the caching
+//       allocator and the next staging copy may reuse this card's buffers.
+// Every wait is bounded on %globaltimer (the host's limit): on expiry the
+// block writes the card it waited on into a host-mapped error word, sets
+// the area's abort word (the other blocks stop waiting) and ends; the
+// wrapper raises at its next check. A block that gave up, or saw the
+// abort word, fills its part of its pair's receive chunk with all-ones
+// bytes (NaN in every float type) in place of the copy, so that no
+// result of an expired exchange can pass for a valid one.
 //
-// Across processes (the multi-process p2 run, ops/collectives.py
-// PeerExchange): each process copies its local shards' send buffers into a
-// staging buffer of its own (bignn_ipc_alloc, cudaMalloc'd outside
-// PyTorch's caching allocator so that one IPC handle covers exactly it),
-// the processes trade the handles once and map each other's staging
-// buffers (bignn_ipc_open, cudaIpcOpenMemHandle). Where the TPU kernel
-// pushes each chunk into its peer by remote DMA, this one pulls: a
-// process's launch (bignn_all_to_all on a range of destinations) writes
-// only its own receive buffers, recv_j[i] = send_i[j] for its destinations
-// j in [j_begin, j_begin + j_count), reading every source i from local or
-// peer-mapped pointers. The TPU kernel's barrier semaphore becomes a process-group
-// barrier on the host, once the staging copies are done and again once
-// every launch that reads them is.
+// A launch pulls: this card's destinations, every source (another card's
+// send buffer through peer access, or another process's staging buffer
+// through this card's IPC mapping). A push with remote 16-byte stores
+// (possible in one process only: across processes the receive buffers
+// are allocator memory no peer maps) and 8 words a thread in flight were
+// both slower at config5-large's buffers on four H100s (PERF.md, row 9).
+// Where a process's cards share one card with another process, or between
+// hosts, the form without semaphores (bignn_all_to_all) runs between the
+// host's barriers.
 //
-// Design: the grid is (piece of a chunk, pair j * G + i); a block copies
-// 16 KB tiles of one chunk, each thread kUnroll words loaded before any is
-// stored. The word is 16 bytes where both addresses and the chunk size are
-// 16-byte aligned (every f32 payload of a width that is a multiple of 4:
-// config5's GAT payload is 132 floats, 528 bytes), and otherwise the widest
-// of 8, 4, 2 and 1 bytes that they allow. The choice is made here, per
-// block, never by falling back to a library copy.
+// Design: the grid is (piece of a chunk, pair); a block copies tiles of
+// one chunk, each thread kUnroll words loaded before any is stored. The
+// word is 16 bytes where both addresses and the chunk size are 16-byte
+// aligned (every f32 payload of a width that is a multiple of 4: config5's
+// GAT payload is 132 floats, 528 bytes), and otherwise the widest of 8, 4,
+// 2 and 1 bytes that they allow. The choice is made here, per block, never
+// by falling back to a library copy. The kSync form caps its grid at one
+// wave of the card (kWaveBlocks), the pieces of a pair walked in a loop.
 //
 // What bounds it on the H100: device-memory bytes, each send byte read once
 // and each receive byte written once, 2 * G * G * S * F * sizeof(T) over
 // 3.35 TB/s (config5-large in f32: 845 MB, 0.252 ms). At config5's
 // 3.6 MB it is the launch. Across cards, per card: the chunks it reads from
-// peers over the NVLink rate in one direction, and its local bytes over
-// the device-memory rate.
+// (or writes to) peers over the NVLink rate in one direction, and its local
+// bytes over the device-memory rate.
 
 #include <cuda_runtime.h>
 
@@ -64,15 +80,113 @@
 namespace {
 
 constexpr int kMaxShards = 32;
+constexpr int kMaxCards = kMaxShards;
 constexpr int kThreads = 256;
-constexpr int kUnroll = 4;
-constexpr long long kTileBytes = 16LL * kThreads * kUnroll;
 constexpr long long kMaxPieces = 1LL << 20;
+// words a thread loads before it stores any
+constexpr int kUnroll = 4;
+// the kSync form's most blocks: one wave of 256-thread blocks on the
+// H100's 132 SMs (8 a SM)
+constexpr int kWaveBlocks = 1056;
+// 0 leaves out the kSync form's copy: the semaphores alone, a measurement
+// of scripts/probe_variants.py (kind a2a), which edits these constants in
+// a copy of this file
+constexpr int kCopy = 1;
 
-struct Shards {
-  const unsigned char* send[kMaxShards];
-  unsigned char* recv[kMaxShards];
+// a card's signal area: 32-bit words (ops/collectives.py SIGNAL_BYTES)
+constexpr int kSignalBytes = 1024;
+constexpr int kEpoch = 0;     // the epoch of the card's last exchange
+constexpr int kStarted = 1;   // the epoch whose first block has arrived
+constexpr int kBlocks = 2;    // blocks of the current launch that copied
+constexpr int kAbort = 3;     // set once a wait has expired
+constexpr int kArrived = 32;  // [kMaxCards], a cache line of their own
+constexpr int kDone = 64;     // [kMaxCards]
+static_assert((kDone + kMaxCards) * 4 <= kSignalBytes, "signal area");
+
+// the error word: the wait that expired, and the card it waited on + 1
+constexpr unsigned kWaitArrive = 1u << 8;
+constexpr unsigned kWaitDone = 2u << 8;
+
+struct Pairs {
+  const unsigned char* send[kMaxShards];  // slot j at j * chunk
+  unsigned char* recv[kMaxShards];        // slot i at i * chunk
+  unsigned char rows[kMaxShards];         // the launch's destinations j
+  unsigned char cols[kMaxShards];         // the launch's sources i
+  unsigned char card_of[kMaxShards];      // each shard's card (kSync)
 };
+
+struct Barrier {
+  unsigned int* area[kMaxCards];  // every card's area as this card maps it
+  unsigned int* error;            // host-mapped: this card's error word
+  unsigned long long timeout_ns;
+  int me, cards;
+};
+
+// Signals are relaxed system-scope loads and stores, ordered by one fence
+// on each side: a fence before a card's stores of one signal (not one
+// release a store), and one after a poll has seen its value (not an
+// acquire a poll).
+__device__ __forceinline__ unsigned ld_relaxed(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.relaxed.sys.global.u32 %0, [%1];" : "=r"(v) : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_relaxed(unsigned* p, unsigned v) {
+  asm volatile("st.relaxed.sys.global.u32 [%0], %1;" :: "l"(p), "r"(v)
+               : "memory");
+}
+
+__device__ __forceinline__ void fence_acquire() {
+  asm volatile("fence.acq_rel.sys;" ::: "memory");
+}
+
+__device__ __forceinline__ unsigned ld_volatile(const unsigned* p) {
+  return *reinterpret_cast<const volatile unsigned*>(p);
+}
+
+__device__ __forceinline__ unsigned long long globaltimer() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// whether word `word` of this card's area reached epoch e (wrapping)
+__device__ __forceinline__ bool reached(const unsigned* mine, int word,
+                                        unsigned e) {
+  return static_cast<int>(ld_relaxed(mine + word) - e) >= 0;
+}
+
+// Wait until word `word` of this card's area reaches e (then acquire);
+// false if the area was aborted or the wait expired (then the error word
+// names `card`).
+__device__ bool wait_for(const Barrier& b, int word, unsigned e, int card,
+                         unsigned what) {
+  unsigned* mine = b.area[b.me];
+  if (reached(mine, word, e)) {
+    fence_acquire();
+    return true;
+  }
+  const unsigned long long t0 = globaltimer();
+  unsigned ns = 32;
+  for (;;) {
+    __nanosleep(ns);
+    if (ns < 256) ns *= 2;
+    if (reached(mine, word, e)) {
+      fence_acquire();
+      return true;
+    }
+    if (ld_volatile(mine + kAbort)) return false;
+    if (globaltimer() - t0 > b.timeout_ns) {
+      *reinterpret_cast<volatile unsigned*>(b.error) =
+          what | static_cast<unsigned>(card + 1);
+      atomicExch(mine + kAbort, 1u);
+      __threadfence_system();
+      return false;
+    }
+  }
+}
 
 template <class W>
 __device__ void copy_chunk(const unsigned char* src, unsigned char* dst,
@@ -97,13 +211,18 @@ __device__ void copy_chunk(const unsigned char* src, unsigned char* dst,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-    exchange(Shards shards, int num_shards, int j_begin,
-             long long chunk_bytes) {
-  const int jj = blockIdx.y / num_shards;  // destination, from j_begin
-  const int i = blockIdx.y % num_shards;   // source shard
-  const unsigned char* src = shards.send[i] + (j_begin + jj) * chunk_bytes;
-  unsigned char* dst = shards.recv[jj] + i * chunk_bytes;
+// This block's part of a chunk filled with all-ones bytes (an expired
+// exchange's result).
+__device__ void fill_chunk(unsigned char* dst, long long nbytes) {
+  for (long long k = blockIdx.x * static_cast<long long>(blockDim.x) +
+                     threadIdx.x;
+       k < nbytes; k += static_cast<long long>(gridDim.x) * blockDim.x) {
+    dst[k] = 0xFF;
+  }
+}
+
+__device__ void copy_pair(const unsigned char* src, unsigned char* dst,
+                          long long chunk_bytes) {
   const uint64_t align = reinterpret_cast<uintptr_t>(src) |
                          reinterpret_cast<uintptr_t>(dst) |
                          static_cast<uint64_t>(chunk_bytes);
@@ -118,6 +237,82 @@ __global__ void __launch_bounds__(kThreads)
   } else {
     copy_chunk<unsigned char>(src, dst, chunk_bytes);
   }
+}
+
+template <bool kSync>
+__global__ void __launch_bounds__(kThreads)
+    exchange(Pairs p, Barrier b, int n_cols, long long chunk_bytes) {
+  const int j = p.rows[blockIdx.y / n_cols];  // destination
+  const int i = p.cols[blockIdx.y % n_cols];  // source
+  const unsigned char* src = p.send[i] + j * chunk_bytes;
+  unsigned char* dst = p.recv[j] + i * chunk_bytes;
+  if constexpr (!kSync) {
+    copy_pair(src, dst, chunk_bytes);
+  } else {
+    unsigned* mine = b.area[b.me];
+    __shared__ unsigned s_epoch;
+    __shared__ int s_go;
+    if (threadIdx.x == 0) {
+      // every block reads the epoch before it counts itself, so the last
+      // block's store of the new one comes after every read
+      const unsigned e = ld_volatile(mine + kEpoch) + 1;
+      s_epoch = e;
+      bool go = ld_volatile(mine + kAbort) == 0;
+      if (go && atomicCAS(mine + kStarted, e - 1, e) == e - 1) {
+        __threadfence_system();  // (a) arrive
+        for (int q = 0; q < b.cards; ++q) {
+          st_relaxed(b.area[q] + kArrived + b.me, e);
+        }
+      }
+      // (b) wait for the card at the far end of the pair (one end is this
+      // card, whose own arrival is the store above)
+      go = go && wait_for(b, kArrived + p.card_of[i], e, p.card_of[i],
+                          kWaitArrive) &&
+           wait_for(b, kArrived + p.card_of[j], e, p.card_of[j],
+                    kWaitArrive);
+      s_go = go;
+    }
+    __syncthreads();
+    if (!s_go) {
+      fill_chunk(dst, chunk_bytes);
+    } else if (kCopy) {
+      copy_pair(src, dst, chunk_bytes);  // (c)
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      const unsigned e = s_epoch;
+      __threadfence();
+      const unsigned total = gridDim.x * gridDim.y;
+      if (atomicAdd(mine + kBlocks, 1u) == total - 1) {
+        *reinterpret_cast<volatile unsigned*>(mine + kBlocks) = 0;
+        __threadfence_system();  // (d) done
+        for (int q = 0; q < b.cards; ++q) {
+          st_relaxed(b.area[q] + kDone + b.me, e);
+        }
+        // (e) drain: no card still reads this card's buffers
+        for (int q = 0; q < b.cards; ++q) {
+          if (!wait_for(b, kDone + q, e, q, kWaitDone)) break;
+        }
+        *reinterpret_cast<volatile unsigned*>(mine + kEpoch) = e;
+      }
+    }
+  }
+}
+
+template <bool kSync>
+int launch(const Pairs& p, const Barrier& b, int n_rows, int n_cols,
+           long long chunk_bytes, cudaStream_t stream) {
+  long long pieces = (chunk_bytes + 16LL * kThreads * kUnroll - 1) /
+                     (16LL * kThreads * kUnroll);
+  if (pieces > kMaxPieces) pieces = kMaxPieces;
+  if (kSync) {
+    const long long most = kWaveBlocks / (n_rows * n_cols);
+    pieces = pieces < most ? pieces : (most > 0 ? most : 1);
+  }
+  const dim3 grid(static_cast<unsigned>(pieces),
+                  static_cast<unsigned>(n_rows * n_cols));
+  exchange<kSync><<<grid, kThreads, 0, stream>>>(p, b, n_cols, chunk_bytes);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -140,27 +335,102 @@ int bignn_all_to_all(const void* const* send, void* const* recv,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (chunk_bytes == 0) return static_cast<int>(cudaSuccess);
-  Shards shards;
+  Pairs p{};
+  Barrier b{};
   for (int s = 0; s < num_shards; ++s) {
-    shards.send[s] = static_cast<const unsigned char*>(send[s]);
+    p.send[s] = static_cast<const unsigned char*>(send[s]);
+    p.cols[s] = static_cast<unsigned char>(s);
   }
   for (int s = 0; s < j_count; ++s) {
-    shards.recv[s] = static_cast<unsigned char*>(recv[s]);
+    p.recv[j_begin + s] = static_cast<unsigned char*>(recv[s]);
+    p.rows[s] = static_cast<unsigned char>(j_begin + s);
   }
-  long long pieces = (chunk_bytes + kTileBytes - 1) / kTileBytes;
-  if (pieces > kMaxPieces) pieces = kMaxPieces;
-  const dim3 grid(static_cast<unsigned>(pieces),
-                  static_cast<unsigned>(j_count * num_shards));
-  exchange<<<grid, kThreads, 0, stream>>>(shards, num_shards, j_begin,
-                                          chunk_bytes);
-  return static_cast<int>(cudaGetLastError());
+  return launch<false>(p, b, j_count, num_shards, chunk_bytes, stream);
 }
 
-// The staging buffer of the exchange across processes, on the current
-// device.
+// The kSync form: one launch on each of this process's n_local cards of an
+// exchange over `cards` cards (one host call for them all: a card's kernel
+// waits for every card's launch, so the launches go out back to back).
+// Local card k is CUDA device devices[k], participant me[k], and launches
+// on streams[k]; send[k * G + i], shard i's send buffer as card k reaches
+// it; recv[j], shard j's receive buffer (null where no local card writes
+// it); card_of[s], shard s's participant card; areas[k * cards + q], card
+// q's signal area as card k reaches it; error[k], card k's word of mapped
+// host memory; timeout_ns, the limit of every wait. Card k pulls the pairs
+// (its shards' destinations, every source). The current device is kept.
+int bignn_all_to_all_sync(const void* const* send, void* const* recv,
+                          int num_shards, const int* card_of,
+                          long long chunk_bytes, void* const* areas,
+                          int cards, int n_local, const int* me,
+                          const int* devices, void* const* streams,
+                          void* error, long long timeout_ns) {
+  if (num_shards < 1 || num_shards > kMaxShards || chunk_bytes < 0 ||
+      cards < 1 || cards > kMaxCards || n_local < 1 || n_local > cards ||
+      timeout_ns <= 0 || error == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  for (int s = 0; s < num_shards; ++s) {
+    if (card_of[s] < 0 || card_of[s] >= cards) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  if (chunk_bytes == 0) return static_cast<int>(cudaSuccess);
+  int current = 0;
+  cudaError_t err = cudaGetDevice(&current);
+  for (int k = 0; k < n_local && err == cudaSuccess; ++k) {
+    if (me[k] < 0 || me[k] >= cards) {
+      err = cudaErrorInvalidValue;
+      break;
+    }
+    Pairs p{};
+    Barrier b{};
+    int own = 0;
+    for (int s = 0; s < num_shards; ++s) {
+      p.send[s] = static_cast<const unsigned char*>(send[k * num_shards + s]);
+      p.recv[s] = static_cast<unsigned char*>(recv[s]);
+      p.card_of[s] = static_cast<unsigned char>(card_of[s]);
+      p.rows[s] = p.cols[s] = static_cast<unsigned char>(s);
+    }
+    // this card's shards: the launch's destinations
+    for (int s = 0; s < num_shards; ++s) {
+      if (card_of[s] == me[k]) p.rows[own++] = static_cast<unsigned char>(s);
+    }
+    for (int q = 0; q < cards; ++q) {
+      b.area[q] = static_cast<unsigned int*>(areas[k * cards + q]);
+      if (b.area[q] == nullptr) err = cudaErrorInvalidValue;
+    }
+    if (own == 0 || err != cudaSuccess) {
+      err = cudaErrorInvalidValue;
+      break;
+    }
+    b.error = static_cast<unsigned int*>(error) + k;
+    b.timeout_ns = static_cast<unsigned long long>(timeout_ns);
+    b.me = me[k];
+    b.cards = cards;
+    cudaStream_t stream = static_cast<cudaStream_t>(streams[k]);
+    err = cudaSetDevice(devices[k]);
+    if (err != cudaSuccess) break;
+    err = static_cast<cudaError_t>(
+        launch<true>(p, b, own, num_shards, chunk_bytes, stream));
+  }
+  const cudaError_t back = cudaSetDevice(current);
+  return static_cast<int>(err != cudaSuccess ? err : back);
+}
+
+// A buffer of `bytes` on the current device, outside PyTorch's caching
+// allocator (so that one IPC handle covers exactly it), whose first
+// kSignalBytes, a card's signal area, are zeroed before it returns: the
+// staging buffer of the exchange across processes (the area, then the
+// payload), or a card's signal area alone.
 int bignn_ipc_alloc(long long bytes, void** out) {
   *out = nullptr;
-  return static_cast<int>(cudaMalloc(out, static_cast<size_t>(bytes)));
+  cudaError_t err = cudaMalloc(out, static_cast<size_t>(bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t head = bytes < kSignalBytes ? static_cast<size_t>(bytes)
+                                           : static_cast<size_t>(kSignalBytes);
+  err = cudaMemset(*out, 0, head);
+  if (err == cudaSuccess) err = cudaDeviceSynchronize();
+  return static_cast<int>(err);
 }
 
 int bignn_ipc_free(void* ptr) { return static_cast<int>(cudaFree(ptr)); }
@@ -184,6 +454,23 @@ int bignn_ipc_open(const void* handle_bytes, void** out) {
 
 int bignn_ipc_close(void* ptr) {
   return static_cast<int>(cudaIpcCloseMemHandle(ptr));
+}
+
+// `bytes` of zeroed page-locked host memory mapped into every card's
+// address space (the kSync form's error words, which the host reads
+// without synchronising): its host pointer and the pointer a kernel uses.
+int bignn_host_alloc(long long bytes, void** host, void** device) {
+  *host = nullptr;
+  *device = nullptr;
+  cudaError_t err = cudaHostAlloc(host, static_cast<size_t>(bytes),
+                                  cudaHostAllocMapped | cudaHostAllocPortable);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  std::memset(*host, 0, static_cast<size_t>(bytes));
+  return static_cast<int>(cudaHostGetDevicePointer(device, *host, 0));
+}
+
+int bignn_host_free(void* host) {
+  return static_cast<int>(cudaFreeHost(host));
 }
 
 // Lets the current card read peer's memory through its pointers; access

@@ -16,16 +16,21 @@ Buffers on one card: one launch for the whole exchange
 mesh over several cards, JAX's single controller over its chips): every
 ordered pair of the cards has peer access, enabled once
 (``enable_peer_access``; a pair without it raises, naming the pair: there
-is no route through the host). Each card launches the kernel once for its
-own run of destinations, reading every source chunk through the source's
-device pointer, local or a peer's (``all_to_all:<dtype>:cards``): a pull,
-where the TPU kernel pushes each chunk into its peer by remote DMA. The TPU
-kernel's semaphores become CUDA events: every reader's stream waits on an
-event recorded on every source's stream once its send buffer is written,
-and every source's stream waits on every reader's "done" event before it
-runs anything more, so that the caching allocator, which recycles a freed
-block on its own card's stream and cannot see a read from another card,
-never hands out a send buffer still being read.
+is no route through the host). Each card launches the kernel once
+(``all_to_all:<dtype>:cards``), and the TPU kernel's semaphores live on the
+cards (``DeviceBarrier``, the kernel's kSync form): a signal area on each
+card, made once a set of cards (``card_barrier``), in which every launch
+arrives, waits for its peers' arrival, copies, tells every card it is done
+and waits for every card's "done" before it exits. So a card's buffers are
+free again when its kernel ends, in its own stream's order: the caching
+allocator, which recycles a freed block on its own card's stream and cannot
+see a read from another card, never hands out a send buffer still being
+read, and the host neither records nor waits on an event. A launch pulls:
+its destinations, every source through the source's device pointer. Every
+wait is bounded (``EXCHANGE_TIMEOUT_S``): a card whose peer never comes
+gives up and fills what it did not copy with NaN, and the next exchange
+over those cards, or ``check_cards`` (``parallel/comm.py``
+``CardExchange.close``), raises, naming the card it waited on.
 
 Across processes (the multi-process p2 run), ``all_to_all(sendbufs,
 exchange)`` takes this process's shards' send buffers (each ``[G, ...]``,
@@ -47,12 +52,17 @@ buffer on that card that every other process maps by CUDA IPC, and one
 launch a local card pulls its receive buffers from every source: a local
 send buffer (through peer access from another local card) or another
 process's staging buffer; its launches count under
-``all_to_all:<dtype>:procs``. Between the staging copies and the launches,
-and again after the launches, every local card's stream is synchronised
-and the processes meet at a barrier. The same objects give the all-gather
-and the ordered sum, one term a card of every process in (process, card)
-order, that keep the replicated state equal in every process and on every
-card (``parallel/comm.py``). A mix of device types raises.
+``all_to_all:<dtype>:procs``. Where every process's cards are distinct
+cards, the launches carry the semaphores on the cards, in signal areas at
+the head of the staging buffers; where processes share a card (whose
+kernels the card time-slices, so that a spinning kernel could wait out its
+slice for a peer that cannot run), every local card's stream is
+synchronised and the processes meet at a barrier between the staging
+copies and the launches, and again after the launches. The same objects
+give the all-gather and the ordered sum, one term a card of every process
+in (process, card) order, that keep the replicated state equal in every
+process and on every card (``parallel/comm.py``). A mix of device types
+raises.
 """
 
 from __future__ import annotations
@@ -67,6 +77,15 @@ import torch.distributed as dist
 from bignn_tpu_torch.ops import cuda_lib
 
 MAX_SHARDS = 32  # kMaxShards of csrc/all_to_all.cu
+SIGNAL_BYTES = 1024  # kSignalBytes of csrc/all_to_all.cu: a card's signals
+# The limit of every wait on the cards' semaphores, past which the kernel
+# gives up and the wrapper raises. It lies well above the longest host gap
+# between two processes' exchanges on any path: a process's first exchange
+# follows its first use of the kernels, which builds them (~4 s of nvcc on
+# the card's machine, every process building at once after the collective
+# that made the exchange), and every process-0 checkpoint save is followed
+# by a barrier, so no process spins through another's save.
+EXCHANGE_TIMEOUT_S = 120.0
 
 
 def _check(bufs: Sequence[torch.Tensor], g: int | None = None
@@ -157,10 +176,95 @@ def _pull(dev: torch.device, sources: Sequence[int],
     recv_ptrs = (ctypes.c_void_p * n)(*(r.data_ptr() for r in recv))
     cuda_lib.launch("bignn_all_to_all", dev, send_ptrs, recv_ptrs, g,
                     j_begin, n, chunk)
-    cuda_lib.count(all_to_all, recv[0].dtype, suffix=suffix)
+    _count(dev, recv[0].dtype, suffix)
+
+
+def _count(dev: torch.device, dtype: torch.dtype, suffix: str) -> None:
+    """One launch on ``dev``, under ``all_to_all:<dtype><suffix>`` and by
+    card (``launches_by_device``)."""
+    cuda_lib.count(all_to_all, dtype, suffix=suffix)
     key = str(dev)
     all_to_all.launches_by_device[key] = (
         all_to_all.launches_by_device.get(key, 0) + 1)
+
+
+def _array(ctype, values) -> ctypes.Array:
+    values = list(values)
+    return (ctype * len(values))(*values)
+
+
+class DeviceBarrier:
+    """The exchange's semaphores on the cards (``csrc/all_to_all.cu``, the
+    kSync form) for the participant cards ``names`` (every card of the
+    exchange, in every process, labelled for errors): ``cards`` are this
+    process's, ``me[k]`` card k's index among the participants and
+    ``areas[k]`` every participant's signal area as card k reaches it.
+    Each local card has an error word in mapped host memory, which the host
+    reads without synchronising: ``check`` raises once a wait has expired,
+    naming the card waited on (the receive chunks the kernel did not copy
+    are then NaN). ``timeout_s``: the limit of every wait
+    (default ``EXCHANGE_TIMEOUT_S``)."""
+
+    def __init__(self, cards, me, areas, names, timeout_s=None):
+        self.cards = [torch.device(c) for c in cards]
+        self.names = list(names)
+        self.timeout_s = float(EXCHANGE_TIMEOUT_S if timeout_s is None
+                               else timeout_s)
+        self._me = _array(ctypes.c_int, me)
+        self._devices = _array(ctypes.c_int, (c.index for c in self.cards))
+        self._areas = _array(ctypes.c_void_p, (a for row in areas
+                                               for a in row))
+        host, dev = ctypes.c_void_p(), ctypes.c_void_p()
+        cuda_lib.call("bignn_host_alloc", self.cards[0], 4 * len(self.cards),
+                      ctypes.byref(host), ctypes.byref(dev))
+        self._host, self._dev = host.value, dev.value
+        self._words = (ctypes.c_uint32 * len(self.cards)).from_address(
+            self._host)
+
+    def error(self) -> str | None:
+        """What expired, or None."""
+        for k, c in enumerate(self.cards):
+            code = self._words[k] if self._host else 0
+            if code:
+                what = ("to arrive" if code >> 8 == 1
+                        else "to finish the exchange")
+                return (f"all_to_all on {c} waited past {self.timeout_s:g} s "
+                        f"for {self.names[(code & 0xFF) - 1]} {what}")
+        return None
+
+    def check(self) -> None:
+        msg = self.error()
+        if msg:
+            raise RuntimeError(msg)
+
+    def launch(self, send: Sequence[Sequence[int]], recv: Sequence[int],
+               card_of: Sequence[int], chunk: int) -> None:
+        """One launch on each local card, in one host call, on each card's
+        current stream: card k pulls into its shards' receive buffers from
+        every source (``card_of[s]``: shard s's participant card).
+        ``send[k][i]``: shard i's send buffer as card k
+        reaches it (slot j at ``j * chunk`` bytes); ``recv[j]``: shard j's
+        receive buffer (0 where no local card writes it)."""
+        cuda_lib.call(
+            "bignn_all_to_all_sync", self.cards[0],
+            _array(ctypes.c_void_p, (p for row in send for p in row)),
+            _array(ctypes.c_void_p, recv), len(recv),
+            _array(ctypes.c_int, card_of), chunk, self._areas,
+            len(self.names), len(self.cards), self._me, self._devices,
+            _array(ctypes.c_void_p, (torch.cuda.current_stream(c).cuda_stream
+                                     for c in self.cards)),
+            self._dev, int(self.timeout_s * 1e9))
+
+    def close(self) -> None:
+        """Free the error words, once every card is synchronised; raise if
+        a wait had expired."""
+        if not self._host:
+            return
+        msg = self.error()
+        cuda_lib.call("bignn_host_free", self.cards[0], self._host)
+        self._host = self._words = None
+        if msg:
+            raise RuntimeError(msg)
 
 
 def all_to_all_launch(bufs: Sequence[torch.Tensor], j_begin: int = 0,
@@ -215,29 +319,64 @@ def _wait(cards: Sequence[torch.device], events: Sequence) -> None:
             stream.wait_event(ev)
 
 
+_barriers: dict[tuple[int, ...], DeviceBarrier] = {}  # by the cards' indices
+
+
+def card_barrier(cards: Sequence[torch.device]) -> DeviceBarrier:
+    """The semaphores of the exchanges over ``cards`` (distinct cards of
+    this process, in order): a zeroed signal area on each
+    (``bignn_ipc_alloc``), every card reaching every other's through peer
+    access. Made once a set of cards, beside the peer access, for the
+    process's life: every card of the set runs each of its exchanges, so
+    their epochs agree."""
+    key = tuple(torch.device(c).index for c in cards)
+    if key not in _barriers:
+        areas = []
+        for c in cards:
+            ptr = ctypes.c_void_p()
+            cuda_lib.call("bignn_ipc_alloc", c, SIGNAL_BYTES,
+                          ctypes.byref(ptr))
+            areas.append(ptr.value)
+        _barriers[key] = DeviceBarrier(cards, range(len(cards)),
+                                       [areas] * len(cards),
+                                       [str(c) for c in cards])
+    return _barriers[key]
+
+
+def check_cards(cards: Sequence[torch.device]) -> None:
+    """Synchronise ``cards`` and raise if a wait of an exchange over them
+    had expired (nothing to check where none ran): where a run ends, after
+    its last exchange."""
+    barrier = _barriers.get(tuple(torch.device(c).index for c in cards))
+    if barrier is not None:
+        for c in barrier.cards:
+            torch.cuda.synchronize(c)
+        barrier.check()
+
+
 def all_to_all_cards(bufs: Sequence[torch.Tensor]) -> list[torch.Tensor]:
     """The exchange of G contiguous ``[G, ...]`` send buffers that lie on
     distinct cards of this process; receive buffer j on buffer j's card.
-    One launch a run of consecutive destinations on one card, reading
-    every source through peer access, between the event barriers of the
-    module docstring; each launch counts under ``all_to_all:<dtype>:cards``.
-    """
+    One launch a card, with the semaphores on the cards (the module
+    docstring), counted under ``all_to_all:<dtype>:cards``. Between the
+    first launch and the last nothing synchronises: every card's kernel
+    waits for the others' launches."""
     bufs = list(bufs)
     devices = [b.device for b in bufs]
     cards = list(dict.fromkeys(devices))
     enable_peer_access(cards)
-    _wait(cards, _events(cards))  # every source's send buffers are written
-    recv: list[torch.Tensor] = [None] * len(bufs)
+    barrier = card_barrier(cards)
+    barrier.check()
+    card_of = [cards.index(d) for d in devices]
+    recv = [b.new_empty(b.shape) for b in bufs]  # before the first launch
     chunk = bufs[0][0].numel() * bufs[0].element_size()
-    # whole send buffers: the kernel reads slot j0 + jj of each
-    sources = [b.data_ptr() for b in bufs]
-    for j0, n in _runs(devices):
-        c = devices[j0]
-        with torch.cuda.device(c):
-            recv[j0:j0 + n] = [bufs[j0].new_empty(bufs[j0].shape)
-                               for _ in range(n)]
-        _pull(c, sources, recv[j0:j0 + n], j0, chunk, ":cards")
-    _wait(cards, _events(cards))  # every reader's launches are done
+    if not chunk:
+        return recv
+    send_ptrs = [b.data_ptr() for b in bufs]
+    barrier.launch([send_ptrs] * len(cards), [r.data_ptr() for r in recv],
+                   card_of, chunk)
+    for c in cards:
+        _count(c, bufs[0].dtype, ":cards")
     return recv
 
 
@@ -446,8 +585,8 @@ class ProcessExchange:
         card in one copy on its copy stream, which the card's current
         stream waits on; (4) each card writes its receive buffers, one
         launch on its run of destinations reading the local send buffers
-        (another card's through peer access, between the event barriers of
-        ``all_to_all_cards``) and the arrivals (``all_to_all_plain`` on the
+        (another card's through peer access, between event barriers on
+        the local cards) and the arrivals (``all_to_all_plain`` on the
         CPU). Only bytes move, so the result is the plain version's
         exactly."""
         bufs = list(bufs)
@@ -545,32 +684,46 @@ def _view(ptr: int, like: torch.Tensor, count: int = 1) -> torch.Tensor:
     return raw.view(like.dtype).view(count, *like.shape)
 
 
+def _card_uuid(card: torch.device) -> str:
+    """The card's UUID; its name where CUDA does not run (where the
+    exchange never launches: building it touches no card)."""
+    if not torch.cuda.is_available():
+        return str(card)
+    return str(torch.cuda.get_device_properties(card).uuid)
+
+
 class PeerExchange(ProcessExchange):
     """The exchange across the processes of one host, through CUDA IPC: on
     one card they share, or on cards of their own that reach each other by
     peer access (a staging buffer on a peer's card is read through it).
 
     Each local card owns one staging buffer (``bignn_ipc_alloc``, outside
-    PyTorch's caching allocator), and each local card maps every other
-    process's (``bignn_ipc_open`` on the handles traded through the process
-    group, once a handle a card: CUDA lets each card of a process open a
-    handle once, and a mapping opened on one card is not readable from
-    another, peer access or not: an illegal address on the H100s). An
-    exchange: (1) each card's send buffers
-    are copied into its staging buffer; (2) every local card's stream is
-    synchronised, then a process-group barrier; (3) one launch of
-    ``bignn_all_to_all`` a local card writes its receive buffers, reading
+    PyTorch's caching allocator): a signal area of ``SIGNAL_BYTES``, then
+    the payload. Each local card maps every other process's
+    (``bignn_ipc_open`` on the handles traded through the process group,
+    once a handle a card: CUDA lets each card of a process open a handle
+    once, and a mapping opened on one card is not readable from another,
+    peer access or not: an illegal address on the H100s). An exchange: (1)
+    each card's send buffers are copied into its staging buffer; (2) one
+    launch of the kernel a local card writes its receive buffers, reading
     every source: a local send buffer (another local card's through peer
-    access) or another process's staging buffer; (4) every local card's
-    stream is synchronised, then a barrier, before any staging buffer or
-    send buffer is written again. ``gather_parts`` (under ``all_gather``
-    and ``ordered_sum``) runs the same protocol on the first card's
-    staging buffers (as the first card maps them) with PyTorch copies in
-    place of the launches. The
-    buffers grow to the largest payload seen (every process sees the same
-    shapes), by a collective re-exchange of the handles, and live until
-    ``close`` (a collective), or the process's end. A failed allocation,
-    IPC open or launch raises."""
+    access) or another process's staging buffer. Where every card of every
+    process is a card of its own (``device_barrier``, decided once from
+    the cards' UUIDs gathered through the group, so that every process
+    chooses alike), the launches carry the semaphores on the cards
+    (``DeviceBarrier`` over the signal areas), which make each launch wait
+    for every card's arrival and keep each card's buffers until every card
+    is done with them; nothing else. Otherwise (processes sharing a card)
+    every local card's stream is synchronised and the processes meet at a
+    barrier before the launches and again after them, before any staging
+    buffer or send buffer is written again. ``gather_parts`` (under
+    ``all_gather`` and ``ordered_sum``) runs that host protocol on the
+    first card's staging buffers (as the first card maps them) with
+    PyTorch copies in place of the launches. The buffers grow to the
+    largest payload seen (every process sees the same shapes), by a
+    collective re-exchange of the handles that zeroes every signal area,
+    and live until ``close`` (a collective), or the process's end. A failed
+    allocation, IPC open or launch raises."""
 
     def __init__(self, num_shards: int, local: Sequence[int], devices,
                  card_of: Sequence[int] | None = None):
@@ -579,22 +732,29 @@ class PeerExchange(ProcessExchange):
                 set(self.cards)) != len(self.cards):
             raise ValueError(f"PeerExchange needs distinct CUDA cards, got "
                              f"{[str(c) for c in self.cards]}")
-        self.capacity = 0  # bytes of every staging buffer
+        uuids = [None] * self.size
+        dist.all_gather_object(uuids, [_card_uuid(c) for c in self.cards])
+        every = [u for run in uuids for u in run]
+        self.device_barrier = len(set(every)) == len(every)
+        self.capacity = 0  # payload bytes of every staging buffer
         self._own: list[int] = []  # each local card's buffer
         # [local card][process][its card]: every staging buffer as that
         # local card maps it (this process's own: their pointers)
         self._maps: list[list[list[int]]] = []
+        self._barrier: DeviceBarrier | None = None
 
     def _reserve(self, nbytes: int) -> None:
         """Staging buffers of at least ``nbytes`` on every card of every
-        process (every process asks for the same ``nbytes``)."""
+        process (every process asks for the same ``nbytes``), their signal
+        areas zeroed."""
         if nbytes <= self.capacity:
             return
         self.close()
         raws = []
         for c in self.cards:
             ptr = ctypes.c_void_p()
-            cuda_lib.call("bignn_ipc_alloc", c, nbytes, ctypes.byref(ptr))
+            cuda_lib.call("bignn_ipc_alloc", c, SIGNAL_BYTES + nbytes,
+                          ctypes.byref(ptr))
             self._own.append(ptr.value)
             handle = ctypes.create_string_buffer(64)
             cuda_lib.call("bignn_ipc_handle", c, ptr.value, handle)
@@ -617,10 +777,19 @@ class PeerExchange(ProcessExchange):
                 maps.append(mapped)
             self._maps.append(maps)
         self.capacity = nbytes
+        if self.device_barrier:
+            n = len(self.cards)
+            self._barrier = DeviceBarrier(
+                self.cards, [self.rank * n + c for c in range(n)],
+                [[a for theirs in maps for a in theirs]
+                 for maps in self._maps],
+                [f"process {p}'s card {c}" for p in range(self.size)
+                 for c in range(n)])
 
     def close(self) -> None:
         """Unmap the other processes' buffers and free this one's, once no
-        process reads them (a collective)."""
+        process reads them (a collective); raise if a wait on the cards had
+        expired."""
         if not self._own:
             return
         for c in self.cards:
@@ -635,10 +804,15 @@ class PeerExchange(ProcessExchange):
         for c, ptr in zip(self.cards, self._own):
             cuda_lib.call("bignn_ipc_free", c, ptr)
         self._own, self._maps, self.capacity = [], [], 0
+        barrier, self._barrier = self._barrier, None
+        if barrier is not None:
+            barrier.close()
 
     def _meet(self) -> None:
         """Every local card's stream synchronised, then every process's."""
         self._sync()
+        if self._barrier is not None:
+            self._barrier.check()
         dist.barrier()
 
     def gather_parts(self, parts: Sequence[torch.Tensor]
@@ -648,12 +822,13 @@ class PeerExchange(ProcessExchange):
             return super().gather_parts(parts)
         n = len(parts)
         self._reserve(n * first.numel() * first.element_size())
-        _view(self._own[0], first, n).copy_(
+        _view(self._own[0] + SIGNAL_BYTES, first, n).copy_(
             torch.stack([p.detach().to(self.device) for p in parts]))
         self._meet()
         out = [x.to(self.device, copy=True)
                for p in range(self.size)
-               for x in _view(self._maps[0][p][0], first, n).unbind(0)]
+               for x in _view(self._maps[0][p][0] + SIGNAL_BYTES, first,
+                              n).unbind(0)]
         self._meet()
         return out
 
@@ -663,8 +838,9 @@ class PeerExchange(ProcessExchange):
         return self.launch(bufs)
 
     def launch(self, bufs: Sequence[torch.Tensor]) -> list[torch.Tensor]:
-        """Steps (1)-(4) with one kernel launch a local card: this
-        process's receive buffers."""
+        """Steps (1)-(2) with one kernel launch a local card, between the
+        host's barriers where processes share a card: this process's
+        receive buffers."""
         bufs = list(bufs)
         self._check_devices(bufs)
         if self.num_shards > MAX_SHARDS:
@@ -675,24 +851,32 @@ class PeerExchange(ProcessExchange):
         self._reserve(most * slot)
         for k, b in enumerate(bufs):
             c = self.card_of[k]
-            _view(self._own[c] + (k - self.heads[c]) * slot, b)[0].copy_(b)
+            _view(self._own[c] + SIGNAL_BYTES + (k - self.heads[c]) * slot,
+                  b)[0].copy_(b)
+        recv = [torch.empty_like(b) for b in bufs]  # before the launches
+        if self._barrier is not None:
+            self._barrier.check()
+            self.launch_staged(recv, bufs)
+            return recv
         self._meet()
-        recv = [torch.empty_like(b) for b in bufs]
         self.launch_staged(recv, bufs)
         self._meet()
         return recv
 
     def launch_staged(self, recv: Sequence[torch.Tensor],
                       bufs: Sequence[torch.Tensor] | None = None) -> None:
-        """Step (3) alone: one launch a local card into its ``recv`` (this
+        """Step (2) alone: one launch a local card into its ``recv`` (this
         process's receive buffers, each shaped like a send buffer on its
         shard's device) from the local send buffers ``bufs`` (default:
         this process's staging buffers) and the other processes' staging
-        buffers as they stand, with no copy and no barrier; the caller
-        keeps every source unchanged until it has synchronised."""
+        buffers as they stand, with no copy and no host barrier (with the
+        semaphores on the cards, every process must launch too); without
+        them the caller keeps every source unchanged until it has
+        synchronised."""
         slot = recv[0].numel() * recv[0].element_size()  # one send buffer
         chunk = slot // self.num_shards
-        for k0, n in _runs(self.card_of):
+        by_card = []  # every source as each local card reaches it
+        for k0, count in _runs(self.card_of):
             maps = self._maps[self.card_of[k0]]  # as this card maps them
             sources = []
             for p, cards in enumerate(self.cards_of):
@@ -700,7 +884,20 @@ class PeerExchange(ProcessExchange):
                     if p == self.rank and bufs is not None:
                         sources.append(bufs[k].data_ptr())
                     else:
-                        sources.append(maps[p][c]
+                        sources.append(maps[p][c] + SIGNAL_BYTES
                                        + (k - cards.index(c)) * slot)
-            _pull(self.devices[k0], sources, recv[k0:k0 + n],
-                  self.local[k0], chunk, ":procs")
+            if self._barrier is None:
+                _pull(self.devices[k0], sources, recv[k0:k0 + count],
+                      self.local[k0], chunk, ":procs")
+            by_card.append(sources)
+        if self._barrier is None or not chunk:
+            return
+        n = len(self.cards)
+        dests = [0] * self.num_shards
+        for j, r in zip(self.local, recv):
+            dests[j] = r.data_ptr()
+        self._barrier.launch(by_card, dests,
+                             [p * n + c for p, cards in enumerate(
+                                 self.cards_of) for c in cards], chunk)
+        for c in self.cards:
+            _count(c, recv[0].dtype, ":procs")

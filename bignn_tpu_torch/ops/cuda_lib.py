@@ -11,9 +11,10 @@ module, and a machine without ``nvcc`` never builds.
 Each C entry point launches on the stream it is given, allocates nothing,
 and returns ``cudaGetLastError()``; :func:`launch` raises when that is not 0.
 The exchange across processes and cards adds host entry points
-(``_HOST_SIGNATURES``: its staging buffers' allocation, CUDA IPC handles,
-peer access), which take no stream and return the CUDA call's own error;
-:func:`call` raises on it.
+(``_HOST_SIGNATURES``: its staging buffers' and signal areas' allocation,
+CUDA IPC handles, mapped host memory, peer access, and its launch on
+several cards at once), which take no stream argument of their own and
+return the CUDA call's own error; :func:`call` raises on it.
 """
 
 from __future__ import annotations
@@ -97,15 +98,27 @@ _SIGNATURES = {
     # of a slot
     "bignn_all_to_all": [_VP, _VP, _I32, _I32, _I32, _I64],
 }
-# entry points that launch nothing and take no stream: the staging buffers
-# of the exchange across processes (ops/collectives.py PeerExchange) and
-# peer access between the cards of one process
+# entry points that take no stream: the staging buffers and signal areas of
+# the exchange across processes and cards (ops/collectives.py), mapped host
+# memory, peer access between the cards of one process, and the exchange's
+# launch on several cards at once, each on the stream it is given
 _HOST_SIGNATURES = {
     "bignn_ipc_alloc": [_I64, _VP],  # bytes, where to write the pointer
     "bignn_ipc_free": [_VP],
     "bignn_ipc_handle": [_VP, _VP],  # pointer, where to write 64 bytes
     "bignn_ipc_open": [_VP, _VP],  # 64 handle bytes, where to write
     "bignn_ipc_close": [_VP],
+    # row 9 with the semaphores on the cards, one launch on each local card
+    # on the streams it is given: send pointers by card, receive pointers,
+    # G, each shard's card, bytes of a slot, signal areas by card, the card
+    # count, local cards, their participant indices, CUDA devices and
+    # streams, their error words, the limit in ns
+    "bignn_all_to_all_sync": [_VP, _VP, _I32, _VP, _I64, _VP, _I32, _I32,
+                              _VP, _VP, _VP, _VP, _I64],
+    # bytes, where to write the host and the device pointer (mapped
+    # page-locked memory: the exchange's error words)
+    "bignn_host_alloc": [_I64, _VP, _VP],
+    "bignn_host_free": [_VP],
     # the peer card that the current one may then read (ops/collectives.py
     # enable_peer_access)
     "bignn_enable_peer_access": [_I32],

@@ -59,6 +59,7 @@ import torch
 from bignn_tpu_torch.ops.collectives import (
     PeerExchange,
     ProcessExchange,
+    check_cards,
     enable_peer_access,
 )
 from bignn_tpu_torch.parallel.mesh import (
@@ -77,7 +78,9 @@ class CardExchange:
     order, ``heads`` each card's first shard. The halo exchange needs
     nothing of it (``ops.all_to_all`` reads the buffers' devices); it
     enables peer access between the cards once and carries the gather of
-    the embedding rows onto every card. ``close`` does nothing."""
+    the embedding rows onto every card. ``close`` raises if a wait of an
+    exchange over the cards had expired (``ops/collectives.py``
+    ``check_cards``)."""
 
     def __init__(self, devices: Sequence, card_of: Sequence[int] | None = None):
         self.devices = [torch.device(d) for d in devices]
@@ -90,14 +93,17 @@ class CardExchange:
             raise ValueError(f"cards {self.card_of} skip a number")
         self.heads = [self.card_of.index(c) for c in range(self.size)]
         self.cards = [self.devices[j] for j in self.heads]
-        cuda = list(dict.fromkeys(d for d in self.devices
-                                  if d.type == "cuda"))
-        if len(cuda) > 1:
-            enable_peer_access(cuda)
+        self._cuda = list(dict.fromkeys(d for d in self.devices
+                                        if d.type == "cuda"))
+        if len(self._cuda) > 1:
+            enable_peer_access(self._cuda)
 
     def close(self) -> None:
         """Nothing to free (the collective ``close`` of the exchanges
-        across processes)."""
+        across processes); once the cards are synchronised, raise if an
+        exchange's wait on them had expired."""
+        if len(self._cuda) > 1:
+            check_cards(self._cuda)
 
 
 class _GatherToCards(torch.autograd.Function):

@@ -324,7 +324,9 @@ def make_hybrid_mesh(dp: int | None = None, graph: int | None = None,
         hold by construction.
 
     Every process must drive as many devices. A single process gets
-    ``make_mesh(dp, graph or 1)`` on its first device."""
+    ``make_mesh(dp, graph or 1)`` over its devices, as JAX's gets it over
+    its local devices (``dp`` defaults to their count over ``graph``); one
+    device is named ``dp * graph`` times (``dp`` default 1)."""
     if devices is None:
         devices = [device] if device is not None else local_devices()
     devices = [torch.device(d) for d in devices]
@@ -336,9 +338,10 @@ def make_hybrid_mesh(dp: int | None = None, graph: int | None = None,
         raise ValueError(f"dp ({dp}) must be at least 1")
     nproc = process_count()
     if nproc == 1:
+        if nloc > 1:
+            return make_mesh(dp=dp, graph=graph or 1, devices=devices)
         ici_dp, g = 1 if dp is None else int(dp), graph or 1
-        return make_mesh(dp=ici_dp, graph=g,
-                         devices=[devices[0]] * (ici_dp * g))
+        return make_mesh(dp=ici_dp, graph=g, devices=devices * (ici_dp * g))
     graph = graph if graph is not None else nproc
     if graph % nproc != 0:
         raise ValueError(

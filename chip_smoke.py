@@ -249,11 +249,15 @@ Phases:
      cards (nvidia-smi topo -m and nvlink -s logged first) at config5's
      send buffers (G 4, S 432, F 132, one shard a card on four) and
      config5-large's (G 8, S 12,504, two a card), forward and backward
-     equal to all_to_all_plain exactly, one launch a card each way, then
-     timed with its plain version (cards_queued_ms: device ms, the calls
-     queued behind a sleep on every card, the slowest card's span; and
-     cards_ms, the exchange as the host paces it) and bounded per card (cards_bound: peer bytes over the NVLink rate in one
-     direction, local bytes over 3.35 TB/s); (ii) config5's p2 step, its 4
+     equal to all_to_all_plain exactly, one launch a card each way (the
+     semaphores on the cards), then timed with its plain version
+     (cards_queued_ms: device ms, the calls queued behind a sleep on every
+     card, the slowest card's span, after a first reading that is
+     discarded; and cards_ms, the exchange as the host paces it), the
+     kernel on each card (torch.profiler, its waits on the other cards
+     included), and bounded per card
+     (cards_bound: peer bytes over the NVLink rate in one direction,
+     local bytes over 3.35 TB/s); (ii) config5's p2 step, its 4
      graph shards over the cards, K_STEPS of path G's batches from the same
      init and keys: losses within K_LOSS_RTOL of path G's, step-1 gradients
      within GRAD_TOL, the replicas' parameters and a second run equal to
@@ -274,9 +278,12 @@ Phases:
      second pair equal to the first; (ii) row 9 across processes of two
      cards at config5's send buffers (the step's own) and config5-large's
      (G 8, two shards a card, made from SEED on the card): equal to the
-     plain version exactly, one launch a card, the kernel's device ms
-     (queued behind a sleep on both cards), the whole exchange's host ms
-     (barriers included), the plain version's and the library call's
+     plain version exactly, one launch a card (the semaphores on the
+     cards: every card of every process its own), the launches' device ms
+     (every process's cards at once, queued behind sleeps), each card's
+     kernel (torch.profiler, its waits included), the
+     whole exchange's host ms, a host barrier's (what the semaphores
+     replace), the plain version's and the library call's
      (all_to_all_single on gloo), bound by cards_bound; (iii) the pair on
      the route between hosts (--route hosts), equal to (i) bit for bit;
      (iv) python -m bignn_tpu_torch.run --config config5 --epochs 1
@@ -3997,8 +4004,9 @@ def queued_ms(fn, reps: int = 100) -> float:
 
 def k_exchange_times(exchange, bufs, reps: int = K_REPS) -> dict:
     """Path K(iv) in one process, at a step's own send buffers: every
-    process at once, the whole exchange (IPC: staging copies, synchronize,
-    barrier, a launch a card, synchronize, barrier; K(v)'s route between
+    process at once, the whole exchange (IPC: staging copies, a launch a
+    card, between synchronizes and barriers where processes share a card;
+    K(v)'s route between
     hosts: host copies, ``all_to_all_single`` through gloo, the upload,
     one launch), its plain version (every process's whole send buffers
     gathered: through the staging buffers over IPC, through gloo on the
@@ -4006,10 +4014,14 @@ def k_exchange_times(exchange, bufs, reps: int = K_REPS) -> dict:
     buffers, arranged by destination process beforehand on the first
     card, its result checked), each a median of host ms over ``reps``; the
     barrier (a synchronize and ``dist.barrier``); then the kernel alone
-    (``queued_ms``, or ``cards_queued_ms`` over several cards: IPC's
-    ``launch_staged``, or the host route's ``all_to_all_launch`` on this
-    process's destinations, on the chunks it would have), each process in
-    turn while the others wait."""
+    (IPC's ``launch_staged``, or the host route's ``all_to_all_launch`` on
+    this process's destinations, on the chunks it would have): on one card
+    a process (path K, whose processes may share it; ``queued_ms``), each
+    process in turn while the others wait; on several cards a process
+    (path N), every process at once (``cards_queued_ms`` with a lead call:
+    with the semaphores on the cards, a launch waits for every card's),
+    with each card's kernel by ``torch.profiler`` (``kernel_by_card``,
+    its waits on the cards included)."""
     import torch.distributed as dist
 
     from bignn_tpu_torch.ops import collectives
@@ -4059,12 +4071,18 @@ def k_exchange_times(exchange, bufs, reps: int = K_REPS) -> dict:
         def kernel():
             recv[:] = collectives.all_to_all_launch(
                 sources, exchange.local[0], ":hosts")
-    for turn in range(exchange.size):
+    if len(cards) == 1:  # processes that may share a card: in turn
+        for turn in range(exchange.size):
+            dist.barrier()
+            if turn == exchange.rank:
+                times["kernel_ms"] = queued_ms(kernel)
+            dist.barrier()
+    else:  # every process's cards at once (their kernels wait on each other)
         dist.barrier()
-        if turn == exchange.rank:
-            times["kernel_ms"] = (queued_ms(kernel) if len(cards) == 1
-                                  else cards_queued_ms(kernel, cards))
+        times["kernel_ms"] = cards_queued_ms(kernel, cards, lead=1)
         dist.barrier()
+        times["kernel_by_card"] = kernel_ms_by_card(kernel, cards)
+        _sync(cards)
     if not all(torch.equal(a, b.to(a.device)) for a, b in zip(recv, want)):
         raise AssertionError("the kernel alone differs from the plain "
                              "version")
@@ -4472,12 +4490,14 @@ def cards_ms(fn, cards, reps: int = M_REPS) -> float:
     return max(starts[c].elapsed_time(ends[c]) for c in cards) / reps
 
 
-def cards_queued_ms(fn, cards, reps: int = M_REPS) -> float:
+def cards_queued_ms(fn, cards, reps: int = M_REPS, lead: int = 0) -> float:
     """Device milliseconds per call of ``fn``, work on several cards, with
     the host's cost hidden (as ``queued_ms``): the calls queued behind a
     device sleep on every card twice as long as the host takes to queue
-    them, an event on each card after its sleep and one after the calls;
-    the slowest card's span."""
+    them, an event on each card after its sleep and ``lead`` calls (which
+    take up a skew between processes that time their cards at once, each
+    behind a sleep of its own) and one after the calls; the slowest card's
+    span."""
     for _ in range(3):
         fn()
     _sync(cards)
@@ -4499,13 +4519,49 @@ def cards_queued_ms(fn, cards, reps: int = M_REPS) -> float:
     for c in cards:
         with torch.cuda.device(c):
             torch.cuda._sleep(cycles)
-            starts[c].record(torch.cuda.current_stream(c))
+    for _ in range(lead):
+        fn()
+    for c in cards:
+        starts[c].record(torch.cuda.current_stream(c))
     for _ in range(reps):
         fn()
     for c in cards:
         ends[c].record(torch.cuda.current_stream(c))
     _sync(cards)
     return max(starts[c].elapsed_time(ends[c]) for c in cards) / reps
+
+
+def kernel_ms_by_card(fn, cards, reps: int = M_REPS) -> dict:
+    """torch.profiler over ``reps`` calls of ``fn`` queued behind a sleep
+    on every card, as ``cards_queued_ms`` queues them, after a warm-up:
+    each card's device ms a call in row 9's kernel (``exchange`` in its
+    name), the kernel alone, without the gaps between launches or what the
+    streams wait on outside it (with the semaphores on the cards, its
+    waits for the other cards are inside it)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    _sync(cards)
+    t0 = time.perf_counter()
+    fn()
+    _sync(cards)
+    cycles = int(4 * reps * (time.perf_counter() - t0) * 1e3 * 2_000_000)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for c in cards:
+            with torch.cuda.device(c):
+                torch.cuda._sleep(cycles)
+        for _ in range(reps):
+            fn()
+        _sync(cards)
+    out = {}
+    for c in cards:
+        out[str(c)] = sum(
+            e.time_range.elapsed_us() for e in prof.events()
+            if e.device_type == DeviceType.CUDA and e.device_index == c.index
+            and "exchange" in e.name) / 1e3 / reps
+    return out
 
 
 def cards_bound(devices, chunk: int, rate: float | None) -> float:
@@ -4530,10 +4586,15 @@ def m_exchange(cards, rate: float | None) -> dict:
     from SEED on the host and put on their shards' cards
     (``spread_devices``): forward and backward (the exchange of
     cotangents) equal to ``all_to_all_plain`` exactly, one launch a card
-    each way; then the exchange and its plain version timed
-    (``cards_ms``), with ``cards_bound``. No single PyTorch call
-    exchanges between the cards of one process (NCCL's all-to-all takes a
-    process a card), so the library time is null."""
+    each way; then the exchange timed: device ms queued behind a sleep on
+    every card (``cards_queued_ms``; the first such reading in a process
+    runs several times high, so one is taken and discarded first), as the
+    host paces it (``cards_ms``), the kernel on each card
+    (``torch.profiler``, ``kernel_ms_by_card``: its waits on the other
+    cards included; ``scripts/probe_variants.py`` kind ``a2a`` times the
+    semaphores without the copy); its plain version; ``cards_bound``. No
+    single PyTorch call exchanges between the cards of one process (NCCL's
+    all-to-all takes a process a card), so the library time is null."""
     from bignn_tpu_torch import ops
     from bignn_tpu_torch.parallel import spread_devices
 
@@ -4563,22 +4624,33 @@ def m_exchange(cards, rate: float | None) -> dict:
                                  f"version, or launched {launched} times")
         chunk = s * f * 4
         fwd = [b.detach() for b in bufs]
-        ms = cards_queued_ms(lambda: ops.all_to_all(fwd), used)
+
+        def exchange():
+            return ops.all_to_all(fwd)
+
+        first = cards_queued_ms(exchange, used)  # discarded
+        ms = cards_queued_ms(exchange, used)
         plain_ms = cards_queued_ms(lambda: ops.all_to_all_plain(fwd), used)
-        paced = cards_ms(lambda: ops.all_to_all(fwd), used)
+        paced = cards_ms(exchange, used)
+        by_card = kernel_ms_by_card(exchange, used)
         bound = cards_bound(devices, chunk, rate)
         key = ("all_to_all:f32:cards" if name == "config5"
                else f"all_to_all:f32:cards ({name})")
         results[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                             bound_ms=bound, bound_by="bytes", library_ms=None,
-                            exchange_ms=paced)
+                            exchange_ms=paced,
+                            kernel_ms=max(by_card.values()),
+                            kernel_by_card=by_card, first_ms=first)
         log(f"  {key}: G {g}, S {s}, F {f} over {len(used)} cards "
             f"({g // len(used)} shards a card, {chunk / 1e6:.3f} MB a "
             f"chunk): forward and backward equal to the plain version bit "
             f"for bit, {launched} launches; device ms queued behind a "
-            f"sleep: kernel {ms:.4f}, plain {plain_ms:.4f}; the exchange "
-            f"paced by the host (events, no sleep) {paced:.4f} ms; bound "
-            f"{bound:.4f} ms (bytes), no library call")
+            f"sleep: exchange {ms:.4f} (the discarded first reading "
+            f"{first:.4f}), plain {plain_ms:.4f}; the exchange paced by the "
+            f"host (no sleep) {paced:.4f} ms; the kernel by card, its waits "
+            f"on the cards included (torch.profiler) "
+            + ", ".join(f"{c} {v:.4f}" for c, v in by_card.items())
+            + f" ms; bound {bound:.4f} ms (bytes), no library call")
         del bufs, fwd, got
     return results
 
@@ -4956,17 +5028,22 @@ def run_n(cards, m_ref: dict, m_medians: list, one_run: dict,
     for name, ((_, g, s_, f), x) in shapes.items():
         bound = cards_bound(spread_devices(g, cards[:N_CARDS]), s_ * f * 4,
                             rate)
+        by_card = x["kernel_by_card"]
         log(f"  (ii) {name}: G {g} over {N_PROCS} processes of two cards, "
-            f"exact; process 0: kernel {x['kernel_ms']:.4f} ms device "
-            f"(queued behind a sleep on both cards), the whole exchange "
-            f"{x['exchange_ms']:.4f} ms host (barriers included), plain "
+            f"exact; process 0: launches {x['kernel_ms']:.4f} ms device "
+            f"(every process's cards at once, queued behind a sleep), the "
+            f"kernel by card, its waits on the cards included "
+            f"(torch.profiler) "
+            + ", ".join(f"{c} {v:.4f}" for c, v in by_card.items())
+            + f" ms; the whole exchange {x['exchange_ms']:.4f} ms host, plain "
             f"{x['plain_ms']:.4f} ms, all_to_all_single (gloo) "
-            f"{x['library_ms']:.4f} ms, barrier {x['barrier_ms']:.4f} ms; "
-            f"bound {bound:.4f} ms (bytes)")
+            f"{x['library_ms']:.4f} ms, a host barrier (synchronize and "
+            f"gloo) {x['barrier_ms']:.4f} ms; bound {bound:.4f} ms (bytes)")
         vals = dict(ms=x["kernel_ms"], plain_ms=x["plain_ms"],
                     bound_ms=bound, library_ms=x["library_ms"],
                     exchange_ms=x["exchange_ms"],
-                    barrier_ms=x["barrier_ms"])
+                    barrier_ms=x["barrier_ms"],
+                    kernel_ms=max(by_card.values()))
         if name == "config5":
             row.update(vals, max_abs_err=max(y["max_abs_err"] for y in first))
         else:
@@ -5300,7 +5377,7 @@ def main() -> int:
         large = m_results["all_to_all:f32:cards (config5-large)"]
         cards_row.update({f"{k}_config5_large": v for k, v in large.items()
                           if k in ("max_abs_err", "ms", "plain_ms",
-                                   "bound_ms", "exchange_ms")})
+                                   "bound_ms", "exchange_ms", "kernel_ms")})
     else:
         cards_row["note"] = "path M needs two or more cards"
     kernels.append(cards_row)

@@ -57,7 +57,17 @@ values V, in this order:
   128, forward and backward), path E's batch (bf16, F 128 forward;
   weighted F 64 forward) and the split SpMMs of path G(ii)'s shard 0
   (f32, F 128: the owned-source one forward and backward, the halo-source
-  backward).
+  backward);
+- ``a2a``: row 9 with its semaphores on the cards (``csrc/all_to_all.cu``,
+  the kSync form of ``exchange``, ``bignn_all_to_all_sync``): ``kUnroll``
+  (words a thread loads before it stores any), ``kWaveBlocks`` (the most
+  blocks of a launch; a large value leaves the grid uncapped), ``kCopy``
+  (0: the semaphores alone, no copy), over the first four visible cards
+  (two or more) at ``chip_smoke.M_SHAPES`` through
+  ``ops.all_to_all_cards`` with this variant's entry point in place of the
+  checkout's: exact against the plain version where it copies, then
+  timed as ``chip_smoke.m_exchange`` times the exchange
+  (``cards_queued_ms``, the first reading discarded).
 
 Each is built alone with ``nvcc`` (the flags of ``ops/cuda_lib.py``; all
 the builds started together) into ``build/probe/`` and bound by ctypes.
@@ -446,6 +456,56 @@ def smx_cases(graphs) -> list:
     return out
 
 
+def a2a_row(values: tuple[int, ...], entry) -> dict:
+    """Row 9 across the cards with the variant's ``bignn_all_to_all_sync``
+    (``entry``) routed in place of the checkout's: ms a call at each of
+    ``chip_smoke.M_SHAPES``, device time queued behind a sleep on every
+    card."""
+    from bignn_tpu_torch.ops import collectives
+    from bignn_tpu_torch.parallel import spread_devices
+
+    smoke = ckt.smoke()
+    cards = smoke.visible_cards()[:4]
+    if len(cards) < 2:
+        raise SystemExit("a2a needs two or more cards")
+    call = cuda_lib.call
+
+    def routed(name, device, *args):
+        if name != "bignn_all_to_all_sync":
+            return call(name, device, *args)
+        with torch.cuda.device(device):
+            rc = entry(*args)
+        if rc:
+            raise RuntimeError(f"a2a {values}: CUDA error {rc}")
+
+    row = {}
+    cuda_lib.call = routed
+    try:
+        for name, g, s, f in smoke.M_SHAPES:
+            devices = spread_devices(g, cards)
+            used = list(dict.fromkeys(devices))
+            gen = torch.Generator().manual_seed(smoke.SEED)
+            host = [torch.randn(g, s, f, generator=gen) for _ in range(g)]
+            bufs = [h.to(d) for h, d in zip(host, devices)]
+            got = collectives.all_to_all_cards(bufs)
+            collectives.check_cards(used)
+            if values[2] and not all(
+                    torch.equal(a.cpu(), b)
+                    for a, b in zip(got, collectives.all_to_all_plain(host))):
+                raise SystemExit(f"a2a {values} {name}: differs from the "
+                                 f"plain version")
+
+            def run():
+                return collectives.all_to_all_cards(bufs)
+
+            smoke.cards_queued_ms(run, used)  # the first reading, discarded
+            row[name] = smoke.cards_queued_ms(run, used)
+            collectives.check_cards(used)
+    finally:
+        cuda_lib.call = call
+    return row
+
+
 class Kind(NamedTuple):
     source: str
     constants: tuple[str, ...]
@@ -504,6 +564,8 @@ KINDS = {
                  "kDependentLaunch"),
                 "spmm_rows", "bignn_spmm_", call_spr, spr_cases,
                 ("f32", "bf16", "bwd_f32", "bwd_bf16", "scratch")),
+    "a2a": Kind("all_to_all.cu", ("kUnroll", "kWaveBlocks", "kCopy"),
+                "exchange", "bignn_all_to_all_sync", None, None, ()),
 }
 
 
@@ -540,6 +602,11 @@ def bind_variant(kind: str, proc, lib):
         raise SystemExit(report)
     cdll = ctypes.CDLL(str(lib))
     entries = {}
+    if kind == "a2a":  # a host entry point: its own signature, no stream
+        fn = getattr(cdll, k.entry)
+        fn.argtypes = cuda_lib._HOST_SIGNATURES[k.entry]
+        fn.restype = ctypes.c_int
+        entries[kind] = fn
     for t in k.types:
         fn = getattr(cdll, k.entry + t)
         fn.argtypes = [*cuda_lib._SIGNATURES[k.entry + t], ctypes.c_void_p]
@@ -565,13 +632,24 @@ def main() -> int:
         check=True, timeout=60).stdout.strip()
     print(f"card: {card}", flush=True)
     dev = torch.device("cuda")
+    builds = [start_variant(kind, values) for kind, values in variants]
+    for (kind, values), build in zip(variants, builds):
+        if kind == "a2a":
+            entries, registers = bind_variant(kind, *build)
+            row = dict(zip(KINDS[kind].constants, values), kind=kind,
+                       registers=registers)
+            row.update(a2a_row(values, entries[kind]))
+            print(json.dumps(row), flush=True)
+    rest = [(v, b) for v, b in zip(variants, builds) if v[0] != "a2a"]
+    if not rest:
+        return 0
+    variants, builds = zip(*rest)
     if not ckt.INPUTS.exists():
         ckt.build_inputs(str(ROOT), ckt.INPUTS)
     sleep = ckt.sleep_ms()
     check = ckt.smoke()._check_close
     with torch.no_grad():
         graphs = _graphs(dev)
-        builds = [start_variant(kind, values) for kind, values in variants]
         cases = {kind: KINDS[kind].cases(graphs)
                  for kind in {kind for kind, _ in variants}}
         for (kind, values), build in zip(variants, builds):

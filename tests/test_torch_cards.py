@@ -36,6 +36,7 @@ peer access and events are not (``tests/test_torch_kernels.py``'s
 
 import dataclasses
 import shutil
+import types
 
 import jax
 import jax.numpy as jnp
@@ -637,6 +638,124 @@ def test_peer_access_once_a_pair_or_an_error(monkeypatch):
     with pytest.raises(RuntimeError, match="cuda:3 has no peer access to "
                        "cuda:1"):
         collectives.enable_peer_access(_cards(4))
+
+
+class _OnCard:
+    """A CPU tensor that says it lies on ``device`` (what
+    ``all_to_all_cards`` reads of a send buffer), its allocations traced."""
+
+    def __init__(self, t: torch.Tensor, device, trace: list):
+        self.t, self.device, self.trace = t, torch.device(device), trace
+        self.shape, self.dtype = t.shape, t.dtype
+
+    def __getitem__(self, i):
+        return self.t[i]
+
+    def element_size(self):
+        return self.t.element_size()
+
+    def data_ptr(self):
+        return self.t.data_ptr()
+
+    def new_empty(self, shape):
+        self.trace.append(("alloc", str(self.device)))
+        return _OnCard(self.t.new_empty(shape), self.device, self.trace)
+
+
+def _stub_card_runtime(monkeypatch, trace: list) -> list:
+    """``cuda_lib.call`` stubbed on the CPU: signal areas and error words in
+    host memory, and ``bignn_all_to_all_sync`` done by ``ctypes.memmove``
+    on each local card's pairs (the CPU tensors' pointers), each card's
+    launch traced with its rows and cols; every synchronisation or
+    event of ``torch.cuda`` traced. Returns the host buffers."""
+    import ctypes
+
+    from bignn_tpu_torch.ops import collectives, cuda_lib
+
+    keep = []
+
+    def call(name, dev, *args):
+        if name == "bignn_all_to_all_sync":
+            return launch(*args)
+        if name == "bignn_enable_peer_access":
+            return
+        buf = ctypes.create_string_buffer(collectives.SIGNAL_BYTES)
+        keep.append(buf)
+        if name == "bignn_ipc_alloc":
+            args[1]._obj.value = ctypes.addressof(buf)
+        elif name == "bignn_host_alloc":
+            args[1]._obj.value = args[2]._obj.value = ctypes.addressof(buf)
+
+    def launch(send, recv, g, card_of, chunk, areas, cards, n_local, me,
+               devices, streams, error, timeout):
+        assert cards == n_local == 4 and list(me) == list(devices)
+        assert list(card_of) == [i * 4 // g for i in range(g)]
+        for k in range(n_local):
+            own = [s for s in range(g) if card_of[s] == me[k]]
+            rows, cols = own, list(range(g))
+            trace.append(("launch", f"cuda:{devices[k]}", rows, cols))
+            for j in rows:
+                for i in cols:
+                    ctypes.memmove(recv[j] + i * chunk,
+                                   send[k * g + i] + j * chunk, chunk)
+
+    monkeypatch.setattr(collectives, "_barriers", {})
+    monkeypatch.setattr(collectives, "_peer_pairs", set())
+    monkeypatch.setattr(cuda_lib, "call", call)
+    monkeypatch.setattr(torch.cuda, "can_device_access_peer",
+                        lambda a, b: True)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev: types.SimpleNamespace(cuda_stream=0))
+    for name in ("synchronize", "Event", "stream", "set_sync_debug_mode"):
+        monkeypatch.setattr(torch.cuda, name,
+                            lambda *a, _n=name, **k: trace.append((_n,)))
+    monkeypatch.setattr(torch.Tensor, "item",
+                        lambda self: trace.append(("item",)))
+    return keep
+
+
+@pytest.mark.parametrize("g,dtype", [(4, torch.float32), (8, torch.float32),
+                                     (8, torch.bfloat16), (4, torch.int16)])
+def test_cards_exchange_launches_without_host_sync(monkeypatch, g, dtype):
+    """``all_to_all_cards`` over 4 cards (a shard or two a card), with the
+    runtime stubbed: every receive buffer allocated before the launches,
+    one launch a card, all in one host call, and no synchronisation, event
+    or host read anywhere (the semaphores are on the cards); each launch's
+    pairs (its destinations x every source) done by a CPU copy give
+    ``all_to_all_plain`` exactly. A wait that expired on a card raises at
+    the next exchange over the cards, and where the run ends
+    (``CardExchange.close``, after it synchronises them), naming the card
+    waited on."""
+    from bignn_tpu_torch.ops import collectives
+
+    trace = []
+    _stub_card_runtime(monkeypatch, trace)
+    gen = torch.Generator().manual_seed(g)
+    host = [(100 * torch.randn(g, 3, 5, generator=gen)).to(dtype)
+            for _ in range(g)]
+    cards = [f"cuda:{i * 4 // g}" for i in range(g)]
+    got = collectives.all_to_all_cards(
+        [_OnCard(h, c, trace) for h, c in zip(host, cards)])
+    for a, b in zip(got, collectives.all_to_all_plain(host)):
+        assert torch.equal(a.t, b)
+    kinds = [t[0] for t in trace]
+    assert kinds == ["alloc"] * g + ["launch"] * 4, trace
+    own = [[j for j in range(g) if cards[j] == f"cuda:{k}"] for k in range(4)]
+    for k, (_, dev, rows, cols) in enumerate(trace[g:]):
+        assert dev == f"cuda:{k}"
+        assert (rows, cols) == (own[k], list(range(g)))
+    distinct = [torch.device(c) for c in dict.fromkeys(cards)]
+    barrier = collectives.card_barrier(distinct)
+    barrier._words[2] = (1 << 8) | 4  # cuda:2 waited for cuda:3 to arrive
+    expired = "all_to_all on cuda:2 waited past 120 s for cuda:3 to arrive"
+    with pytest.raises(RuntimeError, match=expired):
+        collectives.all_to_all_cards(
+            [_OnCard(h, c, trace) for h, c in zip(host, cards)])
+    exchange = CardExchange(distinct)
+    trace.clear()
+    with pytest.raises(RuntimeError, match=expired):
+        exchange.close()
+    assert trace == [("synchronize",)] * 4
 
 
 # ---------------------------------------------------------------------------

@@ -1561,6 +1561,96 @@ def test_all_to_all_across_cards_matches_plain(case):
             == 2 * len(set(devices)))
 
 
+# the send buffers of chip_smoke.py's M_SHAPES: (G, S, F) of config5 and
+# config5-large, spread over up to 4 cards
+A2A_M_SHAPES = {"config5": (4, 432, 132), "config5-large": (8, 12504, 132)}
+A2A_BACK_TO_BACK = 200
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", sorted(A2A_M_SHAPES))
+def test_all_to_all_across_cards_back_to_back(shape):
+    """A2A_BACK_TO_BACK exchanges across the cards with no host
+    synchronisation between them, each one's send buffers rewritten (on
+    their own cards' streams) right after it returns: every result equal
+    to the plain version exactly, checked on the cards as it lands. What
+    keeps a card from rewriting a send buffer that a peer still reads is
+    the kernel's drain (each card waits for every card's "done" before it
+    exits). Skips with fewer than two cards."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA cards")
+    g, s, f = A2A_M_SHAPES[shape]
+    n_cards = min(torch.cuda.device_count(), 4)
+    devices = [torch.device("cuda", j * n_cards // g) for j in range(g)]
+    gen = torch.Generator().manual_seed(0)
+    host = [torch.randn(g, s, f, generator=gen) for _ in range(g)]
+    base = [h.to(d) for h, d in zip(host, devices)]
+    # what destination j receives from every source, on j's card
+    want = [torch.stack([h[j] for h in host]).to(d)
+            for j, d in enumerate(devices)]
+    send = [b.clone() for b in base]
+    bad = [torch.zeros((), dtype=torch.int64, device=d) for d in devices]
+    before = ops.all_to_all.launches_by_dtype.get("f32:cards", 0)
+    for t in range(A2A_BACK_TO_BACK):
+        got = ops.all_to_all(send)
+        for b, x in zip(base, send):
+            torch.add(b, t + 1, out=x)
+        for j, r in enumerate(got):
+            bad[j] += (r != want[j] + t).sum()
+    for d in set(devices):
+        torch.cuda.synchronize(d)
+    assert [int(x) for x in bad] == [0] * g
+    assert (ops.all_to_all.launches_by_dtype.get("f32:cards", 0) - before
+            == A2A_BACK_TO_BACK * len(set(devices)))
+
+
+@pytest.mark.gpu
+def test_all_to_all_missing_peer_raises_within_its_limit():
+    """A launch of the kernel with the semaphores on the cards whose peer
+    never launches, built through ``DeviceBarrier`` with a limit of 0.5 s:
+    the card is free again within the limit (plus a second for the launch
+    and the synchronisation), the next check raises, naming the card it
+    waited on, and the chunk it did not copy is NaN. The peer's signal area lies on a second card where there
+    is one, else beside this card's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the H100)")
+    import ctypes
+    import time
+
+    from bignn_tpu_torch.ops import collectives, cuda_lib
+
+    cards = [torch.device("cuda", i) for i in range(
+        min(torch.cuda.device_count(), 2))]
+    collectives.enable_peer_access(cards)
+    areas = []
+    for q in range(2):
+        ptr = ctypes.c_void_p()
+        cuda_lib.call("bignn_ipc_alloc", cards[q % len(cards)],
+                      collectives.SIGNAL_BYTES, ctypes.byref(ptr))
+        areas.append(ptr.value)
+    barrier = collectives.DeviceBarrier(cards[:1], [0], [areas],
+                                        ["cuda:0", "the peer card"],
+                                        timeout_s=0.5)
+    bufs = _a2a_bufs(cards[0], 2, "f32", 432, 132)
+    recv = torch.empty_like(bufs[0])
+    torch.cuda.synchronize(cards[0])
+    t0 = time.perf_counter()
+    barrier.launch([[b.data_ptr() for b in bufs]], [recv.data_ptr(), 0],
+                   [0, 1], 432 * 132 * 4)
+    torch.cuda.synchronize(cards[0])
+    secs = time.perf_counter() - t0
+    assert 0.4 < secs < 1.5, secs
+    with pytest.raises(RuntimeError, match="all_to_all on cuda:0 waited "
+                       "past 0.5 s for the peer card to arrive"):
+        barrier.check()
+    assert torch.equal(recv[0], bufs[0][0])  # the local pair was copied
+    assert torch.isnan(recv[1]).all()  # the peer's was not
+    with pytest.raises(RuntimeError, match="the peer card"):
+        barrier.close()
+    for q, ptr in enumerate(areas):
+        cuda_lib.call("bignn_ipc_free", cards[q % len(cards)], ptr)
+
+
 # ---------------------------------------------------------------------------
 # segment sum: the row widths, alignments and id layouts of csrc/segment_sum.cu
 # ---------------------------------------------------------------------------

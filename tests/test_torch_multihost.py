@@ -465,6 +465,109 @@ def test_hybrid_mesh_errors_match_jax(monkeypatch):
     assert one.local_graph == [0, 1]
 
 
+@pytest.mark.parametrize("kw", [{}, dict(graph=2), dict(graph=4),
+                                dict(dp=3, graph=2)])
+def test_single_process_hybrid_mesh_spreads_like_jax(monkeypatch, kw):
+    """One process over 8 devices (conftest's 8 host devices for JAX, 8
+    CPU slots for the port): JAX's ``make_mesh`` over every local device,
+    ``dp`` defaulting to their count over ``graph`` (8 x 1, 4 x 2, 2 x 4),
+    and JAX's error where ``dp * graph`` is not the device count."""
+    import jax
+
+    from bignn_tpu.parallel import mesh as jax_mesh
+
+    assert jax.process_count() == 1 and jax.local_device_count() == 8
+    monkeypatch.setattr(mesh_mod, "process_count", lambda: 1)
+    try:
+        want = jax_mesh.make_hybrid_mesh(**kw)
+    except ValueError as e:
+        with pytest.raises(ValueError) as got:
+            make_hybrid_mesh(**kw, devices=["cpu"] * 8)
+        assert str(got.value) == str(e)
+        return
+    got = make_hybrid_mesh(**kw, devices=["cpu"] * 8)
+    assert got.shape == dict(want.shape)
+    assert got.devices.size == 8 and got.process_count == 1
+    assert got.local_graph == list(range(want.shape["graph"]))
+
+
+# processes' cards (their indices on one host of 4 cards) -> whether the
+# exchange takes the semaphores on the cards: only where no card is shared
+PEER_LAYOUTS = {
+    "2x2": ([[0, 1], [2, 3]], True),
+    "4x1": ([[0], [1], [2], [3]], True),
+    "2_on_one": ([[0], [0]], False),
+    "2x2_sharing": ([[0, 1], [1, 2]], False),
+}
+
+
+def _peer_exchange(monkeypatch, rank: int, cards: list):
+    """``PeerExchange`` as process ``rank`` of ``len(cards)`` builds it (a
+    shard a card), the process group's gathers answered from every
+    process's layout and card UUIDs; nothing touches a card."""
+    import torch.distributed as dist
+    from types import SimpleNamespace
+
+    from bignn_tpu_torch.ops.collectives import PeerExchange
+
+    n = len(cards[0])
+    answers = iter([
+        [(list(range(p * n, (p + 1) * n)), list(range(n)))
+         for p in range(len(cards))],
+        [[f"GPU-{c}" for c in theirs] for theirs in cards]])
+
+    def gather(out, obj):
+        every = next(answers)
+        assert obj == every[rank]
+        out[:] = every
+
+    monkeypatch.setattr(dist, "is_initialized", lambda: True)
+    monkeypatch.setattr(dist, "get_rank", lambda: rank)
+    monkeypatch.setattr(dist, "get_world_size", lambda: len(cards))
+    monkeypatch.setattr(dist, "all_gather_object", gather)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda d: SimpleNamespace(uuid=f"GPU-{d.index}"))
+    return PeerExchange(len(cards) * n, range(rank * n, (rank + 1) * n),
+                        [f"cuda:{c}" for c in cards[rank]])
+
+
+@pytest.mark.parametrize("layout", sorted(PEER_LAYOUTS))
+def test_peer_exchange_takes_device_barrier_only_on_distinct_cards(
+        monkeypatch, layout):
+    """``PeerExchange`` chooses the semaphores on the cards from the cards'
+    UUIDs gathered through the group, every process alike: where every
+    card of every process is its own; where processes share a card, the
+    host's protocol. ``launch`` then runs, after the staging copies and the
+    receive buffers, the launches alone (one ``check`` of the error words
+    before them), or the launches between two ``_meet``s (a stream
+    synchronisation and a gloo barrier each)."""
+    from bignn_tpu_torch.ops import collectives
+
+    cards, want = PEER_LAYOUTS[layout]
+    built = [_peer_exchange(monkeypatch, r, cards) for r in range(len(cards))]
+    assert [ex.device_barrier for ex in built] == [want] * len(cards)
+    ex = built[0]
+    trace = []
+
+    class Barrier:
+        def check(self):
+            trace.append("check")
+
+    ex._barrier = Barrier() if ex.device_barrier else None
+    ex.capacity, ex._own = 1 << 30, [0] * len(ex.cards)
+    monkeypatch.setattr(ex, "_check_devices", lambda bufs: None)
+    monkeypatch.setattr(ex, "_meet", lambda: trace.append("meet"))
+    monkeypatch.setattr(ex, "launch_staged",
+                        lambda recv, bufs: trace.append("launch"))
+    monkeypatch.setattr(collectives, "_view", lambda ptr, like, count=1: (
+        trace.append("stage") or torch.empty(count, *like.shape)))
+    bufs = [torch.zeros(ex.num_shards, 3, 5) for _ in ex.local]
+    assert len(ex.launch(bufs)) == len(bufs)
+    assert trace == ["stage"] * len(bufs) + (
+        ["check", "launch"] if want else ["meet", "launch", "meet"])
+
+
 @pytest.mark.parametrize("kw,match", [
     (dict(coordinator_address="127.0.0.1:1"), "without a process count"),
     (dict(num_processes=2, process_id=0), "coordinator"),
