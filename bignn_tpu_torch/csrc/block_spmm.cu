@@ -109,6 +109,20 @@
 //     The walk's latency needs the warps that staging's shared memory
 //     takes away.
 //
+// Rows wider than 256 (the kTiled forms; F <= 256 keeps the forms above,
+// compiled without tiles): the columns go in tiles of at most 256, one a
+// grid row (blockIdx.y), each a CTA of the route above over its columns of
+// the block's rows. Each tile re-reads the block's edges (the walk) or
+// re-counts them into A_b (the tensor cores), and its own columns of x.
+// Words there are the widest that divide F and on which x and out lie
+// (elem.cuh word_values: bf16 F 300 reads 8-byte words, 4 values, where a
+// 16-byte word would cross the end of a 600-byte row, F6); the tensor-core
+// route stages and stores them by cp.async and plain stores of that size.
+// F 300 at the 301,312-row bucket (NVIDIA H100 80GB HBM3, 700 W;
+// chip_smoke.py path O, queued behind a sleep): bf16 tensor cores 0.2635
+// ms (torch.bmm 0.2411: each tile counts A_b again), float32 walk 0.3638
+// (torch.bmm 0.6608); bounds 0.1027, 0.2032.
+//
 // What bounds it on the H100: device-memory bytes. x is read once (each block
 // reads its own rows), the edge list once, y written once: N * F * 2 *
 // sizeof(T) + E * 12 bytes (bf16 at 301,312 rows and 908,411 edges, F 128:
@@ -127,7 +141,7 @@
 namespace {
 
 constexpr int kBlockRows = 128;
-constexpr int kMaxFeat = 256;
+constexpr int kMaxFeat = 256;  // columns a CTA covers (a tile of wider rows)
 constexpr int kWalkWarps = 8;
 constexpr int kWalkThreads = kWalkWarps * 32;
 // edges of a block staged in shared memory (src, dst, weight: 12 bytes
@@ -203,8 +217,9 @@ __device__ __forceinline__ void walk_row(const T* __restrict__ xs, int feat,
 }
 
 // NV: values of x a word holds (16 bytes: 4 floats or 8 bf16, where F and
-// the pointers allow it; else 1). One CTA per 128-row block.
-template <class T, int NV>
+// the pointers allow it; else 1; tiled, the widest word_values allows).
+// One CTA per 128-row block (and tile of columns: kTiled, blockIdx.y).
+template <class T, int NV, bool kTiled>
 __global__ void __launch_bounds__(kWalkThreads, walk_min_blocks<T>())
     block_walk(const T* __restrict__ x, const int* __restrict__ src,
                const int* __restrict__ dst, const float* __restrict__ weight,
@@ -265,8 +280,10 @@ __global__ void __launch_bounds__(kWalkThreads, walk_min_blocks<T>())
   //    a power of two (at most 32; wider rows take more sweeps), so a warp
   //    sums 32 / G rows; each lane reads its edges itself, and its word of
   //    each source row from device memory through L1
-  const T* xs = x + static_cast<int64_t>(r0) * feat;
-  const int row_words = feat / NV;
+  const int t0 = kTiled ? blockIdx.y * kMaxFeat : 0;  // the tile's columns
+  const int width = kTiled ? min(kMaxFeat, feat - t0) : feat;
+  const T* xs = x + static_cast<int64_t>(r0) * feat + t0;
+  const int row_words = width / NV;
   const int lg = bignn::slot_log2(min(row_words, 32));
   const int slots = kWalkWarps * (32 >> lg);
   const int q = tid >> lg;
@@ -274,7 +291,7 @@ __global__ void __launch_bounds__(kWalkThreads, walk_min_blocks<T>())
   for (int d = q; d < kBlockRows; d += slots) {
     const int i0 = first[d];
     const int i1 = last[d];  // i1 < i0 for a row without edges
-    T* o = out + static_cast<int64_t>(r0 + d) * feat;
+    T* o = out + static_cast<int64_t>(r0 + d) * feat + t0;
     for (int c0 = 0; c0 < row_words; c0 += 32) {
       const int col = c0 + c;
       const bool mine = col < row_words;
@@ -434,18 +451,21 @@ __device__ __forceinline__ void block_products(
   }
 }
 
-// Stage block b's rows of x into xsm (bf16 [128][xs]), the padding columns
-// [F, fp) zero: VEC 8 by 16-byte cp.async copies (F a multiple of 8, x on
-// 16 bytes), VEC 1 one value at a time.
+// Stage block b's rows of x (columns t0 + [0, width) of rows of feat
+// values) into xsm (bf16 [128][xs]), the padding columns [width, fp) zero:
+// VEC 8, 4 or 2 by cp.async copies of 2 VEC bytes (width, feat and t0
+// multiples of VEC, x on 2 VEC bytes), VEC 1 one value at a time.
 template <int VEC>
 __device__ __forceinline__ void stage_x(const __nv_bfloat16* __restrict__ x,
-                                        int b, int feat, int fp, int xs,
-                                        __nv_bfloat16* xsm) {
-  const __nv_bfloat16* xb = x + static_cast<int64_t>(b) * kBlockRows * feat;
-  if constexpr (VEC == 8) {
+                                        int b, int feat, int t0, int width,
+                                        int fp, int xs, __nv_bfloat16* xsm) {
+  using W = typename bignn::Word<2 * VEC>::type;
+  const __nv_bfloat16* xb =
+      x + static_cast<int64_t>(b) * kBlockRows * feat + t0;
+  if constexpr (VEC >= 2) {
     // word w of row r, stepping blockDim.x words with a carry: no division
     // in the loop
-    const int words = fp / 8;
+    const int words = fp / VEC;
     const int rstep = blockDim.x / words;
     const int wstep = blockDim.x % words;
     int r = threadIdx.x / words;
@@ -456,43 +476,61 @@ __device__ __forceinline__ void stage_x(const __nv_bfloat16* __restrict__ x,
         ++r;
         if (r >= kBlockRows) break;
       }
-      const int col = 8 * w;
+      const int col = VEC * w;
       __nv_bfloat16* to = xsm + r * xs + col;
-      if (col < feat) {
-        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                         smem_addr(to)),
-                     "l"(xb + static_cast<int64_t>(r) * feat + col)
-                     : "memory");
+      if (col < width) {
+        const __nv_bfloat16* from = xb + static_cast<int64_t>(r) * feat + col;
+        if constexpr (VEC == 8) {
+          asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                           smem_addr(to)),
+                       "l"(from)
+                       : "memory");
+        } else if constexpr (VEC == 4) {
+          asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(
+                           smem_addr(to)),
+                       "l"(from)
+                       : "memory");
+        } else {
+          asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                           smem_addr(to)),
+                       "l"(from)
+                       : "memory");
+        }
       } else {
-        *reinterpret_cast<uint4*>(to) = make_uint4(0, 0, 0, 0);
+        *reinterpret_cast<W*>(to) = W{};
       }
     }
   } else {
     for (int i = threadIdx.x; i < kBlockRows * fp; i += blockDim.x) {
       const int r = i / fp;
       const int col = i % fp;
-      xsm[r * xs + col] = col < feat ? xb[static_cast<int64_t>(r) * feat + col]
-                                     : __float2bfloat16_rn(0.f);
+      xsm[r * xs + col] = col < width
+                              ? xb[static_cast<int64_t>(r) * feat + col]
+                              : __float2bfloat16_rn(0.f);
     }
   }
 }
 
-// One CTA per block, 3 an SM at F 128. The rows of x land (cp.async)
-// while the edges are counted; A_b serves every column chunk unless the
-// block needs more than one pass or holds a count of 256 or more.
-template <int VEC>
+// One CTA per block (and tile of columns: kTiled, blockIdx.y), 3 an SM at
+// F 128. The rows of x land (cp.async) while the edges are counted; A_b
+// serves every column chunk unless the block needs more than one pass or
+// holds a count of 256 or more.
+template <int VEC, bool kTiled>
 __global__ void __launch_bounds__(kTcThreads, 3)
     block_spmm_tc(const __nv_bfloat16* __restrict__ x,
                   const int* __restrict__ src, const int* __restrict__ dst,
                   const int* __restrict__ starts, int num_edges, int feat,
                   __nv_bfloat16* __restrict__ out) {
+  using W = typename bignn::Word<2 * VEC>::type;
   extern __shared__ __align__(16) unsigned char tc_smem[];
   unsigned* cnt = reinterpret_cast<unsigned*>(tc_smem);  // [128][64] pairs
   __nv_bfloat16* a = reinterpret_cast<__nv_bfloat16*>(tc_smem);
   __nv_bfloat16* xsm = reinterpret_cast<__nv_bfloat16*>(tc_smem + kABytes);
   __shared__ int big, over;
   __shared__ unsigned slabs;  // band-and-slab bits of A_b's nonzeros
-  const int fp = padded_feat(feat);
+  const int t0 = kTiled ? blockIdx.y * kMaxFeat : 0;  // the tile's columns
+  const int width = kTiled ? min(kMaxFeat, feat - t0) : feat;
+  const int fp = padded_feat(width);
   const int xs = fp + 8;
   const int tid = threadIdx.x;
   const int warp = tid / 32;
@@ -511,8 +549,9 @@ __global__ void __launch_bounds__(kTcThreads, 3)
     pd[r] = e < e1 ? __ldg(dst + e) : -1;
     ps[r] = e < e1 ? __ldg(src + e) : -1;
   }
-  stage_x<VEC>(x, b, feat, fp, xs, xsm);
-  if constexpr (VEC == 8) asm volatile("cp.async.commit_group;\n" ::: "memory");
+  stage_x<VEC>(x, b, feat, t0, width, fp, xs, xsm);
+  if constexpr (VEC >= 2)
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
 
   // A_b in bf16 by atomic adds of 1 at [d, s] for each in-block edge,
   // exact while no count passes 256: *over is set where one would
@@ -544,7 +583,7 @@ __global__ void __launch_bounds__(kTcThreads, 3)
     bits = __reduce_or_sync(0xffffffffu, bits);
     if (lane == 0 && bits) atomicOr(&slabs, bits);
     if (past) over = 1;
-    if constexpr (VEC == 8) asm volatile("cp.async.wait_all;\n" ::: "memory");
+    if constexpr (VEC >= 2) asm volatile("cp.async.wait_all;\n" ::: "memory");
     __syncthreads();
   };
   // A_b over edges [p0, p1): the counts (one in-block edge adds 1 at
@@ -565,7 +604,7 @@ __global__ void __launch_bounds__(kTcThreads, 3)
     }
     __syncthreads();
     convert_counts(tc_smem, hi, &big, &slabs);
-    if constexpr (VEC == 8) asm volatile("cp.async.wait_all;\n" ::: "memory");
+    if constexpr (VEC >= 2) asm volatile("cp.async.wait_all;\n" ::: "memory");
     __syncthreads();
   };
 
@@ -594,7 +633,7 @@ __global__ void __launch_bounds__(kTcThreads, 3)
         block_products(a, xsm, xs, c0, nc, warp, lane, slabs, acc);
       }
     }
-    if constexpr (VEC == 8) asm volatile("cp.async.wait_all;\n" ::: "memory");
+    if constexpr (VEC >= 2) asm volatile("cp.async.wait_all;\n" ::: "memory");
     __syncthreads();  // every warp is done with this chunk's columns of X_b
     // round once to bf16 and store: the warp's tile goes through X_b's
     // bytes of this chunk's columns (no longer read), then out 16 bytes a
@@ -617,12 +656,12 @@ __global__ void __launch_bounds__(kTcThreads, 3)
     }
     __syncwarp();
     // columns of y in this warp's tile
-    const int ncols = min(kTileCols, min(nc, feat - c0) - n0);
+    const int ncols = min(kTileCols, min(nc, width - c0) - n0);
     __nv_bfloat16* ob =
-        out + (static_cast<int64_t>(row0) + m0) * feat + c0 + n0;
+        out + (static_cast<int64_t>(row0) + m0) * feat + t0 + c0 + n0;
     const __nv_bfloat16* st = xsm + m0 * xs + c0 + n0;
-    if constexpr (VEC == 8) {
-      const int words = ncols / 8;  // of a row of the tile; 32 lanes a step
+    if constexpr (VEC >= 2) {
+      const int words = ncols / VEC;  // of a row of the tile; 32 lanes a step
       if (words > 0) {
         const int rstep = 32 / words;
         const int wstep = 32 % words;
@@ -634,9 +673,9 @@ __global__ void __launch_bounds__(kTcThreads, 3)
             ++r;
             if (r >= 32) break;
           }
-          *reinterpret_cast<uint4*>(ob + static_cast<int64_t>(r) * feat +
-                                    8 * w) =
-              *reinterpret_cast<const uint4*>(st + r * xs + 8 * w);
+          *reinterpret_cast<W*>(ob + static_cast<int64_t>(r) * feat +
+                                VEC * w) =
+              *reinterpret_cast<const W*>(st + r * xs + VEC * w);
         }
       }
     } else {
@@ -649,41 +688,93 @@ __global__ void __launch_bounds__(kTcThreads, 3)
   }
 }
 
-template <class T, int NV>
+// Tiles of columns: gridDim.y.
+inline int col_tiles(int feat) { return (feat + kMaxFeat - 1) / kMaxFeat; }
+
+template <class T, int NV, bool kTiled>
 int launch_walk(const void* x, const void* src, const void* dst,
                 const void* weight, const void* starts, int num_edges,
                 int num_blocks, int feat, void* out, cudaStream_t st) {
-  block_walk<T, NV><<<num_blocks, kWalkThreads, kWalkSmem, st>>>(
+  const dim3 grid(num_blocks, kTiled ? col_tiles(feat) : 1);
+  block_walk<T, NV, kTiled><<<grid, kWalkThreads, kWalkSmem, st>>>(
       static_cast<const T*>(x), static_cast<const int*>(src),
       static_cast<const int*>(dst), static_cast<const float*>(weight),
       static_cast<const int*>(starts), num_edges, feat, static_cast<T*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int VEC>
+template <int VEC, bool kTiled>
 int launch_tc(const void* x, const void* src, const void* dst,
               const void* starts, int num_edges, int num_blocks, int feat,
               void* out, cudaStream_t st) {
   static int done[bignn::kMaxDevices] = {};
-  const int smem = tc_smem_bytes(feat);
-  const cudaError_t err = bignn::allow_smem(block_spmm_tc<VEC>, smem, done,
-                                            cudaSharedmemCarveoutMaxShared);
+  const int smem = tc_smem_bytes(kTiled ? kMaxFeat : feat);
+  const cudaError_t err =
+      bignn::allow_smem(block_spmm_tc<VEC, kTiled>, smem, done,
+                        cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return static_cast<int>(err);
-  block_spmm_tc<VEC><<<num_blocks, kTcThreads, smem, st>>>(
+  const dim3 grid(num_blocks, kTiled ? col_tiles(feat) : 1);
+  block_spmm_tc<VEC, kTiled><<<grid, kTcThreads, smem, st>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const int*>(src),
       static_cast<const int*>(dst), static_cast<const int*>(starts),
       num_edges, feat, static_cast<__nv_bfloat16*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
+// Rows wider than kMaxFeat: tiles of columns, words of nv values, the
+// widest that divides F and on which x and out lie.
+template <class T>
+int tiled(const void* x, const void* src, const void* dst, const void* weight,
+          const void* starts, int num_edges, int num_blocks, int feat,
+          void* out, cudaStream_t st) {
+  const int nv = bignn::word_values<T>(
+      feat, reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(out));
+  if constexpr (sizeof(T) == 2) {
+    if (weight == nullptr) {  // the tensor-core product
+      switch (nv) {
+        case 8:
+          return launch_tc<8, true>(x, src, dst, starts, num_edges,
+                                    num_blocks, feat, out, st);
+        case 4:
+          return launch_tc<4, true>(x, src, dst, starts, num_edges,
+                                    num_blocks, feat, out, st);
+        case 2:
+          return launch_tc<2, true>(x, src, dst, starts, num_edges,
+                                    num_blocks, feat, out, st);
+        default:
+          return launch_tc<1, true>(x, src, dst, starts, num_edges,
+                                    num_blocks, feat, out, st);
+      }
+    }
+    if (nv == 8)
+      return launch_walk<T, 8, true>(x, src, dst, weight, starts, num_edges,
+                                     num_blocks, feat, out, st);
+  }
+  switch (nv) {
+    case 4:
+      return launch_walk<T, 4, true>(x, src, dst, weight, starts, num_edges,
+                                     num_blocks, feat, out, st);
+    case 2:
+      return launch_walk<T, 2, true>(x, src, dst, weight, starts, num_edges,
+                                     num_blocks, feat, out, st);
+    default:
+      return launch_walk<T, 1, true>(x, src, dst, weight, starts, num_edges,
+                                     num_blocks, feat, out, st);
+  }
+}
+
 template <class T>
 int block_spmm_rows(const void* x, const void* src, const void* dst,
                     const void* weight, const void* starts, int num_edges,
                     int num_blocks, int feat, void* out, void* stream) {
-  if (num_edges < 0 || num_blocks < 0 || feat < 0 || feat > kMaxFeat)
+  if (num_edges < 0 || num_blocks < 0 || feat < 0 ||
+      col_tiles(feat) > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   if (num_blocks == 0 || feat == 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (feat > kMaxFeat)
+    return tiled<T>(x, src, dst, weight, starts, num_edges, num_blocks, feat,
+                    out, st);
   // 16-byte loads: a block's rows start 128 * F values after x, so they are
   // aligned when x is and F is a multiple of kWide
   constexpr int kWide = 16 / sizeof(T);
@@ -693,24 +784,24 @@ int block_spmm_rows(const void* x, const void* src, const void* dst,
   if constexpr (sizeof(T) == 2) {
     if (weight == nullptr) {  // the tensor-core product
       if (wide)
-        return launch_tc<8>(x, src, dst, starts, num_edges, num_blocks, feat,
-                            out, st);
-      return launch_tc<1>(x, src, dst, starts, num_edges, num_blocks, feat,
-                          out, st);
+        return launch_tc<8, false>(x, src, dst, starts, num_edges, num_blocks,
+                                   feat, out, st);
+      return launch_tc<1, false>(x, src, dst, starts, num_edges, num_blocks,
+                                 feat, out, st);
     }
   }
   if (wide)
-    return launch_walk<T, kWide>(x, src, dst, weight, starts, num_edges,
-                                 num_blocks, feat, out, st);
-  return launch_walk<T, 1>(x, src, dst, weight, starts, num_edges,
-                           num_blocks, feat, out, st);
+    return launch_walk<T, kWide, false>(x, src, dst, weight, starts,
+                                        num_edges, num_blocks, feat, out, st);
+  return launch_walk<T, 1, false>(x, src, dst, weight, starts, num_edges,
+                                  num_blocks, feat, out, st);
 }
 
 }  // namespace
 
 extern "C" {
 
-// x [num_blocks * 128, feat] f32 or bf16 (feat <= 256), src/dst [num_edges]
+// x [num_blocks * 128, feat] f32 or bf16 (any feat), src/dst [num_edges]
 // int32 (dst-sorted, block-local), weight [num_edges] f32 or null, starts
 // [num_blocks + 1] int32 (block b's edges are [starts[b], starts[b+1])), out
 // like x. The backward passes the cotangent as x and the transposed plan.

@@ -17,9 +17,17 @@
 // (chip_smoke.bound_ms, flash_fwd_flops); the inputs are 12 MB (cnt, read
 // from device memory once by the row-max pass and from L2 by the sweep).
 //
-// Design: a block owns kRows = 16 destination rows (one m16 tile) and
-// kHeadsPerBlock heads (grid (N / 16, H / kHeadsPerBlock)); its warps are
-// (head, part): kParts warps share a head's sweep over the sources.
+// Design: a block owns kRows = 16 destination rows (one m16 tile), kHB
+// heads and a strip of kDP features of each (grid (N / 16, H / kHB,
+// strips)); its warps are (head, part): kParts warps share a head's sweep
+// over the sources. kDP is head_dim rounded up to 32, 64, 128 or 256, and
+// kHB is tied to it (4 at 32 and 64, 2 at 128, 1 at 256), so that a
+// stage's v rows and the parts' sums of p v take the same shared memory at
+// every width (the sums would take 256 KB at 4 heads of 256, above the
+// 227 KB a block may have). A head_dim above 256 is swept in strips of 256
+// features, one a block (blockIdx.z): the row max, p and l depend on no
+// feature, so every strip's block computes them with the same bits, and
+// the first strip's block writes lse.
 //   row max: m from one read of the block's cnt rows for all its heads.
 //     fl(sl + x) is monotone in x, and LeakyReLU is monotone (slope >= 0)
 //     or V-shaped (slope < 0), so over the sources s with cnt[d, s] > 0
@@ -53,7 +61,9 @@
 // the mask and p v on CUDA cores from shared memory, 0.2038): 14x the
 // bound. scripts/probe_variants.py (kind fgf) chose 16 rows and 4 heads a
 // block, 4 parts, 2 k-steps a stage and 3 buffers (0.0733): 2 buffers
-// 0.0776, one head a block 0.0775.
+// 0.0776, one head a block 0.0775. Wide: N 1,704, H 4, D 256 (one head a
+// block, chip_smoke.py path O, queued behind a sleep) 0.3466, 9.4x its
+// bound of 0.0367.
 
 #include <cuda_runtime.h>
 
@@ -67,15 +77,15 @@
 namespace {
 
 constexpr int kRows = 16;          // destination rows a block owns
-constexpr int kHeadsPerBlock = 4;  // heads a block owns
+constexpr int kHeadsPerBlock = 4;  // heads a block owns at kDP 32 and 64
 constexpr int kParts = 4;          // warps that share a head's sweep
 constexpr int kSteps = 2;          // k-steps of 8 sources a warp takes a
-                                   // stage at head_dim 32 (half at 64)
+                                   // stage at 128 staged features (half
+                                   // at 256)
 constexpr int kBuffers = 3;        // stages in shared memory (copies ahead)
 constexpr int kMinBlocks = 1;      // blocks an SM holds (launch bounds)
 constexpr int kMaxInFlight = 4;    // 16-byte cnt loads a lane has in flight
-constexpr int kThreads = kHeadsPerBlock * kParts * 32;
-constexpr int kMaxHeadDim = 64;
+constexpr int kMaxStrip = 256;     // features a block owns at most
 constexpr float kNeg = -1e30f;
 constexpr float kFloor = 1e-30f;
 
@@ -99,37 +109,51 @@ __device__ __forceinline__ float warp_min(float v) {
   return v;
 }
 
-// kDP: head_dim rounded up to 32 or 64.
+// The heads a block owns at kDP features a head: 4 up to 64, then as many
+// as fill 256 staged features.
+constexpr int heads_per_block(int dp) {
+  return dp <= 64 ? kHeadsPerBlock : kMaxStrip / dp;
+}
+
+// kDP: head_dim rounded up to 32, 64, 128 or 256 (the strip's width above
+// 256); kHB = heads_per_block(kDP).
 template <int kDP>
 struct Smem {
-  // k-steps a warp takes a stage: the same bytes of v a stage at either kDP
-  static constexpr int kWarpSteps = kDP == 32 || kSteps == 1 ? kSteps
-                                                             : kSteps / 2;
+  static constexpr int kHB = heads_per_block(kDP);
+  static constexpr int kThreads = kHB * kParts * 32;
+  static constexpr int kCols = kHB * kDP;  // features staged a source
+  // k-steps a warp takes a stage: the same bytes of v a stage at every kDP
+  static constexpr int kWarpSteps = kCols <= 128 || kSteps == 1
+                                        ? kSteps
+                                        : kSteps * 128 / kCols;
   static constexpr int kStage = kParts * kWarpSteps * 8;  // sources a stage
   static constexpr int kCntRow = kStage + 4;  // 4 mod 32: conflict-free
   // floats a staged v row: 8 mod 32, so that a B fragment's 4 source rows
   // and 8 features fall in 32 banks
-  static constexpr int kVRow = kHeadsPerBlock * kDP + 8;
+  static constexpr int kVRow = kCols + 8;
   // the parts' sums of p v, once the stages are used
-  static constexpr int kRed = kParts * kHeadsPerBlock * kRows * kDP;
+  static constexpr int kRed = kParts * kHB * kRows * kDP;
   union {
     float v[kBuffers][kStage][kVRow];
     float red[kRed];
   };
   float cnt[kBuffers][kRows][kCntRow];
-  float sr[kBuffers][kStage][kHeadsPerBlock];
-  float m[kRows][kHeadsPerBlock];
-  float sl[kRows][kHeadsPerBlock];
+  float sr[kBuffers][kStage][kHB];
+  float m[kRows][kHB];
+  float sl[kRows][kHB];
 };
 
 // Stage s0 + [0, kStage) of the sources into buffer buf: the block's cnt
-// rows, score_r and v rows of its heads; zeros past n, the heads and
-// head_dim (p is 0 there, and 0 times a zero row adds nothing).
+// rows, score_r and features c0 + [0, kDP) of the v rows of its heads;
+// zeros past n, the heads and head_dim (p is 0 there, and 0 times a zero
+// row adds nothing).
 template <int kDP>
 __device__ __forceinline__ void stage(Smem<kDP>& sm, int buf, int s0, int d0,
-                                      int h0, const Inputs& in, bool vec_v,
-                                      bool vec_cnt) {
+                                      int h0, int c0, const Inputs& in,
+                                      bool vec_v, bool vec_cnt) {
   constexpr int kStage = Smem<kDP>::kStage;
+  constexpr int kHB = Smem<kDP>::kHB;
+  constexpr int kThreads = Smem<kDP>::kThreads;
   const int n = in.n;
   if (vec_cnt) {  // n % 4 == 0: a quad of sources is in or out whole
     constexpr int kQuads = kStage / 4;
@@ -151,8 +175,8 @@ __device__ __forceinline__ void stage(Smem<kDP>& sm, int buf, int s0, int d0,
           ok);
     }
   }
-  for (int i = threadIdx.x; i < kStage * kHeadsPerBlock; i += kThreads) {
-    const int j = i / kHeadsPerBlock, hb = i % kHeadsPerBlock;
+  for (int i = threadIdx.x; i < kStage * kHB; i += kThreads) {
+    const int j = i / kHB, hb = i % kHB;
     const bool ok = s0 + j < n && h0 + hb < in.heads;
     bignn::cp_async4(&sm.sr[buf][j][hb],
                      ok ? in.score_r + (s0 + j) * in.heads + h0 + hb
@@ -161,10 +185,10 @@ __device__ __forceinline__ void stage(Smem<kDP>& sm, int buf, int s0, int d0,
   }
   const int64_t cols = static_cast<int64_t>(in.heads) * in.head_dim;
   if (vec_v) {  // head_dim % 4 == 0: a quad of features is in or out whole
-    constexpr int kQuads = kHeadsPerBlock * kDP / 4;
+    constexpr int kQuads = kHB * kDP / 4;
     for (int i = threadIdx.x; i < kStage * kQuads; i += kThreads) {
       const int j = i / kQuads, q = 4 * (i % kQuads);
-      const int hb = q / kDP, c = q % kDP;
+      const int hb = q / kDP, c = c0 + q % kDP;
       const bool ok = s0 + j < n && h0 + hb < in.heads && c < in.head_dim;
       bignn::cp_async16(&sm.v[buf][j][q],
                         ok ? in.v + (s0 + j) * cols + (h0 + hb) * in.head_dim
@@ -173,10 +197,10 @@ __device__ __forceinline__ void stage(Smem<kDP>& sm, int buf, int s0, int d0,
                         ok);
     }
   } else {
-    constexpr int kCols = kHeadsPerBlock * kDP;
+    constexpr int kCols = kHB * kDP;
     for (int i = threadIdx.x; i < kStage * kCols; i += kThreads) {
       const int j = i / kCols, q = i % kCols;
-      const int hb = q / kDP, c = q % kDP;
+      const int hb = q / kDP, c = c0 + q % kDP;
       const bool ok = s0 + j < n && h0 + hb < in.heads && c < in.head_dim;
       bignn::cp_async4(&sm.v[buf][j][q],
                        ok ? in.v + (s0 + j) * cols + (h0 + hb) * in.head_dim
@@ -188,14 +212,14 @@ __device__ __forceinline__ void stage(Smem<kDP>& sm, int buf, int s0, int d0,
 }
 
 // Source s, whose cnt is w, into the masked max and min of score_r for the
-// block's heads.
+// block's kHB heads.
+template <int kHB>
 __device__ __forceinline__ void take_bounds(float w, int s, const Inputs& in,
-                                            int h0,
-                                            float (&mx)[kHeadsPerBlock],
-                                            float (&mn)[kHeadsPerBlock]) {
+                                            int h0, float (&mx)[kHB],
+                                            float (&mn)[kHB]) {
   if (w > 0.f) {
 #pragma unroll
-    for (int hb = 0; hb < kHeadsPerBlock; ++hb) {
+    for (int hb = 0; hb < kHB; ++hb) {
       if (h0 + hb < in.heads) {
         const float x = __ldg(in.score_r + s * in.heads + h0 + hb);
         mx[hb] = fmaxf(mx[hb], x);
@@ -206,14 +230,15 @@ __device__ __forceinline__ void take_bounds(float w, int s, const Inputs& in,
 }
 
 template <int kDP>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
+__global__ void __launch_bounds__(Smem<kDP>::kThreads, kMinBlocks)
     flash_gat_fwd(Inputs in, bool vec_v, bool vec_cnt,
                   float* __restrict__ out,   // [n, heads, head_dim]
                   float* __restrict__ lse) {  // [n, heads]
   using S = Smem<kDP>;
+  constexpr int kHB = S::kHB;
+  constexpr int kThreads = S::kThreads;
   static_assert(kBuffers >= 2, "a stage in flight while one is used");
-  static_assert(kBuffers * kRows * S::kCntRow >=
-                    kParts * kHeadsPerBlock * kRows,
+  static_assert(kBuffers * kRows * S::kCntRow >= kParts * kHB * kRows,
                 "the parts' sums of p fit the cnt buffers");
   constexpr int kTiles = kDP / 8;  // n8 tiles of the head's features
   extern __shared__ uint4 smem_raw[];
@@ -222,14 +247,16 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   const int gid = lane / 4, tig = lane % 4;
   const int hh = warp / kParts, part = warp % kParts;
   const int n = in.n, heads = in.heads;
-  const int d0 = blockIdx.x * kRows, h0 = blockIdx.y * kHeadsPerBlock;
+  const int d0 = blockIdx.x * kRows, h0 = blockIdx.y * kHB;
+  // the strip's first feature (a head is one strip up to kDP 64: 0)
+  const int c0 = kDP > 64 ? static_cast<int>(blockIdx.z) * kDP : 0;
   const int stages = (n + S::kStage - 1) / S::kStage;
 
   // the first stages' copies fly while the row max is taken
 #pragma unroll
   for (int b = 0; b < kBuffers - 1; ++b) {
     if (b < stages) {
-      stage<kDP>(sm, b, b * S::kStage, d0, h0, in, vec_v, vec_cnt);
+      stage<kDP>(sm, b, b * S::kStage, d0, h0, c0, in, vec_v, vec_cnt);
     }
     bignn::cp_async_commit();
   }
@@ -237,9 +264,9 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   // the row max: the masked max and min of score_r over each row's sources
   for (int r = warp; r < kRows; r += kThreads / 32) {
     const int d = d0 + r;
-    float mx[kHeadsPerBlock], mn[kHeadsPerBlock];
+    float mx[kHB], mn[kHB];
 #pragma unroll
-    for (int hb = 0; hb < kHeadsPerBlock; ++hb) {
+    for (int hb = 0; hb < kHB; ++hb) {
       mx[hb] = -INFINITY;
       mn[hb] = INFINITY;
     }
@@ -278,13 +305,13 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
       }
     }
 #pragma unroll
-    for (int hb = 0; hb < kHeadsPerBlock; ++hb) {
+    for (int hb = 0; hb < kHB; ++hb) {
       mx[hb] = bignn::warp_max(mx[hb]);
       mn[hb] = warp_min(mn[hb]);
     }
     if (lane == 0) {
 #pragma unroll
-      for (int hb = 0; hb < kHeadsPerBlock; ++hb) {
+      for (int hb = 0; hb < kHB; ++hb) {
         const bool ok = d < n && h0 + hb < heads;
         const float sl = ok ? in.score_l[d * heads + h0 + hb] : 0.f;
         float m = kNeg;  // no edges: the plain version's clamp to NEG
@@ -319,7 +346,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     __syncthreads();  // ... for every thread, and the last stage is used
     if (st + kBuffers - 1 < stages) {
       stage<kDP>(sm, (st + kBuffers - 1) % kBuffers,
-                 (st + kBuffers - 1) * S::kStage, d0, h0, in, vec_v, vec_cnt);
+                 (st + kBuffers - 1) * S::kStage, d0, h0, c0, in, vec_v,
+                 vec_cnt);
     }
     bignn::cp_async_commit();
 #pragma unroll
@@ -358,9 +386,9 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 
   // the parts' sums: l over a row's 4 lanes, then each part's l and p v to
   // shared memory (the staging buffers), added in part order
-  float* lred = &sm.cnt[0][0][0];  // [kParts][kHeadsPerBlock][kRows]
-  float* red = sm.red;             // [kParts][kHeadsPerBlock][kRows][kDP]
-  const int slot = part * kHeadsPerBlock + hh;
+  float* lred = &sm.cnt[0][0][0];  // [kParts][kHB][kRows]
+  float* red = sm.red;             // [kParts][kHB][kRows][kDP]
+  const int slot = part * kHB + hh;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     float x = l[i];
@@ -376,19 +404,19 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
       red[(slot * kRows + row) * kDP + col] = acc[t][r];
     }
   __syncthreads();
-  for (int i = tid; i < kHeadsPerBlock * kRows * kDP; i += kThreads) {
+  for (int i = tid; i < kHB * kRows * kDP; i += kThreads) {
     const int hb = i / (kRows * kDP), row = (i / kDP) % kRows, col = i % kDP;
     const int d = d0 + row, h = h0 + hb;
-    if (d >= n || h >= heads || col >= in.head_dim) continue;
+    if (d >= n || h >= heads || c0 + col >= in.head_dim) continue;
     float a = 0.f, s = 0.f;
     for (int q = 0; q < kParts; ++q) {
-      const int at = (q * kHeadsPerBlock + hb) * kRows + row;
+      const int at = (q * kHB + hb) * kRows + row;
       a += red[at * kDP + col];
       s += lred[at];
     }
-    out[(static_cast<int64_t>(d) * heads + h) * in.head_dim + col] =
+    out[(static_cast<int64_t>(d) * heads + h) * in.head_dim + c0 + col] =
         a / fmaxf(s, kFloor);
-    if (col == 0) {
+    if (c0 + col == 0) {
       lse[d * heads + h] = s > 0.f ? sm.m[row][hb] + logf(fmaxf(s, kFloor))
                                    : kNeg;
     }
@@ -398,14 +426,15 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 template <int kDP>
 cudaError_t launch(const Inputs& in, bool vec_v, bool vec_cnt, float* out,
                    float* lse, cudaStream_t st) {
-  constexpr int kBytes = sizeof(Smem<kDP>);
+  using S = Smem<kDP>;
+  constexpr int kBytes = sizeof(S);
   static int done[bignn::kMaxDevices] = {};
   const cudaError_t set = bignn::allow_smem(flash_gat_fwd<kDP>, kBytes, done);
   if (set != cudaSuccess) return set;
-  const dim3 grid(bignn::cdiv(in.n, kRows),
-                  bignn::cdiv(in.heads, kHeadsPerBlock));
-  flash_gat_fwd<kDP><<<grid, kThreads, kBytes, st>>>(in, vec_v, vec_cnt, out,
-                                                     lse);
+  const dim3 grid(bignn::cdiv(in.n, kRows), bignn::cdiv(in.heads, S::kHB),
+                  bignn::cdiv(in.head_dim, kDP));
+  flash_gat_fwd<kDP><<<grid, S::kThreads, kBytes, st>>>(in, vec_v, vec_cnt,
+                                                        out, lse);
   return cudaGetLastError();
 }
 
@@ -414,14 +443,14 @@ cudaError_t launch(const Inputs& in, bool vec_v, bool vec_cnt, float* out,
 extern "C" {
 
 // score_l/score_r [n, heads] f32, v [n, heads, head_dim] f32, cnt [n, n] f32;
-// out [n, heads, head_dim] f32, lse [n, heads] f32; head_dim <= 64
-// (bignn_tpu_torch/ops/flash_gat.py checks it). Returns cudaGetLastError().
+// out [n, heads, head_dim] f32, lse [n, heads] f32; any head_dim >= 1.
+// Returns cudaGetLastError().
 int bignn_flash_gat_fwd_f32(const void* score_l, const void* score_r,
                             const void* v, const void* cnt, int n, int heads,
                             int head_dim, float slope, void* out, void* lse,
                             void* stream) {
   if (n <= 0) return static_cast<int>(cudaGetLastError());
-  if (heads <= 0 || head_dim <= 0 || head_dim > kMaxHeadDim) {
+  if (heads <= 0 || head_dim <= 0 || heads > 65535) {  // grid's y axis
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Inputs in{static_cast<const float*>(score_l),
@@ -437,8 +466,10 @@ int bignn_flash_gat_fwd_f32(const void* score_l, const void* score_r,
   float* o = static_cast<float*>(out);
   float* l = static_cast<float*>(lse);
   const cudaError_t err =
-      head_dim <= 32 ? launch<32>(in, vec_v, vec_cnt, o, l, st)
-                     : launch<64>(in, vec_v, vec_cnt, o, l, st);
+      head_dim <= 32    ? launch<32>(in, vec_v, vec_cnt, o, l, st)
+      : head_dim <= 64  ? launch<64>(in, vec_v, vec_cnt, o, l, st)
+      : head_dim <= 128 ? launch<128>(in, vec_v, vec_cnt, o, l, st)
+                        : launch<256>(in, vec_v, vec_cnt, o, l, st);
   return static_cast<int>(err);
 }
 

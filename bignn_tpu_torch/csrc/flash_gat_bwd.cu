@@ -51,6 +51,25 @@
 // The wrapper allocates the scratch (bignn_flash_gat_bwd_scratch_f32 says
 // how much).
 //
+// Wider heads (head_dim above 64) take flash_gat_bwd_wide, the same tiles,
+// pairs, fragments and sums with two changes, so that a block's shared
+// memory stays under the 227 KB it may have:
+//   - v and alpha^T are staged as they are and split into TF32 halves as
+//     their fragments are loaded (kDP 128: 119 KB, kDP 256: 218 KB, where
+//     split once they would take 170 and 302 KB), one block an SM.
+//   - Above 256 features a head is cut into strips of 256 (blockIdx.z
+//     holds the strip beside the part of the sweep). The dot g . v needs
+//     every feature, so each chunk stages the strips of its g rows and of
+//     the tile's v rows in turn and adds their k-steps into the same
+//     accumulators, strip 0 first: the dot is whole, summed over the
+//     features in order, before alpha and d_z use it. Then the block
+//     stages its own strip of g for dv += alpha^T g. The first strip's
+//     blocks write dsl and dsr; the others compute the same values and
+//     write only their strip of dv. No float atomics here either.
+//   Measured (same card; chip_smoke.py path O, queued behind a sleep): N
+//   1,704, H 4, D 256 0.5350 ms, 7.3x its bound of 0.0731 (255 registers,
+//   64 bytes spilled).
+//
 // Measured (NVIDIA H100 80GB HBM3, 700.00 W; device ms of a call from
 // scripts/compare_kernel_trees.py): N 1,704, H 4, D 32 (config2) 0.091 (the
 // port's first pair of kernels, which read both operands of every FMA from
@@ -84,7 +103,8 @@ using bignn::split_tf32;
 
 constexpr int kTile = 64;      // sources a block owns; destinations a chunk
 constexpr int kThreads = 256;  // 8 warps
-constexpr int kMaxHeadDim = 64;
+constexpr int kMaxHeadDim = 64;  // flash_gat_bwd_tiles; wider: _wide
+constexpr int kMaxStrip = 256;   // features of a head a wide block owns
 constexpr int kBlocksPerSm = 2;  // blocks an SM holds (launch bounds)
 constexpr int kMaxSplits = 16;   // parts of the sweep, at most (scratch)
 constexpr int kAlphaRow = kTile + 4;  // floats a row of alpha^T
@@ -104,30 +124,33 @@ struct Inputs {
 
 // rows [r0, r0 + kTile) of x[:, h, :] into tile (zero past n and head_dim),
 // by cp.async: 16 bytes a copy where vec, else 4
+// (features c0 + [0, kDP) of the head: a strip of a wide head)
 template <int kDP>
 __device__ __forceinline__ void stage(float (*tile)[kDP + 4],
                                       const float* __restrict__ x, int r0,
-                                      const Inputs& in, int h, bool vec) {
+                                      const Inputs& in, int h, bool vec,
+                                      int c0 = 0) {
   const int64_t cols = static_cast<int64_t>(in.heads) * in.head_dim;
+  const float* xh = x + h * in.head_dim + c0;
+  const int width = in.head_dim - c0;
   if (vec) {
     constexpr int kQuads = kDP / 4;
     for (int i = threadIdx.x; i < kTile * kQuads; i += kThreads) {
       const int r = i / kQuads, c = 4 * (i % kQuads);
-      const bool ok = r0 + r < in.n && c < in.head_dim;
-      cp_async16(&tile[r][c],
-                 ok ? x + (r0 + r) * cols + h * in.head_dim + c : x, ok);
+      const bool ok = r0 + r < in.n && c < width;
+      cp_async16(&tile[r][c], ok ? xh + (r0 + r) * cols + c : x, ok);
     }
   } else {
     for (int i = threadIdx.x; i < kTile * kDP; i += kThreads) {
       const int r = i / kDP, c = i % kDP;
-      const bool ok = r0 + r < in.n && c < in.head_dim;
-      cp_async4(&tile[r][c],
-                ok ? x + (r0 + r) * cols + h * in.head_dim + c : x, ok);
+      const bool ok = r0 + r < in.n && c < width;
+      cp_async4(&tile[r][c], ok ? xh + (r0 + r) * cols + c : x, ok);
     }
   }
 }
 
-// kDP: head_dim rounded up to 32 or 64; staged rows are zero past head_dim.
+// kDP: head_dim rounded up to 32 or 64 (flash_gat_bwd_tiles; WideSmem: 128
+// or 256); staged rows are zero past head_dim.
 template <int kDP>
 struct Smem {
   static constexpr int kRow = kDP + 4;  // floats a staged row
@@ -340,6 +363,214 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
     }
 }
 
+// Shared memory of the wide form: v and alpha^T as staged, split into TF32
+// halves as their fragments load.
+template <int kDP>
+struct WideSmem {
+  static constexpr int kRow = kDP + 4;
+  float v[kTile][kRow];             // the block's sources (a strip of them)
+  float g[2][kTile][kRow];          // a chunk's destinations, 2 buffers
+  float alpha[kTile][kAlphaRow];    // the chunk's alpha, [s][d]
+  float dsl_red[2][kTile];          // dsl of the two source halves
+};
+
+// dot += g v^T over kDP features (the warp's four m16n8 tiles, as
+// flash_gat_bwd_tiles), both operands split as they load.
+template <int kDP>
+__device__ __forceinline__ void wide_dot(const float (*gs)[kDP + 4],
+                                         const float (*vs)[kDP + 4], int dr,
+                                         int sc, int gid, int tig,
+                                         float (&dot)[4][4]) {
+#pragma unroll 4
+  for (int k = 0; k < kDP; k += 8) {
+    uint32_t a_hi[4], a_lo[4];
+    split_tf32(gs[dr + gid][k + tig], a_hi[0], a_lo[0]);
+    split_tf32(gs[dr + gid + 8][k + tig], a_hi[1], a_lo[1]);
+    split_tf32(gs[dr + gid][k + tig + 4], a_hi[2], a_lo[2]);
+    split_tf32(gs[dr + gid + 8][k + tig + 4], a_hi[3], a_lo[3]);
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const int s = sc + 8 * t + gid;
+      uint32_t b_hi[2], b_lo[2];
+      split_tf32(vs[s][k + tig], b_hi[0], b_lo[0]);
+      split_tf32(vs[s][k + tig + 4], b_hi[1], b_lo[1]);
+      mma_3xtf32(dot[t], a_hi, a_lo, b_hi, b_lo);
+    }
+  }
+}
+
+// flash_gat_bwd_tiles for head_dim above 64: kDP 128 or 256 (strips of
+// 256 above that); blockIdx.z = strip * splits + part. Same pairs, warps
+// and sums; dv of the block's strip of features.
+template <int kDP>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_gat_bwd_wide(Inputs in, bool vec, int splits, int strips,
+                       float* __restrict__ dsl_part,
+                       float* __restrict__ dsr_out,
+                       float* __restrict__ dv_out) {
+  constexpr int kFeatTiles = kDP / 16;  // n8 tiles of dv a warp owns
+  using S = WideSmem<kDP>;
+  extern __shared__ uint4 smem_raw[];
+  S& sm = *reinterpret_cast<S*>(smem_raw);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gid = lane / 4, tig = lane % 4;
+  const int tile = blockIdx.x, h = blockIdx.y;
+  const int part = blockIdx.z % splits, strip = blockIdx.z / splits;
+  const int n = in.n, heads = in.heads;
+  const int s0 = tile * kTile, c_own = strip * kDP;
+  const bool whole = strips == 1;  // the head in one strip: g prefetched
+  const int chunks = (n + kTile - 1) / kTile;
+  const int c_begin = static_cast<int64_t>(part) * chunks / splits;
+  const int c_end = static_cast<int64_t>(part + 1) * chunks / splits;
+  const int dr = 16 * (warp % 4), sc = 32 * (warp / 4);  // g v^T
+  const int ms = 16 * (warp % 4), fn = (warp / 4) * (kDP / 2);  // alpha^T g
+
+  if (whole) {
+    stage<kDP>(sm.v, in.v, s0, in, h, vec);
+    stage<kDP>(sm.g[0], in.g, c_begin * kTile, in, h, vec);
+  }
+  cp_async_commit();
+
+  float sr[8], dsr_acc[8], dv_acc[kFeatTiles][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int s = s0 + sc + 8 * (j / 2) + 2 * tig + j % 2;
+    sr[j] = s < n ? in.score_r[s * heads + h] : 0.f;
+    dsr_acc[j] = 0.f;
+  }
+#pragma unroll
+  for (int t = 0; t < kFeatTiles; ++t)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) dv_acc[t][r] = 0.f;
+
+  for (int c = c_begin; c < c_end; ++c) {
+    const int buf = whole ? (c - c_begin) & 1 : 0;
+    const int d0 = c * kTile;
+    if (whole && c + 1 < c_end) {
+      stage<kDP>(sm.g[buf ^ 1], in.g, d0 + kTile, in, h, vec);
+    }
+    cp_async_commit();
+    float sl[2], lse[2], delta[2], cnt[2][8];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int d = d0 + dr + gid + 8 * i;
+      const bool ok = d < n;
+      sl[i] = ok ? in.score_l[d * heads + h] : 0.f;
+      lse[i] = ok ? in.lse[d * heads + h] : kNeg;
+      delta[i] = ok ? in.delta[d * heads + h] : 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int s = s0 + sc + 8 * (j / 2) + 2 * tig + j % 2;
+        cnt[i][j] = ok && s < n
+            ? __ldg(in.cnt + static_cast<int64_t>(d) * n + s) : 0.f;
+      }
+    }
+    float dot[4][4];
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) dot[t][r] = 0.f;
+    if (whole) {
+      cp_async_wait<1>();  // this chunk's g rows (and the tile's v) are in
+      __syncthreads();
+      wide_dot<kDP>(sm.g[buf], sm.v, dr, sc, gid, tig, dot);
+    } else {
+      // the dot over every strip in order, then this block's strip of g
+      for (int q = 0; q < strips; ++q) {
+        stage<kDP>(sm.v, in.v, s0, in, h, vec, q * kDP);
+        stage<kDP>(sm.g[0], in.g, d0, in, h, vec, q * kDP);
+        cp_async_commit();
+        cp_async_wait<0>();
+        __syncthreads();
+        wide_dot<kDP>(sm.g[0], sm.v, dr, sc, gid, tig, dot);
+        __syncthreads();  // g[0] and v are free
+      }
+      stage<kDP>(sm.g[0], in.g, d0, in, h, vec, c_own);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+    }
+
+    float row[2] = {0.f, 0.f};
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int i = r / 2, j = 2 * t + r % 2;
+        const float z = sl[i] + sr[j];
+        const float e = cnt[i][j] > 0.f ? (z > 0.f ? z : in.slope * z) : kNeg;
+        const float a = cnt[i][j] * expf(fminf(e - lse[i], 0.f));
+        const float de = a * (dot[t][r] - delta[i]);
+        const float dz = z > 0.f ? de : in.slope * de;
+        sm.alpha[sc + 8 * t + 2 * tig + r % 2][dr + gid + 8 * i] = a;
+        row[i] += dz;
+        dsr_acc[j] += dz;
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float x = row[i];
+      x += __shfl_xor_sync(0xffffffffu, x, 1);
+      x += __shfl_xor_sync(0xffffffffu, x, 2);
+      if (tig == 0) sm.dsl_red[warp / 4][dr + gid + 8 * i] = x;
+    }
+    __syncthreads();  // alpha^T and the dsl halves are complete
+    if (strip == 0 && tid < kTile && d0 + tid < n) {
+      dsl_part[(static_cast<int64_t>(tile) * n + d0 + tid) * heads + h] =
+          sm.dsl_red[0][tid] + sm.dsl_red[1][tid];
+    }
+
+    // dv += alpha^T g over the block's strip of features
+    const float (*gs)[S::kRow] = sm.g[buf];
+#pragma unroll 2
+    for (int k = 0; k < kTile; k += 8) {
+      uint32_t a_hi[4], a_lo[4];
+      split_tf32(sm.alpha[ms + gid][k + tig], a_hi[0], a_lo[0]);
+      split_tf32(sm.alpha[ms + gid + 8][k + tig], a_hi[1], a_lo[1]);
+      split_tf32(sm.alpha[ms + gid][k + tig + 4], a_hi[2], a_lo[2]);
+      split_tf32(sm.alpha[ms + gid + 8][k + tig + 4], a_hi[3], a_lo[3]);
+#pragma unroll
+      for (int t = 0; t < kFeatTiles; ++t) {
+        const int f = fn + 8 * t + gid;
+        uint32_t b_hi[2], b_lo[2];
+        split_tf32(gs[k + tig][f], b_hi[0], b_lo[0]);
+        split_tf32(gs[k + tig + 4][f], b_hi[1], b_lo[1]);
+        mma_3xtf32(dv_acc[t], a_hi, a_lo, b_hi, b_lo);
+      }
+    }
+    __syncthreads();  // the buffer and alpha^T are free for the next chunk
+  }
+  cp_async_wait<0>();
+
+  float* red = &sm.alpha[0][0];  // [4][kTile]
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    float x = dsr_acc[j];
+    x += __shfl_xor_sync(0xffffffffu, x, 4);
+    x += __shfl_xor_sync(0xffffffffu, x, 8);
+    x += __shfl_xor_sync(0xffffffffu, x, 16);
+    if (gid == 0)
+      red[(warp % 4) * kTile + sc + 8 * (j / 2) + 2 * tig + j % 2] = x;
+  }
+  __syncthreads();
+  const int64_t nh = static_cast<int64_t>(n) * heads;
+  if (strip == 0 && tid < kTile && s0 + tid < n) {
+    float sum = 0.f;
+    for (int q = 0; q < 4; ++q) sum += red[q * kTile + tid];
+    dsr_out[part * nh + (s0 + tid) * heads + h] = sum;
+  }
+  float* dv_p = dv_out + part * nh * in.head_dim;
+#pragma unroll
+  for (int t = 0; t < kFeatTiles; ++t)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int s = s0 + ms + gid + 8 * (r / 2);
+      const int f = c_own + fn + 8 * t + 2 * tig + r % 2;
+      if (s < n && f < in.head_dim)
+        dv_p[(static_cast<int64_t>(s) * heads + h) * in.head_dim + f] =
+            dv_acc[t][r];
+    }
+}
+
 // dsl = sum of the source tiles' partials; with splits > 1, dsr and dv =
 // sum of the parts' partials; each in index order.
 __global__ void flash_gat_bwd_reduce(
@@ -371,11 +602,17 @@ __global__ void flash_gat_bwd_reduce(
 
 int cdiv(int a, int b) { return (a + b - 1) / b; }
 
+// Strips of a head of head_dim features: 1 up to 256, else strips of 256.
+int strips_of(int head_dim) {
+  return head_dim <= kMaxStrip ? 1 : cdiv(head_dim, kMaxStrip);
+}
+
 // Parts of the destination sweep: the count, up to kMaxSplits and one
 // chunk a part, whose busiest SM has the fewest chunks to do, blocks dealt
 // out in turn (ties: fewer parts, less scratch). N 1,704, H 4 on 132 SMs:
 // 108 tiles x 27 chunks; 7 parts give 6 blocks of 4 chunks on the busiest
-// SM (24 chunks; 22.1 on average), 1 part 27.
+// SM (24 chunks; 22.1 on average), 1 part 27. `heads` counts a wide head's
+// strips.
 int sweep_splits(int n, int heads) {
   int dev = 0, sms = 132;
   if (cudaGetDevice(&dev) == cudaSuccess) {
@@ -415,6 +652,21 @@ cudaError_t launch_tiles(const Inputs& in, bool vec, int splits,
   return cudaGetLastError();
 }
 
+template <int kDP>
+cudaError_t launch_wide(const Inputs& in, bool vec, int splits, int strips,
+                        float* dsl_part, float* dsr_out, float* dv_out,
+                        cudaStream_t st) {
+  constexpr int kBytes = sizeof(WideSmem<kDP>);
+  static int done[bignn::kMaxDevices] = {};
+  const cudaError_t set =
+      bignn::allow_smem(flash_gat_bwd_wide<kDP>, kBytes, done);
+  if (set != cudaSuccess) return set;
+  const dim3 grid(cdiv(in.n, kTile), in.heads, splits * strips);
+  flash_gat_bwd_wide<kDP><<<grid, kThreads, kBytes, st>>>(
+      in, vec, splits, strips, dsl_part, dsr_out, dv_out);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -425,14 +677,16 @@ int bignn_flash_gat_bwd_scratch_f32(int n, int heads, int head_dim,
                                     void* floats, void* stream) {
   (void)stream;
   *static_cast<int64_t*>(floats) =
-      n > 0 && heads > 0
-          ? scratch_floats(n, heads, head_dim, sweep_splits(n, heads)) : 0;
+      n > 0 && heads > 0 && head_dim > 0
+          ? scratch_floats(n, heads, head_dim,
+                           sweep_splits(n, heads * strips_of(head_dim)))
+          : 0;
   return static_cast<int>(cudaSuccess);
 }
 
 // score_l/score_r/lse/delta [n, heads] f32, v/g [n, heads, head_dim] f32,
 // cnt [n, n] f32; dsl/dsr [n, heads] f32, dv [n, heads, head_dim] f32;
-// head_dim <= 64 (bignn_tpu_torch/ops/flash_gat.py checks it); scratch
+// any head_dim >= 1 (heads <= 65535); scratch
 // [scratch_floats] f32, as bignn_flash_gat_bwd_scratch_f32 sizes it.
 // Launches the tile kernel and the reduction on the stream; returns
 // cudaGetLastError().
@@ -443,10 +697,11 @@ int bignn_flash_gat_bwd_f32(const void* score_l, const void* score_r,
                             void* dsr, void* dv, void* scratch,
                             long long scratch_size, void* stream) {
   if (n <= 0) return static_cast<int>(cudaGetLastError());
-  if (heads <= 0 || head_dim <= 0 || head_dim > kMaxHeadDim) {
+  if (heads <= 0 || heads > 65535 || head_dim <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int splits = sweep_splits(n, heads);
+  const int strips = strips_of(head_dim);
+  const int splits = sweep_splits(n, heads * strips);
   if (scratch_size < scratch_floats(n, heads, head_dim, splits)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -473,7 +728,13 @@ int bignn_flash_gat_bwd_f32(const void* score_l, const void* score_r,
   const cudaError_t err =
       head_dim <= 32
           ? launch_tiles<32>(in, vec, splits, dsl_part, dsr_out, dv_out, st)
-          : launch_tiles<64>(in, vec, splits, dsl_part, dsr_out, dv_out, st);
+      : head_dim <= kMaxHeadDim
+          ? launch_tiles<64>(in, vec, splits, dsl_part, dsr_out, dv_out, st)
+      : head_dim <= 128
+          ? launch_wide<128>(in, vec, splits, strips, dsl_part, dsr_out,
+                             dv_out, st)
+          : launch_wide<256>(in, vec, splits, strips, dsl_part, dsr_out,
+                             dv_out, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int64_t nhd = nh * head_dim;
   const int64_t work = splits > 1 ? nhd : nh;

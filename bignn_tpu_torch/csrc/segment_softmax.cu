@@ -46,6 +46,13 @@
 // 2 bytes): the widest that divides H and on which every tensor's base
 // pointer lies (x and alpha; alpha, g and d_x), chosen on the host. A fixed
 // order of the sums and no float atomics: a result repeats bit for bit.
+// More than 8 heads (the kGroups forms): the heads go in groups of 8, one a
+// grid row (blockIdx.y), each walked as above over its columns of the rows;
+// softmax is independent per head, so a head's alpha and d_x have the bits
+// they would have in a row of 8 heads. The words then divide gcd(H, 8).
+// 32 heads in f32 over config4's sampled outer edges (E 59,008; NVIDIA
+// H100 80GB HBM3, 700 W, chip_smoke.py path O, queued behind a sleep):
+// forward 0.0550 ms, backward 0.0222 (bounds 0.0046, 0.0069).
 //
 // What bounds it on the H100: device-memory bytes, each [E, H] tensor once
 // plus the ids (at E = 16.1M, H 4, f32: x and alpha 0.26 GB each, the ids
@@ -101,14 +108,22 @@ constexpr int kBwdRows = 8;  // rows a backward lane holds where not short
 constexpr int kBwdMinBlocks = 3;  // backward blocks an SM holds at least
 constexpr int kZeroRows = 8;  // rows a thread of the backward's zeroing takes
 
+constexpr int kMaxHeads = 8;  // heads a warp walks (a group of them)
+
 // HM: the heads rounded up to a power of two (1 <= heads <= HM <= 8); NV:
-// the values of a row's word; R: the rows a lane holds in registers.
-template <class T, int HM, int NV, int R>
+// the values of a row's word; R: the rows a lane holds in registers;
+// kGroups: heads above 8, walked in groups of 8 (HM 8), group blockIdx.y.
+// `heads` is the row's length; hn the heads of the block's group.
+template <class T, int HM, int NV, int R, bool kGroups>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32,
                                   R == kRows ? kFwdMinBlocks : 1)
     softmax_fwd(const T* __restrict__ x, const int* __restrict__ ids,
                 const int* __restrict__ first, const int* __restrict__ last,
                 int num_segments, int heads, T* __restrict__ alpha) {
+  const int h0 = kGroups ? blockIdx.y * kMaxHeads : 0;
+  const int hn = kGroups ? min(kMaxHeads, heads - h0) : heads;
+  x += h0;
+  alpha += h0;
   const int lane = threadIdx.x % 32;
   const int s = blockIdx.x * kWarpsPerBlock + threadIdx.x / 32;
   if (s >= num_segments) return;
@@ -135,14 +150,14 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32,
 #pragma unroll
       for (int h = 0; h < HM; ++h) z[r][h] = 0.f;
       if (e <= e1)
-        bignn::load_row<HM, NV>(x + static_cast<int64_t>(e) * heads, heads,
+        bignn::load_row<HM, NV>(x + static_cast<int64_t>(e) * heads, hn,
                                 z[r]);
     }
 #pragma unroll
     for (int r = 0; r < R; ++r) {
 #pragma unroll
       for (int h = 0; h < HM; ++h)
-        if (id[r] == s && h < heads) m[h] = fmaxf(m[h], z[r][h]);
+        if (id[r] == s && h < hn) m[h] = fmaxf(m[h], z[r][h]);
     }
 #pragma unroll
     for (int h = 0; h < HM; ++h) {
@@ -153,7 +168,7 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32,
     for (int r = 0; r < R; ++r) {
 #pragma unroll
       for (int h = 0; h < HM; ++h) {
-        if (id[r] == s && h < heads) {
+        if (id[r] == s && h < hn) {
           z[r][h] = expf(z[r][h] - m[h]);
           l[h] += z[r][h];
         }
@@ -168,7 +183,7 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32,
 #pragma unroll
       for (int h = 0; h < HM; ++h) z[r][h] /= l[h];
       bignn::store_row<HM, NV>(
-          alpha + static_cast<int64_t>(e0 + lane + 32 * r) * heads, heads,
+          alpha + static_cast<int64_t>(e0 + lane + 32 * r) * heads, hn,
           z[r]);
     }
     return;
@@ -177,10 +192,10 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32,
   float v[HM];
   for (int e = e0 + lane; e <= e1; e += 32) {
     if (__ldg(ids + e) != s) continue;
-    bignn::load_row<HM, NV>(x + static_cast<int64_t>(e) * heads, heads, v);
+    bignn::load_row<HM, NV>(x + static_cast<int64_t>(e) * heads, hn, v);
 #pragma unroll
     for (int h = 0; h < HM; ++h)
-      if (h < heads) m[h] = fmaxf(m[h], v[h]);
+      if (h < hn) m[h] = fmaxf(m[h], v[h]);
   }
 #pragma unroll
   for (int h = 0; h < HM; ++h) {
@@ -189,10 +204,10 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32,
   }
   for (int e = e0 + lane; e <= e1; e += 32) {
     if (__ldg(ids + e) != s) continue;
-    bignn::load_row<HM, NV>(x + static_cast<int64_t>(e) * heads, heads, v);
+    bignn::load_row<HM, NV>(x + static_cast<int64_t>(e) * heads, hn, v);
 #pragma unroll
     for (int h = 0; h < HM; ++h)
-      if (h < heads) l[h] += expf(v[h] - m[h]);
+      if (h < hn) l[h] += expf(v[h] - m[h]);
   }
 #pragma unroll
   for (int h = 0; h < HM; ++h)
@@ -200,10 +215,10 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32,
   for (int e = e0 + lane; e <= e1; e += 32) {
     if (__ldg(ids + e) != s) continue;
     const int64_t r = static_cast<int64_t>(e) * heads;
-    bignn::load_row<HM, NV>(x + r, heads, v);
+    bignn::load_row<HM, NV>(x + r, hn, v);
 #pragma unroll
     for (int h = 0; h < HM; ++h) v[h] = expf(v[h] - m[h]) / l[h];
-    bignn::store_row<HM, NV>(alpha + r, heads, v);
+    bignn::store_row<HM, NV>(alpha + r, hn, v);
   }
 }
 
@@ -212,12 +227,14 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32,
 // rows e0 + lane + 32 r in order, then the warp by warp_sum; the sum is a
 // fused multiply-add, as the two sweeps' `t += a * g` compiles, and d_x the
 // same expression in both paths, so they give the same bits.
+// (heads: the rows' length; hn: the values of the group walked, at alpha,
+// g and d_x as given)
 template <class T, int HM, int NV, int R>
 __device__ __forceinline__ void bwd_segment(const T* __restrict__ alpha,
                                             const T* __restrict__ g,
                                             const int* __restrict__ ids,
                                             int s, int e0, int e1, int heads,
-                                            T* __restrict__ d_x) {
+                                            int hn, T* __restrict__ d_x) {
   const int lane = threadIdx.x % 32;
   float t[HM];
 #pragma unroll
@@ -240,7 +257,7 @@ __device__ __forceinline__ void bwd_segment(const T* __restrict__ alpha,
       const int64_t at = static_cast<int64_t>(e) * heads;
 #pragma unroll
       for (int w = 0; w < kWords; ++w) {
-        if (e <= e1 && w * NV < heads) {
+        if (e <= e1 && w * NV < hn) {
           wa[r][w] = __ldg(reinterpret_cast<const W*>(alpha + at + w * NV));
           wg[r][w] = __ldg(reinterpret_cast<const W*>(g + at + w * NV));
         }
@@ -250,7 +267,7 @@ __device__ __forceinline__ void bwd_segment(const T* __restrict__ alpha,
     for (int r = 0; r < R; ++r) {
 #pragma unroll
       for (int w = 0; w < kWords; ++w) {
-        if (id[r] == s && w * NV < heads) {
+        if (id[r] == s && w * NV < hn) {
           float a[NV], gv[NV];
           bignn::unpack_word<T, NV>(wa[r][w], a);
           bignn::unpack_word<T, NV>(wg[r][w], gv);
@@ -268,7 +285,7 @@ __device__ __forceinline__ void bwd_segment(const T* __restrict__ alpha,
       T* row = d_x + static_cast<int64_t>(e0 + lane + 32 * r) * heads;
 #pragma unroll
       for (int w = 0; w < kWords; ++w) {
-        if (w * NV < heads) {
+        if (w * NV < hn) {
           float a[NV], gv[NV];
           bignn::unpack_word<T, NV>(wa[r][w], a);
           bignn::unpack_word<T, NV>(wg[r][w], gv);
@@ -286,35 +303,40 @@ __device__ __forceinline__ void bwd_segment(const T* __restrict__ alpha,
   for (int e = e0 + lane; e <= e1; e += 32) {
     if (__ldg(ids + e) != s) continue;
     const int64_t r = static_cast<int64_t>(e) * heads;
-    bignn::load_row<HM, NV>(alpha + r, heads, a);
-    bignn::load_row<HM, NV>(g + r, heads, gv);
+    bignn::load_row<HM, NV>(alpha + r, hn, a);
+    bignn::load_row<HM, NV>(g + r, hn, gv);
 #pragma unroll
     for (int h = 0; h < HM; ++h)
-      if (h < heads) t[h] = __fmaf_rn(a[h], gv[h], t[h]);
+      if (h < hn) t[h] = __fmaf_rn(a[h], gv[h], t[h]);
   }
 #pragma unroll
   for (int h = 0; h < HM; ++h) t[h] = bignn::warp_sum(t[h]);
   for (int e = e0 + lane; e <= e1; e += 32) {
     if (__ldg(ids + e) != s) continue;
     const int64_t r = static_cast<int64_t>(e) * heads;
-    bignn::load_row<HM, NV>(alpha + r, heads, a);
-    bignn::load_row<HM, NV>(g + r, heads, gv);
+    bignn::load_row<HM, NV>(alpha + r, hn, a);
+    bignn::load_row<HM, NV>(g + r, hn, gv);
 #pragma unroll
     for (int h = 0; h < HM; ++h) a[h] = a[h] * gv[h] - a[h] * t[h];
-    bignn::store_row<HM, NV>(d_x + r, heads, a);
+    bignn::store_row<HM, NV>(d_x + r, hn, a);
   }
 }
 
 // One warp a segment for the blocks below walk_blocks; the blocks from
 // walk_blocks on each write zeros on the rows with a dropped id among
 // kZeroRows * 32 kBwdWarps rows of their own, ids loaded before any is used.
-template <class T, int HM, int NV, int R>
+template <class T, int HM, int NV, int R, bool kGroups>
 __global__ void __launch_bounds__(kBwdWarps * 32,
                                   R == 1 ? 1 : kBwdMinBlocks)
     softmax_bwd(const T* __restrict__ alpha, const T* __restrict__ g,
                 const int* __restrict__ ids, const int* __restrict__ first,
                 const int* __restrict__ last, int num_segments, int num_rows,
                 int heads, int walk_blocks, T* __restrict__ d_x) {
+  const int h0 = kGroups ? blockIdx.y * kMaxHeads : 0;
+  const int hn = kGroups ? min(kMaxHeads, heads - h0) : heads;
+  alpha += h0;
+  g += h0;
+  d_x += h0;
   if (static_cast<int>(blockIdx.x) >= walk_blocks) {
     constexpr int kBlockRows = kZeroRows * kBwdWarps * 32;
     const int e0 = (blockIdx.x - walk_blocks) * kBlockRows + threadIdx.x;
@@ -331,14 +353,15 @@ __global__ void __launch_bounds__(kBwdWarps * 32,
     for (int u = 0; u < kZeroRows; ++u) {
       const int e = e0 + u * kBwdWarps * 32;
       if (e < num_rows && (id[u] < 0 || id[u] >= num_segments))
-        bignn::store_row<HM, NV>(d_x + static_cast<int64_t>(e) * heads,
-                                 heads, zero);
+        bignn::store_row<HM, NV>(d_x + static_cast<int64_t>(e) * heads, hn,
+                                 zero);
     }
     return;
   }
   const int s = blockIdx.x * kBwdWarps + threadIdx.x / 32;
   if (s >= num_segments) return;
-  bwd_segment<T, HM, NV, R>(alpha, g, ids, s, first[s], last[s], heads, d_x);
+  bwd_segment<T, HM, NV, R>(alpha, g, ids, s, first[s], last[s], heads, hn,
+                            d_x);
 }
 
 // The bounds of segment_bounds.cuh, and out[e, :] = 0 on the rows e whose id
@@ -377,50 +400,67 @@ using BwdKernel = void (*)(const T*, const T*, const int*, const int*,
 
 // The kernels for a word of nv values (nv divides the heads, so nv <= HM)
 // and R rows a lane.
-template <class T, int HM, int R>
+template <class T, int HM, int R, bool kGroups>
 FwdKernel<T> fwd_for(int nv) {
   if constexpr (HM >= 2) {
-    if (nv == 2) return softmax_fwd<T, HM, 2, R>;
+    if (nv == 2) return softmax_fwd<T, HM, 2, R, kGroups>;
   }
   if constexpr (HM >= 4) {
-    if (nv == 4) return softmax_fwd<T, HM, 4, R>;
+    if (nv == 4) return softmax_fwd<T, HM, 4, R, kGroups>;
   }
   if constexpr (HM >= 8 && sizeof(T) == 2) {
-    if (nv == 8) return softmax_fwd<T, HM, 8, R>;
+    if (nv == 8) return softmax_fwd<T, HM, 8, R, kGroups>;
   }
-  return softmax_fwd<T, HM, 1, R>;
+  return softmax_fwd<T, HM, 1, R, kGroups>;
 }
 
-template <class T, int HM, int R>
+template <class T, int HM, int R, bool kGroups>
 BwdKernel<T> bwd_for(int nv) {
   if constexpr (HM >= 2) {
-    if (nv == 2) return softmax_bwd<T, HM, 2, R>;
+    if (nv == 2) return softmax_bwd<T, HM, 2, R, kGroups>;
   }
   if constexpr (HM >= 4) {
-    if (nv == 4) return softmax_bwd<T, HM, 4, R>;
+    if (nv == 4) return softmax_bwd<T, HM, 4, R, kGroups>;
   }
   if constexpr (HM >= 8 && sizeof(T) == 2) {
-    if (nv == 8) return softmax_bwd<T, HM, 8, R>;
+    if (nv == 8) return softmax_bwd<T, HM, 8, R, kGroups>;
   }
-  return softmax_bwd<T, HM, 1, R>;
+  return softmax_bwd<T, HM, 1, R, kGroups>;
 }
 
-// HM: the heads rounded up to 1, 2, 4 or 8.
+// HM: the heads rounded up to 1, 2, 4 or 8; above 8, groups of 8.
 template <class T, int R>
 FwdKernel<T> fwd_kernel_r(int heads, int nv) {
-  if (heads <= 1) return fwd_for<T, 1, R>(nv);
-  if (heads <= 2) return fwd_for<T, 2, R>(nv);
-  if (heads <= 4) return fwd_for<T, 4, R>(nv);
-  return fwd_for<T, 8, R>(nv);
+  if (heads <= 1) return fwd_for<T, 1, R, false>(nv);
+  if (heads <= 2) return fwd_for<T, 2, R, false>(nv);
+  if (heads <= 4) return fwd_for<T, 4, R, false>(nv);
+  if (heads <= kMaxHeads) return fwd_for<T, 8, R, false>(nv);
+  return fwd_for<T, 8, R, true>(nv);
 }
 
 template <class T, int R>
 BwdKernel<T> bwd_kernel_r(int heads, int nv) {
-  if (heads <= 1) return bwd_for<T, 1, R>(nv);
-  if (heads <= 2) return bwd_for<T, 2, R>(nv);
-  if (heads <= 4) return bwd_for<T, 4, R>(nv);
-  return bwd_for<T, 8, R>(nv);
+  if (heads <= 1) return bwd_for<T, 1, R, false>(nv);
+  if (heads <= 2) return bwd_for<T, 2, R, false>(nv);
+  if (heads <= 4) return bwd_for<T, 4, R, false>(nv);
+  if (heads <= kMaxHeads) return bwd_for<T, 8, R, false>(nv);
+  return bwd_for<T, 8, R, true>(nv);
 }
+
+// The values a word may hold: they divide the heads (within a group of 8
+// where there are more) and the pointers' alignment.
+template <class T>
+int softmax_word(int heads, uintptr_t addr) {
+  int span = heads;
+  if (heads > kMaxHeads) {
+    span = kMaxHeads;
+    while (heads % span != 0) span /= 2;  // gcd(heads, 8)
+  }
+  return bignn::word_values<T>(span, addr);
+}
+
+// Head groups: gridDim.y.
+inline int head_groups(int heads) { return bignn::cdiv(heads, kMaxHeads); }
 
 // R: kRows, or 1 where segments are short on average (the host knows the
 // mean, num_rows / num_segments, without reading the bounds); a segment
@@ -441,13 +481,12 @@ BwdKernel<T> bwd_kernel(int heads, int nv, bool short_rows) {
                     : bwd_kernel_r<T, kBwdRows>(heads, nv);
 }
 
-constexpr int kMaxHeads = 8;
-
 template <class T>
 int softmax_fwd_launch(const void* scores, const void* ids, int num_rows,
                        int heads, int num_segments, void* first, void* last,
                        void* alpha, void* stream) {
-  if (heads < 1 || heads > kMaxHeads || num_rows < 0 || num_segments < 0)
+  if (heads < 1 || head_groups(heads) > 65535 || num_rows < 0 ||
+      num_segments < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* id = static_cast<const int*>(ids);
@@ -459,11 +498,13 @@ int softmax_fwd_launch(const void* scores, const void* ids, int num_rows,
     const uintptr_t addr =
         reinterpret_cast<uintptr_t>(scores) | reinterpret_cast<uintptr_t>(alpha);
     const FwdKernel<T> k =
-        fwd_kernel<T>(heads, bignn::word_values<T>(heads, addr),
+        fwd_kernel<T>(heads, softmax_word<T>(heads, addr),
                       short_segments(num_rows, num_segments));
-    k<<<bignn::cdiv(num_segments, kWarpsPerBlock), kWarpsPerBlock * 32, 0,
-        st>>>(static_cast<const T*>(scores), id, f, l, num_segments, heads,
-              static_cast<T*>(alpha));
+    const dim3 grid(bignn::cdiv(num_segments, kWarpsPerBlock),
+                    head_groups(heads));
+    k<<<grid, kWarpsPerBlock * 32, 0, st>>>(static_cast<const T*>(scores), id,
+                                            f, l, num_segments, heads,
+                                            static_cast<T*>(alpha));
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -476,7 +517,8 @@ template <class T>
 int softmax_bwd_launch(const void* alpha, const void* g, const void* ids,
                        int num_rows, int heads, int num_segments, void* first,
                        void* last, void* d_scores, bool saved, void* stream) {
-  if (heads < 1 || heads > kMaxHeads || num_rows < 0 || num_segments < 0)
+  if (heads < 1 || head_groups(heads) > 65535 || num_rows < 0 ||
+      num_segments < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* id = static_cast<const int*>(ids);
@@ -487,12 +529,13 @@ int softmax_bwd_launch(const void* alpha, const void* g, const void* ids,
                          reinterpret_cast<uintptr_t>(g) |
                          reinterpret_cast<uintptr_t>(d_scores);
   const BwdKernel<T> k =
-      bwd_kernel<T>(heads, bignn::word_values<T>(heads, addr),
+      bwd_kernel<T>(heads, softmax_word<T>(heads, addr),
                     short_segments(num_rows, num_segments));
   const int walk_blocks = bignn::cdiv(num_segments, kBwdWarps);
   const int zero_blocks = bignn::cdiv(num_rows, kZeroRows * kBwdWarps * 32);
   if (walk_blocks + zero_blocks > 0) {
-    k<<<walk_blocks + zero_blocks, kBwdWarps * 32, 0, st>>>(
+    const dim3 grid(walk_blocks + zero_blocks, head_groups(heads));
+    k<<<grid, kBwdWarps * 32, 0, st>>>(
         static_cast<const T*>(alpha), static_cast<const T*>(g), id, f, l,
         num_segments, num_rows, heads, walk_blocks,
         static_cast<T*>(d_scores));
@@ -505,7 +548,7 @@ int softmax_bwd_launch(const void* alpha, const void* g, const void* ids,
 extern "C" {
 
 // scores/alpha [num_rows, heads] (f32 or bf16, one type), ids [num_rows]
-// int32, 1 <= heads <= 8; first/last are [num_segments] int32 scratch.
+// int32, heads >= 1; first/last are [num_segments] int32 scratch.
 // Returns cudaGetLastError().
 int bignn_segment_softmax_fwd_f32(const void* scores, const void* ids,
                                   int num_rows, int heads, int num_segments,

@@ -88,12 +88,32 @@
 //     warps 1.39). ~6 TB/s of gathered v rows at 16,384 drugs, from L2.
 // Per edge the backward does 2 F multiply-adds, the forward F.
 //
+// Wide rows (more than 8 heads, or F above 256) are swept in strips, one a
+// block (blockIdx.y), each a walk as above over a range of columns of at
+// most 256 (the kStrip forms; rows of up to 8 heads and 256 columns keep
+// the forms above, compiled without strips):
+//   - head_dim <= 256: a strip holds whole heads, min(8, 256 / head_dim)
+//     of them, so a 16-byte word and a head's lane group stay inside it and
+//     d_alpha of its heads is whole in the strip (H 32, D 24: 4 strips of
+//     8 heads; H 4, D 256: a head a strip).
+//   - head_dim > 256: a head is cut into strips of 256 columns. d_alpha is
+//     then a sum over the head's strips: each strip writes its partial dot
+//     in float32 to the wrapper's scratch [strips of a head, E, H], and
+//     mh_dot_finish adds them in strip order and rounds once (no atomics).
+// Every strip re-reads the edge ids and bounds; d_v and out of a strip are
+// its own columns. Measured at config4's sampled outer edges (E 59,008;
+// NVIDIA H100 80GB HBM3, 700 W, chip_smoke.py path O, queued behind a
+// sleep), bf16: H 4, D 256 forward 0.0691 ms, backward 0.1436; H 32, D 24
+// forward 0.0685, backward 0.9712 (39x its bound: the per-head select of
+// 8 heads over 8-value words spills).
+//
 // The JAX package rounds each bf16 message alpha * v to bf16 before the
 // segment sum (multihead.py:81-83); here products are summed in float32 and
 // rounded once, as the plain version of the port does.
 
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstdint>
 
 #include "elem.cuh"
@@ -110,7 +130,7 @@ constexpr int kBwdMinBlocks = 4;    // backward blocks an SM holds at least
 constexpr int kRowsInFlight = 4;    // g rows a backward lane loads at once
 constexpr int kLong = 256;  // positions above which a row is the block's
 constexpr int kMaxVals = 8;  // values of a row a lane holds
-constexpr int kMaxFeat = 32 * kMaxVals;  // F <= 256
+constexpr int kMaxFeat = 32 * kMaxVals;  // columns a row (or strip) holds
 constexpr unsigned kFull = 0xffffffffu;
 
 // The lane layout of both directions (segment_sum.cu's row slots): a row of
@@ -133,7 +153,34 @@ struct FwdArgs {
   const int* last;
   int num_src, num_out, heads, head_dim, lg;
   void* out;
+  int strip_heads;  // kStrip: whole heads a strip holds (head_dim <= 256)
+  int head_strips;  // kStrip: strips of a head (head_dim > 256), else 0
 };
+
+// A block's strip of the row: columns col0 + [0, width), heads h0 + [0,
+// nh) (the heads of its columns), the strip's first column at hoff in head
+// h0, and its index p among its head's strips.
+struct Strip {
+  int col0, width, h0, nh, hoff, p;
+};
+
+template <bool kStrip, class Args>
+__device__ __forceinline__ Strip strip_of(const Args& a) {
+  if constexpr (!kStrip) {
+    return {0, a.heads * a.head_dim, 0, a.heads, 0, 0};
+  } else {
+    const int j = blockIdx.y;
+    if (a.head_strips == 0) {
+      const int h0 = j * a.strip_heads;
+      const int nh = min(a.strip_heads, a.heads - h0);
+      return {h0 * a.head_dim, nh * a.head_dim, h0, nh, 0, 0};
+    }
+    const int h = j / a.head_strips, p = j % a.head_strips;
+    const int off = p * kMaxFeat;
+    return {h * a.head_dim + off, min(kMaxFeat, a.head_dim - off), h, 1, off,
+            p};
+  }
+}
 
 // The clipped source (JAX's take(..., mode="clip")) of the edge at position
 // b + lane when it is destination d's, else -1 (past i1, or a hole). Its two
@@ -153,10 +200,10 @@ __device__ __forceinline__ int chunk_src(const FwdArgs& a, int b, int i1,
 // then the rows of U edges a slot, all loaded before any is added. Slot q
 // takes the chunk's positions q, q + slots, ... in order, so each slot sums
 // its edges in edge order.
-template <class T, int NV, int K>
-__device__ __forceinline__ void fwd_walk(const FwdArgs& a, int d, int b,
-                                         int i1, int cstep, int lane,
-                                         float (&acc)[K][NV]) {
+template <class T, int NV, int K, bool kStrip>
+__device__ __forceinline__ void fwd_walk(const FwdArgs& a, const Strip& sp,
+                                         int d, int b, int i1, int cstep,
+                                         int lane, float (&acc)[K][NV]) {
   using W = WordOf<T, NV>;
   constexpr int U = K >= kFwdRows ? 1 : kFwdRows / K;
   const T* __restrict__ v = static_cast<const T*>(a.v);
@@ -168,12 +215,17 @@ __device__ __forceinline__ void fwd_walk(const FwdArgs& a, int d, int b,
   const int q = lane >> lg;
   const int c = lane & ((1 << lg) - 1);
   // the head of each word this lane holds (a word lies in one head); -1
-  // past the row
+  // past the row's strip
   int head[K];
 #pragma unroll
   for (int k = 0; k < K; ++k) {
     const int w = c + (k << lg);
-    head[k] = w < feat / NV ? w * NV / a.head_dim : -1;
+    if constexpr (kStrip) {
+      head[k] = w < sp.width / NV ? sp.h0 + (w * NV + sp.hoff) / a.head_dim
+                                  : -1;
+    } else {
+      head[k] = w < feat / NV ? w * NV / a.head_dim : -1;
+    }
   }
   int s_l = chunk_src(a, b, i1, d, lane);
   for (; b <= i1; b += cstep) {
@@ -188,7 +240,8 @@ __device__ __forceinline__ void fwd_walk(const FwdArgs& a, int d, int b,
         int src = __shfl_sync(kFull, s_l, j & 31);
         if (j >= 32) src = -1;
         const W* row = reinterpret_cast<const W*>(
-            v + static_cast<int64_t>(src >= 0 ? src : 0) * feat);
+            v + static_cast<int64_t>(src >= 0 ? src : 0) * feat +
+            (kStrip ? sp.col0 : 0));
         const T* ar = alpha + static_cast<int64_t>(src >= 0 ? b + j : 0) *
                                   heads;
 #pragma unroll
@@ -225,6 +278,10 @@ struct BwdArgs {
   int num_src, num_out, heads, head_dim, lg;
   void* d_v;
   void* d_alpha;
+  int strip_heads;  // as FwdArgs
+  int head_strips;
+  int64_t num_edges;
+  float* dot_part;  // head_strips > 0: [head_strips, E, heads] partial dots
 };
 
 // The edge at position b + lane of the source-sorted order when it is
@@ -239,18 +296,21 @@ __device__ __forceinline__ int chunk_edge(const int* __restrict__ perm,
   return id == s ? e : -1;
 }
 
-// A lane's K words of row r (zeros past the row), as floats.
-template <class T, int NV, int K>
+// A lane's K words of row r (zeros past the row; with kStrip, of the
+// strip sp of row r, zeros past it), as floats.
+template <class T, int NV, int K, bool kStrip>
 __device__ __forceinline__ void load_words(const T* __restrict__ rows,
-                                           int64_t r, int feat, int c,
-                                           int lg, float (&out)[K][NV]) {
-  const WordOf<T, NV>* row =
-      reinterpret_cast<const WordOf<T, NV>*>(rows + r * feat);
+                                           int64_t r, int feat,
+                                           const Strip& sp, int c, int lg,
+                                           float (&out)[K][NV]) {
+  const WordOf<T, NV>* row = reinterpret_cast<const WordOf<T, NV>*>(
+      rows + r * feat + (kStrip ? sp.col0 : 0));
+  const int width = kStrip ? sp.width : feat;
 #pragma unroll
   for (int k = 0; k < K; ++k) {
     const int w = c + (k << lg);
-    bignn::unpack_word<T, NV>(w < feat / NV ? __ldg(row + w)
-                                            : WordOf<T, NV>{},
+    bignn::unpack_word<T, NV>(w < width / NV ? __ldg(row + w)
+                                             : WordOf<T, NV>{},
                               out[k]);
   }
 }
@@ -260,10 +320,10 @@ __device__ __forceinline__ void load_words(const T* __restrict__ rows,
 // positions: the chunk's edge and destination ids one a lane (the next
 // chunk's ids in flight while this chunk's rows load), then the rows of U
 // edges a slot, all loaded before any is reduced.
-template <class T, int NV, int K, bool kGrouped>
-__device__ __forceinline__ void bwd_walk(const BwdArgs& a, int s, int b,
-                                         int i1, int cstep, int lane,
-                                         const float (&vs)[K][NV],
+template <class T, int NV, int K, bool kGrouped, bool kStrip>
+__device__ __forceinline__ void bwd_walk(const BwdArgs& a, const Strip& sp,
+                                         int s, int b, int i1, int cstep,
+                                         int lane, const float (&vs)[K][NV],
                                          float (&acc)[K][NV]) {
   using W = WordOf<T, NV>;
   constexpr int U = K >= kRowsInFlight ? 1 : kRowsInFlight / K;
@@ -278,14 +338,20 @@ __device__ __forceinline__ void bwd_walk(const BwdArgs& a, int s, int b,
   const int q = lane >> lg;
   const int c = lane & ((1 << lg) - 1);
   const int gs = kGrouped ? a.head_dim / NV : 1;  // lanes of a head's group
-  // the head of each value this lane holds; -1 past the row
+  // the head of each value this lane holds, counted from the strip's first
+  // (sp.h0); -1 past the row's strip
   int head[K][NV];
 #pragma unroll
   for (int k = 0; k < K; ++k) {
 #pragma unroll
     for (int i = 0; i < NV; ++i) {
-      const int col = (c + (k << lg)) * NV + i;
-      head[k][i] = c + (k << lg) < feat / NV ? col / a.head_dim : -1;
+      if constexpr (kStrip) {
+        const int col = (c + (k << lg)) * NV + i + sp.hoff;
+        head[k][i] = c + (k << lg) < sp.width / NV ? col / a.head_dim : -1;
+      } else {
+        const int col = (c + (k << lg)) * NV + i;
+        head[k][i] = c + (k << lg) < feat / NV ? col / a.head_dim : -1;
+      }
     }
   }
   int e_l = chunk_edge(a.perm, a.src_sorted, b, i1, s, lane);
@@ -308,8 +374,11 @@ __device__ __forceinline__ void bwd_walk(const BwdArgs& a, int s, int b,
         // padding edges (dst outside [0, num_out)) get d_alpha 0
         live[u] = e[u] >= 0 && d >= 0 && d < a.num_out;
         const W* row = reinterpret_cast<const W*>(
-            g + static_cast<int64_t>(live[u] ? d : 0) * feat);
-        const T* ar = alpha + static_cast<int64_t>(live[u] ? e[u] : 0) * heads;
+            g + static_cast<int64_t>(live[u] ? d : 0) * feat +
+            (kStrip ? sp.col0 : 0));
+        const T* ar = alpha +
+                      static_cast<int64_t>(live[u] ? e[u] : 0) * heads +
+                      (kStrip ? sp.h0 : 0);
 #pragma unroll
         for (int k = 0; k < K; ++k) {
           const bool in = live[u] && head[k][0] >= 0;
@@ -352,16 +421,25 @@ __device__ __forceinline__ void bwd_walk(const BwdArgs& a, int s, int b,
             float t = part[k];
             for (int o = 1; o < gs; o <<= 1) t += __shfl_xor_sync(kFull, t, o);
             if (e[u] >= 0 && head[k][0] >= 0 && (c & (gs - 1)) == 0)
-              da[head[k][0]] = bignn::from_f32<T>(t);
+              da[(kStrip ? sp.h0 : 0) + head[k][0]] = bignn::from_f32<T>(t);
           }
         } else {
 #pragma unroll
           for (int h = 0; h < kMaxHeads; ++h) {
-            if (h < heads) {
+            if (h < (kStrip ? sp.nh : heads)) {
               float t = part[h];
               for (int o = 1; o < (1 << lg); o <<= 1)
                 t += __shfl_xor_sync(kFull, t, o);
-              if (e[u] >= 0 && c == 0) da[h] = bignn::from_f32<T>(t);
+              if constexpr (!kStrip) {
+                if (e[u] >= 0 && c == 0) da[h] = bignn::from_f32<T>(t);
+              } else if (e[u] >= 0 && c == 0) {
+                if (a.dot_part != nullptr) {  // a strip of a wide head
+                  a.dot_part[(sp.p * a.num_edges + e[u]) * heads + sp.h0 + h] =
+                      t;
+                } else {
+                  da[sp.h0 + h] = bignn::from_f32<T>(t);
+                }
+              }
             }
           }
         }
@@ -392,15 +470,17 @@ __device__ __forceinline__ void slot_sum(float (&acc)[K][NV], int lg) {
 // memory in warp order. Whether a destination is long is read from its
 // bounds on the device, never on the host. A destination without edges
 // gets zeros.
-template <class T, int NV, int K>
+template <class T, int NV, int K, bool kStrip>
 __global__ void __launch_bounds__(kFwdWarps * 32, kFwdMinBlocks)
     mh_forward(__grid_constant__ const FwdArgs a) {
   using W = WordOf<T, NV>;
   __shared__ float part[kFwdWarps * kMaxFeat];
-  T* __restrict__ out = static_cast<T*>(a.out);
+  const Strip sp = strip_of<kStrip>(a);
+  T* __restrict__ out = static_cast<T*>(a.out) + (kStrip ? sp.col0 : 0);
   const int lane = threadIdx.x % 32;
   const int warp = threadIdx.x / 32;
   const int feat = a.heads * a.head_dim;
+  const int width = kStrip ? sp.width : feat;  // the columns of the strip
   const int q = lane >> a.lg;
   const int c = lane & ((1 << a.lg) - 1);
   const int d0 = blockIdx.x * kFwdWarps;
@@ -412,13 +492,14 @@ __global__ void __launch_bounds__(kFwdWarps * 32, kFwdMinBlocks)
 #pragma unroll
       for (int i = 0; i < NV; ++i) acc[k][i] = 0.f;
     }
-    fwd_walk<T, NV, K>(a, d, a.first[d], a.last[d], 32, lane, acc);
+    fwd_walk<T, NV, K, kStrip>(a, sp, d, a.first[d], a.last[d], 32, lane,
+                               acc);
     slot_sum(acc, a.lg);
     W* o = reinterpret_cast<W*>(out + static_cast<int64_t>(d) * feat);
 #pragma unroll
     for (int k = 0; k < K; ++k) {
       const int w = c + (k << a.lg);
-      if (q == 0 && w < feat / NV) o[w] = bignn::pack_word<T, NV, W>(acc[k]);
+      if (q == 0 && w < width / NV) o[w] = bignn::pack_word<T, NV, W>(acc[k]);
     }
   }
   for (int j = 0; j < kFwdWarps && d0 + j < a.num_out; ++j) {
@@ -431,21 +512,22 @@ __global__ void __launch_bounds__(kFwdWarps * 32, kFwdMinBlocks)
 #pragma unroll
       for (int i = 0; i < NV; ++i) acc[k][i] = 0.f;
     }
-    fwd_walk<T, NV, K>(a, dj, i0 + 32 * warp, i1, 32 * kFwdWarps, lane, acc);
+    fwd_walk<T, NV, K, kStrip>(a, sp, dj, i0 + 32 * warp, i1,
+                               32 * kFwdWarps, lane, acc);
     slot_sum(acc, a.lg);
 #pragma unroll
     for (int k = 0; k < K; ++k) {
       const int w = c + (k << a.lg);
-      if (q == 0 && w < feat / NV) {
+      if (q == 0 && w < width / NV) {
 #pragma unroll
         for (int i = 0; i < NV; ++i)
-          part[warp * feat + w * NV + i] = acc[k][i];
+          part[warp * width + w * NV + i] = acc[k][i];
       }
     }
     __syncthreads();
-    for (int col = threadIdx.x; col < feat; col += blockDim.x) {
+    for (int col = threadIdx.x; col < width; col += blockDim.x) {
       float t = part[col];
-      for (int w = 1; w < kFwdWarps; ++w) t += part[w * feat + col];
+      for (int w = 1; w < kFwdWarps; ++w) t += part[w * width + col];
       out[static_cast<int64_t>(dj) * feat + col] = bignn::from_f32<T>(t);
     }
     __syncthreads();
@@ -457,36 +539,39 @@ __global__ void __launch_bounds__(kFwdWarps * 32, kFwdMinBlocks)
 // w + kBwdWarps, ... to warp w, their d_v rows added in shared memory in
 // warp order. Whether a source is long is read from its bounds on the
 // device, never on the host.
-template <class T, int NV, int K, bool kGrouped>
+template <class T, int NV, int K, bool kGrouped, bool kStrip>
 __global__ void __launch_bounds__(kBwdWarps * 32, kBwdMinBlocks)
     mh_backward(__grid_constant__ const BwdArgs a) {
   using W = WordOf<T, NV>;
   __shared__ float part[kBwdWarps * kMaxFeat];
+  const Strip sp = strip_of<kStrip>(a);
   const T* __restrict__ v = static_cast<const T*>(a.v);
-  T* __restrict__ d_v = static_cast<T*>(a.d_v);
+  T* __restrict__ d_v = static_cast<T*>(a.d_v) + (kStrip ? sp.col0 : 0);
   const int lane = threadIdx.x % 32;
   const int warp = threadIdx.x / 32;
   const int feat = a.heads * a.head_dim;
+  const int width = kStrip ? sp.width : feat;  // the columns of the strip
   const int q = lane >> a.lg;
   const int c = lane & ((1 << a.lg) - 1);
   const int s0 = blockIdx.x * kBwdWarps;
   float vs[K][NV], acc[K][NV];
   const int s = s0 + warp;
   if (s < a.num_src && a.last[s] - a.first[s] < kLong) {
-    load_words<T, NV, K>(v, s, feat, c, a.lg, vs);
+    load_words<T, NV, K, kStrip>(v, s, feat, sp, c, a.lg, vs);
 #pragma unroll
     for (int k = 0; k < K; ++k) {
 #pragma unroll
       for (int i = 0; i < NV; ++i) acc[k][i] = 0.f;
     }
-    bwd_walk<T, NV, K, kGrouped>(a, s, a.first[s], a.last[s], 32, lane, vs,
-                                 acc);
+    bwd_walk<T, NV, K, kGrouped, kStrip>(a, sp, s, a.first[s], a.last[s],
+                                         32, lane, vs, acc);
     slot_sum(acc, a.lg);
     W* out = reinterpret_cast<W*>(d_v + static_cast<int64_t>(s) * feat);
 #pragma unroll
     for (int k = 0; k < K; ++k) {
       const int w = c + (k << a.lg);
-      if (q == 0 && w < feat / NV) out[w] = bignn::pack_word<T, NV, W>(acc[k]);
+      if (q == 0 && w < width / NV)
+        out[w] = bignn::pack_word<T, NV, W>(acc[k]);
     }
   }
   for (int j = 0; j < kBwdWarps && s0 + j < a.num_src; ++j) {
@@ -494,38 +579,73 @@ __global__ void __launch_bounds__(kBwdWarps * 32, kBwdMinBlocks)
     const int i0 = a.first[sj];
     const int i1 = a.last[sj];
     if (i1 - i0 < kLong) continue;
-    load_words<T, NV, K>(v, sj, feat, c, a.lg, vs);
+    load_words<T, NV, K, kStrip>(v, sj, feat, sp, c, a.lg, vs);
 #pragma unroll
     for (int k = 0; k < K; ++k) {
 #pragma unroll
       for (int i = 0; i < NV; ++i) acc[k][i] = 0.f;
     }
-    bwd_walk<T, NV, K, kGrouped>(a, sj, i0 + 32 * warp, i1, 32 * kBwdWarps,
-                                 lane, vs, acc);
+    bwd_walk<T, NV, K, kGrouped, kStrip>(a, sp, sj, i0 + 32 * warp, i1,
+                                         32 * kBwdWarps, lane, vs, acc);
     slot_sum(acc, a.lg);
 #pragma unroll
     for (int k = 0; k < K; ++k) {
       const int w = c + (k << a.lg);
-      if (q == 0 && w < feat / NV) {
+      if (q == 0 && w < width / NV) {
 #pragma unroll
         for (int i = 0; i < NV; ++i)
-          part[warp * feat + w * NV + i] = acc[k][i];
+          part[warp * width + w * NV + i] = acc[k][i];
       }
     }
     __syncthreads();
-    for (int col = threadIdx.x; col < feat; col += blockDim.x) {
+    for (int col = threadIdx.x; col < width; col += blockDim.x) {
       float t = part[col];
-      for (int w = 1; w < kBwdWarps; ++w) t += part[w * feat + col];
+      for (int w = 1; w < kBwdWarps; ++w) t += part[w * width + col];
       d_v[static_cast<int64_t>(sj) * feat + col] = bignn::from_f32<T>(t);
     }
     __syncthreads();
   }
 }
 
+// d_alpha[i] = the partial dots of element i (a wide head's strips) added
+// in strip order, rounded once.
+template <class T>
+__global__ void mh_dot_finish(const float* __restrict__ dot_part, int strips,
+                              int64_t size, T* __restrict__ d_alpha) {
+  const int64_t step = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                   threadIdx.x;
+       i < size; i += step) {
+    float t = dot_part[i];
+    for (int p = 1; p < strips; ++p) t += dot_part[p * size + i];
+    d_alpha[i] = bignn::from_f32<T>(t);
+  }
+}
+
 bool bad_shape(int num_edges, int num_src, int num_out, int heads,
                int head_dim) {
   return num_edges < 0 || num_src < 1 || num_out < 0 || heads < 1 ||
-         heads > kMaxHeads || head_dim < 1 || heads * head_dim > kMaxFeat;
+         head_dim < 1 ||
+         static_cast<int64_t>(heads) * head_dim > (int64_t{1} << 30);
+}
+
+// How a row of heads x head_dim is swept: strips (false: the whole row, up
+// to 8 heads and 256 columns), the heads a strip holds (head_dim <= 256),
+// the strips of a head (head_dim > 256, else 0), and the widest strip.
+struct Sweep {
+  bool strips;
+  int strip_heads, head_strips, width;
+};
+
+Sweep sweep_of(int heads, int head_dim) {
+  if (heads <= kMaxHeads && heads * head_dim <= kMaxFeat)
+    return {false, heads, 0, heads * head_dim};
+  if (head_dim <= kMaxFeat) {
+    const int hs = std::min(kMaxHeads, kMaxFeat / head_dim);
+    return {true, hs, 0, hs * head_dim};
+  }
+  const int per = bignn::cdiv(head_dim, kMaxFeat);
+  return {true, 1, per, kMaxFeat};
 }
 
 // The row slots of rows of `words` words: (lg, K), G = 1 << lg lanes a
@@ -535,21 +655,31 @@ void slots_of(int words, int* lg, int* k) {
   *k = bignn::cdiv(words, 1 << *lg);
 }
 
-template <class T, int NV>
+// The strips of a row: gridDim.y.
+template <class Args>
+int strip_count(const Args& a) {
+  return a.head_strips > 0 ? a.heads * a.head_strips
+                           : bignn::cdiv(a.heads, a.strip_heads);
+}
+
+template <class T, int NV, bool kStrip>
 struct Forward {
   template <int K>
   static void launch(const FwdArgs& a, cudaStream_t st) {
-    mh_forward<T, NV, K>
-        <<<bignn::cdiv(a.num_out, kFwdWarps), kFwdWarps * 32, 0, st>>>(a);
+    const dim3 grid(bignn::cdiv(a.num_out, kFwdWarps),
+                    kStrip ? strip_count(a) : 1);
+    mh_forward<T, NV, K, kStrip><<<grid, kFwdWarps * 32, 0, st>>>(a);
   }
 };
 
-template <class T, int NV, bool kGrouped>
+template <class T, int NV, bool kGrouped, bool kStrip>
 struct Backward {
   template <int K>
   static void launch(const BwdArgs& a, cudaStream_t st) {
-    mh_backward<T, NV, K, kGrouped>
-        <<<bignn::cdiv(a.num_src, kBwdWarps), kBwdWarps * 32, 0, st>>>(a);
+    const dim3 grid(bignn::cdiv(a.num_src, kBwdWarps),
+                    kStrip ? strip_count(a) : 1);
+    mh_backward<T, NV, K, kGrouped, kStrip><<<grid, kBwdWarps * 32, 0, st>>>(
+        a);
   }
 };
 
@@ -586,30 +716,50 @@ int forward(const void* v, const void* src, const void* dst,
     const int* d = static_cast<const int*>(dst);
     bignn::segment_bounds(d, num_edges, num_out, f, l, st);
     // 16-byte words where every row of v and out starts on 16 bytes and a
-    // word lies inside one head
+    // word lies inside one head (and so inside one strip)
     constexpr int kWide = 16 / static_cast<int>(sizeof(T));
     const uintptr_t addr =
         reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out);
     const bool wide = head_dim % kWide == 0 && addr % 16 == 0;
+    const Sweep sw = sweep_of(heads, head_dim);
     int lg, k;
-    slots_of(heads * head_dim / (wide ? kWide : 1), &lg, &k);
+    slots_of(sw.width / (wide ? kWide : 1), &lg, &k);
     const FwdArgs a{v, static_cast<const int*>(src), d, alpha, f, l,
-                    num_src, num_out, heads, head_dim, lg, out};
-    if (wide) {
-      launch_k<Forward<T, kWide>, kWide>(a, k, st);
+                    num_src, num_out, heads, head_dim, lg, out,
+                    sw.strip_heads, sw.head_strips};
+    if (sw.strips) {
+      if (wide) {
+        launch_k<Forward<T, kWide, true>, kWide>(a, k, st);
+      } else {
+        launch_k<Forward<T, 1, true>, 1>(a, k, st);
+      }
+    } else if (wide) {
+      launch_k<Forward<T, kWide, false>, kWide>(a, k, st);
     } else {
-      launch_k<Forward<T, 1>, 1>(a, k, st);
+      launch_k<Forward<T, 1, false>, 1>(a, k, st);
     }
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// Floats of the backward's scratch: a wide head's strips' partial dots,
+// [head_strips, num_edges, heads] (0 where a head fits one strip).
+int64_t dot_part_floats(int num_edges, int heads, int head_dim) {
+  return static_cast<int64_t>(sweep_of(heads, head_dim).head_strips) *
+         num_edges * heads;
 }
 
 template <class T>
 int backward(const void* v, const void* g, const void* dst, const void* alpha,
              const void* perm, const void* src_sorted, int num_edges,
              int num_src, int num_out, int heads, int head_dim, void* first,
-             void* last, void* d_v, void* d_alpha, void* stream) {
+             void* last, void* d_v, void* d_alpha, void* dot_part,
+             long long dot_part_size, void* stream) {
   if (bad_shape(num_edges, num_src, num_out, heads, head_dim))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Sweep sw = sweep_of(heads, head_dim);
+  const int64_t need = dot_part_floats(num_edges, heads, head_dim);
+  if (need > 0 && (dot_part == nullptr || dot_part_size < need))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int* f = static_cast<int*>(first);
@@ -622,22 +772,43 @@ int backward(const void* v, const void* g, const void* dst, const void* alpha,
   const uintptr_t addr = reinterpret_cast<uintptr_t>(v) |
                          reinterpret_cast<uintptr_t>(g) |
                          reinterpret_cast<uintptr_t>(d_v);
-  const bool wide = feat % kWide == 0 && addr % 16 == 0;
+  // (in strips every strip starts on a head, or on a multiple of 256
+  // columns of one, so a word that lies inside a head lies inside a strip)
+  const bool wide = (sw.strips ? head_dim : feat) % kWide == 0 &&
+                    addr % 16 == 0;
   const int nv = wide ? kWide : 1;
   int lg, k;
-  slots_of(feat / nv, &lg, &k);
+  slots_of(sw.width / nv, &lg, &k);
   const int group = head_dim / nv;
   const bool grouped = wide && head_dim % nv == 0 && group <= 32 &&
                        (group & (group - 1)) == 0;
+  float* parts = sw.head_strips > 0 ? static_cast<float*>(dot_part) : nullptr;
   const BwdArgs a{v, g, static_cast<const int*>(dst), alpha,
                   static_cast<const int*>(perm), ss, f, l, num_src, num_out,
-                  heads, head_dim, lg, d_v, d_alpha};
-  if (grouped) {
-    launch_k<Backward<T, kWide, true>, kWide>(a, k, st);
+                  heads, head_dim, lg, d_v, parts != nullptr ? nullptr
+                                                             : d_alpha,
+                  sw.strip_heads, sw.head_strips, num_edges, parts};
+  if (sw.strips) {
+    if (grouped) {
+      launch_k<Backward<T, kWide, true, true>, kWide>(a, k, st);
+    } else if (wide) {
+      launch_k<Backward<T, kWide, false, true>, kWide>(a, k, st);
+    } else {
+      launch_k<Backward<T, 1, false, true>, 1>(a, k, st);
+    }
+  } else if (grouped) {
+    launch_k<Backward<T, kWide, true, false>, kWide>(a, k, st);
   } else if (wide) {
-    launch_k<Backward<T, kWide, false>, kWide>(a, k, st);
+    launch_k<Backward<T, kWide, false, false>, kWide>(a, k, st);
   } else {
-    launch_k<Backward<T, 1, false>, 1>(a, k, st);
+    launch_k<Backward<T, 1, false, false>, 1>(a, k, st);
+  }
+  if (parts != nullptr) {
+    const int64_t size = static_cast<int64_t>(num_edges) * heads;
+    const int blocks =
+        static_cast<int>(std::min<int64_t>(size / 256 + 1, 4096));
+    mh_dot_finish<T><<<blocks, 256, 0, st>>>(parts, sw.head_strips, size,
+                                             static_cast<T*>(d_alpha));
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -648,8 +819,9 @@ extern "C" {
 
 // v [num_src, heads * head_dim], src/dst [num_edges] int32, alpha
 // [num_edges, heads], out [num_out, heads * head_dim], v/alpha/out in one
-// type (f32 or bf16); first/last are [num_out] int32 scratch. heads <= 8,
-// heads * head_dim <= 256. Returns cudaGetLastError().
+// type (f32 or bf16); first/last are [num_out] int32 scratch. Any heads and
+// head_dim (rows above 8 heads or 256 columns go in strips). Returns
+// cudaGetLastError().
 int bignn_spmm_multihead_fwd_f32(const void* v, const void* src,
                                  const void* dst, const void* alpha,
                                  int num_edges, int num_src, int num_out,
@@ -669,21 +841,37 @@ int bignn_spmm_multihead_fwd_bf16(const void* v, const void* src,
                                 stream);
 }
 
+// The backward's scratch for num_edges edges of heads x head_dim: its
+// float count, written to `floats` (int64).
+int bignn_spmm_multihead_bwd_scratch(int num_edges, int heads, int head_dim,
+                                     void* floats, void* stream) {
+  (void)stream;
+  *static_cast<int64_t*>(floats) =
+      num_edges > 0 && heads > 0 && head_dim > 0
+          ? dot_part_floats(num_edges, heads, head_dim)
+          : 0;
+  return static_cast<int>(cudaSuccess);
+}
+
 // g [num_out, heads * head_dim] (the cotangent of out), perm/src_sorted
 // [num_edges] int32 (argsort of src, src[perm]), d_v like v, d_alpha like
 // alpha, all floating tensors in one type; first/last are [num_src] int32
 // scratch. An edge whose src lies outside [0, num_src) is in no source's
 // range and leaves its d_alpha row unwritten (the wrapper zero-fills it).
+// dot_part: float32 zeros of the size bignn_spmm_multihead_bwd_scratch
+// gives (a wide head's strips' partial dots), dot_part_size its floats;
+// null and 0 where that size is 0.
 int bignn_spmm_multihead_bwd_f32(const void* v, const void* g,
                                  const void* dst, const void* alpha,
                                  const void* perm, const void* src_sorted,
                                  int num_edges, int num_src, int num_out,
                                  int heads, int head_dim, void* first,
                                  void* last, void* d_v, void* d_alpha,
+                                 void* dot_part, long long dot_part_size,
                                  void* stream) {
   return backward<float>(v, g, dst, alpha, perm, src_sorted, num_edges,
                          num_src, num_out, heads, head_dim, first, last, d_v,
-                         d_alpha, stream);
+                         d_alpha, dot_part, dot_part_size, stream);
 }
 
 int bignn_spmm_multihead_bwd_bf16(const void* v, const void* g,
@@ -692,10 +880,12 @@ int bignn_spmm_multihead_bwd_bf16(const void* v, const void* g,
                                   int num_edges, int num_src, int num_out,
                                   int heads, int head_dim, void* first,
                                   void* last, void* d_v, void* d_alpha,
+                                  void* dot_part, long long dot_part_size,
                                   void* stream) {
   return backward<__nv_bfloat16>(v, g, dst, alpha, perm, src_sorted,
                                  num_edges, num_src, num_out, heads, head_dim,
-                                 first, last, d_v, d_alpha, stream);
+                                 first, last, d_v, d_alpha, dot_part,
+                                 dot_part_size, stream);
 }
 
 }  // extern "C"

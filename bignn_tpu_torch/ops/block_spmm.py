@@ -15,10 +15,12 @@ runs the kernel of ``csrc/block_spmm.cu`` and its backward
 take the plain version. ``d_weight`` is a per-edge dot in plain PyTorch
 (``edge_weight_grad``), as the JAX VJP leaves it to XLA, and comes back in
 the weight's type. Both wrappers count their launches per element type, the
-weighted forms under ``f32:weighted`` and ``bf16:weighted``. The kernel
-takes float32 or bf16 rows (float32 weights) and F <= 256 and raises on
-anything else. The unweighted bf16 form multiplies each block's edge
-counts by its rows on the tensor cores (float32 sums); the float32 and
+weighted forms under ``f32:weighted`` and ``bf16:weighted``, and rows wider
+than ``TILE_COLS`` (the kernel's tiled form) with ``:tiled`` after that. The
+kernel takes float32 or bf16 rows (float32 weights) of any width (above 256
+in tiles of 256 columns) and raises on anything else. The unweighted bf16
+form multiplies each block's edge counts by its rows on the tensor cores
+(float32 sums); the float32 and
 weighted forms sum the edges' rows one by one, and in bf16 round the
 weight and each weighted message to bf16 before the float32 sum, as the
 TPU kernel does (JAX ``ops/pallas/block_spmm.py:142-144``).
@@ -37,7 +39,14 @@ from bignn_tpu_torch.ops import cuda_lib
 from bignn_tpu_torch.ops.segment import segment_sum_plain
 from bignn_tpu_torch.sparse.formats import BLOCK_ROWS
 
-MAX_FEAT = 256  # limit of csrc/block_spmm.cu (the staged rows fit shared memory)
+TILE_COLS = 256  # widest row of csrc/block_spmm.cu's untiled form
+
+
+def _count(fn, x: torch.Tensor, weighted: bool) -> None:
+    """One launch of ``fn``'s kernel on ``x``, ``:tiled`` where its rows
+    take the tiled form."""
+    cuda_lib.count(fn, x.dtype, weighted,
+                   ":tiled" if x.shape[1] > TILE_COLS else "")
 
 
 def edge_weight_grad(g: torch.Tensor, x: torch.Tensor, src: torch.Tensor,
@@ -84,7 +93,7 @@ def block_spmm_plain(x: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
 
 def _launch(x, src, dst, weight, starts, num_nodes) -> torch.Tensor:
     """``csrc/block_spmm.cu`` on ``x [N, F]`` float32 or bf16 (N a multiple
-    of 128 equal to ``num_nodes``, F <= 256). ``starts`` shorter than
+    of 128 equal to ``num_nodes``). ``starts`` shorter than
     ``N/128 + 1`` is extended with its last value (JAX
     ``block_spmm.py:204-208``). Counts nothing: each caller counts its own
     launches."""
@@ -95,9 +104,6 @@ def _launch(x, src, dst, weight, starts, num_nodes) -> torch.Tensor:
     if n != num_nodes or n % BLOCK_ROWS:
         raise ValueError(f"block_spmm needs x padded to the 128-row grid: x "
                          f"has {n} rows, num_nodes {num_nodes}")
-    if f > MAX_FEAT:
-        raise NotImplementedError(
-            f"block_spmm kernels take F <= {MAX_FEAT}, got {f}")
     nblk = n // BLOCK_ROWS
     e = src.shape[0]
     cuda_lib.require_cuda(src, "src", torch.int32, 1, dev)
@@ -132,7 +138,7 @@ def block_spmm_bwd(g: torch.Tensor, tsrc: torch.Tensor, tdst: torch.Tensor,
     if g.device.type == "cpu":
         return block_spmm_plain(g, tsrc, tdst, tweight, num_nodes=num_nodes)
     d_x = _launch(g, tsrc, tdst, tweight, tstarts, num_nodes)
-    cuda_lib.count(block_spmm_bwd, g.dtype, tweight is not None)
+    _count(block_spmm_bwd, g, tweight is not None)
     return d_x
 
 
@@ -147,7 +153,7 @@ class _BlockSpmm(torch.autograd.Function):
             out = block_spmm_plain(x, src, dst, weight, num_nodes=num_nodes)
         else:
             out = _launch(x, src, dst, weight, estarts, num_nodes)
-            cuda_lib.count(block_spmm, x.dtype, weight is not None)
+            _count(block_spmm, x, weight is not None)
         ctx.save_for_backward(x, weight, src, dst, tsrc, tdst, tweight,
                               tstarts)
         ctx.num_nodes = num_nodes

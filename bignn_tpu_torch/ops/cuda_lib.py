@@ -49,7 +49,7 @@ _SOFTMAX_FWD = [_VP, _VP, _I32, _I32, _I32, _VP, _VP, _VP]
 _SOFTMAX_BWD = [_VP, _VP, _VP, _I32, _I32, _I32, _VP, _VP, _VP]
 _MH_FWD = [_VP, _VP, _VP, _VP, _I32, _I32, _I32, _I32, _I32, _VP, _VP, _VP]
 _MH_BWD = [_VP, _VP, _VP, _VP, _VP, _VP, _I32, _I32, _I32, _I32, _I32, _VP,
-           _VP, _VP, _VP]
+           _VP, _VP, _VP, _VP, _I64]
 _SPMM = [_VP, _I32, _VP, _VP, _VP, _I32, _I32, _I32, _VP, _VP, _VP, _VP]
 _SPMM_BWD = [_VP, _I32, _VP, _VP, _VP, _VP, _I32, _I32, _I32, _VP, _VP, _VP,
              _VP]
@@ -80,6 +80,8 @@ _SIGNATURES = {
     "bignn_segment_softmax_bwd_saved_bf16": _SOFTMAX_BWD,
     "bignn_spmm_multihead_fwd_f32": _MH_FWD,
     "bignn_spmm_multihead_fwd_bf16": _MH_FWD,
+    # edges, heads, head_dim, where to write the scratch's float count (int64)
+    "bignn_spmm_multihead_bwd_scratch": [_I32, _I32, _I32, _VP],
     "bignn_spmm_multihead_bwd_f32": _MH_BWD,
     "bignn_spmm_multihead_bwd_bf16": _MH_BWD,
     # positions, F, where to write the scratch's bytes (int64)

@@ -20,7 +20,6 @@ import torch.nn.functional as F
 from bignn_tpu_torch.ops import cuda_lib
 
 NEG = -1e30  # "minus infinity" that survives f32 arithmetic
-MAX_HEAD_DIM = 64  # limit of csrc/flash_gat.cu and csrc/flash_gat_bwd.cu
 
 
 def flash_row_max_plain(e, valid):
@@ -85,10 +84,9 @@ def _check(score_l, score_r, v, cnt, *more) -> tuple[int, int, int]:
     cuda_lib.require_cuda(cnt, "cnt", torch.float32, 2, dev)
     if tuple(cnt.shape) != (n, n):
         raise ValueError(f"cnt must be [{n}, {n}], got {tuple(cnt.shape)}")
-    if head_dim > MAX_HEAD_DIM:
-        raise NotImplementedError(
-            f"flash_gat kernels take head_dim <= {MAX_HEAD_DIM}, "
-            f"got {head_dim}")
+    if heads > 65535:  # the kernels' grid axis of heads
+        raise ValueError(f"flash_gat kernels take at most 65535 heads, "
+                         f"got {heads}")
     return n, heads, head_dim
 
 

@@ -24,13 +24,11 @@ packages differ by rounding.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from bignn_tpu_torch.ops import cuda_lib
-
-MAX_HEADS = 8  # limits of csrc/spmm_multihead.cu
-MAX_WIDTH = 256  # H * D
-
 
 def _alpha_wide(alpha: torch.Tensor, head_dim: int) -> torch.Tensor:
     """``[E, H] -> [E, H*D]``, each head's weight repeated over its D
@@ -108,10 +106,9 @@ def _check(v, src, dst, alpha, *more) -> tuple[int, int, int, int, str]:
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} must be {list(shape)}, "
                              f"got {tuple(t.shape)}")
-    if n < 1 or heads > MAX_HEADS or heads * head_dim > MAX_WIDTH:
-        raise NotImplementedError(
-            f"spmm_multihead kernels take N >= 1, heads <= {MAX_HEADS} and "
-            f"heads * head_dim <= {MAX_WIDTH}, got {tuple(v.shape)}")
+    if n < 1 or heads * head_dim > 2 ** 30:
+        raise ValueError(f"spmm_multihead kernels take N >= 1 and H * D <= "
+                         f"2**30, got {tuple(v.shape)}")
     return n, heads, head_dim, e, suffix
 
 
@@ -148,11 +145,19 @@ def spmm_multihead_bwd(v, src, dst, alpha, num_out, g, src_perm=None,
     d_alpha = torch.zeros_like(alpha)  # rows of edges with src outside [0, N)
     first = torch.empty(n, dtype=torch.int32, device=dev)
     last = torch.empty(n, dtype=torch.int32, device=dev)
+    # a head wider than a strip: its strips' partial dots
+    size = ctypes.c_int64()
+    cuda_lib.launch("bignn_spmm_multihead_bwd_scratch", dev, e, heads,
+                    head_dim, ctypes.addressof(size))
+    dot_part = (torch.zeros(size.value, dtype=torch.float32, device=dev)
+                if size.value else None)
     cuda_lib.launch(f"bignn_spmm_multihead_bwd_{suffix}", dev, v.data_ptr(),
                     g.data_ptr(), dst.data_ptr(), alpha.data_ptr(),
                     src_perm.data_ptr(), src_sorted.data_ptr(), e, n, num_out,
                     heads, head_dim, first.data_ptr(), last.data_ptr(),
-                    d_v.data_ptr(), d_alpha.data_ptr())
+                    d_v.data_ptr(), d_alpha.data_ptr(),
+                    None if dot_part is None else dot_part.data_ptr(),
+                    size.value)
     cuda_lib.count(spmm_multihead_bwd, v.dtype)
     return d_v, d_alpha
 

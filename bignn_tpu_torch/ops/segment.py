@@ -42,7 +42,6 @@ import torch
 from bignn_tpu_torch.ops import cuda_lib
 
 DENOM_FLOOR = 1e-16  # bignn_tpu/ops/pallas/segment.py:330
-MAX_HEADS = 8  # limit of csrc/segment_softmax.cu
 
 
 def _slots(segment_ids: torch.Tensor, num_segments: int):
@@ -213,8 +212,8 @@ def segment_softmax_bwd_plain(alpha: torch.Tensor, g: torch.Tensor,
 def _softmax_check(name: str, x: torch.Tensor, segment_ids: torch.Tensor,
                    *more: tuple[str, torch.Tensor]) -> None:
     """Check what the softmax kernels take: ``[E, H]`` float32 or bf16
-    (H <= 8; every tensor of one type) and ``[E]`` int32 ids, contiguous,
-    on one card. Returns the entry points' suffix."""
+    (every tensor of one type) and ``[E]`` int32 ids, contiguous, on one
+    card. Returns the entry points' suffix."""
     suffix = cuda_lib.require_float(x, name, "segment_softmax")
     dev = x.device
     cuda_lib.require_cuda(x, name, x.dtype, 2, dev)
@@ -227,10 +226,9 @@ def _softmax_check(name: str, x: torch.Tensor, segment_ids: torch.Tensor,
     if segment_ids.shape[0] != x.shape[0]:
         raise ValueError(f"segment_ids has {segment_ids.shape[0]} rows, "
                          f"{name} {x.shape[0]}")
-    if not 1 <= x.shape[1] <= MAX_HEADS:
-        raise NotImplementedError(
-            f"segment_softmax kernels take 1 to {MAX_HEADS} heads, got "
-            f"{x.shape[1]}")
+    if not 1 <= x.shape[1] <= 8 * 65535:  # groups of 8 on a grid axis
+        raise ValueError(f"segment_softmax kernels take 1 to {8 * 65535} "
+                         f"heads, got {x.shape[1]}")
     return suffix
 
 
@@ -328,8 +326,8 @@ class _SegmentSoftmax(torch.autograd.Function):
 
 def segment_softmax(scores: torch.Tensor, segment_ids: torch.Tensor,
                     num_segments: int) -> torch.Tensor:
-    """Softmax of ``scores`` (``[E, H]`` float32 or bf16, H <= 8 on the
-    card, or ``[E]``) within each segment, in float32, ``alpha`` in the
+    """Softmax of ``scores`` (``[E, H]`` float32 or bf16, or ``[E]``)
+    within each segment, in float32, ``alpha`` in the
     scores' type; rows with an id outside
     ``[0, num_segments)`` give exactly 0 and get a zero gradient.
     ``segment_ids`` is ``[E]`` int32, sorted for speed, right in any order.

@@ -292,6 +292,26 @@ Phases:
      K_RUN_RTOL and the test AUC within K_RUN_AUC of path I(iii)'s
      one-process run; the step medians beside M(ii)'s and M(vi)'s, each
      card's device busy over one traced step and its peak memory.
+  O. a wide BI-GNN, right after path J(i) (and M(iii)): configs 2 and 4
+     with wider layer specs (wide_config; their dtype, data and trainer as
+     registered). W1: gin:300 x2 -> gat:1024:4:identity (OGB's molecular
+     GIN width; GAT's PPI layers, 4 heads of 256); W2: gin:300 x2 ->
+     dotattn:768:32:identity (Graphormer's base width and heads). (i) Each
+     widened form against its plain version at the shapes its path gives
+     it, kernel time queued behind a device sleep (queued_ms), plain,
+     library and bound: rows 3/3b at config2's mask with H 4, D 256; rows
+     4 and 8 at config4's sampled batch (0, 0) with W1's and W2's heads,
+     bf16 and float32; row 6 at F 300 at the largest 16,384-drug bucket,
+     bf16 and float32, unweighted and weighted. (ii) config2 with W1,
+     O_STEPS full-graph steps (dense outer: the flash-GAT pair at head_dim
+     256), step 1 against the plain versions (GRAD_TOL), the losses fall.
+     (iii) config4's train_chunk_device (bf16, device-sampled, 100,000
+     drugs) with W1 and with W2: step 1 against the plain versions (a GAT's
+     a_l by its bf16 noise), O_CHUNKS chunks of C4_CHUNK steps, their step
+     ms and peak memory; rows 8 at H.D 1024 and at 32 heads and row 4 at
+     32 heads (DotAttn's softmax runs on float32 scores) must launch.
+     (iv) config4's model with W1 in the full-graph Trainer on 16,384 drugs,
+     O_FULL_STEPS steps: row 6 at F 300 must launch.
 Each path runs with the launch counts (per kernel and element type, e.g.
 segment_sum:bf16) set to 0 just before it and read just after; the kernels
 line reports the sum of the paths' counts, each form's error, times (kernel,
@@ -332,7 +352,12 @@ spmm_multihead:bf16:100k, segment_softmax{,_bwd}:{f32,bf16}:16k,
 spmm_multihead:f32:shard,
 segment_softmax{,_bwd}:f32:config4), and row 7 at path G(ii)'s GIN split
 (spmm_sorted_coo{,_bwd}:f32:hub), each with the launches of the paths
-that run that shape. The bf16 softmax forms are held to their plain
+that run that shape; path O's widened forms have rows of their own
+(flash_gat_attention{,_bwd}:f32:d256, spmm_multihead{,_bwd}:{bf16,f32}:w1
+and :w2, segment_softmax{,_bwd}:{f32,bf16}:w2,
+block_spmm{,_bwd}:{bf16,f32}{,:weighted}:f300), with the launches of the
+part of path O that runs them (0 for a form off the path). The bf16
+softmax forms are held to their plain
 versions value by value (BF16_STEP), and so are the weighted bf16 SpMMs
 (BF16_WEIGHTED); row 4's library call is torch.sparse.softmax
 (softmax_library). The 100K tensors are freed before
@@ -505,11 +530,14 @@ def flash_bwd_flops(n: int, heads: int, head_dim: int) -> tuple[int, int]:
 
 def record(results: dict, name: str, err: float, tol: float, kernel, plain,
            num_bytes: float, flops: float = 0.0, library=None,
-           reps: int = 10, tf32_flops: float = 0.0) -> None:
+           reps: int = 10, tf32_flops: float = 0.0,
+           queued: bool = False) -> None:
     """Time a kernel, its plain version and (where one exists) the one
     PyTorch call computing the same function; keep them with the error and
-    the bound (``bound_ms``) under ``name``."""
-    ms, plain_ms = cuda_ms(kernel, reps), cuda_ms(plain, reps)
+    the bound (``bound_ms``) under ``name``. ``queued``: the kernel's calls
+    queued behind a device sleep (``queued_ms``)."""
+    ms = queued_ms(kernel) if queued else cuda_ms(kernel, reps)
+    plain_ms = cuda_ms(plain, reps)
     lib_ms = cuda_ms(library, reps) if library is not None else None
     b, by = bound_ms(num_bytes, flops, tf32_flops)
     results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, tol=tol,
@@ -907,6 +935,11 @@ KERNELS = {
     **{f"block_spmm{b}:bf16{w}": ("bignn_tpu_torch/csrc/block_spmm.cu",
                                   "bignn_tpu/ops/pallas/block_spmm.py:57")
        for b in ("", "_bwd") for w in ("", ":weighted")},
+    # rows wider than 256 columns (path O(iv)'s F 300): the tiled forms
+    **{f"block_spmm{b}:{t}{w}:tiled": ("bignn_tpu_torch/csrc/block_spmm.cu",
+                                       "bignn_tpu/ops/pallas/block_spmm.py:57")
+       for b in ("", "_bwd") for t in ("f32", "bf16")
+       for w in ("", ":weighted")},
     "all_to_all:f32": ("bignn_tpu_torch/csrc/all_to_all.cu",
                        "bignn_tpu/ops/pallas/collectives.py:43"),
     # the exchange across processes (path K), counted in its processes:
@@ -921,8 +954,9 @@ KERNELS = {
 }
 # the forms a layout that is not block-local must not launch
 BLOCK_FORMS = ("block_adjacency:f32", "block_adjacency:int8",
-               *(f"block_spmm{b}:{t}{w}" for b in ("", "_bwd")
-                 for t in ("f32", "bf16") for w in ("", ":weighted")))
+               *(f"block_spmm{b}:{t}{w}{c}" for b in ("", "_bwd")
+                 for t in ("f32", "bf16") for w in ("", ":weighted")
+                 for c in ("", ":tiled")))
 # the float32 forms, which a bf16 model's forward must not launch
 F32_FORMS = tuple(f for f in KERNELS if f.split(":")[1] == "f32")
 
@@ -1276,9 +1310,10 @@ def _check_close(name: str, got, want, tol: float,
 
 def _compare(results: dict, name: str, kernel, plain, tol,
              num_bytes: float, flops: float = 0.0, library=None,
-             per_element: bool = False) -> None:
+             per_element: bool = False, queued: bool = False) -> None:
     """Hold a kernel to its plain version (``_check_close``; ``tol`` a
-    number, or ``(tol, per_element, max_share)``), then ``record`` it."""
+    number, or ``(tol, per_element, max_share)``), then ``record`` it
+    (``queued``: its kernel time queued behind a sleep)."""
     if isinstance(tol, tuple):
         tol, per_element, max_share = tol
     else:
@@ -1287,7 +1322,7 @@ def _compare(results: dict, name: str, kernel, plain, tol,
     err = _check_close(name, got, plain(), tol, per_element, max_share)
     outs = got if isinstance(got, tuple) else (got,)
     record(results, name, err, tol, kernel, plain,
-           num_bytes + nbytes(*outs), flops, library)
+           num_bytes + nbytes(*outs), flops, library, queued=queued)
 
 
 def sparse_config():
@@ -1562,12 +1597,15 @@ def _check_block_routes(buckets, launches: dict) -> None:
             f"for {small} buckets at or below the threshold")
 
 
-def block_spmm_kernels(dev, batch, dtype=torch.float32) -> dict:
+def block_spmm_kernels(dev, batch, dtype=torch.float32,
+                       feat: int = 128) -> dict:
     """Row 6's forms (forward and backward, unweighted and weighted) in
     ``dtype`` against their plain versions at a block-local bucket above
-    the threshold, F 128 (the weighted bf16 forms value by value,
+    the threshold, F ``feat`` (the weighted bf16 forms value by value,
     ``BF16_WEIGHTED``); the library call is a batched matmul over the dense
-    blocks in ``dtype`` (built outside the timing)."""
+    blocks in ``dtype`` (built outside the timing). Names carry
+    ``:f<feat>`` where F is not 128, whose kernel times are queued behind
+    a sleep."""
     from bignn_tpu_torch import ops
     from bignn_tpu_torch.ops import cuda_lib
 
@@ -1579,10 +1617,11 @@ def block_spmm_kernels(dev, batch, dtype=torch.float32) -> dict:
     tol = (SPARSE_TOL, BWD_TOL) if dtype == torch.float32 else (BF16_TOL,
                                                                 BF16_TOL)
     log(f"  kernels at rows {n} ({n // 128} blocks, {rows} real), edges "
-        f"{b.edge_cap} ({e_real} real), F 128, {t}")
+        f"{b.edge_cap} ({e_real} real), F {feat}, {t}")
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    x = torch.randn(n, 128, device=dev, generator=gen).to(dtype)
-    g = torch.randn(n, 128, device=dev, generator=gen).to(dtype)
+    x = torch.randn(n, feat, device=dev, generator=gen).to(dtype)
+    g = torch.randn(n, feat, device=dev, generator=gen).to(dtype)
+    shape = "" if feat == 128 else f":f{feat}"
     results = {}
     for w, tw, form in ((None, None, ""),
                         (b.edge_weight, b.edge_tweight, ":weighted")):
@@ -1596,23 +1635,25 @@ def block_spmm_kernels(dev, batch, dtype=torch.float32) -> dict:
         wbytes = 0 if w is None else nbytes(w[:e_real])
         fwd = (x, b.edge_src, b.edge_dst, w, b.block_estarts, b.edge_tsrc,
                b.edge_tdst, tw, b.block_tstarts, n)
-        _compare(results, f"block_spmm:{t}{form}",
+        _compare(results, f"block_spmm:{t}{form}{shape}",
                  lambda: ops.block_spmm(*fwd),
                  lambda: ops.block_spmm_plain(x, b.edge_src, b.edge_dst, w,
                                               num_nodes=n), tol[0],
                  nbytes(x[:rows], b.edge_src[:e_real], b.edge_dst[:e_real],
                         b.block_estarts) + wbytes,
-                 2 * e_real * 128,
-                 library=lambda: ops.block_diag_spmm(blocks, x))
+                 2 * e_real * feat,
+                 library=lambda: ops.block_diag_spmm(blocks, x),
+                 queued=feat != 128)
         bwd = (g, b.edge_tsrc, b.edge_tdst, tw, b.block_tstarts, n)
-        _compare(results, f"block_spmm_bwd:{t}{form}",
+        _compare(results, f"block_spmm_bwd:{t}{form}{shape}",
                  lambda: ops.block_spmm_bwd(*bwd),
                  lambda: ops.block_spmm_plain(*bwd[:4], num_nodes=n),
                  tol[1],
                  nbytes(g[:rows], b.edge_tsrc[:e_real], b.edge_tdst[:e_real],
                         b.block_tstarts) + wbytes,
-                 2 * e_real * 128,
-                 library=lambda: ops.block_diag_spmm(blocks_t, g))
+                 2 * e_real * feat,
+                 library=lambda: ops.block_diag_spmm(blocks_t, g),
+                 queued=feat != 128)
         del blocks, blocks_t
     return results
 
@@ -5063,6 +5104,281 @@ def run_n(cards, m_ref: dict, m_medians: list, one_run: dict,
 
 
 # ---------------------------------------------------------------------------
+# path O: a wide BI-GNN, configs 2 and 4 with wider layer specs
+# ---------------------------------------------------------------------------
+
+# W1 (config2 and config4): OGB's molecular GIN width inside (emb_dim 300,
+# examples/graphproppred/mol), GAT's PPI layers outside (4 heads of 256,
+# Velickovic et al. 2018, section 3.3); W2 (config4): the same inside,
+# Graphormer's base width and heads outside (768, 32; Ying et al. 2021)
+WIDE_INNER = ("gin:300", "gin:300")
+WIDE_OUTER = {"W1": ("gat:1024:4:identity",),
+              "W2": ("dotattn:768:32:identity",)}
+WIDE_SHAPES = {"W1": (4, 256), "W2": (32, 24)}  # (heads, head_dim) outside
+O_STEPS = 10  # O(ii): config2's full-graph steps with W1
+O_CHUNKS = 2  # O(iii): config4's chunks of C4_CHUNK steps, W1 and W2
+O_FULL_STEPS = 4  # O(iv): config4's model with W1 on 16,384 drugs
+
+
+def wide_config(name: str, wide: str):
+    """Config ``name`` with ``wide``'s layer specs (its dtype, readout,
+    scorer, data and trainer as registered)."""
+    from bignn_tpu_torch.config import get_config
+
+    cfg = get_config(name)
+    return get_config(name, model=dataclasses.replace(
+        cfg.model, inner_layers=WIDE_INNER, outer_layers=WIDE_OUTER[wide]))
+
+
+def wide_multihead_forms(dev, results: dict, tag: str, outer, n: int,
+                         heads: int, head_dim: int, dtypes) -> None:
+    """Rows 4 and 8 at ``heads`` x ``head_dim`` over an outer edge list of
+    ``n`` drugs, in each of ``dtypes`` (seeded scores, values, cotangents),
+    against their plain versions (``_compare``, kernel time queued), as
+    ``<form>:<dtype>:<tag>``; row 4 only where heads are above 8."""
+    from bignn_tpu_torch import ops
+    from bignn_tpu_torch.ops import cuda_lib
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    e = outer.edge_cap
+    dst, src = outer.edge_dst, outer.edge_src
+    perm, ssorted = outer.edge_src_perm, outer.edge_src_sorted
+    log(f"  kernels at N {n}, E {e}, H {heads}, D {head_dim}")
+    s32 = 3 * torch.randn(e, heads, device=dev, generator=gen)
+    g32 = torch.randn(e, heads, device=dev, generator=gen)
+    v32 = torch.randn(n, heads, head_dim, device=dev, generator=gen)
+    gv32 = torch.randn(n, heads, head_dim, device=dev, generator=gen)
+    for dt in dtypes:
+        t = cuda_lib.dtype_name(dt)
+        bf16 = dt == torch.bfloat16
+        s, g_e, v, gv = (x.to(dt) for x in (s32, g32, v32, gv32))
+        if heads > 8:
+            _compare(results, f"segment_softmax:{t}:{tag}",
+                     lambda: ops.segment_softmax(s, dst, n),
+                     lambda: ops.segment_softmax_plain(s, dst, n),
+                     BF16_STEP if bf16 else SPARSE_TOL, nbytes(s, dst),
+                     library=softmax_library(s, dst, n), per_element=bf16,
+                     queued=True)
+            kernel, plain, a_k, num_bytes = softmax_bwd_calls(s, g_e, dst, n)
+            _compare(results, f"segment_softmax_bwd:{t}:{tag}", kernel,
+                     plain, BF16_STEP if bf16 else BWD_TOL, num_bytes,
+                     library=softmax_library(a_k, dst, n, g_e),
+                     per_element=bf16, queued=True)
+            del kernel, plain, a_k
+        alpha = ops.segment_softmax_plain(s, dst, n)
+        width = heads * head_dim
+        _compare(results, f"spmm_multihead:{t}:{tag}",
+                 lambda: ops.spmm_multihead(v, src, dst, alpha, n),
+                 lambda: ops.spmm_multihead_plain(v, src, dst, alpha, n),
+                 BF16_TOL if bf16 else SPARSE_TOL,
+                 nbytes(v, src, dst, alpha), 2 * e * width,
+                 library=multihead_library(src, dst, alpha, n, v),
+                 queued=True)
+        mh = (v, src, dst, alpha, n, gv, perm, ssorted)
+        _compare(results, f"spmm_multihead_bwd:{t}:{tag}",
+                 lambda: ops.spmm_multihead_bwd(*mh),
+                 lambda: ops.spmm_multihead_bwd_plain(*mh),
+                 BF16_TOL if bf16 else BWD_TOL,
+                 nbytes(v, dst, alpha, gv, perm, ssorted), 4 * e * width,
+                 library=multihead_library(src, dst, alpha, n, v, gv),
+                 queued=True)
+        del s, g_e, v, gv, alpha, mh
+        torch.cuda.empty_cache()
+
+
+def run_wide_config2(dev, ds, outer_host) -> tuple[dict, dict]:
+    """O(i) rows 3 and 3b at config2's mask with W1's outer heads (H 4, D
+    256), then O(ii): config2 with W1, O_STEPS full-graph steps through
+    the kernels from the JAX init of SEED, step 1 against the same step
+    with the plain versions; the losses fall. Returns the steps' launch
+    counts and the kernel comparisons."""
+    from bignn_tpu_torch import ops
+    from bignn_tpu_torch.data import prepare_device_data
+    from bignn_tpu_torch.models import BiGNN
+    from bignn_tpu_torch.train import Trainer
+
+    cfg = wide_config("config2", "W1")
+    heads, head_dim = WIDE_SHAPES["W1"]
+    results = {}
+    n = ds.num_drugs
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    cnt = torch.as_tensor(outer_host.dense_cnt, device=dev)
+    sl = torch.randn(n, heads, device=dev, generator=gen)
+    sr = torch.randn(n, heads, device=dev, generator=gen)
+    v = torch.randn(n, heads, head_dim, device=dev, generator=gen)
+    log(f"  kernels at config2's mask: N {n}, H {heads}, D {head_dim}")
+    out, lse = ops.flash_gat_attention(sl, sr, v, cnt)
+    err = _check_close("flash_gat_attention:f32:d256", (out, lse),
+                       ops.flash_gat_attention_plain(sl, sr, v, cnt),
+                       FLASH_TOL)
+    flops, tf32_flops = flash_fwd_flops(n, heads, head_dim)
+    record(results, "flash_gat_attention:f32:d256", err, FLASH_TOL,
+           lambda: ops.flash_gat_attention(sl, sr, v, cnt),
+           lambda: ops.flash_gat_attention_plain(sl, sr, v, cnt),
+           nbytes(sl, sr, v, cnt, out, lse), flops, tf32_flops=tf32_flops,
+           queued=True)
+    g = torch.randn(n, heads, head_dim, device=dev, generator=gen)
+    args = (sl, sr, v, cnt, lse, out, g)
+    got = ops.flash_gat_attention_bwd(*args)
+    err = _check_close("flash_gat_attention_bwd:f32:d256", got,
+                       ops.flash_gat_attention_bwd_plain(*args), BWD_TOL)
+    flops, tf32_flops = flash_bwd_flops(n, heads, head_dim)
+    record(results, "flash_gat_attention_bwd:f32:d256", err, BWD_TOL,
+           lambda: ops.flash_gat_attention_bwd(*args),
+           lambda: ops.flash_gat_attention_bwd_plain(*args),
+           nbytes(*args, *got), flops, tf32_flops=tf32_flops, queued=True)
+    del cnt, sl, sr, v, out, lse, g, args, got
+    torch.cuda.empty_cache()
+
+    data = prepare_device_data(ds)
+    batches = _epoch_batches(data, cfg.train)[:O_STEPS]
+    log(f"  O(ii): config2 with W1 ({', '.join(cfg.model.inner_layers)} -> "
+        f"{cfg.model.readout} -> {cfg.model.outer_layers[0]} -> "
+        f"{cfg.model.scorer}), {len(batches)} steps")
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(BiGNN(cfg.model), data, cfg.train, device=dev)
+    params0, _ = trainer.init(SEED)
+    losses, grads = _timed_steps(trainer, batches, "kernels")
+    launches = read_counts()
+    log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+        f" GiB; launches: { {k: v for k, v in launches.items() if v} }")
+    require_launched(launches, ("flash_gat_attention:f32",
+                                "flash_gat_attention_bwd:f32",
+                                "segment_sum:f32", "block_adjacency:f32"),
+                     "on path O(ii)")
+    _check_learning(losses, grads)
+    with plain_ops():
+        plain = Trainer(BiGNN(cfg.model), data, cfg.train, device=dev)
+        plain.model.load_state_dict(params0)
+        plain_losses, plain_grads = _timed_steps(plain, batches[:1],
+                                                 "plain versions")
+    _check_step1(grads, plain_grads, losses[0], plain_losses[0],
+                 torch.float32)
+    if abs(losses[0] - plain_losses[0]) > 1e-4 * max(1.0,
+                                                     abs(plain_losses[0])):
+        raise AssertionError(f"path O(ii) step-1 loss {losses[0]} against "
+                             f"{plain_losses[0]}")
+    return launches, results
+
+
+def run_wide_config4(dev, ds) -> tuple[dict, dict]:
+    """O(iii): config4's MinibatchTrainer (bf16, device-sampled, 100,000
+    drugs) with W1 and with W2: rows 4 and 8 at the batch (0, 0)'s outer
+    edges and W's heads against their plain versions (O(i); float32 off the
+    path beside them), step 1 against the plain versions (a GAT's a_l by
+    its bf16 noise), then O_CHUNKS chunks of C4_CHUNK steps timed, with
+    their launches. Returns W -> launch counts, and the comparisons."""
+    from bignn_tpu_torch.models import BiGNN
+    from bignn_tpu_torch.train import MinibatchTrainer
+
+    counts, results = {}, {}
+    for wide in ("W1", "W2"):
+        cfg = wide_config("config4", wide)
+        heads, head_dim = WIDE_SHAPES[wide]
+        inner = ", ".join(cfg.model.inner_layers)
+        log(f"  O(iii) {wide}: config4 with {inner} -> "
+            f"{cfg.model.outer_layers[0]}, {cfg.model.dtype}")
+        t0 = time.perf_counter()
+        tr = MinibatchTrainer(
+            BiGNN(cfg.model, seed=SEED), ds, cfg.train, fanouts=cfg.fanouts,
+            max_drugs=cfg.max_drugs, dispatch_chunk=cfg.dispatch_chunk,
+            device_sample=cfg.device_sample, device=dev)
+        log(f"  MinibatchTrainer build {time.perf_counter() - t0:.3f} s")
+        d = tr.dsampler
+        tr.init(SEED)
+        cb, _ = d.sample(tr._dev_consts, d.key_at(0, 0))
+        outer = tr._derive_outer(cb)
+        wide_multihead_forms(dev, results, wide.lower(), outer,
+                             cb.drug_budget, heads, head_dim,
+                             (torch.bfloat16, torch.float32))
+        del outer
+        _step1_vs_plain(tr, cb, witness=True)
+        del cb
+        tr.init(SEED)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        losses, secs = [], []
+        for c in range(O_CHUNKS):
+            t0 = time.perf_counter()
+            ls, _ = tr.train_chunk_device(0, c * C4_CHUNK, C4_CHUNK)
+            sync_all()
+            secs.append(time.perf_counter() - t0)
+            losses.append(ls)
+        launches = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        losses = torch.cat(losses).float().cpu().numpy()
+        log(f"  {wide}: losses " + " ".join(f"{x:.5f}" for x in losses))
+        log(f"  {wide}: chunks " + " ".join(f"{x * 1e3:.3f}" for x in secs)
+            + f" ms; step {secs[-1] * 1e3 / C4_CHUNK:.3f} ms (last chunk / "
+            f"{C4_CHUNK}); peak device memory {peak:.2f} GiB on "
+            f"{card_line()}; launches "
+            f"{ {k: v for k, v in launches.items() if v} }")
+        if not np.all(np.isfinite(losses)):
+            raise AssertionError(f"path O(iii) {wide}: non-finite loss")
+        # GAT's scores are bf16; DotAttn's softmax runs on float32 scores
+        t = "bf16" if wide == "W1" else "f32"
+        require_launched(launches, (
+            "segment_sum:bf16", "block_adjacency:int8",
+            f"segment_softmax:{t}", f"segment_softmax_bwd:{t}",
+            "spmm_multihead:bf16", "spmm_multihead_bwd:bf16",
+            "gather_rows_sorted_grad_bwd:bf16"), f"on path O(iii) {wide}")
+        counts[wide] = launches
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+    return counts, results
+
+
+def run_wide_full(dev) -> tuple[dict, dict]:
+    """O(iv): config4's model with W1 (bf16) in the full-graph Trainer on
+    16,384 drugs, whose largest buckets lie above the block-dense threshold
+    and take row 6: first row 6 at F 300 (W1's inner width; bf16 and
+    float32, unweighted and weighted) at the largest bucket against its
+    plain versions, then O_FULL_STEPS steps through the kernels (no plain
+    step here: the plain multi-head backward would hold five [E, 1024]
+    float32 tensors, ~54 GB at this graph's 2.6M edges). Returns their
+    launch counts and the comparisons."""
+    from bignn_tpu_torch.data import load_dataset, prepare_device_data
+    from bignn_tpu_torch.models import BiGNN
+    from bignn_tpu_torch.train import Trainer
+
+    cfg = wide_config("config4", "W1")
+    t0 = time.perf_counter()
+    data = prepare_device_data(load_dataset(cfg.dataset,
+                                            num_drugs=cfg.max_drugs))
+    log(f"  O(iv): {cfg.max_drugs} drugs, data + layouts "
+        f"{time.perf_counter() - t0:.2f} s")
+    results = {}
+    big = max(data.bucketing.batches, key=lambda b: b.node_cap)
+    for dt in (torch.bfloat16, torch.float32):
+        results.update(block_spmm_kernels(dev, big, dt, feat=300))
+        torch.cuda.empty_cache()
+    batches = _epoch_batches(data, cfg.train)[:O_FULL_STEPS]
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(BiGNN(cfg.model), data, cfg.train, device=dev)
+    trainer.init(SEED)
+    losses, grads = _timed_steps(trainer, batches, "kernels")
+    launches = read_counts()
+    log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+        f" GiB on {card_line()}; launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    require_launched(launches, (
+        "block_spmm:bf16:tiled", "block_spmm_bwd:bf16:tiled",
+        "segment_sum:bf16", "segment_softmax:bf16",
+        "segment_softmax_bwd:bf16", "spmm_multihead:bf16",
+        "spmm_multihead_bwd:bf16"), "on path O(iv)")
+    _check_learning(losses, grads, fall=False)
+    del trainer, data
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, results
+
+
+# ---------------------------------------------------------------------------
 # path L: the samplers' learning gate on the card
 # ---------------------------------------------------------------------------
 
@@ -5259,9 +5575,26 @@ def main() -> int:
         log(f"== path M(iii): config4 on dp = 4 over {len(cards)} cards, "
             "beside phase 9's trainer")
         path_m.append(m_config4(cards, large, c4_trainer))
-    del large, c4_trainer
+    del c4_trainer
     gc.collect()
     torch.cuda.empty_cache()
+    log("== path O: the wide BI-GNN (GIN 300, GAT 4 x 256, DotAttn 32 "
+        "heads); (i) the widened forms, (ii) config2 with W1")
+    path_o0 = time.perf_counter()
+    o2, o_res = run_wide_config2(dev, ds, outer)
+    log("== path O(iii): config4's step with W1 and with W2, 100,000 drugs")
+    o3, o3_res = run_wide_config4(dev, large)
+    del large
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("== path O(iv): config4's model with W1, full graph of 16,384 drugs")
+    o4, o4_res = run_wide_full(dev)
+    for r in (o3_res, o4_res):
+        o_res.update(r)
+    counts += [o2, o3["W1"], o3["W2"], o4]
+    path_o_s = time.perf_counter() - path_o0
+    path_j0 += path_o_s  # path J's own seconds leave path O's out
+    log(f"path O: {path_o_s:.1f} s on {card_line()}")
     log("== path J(ii): config2's Trainer on dp = 4; (iii) tp")
     path_j += run_dp_tp_config2(dev, ds)
     if cards:
@@ -5338,7 +5671,8 @@ def main() -> int:
             f"{torch.cuda.device_count()}: not run")
     log("== path L: the samplers' learning gate, 3 seeds a mode")
     counts += run_learning_gate(dev)
-    for r in (fwd, fwd_bf16, bwd, c4, spmm, smax, spmm_bf16, a2a, a2a_small):
+    for r in (fwd, fwd_bf16, bwd, c4, spmm, smax, spmm_bf16, a2a, a2a_small,
+              o_res):
         results.update(r)
 
     def row(name: str, form: str, paths) -> dict:
@@ -5354,7 +5688,8 @@ def main() -> int:
     kernels = [row(form, form, counts) for form in KERNELS
                if form not in ("all_to_all:f32:procs",
                                "all_to_all:f32:hosts",
-                               "all_to_all:f32:cards")]
+                               "all_to_all:f32:cards")
+               and not form.endswith(":tiled")]
     # the exchange timed at config5's send buffers too, with the launches
     # of paths G and G(ii), which give it that shape; then across the
     # processes of path K, at config5's send buffers, with their launches:
@@ -5416,6 +5751,35 @@ def main() -> int:
              p2_counts[-1:]),
             ("spmm_sorted_coo_bwd:f32:hub",
              "spmm_sorted_coo_bwd:f32:weighted", p2_counts[-1:])):
+        kernels.append(row(name, form, paths))
+    # path O's widened forms at its shapes, each with the launches of the
+    # path that runs that shape (none for a form off the path: W2's
+    # softmax in bf16, the multi-head forms in float32 at config4's batch;
+    # row 6 at F 300 counts its tiled forms on O(iv), whose bf16 model runs
+    # the unweighted bf16 ones alone)
+    for name, form, paths in (
+            ("flash_gat_attention:f32:d256", "flash_gat_attention:f32",
+             [o2]),
+            ("flash_gat_attention_bwd:f32:d256",
+             "flash_gat_attention_bwd:f32", [o2]),
+            ("spmm_multihead:bf16:w1", "spmm_multihead:bf16", [o3["W1"]]),
+            ("spmm_multihead_bwd:bf16:w1", "spmm_multihead_bwd:bf16",
+             [o3["W1"]]),
+            ("spmm_multihead:f32:w1", "spmm_multihead:f32", []),
+            ("spmm_multihead_bwd:f32:w1", "spmm_multihead_bwd:f32", []),
+            ("segment_softmax:f32:w2", "segment_softmax:f32", [o3["W2"]]),
+            ("segment_softmax_bwd:f32:w2", "segment_softmax_bwd:f32",
+             [o3["W2"]]),
+            ("segment_softmax:bf16:w2", "segment_softmax:bf16", []),
+            ("segment_softmax_bwd:bf16:w2", "segment_softmax_bwd:bf16", []),
+            ("spmm_multihead:bf16:w2", "spmm_multihead:bf16", [o3["W2"]]),
+            ("spmm_multihead_bwd:bf16:w2", "spmm_multihead_bwd:bf16",
+             [o3["W2"]]),
+            ("spmm_multihead:f32:w2", "spmm_multihead:f32", []),
+            ("spmm_multihead_bwd:f32:w2", "spmm_multihead_bwd:f32", []),
+            *((f"block_spmm{b}:{t}{w}:f300", f"block_spmm{b}:{t}{w}:tiled",
+               [o4]) for t in ("bf16", "f32") for b in ("", "_bwd")
+              for w in ("", ":weighted"))):
         kernels.append(row(name, form, paths))
     log(f"smoke: {time.perf_counter() - t_start:.1f} s from start to the "
         "kernels line")

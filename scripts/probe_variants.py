@@ -124,7 +124,7 @@ def call_mhb(entries, t, v, src, dst, alpha, n_out, g, perm, ssorted):
         v.data_ptr(), g.data_ptr(), dst.data_ptr(), alpha.data_ptr(),
         perm.data_ptr(), ssorted.data_ptr(), src.shape[0], n, n_out, heads,
         head_dim, first.data_ptr(), last.data_ptr(), d_v.data_ptr(),
-        d_alpha.data_ptr(), _stream()), (d_v, d_alpha)
+        d_alpha.data_ptr(), None, 0, _stream()), (d_v, d_alpha)
 
 
 def call_mhf(entries, t, v, src, dst, alpha, n_out):

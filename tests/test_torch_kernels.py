@@ -15,6 +15,7 @@ so they differ by at most one bf16 rounding of nearly equal sums (BF16_TOL,
 rtol 1e-2 > 2**-7).
 """
 
+import ctypes
 import itertools
 import zlib
 from unittest import mock
@@ -24,6 +25,7 @@ import pytest
 import torch
 
 from bignn_tpu_torch import ops
+from bignn_tpu_torch.ops import cuda_lib
 from bignn_tpu_torch.ops.segment import (segment_bounds_plain,
                                          segment_sum_launch)
 
@@ -378,9 +380,122 @@ def _off16(t: torch.Tensor) -> torch.Tensor:
     return flat[1:].view(t.shape)
 
 
+def _transposed_plan(bsrc, bdst, bn):
+    """The source-sorted plan ``(tsrc, tdst, tstarts, order)`` of a
+    dst-sorted block-local edge list (``order`` takes a forward weight to
+    the plan's), as the backward of ``block_spmm`` takes it."""
+    order = np.argsort(bsrc, kind="stable")
+    real = bdst < bn
+    tdst = np.where(real[order], bsrc[order], bn).astype(np.int32)
+    tsrc = np.where(real[order], bdst[order], 0).astype(np.int32)
+    tord = np.argsort(tdst, kind="stable")
+    tst = np.searchsorted(tdst[tord], np.arange(0, bn + 1, 128)).astype(
+        np.int32)
+    return tsrc[tord], tdst[tord], tst, order[tord]
+
+
+# the widths and head counts past the kernels' former caps (8 heads, 256
+# columns of a multi-head row or a block-local row, head_dim 64 of the
+# flash-GAT kernels): (H, D) of the multi-head SpMM, H of the softmax, F
+# of the block-local SpMM, head_dim of the flash-GAT pair
+WIDE_MH = ((4, 256), (32, 24), (2, 512), (4, 72), (9, 8), (3, 300))
+WIDE_SOFTMAX = (9, 16, 32)
+WIDE_BLOCK = (300, 1024)
+WIDE_FLASH = ((2, 72), (3, 128), (2, 256), (1, 300))
+
+
+def _wide_cases(device):
+    """name -> (kernel call, plain call) at the wide shapes (``WIDE_*``),
+    float32 and bf16 where the form exists, forward and backward, on small
+    inputs on ``device``. Its own generator: the other cases' draws stay as
+    they were."""
+    rng = np.random.default_rng(23)
+    bf = torch.bfloat16
+    cases = {}
+    for heads in WIDE_SOFTMAX:
+        ids = np.sort(np.concatenate([rng.integers(0, 37, 700),
+                                      np.full(30, 40)])).astype(np.int32)
+        x, g, ids_t = _on(device, 4 * rng.standard_normal(
+            (len(ids), heads)).astype(np.float32), rng.standard_normal(
+            (len(ids), heads)).astype(np.float32), ids)
+        for dt, xt, gt in (("f32", x, g), ("bf16", x.to(bf), g.to(bf))):
+            alpha = ops.segment_softmax_plain(xt, ids_t, 40)
+            cases[f"wide_softmax_{dt}_h{heads}"] = (
+                lambda x=xt, i=ids_t: ops.segment_softmax(x, i, 40),
+                lambda x=xt, i=ids_t: ops.segment_softmax_plain(x, i, 40))
+            cases[f"wide_softmax_bwd_{dt}_h{heads}"] = (
+                lambda a=alpha, g=gt, i=ids_t: ops.segment_softmax_bwd(
+                    a, g, i, 40),
+                lambda a=alpha, g=gt, i=ids_t: ops.segment_softmax_bwd_plain(
+                    a, g, i, 40))
+    for heads, head_dim in WIDE_MH:
+        n = 40
+        src, dst, perm, ssorted = _on(device, *_edge_list(rng, n, 400))
+        v, alpha, g = _on(device, rng.standard_normal(
+            (n, heads, head_dim)).astype(np.float32), rng.random(
+            (len(src), heads)).astype(np.float32), rng.standard_normal(
+            (n, heads, head_dim)).astype(np.float32))
+        for dt, cast in (("f32", lambda t: t), ("bf16", lambda t: t.to(bf))):
+            args = (cast(v), src, dst, cast(alpha), n)
+            tag = f"{dt}_h{heads}d{head_dim}"
+            cases[f"wide_mh_{tag}"] = (
+                lambda a=args: ops.spmm_multihead(*a),
+                lambda a=args: ops.spmm_multihead_plain(*a))
+            cases[f"wide_mh_bwd_{tag}"] = (
+                lambda a=args, g=cast(g), p=perm, s=ssorted:
+                    ops.spmm_multihead_bwd(*a, g, p, s),
+                lambda a=args, g=cast(g): ops.spmm_multihead_bwd_plain(*a, g))
+    for feat in WIDE_BLOCK:
+        bsrc, bdst, best, bn = _block_local_edges(rng, 3)
+        bsrc[5] = (bsrc[5] + 200) % bn  # a source outside its block: dropped
+        tsrc, tdst, tst, order = _transposed_plan(bsrc, bdst, bn)
+        w = np.where(bdst < bn, rng.random(len(bsrc)), 0).astype(np.float32)
+        s_, d_, e_, ts_, td_, tt_, w_, tw_, x = _on(
+            device, bsrc, bdst, best, tsrc, tdst, tst, w, w[order],
+            rng.standard_normal((bn, feat)).astype(np.float32))
+        for (dt, xt), (wt, twt, wname) in itertools.product(
+                (("f32", x), ("bf16", x.to(bf))),
+                ((None, None, ""), (w_, tw_, "_weighted"))):
+            cases[f"wide_block_spmm{wname}_{dt}_f{feat}"] = (
+                lambda a=(xt, s_, d_, wt, e_, ts_, td_, twt, tt_, bn):
+                    ops.block_spmm(*a),
+                lambda a=(xt, s_, d_, wt): ops.block_spmm_plain(
+                    *a, num_nodes=bn))
+            cases[f"wide_block_spmm_bwd{wname}_{dt}_f{feat}"] = (
+                lambda a=(xt, ts_, td_, twt, tt_, bn): ops.block_spmm_bwd(*a),
+                lambda a=(xt, ts_, td_, twt): ops.block_spmm_plain(
+                    *a, num_nodes=bn))
+    for heads, head_dim in WIDE_FLASH:
+        fwd = _on(device, *_gat_inputs(rng, 45, heads, head_dim))
+        bwd = _bwd_inputs(rng, 70, heads, head_dim, device)
+        cases[f"wide_flash_d{head_dim}"] = (
+            lambda a=fwd: ops.flash_gat_attention(*a),
+            lambda a=fwd: ops.flash_gat_attention_plain(*a))
+        cases[f"wide_flash_bwd_d{head_dim}"] = (
+            lambda a=bwd: ops.flash_gat_attention_bwd(*a),
+            lambda a=bwd: ops.flash_gat_attention_bwd_plain(*a))
+    return cases
+
+
+# wide case prefix -> the wrapper that counts its launches
+WIDE_OPS = (("wide_softmax_bwd", "segment_softmax_bwd"),
+            ("wide_softmax", "segment_softmax"),
+            ("wide_mh_bwd", "spmm_multihead_bwd"),
+            ("wide_mh", "spmm_multihead"),
+            ("wide_block_spmm_bwd", "block_spmm_bwd"),
+            ("wide_block_spmm", "block_spmm"),
+            ("wide_flash_bwd", "flash_gat_attention_bwd"),
+            ("wide_flash", "flash_gat_attention"))
+
+
+def _wide_op(case: str):
+    return getattr(ops, next(op for pre, op in WIDE_OPS
+                             if case.startswith(pre + "_")))
+
+
 def _sparse_cases(device):
     """name -> (kernel call, plain call) for the sparse-outer GAT kernels,
-    on small inputs on ``device``."""
+    on small inputs on ``device``, and the wide cases (``_wide_cases``)."""
     rng = np.random.default_rng(3)
     cases = {}
     for tag, n_seg, heads, ids in (
@@ -442,9 +557,18 @@ def _sparse_cases(device):
         lambda: ops.gather_rows_sorted_grad_bwd(table, src, 40, perm, ssorted),
         lambda: ops.gather_rows_sorted_grad_bwd_plain(table, src, 40, perm,
                                                       ssorted))
+    cases.update(_wide_cases(device))
     return cases
 
 
+WIDE_CASES = [
+    *(f"wide_softmax{b}_{d}_h{h}" for b in ("", "_bwd")
+      for d in ("f32", "bf16") for h in WIDE_SOFTMAX),
+    *(f"wide_mh{b}_{d}_h{h}d{k}" for b in ("", "_bwd")
+      for d in ("f32", "bf16") for h, k in WIDE_MH),
+    *(f"wide_block_spmm{b}{w}_{d}_f{f}" for b in ("", "_bwd")
+      for w in ("", "_weighted") for d in ("f32", "bf16") for f in WIDE_BLOCK),
+    *(f"wide_flash{b}_d{k}" for b in ("", "_bwd") for _, k in WIDE_FLASH)]
 MH_TAGS = ("h4d32", "h8d32", "h2d3", "unsorted", "h1d32", "h1d3", "h4d3",
            "h8d3")
 SOFTMAX_HARD = ("lengths_h1", "lengths_h3", "lengths_h8", "unaligned",
@@ -458,7 +582,7 @@ SPARSE_CASES = [
                                                 "hubdst")),
     *(f"spmm_multihead_bwd_{t}" for t in MH_TAGS + (
         "argsort", "hub", "empty", "unaligned")),
-    "gather_bwd_sorted", "gather_bwd_perm"]
+    "gather_bwd_sorted", "gather_bwd_perm", *WIDE_CASES]
 
 
 def test_sparse_case_names_are_complete():
@@ -470,7 +594,9 @@ def test_sparse_plain_cases_run_on_cpu():
     case agree exactly, and no launch is counted."""
     counted = (ops.segment_softmax, ops.segment_softmax_bwd,
                ops.spmm_multihead, ops.spmm_multihead_bwd,
-               ops.gather_rows_sorted_grad_bwd)
+               ops.gather_rows_sorted_grad_bwd, ops.block_spmm,
+               ops.block_spmm_bwd, ops.flash_gat_attention,
+               ops.flash_gat_attention_bwd)
     before = [k.launches for k in counted]
     for name, (kernel, plain) in _sparse_cases("cpu").items():
         got, want = kernel(), plain()
@@ -590,10 +716,15 @@ def test_launch_counts_and_limits_on_card(cuda_device):
     cases["flash_gat_h4"][1]()  # the plain version counts nothing
     assert (ops.segment_sum.launches, ops.flash_gat_attention.launches) == (
         before[0] + 1, before[1] + 1)
-    s = torch.zeros(8, 2, device=cuda_device)
-    v = torch.zeros(8, 2, 72, device=cuda_device)  # head_dim over the limit
-    with pytest.raises(NotImplementedError, match="head_dim"):
-        ops.flash_gat_attention(s, s, v, torch.zeros(8, 8, device=cuda_device))
+    # head_dim 72 (once over the kernels' limit of 64): the kernel, as the
+    # plain version computes it
+    sl, sr, v, cnt = _on(cuda_device, *_gat_inputs(np.random.default_rng(5),
+                                                   8, 2, 72))
+    before = ops.flash_gat_attention.launches
+    got = ops.flash_gat_attention(sl, sr, v, cnt)
+    assert ops.flash_gat_attention.launches == before + 1
+    for g, w in zip(got, ops.flash_gat_attention_plain(sl, sr, v, cnt)):
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), **TOL)
     with pytest.raises(NotImplementedError, match="float32 or bfloat16"):
         ops.segment_sum(torch.zeros(4, 2, dtype=torch.float16,
                                     device=cuda_device),
@@ -613,21 +744,33 @@ def test_backward_kernel_counts_and_refuses_on_card(cuda_device):
     strided = g.transpose(0, 1).contiguous().transpose(0, 1)
     with pytest.raises(ValueError, match="contiguous"):
         ops.flash_gat_attention_bwd(sl, sr, v, cnt, lse, out, strided)
-    wide = torch.zeros(50, 2, 72, device=cuda_device)  # head_dim over 64
-    with pytest.raises(NotImplementedError, match="head_dim"):
-        ops.flash_gat_attention_bwd(sl, sr, wide, cnt, lse, wide, wide)
+    # head_dim 72 (once over the kernel's limit of 64)
+    wide = _bwd_inputs(rng, 50, 2, 72, cuda_device)
+    before = ops.flash_gat_attention_bwd.launches
+    got = ops.flash_gat_attention_bwd(*wide)
+    assert ops.flash_gat_attention_bwd.launches == before + 1
+    for g, w in zip(got, ops.flash_gat_attention_bwd_plain(*wide)):
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
+                                   **GRAD_TOL)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", SPARSE_CASES)
 def test_sparse_kernel_matches_plain_on_card(cuda_device, case):
     kernel, plain = _sparse_cases(cuda_device)[case]
+    before = _wide_op(case).launches if case.startswith("wide_") else 0
     got, want = kernel(), plain()
     torch.cuda.synchronize()
-    tol = GRAD_TOL if "bwd" in case else TOL
+    if case.startswith("wide_"):  # the kernel ran, at the wide shape
+        assert _wide_op(case).launches == before + 1, case
+    tol = (BF16_TOL if "bf16" in case else GRAD_TOL if "bwd" in case
+           else TOL)
     for g, w in zip(got if isinstance(got, tuple) else (got,),
                     want if isinstance(want, tuple) else (want,)):
-        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), **tol)
+        assert g.dtype == w.dtype and g.shape == w.shape, case
+        np.testing.assert_allclose(g.float().cpu().numpy(),
+                                   w.float().cpu().numpy(), **tol,
+                                   err_msg=case)
 
 
 @pytest.mark.gpu
@@ -645,7 +788,8 @@ def test_sparse_kernels_repeat_bit_for_bit_and_count(cuda_device):
                          ("spmm_multihead", "spmm_multihead_hubdst"),
                          ("spmm_multihead_bwd", "spmm_multihead_bwd_h4d32"),
                          ("spmm_multihead_bwd", "spmm_multihead_bwd_hub"),
-                         ("gather_rows_sorted_grad_bwd", "gather_bwd_perm")):
+                         ("gather_rows_sorted_grad_bwd", "gather_bwd_perm"),
+                         *((_wide_op(c).__name__, c) for c in WIDE_CASES)):
         op = getattr(ops, name)
         before = op.launches
         a, b = cases[kernel][0](), cases[kernel][0]()
@@ -658,18 +802,47 @@ def test_sparse_kernels_repeat_bit_for_bit_and_count(cuda_device):
 
 @pytest.mark.gpu
 def test_sparse_kernels_refuse_on_card(cuda_device):
-    z = torch.zeros(16, 9, device=cuda_device)
+    rng = np.random.default_rng(6)
+    z, alpha = _on(cuda_device, rng.standard_normal((16, 9)).astype(
+        np.float32), rng.random((16, 4)).astype(np.float32))
     ids = torch.zeros(16, dtype=torch.int32, device=cuda_device)
-    with pytest.raises(NotImplementedError, match="heads"):
-        ops.segment_softmax(z, ids, 4)  # 9 heads, the kernel takes <= 8
+    # 9 heads and H * D = 288 (once over the kernels' limits of 8 and 256):
+    # each kernel launches and agrees with its plain version
+    before = (ops.segment_softmax.launches, ops.spmm_multihead.launches)
+    np.testing.assert_allclose(
+        ops.segment_softmax(z, ids, 4).cpu().numpy(),
+        ops.segment_softmax_plain(z, ids, 4).cpu().numpy(), **TOL)
+    (v,) = _on(cuda_device, rng.standard_normal((8, 4, 72)).astype(
+        np.float32))
+    np.testing.assert_allclose(
+        ops.spmm_multihead(v, ids, ids, alpha, 8).cpu().numpy(),
+        ops.spmm_multihead_plain(v, ids, ids, alpha, 8).cpu().numpy(), **TOL)
+    assert (ops.segment_softmax.launches, ops.spmm_multihead.launches) == (
+        before[0] + 1, before[1] + 1)
     with pytest.raises(ValueError, match="int32"):
         ops.segment_softmax(z[:, :4].contiguous(), ids.long(), 4)
-    v = torch.zeros(8, 4, 72, device=cuda_device)  # H * D = 288 > 256
-    with pytest.raises(NotImplementedError, match="head_dim"):
-        ops.spmm_multihead(v, ids, ids, z[:, :4].contiguous(), 8)
     v = torch.zeros(8, 4, 8, device=cuda_device)
     with pytest.raises(ValueError, match="contiguous"):
         ops.spmm_multihead(v, ids, ids, z[:, :8:2], 8)
+    # the backward of a head wider than a strip (D 300: two strips) takes
+    # a scratch of the size its query gives, and refuses a shorter one
+    size = ctypes.c_int64()
+    cuda_lib.launch("bignn_spmm_multihead_bwd_scratch", cuda_device, 16, 2,
+                    300, ctypes.addressof(size))
+    assert size.value == 2 * 16 * 2
+    v, g = (torch.zeros(8, 2, 300, device=cuda_device) for _ in range(2))
+    a2 = alpha[:, :2].contiguous()
+    d_v, d_a = torch.empty_like(v), torch.zeros_like(a2)
+    first, last = (torch.empty(8, dtype=torch.int32, device=cuda_device)
+                   for _ in range(2))
+    part = torch.zeros(size.value - 1, device=cuda_device)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        cuda_lib.launch("bignn_spmm_multihead_bwd_f32", cuda_device,
+                        v.data_ptr(), g.data_ptr(), ids.data_ptr(),
+                        a2.data_ptr(), ids.data_ptr(), ids.data_ptr(), 16, 8,
+                        8, 2, 300, first.data_ptr(), last.data_ptr(),
+                        d_v.data_ptr(), d_a.data_ptr(), part.data_ptr(),
+                        size.value - 1)
 
 
 @pytest.mark.gpu
@@ -775,8 +948,6 @@ def test_spmm_multihead_fwd_unaligned_out_on_card(cuda_device, dtype):
     """The forward's entry point with out (and then v too) 4 (f32) or 2
     (bf16) bytes off 16, which the wrapper never passes: single values, the
     plain version's result."""
-    from bignn_tpu_torch.ops import cuda_lib
-
     rng = np.random.default_rng(17)
     n, heads, head_dim = 60, 4, 32
     src, dst, _, _ = _on(cuda_device, *_edge_list(rng, n, 600))
@@ -1092,16 +1263,9 @@ def _streaming_cases(device):
                 np.int32)
             best = np.searchsorted(bdst, np.arange(0, bn + 1, 128)).astype(
                 np.int32)
-        order = np.argsort(bsrc, kind="stable")
-        real = bdst < bn
-        tdst = np.where(real[order], bsrc[order], bn).astype(np.int32)
-        tsrc = np.where(real[order], bdst[order], 0).astype(np.int32)
-        tord = np.argsort(tdst, kind="stable")
-        tsrc, tdst = tsrc[tord], tdst[tord]
-        tst = np.searchsorted(tdst, np.arange(0, bn + 1, 128)).astype(
-            np.int32)
-        w = np.where(real, rng.random(len(bsrc)), 0).astype(np.float32)
-        t = _on(device, bsrc, bdst, best, tsrc, tdst, tst, w, w[order][tord],
+        tsrc, tdst, tst, order = _transposed_plan(bsrc, bdst, bn)
+        w = np.where(bdst < bn, rng.random(len(bsrc)), 0).astype(np.float32)
+        t = _on(device, bsrc, bdst, best, tsrc, tdst, tst, w, w[order],
                 rng.standard_normal((bn, feat)).astype(np.float32))
         s_, d_, e_, ts_, td_, tt_, w_, tw_, x32 = t
         forms = ([] if bf16_only else [("", x32)]) + (
@@ -1371,10 +1535,20 @@ def test_streaming_kernels_refuse_on_card(cuda_device):
     x = torch.zeros(128, 8, device=cuda_device)
     with pytest.raises(ValueError, match="int32"):
         ops.spmm_sorted_coo(x, ids.long(), ids, None, 16)
-    est = torch.zeros(2, dtype=torch.int32, device=cuda_device)
-    wide = torch.zeros(128, 300, device=cuda_device)  # F over 256
-    with pytest.raises(NotImplementedError, match="256"):
-        ops.block_spmm(wide, ids, ids, None, est, ids, ids, None, est, 128)
+    est = torch.tensor([0, 16], dtype=torch.int32, device=cuda_device)
+    # F 300 (once over the kernel's limit of 256): it launches, counted as
+    # its tiled form, and every edge (0 -> 0) sums row 0 sixteen times
+    (wide,) = _on(cuda_device, np.random.default_rng(8).standard_normal(
+        (128, 300)).astype(np.float32))
+    before = ops.block_spmm.launches
+    tiled = ops.block_spmm.launches_by_dtype.get("f32:tiled", 0)
+    got = ops.block_spmm(wide, ids, ids, None, est, ids, ids, None, est, 128)
+    assert ops.block_spmm.launches == before + 1
+    assert ops.block_spmm.launches_by_dtype["f32:tiled"] == tiled + 1
+    np.testing.assert_allclose(
+        got.cpu().numpy(), ops.block_spmm_plain(wide, ids, ids, None,
+                                                num_nodes=128).cpu().numpy(),
+        **GRAD_TOL)
     with pytest.raises(ValueError, match="128-row"):
         ops.block_spmm(x[:100], ids, ids, None, est, ids, ids, None, est,
                        100)
