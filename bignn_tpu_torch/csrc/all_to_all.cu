@@ -65,6 +65,24 @@
 // by falling back to a library copy. The kSync form caps its grid at one
 // wave of the card (kWaveBlocks), the pieces of a pair walked in a loop.
 //
+// Any number of shards G and of cards. Up to kInline of each, a launch
+// takes its pointers by value (Inline: config5's 4 shards, config5-large's
+// 8). Past that they would outgrow the launch's parameters, so the wrapper
+// fills a table of 64-bit words in device memory (Table: send[G], recv[G],
+// card_of[G], the launch's destinations, the cards' signal areas), copied
+// in stream order before the launch; indices are 32-bit. The G * G pairs
+// (or a launch's destinations times G) lie on gridDim.y up to its 65,535
+// rows (the kSync form: up to one wave), each block walking pairs
+// blockIdx.y, blockIdx.y + gridDim.y, ... So past 1,056 pairs the kSync
+// grid stays one wave: every block is resident, and a block only ever
+// waits on other cards' arrivals (their first block to run stores them)
+// and, the launch's last block, on every card's "done", which each card's
+// last block stores once all of that card's blocks have counted. The
+// drain counts gridDim.x * gridDim.y blocks, each once after its pairs.
+// A card's signal area grows with the cards: arrived[] at word kArrived,
+// done[] after it, each rounded up to 32 words, at least kSignalBytes
+// (ops/collectives.py signal_bytes, which sizes and zeroes it).
+//
 // What bounds it on the H100: device-memory bytes, each send byte read once
 // and each receive byte written once, 2 * G * G * S * F * sizeof(T) over
 // 3.35 TB/s (config5-large in f32: 845 MB, 0.252 ms). At config5's
@@ -76,48 +94,87 @@
 
 #include <cstdint>
 #include <cstring>
+#include <type_traits>
 
 namespace {
 
-constexpr int kMaxShards = 32;
-constexpr int kMaxCards = kMaxShards;
+// shards (and cards) whose pointers a launch takes by value; more go
+// through a table in device memory (Table)
+constexpr int kInline = 32;
 constexpr int kThreads = 256;
 constexpr long long kMaxPieces = 1LL << 20;
+constexpr long long kMaxRows = 65535;  // gridDim.y
 // words a thread loads before it stores any
 constexpr int kUnroll = 4;
 // the kSync form's most blocks: one wave of 256-thread blocks on the
 // H100's 132 SMs (8 a SM)
 constexpr int kWaveBlocks = 1056;
+// blocks an SM holds at least (the launch bounds: at most 32 registers a
+// thread), so that one wave of kWaveBlocks is resident; the pair tables'
+// forms took 48-64 registers without it, 5 blocks an SM, and row 9 across
+// four cards at config5-large's buffers ran 13 % slower
+constexpr int kMinBlocks = 8;
 // 0 leaves out the kSync form's copy: the semaphores alone, a measurement
 // of scripts/probe_variants.py (kind a2a), which edits these constants in
 // a copy of this file
 constexpr int kCopy = 1;
 
-// a card's signal area: 32-bit words (ops/collectives.py SIGNAL_BYTES)
-constexpr int kSignalBytes = 1024;
+// a card's signal area: 32-bit words (ops/collectives.py signal_bytes)
+constexpr int kSignalBytes = 1024;  // its least size (up to 32 cards)
 constexpr int kEpoch = 0;     // the epoch of the card's last exchange
 constexpr int kStarted = 1;   // the epoch whose first block has arrived
 constexpr int kBlocks = 2;    // blocks of the current launch that copied
 constexpr int kAbort = 3;     // set once a wait has expired
-constexpr int kArrived = 32;  // [kMaxCards], a cache line of their own
-constexpr int kDone = 64;     // [kMaxCards]
-static_assert((kDone + kMaxCards) * 4 <= kSignalBytes, "signal area");
+constexpr int kArrived = 32;  // [cards], from a cache line of their own
+static_assert(4 * (kArrived + 2 * 32) <= kSignalBytes, "signal area");
 
-// the error word: the wait that expired, and the card it waited on + 1
-constexpr unsigned kWaitArrive = 1u << 8;
-constexpr unsigned kWaitDone = 2u << 8;
+// done[cards] follows arrived[], both rounded up to 32 words (64 at up to
+// 32 cards)
+__host__ __device__ inline int done_word(int cards) {
+  return kArrived + (cards + 31) / 32 * 32;
+}
 
-struct Pairs {
-  const unsigned char* send[kMaxShards];  // slot j at j * chunk
-  unsigned char* recv[kMaxShards];        // slot i at i * chunk
-  unsigned char rows[kMaxShards];         // the launch's destinations j
-  unsigned char cols[kMaxShards];         // the launch's sources i
-  unsigned char card_of[kMaxShards];      // each shard's card (kSync)
+// the error word: the wait that expired (top two bits), and the card it
+// waited on + 1
+constexpr unsigned kWaitArrive = 1u << 30;
+constexpr unsigned kWaitDone = 2u << 30;
+
+// A launch's pairs by value (G and cards up to kInline): every shard's
+// send and receive buffer, the launch's destinations, each shard's card,
+// every card's signal area as this card maps it (kSync).
+struct Inline {
+  const unsigned char* send[kInline];  // slot j at j * chunk
+  unsigned char* recv[kInline];        // slot i at i * chunk
+  unsigned char rows[kInline];         // the launch's destinations j
+  unsigned char card_of[kInline];      // each shard's card (kSync)
+  unsigned int* area[kInline];
+  __device__ const unsigned char* src(int i) const { return send[i]; }
+  __device__ unsigned char* dst(int j) const { return recv[j]; }
+  __device__ int row(int r) const { return rows[r]; }
+  __device__ int card(int s) const { return card_of[s]; }
+  __device__ unsigned int* area_of(int q) const { return area[q]; }
+};
+
+// The same in device memory that the wrapper fills, 64-bit words:
+// send[g], recv[g], card_of[g], rows[n_rows], area[cards].
+struct Table {
+  const unsigned long long* t;
+  int g, n_rows;
+  __device__ const unsigned char* src(int i) const {
+    return reinterpret_cast<const unsigned char*>(t[i]);
+  }
+  __device__ unsigned char* dst(int j) const {
+    return reinterpret_cast<unsigned char*>(t[g + j]);
+  }
+  __device__ int card(int s) const { return static_cast<int>(t[2 * g + s]); }
+  __device__ int row(int r) const { return static_cast<int>(t[3 * g + r]); }
+  __device__ unsigned int* area_of(int q) const {
+    return reinterpret_cast<unsigned int*>(t[3 * g + n_rows + q]);
+  }
 };
 
 struct Barrier {
-  unsigned int* area[kMaxCards];  // every card's area as this card maps it
-  unsigned int* error;            // host-mapped: this card's error word
+  unsigned int* error;  // host-mapped: this card's error word
   unsigned long long timeout_ns;
   int me, cards;
 };
@@ -158,12 +215,11 @@ __device__ __forceinline__ bool reached(const unsigned* mine, int word,
   return static_cast<int>(ld_relaxed(mine + word) - e) >= 0;
 }
 
-// Wait until word `word` of this card's area reaches e (then acquire);
-// false if the area was aborted or the wait expired (then the error word
-// names `card`).
-__device__ bool wait_for(const Barrier& b, int word, unsigned e, int card,
-                         unsigned what) {
-  unsigned* mine = b.area[b.me];
+// Wait until word `word` of this card's area `mine` reaches e (then
+// acquire); false if the area was aborted or the wait expired (then the
+// error word names `card`).
+__device__ bool wait_for(const Barrier& b, unsigned* mine, int word,
+                         unsigned e, int card, unsigned what) {
   if (reached(mine, word, e)) {
     fence_acquire();
     return true;
@@ -239,59 +295,107 @@ __device__ void copy_pair(const unsigned char* src, unsigned char* dst,
   }
 }
 
-template <bool kSync>
-__global__ void __launch_bounds__(kThreads)
-    exchange(Pairs p, Barrier b, int n_cols, long long chunk_bytes) {
-  const int j = p.rows[blockIdx.y / n_cols];  // destination
-  const int i = p.cols[blockIdx.y % n_cols];  // source
-  const unsigned char* src = p.send[i] + j * chunk_bytes;
-  unsigned char* dst = p.recv[j] + i * chunk_bytes;
-  if constexpr (!kSync) {
-    copy_pair(src, dst, chunk_bytes);
+// Pair k: its row r (the launch's destination p.row(r)) and its source i.
+__device__ __forceinline__ void pair_of(long long k, int n_cols, int& r,
+                                        int& i) {
+  if (k < 0x7fffffffLL) {  // 32-bit arithmetic where it fits
+    const int k32 = static_cast<int>(k);
+    r = k32 / n_cols;
+    i = k32 - r * n_cols;
   } else {
-    unsigned* mine = b.area[b.me];
+    r = static_cast<int>(k / n_cols);
+    i = static_cast<int>(k - static_cast<long long>(r) * n_cols);
+  }
+}
+
+// The pairs of n_rows destinations (p.row) times n_cols sources: pair k
+// is destination p.row(k / n_cols) taking slot k % n_cols from that
+// source. By value (Inline: G <= kInline, at most 1,024 pairs) block row
+// blockIdx.y takes pair blockIdx.y, as the form before tables did; from a
+// table, pairs blockIdx.y, blockIdx.y + gridDim.y, ...
+template <bool kSync, class P>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    exchange(P p, Barrier b, int n_rows, int n_cols, long long chunk_bytes) {
+  constexpr bool kLoop = std::is_same<P, Table>::value;
+  const long long pairs = static_cast<long long>(n_rows) * n_cols;
+  if constexpr (!kSync) {
+    if constexpr (!kLoop) {
+      const int j = p.row(blockIdx.y / n_cols);  // destination
+      const int i = blockIdx.y % n_cols;         // source
+      copy_pair(p.src(i) + j * chunk_bytes, p.dst(j) + i * chunk_bytes,
+                chunk_bytes);
+    } else {
+      for (long long k = blockIdx.y; k < pairs; k += gridDim.y) {
+        int r, i;
+        pair_of(k, n_cols, r, i);
+        const int j = p.row(r);
+        copy_pair(p.src(i) + j * chunk_bytes, p.dst(j) + i * chunk_bytes,
+                  chunk_bytes);
+      }
+    }
+  } else {
+    unsigned* mine = p.area_of(b.me);
     __shared__ unsigned s_epoch;
     __shared__ int s_go;
+    bool go = false;  // thread 0's
     if (threadIdx.x == 0) {
       // every block reads the epoch before it counts itself, so the last
       // block's store of the new one comes after every read
       const unsigned e = ld_volatile(mine + kEpoch) + 1;
       s_epoch = e;
-      bool go = ld_volatile(mine + kAbort) == 0;
+      go = ld_volatile(mine + kAbort) == 0;
       if (go && atomicCAS(mine + kStarted, e - 1, e) == e - 1) {
         __threadfence_system();  // (a) arrive
         for (int q = 0; q < b.cards; ++q) {
-          st_relaxed(b.area[q] + kArrived + b.me, e);
+          st_relaxed(p.area_of(q) + kArrived + b.me, e);
         }
       }
-      // (b) wait for the card at the far end of the pair (one end is this
-      // card, whose own arrival is the store above)
-      go = go && wait_for(b, kArrived + p.card_of[i], e, p.card_of[i],
-                          kWaitArrive) &&
-           wait_for(b, kArrived + p.card_of[j], e, p.card_of[j],
-                    kWaitArrive);
-      s_go = go;
     }
-    __syncthreads();
-    if (!s_go) {
-      fill_chunk(dst, chunk_bytes);
-    } else if (kCopy) {
-      copy_pair(src, dst, chunk_bytes);  // (c)
+    // destination j's slot from source i
+    auto one = [&](int j, int i) {
+      if (threadIdx.x == 0) {
+        // (b) wait for the card at the far end of the pair (one end is
+        // this card, whose own arrival is the store above)
+        const unsigned e = s_epoch;
+        go = go &&
+             wait_for(b, mine, kArrived + p.card(i), e, p.card(i),
+                      kWaitArrive) &&
+             wait_for(b, mine, kArrived + p.card(j), e, p.card(j),
+                      kWaitArrive);
+        s_go = go;
+      }
+      __syncthreads();
+      unsigned char* dst = p.dst(j) + i * chunk_bytes;
+      if (!s_go) {
+        fill_chunk(dst, chunk_bytes);
+      } else if (kCopy) {
+        copy_pair(p.src(i) + j * chunk_bytes, dst, chunk_bytes);  // (c)
+      }
+      __syncthreads();
+    };
+    if constexpr (!kLoop) {
+      one(p.row(blockIdx.y / n_cols), blockIdx.y % n_cols);
+    } else {
+      for (long long k = blockIdx.y; k < pairs; k += gridDim.y) {
+        int r, i;
+        pair_of(k, n_cols, r, i);
+        one(p.row(r), i);
+      }
     }
-    __syncthreads();
     if (threadIdx.x == 0) {
       const unsigned e = s_epoch;
+      const int done = done_word(b.cards);
       __threadfence();
       const unsigned total = gridDim.x * gridDim.y;
       if (atomicAdd(mine + kBlocks, 1u) == total - 1) {
         *reinterpret_cast<volatile unsigned*>(mine + kBlocks) = 0;
         __threadfence_system();  // (d) done
         for (int q = 0; q < b.cards; ++q) {
-          st_relaxed(b.area[q] + kDone + b.me, e);
+          st_relaxed(p.area_of(q) + done + b.me, e);
         }
         // (e) drain: no card still reads this card's buffers
         for (int q = 0; q < b.cards; ++q) {
-          if (!wait_for(b, kDone + q, e, q, kWaitDone)) break;
+          if (!wait_for(b, mine, done + q, e, q, kWaitDone)) break;
         }
         *reinterpret_cast<volatile unsigned*>(mine + kEpoch) = e;
       }
@@ -299,19 +403,23 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <bool kSync>
-int launch(const Pairs& p, const Barrier& b, int n_rows, int n_cols,
+template <bool kSync, class P>
+int launch(const P& p, const Barrier& b, int n_rows, int n_cols,
            long long chunk_bytes, cudaStream_t stream) {
   long long pieces = (chunk_bytes + 16LL * kThreads * kUnroll - 1) /
                      (16LL * kThreads * kUnroll);
   if (pieces > kMaxPieces) pieces = kMaxPieces;
+  const long long pairs = static_cast<long long>(n_rows) * n_cols;
+  long long rows = pairs < kMaxRows ? pairs : kMaxRows;
   if (kSync) {
-    const long long most = kWaveBlocks / (n_rows * n_cols);
+    const long long most = kWaveBlocks / pairs;
     pieces = pieces < most ? pieces : (most > 0 ? most : 1);
+    if (rows > kWaveBlocks) rows = kWaveBlocks;
   }
   const dim3 grid(static_cast<unsigned>(pieces),
-                  static_cast<unsigned>(n_rows * n_cols));
-  exchange<kSync><<<grid, kThreads, 0, stream>>>(p, b, n_cols, chunk_bytes);
+                  static_cast<unsigned>(rows));
+  exchange<kSync, P><<<grid, kThreads, 0, stream>>>(p, b, n_rows, n_cols,
+                                                     chunk_bytes);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -326,26 +434,43 @@ extern "C" {
 // (local, or a peer's staging buffer mapped here); recv[jj]: those of the
 // receive buffers of destinations j_begin + jj, jj < j_count (one process
 // of a mesh: 0 and G); chunk_bytes: the bytes of one slot
-// (S * F * sizeof(T)). Nothing to move (chunk_bytes 0) launches nothing.
+// (S * F * sizeof(T)). G up to kInline; more take bignn_all_to_all_table.
+// Nothing to move (chunk_bytes 0) launches nothing.
 int bignn_all_to_all(const void* const* send, void* const* recv,
                      int num_shards, int j_begin, int j_count,
                      long long chunk_bytes, cudaStream_t stream) {
-  if (num_shards < 1 || num_shards > kMaxShards || chunk_bytes < 0 ||
+  if (num_shards < 1 || num_shards > kInline || chunk_bytes < 0 ||
       j_begin < 0 || j_count < 1 || j_begin + j_count > num_shards) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (chunk_bytes == 0) return static_cast<int>(cudaSuccess);
-  Pairs p{};
-  Barrier b{};
+  Inline p{};
   for (int s = 0; s < num_shards; ++s) {
     p.send[s] = static_cast<const unsigned char*>(send[s]);
-    p.cols[s] = static_cast<unsigned char>(s);
   }
   for (int s = 0; s < j_count; ++s) {
     p.recv[j_begin + s] = static_cast<unsigned char*>(recv[s]);
     p.rows[s] = static_cast<unsigned char>(j_begin + s);
   }
-  return launch<false>(p, b, j_count, num_shards, chunk_bytes, stream);
+  return launch<false>(p, Barrier{}, j_count, num_shards, chunk_bytes,
+                       stream);
+}
+
+// The same for any G, its pointers in `table`: device memory of 64-bit
+// words send[G], recv[G] (destination j's at j), G unused words, then the
+// launch's j_count destinations (ascending), filled by the wrapper in
+// stream order before this launch.
+int bignn_all_to_all_table(const void* table, int num_shards, int j_count,
+                           long long chunk_bytes, cudaStream_t stream) {
+  if (num_shards < 1 || chunk_bytes < 0 || j_count < 1 ||
+      j_count > num_shards || table == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (chunk_bytes == 0) return static_cast<int>(cudaSuccess);
+  const Table p{static_cast<const unsigned long long*>(table), num_shards,
+                j_count};
+  return launch<false>(p, Barrier{}, j_count, num_shards, chunk_bytes,
+                       stream);
 }
 
 // The kSync form: one launch on each of this process's n_local cards of an
@@ -357,16 +482,23 @@ int bignn_all_to_all(const void* const* send, void* const* recv,
 // it); card_of[s], shard s's participant card; areas[k * cards + q], card
 // q's signal area as card k reaches it; error[k], card k's word of mapped
 // host memory; timeout_ns, the limit of every wait. Card k pulls the pairs
-// (its shards' destinations, every source). The current device is kept.
+// (its shards' destinations, every source). tables: null where G and
+// cards are at most kInline, else tables[k], card k's table (Table's
+// layout: send as card k reaches them, recv, card_of, its shards in
+// ascending order, areas as card k reaches them) in device memory on card
+// k, filled in stream order before the launch. The current device is
+// kept.
 int bignn_all_to_all_sync(const void* const* send, void* const* recv,
                           int num_shards, const int* card_of,
                           long long chunk_bytes, void* const* areas,
                           int cards, int n_local, const int* me,
                           const int* devices, void* const* streams,
-                          void* error, long long timeout_ns) {
-  if (num_shards < 1 || num_shards > kMaxShards || chunk_bytes < 0 ||
-      cards < 1 || cards > kMaxCards || n_local < 1 || n_local > cards ||
-      timeout_ns <= 0 || error == nullptr) {
+                          void* error, long long timeout_ns,
+                          const void* const* tables) {
+  const bool inline_ptrs = num_shards <= kInline && cards <= kInline;
+  if (num_shards < 1 || chunk_bytes < 0 || cards < 1 || n_local < 1 ||
+      n_local > cards || timeout_ns <= 0 || error == nullptr ||
+      (!inline_ptrs && tables == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   for (int s = 0; s < num_shards; ++s) {
@@ -382,53 +514,65 @@ int bignn_all_to_all_sync(const void* const* send, void* const* recv,
       err = cudaErrorInvalidValue;
       break;
     }
-    Pairs p{};
     Barrier b{};
-    int own = 0;
-    for (int s = 0; s < num_shards; ++s) {
-      p.send[s] = static_cast<const unsigned char*>(send[k * num_shards + s]);
-      p.recv[s] = static_cast<unsigned char*>(recv[s]);
-      p.card_of[s] = static_cast<unsigned char>(card_of[s]);
-      p.rows[s] = p.cols[s] = static_cast<unsigned char>(s);
-    }
+    b.error = static_cast<unsigned int*>(error) + k;
+    b.timeout_ns = static_cast<unsigned long long>(timeout_ns);
+    b.me = me[k];
+    b.cards = cards;
     // this card's shards: the launch's destinations
-    for (int s = 0; s < num_shards; ++s) {
-      if (card_of[s] == me[k]) p.rows[own++] = static_cast<unsigned char>(s);
-    }
+    int own = 0;
+    for (int s = 0; s < num_shards; ++s) own += card_of[s] == me[k];
     for (int q = 0; q < cards; ++q) {
-      b.area[q] = static_cast<unsigned int*>(areas[k * cards + q]);
-      if (b.area[q] == nullptr) err = cudaErrorInvalidValue;
+      if (areas[k * cards + q] == nullptr) err = cudaErrorInvalidValue;
     }
     if (own == 0 || err != cudaSuccess) {
       err = cudaErrorInvalidValue;
       break;
     }
-    b.error = static_cast<unsigned int*>(error) + k;
-    b.timeout_ns = static_cast<unsigned long long>(timeout_ns);
-    b.me = me[k];
-    b.cards = cards;
     cudaStream_t stream = static_cast<cudaStream_t>(streams[k]);
     err = cudaSetDevice(devices[k]);
     if (err != cudaSuccess) break;
-    err = static_cast<cudaError_t>(
-        launch<true>(p, b, own, num_shards, chunk_bytes, stream));
+    if (inline_ptrs && tables == nullptr) {
+      Inline p{};
+      int r = 0;
+      for (int s = 0; s < num_shards; ++s) {
+        p.send[s] =
+            static_cast<const unsigned char*>(send[k * num_shards + s]);
+        p.recv[s] = static_cast<unsigned char*>(recv[s]);
+        p.card_of[s] = static_cast<unsigned char>(card_of[s]);
+        if (card_of[s] == me[k]) p.rows[r++] = static_cast<unsigned char>(s);
+      }
+      for (int q = 0; q < cards; ++q) {
+        p.area[q] = static_cast<unsigned int*>(areas[k * cards + q]);
+      }
+      err = static_cast<cudaError_t>(
+          launch<true>(p, b, own, num_shards, chunk_bytes, stream));
+    } else {
+      if (tables[k] == nullptr) {
+        err = cudaErrorInvalidValue;
+        break;
+      }
+      const Table p{static_cast<const unsigned long long*>(tables[k]),
+                    num_shards, own};
+      err = static_cast<cudaError_t>(
+          launch<true>(p, b, own, num_shards, chunk_bytes, stream));
+    }
   }
   const cudaError_t back = cudaSetDevice(current);
   return static_cast<int>(err != cudaSuccess ? err : back);
 }
 
 // A buffer of `bytes` on the current device, outside PyTorch's caching
-// allocator (so that one IPC handle covers exactly it), whose first
-// kSignalBytes, a card's signal area, are zeroed before it returns: the
-// staging buffer of the exchange across processes (the area, then the
-// payload), or a card's signal area alone.
-int bignn_ipc_alloc(long long bytes, void** out) {
+// allocator (so that one IPC handle covers exactly it), whose first `head`
+// bytes, a card's signal area, are zeroed before it
+// returns: the staging buffer of the exchange across processes (the area,
+// then the payload), or a card's signal area alone.
+int bignn_ipc_alloc(long long bytes, long long head, void** out) {
   *out = nullptr;
+  if (head < 0 || head > bytes) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaMalloc(out, static_cast<size_t>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t head = bytes < kSignalBytes ? static_cast<size_t>(bytes)
-                                           : static_cast<size_t>(kSignalBytes);
-  err = cudaMemset(*out, 0, head);
+  err = cudaMemset(*out, 0, static_cast<size_t>(head));
   if (err == cudaSuccess) err = cudaDeviceSynchronize();
   return static_cast<int>(err);
 }

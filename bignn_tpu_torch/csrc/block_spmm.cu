@@ -110,19 +110,25 @@
 //     takes away.
 //
 // Rows wider than 256 (the kTiled forms; F <= 256 keeps the forms above,
-// compiled without tiles): the columns go in tiles of at most 256, one a
-// grid row (blockIdx.y), each a CTA of the route above over its columns of
-// the block's rows. Each tile re-reads the block's edges (the walk) or
-// re-counts them into A_b (the tensor cores), and its own columns of x.
-// Words there are the widest that divide F and on which x and out lie
-// (elem.cuh word_values: bf16 F 300 reads 8-byte words, 4 values, where a
-// 16-byte word would cross the end of a 600-byte row, F6); the tensor-core
-// route stages and stores them by cp.async and plain stores of that size.
-// F 300 at the 301,312-row bucket (NVIDIA H100 80GB HBM3, 700 W;
-// chip_smoke.py path O, queued behind a sleep): bf16 tensor cores 0.2635
-// ms (torch.bmm 0.2411: each tile counts A_b again), float32 walk 0.3638
-// (torch.bmm 0.6608); bounds 0.1027, 0.2032.
-//
+// compiled without tiles). Words there are the widest that divide F and on
+// which x and out lie (elem.cuh word_values: bf16 F 300 reads 8-byte words,
+// 4 values, where a 16-byte word would cross the end of a 600-byte row,
+// F6); the tensor-core route stages and stores them by cp.async and plain
+// stores of that size.
+//   - The walk (float32, weighted bf16): column tiles of at most 256, one a
+//     grid row (blockIdx.y), each a CTA of the walk above over its columns,
+//     re-reading the block's edges.
+//   - The tensor-core product (bf16): one CTA a block counts A_b once and
+//     sweeps the row's tiles of kTiledCols (256) columns, each staged whole
+//     into one buffer and multiplied in chunks of 64 columns in the same
+//     mma.sync order as the untiled form (so a tile's bits are those of a
+//     CTA a tile, as before). With A_b that is 100 KiB, 2 CTAs an SM.
+//   - F 300 at the 301,312-row bucket (NVIDIA H100 80GB HBM3, 700 W;
+//     scripts/compare_kernel_trees.py, queued): a CTA a tile, each counting
+//     A_b again, took 0.264 ms (torch.bmm 0.238); A_b once and tiles of 64
+//     columns double-buffered 0.263, so the count was not what held it
+//     back; the tiles' bytes in flight were (kTiledCols above). The float32
+//     walk at F 300 took 0.364 ms (torch.bmm 0.661); bounds 0.1027, 0.2032.
 // What bounds it on the H100: device-memory bytes. x is read once (each block
 // reads its own rows), the edge list once, y written once: N * F * 2 *
 // sizeof(T) + E * 12 bytes (bf16 at 301,312 rows and 908,411 edges, F 128:
@@ -328,6 +334,22 @@ __host__ __device__ inline int tc_smem_bytes(int feat) {
   return kABytes + kBlockRows * (padded_feat(feat) + 8) * 2;
 }
 
+// The tiled form (F above 256): x's columns staged kTiledCols at a time (a
+// multiple of kChunk) into one buffer ([128][kTiledCols + 8] bf16: with
+// A_b 100 KiB, 2 CTAs an SM, so one CTA's tile lands while the other's is
+// multiplied); its 8-, 4- and 2-byte copies ask L2 for 128-byte lines
+// (rows of F 300 are 600 bytes, off 128-byte lines).
+// scripts/probe_variants.py (kind bst, with the ring and the hint as
+// constants then) timed, bf16 F 300 at the 301,312-row bucket (NVIDIA H100
+// 80GB HBM3, 700 W): tiles of 64 columns in a ring of 2, 3 or 4 buffers
+// 0.267, 0.227 (the hint), 0.241 ms; of 128 in 2 buffers 0.235; of 256 in
+// one 0.219 (the hint took 1-3 % off each form tried with it): the bytes
+// a CTA has in flight at once matter more than the overlap inside it.
+constexpr int kTiledCols = 256;
+constexpr int kBufRow = kTiledCols + 8;
+constexpr int kTiledSmem = kABytes + kBlockRows * kBufRow * 2;
+static_assert(kTiledCols % kChunk == 0, "a buffer holds whole chunks");
+
 __device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p,
                                             bool trans) {
   if (trans) {
@@ -486,15 +508,17 @@ __device__ __forceinline__ void stage_x(const __nv_bfloat16* __restrict__ x,
                        "l"(from)
                        : "memory");
         } else if constexpr (VEC == 4) {
-          asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(
-                           smem_addr(to)),
-                       "l"(from)
-                       : "memory");
+          asm volatile(
+              "cp.async.ca.shared.global.L2::128B [%0], [%1], 8;\n" ::"r"(
+                  smem_addr(to)),
+              "l"(from)
+              : "memory");
         } else {
-          asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                           smem_addr(to)),
-                       "l"(from)
-                       : "memory");
+          asm volatile(
+              "cp.async.ca.shared.global.L2::128B [%0], [%1], 4;\n" ::"r"(
+                  smem_addr(to)),
+              "l"(from)
+              : "memory");
         }
       } else {
         *reinterpret_cast<W*>(to) = W{};
@@ -511,10 +535,14 @@ __device__ __forceinline__ void stage_x(const __nv_bfloat16* __restrict__ x,
   }
 }
 
-// One CTA per block (and tile of columns: kTiled, blockIdx.y), 3 an SM at
-// F 128. The rows of x land (cp.async) while the edges are counted; A_b
-// serves every column chunk unless the block needs more than one pass or
-// holds a count of 256 or more.
+// One CTA per block, 3 an SM at F 128. The rows of x land (cp.async) while
+// the edges are counted; A_b serves every column chunk unless the block
+// needs more than one pass or holds a count of 256 or more. kTiled (F above
+// 256): A_b is counted once and the CTA sweeps every tile of kTiledCols
+// columns of the row, x's tiles staged in turn into one buffer (tile 0
+// lands while the edges are counted, tile t + 1 by cp.async once tile t is
+// multiplied and stored), so a narrow last tile (F 300: 44 columns) costs
+// its own columns alone.
 template <int VEC, bool kTiled>
 __global__ void __launch_bounds__(kTcThreads, 3)
     block_spmm_tc(const __nv_bfloat16* __restrict__ x,
@@ -528,9 +556,7 @@ __global__ void __launch_bounds__(kTcThreads, 3)
   __nv_bfloat16* xsm = reinterpret_cast<__nv_bfloat16*>(tc_smem + kABytes);
   __shared__ int big, over;
   __shared__ unsigned slabs;  // band-and-slab bits of A_b's nonzeros
-  const int t0 = kTiled ? blockIdx.y * kMaxFeat : 0;  // the tile's columns
-  const int width = kTiled ? min(kMaxFeat, feat - t0) : feat;
-  const int fp = padded_feat(width);
+  const int fp = padded_feat(feat);
   const int xs = fp + 8;
   const int tid = threadIdx.x;
   const int warp = tid / 32;
@@ -549,9 +575,21 @@ __global__ void __launch_bounds__(kTcThreads, 3)
     pd[r] = e < e1 ? __ldg(dst + e) : -1;
     ps[r] = e < e1 ? __ldg(src + e) : -1;
   }
-  stage_x<VEC>(x, b, feat, t0, width, fp, xs, xsm);
-  if constexpr (VEC >= 2)
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  // tile t of the tiled form into the buffer
+  auto stage_tile = [&](int t) {
+    const int w = min(kTiledCols, feat - t * kTiledCols);
+    stage_x<VEC>(x, b, feat, t * kTiledCols, w, padded_feat(w), kBufRow,
+                 xsm);
+    if constexpr (VEC >= 2)
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+  if constexpr (kTiled) {
+    stage_tile(0);
+  } else {
+    stage_x<VEC>(x, b, feat, 0, feat, fp, xs, xsm);
+    if constexpr (VEC >= 2)
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+  }
 
   // A_b in bf16 by atomic adds of 1 at [d, s] for each in-block edge,
   // exact while no count passes 256: *over is set where one would
@@ -610,6 +648,96 @@ __global__ void __launch_bounds__(kTcThreads, 3)
 
   build_fast();
   const bool exact = over;  // a count passes 256: the 16-bit counts
+  if constexpr (kTiled) {
+    __nv_bfloat16* cur = xsm;
+    const int tiles = (feat + kTiledCols - 1) / kTiledCols;
+    for (int t = 0; t < tiles; ++t) {
+      const int t0 = t * kTiledCols;  // the tile's first column of the row
+      const int tw = min(kTiledCols, feat - t0);
+      // tile t has landed (tile 0 while the edges were counted)
+      if constexpr (VEC >= 2) asm volatile("cp.async.wait_all;\n" ::: "memory");
+      __syncthreads();
+      for (int c0 = 0; c0 < tw; c0 += kChunk) {
+        const int nw = min(kChunk, tw - c0);
+        const int nc = padded_feat(nw);
+        float acc[2][kTileCols / 8][4];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+#pragma unroll
+          for (int u = 0; u < kTileCols / 8; ++u) {
+#pragma unroll
+            for (int j = 0; j < 4; ++j) acc[i][u][j] = 0.f;
+          }
+        }
+        if (!exact)
+          block_products(a, cur, kBufRow, c0, nc, warp, lane, slabs, acc);
+        for (int p0 = e0; exact && p0 < e1; p0 += kPass) {
+          const int p1 = min(e1, p0 + kPass);
+          __syncthreads();  // every warp is done with A_b
+          build(p0, p1, false);
+          block_products(a, cur, kBufRow, c0, nc, warp, lane, slabs, acc);
+          if (big) {  // counts of 256 or more: their 256 (c div 256) part
+            __syncthreads();
+            build(p0, p1, true);
+            block_products(a, cur, kBufRow, c0, nc, warp, lane, slabs, acc);
+          }
+        }
+        __syncthreads();  // every warp is done with this chunk's X_b
+        // round once to bf16 through the chunk's columns of the buffer,
+        // then store
+        const int m0 = tile_row(warp);
+        const int n0 = tile_col(warp);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+#pragma unroll
+          for (int u = 0; u < kTileCols / 8; ++u) {
+            if (n0 + 8 * u < nc) {
+              const int col = c0 + n0 + 8 * u + 2 * (lane % 4);
+              const int r = m0 + 16 * i + lane / 4;
+              *reinterpret_cast<__nv_bfloat162*>(cur + r * kBufRow + col) =
+                  __floats2bfloat162_rn(acc[i][u][0], acc[i][u][1]);
+              *reinterpret_cast<__nv_bfloat162*>(cur + (r + 8) * kBufRow +
+                                                 col) =
+                  __floats2bfloat162_rn(acc[i][u][2], acc[i][u][3]);
+            }
+          }
+        }
+        __syncwarp();
+        const int ncols = min(kTileCols, nw - n0);  // of y in the warp's tile
+        __nv_bfloat16* ob = out + (static_cast<int64_t>(row0) + m0) * feat +
+                            t0 + c0 + n0;
+        const __nv_bfloat16* st = cur + m0 * kBufRow + c0 + n0;
+        if constexpr (VEC >= 2) {
+          const int words = ncols / VEC;
+          if (words > 0) {
+            const int rstep = 32 / words;
+            const int wstep = 32 % words;
+            int r = lane / words;
+            int w = lane % words;
+            for (; r < 32; r += rstep, w += wstep) {
+              if (w >= words) {
+                w -= words;
+                ++r;
+                if (r >= 32) break;
+              }
+              *reinterpret_cast<W*>(ob + static_cast<int64_t>(r) * feat +
+                                    VEC * w) =
+                  *reinterpret_cast<const W*>(st + r * kBufRow + VEC * w);
+            }
+          }
+        } else {
+          for (int i = lane; i < 32 * ncols; i += 32) {
+            const int r = i / ncols;
+            const int col = i % ncols;
+            ob[static_cast<int64_t>(r) * feat + col] = st[r * kBufRow + col];
+          }
+        }
+      }
+      __syncthreads();  // every warp is done with the buffer
+      if (t + 1 < tiles) stage_tile(t + 1);
+    }
+    return;
+  }
   for (int c0 = 0; c0 < fp; c0 += kChunk) {
     const int nc = min(kChunk, fp - c0);
     float acc[2][kTileCols / 8][4];
@@ -656,9 +784,9 @@ __global__ void __launch_bounds__(kTcThreads, 3)
     }
     __syncwarp();
     // columns of y in this warp's tile
-    const int ncols = min(kTileCols, min(nc, width - c0) - n0);
+    const int ncols = min(kTileCols, min(nc, feat - c0) - n0);
     __nv_bfloat16* ob =
-        out + (static_cast<int64_t>(row0) + m0) * feat + t0 + c0 + n0;
+        out + (static_cast<int64_t>(row0) + m0) * feat + c0 + n0;
     const __nv_bfloat16* st = xsm + m0 * xs + c0 + n0;
     if constexpr (VEC >= 2) {
       const int words = ncols / VEC;  // of a row of the tile; 32 lanes a step
@@ -708,13 +836,12 @@ int launch_tc(const void* x, const void* src, const void* dst,
               const void* starts, int num_edges, int num_blocks, int feat,
               void* out, cudaStream_t st) {
   static int done[bignn::kMaxDevices] = {};
-  const int smem = tc_smem_bytes(kTiled ? kMaxFeat : feat);
+  const int smem = kTiled ? kTiledSmem : tc_smem_bytes(feat);
   const cudaError_t err =
       bignn::allow_smem(block_spmm_tc<VEC, kTiled>, smem, done,
                         cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(num_blocks, kTiled ? col_tiles(feat) : 1);
-  block_spmm_tc<VEC, kTiled><<<grid, kTcThreads, smem, st>>>(
+  block_spmm_tc<VEC, kTiled><<<num_blocks, kTcThreads, smem, st>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const int*>(src),
       static_cast<const int*>(dst), static_cast<const int*>(starts),
       num_edges, feat, static_cast<__nv_bfloat16*>(out));

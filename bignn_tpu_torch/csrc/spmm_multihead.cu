@@ -88,25 +88,31 @@
 //     warps 1.39). ~6 TB/s of gathered v rows at 16,384 drugs, from L2.
 // Per edge the backward does 2 F multiply-adds, the forward F.
 //
-// Wide rows (more than 8 heads, or F above 256) are swept in strips, one a
-// block (blockIdx.y), each a walk as above over a range of columns of at
-// most 256 (the kStrip forms; rows of up to 8 heads and 256 columns keep
-// the forms above, compiled without strips):
-//   - head_dim <= 256: a strip holds whole heads, min(8, 256 / head_dim)
-//     of them, so a 16-byte word and a head's lane group stay inside it and
-//     d_alpha of its heads is whole in the strip (H 32, D 24: 4 strips of
-//     8 heads; H 4, D 256: a head a strip).
+// Wide rows (more than 8 heads, or F above 256) are swept in strips of at
+// most 256 columns (rows of up to 8 heads and 256 columns keep the forms
+// above, compiled without strips):
+//   - head_dim <= 256: a strip holds whole heads (forward: min(8, 256 /
+//     head_dim); backward: as many as fit 256 padded columns), so a 16-byte
+//     word and a head's lane group stay inside it and d_alpha of its heads
+//     is whole in the strip (H 32, D 24: 4 strips of 8 heads; H 4, D 256:
+//     a head a strip).
 //   - head_dim > 256: a head is cut into strips of 256 columns. d_alpha is
 //     then a sum over the head's strips: each strip writes its partial dot
 //     in float32 to the wrapper's scratch [strips of a head, E, H], and
 //     mh_dot_finish adds them in strip order and rounds once (no atomics).
-// Every strip re-reads the edge ids and bounds; d_v and out of a strip are
-// its own columns. Measured at config4's sampled outer edges (E 59,008;
-// NVIDIA H100 80GB HBM3, 700 W, chip_smoke.py path O, queued behind a
-// sleep), bf16: H 4, D 256 forward 0.0691 ms, backward 0.1436; H 32, D 24
-// forward 0.0685, backward 0.9712 (39x its bound: the per-head select of
-// 8 heads over 8-value words spills).
-//
+// The forward takes a strip a block (blockIdx.y, the kStrip forms), each
+// re-reading the edge ids. The backward (mh_backward_strips, below) walks
+// a source's strips in one warp, its ids loaded once, a head's words in a
+// padded lane group. Measured at config4's sampled outer edges (E 59,008;
+// NVIDIA H100 80GB HBM3, 700 W; scripts/compare_kernel_trees.py and
+// scripts/probe_variants.py kind mhs, queued behind a sleep), the backward
+// in bf16: H 4, D 256 0.125 ms (a strip a block with the per-head select:
+// 0.142), H 32, D 24 0.111 (0.977: the select of 8 heads over 8-value
+// words spilled); in float32 0.165 and 0.165 (0.437, 0.572; torch.sparse.mm
+// and sampled_addmm 0.350 at H 4, D 256). 8 words a lane in flight took
+// 0.17-0.33 ms, a strip's share of the grid 0.14-0.21: warps in flight
+// matter more than loads a warp (as kRowsInFlight's choice found).
+
 // The JAX package rounds each bf16 message alpha * v to bf16 before the
 // segment sum (multihead.py:81-83); here products are summed in float32 and
 // rounded once, as the plain version of the port does.
@@ -128,6 +134,10 @@ constexpr int kFwdRows = 4;         // v rows a forward lane loads at once
 constexpr int kBwdWarps = 8;        // backward: sources a block holds
 constexpr int kBwdMinBlocks = 4;    // backward blocks an SM holds at least
 constexpr int kRowsInFlight = 4;    // g rows a backward lane loads at once
+// the backward's strips (mh_backward_strips): words a lane loads at once,
+// and blocks an SM holds at least
+constexpr int kStripRows = 4;
+constexpr int kStripMinBlocks = 3;
 constexpr int kLong = 256;  // positions above which a row is the block's
 constexpr int kMaxVals = 8;  // values of a row a lane holds
 constexpr int kMaxFeat = 32 * kMaxVals;  // columns a row (or strip) holds
@@ -157,28 +167,26 @@ struct FwdArgs {
   int head_strips;  // kStrip: strips of a head (head_dim > 256), else 0
 };
 
-// A block's strip of the row: columns col0 + [0, width), heads h0 + [0,
-// nh) (the heads of its columns), the strip's first column at hoff in head
-// h0, and its index p among its head's strips.
+// A forward block's strip of the row: columns col0 + [0, width), its
+// first head h0, the strip's first column at hoff in head h0.
 struct Strip {
-  int col0, width, h0, nh, hoff, p;
+  int col0, width, h0, hoff;
 };
 
-template <bool kStrip, class Args>
-__device__ __forceinline__ Strip strip_of(const Args& a) {
+template <bool kStrip>
+__device__ __forceinline__ Strip strip_of(const FwdArgs& a) {
   if constexpr (!kStrip) {
-    return {0, a.heads * a.head_dim, 0, a.heads, 0, 0};
+    return {0, a.heads * a.head_dim, 0, 0};
   } else {
     const int j = blockIdx.y;
     if (a.head_strips == 0) {
       const int h0 = j * a.strip_heads;
       const int nh = min(a.strip_heads, a.heads - h0);
-      return {h0 * a.head_dim, nh * a.head_dim, h0, nh, 0, 0};
+      return {h0 * a.head_dim, nh * a.head_dim, h0, 0};
     }
     const int h = j / a.head_strips, p = j % a.head_strips;
     const int off = p * kMaxFeat;
-    return {h * a.head_dim + off, min(kMaxFeat, a.head_dim - off), h, 1, off,
-            p};
+    return {h * a.head_dim + off, min(kMaxFeat, a.head_dim - off), h, off};
   }
 }
 
@@ -282,6 +290,8 @@ struct BwdArgs {
   int head_strips;
   int64_t num_edges;
   float* dot_part;  // head_strips > 0: [head_strips, E, heads] partial dots
+  int strips;       // mh_backward_strips: strips of a row
+  int pw;           // mh_backward_strips: lanes (words) a head's group spans
 };
 
 // The edge at position b + lane of the source-sorted order when it is
@@ -296,21 +306,18 @@ __device__ __forceinline__ int chunk_edge(const int* __restrict__ perm,
   return id == s ? e : -1;
 }
 
-// A lane's K words of row r (zeros past the row; with kStrip, of the
-// strip sp of row r, zeros past it), as floats.
-template <class T, int NV, int K, bool kStrip>
+// A lane's K words of row r (zeros past the row), as floats.
+template <class T, int NV, int K>
 __device__ __forceinline__ void load_words(const T* __restrict__ rows,
-                                           int64_t r, int feat,
-                                           const Strip& sp, int c, int lg,
-                                           float (&out)[K][NV]) {
-  const WordOf<T, NV>* row = reinterpret_cast<const WordOf<T, NV>*>(
-      rows + r * feat + (kStrip ? sp.col0 : 0));
-  const int width = kStrip ? sp.width : feat;
+                                           int64_t r, int feat, int c,
+                                           int lg, float (&out)[K][NV]) {
+  const WordOf<T, NV>* row =
+      reinterpret_cast<const WordOf<T, NV>*>(rows + r * feat);
 #pragma unroll
   for (int k = 0; k < K; ++k) {
     const int w = c + (k << lg);
-    bignn::unpack_word<T, NV>(w < width / NV ? __ldg(row + w)
-                                             : WordOf<T, NV>{},
+    bignn::unpack_word<T, NV>(w < feat / NV ? __ldg(row + w)
+                                            : WordOf<T, NV>{},
                               out[k]);
   }
 }
@@ -320,10 +327,10 @@ __device__ __forceinline__ void load_words(const T* __restrict__ rows,
 // positions: the chunk's edge and destination ids one a lane (the next
 // chunk's ids in flight while this chunk's rows load), then the rows of U
 // edges a slot, all loaded before any is reduced.
-template <class T, int NV, int K, bool kGrouped, bool kStrip>
-__device__ __forceinline__ void bwd_walk(const BwdArgs& a, const Strip& sp,
-                                         int s, int b, int i1, int cstep,
-                                         int lane, const float (&vs)[K][NV],
+template <class T, int NV, int K, bool kGrouped>
+__device__ __forceinline__ void bwd_walk(const BwdArgs& a, int s, int b,
+                                         int i1, int cstep, int lane,
+                                         const float (&vs)[K][NV],
                                          float (&acc)[K][NV]) {
   using W = WordOf<T, NV>;
   constexpr int U = K >= kRowsInFlight ? 1 : kRowsInFlight / K;
@@ -338,20 +345,14 @@ __device__ __forceinline__ void bwd_walk(const BwdArgs& a, const Strip& sp,
   const int q = lane >> lg;
   const int c = lane & ((1 << lg) - 1);
   const int gs = kGrouped ? a.head_dim / NV : 1;  // lanes of a head's group
-  // the head of each value this lane holds, counted from the strip's first
-  // (sp.h0); -1 past the row's strip
+  // the head of each value this lane holds; -1 past the row
   int head[K][NV];
 #pragma unroll
   for (int k = 0; k < K; ++k) {
 #pragma unroll
     for (int i = 0; i < NV; ++i) {
-      if constexpr (kStrip) {
-        const int col = (c + (k << lg)) * NV + i + sp.hoff;
-        head[k][i] = c + (k << lg) < sp.width / NV ? col / a.head_dim : -1;
-      } else {
-        const int col = (c + (k << lg)) * NV + i;
-        head[k][i] = c + (k << lg) < feat / NV ? col / a.head_dim : -1;
-      }
+      const int col = (c + (k << lg)) * NV + i;
+      head[k][i] = c + (k << lg) < feat / NV ? col / a.head_dim : -1;
     }
   }
   int e_l = chunk_edge(a.perm, a.src_sorted, b, i1, s, lane);
@@ -374,11 +375,8 @@ __device__ __forceinline__ void bwd_walk(const BwdArgs& a, const Strip& sp,
         // padding edges (dst outside [0, num_out)) get d_alpha 0
         live[u] = e[u] >= 0 && d >= 0 && d < a.num_out;
         const W* row = reinterpret_cast<const W*>(
-            g + static_cast<int64_t>(live[u] ? d : 0) * feat +
-            (kStrip ? sp.col0 : 0));
-        const T* ar = alpha +
-                      static_cast<int64_t>(live[u] ? e[u] : 0) * heads +
-                      (kStrip ? sp.h0 : 0);
+            g + static_cast<int64_t>(live[u] ? d : 0) * feat);
+        const T* ar = alpha + static_cast<int64_t>(live[u] ? e[u] : 0) * heads;
 #pragma unroll
         for (int k = 0; k < K; ++k) {
           const bool in = live[u] && head[k][0] >= 0;
@@ -421,25 +419,16 @@ __device__ __forceinline__ void bwd_walk(const BwdArgs& a, const Strip& sp,
             float t = part[k];
             for (int o = 1; o < gs; o <<= 1) t += __shfl_xor_sync(kFull, t, o);
             if (e[u] >= 0 && head[k][0] >= 0 && (c & (gs - 1)) == 0)
-              da[(kStrip ? sp.h0 : 0) + head[k][0]] = bignn::from_f32<T>(t);
+              da[head[k][0]] = bignn::from_f32<T>(t);
           }
         } else {
 #pragma unroll
           for (int h = 0; h < kMaxHeads; ++h) {
-            if (h < (kStrip ? sp.nh : heads)) {
+            if (h < heads) {
               float t = part[h];
               for (int o = 1; o < (1 << lg); o <<= 1)
                 t += __shfl_xor_sync(kFull, t, o);
-              if constexpr (!kStrip) {
-                if (e[u] >= 0 && c == 0) da[h] = bignn::from_f32<T>(t);
-              } else if (e[u] >= 0 && c == 0) {
-                if (a.dot_part != nullptr) {  // a strip of a wide head
-                  a.dot_part[(sp.p * a.num_edges + e[u]) * heads + sp.h0 + h] =
-                      t;
-                } else {
-                  da[sp.h0 + h] = bignn::from_f32<T>(t);
-                }
-              }
+              if (e[u] >= 0 && c == 0) da[h] = bignn::from_f32<T>(t);
             }
           }
         }
@@ -539,38 +528,36 @@ __global__ void __launch_bounds__(kFwdWarps * 32, kFwdMinBlocks)
 // w + kBwdWarps, ... to warp w, their d_v rows added in shared memory in
 // warp order. Whether a source is long is read from its bounds on the
 // device, never on the host.
-template <class T, int NV, int K, bool kGrouped, bool kStrip>
+template <class T, int NV, int K, bool kGrouped>
 __global__ void __launch_bounds__(kBwdWarps * 32, kBwdMinBlocks)
     mh_backward(__grid_constant__ const BwdArgs a) {
   using W = WordOf<T, NV>;
   __shared__ float part[kBwdWarps * kMaxFeat];
-  const Strip sp = strip_of<kStrip>(a);
   const T* __restrict__ v = static_cast<const T*>(a.v);
-  T* __restrict__ d_v = static_cast<T*>(a.d_v) + (kStrip ? sp.col0 : 0);
+  T* __restrict__ d_v = static_cast<T*>(a.d_v);
   const int lane = threadIdx.x % 32;
   const int warp = threadIdx.x / 32;
   const int feat = a.heads * a.head_dim;
-  const int width = kStrip ? sp.width : feat;  // the columns of the strip
   const int q = lane >> a.lg;
   const int c = lane & ((1 << a.lg) - 1);
   const int s0 = blockIdx.x * kBwdWarps;
   float vs[K][NV], acc[K][NV];
   const int s = s0 + warp;
   if (s < a.num_src && a.last[s] - a.first[s] < kLong) {
-    load_words<T, NV, K, kStrip>(v, s, feat, sp, c, a.lg, vs);
+    load_words<T, NV, K>(v, s, feat, c, a.lg, vs);
 #pragma unroll
     for (int k = 0; k < K; ++k) {
 #pragma unroll
       for (int i = 0; i < NV; ++i) acc[k][i] = 0.f;
     }
-    bwd_walk<T, NV, K, kGrouped, kStrip>(a, sp, s, a.first[s], a.last[s],
-                                         32, lane, vs, acc);
+    bwd_walk<T, NV, K, kGrouped>(a, s, a.first[s], a.last[s], 32, lane, vs,
+                                 acc);
     slot_sum(acc, a.lg);
     W* out = reinterpret_cast<W*>(d_v + static_cast<int64_t>(s) * feat);
 #pragma unroll
     for (int k = 0; k < K; ++k) {
       const int w = c + (k << a.lg);
-      if (q == 0 && w < width / NV)
+      if (q == 0 && w < feat / NV)
         out[w] = bignn::pack_word<T, NV, W>(acc[k]);
     }
   }
@@ -579,31 +566,277 @@ __global__ void __launch_bounds__(kBwdWarps * 32, kBwdMinBlocks)
     const int i0 = a.first[sj];
     const int i1 = a.last[sj];
     if (i1 - i0 < kLong) continue;
-    load_words<T, NV, K, kStrip>(v, sj, feat, sp, c, a.lg, vs);
+    load_words<T, NV, K>(v, sj, feat, c, a.lg, vs);
 #pragma unroll
     for (int k = 0; k < K; ++k) {
 #pragma unroll
       for (int i = 0; i < NV; ++i) acc[k][i] = 0.f;
     }
-    bwd_walk<T, NV, K, kGrouped, kStrip>(a, sp, sj, i0 + 32 * warp, i1,
-                                         32 * kBwdWarps, lane, vs, acc);
+    bwd_walk<T, NV, K, kGrouped>(a, sj, i0 + 32 * warp, i1, 32 * kBwdWarps,
+                                 lane, vs, acc);
     slot_sum(acc, a.lg);
 #pragma unroll
     for (int k = 0; k < K; ++k) {
       const int w = c + (k << a.lg);
-      if (q == 0 && w < width / NV) {
+      if (q == 0 && w < feat / NV) {
 #pragma unroll
         for (int i = 0; i < NV; ++i)
-          part[warp * width + w * NV + i] = acc[k][i];
+          part[warp * feat + w * NV + i] = acc[k][i];
       }
     }
     __syncthreads();
-    for (int col = threadIdx.x; col < width; col += blockDim.x) {
+    for (int col = threadIdx.x; col < feat; col += blockDim.x) {
       float t = part[col];
-      for (int w = 1; w < kBwdWarps; ++w) t += part[w * width + col];
+      for (int w = 1; w < kBwdWarps; ++w) t += part[w * feat + col];
       d_v[static_cast<int64_t>(sj) * feat + col] = bignn::from_f32<T>(t);
     }
     __syncthreads();
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The backward's strips (rows of more than 8 heads or 256 columns). A warp
+// walks one source over every strip of its row in turn, so the source's
+// bounds and the first chunk's edge and destination ids load once for all
+// strips (a grid axis of strips walked them once a strip). In a strip, a
+// head's hw words (or a wide head's strip of 256 columns) take a padded
+// group of pw lanes: pw = hw rounded up to a power of two up to 32 words,
+// else to a multiple of 32. Lane c of a slot of G lanes holds positions c,
+// c + G, ... (K of them) of the strip's padded words; position v is word
+// (v / pw) hw + v % pw of the strip, of head v / pw, where v % pw < hw
+// (the padding lanes, e.g. 1 lane in 4 at H 32, D 24 in bf16, hold
+// zeros). So every word lies in one head, each word loads one alpha value,
+// and an edge's dot of a head is one butterfly of log2(pw) shuffles over
+// its group (pw > G: the head's K / (pw / G) words summed in the lane
+// first, then 5 shuffles): no per-value head table or select. d_alpha of
+// a head that a strip holds whole is stored by its group's first lane; a
+// wide head's strips write their partial dots to the scratch as before.
+// Each lane has kStripRows words in flight (U = kStripRows / K edges).
+
+// A source's strip j: columns col0 + ..., heads h0 + [0, nh), hw words a
+// head (a wide head's strip: its words), p its index among its head's
+// strips.
+struct BStrip {
+  int col0, h0, nh, hw, p;
+};
+
+template <int NV>
+__device__ __forceinline__ BStrip bwd_strip(const BwdArgs& a, int j) {
+  if (a.head_strips == 0) {
+    const int h0 = j * a.strip_heads;
+    return {h0 * a.head_dim, h0, min(a.strip_heads, a.heads - h0),
+            a.head_dim / NV, 0};
+  }
+  const int h = j / a.head_strips, p = j % a.head_strips;
+  const int off = p * kMaxFeat;
+  return {h * a.head_dim + off, h, 1, min(kMaxFeat, a.head_dim - off) / NV,
+          p};
+}
+
+// The word of the strip each of the lane's K positions holds (-1: padding
+// or past the strip), and its head in the strip.
+template <int K>
+__device__ __forceinline__ void strip_lanes(const BwdArgs& a,
+                                            const BStrip& sp, int c,
+                                            int (&wk)[K], int (&hk)[K]) {
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int v = c + (k << a.lg);
+    const int hl = v / a.pw;
+    const int wi = v - hl * a.pw;
+    hk[k] = hl;
+    wk[k] = hl < sp.nh && wi < sp.hw ? hl * sp.hw + wi : -1;
+  }
+}
+
+// acc += alpha[e, h] * g[dst_e] and d_alpha[e, h] over the strip's heads
+// for the source s's positions b, b + 1, ... up to i1 in chunks of 32
+// every cstep positions; e_l, d_l: the first chunk's edge and destination
+// ids (one a lane, -1 past it), loaded by the caller.
+template <class T, int NV, int K>
+__device__ __forceinline__ void bwd_walk_strip(
+    const BwdArgs& a, const BStrip& sp, const int (&wk)[K],
+    const int (&hk)[K], int s, int b, int i1, int cstep, int lane, int e_l,
+    int d_l, const float (&vs)[K][NV], float (&acc)[K][NV]) {
+  using W = WordOf<T, NV>;
+  constexpr int U = K >= kStripRows ? 1 : kStripRows / K;
+  const T* __restrict__ g = static_cast<const T*>(a.g);
+  const T* __restrict__ alpha = static_cast<const T*>(a.alpha);
+  T* __restrict__ d_alpha = static_cast<T*>(a.d_alpha);
+  const int heads = a.heads;
+  const int feat = heads * a.head_dim;
+  const int lg = a.lg;
+  const int slots = 32 >> lg;
+  const int q = lane >> lg;
+  const int c = lane & ((1 << lg) - 1);
+  const int pw = a.pw;
+  const int span = min(pw, 1 << lg);    // lanes of a head's butterfly
+  const int kpw = max(1, pw >> lg);     // positions of a head in a lane
+  for (; b <= i1; b += cstep) {
+    const int e_next = chunk_edge(a.perm, a.src_sorted, b + cstep, i1, s,
+                                  lane);
+    const int n = min(32, i1 - b + 1);
+    for (int j0 = 0; j0 < n; j0 += slots * U) {
+      int e[U];
+      W w[U][K];
+      float al[U][K];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int j = j0 + q + slots * u;
+        e[u] = __shfl_sync(kFull, e_l, j & 31);
+        const int d = __shfl_sync(kFull, d_l, j & 31);
+        if (j >= 32) e[u] = -1;
+        // padding edges (dst outside [0, num_out)) get d_alpha 0
+        const bool live = e[u] >= 0 && d >= 0 && d < a.num_out;
+        const W* row = reinterpret_cast<const W*>(
+            g + static_cast<int64_t>(live ? d : 0) * feat + sp.col0);
+        const T* ar =
+            alpha + static_cast<int64_t>(live ? e[u] : 0) * heads + sp.h0;
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          const bool in = live && wk[k] >= 0;
+          w[u][k] = in ? __ldg(row + wk[k]) : W{};
+          al[u][k] = in ? bignn::load1(ar + hk[k]) : 0.f;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        float t = 0.f;
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          float gv[NV];
+          bignn::unpack_word<T, NV>(w[u][k], gv);
+#pragma unroll
+          for (int i = 0; i < NV; ++i) {
+            acc[k][i] += al[u][k] * gv[i];
+            t += gv[i] * vs[k][i];
+          }
+          if ((k + 1) % kpw == 0) {  // the lane's last position of a head
+            for (int o = 1; o < span; o <<= 1)
+              t += __shfl_xor_sync(kFull, t, o);
+            const int h = pw > (1 << lg) ? k / kpw : hk[k];
+            const bool first = pw > (1 << lg) ? c == 0 : (c & (pw - 1)) == 0;
+            if (e[u] >= 0 && first && h < sp.nh) {
+              if (a.dot_part != nullptr) {  // a strip of a wide head
+                a.dot_part[(sp.p * a.num_edges + e[u]) * heads + sp.h0 + h] =
+                    t;
+              } else {
+                d_alpha[static_cast<int64_t>(e[u]) * heads + sp.h0 + h] =
+                    bignn::from_f32<T>(t);
+              }
+            }
+            t = 0.f;
+          }
+        }
+      }
+    }
+    e_l = e_next;
+    d_l = e_l >= 0 ? __ldg(a.dst + e_l) : -1;
+  }
+}
+
+// A lane's words of row r's strip at its positions (zeros at padding), as
+// floats.
+template <class T, int NV, int K>
+__device__ __forceinline__ void strip_words(const T* __restrict__ rows,
+                                            int64_t r, int feat,
+                                            const BStrip& sp,
+                                            const int (&wk)[K],
+                                            float (&out)[K][NV]) {
+  const WordOf<T, NV>* row =
+      reinterpret_cast<const WordOf<T, NV>*>(rows + r * feat + sp.col0);
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+    bignn::unpack_word<T, NV>(wk[k] >= 0 ? __ldg(row + wk[k])
+                                         : WordOf<T, NV>{},
+                              out[k]);
+}
+
+// A block holds kBwdWarps sources; each walks its row's strips in turn (a
+// source of more than kLong positions: all the block's warps, strip by
+// strip, their d_v rows added in shared memory in warp order).
+template <class T, int NV, int K>
+__global__ void __launch_bounds__(kBwdWarps * 32, kStripMinBlocks)
+    mh_backward_strips(__grid_constant__ const BwdArgs a) {
+  using W = WordOf<T, NV>;
+  __shared__ float part[kBwdWarps * kMaxFeat];
+  const T* __restrict__ v = static_cast<const T*>(a.v);
+  T* __restrict__ d_v = static_cast<T*>(a.d_v);
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  const int feat = a.heads * a.head_dim;
+  const int q = lane >> a.lg;
+  const int c = lane & ((1 << a.lg) - 1);
+  const int s0 = blockIdx.x * kBwdWarps;
+  const int s = s0 + warp;
+  if (s < a.num_src && a.last[s] - a.first[s] < kLong) {
+    const int i0 = a.first[s];
+    const int i1 = a.last[s];
+    const int e_l = chunk_edge(a.perm, a.src_sorted, i0, i1, s, lane);
+    const int d_l = e_l >= 0 ? __ldg(a.dst + e_l) : -1;
+    for (int j = 0; j < a.strips; ++j) {
+      const BStrip sp = bwd_strip<NV>(a, j);
+      int wk[K], hk[K];
+      strip_lanes(a, sp, c, wk, hk);
+      float vs[K][NV], acc[K][NV];
+      strip_words<T, NV, K>(v, s, feat, sp, wk, vs);
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+#pragma unroll
+        for (int i = 0; i < NV; ++i) acc[k][i] = 0.f;
+      }
+      bwd_walk_strip<T, NV, K>(a, sp, wk, hk, s, i0, i1, 32, lane, e_l, d_l,
+                               vs, acc);
+      slot_sum(acc, a.lg);
+      W* out = reinterpret_cast<W*>(d_v + static_cast<int64_t>(s) * feat +
+                                    sp.col0);
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        if (q == 0 && wk[k] >= 0)
+          out[wk[k]] = bignn::pack_word<T, NV, W>(acc[k]);
+      }
+    }
+  }
+  for (int jj = 0; jj < kBwdWarps && s0 + jj < a.num_src; ++jj) {
+    const int sj = s0 + jj;
+    const int i0 = a.first[sj];
+    const int i1 = a.last[sj];
+    if (i1 - i0 < kLong) continue;
+    const int b = i0 + 32 * warp;
+    const int e_l = chunk_edge(a.perm, a.src_sorted, b, i1, sj, lane);
+    const int d_l = e_l >= 0 ? __ldg(a.dst + e_l) : -1;
+    for (int j = 0; j < a.strips; ++j) {
+      const BStrip sp = bwd_strip<NV>(a, j);
+      const int width = sp.nh * sp.hw * NV;  // the strip's columns
+      int wk[K], hk[K];
+      strip_lanes(a, sp, c, wk, hk);
+      float vs[K][NV], acc[K][NV];
+      strip_words<T, NV, K>(v, sj, feat, sp, wk, vs);
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+#pragma unroll
+        for (int i = 0; i < NV; ++i) acc[k][i] = 0.f;
+      }
+      bwd_walk_strip<T, NV, K>(a, sp, wk, hk, sj, b, i1, 32 * kBwdWarps,
+                               lane, e_l, d_l, vs, acc);
+      slot_sum(acc, a.lg);
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        if (q == 0 && wk[k] >= 0) {
+#pragma unroll
+          for (int i = 0; i < NV; ++i)
+            part[warp * width + wk[k] * NV + i] = acc[k][i];
+        }
+      }
+      __syncthreads();
+      for (int col = threadIdx.x; col < width; col += blockDim.x) {
+        float t = part[col];
+        for (int w = 1; w < kBwdWarps; ++w) t += part[w * width + col];
+        d_v[static_cast<int64_t>(sj) * feat + sp.col0 + col] =
+            bignn::from_f32<T>(t);
+      }
+      __syncthreads();
+    }
   }
 }
 
@@ -648,6 +881,25 @@ Sweep sweep_of(int heads, int head_dim) {
   return {true, 1, per, kMaxFeat};
 }
 
+// The backward's strips (mh_backward_strips) of words of nv values: a
+// head's words padded to pw lanes, the heads a strip holds (head_dim <=
+// 256, as many as fit 256 padded columns; a wider head: its strips of 256
+// columns), the strips of a row, and the padded words of the widest strip.
+struct StripLanes {
+  int pw, strip_heads, strips, words;
+};
+
+StripLanes strip_lanes_of(int heads, int head_dim, int nv) {
+  const int hw = std::min(head_dim, kMaxFeat) / nv;
+  const int pw =
+      hw <= 32 ? 1 << bignn::slot_log2(hw) : bignn::cdiv(hw, 32) * 32;
+  if (head_dim > kMaxFeat) {
+    return {pw, 1, heads * bignn::cdiv(head_dim, kMaxFeat), pw};
+  }
+  const int hs = std::min(heads, std::max(1, kMaxFeat / nv / pw));
+  return {pw, hs, bignn::cdiv(heads, hs), hs * pw};
+}
+
 // The row slots of rows of `words` words: (lg, K), G = 1 << lg lanes a
 // slot and K words a lane.
 void slots_of(int words, int* lg, int* k) {
@@ -655,9 +907,8 @@ void slots_of(int words, int* lg, int* k) {
   *k = bignn::cdiv(words, 1 << *lg);
 }
 
-// The strips of a row: gridDim.y.
-template <class Args>
-int strip_count(const Args& a) {
+// The forward's strips of a row: gridDim.y.
+int strip_count(const FwdArgs& a) {
   return a.head_strips > 0 ? a.heads * a.head_strips
                            : bignn::cdiv(a.heads, a.strip_heads);
 }
@@ -672,14 +923,21 @@ struct Forward {
   }
 };
 
-template <class T, int NV, bool kGrouped, bool kStrip>
+template <class T, int NV, bool kGrouped>
 struct Backward {
   template <int K>
   static void launch(const BwdArgs& a, cudaStream_t st) {
-    const dim3 grid(bignn::cdiv(a.num_src, kBwdWarps),
-                    kStrip ? strip_count(a) : 1);
-    mh_backward<T, NV, K, kGrouped, kStrip><<<grid, kBwdWarps * 32, 0, st>>>(
-        a);
+    const dim3 grid(bignn::cdiv(a.num_src, kBwdWarps));
+    mh_backward<T, NV, K, kGrouped><<<grid, kBwdWarps * 32, 0, st>>>(a);
+  }
+};
+
+template <class T, int NV>
+struct BackwardStrips {
+  template <int K>
+  static void launch(const BwdArgs& a, cudaStream_t st) {
+    const dim3 grid(bignn::cdiv(a.num_src, kBwdWarps));
+    mh_backward_strips<T, NV, K><<<grid, kBwdWarps * 32, 0, st>>>(a);
   }
 };
 
@@ -777,31 +1035,35 @@ int backward(const void* v, const void* g, const void* dst, const void* alpha,
   const bool wide = (sw.strips ? head_dim : feat) % kWide == 0 &&
                     addr % 16 == 0;
   const int nv = wide ? kWide : 1;
-  int lg, k;
-  slots_of(sw.width / nv, &lg, &k);
-  const int group = head_dim / nv;
-  const bool grouped = wide && head_dim % nv == 0 && group <= 32 &&
-                       (group & (group - 1)) == 0;
   float* parts = sw.head_strips > 0 ? static_cast<float*>(dot_part) : nullptr;
-  const BwdArgs a{v, g, static_cast<const int*>(dst), alpha,
-                  static_cast<const int*>(perm), ss, f, l, num_src, num_out,
-                  heads, head_dim, lg, d_v, parts != nullptr ? nullptr
-                                                             : d_alpha,
-                  sw.strip_heads, sw.head_strips, num_edges, parts};
+  BwdArgs a{v, g, static_cast<const int*>(dst), alpha,
+            static_cast<const int*>(perm), ss, f, l, num_src, num_out,
+            heads, head_dim, 0, d_v, parts != nullptr ? nullptr : d_alpha,
+            sw.strip_heads, sw.head_strips, num_edges, parts, 1, 0};
+  int k;
   if (sw.strips) {
-    if (grouped) {
-      launch_k<Backward<T, kWide, true, true>, kWide>(a, k, st);
-    } else if (wide) {
-      launch_k<Backward<T, kWide, false, true>, kWide>(a, k, st);
+    const StripLanes sl = strip_lanes_of(heads, head_dim, nv);
+    a.strip_heads = sl.strip_heads;
+    a.strips = sl.strips;
+    a.pw = sl.pw;
+    slots_of(sl.words, &a.lg, &k);
+    if (wide) {
+      launch_k<BackwardStrips<T, kWide>, kWide>(a, k, st);
     } else {
-      launch_k<Backward<T, 1, false, true>, 1>(a, k, st);
+      launch_k<BackwardStrips<T, 1>, 1>(a, k, st);
     }
-  } else if (grouped) {
-    launch_k<Backward<T, kWide, true, false>, kWide>(a, k, st);
-  } else if (wide) {
-    launch_k<Backward<T, kWide, false, false>, kWide>(a, k, st);
   } else {
-    launch_k<Backward<T, 1, false, false>, 1>(a, k, st);
+    slots_of(sw.width / nv, &a.lg, &k);
+    const int group = head_dim / nv;
+    const bool grouped = wide && head_dim % nv == 0 && group <= 32 &&
+                         (group & (group - 1)) == 0;
+    if (grouped) {
+      launch_k<Backward<T, kWide, true>, kWide>(a, k, st);
+    } else if (wide) {
+      launch_k<Backward<T, kWide, false>, kWide>(a, k, st);
+    } else {
+      launch_k<Backward<T, 1, false>, 1>(a, k, st);
+    }
   }
   if (parts != nullptr) {
     const int64_t size = static_cast<int64_t>(num_edges) * heads;

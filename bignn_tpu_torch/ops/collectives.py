@@ -76,8 +76,9 @@ import torch.distributed as dist
 
 from bignn_tpu_torch.ops import cuda_lib
 
-MAX_SHARDS = 32  # kMaxShards of csrc/all_to_all.cu
-SIGNAL_BYTES = 1024  # kSignalBytes of csrc/all_to_all.cu: a card's signals
+# shards (and cards) whose pointers a launch takes by value (kInline of
+# csrc/all_to_all.cu); past that the wrapper fills a table on the card
+INLINE_SHARDS = 32
 # The limit of every wait on the cards' semaphores, past which the kernel
 # gives up and the wrapper raises. It lies well above the longest host gap
 # between two processes' exchanges on any path: a process's first exchange
@@ -86,6 +87,23 @@ SIGNAL_BYTES = 1024  # kSignalBytes of csrc/all_to_all.cu: a card's signals
 # that made the exchange), and every process-0 checkpoint save is followed
 # by a barrier, so no process spins through another's save.
 EXCHANGE_TIMEOUT_S = 120.0
+
+
+def signal_bytes(cards: int) -> int:
+    """Bytes of a card's signal area in an exchange over ``cards`` cards
+    (``csrc/all_to_all.cu``): 32 words of its own, then ``arrived[cards]``
+    and ``done[cards]``, each rounded up to 32 words; at least 1 KB."""
+    words = 32 + 2 * (-(-cards // 32) * 32)
+    return max(1024, 4 * words)
+
+
+def _table(words: Sequence[int], dev: torch.device) -> torch.Tensor:
+    """``words`` (pointers and indices) as 64-bit words on ``dev``, copied
+    from pinned memory in the current stream's order: the kernel's table
+    past ``INLINE_SHARDS`` shards or cards. The caching allocators keep
+    both copies until the stream has used them."""
+    host = torch.tensor(list(words), dtype=torch.int64).pin_memory()
+    return host.to(dev, non_blocking=True)
 
 
 def _check(bufs: Sequence[torch.Tensor], g: int | None = None
@@ -166,16 +184,24 @@ def _pull(dev: torch.device, sources: Sequence[int],
     chunk`` bytes). The launch counts under ``all_to_all:<dtype><suffix>``,
     and on ``dev`` (``launches_by_device``)."""
     g, n = len(sources), len(recv)
-    if g > MAX_SHARDS or not 0 <= j_begin <= g - n:
-        raise ValueError(f"all_to_all kernel takes at most {MAX_SHARDS} "
-                         f"shards and a range of their destinations, got "
-                         f"{n} from {j_begin} of {g}")
+    if not 0 <= j_begin <= g - n:
+        raise ValueError(f"all_to_all kernel takes a range of the shards' "
+                         f"destinations, got {n} from {j_begin} of {g}")
     if not chunk:
         return
-    send_ptrs = (ctypes.c_void_p * g)(*sources)
-    recv_ptrs = (ctypes.c_void_p * n)(*(r.data_ptr() for r in recv))
-    cuda_lib.launch("bignn_all_to_all", dev, send_ptrs, recv_ptrs, g,
-                    j_begin, n, chunk)
+    recv_ptrs = [r.data_ptr() for r in recv]
+    if g <= INLINE_SHARDS:
+        cuda_lib.launch("bignn_all_to_all", dev,
+                        (ctypes.c_void_p * g)(*sources),
+                        (ctypes.c_void_p * n)(*recv_ptrs), g, j_begin, n,
+                        chunk)
+    else:
+        dests = [0] * g
+        dests[j_begin:j_begin + n] = recv_ptrs
+        table = _table([*sources, *dests, *[0] * g,
+                        *range(j_begin, j_begin + n)], dev)
+        cuda_lib.launch("bignn_all_to_all_table", dev, table.data_ptr(), g,
+                        n, chunk)
     _count(dev, recv[0].dtype, suffix)
 
 
@@ -226,10 +252,11 @@ class DeviceBarrier:
         for k, c in enumerate(self.cards):
             code = self._words[k] if self._host else 0
             if code:
-                what = ("to arrive" if code >> 8 == 1
+                what = ("to arrive" if code >> 30 == 1
                         else "to finish the exchange")
+                card = (code & (2**30 - 1)) - 1
                 return (f"all_to_all on {c} waited past {self.timeout_s:g} s "
-                        f"for {self.names[(code & 0xFF) - 1]} {what}")
+                        f"for {self.names[card]} {what}")
         return None
 
     def check(self) -> None:
@@ -244,16 +271,28 @@ class DeviceBarrier:
         every source (``card_of[s]``: shard s's participant card).
         ``send[k][i]``: shard i's send buffer as card k
         reaches it (slot j at ``j * chunk`` bytes); ``recv[j]``: shard j's
-        receive buffer (0 where no local card writes it)."""
+        receive buffer (0 where no local card writes it). Past
+        ``INLINE_SHARDS`` shards or cards each card takes a table of these
+        pointers, its shards and the signal areas, filled on it first."""
+        g, n = len(recv), len(self.names)
+        tables = None
+        if g > INLINE_SHARDS or n > INLINE_SHARDS:
+            tables = [_table([*send[k], *recv, *card_of,
+                              *(s for s in range(g)
+                                if card_of[s] == self._me[k]),
+                              *self._areas[k * n:(k + 1) * n]], c)
+                      for k, c in enumerate(self.cards)]
         cuda_lib.call(
             "bignn_all_to_all_sync", self.cards[0],
             _array(ctypes.c_void_p, (p for row in send for p in row)),
-            _array(ctypes.c_void_p, recv), len(recv),
-            _array(ctypes.c_int, card_of), chunk, self._areas,
-            len(self.names), len(self.cards), self._me, self._devices,
+            _array(ctypes.c_void_p, recv), g,
+            _array(ctypes.c_int, card_of), chunk, self._areas, n,
+            len(self.cards), self._me, self._devices,
             _array(ctypes.c_void_p, (torch.cuda.current_stream(c).cuda_stream
                                      for c in self.cards)),
-            self._dev, int(self.timeout_s * 1e9))
+            self._dev, int(self.timeout_s * 1e9),
+            None if tables is None else _array(
+                ctypes.c_void_p, (t.data_ptr() for t in tables)))
 
     def close(self) -> None:
         """Free the error words, once every card is synchronised; raise if
@@ -334,7 +373,8 @@ def card_barrier(cards: Sequence[torch.device]) -> DeviceBarrier:
         areas = []
         for c in cards:
             ptr = ctypes.c_void_p()
-            cuda_lib.call("bignn_ipc_alloc", c, SIGNAL_BYTES,
+            size = signal_bytes(len(cards))
+            cuda_lib.call("bignn_ipc_alloc", c, size, size,
                           ctypes.byref(ptr))
             areas.append(ptr.value)
         _barriers[key] = DeviceBarrier(cards, range(len(cards)),
@@ -698,7 +738,8 @@ class PeerExchange(ProcessExchange):
     peer access (a staging buffer on a peer's card is read through it).
 
     Each local card owns one staging buffer (``bignn_ipc_alloc``, outside
-    PyTorch's caching allocator): a signal area of ``SIGNAL_BYTES``, then
+    PyTorch's caching allocator): a signal area (``signal_bytes`` of
+    every process's cards), then
     the payload. Each local card maps every other process's
     (``bignn_ipc_open`` on the handles traded through the process group,
     once a handle a card: CUDA lets each card of a process open a handle
@@ -736,6 +777,8 @@ class PeerExchange(ProcessExchange):
         dist.all_gather_object(uuids, [_card_uuid(c) for c in self.cards])
         every = [u for run in uuids for u in run]
         self.device_barrier = len(set(every)) == len(every)
+        # the payload's offset in every staging buffer
+        self.signal = signal_bytes(len(every))
         self.capacity = 0  # payload bytes of every staging buffer
         self._own: list[int] = []  # each local card's buffer
         # [local card][process][its card]: every staging buffer as that
@@ -753,7 +796,8 @@ class PeerExchange(ProcessExchange):
         raws = []
         for c in self.cards:
             ptr = ctypes.c_void_p()
-            cuda_lib.call("bignn_ipc_alloc", c, SIGNAL_BYTES + nbytes,
+            cuda_lib.call("bignn_ipc_alloc", c, self.signal + nbytes,
+                          self.signal,
                           ctypes.byref(ptr))
             self._own.append(ptr.value)
             handle = ctypes.create_string_buffer(64)
@@ -822,12 +866,12 @@ class PeerExchange(ProcessExchange):
             return super().gather_parts(parts)
         n = len(parts)
         self._reserve(n * first.numel() * first.element_size())
-        _view(self._own[0] + SIGNAL_BYTES, first, n).copy_(
+        _view(self._own[0] + self.signal, first, n).copy_(
             torch.stack([p.detach().to(self.device) for p in parts]))
         self._meet()
         out = [x.to(self.device, copy=True)
                for p in range(self.size)
-               for x in _view(self._maps[0][p][0] + SIGNAL_BYTES, first,
+               for x in _view(self._maps[0][p][0] + self.signal, first,
                               n).unbind(0)]
         self._meet()
         return out
@@ -843,15 +887,12 @@ class PeerExchange(ProcessExchange):
         receive buffers."""
         bufs = list(bufs)
         self._check_devices(bufs)
-        if self.num_shards > MAX_SHARDS:
-            raise ValueError(f"all_to_all kernel takes at most {MAX_SHARDS} "
-                             f"shards, got {self.num_shards}")
         slot = bufs[0].numel() * bufs[0].element_size()
         most = max(n for cards in self.cards_of for _, n in _runs(cards))
         self._reserve(most * slot)
         for k, b in enumerate(bufs):
             c = self.card_of[k]
-            _view(self._own[c] + SIGNAL_BYTES + (k - self.heads[c]) * slot,
+            _view(self._own[c] + self.signal + (k - self.heads[c]) * slot,
                   b)[0].copy_(b)
         recv = [torch.empty_like(b) for b in bufs]  # before the launches
         if self._barrier is not None:
@@ -884,7 +925,7 @@ class PeerExchange(ProcessExchange):
                     if p == self.rank and bufs is not None:
                         sources.append(bufs[k].data_ptr())
                     else:
-                        sources.append(maps[p][c] + SIGNAL_BYTES
+                        sources.append(maps[p][c] + self.signal
                                        + (k - cards.index(c)) * slot)
             if self._barrier is None:
                 _pull(self.devices[k0], sources, recv[k0:k0 + count],

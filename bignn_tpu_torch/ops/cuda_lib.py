@@ -99,13 +99,18 @@ _SIGNATURES = {
     # G send and j_count receive base pointers, G, j_begin, j_count, bytes
     # of a slot
     "bignn_all_to_all": [_VP, _VP, _I32, _I32, _I32, _I64],
+    # the same past 32 shards: the device table of the pointers and the
+    # destinations, G, j_count, bytes of a slot
+    "bignn_all_to_all_table": [_VP, _I32, _I32, _I64],
 }
 # entry points that take no stream: the staging buffers and signal areas of
 # the exchange across processes and cards (ops/collectives.py), mapped host
 # memory, peer access between the cards of one process, and the exchange's
 # launch on several cards at once, each on the stream it is given
 _HOST_SIGNATURES = {
-    "bignn_ipc_alloc": [_I64, _VP],  # bytes, where to write the pointer
+    # bytes, the leading bytes to zero (a signal area), where to write the
+    # pointer
+    "bignn_ipc_alloc": [_I64, _I64, _VP],
     "bignn_ipc_free": [_VP],
     "bignn_ipc_handle": [_VP, _VP],  # pointer, where to write 64 bytes
     "bignn_ipc_open": [_VP, _VP],  # 64 handle bytes, where to write
@@ -114,9 +119,10 @@ _HOST_SIGNATURES = {
     # on the streams it is given: send pointers by card, receive pointers,
     # G, each shard's card, bytes of a slot, signal areas by card, the card
     # count, local cards, their participant indices, CUDA devices and
-    # streams, their error words, the limit in ns
+    # streams, their error words, the limit in ns, and past 32 shards or
+    # cards each local card's device table (else null)
     "bignn_all_to_all_sync": [_VP, _VP, _I32, _VP, _I64, _VP, _I32, _I32,
-                              _VP, _VP, _VP, _VP, _I64],
+                              _VP, _VP, _VP, _VP, _I64, _VP],
     # bytes, where to write the host and the device pointer (mapped
     # page-locked memory: the exchange's error words)
     "bignn_host_alloc": [_I64, _VP, _VP],

@@ -141,7 +141,13 @@ Phases:
      each in turns, their medians on one line, GIN then GCN; then the GIN
      outer's two split SpMMs on shard
      0 of the plan (each source order holds a hub row) against their plain
-     versions, forward and backward.
+     versions, forward and backward. G(iii): config5 at graph_shards=64 on
+     one card (past the 32 shards whose pointers row 9's launch takes by
+     value: its pointer table on the card), 3 steps; the exchange on the
+     step's own send buffers bit for bit against its plain version (timed:
+     all_to_all:f32 (g64)), step 1's loss (LOSS_RTOL) and gradients and
+     the later losses (K_LOSS_RTOL) against the same steps with the plain
+     versions.
   H. config5-large as get_config("config5-large") sets it (config4's
      model, bf16, batch 1024 + 1024, Adam lr 3e-4) on the whole
      100,000-drug synthetic-large graph, 8 graph shards on one card, run
@@ -317,6 +323,8 @@ segment_sum:bf16) set to 0 just before it and read just after; the kernels
 line reports the sum of the paths' counts, each form's error, times (kernel,
 plain version, and the one PyTorch call that computes the same function
 where there is one) and its bound: the larger of its bytes over 3.35 TB/s
+(row 8: and of those bytes with the rows its edges gather by id over
+L2's read rate, L2_BYTES_PER_S, gathered_rows)
 and its operations over their peak rates: 67 TFLOP/s for float32 outside
 the tensor cores, and 495 TFLOP/s for TF32 on them, where the flash-GAT
 forward's product and the backward's two run as 3xTF32 (three TF32
@@ -326,8 +334,9 @@ launch the main path makes, on the bounds that the forward's kernel found,
 once it has given autograd's result bit for bit.
 all_to_all:f32 is timed at config5-large's
 send buffers; a second row, all_to_all:f32 (config5), at config5's, with
-the launches of paths G and G(ii); a third, all_to_all:f32:procs, is path
-K's exchange across processes at config5's send buffers, with its two
+the launches of paths G and G(ii), and another, all_to_all:f32 (g64), at
+path G(iii)'s 64 shards with its launches; a third, all_to_all:f32:procs,
+is path K's exchange across processes at config5's send buffers, with its two
 processes' launches over K(i)'s steps (its ms the kernel's device time,
 queued behind a sleep; its exchange_ms the whole exchange's host median,
 barriers included, and barrier_ms one barrier's; bound: the bytes one
@@ -337,7 +346,8 @@ buffers, its host_bytes what one exchange sends through gloo); a fifth,
 all_to_all:f32:cards, path M(i)'s exchange across the cards at config5's
 send buffers (its ms the device time queued behind a sleep, its
 exchange_ms as the host paces it; its *_config5_large keys at
-config5-large's), with the
+config5-large's, its *_g64 keys at path G(iii)'s send buffers, 64 shards
+spread over the cards), with the
 launches of M(ii) and of M(v)'s config5 run, and no library call (NCCL's
 all-to-all takes a process a card); on one card its launches are 0 and
 its times null; a sixth, all_to_all:f32:procs:cards, path N(ii)'s exchange
@@ -453,6 +463,10 @@ SERVE_BF16_TOL = 2e-2
 TOPK_AGREE = 0.9
 C4_CHUNKS, C4_CHUNK = 64, 8  # 512 steps of config4 in chunks of 8
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+# the H100's L2 read rate for rows gathered by id from an L2-resident table
+# (scripts/probe_l2_rate.py, PERF.md section 6): the rate at which row 8's
+# bounds count the rows its edges gather
+L2_BYTES_PER_S = 8.30e12
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 TF32_FLOPS = 495e12  # H100 SXM TF32 on the tensor cores, dense
 # kernels a trace lists wherever they rank: the segment kernels' bounds
@@ -499,15 +513,31 @@ def nbytes(*tensors) -> int:
 
 
 def bound_ms(num_bytes: float, flops: float = 0.0,
-             tf32_flops: float = 0.0) -> tuple[float, str]:
+             tf32_flops: float = 0.0,
+             gathered: float = 0.0) -> tuple[float, str]:
     """The least time the card could take: bytes over the memory rate or
     operations over their peak rates, whichever is larger. ``flops`` run in
     float32 outside the tensor cores, ``tf32_flops`` on the tensor cores in
-    TF32 (a 3xTF32 product counts three times); their times add."""
-    by_bytes = num_bytes / HBM_BYTES_PER_S * 1e3
+    TF32 (a 3xTF32 product counts three times); their times add.
+    ``gathered``: bytes of rows read again by id (row 8's v or g row an
+    edge), which L2 serves: the bytes are then bound by the larger of
+    ``num_bytes`` over the memory rate and ``num_bytes + gathered`` over
+    L2's read rate (``L2_BYTES_PER_S``)."""
+    by_bytes = max(num_bytes / HBM_BYTES_PER_S,
+                   (num_bytes + gathered) / L2_BYTES_PER_S
+                   if gathered else 0.0) * 1e3
     by_ops = (flops / F32_FLOPS + tf32_flops / TF32_FLOPS) * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
                                                             "operations")
+
+
+def gathered_rows(dst: torch.Tensor, n_out: int, width: int,
+                  dtype: torch.dtype) -> int:
+    """Bytes of the rows row 8 gathers by edge: a row of ``width`` values
+    of ``dtype`` for each edge with a destination in ``[0, n_out)`` (the
+    forward's v rows, the backward's g rows; padding edges read none)."""
+    live = int(((dst >= 0) & (dst < n_out)).sum())
+    return live * width * torch.empty((), dtype=dtype).element_size()
 
 
 def flash_fwd_flops(n: int, heads: int, head_dim: int) -> tuple[int, int]:
@@ -531,7 +561,7 @@ def flash_bwd_flops(n: int, heads: int, head_dim: int) -> tuple[int, int]:
 def record(results: dict, name: str, err: float, tol: float, kernel, plain,
            num_bytes: float, flops: float = 0.0, library=None,
            reps: int = 10, tf32_flops: float = 0.0,
-           queued: bool = False) -> None:
+           queued: bool = False, gathered: float = 0.0) -> None:
     """Time a kernel, its plain version and (where one exists) the one
     PyTorch call computing the same function; keep them with the error and
     the bound (``bound_ms``) under ``name``. ``queued``: the kernel's calls
@@ -539,7 +569,7 @@ def record(results: dict, name: str, err: float, tol: float, kernel, plain,
     ms = queued_ms(kernel) if queued else cuda_ms(kernel, reps)
     plain_ms = cuda_ms(plain, reps)
     lib_ms = cuda_ms(library, reps) if library is not None else None
-    b, by = bound_ms(num_bytes, flops, tf32_flops)
+    b, by = bound_ms(num_bytes, flops, tf32_flops, gathered)
     results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, tol=tol,
                          bound_ms=b, bound_by=by, library_ms=lib_ms)
     lib = f"{lib_ms:.4f} ms" if lib_ms is not None else "none"
@@ -1310,10 +1340,12 @@ def _check_close(name: str, got, want, tol: float,
 
 def _compare(results: dict, name: str, kernel, plain, tol,
              num_bytes: float, flops: float = 0.0, library=None,
-             per_element: bool = False, queued: bool = False) -> None:
+             per_element: bool = False, queued: bool = False,
+             gathered: float = 0.0) -> None:
     """Hold a kernel to its plain version (``_check_close``; ``tol`` a
     number, or ``(tol, per_element, max_share)``), then ``record`` it
-    (``queued``: its kernel time queued behind a sleep)."""
+    (``queued``: its kernel time queued behind a sleep; ``gathered``: the
+    bytes of rows it gathers by id, ``bound_ms``)."""
     if isinstance(tol, tuple):
         tol, per_element, max_share = tol
     else:
@@ -1322,7 +1354,8 @@ def _compare(results: dict, name: str, kernel, plain, tol,
     err = _check_close(name, got, plain(), tol, per_element, max_share)
     outs = got if isinstance(got, tuple) else (got,)
     record(results, name, err, tol, kernel, plain,
-           num_bytes + nbytes(*outs), flops, library, queued=queued)
+           num_bytes + nbytes(*outs), flops, library, queued=queued,
+           gathered=gathered)
 
 
 def sparse_config():
@@ -1457,7 +1490,8 @@ def run_sparse_serving(dev, ds) -> tuple[dict, dict, object]:
              SPARSE_TOL, nbytes(v, outer.edge_src, outer.edge_dst, alpha),
              2 * e * 128,
              library=multihead_library(outer.edge_src, outer.edge_dst, alpha,
-                                       n, v))
+                                       n, v),
+             gathered=gathered_rows(outer.edge_dst, n, 128, v.dtype))
     del v, alpha
     torch.cuda.empty_cache()
 
@@ -1548,7 +1582,8 @@ def run_sparse_serving_bf16(dev, ds, scorer) -> tuple[dict, dict]:
              BF16_TOL, nbytes(v, outer.edge_src, outer.edge_dst, alpha),
              2 * e * 128,
              library=multihead_library(outer.edge_src, outer.edge_dst, alpha,
-                                       n, v))
+                                       n, v),
+             gathered=gathered_rows(outer.edge_dst, n, 128, v.dtype))
     del v, alpha
     torch.cuda.empty_cache()
     return launches, results
@@ -1725,7 +1760,8 @@ def run_sparse_training(dev) -> tuple[list, dict]:
              nbytes(v, outer.edge_dst, alpha, g, outer.edge_src_perm,
                     outer.edge_src_sorted), 4 * e * 128,
              library=multihead_library(outer.edge_src, outer.edge_dst, alpha,
-                                       n, v, g))
+                                       n, v, g),
+             gathered=gathered_rows(outer.edge_dst, n, 128, g.dtype))
     gather = (g_e, outer.edge_src, n, outer.edge_src_perm,
               outer.edge_src_sorted)
     # the library call sums g_e by the gather's own (unsorted) indices
@@ -2450,7 +2486,8 @@ def config4_kernels(dev, cb, pb, outer) -> dict:
              lambda: ops.spmm_multihead(v, src, dst, alpha, D),
              lambda: ops.spmm_multihead_plain(v, src, dst, alpha, D),
              BF16_TOL, nbytes(v, src, dst, alpha), 2 * E * 128,
-             library=multihead_library(src, dst, alpha, D, v))
+             library=multihead_library(src, dst, alpha, D, v),
+             gathered=gathered_rows(dst, D, 128, v.dtype))
     mh = (v, src, dst, alpha, D, g, outer.edge_src_perm,
           outer.edge_src_sorted)
     _compare(results, "spmm_multihead_bwd:bf16",
@@ -2458,7 +2495,8 @@ def config4_kernels(dev, cb, pb, outer) -> dict:
              lambda: ops.spmm_multihead_bwd_plain(*mh), BF16_TOL,
              nbytes(v, dst, alpha, g, outer.edge_src_perm,
                     outer.edge_src_sorted), 4 * E * 128,
-             library=multihead_library(src, dst, alpha, D, v, g))
+             library=multihead_library(src, dst, alpha, D, v, g),
+             gathered=gathered_rows(dst, D, 128, g.dtype))
     gather = (g_e, src, D, outer.edge_src_perm, outer.edge_src_sorted)
     # padding edges (dst D) carry src 0 but sort as id D: the library call
     # gets the same drop through its index
@@ -2821,6 +2859,68 @@ def run_p2(dev, ds) -> tuple[list, dict, dict]:
     return counts, results, reference
 
 
+# path G(iii): config5 at 64 graph shards on one card, past the 32 shards
+# whose pointers row 9's launch takes by value (its table on the card)
+G64 = 64
+G64_STEPS = 3
+
+
+def run_p2_g64(dev, ds) -> tuple[dict, dict]:
+    """Path G(iii): config5 with ``graph_shards=64`` on one card (the
+    DrugBank stand-in: 27 drugs a shard, halo 32), G64_STEPS p2 steps
+    through the kernels from the JAX init of SEED; the step's own exchange
+    equal to its plain version bit for bit (``a2a_kernels``, timed), and
+    the same steps under ``plain_ops()``: step 1's loss within LOSS_RTOL
+    and its gradients within GRAD_TOL (as path G), the later losses within
+    K_LOSS_RTOL (as path K's). Returns the kernels' launch counts and
+    the exchange's comparison."""
+    from bignn_tpu_torch import ops
+    from bignn_tpu_torch.config import get_config
+    from bignn_tpu_torch.data import prepare_device_data
+    from bignn_tpu_torch.models import BiGNN
+
+    cfg = get_config("config5")
+    batches = _epoch_batches(prepare_device_data(ds, max_buckets=1),
+                             cfg.train)[:G64_STEPS]
+    log(f"  config5 at graph_shards={G64}: mesh dp=1, graph={G64} on one "
+        f"card, {len(batches)} steps")
+    reset_counts()
+    mesh, plan, plan_d = p2_layout(dev, ds, G64, cfg.model.inner_layers)
+    model = BiGNN(cfg.model, seed=SEED).to(dev)
+    params0 = {k: v.clone() for k, v in model.state_dict().items()}
+    rec = FirstCall(ops.all_to_all)
+    with mock.patch.object(ops, "all_to_all", rec):
+        losses, grads = _timed_steps(
+            P2Trainer(model, cfg.train, mesh, ds.num_drugs, plan_d), batches,
+            f"p2 step at {G64} shards, kernels")
+    launches = read_counts()
+    log(f"  launches on path G(iii): "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    require_launched(launches, P2_GAT_FORMS, "on path G(iii)")
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError(f"path G(iii): non-finite loss {losses}")
+    results = {}
+    a2a_kernels(results, "all_to_all:f32 (g64)", rec.bufs)
+    model.load_state_dict(params0)
+    with plain_ops():
+        p_losses, p_grads = _timed_steps(
+            P2Trainer(model, cfg.train, mesh, ds.num_drugs, plan_d), batches,
+            f"p2 step at {G64} shards, plain versions")
+    # step 1 as path G holds it; the later steps, whose Adam updates carry
+    # step 1's rounding, as path K holds its steps against path G's
+    _check_loss(f"the plain versions at {G64} shards", losses[0],
+                p_losses[0])
+    _check_step1(grads, p_grads, losses[0], p_losses[0], torch.float32)
+    for i, (a, b) in enumerate(zip(losses, p_losses)):
+        log(f"  step {i + 1} loss {a:.7f} against {b:.7f} (plain)")
+        if abs(a - b) > K_LOSS_RTOL * max(1.0, abs(b)):
+            raise AssertionError(f"path G(iii) step {i + 1} loss {a} vs {b}")
+    del model, plan_d, rec
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, results
+
+
 def _p2_embeddings(model, plan_d) -> torch.Tensor:
     """The p2 forward through the public entry points: every shard's inner
     encode, the distributed outer layers, the shards concatenated."""
@@ -2972,7 +3072,8 @@ def run_p2_large(dev, ds, ref_f32: torch.Tensor,
              lambda: ops.spmm_multihead(v, src, dst, alpha, n_out),
              lambda: ops.spmm_multihead_plain(v, src, dst, alpha, n_out),
              SPARSE_TOL, nbytes(v, src, dst, alpha), 2 * len(dst) * 128,
-             library=multihead_library(src, dst, alpha, n_out, v))
+             library=multihead_library(src, dst, alpha, n_out, v),
+             gathered=gathered_rows(dst, n_out, 128, v.dtype))
     return launches, results
 
 
@@ -4475,6 +4576,8 @@ M_TP = ((1, 4), (2, 2))  # path M(iv): (dp, tp) over the cards
 # path M(i): (name, G, S, F), the send buffers of config5 (one shard a
 # card on four) and of config5-large (two a card: local and peer chunks)
 M_SHAPES = (("config5", 4, 432, 132), ("config5-large", 8, 12504, 132))
+# path M(i) also spreads path G(iii)'s send buffers (config5 at 64 shards)
+M_G64 = ("g64", G64, 32, 132)
 M_REPS = 20
 M_LOGS = K_LOGS.parent / "m"
 
@@ -4622,9 +4725,10 @@ def cards_bound(devices, chunk: int, rate: float | None) -> float:
     return worst
 
 
-def m_exchange(cards, rate: float | None) -> dict:
-    """Path M(i): row 9 across the cards at M_SHAPES, send buffers made
-    from SEED on the host and put on their shards' cards
+def m_exchange(cards, rate: float | None,
+               shapes=(*M_SHAPES, M_G64)) -> dict:
+    """Path M(i): row 9 across the cards at ``shapes`` (M_SHAPES and M_G64),
+    send buffers made from SEED on the host and put on their shards' cards
     (``spread_devices``): forward and backward (the exchange of
     cotangents) equal to ``all_to_all_plain`` exactly, one launch a card
     each way; then the exchange timed: device ms queued behind a sleep on
@@ -4640,7 +4744,7 @@ def m_exchange(cards, rate: float | None) -> dict:
     from bignn_tpu_torch.parallel import spread_devices
 
     results = {}
-    for name, g, s, f in M_SHAPES:
+    for name, g, s, f in shapes:
         devices = spread_devices(g, cards)
         used = list(dict.fromkeys(devices))
         gen = torch.Generator().manual_seed(SEED)
@@ -5173,7 +5277,7 @@ def wide_multihead_forms(dev, results: dict, tag: str, outer, n: int,
                  BF16_TOL if bf16 else SPARSE_TOL,
                  nbytes(v, src, dst, alpha), 2 * e * width,
                  library=multihead_library(src, dst, alpha, n, v),
-                 queued=True)
+                 queued=True, gathered=gathered_rows(dst, n, width, dt))
         mh = (v, src, dst, alpha, n, gv, perm, ssorted)
         _compare(results, f"spmm_multihead_bwd:{t}:{tag}",
                  lambda: ops.spmm_multihead_bwd(*mh),
@@ -5181,7 +5285,7 @@ def wide_multihead_forms(dev, results: dict, tag: str, outer, n: int,
                  BF16_TOL if bf16 else BWD_TOL,
                  nbytes(v, dst, alpha, gv, perm, ssorted), 4 * e * width,
                  library=multihead_library(src, dst, alpha, n, v, gv),
-                 queued=True)
+                 queued=True, gathered=gathered_rows(dst, n, width, dt))
         del s, g_e, v, gv, alpha, mh
         torch.cuda.empty_cache()
 
@@ -5623,7 +5727,10 @@ def main() -> int:
     log("== path G: config5, p2 on 4 graph shards of one card; G(ii): GCN "
         "and GIN outer layers")
     p2_counts, a2a_small, g_ref = run_p2(dev, ds)
-    counts += [*streamed, *maxed, *sampled, hosted, *attended, *p2_counts]
+    log(f"== path G(iii): config5 at {G64} graph shards of one card")
+    g64_counts, a2a_g64 = run_p2_g64(dev, ds)
+    counts += [*streamed, *maxed, *sampled, hosted, *attended, *p2_counts,
+               g64_counts]
     log("== path I(ii): config3's exact scores, resident and not, against "
         "the full-graph Trainer")
     path_i0 = time.perf_counter()
@@ -5672,7 +5779,7 @@ def main() -> int:
     log("== path L: the samplers' learning gate, 3 seeds a mode")
     counts += run_learning_gate(dev)
     for r in (fwd, fwd_bf16, bwd, c4, spmm, smax, spmm_bf16, a2a, a2a_small,
-              o_res):
+              a2a_g64, o_res):
         results.update(r)
 
     def row(name: str, form: str, paths) -> dict:
@@ -5696,6 +5803,10 @@ def main() -> int:
     # through CUDA IPC (K(i)) and on the route between hosts (K(v))
     kernels.append(row("all_to_all:f32 (config5)", "all_to_all:f32",
                        p2_counts))
+    # and at path G(iii)'s 64 shards (the launch's table on the card), with
+    # that run's launches
+    kernels.append(row("all_to_all:f32 (g64)", "all_to_all:f32",
+                       [g64_counts]))
     kernels += k_rows
     # across the cards of one process (path M): at config5's send buffers,
     # with the launches of M(ii) and of M(v)'s config5 run, and the
@@ -5709,10 +5820,13 @@ def main() -> int:
                                       "library_ms")}}
     if m_results:
         cards_row.update(m_results["all_to_all:f32:cards"])
-        large = m_results["all_to_all:f32:cards (config5-large)"]
-        cards_row.update({f"{k}_config5_large": v for k, v in large.items()
-                          if k in ("max_abs_err", "ms", "plain_ms",
-                                   "bound_ms", "exchange_ms", "kernel_ms")})
+        for tag, shape in (("config5_large", "config5-large"),
+                           ("g64", "g64")):
+            more = m_results[f"all_to_all:f32:cards ({shape})"]
+            cards_row.update({f"{k}_{tag}": v for k, v in more.items()
+                              if k in ("max_abs_err", "ms", "plain_ms",
+                                       "bound_ms", "exchange_ms",
+                                       "kernel_ms")})
     else:
         cards_row["note"] = "path M needs two or more cards"
     kernels.append(cards_row)

@@ -1,5 +1,6 @@
-"""Build each mutant of the wide kernels in a copy outside the checkout and
-run the card tests of the wide cases there: every mutant must fail them.
+"""Build each mutant of the wide kernels (and of row 9's table past 32
+shards) in a copy outside the checkout and run the card tests of its cases
+there: every mutant must fail them.
 
     python3 scripts/check_wide_mutants.py OUT_DIR
 
@@ -15,23 +16,46 @@ import tempfile
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
+# the card tests of the wide cases, narrowed by -k to the given cases
+WIDE = "test_sparse_kernel_matches_plain_on_card and ({})"
 MUTANTS = {
     # every column past a multi-head row's first strip left at zero
     "mh_strips_zero": ("bignn_tpu_torch/csrc/spmm_multihead.cu",
                        "o[w] = bignn::pack_word<T, NV, W>(acc[k]);",
                        "o[w] = kStrip && sp.col0 > 0 ? W{}"
                        " : bignn::pack_word<T, NV, W>(acc[k]);",
-                       "wide_mh_f32 or wide_mh_bf16"),
+                       WIDE.format("wide_mh_f32 or wide_mh_bf16")),
     # row 8's d_alpha from a wide head's first strip alone
     "mh_dalpha_first_strip": ("bignn_tpu_torch/csrc/spmm_multihead.cu",
                               "for (int p = 1; p < strips; ++p)",
                               "for (int p = 1; p < 1; ++p)",
-                              "wide_mh_bwd"),
+                              WIDE.format("wide_mh_bwd")),
     # row 3b's g . v over a wide head's first strip alone
     "flash_dot_first_strip": ("bignn_tpu_torch/csrc/flash_gat_bwd.cu",
                               "for (int q = 0; q < strips; ++q) {",
                               "for (int q = 0; q < 1; ++q) {",
-                              "wide_flash_bwd"),
+                              WIDE.format("wide_flash_bwd")),
+    # row 8's backward strips: a padded lane group's first idle lane takes
+    # the next head's first word (into this head's dot and d_v)
+    "mh_pad_lane_reads": ("bignn_tpu_torch/csrc/spmm_multihead.cu",
+                          "wk[k] = hl < sp.nh && wi < sp.hw ? hl * sp.hw + wi"
+                          " : -1;",
+                          "wk[k] = hl < sp.nh && wi <= sp.hw ? hl * sp.hw + wi"
+                          " : -1;",
+                          WIDE.format("wide_mh_bwd")),
+    # row 6's tiled form: A_b, counted once, multiplied into the first
+    # tile of columns alone (the later tiles left at zero)
+    "block_first_tile_only": ("bignn_tpu_torch/csrc/block_spmm.cu",
+                              "if (!exact)\n          block_products(a, cur,",
+                              "if (!exact && t == 0)\n          "
+                              "block_products(a, cur,",
+                              WIDE.format("wide_block_spmm")),
+    # row 9's pointer table past 32 shards read as if cut at 32
+    "a2a_table_cut_32": ("bignn_tpu_torch/csrc/all_to_all.cu",
+                         "return reinterpret_cast<const unsigned char*>(t[i]);",
+                         "return reinterpret_cast<const unsigned char*>("
+                         "t[i & 31]);",
+                         "test_all_to_all_refuses_on_card"),
 }
 
 
@@ -39,7 +63,7 @@ def main() -> int:
     out = Path(sys.argv[1])
     out.mkdir(parents=True, exist_ok=True)
     ok = True
-    for name, (src, old, new, tests) in MUTANTS.items():
+    for name, (src, old, new, select) in MUTANTS.items():
         copy = Path(tempfile.mkdtemp(prefix=f"mutant_{name}_"))
         try:
             for part in ("bignn_tpu_torch", "tests"):
@@ -52,8 +76,7 @@ def main() -> int:
             proc = subprocess.run(
                 [sys.executable, "-m", "pytest", "--noconftest", "-m", "gpu",
                  "tests/test_torch_kernels.py", "-q", "-p",
-                 "no:cacheprovider", "-k",
-                 f"test_sparse_kernel_matches_plain_on_card and ({tests})"],
+                 "no:cacheprovider", "-k", select],
                 cwd=copy, capture_output=True, text=True, timeout=900)
         finally:
             shutil.rmtree(copy, ignore_errors=True)

@@ -92,7 +92,7 @@ def _tree(root: str) -> dict:
     if len(cards) < 4:
         raise SystemExit(f"needs four cards, found {len(cards)}")
     rate = smoke.link_rate()
-    m = smoke.m_exchange(cards, rate)
+    m = smoke.m_exchange(cards, rate, smoke.M_SHAPES)
     m_step = _m_step(smoke, cards)
     port = smoke._free_port()
     outs = smoke._spawn(

@@ -57,7 +57,7 @@ def worker(rank: int, port: int) -> dict:
     handles = []
     for k, c in enumerate(mine):
         ptr = ctypes.c_void_p()
-        cuda_lib.call("bignn_ipc_alloc", c, NBYTES, ctypes.byref(ptr))
+        cuda_lib.call("bignn_ipc_alloc", c, NBYTES, 0, ctypes.byref(ptr))
         _view(ptr.value, like)[0].copy_(_pattern(2 * rank + k).to(c))
         torch.cuda.synchronize(c)
         handle = ctypes.create_string_buffer(64)

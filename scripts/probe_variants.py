@@ -10,6 +10,11 @@ values V, in this order:
   ``mh_backward``): ``kRowsInFlight``, ``kBwdMinBlocks``, ``kBwdWarps``;
 - ``mhf``: its forward (``mh_forward``): ``kFwdRows``, ``kFwdMinBlocks``,
   ``kFwdWarps``;
+- ``mhs``: the backward's strips (``mh_backward_strips``, rows of more
+  than 8 heads or 256 columns): ``kStripRows`` (words a lane loads at
+  once), ``kStripMinBlocks``, over config4's sampled outer graph at the
+  wide BI-GNN's outer widths (``chip_smoke.WIDE_SHAPES``: H 4, D 256 and
+  H 32, D 24), f32 and bf16;
 - ``smf``: the segment-softmax forward (``csrc/segment_softmax.cu``,
   ``softmax_fwd``): ``kRows`` (rows a lane holds in registers),
   ``kFwdMinBlocks``, ``kWarpsPerBlock``;
@@ -40,6 +45,11 @@ values V, in this order:
   the 301,312-row bucket of synthetic-large cut to 16,384 drugs, F 128:
   float32, float32 weighted, bf16 weighted (the weighted bf16 form value
   by value, ``chip_smoke.BF16_WEIGHTED``);
+- ``bst``: the block-local SpMM's tiled tensor-core form (``csrc/
+  block_spmm.cu``, ``block_spmm_tc`` above 256 columns): ``kTiledCols``
+  (columns a staged tile holds), over the
+  301,312-row bucket of synthetic-large cut to 16,384 drugs, bf16, F 300
+  (W1's inner width): forward and backward (the transposed plan);
 - ``smx``: the segment max (``csrc/segment_max.cu`` on the walk of
   ``csrc/segment_walk.cuh``, whose constants these are): ``kUnroll`` (the
   most rows a lane has in flight), ``kMaxWarps`` (the most warps that share
@@ -272,6 +282,50 @@ def mh_cases(graphs, backward: bool) -> list:
             out.append((tag, args, ops.spmm_multihead_bwd_plain(*args)))
         else:
             out.append((tag, args, (ops.spmm_multihead_plain(*args),)))
+    return out
+
+
+def mhs_cases(graphs) -> list:
+    """(tag, arguments, plain result) of the multi-head backward's strips
+    at the wide shapes over config4's graph."""
+    out = []
+    o = graphs["config4"]
+    for (wide, (heads, head_dim)), dtype in (
+            (w, d) for w in ckt.smoke().WIDE_SHAPES.items()
+            for d in (torch.float32, torch.bfloat16)):
+        gen = torch.Generator(device=o["dst"].device).manual_seed(2)
+        alpha = ops.segment_softmax_plain(3 * torch.randn(
+            len(o["dst"]), heads, device=gen.device, generator=gen),
+            o["dst"], o["n"]).to(dtype)
+        v, g = (torch.randn(o["n"], heads, head_dim, device=gen.device,
+                            generator=gen).to(dtype) for _ in range(2))
+        args = (v, o["src"], o["dst"], alpha, o["n"], g, o["perm"],
+                o["ssorted"])
+        t = cuda_lib.dtype_name(dtype)
+        out.append((f"{t}:{wide.lower()}", args,
+                    ops.spmm_multihead_bwd_plain(*args)))
+    return out
+
+
+def bst_cases(graphs) -> list:
+    """(tag, arguments, plain result) of the tiled bf16 block SpMM at F
+    300, forward and backward, over the 301,312-row bucket."""
+    from bignn_tpu_torch.data import load_dataset
+    from bignn_tpu_torch.sparse import bucket_graphs
+
+    dev = graphs["config4"]["dst"].device
+    b = ckt.largest(bucket_graphs(load_dataset(
+        "synthetic-large", num_drugs=16384).molecules)).to(dev)
+    n = b.node_cap
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn(n, 300, device=dev, generator=gen).to(torch.bfloat16)
+    out = []
+    for tag, s, d, st in (("bf16:fwd", b.edge_src, b.edge_dst,
+                           b.block_estarts),
+                          ("bf16:bwd", b.edge_tsrc, b.edge_tdst,
+                           b.block_tstarts)):
+        out.append((tag, (x, s, d, None, st, n),
+                    (ops.block_spmm_plain(x, s, d, None, num_nodes=n),)))
     return out
 
 
@@ -523,6 +577,10 @@ KINDS = {
                 ("kRowsInFlight", "kBwdMinBlocks", "kBwdWarps"),
                 "mh_backward", "bignn_spmm_multihead_bwd_", call_mhb,
                 lambda gr: mh_cases(gr, True)),
+    "mhs": Kind("spmm_multihead.cu",
+                ("kStripRows", "kStripMinBlocks"),
+                "mh_backward_strips", "bignn_spmm_multihead_bwd_", call_mhb,
+                mhs_cases),
     "mhf": Kind("spmm_multihead.cu",
                 ("kFwdRows", "kFwdMinBlocks", "kFwdWarps"), "mh_forward",
                 "bignn_spmm_multihead_fwd_", call_mhf,
@@ -554,6 +612,9 @@ KINDS = {
                 ("f32", "bf16"),
                 lambda tag: (ckt.smoke().BF16_WEIGHTED if "bf16" in tag
                              else (ckt.F32_TOL, False))),
+    "bst": Kind("block_spmm.cu", ("kTiledCols",),
+                "block_spmm_tc", "bignn_block_spmm_", call_bsw, bst_cases,
+                ("bf16",)),
     "smx": Kind("segment_walk.cuh", ("kUnroll", "kMaxWarps"),
                 "(?:reduce_segments|max_bwd)", "bignn_segment_max_",
                 call_smx, smx_cases, ("f32", "bf16", "bwd_f32", "bwd_bf16"),
@@ -672,8 +733,12 @@ def main() -> int:
                 if k.tol is not None:
                     tol, per_element, *share = k.tol(tag)
                     share = share[0] if share else None
-                check(f"{kind} {values} {tag}", run(), want, tol, per_element,
-                      share)
+                try:
+                    check(f"{kind} {values} {tag}", run(), want, tol,
+                          per_element, share)
+                except AssertionError as exc:  # the variant is wrong
+                    row[tag] = f"fails: {exc}"
+                    continue
                 dms, host, slept = ckt.device_ms(run, sleep, ckt.DEVICE_REPS)
                 row[tag] = dms if host < slept else None
             print(json.dumps(row), flush=True)

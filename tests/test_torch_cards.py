@@ -679,29 +679,45 @@ def _stub_card_runtime(monkeypatch, trace: list) -> list:
             return launch(*args)
         if name == "bignn_enable_peer_access":
             return
-        buf = ctypes.create_string_buffer(collectives.SIGNAL_BYTES)
+        buf = ctypes.create_string_buffer(collectives.signal_bytes(4))
         keep.append(buf)
         if name == "bignn_ipc_alloc":
-            args[1]._obj.value = ctypes.addressof(buf)
+            args[2]._obj.value = ctypes.addressof(buf)
         elif name == "bignn_host_alloc":
             args[1]._obj.value = args[2]._obj.value = ctypes.addressof(buf)
 
     def launch(send, recv, g, card_of, chunk, areas, cards, n_local, me,
-               devices, streams, error, timeout):
+               devices, streams, error, timeout, tables):
         assert cards == n_local == 4 and list(me) == list(devices)
         assert list(card_of) == [i * 4 // g for i in range(g)]
+        # past INLINE_SHARDS the kernel reads the pointers from each card's
+        # table (csrc/all_to_all.cu Table): send[G], recv[G], card_of[G],
+        # the card's shards, the signal areas
+        assert (tables is None) == (g <= collectives.INLINE_SHARDS)
         for k in range(n_local):
             own = [s for s in range(g) if card_of[s] == me[k]]
-            rows, cols = own, list(range(g))
+            srcs = [send[k * g + i] for i in range(g)]
+            dsts, rows, cols = list(recv), own, list(range(g))
+            if tables is not None:
+                w = list((ctypes.c_int64 * (3 * g + len(own) + cards))
+                         .from_address(tables[k]))
+                srcs, dsts = w[:g], w[g:2 * g]
+                assert w[2 * g:3 * g] == list(card_of)
+                rows = w[3 * g:3 * g + len(own)]
+                assert w[3 * g + len(own):] == list(
+                    areas[k * cards:(k + 1) * cards])
             trace.append(("launch", f"cuda:{devices[k]}", rows, cols))
             for j in rows:
                 for i in cols:
-                    ctypes.memmove(recv[j] + i * chunk,
-                                   send[k * g + i] + j * chunk, chunk)
+                    ctypes.memmove(dsts[j] + i * chunk,
+                                   srcs[i] + j * chunk, chunk)
 
     monkeypatch.setattr(collectives, "_barriers", {})
     monkeypatch.setattr(collectives, "_peer_pairs", set())
     monkeypatch.setattr(cuda_lib, "call", call)
+    # the tables stay in host memory: the stub's launch reads them there
+    monkeypatch.setattr(collectives, "_table", lambda words, dev: torch.tensor(
+        list(words), dtype=torch.int64))
     monkeypatch.setattr(torch.cuda, "can_device_access_peer",
                         lambda a, b: True)
     monkeypatch.setattr(torch.cuda, "current_stream",
@@ -715,9 +731,11 @@ def _stub_card_runtime(monkeypatch, trace: list) -> list:
 
 
 @pytest.mark.parametrize("g,dtype", [(4, torch.float32), (8, torch.float32),
-                                     (8, torch.bfloat16), (4, torch.int16)])
+                                     (8, torch.bfloat16), (4, torch.int16),
+                                     (64, torch.float32)])
 def test_cards_exchange_launches_without_host_sync(monkeypatch, g, dtype):
-    """``all_to_all_cards`` over 4 cards (a shard or two a card), with the
+    """``all_to_all_cards`` over 4 cards (a shard or two a card; at 64
+    shards, 16 a card, each launch's pointers in its table), with the
     runtime stubbed: every receive buffer allocated before the launches,
     one launch a card, all in one host call, and no synchronisation, event
     or host read anywhere (the semaphores are on the cards); each launch's
@@ -746,7 +764,7 @@ def test_cards_exchange_launches_without_host_sync(monkeypatch, g, dtype):
         assert (rows, cols) == (own[k], list(range(g)))
     distinct = [torch.device(c) for c in dict.fromkeys(cards)]
     barrier = collectives.card_barrier(distinct)
-    barrier._words[2] = (1 << 8) | 4  # cuda:2 waited for cuda:3 to arrive
+    barrier._words[2] = (1 << 30) | 4  # cuda:2 waited for cuda:3 to arrive
     expired = "all_to_all on cuda:2 waited past 120 s for cuda:3 to arrive"
     with pytest.raises(RuntimeError, match=expired):
         collectives.all_to_all_cards(

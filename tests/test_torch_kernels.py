@@ -397,10 +397,18 @@ def _transposed_plan(bsrc, bdst, bn):
 # the widths and head counts past the kernels' former caps (8 heads, 256
 # columns of a multi-head row or a block-local row, head_dim 64 of the
 # flash-GAT kernels): (H, D) of the multi-head SpMM, H of the softmax, F
-# of the block-local SpMM, head_dim of the flash-GAT pair
-WIDE_MH = ((4, 256), (32, 24), (2, 512), (4, 72), (9, 8), (3, 300))
+# of the block-local SpMM, head_dim of the flash-GAT pair. The multi-head
+# backward's strips pad a head's words to a power of two of lanes (D 24 in
+# bf16: 3 words in 4 lanes; D 72 f32: 18 in 32; H 9, D 8: 9 heads in a
+# strip), or to a multiple of 32 past 32 words (D 256 f32: 64; D 60 in
+# bf16, single values: 64), and cut a head above 256 columns (D 300, 512);
+# the tiled block SpMM sweeps F in chunks of 64 columns with a ragged last
+# chunk (F 300: 44) and words of 16, 8, 4 or 2 bytes (F 1,024, 300, 258,
+# 301 in bf16)
+WIDE_MH = ((4, 256), (32, 24), (2, 512), (4, 72), (9, 8), (3, 300),
+           (5, 60), (12, 40))
 WIDE_SOFTMAX = (9, 16, 32)
-WIDE_BLOCK = (300, 1024)
+WIDE_BLOCK = (300, 1024, 258, 301)
 WIDE_FLASH = ((2, 72), (3, 128), (2, 256), (1, 300))
 
 
@@ -445,6 +453,37 @@ def _wide_cases(device):
                 lambda a=args, g=cast(g), p=perm, s=ssorted:
                     ops.spmm_multihead_bwd(*a, g, p, s),
                 lambda a=args, g=cast(g): ops.spmm_multihead_bwd_plain(*a, g))
+    # the strips' other paths: a source of 300 positions (the block's
+    # warps share it, strip by strip) and v, g and d_v off 16 bytes (single
+    # values), at W2's and W1's outer shapes
+    for heads, head_dim in ((32, 24), (4, 256)):
+        n = 40
+        src, dst, _, _ = _edge_list(rng, n, 400)
+        src = np.concatenate([src, np.full(300, 5, np.int32)])
+        dst = np.concatenate([dst, rng.integers(0, n, 300).astype(np.int32)])
+        order = np.argsort(dst, kind="stable")
+        src, dst = src[order], dst[order]
+        perm = np.argsort(src, kind="stable").astype(np.int32)
+        src_t, dst_t, perm_t, ss_t = _on(device, src, dst, perm, src[perm])
+        v, alpha, g = (rng.standard_normal((n, heads, head_dim)).astype(
+            np.float32), rng.random((len(src), heads)).astype(np.float32),
+            rng.standard_normal((n, heads, head_dim)).astype(np.float32))
+        for dt, cast in (("f32", lambda t: t), ("bf16", lambda t: t.to(bf))):
+            vt, at, gt = (cast(t) for t in _on(device, v, alpha, g))
+            tag = f"{dt}_h{heads}d{head_dim}"
+            cases[f"wide_mh_bwd_hub_{tag}"] = (
+                lambda a=(vt, src_t, dst_t, at, n, gt, perm_t, ss_t):
+                    ops.spmm_multihead_bwd(*a),
+                lambda a=(vt, src_t, dst_t, at, n, gt):
+                    ops.spmm_multihead_bwd_plain(*a))
+            # the same values one element past a 16-byte boundary
+            vu, gu = (torch.cat([t.new_zeros(1), t.flatten()])[1:].view(
+                t.shape) for t in (vt, gt))
+            cases[f"wide_mh_bwd_unaligned_{tag}"] = (
+                lambda a=(vu, src_t, dst_t, at, n, gu, perm_t, ss_t):
+                    ops.spmm_multihead_bwd(*a),
+                lambda a=(vu, src_t, dst_t, at, n, gu):
+                    ops.spmm_multihead_bwd_plain(*a))
     for feat in WIDE_BLOCK:
         bsrc, bdst, best, bn = _block_local_edges(rng, 3)
         bsrc[5] = (bsrc[5] + 200) % bn  # a source outside its block: dropped
@@ -566,6 +605,8 @@ WIDE_CASES = [
       for d in ("f32", "bf16") for h in WIDE_SOFTMAX),
     *(f"wide_mh{b}_{d}_h{h}d{k}" for b in ("", "_bwd")
       for d in ("f32", "bf16") for h, k in WIDE_MH),
+    *(f"wide_mh_bwd_{c}_{d}_{t}" for c in ("hub", "unaligned")
+      for d in ("f32", "bf16") for t in ("h32d24", "h4d256")),
     *(f"wide_block_spmm{b}{w}_{d}_f{f}" for b in ("", "_bwd")
       for w in ("", "_weighted") for d in ("f32", "bf16") for f in WIDE_BLOCK),
     *(f"wide_flash{b}_d{k}" for b in ("", "_bwd") for _, k in WIDE_FLASH)]
@@ -1686,14 +1727,63 @@ def test_all_to_all_backward_on_card(cuda_device, t):
         assert torch.equal(b.grad, w)
 
 
+# past the 32 shards whose pointers a launch takes by value: the launch's
+# pointer table on the card (G, S, F)
+A2A_MANY = {"g33": (33, 3, 5), "g64": (64, 2, 33), "g300": (300, 1, 4)}
+
+
 @pytest.mark.gpu
 def test_all_to_all_refuses_on_card(cuda_device):
+    """Buffers on the card and on the CPU together raise; any number of
+    shards runs (the name is kept from when more than 32 shards raised):
+    G 33, 64 and 300 equal the plain version bit for bit, one launch each,
+    forward and backward."""
     bufs = _a2a_bufs(cuda_device, 2, "f32", 3, 4)
     with pytest.raises(NotImplementedError):
         ops.all_to_all([bufs[0], bufs[1].cpu()])
-    many = _a2a_bufs(cuda_device, ops.collectives.MAX_SHARDS + 1, "f32", 1, 4)
-    with pytest.raises(ValueError, match="at most"):
-        ops.all_to_all(many)
+    for name, (g, s, f) in A2A_MANY.items():
+        many = [b.requires_grad_() for b in _a2a_bufs(cuda_device, g, "f32",
+                                                      s, f)]
+        ct = _a2a_bufs(cuda_device, g, "f32", s, f, seed=1)
+        before = ops.all_to_all.launches_by_dtype.get("f32", 0)
+        got = ops.all_to_all(many)
+        torch.autograd.backward(got, ct)
+        torch.cuda.synchronize()
+        want = ops.all_to_all_plain([b.detach() for b in many])
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), name
+        want_g = ops.all_to_all_plain(ct)
+        assert all(torch.equal(b.grad, w) for b, w in zip(many, want_g)), name
+        assert ops.all_to_all.launches_by_dtype.get("f32", 0) - before == 2
+
+
+@pytest.mark.gpu
+def test_all_to_all_many_shards_across_cards():
+    """G 64 spread over the call's cards (16 a card on four): bit for bit
+    against the plain version, forward and backward, one launch a card
+    each way. Skips with fewer than two cards."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA cards")
+    from bignn_tpu_torch.parallel import spread_devices
+
+    g, s, f = A2A_MANY["g64"]
+    cards = [torch.device("cuda", i)
+             for i in range(min(torch.cuda.device_count(), 4))]
+    devices = spread_devices(g, cards)
+    host = _a2a_bufs("cpu", g, "f32", s, f)
+    ct = _a2a_bufs("cpu", g, "f32", s, f, seed=1)
+    bufs = [b.to(d).requires_grad_() for b, d in zip(host, devices)]
+    before = ops.all_to_all.launches_by_dtype.get("f32:cards", 0)
+    out = ops.all_to_all(bufs)
+    torch.autograd.backward(out, [c.to(d) for c, d in zip(ct, devices)])
+    for d in set(devices):
+        torch.cuda.synchronize(d)
+    want, want_g = ops.all_to_all_plain(host), ops.all_to_all_plain(ct)
+    for o, w, d in zip(out, want, devices):
+        assert o.device == d and torch.equal(o.detach().cpu(), w)
+    for b, w in zip(bufs, want_g):
+        assert torch.equal(b.grad.cpu(), w)
+    assert (ops.all_to_all.launches_by_dtype.get("f32:cards", 0) - before
+            == 2 * len(set(devices)))
 
 
 # across the cards of one process (a mesh over distinct cards): each card
@@ -1799,8 +1889,9 @@ def test_all_to_all_missing_peer_raises_within_its_limit():
     areas = []
     for q in range(2):
         ptr = ctypes.c_void_p()
-        cuda_lib.call("bignn_ipc_alloc", cards[q % len(cards)],
-                      collectives.SIGNAL_BYTES, ctypes.byref(ptr))
+        size = collectives.signal_bytes(2)
+        cuda_lib.call("bignn_ipc_alloc", cards[q % len(cards)], size, size,
+                      ctypes.byref(ptr))
         areas.append(ptr.value)
     barrier = collectives.DeviceBarrier(cards[:1], [0], [areas],
                                         ["cuda:0", "the peer card"],
