@@ -51,24 +51,50 @@
 // The wrapper allocates the scratch (bignn_flash_gat_bwd_scratch_f32 says
 // how much).
 //
-// Wider heads (head_dim above 64) take flash_gat_bwd_wide, the same tiles,
-// pairs, fragments and sums with two changes, so that a block's shared
-// memory stays under the 227 KB it may have:
-//   - v and alpha^T are staged as they are and split into TF32 halves as
-//     their fragments are loaded (kDP 128: 119 KB, kDP 256: 218 KB, where
-//     split once they would take 170 and 302 KB), one block an SM.
-//   - Above 256 features a head is cut into strips of 256 (blockIdx.z
-//     holds the strip beside the part of the sweep). The dot g . v needs
-//     every feature, so each chunk stages the strips of its g rows and of
-//     the tile's v rows in turn and adds their k-steps into the same
-//     accumulators, strip 0 first: the dot is whole, summed over the
-//     features in order, before alpha and d_z use it. Then the block
-//     stages its own strip of g for dv += alpha^T g. The first strip's
-//     blocks write dsl and dsr; the others compute the same values and
-//     write only their strip of dv. No float atomics here either.
-//   Measured (same card; chip_smoke.py path O, queued behind a sleep): N
-//   1,704, H 4, D 256 0.5350 ms, 7.3x its bound of 0.0731 (255 registers,
-//   64 bytes spilled).
+// Wider heads (head_dim above 64) take flash_gat_bwd_wide: the same tiles,
+// pairs, fragments and sums. What bounds it is the same count of products
+// (8x D 32's at D 256: 0.0731 ms), but the narrow tiling does not fit: at
+// D 256 v, g's two buffers and alpha^T take 218 KB, one block an SM. The
+// first wide form ran 8 warps there, each with a 64-float dv sum, cut both
+// operands into TF32 halves with cvt.rna at every fragment load (255
+// registers, 64 bytes spilled; 2 warps a scheduler to hide the splits),
+// and sweep_splits cut the sweep into 7 parts whose dv partials went through
+// device memory and flash_gat_bwd_reduce (~105 MB a call). This form:
+//   - 16 warps a block at D 256 (8 at 128; kWideDvCols): in g v^T a warp
+//     owns 16 destinations and 16 sources (32 at 128), in alpha^T g 16
+//     sources and 64 of the strip's features, so dv's sum is 32 floats a
+//     lane and the launch bounds hold a lane to 128 registers at D 256, 4
+//     warps a scheduler;
+//   - the halves are cut by bit masks (split_tf32_trunc, as the forward):
+//     three integer or float operations, no conversion;
+//   - the sweep is cut into at most kWideMaxSplits parts: N 1,704, H 4,
+//     D 256 runs one (108 blocks, every chunk of a tile in one block), so
+//     dv goes straight to its output and the reduction adds dsl alone;
+//     H 8, D 128 runs 3 (648 blocks) through the scratch as before.
+//   v is not split once a block: its halves would take 133 KB beside g's
+//   133 KB. The mask stays 8 loads from L2 a lane a chunk, issued before
+//   the chunk's copies are waited on: a staged mask tile (17 KB) does not
+//   fit beside them either.
+//   Above 256 features a head is cut into strips of 256 (blockIdx.z
+//   holds the strip beside the part of the sweep). The dot g . v needs
+//   every feature, so each chunk stages the strips of its g rows and of
+//   the tile's v rows in turn and adds their k-steps into the same
+//   accumulators, strip 0 first: the dot is whole, summed over the
+//   features in order, before alpha and d_z use it. Then the block
+//   stages its own strip of g for dv += alpha^T g. The first strip's
+//   blocks write dsl and dsr; the others compute the same values and
+//   write only their strip of dv. No float atomics here either.
+//   Measured (NVIDIA H100 80GB HBM3, 700.00 W; device ms queued behind a
+//   sleep, scripts/probe_variants.py fgb): N 1,704, H 4, D 256 0.3603 (the
+//   first wide form 0.5335), 4.9x its bound; H 8, D 128 0.3566 (0.5322).
+//   128 registers at D 256, 255 at 128, 20-28 bytes spilled. Taken out one
+//   at a time at D 256 (scripts/probe_flash_phases.py): g v^T 0.124 ms,
+//   alpha^T g 0.058, the two smaller products of 3xTF32 0.129, the mask's
+//   loads 0.023, the exp 0.009; so it is issue-bound as the forward
+//   (3xTF32's products alone: 0.111 ms at mma.sync's 322 TFLOP/s,
+//   scripts/probe_mma_rate.py). Variants: 32 dv features a warp 0.50 at D
+//   256, 8 warps there 0.365, one part 0.386 at D 128, up to 16 parts
+//   0.380 at D 256; the three products' adds split in two chains 0.443.
 //
 // Measured (NVIDIA H100 80GB HBM3, 700.00 W; device ms of a call from
 // scripts/compare_kernel_trees.py): N 1,704, H 4, D 32 (config2) 0.091 (the
@@ -100,6 +126,7 @@ using bignn::cp_async_commit;
 using bignn::cp_async_wait;
 using bignn::mma_3xtf32;
 using bignn::split_tf32;
+using bignn::split_tf32_trunc;
 
 constexpr int kTile = 64;      // sources a block owns; destinations a chunk
 constexpr int kThreads = 256;  // 8 warps
@@ -107,6 +134,9 @@ constexpr int kMaxHeadDim = 64;  // flash_gat_bwd_tiles; wider: _wide
 constexpr int kMaxStrip = 256;   // features of a head a wide block owns
 constexpr int kBlocksPerSm = 2;  // blocks an SM holds (launch bounds)
 constexpr int kMaxSplits = 16;   // parts of the sweep, at most (scratch)
+constexpr int kWideDvCols = 64;      // features of dv a wide warp owns
+constexpr int kWideMaxSplits = 4;    // parts of a wide sweep, at most
+constexpr int kWideMinBlocks = 1;    // wide blocks an SM holds
 constexpr int kAlphaRow = kTile + 4;  // floats a row of alpha^T
 constexpr float kNeg = -1e30f;
 
@@ -124,8 +154,9 @@ struct Inputs {
 
 // rows [r0, r0 + kTile) of x[:, h, :] into tile (zero past n and head_dim),
 // by cp.async: 16 bytes a copy where vec, else 4
-// (features c0 + [0, kDP) of the head: a strip of a wide head)
-template <int kDP>
+// (features c0 + [0, kDP) of the head: a strip of a wide head), by the
+// block's kThr threads
+template <int kDP, int kThr = kThreads>
 __device__ __forceinline__ void stage(float (*tile)[kDP + 4],
                                       const float* __restrict__ x, int r0,
                                       const Inputs& in, int h, bool vec,
@@ -135,13 +166,13 @@ __device__ __forceinline__ void stage(float (*tile)[kDP + 4],
   const int width = in.head_dim - c0;
   if (vec) {
     constexpr int kQuads = kDP / 4;
-    for (int i = threadIdx.x; i < kTile * kQuads; i += kThreads) {
+    for (int i = threadIdx.x; i < kTile * kQuads; i += kThr) {
       const int r = i / kQuads, c = 4 * (i % kQuads);
       const bool ok = r0 + r < in.n && c < width;
       cp_async16(&tile[r][c], ok ? xh + (r0 + r) * cols + c : x, ok);
     }
   } else {
-    for (int i = threadIdx.x; i < kTile * kDP; i += kThreads) {
+    for (int i = threadIdx.x; i < kTile * kDP; i += kThr) {
       const int r = i / kDP, c = i % kDP;
       const bool ok = r0 + r < in.n && c < width;
       cp_async4(&tile[r][c], ok ? xh + (r0 + r) * cols + c : x, ok);
@@ -363,53 +394,73 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
     }
 }
 
-// Shared memory of the wide form: v and alpha^T as staged, split into TF32
-// halves as their fragments load.
+// The wide form (head_dim above 64). A block owns kTile sources of one head
+// (a strip of kDP features of them above 256) and 4 kGroups warps, kGroups
+// = kDP / kWideDvCols (8 warps at kDP 128, 16 at 256): in g v^T warp w owns
+// destinations 16 (w % 4) + [0, 16) and kSrc sources kSrc (w / 4) + [0,
+// kSrc); in alpha^T g sources 16 (w % 4) + [0, 16) and kWideDvCols features
+// kWideDvCols (w / 4) + [0, kWideDvCols). v and alpha^T are staged as they
+// are (split once they would not fit beside g's two buffers) and cut into
+// TF32 halves by bit masks as their fragments load.
 template <int kDP>
 struct WideSmem {
   static constexpr int kRow = kDP + 4;
+  static constexpr int kGroups = kDP / kWideDvCols;  // source or feature
+                                                     // groups of warps
+  static constexpr int kThreads = 4 * kGroups * 32;
+  static constexpr int kSrc = kTile / kGroups;    // sources a warp in g v^T
+  static constexpr int kSrcTiles = kSrc / 8;
+  static constexpr int kFeat = kWideDvCols;       // features a warp in dv
+  static constexpr int kFeatTiles = kFeat / 8;
+  static_assert(kDP % kWideDvCols == 0 && kTile % (8 * kGroups) == 0 &&
+                    kWideDvCols % 8 == 0,
+                "the wide form's warps tile its pairs and features");
   float v[kTile][kRow];             // the block's sources (a strip of them)
   float g[2][kTile][kRow];          // a chunk's destinations, 2 buffers
   float alpha[kTile][kAlphaRow];    // the chunk's alpha, [s][d]
-  float dsl_red[2][kTile];          // dsl of the two source halves
+  float dsl_red[kGroups][kTile];    // dsl of the source groups
 };
 
-// dot += g v^T over kDP features (the warp's four m16n8 tiles, as
-// flash_gat_bwd_tiles), both operands split as they load.
-template <int kDP>
+// dot += g v^T over kDP features (the warp's kSrcTiles m16n8 tiles), both
+// operands split as they load.
+template <int kDP, int kSrcTiles>
 __device__ __forceinline__ void wide_dot(const float (*gs)[kDP + 4],
                                          const float (*vs)[kDP + 4], int dr,
                                          int sc, int gid, int tig,
-                                         float (&dot)[4][4]) {
-#pragma unroll 4
+                                         float (&dot)[kSrcTiles][4]) {
+#pragma unroll 8
   for (int k = 0; k < kDP; k += 8) {
     uint32_t a_hi[4], a_lo[4];
-    split_tf32(gs[dr + gid][k + tig], a_hi[0], a_lo[0]);
-    split_tf32(gs[dr + gid + 8][k + tig], a_hi[1], a_lo[1]);
-    split_tf32(gs[dr + gid][k + tig + 4], a_hi[2], a_lo[2]);
-    split_tf32(gs[dr + gid + 8][k + tig + 4], a_hi[3], a_lo[3]);
+    split_tf32_trunc(gs[dr + gid][k + tig], a_hi[0], a_lo[0]);
+    split_tf32_trunc(gs[dr + gid + 8][k + tig], a_hi[1], a_lo[1]);
+    split_tf32_trunc(gs[dr + gid][k + tig + 4], a_hi[2], a_lo[2]);
+    split_tf32_trunc(gs[dr + gid + 8][k + tig + 4], a_hi[3], a_lo[3]);
 #pragma unroll
-    for (int t = 0; t < 4; ++t) {
+    for (int t = 0; t < kSrcTiles; ++t) {
       const int s = sc + 8 * t + gid;
       uint32_t b_hi[2], b_lo[2];
-      split_tf32(vs[s][k + tig], b_hi[0], b_lo[0]);
-      split_tf32(vs[s][k + tig + 4], b_hi[1], b_lo[1]);
+      split_tf32_trunc(vs[s][k + tig], b_hi[0], b_lo[0]);
+      split_tf32_trunc(vs[s][k + tig + 4], b_hi[1], b_lo[1]);
       mma_3xtf32(dot[t], a_hi, a_lo, b_hi, b_lo);
     }
   }
 }
 
 // flash_gat_bwd_tiles for head_dim above 64: kDP 128 or 256 (strips of
-// 256 above that); blockIdx.z = strip * splits + part. Same pairs, warps
-// and sums; dv of the block's strip of features.
+// 256 above that); blockIdx.z = strip * splits + part. The same pairs and
+// sums; dv of the block's strip of features. A lane holds destinations
+// gid and gid + 8 and sources 8 t + 2 tig + {0, 1} of tile t of its
+// g v^T tiles.
 template <int kDP>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(WideSmem<kDP>::kThreads, kWideMinBlocks)
     flash_gat_bwd_wide(Inputs in, bool vec, int splits, int strips,
                        float* __restrict__ dsl_part,
                        float* __restrict__ dsr_out,
                        float* __restrict__ dv_out) {
-  constexpr int kFeatTiles = kDP / 16;  // n8 tiles of dv a warp owns
   using S = WideSmem<kDP>;
+  constexpr int kThr = S::kThreads;
+  constexpr int kSrcTiles = S::kSrcTiles, kFeatTiles = S::kFeatTiles;
+  constexpr int kJ = 2 * kSrcTiles;  // a lane's sources in g v^T
   extern __shared__ uint4 smem_raw[];
   S& sm = *reinterpret_cast<S*>(smem_raw);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -422,18 +473,18 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int chunks = (n + kTile - 1) / kTile;
   const int c_begin = static_cast<int64_t>(part) * chunks / splits;
   const int c_end = static_cast<int64_t>(part + 1) * chunks / splits;
-  const int dr = 16 * (warp % 4), sc = 32 * (warp / 4);  // g v^T
-  const int ms = 16 * (warp % 4), fn = (warp / 4) * (kDP / 2);  // alpha^T g
+  const int dr = 16 * (warp % 4), sc = S::kSrc * (warp / 4);  // g v^T
+  const int ms = 16 * (warp % 4), fn = S::kFeat * (warp / 4);  // alpha^T g
 
   if (whole) {
-    stage<kDP>(sm.v, in.v, s0, in, h, vec);
-    stage<kDP>(sm.g[0], in.g, c_begin * kTile, in, h, vec);
+    stage<kDP, kThr>(sm.v, in.v, s0, in, h, vec);
+    stage<kDP, kThr>(sm.g[0], in.g, c_begin * kTile, in, h, vec);
   }
   cp_async_commit();
 
-  float sr[8], dsr_acc[8], dv_acc[kFeatTiles][4];
+  float sr[kJ], dsr_acc[kJ], dv_acc[kFeatTiles][4];
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
+  for (int j = 0; j < kJ; ++j) {
     const int s = s0 + sc + 8 * (j / 2) + 2 * tig + j % 2;
     sr[j] = s < n ? in.score_r[s * heads + h] : 0.f;
     dsr_acc[j] = 0.f;
@@ -447,10 +498,12 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int buf = whole ? (c - c_begin) & 1 : 0;
     const int d0 = c * kTile;
     if (whole && c + 1 < c_end) {
-      stage<kDP>(sm.g[buf ^ 1], in.g, d0 + kTile, in, h, vec);
+      stage<kDP, kThr>(sm.g[buf ^ 1], in.g, d0 + kTile, in, h, vec);
     }
     cp_async_commit();
-    float sl[2], lse[2], delta[2], cnt[2][8];
+    // the lane's destinations i (dr + gid + 8 i) and their mask, from L2
+    // while the copies fly
+    float sl[2], lse[2], delta[2], cnt[2][kJ];
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int d = d0 + dr + gid + 8 * i;
@@ -459,15 +512,15 @@ __global__ void __launch_bounds__(kThreads, 1)
       lse[i] = ok ? in.lse[d * heads + h] : kNeg;
       delta[i] = ok ? in.delta[d * heads + h] : 0.f;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < kJ; ++j) {
         const int s = s0 + sc + 8 * (j / 2) + 2 * tig + j % 2;
         cnt[i][j] = ok && s < n
             ? __ldg(in.cnt + static_cast<int64_t>(d) * n + s) : 0.f;
       }
     }
-    float dot[4][4];
+    float dot[kSrcTiles][4];
 #pragma unroll
-    for (int t = 0; t < 4; ++t)
+    for (int t = 0; t < kSrcTiles; ++t)
 #pragma unroll
       for (int r = 0; r < 4; ++r) dot[t][r] = 0.f;
     if (whole) {
@@ -477,15 +530,15 @@ __global__ void __launch_bounds__(kThreads, 1)
     } else {
       // the dot over every strip in order, then this block's strip of g
       for (int q = 0; q < strips; ++q) {
-        stage<kDP>(sm.v, in.v, s0, in, h, vec, q * kDP);
-        stage<kDP>(sm.g[0], in.g, d0, in, h, vec, q * kDP);
+        stage<kDP, kThr>(sm.v, in.v, s0, in, h, vec, q * kDP);
+        stage<kDP, kThr>(sm.g[0], in.g, d0, in, h, vec, q * kDP);
         cp_async_commit();
         cp_async_wait<0>();
         __syncthreads();
         wide_dot<kDP>(sm.g[0], sm.v, dr, sc, gid, tig, dot);
         __syncthreads();  // g[0] and v are free
       }
-      stage<kDP>(sm.g[0], in.g, d0, in, h, vec, c_own);
+      stage<kDP, kThr>(sm.g[0], in.g, d0, in, h, vec, c_own);
       cp_async_commit();
       cp_async_wait<0>();
       __syncthreads();
@@ -493,7 +546,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
     float row[2] = {0.f, 0.f};
 #pragma unroll
-    for (int t = 0; t < 4; ++t)
+    for (int t = 0; t < kSrcTiles; ++t)
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
         const int i = r / 2, j = 2 * t + r % 2;
@@ -506,6 +559,8 @@ __global__ void __launch_bounds__(kThreads, 1)
         row[i] += dz;
         dsr_acc[j] += dz;
       }
+    // dsl: over the warp's sources (a lane group), then the source groups
+    // in order
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       float x = row[i];
@@ -513,27 +568,29 @@ __global__ void __launch_bounds__(kThreads, 1)
       x += __shfl_xor_sync(0xffffffffu, x, 2);
       if (tig == 0) sm.dsl_red[warp / 4][dr + gid + 8 * i] = x;
     }
-    __syncthreads();  // alpha^T and the dsl halves are complete
+    __syncthreads();  // alpha^T and the dsl groups are complete
     if (strip == 0 && tid < kTile && d0 + tid < n) {
-      dsl_part[(static_cast<int64_t>(tile) * n + d0 + tid) * heads + h] =
-          sm.dsl_red[0][tid] + sm.dsl_red[1][tid];
+      float x = sm.dsl_red[0][tid];
+#pragma unroll
+      for (int q = 1; q < S::kGroups; ++q) x += sm.dsl_red[q][tid];
+      dsl_part[(static_cast<int64_t>(tile) * n + d0 + tid) * heads + h] = x;
     }
 
     // dv += alpha^T g over the block's strip of features
     const float (*gs)[S::kRow] = sm.g[buf];
-#pragma unroll 2
+#pragma unroll 1
     for (int k = 0; k < kTile; k += 8) {
       uint32_t a_hi[4], a_lo[4];
-      split_tf32(sm.alpha[ms + gid][k + tig], a_hi[0], a_lo[0]);
-      split_tf32(sm.alpha[ms + gid + 8][k + tig], a_hi[1], a_lo[1]);
-      split_tf32(sm.alpha[ms + gid][k + tig + 4], a_hi[2], a_lo[2]);
-      split_tf32(sm.alpha[ms + gid + 8][k + tig + 4], a_hi[3], a_lo[3]);
+      split_tf32_trunc(sm.alpha[ms + gid][k + tig], a_hi[0], a_lo[0]);
+      split_tf32_trunc(sm.alpha[ms + gid + 8][k + tig], a_hi[1], a_lo[1]);
+      split_tf32_trunc(sm.alpha[ms + gid][k + tig + 4], a_hi[2], a_lo[2]);
+      split_tf32_trunc(sm.alpha[ms + gid + 8][k + tig + 4], a_hi[3], a_lo[3]);
 #pragma unroll
       for (int t = 0; t < kFeatTiles; ++t) {
         const int f = fn + 8 * t + gid;
         uint32_t b_hi[2], b_lo[2];
-        split_tf32(gs[k + tig][f], b_hi[0], b_lo[0]);
-        split_tf32(gs[k + tig + 4][f], b_hi[1], b_lo[1]);
+        split_tf32_trunc(gs[k + tig][f], b_hi[0], b_lo[0]);
+        split_tf32_trunc(gs[k + tig + 4][f], b_hi[1], b_lo[1]);
         mma_3xtf32(dv_acc[t], a_hi, a_lo, b_hi, b_lo);
       }
     }
@@ -541,9 +598,11 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
   cp_async_wait<0>();
 
+  // dsr: over the lane groups of a warp, then the 4 destination quarters
+  // in order
   float* red = &sm.alpha[0][0];  // [4][kTile]
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
+  for (int j = 0; j < kJ; ++j) {
     float x = dsr_acc[j];
     x += __shfl_xor_sync(0xffffffffu, x, 4);
     x += __shfl_xor_sync(0xffffffffu, x, 8);
@@ -609,11 +668,11 @@ int strips_of(int head_dim) {
 
 // Parts of the destination sweep: the count, up to kMaxSplits and one
 // chunk a part, whose busiest SM has the fewest chunks to do, blocks dealt
-// out in turn (ties: fewer parts, less scratch). N 1,704, H 4 on 132 SMs:
-// 108 tiles x 27 chunks; 7 parts give 6 blocks of 4 chunks on the busiest
-// SM (24 chunks; 22.1 on average), 1 part 27. `heads` counts a wide head's
-// strips.
-int sweep_splits(int n, int heads) {
+// out in turn (ties: fewer parts, less scratch), up to max_splits parts.
+// N 1,704, H 4 on 132 SMs: 108 tiles x 27 chunks; 7 parts give 6 blocks
+// of 4 chunks on the busiest SM (24 chunks; 22.1 on average), 1 part 27.
+// `heads` counts a wide head's strips.
+int sweep_splits(int n, int heads, int max_splits) {
   int dev = 0, sms = 132;
   if (cudaGetDevice(&dev) == cudaSuccess) {
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -622,7 +681,7 @@ int sweep_splits(int n, int heads) {
   const int64_t base = static_cast<int64_t>(chunks) * heads;
   int best = 1;
   int64_t best_load = INT64_MAX;
-  for (int k = 1; k <= kMaxSplits && k <= chunks; ++k) {
+  for (int k = 1; k <= max_splits && k <= chunks; ++k) {
     const int64_t load = (base * k + sms - 1) / sms * cdiv(chunks, k);
     if (load < best_load) {
       best = k;
@@ -630,6 +689,14 @@ int sweep_splits(int n, int heads) {
     }
   }
   return best;
+}
+
+// The parts of the sweep at this shape: the wide form's, with no more than
+// kWideMaxSplits, so that its dv partials stay off device memory where
+// they do not pay (N 1,704, H 4, D 256: one part).
+int splits_of(int n, int heads, int head_dim) {
+  return sweep_splits(n, heads * strips_of(head_dim),
+                      head_dim <= kMaxHeadDim ? kMaxSplits : kWideMaxSplits);
 }
 
 int64_t scratch_floats(int n, int heads, int head_dim, int splits) {
@@ -662,7 +729,7 @@ cudaError_t launch_wide(const Inputs& in, bool vec, int splits, int strips,
       bignn::allow_smem(flash_gat_bwd_wide<kDP>, kBytes, done);
   if (set != cudaSuccess) return set;
   const dim3 grid(cdiv(in.n, kTile), in.heads, splits * strips);
-  flash_gat_bwd_wide<kDP><<<grid, kThreads, kBytes, st>>>(
+  flash_gat_bwd_wide<kDP><<<grid, WideSmem<kDP>::kThreads, kBytes, st>>>(
       in, vec, splits, strips, dsl_part, dsr_out, dv_out);
   return cudaGetLastError();
 }
@@ -679,7 +746,7 @@ int bignn_flash_gat_bwd_scratch_f32(int n, int heads, int head_dim,
   *static_cast<int64_t*>(floats) =
       n > 0 && heads > 0 && head_dim > 0
           ? scratch_floats(n, heads, head_dim,
-                           sweep_splits(n, heads * strips_of(head_dim)))
+                           splits_of(n, heads, head_dim))
           : 0;
   return static_cast<int>(cudaSuccess);
 }
@@ -701,7 +768,7 @@ int bignn_flash_gat_bwd_f32(const void* score_l, const void* score_r,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int strips = strips_of(head_dim);
-  const int splits = sweep_splits(n, heads * strips);
+  const int splits = splits_of(n, heads, head_dim);
   if (scratch_size < scratch_floats(n, heads, head_dim, splits)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -2,12 +2,13 @@
 shards) in a copy outside the checkout and run the card tests of its cases
 there: every mutant must fail them.
 
-    python3 scripts/check_wide_mutants.py OUT_DIR
+    python3 scripts/check_wide_mutants.py OUT_DIR [NAME ...]
 
 Each mutant is a copy of ``bignn_tpu_torch/`` and ``tests/`` in a new
 directory of its own under the temporary directory (``TMPDIR``), with one
 line of a kernel source replaced; the run removes only the directories it
-made. Each log goes to OUT_DIR. Exits non-zero when a mutant passes.
+made. Each log goes to OUT_DIR. NAMEs pick mutants (all by default).
+Exits non-zero when a mutant passes.
 """
 import shutil
 import subprocess
@@ -35,6 +36,35 @@ MUTANTS = {
                               "for (int q = 0; q < strips; ++q) {",
                               "for (int q = 0; q < 1; ++q) {",
                               WIDE.format("wide_flash_bwd")),
+    # row 3's wide form: a block's row tiles past the first left unwritten
+    "flash_fwd_rows_first_tile": ("bignn_tpu_torch/csrc/flash_gat.cu",
+                                  "if (d >= n) continue;\n"
+                                  "      const float s = fmaxf(sm.l[r], kFloor);",
+                                  "if (d >= n || r >= 16) continue;\n"
+                                  "      const float s = fmaxf(sm.l[r], kFloor);",
+                                  WIDE.format("wide_flash_d or wide_flash_n")),
+    # row 3's wide form: a strip past the first multiplies p by the first
+    # strip's features of v
+    "flash_fwd_strip_first_v": ("bignn_tpu_torch/csrc/flash_gat.cu",
+                                "const float* vh = in.v + h * in.head_dim + c0;",
+                                "const float* vh = in.v + h * in.head_dim;",
+                                WIDE.format("wide_flash_d or wide_flash_n")),
+    # row 3's wide form: a row's sum l over its 32 source lanes added over
+    # 16 of them
+    "flash_fwd_l_half_lanes": ("bignn_tpu_torch/csrc/flash_gat.cu",
+                               "for (int o = 16; o > 0; o >>= 1) x += "
+                               "__shfl_xor_sync",
+                               "for (int o = 8; o > 0; o >>= 1) x += "
+                               "__shfl_xor_sync",
+                               WIDE.format("wide_flash_d or wide_flash_n")),
+    # row 3b: the first part's dv dropped from the parts' sum (the wide
+    # sweep's parts, where it has more than one)
+    "flash_bwd_dv_part_dropped": ("bignn_tpu_torch/csrc/flash_gat_bwd.cu",
+                                  "for (int k = 0; k < splits; ++k) a += "
+                                  "dv_part[k * nhd + i];",
+                                  "for (int k = 1; k < splits; ++k) a += "
+                                  "dv_part[k * nhd + i];",
+                                  WIDE.format("wide_flash_bwd")),
     # row 8's backward strips: a padded lane group's first idle lane takes
     # the next head's first word (into this head's dot and d_v)
     "mh_pad_lane_reads": ("bignn_tpu_torch/csrc/spmm_multihead.cu",
@@ -63,7 +93,8 @@ def main() -> int:
     out = Path(sys.argv[1])
     out.mkdir(parents=True, exist_ok=True)
     ok = True
-    for name, (src, old, new, select) in MUTANTS.items():
+    for name in sys.argv[2:] or MUTANTS:
+        src, old, new, select = MUTANTS[name]
         copy = Path(tempfile.mkdtemp(prefix=f"mutant_{name}_"))
         try:
             for part in ("bignn_tpu_torch", "tests"):

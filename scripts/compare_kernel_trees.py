@@ -3,7 +3,7 @@ one run on one card, so that a change to a kernel source can be told apart
 from the spread between runs.
 
     python3 scripts/compare_kernel_trees.py [--only PREFIX[,PREFIX ...]] ROOT [ROOT ...]
-    python3 scripts/compare_kernel_trees.py --steps ROOT [ROOT ...]
+    python3 scripts/compare_kernel_trees.py --steps [--only KEY[,KEY ...]] ROOT [ROOT ...]
 
 Each ROOT is a checkout of this repository. Each is timed in a process of
 its own that imports ``bignn_tpu_torch`` from that ROOT (and so builds that
@@ -44,7 +44,10 @@ The forms, at the shapes ``chip_smoke.py`` gives them:
   (3,504 blocks);
 - rows 3 and 3b: ``flash_gat_attention{,_bwd}:f32`` over config2's dense
   outer mask (N 1,704), H 4, D 32, the backward's ``lse`` and ``out`` from
-  the plain forward on the CPU;
+  the plain forward on the CPU; ``flash_gat_attention{,_bwd}:f32:d256`` the
+  same mask at W1's outer heads (H 4, D 256; ``chip_smoke.WIDE_SHAPES``),
+  its inputs drawn as path O(i) draws them, and ``:d128`` at H 8, D 128
+  (the wide forms, head_dim above 64);
 - rows 5-7: ``segment_max:{f32,bf16}`` on the largest bucket of the
   DrugBank stand-in, F 128, and its backward as the main path runs it,
   ``segment_max_bwd:{f32,bf16}:autograd``: ``torch.autograd.grad`` through
@@ -98,13 +101,16 @@ operations it must do, counted as ``chip_smoke.py`` counts them (rows 3 and
 after the last ROOT a line ``same_bits`` lists, per form, whether every ROOT
 gave the same bits.
 
-``--steps`` times instead path C's training step in each ROOT (config2 with
-``readout="max"`` on the DrugBank stand-in, as ``chip_smoke.py`` runs it),
-in float32 and in bf16: the median host-clock step up to a synchronize
-over 20 steps after 5 of warm-up, and a ``torch.profiler`` trace of 5 steps
-(device busy ms a step, the union of the device's intervals; device
-launches a step; the device ms a step of the segment max's kernels). One
-JSON line per ROOT.
+``--steps`` times instead training steps in each ROOT: path C's (config2
+with ``readout="max"`` on the DrugBank stand-in, as ``chip_smoke.py`` runs
+it) in float32 and in bf16 (keys ``float32``, ``bfloat16``), and path
+O(ii)'s, config2 with the wide BI-GNN W1 (``chip_smoke.wide_config``, GAT
+4 x 256 outside, float32; key ``w1``): the median host-clock step up to a
+synchronize over 20 steps after 5 of warm-up, and a ``torch.profiler``
+trace of 5 steps (device busy ms a step, the union of the device's
+intervals; device launches a step; the device ms a step of the segment
+max's kernels and of the flash-GAT pair's). ``--only`` keeps the keys that
+start with one of its prefixes. One JSON line per ROOT.
 """
 
 from __future__ import annotations
@@ -597,6 +603,30 @@ def cases(dev):
                 lambda bwd=bwd: ops.flash_gat_attention_bwd(*bwd),
                 lambda bwd=bwd: ops.flash_gat_attention_bwd_plain(*bwd), None,
                 smoke().BWD_TOL))
+    # the wide forms at W1's outer heads (drawn as path O(i) draws them) and
+    # at H 8, D 128, over the same mask
+    for tag, (heads, head_dim) in ((":d256", smoke().WIDE_SHAPES["W1"]),
+                                   (":d128", (8, 128))):
+        wgen = torch.Generator(device=dev).manual_seed(SEED)
+        sl, sr = (torch.randn(n, heads, device=dev, generator=wgen)
+                  for _ in range(2))
+        v, g = (torch.randn(n, heads, head_dim, device=dev, generator=wgen)
+                for _ in range(2))
+        fwd = (sl, sr, v, cnt)
+        out_p, lse_p = (t.to(dev) for t in ops.flash_gat_attention_plain(
+            *(t.cpu() for t in fwd)))
+        bwd = (*fwd, lse_p, out_p, g)
+        for name, args, flops, kernel, plain, tol in (
+                (f"flash_gat_attention:f32{tag}", fwd, smoke().flash_fwd_flops,
+                 ops.flash_gat_attention, ops.flash_gat_attention_plain,
+                 F32_TOL),
+                (f"flash_gat_attention_bwd:f32{tag}", bwd,
+                 smoke().flash_bwd_flops, ops.flash_gat_attention_bwd,
+                 ops.flash_gat_attention_bwd_plain, smoke().BWD_TOL)):
+            IN_BYTES[name] = nbytes(*args)
+            FLOPS[name] = flops(n, heads, head_dim)
+            out.append((name, lambda f=kernel, a=args: f(*a),
+                        lambda f=plain, a=args: f(*a), None, tol))
 
     # rows 5 and 7 as chip_smoke.py builds them: the segment max at the
     # largest bucket of the stand-in, the sorted-COO SpMM at the largest
@@ -798,9 +828,9 @@ def run_one(root: str, inputs: Path, only: tuple[str, ...] = ()) -> dict:
                 fails=[k for k, v in forms.items() if "fails" in v])
 
 
-def run_steps(root: str) -> dict:
-    """Path C's step, float32 and bf16, with the ``bignn_tpu_torch`` of
-    ``root`` (see ``--steps``)."""
+def run_steps(root: str, only: tuple[str, ...] = ()) -> dict:
+    """Path C's step, float32 and bf16, and path O(ii)'s W1 step, with the
+    ``bignn_tpu_torch`` of ``root`` (see ``--steps``)."""
     sys.path.insert(0, root)
     import dataclasses
 
@@ -825,9 +855,14 @@ def run_steps(root: str) -> dict:
     cfg = get_config("config2")
     data = prepare_device_data(load_dataset("drugbank"))
     batches = smoke()._epoch_batches(data, cfg.train)
+    models = {dtype: dataclasses.replace(cfg.model, readout="max",
+                                         dtype=dtype)
+              for dtype in ("float32", "bfloat16")}
+    models["w1"] = smoke().wide_config("config2", "W1").model
     out = {}
-    for dtype in ("float32", "bfloat16"):
-        model = dataclasses.replace(cfg.model, readout="max", dtype=dtype)
+    for key, model in models.items():
+        if only and not key.startswith(only):
+            continue
         trainer = Trainer(BiGNN(model), data, cfg.train, device=dev)
         trainer.init(SEED)
 
@@ -853,13 +888,16 @@ def run_steps(root: str) -> dict:
                   if e.device_type == DeviceType.CUDA]
         busy = smoke()._busy_ms((e.time_range.start, e.time_range.end)
                                 for e in device)
-        seg = sum(e.time_range.end - e.time_range.start for e in device
-                  if re.search(r"max_segments|max_bwd|MaxOp", e.name))
-        out[dtype] = dict(median_ms=float(np.median(secs)) * 1e3,
-                          min_ms=min(secs) * 1e3,
-                          device_busy_ms=busy / 5,
-                          launches=len(device) / 5,
-                          segment_max_kernels_ms=seg / 1e3 / 5)
+        seg, flash = (sum(e.time_range.end - e.time_range.start
+                          for e in device if re.search(pattern, e.name))
+                      for pattern in (r"max_segments|max_bwd|MaxOp",
+                                      r"flash_gat"))
+        out[key] = dict(median_ms=float(np.median(secs)) * 1e3,
+                        min_ms=min(secs) * 1e3,
+                        device_busy_ms=busy / 5,
+                        launches=len(device) / 5,
+                        segment_max_kernels_ms=seg / 1e3 / 5,
+                        flash_gat_kernels_ms=flash / 1e3 / 5)
     return dict(root=str(Path(root).resolve()), steps=out)
 
 
@@ -877,8 +915,9 @@ def main() -> int:
     if len(sys.argv) == 4 and sys.argv[1] == "--inputs":
         build_inputs(sys.argv[2], Path(sys.argv[3]))
         return 0
-    if len(sys.argv) == 3 and sys.argv[1] == "--step-one":
-        print(json.dumps(run_steps(sys.argv[2])), flush=True)
+    if len(sys.argv) in (3, 4) and sys.argv[1] == "--step-one":
+        only = tuple(sys.argv[3].split(",")) if len(sys.argv) == 4 else ()
+        print(json.dumps(run_steps(sys.argv[2], only)), flush=True)
         return 0
     if len(sys.argv) in (4, 5) and sys.argv[1] == "--one":
         only = tuple(sys.argv[4].split(",")) if len(sys.argv) == 5 else ()
@@ -900,7 +939,7 @@ def main() -> int:
     print(f"card: {card}", flush=True)
     if steps:
         for root in roots:
-            print(_child("--step-one", root).strip().splitlines()[-1],
+            print(_child("--step-one", root, *only).strip().splitlines()[-1],
                   flush=True)
         return 0
     t0 = time.perf_counter()

@@ -24,18 +24,25 @@ values V, in this order:
   ``kBwdWarps`` (warps a block);
 - ``adj``: the block adjacency (``csrc/block_adj.cu``): ``kThreads``, over
   config4's sampled batch 0 (int8 counts, bf16 weights; counts exact);
-- ``fgb``: the flash-GAT backward (``csrc/flash_gat_bwd.cu``):
-  ``kBlocksPerSm`` (the blocks an SM holds, by the launch bounds),
-  ``kMaxSplits`` (the most parts its destination sweep is cut into; 1
-  cuts none), over config2's dense outer mask (N 1,704) at H 4, D 32 and
-  H 8, D 64 (within ``chip_smoke.BWD_TOL``);
-- ``fgf``: the flash-GAT forward (``csrc/flash_gat.cu``):
-  ``kHeadsPerBlock`` (heads a block owns), ``kParts`` (warps that share a
-  head's sweep), ``kSteps`` (k-steps of 8 sources a warp takes a stage),
-  ``kBuffers`` (stages in shared memory), ``kMinBlocks`` (blocks an SM
-  holds, by the launch bounds), ``kMaxInFlight`` (cnt loads a lane has in
-  flight for the row max), over config2's
-  dense outer mask (N 1,704) at H 4, D 32 and H 8, D 64 (within
+- ``fgb``: the flash-GAT backward's wide form (``csrc/flash_gat_bwd.cu``,
+  ``flash_gat_bwd_wide``, head_dim above 64): ``kWideDvCols`` (features
+  of dv a warp owns: the warps a block are 4 kDP / kWideDvCols),
+  ``kWideMaxSplits`` (the most parts its destination sweep is cut into; 1
+  cuts none, and keeps every dv partial off device memory),
+  ``kWideMinBlocks`` (the blocks an SM must hold, by the launch bounds),
+  over config2's dense outer mask (N 1,704) at H 4, D 256 and H 8, D 128,
+  beside H 4, D 32 and H 8, D 64 (the narrow form, which these constants
+  leave as it is; within ``chip_smoke.BWD_TOL``);
+- ``fgf``: the flash-GAT forward's wide form (``csrc/flash_gat.cu``,
+  ``flash_gat_fwd_wide<128|256>``, a block a strip of 128 or 256
+  features): ``kWideRows`` (destination rows a block owns),
+  ``kWideMTiles`` (m16 tiles a warp owns), ``kWideWarpCols`` (features a
+  warp owns; with the two, the warps a block), ``kWideBuffers`` (stages in
+  shared memory), ``kWideThreadsPerSm`` (threads an SM must hold, by the
+  launch bounds), ``kWideInFlight`` (cnt loads a lane has in flight for
+  the row max), over
+  config2's dense outer mask (N 1,704) at H 4, D 256 and H 8, D 128, beside
+  H 4, D 32 and H 8, D 64 (the narrow form; within
   ``chip_smoke.FLASH_TOL``);
 - ``bsw``: the block-local SpMM's walk (``csrc/block_spmm.cu``,
   ``block_walk``): ``kWalkWarps``, ``kInFlightBf16``, ``kInFlightF32``
@@ -91,7 +98,8 @@ the backward also bf16), config4's graph (bf16) and, forward only, the
 100K-drug graph (f32, bf16). Each result is held against the plain version
 as ``scripts/compare_kernel_trees.py`` holds it and timed as that script
 times a form (``device_ms``: 100 calls queued behind a device sleep).
-Prints the card, then one JSON line per variant with its registers.
+Prints the card, then one JSON line per variant with its registers and
+its bytes of spill stores (``-Xptxas -v``).
 """
 
 from __future__ import annotations
@@ -368,10 +376,14 @@ def adj_cases(graphs) -> list:
     return out
 
 
+FLASH_SHAPES = (("f32", 4, 32), ("f32:h8d64", 8, 64), ("f32:d256", 4, 256),
+                ("f32:d128", 8, 128))
+
+
 def fgb_cases(graphs) -> list:
     """(tag, arguments, plain result) of the flash-GAT backward over
-    config2's dense outer mask (N 1,704): H 4, D 32 and H 8, D 64, lse and
-    out from the plain forward on the CPU."""
+    config2's dense outer mask (N 1,704) at ``FLASH_SHAPES``, lse and out
+    from the plain forward on the card."""
     from bignn_tpu_torch.data import load_dataset
     from bignn_tpu_torch.sparse.formats import build_outer_graph
 
@@ -380,25 +392,24 @@ def fgb_cases(graphs) -> list:
     train = ds.split_edges("train")
     cnt = torch.as_tensor(build_outer_graph(
         train[:, 0], train[:, 1], ds.num_drugs).dense_cnt)
+    cnt = cnt.to(dev)
     gen = torch.Generator().manual_seed(4)
     out = []
-    for tag, heads, head_dim in (("f32", 4, 32), ("f32:h8d64", 8, 64)):
+    for tag, heads, head_dim in FLASH_SHAPES:
         n = ds.num_drugs
-        sl, sr = (torch.randn(n, heads, generator=gen) for _ in range(2))
-        v, g = (torch.randn(n, heads, head_dim, generator=gen)
+        sl, sr = (torch.randn(n, heads, generator=gen).to(dev)
+                  for _ in range(2))
+        v, g = (torch.randn(n, heads, head_dim, generator=gen).to(dev)
                 for _ in range(2))
         o, lse = ops.flash_gat_attention_plain(sl, sr, v, cnt)
         args = (sl, sr, v, cnt, lse, o, g, 0.2)
-        want = ops.flash_gat_attention_bwd_plain(*args)
-        out.append((tag, tuple(a.to(dev) if torch.is_tensor(a) else a
-                               for a in args),
-                    tuple(w.to(dev) for w in want)))
+        out.append((tag, args, ops.flash_gat_attention_bwd_plain(*args)))
     return out
 
 
 def fgf_cases(graphs) -> list:
     """(tag, arguments, plain result) of the flash-GAT forward over
-    config2's dense outer mask (N 1,704): H 4, D 32 and H 8, D 64."""
+    config2's dense outer mask (N 1,704) at ``FLASH_SHAPES``."""
     from bignn_tpu_torch.data import load_dataset
     from bignn_tpu_torch.sparse.formats import build_outer_graph
 
@@ -409,7 +420,7 @@ def fgf_cases(graphs) -> list:
         train[:, 0], train[:, 1], ds.num_drugs).dense_cnt, device=dev)
     gen = torch.Generator(device=dev).manual_seed(5)
     out = []
-    for tag, heads, head_dim in (("f32", 4, 32), ("f32:h8d64", 8, 64)):
+    for tag, heads, head_dim in FLASH_SHAPES:
         n = ds.num_drugs
         sl, sr = (torch.randn(n, heads, device=dev, generator=gen)
                   for _ in range(2))
@@ -596,14 +607,16 @@ KINDS = {
     "adj": Kind("block_adj.cu", ("kThreads",), "block_counts",
                 "bignn_block_adj_", call_adj, adj_cases, ("int8", "bf16"),
                 lambda tag: (0.0 if tag == "int8" else ckt.BF16_TOL, False)),
-    "fgb": Kind("flash_gat_bwd.cu", ("kBlocksPerSm", "kMaxSplits"),
-                "flash_gat_bwd_tiles", "bignn_flash_gat_bwd_", call_fgb,
+    "fgb": Kind("flash_gat_bwd.cu",
+                ("kWideDvCols", "kWideMaxSplits", "kWideMinBlocks"),
+                "flash_gat_bwd_wide", "bignn_flash_gat_bwd_", call_fgb,
                 fgb_cases, ("f32", "scratch_f32"),
                 lambda tag: (ckt.smoke().BWD_TOL, False)),
     "fgf": Kind("flash_gat.cu",
-                ("kHeadsPerBlock", "kParts", "kSteps", "kBuffers",
-                 "kMinBlocks", "kMaxInFlight"),
-                "flash_gat_fwd", "bignn_flash_gat_fwd_", call_fgf, fgf_cases,
+                ("kWideRows", "kWideMTiles", "kWideWarpCols", "kWideBuffers",
+                 "kWideThreadsPerSm", "kWideInFlight"),
+                "flash_gat_fwd_wide", "bignn_flash_gat_fwd_", call_fgf,
+                fgf_cases,
                 ("f32",), lambda tag: (ckt.smoke().FLASH_TOL, False)),
     "bsw": Kind("block_spmm.cu",
                 ("kWalkWarps", "kInFlightBf16", "kInFlightF32",
@@ -675,7 +688,9 @@ def bind_variant(kind: str, proc, lib):
         entries[t.removesuffix("_f32") if t != "f32" else t] = fn
     registers = sorted({int(r) for r in re.findall(
         rf"{k.kernel}.*?Used (\d+) registers", report, flags=re.S)})
-    return entries, registers
+    spills = sorted({int(r) for r in re.findall(
+        rf"{k.kernel}.*?(\d+) bytes spill stores", report, flags=re.S)})
+    return entries, registers, spills
 
 
 def main() -> int:
@@ -696,9 +711,9 @@ def main() -> int:
     builds = [start_variant(kind, values) for kind, values in variants]
     for (kind, values), build in zip(variants, builds):
         if kind == "a2a":
-            entries, registers = bind_variant(kind, *build)
+            entries, registers, spills = bind_variant(kind, *build)
             row = dict(zip(KINDS[kind].constants, values), kind=kind,
-                       registers=registers)
+                       registers=registers, spill_stores=spills)
             row.update(a2a_row(values, entries[kind]))
             print(json.dumps(row), flush=True)
     rest = [(v, b) for v, b in zip(variants, builds) if v[0] != "a2a"]
@@ -715,9 +730,9 @@ def main() -> int:
                  for kind in {kind for kind, _ in variants}}
         for (kind, values), build in zip(variants, builds):
             k = KINDS[kind]
-            entries, registers = bind_variant(kind, *build)
+            entries, registers, spills = bind_variant(kind, *build)
             row = dict(zip(k.constants, values), kind=kind,
-                       registers=registers)
+                       registers=registers, spill_stores=spills)
             for tag, args, want in cases[kind]:
                 def run(t=tag.split(":")[0], args=args):
                     rc, got = k.call(entries, t, *args)

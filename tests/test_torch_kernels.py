@@ -410,6 +410,13 @@ WIDE_MH = ((4, 256), (32, 24), (2, 512), (4, 72), (9, 8), (3, 300),
 WIDE_SOFTMAX = (9, 16, 32)
 WIDE_BLOCK = (300, 1024, 258, 301)
 WIDE_FLASH = ((2, 72), (3, 128), (2, 256), (1, 300))
+# the flash-GAT pair's wide tiling at N that spans several of its row
+# blocks (64 rows), feature strips, source tiles and parts of the backward's
+# sweep, with ragged tails (300 = 4 x 64 + 44, 1,030 = 16 x 64 + 6): (N, H,
+# D); the forward's mask has an empty row and an empty tail of rows, as the
+# backward's
+WIDE_FLASH_TILED = tuple((n, h, d) for n in (300, 1030)
+                         for h, d in ((4, 256), (2, 136), (1, 300)))
 
 
 def _wide_cases(device):
@@ -513,6 +520,18 @@ def _wide_cases(device):
         cases[f"wide_flash_bwd_d{head_dim}"] = (
             lambda a=bwd: ops.flash_gat_attention_bwd(*a),
             lambda a=bwd: ops.flash_gat_attention_bwd_plain(*a))
+    for n, heads, head_dim in WIDE_FLASH_TILED:
+        sl, sr, v, cnt = _gat_inputs(rng, n, heads, head_dim)
+        cnt[(7 * n) // 10:] = 0.0
+        fwd = _on(device, sl, sr, v, cnt)
+        bwd = _bwd_inputs(rng, n, heads, head_dim, device)
+        tag = f"n{n}_h{heads}d{head_dim}"
+        cases[f"wide_flash_{tag}"] = (
+            lambda a=fwd: ops.flash_gat_attention(*a),
+            lambda a=fwd: ops.flash_gat_attention_plain(*a))
+        cases[f"wide_flash_bwd_{tag}"] = (
+            lambda a=bwd: ops.flash_gat_attention_bwd(*a),
+            lambda a=bwd: ops.flash_gat_attention_bwd_plain(*a))
     return cases
 
 
@@ -609,7 +628,9 @@ WIDE_CASES = [
       for d in ("f32", "bf16") for t in ("h32d24", "h4d256")),
     *(f"wide_block_spmm{b}{w}_{d}_f{f}" for b in ("", "_bwd")
       for w in ("", "_weighted") for d in ("f32", "bf16") for f in WIDE_BLOCK),
-    *(f"wide_flash{b}_d{k}" for b in ("", "_bwd") for _, k in WIDE_FLASH)]
+    *(f"wide_flash{b}_d{k}" for b in ("", "_bwd") for _, k in WIDE_FLASH),
+    *(f"wide_flash{b}_n{n}_h{h}d{k}" for b in ("", "_bwd")
+      for n, h, k in WIDE_FLASH_TILED)]
 MH_TAGS = ("h4d32", "h8d32", "h2d3", "unsorted", "h1d32", "h1d3", "h4d3",
            "h8d3")
 SOFTMAX_HARD = ("lengths_h1", "lengths_h3", "lengths_h8", "unaligned",
@@ -839,6 +860,23 @@ def test_sparse_kernels_repeat_bit_for_bit_and_count(cuda_device):
         for x, y in zip(a if isinstance(a, tuple) else (a,),
                         b if isinstance(b, tuple) else (b,)):
             assert torch.equal(x, y), name
+
+
+@pytest.mark.gpu
+def test_wide_flash_bwd_repeats_bit_for_bit_on_card(cuda_device):
+    """The wide flash backward adds its dv, dsl and dsr in a fixed order
+    whether its sweep runs in one part or several (through the scratch): two
+    runs give the same bits, the second over freed memory filled with NaN,
+    so that a partial read before it is written shows."""
+    cases = _sparse_cases(cuda_device)
+    for n, heads, head_dim in WIDE_FLASH_TILED:
+        kernel = cases[f"wide_flash_bwd_n{n}_h{heads}d{head_dim}"][0]
+        first = kernel()
+        junk = torch.full((64 << 20,), float("nan"), device=cuda_device)
+        del junk
+        second = kernel()
+        for x, y in zip(first, second):
+            assert torch.equal(x, y), (n, heads, head_dim)
 
 
 @pytest.mark.gpu
